@@ -1,0 +1,175 @@
+"""Paged attention: chunk/decode attention straight against the paged
+K/V pool (the port of ``bigdl_tpu/ops/paged_attention.py``).
+
+The serving path stores K/V in one pool per layer, ``(num_pages, H,
+page_size, D)``, and each slot reaches its tokens through an int32 page
+table whose entries ``>= num_pages`` mean "no page". Query ``c`` of row
+``b`` sits at absolute position ``start[b] + c`` (the reference's chunk
+contract ``q_pos[b, c] == q_pos[b, 0] + c``) and sees key position ``j``
+iff ``j <= start[b] + c`` and ``j``'s table entry is a real page.
+
+- :func:`paged_pool_attention` is the wrapper: for CUDA tensors it
+  launches the hand-written kernel ``ops/csrc/paged_attention.cu`` (or
+  raises), for CPU tensors it runs :func:`paged_pool_attention_ref`.
+  ``paged_pool_attention.launches`` counts kernel launches.
+- :func:`paged_pool_attention_ref` is the plain PyTorch version: gather
+  through the clamped table, mask with ``NEG_INF``, softmax, weighted sum.
+
+A row with no visible key at all (an all-sentinel table row: padding and
+inactive slots) comes out as zeros on both paths; callers discard it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bigdl_tpu_torch.ops import NEG_INF, _build
+
+# (page_size, head_dim) pairs the CUDA kernel is instantiated for: the
+# serving path's (GPT-2 heads of 64, pages of 16 tokens)
+KERNEL_SHAPES = ((16, 64),)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib):
+    fn = lib.bigdl_paged_attention
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def paged_pool_attention_ref(q, pool, page_table, start, sm_scale=None):
+    """Plain PyTorch paged attention (see module docstring).
+
+    ``q``: (B, H, C, D); ``pool``: ``{"k", "v"}`` of (N, H, page_size,
+    D); ``page_table``: (B, P) int; ``start``: (B,) int. Returns (B, H,
+    C, D) in ``q.dtype``, computed in float32."""
+    b, h, c, d = q.shape
+    k, v = pool["k"], pool["v"]
+    n, _, ps, _ = k.shape
+    p = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    table = page_table.to(q.device, torch.long)
+    real = (table >= 0) & (table < n)                          # (B, P)
+    idx = table.clamp(0, n - 1)
+
+    def gather(pool_plane):
+        g = pool_plane[idx]                                    # (B,P,H,ps,D)
+        return g.permute(0, 2, 1, 3, 4).reshape(b, h, p * ps, d).float()
+
+    kf, vf = gather(k), gather(v)
+    s = torch.einsum("bhcd,bhkd->bhck", q.float(), kf) * sm_scale
+    kpos = torch.arange(p * ps, device=q.device)
+    qpos = (start.to(q.device, torch.long)[:, None]
+            + torch.arange(c, device=q.device)[None, :])       # (B, C)
+    valid = ((kpos[None, None, :] <= qpos[:, :, None])
+             & real.repeat_interleave(ps, dim=1)[:, None, :])  # (B, C, K)
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    out = torch.einsum("bhck,bhkd->bhcd", torch.softmax(s, dim=-1), vf)
+    seen = valid.any(dim=-1)[:, None, :, None]                 # (B,1,C,1)
+    out = torch.where(seen, out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def _check_cuda_args(q, k, v, page_table, start):
+    dev = q.device
+    for name, t in (("pool k", k), ("pool v", v), ("page_table", page_table),
+                    ("start", start)):
+        if t.device != dev:
+            raise ValueError(f"paged_pool_attention: {name} is on "
+                             f"{t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_pool_attention: {name} must be "
+                             f"contiguous")
+    if not q.is_contiguous():
+        raise ValueError("paged_pool_attention: q must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_pool_attention: q dtype {q.dtype} not in "
+                        f"(float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("paged_pool_attention: pool and q dtypes differ "
+                        f"({k.dtype}, {v.dtype}, {q.dtype})")
+    if page_table.dtype != torch.int32 or start.dtype != torch.int32:
+        raise TypeError("paged_pool_attention: page_table and start must "
+                        "be int32")
+    b, h, c, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[1] != h \
+            or k.shape[3] != d:
+        raise ValueError(f"paged_pool_attention: pool shape {tuple(k.shape)}"
+                         f" does not match q {tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(start.shape) != (b,):
+        raise ValueError("paged_pool_attention: page_table must be (B, P) "
+                         "and start (B,)")
+    if (k.shape[2], d) not in KERNEL_SHAPES:
+        raise ValueError(f"paged_pool_attention: (page_size, head_dim) = "
+                         f"{(k.shape[2], d)} not in {KERNEL_SHAPES}")
+
+
+def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
+    """Chunk/decode attention against the paged pool: the CUDA kernel for
+    CUDA tensors, :func:`paged_pool_attention_ref` for CPU tensors.
+
+    ``q``: (B, H, C, D) float32 or bfloat16; ``pool``: ``{"k", "v"}`` of
+    (N, H, page_size, D) in ``q``'s dtype; ``page_table``: (B, P) int32
+    with sentinel ``>= N``; ``start``: (B,) int32 absolute position of
+    each row's first query. Returns (B, H, C, D) in ``q.dtype``."""
+    if q.dim() != 4:
+        raise ValueError("paged_pool_attention expects q of (B, H, C, D)")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return paged_pool_attention_ref(q, pool, page_table, start,
+                                        sm_scale)
+    k, v = pool["k"], pool["v"]
+    _check_cuda_args(q, k, v, page_table, start)
+    lib = _build.load("paged_attention", _declare)
+    b, h, c, d = q.shape
+    n, _, ps, _ = k.shape
+    out = torch.empty_like(q)
+    err = lib.bigdl_paged_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
+        start.data_ptr(), out.data_ptr(), b, h, c, d, n, ps,
+        page_table.shape[1], float(sm_scale), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: "
+                           f"cudaError_t {err}")
+    paged_pool_attention.launches += 1
+    return out
+
+
+paged_pool_attention.launches = 0
+
+
+def bytes_and_flops(q, pool, page_table, start):
+    """The least HBM bytes and the float operations one call needs on
+    these inputs: q read and out written once, the table and starts read
+    once, and each distinct visible (page, offset) of K and V read once;
+    4*D flops per (query, visible key) pair. Used for the roofline
+    bound of the kernel's timing."""
+    b, h, c, d = q.shape
+    k = pool["k"]
+    n, _, ps, _ = k.shape
+    elt = q.element_size()
+    table = page_table.cpu().long()
+    st = start.cpu().long()
+    seen, pairs = set(), 0
+    for row in range(b):
+        last = int(st[row]) + c - 1
+        for pos in range(min(last + 1, table.shape[1] * ps)):
+            page = int(table[row, pos // ps])
+            if 0 <= page < n:
+                seen.add((page, pos % ps))
+                # queries of this row that see key `pos`
+                pairs += min(c, last - pos + 1)
+    kv_bytes = 2 * len(seen) * h * d * elt
+    io_bytes = 2 * q.numel() * elt + 4 * (table.numel() + st.numel())
+    return kv_bytes + io_bytes, 4 * d * h * pairs
+
+
+__all__ = ["paged_pool_attention", "paged_pool_attention_ref",
+           "bytes_and_flops", "KERNEL_SHAPES"]

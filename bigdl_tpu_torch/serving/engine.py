@@ -1,0 +1,235 @@
+"""ServingEngine: the public continuous-batching inference facade (the
+port of ``bigdl_tpu/serving/engine.py``, paged branch).
+
+``ServingEngine(model, params, max_slots=8)`` turns a
+``GPTForCausalLM`` into a concurrent serving system: callers
+``submit()`` prompts from any thread and stream tokens back, while one
+scheduler thread runs chunked prefill and batched decode over the paged
+K/V pool (``serving/paging.py``), attending through the paged-attention
+kernel and sampling through the fused sampling kernel.
+
+The engine runs on the card (``cuda``) unless the caller passes
+``device="cpu"``; without CUDA and without ``device`` it raises.
+"""
+
+from __future__ import annotations
+
+import time
+
+from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+from bigdl_tpu_torch.ops.sampling import fused_sample_logits
+from bigdl_tpu_torch.serving.paging import PagedSlotManager, PagePoolExhausted
+from bigdl_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+from bigdl_tpu_torch.utils.device import resolve_device
+from bigdl_tpu_torch.utils.flags import get_flag
+
+# options of the reference engine that are not ported yet, with the
+# ROADMAP queue A item that ports each
+_UNPORTED = {
+    "spec_tokens": "A.5 speculative decoding",
+    "int8_weights": "A.3 int8 K/V and int8 weights",
+    "int8_kv": "A.3 int8 K/V and int8 weights",
+    "kv_bytes": "A.3 int8 K/V and int8 weights",
+    "tp": "A.6 tensor-parallel serving",
+    "mesh": "A.6 tensor-parallel serving",
+    "kv_snapshot": "A.7 serving durability",
+    "kv_host_tier": "A.7 serving durability",
+    "lora": "A.8 control plane, fleet and multi-tenant serving",
+    "adapters": "A.8 control plane, fleet and multi-tenant serving",
+    "policy": "A.8 control plane, fleet and multi-tenant serving",
+    "failover": "A.4 in-place recovery",
+    "max_recoveries": "A.4 in-place recovery",
+}
+
+
+class ServingEngine:
+    """Continuous-batching engine over one model's paged decode path.
+
+    Parameters
+    ----------
+    model: a ``GPTForCausalLM``.
+    params: a ``state_dict`` to load (``convert.params_from_jax`` /
+        ``convert.init_params``); None serves the model's current weights.
+    max_slots: concurrent in-flight requests.
+    max_queue: waiting-queue bound; a full queue rejects ``submit`` with
+        ``QueueFullError``.
+    prefill_window: max prompts advanced by one prefill-chunk dispatch.
+    admit_wait_s: with nothing decoding, hold admission up to this long
+        so a burst lands in one admission batch (0 disables).
+    steps_per_sync: decode steps per block between host syncs.
+    top_k / top_p: engine-wide sampling truncation for requests with
+        ``temperature > 0``.
+    seed: seeds the engine's ``torch.Generator`` for the sampler's noise.
+    default_deadline_s: TTL for requests submitted without one.
+    paged: must be True (the default, ``BIGDL_TPU_PAGED_KV``): the dense
+        slot table is not ported yet.
+    page_size: tokens per K/V page (``BIGDL_TPU_PAGE_SIZE``, 16).
+    kv_pages: page-pool size (default: the dense-equivalent
+        ``max_slots * max_position / page_size``).
+    prefill_chunk: chunked-prefill width (``BIGDL_TPU_PREFILL_CHUNK``, 64).
+    prefix_cache: share pages between identical prompt prefixes
+        (``BIGDL_TPU_PREFIX_CACHE``, on).
+    device: where to serve; None means the card.
+
+    The reference's other options (speculative decoding, int8, tensor
+    parallelism, LoRA, K/V snapshots, the host tier, the control plane,
+    recovery) raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them.
+    """
+
+    def __init__(self, model, params=None, max_slots=8, max_queue=64,
+                 prefill_window=4, admit_wait_s=0.0, steps_per_sync=1,
+                 top_k=None, top_p=None, seed=0, default_deadline_s=None,
+                 paged=None, page_size=None, kv_pages=None,
+                 prefill_chunk=None, prefix_cache=None, device=None,
+                 **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"unexpected keyword argument {name!r}")
+            if value is not None and value is not False and not (
+                    name == "spec_tokens" and int(value) <= 1):
+                raise NotImplementedError(
+                    f"ServingEngine({name}=...) is not ported yet "
+                    f"(ROADMAP queue {_UNPORTED[name]})")
+        if paged is None:
+            paged = get_flag("BIGDL_TPU_PAGED_KV", True, bool)
+        if not paged:
+            raise NotImplementedError(
+                "ServingEngine(paged=False): the dense slot table is not "
+                "ported yet (ROADMAP queue A.2 dense engine and generate)")
+        if getattr(model, "gpt", None) is None:
+            raise TypeError("ServingEngine drives GPTForCausalLM models")
+        self.device = resolve_device(device)
+        if params is not None:
+            model.load_state_dict(params)
+        model.to(self.device)
+        model.requires_grad_(False)
+        model.eval()
+        self.model = model
+        self.paged = True
+        self.default_deadline_s = default_deadline_s
+        if page_size is None:
+            page_size = get_flag("BIGDL_TPU_PAGE_SIZE", 16, int)
+        if prefill_chunk is None:
+            prefill_chunk = get_flag("BIGDL_TPU_PREFILL_CHUNK", 64, int)
+        if prefix_cache is None:
+            prefix_cache = get_flag("BIGDL_TPU_PREFIX_CACHE", True, bool)
+        self.slots = PagedSlotManager(
+            model, max_slots, num_pages=kv_pages, page_size=page_size,
+            window=prefill_window, steps_per_sync=steps_per_sync,
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+            top_k=top_k, top_p=top_p, seed=seed)
+        self.scheduler = Scheduler(self.slots, max_queue=max_queue,
+                                   admit_wait_s=admit_wait_s)
+
+    # ---------------------------------------------------------------- serve
+    @property
+    def stats(self):
+        """Dispatch counters: ``prefill_chunks``, ``steps``, ``copies``,
+        ``dispatches``."""
+        return self.slots.stats
+
+    def submit(self, prompt, max_new_tokens, temperature=0.0,
+               eos_token=None, deadline_s=None):
+        """Enqueue one generation request; returns its ``Request`` handle
+        at once. Raises ``QueueFullError`` (backpressure),
+        ``EngineClosedError`` (after shutdown), ``ValueError`` for a
+        request the position table cannot hold and ``PagePoolExhausted``
+        for one the whole pool could never hold."""
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        req = Request(prompt, max_new_tokens, temperature=temperature,
+                      eos_token=eos_token, deadline_s=deadline_s)
+        t = req.prompt.size
+        pmax = self.model.gpt.max_position
+        if t + req.max_new_tokens > pmax:
+            raise ValueError(
+                f"prompt ({t}) + max_new_tokens ({req.max_new_tokens}) "
+                f"exceeds max_position ({pmax})")
+        ps = self.slots.page_size
+        worst = (t + req.max_new_tokens - 1) // ps + 1
+        if worst > self.slots.num_pages:
+            raise PagePoolExhausted(
+                f"request needs up to {worst} page(s) ({t} prompt + "
+                f"{req.max_new_tokens} new tokens, page_size {ps}) but the "
+                f"pool holds only {self.slots.num_pages}")
+        return self.scheduler.submit(req)
+
+    def cancel(self, handle):
+        """Cancel a submitted request (any thread)."""
+        return handle.cancel()
+
+    def stream(self, handle):
+        """Iterate a request's tokens as they are generated (blocking)."""
+        return iter(handle)
+
+    def result(self, handle, timeout=None):
+        """Block for completion; returns prompt + generated tokens."""
+        return handle.result(timeout)
+
+    def generate(self, prompt, max_new_tokens, timeout=None, **kw):
+        """Submit + block. A full queue is retried with exponential
+        backoff (``BIGDL_TPU_QUEUE_RETRIES``, 3) before ``QueueFullError``
+        propagates; a ``timeout`` that expires cancels the request."""
+        retries = get_flag("BIGDL_TPU_QUEUE_RETRIES", 3, int)
+        backoff = get_flag("BIGDL_TPU_QUEUE_RETRY_BACKOFF_S", 0.05, float)
+        for attempt in range(retries + 1):
+            try:
+                handle = self.submit(prompt, max_new_tokens, **kw)
+                break
+            except QueueFullError:
+                if attempt >= retries:
+                    raise
+                time.sleep(backoff * (2 ** attempt))
+        try:
+            return self.result(handle, timeout=timeout)
+        except TimeoutError:
+            handle.cancel()
+            raise
+
+    # -------------------------------------------------------------- control
+    def metrics(self):
+        """Live engine metrics: queue and slot occupancy, admission and
+        retirement counters, TTFT, decode throughput, dispatch counters,
+        page-pool statistics and the kernels' launch counts (process-wide:
+        every engine's launches add to one count)."""
+        sch = self.scheduler
+        return {
+            "device": str(self.device),
+            "queue_depth": sch.queue_depth(),
+            "slot_occupancy": self.slots.occupancy(),
+            "max_slots": self.slots.max_slots,
+            "admitted": sch.admitted,
+            "rejected": sch.rejected,
+            "retired": sch.retired,
+            "generated_tokens": sch.generated_tokens,
+            "time_to_first_token_s": sch.ttft_avg(),
+            "decode_tokens_per_sec": (sch.generated_tokens / sch.step_seconds
+                                      if sch.step_seconds else 0.0),
+            "failures": sch.failures,
+            "cancelled": sch.cancelled,
+            "deadline_exceeded": sch.deadline_expired,
+            "preempted": sch.preempted,
+            "paged_attention_launches": paged_pool_attention.launches,
+            "fused_sampling_launches": fused_sample_logits.launches,
+            **self.slots.stats.snapshot(),
+            **self.slots.pool_stats(),
+        }
+
+    def is_alive(self):
+        """True while the scheduler thread runs."""
+        return self.scheduler.is_alive()
+
+    def shutdown(self, drain=True, timeout=None):
+        """Stop accepting requests. ``drain=True`` serves everything
+        queued and in flight first; ``drain=False`` fails it with
+        ``EngineClosedError``. Returns True when the scheduler thread
+        exited."""
+        return self.scheduler.shutdown(drain=drain, timeout=timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False
