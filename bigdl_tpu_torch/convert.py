@@ -4,7 +4,12 @@
   as numpy arrays (``{"gpt": {"tok_emb", "pos_emb", "ln_f", "layers":
   [{"attn": {wq, wk, wv, wo}, "ln1", "ln2", "fc1", "fc2"}]}}``), into
   the port's ``state_dict``, transposing Linear weights from the
-  reference's ``(in, out)`` to torch's ``(out, in)``;
+  reference's ``(in, out)`` to torch's ``(out, in)``. Any tree of that
+  layout maps the same way: the reference's gradients, or Adam's ``m`` and
+  ``v`` slots, land on the port's parameter names;
+- :func:`params_to_jax` is its inverse, a state_dict (or a dict of
+  gradients or slots keyed by parameter name) back in the reference's
+  layout, so tests can compare updated weights there;
 - :func:`init_params` makes seeded random weights in the reference's
   layout and with its initializers' distributions (token/position
   embeddings N(0, 0.02); attention Glorot-uniform; MLP weights and biases
@@ -52,6 +57,34 @@ def params_from_jax(tree):
     put("gpt.ln_f.weight", g["ln_f"]["weight"])
     put("gpt.ln_f.bias", g["ln_f"]["bias"])
     return sd
+
+
+def params_to_jax(state_dict):
+    """The reference's params tree (numpy float32) of a port
+    ``GPTForCausalLM`` state_dict; ``params_to_jax(params_from_jax(t))``
+    equals ``t``."""
+    def get(key, transpose=False):
+        a = state_dict[key].detach().to("cpu", torch.float32).numpy()
+        return np.array(a.T if transpose else a, order="C")
+
+    def ln(pre):
+        return {"weight": get(f"{pre}.weight"), "bias": get(f"{pre}.bias")}
+
+    n_layers = len({k.split(".")[2] for k in state_dict
+                    if k.startswith("gpt.layers.")})
+    layers = []
+    for i in range(n_layers):
+        pre = f"gpt.layers.{i}."
+        layers.append({
+            "attn": {w: get(f"{pre}attn.{w}.weight", transpose=True)
+                     for w in ("wq", "wk", "wv", "wo")},
+            "ln1": ln(f"{pre}ln1"), "ln2": ln(f"{pre}ln2"),
+            **{fc: {"weight": get(f"{pre}{fc}.weight", transpose=True),
+                    "bias": get(f"{pre}{fc}.bias")} for fc in ("fc1", "fc2")},
+        })
+    return {"gpt": {"tok_emb": get("gpt.tok_emb"),
+                    "pos_emb": get("gpt.pos_emb"), "ln_f": ln("gpt.ln_f"),
+                    "layers": layers}}
 
 
 def init_tree(model, seed=0):

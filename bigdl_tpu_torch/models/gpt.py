@@ -1,5 +1,14 @@
 """Decoder-only transformer, GPT-2 style pre-LN causal LM (the port of
-``bigdl_tpu/models/gpt.py``, paged-serving methods only).
+``bigdl_tpu/models/gpt.py``: the training forward and the paged-serving
+methods).
+
+``GPTForCausalLM.forward(ids)`` is the training path: token and position
+embeddings, the causal blocks (attention through the flash kernels), the
+final norm and the tied head, giving (B*T, vocab) logits. ``dropout``
+(default 0.0, as in the reference) applies after each block's attention
+and MLP when the module is in training mode and the caller passes a
+``torch.Generator`` (the reference's ``rng``); ``remat=True`` recomputes
+each block's activations in the backward pass.
 
 Index arguments of the paged methods (page tables, positions, chunk
 bounds) are host values, numpy arrays or CPU tensors, as the serving
@@ -19,6 +28,7 @@ from bigdl_tpu_torch.nn import LayerNormalization, Linear
 from bigdl_tpu_torch.parallel.sequence import (MultiHeadAttention,
                                                paged_write_index)
 from bigdl_tpu_torch.utils.device import resolve_device
+from bigdl_tpu_torch.utils.remat import checkpoint
 
 
 def _host(x, dtype=torch.long):
@@ -29,11 +39,13 @@ class TransformerDecoderBlock(nn.Module):
     """Pre-LN causal block: x += attn(ln1(x)); x += mlp(ln2(x))."""
 
     def __init__(self, hidden_size, n_heads, intermediate_size=None,
-                 device=None, dtype=torch.float32):
+                 dropout=0.0, device=None, dtype=torch.float32):
         super().__init__()
         inter = intermediate_size or 4 * hidden_size
         kw = dict(device=device, dtype=dtype)
-        self.attn = MultiHeadAttention(hidden_size, n_heads, **kw)
+        self.dropout = dropout
+        self.attn = MultiHeadAttention(hidden_size, n_heads, causal=True,
+                                       **kw)
         self.ln1 = LayerNormalization(hidden_size, **kw)
         self.ln2 = LayerNormalization(hidden_size, **kw)
         self.fc1 = Linear(hidden_size, inter, **kw)
@@ -42,6 +54,20 @@ class TransformerDecoderBlock(nn.Module):
     def _mlp(self, x):
         # jax.nn.gelu defaults to the tanh approximation
         return self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+
+    def _drop(self, h, generator):
+        """Inverted dropout of ``h`` in training mode with a generator;
+        otherwise ``h`` unchanged."""
+        if not (self.training and self.dropout > 0 and generator is not None):
+            return h
+        keep = torch.rand(h.shape, generator=generator,
+                          device=h.device) < 1 - self.dropout
+        return torch.where(keep, h / (1 - self.dropout), torch.zeros_like(h))
+
+    def forward(self, x, generator=None):
+        """x (B, T, hidden) through the block (training forward)."""
+        x = x + self._drop(self.attn(self.ln1(x)), generator)
+        return x + self._drop(self._mlp(x), generator)
 
     def paged_prefill_chunk(self, pool, x, index, page_table, start):
         h, pool = self.attn.paged_prefill_chunk(self.ln1(x), pool, index,
@@ -61,11 +87,12 @@ class GPT(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 device=None, dtype=torch.float32):
+                 dropout=0.0, remat=False, device=None, dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.max_position = max_position
+        self.remat = remat
         self.intermediate_size = intermediate_size or 4 * hidden_size
         kw = dict(device=device, dtype=dtype)
         self.tok_emb = nn.Parameter(torch.empty(vocab_size, hidden_size,
@@ -74,12 +101,28 @@ class GPT(nn.Module):
                                                 **kw))
         self.layers = nn.ModuleList(
             TransformerDecoderBlock(hidden_size, n_heads, intermediate_size,
-                                    **kw) for _ in range(n_layers))
+                                    dropout, **kw) for _ in range(n_layers))
         self.ln_f = LayerNormalization(hidden_size, **kw)
 
     @property
     def device(self):
         return self.tok_emb.device
+
+    def forward(self, ids, generator=None):
+        """Final-norm hidden states (B, T, hidden) of token ids (B, T),
+        T <= ``max_position``."""
+        ids = torch.as_tensor(ids, device=self.device).long()
+        t = ids.shape[1]
+        if t > self.max_position:
+            raise ValueError(f"sequence of {t} tokens is longer than "
+                             f"max_position {self.max_position}")
+        h = F.embedding(ids, self.tok_emb) + self.pos_emb[:t]
+        for layer in self.layers:
+            if self.remat:
+                h = checkpoint(layer, generator, h)
+            else:
+                h = layer(h, generator)
+        return self.ln_f(h)
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
@@ -201,18 +244,26 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 device=None, dtype=torch.float32):
+                 dropout=0.0, remat=False, device=None, dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.gpt = GPT(vocab_size=vocab_size, hidden_size=hidden_size,
                        n_layers=n_layers, n_heads=n_heads,
                        max_position=max_position,
-                       intermediate_size=intermediate_size,
-                       device=resolve_device(device), dtype=dtype)
+                       intermediate_size=intermediate_size, dropout=dropout,
+                       remat=remat, device=resolve_device(device),
+                       dtype=dtype)
 
     @property
     def device(self):
         return self.gpt.device
+
+    def forward(self, ids, generator=None):
+        """(B*T, vocab) next-token logits of token ids (B, T); pair them
+        with ``CrossEntropyCriterion`` and the labels flattened to
+        (B*T,)."""
+        return self._lm_logits(self.gpt(ids, generator)).reshape(
+            -1, self.vocab_size)
 
     def _lm_logits(self, h):
         """(..., hidden) -> (..., vocab) through the tied head."""
@@ -223,3 +274,14 @@ def gpt2_small(**kw):
     """GPT-2 124M config (12 layers, hidden 768, 12 heads, vocab 50257,
     1024 context)."""
     return GPTForCausalLM(**kw)
+
+
+def gpt_flops_per_token(n_layers=12, h=768, s=1024, vocab=50257,
+                        inter=None):
+    """Analytic forward FLOPs per token (the reference's formula): QKV+O
+    8h^2, the two MLP products 4*h*inter, the attention products 4*s*h
+    per layer, and the tied vocab projection 2*h*vocab. A training step
+    costs three times this per token."""
+    inter = inter or 4 * h
+    per_layer = 8 * h * h + 4 * h * inter + 4 * s * h
+    return n_layers * per_layer + 2 * h * vocab

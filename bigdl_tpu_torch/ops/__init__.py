@@ -3,6 +3,10 @@
 - ``paged_attention``: chunk/decode attention straight against the paged
   K/V pool (replaces the Pallas ``_decode_kernel`` of
   ``bigdl_tpu/ops/paged_attention.py``);
+- ``flash_attention``: the FlashAttention-2 forward and its dQ and dK/dV
+  backward kernels, one ``torch.autograd.Function`` (replaces the Pallas
+  ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` of
+  ``bigdl_tpu/ops/flash_attention.py``);
 - ``sampling``: one-pass temperature / top-k / top-p / gumbel-argmax
   sampling (replaces the Pallas ``_sample_kernel`` of
   ``bigdl_tpu/ops/sampling.py``).

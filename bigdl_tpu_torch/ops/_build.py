@@ -48,6 +48,12 @@ def _nvcc():
     return found
 
 
+def kernel_names():
+    """Every kernel source under ``csrc/`` (the ``<name>`` of each
+    ``<name>.cu``), sorted: what a full build compiles."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def _sources(name):
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():

@@ -1,6 +1,13 @@
-"""Attention over the paged K/V pool (the port of ``bigdl_tpu/parallel/
-sequence.py``: ``paged_gather``, ``paged_write``, ``paged_attention`` and
-the paged methods of ``MultiHeadAttention``).
+"""Attention (the port of ``bigdl_tpu/parallel/sequence.py``:
+``full_attention``, ``paged_gather``, ``paged_write``, ``paged_attention``
+and ``MultiHeadAttention``'s full-sequence ``forward`` and paged methods).
+
+The full-sequence forward (training) attends through ``ops.
+flash_attention``: the hand-written kernels on the card, their plain
+versions on the CPU. The reference picks its flash kernel by a shape
+heuristic or the ``BIGDL_TPU_FLASH_ATTENTION`` flag; the port reads
+neither: on the card it always takes its kernel. :func:`full_attention`
+is the reference's oracle, kept for the tests.
 
 K/V live in one pool per layer, ``(num_pages, H, page_size, D)``; slots
 reach their tokens through int32 page tables whose entries ``>=
@@ -31,7 +38,21 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.nn import Linear
+from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+
+
+def full_attention(q, k, v, causal=False):
+    """Single-device reference attention over (B, H, S, D), the oracle of
+    the flash kernels: softmax of the scaled scores, ``-inf`` above the
+    diagonal when causal."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        tq, tk = q.shape[2], k.shape[2]
+        seen = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~seen, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
 
 
 def paged_gather(pool, page_table):
@@ -84,15 +105,23 @@ def paged_attention(q, k, v, q_pos):
 
 
 class MultiHeadAttention(nn.Module):
-    """Causal multi-head self-attention, paged methods only. ``wq``,
-    ``wk``, ``wv``, ``wo`` are bias-free, as in the reference."""
+    """Multi-head self-attention: :meth:`forward` over whole sequences
+    (``causal`` masks later keys) and the paged methods, which are always
+    causal. ``wq``, ``wk``, ``wv``, ``wo`` are bias-free, as in the
+    reference. ``sequence_parallel`` (ring/Ulysses attention) is not
+    ported yet."""
 
-    def __init__(self, hidden_size, n_heads, device=None,
-                 dtype=torch.float32):
+    def __init__(self, hidden_size, n_heads, causal=False,
+                 sequence_parallel=None, device=None, dtype=torch.float32):
         super().__init__()
         if hidden_size % n_heads:
             raise ValueError(f"hidden_size {hidden_size} must be divisible "
                              f"by n_heads {n_heads}")
+        if sequence_parallel is not None:
+            raise NotImplementedError(
+                "sequence_parallel (ring/Ulysses attention) is not ported "
+                "yet: ROADMAP A.10/A.11")
+        self.causal = causal
         self.hidden_size = hidden_size
         self.n_heads = n_heads
         self.head_dim = hidden_size // n_heads
@@ -110,6 +139,14 @@ class MultiHeadAttention(nn.Module):
                     .transpose(1, 2).contiguous())
 
         return split(self.wq), split(self.wk), split(self.wv)
+
+    def forward(self, x):
+        """Self-attention over x (B, T, hidden) through the flash kernel
+        (the reference's ``call`` without sequence parallelism)."""
+        b, t, hs = x.shape
+        q, k, v = self._qkv(x)
+        out = flash_attention(q, k, v, causal=self.causal)
+        return self.wo(out.transpose(1, 2).reshape(b, t, hs))
 
     def init_paged_pool(self, num_pages, page_size, dtype, device):
         """One layer's K/V page pool: ``{"k", "v"}`` of (num_pages,

@@ -8,12 +8,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device  — require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
-2. build   — compile every kernel of the path from ``bigdl_tpu_torch/ops/
+2. build   — compile every kernel source under ``bigdl_tpu_torch/ops/
    csrc`` (one ``nvcc`` per source, all at once) and report the seconds.
-3. kernels — call each kernel's wrapper on card tensors at the shapes the
-   serving path gives it, hold it against its plain PyTorch version on
-   the same inputs, and time both with CUDA events beside the kernel's
-   roofline bound:
+3. kernels — call each kernel's wrapper on card tensors at the shapes its
+   path gives it, hold it against its plain PyTorch version on the same
+   inputs, and time both with CUDA events beside the kernel's roofline
+   bound:
    * paged attention: 8 slots, 12 heads, head_dim 64, page_size 16, 64
      table entries, shared pages and sentinel tails; decode (C=1, all 8
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
@@ -21,7 +21,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    * fused sampling: 8 x 50257 logits, top_k 50, top_p 0.9, per-row
      temperatures, one injected gumbel draw; tokens must be identical
      except on a row whose kept-set boundary lies within 1e-5 of its level
-     (such a row is printed).
+     (such a row is printed);
+   * flash attention (forward, dQ, dK/dV): the training path's (B*H = 96,
+     S = 1024, D = 64) causal in float32 and bfloat16, one non-causal case
+     with an lse cotangent and one ragged causal case (S = 1000). float32
+     max abs error <= 2e-5 for O and lse and <= 1e-4 for the gradients
+     (the same float32 math summed in another order, over up to 1024 keys);
+     bfloat16 atol = rtol = 2e-2 (outputs rounded to bfloat16, p rounded
+     at a running maximum in the kernel). Beside each kernel's time, the
+     library yardstick: ``F.scaled_dot_product_attention(is_causal=True)``
+     forward, and its backward (one call yields dQ, dK and dV, so both
+     backward rows carry that time); the backend that ran is printed.
 4. slice   — GPT-2 small at full width (12 layers, hidden 768, 12 heads,
    vocab 50257, context 1024), float32, seeded random weights: the paged
    ``ServingEngine`` serves 12 requests (prompts of 24-700 tokens, two
@@ -35,10 +45,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
    prompts, runs once more under ``torch.profiler`` (a ``profile`` line):
    the device's busy time against the wall time and the kernels that take
    the most device time.
+5. train   — GPT-2 small at full width and depth, float32, the same seeded
+   weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
+   through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
+   warm-up step, then 5 timed steps (step time, tokens/s, peak memory,
+   model FLOP utilisation against the 67 TFLOP/s float32 peak). Checks:
+   every loss finite and the last below the first; each flash kernel
+   launched 12 times a timed step; one ``compute_dtype=torch.bfloat16``
+   step from the initial weights within 2 % of the float32 first-step
+   loss; on a 1 x 512 batch the card's loss and gradients equal the port's
+   CPU run (plain versions): loss within 1e-4 relative, each parameter's
+   gradient within 1e-3 of its largest magnitude. Then 2 steps under
+   ``torch.profiler`` (a ``profile`` line).
 
 Then a ``{"kernels": [...]}`` line (name, route, source, replaced TPU
-kernel, launches on the serving run, max error, kernel / plain / bound
-times in ms), the nvidia-smi line again, and last
+kernel, launches on its path's run, max error, kernel / plain / bound /
+library times in ms), the nvidia-smi line again, and last
 ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes over 3.35 TB/s (HBM3) and
@@ -125,10 +147,11 @@ def phase_device(torch):
 
 def phase_build():
     from bigdl_tpu_torch.ops import _build
+    names = _build.kernel_names()
     t0 = time.perf_counter()
-    compiled = _build.build("paged_attention", "sampling")
+    compiled = _build.build(*names)
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in ("paged_attention", "sampling")
+    ptxas = [ln.strip() for name in names
              for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": secs, "compiled": compiled,
@@ -279,7 +302,134 @@ def phase_kernels(torch):
         "library_ms": None, "timed_shape": "8x50257 float32",
         "launches": 0, "shapes": samples}
     emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
+    results.update(_flash_kernels(torch, flush))
     del flush
+    return results
+
+
+FLASH_SOURCE = "bigdl_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_NAMES = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+               "dkv": "flash_bwd_dkv"}       # the wrappers' names
+FLASH_REPLACES = {"fwd": "bigdl_tpu/ops/flash_attention.py:45",
+                  "dq": "bigdl_tpu/ops/flash_attention.py:120",
+                  "dkv": "bigdl_tpu/ops/flash_attention.py:159"}
+# (label, B, H, S, causal, dtype name, with an lse cotangent)
+FLASH_CASES = [("path", 8, 12, 1024, True, "float32", False),
+               ("path", 8, 12, 1024, True, "bfloat16", False),
+               ("full", 8, 12, 1024, False, "float32", True),
+               ("ragged", 8, 12, 1000, True, "float32", False)]
+FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
+
+
+def _device_kernels(torch, fn):
+    """Names of the CUDA kernels one call of ``fn`` runs (torch.profiler;
+    empty if the profiler sees no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:60] for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def _flash_kernels(torch, flush):
+    """The three flash kernels against their plain versions (and SDPA as
+    the library yardstick) on FLASH_CASES; returns their ``kernels``
+    entries, timed on the float32 path case."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    for label, b, h, s, causal, dname, with_dlse in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, do = [torch.randn((b, h, s, 64), generator=g, device="cuda")
+                       .to(dtype) for _ in range(4)]
+        dlse = (torch.randn((b, h, s), generator=g, device="cuda")
+                if with_dlse else None)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, dlse, causal)
+        dq = fa.flash_bwd_dq(*bwd)
+        dk, dv = fa.flash_bwd_dkv(*bwd)
+        torch.cuda.synchronize()
+        want = {"fwd": fa.flash_fwd_ref(q, k, v, causal),
+                "dq": (fa.flash_bwd_dq_ref(*bwd),),
+                "dkv": fa.flash_bwd_dkv_ref(*bwd)}
+        got = {"fwd": (o, lse), "dq": (dq,), "dkv": (dk, dv)}
+        case = {"case": label, "B": b, "H": h, "S": s, "causal": causal,
+                "dtype": dname, "dlse": with_dlse}
+        for kern in rows:
+            outs = list(zip(got[kern], want[kern]))
+            err = max(float((a.float() - w.float()).abs().max())
+                      for a, w in outs)
+            for a, _ in outs:
+                check(torch.isfinite(a.float()).all().item(),
+                      f"flash {kern} {label} {dname}: non-finite output")
+            if dname == "float32":
+                tol = FLASH_TOL[dname]["fwd" if kern == "fwd" else "grad"]
+                ok = err <= tol
+            else:
+                tol = FLASH_TOL[dname]
+                ok = all(torch.allclose(a.float(), w.float(), atol=tol,
+                                        rtol=tol) for a, w in outs)
+            check(ok, f"flash {kern} {label} {dname}: max abs err {err} "
+                      f"over tolerance {tol}")
+            rows[kern].append({**case, "max_abs_err": err, "tolerance": tol})
+        if label != "path":
+            continue
+        # time the path shape in both types: kernel, plain, SDPA
+        fns = {"fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                       lambda: fa.flash_fwd_ref(q, k, v, causal)),
+               "dq": (lambda: fa.flash_bwd_dq(*bwd),
+                      lambda: fa.flash_bwd_dq_ref(*bwd)),
+               "dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                       lambda: fa.flash_bwd_dkv_ref(*bwd))}
+        qq, kk, vv = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qq, kk, vv,
+                                                  is_causal=causal)
+
+        out = sdpa()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qq, kk, vv), do,
+                                       retain_graph=True)
+
+        lib = {"fwd": time_ms(torch, sdpa, 20, flush),
+               "bwd": time_ms(torch, sdpa_bwd, 20, flush)}
+        backend = _device_kernels(torch, lambda: (sdpa(), sdpa_bwd()))
+        print(f"sdpa {dname}: kernels {backend}", flush=True)
+        for kern, (kernel_fn, plain_fn) in fns.items():
+            nbytes, flops = fa.bytes_and_flops(kern, q, causal, with_dlse)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rows[kern][-1].update(
+                ms=time_ms(torch, kernel_fn, 20, flush),
+                plain_ms=time_ms(torch, plain_fn, 3, flush),
+                library_ms=lib["fwd" if kern == "fwd" else "bwd"],
+                sdpa_kernels=backend, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops)
+        del qq, kk, vv, out
+    results = {}
+    for kern, shapes in rows.items():
+        name = FLASH_NAMES[kern]
+        emit({"phase": "kernels", "kernel": name, "shapes": shapes})
+        t = shapes[0]                          # path, causal, float32
+        results[name] = {
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[kern],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes
+                               if r["dtype"] == "float32"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # forward: one SDPA call; backward rows: one SDPA backward
+            # call, which yields dQ, dK and dV together
+            "library_ms": t["library_ms"],
+            "timed_shape": "B 8 H 12 S 1024 D 64 causal float32",
+            "launches": 0, "shapes": shapes}
     return results
 
 
@@ -331,8 +481,8 @@ def _drive(engine, prompts):
                       for i in range(8, 12)]
 
 
-def _profile(torch, engine, prompts):
-    """Run the traffic under torch.profiler and report the device's busy
+def _profile(torch, run):
+    """Run ``run()`` under torch.profiler and report the device's busy
     time (the union of CUDA kernel and copy intervals) against the wall
     time, with the largest kernels by device time. Without device events
     the device numbers are "not measured"."""
@@ -341,8 +491,7 @@ def _profile(torch, engine, prompts):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for h in _drive(engine, prompts):
-            h.result(timeout=600)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -408,7 +557,9 @@ def phase_slice(torch, kernels):
         metrics = engine.metrics()
         # where the time goes: the same traffic (fresh prompts) once more
         # under torch.profiler, after the counts were read
-        profile = _profile(torch, engine, _traffic(rng))
+        fresh = _traffic(rng)
+        profile = _profile(torch, lambda: [h.result(timeout=600)
+                                           for h in _drive(engine, fresh)])
     finally:
         engine.shutdown()
     for i, (o, h) in enumerate(zip(outs, handles)):
@@ -471,7 +622,131 @@ def phase_slice(torch, kernels):
           "greedy_checked": [int(i) for i in cmp_idx],
           "greedy_tokens_compared": n_cmp, "divergences": divergences,
           "setup_s": setup_s})
-    emit({"phase": "profile", **profile})
+    emit({"phase": "profile", "path": "serving", **profile})
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+
+
+def _reset_flash_counts():
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def _flash_counts():
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _grads_vs_cpu(torch, model, params, crit, rng):
+    """Loss and gradients of one 1 x 512 batch on the card against the
+    port's CPU run (plain versions) on the same weights: (loss relative
+    difference, worst per-parameter max|diff| / max|cpu grad|, its name)."""
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.optim import make_loss_and_grads
+    ids = torch.from_numpy(rng.integers(0, 50257, (1, 513)))
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].reshape(-1)
+    model.load_state_dict(params)
+    loss_g, grads_g = make_loss_and_grads(model, crit)(x.cuda(), y.cuda())
+    cpu = gpt2_small(device="cpu")
+    cpu.load_state_dict(params)
+    loss_c, grads_c = make_loss_and_grads(cpu, crit)(x, y)
+    rel_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, worst_name = 0.0, None
+    for name, gc in grads_c.items():
+        diff = float((grads_g[name].cpu() - gc).abs().max())
+        ratio = diff / max(float(gc.abs().max()), 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return rel_loss, worst, worst_name
+
+
+def phase_train(torch, kernels, smi):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small, gpt_flops_per_token
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Adam, make_train_step
+
+    t0 = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    model.load_state_dict(params)
+    n_layers = len(model.gpt.layers)
+    crit = CrossEntropyCriterion()
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, 50257, (TRAIN_BATCH,
+                                                   TRAIN_SEQ + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].reshape(-1)
+    opt = Adam(learningrate=3e-4)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    step = make_train_step(model, crit, opt)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, x, y)]                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the counts start at 0 just before the timed steps
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(opt_state, x, y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n == n_layers * TRAIN_STEPS,
+              f"{name} launched {n} times in {TRAIN_STEPS} steps of "
+              f"{n_layers} layers")
+        kernels[name]["launches"] = n
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = wall / TRAIN_STEPS
+    flops = 3 * gpt_flops_per_token(s=TRAIN_SEQ) * tokens
+
+    # one bfloat16-compute step from the initial weights
+    model.load_state_dict(params)
+    opt16 = Adam(learningrate=3e-4)
+    step16 = make_train_step(model, crit, opt16,
+                             compute_dtype=torch.bfloat16)
+    loss16 = float(step16(opt16.init_state(dict(model.named_parameters())),
+                          x, y))
+    rel16 = abs(loss16 - losses[0]) / losses[0]
+    check(np.isfinite(loss16) and rel16 <= 0.02,
+          f"bfloat16 step loss {loss16} vs float32 {losses[0]}")
+
+    rel_loss, worst, worst_name = _grads_vs_cpu(torch, model, params, crit,
+                                                rng)
+    check(rel_loss <= 1e-4, f"card vs CPU loss differs by {rel_loss}")
+    check(worst <= 1e-3, f"card vs CPU gradient of {worst_name} differs by "
+                         f"{worst} of its largest magnitude")
+    emit({"phase": "train", "model": "gpt2_small", "layers": n_layers,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "float32",
+          "optimizer": "Adam(3e-4)", "losses": losses,
+          "timed_steps": TRAIN_STEPS, "step_s": step_s,
+          "tokens_per_s": tokens / step_s, "warmup_s": warmup_s,
+          "setup_s": setup_s, "peak_memory_bytes": peak,
+          "model_flops_per_step": flops,
+          "mfu_vs_fp32_peak": flops / step_s / PEAK_FLOPS_PER_S["float32"],
+          "flash_launches": launches, "bf16_first_loss": loss16,
+          "bf16_rel_diff": rel16, "cpu_loss_rel_diff": rel_loss,
+          "cpu_grad_worst_rel": worst, "cpu_grad_worst_param": worst_name,
+          "card": smi})
+
+    # where the time goes: 2 more float32 steps under torch.profiler
+    model.load_state_dict(params)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    profile = _profile(torch, lambda: [step(opt_state, x, y)
+                                       for _ in range(2)])
+    emit({"phase": "profile", "path": "train", "steps": 2, **profile})
 
 
 def main():
@@ -487,6 +762,8 @@ def main():
     phase_build()
     kernels = phase_kernels(torch)
     phase_slice(torch, kernels)
+    torch.cuda.empty_cache()
+    phase_train(torch, kernels, smi)
     emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
