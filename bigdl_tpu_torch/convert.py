@@ -10,6 +10,11 @@
 - :func:`params_to_jax` is its inverse, a state_dict (or a dict of
   gradients or slots keyed by parameter name) back in the reference's
   layout, so tests can compare updated weights there;
+- both take int8 weights: a leaf of the reference's ``quantize_params``,
+  ``{"q": int8 (in, out), "scale": float32 (out,)}``, is an
+  ``Int8Linear``'s ``weight`` (int8, transposed like the float weights)
+  and ``scale`` buffers (load it into a model that went through
+  ``nn.quantize_model``);
 - :func:`init_params` makes seeded random weights in the reference's
   layout and with its initializers' distributions (token/position
   embeddings N(0, 0.02); attention Glorot-uniform; MLP weights and biases
@@ -35,24 +40,31 @@ def params_from_jax(tree):
     g = tree["gpt"]
     sd = collections.OrderedDict()
 
-    def put(key, arr, transpose=False):
-        a = np.asarray(arr, dtype=np.float32)
+    def put(key, arr, transpose=False, dtype=np.float32):
+        a = np.asarray(arr, dtype=dtype)
         # a C-ordered copy: torch shares the buffer, and the reference's
         # arrays may be read-only views
         sd[key] = torch.from_numpy(np.array(a.T if transpose else a,
                                             order="C"))
+
+    def put_weight(pre, w):
+        if isinstance(w, dict):                  # int8 {"q", "scale"}
+            put(f"{pre}.weight", w["q"], transpose=True, dtype=np.int8)
+            put(f"{pre}.scale", w["scale"])
+        else:
+            put(f"{pre}.weight", w, transpose=True)
 
     put("gpt.tok_emb", g["tok_emb"])
     put("gpt.pos_emb", g["pos_emb"])
     for i, lp in enumerate(g["layers"]):
         pre = f"gpt.layers.{i}."
         for w in ("wq", "wk", "wv", "wo"):
-            put(f"{pre}attn.{w}.weight", lp["attn"][w], transpose=True)
+            put_weight(f"{pre}attn.{w}", lp["attn"][w])
         for ln in ("ln1", "ln2"):
             put(f"{pre}{ln}.weight", lp[ln]["weight"])
             put(f"{pre}{ln}.bias", lp[ln]["bias"])
         for fc in ("fc1", "fc2"):
-            put(f"{pre}{fc}.weight", lp[fc]["weight"], transpose=True)
+            put_weight(f"{pre}{fc}", lp[fc]["weight"])
             put(f"{pre}{fc}.bias", lp[fc]["bias"])
     put("gpt.ln_f.weight", g["ln_f"]["weight"])
     put("gpt.ln_f.bias", g["ln_f"]["bias"])
@@ -60,12 +72,19 @@ def params_from_jax(tree):
 
 
 def params_to_jax(state_dict):
-    """The reference's params tree (numpy float32) of a port
-    ``GPTForCausalLM`` state_dict; ``params_to_jax(params_from_jax(t))``
-    equals ``t``."""
+    """The reference's params tree (numpy float32, int8 weights as
+    ``{"q", "scale"}``) of a port ``GPTForCausalLM`` state_dict;
+    ``params_to_jax(params_from_jax(t))`` equals ``t``."""
     def get(key, transpose=False):
-        a = state_dict[key].detach().to("cpu", torch.float32).numpy()
+        t = state_dict[key].detach().cpu()
+        a = (t if t.dtype == torch.int8 else t.float()).numpy()
         return np.array(a.T if transpose else a, order="C")
+
+    def weight(pre):
+        if f"{pre}.scale" in state_dict:
+            return {"q": get(f"{pre}.weight", transpose=True),
+                    "scale": get(f"{pre}.scale")}
+        return get(f"{pre}.weight", transpose=True)
 
     def ln(pre):
         return {"weight": get(f"{pre}.weight"), "bias": get(f"{pre}.bias")}
@@ -76,10 +95,10 @@ def params_to_jax(state_dict):
     for i in range(n_layers):
         pre = f"gpt.layers.{i}."
         layers.append({
-            "attn": {w: get(f"{pre}attn.{w}.weight", transpose=True)
+            "attn": {w: weight(f"{pre}attn.{w}")
                      for w in ("wq", "wk", "wv", "wo")},
             "ln1": ln(f"{pre}ln1"), "ln2": ln(f"{pre}ln2"),
-            **{fc: {"weight": get(f"{pre}{fc}.weight", transpose=True),
+            **{fc: {"weight": weight(f"{pre}{fc}"),
                     "bias": get(f"{pre}{fc}.bias")} for fc in ("fc1", "fc2")},
         })
     return {"gpt": {"tok_emb": get("gpt.tok_emb"),

@@ -126,9 +126,10 @@ class GPT(nn.Module):
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
-        dicts of (num_pages, n_heads, page_size, head_dim). A page index
-        names the same page in every layer, so one page table per slot
-        covers the stack."""
+        dicts of (num_pages, n_heads, page_size, head_dim), in ``dtype``
+        (default the model's; ``torch.int8`` adds the scale planes). A
+        page index names the same page in every layer, so one page table
+        per slot covers the stack."""
         dtype = self.tok_emb.dtype if dtype is None else dtype
         return [l.attn.init_paged_pool(num_pages, page_size, dtype,
                                        self.device) for l in self.layers]

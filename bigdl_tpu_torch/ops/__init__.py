@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 - ``paged_attention``: chunk/decode attention straight against the paged
-  K/V pool (replaces the Pallas ``_decode_kernel`` of
+  K/V pool, float or int8 with scale planes (replaces the Pallas
+  ``_decode_kernel`` and ``_decode_kernel_quant`` of
   ``bigdl_tpu/ops/paged_attention.py``);
 - ``flash_attention``: the FlashAttention-2 forward and its dQ and dK/dV
   backward kernels, one ``torch.autograd.Function`` (replaces the Pallas

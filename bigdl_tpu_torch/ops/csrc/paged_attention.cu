@@ -1,9 +1,9 @@
 // Paged attention for Hopper (sm_90a): chunk and decode attention straight
 // against the paged K/V pool, through each slot's page table.
 //
-// Replaces the TPU kernel bigdl_tpu/ops/paged_attention.py `_decode_kernel`
-// (with `_online_update`), launched by `_call_kernel` via
-// `paged_pool_attention`.
+// Replaces the TPU kernels bigdl_tpu/ops/paged_attention.py `_decode_kernel`
+// and its int8 variant `_decode_kernel_quant` (both with `_online_update`),
+// launched by `_call_kernel` via `paged_pool_attention`.
 //
 // What it computes, per slot b, head h and chunk query c (absolute position
 // start[b] + c):
@@ -13,8 +13,13 @@
 // visible key (a row whose table is all sentinel: padding and inactive
 // slots) comes out as zeros, the plain version's convention.
 //
+// Pools are float32 or bfloat16 (the queries' type), or int8 with float32
+// scale planes k_scale/v_scale of (N, H, PS): key j then reads
+// k_j = float(k_int8[j]) * k_scale[j], the reference's dequantisation
+// (`k.astype(f32) * ks[..., None]`), one rounding, same as the plain version.
+//
 // What bounds it: bytes at decode (C = 1). Each query row does 4*D flops
-// per visible key against 2*D*elt bytes of K/V, far below the card's ~20
+// per visible key against 2*D*elt bytes of K/V (2*(D+4) for int8), far below the card's ~20
 // flops/byte (fp32 CUDA cores) or ~295 (bf16 tensor cores) balance point.
 // The floor is one read of every visible K/V page over HBM. A 64-query
 // prefill chunk shares each page among its queries and, in float32, crosses
@@ -33,12 +38,19 @@
 //   own shared-memory slot, so no block-wide barrier sits in the page loop
 //   (flash-decoding inside one CTA). The warps' states merge once, at the
 //   end, through shared memory;
+// - an int8 page is read as 4-byte char4 vectors (1 KiB of K and 1 KiB of V
+//   at PS 16, D 64) with its 2 x 16 scales staged in the warp's slot, and
+//   dequantised into the same float32 tile the float pools use, so an int8
+//   pool moves (D + 4) / (4 D) of a float32 pool's bytes and the rest of
+//   the kernel is unchanged;
 // - per page tile, lanes map to keys (32 / page_size lanes split one key's
 //   dot product), so a page's scores need one shuffle step, and each lane
 //   owns D / 32 output dims for the P.V update.
 // The simple first version has no cp.async/TMA double buffering: a warp
 // loads its page, then computes on it. Inputs may be float32 or bfloat16;
 // all arithmetic is float32. Pool offsets are 64-bit.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -47,13 +59,18 @@ namespace {
 
 constexpr int kWarps = 4;
 
-template <typename T, int PS, int D, int QT>
+// T: the queries' and output's type; KV: the pool's (T, or int8_t with the
+// scale planes kscale/vscale, which are null for a float pool)
+template <typename T, typename KV, int PS, int D, int QT>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                       const T* __restrict__ vpool,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
+                       const KV* __restrict__ vpool,
+                       const float* __restrict__ kscale,
+                       const float* __restrict__ vscale,
                        const int* __restrict__ table,
                        const int* __restrict__ start, T* __restrict__ out,
                        int H, int C, int N, int P, float sm_scale) {
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   static_assert(32 % PS == 0 && D % 32 == 0, "unsupported tile");
   constexpr int LPK = 32 / PS;  // lanes sharing one key's dot product
   constexpr int DK = D / LPK;   // dims of that dot product per lane
@@ -65,6 +82,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
   __shared__ float q_s[QT][D];
   __shared__ float smem[SM_FLOATS];  // page tiles, then the warp merge
+  __shared__ float sc_s[kWarps][2][PS];  // int8: the page's K, V scales
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -103,11 +121,39 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     if (page < 0 || page >= N) continue;  // sentinel: nothing to read
     const int64_t base = ((int64_t)page * H + h) * (PS * D);
     __syncwarp();  // the previous page's tile is no longer read
+    if constexpr (kInt8) {
+      static_assert(D % 4 == 0 && PS <= 32, "unsupported int8 tile");
+      const int64_t sbase = ((int64_t)page * H + h) * PS;
+      if (lane < PS) {
+        sc_s[warp][0][lane] = kscale[sbase + lane];
+        sc_s[warp][1][lane] = vscale[sbase + lane];
+      }
+      __syncwarp();
+      const char4* k4 = reinterpret_cast<const char4*>(kpool + base);
+      const char4* v4 = reinterpret_cast<const char4*>(vpool + base);
 #pragma unroll 4
-    for (int i = lane; i < PS * D; i += 32) {
-      const int r = i / D, d = i - (i / D) * D;
-      ks[r * KSTR + d] = to_f(kpool[base + i]);
-      vs[r * KSTR + d] = to_f(vpool[base + i]);
+      for (int i = lane; i < PS * D / 4; i += 32) {
+        const int r = (4 * i) / D, d = 4 * i - r * D;
+        const char4 kk = k4[i], vv = v4[i];
+        const float sk = sc_s[warp][0][r], sv = sc_s[warp][1][r];
+        float* kd = ks + r * KSTR + d;
+        float* vd = vs + r * KSTR + d;
+        kd[0] = (float)kk.x * sk;
+        kd[1] = (float)kk.y * sk;
+        kd[2] = (float)kk.z * sk;
+        kd[3] = (float)kk.w * sk;
+        vd[0] = (float)vv.x * sv;
+        vd[1] = (float)vv.y * sv;
+        vd[2] = (float)vv.z * sv;
+        vd[3] = (float)vv.w * sv;
+      }
+    } else {
+#pragma unroll 4
+      for (int i = lane; i < PS * D; i += 32) {
+        const int r = i / D, d = i - (i / D) * D;
+        ks[r * KSTR + d] = to_f(kpool[base + i]);
+        vs[r * KSTR + d] = to_f(vpool[base + i]);
+      }
     }
     __syncwarp();
     const int kpos = p * PS + key;
@@ -188,38 +234,65 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int PS, int D>
+template <typename T, typename KV, int PS, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* table, const int* start, void* out, int B,
-                   int H, int C, int N, int P, float sm_scale,
-                   cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* table,
+                   const int* start, void* out, int B, int H, int C, int N,
+                   int P, float sm_scale, cudaStream_t stream) {
   if (C == 1) {
     dim3 grid(B * H, 1);
-    paged_attention_kernel<T, PS, D, 1><<<grid, kWarps * 32, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, table, start, (T*)out, H, C,
-        N, P, sm_scale);
+    paged_attention_kernel<T, KV, PS, D, 1><<<grid, kWarps * 32, 0,
+                                              stream>>>(
+        (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
+        (T*)out, H, C, N, P, sm_scale);
   } else {
     constexpr int QT = 16;
     dim3 grid(B * H, (C + QT - 1) / QT);
-    paged_attention_kernel<T, PS, D, QT><<<grid, kWarps * 32, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, table, start, (T*)out, H, C,
-        N, P, sm_scale);
+    paged_attention_kernel<T, KV, PS, D, QT><<<grid, kWarps * 32, 0,
+                                               stream>>>(
+        (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
+        (T*)out, H, C, N, P, sm_scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+// KV = void: the pool has the queries' type T
+template <typename T, typename KV>
 cudaError_t dispatch_shape(const void* q, const void* k, const void* v,
+                           const float* ks, const float* vs,
                            const int* table, const int* start, void* out,
                            int B, int H, int C, int D, int N, int PS, int P,
                            float sm_scale, cudaStream_t stream) {
+  using Pool = typename std::conditional<std::is_void<KV>::value, T,
+                                         KV>::type;
 #define BIGDL_PA_CASE(ps, d)                                                \
   if (PS == ps && D == d)                                                   \
-    return launch<T, ps, d>(q, k, v, table, start, out, B, H, C, N, P,     \
-                            sm_scale, stream);
+    return launch<T, Pool, ps, d>(q, k, v, ks, vs, table, start, out, B, H, \
+                                  C, N, P, sm_scale, stream);
   BIGDL_PA_CASE(16, 64)
 #undef BIGDL_PA_CASE
   return cudaErrorInvalidValue;
+}
+
+template <typename KV>
+int dispatch_dtype(const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const int* table,
+                   const int* start, void* out, int B, int H, int C, int D,
+                   int N, int PS, int P, float sm_scale, int dtype,
+                   void* stream) {
+  if (B <= 0 || H <= 0 || C <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (dtype == kF32)
+    err = dispatch_shape<float, KV>(q, k, v, ks, vs, table, start, out, B,
+                                    H, C, D, N, PS, P, sm_scale, s);
+  else if (dtype == kBF16)
+    err = dispatch_shape<__nv_bfloat16, KV>(q, k, v, ks, vs, table, start,
+                                            out, B, H, C, D, N, PS, P,
+                                            sm_scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 }  // namespace
@@ -227,26 +300,30 @@ cudaError_t dispatch_shape(const void* q, const void* k, const void* v,
 
 // q, out: (B, H, C, D); k, v: (N, H, PS, D); table: (B, P) int32, entries
 // >= N are the "no page" sentinel; start: (B,) int32, query c of row b
-// sits at absolute position start[b] + c. dtype: 0 float32, 1 bfloat16.
-// Supported (PS, D): (16, 64), the serving path's (GPT-2, page size 16).
-// Returns the cudaError_t of the launch (0 on success).
+// sits at absolute position start[b] + c. dtype: 0 float32, 1 bfloat16,
+// for q, out and the pool. Supported (PS, D): (16, 64), the serving path's
+// (GPT-2, page size 16). Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int bigdl_paged_attention(const void* q, const void* k,
                                      const void* v, const int* table,
                                      const int* start, void* out, int B,
                                      int H, int C, int D, int N, int PS,
                                      int P, float sm_scale, int dtype,
                                      void* stream) {
-  using namespace bigdl;
-  if (B <= 0 || H <= 0 || C <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == kF32)
-    err = dispatch_shape<float>(q, k, v, table, start, out, B, H, C, D, N,
-                                PS, P, sm_scale, s);
-  else if (dtype == kBF16)
-    err = dispatch_shape<__nv_bfloat16>(q, k, v, table, start, out, B, H, C,
-                                        D, N, PS, P, sm_scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return bigdl::dispatch_dtype<void>(q, k, v, nullptr, nullptr, table,
+                                     start, out, B, H, C, D, N, PS, P,
+                                     sm_scale, dtype, stream);
+}
+
+// As bigdl_paged_attention over an int8 pool: k, v int8 (N, H, PS, D),
+// 16-byte aligned; k_scale, v_scale float32 (N, H, PS). dtype is q's and
+// out's.
+extern "C" int bigdl_paged_attention_int8(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, const int* table, const int* start, void* out,
+    int B, int H, int C, int D, int N, int PS, int P, float sm_scale,
+    int dtype, void* stream) {
+  return bigdl::dispatch_dtype<int8_t>(q, k, v, k_scale, v_scale, table,
+                                       start, out, B, H, C, D, N, PS, P,
+                                       sm_scale, dtype, stream);
 }

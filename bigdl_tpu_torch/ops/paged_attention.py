@@ -8,12 +8,19 @@ table whose entries ``>= num_pages`` mean "no page". Query ``c`` of row
 contract ``q_pos[b, c] == q_pos[b, 0] + c``) and sees key position ``j``
 iff ``j <= start[b] + c`` and ``j``'s table entry is a real page.
 
+An int8 pool (``{"k", "v"}`` int8 plus float32 ``{"k_scale", "v_scale"}``
+of (num_pages, H, page_size)) is read as ``k.float() * k_scale[..., None]``
+(the reference's ``_decode_kernel_quant``); the rest is the same.
+
 - :func:`paged_pool_attention` is the wrapper: for CUDA tensors it
-  launches the hand-written kernel ``ops/csrc/paged_attention.cu`` (or
-  raises), for CPU tensors it runs :func:`paged_pool_attention_ref`.
-  ``paged_pool_attention.launches`` counts kernel launches.
+  launches the hand-written kernel ``ops/csrc/paged_attention.cu`` for the
+  pool's type (or raises), for CPU tensors it runs
+  :func:`paged_pool_attention_ref`. ``paged_pool_attention.launches``
+  counts launches over float pools, ``.int8_launches`` over int8 pools;
+  an int8 pool is never dequantised into a float one for the kernel.
 - :func:`paged_pool_attention_ref` is the plain PyTorch version: gather
-  through the clamped table, mask with ``NEG_INF``, softmax, weighted sum.
+  through the clamped table (dequantising an int8 pool), mask with
+  ``NEG_INF``, softmax, weighted sum.
 
 A row with no visible key at all (an all-sentinel table row: padding and
 inactive slots) comes out as zeros on both paths; callers discard it.
@@ -38,17 +45,25 @@ def _declare(lib):
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.bigdl_paged_attention_int8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def _is_int8(pool):
+    return "k_scale" in pool
 
 
 def paged_pool_attention_ref(q, pool, page_table, start, sm_scale=None):
     """Plain PyTorch paged attention (see module docstring).
 
     ``q``: (B, H, C, D); ``pool``: ``{"k", "v"}`` of (N, H, page_size,
-    D); ``page_table``: (B, P) int; ``start``: (B,) int. Returns (B, H,
-    C, D) in ``q.dtype``, computed in float32."""
+    D), int8 ones with ``{"k_scale", "v_scale"}`` of (N, H, page_size);
+    ``page_table``: (B, P) int; ``start``: (B,) int. Returns (B, H, C, D)
+    in ``q.dtype``, computed in float32."""
     b, h, c, d = q.shape
-    k, v = pool["k"], pool["v"]
-    n, _, ps, _ = k.shape
+    n, _, ps, _ = pool["k"].shape
     p = page_table.shape[1]
     if sm_scale is None:
         sm_scale = d ** -0.5
@@ -56,11 +71,13 @@ def paged_pool_attention_ref(q, pool, page_table, start, sm_scale=None):
     real = (table >= 0) & (table < n)                          # (B, P)
     idx = table.clamp(0, n - 1)
 
-    def gather(pool_plane):
-        g = pool_plane[idx]                                    # (B,P,H,ps,D)
-        return g.permute(0, 2, 1, 3, 4).reshape(b, h, p * ps, d).float()
+    def gather(name):
+        g = pool[name][idx].float()                            # (B,P,H,ps,D)
+        if _is_int8(pool):
+            g = g * pool[f"{name}_scale"][idx][..., None]
+        return g.permute(0, 2, 1, 3, 4).reshape(b, h, p * ps, d)
 
-    kf, vf = gather(k), gather(v)
+    kf, vf = gather("k"), gather("v")
     s = torch.einsum("bhcd,bhkd->bhck", q.float(), kf) * sm_scale
     kpos = torch.arange(p * ps, device=q.device)
     qpos = (start.to(q.device, torch.long)[:, None]
@@ -74,10 +91,11 @@ def paged_pool_attention_ref(q, pool, page_table, start, sm_scale=None):
     return out.to(q.dtype)
 
 
-def _check_cuda_args(q, k, v, page_table, start):
+def _check_cuda_args(q, pool, page_table, start):
     dev = q.device
-    for name, t in (("pool k", k), ("pool v", v), ("page_table", page_table),
-                    ("start", start)):
+    k, v = pool["k"], pool["v"]
+    for name, t in ([(f"pool {n}", t) for n, t in pool.items()]
+                    + [("page_table", page_table), ("start", start)]):
         if t.device != dev:
             raise ValueError(f"paged_pool_attention: {name} is on "
                              f"{t.device}, q on {dev}")
@@ -89,9 +107,19 @@ def _check_cuda_args(q, k, v, page_table, start):
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_pool_attention: q dtype {q.dtype} not in "
                         f"(float32, bfloat16)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("paged_pool_attention: pool and q dtypes differ "
-                        f"({k.dtype}, {v.dtype}, {q.dtype})")
+    kv_dtype = torch.int8 if _is_int8(pool) else q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"paged_pool_attention: pool dtypes ({k.dtype}, "
+                        f"{v.dtype}) for q {q.dtype}: want {kv_dtype}")
+    if _is_int8(pool):
+        for name in ("k_scale", "v_scale"):
+            sc = pool[name]
+            if sc.dtype != torch.float32 or sc.shape != k.shape[:3]:
+                raise ValueError(f"paged_pool_attention: {name} must be "
+                                 f"float32 of {tuple(k.shape[:3])}")
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError("paged_pool_attention: int8 pools must be "
+                             "16-byte aligned")
     if page_table.dtype != torch.int32 or start.dtype != torch.int32:
         raise TypeError("paged_pool_attention: page_table and start must "
                         "be int32")
@@ -114,9 +142,10 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
     CUDA tensors, :func:`paged_pool_attention_ref` for CPU tensors.
 
     ``q``: (B, H, C, D) float32 or bfloat16; ``pool``: ``{"k", "v"}`` of
-    (N, H, page_size, D) in ``q``'s dtype; ``page_table``: (B, P) int32
-    with sentinel ``>= N``; ``start``: (B,) int32 absolute position of
-    each row's first query. Returns (B, H, C, D) in ``q.dtype``."""
+    (N, H, page_size, D) in ``q``'s dtype, or int8 with float32 ``{"k_scale",
+    "v_scale"}`` of (N, H, page_size); ``page_table``: (B, P) int32 with
+    sentinel ``>= N``; ``start``: (B,) int32 absolute position of each
+    row's first query. Returns (B, H, C, D) in ``q.dtype``."""
     if q.dim() != 4:
         raise ValueError("paged_pool_attention expects q of (B, H, C, D)")
     if sm_scale is None:
@@ -124,37 +153,48 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
     if not q.is_cuda:
         return paged_pool_attention_ref(q, pool, page_table, start,
                                         sm_scale)
-    k, v = pool["k"], pool["v"]
-    _check_cuda_args(q, k, v, page_table, start)
+    _check_cuda_args(q, pool, page_table, start)
     lib = _build.load("paged_attention", _declare)
     b, h, c, d = q.shape
+    k, v = pool["k"], pool["v"]
     n, _, ps, _ = k.shape
     out = torch.empty_like(q)
-    err = lib.bigdl_paged_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), page_table.data_ptr(),
-        start.data_ptr(), out.data_ptr(), b, h, c, d, n, ps,
-        page_table.shape[1], float(sm_scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tail = (page_table.data_ptr(), start.data_ptr(), out.data_ptr(), b, h,
+            c, d, n, ps, page_table.shape[1], float(sm_scale),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if _is_int8(pool):
+        err = lib.bigdl_paged_attention_int8(
+            *head, pool["k_scale"].data_ptr(), pool["v_scale"].data_ptr(),
+            *tail)
+    else:
+        err = lib.bigdl_paged_attention(*head, *tail)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: "
                            f"cudaError_t {err}")
-    paged_pool_attention.launches += 1
+    if _is_int8(pool):
+        paged_pool_attention.int8_launches += 1
+    else:
+        paged_pool_attention.launches += 1
     return out
 
 
 paged_pool_attention.launches = 0
+paged_pool_attention.int8_launches = 0
 
 
 def bytes_and_flops(q, pool, page_table, start):
     """The least HBM bytes and the float operations one call needs on
     these inputs: q read and out written once, the table and starts read
-    once, and each distinct visible (page, offset) of K and V read once;
-    4*D flops per (query, visible key) pair. Used for the roofline
+    once, and each distinct visible (page, offset) of K and V read once
+    (an int8 pool: 1 byte an element plus its 4-byte (token, head)
+    scale); 4*D flops per (query, visible key) pair. Used for the roofline
     bound of the kernel's timing."""
     b, h, c, d = q.shape
     k = pool["k"]
     n, _, ps, _ = k.shape
     elt = q.element_size()
+    kv_row = d + 4 if _is_int8(pool) else d * k.element_size()
     table = page_table.cpu().long()
     st = start.cpu().long()
     seen, pairs = set(), 0
@@ -166,7 +206,7 @@ def bytes_and_flops(q, pool, page_table, start):
                 seen.add((page, pos % ps))
                 # queries of this row that see key `pos`
                 pairs += min(c, last - pos + 1)
-    kv_bytes = 2 * len(seen) * h * d * elt
+    kv_bytes = 2 * len(seen) * h * kv_row
     io_bytes = 2 * q.numel() * elt + 4 * (table.numel() + st.numel())
     return kv_bytes + io_bytes, 4 * d * h * pairs
 

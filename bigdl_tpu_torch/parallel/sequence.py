@@ -1,6 +1,7 @@
 """Attention (the port of ``bigdl_tpu/parallel/sequence.py``:
-``full_attention``, ``paged_gather``, ``paged_write``, ``paged_attention``
-and ``MultiHeadAttention``'s full-sequence ``forward`` and paged methods).
+``full_attention``, ``paged_gather``, ``paged_write``,
+``paged_write_quant``, ``paged_gather_dequant``, ``paged_attention`` and
+``MultiHeadAttention``'s full-sequence ``forward`` and paged methods).
 
 The full-sequence forward (training) attends through ``ops.
 flash_attention``: the hand-written kernels on the card, their plain
@@ -11,7 +12,10 @@ is the reference's oracle, kept for the tests.
 
 K/V live in one pool per layer, ``(num_pages, H, page_size, D)``; slots
 reach their tokens through int32 page tables whose entries ``>=
-num_pages`` are the "no page" sentinel.
+num_pages`` are the "no page" sentinel. An int8 pool (``init_paged_pool(
+dtype=torch.int8)``) adds float32 ``k_scale``/``v_scale`` planes of (num_pages,
+H, page_size): every written token and head is quantised against its own
+amax (:func:`paged_write_quant`), and readers dequantise ``int8 * scale``.
 
 Two traps of the reference's XLA semantics are explicit here:
 
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.nn import Linear
+from bigdl_tpu_torch.nn.quantized import scale_of
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 
@@ -87,6 +92,37 @@ def paged_write(pool, new, index):
     vals = new.transpose(1, 2).reshape(b * c, h, d)[rows]
     pool[pg, :, off, :] = vals.to(pool.dtype)
     return pool
+
+
+def paged_write_quant(pool, scales, new, index):
+    """Quantise-on-write :func:`paged_write` for int8 pools: each written
+    (token, head) vector of ``new`` (B, H, C, D) is quantised against its
+    own amax (``scale = max(amax, 1e-8) / 127``, round half to even, clip
+    to +-127); the int8 values land in ``pool`` (N, H, page_size, D) and
+    the float32 scale in ``scales`` (N, H, page_size) at the same (page,
+    head, offset), in place, at the writes of ``index``. Returns
+    ``(pool, scales)``."""
+    b, h, c, d = new.shape
+    rows, pg, off = index
+    vals = new.transpose(1, 2).reshape(b * c, h, d)[rows].float()
+    sc = scale_of(vals.abs().amax(dim=-1))                       # (n, H)
+    pool[pg, :, off, :] = torch.clamp(torch.round(vals / sc[..., None]),
+                                      -127, 127).to(torch.int8)
+    scales[pg, :, off] = sc
+    return pool, scales
+
+
+def paged_gather_dequant(pool, scales, page_table, dtype):
+    """The reference's XLA read of an int8 pool, kept for the tests: the
+    :func:`paged_gather` view of ``pool`` times the gathered ``scales``
+    (same clamped table), in ``dtype``: (B, H, P*page_size, D)."""
+    k = paged_gather(pool, page_table)
+    b, p = page_table.shape
+    _, h, ps = scales.shape
+    idx = page_table.to(scales.device, torch.long).clamp(0, scales.shape[0]
+                                                         - 1)
+    s = scales[idx].permute(0, 2, 1, 3).reshape(b, h, p * ps)
+    return k.to(dtype) * s[..., None].to(dtype)
 
 
 def paged_attention(q, k, v, q_pos):
@@ -151,15 +187,26 @@ class MultiHeadAttention(nn.Module):
     def init_paged_pool(self, num_pages, page_size, dtype, device):
         """One layer's K/V page pool: ``{"k", "v"}`` of (num_pages,
         n_heads, page_size, head_dim) zeros (so never-written slots hold
-        finite values)."""
+        finite values); ``dtype=torch.int8`` adds the float32 ``k_scale``
+        and ``v_scale`` planes of (num_pages, n_heads, page_size)."""
         shape = (num_pages, self.n_heads, page_size, self.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+        pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if dtype == torch.int8:
+            for name in ("k_scale", "v_scale"):
+                pool[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                         device=device)
+        return pool
 
     def _paged_write(self, pool, k, v, index):
-        """Write new K/V through the page table, in place."""
-        paged_write(pool["k"], k, index)
-        paged_write(pool["v"], v, index)
+        """Write new K/V through the page table, in place; an int8 pool
+        (marked by its scale planes) quantises on write."""
+        if "k_scale" in pool:
+            paged_write_quant(pool["k"], pool["k_scale"], k, index)
+            paged_write_quant(pool["v"], pool["v_scale"], v, index)
+        else:
+            paged_write(pool["k"], k, index)
+            paged_write(pool["v"], v, index)
         return pool
 
     def _paged_attend(self, q, k, v, pool, index, page_table, start):

@@ -16,9 +16,12 @@ from __future__ import annotations
 
 import time
 
+from bigdl_tpu_torch.nn.quantized import qmatmul, quantize_model
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
-from bigdl_tpu_torch.serving.paging import PagedSlotManager, PagePoolExhausted
+from bigdl_tpu_torch.serving.paging import (PagedSlotManager,
+                                            PagePoolExhausted,
+                                            pages_for_budget)
 from bigdl_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.flags import get_flag
@@ -27,9 +30,6 @@ from bigdl_tpu_torch.utils.flags import get_flag
 # ROADMAP queue A item that ports each
 _UNPORTED = {
     "spec_tokens": "A.5 speculative decoding",
-    "int8_weights": "A.3 int8 K/V and int8 weights",
-    "int8_kv": "A.3 int8 K/V and int8 weights",
-    "kv_bytes": "A.3 int8 K/V and int8 weights",
     "tp": "A.6 tensor-parallel serving",
     "mesh": "A.6 tensor-parallel serving",
     "kv_snapshot": "A.7 serving durability",
@@ -69,9 +69,19 @@ class ServingEngine:
     prefill_chunk: chunked-prefill width (``BIGDL_TPU_PREFILL_CHUNK``, 64).
     prefix_cache: share pages between identical prompt prefixes
         (``BIGDL_TPU_PREFIX_CACHE``, on).
+    int8_weights: serve from symmetric per-output-channel int8 weights
+        (``nn.quantize_model``: every ``Linear`` becomes an ``Int8Linear``,
+        in place, after ``params`` are loaded; ``BIGDL_TPU_INT8_WEIGHTS``,
+        off).
+    int8_kv: int8 K/V pages with a float32 scale per (token, head),
+        quantised on write and read by the int8 paged-attention kernel
+        (``BIGDL_TPU_INT8_KV``, off).
+    kv_bytes: size the page pool by a device-memory budget in bytes
+        (``paging.pages_for_budget``, counting ``int8_kv``'s scale planes);
+        ignored when ``kv_pages`` is given.
     device: where to serve; None means the card.
 
-    The reference's other options (speculative decoding, int8, tensor
+    The reference's other options (speculative decoding, tensor
     parallelism, LoRA, K/V snapshots, the host tier, the control plane,
     recovery) raise ``NotImplementedError`` naming the ROADMAP item that
     ports them.
@@ -81,8 +91,8 @@ class ServingEngine:
                  prefill_window=4, admit_wait_s=0.0, steps_per_sync=1,
                  top_k=None, top_p=None, seed=0, default_deadline_s=None,
                  paged=None, page_size=None, kv_pages=None,
-                 prefill_chunk=None, prefix_cache=None, device=None,
-                 **unported):
+                 prefill_chunk=None, prefix_cache=None, int8_weights=None,
+                 int8_kv=None, kv_bytes=None, device=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -102,6 +112,11 @@ class ServingEngine:
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params)
+        if int8_weights is None:
+            int8_weights = get_flag("BIGDL_TPU_INT8_WEIGHTS", False, bool)
+        self.int8_weights = bool(int8_weights)
+        if self.int8_weights:
+            quantize_model(model)
         model.to(self.device)
         model.requires_grad_(False)
         model.eval()
@@ -114,11 +129,17 @@ class ServingEngine:
             prefill_chunk = get_flag("BIGDL_TPU_PREFILL_CHUNK", 64, int)
         if prefix_cache is None:
             prefix_cache = get_flag("BIGDL_TPU_PREFIX_CACHE", True, bool)
+        if int8_kv is None:
+            int8_kv = get_flag("BIGDL_TPU_INT8_KV", False, bool)
+        if kv_bytes is not None and kv_pages is None:
+            kv_pages = pages_for_budget(model, page_size, kv_bytes,
+                                        int8=bool(int8_kv),
+                                        dtype=model.gpt.tok_emb.dtype)
         self.slots = PagedSlotManager(
             model, max_slots, num_pages=kv_pages, page_size=page_size,
             window=prefill_window, steps_per_sync=steps_per_sync,
             prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            top_k=top_k, top_p=top_p, seed=seed)
+            top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv))
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s)
 
@@ -191,8 +212,8 @@ class ServingEngine:
     def metrics(self):
         """Live engine metrics: queue and slot occupancy, admission and
         retirement counters, TTFT, decode throughput, dispatch counters,
-        page-pool statistics and the kernels' launch counts (process-wide:
-        every engine's launches add to one count)."""
+        page-pool statistics, the kernels' launch counts and the count of
+        int8 products (process-wide: every engine adds to one count)."""
         sch = self.scheduler
         return {
             "device": str(self.device),
@@ -211,6 +232,9 @@ class ServingEngine:
             "deadline_exceeded": sch.deadline_expired,
             "preempted": sch.preempted,
             "paged_attention_launches": paged_pool_attention.launches,
+            "paged_attention_int8_launches":
+                paged_pool_attention.int8_launches,
+            "int8_matmuls": qmatmul.calls,
             "fused_sampling_launches": fused_sample_logits.launches,
             **self.slots.stats.snapshot(),
             **self.slots.pool_stats(),

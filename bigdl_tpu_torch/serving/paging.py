@@ -14,7 +14,11 @@ Device-side contract (``parallel/sequence.py`` + ``models/gpt.py``):
   a write through it is filtered out on the host before the scatter, and
   attention skips it;
 - reads go through ``ops.paged_attention``: the hand-written kernel on the
-  card, its plain version on the CPU.
+  card, its plain version on the CPU;
+- ``int8_kv`` pools hold int8 K/V with a float32 scale per (token, head)
+  for each of K and V, quantised on write (``parallel/sequence.py``):
+  ``(D + 4) / (4 D)`` of a float32 pool's bytes per token, 3.76x the
+  tokens in the same bytes at head_dim 64 (``pages_for_budget``).
 
 Chunked prefill (Sarathi-Serve, OSDI '24): admission only *allocates*
 (host work); :meth:`PagedSlotManager.prefill_tick` advances up to
@@ -24,8 +28,8 @@ dispatch, interleaved by the scheduler with decode blocks.
 Admission failure is TYPED: :class:`PagePoolExhausted`, never junk
 tokens.
 
-Not ported yet (ROADMAP queue A): speculative decoding, int8 K/V pools,
-the host tier, the snapshot page store, tensor-parallel layouts.
+Not ported yet (ROADMAP queue A): speculative decoding, the host tier,
+the snapshot page store, tensor-parallel layouts.
 """
 
 from __future__ import annotations
@@ -65,12 +69,26 @@ def _tail_digest(prev, tail):
                            digest_size=16).digest()
 
 
-def kv_token_bytes(model, dtype=torch.float32):
-    """K/V bytes ONE cached token costs across every layer (K + V)."""
+def kv_token_bytes(model, int8=False, dtype=torch.float32):
+    """K/V bytes ONE cached token costs across every layer (K + V); an
+    int8 pool stores 1 byte an element plus one float32 scale per (token,
+    head) for each of K and V."""
     layers = model.gpt.layers
     attn = layers[0].attn
-    elt = torch.empty((), dtype=dtype).element_size()
-    return 2 * len(layers) * attn.n_heads * attn.head_dim * elt
+    d = attn.head_dim
+    per_head = d + 4 if int8 else d * torch.empty(
+        (), dtype=dtype).element_size()
+    return 2 * len(layers) * attn.n_heads * per_head
+
+
+def pages_for_budget(model, page_size, byte_budget, int8=False,
+                     dtype=torch.float32):
+    """The page-pool size that fits ``byte_budget`` bytes of K/V: the knob
+    for comparing float and int8 pools at equal device memory (an int8
+    pool holds ``4 D / (D + 4)`` times a float32 pool's pages, 3.76x at
+    head_dim 64; about 1.9x against bfloat16)."""
+    per_tok = kv_token_bytes(model, int8, dtype)
+    return int(byte_budget) // (per_tok * int(page_size))
 
 
 class PagePoolExhausted(RuntimeError):
@@ -190,14 +208,15 @@ class PagedSlotManager(SlotManager):
     stay on the device; the host tables (``page_table``, ``lengths``,
     ``active``, ``temps``) are copied in at every dispatch. The sampler's
     gumbel noise comes from a ``torch.Generator`` on the device, seeded
-    with ``seed``.
+    with ``seed``. ``int8_kv`` allocates int8 pools with scale planes.
     """
 
     paged = True
 
     def __init__(self, model, max_slots, num_pages=None, page_size=16,
                  window=4, steps_per_sync=1, prefill_chunk=64,
-                 prefix_cache=True, top_k=None, top_p=None, seed=0):
+                 prefix_cache=True, top_k=None, top_p=None, seed=0,
+                 int8_kv=False):
         pmax = model.gpt.max_position
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -216,6 +235,7 @@ class PagedSlotManager(SlotManager):
                 f"max-length stream ({self.pages_per_slot} pages)")
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.prefix_cache = bool(prefix_cache)
+        self.int8_kv = bool(int8_kv)
         self.stats = DispatchCounters("prefill_chunks", "steps", "copies")
         super().__init__(model, max_slots, window=window,
                          steps_per_sync=steps_per_sync, top_k=top_k,
@@ -225,7 +245,10 @@ class PagedSlotManager(SlotManager):
         super()._alloc()
         gpt = self.model.gpt
         self._dtype = gpt.tok_emb.dtype
-        self._pools = gpt.init_paged_pool(self.num_pages, self.page_size)
+        self._pools = gpt.init_paged_pool(
+            self.num_pages, self.page_size,
+            torch.int8 if self.int8_kv else None)
+        # every plane, the int8 pool's scale planes included
         page_bytes = sum(v[0].numel() * v.element_size()
                          for pl in self._pools for v in pl.values())
         self._kv_token_bytes = page_bytes // self.page_size
@@ -552,7 +575,8 @@ class PagedSlotManager(SlotManager):
         return {
             "num_pages": self.num_pages,
             "page_size": self.page_size,
-            "kv_dtype": str(self._dtype).replace("torch.", ""),
+            "kv_dtype": ("int8" if self.int8_kv
+                         else str(self._dtype).replace("torch.", "")),
             "kv_bytes_per_token": self._kv_token_bytes,
             "pool_bytes": self._kv_token_bytes * self.page_size
             * self.num_pages,

@@ -18,6 +18,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
      table entries, shared pages and sentinel tails; decode (C=1, all 8
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
      (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2);
+   * int8 paged attention: the same shapes and query types over an int8
+     pool with float32 scale planes, written by the port's
+     ``paged_write_quant`` from random float K/V; the same tolerances;
    * fused sampling: 8 x 50257 logits, top_k 50, top_p 0.9, per-row
      temperatures, one injected gumbel draw; tokens must be identical
      except on a row whose kept-set boundary lies within 1e-5 of its level
@@ -45,7 +48,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    prompts, runs once more under ``torch.profiler`` (a ``profile`` line):
    the device's busy time against the wall time and the kernels that take
    the most device time.
-5. train   — GPT-2 small at full width and depth, float32, the same seeded
+5. slice_int8 — the same model, weights and traffic through
+   ``ServingEngine(int8_weights=True, int8_kv=True, kv_bytes=...)``, the
+   byte budget of the float32 slice's 512-page pool. Checks: every request
+   retires with its tokens; the int8 paged kernel launched exactly once
+   per layer for every prefill chunk and decode step and the float one
+   never; 6 int8 products a layer per dispatch; the prefix cache hit. Card
+   against CPU: prompts 0 and 11 through a hand-driven 2-slot
+   ``PagedSlotManager`` on each (int8 weights couple the rows of a batch,
+   so the engine's batching is kept out of it), 16 greedy tokens,
+   identical or diverging only where the CPU top-2 logit gap is below
+   ``INT8_GAP`` (0.1; the line also reports how far the CPU logits move
+   when the embeddings move by 2^-23). Reports tokens/s, TTFT, the pool's
+   pages and bytes per token against the float32 slice, the weight bytes,
+   and a ``profile`` line for the int8 burst.
+6. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
    warm-up step, then 5 timed steps (step time, tokens/s, peak memory,
@@ -158,12 +175,34 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _paged_case(torch, dtype, b, c, starts, tables, seed):
+def _paged_case(torch, dtype, b, c, starts, tables, seed, int8):
+    """Random paged-attention inputs on the card; an int8 pool is written
+    through the port's ``paged_write_quant`` from random float K/V, every
+    page and offset, as the serving path writes it."""
+    from bigdl_tpu_torch.parallel.sequence import (paged_write_index,
+                                                   paged_write_quant)
     g = torch.Generator(device="cuda").manual_seed(seed)
     n, h, ps, d = 512, 12, 16, 64
     kw = dict(generator=g, device="cuda", dtype=torch.float32)
-    pool = {"k": torch.randn((n, h, ps, d), **kw).to(dtype),
-            "v": torch.randn((n, h, ps, d), **kw).to(dtype)}
+    if int8:
+        pages = torch.arange(n).repeat_interleave(ps)[None]
+        offs = torch.arange(ps).repeat(n)[None]
+        index = paged_write_index(pages, offs, n, "cuda")
+        pool = {}
+        for name in ("k", "v"):
+            new = torch.randn((1, h, n * ps, d), **kw)
+            card, cpu = [paged_write_quant(
+                torch.zeros((n, h, ps, d), dtype=torch.int8, device=dev),
+                torch.zeros((n, h, ps), device=dev), new.to(dev),
+                index.to(dev)) for dev in ("cuda", "cpu")]
+            # quantise-on-write gives the same bits on the card and the CPU
+            for on_card, on_cpu in zip(card, cpu):
+                check(torch.equal(on_card.cpu(), on_cpu),
+                      f"paged_write_quant of {name}: card and CPU differ")
+            pool[name], pool[f"{name}_scale"] = card
+    else:
+        pool = {"k": torch.randn((n, h, ps, d), **kw).to(dtype),
+                "v": torch.randn((n, h, ps, d), **kw).to(dtype)}
     q = torch.randn((b, h, c, d), **kw).to(dtype)
     table = torch.tensor(tables, dtype=torch.int32, device="cuda")
     start = torch.tensor(starts, dtype=torch.int32, device="cuda")
@@ -187,16 +226,13 @@ def _tables(lengths, p=64, ps=16, n=512, share=None):
     return rows
 
 
-def phase_kernels(torch):
+def _paged_kernel(torch, flush, int8):
+    """The paged-attention kernel (float pool, or int8 pool) against its
+    plain version: decode over 8 slots (row 7 inactive, all sentinel; rows
+    2 and 3 share 16 pages = a 256-token prefix) and one prefill chunk of
+    the 4-row window, float32 and bfloat16 queries; returns its
+    ``kernels`` entry, timed on decode float32."""
     from bigdl_tpu_torch.ops import paged_attention as pa
-    from bigdl_tpu_torch.ops import sampling as sm
-    flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
-                        device="cuda")
-    results = {}
-
-    # paged attention: decode over 8 slots (row 7 inactive, all sentinel;
-    # rows 2 and 3 share 16 pages = a 256-token prefix) and one prefill
-    # chunk of the 4-row window
     dec_len = [24, 100, 300, 310, 700, 1000, 513, 0]
     dec = dict(b=8, c=1, starts=[max(x - 1, 0) for x in dec_len],
                tables=_tables(dec_len, share=(2, 3, 16)))
@@ -204,12 +240,13 @@ def phase_kernels(torch):
     chk = dict(b=4, c=64, starts=chk_start,
                tables=_tables([s + 64 for s in chk_start],
                               share=(1, 2, 12)))
+    name = "paged_attention_int8" if int8 else "paged_attention"
     shapes = []
     for label, case in (("decode", dec), ("chunk", chk)):
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q, pool, table, start = _paged_case(
                 torch, dtype, case["b"], case["c"], case["starts"],
-                case["tables"], seed=len(shapes))
+                case["tables"], seed=len(shapes) + 10 * int8, int8=int8)
             got = pa.paged_pool_attention(q, pool, table, start)
             torch.cuda.synchronize()
             want = pa.paged_pool_attention_ref(q, pool, table, start)
@@ -223,9 +260,9 @@ def phase_kernels(torch):
                                          want.float()[vis], atol=tol,
                                          rtol=tol))
             check(torch.isfinite(got.float()).all().item(),
-                  f"paged attention {label} {dtype}: non-finite output")
-            check(ok, f"paged attention {label} {dtype}: max abs err "
-                      f"{max_err} over tolerance {tol}")
+                  f"{name} {label} {dtype}: non-finite output")
+            check(ok, f"{name} {label} {dtype}: max abs err {max_err} over "
+                      f"tolerance {tol}")
             nbytes, flops = pa.bytes_and_flops(q, pool, table, start)
             b_ms, b_by = bound(nbytes, flops, dtype)
             ms = time_ms(torch, lambda: pa.paged_pool_attention(
@@ -240,17 +277,28 @@ def phase_kernels(torch):
                            "bytes": nbytes, "flops": flops})
     f32 = [s for s in shapes if s["dtype"] == "float32"]
     d32 = f32[0]
-    results["paged_attention"] = {
-        "name": "paged_attention", "route": "cuda",
+    emit({"phase": "kernels", "kernel": name, "shapes": shapes})
+    return {
+        "name": name, "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "bigdl_tpu/ops/paged_attention.py:69",
+        "replaces": ("bigdl_tpu/ops/paged_attention.py:107" if int8
+                     else "bigdl_tpu/ops/paged_attention.py:69"),
         "max_abs_err": max(s["max_abs_err"] for s in f32),
         "ms": d32["ms"], "plain_ms": d32["plain_ms"],
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
         # no single PyTorch call attends through a page table
         "library_ms": None, "timed_shape": "decode float32",
         "launches": 0, "shapes": shapes}
-    emit({"phase": "kernels", "kernel": "paged_attention", "shapes": shapes})
+
+
+def phase_kernels(torch):
+    from bigdl_tpu_torch.ops import sampling as sm
+    flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    results = {}
+    for int8 in (False, True):
+        entry = _paged_kernel(torch, flush, int8)
+        results[entry["name"]] = entry
 
     # fused sampling at the serving shape
     s_rows, vocab, top_k, top_p = 8, 50257, 50, 0.9
@@ -520,31 +568,36 @@ def _profile(torch, run):
                     for k, (n, t) in top]}
 
 
-def phase_slice(torch, kernels):
-    import numpy as np
-    from bigdl_tpu_torch import convert
-    from bigdl_tpu_torch.models.gpt import gpt2_small
+def _serving_counts():
+    """The serving path's launch counts and int8 products."""
+    from bigdl_tpu_torch.nn.quantized import qmatmul
     from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
     from bigdl_tpu_torch.ops.sampling import fused_sample_logits
-    from bigdl_tpu_torch.serving import ServingEngine
-    from bigdl_tpu_torch.serving.paging import PagedSlotManager
+    return {"paged_attention": paged_pool_attention.launches,
+            "paged_attention_int8": paged_pool_attention.int8_launches,
+            "fused_sampling": fused_sample_logits.launches,
+            "int8_matmuls": qmatmul.calls}
 
-    t0 = time.perf_counter()
-    model = gpt2_small()
-    params = convert.init_params(model, seed=0)
-    engine = ServingEngine(model, params, max_slots=8, paged=True,
-                           page_size=16, prefill_chunk=64, top_k=50,
-                           top_p=0.9, seed=0)
-    n_layers = len(model.gpt.layers)
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
+
+def _reset_serving_counts():
+    from bigdl_tpu_torch.nn.quantized import qmatmul
+    from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+    from bigdl_tpu_torch.ops.sampling import fused_sample_logits
+    paged_pool_attention.launches = 0
+    paged_pool_attention.int8_launches = 0
+    fused_sample_logits.launches = 0
+    qmatmul.calls = 0
+
+
+def _serve_traffic(torch, engine, rng):
+    """A warm-up request, then the 12-request traffic with every count set
+    to 0 just before it and read just after, then the same traffic (fresh
+    prompts) once more under torch.profiler. Returns the run's record."""
     try:
         # warm-up (cuBLAS handles, allocator): not part of the run
         engine.generate(rng.integers(0, 50257, 80), 4, temperature=0.8,
                         timeout=300)
-        # the counts start at 0 just before the serving run
-        paged_pool_attention.launches = 0
-        fused_sample_logits.launches = 0
+        _reset_serving_counts()
         engine.stats.reset()
         prompts = _traffic(rng)
         t_run = time.perf_counter()
@@ -552,8 +605,7 @@ def phase_slice(torch, kernels):
         outs = [h.result(timeout=600) for h in handles]
         wall = time.perf_counter() - t_run
         stats = engine.stats.snapshot()
-        pa_launches = paged_pool_attention.launches
-        fs_launches = fused_sample_logits.launches
+        counts = _serving_counts()
         metrics = engine.metrics()
         # where the time goes: the same traffic (fresh prompts) once more
         # under torch.profiler, after the counts were read
@@ -566,63 +618,216 @@ def phase_slice(torch, kernels):
         check(o.size == LENGTHS[i] + N_NEW and not h.truncated,
               f"request {i}: {o.size - LENGTHS[i]} of {N_NEW} tokens")
         check(((o >= 0) & (o < 50257)).all(), f"request {i}: bad token id")
-    dispatches = stats["prefill_chunks"] + stats["steps"]
-    check(pa_launches >= n_layers * dispatches,
-          f"paged attention launched {pa_launches} times for {dispatches} "
-          f"chunk+step dispatches of {n_layers} layers")
-    check(fs_launches >= 1, "the fused sampler never launched")
     check(metrics["prefix_hits"] >= 1 and metrics["prefix_hit_tokens"]
           >= 256, f"no prefix-cache hit: {metrics['prefix_hits']}")
-    kernels["paged_attention"]["launches"] = pa_launches
-    kernels["fused_sampling"]["launches"] = fs_launches
+    check(counts["fused_sampling"] >= 1, "the fused sampler never launched")
     ttft = [h.first_token_at - h.submitted_at for h in handles]
     generated = sum(o.size - n for o, n in zip(outs, LENGTHS))
+    import numpy as np
+    line = {"requests": len(handles), "new_tokens_each": N_NEW,
+            "generated_tokens": int(generated), "wall_s": wall,
+            "tokens_per_s": generated / wall,
+            "ttft_mean_s": float(np.mean(ttft)),
+            "ttft_p50_s": float(np.median(ttft)),
+            "ttft_max_s": float(np.max(ttft)),
+            "prefill_chunks": stats["prefill_chunks"],
+            "decode_steps": stats["steps"], "cow_copies": stats["copies"],
+            "launches": counts,
+            "prefix_hits": metrics["prefix_hits"],
+            "prefix_hit_tokens": metrics["prefix_hit_tokens"],
+            "num_pages": metrics["num_pages"],
+            "kv_dtype": metrics["kv_dtype"],
+            "kv_bytes_per_token": metrics["kv_bytes_per_token"],
+            "pool_bytes": metrics["pool_bytes"]}
+    return prompts, outs, line, profile
 
-    # greedy tokens against the port's plain versions on the CPU
+
+def _greedy_slots(torch, model, prompts, n_steps, int8_kv):
+    """Prompts through a 2-slot ``PagedSlotManager`` on ``model``'s device,
+    admitted together, then ``n_steps`` greedy decode steps. Returns the
+    tokens (2, n_steps) and each step's float32 logits (2, n_steps, V)
+    on the CPU."""
+    import numpy as np
+    from bigdl_tpu_torch.serving.paging import PagedSlotManager
+    slots = PagedSlotManager(model, max_slots=2, page_size=16,
+                             prefill_chunk=64, int8_kv=int8_kv)
+    slots.admit(prompts)
+    toks, logits = [], []
+    for _ in range(n_steps):
+        logits.append(slots._logits.float().cpu())
+        slots.reserve_block()
+        toks.append(slots.step()[0])
+    return np.stack(toks, axis=1), torch.stack(logits, dim=1)
+
+
+def _first_divergence(torch, name, got, want, cpu_logits, threshold):
+    """Per row: the first step where the card's tokens ``got`` leave the
+    CPU's ``want``; each must lie where the CPU top-2 logit gap is below
+    ``threshold``. Returns the divergences (printed as well)."""
+    import numpy as np
+    top2 = torch.topk(cpu_logits, 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).numpy()
+    found = []
+    for row in range(got.shape[0]):
+        miss = np.nonzero(got[row] != want[row])[0]
+        if miss.size:
+            step = int(miss[0])
+            gap = float(gaps[row, step])
+            print(f"{name} row {row}: card and CPU greedy tokens diverge at "
+                  f"step {step}, CPU top-2 logit gap {gap}", flush=True)
+            check(gap < threshold, f"{name} row {row} diverges at step "
+                                   f"{step} with a top-2 gap of {gap}")
+            found.append({"row": row, "step": step, "gap": gap})
+    return found
+
+
+def phase_slice(torch, kernels):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, top_k=50,
+                           top_p=0.9, seed=0)
+    n_layers = len(model.gpt.layers)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, outs, line, profile = _serve_traffic(torch, engine, rng)
+    counts = line["launches"]
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    check(counts["paged_attention"] >= n_layers * dispatches,
+          f"paged attention launched {counts['paged_attention']} times for "
+          f"{dispatches} chunk+step dispatches of {n_layers} layers")
+    kernels["paged_attention"]["launches"] = counts["paged_attention"]
+    kernels["fused_sampling"]["launches"] = counts["fused_sampling"]
+
+    # greedy tokens against the port's plain versions on the CPU: the float
+    # path is row-local, so the engine's own tokens are compared
     cmp_idx = [0, 11]
+    n_cmp = 16
     cpu_model = gpt2_small(device="cpu")
     cpu_model.load_state_dict(params)
     cpu_model.requires_grad_(False)
-    slots = PagedSlotManager(cpu_model, max_slots=2, page_size=16,
-                             prefill_chunk=64)
-    slots.admit([prompts[i] for i in cmp_idx])
-    n_cmp = 16
-    cpu_toks, gaps = [], []
-    for _ in range(n_cmp):
-        top2 = torch.topk(slots._logits.float(), 2, dim=-1).values
-        gaps.append((top2[:, 0] - top2[:, 1]).tolist())
-        slots.reserve_block()
-        cpu_toks.append(slots.step()[0])
-    cpu_toks = np.stack(cpu_toks, axis=1)                   # (2, n_cmp)
-    divergences = []
-    for row, i in enumerate(cmp_idx):
-        gpu = outs[i][LENGTHS[i]:LENGTHS[i] + n_cmp]
-        miss = np.nonzero(gpu != cpu_toks[row])[0]
-        if miss.size:
-            step = int(miss[0])
-            gap = gaps[step][row]
-            print(f"request {i}: GPU and CPU greedy tokens diverge at step "
-                  f"{step}, CPU top-2 logit gap {gap}", flush=True)
-            check(gap < 1e-3, f"request {i} diverges at step {step} with a "
-                              f"top-2 gap of {gap}")
-            divergences.append({"request": i, "step": step, "gap": gap})
+    cpu_toks, cpu_logits = _greedy_slots(
+        torch, cpu_model, [prompts[i] for i in cmp_idx], n_cmp, False)
+    card = np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + n_cmp]
+                     for i in cmp_idx])
+    divergences = _first_divergence(torch, "slice", card, cpu_toks,
+                                    cpu_logits, 1e-3)
     emit({"phase": "slice", "model": "gpt2_small", "layers": n_layers,
-          "requests": len(handles), "new_tokens_each": N_NEW,
-          "generated_tokens": int(generated), "wall_s": wall,
-          "tokens_per_s": generated / wall,
-          "ttft_mean_s": float(np.mean(ttft)),
-          "ttft_p50_s": float(np.median(ttft)),
-          "ttft_max_s": float(np.max(ttft)),
-          "prefill_chunks": stats["prefill_chunks"],
-          "decode_steps": stats["steps"], "cow_copies": stats["copies"],
-          "paged_attention_launches": pa_launches,
-          "fused_sampling_launches": fs_launches,
-          "prefix_hits": metrics["prefix_hits"],
-          "prefix_hit_tokens": metrics["prefix_hit_tokens"],
-          "greedy_checked": [int(i) for i in cmp_idx],
+          **line, "greedy_checked": cmp_idx,
           "greedy_tokens_compared": n_cmp, "divergences": divergences,
           "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving", **profile})
+    return line
+
+
+# card-vs-CPU token check of the int8 slice: a divergence may only lie
+# where the CPU top-2 logit gap is below this. The card's float operations
+# (attention kernel, LayerNorm, the head's GEMM) differ from the CPU's in
+# the last bits; where one lands an activation on the other side of an
+# int8 rounding boundary the int8 product moves by a whole quantisation
+# step, and the logits move by a few hundredths. The phase measures that
+# on the CPU (``cpu_ulp_logit_change``: token embeddings moved by 2^-23
+# relative); 0.1 is about twice the largest value of it seen.
+INT8_GAP = 0.1
+
+
+def _weight_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def phase_slice_int8(torch, kernels, f32_line):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.nn import quantize_model
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.serving.paging import kv_token_bytes
+
+    t0 = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    float_weight_bytes = _weight_bytes(model)
+    # the float32 slice's pool in bytes, now holding int8 pages
+    kv_bytes = f32_line["num_pages"] * 16 * kv_token_bytes(model)
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, top_k=50,
+                           top_p=0.9, seed=0, int8_weights=True,
+                           int8_kv=True, kv_bytes=kv_bytes)
+    n_layers = len(model.gpt.layers)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, outs, line, profile = _serve_traffic(torch, engine, rng)
+    counts = line["launches"]
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    check(counts["paged_attention_int8"] == n_layers * dispatches,
+          f"int8 paged attention launched {counts['paged_attention_int8']} "
+          f"times for {dispatches} chunk+step dispatches of {n_layers} "
+          f"layers")
+    check(counts["paged_attention"] == 0,
+          f"the float paged kernel launched {counts['paged_attention']} "
+          f"times over int8 pools")
+    check(counts["int8_matmuls"] == 6 * n_layers * dispatches,
+          f"{counts['int8_matmuls']} int8 products for {dispatches} "
+          f"dispatches of {n_layers} layers (6 a layer)")
+    check(line["kv_dtype"] == "int8", f"pool dtype {line['kv_dtype']}")
+    kernels["paged_attention_int8"]["launches"] = \
+        counts["paged_attention_int8"]
+
+    # card against CPU, both hand-driven in the same order: int8 weights
+    # couple a dispatch's rows (one activation amax per batch), so the
+    # engine's tokens depend on its batching and are not compared
+    cmp_idx = [0, 11]
+    n_cmp = 16
+    cmp_prompts = [prompts[i] for i in cmp_idx]
+    card_toks, _ = _greedy_slots(torch, model, cmp_prompts, n_cmp, True)
+
+    def cpu_int8(sd):
+        m = gpt2_small(device="cpu")
+        m.load_state_dict(sd)
+        m.requires_grad_(False)
+        return quantize_model(m)
+
+    cpu_model = cpu_int8(params)
+    card_sd = model.state_dict()
+    for name, t in cpu_model.state_dict().items():
+        check(torch.equal(t, card_sd[name].cpu()),
+              f"weights differ between card and CPU: {name}")
+    cpu_toks, cpu_logits = _greedy_slots(torch, cpu_model, cmp_prompts,
+                                         n_cmp, True)
+    divergences = _first_divergence(torch, "slice_int8", card_toks,
+                                    cpu_toks, cpu_logits, INT8_GAP)
+    # what a last-bit difference does to the logits through the int8
+    # roundings, on the CPU alone
+    g = torch.Generator().manual_seed(1)
+    moved = dict(params)
+    emb = params["gpt.tok_emb"]
+    moved["gpt.tok_emb"] = emb + emb * (
+        torch.rand(emb.shape, generator=g) - 0.5) * 2.0 ** -22
+    _, moved_logits = _greedy_slots(torch, cpu_int8(moved), cmp_prompts,
+                                    n_cmp, True)
+    ulp_change = float((moved_logits - cpu_logits).abs().max())
+    print(f"slice_int8: CPU logits move by up to {ulp_change} when the "
+          f"token embeddings move by 2^-23 relative; divergence threshold "
+          f"{INT8_GAP}", flush=True)
+    emit({"phase": "slice_int8", "model": "gpt2_small", "layers": n_layers,
+          "int8_weights": True, "int8_kv": True, "kv_bytes": kv_bytes,
+          **line, "float32_num_pages": f32_line["num_pages"],
+          "float32_kv_bytes_per_token": f32_line["kv_bytes_per_token"],
+          "tokens_per_byte_vs_float32": (f32_line["kv_bytes_per_token"]
+                                         / line["kv_bytes_per_token"]),
+          "weight_bytes": _weight_bytes(model),
+          "float32_weight_bytes": float_weight_bytes,
+          "greedy_checked": cmp_idx, "greedy_tokens_compared": n_cmp,
+          "gap_threshold": INT8_GAP, "cpu_ulp_logit_change": ulp_change,
+          "divergences": divergences, "setup_s": setup_s})
+    emit({"phase": "profile", "path": "serving_int8", **profile})
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -761,7 +966,9 @@ def main():
     smi = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    phase_slice(torch, kernels)
+    f32_line = phase_slice(torch, kernels)
+    torch.cuda.empty_cache()
+    phase_slice_int8(torch, kernels, f32_line)
     torch.cuda.empty_cache()
     phase_train(torch, kernels, smi)
     emit({"kernels": list(kernels.values())})
