@@ -20,6 +20,23 @@
   embeddings N(0, 0.02); attention Glorot-uniform; MLP weights and biases
   uniform in +-1/sqrt(fan_in); LayerNorm ones/zeros), for runs that cannot
   import JAX. The numbers come from numpy's generator, not JAX's.
+
+ResNet (``models/resnet.py``): the reference's ``Graph`` keys its params
+by node id; these functions take and give them keyed by layer name (the
+reference's ``set_name`` names, which are the port's state_dict
+prefixes):
+
+- :func:`resnet_params_from_jax` turns ``params_by_name`` (``{name:
+  {"weight", "bias"}}``: convolution weights HWIO, Linear weights (in,
+  out), BN weight/bias) and ``state_by_name`` (``{bn name:
+  {"running_mean", "running_var"}}``) into the port's state_dict:
+  convolution weights OIHW, Linear weights (out, in);
+- :func:`resnet_params_to_jax` is its inverse;
+- :func:`init_resnet_tree` / :func:`init_resnet_params` draw seeded weights
+  from the reference's initializers' distributions: convolutions
+  Glorot-uniform (``Xavier``, fan in / out = kh * kw * channels), Linear
+  weight and bias uniform in +-1/sqrt(in) (its ``RandomUniform``
+  default), BN weight 1 and bias 0, running mean 0 and variance 1.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ import collections
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.nn import BatchNormalization, Linear, SpatialConvolution
 
 
 def params_from_jax(tree):
@@ -144,3 +163,82 @@ def init_params(model, seed=0):
     """Seeded random weights for ``model`` as a state_dict (see module
     docstring)."""
     return params_from_jax(init_tree(model, seed))
+
+
+def resnet_params_from_jax(params_by_name, state_by_name=None):
+    """The port's ``ResNet`` state_dict from name-keyed reference params
+    and BN state (numpy arrays; see module docstring)."""
+    sd = collections.OrderedDict()
+
+    def put(key, a):
+        sd[key] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    for name, leaves in params_by_name.items():
+        for leaf, a in leaves.items():
+            a = np.asarray(a)
+            if leaf == "weight" and a.ndim == 4:          # HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            elif leaf == "weight" and a.ndim == 2:        # (in, out)
+                a = a.T
+            put(f"{name}.{leaf}", a)
+    for name, leaves in (state_by_name or {}).items():
+        for leaf, a in leaves.items():
+            put(f"{name}.{leaf}", a)
+    return sd
+
+
+def resnet_params_to_jax(state_dict):
+    """``(params_by_name, state_by_name)`` in the reference's layout
+    (numpy float32) from a port ``ResNet`` state_dict."""
+    params, state = {}, {}
+    for key, t in state_dict.items():
+        name, leaf = key.rsplit(".", 1)
+        a = t.detach().cpu().float().numpy()
+        if leaf in ("running_mean", "running_var"):
+            state.setdefault(name, {})[leaf] = np.array(a, order="C")
+            continue
+        if leaf == "weight" and a.ndim == 4:              # OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and a.ndim == 2:
+            a = a.T
+        params.setdefault(name, {})[leaf] = np.array(a, order="C")
+    return params, state
+
+
+def init_resnet_tree(model, seed=0):
+    """Seeded ``(params_by_name, state_by_name)`` for ``model`` in the
+    reference's layout (numpy float32; see module docstring)."""
+    rng = np.random.default_rng(seed)
+    params, state = {}, {}
+
+    def uniform(shape, bound):
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    for name, m in model.named_children():
+        if isinstance(m, SpatialConvolution):
+            kk = m.kernel_h * m.kernel_w
+            bound = np.sqrt(6.0 / (kk * m.n_input_plane
+                                   + kk * m.n_output_plane))
+            p = {"weight": uniform((m.kernel_h, m.kernel_w, m.n_input_plane,
+                                    m.n_output_plane), bound)}
+            if m.bias is not None:
+                p["bias"] = np.zeros(m.n_output_plane, np.float32)
+            params[name] = p
+        elif isinstance(m, Linear):
+            bound = 1.0 / np.sqrt(m.input_size)
+            params[name] = {
+                "weight": uniform((m.input_size, m.output_size), bound),
+                "bias": uniform((m.output_size,), bound)}
+        elif isinstance(m, BatchNormalization):
+            if m.affine:
+                params[name] = {"weight": np.ones(m.n_output, np.float32),
+                                "bias": np.zeros(m.n_output, np.float32)}
+            state[name] = {"running_mean": np.zeros(m.n_output, np.float32),
+                           "running_var": np.ones(m.n_output, np.float32)}
+    return params, state
+
+
+def init_resnet_params(model, seed=0):
+    """Seeded random weights and BN state for a ``ResNet`` as a
+    state_dict (see module docstring)."""
+    return resnet_params_from_jax(*init_resnet_tree(model, seed))

@@ -1,7 +1,9 @@
 """Gradient clipping and the single-device train step (the port of
 ``bigdl_tpu/optim/optimizer.py``: ``clip_by_global_norm``,
 ``clip_by_value`` and ``make_train_step``; ``make_train_loop`` and the
-``Optimizer``/``LocalOptimizer`` facade wait for ROADMAP A.9).
+``Optimizer``/``LocalOptimizer`` facade wait for ROADMAP A.9). A model
+with buffers (BN running statistics) updates them in place in its
+forward, as the reference returns them from its step.
 
 Gradients are dicts of tensors keyed by parameter name, as in
 ``optim/methods.py``. PyTorch runs eagerly, so a step is a Python function
@@ -37,9 +39,11 @@ def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
     reference's ``_loss_and_grads`` with ``scan_microbatches``).
 
     - ``compute_dtype`` (e.g. ``torch.bfloat16``): the forward runs on a
-      cast view of the parameters through ``torch.func.functional_call``;
-      the cast is differentiated, so the gradients come back float32, and
-      the outputs are cast to float32 before the criterion;
+      cast view of the parameters through ``torch.func.functional_call``,
+      and on a cast copy of a floating-point input (token ids stay as
+      they are); the cast is differentiated, so the gradients come back
+      float32, and the outputs are cast to float32 before the criterion.
+      Buffers (BN running statistics) stay float32;
     - ``remat=True``: the whole forward is recomputed in the backward pass;
     - ``accumulate_steps=K``: the batch rows split into K micro-batches
       (K must divide them); gradients and losses are averaged over them.
@@ -50,6 +54,8 @@ def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
         if compute_dtype is None:
             return module(x, generator=generator)
         cast = {k: p.to(compute_dtype) for k, p in params.items()}
+        if x.is_floating_point():
+            x = x.to(compute_dtype)
         return functional_call(module, cast, (x,),
                                {"generator": generator}).float()
 

@@ -34,7 +34,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
      at a running maximum in the kernel). Beside each kernel's time, the
      library yardstick: ``F.scaled_dot_product_attention(is_causal=True)``
      forward, and its backward (one call yields dQ, dK and dV, so both
-     backward rows carry that time); the backend that ran is printed.
+     backward rows carry that time); the backend that ran is printed;
+   * 3x3 convolution, tap-sum (k9) and im2col (i2c): ResNet-50's four
+     stride-1 3x3 shapes at batch 256 (56x56x64, 28x28x128, 14x14x256,
+     7x7x512, NHWC), bfloat16 and float32, forward and ``flip`` (the input
+     gradient). Max abs error <= 1e-4 x max|plain| in float32 (the same
+     float32 sums in another order over 9*Cin <= 4608 terms) and <= 2e-2 x
+     max|plain| in bfloat16 (``scripts/perf_pallas_conv.py``'s own bar; the
+     outputs are rounded to bfloat16). The library yardstick is
+     ``F.conv2d`` on the same channels-last tensors (cuDNN, TF32 off for
+     float32); the cuDNN kernels that ran are printed.
 4. slice   — GPT-2 small at full width (12 layers, hidden 768, 12 heads,
    vocab 50257, context 1024), float32, seeded random weights: the paged
    ``ServingEngine`` serves 12 requests (prompts of 24-700 tokens, two
@@ -73,6 +82,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    loss; on a 1 x 512 batch the card's loss and gradients equal the port's
    CPU run (plain versions): loss within 1e-4 relative, each parameter's
    gradient within 1e-3 of its largest magnitude. Then 2 steps under
+   ``torch.profiler`` (a ``profile`` line).
+7. train_resnet — ``bench.py``'s training configuration: ResNet-50
+   (ImageNet, NHWC, 1000 classes, full width and depth), seeded weights
+   from ``convert.init_resnet_params(seed=0)``, one fixed batch of 256 x
+   224 x 224 x 3 with labels from ``default_rng(1)``, ``ClassNLLCriterion``,
+   ``SGD(learningrate=0.01, momentum=0.9)``, ``make_train_step(...,
+   compute_dtype=torch.bfloat16)``: one warm-up step, then 5 timed steps
+   (step time, images/s, peak memory, utilisation against 989 TFLOP/s
+   bfloat16 with ``resnet_flops``). Checks: losses finite and the last
+   below the first; per timed step, the k9 and i2c kernels launched
+   exactly the counts derived from the model's layers
+   (``models.conv_routes``: forward and input gradient of each 3x3
+   stride-1 convolution) and ``F.conv2d`` exactly once per other
+   convolution, never for a 3x3 stride-1 one. Card against the port's CPU
+   run at float32 on a 4 x 224 x 224 batch (cuDNN and matmul TF32 off, set
+   and printed): loss within 1e-4 relative, BN running statistics after
+   the step within 1e-4, each gradient within 1e-3 of its largest
+   magnitude or within 10 times its float32 noise floor on the CPU,
+   whichever is larger (see RESNET_NOISE_FACTOR). Then 2 steps under
    ``torch.profiler`` (a ``profile`` line).
 
 Then a ``{"kernels": [...]}`` line (name, route, source, replaced TPU
@@ -352,6 +380,7 @@ def phase_kernels(torch):
     emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
     results.update(_flash_kernels(torch, flush))
     del flush
+    results.update(_conv_kernels(torch))
     return results
 
 
@@ -477,6 +506,96 @@ def _flash_kernels(torch, flush):
             # call, which yields dQ, dK and dV together
             "library_ms": t["library_ms"],
             "timed_shape": "B 8 H 12 S 1024 D 64 causal float32",
+            "launches": 0, "shapes": shapes}
+    return results
+
+
+CONV_SOURCE = "bigdl_tpu_torch/ops/csrc/conv3x3.cu"
+CONV_REPLACES = {"k9": "scripts/perf_pallas_conv.py:64",
+                 "i2c": "scripts/perf_pallas_conv.py:98"}
+# ResNet-50's stride-1 3x3 shapes at batch 256: (N, H, W, Cin, Cout)
+CONV_SHAPES = [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
+               (256, 14, 14, 256, 256), (256, 7, 7, 512, 512)]
+CONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # x max|plain|
+
+
+def _conv_kernels(torch):
+    """Both 3x3 kernels against their plain versions at CONV_SHAPES,
+    forward and flip, in bfloat16 and float32, timed beside cuDNN; returns
+    their ``kernels`` entries, timed at the first shape each takes on the
+    ResNet-50 path in bfloat16 (i2c: 56x56x64; k9: 28x28x128)."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    print(f"cudnn {torch.backends.cudnn.version()}: allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, matmul allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    plain = {"k9": cv.conv3x3_k9_ref, "i2c": cv.conv3x3_i2c_ref}
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rows = {"k9": [], "i2c": []}
+    for n, h, w, cin, cout in CONV_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            x = torch.randn((n, h, w, cin), generator=g, device="cuda").to(
+                dtype)
+            wt = (torch.randn((cout, 3, 3, cin), generator=g, device="cuda")
+                  * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+            dy = torch.randn((n, h, w, cout), generator=g,
+                             device="cuda").to(dtype)
+            xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
+
+            def cudnn():
+                return F.conv2d(xc, wc, padding=1)
+
+            lib_ms = time_ms(torch, cudnn, 10)
+            backend = _device_kernels(torch, cudnn)
+            print(f"cudnn {dname} {h}x{w}x{cin}: kernels {backend}",
+                  flush=True)
+            for kind, fn in cv.KERNELS.items():
+                row = {"N": n, "H": h, "W": w, "Cin": cin, "Cout": cout,
+                       "dtype": dname, "path": cv.kernel_for(cin) == kind,
+                       "library_ms": lib_ms, "cudnn_kernels": backend}
+                for flip, inp in ((False, x), (True, dy)):
+                    got = fn(inp, wt, flip)
+                    torch.cuda.synchronize()
+                    want = plain[kind](inp, wt, flip)
+                    check(torch.isfinite(got.float()).all().item(),
+                          f"conv3x3_{kind} {h}x{w}x{cin} {dname} flip={flip}: "
+                          f"non-finite output")
+                    err = float((got.float() - want.float()).abs().max())
+                    scale = float(want.float().abs().max())
+                    tol = CONV_TOL[dname] * scale
+                    check(err <= tol, f"conv3x3_{kind} {h}x{w}x{cin} {dname} "
+                                      f"flip={flip}: max abs err {err} over "
+                                      f"{tol}")
+                    row["flip_max_abs_err" if flip else "max_abs_err"] = err
+                    row["flip_tolerance" if flip else "tolerance"] = tol
+                    del got, want
+                nbytes, flops = cv.bytes_and_flops(x, wt)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                row.update(ms=time_ms(torch, lambda: fn(x, wt), 10),
+                           plain_ms=time_ms(torch, lambda: plain[kind](x, wt),
+                                            3),
+                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                           flops=flops)
+                rows[kind].append(row)
+            del x, wt, dy, xc, wc
+            torch.cuda.empty_cache()
+    results = {}
+    for kind, shapes in rows.items():
+        name = f"conv3x3_{kind}"
+        emit({"phase": "kernels", "kernel": name, "shapes": shapes})
+        t = next(r for r in shapes if r["path"] and r["dtype"] == "bfloat16")
+        results[name] = {
+            "name": name, "route": "cuda", "source": CONV_SOURCE,
+            "replaces": CONV_REPLACES[kind],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes
+                               if r["dtype"] == "float32"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # one F.conv2d call (cuDNN) on the same channels-last tensors
+            "library_ms": t["library_ms"],
+            "timed_shape": f"{t['N']}x{t['H']}x{t['W']}x{t['Cin']} -> "
+                           f"{t['Cout']} bfloat16",
             "launches": 0, "shapes": shapes}
     return results
 
@@ -954,6 +1073,189 @@ def phase_train(torch, kernels, smi):
     emit({"phase": "profile", "path": "train", "steps": 2, **profile})
 
 
+RESNET_BATCH, RESNET_HW, RESNET_STEPS = 256, 224, 5
+RESNET_CHECK_BATCH = 4
+
+
+def _conv_counts():
+    from bigdl_tpu_torch.nn import SpatialConvolution
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    return {"k9": cv.conv3x3_k9.launches, "i2c": cv.conv3x3_i2c.launches,
+            "library": dict(SpatialConvolution.library_calls)}
+
+
+def _reset_conv_counts():
+    from bigdl_tpu_torch.nn import SpatialConvolution
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    cv.conv3x3_k9.launches = 0
+    cv.conv3x3_i2c.launches = 0
+    SpatialConvolution.library_calls.clear()
+
+
+# card-vs-CPU gradient bar of train_resnet: a gradient may differ from the
+# CPU's by 1e-3 of its largest magnitude or by RESNET_NOISE_FACTOR times
+# its float32 noise floor, whichever is larger. The noise floor is how far
+# the CPU's own gradient moves when the images move by 2^-23 relative (the
+# larger of two such draws). At this model's initial weights and a batch
+# of 4 the training-mode BN layers make most gradients ill-conditioned:
+# such a change moves the median parameter's gradient by 2.2 % of its
+# largest magnitude and res5_0_proj.weight's by 32 % (PERF.md, PR 4), so a
+# fixed 1e-3 bar cannot hold whatever the kernels do.
+RESNET_NOISE_FACTOR = 10
+
+
+def _perturbed(torch, x, seed):
+    g = torch.Generator().manual_seed(seed)
+    return x * (1 + (torch.rand(x.shape, generator=g) - 0.5) * 2.0 ** -22)
+
+
+def _resnet_vs_cpu(torch, model, params, rng):
+    """One float32 training forward and backward of a RESNET_CHECK_BATCH
+    batch on the card against the port's CPU run (plain versions) on the
+    same weights; returns the comparison's record (see
+    RESNET_NOISE_FACTOR for the gradient bar)."""
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import make_loss_and_grads
+    crit = ClassNLLCriterion()
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_CHECK_BATCH, RESNET_HW, RESNET_HW, 3), dtype="float32"))
+    y = torch.from_numpy(rng.integers(0, 1000, RESNET_CHECK_BATCH))
+    model.load_state_dict(params)
+    loss_g, grads_g = make_loss_and_grads(model, crit)(x.cuda(), y.cuda())
+    card_bufs = {k: b.cpu() for k, b in model.named_buffers()}
+    cpu = ResNet(class_num=1000, depth=50, format="NHWC", device="cpu")
+
+    def cpu_run(images):
+        cpu.load_state_dict(params)
+        loss, grads = make_loss_and_grads(cpu, crit)(images, y)
+        return float(loss), {k: g.clone() for k, g in grads.items()}
+
+    loss_c, grads_c = cpu_run(x)
+    cpu_bufs = {k: b.clone() for k, b in cpu.named_buffers()}
+    noise = {k: 0.0 for k in grads_c}
+    for seed in (0, 1):
+        _, moved = cpu_run(_perturbed(torch, x, seed))
+        for k, g in moved.items():
+            noise[k] = max(noise[k], float((g - grads_c[k]).abs().max()))
+    rec = {"cpu_loss_rel_diff": abs(float(loss_g) - loss_c) / abs(loss_c),
+           "cpu_grad_worst_rel": 0.0, "cpu_grad_worst_param": None,
+           "cpu_grad_worst_vs_bar": 0.0, "cpu_grad_bar_param": None,
+           "cpu_grad_params_on_noise_floor": 0,
+           "cpu_grad_noise_median_rel": None, "cpu_bn_worst_abs": 0.0,
+           "cpu_bn_worst_buffer": None}
+    noise_rel = []
+    for name, gc in grads_c.items():
+        top = max(float(gc.abs().max()), 1e-30)
+        diff = float((grads_g[name].float().cpu() - gc).abs().max())
+        noise_rel.append(noise[name] / top)
+        bar = max(1e-3 * top, RESNET_NOISE_FACTOR * noise[name])
+        rec["cpu_grad_params_on_noise_floor"] += bar > 1e-3 * top
+        if diff / top > rec["cpu_grad_worst_rel"]:
+            rec["cpu_grad_worst_rel"] = diff / top
+            rec["cpu_grad_worst_param"] = name
+        if diff / bar > rec["cpu_grad_worst_vs_bar"]:
+            rec["cpu_grad_worst_vs_bar"] = diff / bar
+            rec["cpu_grad_bar_param"] = name
+    rec["cpu_grad_noise_median_rel"] = sorted(noise_rel)[len(noise_rel) // 2]
+    for name, b in cpu_bufs.items():
+        diff = float((card_bufs[name] - b).abs().max())
+        if diff > rec["cpu_bn_worst_abs"]:
+            rec["cpu_bn_worst_abs"], rec["cpu_bn_worst_buffer"] = diff, name
+    return rec
+
+
+def phase_train_resnet(torch, kernels, smi):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import ResNet, conv_routes, resnet_flops
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"train_resnet: cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    t0 = time.perf_counter()
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    params = convert.init_resnet_params(model, seed=0)
+    model.load_state_dict(params)
+    routes = conv_routes(model, (RESNET_HW, RESNET_HW))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, RESNET_HW, RESNET_HW, 3), dtype="float32")).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).cuda()
+    crit = ClassNLLCriterion()
+    opt = SGD(learningrate=0.01, momentum=0.9)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    step = make_train_step(model, crit, opt, compute_dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, x, y)]                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the counts start at 0 just before the timed steps
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(step(opt_state, x, y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for kind in ("k9", "i2c"):
+        want = routes[kind] * RESNET_STEPS
+        check(counts[kind] == want,
+              f"conv3x3_{kind} launched {counts[kind]} times in "
+              f"{RESNET_STEPS} steps; the layers give {want}")
+        kernels[f"conv3x3_{kind}"]["launches"] = counts[kind]
+    check("3x3/s1" not in counts["library"],
+          f"a 3x3 stride-1 convolution reached F.conv2d: {counts['library']}")
+    lib = sum(counts["library"].values())
+    check(lib == routes["library"] * RESNET_STEPS,
+          f"F.conv2d ran {lib} times in {RESNET_STEPS} steps; the layers "
+          f"give {routes['library'] * RESNET_STEPS}")
+    step_s = wall / RESNET_STEPS
+    flops = 3 * resnet_flops(model, (RESNET_HW, RESNET_HW)) * RESNET_BATCH
+
+    cmp = _resnet_vs_cpu(torch, model, params, rng)
+    print(f"train_resnet card vs CPU: {json.dumps(cmp)}", flush=True)
+    check(cmp["cpu_loss_rel_diff"] <= 1e-4,
+          f"card vs CPU loss differs by {cmp['cpu_loss_rel_diff']}")
+    check(cmp["cpu_grad_worst_vs_bar"] <= 1.0,
+          f"card vs CPU gradient of {cmp['cpu_grad_bar_param']} is "
+          f"{cmp['cpu_grad_worst_vs_bar']} times its bar")
+    check(cmp["cpu_bn_worst_abs"] <= 1e-4,
+          f"card vs CPU BN statistic {cmp['cpu_bn_worst_buffer']} differs "
+          f"by {cmp['cpu_bn_worst_abs']}")
+    emit({"phase": "train_resnet", "model": "resnet50", "format": "NHWC",
+          "batch": RESNET_BATCH, "image": RESNET_HW,
+          "compute_dtype": "bfloat16",
+          "optimizer": "SGD(0.01, momentum 0.9)", "losses": losses,
+          "timed_steps": RESNET_STEPS, "step_s": step_s,
+          "images_per_s": RESNET_BATCH / step_s, "warmup_s": warmup_s,
+          "setup_s": setup_s, "peak_memory_bytes": peak,
+          "model_flops_per_step": flops,
+          "mfu_vs_bf16_peak": flops / step_s / PEAK_FLOPS_PER_S["bfloat16"],
+          "conv_routes_per_step": routes, "launches": counts,
+          "cpu_check_batch": RESNET_CHECK_BATCH,
+          "cpu_grad_noise_factor": RESNET_NOISE_FACTOR, **cmp,
+          "card": smi})
+
+    # where the time goes: 2 more bfloat16 steps under torch.profiler
+    model.load_state_dict(params)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    profile = _profile(torch, lambda: [step(opt_state, x, y)
+                                       for _ in range(2)])
+    emit({"phase": "profile", "path": "train_resnet", "steps": 2, **profile})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -971,6 +1273,8 @@ def main():
     phase_slice_int8(torch, kernels, f32_line)
     torch.cuda.empty_cache()
     phase_train(torch, kernels, smi)
+    torch.cuda.empty_cache()
+    phase_train_resnet(torch, kernels, smi)
     emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``bigdl_tpu_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``bigdl_tpu`` (the
-name itself, or with a ``.`` after it — ``bigdl_tpu_torch`` is the port).
-Only the tests import both."""
+``chip_smoke.py`` imports ``jax``, the JAX package ``bigdl_tpu`` (the
+name itself, or with a ``.`` after it — ``bigdl_tpu_torch`` is the port)
+or the reference's ``scripts/`` (home of the Pallas conv kernels). Only
+the tests import both."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "bigdl_tpu")
+FORBIDDEN = ("jax", "bigdl_tpu", "scripts")
 FILES = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -37,6 +38,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_sees_the_package_and_the_rule_bites():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    assert ROOT / "bigdl_tpu_torch" / "ops" / "conv3x3.py" in FILES
     assert _forbidden("jax.numpy") and _forbidden("bigdl_tpu")
+    assert _forbidden("scripts.perf_pallas_conv")
     assert _forbidden("bigdl_tpu.serving")
     assert not _forbidden("bigdl_tpu_torch.ops") and not _forbidden("jaxlib2")
