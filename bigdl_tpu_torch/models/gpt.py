@@ -12,10 +12,19 @@ each block's activations in the backward pass.
 
 Index arguments of the paged methods (page tables, positions, chunk
 bounds) are host values, numpy arrays or CPU tensors, as the serving
-engine keeps them: masks and write indices are computed on the host, and
-each call moves what the device needs in a few small copies. Token ids
-of the decode step may already live on the device (the sampler's
-output).
+engine keeps them: masks and write indices are computed on the host
+(:func:`chunk_plan`, :func:`decode_plan`), and each call moves what the
+device needs in a few small copies. Token ids of the decode step may
+already live on the device (the sampler's output).
+
+``tp > 1`` builds one tensor-parallel shard of the model (its attention
+heads, its slice of the MLP's inner width and, when the caller gives it
+``vocab_size / tp`` rows, its slice of the vocabulary);
+``parallel/tensor_parallel.py`` drives the shards. The paged paths are
+written once, over a list of shards (:func:`paged_chunk_states`,
+:func:`paged_step_states`, ``TransformerDecoderBlock.paged_layer``): the
+unsharded model is the list of one. :func:`partition_specs` names each
+parameter's role in ``parallel/layout.py``'s table.
 """
 
 from __future__ import annotations
@@ -25,6 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn import LayerNormalization, Linear
+from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+from bigdl_tpu_torch.parallel.layout import (SpecLayout, all_reduce_sum,
+                                             broadcast)
 from bigdl_tpu_torch.parallel.sequence import (MultiHeadAttention,
                                                paged_write_index)
 from bigdl_tpu_torch.utils.device import resolve_device
@@ -36,24 +48,39 @@ def _host(x, dtype=torch.long):
 
 
 class TransformerDecoderBlock(nn.Module):
-    """Pre-LN causal block: x += attn(ln1(x)); x += mlp(ln2(x))."""
+    """Pre-LN causal block: x += attn(ln1(x)); x += mlp(ln2(x)). A
+    ``tp > 1`` shard holds its heads and ``intermediate_size / tp`` of the
+    MLP's inner width (``fc1`` column-parallel, ``fc2`` row-parallel with
+    the whole, replicated bias)."""
 
     def __init__(self, hidden_size, n_heads, intermediate_size=None,
-                 dropout=0.0, device=None, dtype=torch.float32):
+                 dropout=0.0, tp=1, device=None, dtype=torch.float32):
         super().__init__()
         inter = intermediate_size or 4 * hidden_size
+        if inter % tp:
+            raise ValueError(f"intermediate_size ({inter}) must be divisible "
+                             f"by tp ({tp})")
         kw = dict(device=device, dtype=dtype)
         self.dropout = dropout
         self.attn = MultiHeadAttention(hidden_size, n_heads, causal=True,
-                                       **kw)
+                                       tp=tp, **kw)
         self.ln1 = LayerNormalization(hidden_size, **kw)
         self.ln2 = LayerNormalization(hidden_size, **kw)
-        self.fc1 = Linear(hidden_size, inter, **kw)
-        self.fc2 = Linear(inter, hidden_size, **kw)
+        self.fc1 = Linear(hidden_size, inter // tp, **kw)
+        self.fc2 = Linear(inter // tp, hidden_size, **kw)
+
+    def _inner(self, x):
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
 
     def _mlp(self, x):
-        # jax.nn.gelu defaults to the tanh approximation
-        return self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        return self.fc2(self._inner(x))
+
+    def mlp_partial(self, x):
+        """A shard's MLP without ``fc2``'s bias: its pre-reduction
+        partial, which the caller sums over the shards before adding the
+        bias once."""
+        return F.linear(self._inner(x), self.fc2.weight)
 
     def _drop(self, h, generator):
         """Inverted dropout of ``h`` in training mode with a generator;
@@ -69,17 +96,36 @@ class TransformerDecoderBlock(nn.Module):
         x = x + self._drop(self.attn(self.ln1(x)), generator)
         return x + self._drop(self._mlp(x), generator)
 
-    def paged_prefill_chunk(self, pool, x, index, page_table, start):
-        h, pool = self.attn.paged_prefill_chunk(self.ln1(x), pool, index,
-                                                page_table, start)
-        x = x + h
-        return x + self._mlp(x), pool
-
-    def paged_decode_step(self, pool, x, index, page_table, pos):
-        h, pool = self.attn.paged_decode_step(self.ln1(x), pool, index,
-                                              page_table, pos)
-        x = x + h
-        return x + self._mlp(x), pool
+    @staticmethod
+    def paged_layer(blocks, pools, xs, index, page_table, start, mesh=None):
+        """One block of the paged chunk and decode paths over its
+        tensor-parallel shards: ``blocks``, ``pools``, ``xs`` (B, C,
+        hidden) and the device-side ``index``, ``page_table`` and
+        ``start`` hold one entry per shard (one entry and ``mesh`` None:
+        the whole block). x += attn(ln1(x)); x += mlp(ln2(x)). Each shard
+        writes its heads' K/V into its pool and computes its queries; the
+        paged-attention kernel then runs once per shard (``mesh``: the
+        shards' devices, ``ops.paged_attention``'s ``mesh=``). The ``wo``
+        and ``fc2`` partials are summed by ``all_reduce_sum`` (the
+        identity for one shard), and a shard's ``fc2`` bias, replicated,
+        is added once after the sum. Returns the per-shard states; the
+        pools are written in place."""
+        qs = [blk.attn.paged_qkv(blk.ln1(x), pool, ix)[0]
+              for blk, x, pool, ix in zip(blocks, xs, pools, index)]
+        if mesh is None:
+            outs = [paged_pool_attention(qs[0], pools[0], page_table[0],
+                                         start[0])]
+        else:
+            outs = paged_pool_attention(qs, pools, page_table, start,
+                                        mesh=mesh)
+        attn = all_reduce_sum([blk.attn.paged_out(o)
+                               for blk, o in zip(blocks, outs)])
+        xs = [x + a for x, a in zip(xs, attn)]
+        if mesh is None:
+            return [xs[0] + blocks[0]._mlp(xs[0])]
+        mlp = all_reduce_sum([blk.mlp_partial(x)
+                              for blk, x in zip(blocks, xs)])
+        return [x + (m + blk.fc2.bias) for x, m, blk in zip(xs, mlp, blocks)]
 
 
 class GPT(nn.Module):
@@ -87,7 +133,8 @@ class GPT(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 dropout=0.0, remat=False, device=None, dtype=torch.float32):
+                 dropout=0.0, remat=False, tp=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -100,8 +147,9 @@ class GPT(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(max_position, hidden_size,
                                                 **kw))
         self.layers = nn.ModuleList(
-            TransformerDecoderBlock(hidden_size, n_heads, intermediate_size,
-                                    dropout, **kw) for _ in range(n_layers))
+            TransformerDecoderBlock(hidden_size, n_heads,
+                                    self.intermediate_size, dropout, tp=tp,
+                                    **kw) for _ in range(n_layers))
         self.ln_f = LayerNormalization(hidden_size, **kw)
 
     @property
@@ -126,84 +174,180 @@ class GPT(nn.Module):
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
-        dicts of (num_pages, n_heads, page_size, head_dim), in ``dtype``
-        (default the model's; ``torch.int8`` adds the scale planes). A
-        page index names the same page in every layer, so one page table
-        per slot covers the stack."""
+        dicts of (num_pages, local heads, page_size, head_dim), in
+        ``dtype`` (default the model's; ``torch.int8`` adds the scale
+        planes). A page index names the same page in every layer, so one
+        page table per slot covers the stack."""
         dtype = self.tok_emb.dtype if dtype is None else dtype
         return [l.attn.init_paged_pool(num_pages, page_size, dtype,
                                        self.device) for l in self.layers]
 
-    def _paged_chunk(self, pools, page_table, ids, start, nvalid,
-                     write_from, page_size):
-        """Run C tokens per row through every block against the pools,
-        writing positions ``[max(start, write_from), start + nvalid)``
-        (and ``< max_position``) through the table; every other token's
-        write is filtered out. Returns the (W, C, hidden) final-norm
-        hidden states and the pools (updated in place)."""
-        dev = self.device
-        ids = _host(ids)
-        w, c = ids.shape
-        table = _host(page_table, torch.int32)
-        p = table.shape[1]
-        start = _host(start)
-        nvalid = _host(nvalid)
-        write_from = _host(write_from)
-        num_pages = pools[0]["k"].shape[0]
-        j = torch.arange(c)[None, :]
-        pos = start[:, None] + j                                  # (W, C)
-        # the reference clips the position-embedding read
-        pos_c = pos.clamp(0, self.max_position - 1)
-        h = (self.tok_emb[ids.to(dev)] + self.pos_emb[pos_c.to(dev)])
-        writable = ((j < nvalid[:, None]) & (pos >= write_from[:, None])
-                    & (pos < self.max_position))
-        page_idx = (pos // page_size).clamp(0, p - 1)
-        pages = torch.where(writable,
-                            torch.gather(table.long(), 1, page_idx),
-                            torch.full_like(pos, num_pages))
-        index = paged_write_index(pages, pos % page_size, num_pages, dev)
-        table_d = table.to(dev)
-        start_d = start.to(dev, torch.int32)
-        for i, layer in enumerate(self.layers):
-            h, pools[i] = layer.paged_prefill_chunk(pools[i], h, index,
-                                                    table_d, start_d)
-        return self.ln_f(h), pools
+    @staticmethod
+    def pool_planes(pools):
+        """Every tensor of ``pools``, per shard: one shard here (the
+        serving path copies pages and counts bytes through this)."""
+        return [[v for pl in pools for v in pl.values()]]
 
     def paged_prefill_chunk(self, pools, page_table, ids, start, nvalid,
                             write_from, page_size):
         """One chunk of chunked prefill over W rows: ``ids`` (W, C), row
         ``i`` covering positions ``[start[i], start[i] + nvalid[i])``;
         K/V written only at positions ``>= write_from[i]`` (the shared
-        prefix boundary). Returns ``(h_last, pools)``, ``h_last`` (W,
-        hidden) the final-norm state at each row's last valid offset."""
-        h, pools = self._paged_chunk(pools, page_table, ids, start, nvalid,
-                                     write_from, page_size)
-        c = h.shape[1]
-        last = (_host(nvalid) - 1).clamp(0, c - 1)
-        return (h[torch.arange(h.shape[0], device=h.device), last.to(h.device)],
-                pools)
+        prefix boundary; :func:`paged_chunk_states`). Returns ``(h_last,
+        pools)``, ``h_last`` (W, hidden) the final-norm state at each
+        row's last valid offset."""
+        h = paged_chunk_states([self], [pools], page_table, ids, start,
+                               nvalid, write_from, page_size)
+        return last_valid(h, nvalid), pools
 
     def paged_decode_step(self, pools, page_table, tok, pos, page_size):
         """One token per slot: embed ``tok`` (B,) at ``pos`` (B,), write
         its K/V at page ``page_table[s, pos // page_size]`` offset ``pos %
         page_size`` (a sentinel entry drops the write) and attend through
-        the table. Returns the (B, hidden) final-norm states and pools."""
-        dev = self.device
-        table = _host(page_table, torch.int32)
-        pos = _host(pos)
-        num_pages = pools[0]["k"].shape[0]
-        pos_d = pos.to(dev)
-        h = (self.tok_emb[torch.as_tensor(tok, device=dev).long()]
-             + self.pos_emb[pos_d])[:, None, :]
-        pages = torch.gather(table.long(), 1, (pos // page_size)[:, None])
-        index = paged_write_index(pages, (pos % page_size)[:, None],
-                                  num_pages, dev)
-        table_d = table.to(dev)
-        pos_i = pos_d.to(torch.int32)
-        for i, layer in enumerate(self.layers):
-            h, pools[i] = layer.paged_decode_step(pools[i], h, index,
-                                                  table_d, pos_i)
-        return self.ln_f(h)[:, 0], pools
+        the table (:func:`paged_step_states`). Returns the (B, hidden)
+        final-norm states and pools."""
+        return paged_step_states([self], [pools], page_table, tok, pos,
+                                 page_size), pools
+
+
+def _paged_embed(gpts, ids, pos, vocab_split):
+    """Per-shard token plus position embeddings of per-shard ids and
+    clipped positions (the same values on every shard). ``vocab_split``:
+    shard ``i`` holds rows ``i * rows ... (i + 1) * rows - 1`` of the
+    table, looks up the ids it holds (zeros for the rest), and
+    ``all_reduce_sum`` joins the lookups (exact: one partial is
+    nonzero)."""
+    if not vocab_split:
+        return [g.tok_emb[t] + g.pos_emb[p]
+                for g, t, p in zip(gpts, ids, pos)]
+    rows = gpts[0].tok_emb.shape[0]
+    parts = []
+    for i, (g, t) in enumerate(zip(gpts, ids)):
+        local = t - i * rows
+        miss = (local < 0) | (local >= rows)
+        parts.append(g.tok_emb[local.clamp(0, rows - 1)]
+                     .masked_fill(miss[..., None], 0))
+    return [x + g.pos_emb[p]
+            for x, g, p in zip(all_reduce_sum(parts), gpts, pos)]
+
+
+def _paged_layers(gpts, pools, xs, index, table, start, mesh):
+    """Every block (``TransformerDecoderBlock.paged_layer``), then the
+    final norm once, on the first shard's device."""
+    for i in range(len(gpts[0].layers)):
+        xs = TransformerDecoderBlock.paged_layer(
+            [g.layers[i] for g in gpts], [p[i] for p in pools], xs, index,
+            table, start, mesh)
+    return gpts[0].ln_f(xs[0])
+
+
+def paged_chunk_states(gpts, pools, page_table, ids, start, nvalid,
+                       write_from, page_size, mesh=None, vocab_split=False):
+    """The paged prefill chunk over tensor-parallel shards: ``gpts`` (one
+    ``GPT`` per shard; ``[model.gpt]`` unsharded) with ``pools`` (per
+    shard, then per layer), ``mesh`` the shards' devices (None for one
+    unsharded ``GPT``) and ``vocab_split`` whether the shards split the
+    token embedding. The host's :func:`chunk_plan` is copied once to each
+    device. Returns the (W, C, hidden) final-norm states on the first
+    shard's device; the pools are written in place."""
+    devices = mesh or [gpts[0].device]
+    ids, pos_c, index, table, start = [broadcast(t, devices) for t in
+                                       chunk_plan(
+        page_table, ids, start, nvalid, write_from, page_size,
+        pools[0][0]["k"].shape[0], gpts[0].max_position)]
+    xs = _paged_embed(gpts, ids, pos_c, vocab_split)
+    return _paged_layers(gpts, pools, xs, index, table, start, mesh)
+
+
+def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
+                      mesh=None, vocab_split=False):
+    """The paged decode step over shards (arguments as
+    :func:`paged_chunk_states`; ``tok`` may live on any device, the
+    sampler's output on the first shard's). Returns the (B, hidden)
+    final-norm states on the first shard's device."""
+    devices = mesh or [gpts[0].device]
+    pos_d, index, table, pos_i = [broadcast(t, devices) for t in decode_plan(
+        page_table, pos, page_size, pools[0][0]["k"].shape[0])]
+    tok = broadcast(torch.as_tensor(tok).long(), devices)
+    xs = [x[:, None, :] for x in _paged_embed(gpts, tok, pos_d, vocab_split)]
+    return _paged_layers(gpts, pools, xs, index, table, pos_i, mesh)[:, 0]
+
+
+def chunk_plan(page_table, ids, start, nvalid, write_from, page_size,
+               num_pages, max_position):
+    """The host side of a prefill chunk (see :func:`paged_chunk_states`),
+    as CPU tensors for the caller to move: token ids (W, C) and clipped
+    positions (W, C), both int64; the write index (3, n) of
+    :func:`paged_write_index`; the page table (W, P) and the rows' starts
+    (W,), both int32."""
+    ids = _host(ids)
+    c = ids.shape[1]
+    table = _host(page_table, torch.int32)
+    p = table.shape[1]
+    start = _host(start)
+    nvalid = _host(nvalid)
+    write_from = _host(write_from)
+    j = torch.arange(c)[None, :]
+    pos = start[:, None] + j                                      # (W, C)
+    # the reference clips the position-embedding read
+    pos_c = pos.clamp(0, max_position - 1)
+    writable = ((j < nvalid[:, None]) & (pos >= write_from[:, None])
+                & (pos < max_position))
+    page_idx = (pos // page_size).clamp(0, p - 1)
+    pages = torch.where(writable, torch.gather(table.long(), 1, page_idx),
+                        torch.full_like(pos, num_pages))
+    index = paged_write_index(pages, pos % page_size, num_pages, "cpu")
+    return ids, pos_c, index, table, start.to(torch.int32)
+
+
+def last_valid(h, nvalid):
+    """(W, hidden): row ``i`` of ``h`` (W, C, hidden) at its last valid
+    offset ``nvalid[i] - 1`` (host ints)."""
+    last = (_host(nvalid) - 1).clamp(0, h.shape[1] - 1)
+    return h[torch.arange(h.shape[0], device=h.device), last.to(h.device)]
+
+
+def decode_plan(page_table, pos, page_size, num_pages):
+    """The host side of a decode step (see ``GPT.paged_decode_step``), as
+    CPU tensors: positions (B,) int64, the write index (3, n), the page
+    table (B, P) int32 and the positions (B,) int32."""
+    table = _host(page_table, torch.int32)
+    pos = _host(pos)
+    pages = torch.gather(table.long(), 1, (pos // page_size)[:, None])
+    index = paged_write_index(pages, (pos % page_size)[:, None], num_pages,
+                              "cpu")
+    return pos, index, table, pos.to(torch.int32)
+
+
+def partition_specs(state_dict):
+    """``{name: split dim or None}`` for a GPT ``state_dict`` (any mapping
+    keyed by the port's parameter names): the reference's
+    ``GPTForCausalLM.partition_specs`` name -> role mapping, with
+    ``parallel/layout.SpecLayout`` giving each role's torch dimension. An
+    int8 weight's per-output-channel ``scale`` takes the weight's
+    output-dim split: a column-parallel weight's scales split with its
+    rows."""
+    spec = SpecLayout()
+
+    def role(name):
+        parts = name.split(".")
+        leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else None
+        if leaf == "tok_emb":
+            return spec.embeddings()
+        if leaf == "pos_emb":
+            return spec.position_embeddings()
+        if parent in ("wq", "wk", "wv"):
+            return spec.qkv_projection()       # weight (out, in); scale
+        if parent == "wo":                     # scale: replicated
+            return spec.attention_output() if leaf == "weight" \
+                else spec.norm()
+        if parent == "fc1":
+            return spec.ffn_up() if leaf == "weight" else spec.ffn_up_bias()
+        if parent == "fc2":
+            return spec.ffn_down() if leaf == "weight" else spec.norm()
+        return spec.norm()            # ln1/ln2/ln_f and anything else
+
+    return {name: role(name) for name in state_dict}
 
 
 def prompt_bucket(t, max_position):
@@ -245,14 +389,15 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 dropout=0.0, remat=False, device=None, dtype=torch.float32):
+                 dropout=0.0, remat=False, tp=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.gpt = GPT(vocab_size=vocab_size, hidden_size=hidden_size,
                        n_layers=n_layers, n_heads=n_heads,
                        max_position=max_position,
                        intermediate_size=intermediate_size, dropout=dropout,
-                       remat=remat, device=resolve_device(device),
+                       remat=remat, tp=tp, device=resolve_device(device),
                        dtype=dtype)
 
     @property

@@ -24,6 +24,19 @@ of (num_pages, H, page_size)) is read as ``k.float() * k_scale[..., None]``
 
 A row with no visible key at all (an all-sentinel table row: padding and
 inactive slots) comes out as zeros on both paths; callers discard it.
+
+Tensor parallelism (the reference's ``mesh=`` branch, which runs its
+kernel under ``shard_map``, one copy on each chip's head shard): with
+``mesh=`` (one device per shard) every argument is a per-shard sequence,
+each shard's pool its own tensors holding that shard's heads, and its
+copy of the shared page table and starts on its device (the caller
+copies them once per dispatch, not once per layer). The grid is
+head-local, so the wrapper launches the same kernel once per shard, on
+the shard's device, over the shard's own pool; there are no
+collectives, and the shards' outputs, joined on the head axis, are the
+unsharded call's. ``paged_pool_attention.sharded_calls`` counts these
+calls (on any device; each shard's launch counts in ``launches`` or
+``int8_launches`` as above).
 """
 
 from __future__ import annotations
@@ -137,7 +150,8 @@ def _check_cuda_args(q, pool, page_table, start):
                          f"{(k.shape[2], d)} not in {KERNEL_SHAPES}")
 
 
-def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
+def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
+                         mesh=None):
     """Chunk/decode attention against the paged pool: the CUDA kernel for
     CUDA tensors, :func:`paged_pool_attention_ref` for CPU tensors.
 
@@ -145,7 +159,15 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
     (N, H, page_size, D) in ``q``'s dtype, or int8 with float32 ``{"k_scale",
     "v_scale"}`` of (N, H, page_size); ``page_table``: (B, P) int32 with
     sentinel ``>= N``; ``start``: (B,) int32 absolute position of each
-    row's first query. Returns (B, H, C, D) in ``q.dtype``."""
+    row's first query. Returns (B, H, C, D) in ``q.dtype``.
+
+    ``mesh``: None, or the shards' devices (one per shard; a device may
+    repeat). Then ``q``, ``pool``, ``page_table`` and ``start`` are
+    per-shard sequences, shard ``i``'s on ``mesh[i]`` (its ``q`` and
+    ``pool`` with that shard's heads), and the call returns the list of
+    per-shard outputs (see module docstring)."""
+    if mesh is not None:
+        return _sharded(q, pool, page_table, start, sm_scale, mesh)
     if q.dim() != 4:
         raise ValueError("paged_pool_attention expects q of (B, H, C, D)")
     if sm_scale is None:
@@ -181,6 +203,40 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None):
 
 paged_pool_attention.launches = 0
 paged_pool_attention.int8_launches = 0
+paged_pool_attention.sharded_calls = 0
+
+
+def _sharded(qs, pools, tables, starts, sm_scale, mesh):
+    """The ``mesh=`` branch: one call of the unsharded wrapper per shard,
+    on the shard's device and its own pool."""
+    devices = [torch.device(d) for d in mesh]
+    args = (qs, pools, tables, starts)
+    if not all(isinstance(a, (list, tuple)) for a in args):
+        raise ValueError("paged_pool_attention(mesh=...) takes per-shard "
+                         "sequences of q, pool, page_table and start")
+    if {len(a) for a in args} != {len(devices)}:
+        raise ValueError(f"paged_pool_attention: {[len(a) for a in args]} "
+                         f"shards of q, pool, page_table and start for a "
+                         f"mesh of {len(devices)}")
+    heads = {q.shape[1] for q in qs}
+    if len(heads) != 1:
+        raise ValueError(f"paged_pool_attention: shards hold different "
+                         f"head counts {sorted(heads)}")
+    if sm_scale is None:
+        sm_scale = qs[0].shape[-1] ** -0.5
+    outs = []
+    for q, pool, table, st, dev in zip(qs, pools, tables, starts, devices):
+        if q.device != dev:
+            raise ValueError(f"paged_pool_attention: a query shard is on "
+                             f"{q.device}, its mesh device is {dev}")
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                outs.append(paged_pool_attention(q, pool, table, st,
+                                                 sm_scale))
+        else:
+            outs.append(paged_pool_attention(q, pool, table, st, sm_scale))
+    paged_pool_attention.sharded_calls += 1
+    return outs
 
 
 def bytes_and_flops(q, pool, page_table, start):
@@ -189,8 +245,15 @@ def bytes_and_flops(q, pool, page_table, start):
     once, and each distinct visible (page, offset) of K and V read once
     (an int8 pool: 1 byte an element plus its 4-byte (token, head)
     scale); 4*D flops per (query, visible key) pair. Used for the roofline
-    bound of the kernel's timing."""
-    b, h, c, d = q.shape
+    bound of the kernel's timing. Per-shard sequences of ``q`` and
+    ``pool`` (a ``mesh=`` call) give the unsharded call's figures: the
+    work is the same, split by heads."""
+    if isinstance(q, (list, tuple)):
+        h = sum(x.shape[1] for x in q)
+        q, pool = q[0], pool[0]
+        b, _, c, d = q.shape
+    else:
+        b, h, c, d = q.shape
     k = pool["k"]
     n, _, ps, _ = k.shape
     elt = q.element_size()
@@ -207,7 +270,7 @@ def bytes_and_flops(q, pool, page_table, start):
                 # queries of this row that see key `pos`
                 pairs += min(c, last - pos + 1)
     kv_bytes = 2 * len(seen) * h * kv_row
-    io_bytes = 2 * q.numel() * elt + 4 * (table.numel() + st.numel())
+    io_bytes = 2 * b * h * c * d * elt + 4 * (table.numel() + st.numel())
     return kv_bytes + io_bytes, 4 * d * h * pairs
 
 

@@ -26,12 +26,13 @@ Two traps of the reference's XLA semantics are explicit here:
 - out-of-bounds READS: JAX clips them (``mode="clip"``); the gathers
   here clamp explicitly.
 
-The serving path attends through ``ops.paged_attention``
-(:meth:`MultiHeadAttention._paged_attend`): the hand-written kernel on the
-card, its plain version on the CPU, both with the kernel's ``NEG_INF``
-fill. :func:`paged_gather` + :func:`paged_attention` are the reference's
-XLA path, with its ``-inf`` fill (a fully masked row gives NaN there), and
-are kept for the tests.
+The serving path attends through ``ops.paged_attention`` between
+:meth:`MultiHeadAttention.paged_qkv` and
+:meth:`MultiHeadAttention.paged_out` (``models.gpt.TransformerDecoderBlock.
+paged_layer``): the hand-written kernel on the card, its plain version on
+the CPU, both with the kernel's ``NEG_INF`` fill. :func:`paged_gather` +
+:func:`paged_attention` are the reference's XLA path, with its ``-inf``
+fill (a fully masked row gives NaN there), and are kept for the tests.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from torch import nn
 from bigdl_tpu_torch.nn import Linear
 from bigdl_tpu_torch.nn.quantized import scale_of
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
-from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 
 
 def full_attention(q, k, v, causal=False):
@@ -145,14 +145,25 @@ class MultiHeadAttention(nn.Module):
     (``causal`` masks later keys) and the paged methods, which are always
     causal. ``wq``, ``wk``, ``wv``, ``wo`` are bias-free, as in the
     reference. ``sequence_parallel`` (ring/Ulysses attention) is not
-    ported yet."""
+    ported yet.
+
+    ``tp > 1`` builds one tensor-parallel shard of the layer: it holds
+    ``local_heads = n_heads // tp`` of the heads (``wq``/``wk``/``wv``
+    hidden -> local_heads * head_dim, ``wo`` back to hidden), its paged
+    pools hold those heads, and its paged methods return ``wo``'s partial,
+    which the caller sums over the shards (``parallel/tensor_parallel.py``).
+    ``n_heads`` stays the model's."""
 
     def __init__(self, hidden_size, n_heads, causal=False,
-                 sequence_parallel=None, device=None, dtype=torch.float32):
+                 sequence_parallel=None, tp=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
         if hidden_size % n_heads:
             raise ValueError(f"hidden_size {hidden_size} must be divisible "
                              f"by n_heads {n_heads}")
+        if n_heads % tp:
+            raise ValueError(f"n_heads ({n_heads}) must be divisible by tp "
+                             f"({tp})")
         if sequence_parallel is not None:
             raise NotImplementedError(
                 "sequence_parallel (ring/Ulysses attention) is not ported "
@@ -160,18 +171,20 @@ class MultiHeadAttention(nn.Module):
         self.causal = causal
         self.hidden_size = hidden_size
         self.n_heads = n_heads
+        self.local_heads = n_heads // tp
         self.head_dim = hidden_size // n_heads
+        local = self.local_heads * self.head_dim
         kw = dict(with_bias=False, device=device, dtype=dtype)
-        self.wq = Linear(hidden_size, hidden_size, **kw)
-        self.wk = Linear(hidden_size, hidden_size, **kw)
-        self.wv = Linear(hidden_size, hidden_size, **kw)
-        self.wo = Linear(hidden_size, hidden_size, **kw)
+        self.wq = Linear(hidden_size, local, **kw)
+        self.wk = Linear(hidden_size, local, **kw)
+        self.wv = Linear(hidden_size, local, **kw)
+        self.wo = Linear(local, hidden_size, **kw)
 
     def _qkv(self, x):
         b, t, _ = x.shape
 
         def split(proj):
-            return (proj(x).reshape(b, t, self.n_heads, self.head_dim)
+            return (proj(x).reshape(b, t, self.local_heads, self.head_dim)
                     .transpose(1, 2).contiguous())
 
         return split(self.wq), split(self.wk), split(self.wv)
@@ -186,10 +199,11 @@ class MultiHeadAttention(nn.Module):
 
     def init_paged_pool(self, num_pages, page_size, dtype, device):
         """One layer's K/V page pool: ``{"k", "v"}`` of (num_pages,
-        n_heads, page_size, head_dim) zeros (so never-written slots hold
-        finite values); ``dtype=torch.int8`` adds the float32 ``k_scale``
-        and ``v_scale`` planes of (num_pages, n_heads, page_size)."""
-        shape = (num_pages, self.n_heads, page_size, self.head_dim)
+        local_heads, page_size, head_dim) zeros (so never-written slots
+        hold finite values); ``dtype=torch.int8`` adds the float32
+        ``k_scale`` and ``v_scale`` planes of (num_pages, local_heads,
+        page_size). Every plane is a tensor of its own."""
+        shape = (num_pages, self.local_heads, page_size, self.head_dim)
         pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
         if dtype == torch.int8:
@@ -209,25 +223,18 @@ class MultiHeadAttention(nn.Module):
             paged_write(pool["v"], v, index)
         return pool
 
-    def _paged_attend(self, q, k, v, pool, index, page_table, start):
-        """Write-then-attend core of the chunk and step paths: the chunk's
-        own K/V land in the pool first, then the queries attend through
-        the page table (``ops.paged_attention``)."""
-        pool = self._paged_write(pool, k, v, index)
-        return paged_pool_attention(q, pool, page_table, start), pool
-
-    def paged_prefill_chunk(self, x, pool, index, page_table, start):
-        """C tokens per row (x: (B, C, hidden)) write their K/V at
-        ``index`` and attend to every visible position at or before their
-        own (``start[b] + c``) through ``page_table`` (B, P) int32.
-        Returns (output, pool)."""
-        b, t, hs = x.shape
+    def paged_qkv(self, x, pool, index):
+        """The first half of the paged chunk and decode paths: the queries
+        (B, H, C, D) of x (B, C, hidden), with the chunk's own K/V written
+        into ``pool`` at ``index`` first, so that the queries attending
+        through the page table (``ops.paged_attention``, every visible
+        position at or before their own) see them. Returns (q, pool)."""
         q, k, v = self._qkv(x)
-        out, pool = self._paged_attend(q, k, v, pool, index, page_table,
-                                       start)
-        return self.wo(out.transpose(1, 2).reshape(b, t, hs)), pool
+        return q, self._paged_write(pool, k, v, index)
 
-    def paged_decode_step(self, x, pool, index, page_table, pos):
-        """ONE token per row (x: (B, 1, hidden)) at position ``pos`` (B,):
-        the C == 1 case of :meth:`paged_prefill_chunk`."""
-        return self.paged_prefill_chunk(x, pool, index, page_table, pos)
+    def paged_out(self, out):
+        """The second half: the attention output (B, H, C, D) through
+        ``wo`` (a shard's pre-reduction partial when tp > 1)."""
+        b, _, t, _ = out.shape
+        return self.wo(out.transpose(1, 2).reshape(
+            b, t, self.local_heads * self.head_dim))

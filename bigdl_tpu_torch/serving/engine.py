@@ -10,6 +10,12 @@ kernel and sampling through the fused sampling kernel.
 
 The engine runs on the card (``cuda``) unless the caller passes
 ``device="cpu"``; without CUDA and without ``device`` it raises.
+
+``tp=N`` (or ``mesh=[...]``) serves a tensor-parallel model
+(``parallel/tensor_parallel.py``): Megatron-sharded weights, head-sharded
+K/V pools, the paged-attention kernel launched once per shard, and two
+fixed-order sums a layer. One scheduler thread drives every shard, as the
+reference's single controller does.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import time
 from bigdl_tpu_torch.nn.quantized import qmatmul, quantize_model
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
+from bigdl_tpu_torch.parallel.layout import ModelLayout, serving_mesh
+from bigdl_tpu_torch.parallel.tensor_parallel import TensorParallelCausalLM
 from bigdl_tpu_torch.serving.paging import (PagedSlotManager,
                                             PagePoolExhausted,
                                             pages_for_budget)
@@ -30,8 +38,6 @@ from bigdl_tpu_torch.utils.flags import get_flag
 # ROADMAP queue A item that ports each
 _UNPORTED = {
     "spec_tokens": "A.5 speculative decoding",
-    "tp": "A.6 tensor-parallel serving",
-    "mesh": "A.6 tensor-parallel serving",
     "kv_snapshot": "A.7 serving durability",
     "kv_host_tier": "A.7 serving durability",
     "lora": "A.8 control plane, fleet and multi-tenant serving",
@@ -76,15 +82,27 @@ class ServingEngine:
     int8_kv: int8 K/V pages with a float32 scale per (token, head),
         quantised on write and read by the int8 paged-attention kernel
         (``BIGDL_TPU_INT8_KV``, off).
-    kv_bytes: size the page pool by a device-memory budget in bytes
-        (``paging.pages_for_budget``, counting ``int8_kv``'s scale planes);
-        ignored when ``kv_pages`` is given.
-    device: where to serve; None means the card.
+    kv_bytes: size the page pool by a device-memory budget in bytes per
+        chip (``paging.pages_for_budget``, counting ``int8_kv``'s scale
+        planes; under tp each shard holds ``1/tp`` of the heads, so the
+        pool gets ``tp`` times the pages); ignored when ``kv_pages`` is
+        given.
+    device: where to serve; None means the card. With ``tp`` it places
+        every shard there (``device="cpu"``: ``tp`` shards on the CPU).
+    tp: tensor-parallel degree (``BIGDL_TPU_SERVING_TP``, off; an explicit
+        ``tp`` overrides the flag). Alone it takes the first ``tp`` cards
+        and raises when fewer are visible. Needs ``n_heads % tp == 0``;
+        ``tp=1`` is the unsharded path. Not with ``int8_weights`` (ROADMAP
+        A.6b). The engine splits ``model``'s weights into the shards and
+        never moves ``model`` itself: build it on the CPU, so that no card
+        holds a whole copy beside its shard.
+    mesh: the shards' devices, one per shard (a device may repeat: several
+        shards on one card); overrides ``tp``, and is a ``ValueError``
+        together with ``device``.
 
-    The reference's other options (speculative decoding, tensor
-    parallelism, LoRA, K/V snapshots, the host tier, the control plane,
-    recovery) raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them.
+    The reference's other options (speculative decoding, LoRA, K/V
+    snapshots, the host tier, the control plane, recovery) raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them.
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -92,7 +110,8 @@ class ServingEngine:
                  top_k=None, top_p=None, seed=0, default_deadline_s=None,
                  paged=None, page_size=None, kv_pages=None,
                  prefill_chunk=None, prefix_cache=None, int8_weights=None,
-                 int8_kv=None, kv_bytes=None, device=None, **unported):
+                 int8_kv=None, kv_bytes=None, device=None, tp=None,
+                 mesh=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -109,15 +128,29 @@ class ServingEngine:
                 "ported yet (ROADMAP queue A.2 dense engine and generate)")
         if getattr(model, "gpt", None) is None:
             raise TypeError("ServingEngine drives GPTForCausalLM models")
-        self.device = resolve_device(device)
-        if params is not None:
-            model.load_state_dict(params)
+        layout = self._layout(tp, mesh, device)
+        if layout is not None:
+            layout.validate_heads(model.gpt.layers[0].attn.n_heads)
+        self.layout = layout
+        self.tp = 1 if layout is None else layout.tp
+        self.device = (resolve_device(device) if layout is None
+                       else layout.devices[0])
         if int8_weights is None:
             int8_weights = get_flag("BIGDL_TPU_INT8_WEIGHTS", False, bool)
         self.int8_weights = bool(int8_weights)
+        if self.int8_weights and layout is not None:
+            raise NotImplementedError(
+                "int8_weights under tensor parallelism is not ported yet "
+                "(ROADMAP queue A.6b int8 weights under tensor "
+                "parallelism)")
+        if params is not None:
+            model.load_state_dict(params)
         if self.int8_weights:
             quantize_model(model)
-        model.to(self.device)
+        if layout is None:
+            model.to(self.device)
+        else:
+            model = TensorParallelCausalLM(model, layout)
         model.requires_grad_(False)
         model.eval()
         self.model = model
@@ -134,7 +167,8 @@ class ServingEngine:
         if kv_bytes is not None and kv_pages is None:
             kv_pages = pages_for_budget(model, page_size, kv_bytes,
                                         int8=bool(int8_kv),
-                                        dtype=model.gpt.tok_emb.dtype)
+                                        dtype=model.gpt.tok_emb.dtype,
+                                        tp=self.tp)
         self.slots = PagedSlotManager(
             model, max_slots, num_pages=kv_pages, page_size=page_size,
             window=prefill_window, steps_per_sync=steps_per_sync,
@@ -143,11 +177,30 @@ class ServingEngine:
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s)
 
+    @staticmethod
+    def _layout(tp, mesh, device):
+        """The tensor-parallel layout of ``tp``/``mesh`` (see the class
+        docstring), or None for the unsharded path."""
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: mesh= "
+                                 "names every shard's device")
+            return ModelLayout(mesh)
+        if tp is None:
+            tp = get_flag("BIGDL_TPU_SERVING_TP", 0, int)
+        tp = int(tp or 0)
+        if tp <= 1:
+            return None
+        if device is not None:
+            return ModelLayout([device] * tp)
+        return ModelLayout(serving_mesh(tp))
+
     # ---------------------------------------------------------------- serve
     @property
     def stats(self):
         """Dispatch counters: ``prefill_chunks``, ``steps``, ``copies``,
-        ``dispatches``."""
+        ``dispatches``, and ``sampled_steps`` (decode steps that launched
+        the sampler; not dispatches of their own)."""
         return self.slots.stats
 
     def submit(self, prompt, max_new_tokens, temperature=0.0,
@@ -212,8 +265,10 @@ class ServingEngine:
     def metrics(self):
         """Live engine metrics: queue and slot occupancy, admission and
         retirement counters, TTFT, decode throughput, dispatch counters,
-        page-pool statistics, the kernels' launch counts and the count of
-        int8 products (process-wide: every engine adds to one count)."""
+        page-pool statistics (with ``tp_degree`` and the per-chip bytes),
+        the kernels' launch counts, the count of sharded paged-attention
+        calls and the count of int8 products (process-wide: every engine
+        adds to one count)."""
         sch = self.scheduler
         return {
             "device": str(self.device),
@@ -231,6 +286,7 @@ class ServingEngine:
             "cancelled": sch.cancelled,
             "deadline_exceeded": sch.deadline_expired,
             "preempted": sch.preempted,
+            "sharded_attention_calls": paged_pool_attention.sharded_calls,
             "paged_attention_launches": paged_pool_attention.launches,
             "paged_attention_int8_launches":
                 paged_pool_attention.int8_launches,

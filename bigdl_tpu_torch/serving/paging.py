@@ -18,7 +18,11 @@ Device-side contract (``parallel/sequence.py`` + ``models/gpt.py``):
 - ``int8_kv`` pools hold int8 K/V with a float32 scale per (token, head)
   for each of K and V, quantised on write (``parallel/sequence.py``):
   ``(D + 4) / (4 D)`` of a float32 pool's bytes per token, 3.76x the
-  tokens in the same bytes at head_dim 64 (``pages_for_budget``).
+  tokens in the same bytes at head_dim 64 (``pages_for_budget``);
+- under tensor parallelism (a ``parallel.tensor_parallel`` model) every
+  shard holds the same page indices for its ``1/tp`` of the heads, so one
+  host page table drives all shards; ``pages_for_budget(tp=)`` turns a
+  per-chip byte budget into ``tp`` times the pages.
 
 Chunked prefill (Sarathi-Serve, OSDI '24): admission only *allocates*
 (host work); :meth:`PagedSlotManager.prefill_tick` advances up to
@@ -29,7 +33,7 @@ Admission failure is TYPED: :class:`PagePoolExhausted`, never junk
 tokens.
 
 Not ported yet (ROADMAP queue A): speculative decoding, the host tier,
-the snapshot page store, tensor-parallel layouts.
+the snapshot page store.
 """
 
 from __future__ import annotations
@@ -82,12 +86,17 @@ def kv_token_bytes(model, int8=False, dtype=torch.float32):
 
 
 def pages_for_budget(model, page_size, byte_budget, int8=False,
-                     dtype=torch.float32):
+                     dtype=torch.float32, tp=1):
     """The page-pool size that fits ``byte_budget`` bytes of K/V: the knob
     for comparing float and int8 pools at equal device memory (an int8
     pool holds ``4 D / (D + 4)`` times a float32 pool's pages, 3.76x at
-    head_dim 64; about 1.9x against bfloat16)."""
-    per_tok = kv_token_bytes(model, int8, dtype)
+    head_dim 64; about 1.9x against bfloat16).
+
+    ``byte_budget`` is per chip: with ``tp > 1`` each shard holds ``1/tp``
+    of the heads, so the same budget buys ``tp`` times the pages (``tp <=
+    1`` is the unsharded math)."""
+    tp = max(1, int(tp))
+    per_tok = kv_token_bytes(model, int8, dtype) // tp
     return int(byte_budget) // (per_tok * int(page_size))
 
 
@@ -209,6 +218,10 @@ class PagedSlotManager(SlotManager):
     ``active``, ``temps``) are copied in at every dispatch. The sampler's
     gumbel noise comes from a ``torch.Generator`` on the device, seeded
     with ``seed``. ``int8_kv`` allocates int8 pools with scale planes.
+
+    A tensor-parallel model (``parallel.tensor_parallel``) carries its
+    ``layout``: each shard's pools live on its device, the logits table
+    and the sampler's generator on the first shard's.
     """
 
     paged = True
@@ -217,6 +230,8 @@ class PagedSlotManager(SlotManager):
                  window=4, steps_per_sync=1, prefill_chunk=64,
                  prefix_cache=True, top_k=None, top_p=None, seed=0,
                  int8_kv=False):
+        layout = getattr(model, "layout", None)
+        self.tp = 1 if layout is None else layout.tp
         pmax = model.gpt.max_position
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -237,6 +252,9 @@ class PagedSlotManager(SlotManager):
         self.prefix_cache = bool(prefix_cache)
         self.int8_kv = bool(int8_kv)
         self.stats = DispatchCounters("prefill_chunks", "steps", "copies")
+        # decode steps that launched the sampler (a row had temperature >
+        # 0): not dispatches of their own
+        self.stats.add("sampled_steps", 0)
         super().__init__(model, max_slots, window=window,
                          steps_per_sync=steps_per_sync, top_k=top_k,
                          top_p=top_p, seed=seed)
@@ -248,10 +266,13 @@ class PagedSlotManager(SlotManager):
         self._pools = gpt.init_paged_pool(
             self.num_pages, self.page_size,
             torch.int8 if self.int8_kv else None)
-        # every plane, the int8 pool's scale planes included
-        page_bytes = sum(v[0].numel() * v.element_size()
-                         for pl in self._pools for v in pl.values())
-        self._kv_token_bytes = page_bytes // self.page_size
+        # every plane of every shard, the int8 pool's scale planes
+        # included; per chip: measured from the first shard's planes
+        planes = gpt.pool_planes(self._pools)
+        page_bytes = [sum(v[0].numel() * v.element_size() for v in shard)
+                      for shard in planes]
+        self._kv_token_bytes = sum(page_bytes) // self.page_size
+        self._kv_token_bytes_per_chip = page_bytes[0] // self.page_size
         self._logits = torch.zeros((self.max_slots, self.model.vocab_size),
                                    dtype=self._dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
@@ -301,6 +322,8 @@ class PagedSlotManager(SlotManager):
         lengths = self.lengths.astype(np.int64)
         pmax = self.max_position
         logits = self._logits
+        if (self.temps > 0.0).any():           # select_tokens' own test
+            self.stats.add("sampled_steps", self.steps_per_sync)
         toks = []
         for _ in range(self.steps_per_sync):
             tok = select_tokens(logits, self.temps, self._gen, self.top_k,
@@ -320,9 +343,9 @@ class PagedSlotManager(SlotManager):
     @torch.no_grad()
     def _dispatch_copy(self, src, dst):
         """Copy-on-write: duplicate page ``src`` into ``dst`` in every
-        layer's pools."""
-        for pl in self._pools:
-            for v in pl.values():
+        layer's pools, in every shard."""
+        for shard in self.model.gpt.pool_planes(self._pools):
+            for v in shard:
                 v[dst].copy_(v[src])
         self.stats.tick("copies")
 
@@ -580,6 +603,12 @@ class PagedSlotManager(SlotManager):
             "kv_bytes_per_token": self._kv_token_bytes,
             "pool_bytes": self._kv_token_bytes * self.page_size
             * self.num_pages,
+            # what ONE shard holds (one chip's share when each shard has
+            # its own card); the unsharded numbers at tp=1
+            "tp_degree": self.tp,
+            "kv_bytes_per_token_per_chip": self._kv_token_bytes_per_chip,
+            "pool_bytes_per_chip": self._kv_token_bytes_per_chip
+            * self.page_size * self.num_pages,
             "pages_in_use": in_use,
             "pages_free": len(a._free),
             "pages_reclaimable": len(a._reclaimable),

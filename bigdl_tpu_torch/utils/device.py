@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and placing one tensor
+on several devices."""
 
 from __future__ import annotations
 
@@ -24,3 +25,16 @@ def resolve_device(device=None):
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def broadcast(x, devices):
+    """``x`` on each of ``devices`` (one per tensor-parallel shard): one
+    copy per distinct device, and ``x`` itself where it already lives."""
+    copies = {x.device: x}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d not in copies:
+            copies[d] = x.to(d)
+        out.append(copies[d])
+    return out

@@ -3,7 +3,8 @@ profiling.py`` ``DecodeCounters``).
 
 PyTorch runs eagerly, so there are no trace/compile counts to keep: a
 slot manager counts the work it dispatched (prefill chunks, decode
-steps, copy-on-write page copies) and the total of those dispatches.
+steps, copy-on-write page copies), the total of those dispatches, and
+counts that are not dispatches (decode steps that sampled).
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ class DispatchCounters:
         with self._lock:
             self._counts[name] += n
             self._counts["dispatches"] += n
+
+    def add(self, name, n=1):
+        """Add ``n`` to the counter ``name`` (created at 0) without
+        counting a dispatch."""
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
 
     def __getitem__(self, name):
         with self._lock:

@@ -21,6 +21,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    * int8 paged attention: the same shapes and query types over an int8
      pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
+   * tensor-parallel paged attention (queue B row 6): the same decode and
+     chunk cases over float32 and int8 pools, float32 queries, split on
+     the head axis into 2 and 4 shards (each shard its own contiguous
+     pool, all on cuda:0) and launched once per shard through the
+     wrapper's ``mesh=`` branch; the joined outputs must equal the
+     unsharded kernel's bit for bit and the plain version within 2e-5;
+     timed as one sharded call beside the unsharded kernel, both queued
+     ahead of the card behind a spin kernel (device time, without the
+     host's gaps), the median of three readings with their spread;
    * fused sampling: 8 x 50257 logits, top_k 50, top_p 0.9, per-row
      temperatures, one injected gumbel draw; tokens must be identical
      except on a row whose kept-set boundary lies within 1e-5 of its level
@@ -53,7 +62,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and decode step, the sampler at least once; the prefix cache hit; the
    first 16 greedy tokens of two requests equal the port's run on the CPU
    (plain versions), or diverge only at a step whose top-2 logit gap on
-   the CPU is below 1e-3 (printed). Then the same traffic, with fresh
+   the CPU is below 1e-3 (printed); the sampler launched once per decode
+   step with a sampled row. Then the same traffic, with fresh
    prompts, runs once more under ``torch.profiler`` (a ``profile`` line):
    the device's busy time against the wall time and the kernels that take
    the most device time.
@@ -71,7 +81,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
    when the embeddings move by 2^-23). Reports tokens/s, TTFT, the pool's
    pages and bytes per token against the float32 slice, the weight bytes,
    and a ``profile`` line for the int8 burst.
-6. train   — GPT-2 small at full width and depth, float32, the same seeded
+6. slice_tp, slice_tp_int8 — ``slice``'s model, weights and traffic served
+   tensor-parallel: ``ServingEngine(mesh=["cuda:0", "cuda:0"])`` (tp 2,
+   both shards on the one card; the source model built on the CPU, so the
+   card holds only the shards), float32 pools, then ``int8_kv=True``,
+   each with ``kv_bytes`` = the float32 slice's pool bytes as a per-chip
+   budget (so ``pages_for_budget(..., tp=2)`` pages: twice the float
+   slice's 512, 3855 int8). Checks: every request retires; the pool's
+   paged kernel launched exactly tp x 12 times per prefill chunk and
+   decode step (once per shard and layer), the other never; one sharded
+   call per layer and dispatch; the sampler once per sampled decode step,
+   not tp times; each shard holds 1/tp of the pool's bytes (measured).
+   Greedy tokens of requests 0 and 11 against ``slice``'s CPU run (float)
+   or a CPU ``int8_kv`` run of the unsharded port (int8), diverging only
+   where the CPU top-2 gap is below 1e-3 or 0.1. Reports tokens/s, TTFT
+   and peak memory beside the unsharded phase's, and a ``profile`` line.
+7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
    warm-up step, then 5 timed steps (step time, tokens/s, peak memory,
@@ -83,7 +108,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CPU run (plain versions): loss within 1e-4 relative, each parameter's
    gradient within 1e-3 of its largest magnitude. Then 2 steps under
    ``torch.profiler`` (a ``profile`` line).
-7. train_resnet — ``bench.py``'s training configuration: ResNet-50
+8. train_resnet — ``bench.py``'s training configuration: ResNet-50
    (ImageNet, NHWC, 1000 classes, full width and depth), seeded weights
    from ``convert.init_resnet_params(seed=0)``, one fixed batch of 256 x
    224 x 224 x 3 with labels from ``default_rng(1)``, ``ClassNLLCriterion``,
@@ -146,11 +171,20 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(torch, fn, iters, flush=None):
-    """Mean device time of ``fn`` over ``iters`` runs after a warm-up,
-    from CUDA events; with ``flush`` (a buffer larger than L2) the cache
-    is overwritten before each run and only the run is timed."""
-    for _ in range(3):
+# cycles of the spin kernel that keeps the card busy while the host
+# queues a timed run (about 1 ms on an H100)
+AHEAD_CYCLES = 2_000_000
+
+
+def time_ms(torch, fn, iters, flush=None, warm=3, ahead=False):
+    """Mean device time of ``fn`` over ``iters`` runs after ``warm``
+    untimed runs, from CUDA events; with ``flush`` (a buffer larger than
+    L2) the cache is overwritten before each run and only the run is
+    timed. ``ahead`` (with ``flush``) queues a spin kernel before each
+    run's start event, so that the host has queued the whole run before
+    the card reaches it: the time is then the launches' device time back
+    to back, without the host's gaps between them."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     if flush is None:
@@ -165,6 +199,8 @@ def time_ms(torch, fn, iters, flush=None):
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -254,13 +290,23 @@ def _tables(lengths, p=64, ps=16, n=512, share=None):
     return rows
 
 
-def _paged_kernel(torch, flush, int8):
-    """The paged-attention kernel (float pool, or int8 pool) against its
-    plain version: decode over 8 slots (row 7 inactive, all sentinel; rows
-    2 and 3 share 16 pages = a 256-token prefix) and one prefill chunk of
-    the 4-row window, float32 and bfloat16 queries; returns its
-    ``kernels`` entry, timed on decode float32."""
-    from bigdl_tpu_torch.ops import paged_attention as pa
+PAGED_TOL = 2e-5       # float32 bar of the paged kernels (rows 4-6)
+PAGED_TP = (2, 4)      # tp degrees of row 6's kernel check
+TP_READINGS = 3        # row 6: readings of 50 runs each, median reported
+
+
+def _steady_ms(torch, fn, flush):
+    """Row 6's timing: TP_READINGS readings of :func:`time_ms` (50 runs,
+    10 warm, queued ahead of the card); returns (median, [min, max])."""
+    ms = sorted(time_ms(torch, fn, 50, flush, warm=10, ahead=True)
+                for _ in range(TP_READINGS))
+    return ms[len(ms) // 2], [ms[0], ms[-1]]
+
+
+def _paged_cases():
+    """The paged-attention cases: decode over 8 slots (row 7 inactive, all
+    sentinel; rows 2 and 3 share 16 pages = a 256-token prefix) and one
+    prefill chunk of the 4-row window."""
     dec_len = [24, 100, 300, 310, 700, 1000, 513, 0]
     dec = dict(b=8, c=1, starts=[max(x - 1, 0) for x in dec_len],
                tables=_tables(dec_len, share=(2, 3, 16)))
@@ -268,10 +314,19 @@ def _paged_kernel(torch, flush, int8):
     chk = dict(b=4, c=64, starts=chk_start,
                tables=_tables([s + 64 for s in chk_start],
                               share=(1, 2, 12)))
+    return (("decode", dec), ("chunk", chk))
+
+
+def _paged_kernel(torch, flush, int8):
+    """The paged-attention kernel (float pool, or int8 pool) against its
+    plain version on :func:`_paged_cases`, float32 and bfloat16 queries;
+    returns its ``kernels`` entry, timed on decode float32."""
+    from bigdl_tpu_torch.ops import paged_attention as pa
     name = "paged_attention_int8" if int8 else "paged_attention"
     shapes = []
-    for label, case in (("decode", dec), ("chunk", chk)):
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    for label, case in _paged_cases():
+        for dtype, tol in ((torch.float32, PAGED_TOL),
+                           (torch.bfloat16, 2e-2)):
             q, pool, table, start = _paged_case(
                 torch, dtype, case["b"], case["c"], case["starts"],
                 case["tables"], seed=len(shapes) + 10 * int8, int8=int8)
@@ -319,6 +374,87 @@ def _paged_kernel(torch, flush, int8):
         "launches": 0, "shapes": shapes}
 
 
+def _paged_tp_kernel(torch, flush):
+    """Queue B row 6: the paged-attention kernel launched once per shard on
+    head-sharded pools (every shard on cuda:0), at PAGED_TP, over float32
+    and int8 pools, on :func:`_paged_cases` with float32 queries. The
+    shards' outputs joined on the head axis must equal the unsharded
+    kernel's bit for bit and the plain version within PAGED_TOL. Time: one
+    sharded call (its launches back to back on the card, :func:`_steady_ms`),
+    L2 flushed before it, beside the unsharded kernel's timed the same way;
+    the bound is the unsharded call's (the same work). Returns its
+    ``kernels`` entry, timed on decode float32 at tp 2."""
+    from bigdl_tpu_torch.ops import paged_attention as pa
+    from bigdl_tpu_torch.parallel.layout import ModelLayout
+    shapes = []
+    for int8 in (False, True):
+        for label, case in _paged_cases():
+            q, pool, table, start = _paged_case(
+                torch, torch.float32, case["b"], case["c"], case["starts"],
+                case["tables"], seed=100 + len(shapes), int8=int8)
+            whole = pa.paged_pool_attention(q, pool, table, start)
+            torch.cuda.synchronize()
+            want = pa.paged_pool_attention_ref(q, pool, table, start)
+            vis = (table[:, 0] < 512)
+            nbytes, flops = pa.bytes_and_flops(q, pool, table, start)
+            b_ms, b_by = bound(nbytes, flops, torch.float32)
+            whole_ms, whole_spread = _steady_ms(
+                torch, lambda: pa.paged_pool_attention(q, pool, table,
+                                                       start), flush)
+            for tp in PAGED_TP:
+                lay = ModelLayout(["cuda:0"] * tp)
+                qs = lay.split(q, 1)                  # the head axis
+                pools = lay.split_pool(pool)
+                tables, starts = [table] * tp, [start] * tp
+                tag = (f"paged_attention_tp tp={tp} {label} "
+                       f"{'int8' if int8 else 'float32'}")
+
+                def sharded():
+                    return pa.paged_pool_attention(qs, pools, tables,
+                                                   starts, mesh=lay.devices)
+
+                got = torch.cat(sharded(), 1)
+                torch.cuda.synchronize()
+                check(torch.isfinite(got).all().item(),
+                      f"{tag}: non-finite output")
+                check(torch.equal(got, whole),
+                      f"{tag}: shards differ from the unsharded kernel by "
+                      f"{float((got - whole).abs().max())}")
+                max_err = float((got - want)[vis].abs().max())
+                check(max_err <= PAGED_TOL, f"{tag}: max abs err {max_err} "
+                                            f"over tolerance {PAGED_TOL}")
+                check(pa.bytes_and_flops(qs, pools, table, start)
+                      == (nbytes, flops), f"{tag}: bytes/flops differ")
+                ms, spread = _steady_ms(torch, sharded, flush)
+                shapes.append({
+                    "tp": tp, "shape": label, "B": case["b"],
+                    "C": case["c"], "pool": "int8" if int8 else "float32",
+                    "heads_per_shard": qs[0].shape[1],
+                    "bit_equal_to_unsharded": True,
+                    "max_abs_err": max_err, "tolerance": PAGED_TOL,
+                    "ms": ms, "ms_spread": spread,
+                    "unsharded_ms": whole_ms,
+                    "unsharded_ms_spread": whole_spread,
+                    "plain_ms": time_ms(torch, lambda: [
+                        pa.paged_pool_attention_ref(x, p, table, start)
+                        for x, p in zip(qs, pools)], 10, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops})
+    emit({"phase": "kernels", "kernel": "paged_attention_tp",
+          "shards_on": "cuda:0", "shapes": shapes})
+    t = shapes[0]                       # tp 2, decode, float32 pool
+    return {
+        "name": "paged_attention_tp", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "bigdl_tpu/ops/paged_attention.py:232",
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "unsharded_ms": t["unsharded_ms"],
+        # as rows 4/5: no single PyTorch call attends through a page table
+        "library_ms": None, "timed_shape": "tp 2 decode float32",
+        "launches": 0, "shapes": shapes}
+
+
 def phase_kernels(torch):
     from bigdl_tpu_torch.ops import sampling as sm
     flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
@@ -327,6 +463,7 @@ def phase_kernels(torch):
     for int8 in (False, True):
         entry = _paged_kernel(torch, flush, int8)
         results[entry["name"]] = entry
+    results["paged_attention_tp"] = _paged_tp_kernel(torch, flush)
 
     # fused sampling at the serving shape
     s_rows, vocab, top_k, top_p = 8, 50257, 50, 0.9
@@ -704,6 +841,7 @@ def _reset_serving_counts():
     from bigdl_tpu_torch.ops.sampling import fused_sample_logits
     paged_pool_attention.launches = 0
     paged_pool_attention.int8_launches = 0
+    paged_pool_attention.sharded_calls = 0
     fused_sample_logits.launches = 0
     qmatmul.calls = 0
 
@@ -718,6 +856,7 @@ def _serve_traffic(torch, engine, rng):
                         timeout=300)
         _reset_serving_counts()
         engine.stats.reset()
+        torch.cuda.reset_peak_memory_stats()
         prompts = _traffic(rng)
         t_run = time.perf_counter()
         handles = _drive(engine, prompts)
@@ -726,6 +865,7 @@ def _serve_traffic(torch, engine, rng):
         stats = engine.stats.snapshot()
         counts = _serving_counts()
         metrics = engine.metrics()
+        peak = torch.cuda.max_memory_allocated()
         # where the time goes: the same traffic (fresh prompts) once more
         # under torch.profiler, after the counts were read
         fresh = _traffic(rng)
@@ -740,6 +880,9 @@ def _serve_traffic(torch, engine, rng):
     check(metrics["prefix_hits"] >= 1 and metrics["prefix_hit_tokens"]
           >= 256, f"no prefix-cache hit: {metrics['prefix_hits']}")
     check(counts["fused_sampling"] >= 1, "the fused sampler never launched")
+    check(counts["fused_sampling"] == stats["sampled_steps"],
+          f"the fused sampler launched {counts['fused_sampling']} times for "
+          f"{stats['sampled_steps']} decode steps with a sampled row")
     ttft = [h.first_token_at - h.submitted_at for h in handles]
     generated = sum(o.size - n for o, n in zip(outs, LENGTHS))
     import numpy as np
@@ -749,15 +892,22 @@ def _serve_traffic(torch, engine, rng):
             "ttft_mean_s": float(np.mean(ttft)),
             "ttft_p50_s": float(np.median(ttft)),
             "ttft_max_s": float(np.max(ttft)),
+            "peak_memory_bytes": peak,
             "prefill_chunks": stats["prefill_chunks"],
             "decode_steps": stats["steps"], "cow_copies": stats["copies"],
+            "sampled_steps": stats["sampled_steps"],
             "launches": counts,
             "prefix_hits": metrics["prefix_hits"],
             "prefix_hit_tokens": metrics["prefix_hit_tokens"],
             "num_pages": metrics["num_pages"],
             "kv_dtype": metrics["kv_dtype"],
             "kv_bytes_per_token": metrics["kv_bytes_per_token"],
-            "pool_bytes": metrics["pool_bytes"]}
+            "pool_bytes": metrics["pool_bytes"],
+            "tp_degree": metrics["tp_degree"],
+            "kv_bytes_per_token_per_chip":
+                metrics["kv_bytes_per_token_per_chip"],
+            "pool_bytes_per_chip": metrics["pool_bytes_per_chip"],
+            "sharded_attention_calls": metrics["sharded_attention_calls"]}
     return prompts, outs, line, profile
 
 
@@ -800,6 +950,30 @@ def _first_divergence(torch, name, got, want, cpu_logits, threshold):
     return found
 
 
+# the card-vs-CPU token checks of the serving phases: requests CMP_IDX, the
+# first N_CMP greedy tokens; a divergence may only lie where the CPU top-2
+# logit gap is below FLOAT_GAP (float weights) or INT8_GAP (below)
+CMP_IDX, N_CMP, FLOAT_GAP = [0, 11], 16, 1e-3
+
+
+def _cpu_greedy(torch, params, prompts, int8_kv):
+    """The port's CPU run (plain versions) of the prompts CMP_IDX on
+    ``params``: tokens (2, N_CMP) and each step's logits."""
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    cpu_model = gpt2_small(device="cpu")
+    cpu_model.load_state_dict(params)
+    cpu_model.requires_grad_(False)
+    return _greedy_slots(torch, cpu_model, [prompts[i] for i in CMP_IDX],
+                         N_CMP, int8_kv)
+
+
+def _engine_greedy(outs):
+    """The first N_CMP generated tokens of the engine's requests CMP_IDX."""
+    import numpy as np
+    return np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + N_CMP]
+                     for i in CMP_IDX])
+
+
 def phase_slice(torch, kernels):
     import numpy as np
     from bigdl_tpu_torch import convert
@@ -826,23 +1000,15 @@ def phase_slice(torch, kernels):
 
     # greedy tokens against the port's plain versions on the CPU: the float
     # path is row-local, so the engine's own tokens are compared
-    cmp_idx = [0, 11]
-    n_cmp = 16
-    cpu_model = gpt2_small(device="cpu")
-    cpu_model.load_state_dict(params)
-    cpu_model.requires_grad_(False)
-    cpu_toks, cpu_logits = _greedy_slots(
-        torch, cpu_model, [prompts[i] for i in cmp_idx], n_cmp, False)
-    card = np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + n_cmp]
-                     for i in cmp_idx])
-    divergences = _first_divergence(torch, "slice", card, cpu_toks,
-                                    cpu_logits, 1e-3)
+    cpu_toks, cpu_logits = _cpu_greedy(torch, params, prompts, False)
+    divergences = _first_divergence(torch, "slice", _engine_greedy(outs),
+                                    cpu_toks, cpu_logits, FLOAT_GAP)
     emit({"phase": "slice", "model": "gpt2_small", "layers": n_layers,
-          **line, "greedy_checked": cmp_idx,
-          "greedy_tokens_compared": n_cmp, "divergences": divergences,
+          **line, "greedy_checked": CMP_IDX,
+          "greedy_tokens_compared": N_CMP, "divergences": divergences,
           "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving", **profile})
-    return line
+    return line, (cpu_toks, cpu_logits)
 
 
 # card-vs-CPU token check of the int8 slice: a divergence may only lie
@@ -902,10 +1068,8 @@ def phase_slice_int8(torch, kernels, f32_line):
     # card against CPU, both hand-driven in the same order: int8 weights
     # couple a dispatch's rows (one activation amax per batch), so the
     # engine's tokens depend on its batching and are not compared
-    cmp_idx = [0, 11]
-    n_cmp = 16
-    cmp_prompts = [prompts[i] for i in cmp_idx]
-    card_toks, _ = _greedy_slots(torch, model, cmp_prompts, n_cmp, True)
+    cmp_prompts = [prompts[i] for i in CMP_IDX]
+    card_toks, _ = _greedy_slots(torch, model, cmp_prompts, N_CMP, True)
 
     def cpu_int8(sd):
         m = gpt2_small(device="cpu")
@@ -919,7 +1083,7 @@ def phase_slice_int8(torch, kernels, f32_line):
         check(torch.equal(t, card_sd[name].cpu()),
               f"weights differ between card and CPU: {name}")
     cpu_toks, cpu_logits = _greedy_slots(torch, cpu_model, cmp_prompts,
-                                         n_cmp, True)
+                                         N_CMP, True)
     divergences = _first_divergence(torch, "slice_int8", card_toks,
                                     cpu_toks, cpu_logits, INT8_GAP)
     # what a last-bit difference does to the logits through the int8
@@ -930,7 +1094,7 @@ def phase_slice_int8(torch, kernels, f32_line):
     moved["gpt.tok_emb"] = emb + emb * (
         torch.rand(emb.shape, generator=g) - 0.5) * 2.0 ** -22
     _, moved_logits = _greedy_slots(torch, cpu_int8(moved), cmp_prompts,
-                                    n_cmp, True)
+                                    N_CMP, True)
     ulp_change = float((moved_logits - cpu_logits).abs().max())
     print(f"slice_int8: CPU logits move by up to {ulp_change} when the "
           f"token embeddings move by 2^-23 relative; divergence threshold "
@@ -943,10 +1107,97 @@ def phase_slice_int8(torch, kernels, f32_line):
                                          / line["kv_bytes_per_token"]),
           "weight_bytes": _weight_bytes(model),
           "float32_weight_bytes": float_weight_bytes,
-          "greedy_checked": cmp_idx, "greedy_tokens_compared": n_cmp,
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
           "gap_threshold": INT8_GAP, "cpu_ulp_logit_change": ulp_change,
           "divergences": divergences, "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving_int8", **profile})
+    return line
+
+
+TP_MESH = ["cuda:0", "cuda:0"]     # both shards of slice_tp on one card
+
+
+def phase_slice_tp(torch, kernels, f32_line, base, cpu_ref, int8_kv):
+    """``slice`` (or, with ``int8_kv``, its int8 K/V pool) served tensor-
+    parallel: GPT-2 small at full width and depth through
+    ``ServingEngine(mesh=TP_MESH)``, the same seeded weights and the same
+    12-request traffic (``default_rng(0)``), ``kv_bytes`` = the float
+    slice's pool bytes (``f32_line``) as a per-chip budget, as
+    ``slice_int8`` takes it, so the pool holds ``pages_for_budget(...,
+    tp=2)`` pages; ``base`` is the unsharded phase's line, reported
+    beside. Checks: exact per-shard launch
+    counts (tp x layers x dispatches of the pool's kernel, none of the
+    other), one sharded call per layer and dispatch, the sampler once per
+    sampled decode step, the measured per-shard bytes; greedy tokens of
+    CMP_IDX against the CPU: ``cpu_ref`` (slice's unsharded CPU run) for
+    float pools, a CPU ``int8_kv`` run of the unsharded port for int8."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.serving.paging import pages_for_budget
+
+    name = "slice_tp_int8" if int8_kv else "slice_tp"
+    t0 = time.perf_counter()
+    # the source model stays on the CPU: the engine copies its shards out
+    model = gpt2_small(device="cpu")
+    params = convert.init_params(model, seed=0)
+    kv_bytes = f32_line["pool_bytes"]
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, top_k=50,
+                           top_p=0.9, seed=0, int8_kv=int8_kv,
+                           kv_bytes=kv_bytes, mesh=TP_MESH)
+    tp = engine.layout.tp
+    n_layers = len(model.gpt.layers)
+    pages = pages_for_budget(model, 16, kv_bytes, int8=int8_kv, tp=tp)
+    shard_planes = engine.model.gpt.pool_planes(engine.slots._pools)
+    shard_bytes = [sum(v.numel() * v.element_size() for v in shard)
+                   for shard in shard_planes]
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, outs, line, profile = _serve_traffic(torch, engine, rng)
+    counts = line["launches"]
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    run, idle = (("paged_attention_int8", "paged_attention") if int8_kv
+                 else ("paged_attention", "paged_attention_int8"))
+    check(counts[run] == tp * n_layers * dispatches,
+          f"{name}: {run} launched {counts[run]} times for {dispatches} "
+          f"chunk+step dispatches of {n_layers} layers at tp {tp}")
+    check(counts[idle] == 0, f"{name}: {idle} launched {counts[idle]} times")
+    check(line["sharded_attention_calls"] == n_layers * dispatches,
+          f"{name}: {line['sharded_attention_calls']} sharded calls for "
+          f"{dispatches} dispatches of {n_layers} layers")
+    check(line["num_pages"] == pages,
+          f"{name}: {line['num_pages']} pages, the budget gives {pages}")
+    check(line["tp_degree"] == tp and len(set(shard_bytes)) == 1
+          and shard_bytes[0] == line["pool_bytes_per_chip"]
+          and shard_bytes[0] * tp == line["pool_bytes"],
+          f"{name}: shard bytes {shard_bytes}, pool {line['pool_bytes']}")
+    kernels["paged_attention_tp"]["launches"] += counts[run]
+    kernels["paged_attention_tp"].setdefault("launches_by_phase", {})[
+        name] = counts[run]
+
+    if int8_kv:
+        (cpu_toks, cpu_logits), gap = (_cpu_greedy(torch, params, prompts,
+                                                   True), INT8_GAP)
+    else:
+        (cpu_toks, cpu_logits), gap = cpu_ref, FLOAT_GAP
+    divergences = _first_divergence(torch, name, _engine_greedy(outs),
+                                    cpu_toks, cpu_logits, gap)
+    emit({"phase": name, "model": "gpt2_small", "layers": n_layers,
+          "int8_kv": int8_kv, "kv_bytes": kv_bytes,
+          **engine.layout.describe(), "one_card_holds_all_shards":
+              len(set(engine.layout.devices)) == 1,
+          **line, "shard_pool_bytes": shard_bytes,
+          "pages_for_budget": pages, "unsharded_num_pages": base["num_pages"],
+          "unsharded_tokens_per_s": base["tokens_per_s"],
+          "unsharded_ttft_mean_s": base["ttft_mean_s"],
+          "unsharded_peak_memory_bytes": base["peak_memory_bytes"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          "gap_threshold": gap, "divergences": divergences,
+          "setup_s": setup_s})
+    emit({"phase": "profile", "path": "serving_tp_int8" if int8_kv
+          else "serving_tp", **profile})
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -1268,9 +1519,14 @@ def main():
     smi = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    f32_line = phase_slice(torch, kernels)
+    f32_line, cpu_ref = phase_slice(torch, kernels)
     torch.cuda.empty_cache()
-    phase_slice_int8(torch, kernels, f32_line)
+    int8_line = phase_slice_int8(torch, kernels, f32_line)
+    torch.cuda.empty_cache()
+    phase_slice_tp(torch, kernels, f32_line, f32_line, cpu_ref,
+                   int8_kv=False)
+    torch.cuda.empty_cache()
+    phase_slice_tp(torch, kernels, f32_line, int8_line, None, int8_kv=True)
     torch.cuda.empty_cache()
     phase_train(torch, kernels, smi)
     torch.cuda.empty_cache()

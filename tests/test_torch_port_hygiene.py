@@ -39,6 +39,8 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_package_and_the_rule_bites():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     assert ROOT / "bigdl_tpu_torch" / "ops" / "conv3x3.py" in FILES
+    for name in ("layout.py", "tensor_parallel.py"):
+        assert ROOT / "bigdl_tpu_torch" / "parallel" / name in FILES
     assert _forbidden("jax.numpy") and _forbidden("bigdl_tpu")
     assert _forbidden("scripts.perf_pallas_conv")
     assert _forbidden("bigdl_tpu.serving")

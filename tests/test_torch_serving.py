@@ -105,7 +105,8 @@ def test_no_device_raises_without_cuda(weights, monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     {"paged": False}, {"spec_tokens": 4}, {"failover": True},
-    {"adapters": ["tenant-a"]}, {"tp": 2}, {"lora": True},
+    {"adapters": ["tenant-a"]}, {"tp": 2, "int8_weights": True},
+    {"lora": True},
     {"kv_snapshot": True}, {"kv_host_tier": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(weights, kw):
