@@ -12,12 +12,19 @@ and its output ``Cin``, and it computes the input gradient of the
 convolution without a copy of the weights.
 
 - :func:`conv3x3_k9` and :func:`conv3x3_i2c` are the two kernel wrappers
-  (``ops/csrc/conv3x3.cu``). For CUDA tensors each launches its kernel (or
-  raises) and counts it in its ``launches``; for CPU tensors each runs its
-  plain version, :func:`conv3x3_k9_ref` (nine shifted products summed in
-  float32) or :func:`conv3x3_i2c_ref` (an explicit patch matrix and one
-  product). float32 or bfloat16 in, float32 accumulation, the input type
-  out. A bias is added by the caller.
+  (``ops/csrc/conv3x3.cu``). For CPU tensors each runs its plain version,
+  :func:`conv3x3_k9_ref` (nine shifted products summed in float32) or
+  :func:`conv3x3_i2c_ref` (an explicit patch matrix and one product). For
+  CUDA tensors each launches one of its two hand-written paths (or
+  raises), chosen from the shape and type before the launch by
+  :func:`tc_eligible`: the tensor-core kernel (wgmma, bfloat16, Cin and
+  Cout multiples of 8; for k9 an image at most ``TC_K9_MAX_W`` wide),
+  counted in ``.tc_launches``, else the CUDA-core kernel (float32 FMAs),
+  counted in ``.launches``. float32 or bfloat16 in, float32 accumulation,
+  the input type out. A bias is added by the caller.
+- :func:`tc_plan` mirrors, for the host and its tests, the plan the
+  tensor-core kernel's C entry makes for itself (tile, grid, stages, halo
+  rows, dynamic shared memory).
 - :func:`conv3x3` is the differentiable convolution of an NHWC ``x`` with
   an OIHW weight: forward through :func:`kernel_for` the operation's input
   channels (``i2c`` up to ``I2C_MAX_CIN``, ``k9`` above, the script's own
@@ -40,12 +47,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the operation's input channels up to which the im2col kernel runs
 I2C_MAX_CIN = 64
 
+# the tensor-core kernel's tiling (ops/csrc/conv3x3.cu kTc*): pixels a CTA,
+# depth of one pipeline stage, ring stages; and a CTA's shared memory limit
+TC_TILE_M = 128
+TC_DEPTH = 64
+TC_STAGES = 4
+TC_MAX_SMEM = 232448
+_MODES = {"k9": 0, "i2c": 1}
+
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.bigdl_conv3x3_k9, lib.bigdl_conv3x3_i2c):
+    for fn in (lib.bigdl_conv3x3_simt_k9, lib.bigdl_conv3x3_simt_i2c):
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
         fn.restype = ctypes.c_int
+    lib.bigdl_conv3x3_tc.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.bigdl_conv3x3_tc.restype = ctypes.c_int
 
 
 def _channels(w, flip):
@@ -116,20 +133,85 @@ def _check_cuda(fn, x, w):
                              f"aligned")
 
 
-def _launch(fn, c_name, x, w, flip):
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def tc_plan(kind, n, h, w, cin, cout):
+    """Host-side plan of a tensor-core launch of kernel ``kind`` ("k9" or
+    "i2c") on an (n, h, w, cin) input with ``cout`` output channels:
+    ``tile_m`` x ``tile_n`` (64 when cout <= 64, else 128) per CTA, the
+    ``grid`` (pixel tiles, channel tiles), the depth ``stages`` of 64, the
+    tap-sum ``halo_rows`` (0 for i2c), and ``smem_bytes``: 1 KiB of
+    alignment slack, TC_STAGES weight stages of tile_n x 128 bytes, then
+    TC_STAGES patch stages of 128 x 128 bytes (i2c) or two halo buffers
+    rounded to 1 KiB and a 128-byte zero row (k9). The kernel's C entry
+    (``tc_smem_bytes``) makes the same plan from the same shape."""
+    tile_n = 64 if cout <= 64 else 128
+    row = TC_DEPTH * 2                  # one bfloat16 row of a stage
+    if kind == "k9":
+        halo_rows = TC_TILE_M + 2 * w + 2
+        halo_bytes = _ceil_div(halo_rows * row, 1024) * 1024
+        a_bytes = 2 * halo_bytes + 128
+        stages = 9 * _ceil_div(cin, TC_DEPTH)
+    else:
+        halo_rows = 0
+        a_bytes = TC_STAGES * TC_TILE_M * row
+        stages = _ceil_div(9 * cin, TC_DEPTH)
+    return {"tile_m": TC_TILE_M, "tile_n": tile_n,
+            "grid": (_ceil_div(n * h * w, TC_TILE_M),
+                     _ceil_div(cout, tile_n)),
+            "stages": stages, "halo_rows": halo_rows,
+            "smem_bytes": 1024 + TC_STAGES * tile_n * row + a_bytes}
+
+
+# the widest image whose tap-sum halo fits in TC_MAX_SMEM at the wider
+# channel tile (128)
+TC_K9_MAX_W = max(w for w in range(1, 1024)
+                  if tc_plan("k9", 1, 1, w, TC_DEPTH, 128)["smem_bytes"]
+                  <= TC_MAX_SMEM)
+
+
+def tc_eligible(kind, x, w, flip=False):
+    """Does kernel ``kind`` take the tensor-core path for ``x`` and OHWI
+    ``w``? bfloat16, the operation's input and output channels multiples
+    of 8 (16-byte copies and stores), and for k9 an image no wider than
+    TC_K9_MAX_W (its halo must fit in a CTA's shared memory)."""
+    cin, cout = _channels(w, flip)
+    if x.dtype != torch.bfloat16 or cin % 8 or cout % 8:
+        return False
+    return kind != "k9" or x.shape[2] <= TC_K9_MAX_W
+
+
+def _launch(fn, kind, x, w, flip):
+    """Launch ``kind``'s tensor-core kernel where :func:`tc_eligible`, else
+    its CUDA-core kernel; returns (y, True if the tensor cores ran)."""
     _check_cuda(fn, x, w)
     n, h, wd, cin = x.shape
     cout = _channels(w, flip)[1]
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.load("conv3x3", _declare)
-    err = getattr(lib, c_name)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
-        int(bool(flip)), _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
+            int(bool(flip)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = tc_eligible(kind, x, w, flip)
+    if tc:
+        err = lib.bigdl_conv3x3_tc(*args, _MODES[kind], stream)
+    else:
+        err = getattr(lib, f"bigdl_conv3x3_simt_{kind}")(
+            *args, _DTYPES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"{c_name} kernel launch failed: cudaError_t "
+        path = "tensor-core" if tc else "CUDA-core"
+        raise RuntimeError(f"{fn} {path} kernel launch failed: cudaError_t "
                            f"{err}")
-    return y
+    return y, tc
+
+
+def _count(fn, tc):
+    if tc:
+        fn.tc_launches += 1
+    else:
+        fn.launches += 1
 
 
 def conv3x3_k9(x, w, flip=False):
@@ -138,8 +220,8 @@ def conv3x3_k9(x, w, flip=False):
     _check("conv3x3_k9", x, w, flip)
     if x.device.type == "cpu":
         return conv3x3_k9_ref(x, w, flip)
-    y = _launch("conv3x3_k9", "bigdl_conv3x3_k9", x, w, flip)
-    conv3x3_k9.launches += 1
+    y, tc = _launch("conv3x3_k9", "k9", x, w, flip)
+    _count(conv3x3_k9, tc)
     return y
 
 
@@ -148,13 +230,15 @@ def conv3x3_i2c(x, w, flip=False):
     _check("conv3x3_i2c", x, w, flip)
     if x.device.type == "cpu":
         return conv3x3_i2c_ref(x, w, flip)
-    y = _launch("conv3x3_i2c", "bigdl_conv3x3_i2c", x, w, flip)
-    conv3x3_i2c.launches += 1
+    y, tc = _launch("conv3x3_i2c", "i2c", x, w, flip)
+    _count(conv3x3_i2c, tc)
     return y
 
 
-conv3x3_k9.launches = 0
-conv3x3_i2c.launches = 0
+# launches of each kernel's CUDA-core path (.launches) and tensor-core
+# path (.tc_launches)
+conv3x3_k9.launches = conv3x3_k9.tc_launches = 0
+conv3x3_i2c.launches = conv3x3_i2c.tc_launches = 0
 
 KERNELS = {"k9": conv3x3_k9, "i2c": conv3x3_i2c}
 
@@ -217,4 +301,5 @@ def bytes_and_flops(x, w, flip=False):
 
 __all__ = ["conv3x3", "conv3x3_k9", "conv3x3_i2c", "conv3x3_k9_ref",
            "conv3x3_i2c_ref", "kernel_for", "bytes_and_flops",
-           "I2C_MAX_CIN", "KERNELS"]
+           "tc_eligible", "tc_plan", "I2C_MAX_CIN", "KERNELS",
+           "TC_K9_MAX_W", "TC_MAX_SMEM"]

@@ -45,7 +45,13 @@
 //   the kernel is unchanged;
 // - per page tile, lanes map to keys (32 / page_size lanes split one key's
 //   dot product), so a page's scores need one shuffle step, and each lane
-//   owns D / 32 output dims for the P.V update.
+//   owns D / 32 output dims for the P.V update. Pages of 8, 16 and 32
+//   tokens are instantiated at D 64. The page tiles and the warp merge
+//   share one buffer, static where it fits (PS 8 and 16); at PS 32 the
+//   four warps' K and V tiles take 65 KiB, over the 48 KiB of static
+//   shared memory, so that instantiation takes it as dynamic shared
+//   memory. The others keep it static: on an H100 their decode case ran
+//   slower with a dynamic buffer.
 // The simple first version has no cp.async/TMA double buffering: a warp
 // loads its page, then computes on it. Inputs may be float32 or bfloat16;
 // all arithmetic is float32. Pool offsets are 64-bit.
@@ -58,6 +64,24 @@ namespace bigdl {
 namespace {
 
 constexpr int kWarps = 4;
+
+// floats of the kernel's buffer: the warps' padded K and V page tiles,
+// reused for the warps' merge at the end
+template <int PS, int D, int QT>
+__host__ __device__ constexpr int buffer_floats() {
+  return kWarps * 2 * PS * (D + 1) > kWarps * QT * (D + 2)
+             ? kWarps * 2 * PS * (D + 1)
+             : kWarps * QT * (D + 2);
+}
+
+// bytes of dynamic shared memory the kernel takes: the buffer where it
+// does not fit in static shared memory beside q_s and sc_s, else none
+template <int PS, int D, int QT>
+__host__ __device__ constexpr int dynamic_bytes() {
+  return buffer_floats<PS, D, QT>() * 4 > 40 * 1024
+             ? buffer_floats<PS, D, QT>() * 4
+             : 0;
+}
 
 // T: the queries' and output's type; KV: the pool's (T, or int8_t with the
 // scale planes kscale/vscale, which are null for a float pool)
@@ -76,12 +100,13 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
   constexpr int DK = D / LPK;   // dims of that dot product per lane
   constexpr int DV = D / 32;    // output dims per lane
   constexpr int KSTR = D + 1;   // padded row: conflict-free key-major reads
-  constexpr int KV_FLOATS = kWarps * 2 * PS * KSTR;
-  constexpr int CMB_FLOATS = kWarps * QT * (D + 2);
-  constexpr int SM_FLOATS = KV_FLOATS > CMB_FLOATS ? KV_FLOATS : CMB_FLOATS;
 
   __shared__ float q_s[QT][D];
-  __shared__ float smem[SM_FLOATS];  // page tiles, then the warp merge
+  // page tiles, then the warp merge: static, or dynamic where too large
+  constexpr bool kDynamic = dynamic_bytes<PS, D, QT>() > 0;
+  __shared__ float smem_static[kDynamic ? 1 : buffer_floats<PS, D, QT>()];
+  extern __shared__ float smem_dynamic[];
+  float* smem = kDynamic ? smem_dynamic : smem_static;
   __shared__ float sc_s[kWarps][2][PS];  // int8: the page's K, V scales
 
   const int bh = blockIdx.x;
@@ -239,20 +264,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* table,
                    const int* start, void* out, int B, int H, int C, int N,
                    int P, float sm_scale, cudaStream_t stream) {
-  if (C == 1) {
-    dim3 grid(B * H, 1);
-    paged_attention_kernel<T, KV, PS, D, 1><<<grid, kWarps * 32, 0,
-                                              stream>>>(
-        (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
-        (T*)out, H, C, N, P, sm_scale);
-  } else {
-    constexpr int QT = 16;
-    dim3 grid(B * H, (C + QT - 1) / QT);
-    paged_attention_kernel<T, KV, PS, D, QT><<<grid, kWarps * 32, 0,
-                                               stream>>>(
-        (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
-        (T*)out, H, C, N, P, sm_scale);
+  constexpr int QT = 16;
+  const bool decode = C == 1;
+  auto kernel = decode ? paged_attention_kernel<T, KV, PS, D, 1>
+                       : paged_attention_kernel<T, KV, PS, D, QT>;
+  const int bytes = decode ? dynamic_bytes<PS, D, 1>()
+                           : dynamic_bytes<PS, D, QT>();
+  if (bytes > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
   }
+  const dim3 grid(B * H, decode ? 1 : (C + QT - 1) / QT);
+  kernel<<<grid, kWarps * 32, bytes, stream>>>(
+      (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
+      (T*)out, H, C, N, P, sm_scale);
   return cudaGetLastError();
 }
 
@@ -269,7 +295,9 @@ cudaError_t dispatch_shape(const void* q, const void* k, const void* v,
   if (PS == ps && D == d)                                                   \
     return launch<T, Pool, ps, d>(q, k, v, ks, vs, table, start, out, B, H, \
                                   C, N, P, sm_scale, stream);
+  BIGDL_PA_CASE(8, 64)
   BIGDL_PA_CASE(16, 64)
+  BIGDL_PA_CASE(32, 64)
 #undef BIGDL_PA_CASE
   return cudaErrorInvalidValue;
 }
@@ -301,9 +329,9 @@ int dispatch_dtype(const void* q, const void* k, const void* v,
 // q, out: (B, H, C, D); k, v: (N, H, PS, D); table: (B, P) int32, entries
 // >= N are the "no page" sentinel; start: (B,) int32, query c of row b
 // sits at absolute position start[b] + c. dtype: 0 float32, 1 bfloat16,
-// for q, out and the pool. Supported (PS, D): (16, 64), the serving path's
-// (GPT-2, page size 16). Returns the cudaError_t of the launch (0 on
-// success).
+// for q, out and the pool. Supported (PS, D): (8, 64), (16, 64) and
+// (32, 64): GPT-2's heads at the page sizes the reference serves with.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigdl_paged_attention(const void* q, const void* k,
                                      const void* v, const int* table,
                                      const int* start, void* out, int B,

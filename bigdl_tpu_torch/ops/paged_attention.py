@@ -47,9 +47,9 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# (page_size, head_dim) pairs the CUDA kernel is instantiated for: the
-# serving path's (GPT-2 heads of 64, pages of 16 tokens)
-KERNEL_SHAPES = ((16, 64),)
+# (page_size, head_dim) pairs the CUDA kernel is instantiated for: GPT-2's
+# heads of 64 at pages of 8, 16 (the default) and 32 tokens
+KERNEL_SHAPES = ((8, 64), (16, 64), (32, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

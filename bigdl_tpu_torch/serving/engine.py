@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import time
 
+from bigdl_tpu_torch.models.spec import spec_config
 from bigdl_tpu_torch.nn.quantized import qmatmul, quantize_model
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
@@ -46,6 +47,53 @@ _UNPORTED = {
     "failover": "A.4 in-place recovery",
     "max_recoveries": "A.4 in-place recovery",
 }
+# the reference's flags that turn an unported option on when its keyword
+# is not given (``spec_tokens`` follows ``models.spec.spec_config``)
+_UNPORTED_FLAGS = {"kv_snapshot": "BIGDL_TPU_KV_SNAPSHOT",
+                   "kv_host_tier": "BIGDL_TPU_KV_HOST_TIER",
+                   "lora": "BIGDL_TPU_LORA"}
+# sub-options of unported options: accepted and ignored while their parent
+# is off, as the reference ignores them
+_SUB_OPTIONS = {
+    "snapshot_dir": "kv_snapshot",
+    "snapshot_interval_s": "kv_snapshot",
+    "snapshot_journal": "kv_snapshot",
+    "host_tier_bytes": "kv_host_tier",
+    "host_tier_prefetch": "kv_host_tier",
+    "lora_rank": "lora",
+    "adapter_slots": "lora",
+    "adapter_host_bytes": "lora",
+}
+
+
+def _unported_on(name, value):
+    """Does the unported option ``name`` (keyword ``value``, None if not
+    given) ask for its feature? An explicit keyword wins over its flag."""
+    if name == "spec_tokens":
+        return (spec_config() if value is None else int(value)) > 1
+    if value is None:
+        flag = _UNPORTED_FLAGS.get(name)
+        return flag is not None and get_flag(flag, False, bool)
+    return value is not False
+
+
+def _refuse_unported(options):
+    """Raise ``TypeError`` on an unknown keyword, and
+    ``NotImplementedError`` naming the ROADMAP item when an unported
+    option (by keyword or by the reference's flag) asks for its
+    feature."""
+    for name in options:
+        if name not in _UNPORTED and name not in _SUB_OPTIONS:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+    for name, item in _UNPORTED.items():
+        if not _unported_on(name, options.get(name)):
+            continue
+        subs = [s for s, parent in _SUB_OPTIONS.items()
+                if parent == name and options.get(s) is not None]
+        given = f" with {', '.join(subs)}" if subs else ""
+        raise NotImplementedError(
+            f"ServingEngine({name}=...){given} is not ported yet (ROADMAP "
+            f"queue {item})")
 
 
 class ServingEngine:
@@ -102,7 +150,14 @@ class ServingEngine:
 
     The reference's other options (speculative decoding, LoRA, K/V
     snapshots, the host tier, the control plane, recovery) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    ``NotImplementedError`` naming the ROADMAP item that ports them, when
+    given by keyword or turned on by the reference's flag
+    (``BIGDL_TPU_SPEC_DECODE``, ``BIGDL_TPU_KV_SNAPSHOT``,
+    ``BIGDL_TPU_KV_HOST_TIER``, ``BIGDL_TPU_LORA``; a keyword wins over
+    its flag). Their sub-options (``snapshot_dir``,
+    ``snapshot_interval_s``, ``snapshot_journal``, ``host_tier_bytes``,
+    ``host_tier_prefetch``, ``lora_rank``, ``adapter_slots``,
+    ``adapter_host_bytes``) are ignored while the parent is off.
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -112,14 +167,7 @@ class ServingEngine:
                  prefill_chunk=None, prefix_cache=None, int8_weights=None,
                  int8_kv=None, kv_bytes=None, device=None, tp=None,
                  mesh=None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value is not None and value is not False and not (
-                    name == "spec_tokens" and int(value) <= 1):
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet "
-                    f"(ROADMAP queue {_UNPORTED[name]})")
+        _refuse_unported(unported)
         if paged is None:
             paged = get_flag("BIGDL_TPU_PAGED_KV", True, bool)
         if not paged:

@@ -13,13 +13,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
 3. kernels — call each kernel's wrapper on card tensors at the shapes its
    path gives it, hold it against its plain PyTorch version on the same
    inputs, and time both with CUDA events beside the kernel's roofline
-   bound:
+   bound. Rows 4-9 are timed queued behind a spin kernel (the launches'
+   device time back to back, without the host's gaps), the L2 flushed
+   before each run, as the median of three readings with their spread;
    * paged attention: 8 slots, 12 heads, head_dim 64, page_size 16, 64
      table entries, shared pages and sentinel tails; decode (C=1, all 8
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
-     (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2);
-   * int8 paged attention: the same shapes and query types over an int8
-     pool with float32 scale planes, written by the port's
+     (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2); the same
+     cases at pages of 8 and 32 tokens (1024 positions a row) are held to
+     the same tolerances, not timed;
+   * int8 paged attention: the same shapes, page sizes and query types over
+     an int8 pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
    * tensor-parallel paged attention (queue B row 6): the same decode and
      chunk cases over float32 and int8 pools, float32 queries, split on
@@ -46,13 +50,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
      backward rows carry that time); the backend that ran is printed;
    * 3x3 convolution, tap-sum (k9) and im2col (i2c): ResNet-50's four
      stride-1 3x3 shapes at batch 256 (56x56x64, 28x28x128, 14x14x256,
-     7x7x512, NHWC), bfloat16 and float32, forward and ``flip`` (the input
-     gradient). Max abs error <= 1e-4 x max|plain| in float32 (the same
+     7x7x512, NHWC), bfloat16 (the tensor-core path) and float32 (the
+     CUDA-core path; the path each call took is checked against
+     ``tc_eligible``), forward and ``flip`` (the input gradient), each
+     timed. Max abs error <= 1e-4 x max|plain| in float32 (the same
      float32 sums in another order over 9*Cin <= 4608 terms) and <= 2e-2 x
      max|plain| in bfloat16 (``scripts/perf_pallas_conv.py``'s own bar; the
-     outputs are rounded to bfloat16). The library yardstick is
-     ``F.conv2d`` on the same channels-last tensors (cuDNN, TF32 off for
-     float32); the cuDNN kernels that ran are printed.
+     outputs are rounded to bfloat16). The library yardstick is cuDNN on
+     the same channels-last tensors (TF32 off for float32): ``F.conv2d``
+     forward, and for flip ``F.conv2d`` of dy with the rotated weights
+     made once outside the timing; the cuDNN kernels that ran are printed.
+     Eight ragged bfloat16 shapes (CONV_RAGGED: partial tiles, Cin not a
+     multiple of 64, Cout not a multiple of the channel tile) are held on
+     both kernels' tensor-core paths too, not timed.
 4. slice   — GPT-2 small at full width (12 layers, hidden 768, 12 heads,
    vocab 50257, context 1024), float32, seeded random weights: the paged
    ``ServingEngine`` serves 12 requests (prompts of 24-700 tokens, two
@@ -116,14 +126,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    compute_dtype=torch.bfloat16)``: one warm-up step, then 5 timed steps
    (step time, images/s, peak memory, utilisation against 989 TFLOP/s
    bfloat16 with ``resnet_flops``). Checks: losses finite and the last
-   below the first; per timed step, the k9 and i2c kernels launched
-   exactly the counts derived from the model's layers
+   below the first; per timed step, the k9 and i2c tensor-core kernels
+   launched exactly the counts derived from the model's layers
    (``models.conv_routes``: forward and input gradient of each 3x3
-   stride-1 convolution) and ``F.conv2d`` exactly once per other
-   convolution, never for a 3x3 stride-1 one. Card against the port's CPU
-   run at float32 on a 4 x 224 x 224 batch (cuDNN and matmul TF32 off, set
-   and printed): loss within 1e-4 relative, BN running statistics after
-   the step within 1e-4, each gradient within 1e-3 of its largest
+   stride-1 convolution, 20 k9 and 6 i2c), their CUDA-core kernels never,
+   and ``F.conv2d`` exactly once per other convolution, never for a 3x3
+   stride-1 one. Card against the port's CPU run at float32 on a 4 x 224
+   x 224 batch (cuDNN and matmul TF32 off, set and printed; the conv
+   kernels on their CUDA-core path, ``conv_routes`` launches, no
+   tensor-core one): loss within 1e-4 relative, BN running statistics
+   after the step within 1e-4, each gradient within 1e-3 of its largest
    magnitude or within 10 times its float32 noise floor on the CPU,
    whichever is larger (see RESNET_NOISE_FACTOR). Then 2 steps under
    ``torch.profiler`` (a ``profile`` line).
@@ -239,14 +251,15 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _paged_case(torch, dtype, b, c, starts, tables, seed, int8):
-    """Random paged-attention inputs on the card; an int8 pool is written
-    through the port's ``paged_write_quant`` from random float K/V, every
-    page and offset, as the serving path writes it."""
+def _paged_case(torch, dtype, b, c, starts, tables, seed, int8, ps=16):
+    """Random paged-attention inputs on the card, pages of ``ps`` tokens;
+    an int8 pool is written through the port's ``paged_write_quant`` from
+    random float K/V, every page and offset, as the serving path writes
+    it."""
     from bigdl_tpu_torch.parallel.sequence import (paged_write_index,
                                                    paged_write_quant)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n, h, ps, d = 512, 12, 16, 64
+    n, h, d = 512, 12, 64
     kw = dict(generator=g, device="cuda", dtype=torch.float32)
     if int8:
         pages = torch.arange(n).repeat_interleave(ps)[None]
@@ -292,44 +305,52 @@ def _tables(lengths, p=64, ps=16, n=512, share=None):
 
 PAGED_TOL = 2e-5       # float32 bar of the paged kernels (rows 4-6)
 PAGED_TP = (2, 4)      # tp degrees of row 6's kernel check
-TP_READINGS = 3        # row 6: readings of 50 runs each, median reported
+PAGE_SIZES = (8, 32)   # the kernel's other page sizes, held, not timed
+READINGS = 3           # timed kernels: readings, the median reported
 
 
-def _steady_ms(torch, fn, flush):
-    """Row 6's timing: TP_READINGS readings of :func:`time_ms` (50 runs,
-    10 warm, queued ahead of the card); returns (median, [min, max])."""
-    ms = sorted(time_ms(torch, fn, 50, flush, warm=10, ahead=True)
-                for _ in range(TP_READINGS))
+def _steady_ms(torch, fn, flush, iters=50):
+    """A kernel's timing: READINGS readings of :func:`time_ms` (``iters``
+    runs, 10 warm, queued ahead of the card behind the spin kernel, L2
+    flushed before each run); returns (median, [min, max])."""
+    ms = sorted(time_ms(torch, fn, iters, flush, warm=10, ahead=True)
+                for _ in range(READINGS))
     return ms[len(ms) // 2], [ms[0], ms[-1]]
 
 
-def _paged_cases():
-    """The paged-attention cases: decode over 8 slots (row 7 inactive, all
-    sentinel; rows 2 and 3 share 16 pages = a 256-token prefix) and one
-    prefill chunk of the 4-row window."""
+def _paged_cases(ps=16):
+    """The paged-attention cases at pages of ``ps`` tokens (1024 positions
+    a row): decode over 8 slots (row 7 inactive, all sentinel; rows 2 and
+    3 share a 256-token prefix) and one prefill chunk of the 4-row window
+    (rows 1 and 2 share 192 tokens)."""
     dec_len = [24, 100, 300, 310, 700, 1000, 513, 0]
     dec = dict(b=8, c=1, starts=[max(x - 1, 0) for x in dec_len],
-               tables=_tables(dec_len, share=(2, 3, 16)))
+               tables=_tables(dec_len, p=1024 // ps, ps=ps,
+                              share=(2, 3, 256 // ps)))
     chk_start = [0, 192, 256, 640]
     chk = dict(b=4, c=64, starts=chk_start,
-               tables=_tables([s + 64 for s in chk_start],
-                              share=(1, 2, 12)))
+               tables=_tables([s + 64 for s in chk_start], p=1024 // ps,
+                              ps=ps, share=(1, 2, 192 // ps)))
     return (("decode", dec), ("chunk", chk))
 
 
 def _paged_kernel(torch, flush, int8):
     """The paged-attention kernel (float pool, or int8 pool) against its
-    plain version on :func:`_paged_cases`, float32 and bfloat16 queries;
-    returns its ``kernels`` entry, timed on decode float32."""
+    plain version on :func:`_paged_cases`, float32 and bfloat16 queries,
+    at pages of 16 (timed) and of PAGE_SIZES (held only); returns its
+    ``kernels`` entry, timed on decode float32 at pages of 16."""
     from bigdl_tpu_torch.ops import paged_attention as pa
     name = "paged_attention_int8" if int8 else "paged_attention"
     shapes = []
-    for label, case in _paged_cases():
+    for ps, label, case in [(ps, label, case)
+                            for ps in (16, *PAGE_SIZES)
+                            for label, case in _paged_cases(ps)]:
         for dtype, tol in ((torch.float32, PAGED_TOL),
                            (torch.bfloat16, 2e-2)):
             q, pool, table, start = _paged_case(
                 torch, dtype, case["b"], case["c"], case["starts"],
-                case["tables"], seed=len(shapes) + 10 * int8, int8=int8)
+                case["tables"], seed=len(shapes) + 10 * int8, int8=int8,
+                ps=ps)
             got = pa.paged_pool_attention(q, pool, table, start)
             torch.cuda.synchronize()
             want = pa.paged_pool_attention_ref(q, pool, table, start)
@@ -342,22 +363,27 @@ def _paged_kernel(torch, flush, int8):
                 ok = bool(torch.allclose(got.float()[vis],
                                          want.float()[vis], atol=tol,
                                          rtol=tol))
+            tag = f"{name} page {ps} {label} {dtype}"
             check(torch.isfinite(got.float()).all().item(),
-                  f"{name} {label} {dtype}: non-finite output")
-            check(ok, f"{name} {label} {dtype}: max abs err {max_err} over "
-                      f"tolerance {tol}")
+                  f"{tag}: non-finite output")
+            check(ok, f"{tag}: max abs err {max_err} over tolerance {tol}")
+            row = {"page_size": ps, "shape": label, "B": case["b"],
+                   "C": case["c"], "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": max_err, "tolerance": tol}
+            shapes.append(row)
+            if ps != 16:
+                continue
             nbytes, flops = pa.bytes_and_flops(q, pool, table, start)
             b_ms, b_by = bound(nbytes, flops, dtype)
-            ms = time_ms(torch, lambda: pa.paged_pool_attention(
-                q, pool, table, start), 50, flush)
-            plain_ms = time_ms(torch, lambda: pa.paged_pool_attention_ref(
-                q, pool, table, start), 10, flush)
-            shapes.append({"shape": label, "B": case["b"], "C": case["c"],
-                           "dtype": str(dtype).replace("torch.", ""),
-                           "max_abs_err": max_err, "tolerance": tol,
-                           "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": b_ms, "bound_by": b_by,
-                           "bytes": nbytes, "flops": flops})
+            ms, spread = _steady_ms(torch, lambda: pa.paged_pool_attention(
+                q, pool, table, start), flush)
+            row.update(ms=ms, ms_spread=spread,
+                       plain_ms=time_ms(torch, lambda: pa.
+                                        paged_pool_attention_ref(
+                                            q, pool, table, start), 10,
+                                        flush),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                       flops=flops)
     f32 = [s for s in shapes if s["dtype"] == "float32"]
     d32 = f32[0]
     emit({"phase": "kernels", "kernel": name, "shapes": shapes})
@@ -367,10 +393,11 @@ def _paged_kernel(torch, flush, int8):
         "replaces": ("bigdl_tpu/ops/paged_attention.py:107" if int8
                      else "bigdl_tpu/ops/paged_attention.py:69"),
         "max_abs_err": max(s["max_abs_err"] for s in f32),
-        "ms": d32["ms"], "plain_ms": d32["plain_ms"],
+        "ms": d32["ms"], "ms_spread": d32["ms_spread"],
+        "plain_ms": d32["plain_ms"],
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
         # no single PyTorch call attends through a page table
-        "library_ms": None, "timed_shape": "decode float32",
+        "library_ms": None, "timed_shape": "decode float32, page 16",
         "launches": 0, "shapes": shapes}
 
 
@@ -490,8 +517,8 @@ def phase_kernels(torch):
                        f"from a kept-set boundary")
         nbytes, flops = sm.bytes_and_flops(logits, top_k, top_p)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        ms = time_ms(torch, lambda: sm.fused_sample_logits(
-            logits, gumbel, temps, top_k, top_p), 50)
+        ms, spread = _steady_ms(torch, lambda: sm.fused_sample_logits(
+            logits, gumbel, temps, top_k, top_p), flush)
         plain_ms = time_ms(torch, lambda: sm.fused_sample_logits_ref(
             logits, gumbel, temps, top_k, top_p), 5)
         ok_rows = [r for r in range(s_rows) if r not in diff] or [0]
@@ -501,23 +528,24 @@ def phase_kernels(torch):
                         "max_abs_err": float((got[ok_rows].long()
                                               - want[ok_rows].long())
                                              .abs().max()),
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "bytes": nbytes, "flops": flops})
+                        "ms": ms, "ms_spread": spread, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                        "flops": flops})
     s32 = samples[0]
     results["fused_sampling"] = {
         "name": "fused_sampling", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "bigdl_tpu/ops/sampling.py:75",
         "max_abs_err": s32["max_abs_err"], "ms": s32["ms"],
-        "plain_ms": s32["plain_ms"], "bound_ms": s32["bound_ms"],
+        "ms_spread": s32["ms_spread"], "plain_ms": s32["plain_ms"], "bound_ms": s32["bound_ms"],
         "bound_by": s32["bound_by"],
         # no single PyTorch call does top-k + top-p + the gumbel draw
         "library_ms": None, "timed_shape": "8x50257 float32",
         "launches": 0, "shapes": samples}
     emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
     results.update(_flash_kernels(torch, flush))
+    results.update(_conv_kernels(torch, flush))
     del flush
-    results.update(_conv_kernels(torch))
     return results
 
 
@@ -654,18 +682,31 @@ CONV_REPLACES = {"k9": "scripts/perf_pallas_conv.py:64",
 CONV_SHAPES = [(256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
                (256, 14, 14, 256, 256), (256, 7, 7, 512, 512)]
 CONV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # x max|plain|
+# ragged bfloat16 shapes for the tensor-core path's edges, held on both
+# kernels, forward and flip, not timed: partial pixel tiles, Cin not a
+# multiple of 64, Cout not a multiple of the channel tile, tiny images
+CONV_RAGGED = [(1, 7, 9, 64, 64), (2, 7, 7, 72, 80), (1, 5, 13, 8, 8),
+               (2, 9, 11, 16, 136), (1, 3, 3, 24, 40), (1, 30, 30, 128, 64),
+               (3, 14, 14, 256, 256), (2, 5, 5, 192, 64)]
 
 
-def _conv_kernels(torch):
+def _conv_kernels(torch, flush):
     """Both 3x3 kernels against their plain versions at CONV_SHAPES,
-    forward and flip, in bfloat16 and float32, timed beside cuDNN; returns
-    their ``kernels`` entries, timed at the first shape each takes on the
-    ResNet-50 path in bfloat16 (i2c: 56x56x64; k9: 28x28x128)."""
+    forward and flip, in bfloat16 (the tensor-core path) and float32 (the
+    CUDA-core path), each direction timed queued behind the spin kernel
+    (:func:`_steady_ms`, 10 runs a reading) beside cuDNN on the same
+    tensors timed the same way: ``F.conv2d`` forward, and for flip
+    ``F.conv2d`` of dy with the rotated, transposed weights made once
+    outside the timing. Returns their ``kernels`` entries, timed forward
+    at the first shape each takes on the ResNet-50 path in bfloat16 (i2c:
+    56x56x64; k9: 28x28x128)."""
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import conv3x3 as cv
-    print(f"cudnn {torch.backends.cudnn.version()}: allow_tf32 "
-          f"{torch.backends.cudnn.allow_tf32}, matmul allow_tf32 "
+    print(f"cudnn {torch.backends.cudnn.version()}: allow_tf32 set to "
+          f"False for the yardstick, matmul allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # cuDNN's float32 in float32
     plain = {"k9": cv.conv3x3_k9_ref, "i2c": cv.conv3x3_i2c_ref}
     g = torch.Generator(device="cuda").manual_seed(31)
     rows = {"k9": [], "i2c": []}
@@ -679,21 +720,33 @@ def _conv_kernels(torch):
             dy = torch.randn((n, h, w, cout), generator=g,
                              device="cuda").to(dtype)
             xc, wc = x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2)
-
-            def cudnn():
-                return F.conv2d(xc, wc, padding=1)
-
-            lib_ms = time_ms(torch, cudnn, 10)
-            backend = _device_kernels(torch, cudnn)
+            dyc = dy.permute(0, 3, 1, 2)
+            # flip's weights as an OIHW (Cin, Cout, 3, 3) channels-last copy
+            wf = wt.flip(1, 2).permute(3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            cudnn = {False: lambda: F.conv2d(xc, wc, padding=1),
+                     True: lambda: F.conv2d(dyc, wf, padding=1)}
+            lib = {f: _steady_ms(torch, cudnn[f], flush, 10)
+                   for f in (False, True)}
+            backend = _device_kernels(torch, cudnn[False])
             print(f"cudnn {dname} {h}x{w}x{cin}: kernels {backend}",
                   flush=True)
             for kind, fn in cv.KERNELS.items():
                 row = {"N": n, "H": h, "W": w, "Cin": cin, "Cout": cout,
                        "dtype": dname, "path": cv.kernel_for(cin) == kind,
-                       "library_ms": lib_ms, "cudnn_kernels": backend}
+                       "tensor_cores": cv.tc_eligible(kind, x, wt),
+                       "cudnn_kernels": backend}
                 for flip, inp in ((False, x), (True, dy)):
+                    pre = "flip_" if flip else ""
+                    before = (fn.launches, fn.tc_launches)
                     got = fn(inp, wt, flip)
                     torch.cuda.synchronize()
+                    tc = fn.tc_launches - before[1]
+                    check(tc + fn.launches - before[0] == 1
+                          and tc == row["tensor_cores"],
+                          f"conv3x3_{kind} {h}x{w}x{cin} {dname} flip={flip}"
+                          f": ran {tc} tensor-core launches, expected "
+                          f"{int(row['tensor_cores'])}")
                     want = plain[kind](inp, wt, flip)
                     check(torch.isfinite(got.float()).all().item(),
                           f"conv3x3_{kind} {h}x{w}x{cin} {dname} flip={flip}: "
@@ -704,37 +757,90 @@ def _conv_kernels(torch):
                     check(err <= tol, f"conv3x3_{kind} {h}x{w}x{cin} {dname} "
                                       f"flip={flip}: max abs err {err} over "
                                       f"{tol}")
-                    row["flip_max_abs_err" if flip else "max_abs_err"] = err
-                    row["flip_tolerance" if flip else "tolerance"] = tol
                     del got, want
-                nbytes, flops = cv.bytes_and_flops(x, wt)
-                b_ms, b_by = bound(nbytes, flops, dtype)
-                row.update(ms=time_ms(torch, lambda: fn(x, wt), 10),
-                           plain_ms=time_ms(torch, lambda: plain[kind](x, wt),
-                                            3),
-                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                           flops=flops)
+                    nbytes, flops = cv.bytes_and_flops(inp, wt, flip)
+                    b_ms, b_by = bound(nbytes, flops, dtype)
+                    ms, spread = _steady_ms(torch, lambda: fn(inp, wt, flip),
+                                            flush, 10)
+                    row.update({f"{pre}max_abs_err": err,
+                                f"{pre}tolerance": tol, f"{pre}ms": ms,
+                                f"{pre}ms_spread": spread,
+                                f"{pre}library_ms": lib[flip][0],
+                                f"{pre}library_ms_spread": lib[flip][1],
+                                f"{pre}bound_ms": b_ms,
+                                f"{pre}bound_by": b_by,
+                                f"{pre}bytes": nbytes, f"{pre}flops": flops})
+                row["plain_ms"] = time_ms(torch, lambda: plain[kind](x, wt),
+                                          3)
                 rows[kind].append(row)
-            del x, wt, dy, xc, wc
+            del x, wt, dy, xc, wc, dyc, wf
             torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32
+    ragged = _conv_ragged(torch, g)
     results = {}
     for kind, shapes in rows.items():
         name = f"conv3x3_{kind}"
-        emit({"phase": "kernels", "kernel": name, "shapes": shapes})
+        emit({"phase": "kernels", "kernel": name, "shapes": shapes,
+              "ragged": ragged[kind]})
         t = next(r for r in shapes if r["path"] and r["dtype"] == "bfloat16")
         results[name] = {
             "name": name, "route": "cuda", "source": CONV_SOURCE,
             "replaces": CONV_REPLACES[kind],
-            "max_abs_err": max(r["max_abs_err"] for r in shapes
-                               if r["dtype"] == "float32"),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            # the main path's (bfloat16, tensor cores) and the CUDA-core
+            # path's (float32), over both directions; the worst against
+            # its tolerance over every case
+            "max_abs_err": max(max(r["max_abs_err"], r["flip_max_abs_err"])
+                               for r in shapes if r["dtype"] == "bfloat16"),
+            "max_abs_err_float32": max(
+                max(r["max_abs_err"], r["flip_max_abs_err"])
+                for r in shapes if r["dtype"] == "float32"),
+            "worst_err_vs_tolerance": max(
+                max(r["max_abs_err"] / r["tolerance"],
+                    r["flip_max_abs_err"] / r["flip_tolerance"])
+                for r in shapes),
+            "ms": t["ms"], "ms_spread": t["ms_spread"],
+            "flip_ms": t["flip_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # one F.conv2d call (cuDNN) on the same channels-last tensors
             "library_ms": t["library_ms"],
             "timed_shape": f"{t['N']}x{t['H']}x{t['W']}x{t['Cin']} -> "
-                           f"{t['Cout']} bfloat16",
+                           f"{t['Cout']} bfloat16, tensor cores",
             "launches": 0, "shapes": shapes}
     return results
+
+
+def _conv_ragged(torch, g):
+    """Both conv kernels on CONV_RAGGED in bfloat16, forward and flip, on
+    the tensor-core path, against their plain versions; returns each
+    kernel's worst error as a fraction of max|plain| per shape."""
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    plain = {"k9": cv.conv3x3_k9_ref, "i2c": cv.conv3x3_i2c_ref}
+    out = {"k9": [], "i2c": []}
+    for n, h, w, cin, cout in CONV_RAGGED:
+        for kind, fn in cv.KERNELS.items():
+            worst = 0.0
+            for flip in (False, True):
+                x = torch.randn((n, h, w, cout if flip else cin),
+                                generator=g, device="cuda").bfloat16()
+                wt = (torch.randn((cout, 3, 3, cin), generator=g,
+                                  device="cuda")
+                      * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+                tc = fn.tc_launches
+                got = fn(x, wt, flip).float()
+                torch.cuda.synchronize()
+                check(fn.tc_launches == tc + 1,
+                      f"conv3x3_{kind} {(n, h, w, cin, cout)} flip={flip}: "
+                      f"not on the tensor-core path")
+                want = plain[kind](x, wt, flip).float()
+                err = float((got - want).abs().max() / want.abs().max())
+                check(err <= CONV_TOL["bfloat16"],
+                      f"conv3x3_{kind} {(n, h, w, cin, cout)} flip={flip}: "
+                      f"error {err} x max|plain| over "
+                      f"{CONV_TOL['bfloat16']}")
+                worst = max(worst, err)
+            out[kind].append({"shape": [n, h, w, cin, cout],
+                              "max_err_vs_max_plain": worst})
+    return out
 
 
 def _near_boundary(torch, logits, temps, top_k, top_p, eps=1e-5):
@@ -785,11 +891,13 @@ def _drive(engine, prompts):
                       for i in range(8, 12)]
 
 
-def _profile(torch, run):
+def _profile(torch, run, groups=None):
     """Run ``run()`` under torch.profiler and report the device's busy
     time (the union of CUDA kernel and copy intervals) against the wall
-    time, with the largest kernels by device time. Without device events
-    the device numbers are "not measured"."""
+    time, with the largest kernels by device time, and, for ``groups``
+    ({label: substring of the kernel name}), each group's calls and
+    device time. Without device events the device numbers are "not
+    measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -816,7 +924,14 @@ def _profile(torch, run):
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     total = sum(t for _, t in by_name.values())
+    grouped = {}
+    for label, part in (groups or {}).items():
+        hits = [v for k, v in by_name.items() if part in k]
+        t = sum(v[1] for v in hits)
+        grouped[label] = {"calls": sum(v[0] for v in hits), "s": t / 1e6,
+                          "share_of_device_time": t / total}
     return {"wall_s": wall, "device_busy_s": busy / 1e6,
+            "groups": grouped,
             "device_busy_share": busy / 1e6 / wall,
             "device_events": len(dev), "device_time_s": total / 1e6,
             "top": [{"name": k[:80], "calls": n, "s": t / 1e6,
@@ -1325,21 +1440,42 @@ def phase_train(torch, kernels, smi):
 
 
 RESNET_BATCH, RESNET_HW, RESNET_STEPS = 256, 224, 5
+# families of device kernels in the train_resnet profile, by name
+RESNET_KERNEL_GROUPS = {"conv3x3 tensor-core kernels": "conv3x3_tc_kernel",
+                        "cuDNN xmma kernels": "xmma",
+                        "reductions": "reduce_kernel",
+                        "elementwise": "elementwise_kernel"}
 RESNET_CHECK_BATCH = 4
+# bfloat16-compute loss at the check batch against the float32 CPU loss,
+# relative
+RESNET_BF16_LOSS_REL = 2e-2
+# ResNet-50's 3x3 stride-1 convolutions as (H = W, Cin = Cout), and the bar
+# of conv3x3's bfloat16 autograd check at the check batch: output, input
+# and weight gradients within this share of the float32 CPU's largest
+# magnitude (the kernels phase's bfloat16 bar)
+RESNET_CONV3X3 = ((56, 64), (28, 128), (14, 256), (7, 512))
+CONV_BF16_REL = 2e-2
 
 
 def _conv_counts():
+    """Launches of each conv kernel's tensor-core path (``k9``, ``i2c``)
+    and CUDA-core path (``k9_cuda_core``, ``i2c_cuda_core``), and the
+    library convolutions by kind."""
     from bigdl_tpu_torch.nn import SpatialConvolution
     from bigdl_tpu_torch.ops import conv3x3 as cv
-    return {"k9": cv.conv3x3_k9.launches, "i2c": cv.conv3x3_i2c.launches,
-            "library": dict(SpatialConvolution.library_calls)}
+    counts = {}
+    for kind, fn in cv.KERNELS.items():
+        counts[kind] = fn.tc_launches
+        counts[f"{kind}_cuda_core"] = fn.launches
+    counts["library"] = dict(SpatialConvolution.library_calls)
+    return counts
 
 
 def _reset_conv_counts():
     from bigdl_tpu_torch.nn import SpatialConvolution
     from bigdl_tpu_torch.ops import conv3x3 as cv
-    cv.conv3x3_k9.launches = 0
-    cv.conv3x3_i2c.launches = 0
+    for fn in cv.KERNELS.values():
+        fn.launches = fn.tc_launches = 0
     SpatialConvolution.library_calls.clear()
 
 
@@ -1373,8 +1509,16 @@ def _resnet_vs_cpu(torch, model, params, rng):
         (RESNET_CHECK_BATCH, RESNET_HW, RESNET_HW, 3), dtype="float32"))
     y = torch.from_numpy(rng.integers(0, 1000, RESNET_CHECK_BATCH))
     model.load_state_dict(params)
+    _reset_conv_counts()
     loss_g, grads_g = make_loss_and_grads(model, crit)(x.cuda(), y.cuda())
+    launches = _conv_counts()
     card_bufs = {k: b.cpu() for k, b in model.named_buffers()}
+    # the same batch in bfloat16 compute, on the tensor-core path
+    model.load_state_dict(params)
+    _reset_conv_counts()
+    loss16, grads16 = make_loss_and_grads(
+        model, crit, compute_dtype=torch.bfloat16)(x.cuda(), y.cuda())
+    launches16 = _conv_counts()
     cpu = ResNet(class_num=1000, depth=50, format="NHWC", device="cpu")
 
     def cpu_run(images):
@@ -1394,7 +1538,19 @@ def _resnet_vs_cpu(torch, model, params, rng):
            "cpu_grad_worst_vs_bar": 0.0, "cpu_grad_bar_param": None,
            "cpu_grad_params_on_noise_floor": 0,
            "cpu_grad_noise_median_rel": None, "cpu_bn_worst_abs": 0.0,
-           "cpu_bn_worst_buffer": None}
+           "cpu_bn_worst_buffer": None, "cpu_check_launches": launches,
+           "bf16_loss_rel_diff": abs(float(loss16) - loss_c) / abs(loss_c),
+           "bf16_check_launches": launches16}
+    # read, not checked: a 2^-23 change of the images already moves most
+    # float32 gradients by percents here, so bfloat16's rounding leaves no
+    # bar a whole-model gradient could be held to (conv3x3's own autograd
+    # check holds the bfloat16 gradients)
+    conv_rel = sorted(
+        float((grads16[k].float().cpu() - g).abs().max())
+        / max(float(g.abs().max()), 1e-30)
+        for k, g in grads_c.items() if g.dim() == 4 and g.shape[2:] == (3, 3))
+    rec["bf16_conv3x3_grad_rel_median"] = conv_rel[len(conv_rel) // 2]
+    rec["bf16_conv3x3_grad_rel_worst"] = conv_rel[-1]
     noise_rel = []
     for name, gc in grads_c.items():
         top = max(float(gc.abs().max()), 1e-30)
@@ -1416,11 +1572,50 @@ def _resnet_vs_cpu(torch, model, params, rng):
     return rec
 
 
+def _conv3x3_autograd_bf16(torch, rng):
+    """``ops.conv3x3.conv3x3``, the autograd function the model calls,
+    in bfloat16 on the card at the check batch and ResNet-50's four 3x3
+    shapes: output, input gradient (the flip launch) and weight gradient
+    against float32 autograd of ``F.conv2d`` on the CPU over the same
+    bfloat16 values. Returns the worst max|diff| / max|CPU| of each, and
+    the conv counts of these calls."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops.conv3x3 import conv3x3
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
+                                * scale).to(torch.bfloat16)
+
+    _reset_conv_counts()
+    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0}
+    for hw, c in RESNET_CONV3X3:
+        x = draw((RESNET_CHECK_BATCH, hw, hw, c))
+        w = draw((c, c, 3, 3), (2.0 / (9 * c)) ** 0.5).contiguous(
+            memory_format=torch.channels_last)
+        dy = draw((RESNET_CHECK_BATCH, hw, hw, c))
+        xc = x.float().permute(0, 3, 1, 2).requires_grad_()
+        wc = w.float().requires_grad_()
+        yc = F.conv2d(xc, wc, padding=1)
+        yc.backward(dy.float().permute(0, 3, 1, 2))
+        xg, wg = x.cuda().requires_grad_(), w.cuda().requires_grad_()
+        yg = conv3x3(xg, wg)
+        yg.backward(dy.cuda())
+        for key, got, want in (("y", yg, yc.permute(0, 2, 3, 1)),
+                               ("dx", xg.grad, xc.grad.permute(0, 2, 3, 1)),
+                               ("dw", wg.grad, wc.grad)):
+            want = want.detach()
+            rel = float((got.detach().float().cpu() - want).abs().max()
+                        / want.abs().max())
+            worst[key] = max(worst[key], rel)
+    return worst, _conv_counts()
+
+
 def phase_train_resnet(torch, kernels, smi):
     import numpy as np
     from bigdl_tpu_torch import convert
     from bigdl_tpu_torch.models import ResNet, conv_routes, resnet_flops
     from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops.conv3x3 import kernel_for
     from bigdl_tpu_torch.optim import SGD, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1463,8 +1658,11 @@ def phase_train_resnet(torch, kernels, smi):
     for kind in ("k9", "i2c"):
         want = routes[kind] * RESNET_STEPS
         check(counts[kind] == want,
-              f"conv3x3_{kind} launched {counts[kind]} times in "
-              f"{RESNET_STEPS} steps; the layers give {want}")
+              f"conv3x3_{kind} ran {counts[kind]} tensor-core launches in "
+              f"{RESNET_STEPS} bfloat16 steps; the layers give {want}")
+        check(counts[f"{kind}_cuda_core"] == 0,
+              f"conv3x3_{kind} ran {counts[f'{kind}_cuda_core']} CUDA-core "
+              f"launches in the bfloat16 steps")
         kernels[f"conv3x3_{kind}"]["launches"] = counts[kind]
     check("3x3/s1" not in counts["library"],
           f"a 3x3 stride-1 convolution reached F.conv2d: {counts['library']}")
@@ -1485,6 +1683,36 @@ def phase_train_resnet(torch, kernels, smi):
     check(cmp["cpu_bn_worst_abs"] <= 1e-4,
           f"card vs CPU BN statistic {cmp['cpu_bn_worst_buffer']} differs "
           f"by {cmp['cpu_bn_worst_abs']}")
+    f32 = cmp["cpu_check_launches"]
+    b16 = cmp["bf16_check_launches"]
+    for kind in ("k9", "i2c"):
+        # float32 stays on the CUDA-core path, one forward and (but for
+        # the stem's input) one input gradient per convolution; bfloat16
+        # takes the tensor cores
+        check(f32[kind] == 0 and f32[f"{kind}_cuda_core"] == routes[kind],
+              f"float32 check: conv3x3_{kind} ran {f32[kind]} tensor-core "
+              f"and {f32[f'{kind}_cuda_core']} CUDA-core launches; the "
+              f"layers give 0 and {routes[kind]}")
+        check(b16[kind] == routes[kind] and b16[f"{kind}_cuda_core"] == 0,
+              f"bfloat16 check: conv3x3_{kind} ran {b16[kind]} tensor-core "
+              f"and {b16[f'{kind}_cuda_core']} CUDA-core launches; the "
+              f"layers give {routes[kind]} and 0")
+    check(cmp["bf16_loss_rel_diff"] <= RESNET_BF16_LOSS_REL,
+          f"bfloat16 check loss differs from the float32 CPU loss by "
+          f"{cmp['bf16_loss_rel_diff']}")
+    conv_ad, conv_ad_counts = _conv3x3_autograd_bf16(torch, rng)
+    print(f"train_resnet conv3x3 bfloat16 autograd vs CPU: "
+          f"{json.dumps(conv_ad)}", flush=True)
+    check(max(conv_ad.values()) <= CONV_BF16_REL,
+          f"conv3x3 bfloat16 autograd vs CPU: {conv_ad}")
+    want = {"k9": 0, "i2c": 0}
+    for _, c in RESNET_CONV3X3:
+        want[kernel_for(c)] += 2        # forward and flip
+    got = {k: conv_ad_counts[k] for k in want}
+    check(got == want and not conv_ad_counts["k9_cuda_core"]
+          and not conv_ad_counts["i2c_cuda_core"],
+          f"conv3x3 bfloat16 autograd ran {conv_ad_counts}; the tensor "
+          f"cores should have run {want}")
     emit({"phase": "train_resnet", "model": "resnet50", "format": "NHWC",
           "batch": RESNET_BATCH, "image": RESNET_HW,
           "compute_dtype": "bfloat16",
@@ -1497,13 +1725,15 @@ def phase_train_resnet(torch, kernels, smi):
           "conv_routes_per_step": routes, "launches": counts,
           "cpu_check_batch": RESNET_CHECK_BATCH,
           "cpu_grad_noise_factor": RESNET_NOISE_FACTOR, **cmp,
+          "conv3x3_bf16_autograd_rel": conv_ad,
           "card": smi})
 
     # where the time goes: 2 more bfloat16 steps under torch.profiler
     model.load_state_dict(params)
     opt_state = opt.init_state(dict(model.named_parameters()))
     profile = _profile(torch, lambda: [step(opt_state, x, y)
-                                       for _ in range(2)])
+                                       for _ in range(2)],
+                       groups=RESNET_KERNEL_GROUPS)
     emit({"phase": "profile", "path": "train_resnet", "steps": 2, **profile})
 
 

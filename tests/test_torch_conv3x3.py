@@ -178,3 +178,137 @@ def test_bytes_and_flops():
     nbytes, flops = cv.bytes_and_flops(torch.zeros(1, 2, 2, 8),
                                        torch.zeros(8, 3, 3, 4), flip=True)
     assert flops == 2 * 4 * 9 * 8 * 4 and nbytes == 4 * (32 + 288 + 16)
+
+
+# ------------------------------------------- the tensor-core path's host side
+@pytest.mark.parametrize("dtype,cin,cout,flip,tc", [
+    (torch.bfloat16, 64, 64, False, True),
+    (torch.bfloat16, 512, 512, True, True),
+    (torch.bfloat16, 8, 136, False, True),
+    (torch.bfloat16, 16, 24, True, True),
+    (torch.float32, 64, 64, False, False),      # float32: CUDA cores
+    (torch.float32, 64, 64, True, False),
+    (torch.bfloat16, 3, 16, False, False),      # the CIFAR stem's Cin = 3
+    (torch.bfloat16, 16, 12, False, False),     # Cout % 8
+    (torch.bfloat16, 12, 16, True, False),      # Cin % 8, with flip
+])
+def test_tensor_core_eligibility(dtype, cin, cout, flip, tc):
+    """bfloat16 with the operation's Cin and Cout multiples of 8 takes the
+    tensor cores (either kernel, any width up to TC_K9_MAX_W); float32 and
+    other bfloat16 shapes the CUDA cores. ``cin``/``cout`` are the
+    operation's: with flip the weight holds them swapped."""
+    x = torch.zeros(1, 7, 7, cin, dtype=dtype)
+    w = torch.zeros((cin, 3, 3, cout) if flip else (cout, 3, 3, cin),
+                    dtype=dtype)
+    for kind in ("k9", "i2c"):
+        assert cv.tc_eligible(kind, x, w, flip) is tc
+
+
+def test_tap_sum_width_limit():
+    """The tap-sum halo (128 + 2W + 2 rows of 128 bytes, double-buffered)
+    fits a CTA's shared memory up to W = TC_K9_MAX_W = 255; im2col has no
+    halo and takes any width."""
+    assert cv.TC_K9_MAX_W == 255
+    for w, fits in ((cv.TC_K9_MAX_W, True), (cv.TC_K9_MAX_W + 1, False)):
+        plan = cv.tc_plan("k9", 1, 2, w, 128, 128)
+        assert (plan["smem_bytes"] <= cv.TC_MAX_SMEM) is fits
+        x = torch.zeros(1, 2, w, 128, dtype=torch.bfloat16)
+        wt = torch.zeros(128, 3, 3, 128, dtype=torch.bfloat16)
+        assert cv.tc_eligible("k9", x, wt) is fits
+        assert cv.tc_eligible("i2c", x, wt)
+
+
+# (kind, N, H, W, Cin, Cout) -> grid, tile_n, stages, halo rows, bytes
+TC_PLANS = [
+    # ResNet-50's four stride-1 3x3 shapes at batch 256, on their kernels
+    (("i2c", 256, 56, 56, 64, 64), (6272, 1), 64, 9, 0,
+     1024 + 4 * 64 * 128 + 4 * 128 * 128),
+    (("k9", 256, 28, 28, 128, 128), (1568, 1), 128, 18, 186,
+     1024 + 4 * 128 * 128 + 2 * 24 * 1024 + 128),
+    (("k9", 256, 14, 14, 256, 256), (392, 2), 128, 36, 158,
+     1024 + 4 * 128 * 128 + 2 * 20 * 1024 + 128),
+    (("k9", 256, 7, 7, 512, 512), (98, 4), 128, 72, 144,
+     1024 + 4 * 128 * 128 + 2 * 18 * 1024 + 128),
+    # ragged: one 7x7 image (49 pixels: one partial tile), Cin not a
+    # multiple of 64, Cout not of the channel tile
+    (("k9", 1, 7, 7, 72, 80), (1, 1), 128, 18, 144,
+     1024 + 4 * 128 * 128 + 2 * 18 * 1024 + 128),
+    (("i2c", 1, 7, 7, 8, 8), (1, 1), 64, 2, 0,
+     1024 + 4 * 64 * 128 + 4 * 128 * 128),
+    (("i2c", 3, 7, 9, 40, 200), (2, 2), 128, 6, 0,
+     1024 + 4 * 128 * 128 + 4 * 128 * 128),
+    # the CIFAR stem's shape (Cin 3): planned, though not eligible
+    (("i2c", 128, 32, 32, 3, 16), (1024, 1), 64, 1, 0,
+     1024 + 4 * 64 * 128 + 4 * 128 * 128),
+]
+
+
+@pytest.mark.parametrize("args,grid,tile_n,stages,halo_rows,smem", TC_PLANS,
+                         ids=[str(p[0]) for p in TC_PLANS])
+def test_tensor_core_plan(args, grid, tile_n, stages, halo_rows, smem):
+    """Every host-side quantity of a tensor-core launch: 128-pixel tiles,
+    64 output channels a CTA up to Cout 64 and 128 above, depth stages
+    of 64 (tap-sum: 9 taps x ceil(Cin / 64); im2col: ceil(9 Cin / 64)),
+    the tap-sum halo of 128 + 2W + 2 pixel rows, and the dynamic shared
+    memory (alignment slack, 4 weight stages, 4 patch stages or two halo
+    buffers rounded to 1 KiB and a zero row), under the 232,448 bytes a
+    CTA may use."""
+    plan = cv.tc_plan(*args)
+    assert plan == {"tile_m": 128, "tile_n": tile_n, "grid": grid,
+                    "stages": stages, "halo_rows": halo_rows,
+                    "smem_bytes": smem}
+    assert smem <= cv.TC_MAX_SMEM == 232448
+
+
+class _FakeLib:
+    """Records the C entry called and its arguments; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("kind", ["k9", "i2c"])
+@pytest.mark.parametrize("dtype,cin,cout,flip,tc", [
+    (torch.bfloat16, 64, 64, False, True),
+    (torch.bfloat16, 128, 64, True, True),
+    (torch.float32, 64, 64, True, False),
+    (torch.bfloat16, 3, 64, False, False),
+])
+def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kind, dtype,
+                                                     cin, cout, flip, tc):
+    """The wrapper's card branch: the C entry it calls (the tensor-core
+    entry with the kernel's mode, or the CUDA-core entry of its kernel
+    with the dtype code) and the counter
+    it moves (``tc_launches`` or ``launches``), decided before the launch
+    from the shape and type alone. The library and the card are faked."""
+    lib = _FakeLib()
+    monkeypatch.setattr(cv, "_check_cuda", lambda fn, x, w: None)
+    monkeypatch.setattr(cv._build, "load", lambda name, declare: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7}))
+    fn = cv.KERNELS[kind]
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "tc_launches", 0)
+    op_cin = cout if flip else cin
+    x = torch.zeros(2, 5, 7, op_cin, dtype=dtype)
+    w = torch.zeros(cout, 3, 3, cin, dtype=dtype)
+    y, ran_tc = cv._launch(f"conv3x3_{kind}", kind, x, w, flip)
+    cv._count(fn, ran_tc)
+    op_cout = cin if flip else cout
+    assert ran_tc is tc and y.shape == (2, 5, 7, op_cout)
+    assert (fn.tc_launches, fn.launches) == ((1, 0) if tc else (0, 1))
+    [(name, args)] = lib.calls
+    head = (2, 5, 7, op_cin, op_cout, int(flip))
+    assert args[3:9] == head and args[-1] == 7
+    if tc:
+        assert name == "bigdl_conv3x3_tc" and len(args) == 11
+        assert args[9] == {"k9": 0, "i2c": 1}[kind]
+    else:
+        assert name == f"bigdl_conv3x3_simt_{kind}"
+        assert args[9] == {torch.float32: 0, torch.bfloat16: 1}[dtype]

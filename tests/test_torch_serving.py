@@ -103,17 +103,90 @@ def test_no_device_raises_without_cuda(weights, monkeypatch):
         GPTForCausalLM(**CFG)
 
 
+# the reference's flags that turn an unported feature on, each with the
+# ROADMAP item the port's refusal must name
+UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7",
+                  "BIGDL_TPU_KV_HOST_TIER": "A.7", "BIGDL_TPU_LORA": "A.8"}
+
+
 @pytest.mark.parametrize("kw", [
     {"paged": False}, {"spec_tokens": 4}, {"failover": True},
     {"adapters": ["tenant-a"]}, {"tp": 2, "int8_weights": True},
     {"lora": True},
     {"kv_snapshot": True}, {"kv_host_tier": True},
+    *({flag: "1"} for flag in UNPORTED_FLAGS),
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(weights, kw):
+def test_unported_options_raise(weights, kw, monkeypatch):
+    """By keyword, or by the reference's flag (``BIGDL_TPU_*`` keys are set
+    in the environment, not passed), naming the ROADMAP item."""
     _, _, sd = weights
+    kw = dict(kw)
+    match = "ROADMAP"
+    for flag in [k for k in kw if k.startswith("BIGDL_TPU_")]:
+        monkeypatch.setenv(flag, kw.pop(flag))
+        match = f"ROADMAP queue {UNPORTED_FLAGS[flag]}"
     m = GPTForCausalLM(**CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
+
+
+@pytest.mark.parametrize("flag, kw", [
+    ("BIGDL_TPU_SPEC_DECODE", {"spec_tokens": 1}),
+    ("BIGDL_TPU_KV_SNAPSHOT", {"kv_snapshot": False}),
+    ("BIGDL_TPU_KV_HOST_TIER", {"kv_host_tier": False}),
+    ("BIGDL_TPU_LORA", {"lora": False}),
+])
+def test_unported_flag_yields_to_keyword(weights, flag, kw, monkeypatch):
+    """An explicit keyword that turns the feature off wins over its flag,
+    as in the reference."""
+    _, _, sd = weights
+    monkeypatch.setenv(flag, "1")
+    with _port_engine(sd, **kw) as eng:
+        assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 5 + 2
+
+
+@pytest.mark.parametrize("sub, value, parent", [
+    ("snapshot_dir", "/nonexistent/snapshots", "kv_snapshot"),
+    ("snapshot_interval_s", 0.25, "kv_snapshot"),
+    ("snapshot_journal", "journal.log", "kv_snapshot"),
+    ("host_tier_bytes", 1 << 20, "kv_host_tier"),
+    ("host_tier_prefetch", 4, "kv_host_tier"),
+    ("lora_rank", 4, "lora"),
+    ("adapter_slots", 2, "lora"),
+    ("adapter_host_bytes", 1 << 20, "lora"),
+])
+def test_sub_options_follow_parent(weights, sub, value, parent):
+    """A sub-option of an unported option is ignored while its parent is
+    off and refused, naming the ROADMAP item, while it is on; an unknown
+    keyword is still a TypeError."""
+    _, _, sd = weights
+    with _port_engine(sd, **{sub: value}) as eng:
+        assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 5 + 2
+    m = GPTForCausalLM(**CFG, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"{sub}.*ROADMAP queue A"):
+        ServingEngine(m, sd, device="cpu", **ENGINE,
+                      **{sub: value, parent: True})
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ServingEngine(m, sd, device="cpu", **ENGINE, **{f"{sub}_x": value})
+
+
+def test_kernel_page_sizes():
+    """The paged kernel is built for pages of 8, 16 and 32 at head 64; its
+    wrapper's shape check (the one a card call runs before launching)
+    takes those and refuses page 12."""
+    from bigdl_tpu_torch.ops import paged_attention as pa
+    assert pa.KERNEL_SHAPES == ((8, 64), (16, 64), (32, 64))
+    q = torch.zeros((2, 4, 1, 64))
+    table = torch.zeros((2, 3), dtype=torch.int32)
+    start = torch.zeros(2, dtype=torch.int32)
+    for ps in (8, 16, 32, 12):
+        pool = {"k": torch.zeros((6, 4, ps, 64)),
+                "v": torch.zeros((6, 4, ps, 64))}
+        if ps == 12:
+            with pytest.raises(ValueError, match="not in"):
+                pa._check_cuda_args(q, pool, table, start)
+        else:
+            pa._check_cuda_args(q, pool, table, start)
 
 
 def test_request_checks_and_failure_reaches_result(weights, monkeypatch):
