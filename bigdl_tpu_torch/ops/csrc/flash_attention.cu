@@ -1,11 +1,16 @@
 // Flash attention for Hopper (sm_90a): the FlashAttention-2 forward and its
 // two backward kernels (dQ; dK with dV), causal or full, over (B*H, S, D)
-// tensors.
+// tensors, in two hand-written paths: tensor-core kernels (wgmma) for the
+// bfloat16 forward and dK/dV at D = 64 and 128, and CUDA-core kernels for
+// float32, for the bfloat16 dQ, and (all three) at D = 64 only.
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- `_fwd_kernel` (:45), launched by `_fwd` (:89)
-//   flash_bwd_dq_kernel  <- `_bwd_dq_kernel` (:120), `_bwd_impl` call :217
-//   flash_bwd_dkv_kernel <- `_bwd_dkv_kernel` (:159), `_bwd_impl` call :238
+//   forward <- `_fwd_kernel` (:45), launched by `_fwd` (:89):
+//     bf16: flash_fwd_tc_kernel<D, CAUSAL>; f32: flash_fwd_kernel<float, CAUSAL>
+//   dQ      <- `_bwd_dq_kernel` (:120), `_bwd_impl` call :217:
+//     flash_bwd_dq_kernel<T, CAUSAL> (both types)
+//   dK/dV   <- `_bwd_dkv_kernel` (:159), `_bwd_impl` call :238:
+//     bf16: flash_bwd_dkv_tc_kernel<D, CAUSAL>; f32: flash_bwd_dkv_kernel
 //
 // What they compute, per b*h, with s = (q . k) * scale set to NEG_INF where
 // a key is not visible (causal: key > query; ragged tail: key >= S):
@@ -16,17 +21,64 @@
 //          scale, dq = ds . k;
 //   dK/dV: dv = p^T . dO, dk = ds^T . q;
 // where delta = rowsum(dO * O) (float32, computed by the caller) and dlse is
-// the cotangent of lse (a null pointer means zero).
+// the cotangent of lse (a null pointer means zero). p is rounded to the
+// input type before the P.V and P^T.dO products and ds before both of its
+// products, as the reference does (:70, :150, :186, :192).
 //
-// What bounds them: operations. Each visible (query, key) pair costs 4*D
-// flops (two products of D) while q, k, v and the outputs move once; in
-// float32 the products run on the CUDA cores (TF32 stays off, 67 TFLOP/s)
-// and the function sits far above the card's balance point. In bfloat16 the
-// function is bound by bytes at the tensor cores' rate, but this first
-// version computes in float32 on the CUDA cores in both types; wgmma and
-// TMA are later work.
+// What bounds them. The function costs 4*D operations per visible (query,
+// key) pair (two products of D) while q, k, v and the outputs cross HBM
+// once. At the training shape (B*H = 96, S = 1024, D = 64, causal) that is
+// 12.9 GFLOP a call over 13-19 MB: in bfloat16 the function's bound is
+// bytes (0.015-0.023 ms at 3.35 TB/s; 0.013 ms of operations at 989
+// TFLOP/s), in float32 on the CUDA cores it is operations (0.19 ms at 67
+// TFLOP/s). The flash design recomputes s (and in the backward dp) instead
+// of storing the score matrix, so the kernels run more products than the
+// function counts: the forward two per pair (its floor is the bytes), dQ
+// three (6*D: 0.020 ms at 989 TFLOP/s, at its 0.019 ms of bytes) and dK/dV
+// four (S^T, dV, dP^T, dK: 8*D, 25.8 GFLOP, 0.026 ms at 989 TFLOP/s). So
+// the bfloat16 dK/dV kernel is bound by its four products on the tensor
+// cores, above its 0.023 ms of bytes.
 //
-// What the design does about it:
+// The tensor-core kernels (bfloat16; wgmma m64nNk16, f32 accumulators in
+// registers; the shared helpers in wgmma.cuh):
+// - one CTA of two warpgroups (256 threads); each warpgroup owns 64 rows of
+//   the CTA's tile: the forward's query tile of 128 rows, dK/dV's key tile
+//   of 128 rows. Every operand tile is stored as 64-wide blocks of 128-byte
+//   swizzle rows (D = 128 is two blocks), which both wgmma views read
+//   without a copy: K-major (D contiguous, 32 bytes a k16 step) where D is
+//   the product's depth, MN-major with the transpose bit where the rows are
+//   the depth (V in P.V; dO and Q in dV += P^T.dO and dK += dS^T.Q);
+// - forward: the Q tile is staged once; K and V tiles (128 keys at D = 64,
+//   64 at D = 128) stream through a two-stage cp.async ring with zero fill
+//   past S, the next tile in flight while the current one is multiplied.
+//   S = Q.K^T is wgmma_ss; the online softmax runs on the accumulators in
+//   the log2 domain (scale * log2(e) folded into one multiply, exp2), a
+//   row's max through two quad shuffles, its sum kept per thread until the
+//   end; P becomes the register A operand of O += P.V (wgmma_rs) with no
+//   trip through shared memory: the accumulator's fragment for 16 columns
+//   is the A fragment of one k16 step, packed as bf16 pairs. Causal: a CTA
+//   stops at its diagonal tile, a warpgroup skips the tiles above its own
+//   rows, only tiles that cross the diagonal or S are masked, and the
+//   heaviest query tiles launch first;
+// - dK/dV: K and V of the key tile stay in shared memory; the query tiles
+//   from the diagonal (the reference's (ki*bk)//bq) to the end stream Q,
+//   dO and their lse, delta and dlse through a two-stage ring. Per query
+//   tile of 64: S^T = K.Q^T (wgmma_ss), P^T = exp2(S^T*scale*log2(e) -
+//   lse*log2(e)); dV += bf16(P^T).dO (wgmma_rs); dP^T = V.dO^T (wgmma_ss);
+//   dS^T = P^T * (dP^T - delta + dlse) * scale, rounded to bf16; dK +=
+//   dS^T.Q (wgmma_rs). lse, delta and dlse are indexed by query, a column
+//   of S^T, and are read per column from the staged rows;
+// - each wgmma group is waited for (wait_group 0) before its registers or
+//   its stage are reused, so no product is in flight across a barrier;
+// - epilogue: the accumulators are rounded to bf16 into the warpgroup's own
+//   rows of a tile it no longer reads and written out as 16-byte stores;
+//   lse (forward) straight from the registers. Every output element has one
+//   writer and no atomics are used, so results repeat bit for bit.
+// What remains for a later PR: a producer warp on TMA with mbarriers, two
+// consumer warpgroups in ping-pong so that one's softmax overlaps the
+// other's products, and persistent CTAs.
+//
+// The CUDA-core kernels (float32; bfloat16 dQ; D = 64):
 // - one CTA of 256 threads per (b*h, 64-row tile). The forward and dQ own a
 //   query tile and loop over key tiles, up to the diagonal when causal (the
 //   reference's ((qi+1)*bq + bk - 1)//bk with bq = bk = 64); dK/dV owns a
@@ -46,14 +98,16 @@
 //   product.
 // - the heaviest tiles launch first: under causal masking the last query
 //   tiles (forward, dQ) and the first key tiles (dK/dV) do the most work.
-// - bfloat16 inputs are widened to float32 as they are staged; p is rounded
-//   to bfloat16 before the P.V and P^T.dO products and ds before both of its
-//   products, as the reference does (:70, :150, :186, :192).
-// - ragged S: rows past S stage as zeros, their scores are masked, nothing
-//   past S is stored; S need not be a multiple of the tile.
+// - bfloat16 inputs (dQ) are widened to float32 as they are staged.
+// float32 stays on the CUDA cores rather than TF32 tensor cores, to keep
+// its results within 2e-5 (O, lse) and 1e-4 (gradients) of the plain
+// version's.
+// Both paths: ragged S: rows past S stage as zeros, their scores are
+// masked, nothing past S is stored; S need not be a multiple of a tile.
 // Offsets into the (B*H, S, D) tensors are 64-bit.
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace bigdl {
 namespace {
@@ -413,6 +467,516 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- the tensor-core path --
+constexpr int kTcThreads = 256;  // two warpgroups of 64 tile rows each
+constexpr int kFwdBM = 128;      // forward: query rows of a CTA
+constexpr int kDkvBK = 128;      // dK/dV: key rows of a CTA
+constexpr int kDkvBQ = 64;       // dK/dV: query rows of a ring stage
+constexpr int kTcStages = 2;     // ring depth
+constexpr int kMaxSmem = 232448; // a CTA's shared memory on sm_90
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// forward: keys of a ring stage (S and O accumulators of a thread: 64 + 32
+// floats at D = 64, 32 + 64 at D = 128)
+__host__ __device__ constexpr int fwd_bn(int d) { return d == 64 ? 128 : 64; }
+
+// bytes of a tile of `rows` bf16 rows of d values
+__host__ __device__ constexpr int tile_bytes(int rows, int d) {
+  return rows * d * 2;
+}
+
+// Dynamic shared memory of one CTA: 1 KiB of slack to align the tiles to
+// the 1024-byte swizzle atom, then
+//   forward: the Q tile and kTcStages stages of (K, V) tiles;
+//   dK/dV:   the K and V tiles, kTcStages stages of (Q, dO) tiles, and
+//            kTcStages stages of the lse, delta and dlse rows.
+// ops/flash_attention.py's `tc_plan` mirrors it for the host.
+__host__ __device__ constexpr int fwd_tc_smem(int d) {
+  return 1024 + tile_bytes(kFwdBM, d) +
+         kTcStages * 2 * tile_bytes(fwd_bn(d), d);
+}
+__host__ __device__ constexpr int dkv_tc_smem(int d) {
+  return 1024 + 2 * tile_bytes(kDkvBK, d) +
+         kTcStages * (2 * tile_bytes(kDkvBQ, d) + 3 * kDkvBQ * 4);
+}
+static_assert(fwd_tc_smem(128) <= kMaxSmem && dkv_tc_smem(128) <= kMaxSmem,
+              "a CTA's tiles must fit its shared memory");
+
+// byte offset of the 16-byte chunk holding columns c .. c + 7 (c % 8 == 0)
+// of row r in a tile of `rows` rows: 64-wide blocks of swizzled rows
+__device__ __forceinline__ uint32_t tile_off(int rows, int r, int c) {
+  return (uint32_t)((c >> 6) * rows * kSwizzleRowBytes) +
+         swz(r, (c & 63) >> 3);
+}
+
+// 4 bytes global -> shared; src-size 0 (valid = false) fills zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (S, D) bf16 matrix into a tile, zeros past
+// S; every thread of the CTA issues its share of 16-byte copies.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile_async(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, int row0, int S) {
+  constexpr int kChunks = ROWS * D / 8;
+  static_assert(kChunks % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < kChunks / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + tile_off(ROWS, r, c),
+               ok ? src + (int64_t)(row0 + r) * D + c : src, ok);
+  }
+}
+
+// wgmma descriptor of k16 step ks of a K-major operand: rows [r0, r0 + M)
+// of a tile of `rows` rows (r0 a multiple of 8), depth = the tile's columns
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
+                                           int ks) {
+  return wgmma_desc(tile + (ks >> 2) * rows * kSwizzleRowBytes +
+                        r0 * kSwizzleRowBytes + (ks & 3) * 32,
+                    16, 1024);
+}
+
+// wgmma descriptor of k16 step ks of an MN-major operand (transpose bit):
+// depth = rows 16 ks .. 16 ks + 15 of a tile of `rows` rows, N = its columns
+// (the 64-wide blocks `rows` swizzle rows apart)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int ks) {
+  return wgmma_desc(tile + ks * 16 * kSwizzleRowBytes,
+                    rows * kSwizzleRowBytes, 1024);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Columns 16t .. 16t + 15 of an m64nN f32 accumulator, rounded to bf16, as
+// the register A operand of k16 step t: the accumulator holds (row, col)
+// pairs (r, 16t + 2q), (r + 8, ..), (r, 16t + 8 + 2q), (r + 8, ..) in
+// d[8t .. 8t + 7] (q = lane % 4), which is A's fragment order.
+template <int R>
+__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
+                                          const float (&d)[R], int t) {
+  a[0] = pack_bf16(d[8 * t], d[8 * t + 1]);
+  a[1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
+  a[2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
+  a[3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
+}
+
+// over the 4 lanes that share an accumulator row (a quad)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFullMask, x, 1);
+  return x + __shfl_xor_sync(kFullMask, x, 2);
+}
+
+// barrier of one warpgroup's 128 threads (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// This warpgroup's (64 x D) f32 accumulator, row r's values times
+// (r's half of the fragment ? sb : sa), rounded to bf16 into rows
+// [64 wg, 64 wg + 64) of `tile` (ROWS rows, no longer read by anyone),
+// then out as 16-byte stores to rows [row0, row0 + 64) of a (S, D) matrix,
+// those below S.
+template <int ROWS, int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], float sa,
+                                          float sb, uint8_t* tile,
+                                          __nv_bfloat16* __restrict__ dst,
+                                          int row0, int S) {
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int r = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j;
+    *reinterpret_cast<uint32_t*>(tile + tile_off(ROWS, r, col) + c * 2) =
+        pack_bf16(acc[4 * j] * sa, acc[4 * j + 1] * sa);
+    *reinterpret_cast<uint32_t*>(tile + tile_off(ROWS, r + 8, col) + c * 2) =
+        pack_bf16(acc[4 * j + 2] * sb, acc[4 * j + 3] * sb);
+  }
+  wg_barrier(wg);
+  for (int idx = tid & 127; idx < 64 * D / 8; idx += 128) {
+    const int rr = idx / (D / 8), cc = (idx % (D / 8)) * 8;
+    if (row0 + rr < S)
+      *reinterpret_cast<uint4*>(dst + (int64_t)(row0 + rr) * D + cc) =
+          *reinterpret_cast<const uint4*>(tile +
+                                          tile_off(ROWS, 64 * wg + rr, cc));
+  }
+}
+
+// One CTA per (b*h, query tile of kFwdBM rows); warpgroup g owns rows
+// 64g .. 64g + 63. scale_log2 = scale * log2(e).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int S, float scale_log2) {
+  constexpr int BN = fwd_bn(D);
+  constexpr int kQ = tile_bytes(kFwdBM, D);
+  constexpr int kKV = tile_bytes(BN, D);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_tile = smem;
+  const uint32_t q_s = smem_u32(q_tile);
+  const uint32_t kv_s = q_s + kQ;   // stage st: K at + 2 st kKV, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int nq = (S + kFwdBM - 1) / kFwdBM;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kFwdBM;  // heaviest first
+  const int wq0 = q0 + 64 * wg;    // this warpgroup's first query row
+  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int nkt = (S + BN - 1) / BN;
+  const int nk = CAUSAL ? min(nkt, (q0 + kFwdBM + BN - 1) / BN) : nkt;
+  const int nk_wg = CAUSAL ? min(nk, (wq0 + 64 + BN - 1) / BN) : nk;
+  // this thread's accumulator rows and the first of its column pairs
+  const int r_a = wq0 + 16 * ((tid >> 5) & 3) + (lane >> 2), r_b = r_a + 8;
+  const int c_lane = 2 * (lane & 3);
+
+  load_tile_async<kFwdBM, D>(q_s, q + base, q0, S);
+  load_tile_async<BN, D>(kv_s, k + base, 0, S);
+  load_tile_async<BN, D>(kv_s + kKV, v + base, 0, S);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();   // tile kt has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();      // everyone's; tile kt - 1's stage is free
+    if (kt + 1 < nk) {
+      const uint32_t st = kv_s + ((kt + 1) & 1) * 2 * kKV;
+      load_tile_async<BN, D>(st, k + base, (kt + 1) * BN, S);
+      load_tile_async<BN, D>(st + kKV, v + base, (kt + 1) * BN, S);
+    }
+    cp_async_commit();
+    if (kt >= nk_wg) continue;    // above this warpgroup's diagonal
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kKV, v_s = k_s + kKV;
+    const int k0 = kt * BN;
+
+    // S = Q . K^T
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<0>(s, desc_k(q_s, kFwdBM, 64 * wg, ks),
+                  desc_k(k_s, BN, 0, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // online softmax in the log2 domain
+    const bool masked = (CAUSAL && k0 + BN - 1 > wq0) || k0 + BN > S;
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float xa = s[4 * j + e] * scale_log2;
+        float xb = s[4 * j + 2 + e] * scale_log2;
+        if (masked) {
+          const int c = k0 + 8 * j + c_lane + e;
+          if (c >= S || (CAUSAL && c > r_a)) xa = kNegInf;
+          if (c >= S || (CAUSAL && c > r_b)) xb = kNegInf;
+        }
+        s[4 * j + e] = xa;
+        s[4 * j + 2 + e] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(s[4 * j + e] - m_a);
+        s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - m_b);
+        ps_a += s[4 * j + e];
+        ps_b += s[4 * j + 2 + e];
+      }
+    l_a = l_a * al_a + ps_a;   // this thread's share of the row sums
+    l_b = l_b * al_b + ps_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= al_a;
+      acc[4 * j + 1] *= al_a;
+      acc[4 * j + 2] *= al_b;
+      acc[4 * j + 3] *= al_b;
+    }
+
+    // O += bf16(P) . V, P from registers
+    uint32_t pf[BN / 16][4];
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t) to_a_frag(pf[t], s, t);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t)
+      wgmma_rs<1>(acc, pf[t], desc_mn(v_s, BN, t));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  l_a = fmaxf(quad_sum(l_a), 1e-30f);
+  l_b = fmaxf(quad_sum(l_b), 1e-30f);
+  if ((lane & 3) == 0) {
+    const int64_t rbase = (int64_t)blockIdx.x * S;
+    if (r_a < S) lse[rbase + r_a] = (m_a + log2f(l_a)) * kLn2;
+    if (r_b < S) lse[rbase + r_b] = (m_b + log2f(l_b)) * kLn2;
+  }
+  // Q's rows of this warpgroup are read by no one now
+  store_acc<kFwdBM, D>(acc, 1.f / l_a, 1.f / l_b, q_tile, o + base, wq0, S);
+}
+
+// One CTA per (b*h, key tile of kDkvBK rows); warpgroup g owns keys
+// 64g .. 64g + 63. scale_log2 = scale * log2(e).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ dlse,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int S, float scale,
+                        float scale_log2) {
+  constexpr int BQ = kDkvBQ;
+  constexpr int kKV = tile_bytes(kDkvBK, D);
+  constexpr int kQ = tile_bytes(BQ, D);
+  constexpr int kRow = BQ * 4;     // bytes of one staged per-query row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* k_tile = smem;
+  uint8_t* v_tile = smem + kKV;
+  const uint32_t k_s = smem_u32(k_tile), v_s = k_s + kKV;
+  const uint32_t stage_s = v_s + kKV;          // stage st: Q, then dO
+  const float* rows = reinterpret_cast<const float*>(
+      smem + 2 * kKV + kTcStages * 2 * kQ);    // stage st: lse, delta, dlse
+  const uint32_t rows_s = stage_s + kTcStages * 2 * kQ;
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int k0 = blockIdx.y * kDkvBK;   // causal: the first key tiles do most
+  const int wk0 = k0 + 64 * wg;         // this warpgroup's first key
+  const int nq = (S + BQ - 1) / BQ;
+  const int i0 = CAUSAL ? k0 / BQ : 0;
+  const int i0_wg = CAUSAL ? wk0 / BQ : 0;
+  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int64_t rbase = (int64_t)blockIdx.x * S;
+  // this thread's accumulator rows (keys) and first column pair (queries)
+  const int c_a = wk0 + 16 * ((tid >> 5) & 3) + (lane >> 2), c_b = c_a + 8;
+  const int c_lane = 2 * (lane & 3);
+
+  auto load_stage = [&](int qt, int st) {
+    const uint32_t q_st = stage_s + st * 2 * kQ;
+    load_tile_async<BQ, D>(q_st, q + base, qt * BQ, S);
+    load_tile_async<BQ, D>(q_st + kQ, dout + base, qt * BQ, S);
+    if (tid < 3 * BQ) {
+      const int which = tid / BQ, i = tid % BQ, r = qt * BQ + i;
+      const float* src = which == 0 ? lse : which == 1 ? delta : dlse;
+      const bool ok = r < S && src != nullptr;
+      cp_async4(rows_s + (st * 3 + which) * kRow + i * 4,
+                ok ? src + rbase + r : lse, ok);
+    }
+  };
+
+  load_tile_async<kDkvBK, D>(k_s, k + base, k0, S);
+  load_tile_async<kDkvBK, D>(v_s, v + base, k0, S);
+  if (i0 < nq) load_stage(i0, 0);
+  cp_async_commit();
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int qt = i0; qt < nq; ++qt) {
+    const int st = (qt - i0) & 1;
+    cp_async_wait<0>();   // stage st has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();      // everyone's; the other stage is free
+    if (qt + 1 < nq) load_stage(qt + 1, st ^ 1);
+    cp_async_commit();
+    if (qt < i0_wg) continue;    // every query here is before these keys
+    const int q0 = qt * BQ;
+    const uint32_t q_st = stage_s + st * 2 * kQ, do_st = q_st + kQ;
+    const float* lse_s = rows + st * 3 * BQ;
+    const float* delta_s = lse_s + BQ;
+    const float* dlse_s = delta_s + BQ;
+
+    // S^T = K . Q^T
+    float p[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) p[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<0>(p, desc_k(k_s, kDkvBK, 64 * wg, ks),
+                  desc_k(q_st, BQ, 0, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(p);
+
+    // P^T = exp(S^T * scale - lse[query])
+    const bool masked =
+        (CAUSAL && wk0 + 63 > q0) || q0 + BQ > S || wk0 + 64 > S;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int col = 8 * j + c_lane;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float xa = p[4 * j + e] * scale_log2;
+        float xb = p[4 * j + 2 + e] * scale_log2;
+        if (masked) {
+          const int r = q0 + col + e;
+          if (r >= S || c_a >= S || (CAUSAL && c_a > r)) xa = kNegInf;
+          if (r >= S || c_b >= S || (CAUSAL && c_b > r)) xb = kNegInf;
+        }
+        const float ll = (e ? l2.y : l2.x) * kLog2e;
+        p[4 * j + e] = exp2f(xa - ll);
+        p[4 * j + 2 + e] = exp2f(xb - ll);
+      }
+    }
+
+    // dV += bf16(P^T) . dO
+    {
+      uint32_t pf[BQ / 16][4];
+#pragma unroll
+      for (int t = 0; t < BQ / 16; ++t) to_a_frag(pf[t], p, t);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < BQ / 16; ++t)
+        wgmma_rs<1>(dv_acc, pf[t], desc_mn(do_st, BQ, t));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+    }
+
+    // dP^T = V . dO^T
+    float dp[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<0>(dp, desc_k(v_s, kDkvBK, 64 * wg, ks),
+                  desc_k(do_st, BQ, 0, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dp);
+
+    // dS^T = P^T * (dP^T - delta[query] + dlse[query]) * scale
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int col = 8 * j + c_lane;
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+      const float2 dls = *reinterpret_cast<const float2*>(dlse_s + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d0 = e ? dl.y : dl.x, d1 = e ? dls.y : dls.x;
+        p[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - d0 + d1) * scale;
+        p[4 * j + 2 + e] =
+            p[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d0 + d1) * scale;
+      }
+    }
+
+    // dK += bf16(dS^T) . Q
+    uint32_t df[BQ / 16][4];
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t) to_a_frag(df[t], p, t);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t)
+      wgmma_rs<1>(dk_acc, df[t], desc_mn(q_st, BQ, t));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+  }
+  cp_async_wait<0>();
+
+  // K's and V's rows of this warpgroup are read by no one now
+  store_acc<kDkvBK, D>(dk_acc, 1.f, 1.f, k_tile, dk + base, wk0, S);
+  store_acc<kDkvBK, D>(dv_acc, 1.f, 1.f, v_tile, dv + base, wk0, S);
+}
+
+template <typename K, typename... Args>
+cudaError_t launch_tc(K kernel, int smem, dim3 grid, cudaStream_t stream,
+                      Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int BH, int S, float scale, bool causal,
+                   cudaStream_t st) {
+  const dim3 grid(BH, (S + kFwdBM - 1) / kFwdBM);
+  const float sl = scale * kLog2e;
+  return causal ? launch_tc(flash_fwd_tc_kernel<D, true>, fwd_tc_smem(D),
+                            grid, st, (const bf16*)q, (const bf16*)k,
+                            (const bf16*)v, (bf16*)o, lse, S, sl)
+                : launch_tc(flash_fwd_tc_kernel<D, false>, fwd_tc_smem(D),
+                            grid, st, (const bf16*)q, (const bf16*)k,
+                            (const bf16*)v, (bf16*)o, lse, S, sl);
+}
+
+template <int D>
+cudaError_t dkv_tc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const float* dlse, void* dk, void* dv, int BH, int S,
+                   float scale, bool causal, cudaStream_t st) {
+  const dim3 grid(BH, (S + kDkvBK - 1) / kDkvBK);
+  const float sl = scale * kLog2e;
+  return causal
+             ? launch_tc(flash_bwd_dkv_tc_kernel<D, true>, dkv_tc_smem(D),
+                         grid, st, (const bf16*)q, (const bf16*)k,
+                         (const bf16*)v, (const bf16*)dout, lse, delta, dlse,
+                         (bf16*)dk, (bf16*)dv, S, scale, sl)
+             : launch_tc(flash_bwd_dkv_tc_kernel<D, false>, dkv_tc_smem(D),
+                         grid, st, (const bf16*)q, (const bf16*)k,
+                         (const bf16*)v, (const bf16*)dout, lse, delta, dlse,
+                         (bf16*)dk, (bf16*)dv, S, scale, sl);
+}
+
+// the shape checks both tensor-core entries share; 0 means launch
+int check_tc_shape(int S, int D) {
+  if ((D != 64 && D != 128) || (S + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 // dynamic shared memory of each kernel, in bytes (all above the 48 KB a
 // launch gets without opting in)
 constexpr int kFwdSmem = 4 * kTile * (int)sizeof(float);
@@ -430,9 +994,11 @@ cudaError_t launch(K kernel, int smem, int BH, int S, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// the shape checks every entry point shares; 0 means launch
-int check_shape(int S, int D, int dtype) {
-  if (D != kD || (dtype != kF32 && dtype != kBF16) ||
+// the shape checks every CUDA-core entry shares; 0 means launch. Only dQ
+// takes bfloat16 here: the bfloat16 forward and dK/dV are the tensor-core
+// entries'.
+int check_shape(int S, int D, int dtype, bool takes_bf16) {
+  if (D != kD || !(dtype == kF32 || (takes_bf16 && dtype == kBF16)) ||
       (S + kT - 1) / kT > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -442,35 +1008,24 @@ int check_shape(int S, int D, int dtype) {
 }  // namespace bigdl
 
 // All tensors contiguous: q, k, v, o, dout, dq, dk, dv (B*H, S, D) of
-// `dtype` (0 float32, 1 bfloat16), 16-byte aligned; lse, delta, dlse
-// (B*H, S) float32, dlse may be null (zero). D must be 64. causal: 0 or 1.
-// Each returns the cudaError_t of its launch (0 on success).
+// `dtype` (0 float32; 1 bfloat16, dQ only), 16-byte aligned; lse, delta,
+// dlse (B*H, S) float32, dlse may be null (zero). D must be 64. causal: 0
+// or 1. Each returns the cudaError_t of its launch (0 on success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int BH, int S, int D,
                                float scale, int causal, int dtype,
                                void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype)) return bad;
+  if (int bad = check_shape(S, D, dtype, false)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == kF32) {
-    using T = float;
-    err = causal ? launch(flash_fwd_kernel<T, true>, kFwdSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-                          S, scale)
-                 : launch(flash_fwd_kernel<T, false>, kFwdSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-                          S, scale);
-  } else {
-    using T = __nv_bfloat16;
-    err = causal ? launch(flash_fwd_kernel<T, true>, kFwdSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-                          S, scale)
-                 : launch(flash_fwd_kernel<T, false>, kFwdSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-                          S, scale);
-  }
+  const cudaError_t err =
+      causal ? launch(flash_fwd_kernel<float, true>, kFwdSmem, BH, S, st,
+                      (const float*)q, (const float*)k, (const float*)v,
+                      (float*)o, lse, S, scale)
+             : launch(flash_fwd_kernel<float, false>, kFwdSmem, BH, S, st,
+                      (const float*)q, (const float*)k, (const float*)v,
+                      (float*)o, lse, S, scale);
   return (int)err;
 }
 
@@ -480,7 +1035,7 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   void* dq, int BH, int S, int D, float scale,
                                   int causal, int dtype, void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype)) return bad;
+  if (int bad = check_shape(S, D, dtype, true)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
@@ -511,30 +1066,54 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
                                    int BH, int S, int D, float scale,
                                    int causal, int dtype, void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype)) return bad;
+  if (int bad = check_shape(S, D, dtype, false)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == kF32) {
-    using T = float;
-    err = causal ? launch(flash_bwd_dkv_kernel<T, true>, kDkvSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dk, (T*)dv, S,
-                          scale)
-                 : launch(flash_bwd_dkv_kernel<T, false>, kDkvSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dk, (T*)dv, S,
-                          scale);
-  } else {
-    using T = __nv_bfloat16;
-    err = causal ? launch(flash_bwd_dkv_kernel<T, true>, kDkvSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dk, (T*)dv, S,
-                          scale)
-                 : launch(flash_bwd_dkv_kernel<T, false>, kDkvSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dk, (T*)dv, S,
-                          scale);
-  }
+  const cudaError_t err =
+      causal ? launch(flash_bwd_dkv_kernel<float, true>, kDkvSmem, BH, S, st,
+                      (const float*)q, (const float*)k, (const float*)v,
+                      (const float*)dout, lse, delta, dlse, (float*)dk,
+                      (float*)dv, S, scale)
+             : launch(flash_bwd_dkv_kernel<float, false>, kDkvSmem, BH, S,
+                      st, (const float*)q, (const float*)k, (const float*)v,
+                      (const float*)dout, lse, delta, dlse, (float*)dk,
+                      (float*)dv, S, scale);
+  return (int)err;
+}
+
+// The tensor-core entries: q, k, v, o, dout, dk, dv (B*H, S, D) bfloat16,
+// lse, delta, dlse as above; D = 64 or 128. Each picks its own tiles and
+// dynamic shared memory from (B*H, S, D) (fwd_tc_smem, dkv_tc_smem; above
+// the 48 KB a launch gets without opting in) and returns the cudaError_t of
+// its launch (0 on success).
+extern "C" int bigdl_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                  void* o, float* lse, int BH, int S, int D,
+                                  float scale, int causal, void* stream) {
+  using namespace bigdl;
+  if (int bad = check_tc_shape(S, D)) return bad;
+  if (BH <= 0 || S <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      D == 64 ? fwd_tc<64>(q, k, v, o, lse, BH, S, scale, causal != 0, st)
+              : fwd_tc<128>(q, k, v, o, lse, BH, S, scale, causal != 0, st);
+  return (int)err;
+}
+
+extern "C" int bigdl_flash_bwd_dkv_tc(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      const float* dlse, void* dk, void* dv,
+                                      int BH, int S, int D, float scale,
+                                      int causal, void* stream) {
+  using namespace bigdl;
+  if (int bad = check_tc_shape(S, D)) return bad;
+  if (BH <= 0 || S <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  const cudaError_t err =
+      D == 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dlse, dk, dv, BH, S,
+                           scale, c, st)
+              : dkv_tc<128>(q, k, v, dout, lse, delta, dlse, dk, dv, BH, S,
+                            scale, c, st);
   return (int)err;
 }

@@ -1,8 +1,10 @@
 // Fused sampling for Hopper (sm_90a): temperature, top-k, top-p and the
-// gumbel-argmax draw in one kernel, one CTA per row of logits.
+// gumbel-argmax draw in one kernel, one CTA per row of logits, for rows of
+// any length.
 //
 // Replaces the TPU kernel bigdl_tpu/ops/sampling.py `_sample_kernel` (with
-// `_cutoff`), launched by `fused_sample_logits`.
+// `_cutoff`), launched by `fused_sample_logits` (:118, block (bs, v): the
+// whole row, any vocabulary).
 //
 // What it computes, per row s of (S, V) logits, with the reference's exact
 // semantics:
@@ -21,15 +23,26 @@
 // a little above bytes. The kernel must not re-read the row from HBM on
 // each pass.
 //
-// What the design does about it: the temperature-scaled row lives in
-// dynamic shared memory (V * 4 bytes, up to ~227 KB on Hopper) for the
-// whole kernel, so HBM sees the logits once and the noise once. 1024
-// threads stride over the row; each bisection step is one pass over shared
-// memory plus a block reduction (warp shuffles, then one shared slot per
-// warp), replacing the TPU kernel's row sums. The top-k count is an exact
-// integer; the top-p mass recomputes exp(l - max) / Z per element on each
-// step instead of keeping a second row of probabilities (which would not
-// fit): two more operations per element and step than the bound counts.
+// What the design does about it: the temperature-scaled row is written
+// once and every later pass (bisection steps, truncation, argmax) reads it
+// there. Two variants of one kernel body (ROW_IN_SMEM):
+// - V <= kMaxVocab (57,856, GPT-2's 50,257 included): the row lives in
+//   dynamic shared memory (V * 4 bytes, up to ~227 KB on Hopper), so HBM
+//   sees the logits once and the noise once;
+// - longer rows (Llama-3's 128,256): the row lives in a float32 (S, V)
+//   scratch the wrapper allocates. 8 x 128,256 x 4 B = 4.1 MB stays in the
+//   50 MB L2, so each pass is bound by L2 reads (~120 passes of V * 4
+//   bytes a row), not by HBM, and the logits and noise still cross HBM
+//   once.
+// 1024 threads stride over the row; each bisection step is one pass plus a
+// block reduction (warp shuffles, then one shared slot per warp), replacing
+// the TPU kernel's row sums. A thread reads and writes only its own
+// indices of the row, so the scratch needs no fence beyond the barriers
+// the reductions already take. The top-k count is an exact integer; the
+// top-p mass recomputes exp(l - max) / Z per element on each step instead
+// of keeping a second row of probabilities: two more operations per
+// element and step than the bound counts. The arithmetic, the tie rule and
+// the division are the same in both variants.
 
 #include <math.h>
 
@@ -41,6 +54,9 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kNumWarps = kThreads / 32;
 constexpr int kBisectIters = 60;
+// the longest row held in dynamic shared memory: 227 KB a block, less the
+// static reduction slots (ops/sampling.py MAX_VOCAB)
+constexpr int kMaxVocab = (232448 - 1024) / 4;
 
 struct SumF {
   __device__ float operator()(float a, float b) const { return a + b; }
@@ -112,12 +128,16 @@ __device__ float cutoff(const float* row, int V, float level, float mx,
   return block_reduce(mn, MinF(), redf);
 }
 
-template <typename T>
+// ROW_IN_SMEM: the scaled, truncated row in dynamic shared memory (V
+// floats); else in row blockIdx.x of `scratch` (S x V floats)
+template <typename T, bool ROW_IN_SMEM>
 __global__ void __launch_bounds__(kThreads)
 fused_sample_kernel(const T* __restrict__ logits, const T* __restrict__ gumbel,
                     const float* __restrict__ temps, int* __restrict__ out,
-                    int V, int top_k, float top_p) {
-  extern __shared__ float row[];  // V floats: the scaled, truncated row
+                    float* __restrict__ scratch, int V, int top_k,
+                    float top_p) {
+  extern __shared__ float smem_row[];
+  float* row = ROW_IN_SMEM ? smem_row : scratch + (int64_t)blockIdx.x * V;
   __shared__ float redf[kNumWarps];
   __shared__ int redi[kNumWarps];
   __shared__ float redv[kNumWarps];
@@ -193,15 +213,22 @@ fused_sample_kernel(const T* __restrict__ logits, const T* __restrict__ gumbel,
 
 template <typename T>
 cudaError_t launch(const void* logits, const void* gumbel, const float* temps,
-                   int* out, int S, int V, int top_k, float top_p,
-                   cudaStream_t stream) {
+                   int* out, float* scratch, int S, int V, int top_k,
+                   float top_p, cudaStream_t stream) {
+  if (V > kMaxVocab) {
+    fused_sample_kernel<T, false><<<S, kThreads, 0, stream>>>(
+        (const T*)logits, (const T*)gumbel, temps, out, scratch, V, top_k,
+        top_p);
+    return cudaGetLastError();
+  }
   const size_t smem = (size_t)V * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sample_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_sample_kernel<T, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_sample_kernel<T><<<S, kThreads, smem, stream>>>(
-      (const T*)logits, (const T*)gumbel, temps, out, V, top_k, top_p);
+  fused_sample_kernel<T, true><<<S, kThreads, smem, stream>>>(
+      (const T*)logits, (const T*)gumbel, temps, out, nullptr, V, top_k,
+      top_p);
   return cudaGetLastError();
 }
 
@@ -210,20 +237,23 @@ cudaError_t launch(const void* logits, const void* gumbel, const float* temps,
 
 // logits, gumbel: (S, V) of one dtype (0 float32, 1 bfloat16); temps: (S,)
 // float32; out: (S,) int32. top_k <= 0 or >= V disables top-k; top_p >= 1
-// disables top-p. The row must fit in shared memory (V * 4 bytes).
-// Returns the cudaError_t of the launch (0 on success).
+// disables top-p. scratch: (S, V) float32 when V > kMaxVocab (the row does
+// not fit in shared memory), else unused and may be null. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int bigdl_fused_sample(const void* logits, const void* gumbel,
-                                  const float* temps, int* out, int S, int V,
-                                  int top_k, float top_p, int dtype,
-                                  void* stream) {
+                                  const float* temps, int* out, float* scratch,
+                                  int S, int V, int top_k, float top_p,
+                                  int dtype, void* stream) {
   using namespace bigdl;
+  if (V <= 0 || (V > kMaxVocab && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (S <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
-    return (int)launch<float>(logits, gumbel, temps, out, S, V, top_k, top_p,
-                              s);
+    return (int)launch<float>(logits, gumbel, temps, out, scratch, S, V,
+                              top_k, top_p, s);
   if (dtype == kBF16)
-    return (int)launch<__nv_bfloat16>(logits, gumbel, temps, out, S, V,
-                                      top_k, top_p, s);
+    return (int)launch<__nv_bfloat16>(logits, gumbel, temps, out, scratch, S,
+                                      V, top_k, top_p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,14 +15,24 @@ float32 (as the reference does outside its kernels) and runs the dQ and
 the dK/dV kernels, which recompute ``p = exp(s - lse)`` instead of
 storing the score matrix.
 
-Three wrappers, one per kernel of ``ops/csrc/flash_attention.cu``:
-:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. For CUDA
-tensors each launches its kernel (or raises) and counts it in its
-``launches``; for CPU tensors it runs its plain version
-(:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`, :func:`flash_bwd_dkv_ref`),
-which takes the same inputs and recomputes ``p`` as the kernel does. The
-kernels are built for ``head_dim`` 64 (GPT-2's), causal or not, in float32
-and bfloat16; any ``S`` works.
+Three wrappers, one per TPU kernel, over ``ops/csrc/flash_attention.cu``:
+:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. For CPU
+tensors each runs its plain version (:func:`flash_fwd_ref`,
+:func:`flash_bwd_dq_ref`, :func:`flash_bwd_dkv_ref`), which takes the same
+inputs and recomputes ``p`` as the kernels do. For CUDA tensors each
+launches the kernel its shape and type select, or raises:
+
+- the forward and dK/dV in bfloat16 at ``head_dim`` in ``TC_HEAD_DIMS``
+  (64, 128) run on the tensor cores (wgmma), counted in ``.tc_launches``;
+  :func:`tc_plan` mirrors the tiles and shared memory the C entries pick;
+- everything else runs on the CUDA cores (float32 FMAs), counted in
+  ``.launches``: float32 at ``head_dim`` 64, and dQ in both types at 64.
+  dQ and float32 at another ``head_dim`` raise, naming the work that
+  will add them (ROADMAP queue B row 2, the dQ redesign).
+
+:func:`path` is the one place that decides which of these a call takes.
+
+Causal or not; any ``S`` works.
 
 Masked scores are ``NEG_INF`` (finite), so a causal or ragged row never
 meets ``inf - inf``.
@@ -36,19 +46,31 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# the head_dim the CUDA kernels are instantiated for: GPT-2's 64
+# the head_dim the CUDA-core kernels are instantiated for: GPT-2's 64
 HEAD_DIM = 64
+# the head_dims of the tensor-core (bfloat16) forward and dK/dV kernels
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the tensor-core kernels' tiling (ops/csrc/flash_attention.cu): threads a
+# CTA (two warpgroups), ring stages, and a CTA's shared memory limit
+TC_THREADS = 256
+TC_STAGES = 2
+TC_MAX_SMEM = 232448
 
 
 def _declare(lib):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32, i32, i32, f32, i32, i32, ptr]    # BH, S, D, scale, causal,
-    lib.bigdl_flash_fwd.argtypes = [ptr] * 5 + tail           # dtype, stream
-    lib.bigdl_flash_bwd_dq.argtypes = [ptr] * 8 + tail
-    lib.bigdl_flash_bwd_dkv.argtypes = [ptr] * 9 + tail
-    for fn in (lib.bigdl_flash_fwd, lib.bigdl_flash_bwd_dq,
-               lib.bigdl_flash_bwd_dkv):
+    head = [i32, i32, i32, f32, i32]       # BH, S, D, scale, causal
+    tail = head + [i32, ptr]               # + dtype, stream
+    entries = {"bigdl_flash_fwd": [ptr] * 5 + tail,
+               "bigdl_flash_bwd_dq": [ptr] * 8 + tail,
+               "bigdl_flash_bwd_dkv": [ptr] * 9 + tail,
+               "bigdl_flash_fwd_tc": [ptr] * 5 + head + [ptr],
+               "bigdl_flash_bwd_dkv_tc": [ptr] * 9 + head + [ptr]}
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
 
 
@@ -117,16 +139,81 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, dlse=None, causal=False,
 
 
 # ----------------------------------------------------------- wrappers --
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def tc_plan(kernel, bh, s, d):
+    """Host-side plan of a tensor-core launch of ``kernel`` ("fwd" or
+    "dkv") on (bh, s, d) inputs, as the C entry makes it for itself:
+
+    - fwd: a CTA per (b*h, 128 query rows), two warpgroups of 64 rows;
+      key tiles of 128 at d 64 and 64 at d 128 through a TC_STAGES ring;
+      shared memory = 1 KiB of alignment slack, the Q tile, and TC_STAGES
+      (K, V) tile pairs;
+    - dkv: a CTA per (b*h, 128 keys), two warpgroups of 64 keys; query
+      tiles of 64 through the ring; shared memory = 1 KiB, the K and V
+      tiles, TC_STAGES (Q, dO) tile pairs and TC_STAGES x 3 float32 rows
+      (lse, delta, dlse) of 64.
+
+    A tile of r rows holds r x d bfloat16 values."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"tc_plan: head_dim {d} not in {TC_HEAD_DIMS}")
+    if kernel == "fwd":
+        tile_q, tile_k = 128, (128 if d == 64 else 64)
+        smem = 1024 + tile_q * d * 2 + TC_STAGES * 2 * tile_k * d * 2
+        grid = (bh, _ceil_div(s, tile_q))
+    elif kernel == "dkv":
+        tile_q, tile_k = 64, 128
+        smem = (1024 + 2 * tile_k * d * 2
+                + TC_STAGES * (2 * tile_q * d * 2 + 3 * tile_q * 4))
+        grid = (bh, _ceil_div(s, tile_k))
+    else:
+        raise ValueError(f"tc_plan: no tensor-core kernel {kernel!r}")
+    return {"tile_q": tile_q, "tile_k": tile_k, "grid": grid,
+            "threads": TC_THREADS, "stages": TC_STAGES, "smem_bytes": smem}
+
+
+# the wrappers that have a tensor-core kernel
+_TC_WRAPPERS = ("flash_fwd", "flash_bwd_dkv")
+
+
+def path(fn, dtype, head_dim):
+    """The kernel wrapper ``fn`` (by name: "flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") launches on the card for (B, H, S, ``head_dim``)
+    inputs of ``dtype``: "tensor_cores" for the bfloat16 forward and dK/dV
+    at TC_HEAD_DIMS, "cuda_cores" for float32 or bfloat16 at HEAD_DIM
+    otherwise, None where no kernel takes them yet."""
+    if (fn in _TC_WRAPPERS and dtype == torch.bfloat16
+            and head_dim in TC_HEAD_DIMS):
+        return "tensor_cores"
+    if dtype in _DTYPES and head_dim == HEAD_DIM:
+        return "cuda_cores"
+    return None
+
+
+def _check_head_dim(fn, q):
+    """Raise unless ``q`` is (B, H, S, D) with a :func:`path` for wrapper
+    ``fn`` and ``q``'s type."""
+    if q.dim() != 4 or path(fn, q.dtype, q.shape[-1]) is None:
+        dims = [d for d in sorted({HEAD_DIM, *TC_HEAD_DIMS})
+                if path(fn, q.dtype, d)]
+        want = " or ".join(f"(B, H, S, {d})" for d in dims)
+        raise ValueError(
+            f"{fn}: q must be {want} for {q.dtype}, got {tuple(q.shape)}; "
+            f"dQ and float32 take head_dim {HEAD_DIM} only until the dQ "
+            f"redesign, ROADMAP queue B row 2")
+
+
 def _check_cuda_args(fn, q, planes, rows):
-    """Raise unless the kernel takes these tensors: every one on ``q``'s
-    CUDA device, contiguous and 16-byte aligned; ``q`` (B, H, S, 64) of
-    float32 or bfloat16 and each of ``planes`` of its shape and type; each
-    of ``rows`` (B, H, S) float32."""
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{fn}: q must be (B, H, S, {HEAD_DIM}), got "
-                         f"{tuple(q.shape)}")
+    """Raise unless the kernel takes these tensors: ``q`` of float32 or
+    bfloat16 and as :func:`_check_head_dim` wants it; every tensor on
+    ``q``'s CUDA device, contiguous and 16-byte aligned; each of
+    ``planes`` of ``q``'s shape and type; each of ``rows`` (B, H, S)
+    float32."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not in (float32, bfloat16)")
+    _check_head_dim(fn, q)
     if not q.is_cuda:
         raise ValueError(f"{fn}: q is on {q.device}; the kernel needs a "
                          f"CUDA tensor")
@@ -147,22 +234,56 @@ def _check_cuda_args(fn, q, planes, rows):
                              f"aligned")
 
 
-def _launch(fn_name, *args):
-    lib = _build.load("flash_attention", _declare)
-    err = getattr(lib, fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
-                           f"{err}")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _tail(q, causal, sm_scale):
+def _launch(fn, q, causal, sm_scale, *tensors):
+    """Launch wrapper ``fn``'s kernel on ``tensors`` (its C entry's pointer
+    arguments, None for a null pointer): the entry :func:`path` names for
+    ``q``; then count the launch on ``fn``."""
     b, h, s, d = q.shape
-    return (b * h, s, d, float(sm_scale), int(bool(causal)), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    tc = path(fn.__name__, q.dtype, d) == "tensor_cores"
+    entry = f"bigdl_{fn.__name__}" + ("_tc" if tc else "")
+    lib = _build.load("flash_attention", _declare)
+    dtype = () if tc else (_DTYPES[q.dtype],)
+    err = getattr(lib, entry)(
+        *map(_ptr, tensors), b * h, s, d, float(sm_scale),
+        int(bool(causal)), *dtype,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError_t "
+                           f"{err}")
+    if tc:
+        fn.tc_launches += 1
+    else:
+        fn.launches += 1
+
+
+def _fwd_on_card(q, k, v, causal, sm_scale):
+    _check_cuda_args("flash_fwd", q, {"k": k, "v": v}, {})
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    _launch(flash_fwd, q, causal, sm_scale, q, k, v, o, lse)
+    return o, lse
+
+
+def _dq_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale):
+    _check_cuda_args("flash_bwd_dq", q, {"k": k, "v": v, "do": do},
+                     {"lse": lse, "delta": delta, "dlse": dlse})
+    dq = torch.empty_like(q)
+    _launch(flash_bwd_dq, q, causal, sm_scale, q, k, v, do, lse, delta,
+            dlse, dq)
+    return dq
+
+
+def _dkv_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale):
+    _check_cuda_args("flash_bwd_dkv", q, {"k": k, "v": v, "do": do},
+                     {"lse": lse, "delta": delta, "dlse": dlse})
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(flash_bwd_dkv, q, causal, sm_scale, q, k, v, do, lse, delta,
+            dlse, dk, dv)
+    return dk, dv
 
 
 def flash_fwd(q, k, v, causal=False, sm_scale=None):
@@ -171,13 +292,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal, sm_scale)
-    _check_cuda_args("flash_fwd", q, {"k": k, "v": v}, {})
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    _launch("bigdl_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), *_tail(q, causal, sm_scale))
-    flash_fwd.launches += 1
-    return o, lse
+    return _fwd_on_card(q, k, v, causal, sm_scale)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, dlse=None, causal=False,
@@ -187,14 +302,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse=None, causal=False,
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, dlse, causal,
                                 sm_scale)
-    _check_cuda_args("flash_bwd_dq", q, {"k": k, "v": v, "do": do},
-                     {"lse": lse, "delta": delta, "dlse": dlse})
-    dq = torch.empty_like(q)
-    _launch("bigdl_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(dlse),
-            dq.data_ptr(), *_tail(q, causal, sm_scale))
-    flash_bwd_dq.launches += 1
-    return dq
+    return _dq_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, dlse=None, causal=False,
@@ -204,19 +312,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse=None, causal=False,
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, dlse, causal,
                                  sm_scale)
-    _check_cuda_args("flash_bwd_dkv", q, {"k": k, "v": v, "do": do},
-                     {"lse": lse, "delta": delta, "dlse": dlse})
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("bigdl_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(dlse),
-            dk.data_ptr(), dv.data_ptr(), *_tail(q, causal, sm_scale))
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _dkv_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale)
 
 
-flash_fwd.launches = 0
+# launches of each wrapper's CUDA-core kernel (.launches) and tensor-core
+# kernel (.tc_launches; dQ has none)
+flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -289,4 +392,5 @@ def bytes_and_flops(kernel, q, causal, dlse=False):
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_ref",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "bytes_and_flops",
-           "visible_pairs", "HEAD_DIM"]
+           "visible_pairs", "path", "tc_plan", "HEAD_DIM",
+           "TC_HEAD_DIMS", "TC_MAX_SMEM"]

@@ -17,8 +17,12 @@ Semantics are the reference kernel's, exactly:
 
 :func:`fused_sample_logits` launches the CUDA kernel ``ops/csrc/
 sampling.cu`` for CUDA tensors (or raises) and runs
-:func:`fused_sample_logits_ref` for CPU tensors;
-``fused_sample_logits.launches`` counts kernel launches.
+:func:`fused_sample_logits_ref` for CPU tensors. Any vocabulary: a row of
+up to ``MAX_VOCAB`` logits lives in the kernel's shared memory
+(``fused_sample_logits.launches`` counts these launches); a longer row
+(Llama-3's 128,256) lives in a float32 (S, V) scratch the wrapper
+allocates, which stays in the card's 50 MB L2, so each of the ~120 passes
+over it is bound by L2 reads (``.long_row_launches``).
 """
 
 from __future__ import annotations
@@ -30,15 +34,15 @@ import torch
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
 BISECT_ITERS = 60
-# the whole row lives in dynamic shared memory: 227 KB a block on Hopper,
-# less the kernel's static reduction slots
+# the longest row the kernel keeps in dynamic shared memory: 227 KB a block
+# on Hopper, less its static reduction slots; longer rows go to a scratch
 MAX_VOCAB = (232448 - 1024) // 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _declare(lib):
     fn = lib.bigdl_fused_sample
-    fn.argtypes = ([ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -117,26 +121,39 @@ def fused_sample_logits(logits, gumbel, temperature=1.0, top_k=None,
     if not (logits.is_contiguous() and gumbel.is_contiguous()):
         raise ValueError("fused_sample_logits: logits and gumbel must be "
                          "contiguous")
+    return _launch(logits, gumbel, _row_temps(temperature, logits), top_k,
+                   top_p)
+
+
+def _launch(logits, gumbel, temps, top_k, top_p):
+    """Launch the kernel on checked card tensors and count the launch: the
+    row in shared memory up to ``MAX_VOCAB`` logits, else in a float32
+    (S, V) scratch allocated here."""
     s, v = logits.shape
-    if v > MAX_VOCAB:
-        raise ValueError(f"fused_sample_logits: vocab {v} exceeds the "
-                         f"kernel's shared-memory row of {MAX_VOCAB}")
-    temps = _row_temps(temperature, logits)
     lib = _build.load("sampling", _declare)
     out = torch.empty(s, dtype=torch.int32, device=logits.device)
+    long_row = v > MAX_VOCAB
+    scratch = (torch.empty((s, v), dtype=torch.float32, device=logits.device)
+               if long_row else None)
     err = lib.bigdl_fused_sample(
         logits.data_ptr(), gumbel.data_ptr(), temps.data_ptr(),
-        out.data_ptr(), s, v, 0 if top_k is None else int(top_k),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), s,
+        v, 0 if top_k is None else int(top_k),
         1.0 if top_p is None else float(top_p), _DTYPES[logits.dtype],
         torch.cuda.current_stream(logits.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused sampling kernel launch failed: "
                            f"cudaError_t {err}")
-    fused_sample_logits.launches += 1
+    if long_row:
+        fused_sample_logits.long_row_launches += 1
+    else:
+        fused_sample_logits.launches += 1
     return out
 
 
-fused_sample_logits.launches = 0
+# launches with the row in shared memory (.launches) and in the scratch
+# (.long_row_launches)
+fused_sample_logits.launches = fused_sample_logits.long_row_launches = 0
 
 
 def gumbel_noise(shape, generator, device, dtype=torch.float32):

@@ -13,9 +13,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 3. kernels — call each kernel's wrapper on card tensors at the shapes its
    path gives it, hold it against its plain PyTorch version on the same
    inputs, and time both with CUDA events beside the kernel's roofline
-   bound. Rows 4-9 are timed queued behind a spin kernel (the launches'
-   device time back to back, without the host's gaps), the L2 flushed
-   before each run, as the median of three readings with their spread;
+   bound. Every kernel and its library yardstick are timed queued behind
+   a spin kernel (the launches' device time back to back, without the
+   host's gaps), the L2 flushed before each run, as the median of three
+   readings with their spread;
    * paged attention: 8 slots, 12 heads, head_dim 64, page_size 16, 64
      table entries, shared pages and sentinel tails; decode (C=1, all 8
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
@@ -34,20 +35,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
      timed as one sharded call beside the unsharded kernel, both queued
      ahead of the card behind a spin kernel (device time, without the
      host's gaps), the median of three readings with their spread;
-   * fused sampling: 8 x 50257 logits, top_k 50, top_p 0.9, per-row
-     temperatures, one injected gumbel draw; tokens must be identical
-     except on a row whose kept-set boundary lies within 1e-5 of its level
-     (such a row is printed);
+   * fused sampling: 8 x 50257 logits (the row in shared memory; per-row
+     temperatures) and 8 x 128256 (Llama-3's vocabulary: the row in an
+     L2-resident scratch; temperature 0.8), float32 and bfloat16, top_k
+     50, top_p 0.9, one injected gumbel draw; each call on its path's counter; tokens must be
+     identical except on a row whose kept-set boundary lies within 1e-5 of
+     its level (such a row is printed);
    * flash attention (forward, dQ, dK/dV): the training path's (B*H = 96,
-     S = 1024, D = 64) causal in float32 and bfloat16, one non-causal case
-     with an lse cotangent and one ragged causal case (S = 1000). float32
-     max abs error <= 2e-5 for O and lse and <= 1e-4 for the gradients
-     (the same float32 math summed in another order, over up to 1024 keys);
-     bfloat16 atol = rtol = 2e-2 (outputs rounded to bfloat16, p rounded
-     at a running maximum in the kernel). Beside each kernel's time, the
-     library yardstick: ``F.scaled_dot_product_attention(is_causal=True)``
-     forward, and its backward (one call yields dQ, dK and dV, so both
-     backward rows carry that time); the backend that ran is printed;
+     S = 1024, D = 64) causal, one non-causal case with an lse cotangent
+     and one ragged causal case (S = 1000), each in float32 (the CUDA-core
+     kernels) and bfloat16 (the tensor-core forward and dK/dV, the
+     CUDA-core dQ), and the forward and dK/dV at D = 128 in bfloat16; each
+     call on the path ``flash_attention.path`` names, and a bfloat16
+     kernel's second
+     call equal to its first bit for bit. float32 max abs error <= 2e-5
+     for O and lse and <= 1e-4 for the gradients (the same float32 math
+     summed in another order, over up to 1024 keys); bfloat16 atol = rtol
+     = 2e-2 (outputs rounded to bfloat16, p rounded at a running maximum
+     in the kernel). The path case in both types and the D = 128 case are
+     timed beside the library yardstick:
+     ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
+     backward (one call yields dQ, dK and dV, so both backward rows carry
+     that time); the backend that ran is printed;
    * 3x3 convolution, tap-sum (k9) and im2col (i2c): ResNet-50's four
      stride-1 3x3 shapes at batch 256 (56x56x64, 28x28x128, 14x14x256,
      7x7x512, NHWC), bfloat16 (the tensor-core path) and float32 (the
@@ -112,13 +121,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    warm-up step, then 5 timed steps (step time, tokens/s, peak memory,
    model FLOP utilisation against the 67 TFLOP/s float32 peak). Checks:
    every loss finite and the last below the first; each flash kernel
-   launched 12 times a timed step; one ``compute_dtype=torch.bfloat16``
-   step from the initial weights within 2 % of the float32 first-step
-   loss; on a 1 x 512 batch the card's loss and gradients equal the port's
+   launched 12 times a timed step; on a 1 x 512 batch the card's loss and gradients equal the port's
    CPU run (plain versions): loss within 1e-4 relative, each parameter's
    gradient within 1e-3 of its largest magnitude. Then 2 steps under
    ``torch.profiler`` (a ``profile`` line).
-8. train_resnet — ``bench.py``'s training configuration: ResNet-50
+8. train_bf16 — ``train``'s model, weights, batch and optimizer through
+   ``make_train_step(..., compute_dtype=torch.bfloat16)``: one warm-up
+   step, then 5 timed steps (step time, tokens/s, peak memory,
+   utilisation against 989 TFLOP/s bfloat16). Checks: losses finite and
+   falling; the first within 2 % of ``train``'s float32 first loss (same
+   batch and weights; a sanity bound only: at the initial weights the loss
+   sits near ln(50257) whatever attention does); per timed step 12 launches
+   of each flash wrapper on the path ``flash_attention.path`` names at
+   GPT-2's head_dim 64 (the tensor cores for the forward and dK/dV, the
+   CUDA cores for dQ) and none on the other; ``flash_attention``'s bfloat16
+   autograd, which is what holds the kernels, at 1 x 12 x 512 x 64,
+   causal (output, dQ, dK, dV) within 2e-2 x max|CPU| of float32 autograd
+   of the plain attention on the CPU over the same values. Then 2 steps
+   under ``torch.profiler`` (a ``profile`` line grouped into flash
+   tensor-core kernels, flash CUDA-core kernels, GEMMs, elementwise and
+   reductions).
+9. train_resnet — ``bench.py``'s training configuration: ResNet-50
    (ImageNet, NHWC, 1000 classes, full width and depth), seeded weights
    from ``convert.init_resnet_params(seed=0)``, one fixed batch of 256 x
    224 x 224 x 3 with labels from ``default_rng(1)``, ``ClassNLLCriterion``,
@@ -483,7 +506,6 @@ def _paged_tp_kernel(torch, flush):
 
 
 def phase_kernels(torch):
-    from bigdl_tpu_torch.ops import sampling as sm
     flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
                         device="cuda")
     results = {}
@@ -492,61 +514,93 @@ def phase_kernels(torch):
         results[entry["name"]] = entry
     results["paged_attention_tp"] = _paged_tp_kernel(torch, flush)
 
-    # fused sampling at the serving shape
-    s_rows, vocab, top_k, top_p = 8, 50257, 50, 0.9
-    g = torch.Generator(device="cuda").manual_seed(11)
-    temps = torch.tensor([0.5, 0.8, 1.0, 1.3, 0.7, 0.9, 1.1, 0.6],
-                         device="cuda")
-    samples = []
-    for dtype in (torch.float32, torch.bfloat16):
-        logits = (3.0 * torch.randn((s_rows, vocab), generator=g,
-                                    device="cuda")).to(dtype)
-        gumbel = sm.gumbel_noise((s_rows, vocab), g, "cuda", dtype)
-        got = sm.fused_sample_logits(logits, gumbel, temps, top_k, top_p)
-        torch.cuda.synchronize()
-        want = sm.fused_sample_logits_ref(logits, gumbel, temps, top_k,
-                                          top_p)
-        near = _near_boundary(torch, logits, temps, top_k, top_p)
-        diff = (got != want).nonzero().flatten().tolist()
-        for r in diff:
-            print(f"sampling {dtype}: row {r} differs (kernel "
-                  f"{int(got[r])}, plain {int(want[r])}), near boundary "
-                  f"{bool(near[r])}", flush=True)
-        bad = [r for r in diff if not near[r]]
-        check(not bad, f"fused sampling {dtype}: rows {bad} differ away "
-                       f"from a kept-set boundary")
-        nbytes, flops = sm.bytes_and_flops(logits, top_k, top_p)
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        ms, spread = _steady_ms(torch, lambda: sm.fused_sample_logits(
-            logits, gumbel, temps, top_k, top_p), flush)
-        plain_ms = time_ms(torch, lambda: sm.fused_sample_logits_ref(
-            logits, gumbel, temps, top_k, top_p), 5)
-        ok_rows = [r for r in range(s_rows) if r not in diff] or [0]
-        samples.append({"dtype": str(dtype).replace("torch.", ""),
-                        "rows": s_rows, "vocab": vocab,
-                        "differing_rows": diff,
-                        "max_abs_err": float((got[ok_rows].long()
-                                              - want[ok_rows].long())
-                                             .abs().max()),
-                        "ms": ms, "ms_spread": spread, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                        "flops": flops})
-    s32 = samples[0]
-    results["fused_sampling"] = {
-        "name": "fused_sampling", "route": "cuda",
-        "source": "bigdl_tpu_torch/ops/csrc/sampling.cu",
-        "replaces": "bigdl_tpu/ops/sampling.py:75",
-        "max_abs_err": s32["max_abs_err"], "ms": s32["ms"],
-        "ms_spread": s32["ms_spread"], "plain_ms": s32["plain_ms"], "bound_ms": s32["bound_ms"],
-        "bound_by": s32["bound_by"],
-        # no single PyTorch call does top-k + top-p + the gumbel draw
-        "library_ms": None, "timed_shape": "8x50257 float32",
-        "launches": 0, "shapes": samples}
-    emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
+    results["fused_sampling"] = _sampling_kernel(torch, flush)
     results.update(_flash_kernels(torch, flush))
     results.update(_conv_kernels(torch, flush))
     del flush
     return results
+
+
+# (S, V, per-row temperatures): GPT-2's vocabulary (the row in shared
+# memory) and Llama-3's (above MAX_VOCAB: the row in an L2-resident
+# scratch)
+SAMPLE_CASES = [(8, 50257, [0.5, 0.8, 1.0, 1.3, 0.7, 0.9, 1.1, 0.6]),
+                (8, 128256, [0.8] * 8)]
+SAMPLE_TOP_K, SAMPLE_TOP_P = 50, 0.9
+
+
+def _sampling_kernel(torch, flush):
+    """The fused sampler against its plain version at SAMPLE_CASES in
+    float32 and bfloat16, one injected gumbel draw:
+    tokens identical except on a row whose kept-set boundary lies within
+    1e-5 of its level (printed); each call must move its path's counter
+    (``launches`` up to MAX_VOCAB, ``long_row_launches`` above). Each
+    timed. Returns the ``kernels`` entry, timed at 8 x 50257 float32."""
+    from bigdl_tpu_torch.ops import sampling as sm
+    fn = sm.fused_sample_logits
+    g = torch.Generator(device="cuda").manual_seed(11)
+    top_k, top_p = SAMPLE_TOP_K, SAMPLE_TOP_P
+    samples = []
+    for s_rows, vocab, row_temps in SAMPLE_CASES:
+        temps = torch.tensor(row_temps, device="cuda")
+        long_row = vocab > sm.MAX_VOCAB
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = (3.0 * torch.randn((s_rows, vocab), generator=g,
+                                        device="cuda")).to(dtype)
+            gumbel = sm.gumbel_noise((s_rows, vocab), g, "cuda", dtype)
+            before = (fn.launches, fn.long_row_launches)
+            got = fn(logits, gumbel, temps, top_k, top_p)
+            torch.cuda.synchronize()
+            moved = (fn.launches - before[0],
+                     fn.long_row_launches - before[1])
+            check(moved == ((0, 1) if long_row else (1, 0)),
+                  f"fused sampling {s_rows}x{vocab}: launches moved "
+                  f"{moved}")
+            want = sm.fused_sample_logits_ref(logits, gumbel, temps, top_k,
+                                              top_p)
+            near = _near_boundary(torch, logits, temps, top_k, top_p)
+            diff = (got != want).nonzero().flatten().tolist()
+            for r in diff:
+                print(f"sampling {s_rows}x{vocab} {dtype}: row {r} differs "
+                      f"(kernel {int(got[r])}, plain {int(want[r])}), near "
+                      f"boundary {bool(near[r])}", flush=True)
+            bad = [r for r in diff if not near[r]]
+            check(not bad, f"fused sampling {s_rows}x{vocab} {dtype}: rows "
+                           f"{bad} differ away from a kept-set boundary")
+            nbytes, flops = sm.bytes_and_flops(logits, top_k, top_p)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            ms, spread = _steady_ms(torch, lambda: fn(
+                logits, gumbel, temps, top_k, top_p), flush)
+            plain_ms = time_ms(torch, lambda: sm.fused_sample_logits_ref(
+                logits, gumbel, temps, top_k, top_p), 5)
+            ok_rows = [r for r in range(s_rows) if r not in diff] or [0]
+            samples.append({"dtype": str(dtype).replace("torch.", ""),
+                            "rows": s_rows, "vocab": vocab,
+                            "temperatures": row_temps,
+                            "row_in": "scratch" if long_row
+                            else "shared memory",
+                            "differing_rows": diff,
+                            "max_abs_err": float((got[ok_rows].long()
+                                                  - want[ok_rows].long())
+                                                 .abs().max()),
+                            "ms": ms, "ms_spread": spread,
+                            "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "bytes": nbytes,
+                            "flops": flops})
+            del logits, gumbel, got, want
+    emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
+    s32 = samples[0]
+    return {
+        "name": "fused_sampling", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/sampling.cu",
+        "replaces": "bigdl_tpu/ops/sampling.py:75",
+        "max_abs_err": max(r["max_abs_err"] for r in samples),
+        "ms": s32["ms"], "ms_spread": s32["ms_spread"],
+        "plain_ms": s32["plain_ms"], "bound_ms": s32["bound_ms"],
+        "bound_by": s32["bound_by"],
+        # no single PyTorch call does top-k + top-p + the gumbel draw
+        "library_ms": None, "timed_shape": "8x50257 float32",
+        "launches": 0, "shapes": samples}
 
 
 FLASH_SOURCE = "bigdl_tpu_torch/ops/csrc/flash_attention.cu"
@@ -555,12 +609,22 @@ FLASH_NAMES = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
 FLASH_REPLACES = {"fwd": "bigdl_tpu/ops/flash_attention.py:45",
                   "dq": "bigdl_tpu/ops/flash_attention.py:120",
                   "dkv": "bigdl_tpu/ops/flash_attention.py:159"}
-# (label, B, H, S, causal, dtype name, with an lse cotangent)
-FLASH_CASES = [("path", 8, 12, 1024, True, "float32", False),
-               ("path", 8, 12, 1024, True, "bfloat16", False),
-               ("full", 8, 12, 1024, False, "float32", True),
-               ("ragged", 8, 12, 1000, True, "float32", False)]
+# (label, B, H, S, D, causal, with an lse cotangent, kernels held), each in
+# FLASH_DTYPES; "d128" is bfloat16 only and holds no dQ (the dQ kernel
+# takes D = 64 only)
+FLASH_CASES = [("path", 8, 12, 1024, 64, True, False, ("fwd", "dq", "dkv")),
+               ("full", 8, 12, 1024, 64, False, True, ("fwd", "dq", "dkv")),
+               ("ragged", 8, 12, 1000, 64, True, False,
+                ("fwd", "dq", "dkv")),
+               ("d128", 8, 12, 1024, 128, True, False, ("fwd", "dkv"))]
+FLASH_DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
+FLASH_TIMED = ("path", "d128")      # the cases timed beside SDPA
+# products of depth D each kernel runs per visible (query, key) pair: the
+# function's two, plus the recomputed S (dQ, dK/dV) and dP (dK/dV). Their
+# time at the peak rate is a floor the kernel cannot go below; the bound
+# (bytes_and_flops) counts the function's two only.
+FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
 
 
 def _device_kernels(torch, fn):
@@ -578,101 +642,165 @@ def _device_kernels(torch, fn):
 
 def _flash_kernels(torch, flush):
     """The three flash kernels against their plain versions (and SDPA as
-    the library yardstick) on FLASH_CASES; returns their ``kernels``
-    entries, timed on the float32 path case."""
-    import torch.nn.functional as F
+    the library yardstick) on FLASH_CASES in both types. Each call must
+    take the path ``fa.path`` names and move that path's counter; a
+    bfloat16 kernel's second call must equal its first bit for bit. The
+    path and d128 cases are timed. Returns their ``kernels`` entries:
+    bfloat16 at the path shape (the main path's type), the float32 timing
+    beside it."""
     from bigdl_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(21)
     rows = {"fwd": [], "dq": [], "dkv": []}
-    for label, b, h, s, causal, dname, with_dlse in FLASH_CASES:
-        dtype = getattr(torch, dname)
-        q, k, v, do = [torch.randn((b, h, s, 64), generator=g, device="cuda")
-                       .to(dtype) for _ in range(4)]
-        dlse = (torch.randn((b, h, s), generator=g, device="cuda")
-                if with_dlse else None)
-        o, lse = fa.flash_fwd(q, k, v, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        bwd = (q, k, v, do, lse, delta, dlse, causal)
-        dq = fa.flash_bwd_dq(*bwd)
-        dk, dv = fa.flash_bwd_dkv(*bwd)
-        torch.cuda.synchronize()
-        want = {"fwd": fa.flash_fwd_ref(q, k, v, causal),
-                "dq": (fa.flash_bwd_dq_ref(*bwd),),
-                "dkv": fa.flash_bwd_dkv_ref(*bwd)}
-        got = {"fwd": (o, lse), "dq": (dq,), "dkv": (dk, dv)}
-        case = {"case": label, "B": b, "H": h, "S": s, "causal": causal,
-                "dtype": dname, "dlse": with_dlse}
-        for kern in rows:
-            outs = list(zip(got[kern], want[kern]))
-            err = max(float((a.float() - w.float()).abs().max())
-                      for a, w in outs)
-            for a, _ in outs:
-                check(torch.isfinite(a.float()).all().item(),
-                      f"flash {kern} {label} {dname}: non-finite output")
-            if dname == "float32":
-                tol = FLASH_TOL[dname]["fwd" if kern == "fwd" else "grad"]
-                ok = err <= tol
-            else:
-                tol = FLASH_TOL[dname]
-                ok = all(torch.allclose(a.float(), w.float(), atol=tol,
-                                        rtol=tol) for a, w in outs)
-            check(ok, f"flash {kern} {label} {dname}: max abs err {err} "
-                      f"over tolerance {tol}")
-            rows[kern].append({**case, "max_abs_err": err, "tolerance": tol})
-        if label != "path":
-            continue
-        # time the path shape in both types: kernel, plain, SDPA
-        fns = {"fwd": (lambda: fa.flash_fwd(q, k, v, causal),
-                       lambda: fa.flash_fwd_ref(q, k, v, causal)),
-               "dq": (lambda: fa.flash_bwd_dq(*bwd),
-                      lambda: fa.flash_bwd_dq_ref(*bwd)),
-               "dkv": (lambda: fa.flash_bwd_dkv(*bwd),
-                       lambda: fa.flash_bwd_dkv_ref(*bwd))}
-        qq, kk, vv = [t.detach().clone().requires_grad_(True)
-                      for t in (q, k, v)]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qq, kk, vv,
-                                                  is_causal=causal)
-
-        out = sdpa()
-
-        def sdpa_bwd():
-            return torch.autograd.grad(out, (qq, kk, vv), do,
-                                       retain_graph=True)
-
-        lib = {"fwd": time_ms(torch, sdpa, 20, flush),
-               "bwd": time_ms(torch, sdpa_bwd, 20, flush)}
-        backend = _device_kernels(torch, lambda: (sdpa(), sdpa_bwd()))
-        print(f"sdpa {dname}: kernels {backend}", flush=True)
-        for kern, (kernel_fn, plain_fn) in fns.items():
-            nbytes, flops = fa.bytes_and_flops(kern, q, causal, with_dlse)
-            b_ms, b_by = bound(nbytes, flops, dtype)
-            rows[kern][-1].update(
-                ms=time_ms(torch, kernel_fn, 20, flush),
-                plain_ms=time_ms(torch, plain_fn, 3, flush),
-                library_ms=lib["fwd" if kern == "fwd" else "bwd"],
-                sdpa_kernels=backend, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, flops=flops)
-        del qq, kk, vv, out
+    counters = {"fwd": fa.flash_fwd, "dq": fa.flash_bwd_dq,
+                "dkv": fa.flash_bwd_dkv}
+    for label, b, h, s, d, causal, with_dlse, kerns in FLASH_CASES:
+        for dname in FLASH_DTYPES:
+            if label == "d128" and dname == "float32":
+                continue
+            dtype = getattr(torch, dname)
+            q, k, v, do = [torch.randn((b, h, s, d), generator=g,
+                                       device="cuda").to(dtype)
+                           for _ in range(4)]
+            dlse = (torch.randn((b, h, s), generator=g, device="cuda")
+                    if with_dlse else None)
+            before = {kern: _launch_counts(counters[kern]) for kern in kerns}
+            o, lse = fa.flash_fwd(q, k, v, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, dlse, causal)
+            calls = {"fwd": lambda: fa.flash_fwd(q, k, v, causal),
+                     "dq": lambda: (fa.flash_bwd_dq(*bwd),),
+                     "dkv": lambda: fa.flash_bwd_dkv(*bwd)}
+            got = {"fwd": (o, lse)}
+            got.update({kern: calls[kern]() for kern in kerns
+                        if kern != "fwd"})
+            torch.cuda.synchronize()
+            plain = {"fwd": lambda: fa.flash_fwd_ref(q, k, v, causal),
+                     "dq": lambda: (fa.flash_bwd_dq_ref(*bwd),),
+                     "dkv": lambda: fa.flash_bwd_dkv_ref(*bwd)}
+            case = {"case": label, "B": b, "H": h, "S": s, "D": d,
+                    "causal": causal, "dtype": dname, "dlse": with_dlse}
+            for kern in kerns:
+                path = fa.path(FLASH_NAMES[kern], dtype, d)
+                moved = {p: n - before[kern][p] for p, n in
+                         _launch_counts(counters[kern]).items()}
+                check(moved == {p: int(p == path) for p in moved},
+                      f"flash {kern} {label} {dname}: launches moved "
+                      f"{moved}, expected one on {path}")
+                want = plain[kern]()
+                outs = list(zip(got[kern], want))
+                err = max(float((a.float() - w.float()).abs().max())
+                          for a, w in outs)
+                for a, _ in outs:
+                    check(torch.isfinite(a.float()).all().item(),
+                          f"flash {kern} {label} {dname}: non-finite "
+                          f"output")
+                if dname == "float32":
+                    tol = FLASH_TOL[dname]["fwd" if kern == "fwd"
+                                           else "grad"]
+                    ok = err <= tol
+                else:
+                    tol = FLASH_TOL[dname]
+                    ok = all(torch.allclose(a.float(), w.float(), atol=tol,
+                                            rtol=tol) for a, w in outs)
+                check(ok, f"flash {kern} {label} {dname}: max abs err "
+                          f"{err} over tolerance {tol}")
+                row = {**case, "path": path, "max_abs_err": err,
+                       "tolerance": tol}
+                if dname == "bfloat16":
+                    again = calls[kern]()
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b_) for a, b_ in
+                               zip(got[kern], again))
+                    check(same, f"flash {kern} {label} {dname}: a second "
+                                f"call differs from the first")
+                    row["repeats_bitwise"] = same
+                    del again
+                rows[kern].append(row)
+                del want, outs
+            if label in FLASH_TIMED:
+                _time_flash(torch, fa, flush, rows, kerns, dtype, causal,
+                            with_dlse, q, k, v, do, bwd)
+            del q, k, v, do, dlse, o, lse, delta, bwd, got
+            torch.cuda.empty_cache()
     results = {}
     for kern, shapes in rows.items():
         name = FLASH_NAMES[kern]
         emit({"phase": "kernels", "kernel": name, "shapes": shapes})
-        t = shapes[0]                          # path, causal, float32
+        timed = {r["dtype"]: r for r in shapes
+                 if r["case"] == "path" and "ms" in r}
+        t, t32 = timed["bfloat16"], timed["float32"]
         results[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[kern],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
-                               if r["dtype"] == "float32"),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+                               if r["dtype"] == "bfloat16"),
+            "ms": t["ms"], "ms_spread": t["ms_spread"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "products_floor_ms": t["products_floor_ms"],
             # forward: one SDPA call; backward rows: one SDPA backward
             # call, which yields dQ, dK and dV together
             "library_ms": t["library_ms"],
-            "timed_shape": "B 8 H 12 S 1024 D 64 causal float32",
+            "timed_shape": f"B 8 H 12 S 1024 D 64 causal bfloat16, "
+                           f"{t['path'].replace('_', ' ')}",
+            "float32": {"max_abs_err": max(r["max_abs_err"] for r in shapes
+                                           if r["dtype"] == "float32"),
+                        **{key: t32[key] for key in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "path")}},
             "launches": 0, "shapes": shapes}
     return results
+
+
+def _launch_counts(fn):
+    """A flash wrapper's launch counters by path."""
+    return {"cuda_cores": fn.launches,
+            "tensor_cores": getattr(fn, "tc_launches", 0)}
+
+
+def _time_flash(torch, fa, flush, rows, kerns, dtype, causal, with_dlse,
+                q, k, v, do, bwd):
+    """Time each kernel of ``kerns`` on these inputs and SDPA's forward
+    and backward on the same tensors (:func:`_steady_ms`, 20 runs a
+    reading: device time behind the spin kernel, the L2 flushed before
+    each run), and the plain version (3 runs); the numbers go into each
+    kernel's last row."""
+    import torch.nn.functional as F
+    fns = {"fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                   lambda: fa.flash_fwd_ref(q, k, v, causal)),
+           "dq": (lambda: fa.flash_bwd_dq(*bwd),
+                  lambda: fa.flash_bwd_dq_ref(*bwd)),
+           "dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                   lambda: fa.flash_bwd_dkv_ref(*bwd))}
+    qq, kk, vv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)
+
+    out = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
+
+    lib = {"fwd": _steady_ms(torch, sdpa, flush, 20),
+           "bwd": _steady_ms(torch, sdpa_bwd, flush, 20)}
+    backend = _device_kernels(torch, lambda: (sdpa(), sdpa_bwd()))
+    print(f"sdpa {dtype} D {q.shape[-1]}: kernels {backend}", flush=True)
+    for kern in kerns:
+        kernel_fn, plain_fn = fns[kern]
+        nbytes, flops = fa.bytes_and_flops(kern, q, causal, with_dlse)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        products = flops // 2 * FLASH_PRODUCTS[kern]
+        ms, spread = _steady_ms(torch, kernel_fn, flush, 20)
+        lib_ms, lib_spread = lib["fwd" if kern == "fwd" else "bwd"]
+        rows[kern][-1].update(
+            ms=ms, ms_spread=spread,
+            plain_ms=time_ms(torch, plain_fn, 3, flush),
+            library_ms=lib_ms, library_ms_spread=lib_spread,
+            sdpa_kernels=backend, bound_ms=b_ms, bound_by=b_by,
+            bytes=nbytes, flops=flops,
+            products_floor_ms=bound(0, products, dtype)[0])
+    del qq, kk, vv, out
 
 
 CONV_SOURCE = "bigdl_tpu_torch/ops/csrc/conv3x3.cu"
@@ -895,9 +1023,9 @@ def _profile(torch, run, groups=None):
     """Run ``run()`` under torch.profiler and report the device's busy
     time (the union of CUDA kernel and copy intervals) against the wall
     time, with the largest kernels by device time, and, for ``groups``
-    ({label: substring of the kernel name}), each group's calls and
-    device time. Without device events the device numbers are "not
-    measured"."""
+    ({label: a substring of the kernel name, or a tuple of them}), each
+    group's calls and device time. Without device events the device
+    numbers are "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -925,8 +1053,10 @@ def _profile(torch, run, groups=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     total = sum(t for _, t in by_name.values())
     grouped = {}
-    for label, part in (groups or {}).items():
-        hits = [v for k, v in by_name.items() if part in k]
+    for label, parts in (groups or {}).items():
+        parts = (parts,) if isinstance(parts, str) else parts
+        hits = [v for k, v in by_name.items()
+                if any(part in k for part in parts)]
         t = sum(v[1] for v in hits)
         grouped[label] = {"calls": sum(v[0] for v in hits), "s": t / 1e6,
                           "share_of_device_time": t / total}
@@ -958,6 +1088,7 @@ def _reset_serving_counts():
     paged_pool_attention.int8_launches = 0
     paged_pool_attention.sharded_calls = 0
     fused_sample_logits.launches = 0
+    fused_sample_logits.long_row_launches = 0
     qmatmul.calls = 0
 
 
@@ -1318,17 +1449,23 @@ def phase_slice_tp(torch, kernels, f32_line, base, cpu_ref, int8_kv):
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 
 
-def _reset_flash_counts():
+def _flash_wrappers():
     from bigdl_tpu_torch.ops import flash_attention as fa
-    for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def _reset_flash_counts():
+    for fn in _flash_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
 
 
 def _flash_counts():
-    from bigdl_tpu_torch.ops import flash_attention as fa
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    """Each flash wrapper's launches by path."""
+    return {name: _launch_counts(fn)
+            for name, fn in _flash_wrappers().items()}
 
 
 def _grads_vs_cpu(torch, model, params, crit, rng):
@@ -1394,24 +1531,13 @@ def phase_train(torch, kernels, smi):
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name, n in launches.items():
-        check(n == n_layers * TRAIN_STEPS,
-              f"{name} launched {n} times in {TRAIN_STEPS} steps of "
-              f"{n_layers} layers")
-        kernels[name]["launches"] = n
+        check(n == {"cuda_cores": n_layers * TRAIN_STEPS, "tensor_cores": 0},
+              f"{name} launched {n} times in {TRAIN_STEPS} float32 steps "
+              f"of {n_layers} layers")
+        kernels[name]["float32"]["launches"] = n["cuda_cores"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_s = wall / TRAIN_STEPS
     flops = 3 * gpt_flops_per_token(s=TRAIN_SEQ) * tokens
-
-    # one bfloat16-compute step from the initial weights
-    model.load_state_dict(params)
-    opt16 = Adam(learningrate=3e-4)
-    step16 = make_train_step(model, crit, opt16,
-                             compute_dtype=torch.bfloat16)
-    loss16 = float(step16(opt16.init_state(dict(model.named_parameters())),
-                          x, y))
-    rel16 = abs(loss16 - losses[0]) / losses[0]
-    check(np.isfinite(loss16) and rel16 <= 0.02,
-          f"bfloat16 step loss {loss16} vs float32 {losses[0]}")
 
     rel_loss, worst, worst_name = _grads_vs_cpu(torch, model, params, crit,
                                                 rng)
@@ -1426,8 +1552,7 @@ def phase_train(torch, kernels, smi):
           "setup_s": setup_s, "peak_memory_bytes": peak,
           "model_flops_per_step": flops,
           "mfu_vs_fp32_peak": flops / step_s / PEAK_FLOPS_PER_S["float32"],
-          "flash_launches": launches, "bf16_first_loss": loss16,
-          "bf16_rel_diff": rel16, "cpu_loss_rel_diff": rel_loss,
+          "flash_launches": launches, "cpu_loss_rel_diff": rel_loss,
           "cpu_grad_worst_rel": worst, "cpu_grad_worst_param": worst_name,
           "card": smi})
 
@@ -1437,6 +1562,137 @@ def phase_train(torch, kernels, smi):
     profile = _profile(torch, lambda: [step(opt_state, x, y)
                                        for _ in range(2)])
     emit({"phase": "profile", "path": "train", "steps": 2, **profile})
+    return losses[0]
+
+
+# families of device kernels in the train_bf16 profile, by substrings of
+# their names
+GPT_BF16_KERNEL_GROUPS = {
+    "flash tensor-core kernels": ("flash_fwd_tc_kernel",
+                                  "flash_bwd_dkv_tc_kernel"),
+    "flash CUDA-core kernels": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkv_kernel"),
+    "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),
+    "elementwise": ("elementwise_kernel",),
+    "reductions": ("reduce_kernel",)}
+FLASH_AUTOGRAD_SHAPE = (1, 12, 512, 64)     # GPT-2 small, batch 1 x 512
+FLASH_BF16_REL = 2e-2                       # x max|CPU float32|
+
+
+def _flash_autograd_bf16(torch, rng):
+    """``ops.flash_attention.flash_attention``, the autograd function the
+    model calls, in bfloat16 on the card at FLASH_AUTOGRAD_SHAPE, causal:
+    the output and dQ, dK, dV against float32 autograd of the plain
+    attention (softmax of the masked scaled scores, times v) on the CPU
+    over the same bfloat16 values. Returns the worst max|diff| / max|CPU|
+    of each."""
+    from bigdl_tpu_torch.ops.flash_attention import flash_attention
+    q, k, v, do = [torch.from_numpy(rng.standard_normal(
+        FLASH_AUTOGRAD_SHAPE, dtype="float32")).to(torch.bfloat16)
+        for _ in range(4)]
+    s = FLASH_AUTOGRAD_SHAPE[2]
+    qc, kc, vc = [t.float().requires_grad_() for t in (q, k, v)]
+    sc = (qc @ kc.transpose(-1, -2)) * FLASH_AUTOGRAD_SHAPE[3] ** -0.5
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        float("-inf"))
+    oc = torch.softmax(sc, dim=-1) @ vc
+    oc.backward(do.float())
+    qg, kg, vg = [t.cuda().requires_grad_() for t in (q, k, v)]
+    og = flash_attention(qg, kg, vg, causal=True)
+    og.backward(do.cuda())
+    rel = {}
+    for key, got, want in (("o", og, oc), ("dq", qg.grad, qc.grad),
+                           ("dk", kg.grad, kc.grad),
+                           ("dv", vg.grad, vc.grad)):
+        want = want.detach()
+        rel[key] = float((got.detach().float().cpu() - want).abs().max()
+                         / want.abs().max())
+    return rel
+
+
+def phase_train_bf16(torch, kernels, smi, loss32):
+    """GPT-2 small trained with bfloat16 compute: ``train``'s model,
+    weights, batch and optimizer through ``make_train_step(...,
+    compute_dtype=torch.bfloat16)``; ``loss32`` is ``train``'s float32
+    first loss on the same batch and weights."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small, gpt_flops_per_token
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim import Adam, make_train_step
+
+    t0 = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    model.load_state_dict(params)
+    n_layers = len(model.gpt.layers)
+    crit = CrossEntropyCriterion()
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, 50257, (TRAIN_BATCH,
+                                                   TRAIN_SEQ + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].reshape(-1)
+    opt = Adam(learningrate=3e-4)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    step = make_train_step(model, crit, opt, compute_dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, x, y)]                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the counts start at 0 just before the timed steps
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(opt_state, x, y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    rel32 = abs(losses[0] - loss32) / loss32
+    check(rel32 <= 0.02, f"bfloat16 first loss {losses[0]} vs float32 "
+                         f"{loss32}")
+    head_dim = model.gpt.layers[0].attn.head_dim
+    for name, n in launches.items():
+        path = fa.path(name, torch.bfloat16, head_dim)
+        want = {p: n_layers * TRAIN_STEPS * (p == path) for p in n}
+        check(n == want, f"{name} launched {n} times in {TRAIN_STEPS} "
+                         f"bfloat16 steps of {n_layers} layers; expected "
+                         f"{want}")
+        kernels[name]["launches"] = n[path]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = wall / TRAIN_STEPS
+    flops = 3 * gpt_flops_per_token(s=TRAIN_SEQ) * tokens
+
+    ad = _flash_autograd_bf16(torch, rng)
+    print(f"train_bf16 flash bfloat16 autograd vs CPU: {json.dumps(ad)}",
+          flush=True)
+    check(max(ad.values()) <= FLASH_BF16_REL,
+          f"flash bfloat16 autograd vs CPU: {ad}")
+    emit({"phase": "train_bf16", "model": "gpt2_small", "layers": n_layers,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "compute_dtype": "bfloat16", "optimizer": "Adam(3e-4)",
+          "losses": losses, "float32_first_loss": loss32,
+          "first_loss_rel_diff": rel32, "timed_steps": TRAIN_STEPS,
+          "step_s": step_s, "tokens_per_s": tokens / step_s,
+          "warmup_s": warmup_s, "setup_s": setup_s,
+          "peak_memory_bytes": peak, "model_flops_per_step": flops,
+          "mfu_vs_bf16_peak": flops / step_s / PEAK_FLOPS_PER_S["bfloat16"],
+          "flash_launches": launches, "flash_bf16_autograd_rel": ad,
+          "card": smi})
+
+    # where the time goes: 2 more bfloat16 steps under torch.profiler
+    model.load_state_dict(params)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    profile = _profile(torch, lambda: [step(opt_state, x, y)
+                                       for _ in range(2)],
+                       groups=GPT_BF16_KERNEL_GROUPS)
+    emit({"phase": "profile", "path": "train_bf16", "steps": 2, **profile})
 
 
 RESNET_BATCH, RESNET_HW, RESNET_STEPS = 256, 224, 5
@@ -1758,7 +2014,9 @@ def main():
     torch.cuda.empty_cache()
     phase_slice_tp(torch, kernels, f32_line, int8_line, None, int8_kv=True)
     torch.cuda.empty_cache()
-    phase_train(torch, kernels, smi)
+    loss32 = phase_train(torch, kernels, smi)
+    torch.cuda.empty_cache()
+    phase_train_bf16(torch, kernels, smi, loss32)
     torch.cuda.empty_cache()
     phase_train_resnet(torch, kernels, smi)
     emit({"kernels": list(kernels.values())})

@@ -1,0 +1,228 @@
+"""The host side of the port's tensor-core flash kernels
+(``bigdl_tpu_torch/ops/flash_attention.py``): the plain versions the card
+holds them against, at both head sizes they are built for, against the
+reference's Pallas kernels; the plan the C entries make; the path each
+(type, head size, kernel) takes, the entry it reaches and the counter it
+moves.
+
+The reference runs in Pallas interpret mode with ``block_q = block_k =
+32`` on (1, 2, 128, D). Tolerances: float32 the reference's own (O and
+lse at rtol 2e-4, atol 2e-5; gradients at rtol 1e-3, atol 1e-4);
+bfloat16 the card's bar, atol = rtol = 2e-2, because the two sides round
+``p`` to bfloat16 at different running maxima. The CUDA kernels
+themselves are held against the plain versions on the card by
+``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bigdl_tpu.ops.flash_attention import \
+    flash_attention_with_lse as jax_flash_with_lse
+from bigdl_tpu_torch.ops import flash_attention as fa
+
+TOL = {"float32": ({"rtol": 2e-4, "atol": 2e-5},
+                   {"rtol": 1e-3, "atol": 1e-4}),
+       "bfloat16": ({"rtol": 2e-2, "atol": 2e-2},
+                    {"rtol": 2e-2, "atol": 2e-2})}
+
+
+def _inputs(d, seed):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = [rs.randn(1, 2, 128, d).astype(np.float32)
+                   for _ in range(4)]
+    return q, k, v, do, rs.randn(1, 2, 128).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["o", "o+lse"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa.TC_HEAD_DIMS)
+def test_plain_versions_match_pallas_kernels(d, dtype, causal, with_dlse):
+    """O, lse, dQ, dK and dV of the plain versions against the reference's
+    forward and its custom VJP (cotangents dO and, with ``with_dlse``,
+    dlse), on the same values in the same type."""
+    q, k, v, do, dlse = _inputs(d, seed=d + causal)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
+    (o, lse), vjp = jax.vjp(
+        lambda q, k, v: jax_flash_with_lse(q, k, v, causal=causal,
+                                           block_q=32, block_k=32),
+        jq, jk, jv)
+    jdlse = jnp.asarray(dlse if with_dlse else np.zeros_like(dlse))
+    want = [o, lse, *vjp((jdo, jdlse))]
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    tdlse = torch.from_numpy(dlse) if with_dlse else None
+    got_o, got_lse = fa.flash_fwd_ref(tq, tk, tv, causal)
+    delta = (tdo.float() * got_o.float()).sum(-1)
+    args = (tq, tk, tv, tdo, got_lse, delta, tdlse, causal)
+    got_dq = fa.flash_bwd_dq_ref(*args)
+    got_dk, got_dv = fa.flash_bwd_dkv_ref(*args)
+    fwd_tol, grad_tol = TOL[dtype]
+    for i, (got, w) in enumerate(zip(
+            (got_o, got_lse, got_dq, got_dk, got_dv), want)):
+        assert got.dtype == (torch.float32 if i == 1 else tdt)
+        np.testing.assert_allclose(got.float().numpy(), w,
+                                   **(fwd_tol if i < 2 else grad_tol))
+
+
+# (kernel, B*H, S, D) -> tile_q, tile_k, grid, shared-memory bytes
+TC_PLANS = [
+    # the training path's shape, and D = 128
+    (("fwd", 96, 1024, 64), 128, 128, (96, 8),
+     1024 + 128 * 64 * 2 + 2 * 2 * 128 * 64 * 2),
+    (("fwd", 96, 1024, 128), 128, 64, (96, 8),
+     1024 + 128 * 128 * 2 + 2 * 2 * 64 * 128 * 2),
+    (("dkv", 96, 1024, 64), 64, 128, (96, 8),
+     1024 + 2 * 128 * 64 * 2 + 2 * (2 * 64 * 64 * 2 + 3 * 64 * 4)),
+    (("dkv", 96, 1024, 128), 64, 128, (96, 8),
+     1024 + 2 * 128 * 128 * 2 + 2 * (2 * 64 * 128 * 2 + 3 * 64 * 4)),
+    # ragged: S = 1000 (a partial last tile), and tiny sequences
+    (("fwd", 96, 1000, 64), 128, 128, (96, 8), 82944),
+    (("dkv", 96, 1000, 64), 64, 128, (96, 8), 68096),
+    (("fwd", 1, 1, 128), 128, 64, (1, 1), 99328),
+    (("dkv", 2, 130, 128), 64, 128, (2, 2), 133632),
+]
+
+
+@pytest.mark.parametrize("args,tile_q,tile_k,grid,smem", TC_PLANS,
+                         ids=[str(p[0]) for p in TC_PLANS])
+def test_tensor_core_plan(args, tile_q, tile_k, grid, smem):
+    """Every host-side quantity of a tensor-core launch: 256 threads (two
+    warpgroups of 64 rows), a two-stage ring, the forward's 128 query rows
+    a CTA with key tiles of 128 (D 64) or 64 (D 128), dK/dV's 128 keys a
+    CTA with query tiles of 64, and the dynamic shared memory (alignment
+    slack, the resident tiles, the ring's tiles, dK/dV's staged rows),
+    under the 232,448 bytes a CTA may use."""
+    plan = fa.tc_plan(*args)
+    assert plan == {"tile_q": tile_q, "tile_k": tile_k, "grid": grid,
+                    "threads": 256, "stages": 2, "smem_bytes": smem}
+    assert smem <= fa.TC_MAX_SMEM == 232448
+
+
+def test_tensor_core_plan_refuses_what_has_no_tensor_core_kernel():
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.tc_plan("fwd", 1, 64, 32)
+    with pytest.raises(ValueError, match="'dq'"):
+        fa.tc_plan("dq", 1, 64, 64)
+
+
+TC, CC = "tensor_cores", "cuda_cores"
+
+
+@pytest.mark.parametrize("fn,dtype,d,want", [
+    ("flash_fwd", torch.bfloat16, 64, TC),
+    ("flash_fwd", torch.bfloat16, 128, TC),
+    ("flash_bwd_dkv", torch.bfloat16, 64, TC),
+    ("flash_bwd_dkv", torch.bfloat16, 128, TC),
+    ("flash_bwd_dq", torch.bfloat16, 64, CC),       # dQ: CUDA cores
+    ("flash_bwd_dq", torch.bfloat16, 128, None),
+    ("flash_fwd", torch.float32, 64, CC),           # float32: CUDA cores
+    ("flash_bwd_dkv", torch.float32, 64, CC),
+    ("flash_bwd_dq", torch.float32, 64, CC),
+    ("flash_fwd", torch.float32, 128, None),
+    ("flash_bwd_dkv", torch.float32, 128, None),
+    ("flash_fwd", torch.bfloat16, 32, None),        # no kernel at D = 32
+    ("flash_fwd", torch.float16, 64, None),
+])
+def test_tensor_core_eligibility(fn, dtype, d, want):
+    """``path``: the tensor cores for the bfloat16 forward and dK/dV at D
+    in TC_HEAD_DIMS, the CUDA cores for float32 and bfloat16 at D = 64
+    otherwise, no kernel for the rest."""
+    assert fa.path(fn, dtype, d) == want
+
+
+class _FakeLib:
+    """Records the C entry called and its arguments; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _on_card(kernel, q):
+    """Run the card branch of ``kernel``'s wrapper on CPU tensors shaped
+    like ``q``."""
+    rows = torch.zeros(q.shape[:-1])
+    if kernel == "fwd":
+        return fa._fwd_on_card(q, q, q, True, 0.125)
+    on_card = fa._dq_on_card if kernel == "dq" else fa._dkv_on_card
+    return on_card(q, q, q, q, rows, rows, rows, True, 0.125)
+
+
+WRAPPERS = {"fwd": fa.flash_fwd, "dq": fa.flash_bwd_dq,
+            "dkv": fa.flash_bwd_dkv}
+ENTRIES = {"fwd": "bigdl_flash_fwd", "dq": "bigdl_flash_bwd_dq",
+           "dkv": "bigdl_flash_bwd_dkv"}
+POINTERS = {"fwd": 5, "dq": 8, "dkv": 9}
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
+                                                     dtype, d):
+    """The wrappers' card branch: the C entry each (type, head size,
+    kernel) reaches, with its arguments, and the counter it moves
+    (``tc_launches`` for the tensor-core forward and dK/dV in bfloat16,
+    ``launches`` for the CUDA-core kernels); dQ and float32 at D = 128
+    raise, naming the ROADMAP item that will add them, before any
+    launch. The library, the card and the
+    device checks are faked; the head-size check is the wrappers' own."""
+    lib = _FakeLib()
+    monkeypatch.setattr(fa, "_check_cuda_args",
+                        lambda fn, q, planes, rows: fa._check_head_dim(fn,
+                                                                       q))
+    monkeypatch.setattr(fa._build, "load", lambda name, declare: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7}))
+    fn = WRAPPERS[kernel]
+    monkeypatch.setattr(fn, "launches", 0)
+    if kernel != "dq":
+        monkeypatch.setattr(fn, "tc_launches", 0)
+    q = torch.zeros(2, 3, 40, d, dtype=dtype)
+    tc = kernel != "dq" and dtype == torch.bfloat16
+    if d == 128 and not tc:
+        with pytest.raises(ValueError, match="ROADMAP queue B row 2"):
+            _on_card(kernel, q)
+        assert lib.calls == [] and fn.launches == 0
+        return
+    _on_card(kernel, q)
+    [(name, args)] = lib.calls
+    assert name == ENTRIES[kernel] + ("_tc" if tc else "")
+    n = POINTERS[kernel]
+    assert args[n:n + 5] == (6, 40, d, 0.125, 1) and args[-1] == 7
+    if tc:
+        assert len(args) == n + 6
+        assert (fn.tc_launches, fn.launches) == (1, 0)
+    else:
+        assert args[n + 5] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
+        assert fn.launches == 1
+        assert getattr(fn, "tc_launches", 0) == 0
+
+
+@pytest.mark.parametrize("fn,dtype", [("flash_bwd_dq", torch.bfloat16),
+                                      ("flash_bwd_dq", torch.float32),
+                                      ("flash_fwd", torch.float32),
+                                      ("flash_bwd_dkv", torch.float32)])
+def test_head_dim_128_outside_the_tensor_cores_names_the_dq_redesign(
+        fn, dtype):
+    """``_check_cuda_args`` refuses D = 128 where no kernel takes it, with
+    the work that will add it, before it looks at the device."""
+    q = torch.zeros(1, 2, 8, 128, dtype=dtype)
+    with pytest.raises(ValueError,
+                       match=r"dQ redesign, ROADMAP queue B row 2"):
+        fa._check_cuda_args(fn, q, {}, {})
