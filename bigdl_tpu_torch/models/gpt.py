@@ -60,7 +60,7 @@ class TransformerDecoderBlock(nn.Module):
         if inter % tp:
             raise ValueError(f"intermediate_size ({inter}) must be divisible "
                              f"by tp ({tp})")
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.dropout = dropout
         self.attn = MultiHeadAttention(hidden_size, n_heads, causal=True,
                                        tp=tp, **kw)
@@ -141,7 +141,7 @@ class GPT(nn.Module):
         self.max_position = max_position
         self.remat = remat
         self.intermediate_size = intermediate_size or 4 * hidden_size
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.tok_emb = nn.Parameter(torch.empty(vocab_size, hidden_size,
                                                 **kw))
         self.pos_emb = nn.Parameter(torch.empty(max_position, hidden_size,

@@ -56,11 +56,12 @@ class ResNet(nn.Module):
         super().__init__()
         self.format = format or default_data_format()
         self._stem, self._blocks, self._head = [], [], []
+        # every layer is built on the resolved device
+        self._dev = resolve_device(device)
         if data_set.lower().startswith("cifar"):
             self._build_cifar(class_num, depth, shortcut_type)
         else:
             self._build_imagenet(class_num, depth, shortcut_type)
-        self.to(resolve_device(device))
 
     # ------------------------------------------------------------ building
     def _add(self, name, module):
@@ -72,9 +73,9 @@ class ResNet(nn.Module):
         names = [
             self._add(name, SpatialConvolution(
                 n_in, n_out, k, k, stride, stride, pad, pad, with_bias=False,
-                format=fmt)),
-            self._add(name + "_bn", SpatialBatchNormalization(n_out,
-                                                              format=fmt))]
+                format=fmt, device=self._dev)),
+            self._add(name + "_bn", SpatialBatchNormalization(
+                n_out, format=fmt, device=self._dev))]
         if with_relu:
             names.append(self._add(name + "_relu", ReLU()))
         return names
@@ -88,9 +89,9 @@ class ResNet(nn.Module):
         fmt = self.format
         return [self._add(name + "_proj", SpatialConvolution(
                     n_in, n_out, 1, 1, stride, stride, with_bias=False,
-                    format=fmt)),
-                self._add(name + "_proj_bn",
-                          SpatialBatchNormalization(n_out, format=fmt))]
+                    format=fmt, device=self._dev)),
+                self._add(name + "_proj_bn", SpatialBatchNormalization(
+                    n_out, format=fmt, device=self._dev))]
 
     def _block(self, kind, n_in, planes, stride, shortcut_type, name):
         """Register one block; returns its output channels."""
@@ -127,7 +128,7 @@ class ResNet(nn.Module):
             self._add("pool5", SpatialAveragePooling(
                 7, 7, global_pooling=True, format=self.format)),
             self._add("flatten", Reshape((n_in,))),
-            self._add("fc", Linear(n_in, class_num)),
+            self._add("fc", Linear(n_in, class_num, device=self._dev)),
             self._add("prob", LogSoftMax())]
 
     def _build_cifar(self, class_num, depth, shortcut_type):
@@ -146,7 +147,7 @@ class ResNet(nn.Module):
             self._add("SpatialAveragePooling", SpatialAveragePooling(
                 8, 8, global_pooling=True, format=self.format)),
             self._add("Reshape", Reshape((64,))),
-            self._add("Linear", Linear(64, class_num)),
+            self._add("Linear", Linear(64, class_num, device=self._dev)),
             self._add("LogSoftMax", LogSoftMax())]
 
     # ------------------------------------------------------------- running

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.ops.conv3x3 import conv3x3
+from bigdl_tpu_torch.utils.device import resolve_device
 
 
 def same_padding(size, k, s):
@@ -61,6 +62,7 @@ class SpatialConvolution(nn.Module):
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
         self.format = format
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
             n_output_plane, n_input_plane, kernel_h, kernel_w, device=device,
             dtype=dtype).to(memory_format=torch.channels_last))

@@ -11,11 +11,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.utils.device import resolve_device
+
 
 class Linear(nn.Module):
     def __init__(self, input_size, output_size, with_bias=True, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.input_size = input_size
         self.output_size = output_size
         self.weight = nn.Parameter(torch.empty(output_size, input_size,

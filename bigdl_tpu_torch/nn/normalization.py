@@ -18,11 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.utils.device import resolve_device
+
 
 class LayerNormalization(nn.Module):
     def __init__(self, hidden_size, eps=1e-5, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.hidden_size = hidden_size
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
@@ -46,6 +49,7 @@ class BatchNormalization(nn.Module):
     def __init__(self, n_output, eps=1e-5, momentum=0.1, affine=True,
                  device=None, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum

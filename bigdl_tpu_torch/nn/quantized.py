@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.utils.device import resolve_device
 
 # torch._int_mm on CUDA takes more than 16 rows; a smaller batch (a decode
 # step of 8 slots) is padded with zero rows after quantising, which change
@@ -104,6 +105,7 @@ class Int8Linear(nn.Module):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        device = resolve_device(device)
         self.register_buffer("weight", torch.zeros(
             output_size, input_size, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(

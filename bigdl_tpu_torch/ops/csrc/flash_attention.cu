@@ -1,14 +1,13 @@
 // Flash attention for Hopper (sm_90a): the FlashAttention-2 forward and its
 // two backward kernels (dQ; dK with dV), causal or full, over (B*H, S, D)
-// tensors, in two hand-written paths: tensor-core kernels (wgmma) for the
-// bfloat16 forward and dK/dV at D = 64 and 128, and CUDA-core kernels for
-// float32, for the bfloat16 dQ, and (all three) at D = 64 only.
+// tensors at D = 64 or 128, in two hand-written paths: tensor-core kernels
+// (wgmma) for bfloat16, and CUDA-core kernels for float32.
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/flash_attention.py:
 //   forward <- `_fwd_kernel` (:45), launched by `_fwd` (:89):
-//     bf16: flash_fwd_tc_kernel<D, CAUSAL>; f32: flash_fwd_kernel<float, CAUSAL>
+//     bf16: flash_fwd_tc_kernel<D, CAUSAL>; f32: flash_fwd_kernel<D, CAUSAL>
 //   dQ      <- `_bwd_dq_kernel` (:120), `_bwd_impl` call :217:
-//     flash_bwd_dq_kernel<T, CAUSAL> (both types)
+//     bf16: flash_bwd_dq_tc_kernel<D, CAUSAL>; f32: flash_bwd_dq_kernel
 //   dK/dV   <- `_bwd_dkv_kernel` (:159), `_bwd_impl` call :238:
 //     bf16: flash_bwd_dkv_tc_kernel<D, CAUSAL>; f32: flash_bwd_dkv_kernel
 //
@@ -36,18 +35,19 @@
 // function counts: the forward two per pair (its floor is the bytes), dQ
 // three (6*D: 0.020 ms at 989 TFLOP/s, at its 0.019 ms of bytes) and dK/dV
 // four (S^T, dV, dP^T, dK: 8*D, 25.8 GFLOP, 0.026 ms at 989 TFLOP/s). So
-// the bfloat16 dK/dV kernel is bound by its four products on the tensor
-// cores, above its 0.023 ms of bytes.
+// the bfloat16 backward kernels are bound by their products on the tensor
+// cores, at or above their bytes.
 //
 // The tensor-core kernels (bfloat16; wgmma m64nNk16, f32 accumulators in
 // registers; the shared helpers in wgmma.cuh):
 // - one CTA of two warpgroups (256 threads); each warpgroup owns 64 rows of
-//   the CTA's tile: the forward's query tile of 128 rows, dK/dV's key tile
-//   of 128 rows. Every operand tile is stored as 64-wide blocks of 128-byte
-//   swizzle rows (D = 128 is two blocks), which both wgmma views read
-//   without a copy: K-major (D contiguous, 32 bytes a k16 step) where D is
-//   the product's depth, MN-major with the transpose bit where the rows are
-//   the depth (V in P.V; dO and Q in dV += P^T.dO and dK += dS^T.Q);
+//   the CTA's tile: the forward's and dQ's query tile of 128 rows, dK/dV's
+//   key tile of 128 rows. Every operand tile is stored as 64-wide blocks of
+//   128-byte swizzle rows (D = 128 is two blocks), which both wgmma views
+//   read without a copy: K-major (D contiguous, 32 bytes a k16 step) where
+//   D is the product's depth, MN-major with the transpose bit where the
+//   rows are the depth (V in P.V; K in dQ += dS.K; dO and Q in dV += P^T.dO
+//   and dK += dS^T.Q);
 // - forward: the Q tile is staged once; K and V tiles (128 keys at D = 64,
 //   64 at D = 128) stream through a two-stage cp.async ring with zero fill
 //   past S, the next tile in flight while the current one is multiplied.
@@ -60,6 +60,15 @@
 //   stops at its diagonal tile, a warpgroup skips the tiles above its own
 //   rows, only tiles that cross the diagonal or S are masked, and the
 //   heaviest query tiles launch first;
+// - dQ: the forward's shape. The Q and dO tiles stay resident; each row's
+//   lse (times log2(e)), delta and dlse sit in the registers of the four
+//   threads that hold the row; K and V tiles (128 keys at D = 64, 64 at
+//   D = 128) stream through the two-stage ring from key 0 to the diagonal
+//   (the reference's ((qi+1)*bq + bk - 1)//bk). Per key tile: S = Q.K^T
+//   and dP = dO.V^T (wgmma_ss), P = exp2(S*scale*log2(e) - lse*log2(e)),
+//   dS = P * (dP - delta + dlse) * scale rounded to bf16 as the register A
+//   operand of dQ += dS.K (wgmma_rs, K MN-major). Causal work as in the
+//   forward;
 // - dK/dV: K and V of the key tile stay in shared memory; the query tiles
 //   from the diagonal (the reference's (ki*bk)//bq) to the end stream Q,
 //   dO and their lse, delta and dlse through a two-stage ring. Per query
@@ -78,7 +87,7 @@
 // consumer warpgroups in ping-pong so that one's softmax overlaps the
 // other's products, and persistent CTAs.
 //
-// The CUDA-core kernels (float32; bfloat16 dQ; D = 64):
+// The CUDA-core kernels (float32, D = 64 or 128):
 // - one CTA of 256 threads per (b*h, 64-row tile). The forward and dQ own a
 //   query tile and loop over key tiles, up to the diagonal when causal (the
 //   reference's ((qi+1)*bq + bk - 1)//bk with bq = bk = 64); dK/dV owns a
@@ -87,18 +96,19 @@
 //   one writer, so results repeat bit for bit from run to run.
 // - tiles are staged in shared memory as float32 rows padded to D + 4
 //   floats, so a half-warp's float4 reads of 16 rows take two wavefronts
-//   (the least for 256 bytes) and two rows 68 floats apart never collide.
-//   Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*i (i < 4) of a
-//   64x64 score tile and its columns tx + 16*j (j < 4); of a 64xD output
-//   tile it owns the same rows and the columns 4*tx .. 4*tx + 3. Each inner
-//   step reads 8 float4 for 64 FMAs. Softmax row reductions are four
-//   xor-shuffles inside a half-warp.
+//   (the least for 256 bytes) and two rows D + 4 floats apart never
+//   collide. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*i
+//   (i < 4) of a 64x64 score tile and its columns tx + 16*j (j < 4); of a
+//   64xD output tile it owns the same rows and the columns 64*g + 4*tx ..
+//   64*g + 4*tx + 3 (g < D / 64: 4 columns at D = 64, 8 at 128). Each
+//   inner step of a score tile reads 8 float4 for 64 FMAs. Softmax row
+//   reductions are four xor-shuffles inside a half-warp.
 // - m, l and the output accumulators live in registers for the whole loop;
 //   P (or dS) goes through shared memory once per tile, for the second
-//   product.
+//   product. At D = 128 the staged tiles take 135-204 KB of dynamic shared
+//   memory, one CTA an SM.
 // - the heaviest tiles launch first: under causal masking the last query
 //   tiles (forward, dQ) and the first key tiles (dK/dV) do the most work.
-// - bfloat16 inputs (dQ) are widened to float32 as they are staged.
 // float32 stays on the CUDA cores rather than TF32 tensor cores, to keep
 // its results within 2e-5 (O, lse) and 1e-4 (gradients) of the plain
 // version's.
@@ -112,45 +122,22 @@
 namespace bigdl {
 namespace {
 
-constexpr int kD = 64;            // head_dim the kernels are built for
 constexpr int kT = 64;            // rows of a query tile and of a key tile
 constexpr int kThreads = 256;
-constexpr int kStr = kD + 4;      // padded shared-memory row, in floats
-constexpr int kTile = kT * kStr;  // floats of one staged tile
-static_assert(kD == 64 && kT == 64 && kThreads == 256,
+static_assert(kT == 64 && kThreads == 256,
               "the thread-to-tile map assumes 16x16 threads on 64x64 tiles");
+
+// padded shared-memory row of a staged tile, and one staged tile, in floats
+__host__ __device__ constexpr int row_str(int d) { return d + 4; }
+__host__ __device__ constexpr int tile_floats(int d) {
+  return kT * row_str(d);
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<unsigned*>(&a);
-  u.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// x as the product's operand in the input type: bfloat16 rounds
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float comp(const float4& x, int c) {
@@ -170,30 +157,32 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + kT) of a (S, kD) matrix as float32, zeros past S.
-template <typename T>
+// Stage rows [row0, row0 + kT) of a (S, D) matrix, zeros past S.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src, int row0,
-                                          int S) {
+                                          const float* __restrict__ src,
+                                          int row0, int S) {
 #pragma unroll
-  for (int it = 0; it < kT * kD / 4 / kThreads; ++it) {
+  for (int it = 0; it < kT * D / 4 / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) x = load4(src + (int64_t)(row0 + r) * kD + c);
-    store4(dst + r * kStr + c, x);
+    if (row0 + r < S) x = load4(src + (int64_t)(row0 + r) * D + c);
+    store4(dst + r * row_str(D) + c, x);
   }
 }
 
 // acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d]: a 64x64 tile of A.B^T
+template <int D>
 __device__ __forceinline__ void mm_abt(float (&acc)[4][4], const float* A,
                                        const float* B, int tx, int ty) {
+  constexpr int kStr = row_str(D);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
+  for (int d = 0; d < D; d += 4) {
     float4 a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + d);
@@ -211,9 +200,13 @@ __device__ __forceinline__ void mm_abt(float (&acc)[4][4], const float* A,
   }
 }
 
-// acc[i][e] += sum_c A[ty + 16i][c] * B[c][4tx + e]: a 64xD tile of A.B
-__device__ __forceinline__ void mm_ab(float (&acc)[4][4], const float* A,
-                                      const float* B, int tx, int ty) {
+// acc[i][4g + e] += sum_c A[ty + 16i][c] * B[c][64g + 4tx + e]: a 64xD
+// tile of A.B (A a 64x64 tile)
+template <int D>
+__device__ __forceinline__ void mm_ab(float (&acc)[4][D / 16],
+                                      const float* A, const float* B, int tx,
+                                      int ty) {
+  constexpr int kStr = row_str(D);
 #pragma unroll 2
   for (int c = 0; c < kT; c += 4) {
     float4 a[4];
@@ -221,24 +214,53 @@ __device__ __forceinline__ void mm_ab(float (&acc)[4][4], const float* A,
     for (int i = 0; i < 4; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
-      const float4 b = load4(B + (c + cc) * kStr + 4 * tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = comp(a[i], cc);
-        acc[i][0] = fmaf(w, b.x, acc[i][0]);
-        acc[i][1] = fmaf(w, b.y, acc[i][1]);
-        acc[i][2] = fmaf(w, b.z, acc[i][2]);
-        acc[i][3] = fmaf(w, b.w, acc[i][3]);
+      for (int g = 0; g < D / 64; ++g) {
+        const float4 b = load4(B + (c + cc) * kStr + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float w = comp(a[i], cc);
+          acc[i][4 * g] = fmaf(w, b.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(w, b.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(w, b.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(w, b.w, acc[i][4 * g + 3]);
+        }
       }
     }
   }
 }
 
-template <typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+// this thread's share of a 64xD tile, row i's values times mul[i], out to
+// rows row0 + ty + 16i below S of a (S, D) matrix
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[4][D / 16],
+                                           const float (&mul)[4], int row0,
+                                           int S, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r < S) {
+#pragma unroll
+      for (int g = 0; g < D / 64; ++g)
+        store4(dst + (int64_t)r * D + 64 * g + 4 * tx,
+               make_float4(acc[i][4 * g] * mul[i], acc[i][4 * g + 1] * mul[i],
+                           acc[i][4 * g + 2] * mul[i],
+                           acc[i][4 * g + 3] * mul[i]));
+    }
+  }
+}
+
+// CTAs an SM the float32 kernels budget registers for: two at D = 64, one
+// at D = 128 (whose staged tiles take 135-204 KB of shared memory)
+__host__ __device__ constexpr int cc_ctas(int d) { return d == 64 ? 2 : 1; }
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, cc_ctas(D))
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, float scale) {
+  constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + kTile;
@@ -248,26 +270,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nt = (S + kT - 1) / kT;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
   const int q0 = qt * kT;
-  const int64_t base = (int64_t)blockIdx.x * S * kD;
+  const int64_t base = (int64_t)blockIdx.x * S * D;
 
-  load_tile(qs, q + base, q0, S);
-  float m[4], l[4], acc[4][4];
+  load_tile<D>(qs, q + base, q0, S);
+  float m[4], l[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < D / 16; ++e) acc[i][e] = 0.f;
   }
 
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's P.V is done with ks, vs, ps
-    load_tile(ks, k + base, kt * kT, S);
-    load_tile(vs, v + base, kt * kT, S);
+    load_tile<D>(ks, k + base, kt * kT, S);
+    load_tile<D>(vs, v + base, kt * kT, S);
     __syncthreads();
     float s[4][4];
-    mm_abt(s, qs, ks, tx, ty);
+    mm_abt<D>(s, qs, ks, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -286,38 +308,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         psum += p;
-        ps[(ty + 16 * i) * kStr + tx + 16 * j] = round_to<T>(p);
+        ps[(ty + 16 * i) * kStr + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum(psum);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+      for (int e = 0; e < D / 16; ++e) acc[i][e] *= alpha;
       m[i] = m_new;
     }
     __syncthreads();
-    mm_ab(acc, ps, vs, tx, ty);
+    mm_ab<D>(acc, ps, vs, tx, ty);
   }
 
+  float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
-    if (r < S) {
-      const float ll = fmaxf(l[i], 1e-30f);
-      store4(o + base + (int64_t)r * kD + 4 * tx,
-             make_float4(acc[i][0] / ll, acc[i][1] / ll, acc[i][2] / ll,
-                         acc[i][3] / ll));
-      if (tx == 0) lse[(int64_t)blockIdx.x * S + r] = m[i] + logf(ll);
-    }
+    const float ll = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / ll;
+    if (r < S && tx == 0) lse[(int64_t)blockIdx.x * S + r] = m[i] + logf(ll);
   }
+  store_rows<D>(o + base, acc, inv, q0, S, tx, ty);
 }
 
-template <typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, cc_ctas(D))
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const float* __restrict__ dlse, T* __restrict__ dq, int S,
-                    float scale) {
+                    const float* __restrict__ dlse, float* __restrict__ dq,
+                    int S, float scale) {
+  constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* dos = qs + kTile;
@@ -328,12 +350,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nt = (S + kT - 1) / kT;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
   const int q0 = qt * kT;
-  const int64_t base = (int64_t)blockIdx.x * S * kD;
+  const int64_t base = (int64_t)blockIdx.x * S * D;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
-  load_tile(qs, q + base, q0, S);
-  load_tile(dos, dout + base, q0, S);
-  float lse_r[4], delta_r[4], dlse_r[4], acc[4][4];
+  load_tile<D>(qs, q + base, q0, S);
+  load_tile<D>(dos, dout + base, q0, S);
+  float lse_r[4], delta_r[4], dlse_r[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -342,18 +364,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta_r[i] = in ? delta[rbase + r] : 0.f;
     dlse_r[i] = in && dlse != nullptr ? dlse[rbase + r] : 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < D / 16; ++e) acc[i][e] = 0.f;
   }
 
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's dS.K is done with ks, vs, dss
-    load_tile(ks, k + base, kt * kT, S);
-    load_tile(vs, v + base, kt * kT, S);
+    load_tile<D>(ks, k + base, kt * kT, S);
+    load_tile<D>(vs, v + base, kt * kT, S);
     __syncthreads();
     float s[4][4], dp[4][4];
-    mm_abt(s, qs, ks, tx, ty);
-    mm_abt(dp, dos, vs, tx, ty);
+    mm_abt<D>(s, qs, ks, tx, ty);
+    mm_abt<D>(dp, dos, vs, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -362,31 +384,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = kt * kT + tx + 16 * j;
         const bool seen = c < S && (!CAUSAL || c <= r);
         const float p = expf((seen ? s[i][j] * scale : kNegInf) - lse_r[i]);
-        const float ds = p * (dp[i][j] - delta_r[i] + dlse_r[i]) * scale;
-        dss[(ty + 16 * i) * kStr + tx + 16 * j] = round_to<T>(ds);
+        dss[(ty + 16 * i) * kStr + tx + 16 * j] =
+            p * (dp[i][j] - delta_r[i] + dlse_r[i]) * scale;
       }
     }
     __syncthreads();
-    mm_ab(acc, dss, ks, tx, ty);
+    mm_ab<D>(acc, dss, ks, tx, ty);
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < S)
-      store4(dq + base + (int64_t)r * kD + 4 * tx,
-             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<D>(dq + base, acc, one, q0, S, tx, ty);
 }
 
-template <typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, cc_ctas(D))
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const float* __restrict__ dlse, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, float scale) {
+                     const float* __restrict__ dlse, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, float scale) {
+  constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
   float* vs = ks + kTile;
@@ -400,22 +419,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int nt = (S + kT - 1) / kT;
   const int k0 = blockIdx.y * kT;  // causal: the first key tiles do the most
-  const int64_t base = (int64_t)blockIdx.x * S * kD;
+  const int64_t base = (int64_t)blockIdx.x * S * D;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
-  load_tile(ks, k + base, k0, S);
-  load_tile(vs, v + base, k0, S);
-  float dk_acc[4][4], dv_acc[4][4];
+  load_tile<D>(ks, k + base, k0, S);
+  load_tile<D>(vs, v + base, k0, S);
+  float dk_acc[4][D / 16], dv_acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+    for (int e = 0; e < D / 16; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   for (int qt = CAUSAL ? blockIdx.y : 0; qt < nt; ++qt) {
     const int q0 = qt * kT;
     __syncthreads();  // the previous tile's products are done with its tiles
-    load_tile(qs, q + base, q0, S);
-    load_tile(dos, dout + base, q0, S);
+    load_tile<D>(qs, q + base, q0, S);
+    load_tile<D>(dos, dout + base, q0, S);
     if (threadIdx.x < kT) {
       const int r = q0 + threadIdx.x;
       const bool in = r < S;
@@ -426,7 +445,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     // transposed tiles: rows are keys (ty + 16i), columns queries (tx + 16j)
     float p[4][4], dp[4][4];
-    mm_abt(p, ks, qs, tx, ty);
+    mm_abt<D>(p, ks, qs, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = k0 + ty + 16 * i;
@@ -436,40 +455,32 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool seen = r < S && c < S && (!CAUSAL || c <= r);
         const float sv = seen ? p[i][j] * scale : kNegInf;
         p[i][j] = expf(sv - lse_s[tx + 16 * j]);
-        ps[(ty + 16 * i) * kStr + tx + 16 * j] = round_to<T>(p[i][j]);
+        ps[(ty + 16 * i) * kStr + tx + 16 * j] = p[i][j];
       }
     }
-    mm_abt(dp, vs, dos, tx, ty);
+    mm_abt<D>(dp, vs, dos, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = tx + 16 * j;
-        const float ds =
+        dss[(ty + 16 * i) * kStr + r] =
             p[i][j] * (dp[i][j] - delta_s[r] + dlse_s[r]) * scale;
-        dss[(ty + 16 * i) * kStr + r] = round_to<T>(ds);
       }
     __syncthreads();
-    mm_ab(dv_acc, ps, dos, tx, ty);
-    mm_ab(dk_acc, dss, qs, tx, ty);
+    mm_ab<D>(dv_acc, ps, dos, tx, ty);
+    mm_ab<D>(dk_acc, dss, qs, tx, ty);
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c < S) {
-      const int64_t at = base + (int64_t)c * kD + 4 * tx;
-      store4(dk + at, make_float4(dk_acc[i][0], dk_acc[i][1], dk_acc[i][2],
-                                  dk_acc[i][3]));
-      store4(dv + at, make_float4(dv_acc[i][0], dv_acc[i][1], dv_acc[i][2],
-                                  dv_acc[i][3]));
-    }
-  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<D>(dk + base, dk_acc, one, k0, S, tx, ty);
+  store_rows<D>(dv + base, dv_acc, one, k0, S, tx, ty);
 }
 
 // ------------------------------------------------- the tensor-core path --
 constexpr int kTcThreads = 256;  // two warpgroups of 64 tile rows each
 constexpr int kFwdBM = 128;      // forward: query rows of a CTA
+constexpr int kDqBM = 128;       // dQ: query rows of a CTA
 constexpr int kDkvBK = 128;      // dK/dV: key rows of a CTA
 constexpr int kDkvBQ = 64;       // dK/dV: query rows of a ring stage
 constexpr int kTcStages = 2;     // ring depth
@@ -481,6 +492,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // floats at D = 64, 32 + 64 at D = 128)
 __host__ __device__ constexpr int fwd_bn(int d) { return d == 64 ? 128 : 64; }
 
+// dQ: keys of a ring stage (S, dP and dQ accumulators of a thread: 64 + 64
+// + 32 floats at D = 64, 32 + 32 + 64 at D = 128)
+__host__ __device__ constexpr int dq_bn(int d) { return d == 64 ? 128 : 64; }
+
 // bytes of a tile of `rows` bf16 rows of d values
 __host__ __device__ constexpr int tile_bytes(int rows, int d) {
   return rows * d * 2;
@@ -489,6 +504,7 @@ __host__ __device__ constexpr int tile_bytes(int rows, int d) {
 // Dynamic shared memory of one CTA: 1 KiB of slack to align the tiles to
 // the 1024-byte swizzle atom, then
 //   forward: the Q tile and kTcStages stages of (K, V) tiles;
+//   dQ:      the Q and dO tiles and kTcStages stages of (K, V) tiles;
 //   dK/dV:   the K and V tiles, kTcStages stages of (Q, dO) tiles, and
 //            kTcStages stages of the lse, delta and dlse rows.
 // ops/flash_attention.py's `tc_plan` mirrors it for the host.
@@ -496,11 +512,16 @@ __host__ __device__ constexpr int fwd_tc_smem(int d) {
   return 1024 + tile_bytes(kFwdBM, d) +
          kTcStages * 2 * tile_bytes(fwd_bn(d), d);
 }
+__host__ __device__ constexpr int dq_tc_smem(int d) {
+  return 1024 + 2 * tile_bytes(kDqBM, d) +
+         kTcStages * 2 * tile_bytes(dq_bn(d), d);
+}
 __host__ __device__ constexpr int dkv_tc_smem(int d) {
   return 1024 + 2 * tile_bytes(kDkvBK, d) +
          kTcStages * (2 * tile_bytes(kDkvBQ, d) + 3 * kDkvBQ * 4);
 }
-static_assert(fwd_tc_smem(128) <= kMaxSmem && dkv_tc_smem(128) <= kMaxSmem,
+static_assert(fwd_tc_smem(128) <= kMaxSmem && dq_tc_smem(128) <= kMaxSmem &&
+                  dkv_tc_smem(128) <= kMaxSmem,
               "a CTA's tiles must fit its shared memory");
 
 // byte offset of the 16-byte chunk holding columns c .. c + 7 (c % 8 == 0)
@@ -926,6 +947,149 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   store_acc<kDkvBK, D>(dv_acc, 1.f, 1.f, v_tile, dv + base, wk0, S);
 }
 
+// One CTA per (b*h, query tile of kDqBM rows); warpgroup g owns rows
+// 64g .. 64g + 63. scale_log2 = scale * log2(e).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ dlse,
+                       __nv_bfloat16* __restrict__ dq, int S, float scale,
+                       float scale_log2) {
+  constexpr int BN = dq_bn(D);
+  constexpr int kQ = tile_bytes(kDqBM, D);
+  constexpr int kKV = tile_bytes(BN, D);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_tile = smem;
+  const uint32_t q_s = smem_u32(q_tile), do_s = q_s + kQ;
+  const uint32_t kv_s = do_s + kQ;  // stage st: K at + 2 st kKV, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int nq = (S + kDqBM - 1) / kDqBM;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kDqBM;  // heaviest first
+  const int wq0 = q0 + 64 * wg;    // this warpgroup's first query row
+  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int64_t rbase = (int64_t)blockIdx.x * S;
+  const int nkt = (S + BN - 1) / BN;
+  const int nk = CAUSAL ? min(nkt, (q0 + kDqBM + BN - 1) / BN) : nkt;
+  const int nk_wg = CAUSAL ? min(nk, (wq0 + 64 + BN - 1) / BN) : nk;
+  // this thread's accumulator rows and the first of its column pairs
+  const int r_a = wq0 + 16 * ((tid >> 5) & 3) + (lane >> 2), r_b = r_a + 8;
+  const int c_lane = 2 * (lane & 3);
+
+  load_tile_async<kDqBM, D>(q_s, q + base, q0, S);
+  load_tile_async<kDqBM, D>(do_s, dout + base, q0, S);
+  load_tile_async<BN, D>(kv_s, k + base, 0, S);
+  load_tile_async<BN, D>(kv_s + kKV, v + base, 0, S);
+  cp_async_commit();
+
+  // the rows' lse (log2 domain), delta and dlse; rows past S read nothing
+  float ll_a = 0.f, ll_b = 0.f, dl_a = 0.f, dl_b = 0.f, g_a = 0.f, g_b = 0.f;
+  if (r_a < S) {
+    ll_a = lse[rbase + r_a] * kLog2e;
+    dl_a = delta[rbase + r_a];
+    if (dlse != nullptr) g_a = dlse[rbase + r_a];
+  }
+  if (r_b < S) {
+    ll_b = lse[rbase + r_b] * kLog2e;
+    dl_b = delta[rbase + r_b];
+    if (dlse != nullptr) g_b = dlse[rbase + r_b];
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();   // tile kt has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();      // everyone's; tile kt - 1's stage is free
+    if (kt + 1 < nk) {
+      const uint32_t st = kv_s + ((kt + 1) & 1) * 2 * kKV;
+      load_tile_async<BN, D>(st, k + base, (kt + 1) * BN, S);
+      load_tile_async<BN, D>(st + kKV, v + base, (kt + 1) * BN, S);
+    }
+    cp_async_commit();
+    if (kt >= nk_wg) continue;    // above this warpgroup's diagonal
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kKV, v_s = k_s + kKV;
+    const int k0 = kt * BN;
+
+    // S = Q . K^T
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<0>(s, desc_k(q_s, kDqBM, 64 * wg, ks), desc_k(k_s, BN, 0, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // P = exp(S * scale - lse), masked before the exp2
+    const bool masked = (CAUSAL && k0 + BN - 1 > wq0) || k0 + BN > S;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float xa = s[4 * j + e] * scale_log2;
+        float xb = s[4 * j + 2 + e] * scale_log2;
+        if (masked) {
+          const int c = k0 + 8 * j + c_lane + e;
+          if (c >= S || (CAUSAL && c > r_a)) xa = kNegInf;
+          if (c >= S || (CAUSAL && c > r_b)) xb = kNegInf;
+        }
+        s[4 * j + e] = exp2f(xa - ll_a);
+        s[4 * j + 2 + e] = exp2f(xb - ll_b);
+      }
+
+    // dP = dO . V^T
+    float dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<0>(dp, desc_k(do_s, kDqBM, 64 * wg, ks),
+                  desc_k(v_s, BN, 0, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dp);
+
+    // dS = P * (dP - delta + dlse) * scale
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl_a + g_a) * scale;
+        s[4 * j + 2 + e] =
+            s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl_b + g_b) * scale;
+      }
+
+    // dQ += bf16(dS) . K, dS from registers, K read MN-major
+    uint32_t df[BN / 16][4];
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t) to_a_frag(df[t], s, t);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t)
+      wgmma_rs<1>(acc, df[t], desc_mn(k_s, BN, t));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // Q's rows of this warpgroup are read by no one now
+  store_acc<kDqBM, D>(acc, 1.f, 1.f, q_tile, dq + base, wq0, S);
+}
+
 template <typename K, typename... Args>
 cudaError_t launch_tc(K kernel, int smem, dim3 grid, cudaStream_t stream,
                       Args... args) {
@@ -953,6 +1117,24 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
+cudaError_t dq_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const float* dlse, void* dq, int BH, int S, float scale,
+                  bool causal, cudaStream_t st) {
+  const dim3 grid(BH, (S + kDqBM - 1) / kDqBM);
+  const float sl = scale * kLog2e;
+  return causal
+             ? launch_tc(flash_bwd_dq_tc_kernel<D, true>, dq_tc_smem(D), grid,
+                         st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                         (const bf16*)dout, lse, delta, dlse, (bf16*)dq, S,
+                         scale, sl)
+             : launch_tc(flash_bwd_dq_tc_kernel<D, false>, dq_tc_smem(D),
+                         grid, st, (const bf16*)q, (const bf16*)k,
+                         (const bf16*)v, (const bf16*)dout, lse, delta, dlse,
+                         (bf16*)dq, S, scale, sl);
+}
+
+template <int D>
 cudaError_t dkv_tc(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* dlse, void* dk, void* dv, int BH, int S,
@@ -970,18 +1152,26 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v,
                          (bf16*)dk, (bf16*)dv, S, scale, sl);
 }
 
-// the shape checks both tensor-core entries share; 0 means launch
+// the shape checks every tensor-core entry shares; 0 means launch
 int check_tc_shape(int S, int D) {
   if ((D != 64 && D != 128) || (S + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// dynamic shared memory of each kernel, in bytes (all above the 48 KB a
-// launch gets without opting in)
-constexpr int kFwdSmem = 4 * kTile * (int)sizeof(float);
-constexpr int kDqSmem = 5 * kTile * (int)sizeof(float);
-constexpr int kDkvSmem = (6 * kTile + 3 * kT) * (int)sizeof(float);
+// dynamic shared memory of each CUDA-core kernel, in bytes (all above the
+// 48 KB a launch gets without opting in)
+__host__ __device__ constexpr int fwd_smem(int d) {
+  return 4 * tile_floats(d) * (int)sizeof(float);
+}
+__host__ __device__ constexpr int dq_smem(int d) {
+  return 5 * tile_floats(d) * (int)sizeof(float);
+}
+__host__ __device__ constexpr int dkv_smem(int d) {
+  return (6 * tile_floats(d) + 3 * kT) * (int)sizeof(float);
+}
+static_assert(dkv_smem(128) <= kMaxSmem,
+              "a CTA's staged tiles must fit its shared memory");
 
 template <typename K, typename... Args>
 cudaError_t launch(K kernel, int smem, int BH, int S, cudaStream_t stream,
@@ -994,38 +1184,68 @@ cudaError_t launch(K kernel, int smem, int BH, int S, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// the shape checks every CUDA-core entry shares; 0 means launch. Only dQ
-// takes bfloat16 here: the bfloat16 forward and dK/dV are the tensor-core
-// entries'.
-int check_shape(int S, int D, int dtype, bool takes_bf16) {
-  if (D != kD || !(dtype == kF32 || (takes_bf16 && dtype == kBF16)) ||
-      (S + kT - 1) / kT > 65535)
+// the shape checks every CUDA-core entry shares (float32 at D = 64 or
+// 128; bfloat16 is the tensor-core entries'); 0 means launch
+int check_shape(int S, int D, int dtype) {
+  if ((D != 64 && D != 128) || dtype != kF32 || (S + kT - 1) / kT > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+template <int D>
+cudaError_t fwd_cc(const float* q, const float* k, const float* v, float* o,
+                   float* lse, int BH, int S, float scale, bool causal,
+                   cudaStream_t st) {
+  return causal ? launch(flash_fwd_kernel<D, true>, fwd_smem(D), BH, S, st,
+                         q, k, v, o, lse, S, scale)
+                : launch(flash_fwd_kernel<D, false>, fwd_smem(D), BH, S, st,
+                         q, k, v, o, lse, S, scale);
+}
+
+template <int D>
+cudaError_t dq_cc(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  const float* dlse, float* dq, int BH, int S, float scale,
+                  bool causal, cudaStream_t st) {
+  return causal ? launch(flash_bwd_dq_kernel<D, true>, dq_smem(D), BH, S, st,
+                         q, k, v, dout, lse, delta, dlse, dq, S, scale)
+                : launch(flash_bwd_dq_kernel<D, false>, dq_smem(D), BH, S,
+                         st, q, k, v, dout, lse, delta, dlse, dq, S, scale);
+}
+
+template <int D>
+cudaError_t dkv_cc(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   const float* dlse, float* dk, float* dv, int BH, int S,
+                   float scale, bool causal, cudaStream_t st) {
+  return causal
+             ? launch(flash_bwd_dkv_kernel<D, true>, dkv_smem(D), BH, S, st,
+                      q, k, v, dout, lse, delta, dlse, dk, dv, S, scale)
+             : launch(flash_bwd_dkv_kernel<D, false>, dkv_smem(D), BH, S, st,
+                      q, k, v, dout, lse, delta, dlse, dk, dv, S, scale);
 }
 
 }  // namespace
 }  // namespace bigdl
 
-// All tensors contiguous: q, k, v, o, dout, dq, dk, dv (B*H, S, D) of
-// `dtype` (0 float32; 1 bfloat16, dQ only), 16-byte aligned; lse, delta,
-// dlse (B*H, S) float32, dlse may be null (zero). D must be 64. causal: 0
-// or 1. Each returns the cudaError_t of its launch (0 on success).
+// The CUDA-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D) float32
+// (`dtype` must be 0), 16-byte aligned, D = 64 or 128; lse, delta, dlse
+// (B*H, S) float32, dlse may be null (zero). causal: 0 or 1. Each returns
+// the cudaError_t of its launch (0 on success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int BH, int S, int D,
                                float scale, int causal, int dtype,
                                void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype, false)) return bad;
+  if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  const float *fq = (const float*)q, *fk = (const float*)k,
+              *fv = (const float*)v;
+  const bool c = causal != 0;
   const cudaError_t err =
-      causal ? launch(flash_fwd_kernel<float, true>, kFwdSmem, BH, S, st,
-                      (const float*)q, (const float*)k, (const float*)v,
-                      (float*)o, lse, S, scale)
-             : launch(flash_fwd_kernel<float, false>, kFwdSmem, BH, S, st,
-                      (const float*)q, (const float*)k, (const float*)v,
-                      (float*)o, lse, S, scale);
+      D == 64 ? fwd_cc<64>(fq, fk, fv, (float*)o, lse, BH, S, scale, c, st)
+              : fwd_cc<128>(fq, fk, fv, (float*)o, lse, BH, S, scale, c, st);
   return (int)err;
 }
 
@@ -1035,27 +1255,17 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   void* dq, int BH, int S, int D, float scale,
                                   int causal, int dtype, void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype, true)) return bad;
+  if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == kF32) {
-    using T = float;
-    err = causal ? launch(flash_bwd_dq_kernel<T, true>, kDqSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dq, S, scale)
-                 : launch(flash_bwd_dq_kernel<T, false>, kDqSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dq, S, scale);
-  } else {
-    using T = __nv_bfloat16;
-    err = causal ? launch(flash_bwd_dq_kernel<T, true>, kDqSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dq, S, scale)
-                 : launch(flash_bwd_dq_kernel<T, false>, kDqSmem, BH, S, st,
-                          (const T*)q, (const T*)k, (const T*)v,
-                          (const T*)dout, lse, delta, dlse, (T*)dq, S, scale);
-  }
+  const float *fq = (const float*)q, *fk = (const float*)k,
+              *fv = (const float*)v, *fdo = (const float*)dout;
+  const bool c = causal != 0;
+  const cudaError_t err =
+      D == 64 ? dq_cc<64>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dq, BH,
+                          S, scale, c, st)
+              : dq_cc<128>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dq, BH,
+                           S, scale, c, st);
   return (int)err;
 }
 
@@ -1066,26 +1276,25 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
                                    int BH, int S, int D, float scale,
                                    int causal, int dtype, void* stream) {
   using namespace bigdl;
-  if (int bad = check_shape(S, D, dtype, false)) return bad;
+  if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  const float *fq = (const float*)q, *fk = (const float*)k,
+              *fv = (const float*)v, *fdo = (const float*)dout;
+  const bool c = causal != 0;
   const cudaError_t err =
-      causal ? launch(flash_bwd_dkv_kernel<float, true>, kDkvSmem, BH, S, st,
-                      (const float*)q, (const float*)k, (const float*)v,
-                      (const float*)dout, lse, delta, dlse, (float*)dk,
-                      (float*)dv, S, scale)
-             : launch(flash_bwd_dkv_kernel<float, false>, kDkvSmem, BH, S,
-                      st, (const float*)q, (const float*)k, (const float*)v,
-                      (const float*)dout, lse, delta, dlse, (float*)dk,
-                      (float*)dv, S, scale);
+      D == 64 ? dkv_cc<64>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dk,
+                           (float*)dv, BH, S, scale, c, st)
+              : dkv_cc<128>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dk,
+                            (float*)dv, BH, S, scale, c, st);
   return (int)err;
 }
 
-// The tensor-core entries: q, k, v, o, dout, dk, dv (B*H, S, D) bfloat16,
-// lse, delta, dlse as above; D = 64 or 128. Each picks its own tiles and
-// dynamic shared memory from (B*H, S, D) (fwd_tc_smem, dkv_tc_smem; above
-// the 48 KB a launch gets without opting in) and returns the cudaError_t of
-// its launch (0 on success).
+// The tensor-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D)
+// bfloat16, lse, delta, dlse as above; D = 64 or 128. Each picks its own
+// tiles and dynamic shared memory from (B*H, S, D) (fwd_tc_smem,
+// dq_tc_smem, dkv_tc_smem; above the 48 KB a launch gets without opting
+// in) and returns the cudaError_t of its launch (0 on success).
 extern "C" int bigdl_flash_fwd_tc(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int BH, int S, int D,
                                   float scale, int causal, void* stream) {
@@ -1096,6 +1305,25 @@ extern "C" int bigdl_flash_fwd_tc(const void* q, const void* k, const void* v,
   const cudaError_t err =
       D == 64 ? fwd_tc<64>(q, k, v, o, lse, BH, S, scale, causal != 0, st)
               : fwd_tc<128>(q, k, v, o, lse, BH, S, scale, causal != 0, st);
+  return (int)err;
+}
+
+extern "C" int bigdl_flash_bwd_dq_tc(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     const float* dlse, void* dq, int BH,
+                                     int S, int D, float scale, int causal,
+                                     void* stream) {
+  using namespace bigdl;
+  if (int bad = check_tc_shape(S, D)) return bad;
+  if (BH <= 0 || S <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  const cudaError_t err =
+      D == 64 ? dq_tc<64>(q, k, v, dout, lse, delta, dlse, dq, BH, S, scale,
+                          c, st)
+              : dq_tc<128>(q, k, v, dout, lse, delta, dlse, dq, BH, S, scale,
+                           c, st);
   return (int)err;
 }
 

@@ -19,74 +19,141 @@
 // (`k.astype(f32) * ks[..., None]`), one rounding, same as the plain version.
 //
 // What bounds it: bytes at decode (C = 1). Each query row does 4*D flops
-// per visible key against 2*D*elt bytes of K/V (2*(D+4) for int8), far below the card's ~20
-// flops/byte (fp32 CUDA cores) or ~295 (bf16 tensor cores) balance point.
-// The floor is one read of every visible K/V page over HBM. A 64-query
-// prefill chunk shares each page among its queries and, in float32, crosses
-// over to operations.
+// per visible key against 2*D*elt bytes of K/V (2*(D+4) for int8), far below
+// the card's ~20 flops/byte (fp32 CUDA cores) or ~295 (bf16 tensor cores)
+// balance point. The floor is one read of every visible K/V page over HBM.
+// A 64-query prefill chunk shares each page among its queries and, in
+// float32, crosses over to operations.
 //
 // What the design does about it:
 // - no dense gather: K/V pages are read straight through the page table;
 //   a sentinel entry (>= num_pages) is skipped without being read (the TPU
-//   kernel clamps it to page N-1, fetches it and masks it out);
-// - the page walk stops at the last page the CTA's queries can see,
-//   ceil((start + last query + 1) / page_size), instead of walking the
-//   table's full width as the TPU grid does;
-// - one CTA per (slot, head, tile of up to 16 queries); its 4 warps split
-//   the pages round-robin, each warp keeping its own online-softmax state
-//   (m, l, acc in fp32 registers) and staging its page's K and V tile in its
-//   own shared-memory slot, so no block-wide barrier sits in the page loop
-//   (flash-decoding inside one CTA). The warps' states merge once, at the
-//   end, through shared memory;
-// - an int8 page is read as 4-byte char4 vectors (1 KiB of K and 1 KiB of V
-//   at PS 16, D 64) with its 2 x 16 scales staged in the warp's slot, and
-//   dequantised into the same float32 tile the float pools use, so an int8
-//   pool moves (D + 4) / (4 D) of a float32 pool's bytes and the rest of
-//   the kernel is unchanged;
-// - per page tile, lanes map to keys (32 / page_size lanes split one key's
-//   dot product), so a page's scores need one shuffle step, and each lane
-//   owns D / 32 output dims for the P.V update. Pages of 8, 16 and 32
-//   tokens are instantiated at D 64. The page tiles and the warp merge
-//   share one buffer, static where it fits (PS 8 and 16); at PS 32 the
-//   four warps' K and V tiles take 65 KiB, over the 48 KiB of static
-//   shared memory, so that instantiation takes it as dynamic shared
-//   memory. The others keep it static: on an H100 their decode case ran
-//   slower with a dynamic buffer.
-// The simple first version has no cp.async/TMA double buffering: a warp
-// loads its page, then computes on it. Inputs may be float32 or bfloat16;
-// all arithmetic is float32. Pool offsets are 64-bit.
+//   kernel clamps it to page N-1, fetches it and masks it out), and the
+//   walk stops at the last page the CTA's queries can see,
+//   ceil((start + last query + 1) / page_size);
+// - the walk of one (slot, head, query tile) is split across a cluster of
+//   kSplit CTAs: CTA r walks the r-th run of ceil(pages / kSplit) pages.
+//   The split depends on the row alone (its start, the tile and the page
+//   size), never on B, H or the card, so a head-sharded launch (tp) does
+//   for each (slot, head) exactly what the unsharded one does, and a call
+//   repeats bit for bit. At the decode case this turns the longest row's
+//   63 pages on one CTA into 8 on each of 8 CTAs;
+// - the slot's start, its page-table row and the queries are read at
+//   once; then the CTA's pages stream through a ring of kStages pages in
+//   shared memory, 16-byte cp.async copies by all 128 threads (int8 pages
+//   and their scale rows too, in the pool's own type): the first kStages
+//   pages in flight together, each stage refilled as soon as every warp
+//   is done with it;
+// - each staged page is read by all four warps. Decode (one query): warp w
+//   scores keys [w*PS/4, (w+1)*PS/4) of each page, 128/PS lanes to a key,
+//   and keeps its own online-softmax state (m, l, acc in fp32 registers).
+//   Chunk (a tile of 16 queries): warp w owns queries 4w .. 4w + 3 and
+//   scores every key of the page, 32/PS lanes to a key, each K value read
+//   once from shared memory for its four queries. A lane owns D/32 output
+//   dims for the P.V update, the weights broadcast by shuffles. Staged rows
+//   are padded by 16 bytes, so a quarter-warp's 16-byte reads of a key
+//   split over lanes hit distinct banks;
+// - merge: each warp leaves its (m, l, acc) in its CTA's shared memory;
+//   after a cluster barrier the CTA of rank q % kSplit merges query q of
+//   the tile over the cluster's states through distributed shared memory
+//   in a fixed order (ranks, then warps), and writes it. One launch, no
+//   global scratch, no atomics;
+// - pages of 8, 16 and 32 tokens are instantiated at D 64; all shared
+//   memory is dynamic (14-78 KB at tables of 64 entries).
+// Inputs may be float32 or bfloat16; all arithmetic is float32 on the CUDA
+// cores. Pool offsets are 64-bit.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace bigdl {
 namespace {
 
-constexpr int kWarps = 4;
+namespace cg = cooperative_groups;
 
-// floats of the kernel's buffer: the warps' padded K and V page tiles,
-// reused for the warps' merge at the end
-template <int PS, int D, int QT>
-__host__ __device__ constexpr int buffer_floats() {
-  return kWarps * 2 * PS * (D + 1) > kWarps * QT * (D + 2)
-             ? kWarps * 2 * PS * (D + 1)
-             : kWarps * QT * (D + 2);
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kSplit = 8;     // CTAs of a cluster: splits of one page walk
+constexpr int kStages = 4;    // pages in the ring
+constexpr int kQT = 16;       // queries of a chunk CTA
+constexpr int kPad = 16;      // bytes after each staged row
+
+// one ring stage: the page's K rows, its V rows (each D values of the
+// pool's type and kPad bytes), then for int8 its K and V scale rows
+template <typename KV, int PS, int D>
+struct Stage {
+  static constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  static constexpr int kRow = D * (int)sizeof(KV) + kPad;
+  static constexpr int kPlane = PS * kRow;
+  static constexpr int kBytes = 2 * kPlane + (kInt8 ? 2 * PS * 4 : 0);
+};
+
+// dynamic shared memory of a CTA: the ring, the queries (float32), the
+// warps' partial states (QT == 1: one per warp; else one per query) and
+// the slot's row of the page table (P entries, rounded up to 16 bytes)
+template <typename KV, int PS, int D, int QT>
+__host__ __device__ constexpr int smem_bytes(int P) {
+  return kStages * Stage<KV, PS, D>::kBytes + QT * D * 4 +
+         (QT == 1 ? kWarps : QT) * (D + 2) * 4 + (P * 4 + 15) / 16 * 16;
 }
 
-// bytes of dynamic shared memory the kernel takes: the buffer where it
-// does not fit in static shared memory beside q_s and sc_s, else none
-template <int PS, int D, int QT>
-__host__ __device__ constexpr int dynamic_bytes() {
-  return buffer_floats<PS, D, QT>() * 4 > 40 * 1024
-             ? buffer_floats<PS, D, QT>() * 4
-             : 0;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 ld4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+
+// Page `page_head` (= page * H + h) of the pools (and its scale rows) into
+// the ring stage at `dst`: every thread its share of 16-byte copies.
+template <typename KV, int PS, int D>
+__device__ __forceinline__ void stage_page(
+    uint32_t dst, const KV* __restrict__ kpool, const KV* __restrict__ vpool,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
+    int64_t page_head) {
+  using St = Stage<KV, PS, D>;
+  constexpr int kRowChunks = D * (int)sizeof(KV) / 16;
+  constexpr int kChunks = PS * kRowChunks;  // of one plane
+  const char* kp =
+      reinterpret_cast<const char*>(kpool + page_head * (PS * D));
+  const char* vp =
+      reinterpret_cast<const char*>(vpool + page_head * (PS * D));
+  for (int i = threadIdx.x; i < 2 * kChunks; i += kThreads) {
+    const int plane = i / kChunks, j = i - plane * kChunks;
+    const int r = j / kRowChunks, c = j - r * kRowChunks;
+    cp_async16(dst + plane * St::kPlane + r * St::kRow + c * 16,
+               (plane ? vp : kp) + j * 16, true);
+  }
+  if constexpr (St::kInt8) {
+    constexpr int kScChunks = PS * 4 / 16;  // of one scale row
+    if (threadIdx.x < 2 * kScChunks) {
+      const int plane = threadIdx.x / kScChunks;
+      const int c = threadIdx.x - plane * kScChunks;
+      cp_async16(dst + 2 * St::kPlane + plane * PS * 4 + c * 16,
+                 (plane ? vscale : kscale) + page_head * PS + c * 4, true);
+    }
+  }
 }
 
 // T: the queries' and output's type; KV: the pool's (T, or int8_t with the
-// scale planes kscale/vscale, which are null for a float pool)
+// scale planes kscale/vscale, which are null for a float pool). QT = 1 is
+// decode; grid (kSplit, B*H, query tiles), one cluster per (slot, head,
+// tile).
 template <typename T, typename KV, int PS, int D, int QT>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
                        const KV* __restrict__ vpool,
                        const float* __restrict__ kscale,
@@ -94,169 +161,211 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
                        const int* __restrict__ table,
                        const int* __restrict__ start, T* __restrict__ out,
                        int H, int C, int N, int P, float sm_scale) {
-  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  static_assert(32 % PS == 0 && D % 32 == 0, "unsupported tile");
-  constexpr int LPK = 32 / PS;  // lanes sharing one key's dot product
-  constexpr int DK = D / LPK;   // dims of that dot product per lane
-  constexpr int DV = D / 32;    // output dims per lane
-  constexpr int KSTR = D + 1;   // padded row: conflict-free key-major reads
+  using St = Stage<KV, PS, D>;
+  constexpr bool kDecode = QT == 1;
+  constexpr int KW = kDecode ? PS / kWarps : PS;  // keys a warp scores
+  constexpr int LPK = 32 / KW;   // lanes sharing one key's dot product
+  constexpr int DK = D / LPK;    // dims of that dot product per lane
+  constexpr int NQW = kDecode ? 1 : QT / kWarps;  // queries a warp owns
+  constexpr int DV = D / 32;     // output dims per lane
+  constexpr int kParts = kDecode ? kWarps : 1;    // states a query has a CTA
+  static_assert(KW >= 1 && 32 % KW == 0 && DK % 4 == 0 && D % 32 == 0 &&
+                    (kDecode || QT % kWarps == 0),
+                "unsupported tile");
 
-  __shared__ float q_s[QT][D];
-  // page tiles, then the warp merge: static, or dynamic where too large
-  constexpr bool kDynamic = dynamic_bytes<PS, D, QT>() > 0;
-  __shared__ float smem_static[kDynamic ? 1 : buffer_floats<PS, D, QT>()];
-  extern __shared__ float smem_dynamic[];
-  float* smem = kDynamic ? smem_dynamic : smem_static;
-  __shared__ float sc_s[kWarps][2][PS];  // int8: the page's K, V scales
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  float* q_s = reinterpret_cast<float*>(smem + kStages * St::kBytes);
+  float* part = q_s + QT * D;    // partial states: [row][m, l, acc[D]]
+  int* pages_s = reinterpret_cast<int*>(part + (kDecode ? kWarps : QT) *
+                                        (D + 2));  // the table row
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int c0 = blockIdx.y * QT;
+  const int c0 = blockIdx.z * QT;
   const int nq = min(QT, C - c0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const int64_t q_base = ((int64_t)bh * C + c0) * D;
-  for (int i = threadIdx.x; i < nq * D; i += blockDim.x)
-    q_s[i / D][i % D] = to_f(q[q_base + i]);
-  __syncthreads();
-
+  // the row's start, its table row and the queries, all read at once
   const int st = start[b];
-  // last page any of this tile's queries can see
+  const int* row_table = table + (int64_t)b * P;
+  for (int i = threadIdx.x; i < P; i += kThreads) pages_s[i] = row_table[i];
+  const int64_t q_base = ((int64_t)bh * C + c0) * D;
+  for (int i = threadIdx.x; i < QT * D; i += kThreads)
+    q_s[i] = i < nq * D ? to_f(q[q_base + i]) : 0.f;
+  __syncthreads();
+  // pages this tile's queries can see, and this CTA's run of them
   const int npages = min(P, (st + c0 + nq - 1) / PS + 1);
+  const int per = (npages + kSplit - 1) / kSplit;
+  const int p0 = min(npages, rank * per);
+  const int n = min(npages, p0 + per) - p0;
 
-  float m[QT], l[QT], acc[QT][DV];
+  float m[NQW], l[NQW], acc[NQW][DV];
 #pragma unroll
-  for (int qi = 0; qi < QT; ++qi) {
+  for (int qi = 0; qi < NQW; ++qi) {
     m[qi] = kNegInf;
     l[qi] = 0.f;
 #pragma unroll
     for (int e = 0; e < DV; ++e) acc[qi][e] = 0.f;
   }
 
-  float* ks = smem + warp * 2 * PS * KSTR;
-  float* vs = ks + PS * KSTR;
-  const int key = lane / LPK;
-  const int part = lane % LPK;
-  const int* row_table = table + (int64_t)b * P;
+  const int kk = (kDecode ? warp * KW : 0) + lane / LPK;  // this lane's key
+  const int sub = lane % LPK;
+  const int kw0 = kDecode ? warp * KW : 0;   // the warp's first key
+  const int wq0 = kDecode ? 0 : warp * NQW;  // the warp's first query
+  const uint32_t ring = smem_u32(smem);
+  auto issue = [&](int i) {    // page p0 + i into stage i % kStages
+    const int page = pages_s[p0 + i];
+    if (page >= 0 && page < N)  // a sentinel is not read
+      stage_page<KV, PS, D>(ring + (i % kStages) * St::kBytes, kpool, vpool,
+                            kscale, vscale, (int64_t)page * H + h);
+  };
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n) issue(i);
+    cp_async_commit();
+  }
 
-  for (int p = warp; p < npages; p += kWarps) {
-    const int page = row_table[p];
-    if (page < 0 || page >= N) continue;  // sentinel: nothing to read
-    const int64_t base = ((int64_t)page * H + h) * (PS * D);
-    __syncwarp();  // the previous page's tile is no longer read
-    if constexpr (kInt8) {
-      static_assert(D % 4 == 0 && PS <= 32, "unsupported int8 tile");
-      const int64_t sbase = ((int64_t)page * H + h) * PS;
-      if (lane < PS) {
-        sc_s[warp][0][lane] = kscale[sbase + lane];
-        sc_s[warp][1][lane] = vscale[sbase + lane];
+  // commit group g holds page g: the prologue's kStages, then page
+  // i - 1 + kStages from iteration i >= 1
+  for (int i = 0; i < n; ++i) {
+    if (i == 0)                    // page i has landed (this thread's part)
+      cp_async_wait<kStages - 1>();
+    else
+      cp_async_wait<kStages - 2>();
+    __syncthreads();               // everyone's; page i - 1's stage is free
+    if (i > 0) {
+      if (i - 1 + kStages < n) issue(i - 1 + kStages);
+      cp_async_commit();
+    }
+    const int p = p0 + i;
+    const int page = pages_s[p];
+    if (page < 0 || page >= N) continue;
+    const uint8_t* stg = smem + (i % kStages) * St::kBytes;
+    const float* ksc = reinterpret_cast<const float*>(stg + 2 * St::kPlane);
+    const float* vsc = ksc + PS;
+
+    // this lane's part of its key's scores for the warp's queries
+    const KV* krow = reinterpret_cast<const KV*>(stg + kk * St::kRow);
+    float s[NQW];
+#pragma unroll
+    for (int qi = 0; qi < NQW; ++qi) s[qi] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DK / 4; ++t) {
+      const int d = 4 * sub + 4 * LPK * t;
+      float4 k4 = ld4(krow + d);
+      if constexpr (St::kInt8) {
+        const float sk = ksc[kk];
+        k4 = make_float4(k4.x * sk, k4.y * sk, k4.z * sk, k4.w * sk);
       }
-      __syncwarp();
-      const char4* k4 = reinterpret_cast<const char4*>(kpool + base);
-      const char4* v4 = reinterpret_cast<const char4*>(vpool + base);
-#pragma unroll 4
-      for (int i = lane; i < PS * D / 4; i += 32) {
-        const int r = (4 * i) / D, d = 4 * i - r * D;
-        const char4 kk = k4[i], vv = v4[i];
-        const float sk = sc_s[warp][0][r], sv = sc_s[warp][1][r];
-        float* kd = ks + r * KSTR + d;
-        float* vd = vs + r * KSTR + d;
-        kd[0] = (float)kk.x * sk;
-        kd[1] = (float)kk.y * sk;
-        kd[2] = (float)kk.z * sk;
-        kd[3] = (float)kk.w * sk;
-        vd[0] = (float)vv.x * sv;
-        vd[1] = (float)vv.y * sv;
-        vd[2] = (float)vv.z * sv;
-        vd[3] = (float)vv.w * sv;
-      }
-    } else {
-#pragma unroll 4
-      for (int i = lane; i < PS * D; i += 32) {
-        const int r = i / D, d = i - (i / D) * D;
-        ks[r * KSTR + d] = to_f(kpool[base + i]);
-        vs[r * KSTR + d] = to_f(vpool[base + i]);
+#pragma unroll
+      for (int qi = 0; qi < NQW; ++qi) {
+        const float4 q4 = ld4(q_s + (wq0 + qi) * D + d);
+        s[qi] = fmaf(q4.x, k4.x, s[qi]);
+        s[qi] = fmaf(q4.y, k4.y, s[qi]);
+        s[qi] = fmaf(q4.z, k4.z, s[qi]);
+        s[qi] = fmaf(q4.w, k4.w, s[qi]);
       }
     }
-    __syncwarp();
-    const int kpos = p * PS + key;
+
+    // online softmax over the warp's keys of this page
+    float pj[NQW];
 #pragma unroll
-    for (int qi = 0; qi < QT; ++qi) {
-      if (qi < nq) {
-        float s = 0.f;
+    for (int qi = 0; qi < NQW; ++qi) {
 #pragma unroll
-        for (int d = 0; d < DK; ++d)
-          s += q_s[qi][part * DK + d] * ks[key * KSTR + part * DK + d];
+      for (int o = LPK / 2; o > 0; o >>= 1)
+        s[qi] += __shfl_xor_sync(kFullMask, s[qi], o);
+      const bool valid =
+          wq0 + qi < nq && p * PS + kk <= st + c0 + wq0 + qi;
+      const float sv = valid ? s[qi] * sm_scale : kNegInf;
+      float mx = sv;
 #pragma unroll
-        for (int o = LPK / 2; o > 0; o >>= 1)
-          s += __shfl_xor_sync(kFullMask, s, o);
-        const bool valid = kpos <= st + c0 + qi;
-        s = valid ? s * sm_scale : kNegInf;
-        float mx = s;
+      for (int o = 16; o >= LPK; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
+      const float m_new = fmaxf(m[qi], mx);
+      const float alpha = expf(m[qi] - m_new);
+      pj[qi] = valid ? expf(sv - m_new) : 0.f;
+      float psum = pj[qi];
 #pragma unroll
-        for (int o = 16; o >= LPK; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
-        const float m_new = fmaxf(m[qi], mx);
-        const float alpha = expf(m[qi] - m_new);
-        const float pj = valid ? expf(s - m_new) : 0.f;
-        float psum = pj;
+      for (int o = 16; o >= LPK; o >>= 1)
+        psum += __shfl_xor_sync(kFullMask, psum, o);
+      l[qi] = l[qi] * alpha + psum;
 #pragma unroll
-        for (int o = 16; o >= LPK; o >>= 1)
-          psum += __shfl_xor_sync(kFullMask, psum, o);
-        l[qi] = l[qi] * alpha + psum;
+      for (int e = 0; e < DV; ++e) acc[qi][e] *= alpha;
+      m[qi] = m_new;
+    }
+
+    // P.V: each V value read once for the warp's queries
 #pragma unroll
-        for (int e = 0; e < DV; ++e) acc[qi][e] *= alpha;
+    for (int j = 0; j < KW; ++j) {
+      const KV* vrow =
+          reinterpret_cast<const KV*>(stg + St::kPlane + (kw0 + j) * St::kRow);
+      float v[DV];
 #pragma unroll
-        for (int j = 0; j < PS; ++j) {
-          const float w = __shfl_sync(kFullMask, pj, j * LPK);
+      for (int e = 0; e < DV; ++e) {
+        v[e] = to_f(vrow[lane + 32 * e]);
+        if constexpr (St::kInt8) v[e] *= vsc[kw0 + j];
+      }
 #pragma unroll
-          for (int e = 0; e < DV; ++e)
-            acc[qi][e] += w * vs[j * KSTR + lane + 32 * e];
-        }
-        m[qi] = m_new;
+      for (int qi = 0; qi < NQW; ++qi) {
+        const float w = __shfl_sync(kFullMask, pj[qi], j * LPK);
+#pragma unroll
+        for (int e = 0; e < DV; ++e) acc[qi][e] = fmaf(w, v[e], acc[qi][e]);
       }
     }
   }
+  cp_async_wait<0>();
 
-  // merge the warps' partial softmax states: [warp][query][m, l, acc...]
-  __syncthreads();
-  float* cmb = smem;
+  // the warps' partial states, then the cluster's merge of each query
 #pragma unroll
-  for (int qi = 0; qi < QT; ++qi) {
-    if (qi < nq) {
-      float* row = cmb + (warp * QT + qi) * (D + 2);
-      if (lane == 0) {
-        row[0] = m[qi];
-        row[1] = l[qi];
-      }
-#pragma unroll
-      for (int e = 0; e < DV; ++e) row[2 + lane + 32 * e] = acc[qi][e];
+  for (int qi = 0; qi < NQW; ++qi) {
+    float* row = part + (kDecode ? warp : wq0 + qi) * (D + 2);
+    if (lane == 0) {
+      row[0] = m[qi];
+      row[1] = l[qi];
     }
+#pragma unroll
+    for (int e = 0; e < DV; ++e) row[2 + lane + 32 * e] = acc[qi][e];
   }
-  __syncthreads();
-  for (int qi = warp; qi < nq; qi += kWarps) {
+  cluster.sync();
+  for (int qq = rank + kSplit * warp; qq < nq; qq += kSplit * kWarps) {
+    // every state's m first, all remote reads in flight together
+    float mv[kSplit * kParts];
     float mm = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      mm = fmaxf(mm, cmb[(w * QT + qi) * (D + 2)]);
+    for (int r = 0; r < kSplit; ++r) {
+      const float* rp = cluster.map_shared_rank(part, r);
+#pragma unroll
+      for (int w = 0; w < kParts; ++w)
+        mv[r * kParts + w] = rp[(kDecode ? w : qq) * (D + 2)];
+    }
+#pragma unroll
+    for (int i = 0; i < kSplit * kParts; ++i) mm = fmaxf(mm, mv[i]);
     float ll = 0.f, o[DV];
 #pragma unroll
     for (int e = 0; e < DV; ++e) o[e] = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float* row = cmb + (w * QT + qi) * (D + 2);
-      const float sc = expf(row[0] - mm);
-      ll += row[1] * sc;
+    for (int r = 0; r < kSplit; ++r) {
+      const float* rp = cluster.map_shared_rank(part, r);
 #pragma unroll
-      for (int e = 0; e < DV; ++e) o[e] += row[2 + lane + 32 * e] * sc;
+      for (int w = 0; w < kParts; ++w) {
+        const float* row = rp + (kDecode ? w : qq) * (D + 2);
+        const float sc = expf(mv[r * kParts + w] - mm);
+        ll += row[1] * sc;
+#pragma unroll
+        for (int e = 0; e < DV; ++e) o[e] += row[2 + lane + 32 * e] * sc;
+      }
     }
     const float inv = 1.f / fmaxf(ll, 1e-30f);
-    T* dst = out + q_base + (int64_t)qi * D;
+    T* dst = out + q_base + (int64_t)qq * D;
 #pragma unroll
     for (int e = 0; e < DV; ++e) store_f(dst + lane + 32 * e, o[e] * inv);
   }
+  cluster.sync();  // the partial states stay until every merge has read them
 }
 
 template <typename T, typename KV, int PS, int D>
@@ -264,19 +373,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* table,
                    const int* start, void* out, int B, int H, int C, int N,
                    int P, float sm_scale, cudaStream_t stream) {
-  constexpr int QT = 16;
   const bool decode = C == 1;
   auto kernel = decode ? paged_attention_kernel<T, KV, PS, D, 1>
-                       : paged_attention_kernel<T, KV, PS, D, QT>;
-  const int bytes = decode ? dynamic_bytes<PS, D, 1>()
-                           : dynamic_bytes<PS, D, QT>();
-  if (bytes > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(B * H, decode ? 1 : (C + QT - 1) / QT);
-  kernel<<<grid, kWarps * 32, bytes, stream>>>(
+                       : paged_attention_kernel<T, KV, PS, D, kQT>;
+  const int bytes = decode ? smem_bytes<KV, PS, D, 1>(P)
+                           : smem_bytes<KV, PS, D, kQT>(P);
+  const dim3 grid(kSplit, B * H, decode ? 1 : (C + kQT - 1) / kQT);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
       (T*)out, H, C, N, P, sm_scale);
   return cudaGetLastError();
@@ -326,11 +433,12 @@ int dispatch_dtype(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace bigdl
 
-// q, out: (B, H, C, D); k, v: (N, H, PS, D); table: (B, P) int32, entries
-// >= N are the "no page" sentinel; start: (B,) int32, query c of row b
-// sits at absolute position start[b] + c. dtype: 0 float32, 1 bfloat16,
-// for q, out and the pool. Supported (PS, D): (8, 64), (16, 64) and
-// (32, 64): GPT-2's heads at the page sizes the reference serves with.
+// q, out: (B, H, C, D); k, v: (N, H, PS, D), 16-byte aligned; table: (B,
+// P) int32, entries >= N are the "no page" sentinel; start: (B,) int32,
+// query c of row b sits at absolute position start[b] + c. dtype: 0
+// float32, 1 bfloat16, for q, out and the pool. Supported (PS, D): (8, 64),
+// (16, 64) and (32, 64): GPT-2's heads at the page sizes the reference
+// serves with. B*H and the query tiles ceil(C / 16) at most 65535 each.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigdl_paged_attention(const void* q, const void* k,
                                      const void* v, const int* table,
@@ -344,8 +452,8 @@ extern "C" int bigdl_paged_attention(const void* q, const void* k,
 }
 
 // As bigdl_paged_attention over an int8 pool: k, v int8 (N, H, PS, D),
-// 16-byte aligned; k_scale, v_scale float32 (N, H, PS). dtype is q's and
-// out's.
+// k_scale, v_scale float32 (N, H, PS), all 16-byte aligned. dtype is q's
+// and out's.
 extern "C" int bigdl_paged_attention_int8(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, const int* table, const int* start, void* out,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (conv3x3.cu, flash_attention.cu): cp.async copies, the proxy fence,
+// (conv3x3.cu, flash_attention.cu; paged_attention.cu takes its cp.async
+// helpers): cp.async copies, the proxy fence,
 // ldmatrix, wgmma's fences and groups, its shared-memory descriptors in the
 // 128-byte swizzle, and the m64nNk16 bf16 products (f32 accumulators) for
 // N = 64 and 128, with A from shared memory (_ss) or registers (_rs).

@@ -22,13 +22,14 @@ tensors each runs its plain version (:func:`flash_fwd_ref`,
 inputs and recomputes ``p`` as the kernels do. For CUDA tensors each
 launches the kernel its shape and type select, or raises:
 
-- the forward and dK/dV in bfloat16 at ``head_dim`` in ``TC_HEAD_DIMS``
-  (64, 128) run on the tensor cores (wgmma), counted in ``.tc_launches``;
-  :func:`tc_plan` mirrors the tiles and shared memory the C entries pick;
-- everything else runs on the CUDA cores (float32 FMAs), counted in
-  ``.launches``: float32 at ``head_dim`` 64, and dQ in both types at 64.
-  dQ and float32 at another ``head_dim`` raise, naming the work that
-  will add them (ROADMAP queue B row 2, the dQ redesign).
+- bfloat16 at ``head_dim`` in ``HEAD_DIMS`` (64, 128) runs on the tensor
+  cores (wgmma), counted in ``.tc_launches``; :func:`tc_plan` mirrors the
+  tiles and shared memory the C entries pick;
+- float32 at ``head_dim`` in ``HEAD_DIMS`` runs on the CUDA cores (float32
+  FMAs), counted in ``.launches``.
+
+Another ``head_dim`` raises, naming the ROADMAP queue C item that will add
+it.
 
 :func:`path` is the one place that decides which of these a call takes.
 
@@ -46,10 +47,8 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# the head_dim the CUDA-core kernels are instantiated for: GPT-2's 64
-HEAD_DIM = 64
-# the head_dims of the tensor-core (bfloat16) forward and dK/dV kernels
-TC_HEAD_DIMS = (64, 128)
+# the head_dims every kernel is instantiated for, on both paths
+HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the tensor-core kernels' tiling (ops/csrc/flash_attention.cu): threads a
@@ -67,6 +66,7 @@ def _declare(lib):
                "bigdl_flash_bwd_dq": [ptr] * 8 + tail,
                "bigdl_flash_bwd_dkv": [ptr] * 9 + tail,
                "bigdl_flash_fwd_tc": [ptr] * 5 + head + [ptr],
+               "bigdl_flash_bwd_dq_tc": [ptr] * 8 + head + [ptr],
                "bigdl_flash_bwd_dkv_tc": [ptr] * 9 + head + [ptr]}
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -144,24 +144,28 @@ def _ceil_div(a, b):
 
 
 def tc_plan(kernel, bh, s, d):
-    """Host-side plan of a tensor-core launch of ``kernel`` ("fwd" or
-    "dkv") on (bh, s, d) inputs, as the C entry makes it for itself:
+    """Host-side plan of a tensor-core launch of ``kernel`` ("fwd", "dq"
+    or "dkv") on (bh, s, d) inputs, as the C entry makes it for itself:
 
     - fwd: a CTA per (b*h, 128 query rows), two warpgroups of 64 rows;
       key tiles of 128 at d 64 and 64 at d 128 through a TC_STAGES ring;
       shared memory = 1 KiB of alignment slack, the Q tile, and TC_STAGES
       (K, V) tile pairs;
+    - dq: the forward's CTAs, key tiles and ring; shared memory = 1 KiB,
+      the resident Q and dO tiles, and TC_STAGES (K, V) tile pairs;
     - dkv: a CTA per (b*h, 128 keys), two warpgroups of 64 keys; query
       tiles of 64 through the ring; shared memory = 1 KiB, the K and V
       tiles, TC_STAGES (Q, dO) tile pairs and TC_STAGES x 3 float32 rows
       (lse, delta, dlse) of 64.
 
     A tile of r rows holds r x d bfloat16 values."""
-    if d not in TC_HEAD_DIMS:
-        raise ValueError(f"tc_plan: head_dim {d} not in {TC_HEAD_DIMS}")
-    if kernel == "fwd":
+    if d not in HEAD_DIMS:
+        raise ValueError(f"tc_plan: head_dim {d} not in {HEAD_DIMS}")
+    if kernel in ("fwd", "dq"):
         tile_q, tile_k = 128, (128 if d == 64 else 64)
-        smem = 1024 + tile_q * d * 2 + TC_STAGES * 2 * tile_k * d * 2
+        resident = 1 if kernel == "fwd" else 2          # Q; Q and dO
+        smem = (1024 + resident * tile_q * d * 2
+                + TC_STAGES * 2 * tile_k * d * 2)
         grid = (bh, _ceil_div(s, tile_q))
     elif kernel == "dkv":
         tile_q, tile_k = 64, 128
@@ -174,35 +178,27 @@ def tc_plan(kernel, bh, s, d):
             "threads": TC_THREADS, "stages": TC_STAGES, "smem_bytes": smem}
 
 
-# the wrappers that have a tensor-core kernel
-_TC_WRAPPERS = ("flash_fwd", "flash_bwd_dkv")
-
-
 def path(fn, dtype, head_dim):
     """The kernel wrapper ``fn`` (by name: "flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") launches on the card for (B, H, S, ``head_dim``)
-    inputs of ``dtype``: "tensor_cores" for the bfloat16 forward and dK/dV
-    at TC_HEAD_DIMS, "cuda_cores" for float32 or bfloat16 at HEAD_DIM
-    otherwise, None where no kernel takes them yet."""
-    if (fn in _TC_WRAPPERS and dtype == torch.bfloat16
-            and head_dim in TC_HEAD_DIMS):
-        return "tensor_cores"
-    if dtype in _DTYPES and head_dim == HEAD_DIM:
-        return "cuda_cores"
-    return None
+    inputs of ``dtype``: "tensor_cores" for bfloat16 and "cuda_cores" for
+    float32 at HEAD_DIMS, None where no kernel takes them yet."""
+    if fn not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
+            or head_dim not in HEAD_DIMS:
+        return None
+    return {torch.bfloat16: "tensor_cores",
+            torch.float32: "cuda_cores"}.get(dtype)
 
 
 def _check_head_dim(fn, q):
     """Raise unless ``q`` is (B, H, S, D) with a :func:`path` for wrapper
     ``fn`` and ``q``'s type."""
     if q.dim() != 4 or path(fn, q.dtype, q.shape[-1]) is None:
-        dims = [d for d in sorted({HEAD_DIM, *TC_HEAD_DIMS})
-                if path(fn, q.dtype, d)]
-        want = " or ".join(f"(B, H, S, {d})" for d in dims)
+        want = " or ".join(f"(B, H, S, {d})" for d in HEAD_DIMS)
         raise ValueError(
-            f"{fn}: q must be {want} for {q.dtype}, got {tuple(q.shape)}; "
-            f"dQ and float32 take head_dim {HEAD_DIM} only until the dQ "
-            f"redesign, ROADMAP queue B row 2")
+            f"{fn}: q must be {want}, got {tuple(q.shape)}; other head_dims "
+            f"wait for ROADMAP queue C, 'flash head dims other than 64 and "
+            f"128'")
 
 
 def _check_cuda_args(fn, q, planes, rows):
@@ -316,9 +312,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse=None, causal=False,
 
 
 # launches of each wrapper's CUDA-core kernel (.launches) and tensor-core
-# kernel (.tc_launches; dQ has none)
+# kernel (.tc_launches)
 flash_fwd.launches = flash_fwd.tc_launches = 0
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 
 
@@ -392,5 +388,5 @@ def bytes_and_flops(kernel, q, causal, dlse=False):
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_ref",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "bytes_and_flops",
-           "visible_pairs", "path", "tc_plan", "HEAD_DIM",
-           "TC_HEAD_DIMS", "TC_MAX_SMEM"]
+           "visible_pairs", "path", "tc_plan", "HEAD_DIMS",
+           "TC_MAX_SMEM"]

@@ -21,6 +21,10 @@ of (num_pages, H, page_size)) is read as ``k.float() * k_scale[..., None]``
 - :func:`paged_pool_attention_ref` is the plain PyTorch version: gather
   through the clamped table (dequantising an int8 pool), mask with
   ``NEG_INF``, softmax, weighted sum.
+- :func:`paged_plan` mirrors the kernel's launch on the host: a cluster of
+  SPLIT CTAs per (slot, head, query tile), each walking its run of the
+  tile's visible pages (:func:`page_split`, which depends on the row
+  alone), and the dynamic shared memory of each instantiation.
 
 A row with no visible key at all (an all-sentinel table row: padding and
 inactive slots) comes out as zeros on both paths; callers discard it.
@@ -51,6 +55,16 @@ from bigdl_tpu_torch.ops import NEG_INF, _build
 # heads of 64 at pages of 8, 16 (the default) and 32 tokens
 KERNEL_SHAPES = ((8, 64), (16, 64), (32, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's launch (ops/csrc/paged_attention.cu): CTAs of a cluster (the
+# splits of one page walk), threads a CTA, pages in its ring, queries of a
+# chunk CTA (a decode CTA takes the one query), bytes after a staged row
+SPLIT = 8
+THREADS = 128
+STAGES = 4
+QUERY_TILE = 16
+ROW_PAD = 16
+MAX_SMEM = 232448
 
 
 def _declare(lib):
@@ -104,6 +118,54 @@ def paged_pool_attention_ref(q, pool, page_table, start, sm_scale=None):
     return out.to(q.dtype)
 
 
+def page_split(npages):
+    """The runs of a walk over ``npages`` pages that the SPLIT CTAs of a
+    cluster take: CTA ``r`` walks pages ``[lo, hi)`` of the r-th pair.
+    Each run holds ``ceil(npages / SPLIT)`` pages; the last ones hold
+    fewer, or none."""
+    per = -(-npages // SPLIT)
+    return [(min(npages, r * per), min(npages, (r + 1) * per))
+            for r in range(SPLIT)]
+
+
+def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
+    """Host-side plan of one kernel launch on (b, h, c, d) queries over a
+    pool of ``kv_dtype`` ("float32", "bfloat16" or "int8") with pages of
+    ``page_size``, a page table ``table_width`` wide and the rows' starts,
+    as the C entry makes it:
+
+    - grid (SPLIT, b * h, query tiles), a cluster of SPLIT CTAs of THREADS
+      per (slot, head, query tile); decode (c == 1) takes one query a CTA,
+      a chunk QUERY_TILE;
+    - ``splits[row][tile]``: the tile's pages, ``min(table_width, (start +
+      last query) // page_size + 1)``, cut by :func:`page_split`. They
+      depend on the row alone, never on b, h or a head shard;
+    - shared memory: STAGES ring stages (the page's K and V rows of d
+      values and ROW_PAD bytes, and an int8 page's two scale rows), the
+      queries in float32, the partial states (m, l, acc) of the four
+      warps (decode) or of each query (chunk), and the slot's table row
+      (``table_width`` int32, rounded up to 16 bytes)."""
+    tile = 1 if c == 1 else QUERY_TILE
+    elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kv_dtype]
+    row = d * elt + ROW_PAD
+    stage = 2 * page_size * row + (2 * page_size * 4 if elt == 1 else 0)
+    smem = (STAGES * stage + tile * d * 4
+            + (4 if tile == 1 else tile) * (d + 2) * 4
+            + -(-table_width * 4 // 16) * 16)
+    tiles = -(-c // tile)
+    splits = []
+    for st in starts:
+        row_splits = []
+        for t in range(tiles):
+            last = st + min(c, (t + 1) * tile) - 1
+            row_splits.append(page_split(
+                min(table_width, last // page_size + 1)))
+        splits.append(row_splits)
+    return {"grid": (SPLIT, b * h, tiles), "cluster": SPLIT,
+            "threads": THREADS, "query_tile": tile, "stages": STAGES,
+            "smem_bytes": smem, "splits": splits}
+
+
 def _check_cuda_args(q, pool, page_table, start):
     dev = q.device
     k, v = pool["k"], pool["v"]
@@ -115,6 +177,10 @@ def _check_cuda_args(q, pool, page_table, start):
         if not t.is_contiguous():
             raise ValueError(f"paged_pool_attention: {name} must be "
                              f"contiguous")
+        if name.startswith("pool") and t.data_ptr() % 16:
+            raise ValueError(f"paged_pool_attention: {name} must be "
+                             f"16-byte aligned (the kernel stages pages by "
+                             f"16-byte copies)")
     if not q.is_contiguous():
         raise ValueError("paged_pool_attention: q must be contiguous")
     if q.dtype not in _DTYPES:
@@ -130,9 +196,6 @@ def _check_cuda_args(q, pool, page_table, start):
             if sc.dtype != torch.float32 or sc.shape != k.shape[:3]:
                 raise ValueError(f"paged_pool_attention: {name} must be "
                                  f"float32 of {tuple(k.shape[:3])}")
-        if k.data_ptr() % 16 or v.data_ptr() % 16:
-            raise ValueError("paged_pool_attention: int8 pools must be "
-                             "16-byte aligned")
     if page_table.dtype != torch.int32 or start.dtype != torch.int32:
         raise TypeError("paged_pool_attention: page_table and start must "
                         "be int32")
@@ -275,4 +338,4 @@ def bytes_and_flops(q, pool, page_table, start):
 
 
 __all__ = ["paged_pool_attention", "paged_pool_attention_ref",
-           "bytes_and_flops", "KERNEL_SHAPES"]
+           "bytes_and_flops", "page_split", "paged_plan", "KERNEL_SHAPES"]

@@ -45,6 +45,7 @@ from torch import nn
 from bigdl_tpu_torch.nn import Linear
 from bigdl_tpu_torch.nn.quantized import scale_of
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
+from bigdl_tpu_torch.utils.device import resolve_device
 
 
 def full_attention(q, k, v, causal=False):
@@ -174,7 +175,8 @@ class MultiHeadAttention(nn.Module):
         self.local_heads = n_heads // tp
         self.head_dim = hidden_size // n_heads
         local = self.local_heads * self.head_dim
-        kw = dict(with_bias=False, device=device, dtype=dtype)
+        kw = dict(with_bias=False, device=resolve_device(device),
+                  dtype=dtype)
         self.wq = Linear(hidden_size, local, **kw)
         self.wk = Linear(hidden_size, local, **kw)
         self.wv = Linear(hidden_size, local, **kw)

@@ -22,7 +22,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
      (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2); the same
      cases at pages of 8 and 32 tokens (1024 positions a row) are held to
-     the same tolerances, not timed;
+     the same tolerances, not timed; at pages of 16 a second call must
+     equal the first bit for bit;
    * int8 paged attention: the same shapes, page sizes and query types over
      an int8 pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
@@ -42,18 +43,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
      identical except on a row whose kept-set boundary lies within 1e-5 of
      its level (such a row is printed);
    * flash attention (forward, dQ, dK/dV): the training path's (B*H = 96,
-     S = 1024, D = 64) causal, one non-causal case with an lse cotangent
-     and one ragged causal case (S = 1000), each in float32 (the CUDA-core
-     kernels) and bfloat16 (the tensor-core forward and dK/dV, the
-     CUDA-core dQ), and the forward and dK/dV at D = 128 in bfloat16; each
-     call on the path ``flash_attention.path`` names, and a bfloat16
-     kernel's second
-     call equal to its first bit for bit. float32 max abs error <= 2e-5
-     for O and lse and <= 1e-4 for the gradients (the same float32 math
-     summed in another order, over up to 1024 keys); bfloat16 atol = rtol
-     = 2e-2 (outputs rounded to bfloat16, p rounded at a running maximum
-     in the kernel). The path case in both types and the D = 128 case are
-     timed beside the library yardstick:
+     S = 1024, D = 64) causal, one non-causal case with an lse cotangent,
+     one ragged causal case (S = 1000) and the path's shape at D = 128,
+     each in float32 (the CUDA-core kernels) and bfloat16 (the tensor-core
+     kernels); each call on the path ``flash_attention.path`` names, and a
+     bfloat16 kernel's second call equal to its first bit for bit. float32
+     max abs error <= 2e-5 for O and lse and <= 1e-4 for the gradients
+     (the same float32 math summed in another order, over up to 1024
+     keys); bfloat16 atol = rtol = 2e-2 (outputs rounded to bfloat16, p
+     rounded at a running maximum in the kernel). The path and D = 128
+     cases in both types are timed beside the library yardstick:
      ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
      backward (one call yields dQ, dK and dV, so both backward rows carry
      that time); the backend that ran is printed;
@@ -84,8 +83,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the CPU is below 1e-3 (printed); the sampler launched once per decode
    step with a sampled row. Then the same traffic, with fresh
    prompts, runs once more under ``torch.profiler`` (a ``profile`` line):
-   the device's busy time against the wall time and the kernels that take
-   the most device time.
+   the device's busy time against the wall time, the kernels that take
+   the most device time, and the paged-attention and sampling kernels'
+   shares (likewise in every serving phase).
 5. slice_int8 — the same model, weights and traffic through
    ``ServingEngine(int8_weights=True, int8_kv=True, kv_bytes=...)``, the
    byte budget of the float32 slice's 512-page pool. Checks: every request
@@ -133,14 +133,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    batch and weights; a sanity bound only: at the initial weights the loss
    sits near ln(50257) whatever attention does); per timed step 12 launches
    of each flash wrapper on the path ``flash_attention.path`` names at
-   GPT-2's head_dim 64 (the tensor cores for the forward and dK/dV, the
-   CUDA cores for dQ) and none on the other; ``flash_attention``'s bfloat16
+   GPT-2's head_dim 64 (the tensor cores for all three) and none on the
+   other; ``flash_attention``'s bfloat16
    autograd, which is what holds the kernels, at 1 x 12 x 512 x 64,
    causal (output, dQ, dK, dV) within 2e-2 x max|CPU| of float32 autograd
    of the plain attention on the CPU over the same values. Then 2 steps
    under ``torch.profiler`` (a ``profile`` line grouped into flash
-   tensor-core kernels, flash CUDA-core kernels, GEMMs, elementwise and
-   reductions).
+   tensor-core kernels, the tensor-core dQ alone, flash CUDA-core
+   kernels, GEMMs, elementwise and reductions).
 9. train_resnet — ``bench.py``'s training configuration: ResNet-50
    (ImageNet, NHWC, 1000 classes, full width and depth), seeded weights
    from ``convert.init_resnet_params(seed=0)``, one fixed batch of 256 x
@@ -376,6 +376,12 @@ def _paged_kernel(torch, flush, int8):
                 ps=ps)
             got = pa.paged_pool_attention(q, pool, table, start)
             torch.cuda.synchronize()
+            tag = f"{name} page {ps} {label} {dtype}"
+            if ps == 16:
+                again = pa.paged_pool_attention(q, pool, table, start)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"{tag}: a second call differs from the first")
             want = pa.paged_pool_attention_ref(q, pool, table, start)
             vis = (table[:, 0] < 512)
             err = (got.float() - want.float())[vis].abs()
@@ -386,7 +392,6 @@ def _paged_kernel(torch, flush, int8):
                 ok = bool(torch.allclose(got.float()[vis],
                                          want.float()[vis], atol=tol,
                                          rtol=tol))
-            tag = f"{name} page {ps} {label} {dtype}"
             check(torch.isfinite(got.float()).all().item(),
                   f"{tag}: non-finite output")
             check(ok, f"{tag}: max abs err {max_err} over tolerance {tol}")
@@ -610,13 +615,13 @@ FLASH_REPLACES = {"fwd": "bigdl_tpu/ops/flash_attention.py:45",
                   "dq": "bigdl_tpu/ops/flash_attention.py:120",
                   "dkv": "bigdl_tpu/ops/flash_attention.py:159"}
 # (label, B, H, S, D, causal, with an lse cotangent, kernels held), each in
-# FLASH_DTYPES; "d128" is bfloat16 only and holds no dQ (the dQ kernel
-# takes D = 64 only)
+# FLASH_DTYPES
 FLASH_CASES = [("path", 8, 12, 1024, 64, True, False, ("fwd", "dq", "dkv")),
                ("full", 8, 12, 1024, 64, False, True, ("fwd", "dq", "dkv")),
                ("ragged", 8, 12, 1000, 64, True, False,
                 ("fwd", "dq", "dkv")),
-               ("d128", 8, 12, 1024, 128, True, False, ("fwd", "dkv"))]
+               ("d128", 8, 12, 1024, 128, True, False,
+                ("fwd", "dq", "dkv"))]
 FLASH_DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
 FLASH_TIMED = ("path", "d128")      # the cases timed beside SDPA
@@ -655,8 +660,6 @@ def _flash_kernels(torch, flush):
                 "dkv": fa.flash_bwd_dkv}
     for label, b, h, s, d, causal, with_dlse, kerns in FLASH_CASES:
         for dname in FLASH_DTYPES:
-            if label == "d128" and dname == "float32":
-                continue
             dtype = getattr(torch, dname)
             q, k, v, do = [torch.randn((b, h, s, d), generator=g,
                                        device="cuda").to(dtype)
@@ -729,6 +732,10 @@ def _flash_kernels(torch, flush):
         timed = {r["dtype"]: r for r in shapes
                  if r["case"] == "path" and "ms" in r}
         t, t32 = timed["bfloat16"], timed["float32"]
+        d128 = {r["dtype"]: {key: r[key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err", "path")}
+                for r in shapes if r["case"] == "d128" and "ms" in r}
         results[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[kern],
@@ -748,7 +755,7 @@ def _flash_kernels(torch, flush):
                         **{key: t32[key] for key in
                            ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "path")}},
-            "launches": 0, "shapes": shapes}
+            "d128": d128, "launches": 0, "shapes": shapes}
     return results
 
 
@@ -1069,6 +1076,11 @@ def _profile(torch, run, groups=None):
                     for k, (n, t) in top]}
 
 
+# the serving profile's kernel families, by substrings of their names
+SERVING_KERNEL_GROUPS = {"paged attention": "paged_attention_kernel",
+                         "sampling": "fused_sample_kernel"}
+
+
 def _serving_counts():
     """The serving path's launch counts and int8 products."""
     from bigdl_tpu_torch.nn.quantized import qmatmul
@@ -1116,7 +1128,8 @@ def _serve_traffic(torch, engine, rng):
         # under torch.profiler, after the counts were read
         fresh = _traffic(rng)
         profile = _profile(torch, lambda: [h.result(timeout=600)
-                                           for h in _drive(engine, fresh)])
+                                           for h in _drive(engine, fresh)],
+                           groups=SERVING_KERNEL_GROUPS)
     finally:
         engine.shutdown()
     for i, (o, h) in enumerate(zip(outs, handles)):
@@ -1569,7 +1582,9 @@ def phase_train(torch, kernels, smi):
 # their names
 GPT_BF16_KERNEL_GROUPS = {
     "flash tensor-core kernels": ("flash_fwd_tc_kernel",
+                                  "flash_bwd_dq_tc_kernel",
                                   "flash_bwd_dkv_tc_kernel"),
+    "flash tensor-core dQ": ("flash_bwd_dq_tc_kernel",),
     "flash CUDA-core kernels": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                 "flash_bwd_dkv_kernel"),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass"),

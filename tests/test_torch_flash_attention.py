@@ -208,7 +208,7 @@ def test_attention_module_forward_matches_reference():
     params, _ = jm.setup(jax.random.PRNGKey(1), None)
     x = np.random.RandomState(8).randn(2, 128, 32).astype(np.float32)
     want = np.asarray(jm.call(params, jnp.asarray(x)))
-    tm = MultiHeadAttention(32, 2, causal=True)
+    tm = MultiHeadAttention(32, 2, causal=True, device="cpu")
     tm.load_state_dict({f"{w}.weight": torch.from_numpy(
         np.array(np.asarray(params[w]).T, order="C"))
         for w in ("wq", "wk", "wv", "wo")})
@@ -216,4 +216,5 @@ def test_attention_module_forward_matches_reference():
         got = tm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, **FWD_TOL)
     with pytest.raises(NotImplementedError, match="A.10"):
-        MultiHeadAttention(32, 2, sequence_parallel=("ring", None, "sp"))
+        MultiHeadAttention(32, 2, sequence_parallel=("ring", None, "sp"),
+                           device="cpu")

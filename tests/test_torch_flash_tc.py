@@ -1,9 +1,9 @@
-"""The host side of the port's tensor-core flash kernels
+"""The host side of the port's flash kernels
 (``bigdl_tpu_torch/ops/flash_attention.py``): the plain versions the card
-holds them against, at both head sizes they are built for, against the
-reference's Pallas kernels; the plan the C entries make; the path each
-(type, head size, kernel) takes, the entry it reaches and the counter it
-moves.
+holds them against, at both head sizes every kernel is built for (64 and
+128, so dQ and float32 at 128 too), against the reference's Pallas
+kernels; the plan the tensor-core C entries make; the path each (type,
+head size, kernel) takes, the entry it reaches and the counter it moves.
 
 The reference runs in Pallas interpret mode with ``block_q = block_k =
 32`` on (1, 2, 128, D). Tolerances: float32 the reference's own (O and
@@ -40,7 +40,7 @@ def _inputs(d, seed):
 @pytest.mark.parametrize("with_dlse", [False, True], ids=["o", "o+lse"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", fa.TC_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_plain_versions_match_pallas_kernels(d, dtype, causal, with_dlse):
     """O, lse, dQ, dK and dV of the plain versions against the reference's
     forward and its custom VJP (cotangents dO and, with ``with_dlse``,
@@ -83,11 +83,19 @@ TC_PLANS = [
      1024 + 2 * 128 * 64 * 2 + 2 * (2 * 64 * 64 * 2 + 3 * 64 * 4)),
     (("dkv", 96, 1024, 128), 64, 128, (96, 8),
      1024 + 2 * 128 * 128 * 2 + 2 * (2 * 64 * 128 * 2 + 3 * 64 * 4)),
+    (("dq", 96, 1024, 64), 128, 128, (96, 8),
+     1024 + 2 * 128 * 64 * 2 + 2 * 2 * 128 * 64 * 2),
+    (("dq", 96, 1024, 128), 128, 64, (96, 8),
+     1024 + 2 * 128 * 128 * 2 + 2 * 2 * 64 * 128 * 2),
     # ragged: S = 1000 (a partial last tile), and tiny sequences
     (("fwd", 96, 1000, 64), 128, 128, (96, 8), 82944),
     (("dkv", 96, 1000, 64), 64, 128, (96, 8), 68096),
     (("fwd", 1, 1, 128), 128, 64, (1, 1), 99328),
     (("dkv", 2, 130, 128), 64, 128, (2, 2), 133632),
+    (("dq", 96, 1000, 64), 128, 128, (96, 8), 99328),
+    (("dq", 96, 1000, 128), 128, 64, (96, 8), 132096),
+    (("dq", 1, 1, 128), 128, 64, (1, 1), 132096),
+    (("dq", 2, 130, 64), 128, 128, (2, 2), 99328),
 ]
 
 
@@ -96,10 +104,11 @@ TC_PLANS = [
 def test_tensor_core_plan(args, tile_q, tile_k, grid, smem):
     """Every host-side quantity of a tensor-core launch: 256 threads (two
     warpgroups of 64 rows), a two-stage ring, the forward's 128 query rows
-    a CTA with key tiles of 128 (D 64) or 64 (D 128), dK/dV's 128 keys a
-    CTA with query tiles of 64, and the dynamic shared memory (alignment
-    slack, the resident tiles, the ring's tiles, dK/dV's staged rows),
-    under the 232,448 bytes a CTA may use."""
+    a CTA with key tiles of 128 (D 64) or 64 (D 128), dQ's the same with
+    Q and dO resident, dK/dV's 128 keys a CTA with query tiles of 64, and
+    the dynamic shared memory (alignment slack, the resident tiles, the
+    ring's tiles, dK/dV's staged rows), under the 232,448 bytes a CTA may
+    use."""
     plan = fa.tc_plan(*args)
     assert plan == {"tile_q": tile_q, "tile_k": tile_k, "grid": grid,
                     "threads": 256, "stages": 2, "smem_bytes": smem}
@@ -109,8 +118,10 @@ def test_tensor_core_plan(args, tile_q, tile_k, grid, smem):
 def test_tensor_core_plan_refuses_what_has_no_tensor_core_kernel():
     with pytest.raises(ValueError, match="head_dim 32"):
         fa.tc_plan("fwd", 1, 64, 32)
-    with pytest.raises(ValueError, match="'dq'"):
-        fa.tc_plan("dq", 1, 64, 64)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.tc_plan("dq", 1, 64, 32)
+    with pytest.raises(ValueError, match="'bwd'"):
+        fa.tc_plan("bwd", 1, 64, 64)
 
 
 TC, CC = "tensor_cores", "cuda_cores"
@@ -121,20 +132,22 @@ TC, CC = "tensor_cores", "cuda_cores"
     ("flash_fwd", torch.bfloat16, 128, TC),
     ("flash_bwd_dkv", torch.bfloat16, 64, TC),
     ("flash_bwd_dkv", torch.bfloat16, 128, TC),
-    ("flash_bwd_dq", torch.bfloat16, 64, CC),       # dQ: CUDA cores
-    ("flash_bwd_dq", torch.bfloat16, 128, None),
+    ("flash_bwd_dq", torch.bfloat16, 64, TC),
+    ("flash_bwd_dq", torch.bfloat16, 128, TC),
     ("flash_fwd", torch.float32, 64, CC),           # float32: CUDA cores
     ("flash_bwd_dkv", torch.float32, 64, CC),
     ("flash_bwd_dq", torch.float32, 64, CC),
-    ("flash_fwd", torch.float32, 128, None),
-    ("flash_bwd_dkv", torch.float32, 128, None),
+    ("flash_fwd", torch.float32, 128, CC),
+    ("flash_bwd_dkv", torch.float32, 128, CC),
+    ("flash_bwd_dq", torch.float32, 128, CC),
     ("flash_fwd", torch.bfloat16, 32, None),        # no kernel at D = 32
+    ("flash_bwd_dq", torch.float32, 96, None),
     ("flash_fwd", torch.float16, 64, None),
+    ("flash_bwd", torch.bfloat16, 64, None),        # no such wrapper
 ])
 def test_tensor_core_eligibility(fn, dtype, d, want):
-    """``path``: the tensor cores for the bfloat16 forward and dK/dV at D
-    in TC_HEAD_DIMS, the CUDA cores for float32 and bfloat16 at D = 64
-    otherwise, no kernel for the rest."""
+    """``path``: the tensor cores for bfloat16 and the CUDA cores for
+    float32, every wrapper at D in HEAD_DIMS; no kernel for the rest."""
     assert fa.path(fn, dtype, d) == want
 
 
@@ -177,10 +190,8 @@ def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
                                                      dtype, d):
     """The wrappers' card branch: the C entry each (type, head size,
     kernel) reaches, with its arguments, and the counter it moves
-    (``tc_launches`` for the tensor-core forward and dK/dV in bfloat16,
-    ``launches`` for the CUDA-core kernels); dQ and float32 at D = 128
-    raise, naming the ROADMAP item that will add them, before any
-    launch. The library, the card and the
+    (``tc_launches`` for the tensor-core kernels in bfloat16, ``launches``
+    for the CUDA-core kernels in float32). The library, the card and the
     device checks are faked; the head-size check is the wrappers' own."""
     lib = _FakeLib()
     monkeypatch.setattr(fa, "_check_cuda_args",
@@ -191,15 +202,9 @@ def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
                         lambda device=None: type("S", (), {"cuda_stream": 7}))
     fn = WRAPPERS[kernel]
     monkeypatch.setattr(fn, "launches", 0)
-    if kernel != "dq":
-        monkeypatch.setattr(fn, "tc_launches", 0)
+    monkeypatch.setattr(fn, "tc_launches", 0)
     q = torch.zeros(2, 3, 40, d, dtype=dtype)
-    tc = kernel != "dq" and dtype == torch.bfloat16
-    if d == 128 and not tc:
-        with pytest.raises(ValueError, match="ROADMAP queue B row 2"):
-            _on_card(kernel, q)
-        assert lib.calls == [] and fn.launches == 0
-        return
+    tc = dtype == torch.bfloat16
     _on_card(kernel, q)
     [(name, args)] = lib.calls
     assert name == ENTRIES[kernel] + ("_tc" if tc else "")
@@ -210,19 +215,31 @@ def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
         assert (fn.tc_launches, fn.launches) == (1, 0)
     else:
         assert args[n + 5] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
-        assert fn.launches == 1
-        assert getattr(fn, "tc_launches", 0) == 0
+        assert (fn.tc_launches, fn.launches) == (0, 1)
 
 
-@pytest.mark.parametrize("fn,dtype", [("flash_bwd_dq", torch.bfloat16),
-                                      ("flash_bwd_dq", torch.float32),
-                                      ("flash_fwd", torch.float32),
-                                      ("flash_bwd_dkv", torch.float32)])
-def test_head_dim_128_outside_the_tensor_cores_names_the_dq_redesign(
-        fn, dtype):
-    """``_check_cuda_args`` refuses D = 128 where no kernel takes it, with
-    the work that will add it, before it looks at the device."""
+WRAPPER_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fn", WRAPPER_NAMES)
+def test_every_wrapper_takes_head_dim_128_in_both_types(fn, dtype):
+    """``_check_cuda_args`` takes D = 128 for every wrapper in both types
+    and goes on to the device check, which refuses these CPU tensors."""
     q = torch.zeros(1, 2, 8, 128, dtype=dtype)
-    with pytest.raises(ValueError,
-                       match=r"dQ redesign, ROADMAP queue B row 2"):
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        fa._check_cuda_args(fn, q, {}, {})
+
+
+@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fn", WRAPPER_NAMES)
+def test_other_head_dims_raise_naming_queue_c(fn, dtype, d):
+    """``_check_cuda_args`` refuses a head size no kernel is built for,
+    naming the ROADMAP queue C item that will add it, before it looks at
+    the device."""
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    with pytest.raises(ValueError, match=r"queue C, 'flash head dims other "
+                                         r"than 64 and 128'"):
         fa._check_cuda_args(fn, q, {}, {})

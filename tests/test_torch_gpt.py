@@ -64,12 +64,12 @@ def test_init_params_loads_and_is_seeded():
 def test_layers_match_reference_formulas():
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 5, 8), dtype=np.float32))
-    ln = LayerNormalization(8)
+    ln = LayerNormalization(8, device="cpu")
     mean = x.mean(-1, keepdim=True)
     var = ((x - mean) ** 2).mean(-1, keepdim=True)      # biased
     torch.testing.assert_close(ln(x), (x - mean) / torch.sqrt(var + 1e-5),
                                rtol=1e-5, atol=1e-5)
-    lin = Linear(8, 3, with_bias=False)
+    lin = Linear(8, 3, with_bias=False, device="cpu")
     torch.nn.init.normal_(lin.weight)
     torch.testing.assert_close(lin(x), x @ lin.weight.T)
     assert prompt_bucket(17, 64) == 32 and prompt_bucket(70, 64) == 70
