@@ -58,8 +58,11 @@
 //   the tile over the cluster's states through distributed shared memory
 //   in a fixed order (ranks, then warps), and writes it. One launch, no
 //   global scratch, no atomics;
-// - pages of 8, 16 and 32 tokens are instantiated at D 64; all shared
-//   memory is dynamic (14-78 KB at tables of 64 entries).
+// - pages of 8, 16 and 32 tokens are instantiated at head dims 32, 64, 96
+//   and 128 (every multiple of 32 up to 128); all shared memory is dynamic
+//   (at most 152 KB: D 128, pages of 32, a float32 pool). A lane's share of
+//   a key's dot product is read 4 values at a time, or 2 where the share
+//   is not a multiple of 4 (decode at pages of 8 and D 32 or 96).
 // Inputs may be float32 or bfloat16; all arithmetic is float32 on the CUDA
 // cores. Pool offsets are 64-bit.
 
@@ -116,6 +119,32 @@ __device__ __forceinline__ float4 ld4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
+// VW (4 or 2) consecutive values from p, aligned to VW elements, as floats
+template <int VW, typename X>
+__device__ __forceinline__ void ldv(const X* p, float (&o)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 a = ld4(p);
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = a.z;
+    o[3] = a.w;
+  } else {
+    const float2 a = ld2(p);
+    o[0] = a.x;
+    o[1] = a.y;
+  }
+}
 
 // Page `page_head` (= page * H + h) of the pools (and its scale rows) into
 // the ring stage at `dst`: every thread its share of 16-byte copies.
@@ -166,10 +195,11 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
   constexpr int KW = kDecode ? PS / kWarps : PS;  // keys a warp scores
   constexpr int LPK = 32 / KW;   // lanes sharing one key's dot product
   constexpr int DK = D / LPK;    // dims of that dot product per lane
+  constexpr int VW = DK % 4 == 0 ? 4 : 2;         // of them read at once
   constexpr int NQW = kDecode ? 1 : QT / kWarps;  // queries a warp owns
   constexpr int DV = D / 32;     // output dims per lane
   constexpr int kParts = kDecode ? kWarps : 1;    // states a query has a CTA
-  static_assert(KW >= 1 && 32 % KW == 0 && DK % 4 == 0 && D % 32 == 0 &&
+  static_assert(KW >= 1 && 32 % KW == 0 && DK % VW == 0 && D % 32 == 0 &&
                     (kDecode || QT % kWarps == 0),
                 "unsupported tile");
 
@@ -255,20 +285,21 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
 #pragma unroll
     for (int qi = 0; qi < NQW; ++qi) s[qi] = 0.f;
 #pragma unroll
-    for (int t = 0; t < DK / 4; ++t) {
-      const int d = 4 * sub + 4 * LPK * t;
-      float4 k4 = ld4(krow + d);
+    for (int t = 0; t < DK / VW; ++t) {
+      const int d = VW * sub + VW * LPK * t;
+      float kv[VW];
+      ldv<VW>(krow + d, kv);
       if constexpr (St::kInt8) {
         const float sk = ksc[kk];
-        k4 = make_float4(k4.x * sk, k4.y * sk, k4.z * sk, k4.w * sk);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) kv[j] *= sk;
       }
 #pragma unroll
       for (int qi = 0; qi < NQW; ++qi) {
-        const float4 q4 = ld4(q_s + (wq0 + qi) * D + d);
-        s[qi] = fmaf(q4.x, k4.x, s[qi]);
-        s[qi] = fmaf(q4.y, k4.y, s[qi]);
-        s[qi] = fmaf(q4.z, k4.z, s[qi]);
-        s[qi] = fmaf(q4.w, k4.w, s[qi]);
+        float qv[VW];
+        ldv<VW>(q_s + (wq0 + qi) * D + d, qv);
+#pragma unroll
+        for (int j = 0; j < VW; ++j) s[qi] = fmaf(qv[j], kv[j], s[qi]);
       }
     }
 
@@ -402,9 +433,15 @@ cudaError_t dispatch_shape(const void* q, const void* k, const void* v,
   if (PS == ps && D == d)                                                   \
     return launch<T, Pool, ps, d>(q, k, v, ks, vs, table, start, out, B, H, \
                                   C, N, P, sm_scale, stream);
-  BIGDL_PA_CASE(8, 64)
-  BIGDL_PA_CASE(16, 64)
-  BIGDL_PA_CASE(32, 64)
+#define BIGDL_PA_PAGES(d) \
+  BIGDL_PA_CASE(8, d)       \
+  BIGDL_PA_CASE(16, d)      \
+  BIGDL_PA_CASE(32, d)
+  BIGDL_PA_PAGES(32)
+  BIGDL_PA_PAGES(64)
+  BIGDL_PA_PAGES(96)
+  BIGDL_PA_PAGES(128)
+#undef BIGDL_PA_PAGES
 #undef BIGDL_PA_CASE
   return cudaErrorInvalidValue;
 }
@@ -436,9 +473,9 @@ int dispatch_dtype(const void* q, const void* k, const void* v,
 // q, out: (B, H, C, D); k, v: (N, H, PS, D), 16-byte aligned; table: (B,
 // P) int32, entries >= N are the "no page" sentinel; start: (B,) int32,
 // query c of row b sits at absolute position start[b] + c. dtype: 0
-// float32, 1 bfloat16, for q, out and the pool. Supported (PS, D): (8, 64),
-// (16, 64) and (32, 64): GPT-2's heads at the page sizes the reference
-// serves with. B*H and the query tiles ceil(C / 16) at most 65535 each.
+// float32, 1 bfloat16, for q, out and the pool. Supported (PS, D): pages of
+// 8, 16 and 32 tokens (the sizes the reference serves with) at D 32, 64, 96
+// and 128. B*H and the query tiles ceil(C / 16) at most 65535 each.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigdl_paged_attention(const void* q, const void* k,
                                      const void* v, const int* table,

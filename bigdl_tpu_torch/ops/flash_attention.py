@@ -22,14 +22,18 @@ tensors each runs its plain version (:func:`flash_fwd_ref`,
 inputs and recomputes ``p`` as the kernels do. For CUDA tensors each
 launches the kernel its shape and type select, or raises:
 
-- bfloat16 at ``head_dim`` in ``HEAD_DIMS`` (64, 128) runs on the tensor
-  cores (wgmma), counted in ``.tc_launches``; :func:`tc_plan` mirrors the
-  tiles and shared memory the C entries pick;
-- float32 at ``head_dim`` in ``HEAD_DIMS`` runs on the CUDA cores (float32
-  FMAs), counted in ``.launches``.
+- bfloat16 runs on the tensor cores (wgmma), counted in ``.tc_launches``;
+  :func:`tc_plan` mirrors the tiles and shared memory the C entries pick;
+- float32 runs on the CUDA cores (float32 FMAs), counted in ``.launches``.
 
-Another ``head_dim`` raises, naming the ROADMAP queue C item that will add
-it.
+Every kernel is instantiated at the widths ``HEAD_DIMS`` (64, 128). Any
+``head_dim`` up to 128 runs on the next width up (:func:`kernel_head_dim`):
+the wrapper zero-pads the last axis of q, k, v (and dO) to that width,
+launches, and slices the outputs back. Padding is exact: zero columns add
+exact zeros to every q.k, dO.v and dS.k product, a zero column of v gives
+a zero output column (sliced away), and lse and delta are untouched; the
+softmax scale stays ``D ** -0.5`` of the true D. A ``head_dim`` above 128
+raises, naming the ROADMAP queue C item that will add it.
 
 :func:`path` is the one place that decides which of these a call takes.
 
@@ -47,7 +51,8 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# the head_dims every kernel is instantiated for, on both paths
+# the head_dims every kernel is instantiated for, on both paths; a smaller
+# head_dim runs zero-padded on the next of them
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,6 +81,12 @@ def _declare(lib):
 
 def _scale(q, sm_scale):
     return q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+
+
+def kernel_head_dim(head_dim):
+    """The width of the kernel that runs a ``head_dim``: the smallest of
+    HEAD_DIMS at least as wide, or None above 128."""
+    return next((w for w in HEAD_DIMS if 0 < head_dim <= w), None)
 
 
 # ------------------------------------------------------ plain versions --
@@ -158,9 +169,12 @@ def tc_plan(kernel, bh, s, d):
       tiles, TC_STAGES (Q, dO) tile pairs and TC_STAGES x 3 float32 rows
       (lse, delta, dlse) of 64.
 
-    A tile of r rows holds r x d bfloat16 values."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"tc_plan: head_dim {d} not in {HEAD_DIMS}")
+    A tile of r rows holds r x w bfloat16 values, w the launched width
+    ``head_dim`` (:func:`kernel_head_dim` of ``d``)."""
+    w = kernel_head_dim(d)
+    if w is None:
+        raise ValueError(f"tc_plan: head_dim {d} above {HEAD_DIMS[-1]}")
+    d = w
     if kernel in ("fwd", "dq"):
         tile_q, tile_k = 128, (128 if d == 64 else 64)
         resident = 1 if kernel == "fwd" else 2          # Q; Q and dO
@@ -175,16 +189,18 @@ def tc_plan(kernel, bh, s, d):
     else:
         raise ValueError(f"tc_plan: no tensor-core kernel {kernel!r}")
     return {"tile_q": tile_q, "tile_k": tile_k, "grid": grid,
-            "threads": TC_THREADS, "stages": TC_STAGES, "smem_bytes": smem}
+            "threads": TC_THREADS, "stages": TC_STAGES, "smem_bytes": smem,
+            "head_dim": w}
 
 
 def path(fn, dtype, head_dim):
     """The kernel wrapper ``fn`` (by name: "flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") launches on the card for (B, H, S, ``head_dim``)
     inputs of ``dtype``: "tensor_cores" for bfloat16 and "cuda_cores" for
-    float32 at HEAD_DIMS, None where no kernel takes them yet."""
+    float32, at the width :func:`kernel_head_dim` names (``head_dim`` up
+    to 128); None where no kernel takes them yet."""
     if fn not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
-            or head_dim not in HEAD_DIMS:
+            or kernel_head_dim(head_dim) is None:
         return None
     return {torch.bfloat16: "tensor_cores",
             torch.float32: "cuda_cores"}.get(dtype)
@@ -194,11 +210,10 @@ def _check_head_dim(fn, q):
     """Raise unless ``q`` is (B, H, S, D) with a :func:`path` for wrapper
     ``fn`` and ``q``'s type."""
     if q.dim() != 4 or path(fn, q.dtype, q.shape[-1]) is None:
-        want = " or ".join(f"(B, H, S, {d})" for d in HEAD_DIMS)
         raise ValueError(
-            f"{fn}: q must be {want}, got {tuple(q.shape)}; other head_dims "
-            f"wait for ROADMAP queue C, 'flash head dims other than 64 and "
-            f"128'")
+            f"{fn}: q must be (B, H, S, D) with D <= {HEAD_DIMS[-1]}, got "
+            f"{tuple(q.shape)}; larger head_dims wait for ROADMAP queue C, "
+            f"'flash and paged head dims above 128'")
 
 
 def _check_cuda_args(fn, q, planes, rows):
@@ -234,10 +249,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _padded(width, *tensors):
+    """``tensors`` (None passes through) zero-padded on the last axis to
+    ``width``; a tensor already that wide is returned as it is."""
+    return [t if t is None or t.shape[-1] == width
+            else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
 def _launch(fn, q, causal, sm_scale, *tensors):
     """Launch wrapper ``fn``'s kernel on ``tensors`` (its C entry's pointer
-    arguments, None for a null pointer): the entry :func:`path` names for
-    ``q``; then count the launch on ``fn``."""
+    arguments, None for a null pointer; q and the planes already padded to
+    the kernel's width): the entry :func:`path` names for ``q``; then count
+    the launch on ``fn``."""
     b, h, s, d = q.shape
     tc = path(fn.__name__, q.dtype, d) == "tensor_cores"
     entry = f"bigdl_{fn.__name__}" + ("_tc" if tc else "")
@@ -256,30 +280,39 @@ def _launch(fn, q, causal, sm_scale, *tensors):
         fn.launches += 1
 
 
+# The card branches: checked on the caller's tensors, run at the kernel's
+# width (``sm_scale`` already taken from the true head_dim by the
+# wrappers), outputs sliced back to the true head_dim.
 def _fwd_on_card(q, k, v, causal, sm_scale):
     _check_cuda_args("flash_fwd", q, {"k": k, "v": v}, {})
+    d = q.shape[-1]
+    q, k, v = _padded(kernel_head_dim(d), q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _launch(flash_fwd, q, causal, sm_scale, q, k, v, o, lse)
-    return o, lse
+    return o[..., :d].contiguous(), lse
 
 
 def _dq_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale):
     _check_cuda_args("flash_bwd_dq", q, {"k": k, "v": v, "do": do},
                      {"lse": lse, "delta": delta, "dlse": dlse})
+    d = q.shape[-1]
+    q, k, v, do = _padded(kernel_head_dim(d), q, k, v, do)
     dq = torch.empty_like(q)
     _launch(flash_bwd_dq, q, causal, sm_scale, q, k, v, do, lse, delta,
             dlse, dq)
-    return dq
+    return dq[..., :d].contiguous()
 
 
 def _dkv_on_card(q, k, v, do, lse, delta, dlse, causal, sm_scale):
     _check_cuda_args("flash_bwd_dkv", q, {"k": k, "v": v, "do": do},
                      {"lse": lse, "delta": delta, "dlse": dlse})
+    d = q.shape[-1]
+    q, k, v, do = _padded(kernel_head_dim(d), q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(flash_bwd_dkv, q, causal, sm_scale, q, k, v, do, lse, delta,
             dlse, dk, dv)
-    return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 def flash_fwd(q, k, v, causal=False, sm_scale=None):
@@ -388,5 +421,5 @@ def bytes_and_flops(kernel, q, causal, dlse=False):
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_ref",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "bytes_and_flops",
-           "visible_pairs", "path", "tc_plan", "HEAD_DIMS",
-           "TC_MAX_SMEM"]
+           "visible_pairs", "path", "tc_plan", "kernel_head_dim",
+           "HEAD_DIMS", "TC_MAX_SMEM"]

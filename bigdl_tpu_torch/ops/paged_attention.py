@@ -51,9 +51,12 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# (page_size, head_dim) pairs the CUDA kernel is instantiated for: GPT-2's
-# heads of 64 at pages of 8, 16 (the default) and 32 tokens
-KERNEL_SHAPES = ((8, 64), (16, 64), (32, 64))
+# (page_size, head_dim) pairs the CUDA kernel is instantiated for: pages of
+# 8, 16 (the default) and 32 tokens at every head_dim that is a multiple of
+# 32 up to 128 (GPT-2's 64 among them)
+PAGE_SIZES = (8, 16, 32)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+KERNEL_SHAPES = tuple((ps, d) for d in KERNEL_HEAD_DIMS for ps in PAGE_SIZES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's launch (ops/csrc/paged_attention.cu): CTAs of a cluster (the
@@ -208,9 +211,15 @@ def _check_cuda_args(q, pool, page_table, start):
             or tuple(start.shape) != (b,):
         raise ValueError("paged_pool_attention: page_table must be (B, P) "
                          "and start (B,)")
-    if (k.shape[2], d) not in KERNEL_SHAPES:
-        raise ValueError(f"paged_pool_attention: (page_size, head_dim) = "
-                         f"{(k.shape[2], d)} not in {KERNEL_SHAPES}")
+    if k.shape[2] not in PAGE_SIZES:
+        raise ValueError(f"paged_pool_attention: page_size {k.shape[2]} not "
+                         f"in {PAGE_SIZES}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_pool_attention: head_dim {d} not in "
+                         f"{KERNEL_HEAD_DIMS}; other head dims wait for "
+                         f"ROADMAP queue C, 'flash and paged head dims above "
+                         f"128' (the paged kernel takes multiples of 32 up "
+                         f"to 128)")
 
 
 def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
@@ -338,4 +347,5 @@ def bytes_and_flops(q, pool, page_table, start):
 
 
 __all__ = ["paged_pool_attention", "paged_pool_attention_ref",
-           "bytes_and_flops", "page_split", "paged_plan", "KERNEL_SHAPES"]
+           "bytes_and_flops", "page_split", "paged_plan", "KERNEL_SHAPES",
+           "KERNEL_HEAD_DIMS", "PAGE_SIZES"]

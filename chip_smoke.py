@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``bigdl_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --baseline DIR   # also time DIR's sampler
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -21,9 +22,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
      table entries, shared pages and sentinel tails; decode (C=1, all 8
      slots) and a prefill chunk (C=64, the 4-row prefill window); float32
      (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2); the same
-     cases at pages of 8 and 32 tokens (1024 positions a row) are held to
-     the same tolerances, not timed; at pages of 16 a second call must
-     equal the first bit for bit;
+     cases at pages of 8 and 32 tokens (1024 positions a row), and at
+     pages of 16 with heads of 32, 96 and 128, are held to the same
+     tolerances, not timed; at pages of 16 a second call must equal the
+     first bit for bit;
    * int8 paged attention: the same shapes, page sizes and query types over
      an int8 pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
@@ -32,27 +34,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
      the head axis into 2 and 4 shards (each shard its own contiguous
      pool, all on cuda:0) and launched once per shard through the
      wrapper's ``mesh=`` branch; the joined outputs must equal the
-     unsharded kernel's bit for bit and the plain version within 2e-5;
+     unsharded kernel's bit for bit and the plain version within 2e-5
+     (also at heads of 128, tp 2, held only);
      timed as one sharded call beside the unsharded kernel, both queued
      ahead of the card behind a spin kernel (device time, without the
      host's gaps), the median of three readings with their spread;
-   * fused sampling: 8 x 50257 logits (the row in shared memory; per-row
-     temperatures) and 8 x 128256 (Llama-3's vocabulary: the row in an
-     L2-resident scratch; temperature 0.8), float32 and bfloat16, top_k
-     50, top_p 0.9, one injected gumbel draw; each call on its path's counter; tokens must be
-     identical except on a row whose kept-set boundary lies within 1e-5 of
-     its level (such a row is printed);
+   * fused sampling: 8 x 50257 logits (per-row temperatures) and 8 x
+     128256 (Llama-3's vocabulary; temperature 0.8), both in the cluster's
+     shared memory, float32 and bfloat16, at (top_k, top_p) = (50, 0.9),
+     (50, None), (None, 0.9) and (None, None); tied bfloat16 rows (uniform
+     in [0, 1)) at (50, 0.9) and (2000, 0.9); 2 x 600000 (past MAX_VOCAB:
+     re-read from global memory) at (50, 0.9) and (None, 0.9); one
+     injected gumbel draw a case. Tokens must be identical except on a row
+     whose kept-set boundary lies within 1e-5 of its level (printed); a
+     second call bit-equal; each row alone (S = 1) equal to its token in
+     the batch; the paths the kernel reports equal to the plain version's
+     (the draw alone, the small kept set and the cluster's top-p rounds
+     must all run); each call on its variant's counter. Timed beside the
+     plain version, the PyTorch chain of the same draw
+     (``models.gpt.sample_logits``), and with ``--baseline DIR`` the
+     sampler of the checkout at DIR (the parent commit's), on the same
+     inputs; the bound counts the kept set's noise (``kept_ref``);
    * flash attention (forward, dQ, dK/dV): the training path's (B*H = 96,
      S = 1024, D = 64) causal, one non-causal case with an lse cotangent,
      one ragged causal case (S = 1000) and the path's shape at D = 128,
-     each in float32 (the CUDA-core kernels) and bfloat16 (the tensor-core
+     32 and 80 (those two zero-padded to the 64 and 128 kernels), each in
+     float32 (the CUDA-core kernels) and bfloat16 (the tensor-core
      kernels); each call on the path ``flash_attention.path`` names, and a
-     bfloat16 kernel's second call equal to its first bit for bit. float32
+     bfloat16 kernel's second call (at D 32 and 80 every kernel's) equal
+     to its first bit for bit. float32
      max abs error <= 2e-5 for O and lse and <= 1e-4 for the gradients
      (the same float32 math summed in another order, over up to 1024
      keys); bfloat16 atol = rtol = 2e-2 (outputs rounded to bfloat16, p
-     rounded at a running maximum in the kernel). The path and D = 128
-     cases in both types are timed beside the library yardstick:
+     rounded at a running maximum in the kernel). The path, D = 128, 32
+     and 80 cases in both types are timed beside the library yardstick:
      ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
      backward (one call yields dQ, dK and dV, so both backward rows carry
      that time); the backend that ran is printed;
@@ -274,15 +289,16 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _paged_case(torch, dtype, b, c, starts, tables, seed, int8, ps=16):
-    """Random paged-attention inputs on the card, pages of ``ps`` tokens;
-    an int8 pool is written through the port's ``paged_write_quant`` from
-    random float K/V, every page and offset, as the serving path writes
-    it."""
+def _paged_case(torch, dtype, b, c, starts, tables, seed, int8, ps=16,
+                d=64):
+    """Random paged-attention inputs on the card, pages of ``ps`` tokens,
+    heads of ``d``; an int8 pool is written through the port's
+    ``paged_write_quant`` from random float K/V, every page and offset, as
+    the serving path writes it."""
     from bigdl_tpu_torch.parallel.sequence import (paged_write_index,
                                                    paged_write_quant)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n, h, d = 512, 12, 64
+    n, h = 512, 12
     kw = dict(generator=g, device="cuda", dtype=torch.float32)
     if int8:
         pages = torch.arange(n).repeat_interleave(ps)[None]
@@ -329,6 +345,7 @@ def _tables(lengths, p=64, ps=16, n=512, share=None):
 PAGED_TOL = 2e-5       # float32 bar of the paged kernels (rows 4-6)
 PAGED_TP = (2, 4)      # tp degrees of row 6's kernel check
 PAGE_SIZES = (8, 32)   # the kernel's other page sizes, held, not timed
+PAGED_HEAD_DIMS = (32, 96, 128)    # its other head dims, held at page 16
 READINGS = 3           # timed kernels: readings, the median reported
 
 
@@ -360,23 +377,26 @@ def _paged_cases(ps=16):
 def _paged_kernel(torch, flush, int8):
     """The paged-attention kernel (float pool, or int8 pool) against its
     plain version on :func:`_paged_cases`, float32 and bfloat16 queries,
-    at pages of 16 (timed) and of PAGE_SIZES (held only); returns its
-    ``kernels`` entry, timed on decode float32 at pages of 16."""
+    at pages of 16 (timed at head 64), of PAGE_SIZES, and at page 16 with
+    heads of PAGED_HEAD_DIMS (held only); returns its ``kernels`` entry,
+    timed on decode float32 at pages of 16."""
     from bigdl_tpu_torch.ops import paged_attention as pa
     name = "paged_attention_int8" if int8 else "paged_attention"
     shapes = []
-    for ps, label, case in [(ps, label, case)
-                            for ps in (16, *PAGE_SIZES)
-                            for label, case in _paged_cases(ps)]:
+    shape_list = ([(16, 64)] + [(ps, 64) for ps in PAGE_SIZES]
+                  + [(16, d) for d in PAGED_HEAD_DIMS])
+    for ps, d, label, case in [(ps, d, label, case)
+                               for ps, d in shape_list
+                               for label, case in _paged_cases(ps)]:
         for dtype, tol in ((torch.float32, PAGED_TOL),
                            (torch.bfloat16, 2e-2)):
             q, pool, table, start = _paged_case(
                 torch, dtype, case["b"], case["c"], case["starts"],
                 case["tables"], seed=len(shapes) + 10 * int8, int8=int8,
-                ps=ps)
+                ps=ps, d=d)
             got = pa.paged_pool_attention(q, pool, table, start)
             torch.cuda.synchronize()
-            tag = f"{name} page {ps} {label} {dtype}"
+            tag = f"{name} page {ps} head {d} {label} {dtype}"
             if ps == 16:
                 again = pa.paged_pool_attention(q, pool, table, start)
                 torch.cuda.synchronize()
@@ -395,11 +415,12 @@ def _paged_kernel(torch, flush, int8):
             check(torch.isfinite(got.float()).all().item(),
                   f"{tag}: non-finite output")
             check(ok, f"{tag}: max abs err {max_err} over tolerance {tol}")
-            row = {"page_size": ps, "shape": label, "B": case["b"],
-                   "C": case["c"], "dtype": str(dtype).replace("torch.", ""),
+            row = {"page_size": ps, "head_dim": d, "shape": label,
+                   "B": case["b"], "C": case["c"],
+                   "dtype": str(dtype).replace("torch.", ""),
                    "max_abs_err": max_err, "tolerance": tol}
             shapes.append(row)
-            if ps != 16:
+            if (ps, d) != (16, 64):
                 continue
             nbytes, flops = pa.bytes_and_flops(q, pool, table, start)
             b_ms, b_by = bound(nbytes, flops, dtype)
@@ -495,6 +516,7 @@ def _paged_tp_kernel(torch, flush):
                         for x, p in zip(qs, pools)], 10, flush),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                     "flops": flops})
+    shapes += _paged_tp_head_dim(torch, pa, ModelLayout)
     emit({"phase": "kernels", "kernel": "paged_attention_tp",
           "shards_on": "cuda:0", "shapes": shapes})
     t = shapes[0]                       # tp 2, decode, float32 pool
@@ -510,7 +532,46 @@ def _paged_tp_kernel(torch, flush):
         "launches": 0, "shapes": shapes}
 
 
-def phase_kernels(torch):
+PAGED_TP_HEAD_DIM = 128    # row 6 held at this head dim too, tp 2
+
+
+def _paged_tp_head_dim(torch, pa, ModelLayout):
+    """Row 6 at heads of PAGED_TP_HEAD_DIM, tp 2: float32 and int8 pools,
+    decode and chunk; the joined shards equal the unsharded kernel bit for
+    bit and the plain version within PAGED_TOL. Held, not timed."""
+    rows = []
+    lay = ModelLayout(["cuda:0"] * 2)
+    for int8 in (False, True):
+        for label, case in _paged_cases():
+            q, pool, table, start = _paged_case(
+                torch, torch.float32, case["b"], case["c"], case["starts"],
+                case["tables"], seed=200 + len(rows), int8=int8,
+                d=PAGED_TP_HEAD_DIM)
+            whole = pa.paged_pool_attention(q, pool, table, start)
+            qs, pools = lay.split(q, 1), lay.split_pool(pool)
+            got = torch.cat(pa.paged_pool_attention(
+                qs, pools, [table] * 2, [start] * 2, mesh=lay.devices), 1)
+            torch.cuda.synchronize()
+            tag = (f"paged_attention_tp tp=2 head {PAGED_TP_HEAD_DIM} {label}"
+                   f" {'int8' if int8 else 'float32'}")
+            check(torch.equal(got, whole),
+                  f"{tag}: shards differ from the unsharded kernel by "
+                  f"{float((got - whole).abs().max())}")
+            want = pa.paged_pool_attention_ref(q, pool, table, start)
+            vis = (table[:, 0] < 512)
+            max_err = float((got - want)[vis].abs().max())
+            check(max_err <= PAGED_TOL, f"{tag}: max abs err {max_err} over "
+                                        f"tolerance {PAGED_TOL}")
+            rows.append({"tp": 2, "head_dim": PAGED_TP_HEAD_DIM,
+                         "shape": label, "B": case["b"], "C": case["c"],
+                         "pool": "int8" if int8 else "float32",
+                         "bit_equal_to_unsharded": True,
+                         "max_abs_err": max_err, "tolerance": PAGED_TOL})
+            del q, pool, whole, got, want, qs, pools
+    return rows
+
+
+def phase_kernels(torch, baseline=None):
     flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
                         device="cuda")
     results = {}
@@ -519,93 +580,192 @@ def phase_kernels(torch):
         results[entry["name"]] = entry
     results["paged_attention_tp"] = _paged_tp_kernel(torch, flush)
 
-    results["fused_sampling"] = _sampling_kernel(torch, flush)
+    results["fused_sampling"] = _sampling_kernel(torch, flush, baseline)
     results.update(_flash_kernels(torch, flush))
     results.update(_conv_kernels(torch, flush))
     del flush
     return results
 
 
-# (S, V, per-row temperatures): GPT-2's vocabulary (the row in shared
-# memory) and Llama-3's (above MAX_VOCAB: the row in an L2-resident
-# scratch)
+# (S, V, per-row temperatures): GPT-2's vocabulary and Llama-3's, both in
+# the cluster's shared memory
 SAMPLE_CASES = [(8, 50257, [0.5, 0.8, 1.0, 1.3, 0.7, 0.9, 1.1, 0.6]),
                 (8, 128256, [0.8] * 8)]
-SAMPLE_TOP_K, SAMPLE_TOP_P = 50, 0.9
+# (top_k, top_p): the serving config (the small kept set), top-k alone,
+# top-p alone (the cluster's rounds), and no cut (the draw alone)
+SAMPLE_SETTINGS = [(50, 0.9), (50, None), (None, 0.9), (None, None)]
+# bfloat16 logits uniform in [0, 1) (128 values in [0.5, 1), each about
+# 200 times: ties at the k-th value): k 50 (about 200 kept, the small
+# set) and k 2000 (past SMALL_SET: the cluster's rounds after top-k)
+SAMPLE_TIES = [(50, 0.9), (2000, 0.9)]
+# a row past MAX_VOCAB: the global variant, 2 rows
+SAMPLE_LONG = (2, 600000)
+SAMPLE_EPS = 1e-5     # a kept-set boundary this near its level is excused
 
 
-def _sampling_kernel(torch, flush):
-    """The fused sampler against its plain version at SAMPLE_CASES in
-    float32 and bfloat16, one injected gumbel draw:
-    tokens identical except on a row whose kept-set boundary lies within
-    1e-5 of its level (printed); each call must move its path's counter
-    (``launches`` up to MAX_VOCAB, ``long_row_launches`` above). Each
-    timed. Returns the ``kernels`` entry, timed at 8 x 50257 float32."""
+def _load_module(name, path):
+    """The Python file at ``path``, imported as module ``name``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _baseline_sampler(root):
+    """The fused-sampling wrapper of another checkout at ``root`` (the
+    parent commit's, to time its kernel beside this one in one run), built
+    from that checkout's own sources."""
+    ops = f"{root}/bigdl_tpu_torch/ops"
+    build = _load_module("baseline_build", f"{ops}/_build.py")
+    mod = _load_module("baseline_sampling", f"{ops}/sampling.py")
+    mod._build = build               # its kernel from its own csrc/
+    return mod.fused_sample_logits
+
+
+def _sample_inputs(torch, g, rows, vocab, dtype, ties=False):
+    """Seeded logits (3 x a normal, or uniform in [0, 1) for ties once
+    rounded to bfloat16) and gumbel noise on the card."""
+    from bigdl_tpu_torch.ops import sampling as sm
+    if ties:
+        x = torch.rand((rows, vocab), generator=g, device="cuda")
+    else:
+        x = 3.0 * torch.randn((rows, vocab), generator=g, device="cuda")
+    return x.to(dtype), sm.gumbel_noise((rows, vocab), g, "cuda", dtype)
+
+
+def _sampling_case(torch, flush, baseline, logits, gumbel, temps, top_k,
+                   top_p, label):
+    """One sampler case: the kernel against the plain version (tokens
+    identical except near a kept-set boundary), a second call bit-equal,
+    each row alone (S = 1) equal to its token in the batch, the paths the
+    plain version names, the variant's counter moved once a call; timed
+    beside the plain version, the PyTorch chain of the same draw
+    (``models.gpt.sample_logits``: topk, sort, softmax, cumsum, masks,
+    argmax) and, with ``baseline``, the parent's kernel. Returns its
+    row."""
+    from bigdl_tpu_torch.models.gpt import sample_logits
     from bigdl_tpu_torch.ops import sampling as sm
     fn = sm.fused_sample_logits
+    s_rows, vocab = logits.shape
+    long_row = vocab > sm.MAX_VOCAB
+    paths = torch.full((s_rows,), -1, dtype=torch.int32, device="cuda")
+    before = (fn.launches, fn.long_row_launches)
+    got = fn(logits, gumbel, temps, top_k, top_p, paths=paths)
+    torch.cuda.synchronize()
+    moved = (fn.launches - before[0], fn.long_row_launches - before[1])
+    check(moved == ((0, 1) if long_row else (1, 0)),
+          f"fused sampling {label}: launches moved {moved}")
+    again = fn(logits, gumbel, temps, top_k, top_p)
+    alone = torch.cat([fn(logits[r:r + 1], gumbel[r:r + 1], temps[r:r + 1],
+                          top_k, top_p) for r in range(s_rows)])
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"fused sampling {label}: a second call differs from the first")
+    check(torch.equal(got, alone),
+          f"fused sampling {label}: rows alone give {alone.tolist()}, in the "
+          f"batch {got.tolist()}")
+    want_paths = torch.zeros_like(paths)
+    want = sm.fused_sample_logits_ref(logits, gumbel, temps, top_k, top_p,
+                                      want_paths)
+    check(torch.equal(paths, want_paths),
+          f"fused sampling {label}: paths {paths.tolist()}, the plain "
+          f"version names {want_paths.tolist()}")
+    near = _near_boundary(torch, logits, temps, top_k, top_p, SAMPLE_EPS)
+    diff = (got != want).nonzero().flatten().tolist()
+    for r in diff:
+        print(f"sampling {label}: row {r} differs (kernel {int(got[r])}, "
+              f"plain {int(want[r])}), near boundary {bool(near[r])}",
+              flush=True)
+    bad = [r for r in diff if not near[r]]
+    check(not bad, f"fused sampling {label}: rows {bad} differ away from a "
+                   f"kept-set boundary")
+    kept = int(sm.kept_ref(logits, temps, top_k, top_p).sum())
+    nbytes, flops = sm.bytes_and_flops(logits, top_k, top_p, kept)
+    b_ms, b_by = bound(nbytes, flops, logits.dtype)
+    ms, spread = _steady_ms(torch, lambda: fn(logits, gumbel, temps, top_k,
+                                              top_p), flush)
+    row = {"case": label, "dtype": str(logits.dtype).replace("torch.", ""),
+           "rows": s_rows, "vocab": vocab, "top_k": top_k, "top_p": top_p,
+           "variant": sm.sample_plan(s_rows, vocab)["variant"],
+           "paths": paths.tolist(), "differing_rows": diff,
+           "near_boundary_rows": [r for r in range(s_rows) if near[r]],
+           "kept": kept, "repeats_bitwise": True, "alone_equals_batch": True,
+           "max_abs_err": 0.0 if not diff else float(len(diff)),
+           "ms": ms, "ms_spread": spread,
+           "plain_ms": time_ms(torch, lambda: sm.fused_sample_logits_ref(
+               logits, gumbel, temps, top_k, top_p), 5),
+           "chain_ms": _steady_ms(torch, lambda: sample_logits(
+               logits, gumbel, temps[:, None].to(logits.dtype), top_k,
+               top_p), flush, 20)[0],
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    if baseline is not None:
+        base = baseline(logits, gumbel, temps, top_k, top_p)
+        torch.cuda.synchronize()
+        row["baseline_ms"] = _steady_ms(torch, lambda: baseline(
+            logits, gumbel, temps, top_k, top_p), flush)[0]
+        row["baseline_differing_rows"] = (base != got).nonzero().flatten(
+        ).tolist()
+    return row
+
+
+def _sampling_kernel(torch, flush, baseline=None):
+    """The fused sampler against its plain version: SAMPLE_SETTINGS at
+    SAMPLE_CASES in float32 and bfloat16, SAMPLE_TIES on tied bfloat16
+    rows, and SAMPLE_LONG past MAX_VOCAB, one injected gumbel draw a case
+    (:func:`_sampling_case`); every path (the draw alone, the small kept
+    set, the cluster's rounds) and both variants run. ``baseline``: the
+    parent's wrapper, timed on the same inputs. Returns the ``kernels``
+    entry, timed at the serving config (8 x 50257 float32, top_k 50, top_p
+    0.9)."""
     g = torch.Generator(device="cuda").manual_seed(11)
-    top_k, top_p = SAMPLE_TOP_K, SAMPLE_TOP_P
-    samples = []
+    rows = []
     for s_rows, vocab, row_temps in SAMPLE_CASES:
         temps = torch.tensor(row_temps, device="cuda")
-        long_row = vocab > sm.MAX_VOCAB
         for dtype in (torch.float32, torch.bfloat16):
-            logits = (3.0 * torch.randn((s_rows, vocab), generator=g,
-                                        device="cuda")).to(dtype)
-            gumbel = sm.gumbel_noise((s_rows, vocab), g, "cuda", dtype)
-            before = (fn.launches, fn.long_row_launches)
-            got = fn(logits, gumbel, temps, top_k, top_p)
-            torch.cuda.synchronize()
-            moved = (fn.launches - before[0],
-                     fn.long_row_launches - before[1])
-            check(moved == ((0, 1) if long_row else (1, 0)),
-                  f"fused sampling {s_rows}x{vocab}: launches moved "
-                  f"{moved}")
-            want = sm.fused_sample_logits_ref(logits, gumbel, temps, top_k,
-                                              top_p)
-            near = _near_boundary(torch, logits, temps, top_k, top_p)
-            diff = (got != want).nonzero().flatten().tolist()
-            for r in diff:
-                print(f"sampling {s_rows}x{vocab} {dtype}: row {r} differs "
-                      f"(kernel {int(got[r])}, plain {int(want[r])}), near "
-                      f"boundary {bool(near[r])}", flush=True)
-            bad = [r for r in diff if not near[r]]
-            check(not bad, f"fused sampling {s_rows}x{vocab} {dtype}: rows "
-                           f"{bad} differ away from a kept-set boundary")
-            nbytes, flops = sm.bytes_and_flops(logits, top_k, top_p)
-            b_ms, b_by = bound(nbytes, flops, dtype)
-            ms, spread = _steady_ms(torch, lambda: fn(
-                logits, gumbel, temps, top_k, top_p), flush)
-            plain_ms = time_ms(torch, lambda: sm.fused_sample_logits_ref(
-                logits, gumbel, temps, top_k, top_p), 5)
-            ok_rows = [r for r in range(s_rows) if r not in diff] or [0]
-            samples.append({"dtype": str(dtype).replace("torch.", ""),
-                            "rows": s_rows, "vocab": vocab,
-                            "temperatures": row_temps,
-                            "row_in": "scratch" if long_row
-                            else "shared memory",
-                            "differing_rows": diff,
-                            "max_abs_err": float((got[ok_rows].long()
-                                                  - want[ok_rows].long())
-                                                 .abs().max()),
-                            "ms": ms, "ms_spread": spread,
-                            "plain_ms": plain_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "bytes": nbytes,
-                            "flops": flops})
-            del logits, gumbel, got, want
-    emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": samples})
-    s32 = samples[0]
+            logits, gumbel = _sample_inputs(torch, g, s_rows, vocab, dtype)
+            for top_k, top_p in SAMPLE_SETTINGS:
+                rows.append(_sampling_case(
+                    torch, flush, baseline, logits, gumbel, temps, top_k,
+                    top_p, f"{s_rows}x{vocab} {dtype} k={top_k} p={top_p}"))
+            del logits, gumbel
+    temps = torch.tensor(SAMPLE_CASES[0][2], device="cuda")
+    logits, gumbel = _sample_inputs(torch, g, 8, 50257, torch.bfloat16,
+                                    ties=True)
+    for top_k, top_p in SAMPLE_TIES:
+        rows.append(_sampling_case(
+            torch, flush, baseline, logits, gumbel, temps, top_k, top_p,
+            f"ties 8x50257 bfloat16 k={top_k} p={top_p}"))
+    s_rows, vocab = SAMPLE_LONG
+    temps = torch.full((s_rows,), 0.8, device="cuda")
+    logits, gumbel = _sample_inputs(torch, g, s_rows, vocab, torch.float32)
+    for top_k, top_p in SAMPLE_SETTINGS[:3:2]:
+        rows.append(_sampling_case(
+            torch, flush, baseline, logits, gumbel, temps, top_k, top_p,
+            f"long {s_rows}x{vocab} float32 k={top_k} p={top_p}"))
+    del logits, gumbel
+    paths = {p for r in rows for p in r["paths"]}
+    check(paths == {0, 1, 2}, f"fused sampling: paths {sorted(paths)} ran, "
+                              f"not all of the draw, small set and rounds")
+    emit({"phase": "kernels", "kernel": "fused_sampling", "shapes": rows})
+    t = rows[0]
     return {
         "name": "fused_sampling", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "bigdl_tpu/ops/sampling.py:75",
-        "max_abs_err": max(r["max_abs_err"] for r in samples),
-        "ms": s32["ms"], "ms_spread": s32["ms_spread"],
-        "plain_ms": s32["plain_ms"], "bound_ms": s32["bound_ms"],
-        "bound_by": s32["bound_by"],
-        # no single PyTorch call does top-k + top-p + the gumbel draw
-        "library_ms": None, "timed_shape": "8x50257 float32",
-        "launches": 0, "shapes": samples}
+        # tokens: the count of rows that differ from the plain version
+        # (each near a kept-set boundary), over every case
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": t["ms"], "ms_spread": t["ms_spread"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "chain_ms": t["chain_ms"],
+        "baseline_ms": t.get("baseline_ms"),
+        # no single PyTorch call does top-k + top-p + the gumbel draw;
+        # chain_ms is the chain of calls that does
+        "library_ms": None,
+        "timed_shape": "8x50257 float32 top_k 50 top_p 0.9",
+        "launches": 0, "shapes": rows}
 
 
 FLASH_SOURCE = "bigdl_tpu_torch/ops/csrc/flash_attention.cu"
@@ -621,10 +781,15 @@ FLASH_CASES = [("path", 8, 12, 1024, 64, True, False, ("fwd", "dq", "dkv")),
                ("ragged", 8, 12, 1000, 64, True, False,
                 ("fwd", "dq", "dkv")),
                ("d128", 8, 12, 1024, 128, True, False,
-                ("fwd", "dq", "dkv"))]
+                ("fwd", "dq", "dkv")),
+               # head dims below a built width: zero-padded to 64 and 128
+               ("d32", 8, 12, 1024, 32, True, False, ("fwd", "dq", "dkv")),
+               ("d80", 8, 12, 1024, 80, True, False, ("fwd", "dq", "dkv"))]
 FLASH_DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
-FLASH_TIMED = ("path", "d128")      # the cases timed beside SDPA
+# the cases timed beside SDPA
+FLASH_TIMED = ("path", "d128", "d32", "d80")
+FLASH_HEAD_DIM_CASES = ("d128", "d32", "d80")
 # products of depth D each kernel runs per visible (query, key) pair: the
 # function's two, plus the recomputed S (dQ, dK/dV) and dP (dK/dV). Their
 # time at the peak rate is a floor the kernel cannot go below; the bound
@@ -707,9 +872,10 @@ def _flash_kernels(torch, flush):
                                             rtol=tol) for a, w in outs)
                 check(ok, f"flash {kern} {label} {dname}: max abs err "
                           f"{err} over tolerance {tol}")
-                row = {**case, "path": path, "max_abs_err": err,
-                       "tolerance": tol}
-                if dname == "bfloat16":
+                row = {**case, "path": path,
+                       "launched_head_dim": fa.kernel_head_dim(d),
+                       "max_abs_err": err, "tolerance": tol}
+                if dname == "bfloat16" or d not in fa.HEAD_DIMS:
                     again = calls[kern]()
                     torch.cuda.synchronize()
                     same = all(torch.equal(a, b_) for a, b_ in
@@ -732,10 +898,13 @@ def _flash_kernels(torch, flush):
         timed = {r["dtype"]: r for r in shapes
                  if r["case"] == "path" and "ms" in r}
         t, t32 = timed["bfloat16"], timed["float32"]
-        d128 = {r["dtype"]: {key: r[key] for key in
-                             ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "max_abs_err", "path")}
-                for r in shapes if r["case"] == "d128" and "ms" in r}
+        head_dims = {c: {r["dtype"]: {key: r[key] for key in
+                                      ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "max_abs_err", "path",
+                                       "launched_head_dim")}
+                         for r in shapes if r["case"] == c and "ms" in r}
+                     for c in FLASH_HEAD_DIM_CASES}
         results[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[kern],
@@ -755,7 +924,7 @@ def _flash_kernels(torch, flush):
                         **{key: t32[key] for key in
                            ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "path")}},
-            "d128": d128, "launches": 0, "shapes": shapes}
+            "head_dims": head_dims, "launches": 0, "shapes": shapes}
     return results
 
 
@@ -980,16 +1149,21 @@ def _conv_ragged(torch, g):
 
 def _near_boundary(torch, logits, temps, top_k, top_p, eps=1e-5):
     """Per row: does the kept set's boundary lie within ``eps`` of its
-    level? Top-k: the k-th and (k+1)-th scaled logits nearly tie; top-p:
-    a cumulative softmax mass (after top-k) lies within ``eps`` of p."""
+    level? Top-k (when on): the k-th and (k+1)-th scaled logits nearly tie
+    without being equal; top-p (when on): a cumulative softmax mass (after
+    top-k) lies within ``eps`` of p."""
     l = logits.float() / temps.to(logits.dtype).float()[:, None].clamp_min(
         1e-6)
     srt = torch.sort(l, dim=-1, descending=True).values
-    near = (srt[:, top_k - 1] - srt[:, top_k]).abs() < eps
-    kept = srt[:, :top_k]
-    probs = torch.softmax(kept, dim=-1)
-    cum = torch.cumsum(probs, dim=-1)
-    near |= ((cum - top_p).abs() < eps).any(dim=-1)
+    near = torch.zeros(l.shape[0], dtype=torch.bool, device=l.device)
+    kept = srt
+    if top_k is not None and 0 < top_k < l.shape[1]:
+        gap = srt[:, top_k - 1] - srt[:, top_k]
+        near |= (gap > 0) & (gap < eps)
+        kept = srt[:, :top_k]
+    if top_p is not None and top_p < 1.0:
+        cum = torch.cumsum(torch.softmax(kept, dim=-1), dim=-1)
+        near |= ((cum - top_p).abs() < eps).any(dim=-1)
     return near.cpu().tolist()
 
 
@@ -2017,9 +2191,15 @@ def main():
     # the port itself; outside a checkout of the repo this import fails
     import bigdl_tpu_torch  # noqa: F401
 
+    baseline = None
+    if "--baseline" in sys.argv:
+        # another checkout (the parent commit's) whose sampler is timed
+        # beside this one's
+        baseline = _baseline_sampler(sys.argv[sys.argv.index("--baseline")
+                                              + 1])
     smi = phase_device(torch)
     phase_build()
-    kernels = phase_kernels(torch)
+    kernels = phase_kernels(torch, baseline)
     f32_line, cpu_ref = phase_slice(torch, kernels)
     torch.cuda.empty_cache()
     int8_line = phase_slice_int8(torch, kernels, f32_line)

@@ -178,8 +178,8 @@ def test_cuda_argument_checks_refuse_what_the_kernel_does_not_take():
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fa._check_cuda_args("flash_fwd", q, {"k": q, "v": q}, {})
-    with pytest.raises(ValueError, match=r"\(B, H, S, 64\)"):
-        fa._check_cuda_args("flash_fwd", torch.zeros(1, 2, 8, 32), {}, {})
+    with pytest.raises(ValueError, match=r"\(B, H, S, D\) with D <= 128"):
+        fa._check_cuda_args("flash_fwd", torch.zeros(1, 2, 8, 160), {}, {})
     with pytest.raises(TypeError, match="float16"):
         fa._check_cuda_args("flash_fwd", q.half(), {}, {})
 

@@ -30,21 +30,24 @@ from bigdl_tpu_torch.ops import paged_attention as pa
 DECODE_LEN = [24, 100, 300, 310, 700, 1000, 513, 0]
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("c", [1, 64], ids=["decode", "chunk"])
-def test_splits_depend_on_the_row_alone(c, ps):
+def test_splits_depend_on_the_row_alone(c, ps, d):
     """A row's runs are the same whatever the batch around it, the head
-    count or the head shard (tp 2 and 4 of 12 heads)."""
+    count or the head shard (tp 2 and 4 of 12 heads), and the head size."""
     starts = [max(n - c, 0) for n in DECODE_LEN]
     width = 1024 // ps
-    whole = pa.paged_plan(8, 12, c, 64, ps, width, starts, "float32")
+    whole = pa.paged_plan(8, 12, c, d, ps, width, starts, "float32")
     for h in (12, 6, 3):                       # unsharded, tp 2, tp 4
-        plan = pa.paged_plan(8, h, c, 64, ps, width, starts, "float32")
+        plan = pa.paged_plan(8, h, c, d, ps, width, starts, "float32")
         assert plan["splits"] == whole["splits"]
         assert plan["grid"] == (pa.SPLIT, 8 * h, whole["grid"][2])
     for row, st in enumerate(starts):           # each row alone, B = 1
-        alone = pa.paged_plan(1, 12, c, 64, ps, width, [st], "float32")
+        alone = pa.paged_plan(1, 12, c, d, ps, width, [st], "float32")
         assert alone["splits"] == [whole["splits"][row]]
+    other = pa.paged_plan(8, 12, c, 32, ps, width, starts, "float32")
+    assert other["splits"] == whole["splits"]
 
 
 @pytest.mark.parametrize("npages", [0, 1, 2, 7, 8, 9, 15, 16, 17, 63, 64])
@@ -66,30 +69,42 @@ def test_split_of_the_longest_decode_row():
     assert plan["query_tile"] == 1 and plan["grid"] == (8, 96, 1)
 
 
-# (kv dtype, page size, decode) -> dynamic shared memory bytes:
-# STAGES x (K and V rows of 64 values + 16 bytes [+ 2 scale rows]) +
+# (kv dtype, page size, decode, head dim) -> dynamic shared memory bytes:
+# STAGES x (K and V rows of D values + 16 bytes [+ 2 scale rows]) +
 # queries + partial states + the table row (1024 positions a row: 128 /
 # 64 / 32 int32 entries at pages of 8 / 16 / 32)
-SMEM = {("float32", 16, True): 4 * 2 * 16 * 272 + 256 + 4 * 66 * 4 + 256,
-        ("float32", 32, False): 4 * 2 * 32 * 272 + 4096 + 16 * 66 * 4 + 128,
-        ("bfloat16", 16, False): 4 * 2 * 16 * 144 + 4096 + 16 * 66 * 4 + 256,
-        ("int8", 8, True): 4 * (2 * 8 * 80 + 64) + 256 + 4 * 66 * 4 + 512,
-        ("int8", 32, False): (4 * (2 * 32 * 80 + 256) + 4096 + 16 * 66 * 4
-                              + 128)}
+SMEM = {("float32", 16, True, 64): 4 * 2 * 16 * 272 + 256 + 4 * 66 * 4 + 256,
+        ("float32", 32, False, 64): (4 * 2 * 32 * 272 + 4096 + 16 * 66 * 4
+                                     + 128),
+        ("bfloat16", 16, False, 64): (4 * 2 * 16 * 144 + 4096 + 16 * 66 * 4
+                                      + 256),
+        ("int8", 8, True, 64): 4 * (2 * 8 * 80 + 64) + 256 + 4 * 66 * 4 + 512,
+        ("int8", 32, False, 64): (4 * (2 * 32 * 80 + 256) + 4096
+                                  + 16 * 66 * 4 + 128),
+        # the largest: D 128, pages of 32, a float32 pool, a chunk
+        ("float32", 32, False, 128): (4 * 2 * 32 * 528 + 16 * 128 * 4
+                                      + 16 * 130 * 4 + 128),
+        ("int8", 8, True, 32): 4 * (2 * 8 * 48 + 64) + 128 + 4 * 34 * 4 + 512,
+        ("bfloat16", 16, True, 96): (4 * 2 * 16 * 208 + 384 + 4 * 98 * 4
+                                     + 256)}
 
 
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("decode", [True, False], ids=["decode", "chunk"])
 @pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
-def test_shared_memory_fits_each_instantiation(kv, ps, decode):
+def test_shared_memory_fits_each_instantiation(kv, ps, decode, d):
+    """Every (pool type, page size, decode or chunk, head size) the kernel
+    is instantiated for fits a CTA's 232,448 bytes."""
+    assert (ps, d) in pa.KERNEL_SHAPES
     c = 1 if decode else 64
-    plan = pa.paged_plan(4, 12, c, 64, ps, 1024 // ps, [0, 5, 9, 600], kv)
+    plan = pa.paged_plan(4, 12, c, d, ps, 1024 // ps, [0, 5, 9, 600], kv)
     assert plan["smem_bytes"] <= pa.MAX_SMEM
     assert plan["threads"] == 128 and plan["stages"] == 4
     assert plan["query_tile"] == (1 if decode else 16)
     assert plan["grid"] == (8, 48, 1 if decode else 4)
-    if (kv, ps, decode) in SMEM:
-        assert plan["smem_bytes"] == SMEM[(kv, ps, decode)]
+    if (kv, ps, decode, d) in SMEM:
+        assert plan["smem_bytes"] == SMEM[(kv, ps, decode, d)]
 
 
 # a small pool for the emulation: pages of 8 at D 16, rows whose walks
@@ -219,3 +234,28 @@ def test_split_and_merge_matches_plain_and_pallas(c, int8):
     plan = pa.paged_plan(len(LENGTHS), H, c, D, PS, P, start.tolist(),
                          "float32")
     assert max(hi - lo for lo, hi in plan["splits"][2][0]) >= 3
+
+
+@pytest.mark.parametrize("d,ok", [(32, True), (64, True), (96, True),
+                                  (128, True), (80, False), (160, False),
+                                  (256, False)])
+@pytest.mark.parametrize("int8", [False, True], ids=["float32", "int8"])
+def test_wrapper_takes_the_instantiated_head_dims(int8, d, ok):
+    """The card branch's shape check takes every head size the kernel is
+    built for (multiples of 32 up to 128) and refuses the rest, naming
+    the ROADMAP queue C item."""
+    q = torch.zeros((2, 4, 1, d))
+    table = torch.zeros((2, 3), dtype=torch.int32)
+    start = torch.zeros(2, dtype=torch.int32)
+    dtype = torch.int8 if int8 else torch.float32
+    pool = {"k": torch.zeros((6, 4, 16, d), dtype=dtype),
+            "v": torch.zeros((6, 4, 16, d), dtype=dtype)}
+    if int8:
+        pool.update(k_scale=torch.zeros((6, 4, 16)),
+                    v_scale=torch.zeros((6, 4, 16)))
+    if ok:
+        pa._check_cuda_args(q, pool, table, start)
+    else:
+        with pytest.raises(ValueError, match=r"queue C, 'flash and paged "
+                                             r"head dims above 128'"):
+            pa._check_cuda_args(q, pool, table, start)

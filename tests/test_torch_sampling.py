@@ -8,9 +8,9 @@ see the same gumbel noise: the reference draws it as
 ``jax.random.gumbel(key, shape, dtype)`` inside ``fused_sample_logits``,
 and the test hands the same draw to the port. Tokens are compared for
 equality: no top-p boundary of these seeded rows lies near its level.
-Rows longer than ``MAX_VOCAB`` (60,000 here; Llama-3's 128,256 on the
-card) take the kernel's scratch-row variant, whose launch a fake library
-records on the CPU.
+The kernel's card branch (which variant a row length takes, the C entry's
+arguments) is checked against a fake library on the CPU; the kernel's
+algorithm is emulated in ``test_torch_sample_plan.py``.
 """
 
 import jax
@@ -28,7 +28,7 @@ from bigdl_tpu_torch.ops.sampling import (MAX_VOCAB, fused_sample_logits,
                                           gumbel_noise)
 
 S, V = 8, 97
-LONG_V = 60000        # above MAX_VOCAB: the kernel's scratch-row variant
+LONG_V = 60000        # a row longer than the previous kernel's smem row
 TEMPS = np.array([0.5, 0.8, 1.0, 1.3, 0.7, 0.9, 1.1, 0.6], np.float32)
 
 
@@ -111,15 +111,18 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("vocab,long_row", [(50257, False),
+                                            (128256, False),
                                             (MAX_VOCAB, False),
                                             (MAX_VOCAB + 1, True),
-                                            (128256, True)])
+                                            (600000, True)])
 def test_launch_passes_a_scratch_for_long_rows(monkeypatch, vocab, long_row):
-    """The wrapper's card branch: a row of at most MAX_VOCAB logits stays
-    in the kernel's shared memory (no scratch, ``.launches``); a longer
-    one gets an (S, V) float32 scratch and moves ``.long_row_launches``.
-    Nothing refuses a long row. The library and the card are faked."""
-    assert LONG_V > MAX_VOCAB == 57856
+    """The wrapper's card branch: a row of at most MAX_VOCAB logits
+    (Llama-3's 128,256 among them) lives in the cluster's shared memory
+    (``.launches``); a longer one moves ``.long_row_launches`` and, as
+    every row, takes no scratch: the kernel re-reads it from global
+    memory. Nothing refuses a long row. The C entry gets the row's
+    fixed-point bits. The library and the card are faked."""
+    assert LONG_V < MAX_VOCAB == 428032
     lib = _FakeLib()
     monkeypatch.setattr(sm._build, "load", lambda name, declare: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -139,13 +142,29 @@ def test_launch_passes_a_scratch_for_long_rows(monkeypatch, vocab, long_row):
     out = sm._launch(logits, logits, torch.ones(2), 50, 0.9)
     [(name, args)] = lib.calls
     assert name == "bigdl_fused_sample" and out.shape == (2,)
-    assert args[5:11] == (2, vocab, 50, 0.9, 1, 7)
-    if long_row:
-        [_, scratch] = allocated
-        assert scratch.shape == (2, vocab) and scratch.dtype == torch.float32
-        assert args[4] == scratch.data_ptr()
-    else:
-        assert args[4] is None and len(allocated) == 1
+    assert args[4] is None                       # no paths asked for
+    assert args[5:12] == (2, vocab, 50, 0.9, sm.mass_bits(vocab), 1, 7)
+    [only] = allocated                           # the tokens, no scratch
+    assert only.shape == (2,) and only.dtype == torch.int32
     assert (fused_sample_logits.launches,
             fused_sample_logits.long_row_launches) == (
         (0, 1) if long_row else (1, 0))
+    assert sm.sample_plan(2, vocab)["variant"] == (
+        "global" if long_row else "shared memory")
+
+
+def test_paths_are_checked_and_filled_on_the_cpu():
+    """``paths=`` must be an (S,) int32 tensor on the logits' device; on
+    the CPU the plain version fills in the path the kernel would take."""
+    logits, _, gumbel = _case(4)
+    lt, gt = torch.from_numpy(logits), torch.from_numpy(gumbel)
+    paths = torch.full((S,), -1, dtype=torch.int32)
+    fused_sample_logits(lt, gt, 1.0, 10, 0.9, paths=paths)
+    assert (paths == sm.PATH_SMALL).all()
+    fused_sample_logits(lt, gt, 1.0, None, 0.9, paths=paths)
+    assert (paths == sm.PATH_RADIX).all()
+    fused_sample_logits(lt, gt, 1.0, None, None, paths=paths)
+    assert (paths == sm.PATH_DRAW).all()
+    with pytest.raises(ValueError, match="paths must be"):
+        fused_sample_logits(lt, gt, 1.0, 10, 0.9,
+                            paths=torch.zeros(S, dtype=torch.int64))

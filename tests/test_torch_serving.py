@@ -171,11 +171,12 @@ def test_sub_options_follow_parent(weights, sub, value, parent):
 
 
 def test_kernel_page_sizes():
-    """The paged kernel is built for pages of 8, 16 and 32 at head 64; its
-    wrapper's shape check (the one a card call runs before launching)
-    takes those and refuses page 12."""
+    """The paged kernel is built for pages of 8, 16 and 32 at head sizes
+    32, 64, 96 and 128; its wrapper's shape check (the one a card call
+    runs before launching) takes those pages and refuses page 12."""
     from bigdl_tpu_torch.ops import paged_attention as pa
-    assert pa.KERNEL_SHAPES == ((8, 64), (16, 64), (32, 64))
+    assert pa.KERNEL_SHAPES == tuple((ps, d) for d in (32, 64, 96, 128)
+                                     for ps in (8, 16, 32))
     q = torch.zeros((2, 4, 1, 64))
     table = torch.zeros((2, 3), dtype=torch.int32)
     start = torch.zeros(2, dtype=torch.int32)
