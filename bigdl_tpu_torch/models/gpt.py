@@ -1,6 +1,6 @@
 """Decoder-only transformer, GPT-2 style pre-LN causal LM (the port of
-``bigdl_tpu/models/gpt.py``: the training forward and the paged-serving
-methods).
+``bigdl_tpu/models/gpt.py``: the training forward, the dense K/V-cache
+methods with ``generate``, and the paged-serving methods).
 
 ``GPTForCausalLM.forward(ids)`` is the training path: token and position
 embeddings, the causal blocks (attention through the flash kernels), the
@@ -17,14 +17,25 @@ engine keeps them: masks and write indices are computed on the host
 device needs in a few small copies. Token ids of the decode step may
 already live on the device (the sampler's output).
 
+``GPT.init_cache`` / ``prefill`` / ``decode_step`` are the dense K/V-cache
+path (one ``(B, H, max_position, D)`` buffer pair per layer, written in
+place), which ``GPTForCausalLM.generate`` and the dense serving manager
+(``serving/slots.py``) drive.
+
 ``tp > 1`` builds one tensor-parallel shard of the model (its attention
 heads, its slice of the MLP's inner width and, when the caller gives it
 ``vocab_size / tp`` rows, its slice of the vocabulary);
-``parallel/tensor_parallel.py`` drives the shards. The paged paths are
-written once, over a list of shards (:func:`paged_chunk_states`,
-:func:`paged_step_states`, ``TransformerDecoderBlock.paged_layer``): the
-unsharded model is the list of one. :func:`partition_specs` names each
-parameter's role in ``parallel/layout.py``'s table.
+``parallel/tensor_parallel.py`` drives the shards. The dense and paged
+paths are written once, over a list of shards (:func:`dense_prefill_states`,
+:func:`dense_step_states`, :func:`paged_chunk_states`,
+:func:`paged_step_states`), every block through one layer body
+(:func:`_layers`: each path's attention, then :func:`block_rest`): the
+unsharded model is the list of one. The body's two row-parallel sums
+(``wo`` and ``fc2``) add float partials in shard order, or, for int8
+weights, the shards' int32 accumulators before one dequantising multiply
+(``nn.quantized.qmatmul_row_parallel``), which gives the unsharded int8
+product bit for bit. :func:`partition_specs` names each parameter's role
+in ``parallel/layout.py``'s table.
 """
 
 from __future__ import annotations
@@ -33,13 +44,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.models.spec import spec_config
 from bigdl_tpu_torch.nn import LayerNormalization, Linear
+from bigdl_tpu_torch.nn.quantized import Int8Linear, qmatmul_row_parallel
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.parallel.layout import (SpecLayout, all_reduce_sum,
-                                             broadcast)
+                                             broadcast, reduce_sum)
 from bigdl_tpu_torch.parallel.sequence import (MultiHeadAttention,
                                                paged_write_index)
 from bigdl_tpu_torch.utils.device import resolve_device
+from bigdl_tpu_torch.utils.profiling import DispatchCounters
 from bigdl_tpu_torch.utils.remat import checkpoint
 
 
@@ -76,12 +91,6 @@ class TransformerDecoderBlock(nn.Module):
     def _mlp(self, x):
         return self.fc2(self._inner(x))
 
-    def mlp_partial(self, x):
-        """A shard's MLP without ``fc2``'s bias: its pre-reduction
-        partial, which the caller sums over the shards before adding the
-        bias once."""
-        return F.linear(self._inner(x), self.fc2.weight)
-
     def _drop(self, h, generator):
         """Inverted dropout of ``h`` in training mode with a generator;
         otherwise ``h`` unchanged."""
@@ -96,36 +105,40 @@ class TransformerDecoderBlock(nn.Module):
         x = x + self._drop(self.attn(self.ln1(x)), generator)
         return x + self._drop(self._mlp(x), generator)
 
-    @staticmethod
-    def paged_layer(blocks, pools, xs, index, page_table, start, mesh=None):
-        """One block of the paged chunk and decode paths over its
-        tensor-parallel shards: ``blocks``, ``pools``, ``xs`` (B, C,
-        hidden) and the device-side ``index``, ``page_table`` and
-        ``start`` hold one entry per shard (one entry and ``mesh`` None:
-        the whole block). x += attn(ln1(x)); x += mlp(ln2(x)). Each shard
-        writes its heads' K/V into its pool and computes its queries; the
-        paged-attention kernel then runs once per shard (``mesh``: the
-        shards' devices, ``ops.paged_attention``'s ``mesh=``). The ``wo``
-        and ``fc2`` partials are summed by ``all_reduce_sum`` (the
-        identity for one shard), and a shard's ``fc2`` bias, replicated,
-        is added once after the sum. Returns the per-shard states; the
-        pools are written in place."""
-        qs = [blk.attn.paged_qkv(blk.ln1(x), pool, ix)[0]
-              for blk, x, pool, ix in zip(blocks, xs, pools, index)]
-        if mesh is None:
-            outs = [paged_pool_attention(qs[0], pools[0], page_table[0],
-                                         start[0])]
-        else:
-            outs = paged_pool_attention(qs, pools, page_table, start,
-                                        mesh=mesh)
-        attn = all_reduce_sum([blk.attn.paged_out(o)
-                               for blk, o in zip(blocks, outs)])
-        xs = [x + a for x, a in zip(xs, attn)]
-        if mesh is None:
-            return [xs[0] + blocks[0]._mlp(xs[0])]
-        mlp = all_reduce_sum([blk.mlp_partial(x)
-                              for blk, x in zip(blocks, xs)])
-        return [x + (m + blk.fc2.bias) for x, m, blk in zip(xs, mlp, blocks)]
+
+def _row_parallel(linears, xs):
+    """A row-parallel projection (``wo`` or ``fc2``) of the shards' inputs
+    ``xs`` without its bias, summed over the shards on the first shard's
+    device: float partials added in shard order, or, for ``Int8Linear``
+    shards, :func:`nn.quantized.qmatmul_row_parallel`. The same bits are
+    copied to every shard's device."""
+    if isinstance(linears[0], Int8Linear):
+        y = qmatmul_row_parallel(xs, [lin.weight for lin in linears],
+                                 linears[0].scale)
+    else:
+        y = reduce_sum([F.linear(x, lin.weight)
+                        for lin, x in zip(linears, xs)])
+    return broadcast(y, [x.device for x in xs])
+
+
+def block_rest(blocks, xs, outs):
+    """A block after its attention, over the shards: ``outs`` the shards'
+    attention outputs (B, H_shard, C, D), ``xs`` their residual streams.
+    x += wo(attention); x += fc2(gelu(fc1(ln2(x)))). One shard: the
+    block's own modules. Several: ``wo`` and ``fc2`` row-parallel
+    (:func:`_row_parallel`), the replicated ``fc2`` bias added once after
+    the sum, so every shard keeps the same bits."""
+    if len(blocks) == 1:
+        blk, x = blocks[0], xs[0]
+        x = x + blk.attn.project_heads(outs[0])
+        return [x + blk._mlp(x)]
+    attn = _row_parallel([blk.attn.wo for blk in blocks],
+                         [blk.attn.merge_heads(o)
+                          for blk, o in zip(blocks, outs)])
+    xs = [x + a for x, a in zip(xs, attn)]
+    mlp = _row_parallel([blk.fc2 for blk in blocks],
+                        [blk._inner(x) for blk, x in zip(blocks, xs)])
+    return [x + (m + blk.fc2.bias) for x, m, blk in zip(xs, mlp, blocks)]
 
 
 class GPT(nn.Module):
@@ -172,6 +185,31 @@ class GPT(nn.Module):
                 h = layer(h, generator)
         return self.ln_f(h)
 
+    def init_cache(self, batch, dtype=None):
+        """Per-layer dense K/V buffers sized for the whole position table:
+        ``n_layers`` dicts of (batch, local heads, max_position, head_dim)
+        zeros on the model's device, in ``dtype`` (default the
+        model's)."""
+        dtype = self.tok_emb.dtype if dtype is None else dtype
+        return [l.attn.init_cache(batch, self.max_position, dtype,
+                                  self.device) for l in self.layers]
+
+    def prefill(self, cache, ids, prompt_len, rows=None):
+        """Fill ``cache`` from (bucket-padded) prompts ``ids`` (B, T) in one
+        causal forward (:func:`dense_prefill_states`; ``rows`` as there)
+        and return ``(h_last, cache)``: the final-norm states (B, hidden)
+        at each row's last real position ``prompt_len - 1`` (an int, or
+        one length a row)."""
+        h = dense_prefill_states([self], [cache], ids, rows=rows)
+        return last_valid(h, prompt_len), cache
+
+    def decode_step(self, cache, tok, pos):
+        """One incremental token a row: embed ``tok`` (B,) at ``pos`` (an
+        int, or (B,) host positions), write its K/V at ``pos`` and attend
+        over positions [0, pos] (:func:`dense_step_states`). Returns the
+        (B, hidden) final-norm states and the cache."""
+        return dense_step_states([self], [cache], tok, pos), cache
+
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
         dicts of (num_pages, local heads, page_size, head_dim), in
@@ -181,6 +219,11 @@ class GPT(nn.Module):
         dtype = self.tok_emb.dtype if dtype is None else dtype
         return [l.attn.init_paged_pool(num_pages, page_size, dtype,
                                        self.device) for l in self.layers]
+
+    @staticmethod
+    def cache_planes(cache):
+        """Every tensor of a dense ``cache``, per shard: one shard here."""
+        return [[v for layer in cache for v in layer.values()]]
 
     @staticmethod
     def pool_planes(pools):
@@ -210,9 +253,10 @@ class GPT(nn.Module):
                                  page_size), pools
 
 
-def _paged_embed(gpts, ids, pos, vocab_split):
+def _embed(gpts, ids, pos, vocab_split):
     """Per-shard token plus position embeddings of per-shard ids and
-    clipped positions (the same values on every shard). ``vocab_split``:
+    clipped positions (the same values on every shard; a 0-d position
+    applies to every id). ``vocab_split``:
     shard ``i`` holds rows ``i * rows ... (i + 1) * rows - 1`` of the
     table, looks up the ids it holds (zeros for the rest), and
     ``all_reduce_sum`` joins the lookups (exact: one partial is
@@ -231,14 +275,35 @@ def _paged_embed(gpts, ids, pos, vocab_split):
             for x, g, p in zip(all_reduce_sum(parts), gpts, pos)]
 
 
-def _paged_layers(gpts, pools, xs, index, table, start, mesh):
-    """Every block (``TransformerDecoderBlock.paged_layer``), then the
-    final norm once, on the first shard's device."""
+def _layers(gpts, xs, attend):
+    """Every block over the shards, then the final norm once, on the first
+    shard's device: ``attend(i, blocks, hs)`` gives the shards' attention
+    outputs (B, H_shard, C, D) of ``hs = ln1(x)`` in layer ``i`` (writing
+    their K/V), and :func:`block_rest` does the rest. The one layer body
+    of the dense and the paged paths."""
     for i in range(len(gpts[0].layers)):
-        xs = TransformerDecoderBlock.paged_layer(
-            [g.layers[i] for g in gpts], [p[i] for p in pools], xs, index,
-            table, start, mesh)
+        blocks = [g.layers[i] for g in gpts]
+        outs = attend(i, blocks, [blk.ln1(x) for blk, x in zip(blocks, xs)])
+        xs = block_rest(blocks, xs, outs)
     return gpts[0].ln_f(xs[0])
+
+
+def _paged_attend(pools, index, table, start, mesh):
+    """The paged paths' attention for :func:`_layers`: each shard writes its
+    heads' K/V into its layer pool at ``index`` and computes its queries;
+    the paged-attention kernel then runs once per shard (``mesh``: the
+    shards' devices, ``ops.paged_attention``'s ``mesh=``; None: one
+    unsharded model). ``index``, ``table`` and ``start`` hold one
+    device-side copy per shard."""
+    def attend(i, blocks, hs):
+        layer = [p[i] for p in pools]
+        qs = [blk.attn.paged_qkv(h, pool, ix)[0]
+              for blk, h, pool, ix in zip(blocks, hs, layer, index)]
+        if mesh is None:
+            return [paged_pool_attention(qs[0], layer[0], table[0],
+                                         start[0])]
+        return paged_pool_attention(qs, layer, table, start, mesh=mesh)
+    return attend
 
 
 def paged_chunk_states(gpts, pools, page_table, ids, start, nvalid,
@@ -255,8 +320,8 @@ def paged_chunk_states(gpts, pools, page_table, ids, start, nvalid,
                                        chunk_plan(
         page_table, ids, start, nvalid, write_from, page_size,
         pools[0][0]["k"].shape[0], gpts[0].max_position)]
-    xs = _paged_embed(gpts, ids, pos_c, vocab_split)
-    return _paged_layers(gpts, pools, xs, index, table, start, mesh)
+    xs = _embed(gpts, ids, pos_c, vocab_split)
+    return _layers(gpts, xs, _paged_attend(pools, index, table, start, mesh))
 
 
 def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
@@ -269,8 +334,45 @@ def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
     pos_d, index, table, pos_i = [broadcast(t, devices) for t in decode_plan(
         page_table, pos, page_size, pools[0][0]["k"].shape[0])]
     tok = broadcast(torch.as_tensor(tok).long(), devices)
-    xs = [x[:, None, :] for x in _paged_embed(gpts, tok, pos_d, vocab_split)]
-    return _paged_layers(gpts, pools, xs, index, table, pos_i, mesh)[:, 0]
+    xs = [x[:, None, :] for x in _embed(gpts, tok, pos_d, vocab_split)]
+    return _layers(gpts, xs, _paged_attend(pools, index, table, pos_i,
+                                           mesh))[:, 0]
+
+
+def dense_prefill_states(gpts, caches, ids, rows=None, mesh=None,
+                         vocab_split=False):
+    """The dense prefill over tensor-parallel shards: ``gpts`` (one ``GPT``
+    per shard; ``[model.gpt]`` unsharded), ``caches`` (per shard, then per
+    layer), ``mesh`` the shards' devices (None: the first GPT's), token
+    ids (B, T) at positions [0, T). Each layer writes the K/V of every
+    position into its cache (``rows`` None: row ``i`` into cache row
+    ``i``; else the host (n,) cache rows that ids' first n rows land in,
+    the rest padding) and attends causally
+    (``MultiHeadAttention.prefill_heads``). Returns the (B, T, hidden)
+    final-norm states on the first shard's device."""
+    devices = mesh or [gpts[0].device]
+    ids = broadcast(_host(ids), devices)
+    pos = broadcast(torch.arange(ids[0].shape[1]), devices)
+    rows = None if rows is None else broadcast(_host(rows), devices)
+    xs = _embed(gpts, ids, pos, vocab_split)
+    return _layers(gpts, xs, lambda i, blocks, hs: [
+        blk.attn.prefill_heads(h, c[i], None if rows is None else rows[j])
+        for j, (blk, h, c) in enumerate(zip(blocks, hs, caches))])
+
+
+def dense_step_states(gpts, caches, tok, pos, mesh=None, vocab_split=False):
+    """The dense decode step over shards (arguments as
+    :func:`dense_prefill_states`): ``tok`` (B,) on any device (the
+    sampler's output), ``pos`` an int (every row's position) or host (B,)
+    positions. Returns the (B, hidden) final-norm states on the first
+    shard's device."""
+    devices = mesh or [gpts[0].device]
+    tok = broadcast(torch.as_tensor(tok).long(), devices)
+    pos = broadcast(_host(pos), devices)
+    xs = [x[:, None, :] for x in _embed(gpts, tok, pos, vocab_split)]
+    return _layers(gpts, xs, lambda i, blocks, hs: [
+        blk.attn.decode_heads(h, c[i], p)
+        for blk, h, c, p in zip(blocks, hs, caches, pos)])[:, 0]
 
 
 def chunk_plan(page_table, ids, start, nvalid, write_from, page_size,
@@ -414,6 +516,112 @@ class GPTForCausalLM(nn.Module):
     def _lm_logits(self, h):
         """(..., hidden) -> (..., vocab) through the tied head."""
         return F.linear(h, self.gpt.tok_emb)
+
+    @property
+    def decode_stats(self):
+        """``generate``'s counters on the dense cache path (a
+        ``DispatchCounters``): ``prefill_traces``, the prefill passes run
+        (one per call); ``decode_traces``, the decode loops run (one per
+        call); ``dispatches``, their sum (two per call, as the reference's
+        two jitted halves). Eager PyTorch compiles nothing, so unlike the
+        reference's trace counts these grow on every call. The sliding
+        fallback counts nothing, as in the reference."""
+        stats = getattr(self, "_decode_stats", None)
+        if stats is None:
+            stats = self._decode_stats = DispatchCounters("prefill_traces",
+                                                          "decode_traces")
+        return stats
+
+    def _next_tokens(self, logits, greedy, temperature, generator, top_k,
+                     top_p):
+        """(B,) int32 tokens of (B, vocab) logits: argmax (first index on
+        ties) when greedy, else the fused sampler (its kernel on the card)
+        over gumbel noise from ``generator``."""
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        dev = logits.device
+        noise = gumbel_noise(logits.shape, generator, dev, logits.dtype)
+        temps = torch.full((logits.shape[0],), max(float(temperature), 1e-6),
+                           dtype=torch.float32, device=dev)
+        return fused_sample_logits(logits, noise, temps, top_k, top_p)
+
+    @torch.no_grad()
+    def generate(self, ids, n_new, temperature=0.0, generator=None,
+                 top_k=None, top_p=None, spec_tokens=None):
+        """``ids`` (B, T) (or (T,)) followed by ``n_new`` generated tokens,
+        as a (B, T + n_new) int32 CPU tensor: greedy at temperature 0, else
+        temperature / top-k / top-p sampling through the fused sampler
+        with gumbel noise from ``generator`` (a ``torch.Generator`` on the
+        model's device; None: one seeded 0).
+
+        K/V-cache decoding, as the reference: the prompt is right-padded
+        to its ``prompt_bucket`` and prefilled in one causal forward
+        (``GPT.prefill``; flash on the card where ``flash_profitable``
+        holds), then the decode loop emits the tokens one at a time
+        against the dense cache (``GPT.decode_step``): the prefill's
+        logits give the first, each of ``n_new - 1`` decode steps the
+        next. A generation that would pass ``max_position`` takes
+        :meth:`_generate_sliding`. Speculative decoding (``spec_tokens >
+        1``, or ``BIGDL_TPU_SPEC_DECODE``) on the greedy path is ROADMAP
+        queue A.5 and raises; sampled generation ignores it, as the
+        reference does."""
+        ids = torch.as_tensor(ids).to("cpu", torch.int32)
+        if ids.dim() == 1:
+            ids = ids[None]
+        if n_new <= 0:
+            return ids
+        greedy = temperature is None or float(temperature) <= 0.0
+        gamma = (max(int(spec_tokens), 1) if spec_tokens is not None
+                 else spec_config())
+        if greedy and gamma > 1:
+            raise NotImplementedError(
+                "generate(spec_tokens > 1): speculative decoding is not "
+                "ported yet (ROADMAP queue A.5 speculative decoding)")
+        dev = self.device
+        if generator is None and not greedy:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+        b, t = ids.shape
+        gpt = self.gpt
+        if t + n_new > gpt.max_position:
+            return self._generate_sliding(ids, n_new, temperature,
+                                          generator, top_k, top_p)
+        bucket = prompt_bucket(t, gpt.max_position)
+        padded = torch.zeros((b, bucket), dtype=torch.int32)
+        padded[:, :t] = ids
+        cache = gpt.init_cache(b)
+        h, cache = gpt.prefill(cache, padded, t)
+        logits = self._lm_logits(h)
+        self.decode_stats.tick("prefill_traces")
+        toks = []
+        for step in range(n_new):
+            tok = self._next_tokens(logits, greedy, temperature, generator,
+                                    top_k, top_p)
+            toks.append(tok)
+            if step + 1 < n_new:
+                h, cache = gpt.decode_step(cache, tok, t + step)
+                logits = self._lm_logits(h)
+        self.decode_stats.tick("decode_traces")
+        return torch.cat([ids, torch.stack(toks, 1).cpu()], 1)
+
+    @torch.no_grad()
+    def _generate_sliding(self, ids, n_new, temperature, generator,
+                          top_k=None, top_p=None):
+        """Full-recompute decoding over the last ``max_position`` tokens,
+        one forward (``GPT.forward``: flash on the card) a token, for
+        generations that pass ``max_position`` (a static cache cannot
+        shift positions). ``ids``: (B, T) int32 on the CPU; returns (B, T
+        + n_new) int32 on the CPU."""
+        window = self.gpt.max_position
+        greedy = temperature is None or float(temperature) <= 0.0
+        cur = ids.to(self.device, torch.long)
+        for _ in range(n_new):
+            h = self.gpt(cur[:, -window:])
+            logits = self._lm_logits(h[:, -1])
+            tok = self._next_tokens(logits, greedy, temperature, generator,
+                                    top_k, top_p)
+            cur = torch.cat([cur, tok[:, None].long()], 1)
+        return cur.cpu().to(torch.int32)
 
 
 def gpt2_small(**kw):

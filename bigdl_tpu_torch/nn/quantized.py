@@ -9,6 +9,15 @@
   batch, so rows of one dispatch share a scale), the product runs int8 x
   int8 -> int32 (``torch._int_mm``; the reference leaves this plain
   product to XLA's ``dot_general``), then ``acc.float() * (sx * scale)``;
+- :func:`qmatmul_row_parallel`: ``qmatmul`` of a row-parallel layer
+  (``wo``, ``fc2``) over its tensor-parallel shards, as GSPMD runs the
+  reference's: one amax over the whole activation (the max of the
+  shards' amaxes), the shards' int32 accumulators summed in shard order,
+  one dequantising multiply. Every step is exact, so it gives the
+  unsharded product bit for bit. A column-parallel layer (``wq``, ``wk``,
+  ``wv``, ``fc1``) needs nothing of its own: each shard quantises its
+  replicated input alone, against the same amax, and holds its rows of
+  the weight and of ``scale``;
 - :class:`Int8Linear`: a ``Linear`` with an int8 ``weight`` buffer (torch's
   ``(out, in)`` layout) and a float32 per-output-channel ``scale``; the
   bias stays float and is added after the dequantising multiply;
@@ -95,6 +104,32 @@ def qmatmul(x, q, scale):
 qmatmul.calls = 0
 
 
+def qmatmul_row_parallel(xs, qs, scale):
+    """``sum_i xs[i] @ W_i`` for a row-parallel int8 weight split over its
+    shards: ``xs[i]`` (..., in_i) and ``qs[i]`` int8 (out, in_i) on shard
+    ``i``'s device, ``scale`` (out,) float32, whole on every shard (the
+    first shard's copy is read). One activation scale from the max of the
+    shards' amaxes; each shard's int8 product into int32; the int32 sum
+    in shard order on the first shard's device; then ``acc.float() * (sx
+    * scale)`` once, as :func:`qmatmul`. Returns it there, float32 (or
+    ``xs[0].dtype`` for a low-precision float input). ``qmatmul.calls``
+    counts each shard's product."""
+    root = xs[0].device
+    amax = torch.stack([x.abs().amax().float().to(root) for x in xs]).amax()
+    sx = scale_of(amax)
+    acc = None
+    for x, q in zip(xs, qs):
+        xq = _quantize_with_scale(x, sx.to(x.device))
+        part = _int_mm(xq.reshape(-1, x.shape[-1]), q.t()).to(root)
+        acc = part if acc is None else acc + part
+        qmatmul.calls += 1
+    y = acc.float() * (sx * scale.to(root))
+    x = xs[0]
+    if x.is_floating_point() and x.dtype != y.dtype:
+        y = y.to(x.dtype)
+    return y.reshape(*x.shape[:-1], qs[0].shape[0])
+
+
 class Int8Linear(nn.Module):
     """``Linear`` served from int8 weights (see module docstring). Buffers
     ``weight`` int8 (out, in) and ``scale`` float32 (out,); ``bias`` a
@@ -150,4 +185,5 @@ def quantize_model(model):
     return model
 
 
-__all__ = ["quantize_array", "qmatmul", "Int8Linear", "quantize_model"]
+__all__ = ["quantize_array", "qmatmul", "qmatmul_row_parallel",
+           "Int8Linear", "quantize_model"]

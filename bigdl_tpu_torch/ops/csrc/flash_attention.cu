@@ -1,15 +1,17 @@
 // Flash attention for Hopper (sm_90a): the FlashAttention-2 forward and its
 // two backward kernels (dQ; dK with dV), causal or full, over (B*H, S, D)
-// tensors at D = 64 or 128, in two hand-written paths: tensor-core kernels
-// (wgmma) for bfloat16, and CUDA-core kernels for float32.
+// tensors, in two hand-written paths: tensor-core kernels (wgmma) for
+// bfloat16 at D = 64 or 128, and CUDA-core kernels for float32 at D = 64,
+// 128 or 256 and for bfloat16 at D = 256.
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/flash_attention.py:
 //   forward <- `_fwd_kernel` (:45), launched by `_fwd` (:89):
-//     bf16: flash_fwd_tc_kernel<D, CAUSAL>; f32: flash_fwd_kernel<D, CAUSAL>
+//     bf16: flash_fwd_tc_kernel<D, CAUSAL>; f32 (and bf16 at D = 256):
+//     flash_fwd_kernel<T, D, CAUSAL>
 //   dQ      <- `_bwd_dq_kernel` (:120), `_bwd_impl` call :217:
-//     bf16: flash_bwd_dq_tc_kernel<D, CAUSAL>; f32: flash_bwd_dq_kernel
+//     bf16: flash_bwd_dq_tc_kernel<D, CAUSAL>; else flash_bwd_dq_kernel
 //   dK/dV   <- `_bwd_dkv_kernel` (:159), `_bwd_impl` call :238:
-//     bf16: flash_bwd_dkv_tc_kernel<D, CAUSAL>; f32: flash_bwd_dkv_kernel
+//     bf16: flash_bwd_dkv_tc_kernel<D, CAUSAL>; else flash_bwd_dkv_kernel
 //
 // What they compute, per b*h, with s = (q . k) * scale set to NEG_INF where
 // a key is not visible (causal: key > query; ragged tail: key >= S):
@@ -87,26 +89,34 @@
 // consumer warpgroups in ping-pong so that one's softmax overlaps the
 // other's products, and persistent CTAs.
 //
-// The CUDA-core kernels (float32, D = 64 or 128):
-// - one CTA of 256 threads per (b*h, 64-row tile). The forward and dQ own a
-//   query tile and loop over key tiles, up to the diagonal when causal (the
-//   reference's ((qi+1)*bq + bk - 1)//bk with bq = bk = 64); dK/dV owns a
-//   key tile and loops over query tiles from the diagonal (the reference's
-//   (ki*bk)//bq) to the end. No atomics: every output element has exactly
-//   one writer, so results repeat bit for bit from run to run.
+// The CUDA-core kernels (float32 at D = 64, 128 or 256; bfloat16 at D =
+// 256, where a tensor-core plan would need another register budget: the
+// dK/dV tensor-core kernel already takes 253 registers at D = 128):
+// - one CTA of 256 threads per (b*h, R-row tile), R = 64 up to D = 128 and
+//   32 at D = 256 (three 64-row float32 tiles of D = 256 would take 195 KB
+//   alone). The forward and dQ own a query tile and loop over key tiles,
+//   up to the diagonal when causal (the reference's ((qi+1)*bq + bk - 1)//bk
+//   with bq = bk = R); dK/dV owns a key tile and loops over query tiles from
+//   the diagonal (the reference's (ki*bk)//bq) to the end. No atomics: every
+//   output element has exactly one writer, so results repeat bit for bit
+//   from run to run.
+// - bfloat16 inputs are read into the float32 tiles and every product runs
+//   in float32; p and ds are rounded to bfloat16 where the reference rounds
+//   them (before the P.V, P^T.dO, dS.K and dS^T.Q products), and the
+//   outputs are rounded to bfloat16.
 // - tiles are staged in shared memory as float32 rows padded to D + 4
 //   floats, so a half-warp's float4 reads of 16 rows take two wavefronts
 //   (the least for 256 bytes) and two rows D + 4 floats apart never
 //   collide. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*i
-//   (i < 4) of a 64x64 score tile and its columns tx + 16*j (j < 4); of a
-//   64xD output tile it owns the same rows and the columns 64*g + 4*tx ..
-//   64*g + 4*tx + 3 (g < D / 64: 4 columns at D = 64, 8 at 128). Each
-//   inner step of a score tile reads 8 float4 for 64 FMAs. Softmax row
-//   reductions are four xor-shuffles inside a half-warp.
+//   (i < R / 16) of an RxR score tile and its columns tx + 16*j (j < R /
+//   16); of an RxD output tile it owns the same rows and the columns 64*g +
+//   4*tx .. 64*g + 4*tx + 3 (g < D / 64: 4 columns at D = 64, 8 at 128, 16
+//   at 256). Each inner step of a 64x64 score tile reads 8 float4 for 64
+//   FMAs. Softmax row reductions are four xor-shuffles inside a half-warp.
 // - m, l and the output accumulators live in registers for the whole loop;
 //   P (or dS) goes through shared memory once per tile, for the second
 //   product. At D = 128 the staged tiles take 135-204 KB of dynamic shared
-//   memory, one CTA an SM.
+//   memory, at D = 256 133-200 KB, one CTA an SM.
 // - the heaviest tiles launch first: under causal masking the last query
 //   tiles (forward, dQ) and the first key tiles (dK/dV) do the most work.
 // float32 stays on the CUDA cores rather than TF32 tensor cores, to keep
@@ -122,22 +132,51 @@
 namespace bigdl {
 namespace {
 
-constexpr int kT = 64;            // rows of a query tile and of a key tile
-constexpr int kThreads = 256;
-static_assert(kT == 64 && kThreads == 256,
-              "the thread-to-tile map assumes 16x16 threads on 64x64 tiles");
+constexpr int kThreads = 256;     // 16 x 16 threads a CTA
 
+// rows of a query tile and of a key tile: 64 up to D = 128; 32 at D = 256,
+// where three 64-row float32 tiles alone would fill a CTA's shared memory
+__host__ __device__ constexpr int cc_rows(int d) { return d <= 128 ? 64 : 32; }
 // padded shared-memory row of a staged tile, and one staged tile, in floats
 __host__ __device__ constexpr int row_str(int d) { return d + 4; }
 __host__ __device__ constexpr int tile_floats(int d) {
-  return kT * row_str(d);
+  return cc_rows(d) * row_str(d);
 }
+static_assert(kThreads == 256,
+              "the thread-to-tile map assumes 16x16 threads on RxR tiles");
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// a product's operand rounded to the input type, as the reference rounds p
+// and ds (the identity for float32)
+template <typename T>
+__device__ __forceinline__ float as_operand(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float as_operand<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float comp(const float4& x, int c) {
@@ -157,13 +196,14 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + kT) of a (S, D) matrix, zeros past S.
-template <int D>
+// Stage rows [row0, row0 + R) of a (S, D) matrix as float32, zeros past S.
+template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int row0, int S) {
+  constexpr int R = cc_rows(D);
 #pragma unroll
-  for (int it = 0; it < kT * D / 4 / kThreads; ++it) {
+  for (int it = 0; it < R * D / 4 / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -172,26 +212,26 @@ __device__ __forceinline__ void load_tile(float* dst,
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d]: a 64x64 tile of A.B^T
-template <int D>
-__device__ __forceinline__ void mm_abt(float (&acc)[4][4], const float* A,
+// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d]: an RxR tile of A.B^T
+template <int D, int RI = cc_rows(D) / 16>
+__device__ __forceinline__ void mm_abt(float (&acc)[RI][RI], const float* A,
                                        const float* B, int tx, int ty) {
   constexpr int kStr = row_str(D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[RI], b[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + d);
+    for (int i = 0; i < RI; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = load4(B + (tx + 16 * j) * kStr + d);
+    for (int j = 0; j < RI; ++j) b[j] = load4(B + (tx + 16 * j) * kStr + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
         acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
         acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
@@ -200,25 +240,25 @@ __device__ __forceinline__ void mm_abt(float (&acc)[4][4], const float* A,
   }
 }
 
-// acc[i][4g + e] += sum_c A[ty + 16i][c] * B[c][64g + 4tx + e]: a 64xD
-// tile of A.B (A a 64x64 tile)
-template <int D>
-__device__ __forceinline__ void mm_ab(float (&acc)[4][D / 16],
+// acc[i][4g + e] += sum_c A[ty + 16i][c] * B[c][64g + 4tx + e]: an RxD
+// tile of A.B (A an RxR tile)
+template <int D, int RI = cc_rows(D) / 16>
+__device__ __forceinline__ void mm_ab(float (&acc)[RI][D / 16],
                                       const float* A, const float* B, int tx,
                                       int ty) {
   constexpr int kStr = row_str(D);
 #pragma unroll 2
-  for (int c = 0; c < kT; c += 4) {
-    float4 a[4];
+  for (int c = 0; c < cc_rows(D); c += 4) {
+    float4 a[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + c);
+    for (int i = 0; i < RI; ++i) a[i] = load4(A + (ty + 16 * i) * kStr + c);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
       for (int g = 0; g < D / 64; ++g) {
         const float4 b = load4(B + (c + cc) * kStr + 64 * g + 4 * tx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float w = comp(a[i], cc);
           acc[i][4 * g] = fmaf(w, b.x, acc[i][4 * g]);
           acc[i][4 * g + 1] = fmaf(w, b.y, acc[i][4 * g + 1]);
@@ -230,15 +270,15 @@ __device__ __forceinline__ void mm_ab(float (&acc)[4][D / 16],
   }
 }
 
-// this thread's share of a 64xD tile, row i's values times mul[i], out to
-// rows row0 + ty + 16i below S of a (S, D) matrix
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float (&acc)[4][D / 16],
-                                           const float (&mul)[4], int row0,
+// this thread's share of an RxD tile, row i's values times mul[i], out to
+// rows row0 + ty + 16i below S of a (S, D) matrix of the output type
+template <int D, typename T, int RI = cc_rows(D) / 16>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const float (&acc)[RI][D / 16],
+                                           const float (&mul)[RI], int row0,
                                            int S, int tx, int ty) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = row0 + ty + 16 * i;
     if (r < S) {
 #pragma unroll
@@ -251,15 +291,18 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
   }
 }
 
-// CTAs an SM the float32 kernels budget registers for: two at D = 64, one
-// at D = 128 (whose staged tiles take 135-204 KB of shared memory)
+// CTAs an SM the CUDA-core kernels budget registers for: two at D = 64, one
+// above (whose staged tiles take 133-204 KB of shared memory)
 __host__ __device__ constexpr int cc_ctas(int d) { return d == 64 ? 2 : 1; }
 
-template <int D, bool CAUSAL>
+// T: the inputs' and outputs' type (float, or bfloat16 at D = 256, read
+// into float32 tiles); lse, delta and dlse are float32.
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, cc_ctas(D))
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int S, float scale) {
+  constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -267,15 +310,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kTile;
   float* ps = vs + kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nt = (S + kT - 1) / kT;
+  const int nt = (S + R - 1) / R;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
-  const int q0 = qt * kT;
+  const int q0 = qt * R;
   const int64_t base = (int64_t)blockIdx.x * S * D;
 
   load_tile<D>(qs, q + base, q0, S);
-  float m[4], l[4], acc[4][D / 16];
+  float m[RI], l[RI], acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -285,18 +328,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's P.V is done with ks, vs, ps
-    load_tile<D>(ks, k + base, kt * kT, S);
-    load_tile<D>(vs, v + base, kt * kT, S);
+    load_tile<D>(ks, k + base, kt * R, S);
+    load_tile<D>(vs, v + base, kt * R, S);
     __syncthreads();
-    float s[4][4];
+    float s[RI][RI];
     mm_abt<D>(s, qs, ks, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kt * kT + tx + 16 * j;
+      for (int j = 0; j < RI; ++j) {
+        const int c = kt * R + tx + 16 * j;
         const bool seen = c < S && (!CAUSAL || c <= r);
         s[i][j] = seen ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -305,10 +348,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = expf(s[i][j] - m_new);
         psum += p;
-        ps[(ty + 16 * i) * kStr + tx + 16 * j] = p;
+        ps[(ty + 16 * i) * kStr + tx + 16 * j] = as_operand<T>(p);
       }
       l[i] = l[i] * alpha + row_sum(psum);
 #pragma unroll
@@ -319,9 +362,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mm_ab<D>(acc, ps, vs, tx, ty);
   }
 
-  float inv[4];
+  float inv[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
     const float ll = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / ll;
@@ -330,15 +373,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<D>(o + base, acc, inv, q0, S, tx, ty);
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, cc_ctas(D))
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const float* __restrict__ dlse, float* __restrict__ dq,
+                    const float* __restrict__ dlse, T* __restrict__ dq,
                     int S, float scale) {
+  constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -347,17 +390,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kTile;
   float* dss = vs + kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nt = (S + kT - 1) / kT;
+  const int nt = (S + R - 1) / R;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
-  const int q0 = qt * kT;
+  const int q0 = qt * R;
   const int64_t base = (int64_t)blockIdx.x * S * D;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
   load_tile<D>(qs, q + base, q0, S);
   load_tile<D>(dos, dout + base, q0, S);
-  float lse_r[4], delta_r[4], dlse_r[4], acc[4][D / 16];
+  float lse_r[RI], delta_r[RI], dlse_r[RI], acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
     const bool in = r < S;
     lse_r[i] = in ? lse[rbase + r] : 0.f;
@@ -370,41 +413,43 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's dS.K is done with ks, vs, dss
-    load_tile<D>(ks, k + base, kt * kT, S);
-    load_tile<D>(vs, v + base, kt * kT, S);
+    load_tile<D>(ks, k + base, kt * R, S);
+    load_tile<D>(vs, v + base, kt * R, S);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
     mm_abt<D>(s, qs, ks, tx, ty);
     mm_abt<D>(dp, dos, vs, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = kt * kT + tx + 16 * j;
+      for (int j = 0; j < RI; ++j) {
+        const int c = kt * R + tx + 16 * j;
         const bool seen = c < S && (!CAUSAL || c <= r);
         const float p = expf((seen ? s[i][j] * scale : kNegInf) - lse_r[i]);
         dss[(ty + 16 * i) * kStr + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i] + dlse_r[i]) * scale;
+            as_operand<T>(p * (dp[i][j] - delta_r[i] + dlse_r[i]) * scale);
       }
     }
     __syncthreads();
     mm_ab<D>(acc, dss, ks, tx, ty);
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
   store_rows<D>(dq + base, acc, one, q0, S, tx, ty);
 }
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, cc_ctas(D))
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const float* __restrict__ dlse, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, float scale) {
+                     const float* __restrict__ dlse, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, float scale) {
+  constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
@@ -414,28 +459,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ps = dos + kTile;
   float* dss = ps + kTile;
   float* lse_s = dss + kTile;  // lse, delta, dlse of the query tile's rows
-  float* delta_s = lse_s + kT;
-  float* dlse_s = delta_s + kT;
+  float* delta_s = lse_s + R;
+  float* dlse_s = delta_s + R;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nt = (S + kT - 1) / kT;
-  const int k0 = blockIdx.y * kT;  // causal: the first key tiles do the most
+  const int nt = (S + R - 1) / R;
+  const int k0 = blockIdx.y * R;  // causal: the first key tiles do the most
   const int64_t base = (int64_t)blockIdx.x * S * D;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
   load_tile<D>(ks, k + base, k0, S);
   load_tile<D>(vs, v + base, k0, S);
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[RI][D / 16], dv_acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int e = 0; e < D / 16; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   for (int qt = CAUSAL ? blockIdx.y : 0; qt < nt; ++qt) {
-    const int q0 = qt * kT;
+    const int q0 = qt * R;
     __syncthreads();  // the previous tile's products are done with its tiles
     load_tile<D>(qs, q + base, q0, S);
     load_tile<D>(dos, dout + base, q0, S);
-    if (threadIdx.x < kT) {
+    if (threadIdx.x < R) {
       const int r = q0 + threadIdx.x;
       const bool in = r < S;
       lse_s[threadIdx.x] = in ? lse[rbase + r] : 0.f;
@@ -444,35 +489,37 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     // transposed tiles: rows are keys (ty + 16i), columns queries (tx + 16j)
-    float p[4][4], dp[4][4];
+    float p[RI][RI], dp[RI][RI];
     mm_abt<D>(p, ks, qs, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int c = k0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = q0 + tx + 16 * j;
         const bool seen = r < S && c < S && (!CAUSAL || c <= r);
         const float sv = seen ? p[i][j] * scale : kNegInf;
         p[i][j] = expf(sv - lse_s[tx + 16 * j]);
-        ps[(ty + 16 * i) * kStr + tx + 16 * j] = p[i][j];
+        ps[(ty + 16 * i) * kStr + tx + 16 * j] = as_operand<T>(p[i][j]);
       }
     }
     mm_abt<D>(dp, vs, dos, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = tx + 16 * j;
-        dss[(ty + 16 * i) * kStr + r] =
-            p[i][j] * (dp[i][j] - delta_s[r] + dlse_s[r]) * scale;
+        dss[(ty + 16 * i) * kStr + r] = as_operand<T>(
+            p[i][j] * (dp[i][j] - delta_s[r] + dlse_s[r]) * scale);
       }
     __syncthreads();
     mm_ab<D>(dv_acc, ps, dos, tx, ty);
     mm_ab<D>(dk_acc, dss, qs, tx, ty);
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
   store_rows<D>(dk + base, dk_acc, one, k0, S, tx, ty);
   store_rows<D>(dv + base, dv_acc, one, k0, S, tx, ty);
 }
@@ -1168,70 +1215,90 @@ __host__ __device__ constexpr int dq_smem(int d) {
   return 5 * tile_floats(d) * (int)sizeof(float);
 }
 __host__ __device__ constexpr int dkv_smem(int d) {
-  return (6 * tile_floats(d) + 3 * kT) * (int)sizeof(float);
+  return (6 * tile_floats(d) + 3 * cc_rows(d)) * (int)sizeof(float);
 }
-static_assert(dkv_smem(128) <= kMaxSmem,
+static_assert(dkv_smem(128) <= kMaxSmem && dkv_smem(256) <= kMaxSmem,
               "a CTA's staged tiles must fit its shared memory");
 
-template <typename K, typename... Args>
+template <int D, typename K, typename... Args>
 cudaError_t launch(K kernel, int smem, int BH, int S, cudaStream_t stream,
                    Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(BH, (S + kT - 1) / kT);
+  dim3 grid(BH, (S + cc_rows(D) - 1) / cc_rows(D));
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// the shape checks every CUDA-core entry shares (float32 at D = 64 or
-// 128; bfloat16 is the tensor-core entries'); 0 means launch
+// the shape checks every CUDA-core entry shares: float32 at D = 64, 128 or
+// 256, bfloat16 at D = 256 (below it bfloat16 is the tensor-core entries');
+// 0 means launch
 int check_shape(int S, int D, int dtype) {
-  if ((D != 64 && D != 128) || dtype != kF32 || (S + kT - 1) / kT > 65535)
+  const bool f32 = dtype == kF32 && (D == 64 || D == 128 || D == 256);
+  const bool bf = dtype == kBF16 && D == 256;
+  if (!(f32 || bf) || (S + cc_rows(D) - 1) / cc_rows(D) > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-template <int D>
-cudaError_t fwd_cc(const float* q, const float* k, const float* v, float* o,
+template <typename T, int D>
+cudaError_t fwd_cc(const void* q, const void* k, const void* v, void* o,
                    float* lse, int BH, int S, float scale, bool causal,
                    cudaStream_t st) {
-  return causal ? launch(flash_fwd_kernel<D, true>, fwd_smem(D), BH, S, st,
-                         q, k, v, o, lse, S, scale)
-                : launch(flash_fwd_kernel<D, false>, fwd_smem(D), BH, S, st,
-                         q, k, v, o, lse, S, scale);
+  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v;
+  return causal ? launch<D>(flash_fwd_kernel<T, D, true>, fwd_smem(D), BH,
+                            S, st, tq, tk, tv, (T*)o, lse, S, scale)
+                : launch<D>(flash_fwd_kernel<T, D, false>, fwd_smem(D), BH,
+                            S, st, tq, tk, tv, (T*)o, lse, S, scale);
 }
 
-template <int D>
-cudaError_t dq_cc(const float* q, const float* k, const float* v,
-                  const float* dout, const float* lse, const float* delta,
-                  const float* dlse, float* dq, int BH, int S, float scale,
+template <typename T, int D>
+cudaError_t dq_cc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const float* dlse, void* dq, int BH, int S, float scale,
                   bool causal, cudaStream_t st) {
-  return causal ? launch(flash_bwd_dq_kernel<D, true>, dq_smem(D), BH, S, st,
-                         q, k, v, dout, lse, delta, dlse, dq, S, scale)
-                : launch(flash_bwd_dq_kernel<D, false>, dq_smem(D), BH, S,
-                         st, q, k, v, dout, lse, delta, dlse, dq, S, scale);
+  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
+          *tdo = (const T*)dout;
+  return causal ? launch<D>(flash_bwd_dq_kernel<T, D, true>, dq_smem(D), BH,
+                            S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dq,
+                            S, scale)
+                : launch<D>(flash_bwd_dq_kernel<T, D, false>, dq_smem(D), BH,
+                            S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dq,
+                            S, scale);
 }
 
-template <int D>
-cudaError_t dkv_cc(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   const float* dlse, float* dk, float* dv, int BH, int S,
+template <typename T, int D>
+cudaError_t dkv_cc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const float* dlse, void* dk, void* dv, int BH, int S,
                    float scale, bool causal, cudaStream_t st) {
+  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
+          *tdo = (const T*)dout;
   return causal
-             ? launch(flash_bwd_dkv_kernel<D, true>, dkv_smem(D), BH, S, st,
-                      q, k, v, dout, lse, delta, dlse, dk, dv, S, scale)
-             : launch(flash_bwd_dkv_kernel<D, false>, dkv_smem(D), BH, S, st,
-                      q, k, v, dout, lse, delta, dlse, dk, dv, S, scale);
+             ? launch<D>(flash_bwd_dkv_kernel<T, D, true>, dkv_smem(D), BH, S,
+                         st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dk,
+                         (T*)dv, S, scale)
+             : launch<D>(flash_bwd_dkv_kernel<T, D, false>, dkv_smem(D), BH,
+                         S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dk,
+                         (T*)dv, S, scale);
 }
+
+// one CUDA-core instantiation per (type, D) the entries take
+#define BIGDL_CC_DISPATCH(fn, ...)                                    \
+  (D == 64    ? fn<float, 64>(__VA_ARGS__)                            \
+   : D == 128 ? fn<float, 128>(__VA_ARGS__)                           \
+   : dtype == kF32 ? fn<float, 256>(__VA_ARGS__)                      \
+                   : fn<__nv_bfloat16, 256>(__VA_ARGS__))
 
 }  // namespace
 }  // namespace bigdl
 
-// The CUDA-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D) float32
-// (`dtype` must be 0), 16-byte aligned, D = 64 or 128; lse, delta, dlse
-// (B*H, S) float32, dlse may be null (zero). causal: 0 or 1. Each returns
-// the cudaError_t of its launch (0 on success).
+// The CUDA-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D) of
+// `dtype` (0 float32 at D = 64, 128 or 256; 1 bfloat16 at D = 256),
+// 16-byte aligned; lse, delta, dlse (B*H, S) float32, dlse may be null
+// (zero). causal: 0 or 1. Each returns the cudaError_t of its launch (0 on
+// success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int BH, int S, int D,
                                float scale, int causal, int dtype,
@@ -1239,14 +1306,8 @@ extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
   using namespace bigdl;
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fq = (const float*)q, *fk = (const float*)k,
-              *fv = (const float*)v;
-  const bool c = causal != 0;
-  const cudaError_t err =
-      D == 64 ? fwd_cc<64>(fq, fk, fv, (float*)o, lse, BH, S, scale, c, st)
-              : fwd_cc<128>(fq, fk, fv, (float*)o, lse, BH, S, scale, c, st);
-  return (int)err;
+  return (int)BIGDL_CC_DISPATCH(fwd_cc, q, k, v, o, lse, BH, S, scale,
+                                causal != 0, (cudaStream_t)stream);
 }
 
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1257,16 +1318,9 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
   using namespace bigdl;
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fq = (const float*)q, *fk = (const float*)k,
-              *fv = (const float*)v, *fdo = (const float*)dout;
-  const bool c = causal != 0;
-  const cudaError_t err =
-      D == 64 ? dq_cc<64>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dq, BH,
-                          S, scale, c, st)
-              : dq_cc<128>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dq, BH,
-                           S, scale, c, st);
-  return (int)err;
+  return (int)BIGDL_CC_DISPATCH(dq_cc, q, k, v, dout, lse, delta, dlse, dq,
+                                BH, S, scale, causal != 0,
+                                (cudaStream_t)stream);
 }
 
 extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
@@ -1278,16 +1332,9 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
   using namespace bigdl;
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float *fq = (const float*)q, *fk = (const float*)k,
-              *fv = (const float*)v, *fdo = (const float*)dout;
-  const bool c = causal != 0;
-  const cudaError_t err =
-      D == 64 ? dkv_cc<64>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dk,
-                           (float*)dv, BH, S, scale, c, st)
-              : dkv_cc<128>(fq, fk, fv, fdo, lse, delta, dlse, (float*)dk,
-                            (float*)dv, BH, S, scale, c, st);
-  return (int)err;
+  return (int)BIGDL_CC_DISPATCH(dkv_cc, q, k, v, dout, lse, delta, dlse, dk,
+                                dv, BH, S, scale, causal != 0,
+                                (cudaStream_t)stream);
 }
 
 // The tensor-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D)

@@ -22,18 +22,23 @@ tensors each runs its plain version (:func:`flash_fwd_ref`,
 inputs and recomputes ``p`` as the kernels do. For CUDA tensors each
 launches the kernel its shape and type select, or raises:
 
-- bfloat16 runs on the tensor cores (wgmma), counted in ``.tc_launches``;
-  :func:`tc_plan` mirrors the tiles and shared memory the C entries pick;
-- float32 runs on the CUDA cores (float32 FMAs), counted in ``.launches``.
+- bfloat16 up to a head_dim of 128 runs on the tensor cores (wgmma),
+  counted in ``.tc_launches``; :func:`tc_plan` mirrors the tiles and
+  shared memory the C entries pick;
+- float32, and bfloat16 at head_dims above 128, run on the CUDA cores
+  (float32 FMAs; bfloat16 read into float32 tiles, ``p`` and ``ds``
+  rounded to bfloat16 where the reference rounds them), counted in
+  ``.launches``.
 
-Every kernel is instantiated at the widths ``HEAD_DIMS`` (64, 128). Any
-``head_dim`` up to 128 runs on the next width up (:func:`kernel_head_dim`):
+The kernels are instantiated at the widths ``HEAD_DIMS``: the tensor-core
+ones at ``TC_HEAD_DIMS`` (64, 128), the CUDA-core ones at 64, 128 and 256.
+Any ``head_dim`` up to 256 runs on the next width up (:func:`kernel_head_dim`):
 the wrapper zero-pads the last axis of q, k, v (and dO) to that width,
 launches, and slices the outputs back. Padding is exact: zero columns add
 exact zeros to every q.k, dO.v and dS.k product, a zero column of v gives
 a zero output column (sliced away), and lse and delta are untouched; the
-softmax scale stays ``D ** -0.5`` of the true D. A ``head_dim`` above 128
-raises, naming the ROADMAP queue C item that will add it.
+softmax scale stays ``D ** -0.5`` of the true D. A ``head_dim`` above 256
+raises, naming the ROADMAP queue C item that keeps it open.
 
 :func:`path` is the one place that decides which of these a call takes.
 
@@ -51,9 +56,11 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# the head_dims every kernel is instantiated for, on both paths; a smaller
-# head_dim runs zero-padded on the next of them
-HEAD_DIMS = (64, 128)
+# the widths the kernels are instantiated for (the tensor-core kernels at
+# TC_HEAD_DIMS, the CUDA-core kernels at all three); a smaller head_dim runs
+# zero-padded on the next of them
+HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the tensor-core kernels' tiling (ops/csrc/flash_attention.cu): threads a
@@ -85,7 +92,7 @@ def _scale(q, sm_scale):
 
 def kernel_head_dim(head_dim):
     """The width of the kernel that runs a ``head_dim``: the smallest of
-    HEAD_DIMS at least as wide, or None above 128."""
+    HEAD_DIMS at least as wide, or None above 256."""
     return next((w for w in HEAD_DIMS if 0 < head_dim <= w), None)
 
 
@@ -172,8 +179,9 @@ def tc_plan(kernel, bh, s, d):
     A tile of r rows holds r x w bfloat16 values, w the launched width
     ``head_dim`` (:func:`kernel_head_dim` of ``d``)."""
     w = kernel_head_dim(d)
-    if w is None:
-        raise ValueError(f"tc_plan: head_dim {d} above {HEAD_DIMS[-1]}")
+    if w not in TC_HEAD_DIMS:
+        raise ValueError(f"tc_plan: head_dim {d} above {TC_HEAD_DIMS[-1]}: "
+                         f"no tensor-core kernel")
     d = w
     if kernel in ("fwd", "dq"):
         tile_q, tile_k = 128, (128 if d == 64 else 64)
@@ -196,14 +204,17 @@ def tc_plan(kernel, bh, s, d):
 def path(fn, dtype, head_dim):
     """The kernel wrapper ``fn`` (by name: "flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") launches on the card for (B, H, S, ``head_dim``)
-    inputs of ``dtype``: "tensor_cores" for bfloat16 and "cuda_cores" for
-    float32, at the width :func:`kernel_head_dim` names (``head_dim`` up
-    to 128); None where no kernel takes them yet."""
+    inputs of ``dtype``: "tensor_cores" for bfloat16 up to a head_dim of
+    128, "cuda_cores" for float32 and for bfloat16 above 128, at the
+    width :func:`kernel_head_dim` names (``head_dim`` up to 256); None
+    where no kernel takes them."""
+    w = kernel_head_dim(head_dim)
     if fn not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
-            or kernel_head_dim(head_dim) is None:
+            or w is None or dtype not in _DTYPES:
         return None
-    return {torch.bfloat16: "tensor_cores",
-            torch.float32: "cuda_cores"}.get(dtype)
+    if dtype == torch.bfloat16 and w in TC_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _check_head_dim(fn, q):
@@ -213,7 +224,7 @@ def _check_head_dim(fn, q):
         raise ValueError(
             f"{fn}: q must be (B, H, S, D) with D <= {HEAD_DIMS[-1]}, got "
             f"{tuple(q.shape)}; larger head_dims wait for ROADMAP queue C, "
-            f"'flash and paged head dims above 128'")
+            f"'flash and paged head dims above 256'")
 
 
 def _check_cuda_args(fn, q, planes, rows):
@@ -421,5 +432,4 @@ def bytes_and_flops(kernel, q, causal, dlse=False):
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_ref",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "bytes_and_flops",
-           "visible_pairs", "path", "tc_plan", "kernel_head_dim",
-           "HEAD_DIMS", "TC_MAX_SMEM"]
+           "visible_pairs", "path", "tc_plan", "kernel_head_dim", "HEAD_DIMS", "TC_HEAD_DIMS", "TC_MAX_SMEM"]

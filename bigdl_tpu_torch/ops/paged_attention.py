@@ -13,8 +13,10 @@ of (num_pages, H, page_size)) is read as ``k.float() * k_scale[..., None]``
 (the reference's ``_decode_kernel_quant``); the rest is the same.
 
 - :func:`paged_pool_attention` is the wrapper: for CUDA tensors it
-  launches the hand-written kernel ``ops/csrc/paged_attention.cu`` for the
-  pool's type (or raises), for CPU tensors it runs
+  launches the hand-written kernel ``ops/csrc/paged_attention.cuh`` for
+  the pool's type (or raises), through ``paged_attention.cu`` for a float
+  pool and ``paged_attention_int8.cu`` for an int8 one (two sources, built
+  in parallel), for CPU tensors it runs
   :func:`paged_pool_attention_ref`. ``paged_pool_attention.launches``
   counts launches over float pools, ``.int8_launches`` over int8 pools;
   an int8 pool is never dequantised into a float one for the kernel.
@@ -24,7 +26,15 @@ of (num_pages, H, page_size)) is read as ``k.float() * k_scale[..., None]``
 - :func:`paged_plan` mirrors the kernel's launch on the host: a cluster of
   SPLIT CTAs per (slot, head, query tile), each walking its run of the
   tile's visible pages (:func:`page_split`, which depends on the row
-  alone), and the dynamic shared memory of each instantiation.
+  alone), the built width a head dim runs on (:func:`kernel_width`), the
+  ring's stages, the bytes of one staging copy and the dynamic shared
+  memory of each instantiation.
+
+The kernel is built at the widths ``KERNEL_HEAD_DIMS`` (32, 64, 96, 128
+and 256) and runs any head_dim up to 256 on the narrowest at or above it,
+over pools that keep their true row width: the staged rows' columns past
+the head_dim are zeros, and nothing past it is written. A head_dim above
+256 raises, naming the ROADMAP queue C item that keeps it open.
 
 A row with no visible key at all (an all-sentinel table row: padding and
 inactive slots) comes out as zeros on both paths; callers discard it.
@@ -51,15 +61,16 @@ import torch
 
 from bigdl_tpu_torch.ops import NEG_INF, _build
 
-# (page_size, head_dim) pairs the CUDA kernel is instantiated for: pages of
-# 8, 16 (the default) and 32 tokens at every head_dim that is a multiple of
-# 32 up to 128 (GPT-2's 64 among them)
+# (page_size, built width) pairs the CUDA kernel is instantiated for: pages
+# of 8, 16 (the default) and 32 tokens at every multiple of 32 up to 128
+# (GPT-2's 64 among them) and at 256; a head_dim runs on the narrowest
+# width at or above it
 PAGE_SIZES = (8, 16, 32)
-KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
 KERNEL_SHAPES = tuple((ps, d) for d in KERNEL_HEAD_DIMS for ps in PAGE_SIZES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the kernel's launch (ops/csrc/paged_attention.cu): CTAs of a cluster (the
+# the kernel's launch (ops/csrc/paged_attention.cuh): CTAs of a cluster (the
 # splits of one page walk), threads a CTA, pages in its ring, queries of a
 # chunk CTA (a decode CTA takes the one query), bytes after a staged row
 SPLIT = 8
@@ -68,6 +79,8 @@ STAGES = 4
 QUERY_TILE = 16
 ROW_PAD = 16
 MAX_SMEM = 232448
+# the most bytes a ring of STAGES pages may take; past it the ring holds 2
+RING_BYTES = 160 * 1024
 
 
 def _declare(lib):
@@ -75,6 +88,9 @@ def _declare(lib):
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+def _declare_int8(lib):
     fn = lib.bigdl_paged_attention_int8
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -131,6 +147,20 @@ def page_split(npages):
             for r in range(SPLIT)]
 
 
+def kernel_width(head_dim):
+    """The built width that runs ``head_dim``: the narrowest of
+    KERNEL_HEAD_DIMS at or above it, or None above 256."""
+    return next((w for w in KERNEL_HEAD_DIMS if 0 < head_dim <= w), None)
+
+
+def copy_bytes(head_dim, elt):
+    """Bytes of one staging copy of a pool row of ``head_dim`` values of
+    ``elt`` bytes: the largest of 16, 8 and 4 that divides the row (the
+    kernel's cp.async sizes), else 1 (plain loads)."""
+    row = head_dim * elt
+    return next(n for n in (16, 8, 4, 1) if row % n == 0)
+
+
 def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
     """Host-side plan of one kernel launch on (b, h, c, d) queries over a
     pool of ``kv_dtype`` ("float32", "bfloat16" or "int8") with pages of
@@ -143,17 +173,27 @@ def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
     - ``splits[row][tile]``: the tile's pages, ``min(table_width, (start +
       last query) // page_size + 1)``, cut by :func:`page_split`. They
       depend on the row alone, never on b, h or a head shard;
-    - shared memory: STAGES ring stages (the page's K and V rows of d
-      values and ROW_PAD bytes, and an int8 page's two scale rows), the
-      queries in float32, the partial states (m, l, acc) of the four
-      warps (decode) or of each query (chunk), and the slot's table row
-      (``table_width`` int32, rounded up to 16 bytes)."""
+    - ``head_dim``: the built width :func:`kernel_width` names for ``d``;
+      ``copy_bytes``: one staging copy of a row of ``d`` values
+      (:func:`copy_bytes`);
+    - shared memory: ``stages`` ring stages (STAGES, or 2 where STAGES
+      stages would pass RING_BYTES), each the page's K and V rows (room
+      for the built width and ROW_PAD bytes) and an int8 page's two scale
+      rows; the queries in float32 at the built width; the partial states
+      (m, l, acc) of the four warps (decode) or of each query (chunk); and
+      the slot's table row (``table_width`` int32, rounded up to 16
+      bytes)."""
+    w = kernel_width(d)
+    if w is None:
+        raise ValueError(f"paged_plan: head_dim {d} above "
+                         f"{KERNEL_HEAD_DIMS[-1]}")
     tile = 1 if c == 1 else QUERY_TILE
     elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kv_dtype]
-    row = d * elt + ROW_PAD
+    row = w * elt + ROW_PAD
     stage = 2 * page_size * row + (2 * page_size * 4 if elt == 1 else 0)
-    smem = (STAGES * stage + tile * d * 4
-            + (4 if tile == 1 else tile) * (d + 2) * 4
+    stages = STAGES if STAGES * stage <= RING_BYTES else 2
+    smem = (stages * stage + tile * w * 4
+            + (4 if tile == 1 else tile) * (w + 2) * 4
             + -(-table_width * 4 // 16) * 16)
     tiles = -(-c // tile)
     splits = []
@@ -165,7 +205,8 @@ def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
                 min(table_width, last // page_size + 1)))
         splits.append(row_splits)
     return {"grid": (SPLIT, b * h, tiles), "cluster": SPLIT,
-            "threads": THREADS, "query_tile": tile, "stages": STAGES,
+            "threads": THREADS, "query_tile": tile, "stages": stages,
+            "head_dim": w, "copy_bytes": copy_bytes(d, elt),
             "smem_bytes": smem, "splits": splits}
 
 
@@ -214,12 +255,11 @@ def _check_cuda_args(q, pool, page_table, start):
     if k.shape[2] not in PAGE_SIZES:
         raise ValueError(f"paged_pool_attention: page_size {k.shape[2]} not "
                          f"in {PAGE_SIZES}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_pool_attention: head_dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}; other head dims wait for "
+    if kernel_width(d) is None:
+        raise ValueError(f"paged_pool_attention: head_dim {d} above "
+                         f"{KERNEL_HEAD_DIMS[-1]}; larger head dims wait for "
                          f"ROADMAP queue C, 'flash and paged head dims above "
-                         f"128' (the paged kernel takes multiples of 32 up "
-                         f"to 128)")
+                         f"256'")
 
 
 def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
@@ -248,7 +288,6 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
         return paged_pool_attention_ref(q, pool, page_table, start,
                                         sm_scale)
     _check_cuda_args(q, pool, page_table, start)
-    lib = _build.load("paged_attention", _declare)
     b, h, c, d = q.shape
     k, v = pool["k"], pool["v"]
     n, _, ps, _ = k.shape
@@ -258,10 +297,12 @@ def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
             c, d, n, ps, page_table.shape[1], float(sm_scale),
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if _is_int8(pool):
+        lib = _build.load("paged_attention_int8", _declare_int8)
         err = lib.bigdl_paged_attention_int8(
             *head, pool["k_scale"].data_ptr(), pool["v_scale"].data_ptr(),
             *tail)
     else:
+        lib = _build.load("paged_attention", _declare)
         err = lib.bigdl_paged_attention(*head, *tail)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: "
@@ -347,5 +388,5 @@ def bytes_and_flops(q, pool, page_table, start):
 
 
 __all__ = ["paged_pool_attention", "paged_pool_attention_ref",
-           "bytes_and_flops", "page_split", "paged_plan", "KERNEL_SHAPES",
-           "KERNEL_HEAD_DIMS", "PAGE_SIZES"]
+           "bytes_and_flops", "page_split", "paged_plan", "kernel_width",
+           "copy_bytes", "KERNEL_SHAPES", "KERNEL_HEAD_DIMS", "PAGE_SIZES"]

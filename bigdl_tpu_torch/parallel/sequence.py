@@ -1,7 +1,9 @@
 """Attention (the port of ``bigdl_tpu/parallel/sequence.py``:
-``full_attention``, ``paged_gather``, ``paged_write``,
-``paged_write_quant``, ``paged_gather_dequant``, ``paged_attention`` and
-``MultiHeadAttention``'s full-sequence ``forward`` and paged methods).
+``flash_profitable``, ``full_attention``, ``cached_attention``,
+``paged_gather``, ``paged_write``, ``paged_write_quant``,
+``paged_gather_dequant``, ``paged_attention`` and ``MultiHeadAttention``'s
+full-sequence ``forward``, its dense K/V-cache methods and its paged
+methods).
 
 The full-sequence forward (training) attends through ``ops.
 flash_attention``: the hand-written kernels on the card, their plain
@@ -26,13 +28,24 @@ Two traps of the reference's XLA semantics are explicit here:
 - out-of-bounds READS: JAX clips them (``mode="clip"``); the gathers
   here clamp explicitly.
 
-The serving path attends through ``ops.paged_attention`` between
+The paged serving path attends through ``ops.paged_attention`` between
 :meth:`MultiHeadAttention.paged_qkv` and
-:meth:`MultiHeadAttention.paged_out` (``models.gpt.TransformerDecoderBlock.
-paged_layer``): the hand-written kernel on the card, its plain version on
-the CPU, both with the kernel's ``NEG_INF`` fill. :func:`paged_gather` +
-:func:`paged_attention` are the reference's XLA path, with its ``-inf``
-fill (a fully masked row gives NaN there), and are kept for the tests.
+:meth:`MultiHeadAttention.project_heads` (``models.gpt``'s layer body):
+the hand-written kernel on the card, its plain version on the CPU, both with the kernel's ``NEG_INF``
+fill. :func:`paged_gather` + :func:`paged_attention` are the reference's
+XLA path, with its ``-inf`` fill (a fully masked row gives NaN there),
+and are kept for the tests.
+
+The dense K/V cache (``generate`` and the dense serving engine) is one
+``(B, H, max_len, D)`` pair of buffers per layer, written in place:
+:meth:`MultiHeadAttention.prefill` writes a prompt's K/V at positions
+``[0, T)`` and attends causally, through the flash kernel on the card
+exactly where the reference's gate (:func:`flash_profitable`) takes its
+Pallas kernel, else through :func:`full_attention`;
+:meth:`MultiHeadAttention.decode_step` writes one token's K/V at
+``index`` (a scalar, or one position a row) and attends through
+:func:`cached_attention`. Those two are plain PyTorch, as the reference
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -48,6 +61,15 @@ from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
+def flash_profitable(t, causal=False):
+    """The reference's shape gate for its flash kernel in a dense prefill
+    or forward: ``t % 128 == 0`` and ``t >= 2048`` causal (8192 full). The
+    port's dense prefill takes its flash kernel exactly there, when its
+    tensors are on the card (the reference's other condition is a TPU
+    backend)."""
+    return t % 128 == 0 and t >= (2048 if causal else 8192)
+
+
 def full_attention(q, k, v, causal=False):
     """Single-device reference attention over (B, H, S, D), the oracle of
     the flash kernels: softmax of the scaled scores, ``-inf`` above the
@@ -58,6 +80,22 @@ def full_attention(q, k, v, causal=False):
         tq, tk = q.shape[2], k.shape[2]
         seen = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~seen, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
+
+
+def cached_attention(q, k, v, cur_len):
+    """Single-query attention against a preallocated K/V cache (the decode
+    step's inner op): ``q`` (B, H, 1, D); ``k``/``v`` (B, H, S, D) of which
+    the first ``cur_len`` positions hold keys, the rest masked with
+    ``-inf``. ``cur_len`` is an int or a 0-d tensor (every row at the same
+    length: ``generate``), or a (B,) tensor (each row at its own: the
+    serving engine's slot batch)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = k.shape[2]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    cur = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s, device=q.device)[None, :] < cur      # (1|B, S)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
 
 
@@ -150,10 +188,10 @@ class MultiHeadAttention(nn.Module):
 
     ``tp > 1`` builds one tensor-parallel shard of the layer: it holds
     ``local_heads = n_heads // tp`` of the heads (``wq``/``wk``/``wv``
-    hidden -> local_heads * head_dim, ``wo`` back to hidden), its paged
-    pools hold those heads, and its paged methods return ``wo``'s partial,
-    which the caller sums over the shards (``parallel/tensor_parallel.py``).
-    ``n_heads`` stays the model's."""
+    hidden -> local_heads * head_dim, ``wo`` back to hidden), its dense
+    caches and paged pools hold those heads, and its cache methods return
+    ``wo``'s partial, which the caller sums over the shards
+    (``parallel/tensor_parallel.py``). ``n_heads`` stays the model's."""
 
     def __init__(self, hidden_size, n_heads, causal=False,
                  sequence_parallel=None, tp=1, device=None,
@@ -234,9 +272,71 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self._qkv(x)
         return q, self._paged_write(pool, k, v, index)
 
-    def paged_out(self, out):
-        """The second half: the attention output (B, H, C, D) through
-        ``wo`` (a shard's pre-reduction partial when tp > 1)."""
+    def merge_heads(self, out):
+        """The attention output (B, H, C, D) as ``wo``'s input (B, C,
+        H * D)."""
         b, _, t, _ = out.shape
-        return self.wo(out.transpose(1, 2).reshape(
-            b, t, self.local_heads * self.head_dim))
+        return out.transpose(1, 2).reshape(b, t,
+                                           self.local_heads * self.head_dim)
+
+    def project_heads(self, out):
+        """The attention output (B, H, C, D) through ``wo`` (a shard's
+        pre-reduction partial when tp > 1): the second half of the paged
+        and dense cache paths."""
+        return self.wo(self.merge_heads(out))
+
+    # ------------------------------------------------ dense K/V cache --
+    def init_cache(self, batch, max_len, dtype, device):
+        """Preallocated K/V buffers for incremental decoding: ``{"k",
+        "v"}`` of (batch, local_heads, max_len, head_dim) zeros."""
+        shape = (batch, self.local_heads, max_len, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def prefill_heads(self, x, cache, rows=None):
+        """The prompt pass before ``wo``: the causal attention output (B,
+        H, T, D) of x (B, T, hidden), with the prompt's K/V written into
+        ``cache`` at positions [0, T), in place. ``rows`` None writes row
+        ``i`` of x into cache row ``i``; else ``rows`` (n,) names the
+        cache rows that x's first n rows land in (the rest of x's rows
+        are padding and write nothing). On the card, the flash kernel
+        where :func:`flash_profitable` holds; else :func:`full_attention`."""
+        if not self.causal:
+            raise ValueError("KV-cache prefill requires causal attention")
+        t = x.shape[1]
+        q, k, v = self._qkv(x)
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            if rows is None:
+                buf[:, :, :t] = new.to(buf.dtype)
+            else:
+                buf[rows, :, :t] = new[:rows.shape[0]].to(buf.dtype)
+        if x.is_cuda and flash_profitable(t, True):
+            return flash_attention(q, k, v, causal=True)
+        return full_attention(q, k, v, causal=True)
+
+    def prefill(self, x, cache):
+        """Prompt pass of K/V-cache decoding (the reference's ``prefill``):
+        ``(wo(attention), cache)``; see :meth:`prefill_heads`."""
+        return self.project_heads(self.prefill_heads(x, cache)), cache
+
+    def decode_heads(self, x, cache, index):
+        """One query token per row (x: (B, 1, hidden)) before ``wo``: its
+        K/V written at ``index`` (an int: every row's position; or a (B,)
+        tensor: each row's own), in place, then :func:`cached_attention`
+        over positions [0, index]. Returns (B, H, 1, D)."""
+        q, k, v = self._qkv(x)
+        idx = torch.as_tensor(index, device=x.device)
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            if idx.dim() == 0:
+                buf[:, :, idx] = new[:, :, 0].to(buf.dtype)
+            else:
+                buf[torch.arange(buf.shape[0], device=x.device), :, idx] = \
+                    new[:, :, 0].to(buf.dtype)
+        return cached_attention(q, cache["k"], cache["v"], idx + 1)
+
+    def decode_step(self, x, cache, index):
+        """Incremental mode (the reference's ``decode_step``): ``(wo(
+        attention), cache)``; see :meth:`decode_heads`."""
+        return self.project_heads(self.decode_heads(x, cache, index)), cache

@@ -1,6 +1,7 @@
-"""Tensor-parallel paged GPT serving: one shard module per device, driven
-by one host thread (the port of what GSPMD does for the reference's
-``ServingEngine(tp=N)``; there is no reference module to mirror).
+"""Tensor-parallel GPT serving, dense and paged: one shard module per
+device, driven by one host thread (the port of what GSPMD does for the
+reference's ``ServingEngine(tp=N)``; there is no reference module to
+mirror).
 
 :class:`TensorParallelCausalLM` splits a ``GPTForCausalLM`` over a
 ``parallel.layout.ModelLayout``: shard ``i`` is a ``GPTForCausalLM(tp=N)``
@@ -8,25 +9,35 @@ on ``layout.devices[i]`` holding ``n_heads / N`` of the heads (their
 ``wq``/``wk``/``wv`` rows and ``wo`` columns), ``intermediate / N`` of the
 MLP's inner width (``fc1`` rows and bias, ``fc2`` columns) and, where the
 vocabulary divides by N, ``vocab / N`` rows of the token embedding;
-everything else is a whole copy. Its ``gpt`` (:class:`TensorParallelGPT`)
-serves the interface ``serving.paging.PagedSlotManager`` calls:
-``init_paged_pool``, ``paged_prefill_chunk``, ``paged_decode_step``,
-``pool_planes`` (for copying a page in every shard and counting bytes),
-and ``_lm_logits`` on the model.
+everything else is a whole copy. An int8 model (``nn.quantize_model``,
+quantised before it is split, as the reference quantises before it
+shards) splits each ``Int8Linear``'s int8 ``weight`` and its ``scale``
+by the same rules: a column-parallel layer's scales with its rows, a
+row-parallel layer's scales whole. Its ``gpt`` (:class:`TensorParallelGPT`)
+serves the interfaces ``serving.slots.SlotManager`` (``init_cache``,
+``prefill``, ``decode_step``, ``cache_planes``) and
+``serving.paging.PagedSlotManager`` (``init_paged_pool``,
+``paged_prefill_chunk``, ``paged_decode_step``, ``pool_planes``, for
+copying a page in every shard and counting bytes) call, and
+``_lm_logits`` on the model.
 
-The paged paths are ``models.gpt``'s own (``paged_chunk_states``,
-``paged_step_states``, ``TransformerDecoderBlock.paged_layer``), run over
-the shards: per layer, with ``all_reduce_sum`` summing on the first
-shard's device in shard order and copying the one result to every shard
-(the same bits everywhere),
+The dense and paged paths are ``models.gpt``'s own
+(``dense_prefill_states``, ``dense_step_states``, ``paged_chunk_states``,
+``paged_step_states``, one layer body ``block_rest``), run over the
+shards: per layer, with the sums taken on the first shard's device in
+shard order and the one result copied to every shard (the same bits
+everywhere),
 
-- each shard writes its heads' K/V into its own pools and computes its
-  queries; one ``ops.paged_attention`` call with ``mesh=`` launches the
-  paged-attention kernel once per shard, on the shard's own contiguous
-  pool, with no collective (the attention is head-local);
-- ``x += all_reduce_sum(wo partials)``;
-- ``x += all_reduce_sum(fc2 partials) + fc2.bias``: the replicated bias is
-  added once, after the sum, as GSPMD does.
+- each shard writes its heads' K/V into its own caches or pools and
+  attends over its heads: the dense path in plain PyTorch, the paged
+  path through one ``ops.paged_attention`` call with ``mesh=``, which
+  launches the paged-attention kernel once per shard, on the shard's own
+  contiguous pool, with no collective (the attention is head-local);
+- ``x += sum(wo partials)``;
+- ``x += sum(fc2 partials) + fc2.bias``: the replicated bias is added
+  once, after the sum, as GSPMD does. For int8 weights both sums are
+  ``nn.quantized.qmatmul_row_parallel``: one amax over the shards, the
+  int32 accumulators summed, one dequantising multiply.
 
 Replicated work (the LayerNorms, GELU's input, the residual stream) runs
 on every shard on identical inputs, so the shards keep identical bits;
@@ -48,9 +59,12 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.models.gpt import (GPT, GPTForCausalLM, last_valid,
+from bigdl_tpu_torch.models.gpt import (GPT, GPTForCausalLM,
+                                        dense_prefill_states,
+                                        dense_step_states, last_valid,
                                         paged_chunk_states,
                                         paged_step_states)
+from bigdl_tpu_torch.nn.quantized import Int8Linear, quantize_model
 from bigdl_tpu_torch.parallel.layout import broadcast, gather
 
 
@@ -87,6 +101,30 @@ class TensorParallelGPT(nn.Module):
 
     def _gpts(self):
         return [s.gpt for s in self.shards]
+
+    def init_cache(self, batch, dtype=None):
+        """Each shard's per-layer dense K/V buffers, on its device, holding
+        its heads."""
+        return [g.init_cache(batch, dtype) for g in self._gpts()]
+
+    @staticmethod
+    def cache_planes(caches):
+        """Every tensor of ``caches``, per shard."""
+        return [GPT.cache_planes(c)[0] for c in caches]
+
+    def prefill(self, caches, ids, prompt_len, rows=None):
+        """``GPT.prefill`` over the shards: returns ``(h_last, caches)``,
+        ``h_last`` (B, hidden) on the first shard's device."""
+        h = dense_prefill_states(self._gpts(), caches, ids, rows,
+                                 self.layout.devices, self.vocab_split)
+        return last_valid(h, prompt_len), caches
+
+    def decode_step(self, caches, tok, pos):
+        """``GPT.decode_step`` over the shards: returns the (B, hidden)
+        final-norm states on the first shard's device and the caches."""
+        return dense_step_states(self._gpts(), caches, tok, pos,
+                                 self.layout.devices,
+                                 self.vocab_split), caches
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Each shard's per-layer pools, on its device, holding its heads:
@@ -129,15 +167,16 @@ class TensorParallelGPT(nn.Module):
 
 
 class TensorParallelCausalLM(nn.Module):
-    """``model`` (a ``GPTForCausalLM`` with its weights loaded) split over
-    ``layout`` (``parallel.layout.ModelLayout``) for paged serving; see
-    module docstring."""
+    """``model`` (a ``GPTForCausalLM`` with its weights loaded, int8 ones
+    too) split over ``layout`` (``parallel.layout.ModelLayout``) for dense
+    or paged serving; see module docstring."""
 
     def __init__(self, model, layout):
         super().__init__()
         gpt = model.gpt
         attn = gpt.layers[0].attn
         layout.validate_heads(attn.n_heads)
+        int8 = any(isinstance(m, Int8Linear) for m in model.modules())
         shards = []
         for dev, sd in zip(layout.devices,
                            layout.shard_state_dict(model.state_dict())):
@@ -147,6 +186,9 @@ class TensorParallelCausalLM(nn.Module):
                 n_heads=attn.n_heads, max_position=gpt.max_position,
                 intermediate_size=gpt.intermediate_size, tp=layout.tp,
                 device=dev, dtype=gpt.tok_emb.dtype)
+            if int8:
+                # the int8 modules' shapes; the split weights overwrite them
+                quantize_model(shard)
             shard.load_state_dict(sd)
             shards.append(shard)
         self.layout = layout

@@ -6,8 +6,9 @@ from bigdl_tpu_torch.serving.scheduler import (DeadlineExceededError,
                                                EngineFailedError,
                                                QueueFullError, Request,
                                                RequestCancelledError)
+from bigdl_tpu_torch.serving.slots import SlotManager
 
-__all__ = ["ServingEngine", "PageAllocator", "PagedSlotManager",
+__all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "PagePoolExhausted", "Request", "QueueFullError",
            "EngineClosedError", "EngineFailedError",
            "RequestCancelledError", "DeadlineExceededError"]

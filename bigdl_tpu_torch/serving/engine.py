@@ -1,21 +1,28 @@
 """ServingEngine: the public continuous-batching inference facade (the
-port of ``bigdl_tpu/serving/engine.py``, paged branch).
+port of ``bigdl_tpu/serving/engine.py``).
 
 ``ServingEngine(model, params, max_slots=8)`` turns a
 ``GPTForCausalLM`` into a concurrent serving system: callers
 ``submit()`` prompts from any thread and stream tokens back, while one
-scheduler thread runs chunked prefill and batched decode over the paged
-K/V pool (``serving/paging.py``), attending through the paged-attention
-kernel and sampling through the fused sampling kernel.
+scheduler thread runs prefill and batched decode, sampling through the
+fused sampling kernel. By default, as in the reference
+(``BIGDL_TPU_PAGED_KV`` off), it serves from the dense slot table
+(``serving/slots.py``: one preallocated (slots, max_position) K/V cache,
+batched prefill of up to ``prefill_window`` prompts); ``paged=True``
+serves from the paged K/V pool (``serving/paging.py``: chunked prefill,
+prefix sharing, attention through the paged-attention kernel).
 
 The engine runs on the card (``cuda``) unless the caller passes
 ``device="cpu"``; without CUDA and without ``device`` it raises.
 
 ``tp=N`` (or ``mesh=[...]``) serves a tensor-parallel model
-(``parallel/tensor_parallel.py``): Megatron-sharded weights, head-sharded
-K/V pools, the paged-attention kernel launched once per shard, and two
-fixed-order sums a layer. One scheduler thread drives every shard, as the
-reference's single controller does.
+(``parallel/tensor_parallel.py``), dense or paged, float or int8 weights:
+Megatron-sharded weights (int8 ones quantised before they are split, as
+the reference does), head-sharded K/V caches or pools, the
+paged-attention kernel launched once per shard, and two fixed-order sums
+a layer (for int8 weights, of the shards' int32 accumulators). One
+scheduler thread drives every shard, as the reference's single controller
+does.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from bigdl_tpu_torch.serving.paging import (PagedSlotManager,
                                             PagePoolExhausted,
                                             pages_for_budget)
 from bigdl_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+from bigdl_tpu_torch.serving.slots import SlotManager
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.flags import get_flag
 
@@ -52,6 +60,13 @@ _UNPORTED = {
 _UNPORTED_FLAGS = {"kv_snapshot": "BIGDL_TPU_KV_SNAPSHOT",
                    "kv_host_tier": "BIGDL_TPU_KV_HOST_TIER",
                    "lora": "BIGDL_TPU_LORA"}
+# unported options of the reference's paged path alone, with the reason the
+# reference gives for refusing each by keyword on the dense path (it reads
+# their flags only under ``paged``, so the dense engine ignores those)
+_PAGED_ONLY = {
+    "kv_snapshot": "the store's unit of persistence is the K/V page",
+    "kv_host_tier": "the tier's unit of residency is the K/V page",
+}
 # sub-options of unported options: accepted and ignored while their parent
 # is off, as the reference ignores them
 _SUB_OPTIONS = {
@@ -77,15 +92,22 @@ def _unported_on(name, value):
     return value is not False
 
 
-def _refuse_unported(options):
+def _refuse_unported(options, paged):
     """Raise ``TypeError`` on an unknown keyword, and
     ``NotImplementedError`` naming the ROADMAP item when an unported
-    option (by keyword or by the reference's flag) asks for its
-    feature."""
+    option (by keyword or by the reference's flag) asks for its feature
+    on the path it applies to. On the dense path a ``_PAGED_ONLY`` option
+    asked for by keyword raises ``ValueError`` as in the reference, and
+    its flag is ignored."""
     for name in options:
         if name not in _UNPORTED and name not in _SUB_OPTIONS:
             raise TypeError(f"unexpected keyword argument {name!r}")
     for name, item in _UNPORTED.items():
+        if name in _PAGED_ONLY and not paged:
+            if options.get(name):
+                raise ValueError(f"{name} requires paged=True ("
+                                 f"{_PAGED_ONLY[name]})")
+            continue
         if not _unported_on(name, options.get(name)):
             continue
         subs = [s for s, parent in _SUB_OPTIONS.items()
@@ -97,7 +119,8 @@ def _refuse_unported(options):
 
 
 class ServingEngine:
-    """Continuous-batching engine over one model's paged decode path.
+    """Continuous-batching engine over one model's dense or paged decode
+    path.
 
     Parameters
     ----------
@@ -107,7 +130,8 @@ class ServingEngine:
     max_slots: concurrent in-flight requests.
     max_queue: waiting-queue bound; a full queue rejects ``submit`` with
         ``QueueFullError``.
-    prefill_window: max prompts advanced by one prefill-chunk dispatch.
+    prefill_window: max prompts a prefill dispatch takes (dense: one
+        batched prefill; paged: one chunk each).
     admit_wait_s: with nothing decoding, hold admission up to this long
         so a burst lands in one admission batch (0 disables).
     steps_per_sync: decode steps per block between host syncs.
@@ -115,8 +139,12 @@ class ServingEngine:
         ``temperature > 0``.
     seed: seeds the engine's ``torch.Generator`` for the sampler's noise.
     default_deadline_s: TTL for requests submitted without one.
-    paged: must be True (the default, ``BIGDL_TPU_PAGED_KV``): the dense
-        slot table is not ported yet.
+    paged: serve from the paged K/V pool (``BIGDL_TPU_PAGED_KV``, off: the
+        dense slot table). ``self.paged`` reports the path taken. The
+        options below up to ``kv_bytes`` are the paged path's; the dense
+        path ignores them, as the reference does. ``kv_snapshot`` /
+        ``kv_host_tier`` are the paged path's too: by keyword the dense
+        path refuses them with ``ValueError``, their flags it ignores.
     page_size: tokens per K/V page (``BIGDL_TPU_PAGE_SIZE``, 16).
     kv_pages: page-pool size (default: the dense-equivalent
         ``max_slots * max_position / page_size``).
@@ -140,8 +168,9 @@ class ServingEngine:
     tp: tensor-parallel degree (``BIGDL_TPU_SERVING_TP``, off; an explicit
         ``tp`` overrides the flag). Alone it takes the first ``tp`` cards
         and raises when fewer are visible. Needs ``n_heads % tp == 0``;
-        ``tp=1`` is the unsharded path. Not with ``int8_weights`` (ROADMAP
-        A.6b). The engine splits ``model``'s weights into the shards and
+        ``tp=1`` is the unsharded path. With ``int8_weights`` the model is
+        quantised first and then split. The engine splits ``model``'s
+        weights into the shards and
         never moves ``model`` itself: build it on the CPU, so that no card
         holds a whole copy beside its shard.
     mesh: the shards' devices, one per shard (a device may repeat: several
@@ -167,13 +196,10 @@ class ServingEngine:
                  prefill_chunk=None, prefix_cache=None, int8_weights=None,
                  int8_kv=None, kv_bytes=None, device=None, tp=None,
                  mesh=None, **unported):
-        _refuse_unported(unported)
         if paged is None:
-            paged = get_flag("BIGDL_TPU_PAGED_KV", True, bool)
-        if not paged:
-            raise NotImplementedError(
-                "ServingEngine(paged=False): the dense slot table is not "
-                "ported yet (ROADMAP queue A.2 dense engine and generate)")
+            paged = get_flag("BIGDL_TPU_PAGED_KV", False, bool)
+        self.paged = bool(paged)
+        _refuse_unported(unported, self.paged)
         if getattr(model, "gpt", None) is None:
             raise TypeError("ServingEngine drives GPTForCausalLM models")
         layout = self._layout(tp, mesh, device)
@@ -186,11 +212,6 @@ class ServingEngine:
         if int8_weights is None:
             int8_weights = get_flag("BIGDL_TPU_INT8_WEIGHTS", False, bool)
         self.int8_weights = bool(int8_weights)
-        if self.int8_weights and layout is not None:
-            raise NotImplementedError(
-                "int8_weights under tensor parallelism is not ported yet "
-                "(ROADMAP queue A.6b int8 weights under tensor "
-                "parallelism)")
         if params is not None:
             model.load_state_dict(params)
         if self.int8_weights:
@@ -202,26 +223,31 @@ class ServingEngine:
         model.requires_grad_(False)
         model.eval()
         self.model = model
-        self.paged = True
         self.default_deadline_s = default_deadline_s
-        if page_size is None:
-            page_size = get_flag("BIGDL_TPU_PAGE_SIZE", 16, int)
-        if prefill_chunk is None:
-            prefill_chunk = get_flag("BIGDL_TPU_PREFILL_CHUNK", 64, int)
-        if prefix_cache is None:
-            prefix_cache = get_flag("BIGDL_TPU_PREFIX_CACHE", True, bool)
-        if int8_kv is None:
-            int8_kv = get_flag("BIGDL_TPU_INT8_KV", False, bool)
-        if kv_bytes is not None and kv_pages is None:
-            kv_pages = pages_for_budget(model, page_size, kv_bytes,
-                                        int8=bool(int8_kv),
-                                        dtype=model.gpt.tok_emb.dtype,
-                                        tp=self.tp)
-        self.slots = PagedSlotManager(
-            model, max_slots, num_pages=kv_pages, page_size=page_size,
-            window=prefill_window, steps_per_sync=steps_per_sync,
-            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv))
+        if self.paged:
+            if page_size is None:
+                page_size = get_flag("BIGDL_TPU_PAGE_SIZE", 16, int)
+            if prefill_chunk is None:
+                prefill_chunk = get_flag("BIGDL_TPU_PREFILL_CHUNK", 64, int)
+            if prefix_cache is None:
+                prefix_cache = get_flag("BIGDL_TPU_PREFIX_CACHE", True,
+                                        bool)
+            if int8_kv is None:
+                int8_kv = get_flag("BIGDL_TPU_INT8_KV", False, bool)
+            if kv_bytes is not None and kv_pages is None:
+                kv_pages = pages_for_budget(model, page_size, kv_bytes,
+                                            int8=bool(int8_kv),
+                                            dtype=model.gpt.tok_emb.dtype,
+                                            tp=self.tp)
+            self.slots = PagedSlotManager(
+                model, max_slots, num_pages=kv_pages, page_size=page_size,
+                window=prefill_window, steps_per_sync=steps_per_sync,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv))
+        else:
+            self.slots = SlotManager(model, max_slots, window=prefill_window,
+                                     steps_per_sync=steps_per_sync,
+                                     top_k=top_k, top_p=top_p, seed=seed)
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s)
 
@@ -246,9 +272,10 @@ class ServingEngine:
     # ---------------------------------------------------------------- serve
     @property
     def stats(self):
-        """Dispatch counters: ``prefill_chunks``, ``steps``, ``copies``,
-        ``dispatches``, and ``sampled_steps`` (decode steps that launched
-        the sampler; not dispatches of their own)."""
+        """Dispatch counters: ``prefills`` (dense) or ``prefill_chunks``
+        and ``copies`` (paged), ``steps``, ``dispatches``, and
+        ``sampled_steps`` (decode steps that launched the sampler; not
+        dispatches of their own)."""
         return self.slots.stats
 
     def submit(self, prompt, max_new_tokens, temperature=0.0,
@@ -256,8 +283,8 @@ class ServingEngine:
         """Enqueue one generation request; returns its ``Request`` handle
         at once. Raises ``QueueFullError`` (backpressure),
         ``EngineClosedError`` (after shutdown), ``ValueError`` for a
-        request the position table cannot hold and ``PagePoolExhausted``
-        for one the whole pool could never hold."""
+        request the position table cannot hold and, paged,
+        ``PagePoolExhausted`` for one the whole pool could never hold."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = Request(prompt, max_new_tokens, temperature=temperature,
@@ -268,6 +295,8 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({t}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds max_position ({pmax})")
+        if not self.paged:
+            return self.scheduler.submit(req)
         ps = self.slots.page_size
         worst = (t + req.max_new_tokens - 1) // ps + 1
         if worst > self.slots.num_pages:
@@ -313,13 +342,15 @@ class ServingEngine:
     def metrics(self):
         """Live engine metrics: queue and slot occupancy, admission and
         retirement counters, TTFT, decode throughput, dispatch counters,
-        page-pool statistics (with ``tp_degree`` and the per-chip bytes),
+        the dense cache's or the page pool's statistics (with
+        ``tp_degree`` and the per-chip bytes),
         the kernels' launch counts, the count of sharded paged-attention
         calls and the count of int8 products (process-wide: every engine
         adds to one count)."""
         sch = self.scheduler
         return {
             "device": str(self.device),
+            "paged": self.paged,
             "queue_depth": sch.queue_depth(),
             "slot_occupancy": self.slots.occupancy(),
             "max_slots": self.slots.max_slots,

@@ -46,8 +46,7 @@ import itertools
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.serving.slots import SlotManager, select_tokens
-from bigdl_tpu_torch.utils.profiling import DispatchCounters
+from bigdl_tpu_torch.serving.slots import SlotManager
 
 # prefix digests are chained per token-aligned block from this seed, so a
 # block's digest commits to the ENTIRE prefix before it: equal digest
@@ -225,13 +224,12 @@ class PagedSlotManager(SlotManager):
     """
 
     paged = True
+    _stat_keys = ("prefill_chunks", "steps", "copies")
 
     def __init__(self, model, max_slots, num_pages=None, page_size=16,
                  window=4, steps_per_sync=1, prefill_chunk=64,
                  prefix_cache=True, top_k=None, top_p=None, seed=0,
                  int8_kv=False):
-        layout = getattr(model, "layout", None)
-        self.tp = 1 if layout is None else layout.tp
         pmax = model.gpt.max_position
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -251,18 +249,13 @@ class PagedSlotManager(SlotManager):
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.prefix_cache = bool(prefix_cache)
         self.int8_kv = bool(int8_kv)
-        self.stats = DispatchCounters("prefill_chunks", "steps", "copies")
-        # decode steps that launched the sampler (a row had temperature >
-        # 0): not dispatches of their own
-        self.stats.add("sampled_steps", 0)
         super().__init__(model, max_slots, window=window,
                          steps_per_sync=steps_per_sync, top_k=top_k,
                          top_p=top_p, seed=seed)
 
     def _alloc(self):
-        super()._alloc()
+        self._alloc_host()
         gpt = self.model.gpt
-        self._dtype = gpt.tok_emb.dtype
         self._pools = gpt.init_paged_pool(
             self.num_pages, self.page_size,
             torch.int8 if self.int8_kv else None)
@@ -273,10 +266,6 @@ class PagedSlotManager(SlotManager):
                       for shard in planes]
         self._kv_token_bytes = sum(page_bytes) // self.page_size
         self._kv_token_bytes_per_chip = page_bytes[0] // self.page_size
-        self._logits = torch.zeros((self.max_slots, self.model.vocab_size),
-                                   dtype=self._dtype, device=self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self._seed)
         # sentinel-filled: rows of free/pageless slots write nowhere
         self.page_table = np.full((self.max_slots, self.pages_per_slot),
                                   self.num_pages, np.int32)
@@ -309,36 +298,16 @@ class PagedSlotManager(SlotManager):
                 ).to(self._dtype)
         self.stats.tick("prefill_chunks")
 
-    @torch.no_grad()
-    def _step(self):
-        """``steps_per_sync`` decode steps across every slot; returns the
-        host (steps_per_sync, max_slots) token block."""
-        gpt, model = self.model.gpt, self.model
-        # inactive rows must not write through their tables: a pending
-        # (mid-prefill) slot already owns pages the junk step would
-        # corrupt, so their rows become all-sentinel
+    def _decode(self, tok, pos):
+        """One decode step of every slot through the page tables. Inactive
+        rows must not write through their tables: a pending (mid-prefill)
+        slot already owns pages the junk step would corrupt, so their rows
+        become all-sentinel."""
         table = np.where(self.active[:, None], self.page_table,
                          self.num_pages).astype(np.int32)
-        lengths = self.lengths.astype(np.int64)
-        pmax = self.max_position
-        logits = self._logits
-        if (self.temps > 0.0).any():           # select_tokens' own test
-            self.stats.add("sampled_steps", self.steps_per_sync)
-        toks = []
-        for _ in range(self.steps_per_sync):
-            tok = select_tokens(logits, self.temps, self._gen, self.top_k,
-                                self.top_p)
-            # a slot that hit EOS/max mid-block keeps decoding junk the
-            # host discards; the clamp keeps its positions in bounds
-            pos = np.minimum(lengths, pmax - 1)
-            h, self._pools = gpt.paged_decode_step(self._pools, table, tok,
-                                                   pos, self.page_size)
-            logits = model._lm_logits(h).to(self._dtype)
-            lengths = lengths + self.active
-            toks.append(tok)
-        self._logits = logits
-        self.stats.tick("steps")
-        return torch.stack(toks).cpu().numpy()   # ONE readback per block
+        h, self._pools = self.model.gpt.paged_decode_step(
+            self._pools, table, tok, pos, self.page_size)
+        return h
 
     @torch.no_grad()
     def _dispatch_copy(self, src, dst):
@@ -546,10 +515,7 @@ class PagedSlotManager(SlotManager):
         """One block of ``steps_per_sync`` decode steps across every slot
         (call :meth:`reserve_block` first). Returns host tokens of shape
         (steps_per_sync, max_slots); rows of inactive slots are junk."""
-        toks = self._step()
-        self.lengths[self.active] = np.minimum(
-            self.lengths[self.active] + self.steps_per_sync,
-            self.max_position)
+        toks = super().step()
         self._refresh_pool_stats()
         return toks
 

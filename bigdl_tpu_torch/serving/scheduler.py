@@ -1,6 +1,6 @@
-"""Iteration-level scheduler: FIFO admission, chunked prefill, token-step
-loop, streaming (the port of ``bigdl_tpu/serving/scheduler.py``, paged
-path).
+"""Iteration-level scheduler: FIFO admission, batched (dense) or chunked
+(paged) prefill, token-step loop, streaming (the port of
+``bigdl_tpu/serving/scheduler.py``).
 
 Requests are admitted into free slots and retired on EOS/max-tokens at
 block granularity (continuous batching): a new arrival waits only for a
@@ -11,13 +11,14 @@ dispatch happens there (the thread sets the CUDA device it serves on).
 ``submit`` only appends to the bounded waiting deque under the condition
 lock. A full queue rejects with :class:`QueueFullError`.
 
-Failure model: page exhaustion is handled (a new request waits; a
-decoding one is preempted and resumes later from its context). ANY other
-exception in a prefill chunk or decode step fails every request in the
-engine with that error — ``result()`` re-raises it — and the engine stops
-accepting work. The reference's in-place recovery (rebuild the slot table,
-re-place and bisect requests) is not ported yet (ROADMAP queue A): it
-would also hide a faulting kernel. Requests carry optional deadlines and
+Failure model: a prompt the slot table cannot hold fails alone; page
+exhaustion is handled (a new request waits; a decoding one is preempted
+and resumes later from its context). ANY other exception in a prefill
+(a dense admission batch or a paged chunk) or a decode step fails every
+request in the engine with that error — ``result()`` re-raises it — and
+the engine stops accepting work. The reference's in-place recovery
+(rebuild the slot table, re-place and bisect requests) is not ported yet
+(ROADMAP queue A.4): it would also hide a faulting kernel. Requests carry optional deadlines and
 support ``cancel()``, both enforced at block boundaries.
 """
 
@@ -160,7 +161,8 @@ class Request:
 
 
 class Scheduler:
-    """FIFO admission + iteration-level decode loop over a
+    """FIFO admission + iteration-level decode loop over a dense
+    :class:`~bigdl_tpu_torch.serving.slots.SlotManager` or a
     :class:`~bigdl_tpu_torch.serving.paging.PagedSlotManager` (see module
     docstring). Owns the background thread; built and shut down by
     ``ServingEngine``."""
@@ -317,7 +319,10 @@ class Scheduler:
                 self._limbo = batch
             self._sweep_inflight()
             if batch:
-                self._admit_paged(batch)
+                if slots.paged:
+                    self._admit_paged(batch)
+                else:
+                    self._admit(batch)
             self._limbo = []
             if slots.pending_prefills():
                 # ONE chunk dispatch per loop iteration, interleaved with
@@ -358,6 +363,31 @@ class Scheduler:
                 r._finish(error)
 
     # ---------------------------------------------------------- admission
+    def _admit(self, batch):
+        """Dense admission: one batched prefill dispatch of the batch's
+        prompts. A prompt the table cannot hold fails alone, before the
+        dispatch; a failing dispatch propagates and fails the engine (the
+        reference bisects the batch and recovers: ROADMAP queue A.4)."""
+        slots = self.slots
+        live = []
+        for r in self._expire_batch(batch):
+            if r.context().size > slots.max_position - 1:
+                with self._cond:
+                    self.rejected += 1
+                r._finish(ValueError(
+                    f"prompt of {r.context().size} tokens exceeds the slot "
+                    f"capacity of {slots.max_position - 1}"))
+            else:
+                live.append(r)
+        if not live:
+            return
+        assigned = slots.admit([r.context() for r in live],
+                               [r.temperature for r in live])
+        with self._cond:
+            for r, s in zip(live, assigned):
+                self._inflight[s] = r
+        self.admitted += len(live)
+
     def _admit_paged(self, batch):
         """Per-request page allocation + pending-prefill enqueue (host
         work only; ``prefill_tick`` dispatches the chunks). Exhaustion

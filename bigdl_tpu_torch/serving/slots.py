@@ -1,10 +1,30 @@
-"""Slot table and per-slot token selection (the port of ``bigdl_tpu/
-serving/slots.py``: ``select_tokens`` and the host-side parts of
-``SlotManager`` that the paged manager inherits).
+"""Slot table over one preallocated dense K/V cache, and per-slot token
+selection (the port of ``bigdl_tpu/serving/slots.py``: ``select_tokens``
+and ``SlotManager``, without speculative decoding, ROADMAP queue A.5).
 
-Only the paged manager (``serving/paging.py``) is ported; the dense
-``SlotManager`` with its preallocated (slots, max_position) cache is
-still to be ported (ROADMAP queue A).
+Iteration-level serving (Orca, OSDI '22): requests arrive and retire at
+different times while the decode batch keeps one shape.
+
+- the cache is ``n_layers`` dicts of (S, H, max_position, D) K/V buffers
+  (S = ``max_slots``; dim 0 is the slot table) allocated once: a request
+  borrows one slot row for its lifetime;
+- :meth:`SlotManager.admit` prefills up to ``window`` prompts in one
+  causal forward, padded to ``window`` rows and to the longest prompt's
+  ``prompt_bucket``, and writes the real rows' K/V and next-token logits
+  into their slots (padding rows write nothing);
+- :meth:`SlotManager.step` advances every slot by ``steps_per_sync``
+  tokens: per-slot lengths drive per-row cache writes and length-masked
+  attention (``parallel.sequence.cached_attention`` with one length a
+  row); greedy or sampled selection per slot; inactive rows decode junk
+  the host drops;
+- :meth:`SlotManager.retire` frees the slot row on the host: the next
+  admission overwrites it.
+
+Every batch a dispatch runs has the reference's rows (the padding rows of
+a short admission, the inactive slots of a step): int8 weights take one
+activation amax over a dispatch's rows, so a token depends on them.
+
+The paged manager (``serving/paging.py``) inherits the host-side table.
 """
 
 from __future__ import annotations
@@ -14,7 +34,9 @@ import heapq
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.models.gpt import prompt_bucket
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
+from bigdl_tpu_torch.utils.profiling import DispatchCounters
 
 
 def select_tokens(logits, temps, generator, top_k, top_p):
@@ -40,20 +62,36 @@ def select_tokens(logits, temps, generator, top_k, top_p):
 
 
 class SlotManager:
-    """Host-side slot table over ``max_slots`` decode rows: per-slot
-    ``lengths``/``active``/``temps``, a lowest-first free heap and an
-    occupancy counter. Subclasses own the device state and dispatches.
+    """Slot table over one preallocated dense K/V cache (see module
+    docstring). ``model`` is a ``GPTForCausalLM`` (or a
+    ``parallel.tensor_parallel.TensorParallelCausalLM``: then every shard
+    holds its heads of the cache, and the logits table and the sampler's
+    generator live on the first shard's device); ``window`` is the
+    prefill batch (admissions a dispatch), ``steps_per_sync`` the decode
+    steps of one block between host syncs (tokens past a request's end
+    inside a block are the caller's to drop); ``top_k`` / ``top_p`` are
+    the engine-wide sampling cuts; ``seed`` seeds the sampler's
+    ``torch.Generator``.
 
-    Thread model: NOT thread-safe — exactly one thread (the scheduler
-    loop) mutates it; :meth:`occupancy` and :meth:`free_slots` read
-    plain integers and are safe from any thread."""
+    The host tables (``lengths``, ``active``, ``temps``), a lowest-first
+    free heap and an occupancy counter are shared with the paged manager.
+    ``stats`` counts dispatches (``prefills``, ``steps``) and, not as
+    dispatches, ``sampled_steps``, the decode steps that launched the
+    sampler.
+
+    Thread model: NOT thread-safe: exactly one thread (the scheduler
+    loop) mutates it; :meth:`occupancy` and :meth:`free_slots` read plain
+    integers and are safe from any thread."""
 
     paged = False
+    _stat_keys = ("prefills", "steps")
 
     def __init__(self, model, max_slots, window=4, steps_per_sync=1,
                  top_k=None, top_p=None, seed=0):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        layout = getattr(model, "layout", None)
+        self.tp = 1 if layout is None else layout.tp
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -64,14 +102,33 @@ class SlotManager:
         self.top_p = top_p
         self.max_position = model.gpt.max_position
         self._seed = int(seed)
+        self.stats = DispatchCounters(*self._stat_keys)
+        self.stats.add("sampled_steps", 0)
         self._alloc()
 
-    def _alloc(self):
+    def _alloc_host(self):
         self.lengths = np.zeros(self.max_slots, np.int32)
         self.active = np.zeros(self.max_slots, bool)
         self.temps = np.zeros(self.max_slots, np.float32)
         self._free = list(range(self.max_slots))   # heap: lowest slot first
         self._occupied = 0
+        self._dtype = self.model.gpt.tok_emb.dtype
+        self._logits = torch.zeros((self.max_slots, self.model.vocab_size),
+                                   dtype=self._dtype, device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self._seed)
+
+    def _alloc(self):
+        self._alloc_host()
+        gpt = self.model.gpt
+        self._cache = gpt.init_cache(self.max_slots)
+        planes = gpt.cache_planes(self._cache)
+        slot_bytes = [sum(v[0].numel() * v.element_size() for v in shard)
+                      for shard in planes]
+        # bytes of one cached token, every layer's K and V, all heads / per
+        # shard (one chip's share when each shard has its own card)
+        self._kv_token_bytes = sum(slot_bytes) // self.max_position
+        self._kv_token_bytes_per_chip = slot_bytes[0] // self.max_position
 
     def free_slots(self):
         return self.max_slots - self._occupied
@@ -80,8 +137,120 @@ class SlotManager:
         """Active slot count (an owner-maintained integer)."""
         return self._occupied
 
+    def pending_prefills(self):
+        """Prompts admitted but not yet prefilled: none here (an admission
+        prefills at once)."""
+        return 0
+
+    def reserve_block(self):
+        """Nothing to reserve: the cache holds every position of every
+        slot."""
+
+    # ---------------------------------------------------- device dispatches
+    @torch.no_grad()
+    def _prefill(self, ids, lens, slots):
+        """One admission dispatch: ``ids`` (window, bucket) host tokens,
+        ``lens`` (window,) prompt lengths (1 on padding rows); the first
+        ``len(slots)`` rows land in ``slots``, whose K/V and logits rows
+        are written."""
+        n = len(slots)
+        h, self._cache = self.model.gpt.prefill(self._cache, ids, lens,
+                                                rows=np.asarray(slots))
+        idx = torch.as_tensor(slots, device=self.device)
+        self._logits[idx] = self.model._lm_logits(h[:n]).to(self._dtype)
+        self.stats.tick("prefills")
+
+    def _decode(self, tok, pos):
+        """One decode step of every slot: tokens ``tok`` (S,) at host
+        positions ``pos`` (S,) through the cache; returns the (S, hidden)
+        final-norm states."""
+        h, self._cache = self.model.gpt.decode_step(self._cache, tok, pos)
+        return h
+
+    @torch.no_grad()
+    def _step(self):
+        """``steps_per_sync`` decode steps across every slot
+        (:meth:`_decode`); returns the host (steps_per_sync, max_slots)
+        token block."""
+        model = self.model
+        lengths = self.lengths.astype(np.int64)
+        pmax = self.max_position
+        logits = self._logits
+        if (self.temps > 0.0).any():           # select_tokens' own test
+            self.stats.add("sampled_steps", self.steps_per_sync)
+        toks = []
+        for _ in range(self.steps_per_sync):
+            tok = select_tokens(logits, self.temps, self._gen, self.top_k,
+                                self.top_p)
+            # a slot that hit EOS/max mid-block keeps decoding junk the
+            # host discards; the clamp keeps its positions in bounds
+            pos = np.minimum(lengths, pmax - 1)
+            logits = model._lm_logits(self._decode(tok, pos)).to(self._dtype)
+            lengths = lengths + self.active
+            toks.append(tok)
+        self._logits = logits
+        self.stats.tick("steps")
+        return torch.stack(toks).cpu().numpy()   # ONE readback per block
+
+    # ------------------------------------------------------------ admission
+    def admit(self, prompts, temperatures=None):
+        """Prefill ``prompts`` (at most ``window`` and the free slots) into
+        free slots in ONE dispatch; returns the assigned slots in order.
+        The batch is padded to ``window`` rows and the prompts to the
+        ``prompt_bucket`` of the longest. A prompt longer than
+        ``max_position - 1`` raises ``ValueError`` before any slot is
+        claimed; a failed dispatch returns its slots to the free heap."""
+        if not prompts:
+            return []
+        if len(prompts) > min(self.window, self.free_slots()):
+            raise ValueError(
+                f"admit batch of {len(prompts)} exceeds window "
+                f"{self.window} / free slots {self.free_slots()}")
+        arrs = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        for a in arrs:
+            if a.size < 1:
+                raise ValueError("empty prompt")
+            if a.size > self.max_position - 1:
+                raise ValueError(
+                    f"prompt of {a.size} tokens exceeds the slot capacity "
+                    f"of {self.max_position - 1} (max_position "
+                    f"{self.max_position} minus one generated token)")
+        w = self.window
+        bucket = prompt_bucket(max(a.size for a in arrs), self.max_position)
+        ids = np.zeros((w, bucket), np.int32)
+        lens = np.ones(w, np.int32)            # padding rows: length 1
+        for i, a in enumerate(arrs):
+            ids[i, :a.size] = a
+            lens[i] = a.size
+        slots = [heapq.heappop(self._free) for _ in arrs]
+        try:
+            self._prefill(ids, lens, slots)
+        except BaseException:
+            for s in slots:
+                heapq.heappush(self._free, s)
+            raise
+        self._occupied += len(slots)
+        for i, s in enumerate(slots):
+            self.lengths[s] = lens[i]
+            self.active[s] = True
+            self.temps[s] = (0.0 if temperatures is None
+                             else float(temperatures[i]))
+        return [int(s) for s in slots]
+
+    # --------------------------------------------------------------- decode
+    def step(self):
+        """One block of ``steps_per_sync`` decode steps across every slot.
+        Returns host tokens of shape (steps_per_sync, max_slots); rows of
+        inactive slots are junk."""
+        toks = self._step()
+        self.lengths[self.active] = np.minimum(
+            self.lengths[self.active] + self.steps_per_sync,
+            self.max_position)
+        return toks
+
     def retire(self, slot):
-        """Free a slot row (host bookkeeping only)."""
+        """Free a slot row (host bookkeeping only: the stale K/V is masked
+        by length until the next admission overwrites it)."""
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
         self.active[slot] = False
@@ -89,3 +258,18 @@ class SlotManager:
         self.temps[slot] = 0.0
         heapq.heappush(self._free, int(slot))
         self._occupied -= 1
+
+    # ------------------------------------------------------------ telemetry
+    def pool_stats(self):
+        """The dense cache's size: bytes a token (every layer's K and V),
+        the whole cache's bytes, and one shard's share of both under tp."""
+        return {
+            "kv_dtype": str(self._dtype).replace("torch.", ""),
+            "kv_bytes_per_token": self._kv_token_bytes,
+            "cache_bytes": self._kv_token_bytes * self.max_position
+            * self.max_slots,
+            "tp_degree": self.tp,
+            "kv_bytes_per_token_per_chip": self._kv_token_bytes_per_chip,
+            "cache_bytes_per_chip": self._kv_token_bytes_per_chip
+            * self.max_position * self.max_slots,
+        }

@@ -3,6 +3,7 @@
 
     python3 chip_probe.py stamps              # the sampler's phases
     python3 chip_probe.py builds [--baseline DIR]
+    python3 chip_probe.py flash --baseline DIR
 
 ``stamps``: builds a copy of ``bigdl_tpu_torch/ops/csrc/sampling.cu`` with
 clock stamps at its phase boundaries (thread 0 of rank 0 of row 0 writes
@@ -14,9 +15,18 @@ beside the call's time at S = 8 and S = 1 (``chip_smoke._steady_ms``)
 and the SM clock. The stamped copy computes what the kernel does; its
 tokens are checked against the plain version.
 
-``builds``: compiles ``paged_attention.cu`` and ``sampling.cu`` alone,
+``builds``: compiles ``paged_attention.cu``, ``paged_attention_int8.cu``
+and ``sampling.cu`` alone,
 one after the other, into a fresh directory, and prints each one's
 seconds; with ``--baseline DIR``, the same for the checkout at DIR.
+
+``flash``: the float32 CUDA-core flash kernels (forward, dQ, dK/dV) of
+this checkout and of the checkout at DIR, each built from its own
+sources, on ``chip_smoke.py``'s path shape (B 8, H 12, S 1024, causal)
+at head dims 64 and 128. Each (kernel, head dim) is timed in the order
+DIR, this, this, DIR (``chip_smoke._steady_ms``, L2 flushed); both
+trees' outputs must agree with this checkout's plain version within
+``chip_smoke.FLASH_TOL``.
 
 Each result is one JSON line; the script exits non-zero without CUDA.
 """
@@ -154,12 +164,67 @@ def builds(baseline):
                                 f"{root}/bigdl_tpu_torch/ops/_build.py")
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = tempfile.mkdtemp(prefix="builds", dir=build.BUILD_DIR)
-        for name in ("paged_attention", "sampling"):
+        for name in ("paged_attention", "paged_attention_int8", "sampling"):
             _, secs, log = _nvcc_build(build, str(build.CSRC_DIR /
                                                   f"{name}.cu"), out, name)
             cs.emit({"probe": "builds", "tree": tree, "source": f"{name}.cu",
                      "seconds": secs,
                      "kernels": log.count("Compiling entry function")})
+
+
+FLASH_PROBE_DIMS = (64, 128)
+
+
+def flash(torch, baseline):
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    ops = f"{baseline}/bigdl_tpu_torch/ops"
+    base = cs._load_module("probe_base_flash", f"{ops}/flash_attention.py")
+    base._build = cs._load_module("probe_base_build", f"{ops}/_build.py")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    cs.emit({"probe": "flash", "nvidia_smi": smi, "baseline": baseline})
+    flush = torch.empty(80 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    tol = cs.FLASH_TOL["float32"]
+    for d in FLASH_PROBE_DIMS:
+        q, k, v, do = [torch.randn((8, 12, 1024, d), generator=g,
+                                   device="cuda") for _ in range(4)]
+        o, lse = fa.flash_fwd_ref(q, k, v, True)
+        delta = (do * o).sum(-1)
+        bwd = (q, k, v, do, lse, delta, None, True)
+        want = {"fwd": (o, lse), "dq": (fa.flash_bwd_dq_ref(*bwd),),
+                "dkv": fa.flash_bwd_dkv_ref(*bwd)}
+        for kern, name in cs.FLASH_NAMES.items():
+            calls = {}
+            for tree, mod in (("baseline", base), ("this", fa)):
+                fn = getattr(mod, name)
+                args = (q, k, v, True) if kern == "fwd" else bwd
+
+                def call(fn=fn, args=args, kern=kern):
+                    out = fn(*args)
+                    return (out,) if kern == "dq" else out
+
+                got = call()
+                torch.cuda.synchronize()
+                err = max(float((a - w).abs().max())
+                          for a, w in zip(got, want[kern]))
+                bar = tol["fwd" if kern == "fwd" else "grad"]
+                cs.check(err <= bar, f"flash probe {tree} {kern} D {d}: "
+                                     f"max abs err {err} over {bar}")
+                calls[tree] = call
+            ms = {"baseline": [], "this": []}
+            for tree in ("baseline", "this", "this", "baseline"):
+                ms[tree].append(cs._steady_ms(torch, calls[tree], flush)[0])
+            cs.emit({"probe": "flash", "kernel": name, "dtype": "float32",
+                     "D": d, "B": 8, "H": 12, "S": 1024, "causal": True,
+                     "baseline_ms": ms["baseline"], "this_ms": ms["this"],
+                     "this_over_baseline": sum(ms["this"])
+                     / sum(ms["baseline"])})
+        del q, k, v, do, o, lse, delta, bwd, want
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -175,6 +240,12 @@ def main():
         args = sys.argv[2:]
         builds(args[args.index("--baseline") + 1]
                if "--baseline" in args else None)
+    elif what == "flash":
+        args = sys.argv[2:]
+        if "--baseline" not in args:
+            print("chip_probe: flash needs --baseline DIR", file=sys.stderr)
+            return 2
+        flash(torch, args[args.index("--baseline") + 1])
     else:
         print(f"chip_probe: unknown measurement {what!r}", file=sys.stderr)
         return 2

@@ -24,8 +24,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
      (max abs error <= 2e-5) and bfloat16 (atol = rtol = 2e-2); the same
      cases at pages of 8 and 32 tokens (1024 positions a row), and at
      pages of 16 with heads of 32, 96 and 128, are held to the same
-     tolerances, not timed; at pages of 16 a second call must equal the
-     first bit for bit;
+     tolerances (not timed), at pages of 16 with heads of 32, 33, 34, 36,
+     72, 80, 96, 128 and 256 (timed; 33-36 run on the built width 64, 72
+     and 80 on 96, over pools of their true width; each pool's rows are
+     then staged by copies of 16, 8, 4 and 1 bytes, and each must run)
+     and with heads of 80 and 256 at pages of 8 and 32 (held); at pages
+     of 16 a second call must equal the first bit for bit;
    * int8 paged attention: the same shapes, page sizes and query types over
      an int8 pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
@@ -35,7 +39,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
      pool, all on cuda:0) and launched once per shard through the
      wrapper's ``mesh=`` branch; the joined outputs must equal the
      unsharded kernel's bit for bit and the plain version within 2e-5
-     (also at heads of 128, tp 2, held only);
+     (also at heads of 128 and 256, tp 2, held only);
      timed as one sharded call beside the unsharded kernel, both queued
      ahead of the card behind a spin kernel (device time, without the
      host's gaps), the median of three readings with their spread;
@@ -60,9 +64,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
      one ragged causal case (S = 1000) and the path's shape at D = 128,
      32 and 80 (those two zero-padded to the 64 and 128 kernels), each in
      float32 (the CUDA-core kernels) and bfloat16 (the tensor-core
-     kernels); each call on the path ``flash_attention.path`` names, and a
-     bfloat16 kernel's second call (at D 32 and 80 every kernel's) equal
-     to its first bit for bit. float32
+     kernels), and at D = 160 and 256, causal and full with an lse
+     cotangent, in both types on the CUDA-core kernels (160 zero-padded to
+     256); each call on the path ``flash_attention.path`` names, and a
+     bfloat16 kernel's second call (at D other than 64 and 128 every
+     kernel's) equal to its first bit for bit. float32
      max abs error <= 2e-5 for O and lse and <= 1e-4 for the gradients
      (the same float32 math summed in another order, over up to 1024
      keys); bfloat16 atol = rtol = 2e-2 (outputs rounded to bfloat16, p
@@ -70,7 +76,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
      and 80 cases in both types are timed beside the library yardstick:
      ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
      backward (one call yields dQ, dK and dV, so both backward rows carry
-     that time); the backend that ran is printed;
+     that time; timed at D 64, 128, 32, 80, 160 and 256); the backend that
+     ran is printed;
    * 3x3 convolution, tap-sum (k9) and im2col (i2c): ResNet-50's four
      stride-1 3x3 shapes at batch 256 (56x56x64, 28x28x128, 14x14x256,
      7x7x512, NHWC), bfloat16 (the tensor-core path) and float32 (the
@@ -101,6 +108,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the device's busy time against the wall time, the kernels that take
    the most device time, and the paged-attention and sampling kernels'
    shares (likewise in every serving phase).
+4b. slice_dense — the same model, weights and traffic through
+   ``ServingEngine(model, params, max_slots=8)`` with no ``paged`` and
+   no flag: the dense slot table, the reference's default. Checks: every
+   request retires with its tokens; no paged-attention and no flash
+   launch (every prompt bucket is at most 1024); one sampler launch per
+   decode step with a sampled row; greedy tokens of requests 0 and 11
+   against ``slice``'s CPU run (the near-tie rule). Reports tokens/s,
+   TTFT, peak memory and the dense table's bytes beside ``slice``'s, and
+   a ``profile`` line. Then ``slice_dense_tp``: the dense path at tp 2 on
+   the one card, 4 greedy requests through the engine, their first 16
+   tokens against the unsharded dense model's hand-driven on the card
+   (the same rule), the shards' measured cache bytes.
+4c. generate — ``GPTForCausalLM.generate`` at GPT-2 small: 4 prompts of
+   100 tokens, 64 new, greedy (rows equal to a 4-slot dense engine's on
+   the same prompts) and sampled at (50, 0.9), T 0.8 (one sampler launch
+   a token); a 1000-token prompt through ``_generate_sliding`` (12 flash
+   forward launches a token; its first 16 tokens against the CPU's
+   sliding loop); and GPT-2's widths with a 4096-position table (not a
+   published model) on a 1500-token prompt, whose 2048-bucket prefill
+   passes the reference's flash gate: 12 flash launches, 16 greedy
+   tokens against the CPU run.
 5. slice_int8 — the same model, weights and traffic through
    ``ServingEngine(int8_weights=True, int8_kv=True, kv_bytes=...)``, the
    byte budget of the float32 slice's 512-page pool. Checks: every request
@@ -130,6 +158,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    or a CPU ``int8_kv`` run of the unsharded port (int8), diverging only
    where the CPU top-2 gap is below 1e-3 or 0.1. Reports tokens/s, TTFT
    and peak memory beside the unsharded phase's, and a ``profile`` line.
+6b. slice_tp_int8w — ``slice_int8``'s model and traffic at tp 2 on the
+   one card with int8 weights (``mesh=["cuda:0", "cuda:0"], paged=True,
+   int8_weights=True, int8_kv=True``): the weights quantised, then split.
+   Checks: every request retires; exactly tp x 12 int8 kernel launches
+   per prefill chunk and decode step; tp x 6 int8 products a layer per
+   dispatch (tp times the unsharded count); a hand-driven 2-slot run of
+   requests 0 and 11 on the shards with logits bit-equal, step by step,
+   to ``slice_int8``'s unsharded card run; the engine's tokens of those
+   requests equal to ``slice_int8``'s engine's, or diverging only where
+   that run's top-2 gap is below 0.1. Reports tokens/s, TTFT, the
+   shards' weight bytes, and a ``profile`` line.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -345,7 +384,11 @@ def _tables(lengths, p=64, ps=16, n=512, share=None):
 PAGED_TOL = 2e-5       # float32 bar of the paged kernels (rows 4-6)
 PAGED_TP = (2, 4)      # tp degrees of row 6's kernel check
 PAGE_SIZES = (8, 32)   # the kernel's other page sizes, held, not timed
-PAGED_HEAD_DIMS = (32, 96, 128)    # its other head dims, held at page 16
+PAGED_HEAD_DIMS = (32, 96, 128)    # its other built widths, at page 16
+# head dims between or at the top of the built widths (80 on 96, 256), held
+# at every page size
+PAGED_WIDE_HEAD_DIMS = (80, 256)
+PAGED_ODD_HEAD_DIMS = (72, 36, 34, 33)  # held and timed at page 16
 READINGS = 3           # timed kernels: readings, the median reported
 
 
@@ -377,14 +420,25 @@ def _paged_cases(ps=16):
 def _paged_kernel(torch, flush, int8):
     """The paged-attention kernel (float pool, or int8 pool) against its
     plain version on :func:`_paged_cases`, float32 and bfloat16 queries,
-    at pages of 16 (timed at head 64), of PAGE_SIZES, and at page 16 with
-    heads of PAGED_HEAD_DIMS (held only); returns its ``kernels`` entry,
-    timed on decode float32 at pages of 16."""
+    at pages of 16, of PAGE_SIZES, at page 16 with heads of
+    PAGED_HEAD_DIMS and PAGED_ODD_HEAD_DIMS, and with heads of
+    PAGED_WIDE_HEAD_DIMS at every page size; every case at pages of 16 is
+    timed. Each pool's cases take every staging copy (16, 8, 4, 1 bytes). Returns its ``kernels``
+    entry, timed on decode float32 at pages of 16 and head 64, with the
+    other heads' timings under ``head_dims``."""
     from bigdl_tpu_torch.ops import paged_attention as pa
     name = "paged_attention_int8" if int8 else "paged_attention"
     shapes = []
     shape_list = ([(16, 64)] + [(ps, 64) for ps in PAGE_SIZES]
-                  + [(16, d) for d in PAGED_HEAD_DIMS])
+                  + [(16, d) for d in PAGED_HEAD_DIMS]
+                  + [(ps, d) for d in PAGED_WIDE_HEAD_DIMS
+                     for ps in (16,) + PAGE_SIZES]
+                  # rows that no 16-byte copy divides, so that each pool
+                  # takes every staging copy (pa.copy_bytes): int8 rows of
+                  # 72 (8-byte copies), 36 (4) and 33 or 34 bytes (1);
+                  # bfloat16 rows of 72 (8), 68 (4) and 66 bytes (1);
+                  # float32 rows of 136 (8) and 132 bytes (4)
+                  + [(16, d) for d in PAGED_ODD_HEAD_DIMS])
     for ps, d, label, case in [(ps, d, label, case)
                                for ps, d in shape_list
                                for label, case in _paged_cases(ps)]:
@@ -415,12 +469,15 @@ def _paged_kernel(torch, flush, int8):
             check(torch.isfinite(got.float()).all().item(),
                   f"{tag}: non-finite output")
             check(ok, f"{tag}: max abs err {max_err} over tolerance {tol}")
-            row = {"page_size": ps, "head_dim": d, "shape": label,
+            row = {"page_size": ps, "head_dim": d,
+                   "built_width": pa.kernel_width(d),
+                   "copy_bytes": pa.copy_bytes(d, pool["k"].element_size()),
+                   "shape": label,
                    "B": case["b"], "C": case["c"],
                    "dtype": str(dtype).replace("torch.", ""),
                    "max_abs_err": max_err, "tolerance": tol}
             shapes.append(row)
-            if (ps, d) != (16, 64):
+            if ps != 16:
                 continue
             nbytes, flops = pa.bytes_and_flops(q, pool, table, start)
             b_ms, b_by = bound(nbytes, flops, dtype)
@@ -433,12 +490,20 @@ def _paged_kernel(torch, flush, int8):
                                         flush),
                        bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                        flops=flops)
+    copies = {s["copy_bytes"] for s in shapes}
+    check(copies == {16, 8, 4, 1},
+          f"{name}: staging copies held {sorted(copies)}, not 16, 8, 4, 1")
     f32 = [s for s in shapes if s["dtype"] == "float32"]
     d32 = f32[0]
+    head_dims = {f"d{s['head_dim']} {s['shape']} {s['dtype']}": {
+        key: s[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err", "built_width")}
+        for s in shapes if "ms" in s and s["head_dim"] != 64}
     emit({"phase": "kernels", "kernel": name, "shapes": shapes})
     return {
         "name": name, "route": "cuda",
-        "source": "bigdl_tpu_torch/ops/csrc/paged_attention.cu",
+        "source": ("bigdl_tpu_torch/ops/csrc/paged_attention_int8.cu" if int8
+                   else "bigdl_tpu_torch/ops/csrc/paged_attention.cu"),
         "replaces": ("bigdl_tpu/ops/paged_attention.py:107" if int8
                      else "bigdl_tpu/ops/paged_attention.py:69"),
         "max_abs_err": max(s["max_abs_err"] for s in f32),
@@ -447,7 +512,7 @@ def _paged_kernel(torch, flush, int8):
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
         # no single PyTorch call attends through a page table
         "library_ms": None, "timed_shape": "decode float32, page 16",
-        "launches": 0, "shapes": shapes}
+        "head_dims": head_dims, "launches": 0, "shapes": shapes}
 
 
 def _paged_tp_kernel(torch, flush):
@@ -532,42 +597,42 @@ def _paged_tp_kernel(torch, flush):
         "launches": 0, "shapes": shapes}
 
 
-PAGED_TP_HEAD_DIM = 128    # row 6 held at this head dim too, tp 2
+PAGED_TP_HEAD_DIMS = (128, 256)    # row 6 held at these head dims too, tp 2
 
 
 def _paged_tp_head_dim(torch, pa, ModelLayout):
-    """Row 6 at heads of PAGED_TP_HEAD_DIM, tp 2: float32 and int8 pools,
+    """Row 6 at heads of PAGED_TP_HEAD_DIMS, tp 2: float32 and int8 pools,
     decode and chunk; the joined shards equal the unsharded kernel bit for
     bit and the plain version within PAGED_TOL. Held, not timed."""
     rows = []
     lay = ModelLayout(["cuda:0"] * 2)
-    for int8 in (False, True):
-        for label, case in _paged_cases():
-            q, pool, table, start = _paged_case(
-                torch, torch.float32, case["b"], case["c"], case["starts"],
-                case["tables"], seed=200 + len(rows), int8=int8,
-                d=PAGED_TP_HEAD_DIM)
-            whole = pa.paged_pool_attention(q, pool, table, start)
-            qs, pools = lay.split(q, 1), lay.split_pool(pool)
-            got = torch.cat(pa.paged_pool_attention(
-                qs, pools, [table] * 2, [start] * 2, mesh=lay.devices), 1)
-            torch.cuda.synchronize()
-            tag = (f"paged_attention_tp tp=2 head {PAGED_TP_HEAD_DIM} {label}"
-                   f" {'int8' if int8 else 'float32'}")
-            check(torch.equal(got, whole),
-                  f"{tag}: shards differ from the unsharded kernel by "
-                  f"{float((got - whole).abs().max())}")
-            want = pa.paged_pool_attention_ref(q, pool, table, start)
-            vis = (table[:, 0] < 512)
-            max_err = float((got - want)[vis].abs().max())
-            check(max_err <= PAGED_TOL, f"{tag}: max abs err {max_err} over "
-                                        f"tolerance {PAGED_TOL}")
-            rows.append({"tp": 2, "head_dim": PAGED_TP_HEAD_DIM,
-                         "shape": label, "B": case["b"], "C": case["c"],
-                         "pool": "int8" if int8 else "float32",
-                         "bit_equal_to_unsharded": True,
-                         "max_abs_err": max_err, "tolerance": PAGED_TOL})
-            del q, pool, whole, got, want, qs, pools
+    for d, int8, (label, case) in [(d, int8, c) for d in PAGED_TP_HEAD_DIMS
+                                   for int8 in (False, True)
+                                   for c in _paged_cases()]:
+        q, pool, table, start = _paged_case(
+            torch, torch.float32, case["b"], case["c"], case["starts"],
+            case["tables"], seed=200 + len(rows), int8=int8, d=d)
+        whole = pa.paged_pool_attention(q, pool, table, start)
+        qs, pools = lay.split(q, 1), lay.split_pool(pool)
+        got = torch.cat(pa.paged_pool_attention(
+            qs, pools, [table] * 2, [start] * 2, mesh=lay.devices), 1)
+        torch.cuda.synchronize()
+        tag = (f"paged_attention_tp tp=2 head {d} {label}"
+               f" {'int8' if int8 else 'float32'}")
+        check(torch.equal(got, whole),
+              f"{tag}: shards differ from the unsharded kernel by "
+              f"{float((got - whole).abs().max())}")
+        want = pa.paged_pool_attention_ref(q, pool, table, start)
+        vis = (table[:, 0] < 512)
+        max_err = float((got - want)[vis].abs().max())
+        check(max_err <= PAGED_TOL, f"{tag}: max abs err {max_err} over "
+                                    f"tolerance {PAGED_TOL}")
+        rows.append({"tp": 2, "head_dim": d,
+                     "shape": label, "B": case["b"], "C": case["c"],
+                     "pool": "int8" if int8 else "float32",
+                     "bit_equal_to_unsharded": True,
+                     "max_abs_err": max_err, "tolerance": PAGED_TOL})
+        del q, pool, whole, got, want, qs, pools
     return rows
 
 
@@ -784,12 +849,20 @@ FLASH_CASES = [("path", 8, 12, 1024, 64, True, False, ("fwd", "dq", "dkv")),
                 ("fwd", "dq", "dkv")),
                # head dims below a built width: zero-padded to 64 and 128
                ("d32", 8, 12, 1024, 32, True, False, ("fwd", "dq", "dkv")),
-               ("d80", 8, 12, 1024, 80, True, False, ("fwd", "dq", "dkv"))]
+               ("d80", 8, 12, 1024, 80, True, False, ("fwd", "dq", "dkv")),
+               # above 128: the CUDA-core kernels in both types, 160
+               # zero-padded to 256
+               ("d160", 8, 12, 1024, 160, True, False, ("fwd", "dq", "dkv")),
+               ("d256", 8, 12, 1024, 256, True, False, ("fwd", "dq", "dkv")),
+               ("d160_full", 8, 12, 1024, 160, False, True,
+                ("fwd", "dq", "dkv")),
+               ("d256_full", 8, 12, 1024, 256, False, True,
+                ("fwd", "dq", "dkv"))]
 FLASH_DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
 # the cases timed beside SDPA
-FLASH_TIMED = ("path", "d128", "d32", "d80")
-FLASH_HEAD_DIM_CASES = ("d128", "d32", "d80")
+FLASH_TIMED = ("path", "d128", "d32", "d80", "d160", "d256")
+FLASH_HEAD_DIM_CASES = ("d128", "d32", "d80", "d160", "d256")
 # products of depth D each kernel runs per visible (query, key) pair: the
 # function's two, plus the recomputed S (dQ, dK/dV) and dP (dK/dV). Their
 # time at the peak rate is a floor the kernel cannot go below; the bound
@@ -875,7 +948,7 @@ def _flash_kernels(torch, flush):
                 row = {**case, "path": path,
                        "launched_head_dim": fa.kernel_head_dim(d),
                        "max_abs_err": err, "tolerance": tol}
-                if dname == "bfloat16" or d not in fa.HEAD_DIMS:
+                if dname == "bfloat16" or d not in (64, 128):
                     again = calls[kern]()
                     torch.cuda.synchronize()
                     same = all(torch.equal(a, b_) for a, b_ in
@@ -1256,13 +1329,16 @@ SERVING_KERNEL_GROUPS = {"paged attention": "paged_attention_kernel",
 
 
 def _serving_counts():
-    """The serving path's launch counts and int8 products."""
+    """The serving path's launch counts (the flash forward's on both of
+    its paths) and int8 products."""
     from bigdl_tpu_torch.nn.quantized import qmatmul
+    from bigdl_tpu_torch.ops.flash_attention import flash_fwd
     from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
     from bigdl_tpu_torch.ops.sampling import fused_sample_logits
     return {"paged_attention": paged_pool_attention.launches,
             "paged_attention_int8": paged_pool_attention.int8_launches,
             "fused_sampling": fused_sample_logits.launches,
+            "flash_fwd": flash_fwd.launches + flash_fwd.tc_launches,
             "int8_matmuls": qmatmul.calls}
 
 
@@ -1276,6 +1352,7 @@ def _reset_serving_counts():
     fused_sample_logits.launches = 0
     fused_sample_logits.long_row_launches = 0
     qmatmul.calls = 0
+    _reset_flash_counts()
 
 
 def _serve_traffic(torch, engine, rng):
@@ -1310,8 +1387,9 @@ def _serve_traffic(torch, engine, rng):
         check(o.size == LENGTHS[i] + N_NEW and not h.truncated,
               f"request {i}: {o.size - LENGTHS[i]} of {N_NEW} tokens")
         check(((o >= 0) & (o < 50257)).all(), f"request {i}: bad token id")
-    check(metrics["prefix_hits"] >= 1 and metrics["prefix_hit_tokens"]
-          >= 256, f"no prefix-cache hit: {metrics['prefix_hits']}")
+    check(not engine.paged or (metrics["prefix_hits"] >= 1 and
+                               metrics["prefix_hit_tokens"] >= 256),
+          f"no prefix-cache hit: {metrics.get('prefix_hits')}")
     check(counts["fused_sampling"] >= 1, "the fused sampler never launched")
     check(counts["fused_sampling"] == stats["sampled_steps"],
           f"the fused sampler launched {counts['fused_sampling']} times for "
@@ -1325,34 +1403,43 @@ def _serve_traffic(torch, engine, rng):
             "ttft_mean_s": float(np.mean(ttft)),
             "ttft_p50_s": float(np.median(ttft)),
             "ttft_max_s": float(np.max(ttft)),
-            "peak_memory_bytes": peak,
-            "prefill_chunks": stats["prefill_chunks"],
-            "decode_steps": stats["steps"], "cow_copies": stats["copies"],
+            "peak_memory_bytes": peak, "paged": engine.paged,
+            "decode_steps": stats["steps"],
             "sampled_steps": stats["sampled_steps"],
             "launches": counts,
-            "prefix_hits": metrics["prefix_hits"],
-            "prefix_hit_tokens": metrics["prefix_hit_tokens"],
-            "num_pages": metrics["num_pages"],
             "kv_dtype": metrics["kv_dtype"],
             "kv_bytes_per_token": metrics["kv_bytes_per_token"],
-            "pool_bytes": metrics["pool_bytes"],
             "tp_degree": metrics["tp_degree"],
             "kv_bytes_per_token_per_chip":
                 metrics["kv_bytes_per_token_per_chip"],
-            "pool_bytes_per_chip": metrics["pool_bytes_per_chip"],
             "sharded_attention_calls": metrics["sharded_attention_calls"]}
+    if engine.paged:
+        line.update({"prefill_chunks": stats["prefill_chunks"],
+                     "cow_copies": stats["copies"],
+                     **{k: metrics[k] for k in (
+                         "prefix_hits", "prefix_hit_tokens", "num_pages",
+                         "pool_bytes", "pool_bytes_per_chip")}})
+    else:
+        line.update({"prefills": stats["prefills"],
+                     "cache_bytes": metrics["cache_bytes"],
+                     "cache_bytes_per_chip": metrics["cache_bytes_per_chip"]})
     return prompts, outs, line, profile
 
 
-def _greedy_slots(torch, model, prompts, n_steps, int8_kv):
-    """Prompts through a 2-slot ``PagedSlotManager`` on ``model``'s device,
+def _greedy_slots(torch, model, prompts, n_steps, int8_kv, paged=True):
+    """Prompts through a 2-slot ``PagedSlotManager`` (or, ``paged=False``,
+    a dense ``SlotManager`` of one slot a prompt) on ``model``'s device,
     admitted together, then ``n_steps`` greedy decode steps. Returns the
-    tokens (2, n_steps) and each step's float32 logits (2, n_steps, V)
-    on the CPU."""
+    tokens (B, n_steps) and each step's float32 logits (B, n_steps, V) on
+    the CPU."""
     import numpy as np
-    from bigdl_tpu_torch.serving.paging import PagedSlotManager
-    slots = PagedSlotManager(model, max_slots=2, page_size=16,
-                             prefill_chunk=64, int8_kv=int8_kv)
+    from bigdl_tpu_torch.serving import PagedSlotManager, SlotManager
+    if paged:
+        slots = PagedSlotManager(model, max_slots=2, page_size=16,
+                                 prefill_chunk=64, int8_kv=int8_kv)
+    else:
+        slots = SlotManager(model, max_slots=len(prompts),
+                            window=len(prompts))
     slots.admit(prompts)
     toks, logits = [], []
     for _ in range(n_steps):
@@ -1502,7 +1589,8 @@ def phase_slice_int8(torch, kernels, f32_line):
     # couple a dispatch's rows (one activation amax per batch), so the
     # engine's tokens depend on its batching and are not compared
     cmp_prompts = [prompts[i] for i in CMP_IDX]
-    card_toks, _ = _greedy_slots(torch, model, cmp_prompts, N_CMP, True)
+    card_toks, card_logits = _greedy_slots(torch, model, cmp_prompts, N_CMP,
+                                           True)
 
     def cpu_int8(sd):
         m = gpt2_small(device="cpu")
@@ -1544,7 +1632,7 @@ def phase_slice_int8(torch, kernels, f32_line):
           "gap_threshold": INT8_GAP, "cpu_ulp_logit_change": ulp_change,
           "divergences": divergences, "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving_int8", **profile})
-    return line
+    return line, (card_toks, card_logits, _engine_greedy(outs))
 
 
 TP_MESH = ["cuda:0", "cuda:0"]     # both shards of slice_tp on one card
@@ -1631,6 +1719,367 @@ def phase_slice_tp(torch, kernels, f32_line, base, cpu_ref, int8_kv):
           "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving_tp_int8" if int8_kv
           else "serving_tp", **profile})
+
+
+# slice_dense's tensor-parallel check: these greedy requests of the traffic
+DENSE_TP_IDX = [0, 2, 3, 11]
+
+
+def phase_slice_dense(torch, kernels, f32_line, cpu_ref):
+    """``slice``'s model, weights and traffic through ``ServingEngine(model,
+    params, max_slots=8)`` with no ``paged`` argument and no flag: the
+    dense slot table (the reference's default). Checks: every request
+    retires with its tokens; no paged-attention launch; one sampler launch
+    per decode step with a sampled row; no flash launch (every prompt
+    bucket is at most 1024, under the reference's flash gate of 2048);
+    greedy tokens of CMP_IDX against ``slice``'s CPU run (``cpu_ref``),
+    diverging only where its top-2 gap is below FLOAT_GAP. Then the dense
+    path tensor-parallel on one card (``mesh=TP_MESH``): DENSE_TP_IDX's
+    greedy requests through the engine, their first N_CMP tokens against
+    the unsharded dense model's, hand-driven on the card (a divergence
+    only where that run's top-2 gap is below FLOAT_GAP)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    check("BIGDL_TPU_PAGED_KV" not in os.environ,
+          "slice_dense serves the engine's default: unset BIGDL_TPU_PAGED_KV")
+    t0 = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    engine = ServingEngine(model, params, max_slots=8, top_k=50, top_p=0.9,
+                           seed=0)
+    check(not engine.paged, "the default engine is not the dense one")
+    n_layers = len(model.gpt.layers)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, outs, line, profile = _serve_traffic(torch, engine, rng)
+    counts = line["launches"]
+    check(counts["paged_attention"] == counts["paged_attention_int8"] == 0,
+          f"slice_dense launched the paged kernel: {counts}")
+    check(counts["flash_fwd"] == 0,
+          f"slice_dense launched flash {counts['flash_fwd']} times")
+    kernels["fused_sampling"].setdefault("launches_by_phase", {})[
+        "slice_dense"] = counts["fused_sampling"]
+    cpu_toks, cpu_logits = cpu_ref
+    divergences = _first_divergence(torch, "slice_dense",
+                                     _engine_greedy(outs), cpu_toks,
+                                     cpu_logits, FLOAT_GAP)
+    emit({"phase": "slice_dense", "model": "gpt2_small", "layers": n_layers,
+          **line, "paged_tokens_per_s": f32_line["tokens_per_s"],
+          "paged_ttft_mean_s": f32_line["ttft_mean_s"],
+          "paged_peak_memory_bytes": f32_line["peak_memory_bytes"],
+          "paged_pool_bytes": f32_line["pool_bytes"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          "divergences": divergences, "setup_s": setup_s})
+    emit({"phase": "profile", "path": "serving_dense", **profile})
+
+    # the dense path at tp 2, both shards on the card
+    tp_prompts = [prompts[i] for i in DENSE_TP_IDX]
+    want, want_logits = _greedy_slots(torch, engine.model, tp_prompts,
+                                      N_CMP, False, paged=False)
+    del engine, model
+    torch.cuda.empty_cache()
+    cpu_model = gpt2_small(device="cpu")
+    tp_engine = ServingEngine(cpu_model, params, max_slots=8, top_k=50,
+                              top_p=0.9, seed=0, mesh=TP_MESH)
+    try:
+        _reset_serving_counts()
+        t_run = time.perf_counter()
+        handles = [tp_engine.submit(p, N_NEW) for p in tp_prompts]
+        tp_outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t_run
+        tp_counts = _serving_counts()
+        met = tp_engine.metrics()
+        planes = tp_engine.model.gpt.cache_planes(tp_engine.slots._cache)
+    finally:
+        tp_engine.shutdown()
+    check(tp_counts["paged_attention"] == tp_counts["flash_fwd"] == 0,
+          f"slice_dense tp: {tp_counts}")
+    for i, o in zip(DENSE_TP_IDX, tp_outs):
+        check(o.size == LENGTHS[i] + N_NEW,
+              f"slice_dense tp request {i}: {o.size - LENGTHS[i]} tokens")
+    got = np.stack([o[LENGTHS[i]:LENGTHS[i] + N_CMP]
+                    for i, o in zip(DENSE_TP_IDX, tp_outs)])
+    tp_div = _first_divergence(torch, "slice_dense_tp", got, want,
+                               want_logits, FLOAT_GAP)
+    shard_bytes = [sum(v.numel() * v.element_size() for v in shard)
+                   for shard in planes]
+    check(shard_bytes == [met["cache_bytes_per_chip"]] * 2
+          and met["cache_bytes"] == 2 * shard_bytes[0],
+          f"slice_dense tp: shard bytes {shard_bytes}, cache "
+          f"{met['cache_bytes']}")
+    emit({"phase": "slice_dense_tp", "model": "gpt2_small",
+          "layers": n_layers, **tp_engine.layout.describe(),
+          "requests": DENSE_TP_IDX, "new_tokens_each": N_NEW,
+          "tokens_per_s": len(tp_prompts) * N_NEW / wall,
+          "launches": tp_counts, "shard_cache_bytes": shard_bytes,
+          "cache_bytes": met["cache_bytes"],
+          "greedy_tokens_compared": N_CMP,
+          "exact_vs_engine": [bool(np.array_equal(
+              o[LENGTHS[i]:], outs[i][LENGTHS[i]:]))
+              for i, o in zip(DENSE_TP_IDX, tp_outs)],
+          "divergences": tp_div})
+    return line
+
+
+def _cpu_sliding_greedy(torch, model, ids, n_new):
+    """``GPTForCausalLM._generate_sliding``'s greedy loop on a CPU model,
+    keeping each step's float32 logits: tokens (B, n_new) and logits
+    (B, n_new, V)."""
+    window = model.gpt.max_position
+    cur = torch.as_tensor(ids).long()
+    toks, logits = [], []
+    with torch.no_grad():
+        for _ in range(n_new):
+            lg = model._lm_logits(model.gpt(cur[:, -window:])[:, -1])
+            logits.append(lg.float())
+            tok = torch.argmax(lg, dim=-1)
+            toks.append(tok)
+            cur = torch.cat([cur, tok[:, None]], 1)
+    return torch.stack(toks, 1).numpy(), torch.stack(logits, 1)
+
+
+def _cpu_dense_greedy(torch, model, ids, n_new):
+    """``GPTForCausalLM.generate``'s greedy prefill and decode loop on a
+    CPU model, keeping each step's float32 logits: tokens (B, n_new) and
+    logits (B, n_new, V)."""
+    from bigdl_tpu_torch.models.gpt import prompt_bucket
+    gpt = model.gpt
+    ids = torch.as_tensor(ids).long()
+    b, t = ids.shape
+    padded = torch.zeros((b, prompt_bucket(t, gpt.max_position)),
+                         dtype=torch.long)
+    padded[:, :t] = ids
+    toks, logits = [], []
+    with torch.no_grad():
+        h, cache = gpt.prefill(gpt.init_cache(b), padded, t)
+        lg = model._lm_logits(h)
+        for step in range(n_new):
+            logits.append(lg.float())
+            tok = torch.argmax(lg, dim=-1)
+            toks.append(tok)
+            if step + 1 < n_new:
+                h, cache = gpt.decode_step(cache, tok, t + step)
+                lg = model._lm_logits(h)
+    return torch.stack(toks, 1).numpy(), torch.stack(logits, 1)
+
+
+GEN_PROMPTS, GEN_PROMPT_LEN = 4, 100     # generate: 4 prompts of 100 tokens
+SLIDING_PROMPT = 1000                    # + N_NEW passes GPT-2's 1024
+# a GPT-2-small-width model with a 4096-position table (not a published
+# model): its 1500-token prompt pads to the bucket 2048, where the
+# reference's flash gate (causal, t % 128 == 0, t >= 2048) opens
+LONG_POSITIONS, LONG_PROMPT = 4096, 1500
+
+
+def phase_generate(torch, kernels):
+    """``GPTForCausalLM.generate`` at GPT-2 small (``slice``'s weights):
+    GEN_PROMPTS prompts of GEN_PROMPT_LEN tokens, N_NEW new, greedy (rows
+    equal to the dense engine's tokens for the same prompts, served with
+    one slot a prompt so that every product has generate's shapes) and
+    sampled at (50, 0.9), T 0.8 (the sampler launched once a token); a
+    SLIDING_PROMPT-token prompt takes ``_generate_sliding``: 12 flash
+    forward launches a token, the first N_CMP greedy tokens against the
+    CPU's sliding loop; then a GPT-2-small-width model with LONG_POSITIONS
+    positions on a LONG_PROMPT-token prompt: the bucketed prefill past the
+    reference's flash gate launches the flash forward once a layer (12),
+    and its first N_CMP greedy tokens hold against the CPU run. A
+    divergence from the CPU only where its top-2 gap is below
+    FLOAT_GAP."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from bigdl_tpu_torch.ops.flash_attention import flash_fwd
+    from bigdl_tpu_torch.ops.sampling import fused_sample_logits
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(7)
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    n_layers = len(model.gpt.layers)
+    ids = rng.integers(0, 50257, (GEN_PROMPTS, GEN_PROMPT_LEN))
+    model.generate(ids[:1, :16], 2)                     # warm-up
+    _reset_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = model.generate(ids, N_NEW).numpy()
+    greedy_s = time.perf_counter() - t0
+    check(_serving_counts()["flash_fwd"] == 0, "generate launched flash "
+          "below the gate")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _reset_serving_counts()
+    t0 = time.perf_counter()
+    sampled = model.generate(ids, N_NEW, temperature=0.8, generator=gen,
+                             top_k=50, top_p=0.9).numpy()
+    sampled_s = time.perf_counter() - t0
+    sampler = fused_sample_logits.launches
+    check(sampler == N_NEW, f"generate sampled with {sampler} sampler "
+                            f"launches for {N_NEW} tokens")
+    check(((sampled >= 0) & (sampled < 50257)).all(), "bad sampled token")
+    # the dense engine on the same prompts: the same shapes, the same bits
+    # the prompts admitted together, in order: row r of generate's batch
+    engine = ServingEngine(model, None, max_slots=GEN_PROMPTS,
+                           admit_wait_s=5.0)
+    try:
+        handles = [engine.submit(p, N_NEW) for p in ids]
+        served = np.stack([h.result(timeout=600) for h in handles])
+    finally:
+        engine.shutdown()
+    check(np.array_equal(served, greedy),
+          f"generate's greedy rows differ from the dense engine's at "
+          f"{np.argwhere(served != greedy)[:4].tolist()}")
+
+    # past max_position: the sliding loop, one full forward a token
+    cpu_model = gpt2_small(device="cpu")
+    cpu_model.load_state_dict(params)
+    cpu_model.requires_grad_(False)
+    long_ids = rng.integers(0, 50257, (1, SLIDING_PROMPT))
+    _reset_serving_counts()
+    t0 = time.perf_counter()
+    slide = model.generate(long_ids, N_NEW).numpy()[:, SLIDING_PROMPT:]
+    sliding_s = time.perf_counter() - t0
+    slide_flash = flash_fwd.launches
+    check(slide_flash == n_layers * N_NEW,
+          f"sliding: {slide_flash} flash launches for {N_NEW} tokens of "
+          f"{n_layers} layers")
+    cpu_slide, cpu_slide_logits = _cpu_sliding_greedy(torch, cpu_model,
+                                                       long_ids, N_CMP)
+    slide_div = _first_divergence(torch, "generate sliding",
+                                  slide[:, :N_CMP], cpu_slide,
+                                  cpu_slide_logits, FLOAT_GAP)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # the reference's dense flash gate: a 4096-position table
+    long_model = GPTForCausalLM(max_position=LONG_POSITIONS)
+    long_params = convert.init_params(long_model, seed=0)
+    long_model.load_state_dict(long_params)
+    long_model.requires_grad_(False)
+    prompt = rng.integers(0, 50257, (1, LONG_PROMPT))
+    _reset_serving_counts()
+    t0 = time.perf_counter()
+    out = long_model.generate(prompt, N_CMP).numpy()[:, LONG_PROMPT:]
+    long_s = time.perf_counter() - t0
+    long_flash = flash_fwd.launches
+    check(long_flash == n_layers, f"the 2048-bucket prefill launched flash "
+                                  f"{long_flash} times, not {n_layers}")
+    cpu_long = GPTForCausalLM(max_position=LONG_POSITIONS, device="cpu")
+    cpu_long.load_state_dict(long_params)
+    cpu_long.requires_grad_(False)
+    cpu_toks, cpu_logits = _cpu_dense_greedy(torch, cpu_long, prompt, N_CMP)
+    long_div = _first_divergence(torch, "generate long prefill", out,
+                                 cpu_toks, cpu_logits, FLOAT_GAP)
+    kernels["flash_fwd"].setdefault("launches_by_phase", {})[
+        "generate"] = slide_flash + long_flash
+    kernels["fused_sampling"].setdefault("launches_by_phase", {})[
+        "generate"] = sampler
+    emit({"phase": "generate", "model": "gpt2_small", "layers": n_layers,
+          "prompts": GEN_PROMPTS, "prompt_tokens": GEN_PROMPT_LEN,
+          "new_tokens": N_NEW,
+          "greedy_tokens_per_s": GEN_PROMPTS * N_NEW / greedy_s,
+          "sampled_tokens_per_s": GEN_PROMPTS * N_NEW / sampled_s,
+          "sampler_launches": sampler, "greedy_equals_dense_engine": True,
+          "sliding_prompt_tokens": SLIDING_PROMPT,
+          "sliding_tokens_per_s": N_NEW / sliding_s,
+          "sliding_flash_launches": slide_flash,
+          "sliding_divergences": slide_div,
+          "long_model": f"GPT-2 small widths with a {LONG_POSITIONS}-"
+                        f"position table: not a published model",
+          "long_prompt_tokens": LONG_PROMPT, "long_new_tokens": N_CMP,
+          "long_s": long_s, "long_prefill_flash_launches": long_flash,
+          "long_divergences": long_div,
+          "greedy_tokens_compared": N_CMP})
+    del long_model, cpu_long
+    torch.cuda.empty_cache()
+
+
+def phase_slice_tp_int8w(torch, kernels, f32_line, int8_line, int8_ref):
+    """``slice_int8``'s model, weights and traffic served tensor-parallel
+    with int8 weights: ``ServingEngine(mesh=TP_MESH, paged=True,
+    int8_weights=True, int8_kv=True, kv_bytes=...)`` (the weights
+    quantised, then split; ``kv_bytes`` the float slice's pool bytes as a
+    per-chip budget, as ``slice_tp_int8`` takes it). Checks: every request
+    retires; the int8 paged kernel launched exactly tp x 12 times per
+    prefill chunk and decode step, the float one never; int8 products
+    exactly tp x 6 a layer per dispatch (tp times the unsharded count);
+    the hand-driven 2-slot int8 run of
+    CMP_IDX on the shards equal to ``slice_int8``'s unsharded one on the
+    card (``int8_ref``): every step's logits bit for bit, and so the
+    tokens; the threaded engine's tokens of CMP_IDX equal to
+    ``slice_int8``'s engine's, or diverging first where the unsharded
+    hand-driven run's top-2 logit gap is below INT8_GAP (its batches
+    follow the scheduler's timing, and int8 weights couple a batch's
+    rows)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    model = gpt2_small(device="cpu")
+    params = convert.init_params(model, seed=0)
+    kv_bytes = f32_line["pool_bytes"]
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, top_k=50,
+                           top_p=0.9, seed=0, int8_weights=True,
+                           int8_kv=True, kv_bytes=kv_bytes, mesh=TP_MESH)
+    tp = engine.layout.tp
+    n_layers = len(model.gpt.layers)
+    shard_weights = [_weight_bytes(s) for s in engine.model.gpt.shards]
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts, outs, line, profile = _serve_traffic(torch, engine, rng)
+    counts = line["launches"]
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    check(counts["paged_attention_int8"] == tp * n_layers * dispatches,
+          f"slice_tp_int8w: {counts['paged_attention_int8']} int8 launches "
+          f"for {dispatches} dispatches of {n_layers} layers at tp {tp}")
+    check(counts["paged_attention"] == 0,
+          f"slice_tp_int8w: the float kernel launched "
+          f"{counts['paged_attention']} times")
+    check(counts["int8_matmuls"] == tp * 6 * n_layers * dispatches,
+          f"slice_tp_int8w: {counts['int8_matmuls']} int8 products for "
+          f"{dispatches} dispatches (tp x 6 a layer)")
+    kernels["paged_attention_tp"]["launches"] += counts[
+        "paged_attention_int8"]
+    kernels["paged_attention_tp"].setdefault("launches_by_phase", {})[
+        "slice_tp_int8w"] = counts["paged_attention_int8"]
+    want_toks, want_logits, want_engine = int8_ref
+    got_toks, got_logits = _greedy_slots(
+        torch, engine.model, [prompts[i] for i in CMP_IDX], N_CMP, True)
+    check(torch.equal(got_logits, want_logits),
+          f"slice_tp_int8w: tp logits differ from the unsharded int8 run by "
+          f"{float((got_logits - want_logits).abs().max())}")
+    check(np.array_equal(got_toks, want_toks),
+          "slice_tp_int8w: tp tokens differ from the unsharded int8 run")
+    # the threaded engine's tokens against slice_int8's engine: its batches
+    # follow the scheduler's timing and int8 weights couple a batch's rows,
+    # so a divergence may only lie where the unsharded run's top-2 logit
+    # gap is below INT8_GAP (the int8 near-tie rule)
+    engine_toks = _engine_greedy(outs)
+    engine_divergences = _first_divergence(
+        torch, "slice_tp_int8w engine", engine_toks, want_engine,
+        want_logits, INT8_GAP)
+    emit({"phase": "slice_tp_int8w", "model": "gpt2_small",
+          "layers": n_layers, "int8_weights": True, "int8_kv": True,
+          "kv_bytes": kv_bytes, **engine.layout.describe(), **line,
+          "shard_weight_bytes": shard_weights,
+          "unsharded_tokens_per_s": int8_line["tokens_per_s"],
+          "unsharded_ttft_mean_s": int8_line["ttft_mean_s"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          "logits_bit_equal_to_unsharded": True,
+          "engine_greedy_equal_to_slice_int8": bool(np.array_equal(
+              engine_toks, want_engine)),
+          "gap_threshold": INT8_GAP,
+          "engine_divergences": engine_divergences,
+          "setup_s": setup_s})
+    emit({"phase": "profile", "path": "serving_tp_int8w", **profile})
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -2202,12 +2651,18 @@ def main():
     kernels = phase_kernels(torch, baseline)
     f32_line, cpu_ref = phase_slice(torch, kernels)
     torch.cuda.empty_cache()
-    int8_line = phase_slice_int8(torch, kernels, f32_line)
+    phase_slice_dense(torch, kernels, f32_line, cpu_ref)
+    torch.cuda.empty_cache()
+    phase_generate(torch, kernels)
+    torch.cuda.empty_cache()
+    int8_line, int8_ref = phase_slice_int8(torch, kernels, f32_line)
     torch.cuda.empty_cache()
     phase_slice_tp(torch, kernels, f32_line, f32_line, cpu_ref,
                    int8_kv=False)
     torch.cuda.empty_cache()
     phase_slice_tp(torch, kernels, f32_line, int8_line, None, int8_kv=True)
+    torch.cuda.empty_cache()
+    phase_slice_tp_int8w(torch, kernels, f32_line, int8_line, int8_ref)
     torch.cuda.empty_cache()
     loss32 = phase_train(torch, kernels, smi)
     torch.cuda.empty_cache()

@@ -1,11 +1,10 @@
 """The host side of the port's flash kernels
 (``bigdl_tpu_torch/ops/flash_attention.py``): the plain versions the card
-holds them against, at both head sizes every kernel is built for (64 and
-128, so dQ and float32 at 128 too), against the reference's Pallas
-kernels; the zero padding that runs any head size up to 128 on the next
-built width; the plan the tensor-core C entries make; the path each
-(type, head size, kernel) takes, the entry it reaches and the counter it
-moves.
+holds them against, at every width the kernels are built for (64, 128
+and 256), against the reference's Pallas kernels; the zero padding that
+runs any head size up to 256 on the next built width; the plans the
+tensor-core and CUDA-core C entries make; the path each (type, head size,
+kernel) takes, the entry it reaches and the counter it moves.
 
 The reference runs in Pallas interpret mode with ``block_q = block_k =
 32`` on (1, 2, 128, D). Tolerances: float32 the reference's own (O and
@@ -92,15 +91,16 @@ def _padded_plain(kernel, args, width, sm_scale):
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 80])
+@pytest.mark.parametrize("d", [32, 80, 160])
 def test_padding_is_exact(d, dtype, causal):
     """Each plain version run zero-padded to its kernel's width (64 for D
-    32, 128 for D 80) with the true ``sm_scale`` and sliced back equals
-    the unpadded plain version: the zero columns add exact zeros to every
-    product. float32 to 1e-6 (the same sums in another order), bfloat16
-    to one rounding of the outputs (atol = rtol = 8e-3)."""
+    32, 128 for D 80, 256 for D 160) with the true ``sm_scale`` and sliced
+    back equals the unpadded plain version: the zero columns add exact
+    zeros to every product. float32 to 1e-6 (the same sums in another
+    order), bfloat16 to one rounding of the outputs (atol = rtol =
+    8e-3)."""
     width = fa.kernel_head_dim(d)
-    assert width == (64 if d <= 64 else 128)
+    assert width == {32: 64, 80: 128, 160: 256}[d]
     q, k, v, do, dlse = _inputs(d, seed=d + causal)
     tdt = getattr(torch, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
@@ -121,10 +121,10 @@ def test_padding_is_exact(d, dtype, causal):
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 80])
+@pytest.mark.parametrize("d", [32, 80, 160])
 def test_padded_plain_versions_match_pallas_kernels(d, dtype, causal):
-    """The padded plain versions (what the card branch computes at D 32
-    and 80) against the reference's Pallas kernels at the true D, in
+    """The padded plain versions (what the card branch computes at D 32,
+    80 and 160) against the reference's Pallas kernels at the true D, in
     interpret mode, at the reference's own tolerances."""
     q, k, v, do, dlse = _inputs(d, seed=d + causal)
     jdt = getattr(jnp, dtype)
@@ -203,10 +203,14 @@ def test_tensor_core_plan(args, tile_q, tile_k, grid, smem):
 
 
 def test_tensor_core_plan_refuses_what_has_no_tensor_core_kernel():
+    """Above 128 the bfloat16 kernels run on the CUDA cores: no
+    tensor-core plan."""
     with pytest.raises(ValueError, match="head_dim 160 above 128"):
         fa.tc_plan("fwd", 1, 64, 160)
     with pytest.raises(ValueError, match="head_dim 256 above 128"):
         fa.tc_plan("dq", 1, 64, 256)
+    with pytest.raises(ValueError, match="head_dim 300 above 128"):
+        fa.tc_plan("dkv", 1, 64, 300)
     with pytest.raises(ValueError, match="'bwd'"):
         fa.tc_plan("bwd", 1, 64, 64)
 
@@ -231,18 +235,22 @@ TC, CC = "tensor_cores", "cuda_cores"
     ("flash_bwd_dq", torch.float32, 96, CC),        # padded to 128
     ("flash_bwd_dkv", torch.bfloat16, 80, TC),
     ("flash_fwd", torch.float32, 1, CC),
-    ("flash_bwd_dq", torch.bfloat16, 160, None),    # above 128
-    ("flash_fwd", torch.float32, 256, None),
+    ("flash_bwd_dq", torch.bfloat16, 160, CC),      # above 128: CUDA cores
+    ("flash_fwd", torch.float32, 256, CC),
+    ("flash_bwd_dkv", torch.bfloat16, 256, CC),
+    ("flash_fwd", torch.bfloat16, 257, None),       # above 256
     ("flash_fwd", torch.float16, 64, None),
     ("flash_bwd", torch.bfloat16, 64, None),        # no such wrapper
 ])
 def test_tensor_core_eligibility(fn, dtype, d, want):
-    """``path``: the tensor cores for bfloat16 and the CUDA cores for
-    float32, every wrapper at any D up to 128 (on the width
-    ``kernel_head_dim`` names); no kernel for the rest."""
+    """``path``: the tensor cores for bfloat16 up to D 128 and the CUDA
+    cores for float32 and for bfloat16 above 128, every wrapper at any D
+    up to 256 (on the width ``kernel_head_dim`` names); no kernel for the
+    rest."""
     assert fa.path(fn, dtype, d) == want
     if want is not None:
-        assert fa.kernel_head_dim(d) == (64 if d <= 64 else 128)
+        assert fa.kernel_head_dim(d) == (64 if d <= 64 else
+                                         128 if d <= 128 else 256)
 
 
 class _FakeLib:
@@ -281,16 +289,18 @@ POINTERS = {"fwd": 5, "dq": 8, "dkv": 9}
                                      (torch.float32, 64),
                                      (torch.float32, 128),
                                      (torch.bfloat16, 32),
-                                     (torch.float32, 80)])
+                                     (torch.float32, 80),
+                                     (torch.bfloat16, 160),
+                                     (torch.float32, 256)])
 def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
                                                      dtype, d):
     """The wrappers' card branch: the C entry each (type, head size,
     kernel) reaches, with its arguments (the launched head size is the
     padded width; the outputs come back at the true one), and the counter
-    it moves (``tc_launches`` for the tensor-core kernels in bfloat16,
-    ``launches`` for the CUDA-core kernels in float32). The library, the
-    card and the device checks are faked; the head-size check is the
-    wrappers' own."""
+    it moves (``tc_launches`` for the tensor-core kernels in bfloat16 up to
+    D 128, ``launches`` for the CUDA-core kernels in float32 and in
+    bfloat16 above 128). The library, the card and the device checks are
+    faked; the head-size check is the wrappers' own."""
     lib = _FakeLib()
     monkeypatch.setattr(fa, "_check_cuda_args",
                         lambda fn, q, planes, rows: fa._check_head_dim(fn,
@@ -302,14 +312,14 @@ def test_launch_takes_one_path_and_moves_its_counter(monkeypatch, kernel,
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "tc_launches", 0)
     q = torch.zeros(2, 3, 40, d, dtype=dtype)
-    tc = dtype == torch.bfloat16
+    tc = dtype == torch.bfloat16 and d <= 128
     outs = _on_card(kernel, q)
     outs = outs if isinstance(outs, tuple) else (outs,)
     assert outs[0].shape == q.shape and outs[0].is_contiguous()
     [(name, args)] = lib.calls
     assert name == ENTRIES[kernel] + ("_tc" if tc else "")
     n = POINTERS[kernel]
-    width = 64 if d <= 64 else 128
+    width = fa.kernel_head_dim(d)
     assert args[n:n + 5] == (6, 40, width, 0.125, 1) and args[-1] == 7
     if tc:
         assert len(args) == n + 6
@@ -345,14 +355,26 @@ def test_head_dims_below_128_pass_on_to_the_device_check(fn, dtype, d):
         fa._check_cuda_args(fn, q, {}, {})
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [257, 320])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("fn", WRAPPER_NAMES)
 def test_other_head_dims_raise_naming_queue_c(fn, dtype, d):
-    """``_check_cuda_args`` refuses a head size above 128, naming the
-    ROADMAP queue C item that will add it, before it looks at the
+    """``_check_cuda_args`` refuses a head size above 256, naming the
+    ROADMAP queue C item that keeps it open, before it looks at the
     device."""
     q = torch.zeros(1, 2, 8, d, dtype=dtype)
     with pytest.raises(ValueError, match=r"queue C, 'flash and paged head "
-                                         r"dims above 128'"):
+                                         r"dims above 256'"):
+        fa._check_cuda_args(fn, q, {}, {})
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fn", WRAPPER_NAMES)
+def test_head_dims_up_to_256_pass_on_to_the_device_check(fn, dtype, d):
+    """``_check_cuda_args`` takes a head size in (128, 256] (the CUDA-core
+    kernels at 256, 160 zero-padded) in both types and goes on to the
+    device check, which refuses these CPU tensors."""
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
         fa._check_cuda_args(fn, q, {}, {})

@@ -1,5 +1,6 @@
 """The host side of the port's paged-attention kernel
-(``bigdl_tpu_torch/ops/paged_attention.py``, ``ops/csrc/paged_attention.cu``):
+(``bigdl_tpu_torch/ops/paged_attention.py``,
+``ops/csrc/paged_attention.cuh``):
 
 - ``paged_plan`` mirrors the launch: a cluster of SPLIT CTAs per (slot,
   head, query tile), each walking its run of the tile's visible pages.
@@ -86,21 +87,34 @@ SMEM = {("float32", 16, True, 64): 4 * 2 * 16 * 272 + 256 + 4 * 66 * 4 + 256,
                                       + 16 * 130 * 4 + 128),
         ("int8", 8, True, 32): 4 * (2 * 8 * 48 + 64) + 128 + 4 * 34 * 4 + 512,
         ("bfloat16", 16, True, 96): (4 * 2 * 16 * 208 + 384 + 4 * 98 * 4
-                                     + 256)}
+                                     + 256),
+        # D 256: a float32 pool at pages of 32 holds 2 pages in its ring
+        # (4 would take 266,240 bytes, past RING_BYTES); the largest of all
+        ("float32", 32, False, 256): (2 * 2 * 32 * 1040 + 16 * 256 * 4
+                                      + 16 * 258 * 4 + 128),
+        ("float32", 16, False, 256): (4 * 2 * 16 * 1040 + 16 * 256 * 4
+                                      + 16 * 258 * 4 + 256),
+        ("int8", 32, True, 256): (4 * (2 * 32 * 272 + 256) + 1024
+                                  + 4 * 258 * 4 + 128)}
+# the instantiations whose ring holds 2 pages
+TWO_STAGES = {("float32", 32, 256)}
 
 
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("decode", [True, False], ids=["decode", "chunk"])
 @pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 def test_shared_memory_fits_each_instantiation(kv, ps, decode, d):
-    """Every (pool type, page size, decode or chunk, head size) the kernel
-    is instantiated for fits a CTA's 232,448 bytes."""
+    """Every (pool type, page size, decode or chunk, built width) the
+    kernel is instantiated for fits a CTA's 232,448 bytes, with a ring of 4
+    pages, or of 2 where 4 would pass RING_BYTES."""
     assert (ps, d) in pa.KERNEL_SHAPES
     c = 1 if decode else 64
     plan = pa.paged_plan(4, 12, c, d, ps, 1024 // ps, [0, 5, 9, 600], kv)
     assert plan["smem_bytes"] <= pa.MAX_SMEM
-    assert plan["threads"] == 128 and plan["stages"] == 4
+    assert plan["head_dim"] == d and plan["copy_bytes"] == 16
+    assert plan["threads"] == 128
+    assert plan["stages"] == (2 if (kv, ps, d) in TWO_STAGES else 4)
     assert plan["query_tile"] == (1 if decode else 16)
     assert plan["grid"] == (8, 48, 1 if decode else 4)
     if (kv, ps, decode, d) in SMEM:
@@ -237,13 +251,14 @@ def test_split_and_merge_matches_plain_and_pallas(c, int8):
 
 
 @pytest.mark.parametrize("d,ok", [(32, True), (64, True), (96, True),
-                                  (128, True), (80, False), (160, False),
-                                  (256, False)])
+                                  (128, True), (80, True), (160, True),
+                                  (256, True), (72, True), (257, False),
+                                  (320, False)])
 @pytest.mark.parametrize("int8", [False, True], ids=["float32", "int8"])
 def test_wrapper_takes_the_instantiated_head_dims(int8, d, ok):
-    """The card branch's shape check takes every head size the kernel is
-    built for (multiples of 32 up to 128) and refuses the rest, naming
-    the ROADMAP queue C item."""
+    """The card branch's shape check takes every head size up to 256 (run
+    on the narrowest built width at or above it: 80 and 72 on 96, 160 on
+    256) and refuses the rest, naming the ROADMAP queue C item."""
     q = torch.zeros((2, 4, 1, d))
     table = torch.zeros((2, 3), dtype=torch.int32)
     start = torch.zeros(2, dtype=torch.int32)
@@ -257,5 +272,34 @@ def test_wrapper_takes_the_instantiated_head_dims(int8, d, ok):
         pa._check_cuda_args(q, pool, table, start)
     else:
         with pytest.raises(ValueError, match=r"queue C, 'flash and paged "
-                                             r"head dims above 128'"):
+                                             r"head dims above 256'"):
             pa._check_cuda_args(q, pool, table, start)
+
+
+# (head_dim, pool type) -> (built width, bytes of one staging copy): the
+# pools keep their true rows, copied in the largest of 16, 8 and 4 bytes
+# that divides a row, else byte by byte
+WIDTHS = {(80, "float32"): (96, 16), (80, "bfloat16"): (96, 16),
+          (80, "int8"): (96, 16), (72, "int8"): (96, 8),
+          (36, "int8"): (64, 4), (33, "int8"): (64, 1),
+          (33, "bfloat16"): (64, 1), (34, "bfloat16"): (64, 4),
+          (160, "float32"): (256, 16), (160, "int8"): (256, 16),
+          (200, "bfloat16"): (256, 16), (256, "int8"): (256, 16),
+          (1, "float32"): (32, 4)}
+
+
+@pytest.mark.parametrize("d,kv", sorted(WIDTHS))
+def test_head_dims_run_on_the_next_built_width(d, kv):
+    """``paged_plan`` at a head size between the built widths: the width
+    it runs on (``kernel_width``), the bytes of one staging copy
+    (``copy_bytes``) and the shared memory of that width, which does not
+    depend on the true head size."""
+    width, cw = WIDTHS[(d, kv)]
+    assert pa.kernel_width(d) == width
+    for c in (1, 64):
+        plan = pa.paged_plan(4, 12, c, d, 16, 64, [0, 5, 9, 600], kv)
+        at_width = pa.paged_plan(4, 12, c, width, 16, 64, [0, 5, 9, 600], kv)
+        assert (plan["head_dim"], plan["copy_bytes"]) == (width, cw)
+        assert plan["smem_bytes"] == at_width["smem_bytes"] <= pa.MAX_SMEM
+    with pytest.raises(ValueError, match="head_dim 257 above 256"):
+        pa.paged_plan(4, 12, 1, 257, 16, 64, [0, 5, 9, 600], kv)

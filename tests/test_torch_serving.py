@@ -109,6 +109,11 @@ UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7"
                   "BIGDL_TPU_KV_HOST_TIER": "A.7", "BIGDL_TPU_LORA": "A.8"}
 
 
+# options these cases once refused and now serve: the dense slot table
+# (ROADMAP A.2) and int8 weights under tensor parallelism (A.6b)
+NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True})
+
+
 @pytest.mark.parametrize("kw", [
     {"paged": False}, {"spec_tokens": 4}, {"failover": True},
     {"adapters": ["tenant-a"]}, {"tp": 2, "int8_weights": True},
@@ -118,7 +123,9 @@ UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7"
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(weights, kw, monkeypatch):
     """By keyword, or by the reference's flag (``BIGDL_TPU_*`` keys are set
-    in the environment, not passed), naming the ROADMAP item."""
+    in the environment, not passed), naming the ROADMAP item. The cases
+    of NOW_PORTED serve instead, on the path they name: ``paged=False``
+    from the dense table, ``tp=2, int8_weights=True`` from int8 shards."""
     _, _, sd = weights
     kw = dict(kw)
     match = "ROADMAP"
@@ -126,6 +133,15 @@ def test_unported_options_raise(weights, kw, monkeypatch):
         monkeypatch.setenv(flag, kw.pop(flag))
         match = f"ROADMAP queue {UNPORTED_FLAGS[flag]}"
     m = GPTForCausalLM(**CFG, device="cpu")
+    if kw in NOW_PORTED:
+        with ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw}) as eng:
+            out = eng.generate(_prompts()[1], 2, timeout=WAIT)
+            met = eng.metrics()
+        assert out.size == 5 + 2 and met["retired"] == 1
+        assert met["paged"] == kw.get("paged", True)
+        assert met["tp_degree"] == kw.get("tp", 1)
+        assert (met["int8_matmuls"] > 0) == ("int8_weights" in kw)
+        return
     with pytest.raises(NotImplementedError, match=match):
         ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
 
@@ -171,11 +187,11 @@ def test_sub_options_follow_parent(weights, sub, value, parent):
 
 
 def test_kernel_page_sizes():
-    """The paged kernel is built for pages of 8, 16 and 32 at head sizes
-    32, 64, 96 and 128; its wrapper's shape check (the one a card call
+    """The paged kernel is built for pages of 8, 16 and 32 at widths 32,
+    64, 96, 128 and 256; its wrapper's shape check (the one a card call
     runs before launching) takes those pages and refuses page 12."""
     from bigdl_tpu_torch.ops import paged_attention as pa
-    assert pa.KERNEL_SHAPES == tuple((ps, d) for d in (32, 64, 96, 128)
+    assert pa.KERNEL_SHAPES == tuple((ps, d) for d in (32, 64, 96, 128, 256)
                                      for ps in (8, 16, 32))
     q = torch.zeros((2, 4, 1, 64))
     table = torch.zeros((2, 3), dtype=torch.int32)

@@ -24,6 +24,7 @@ from bigdl_tpu.serving import ServingEngine as JaxEngine
 from bigdl_tpu.serving.paging import pages_for_budget as jax_pages_for_budget
 from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.models.gpt import GPTForCausalLM
+from bigdl_tpu_torch.nn.quantized import Int8Linear
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.parallel.layout import ModelLayout
 from bigdl_tpu_torch.parallel.tensor_parallel import TensorParallelCausalLM
@@ -179,8 +180,11 @@ def test_errors(monkeypatch):
     m = GPTForCausalLM(**CFG, device="cpu")
     with pytest.raises(ValueError, match="mesh="):
         ServingEngine(m, sd, mesh=["cpu", "cpu"], device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(sd, tp=2, int8_weights=True)
+    # int8 weights under tp (ROADMAP A.6b) now build int8 shards
+    with _port_engine(sd, tp=2, int8_weights=True) as eng:
+        shard = eng.model.gpt.shards[1].gpt.layers[0]
+        assert isinstance(shard.attn.wo, Int8Linear)
+        assert shard.fc1.scale.shape == (4 * CFG["hidden_size"] // 2,)
     # tp alone asks for that many cards; a CPU-only torch has none
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
