@@ -32,11 +32,24 @@ prefixes):
   {"running_mean", "running_var"}}``) into the port's state_dict:
   convolution weights OIHW, Linear weights (out, in);
 - :func:`resnet_params_to_jax` is its inverse;
-- :func:`init_resnet_tree` / :func:`init_resnet_params` draw seeded weights
-  from the reference's initializers' distributions: convolutions
+- :func:`init_resnet_params` / :func:`init_resnet_tree` draw seeded weights
+  from the reference's initializers' distributions, as every layer's
+  ``init_arrays`` does (``nn.module.init_state_dict``): convolutions
   Glorot-uniform (``Xavier``, fan in / out = kh * kw * channels), Linear
   weight and bias uniform in +-1/sqrt(in) (its ``RandomUniform``
   default), BN weight 1 and bias 0, running mean 0 and variance 1.
+
+Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
+
+- :func:`module_params_from_jax` turns a reference container's params
+  and BN state (a list per container, one entry per child; the child of
+  a ``MapTable``/``Bottle`` holds the container's params itself) into the
+  port's state_dict, keyed ``"<i>.<leaf>"``. A reference ``Graph`` keys
+  its params by node id; give them as the list ``[params[str(n.id)] for
+  n in graph.exec_order]``, in the order the port's ``Graph`` numbers its
+  nodes;
+- :func:`module_params_to_jax` is its inverse, ``(params, state)`` in
+  that layout (a graph's as such lists).
 """
 
 from __future__ import annotations
@@ -46,7 +59,8 @@ import collections
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn import BatchNormalization, Linear, SpatialConvolution
+from bigdl_tpu_torch.nn import Bottle, Container, Graph, MapTable
+from bigdl_tpu_torch.nn.module import init_state_dict
 
 
 def params_from_jax(tree):
@@ -165,25 +179,40 @@ def init_params(model, seed=0):
     return params_from_jax(init_tree(model, seed))
 
 
+def _to_port(leaf, a):
+    """A reference leaf in the port's layout: convolution weights HWIO ->
+    OIHW, Linear weights (in, out) -> (out, in) (the ported layers' only
+    weights of 4 and 2 dimensions), other leaves as they are."""
+    a = np.asarray(a, dtype=np.float32)
+    if leaf == "weight" and a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    if leaf == "weight" and a.ndim == 2:
+        return a.T
+    return a
+
+
+def _to_jax(leaf, t):
+    """The inverse of :func:`_to_port` on a port tensor (numpy float32)."""
+    a = t.detach().cpu().float().numpy()
+    if leaf == "weight" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    elif leaf == "weight" and a.ndim == 2:
+        a = a.T
+    return np.array(a, order="C")
+
+
+def _tensor(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
 def resnet_params_from_jax(params_by_name, state_by_name=None):
     """The port's ``ResNet`` state_dict from name-keyed reference params
     and BN state (numpy arrays; see module docstring)."""
     sd = collections.OrderedDict()
-
-    def put(key, a):
-        sd[key] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
-
-    for name, leaves in params_by_name.items():
-        for leaf, a in leaves.items():
-            a = np.asarray(a)
-            if leaf == "weight" and a.ndim == 4:          # HWIO -> OIHW
-                a = a.transpose(3, 2, 0, 1)
-            elif leaf == "weight" and a.ndim == 2:        # (in, out)
-                a = a.T
-            put(f"{name}.{leaf}", a)
-    for name, leaves in (state_by_name or {}).items():
-        for leaf, a in leaves.items():
-            put(f"{name}.{leaf}", a)
+    for tree in (params_by_name, state_by_name or {}):
+        for name, leaves in tree.items():
+            for leaf, a in leaves.items():
+                sd[f"{name}.{leaf}"] = _tensor(_to_port(leaf, a))
     return sd
 
 
@@ -193,52 +222,73 @@ def resnet_params_to_jax(state_dict):
     params, state = {}, {}
     for key, t in state_dict.items():
         name, leaf = key.rsplit(".", 1)
-        a = t.detach().cpu().float().numpy()
-        if leaf in ("running_mean", "running_var"):
-            state.setdefault(name, {})[leaf] = np.array(a, order="C")
-            continue
-        if leaf == "weight" and a.ndim == 4:              # OIHW -> HWIO
-            a = a.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and a.ndim == 2:
-            a = a.T
-        params.setdefault(name, {})[leaf] = np.array(a, order="C")
-    return params, state
-
-
-def init_resnet_tree(model, seed=0):
-    """Seeded ``(params_by_name, state_by_name)`` for ``model`` in the
-    reference's layout (numpy float32; see module docstring)."""
-    rng = np.random.default_rng(seed)
-    params, state = {}, {}
-
-    def uniform(shape, bound):
-        return rng.uniform(-bound, bound, shape).astype(np.float32)
-
-    for name, m in model.named_children():
-        if isinstance(m, SpatialConvolution):
-            kk = m.kernel_h * m.kernel_w
-            bound = np.sqrt(6.0 / (kk * m.n_input_plane
-                                   + kk * m.n_output_plane))
-            p = {"weight": uniform((m.kernel_h, m.kernel_w, m.n_input_plane,
-                                    m.n_output_plane), bound)}
-            if m.bias is not None:
-                p["bias"] = np.zeros(m.n_output_plane, np.float32)
-            params[name] = p
-        elif isinstance(m, Linear):
-            bound = 1.0 / np.sqrt(m.input_size)
-            params[name] = {
-                "weight": uniform((m.input_size, m.output_size), bound),
-                "bias": uniform((m.output_size,), bound)}
-        elif isinstance(m, BatchNormalization):
-            if m.affine:
-                params[name] = {"weight": np.ones(m.n_output, np.float32),
-                                "bias": np.zeros(m.n_output, np.float32)}
-            state[name] = {"running_mean": np.zeros(m.n_output, np.float32),
-                           "running_var": np.ones(m.n_output, np.float32)}
+        tree = state if leaf in ("running_mean", "running_var") else params
+        tree.setdefault(name, {})[leaf] = _to_jax(leaf, t)
     return params, state
 
 
 def init_resnet_params(model, seed=0):
     """Seeded random weights and BN state for a ``ResNet`` as a
-    state_dict (see module docstring)."""
-    return resnet_params_from_jax(*init_resnet_tree(model, seed))
+    state_dict: each layer's ``init_arrays`` in turn
+    (``nn.module.init_state_dict``; see module docstring)."""
+    return collections.OrderedDict(init_state_dict(model, seed))
+
+
+def init_resnet_tree(model, seed=0):
+    """Seeded ``(params_by_name, state_by_name)`` for ``model`` in the
+    reference's layout (numpy float32): :func:`init_resnet_params`'s."""
+    return resnet_params_to_jax(init_resnet_params(model, seed))
+
+
+def _leaves(module, params, state, prefix=""):
+    """``(key prefix, leaf module, params, state)`` of every leaf under a
+    container ``module``, walked beside the reference's trees."""
+    if isinstance(module, (MapTable, Bottle)):
+        yield from _leaves(module[0], params, state, prefix + "0.")
+    elif isinstance(module, (Container, Graph)):
+        if isinstance(params, dict):
+            raise TypeError("give a reference Graph's params as the list "
+                            "[params[str(n.id)] for n in graph.exec_order]")
+        children = list(module.children())
+        state = state if state is not None else [None] * len(children)
+        for i, child in enumerate(children):
+            yield from _leaves(child, params[i], state[i], f"{prefix}{i}.")
+    else:
+        yield prefix, module, params, state
+
+
+def module_params_from_jax(model, params, state=None):
+    """The port's state_dict of container ``model`` from the reference's
+    params (and BN state) of the same architecture, numpy arrays (see
+    module docstring)."""
+    sd = collections.OrderedDict()
+    for prefix, _, p, st in _leaves(model, params, state):
+        for tree in (p, st):
+            for leaf, a in (tree or {}).items():
+                sd[prefix + leaf] = _tensor(_to_port(leaf, a))
+    return sd
+
+
+def module_params_to_jax(model, state_dict=None):
+    """``(params, state)`` in the reference's layout (numpy float32) of
+    container ``model``'s ``state_dict`` (default: its own; a dict of
+    gradients keyed by parameter name maps the same way, its missing
+    buffers left out)."""
+    sd = model.state_dict() if state_dict is None else state_dict
+
+    def walk(module, prefix):
+        if isinstance(module, (MapTable, Bottle)):
+            return walk(module[0], prefix + "0.")
+        if isinstance(module, (Container, Graph)):
+            pairs = [walk(c, f"{prefix}{i}.")
+                     for i, c in enumerate(module.children())]
+            return [p for p, _ in pairs], [s for _, s in pairs]
+        params = {name: _to_jax(name, sd[prefix + name])
+                  for name, _ in module.named_parameters(recurse=False)
+                  if prefix + name in sd}
+        state = {name: _to_jax(name, sd[prefix + name])
+                 for name, _ in module.named_buffers(recurse=False)
+                 if prefix + name in sd}
+        return params or (), state or ()
+
+    return walk(model, "")

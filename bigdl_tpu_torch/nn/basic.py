@@ -1,11 +1,12 @@
-"""Shape layers (the port of ``bigdl_tpu/nn/basic.py`` ``Reshape``)."""
+"""Shape layers (the port of ``bigdl_tpu/nn/basic.py`` ``Reshape`` and
+``Input``)."""
 
 from __future__ import annotations
 
-from torch import nn
+from bigdl_tpu_torch.nn.module import Module
 
 
-class Reshape(nn.Module):
+class Reshape(Module):
     """Reshape to ``size``, keeping the batch axis unless ``batch_mode`` is
     False (reference ``nn/Reshape.scala``)."""
 
@@ -21,3 +22,11 @@ class Reshape(nn.Module):
 
     def extra_repr(self):
         return f"{self.size}"
+
+
+class Input(Module):
+    """Graph input placeholder (reference ``nn/Input.scala``): the
+    identity."""
+
+    def forward(self, x):
+        return x

@@ -19,16 +19,21 @@ Routes:
   ``SpatialConvolution.library_calls`` counts these calls by geometry
   (``"3x3/s2"``, ...), so a run can show that no kernel-route convolution
   reached the library.
+
+``w_regularizer``/``b_regularizer`` join the training loss
+(``nn.module.regularization_loss``).
 """
 
 from __future__ import annotations
 
 import collections
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.conv3x3 import conv3x3
 from bigdl_tpu_torch.utils.device import resolve_device
 
@@ -40,7 +45,7 @@ def same_padding(size, k, s):
     return total // 2, total - total // 2
 
 
-class SpatialConvolution(nn.Module):
+class SpatialConvolution(Module):
     """Reference ``nn/SpatialConvolution.scala:54`` (see module
     docstring)."""
 
@@ -48,9 +53,12 @@ class SpatialConvolution(nn.Module):
 
     def __init__(self, n_input_plane, n_output_plane, kernel_w, kernel_h,
                  stride_w=1, stride_h=1, pad_w=0, pad_h=0, n_group=1,
+                 propagate_back=True, w_regularizer=None, b_regularizer=None,
                  with_bias=True, format="NCHW", dilation_w=1, dilation_h=1,
                  device=None, dtype=torch.float32):
         super().__init__()
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         if n_group != 1 or dilation_w != 1 or dilation_h != 1:
             raise NotImplementedError("grouped and dilated convolutions are "
                                       "not ported (ROADMAP A.11)")
@@ -113,6 +121,18 @@ class SpatialConvolution(nn.Module):
         if self.bias is not None:
             y = y + self.bias.reshape((1, 1, 1, -1) if nhwc else (1, -1, 1, 1))
         return y
+
+    def init_arrays(self, rng):
+        kk = self.kernel_h * self.kernel_w
+        bound = np.sqrt(6.0 / (kk * self.n_input_plane
+                               + kk * self.n_output_plane))
+        hwio = rng.uniform(-bound, bound, (self.kernel_h, self.kernel_w,
+                                           self.n_input_plane,
+                                           self.n_output_plane))
+        out = {"weight": hwio.transpose(3, 2, 0, 1)}
+        if self.bias is not None:
+            out["bias"] = np.zeros(self.n_output_plane)
+        return out
 
     def extra_repr(self):
         return (f"{self.n_input_plane} -> {self.n_output_plane}, "

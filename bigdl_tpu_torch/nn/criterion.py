@@ -16,16 +16,22 @@ from torch import nn
 
 class ClassNLLCriterion(nn.Module):
     """Negative log-likelihood of log-probabilities ``input`` (..., C)
-    at ``target`` (...); ``weights`` (C,) weighs each class."""
+    at ``target`` (...); ``weights`` (C,) weighs each class. With
+    ``log_prob_as_input=False`` the input is probabilities, and the
+    criterion takes ``log(input + 1e-8)``, as the reference does."""
 
-    def __init__(self, weights=None, size_average=True, padding_value=-1):
+    def __init__(self, weights=None, size_average=True,
+                 log_prob_as_input=True, padding_value=-1):
         super().__init__()
         self.weights = (None if weights is None
                         else torch.as_tensor(weights, dtype=torch.float32))
         self.size_average = size_average
+        self.log_prob_as_input = log_prob_as_input
         self.padding_value = padding_value
 
     def forward(self, input, target):
+        if not self.log_prob_as_input:
+            input = torch.log(input + 1e-8)
         logp = input.reshape(-1, input.shape[-1])
         target = torch.as_tensor(target, device=logp.device).reshape(-1).long()
         pad = target == self.padding_value

@@ -14,14 +14,16 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
-class LayerNormalization(nn.Module):
+class LayerNormalization(Module):
     def __init__(self, hidden_size, eps=1e-5, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -40,7 +42,7 @@ class LayerNormalization(nn.Module):
                             self.eps)
 
 
-class BatchNormalization(nn.Module):
+class BatchNormalization(Module):
     """Batch norm over every axis but the feature axis (reference
     ``nn/BatchNormalization.scala:51``; see module docstring)."""
 
@@ -90,6 +92,14 @@ class BatchNormalization(nn.Module):
         if self.affine:
             y = y * self.weight.reshape(bshape) + self.bias.reshape(bshape)
         return y
+
+    def init_arrays(self, rng):
+        out = {"running_mean": np.zeros(self.n_output),
+               "running_var": np.ones(self.n_output)}
+        if self.affine:
+            out.update(weight=np.ones(self.n_output),
+                       bias=np.zeros(self.n_output))
+        return out
 
     def extra_repr(self):
         return f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"

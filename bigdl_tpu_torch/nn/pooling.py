@@ -16,7 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from bigdl_tpu_torch.nn.module import Module
 
 
 def _pool_padding(size, k, s, pad, ceil_mode):
@@ -35,7 +36,7 @@ def _pool_padding(size, k, s, pad, ceil_mode):
     return (pad, hi)
 
 
-class _Pool2D(nn.Module):
+class _Pool2D(Module):
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
                  format="NCHW"):
         super().__init__()

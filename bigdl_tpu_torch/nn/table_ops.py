@@ -1,16 +1,56 @@
-"""Table reductions (the port of ``bigdl_tpu/nn/table_ops.py``
-``CAddTable``): the reference's table input is the argument list here."""
+"""Table layers (the port of ``bigdl_tpu/nn/table_ops.py`` ``CAddTable``,
+``JoinTable`` and ``SelectTable``).
+
+The reference's Table (keys 1..n) is a Python list here: containers and
+graphs hand a table layer one list. ``CAddTable`` also takes its inputs as
+separate arguments, as the port's ResNet calls it.
+"""
 
 from __future__ import annotations
 
-from torch import nn
+import torch
+
+from bigdl_tpu_torch.nn.module import Module
 
 
-class CAddTable(nn.Module):
+def _elems(xs):
+    if len(xs) == 1 and isinstance(xs[0], (list, tuple)):
+        return list(xs[0])
+    return list(xs)
+
+
+class CAddTable(Module):
     """Element-wise sum of its inputs, in order."""
 
+    def __init__(self, inplace=False):
+        super().__init__()
+
     def forward(self, *xs):
+        xs = _elems(xs)
         acc = xs[0]
         for x in xs[1:]:
             acc = acc + x
         return acc
+
+
+class JoinTable(Module):
+    """Concatenation of the table's tensors along ``dimension`` (0-based,
+    as in the reference)."""
+
+    def __init__(self, dimension, n_input_dims=-1):
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, *xs):
+        return torch.cat(_elems(xs), dim=self.dimension)
+
+
+class SelectTable(Module):
+    """Element ``index`` (1-based, as in the reference) of the table."""
+
+    def __init__(self, index):
+        super().__init__()
+        self.index = index
+
+    def forward(self, *xs):
+        return _elems(xs)[self.index - 1]

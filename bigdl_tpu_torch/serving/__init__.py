@@ -1,3 +1,4 @@
+from bigdl_tpu_torch.serving.adapters import AdapterLoadError
 from bigdl_tpu_torch.serving.engine import ServingEngine
 from bigdl_tpu_torch.serving.paging import (PageAllocator, PagedSlotManager,
                                             PagePoolExhausted)
@@ -11,4 +12,5 @@ from bigdl_tpu_torch.serving.slots import SlotManager
 __all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "PagePoolExhausted", "Request", "QueueFullError",
            "EngineClosedError", "EngineFailedError",
-           "RequestCancelledError", "DeadlineExceededError"]
+           "RequestCancelledError", "DeadlineExceededError",
+           "AdapterLoadError"]

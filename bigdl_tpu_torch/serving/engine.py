@@ -59,7 +59,8 @@ _UNPORTED = {
 # is not given (``spec_tokens`` follows ``models.spec.spec_config``)
 _UNPORTED_FLAGS = {"kv_snapshot": "BIGDL_TPU_KV_SNAPSHOT",
                    "kv_host_tier": "BIGDL_TPU_KV_HOST_TIER",
-                   "lora": "BIGDL_TPU_LORA"}
+                   "lora": "BIGDL_TPU_LORA",
+                   "policy": "BIGDL_TPU_ADMISSION_SLO"}
 # unported options of the reference's paged path alone, with the reason the
 # reference gives for refusing each by keyword on the dense path (it reads
 # their flags only under ``paged``, so the dense engine ignores those)
@@ -86,6 +87,9 @@ def _unported_on(name, value):
     given) ask for its feature? An explicit keyword wins over its flag."""
     if name == "spec_tokens":
         return (spec_config() if value is None else int(value)) > 1
+    if name == "max_recoveries":
+        # a budget of 0 gives up at the first error, as the port does
+        return value is not None and value is not False and int(value) > 0
     if value is None:
         flag = _UNPORTED_FLAGS.get(name)
         return flag is not None and get_flag(flag, False, bool)
@@ -182,8 +186,11 @@ class ServingEngine:
     ``NotImplementedError`` naming the ROADMAP item that ports them, when
     given by keyword or turned on by the reference's flag
     (``BIGDL_TPU_SPEC_DECODE``, ``BIGDL_TPU_KV_SNAPSHOT``,
-    ``BIGDL_TPU_KV_HOST_TIER``, ``BIGDL_TPU_LORA``; a keyword wins over
-    its flag). Their sub-options (``snapshot_dir``,
+    ``BIGDL_TPU_KV_HOST_TIER``, ``BIGDL_TPU_LORA``,
+    ``BIGDL_TPU_ADMISSION_SLO`` for ``policy``; a keyword wins over its
+    flag). ``max_recoveries=0`` is served: at that budget the reference
+    gives up at the first error, failing every request with
+    ``EngineFailedError``, as the port does at any budget. Their sub-options (``snapshot_dir``,
     ``snapshot_interval_s``, ``snapshot_journal``, ``host_tier_bytes``,
     ``host_tier_prefetch``, ``lora_rank``, ``adapter_slots``,
     ``adapter_host_bytes``) are ignored while the parent is off.
@@ -279,16 +286,24 @@ class ServingEngine:
         return self.slots.stats
 
     def submit(self, prompt, max_new_tokens, temperature=0.0,
-               eos_token=None, deadline_s=None):
+               eos_token=None, deadline_s=None, priority="standard",
+               client_id=None, adapter=None, trace=None):
         """Enqueue one generation request; returns its ``Request`` handle
         at once. Raises ``QueueFullError`` (backpressure),
         ``EngineClosedError`` (after shutdown), ``ValueError`` for a
-        request the position table cannot hold and, paged,
-        ``PagePoolExhausted`` for one the whole pool could never hold."""
+        request the position table cannot hold or an unknown
+        ``priority`` and, paged, ``PagePoolExhausted`` for one the whole
+        pool could never hold. ``priority`` and ``client_id`` are carried
+        on the request and ``trace`` on the handle (``.trace``); a request
+        naming an ``adapter`` fails at admission with ``AdapterLoadError``
+        (see ``scheduler.Request``)."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = Request(prompt, max_new_tokens, temperature=temperature,
-                      eos_token=eos_token, deadline_s=deadline_s)
+                      eos_token=eos_token, deadline_s=deadline_s,
+                      priority=priority, client_id=client_id,
+                      adapter=adapter)
+        req.trace = trace
         t = req.prompt.size
         pmax = self.model.gpt.max_position
         if t + req.max_new_tokens > pmax:

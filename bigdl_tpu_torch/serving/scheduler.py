@@ -34,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.serving.adapters import AdapterLoadError
 from bigdl_tpu_torch.serving.paging import PagePoolExhausted
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -63,15 +64,33 @@ class DeadlineExceededError(RuntimeError):
 _DONE = object()
 
 
+PRIORITIES = ("interactive", "standard", "best_effort")
+
+
 class Request:
     """One generation request and its token stream: iterate it for
     streaming tokens, or call :meth:`result` to block for the full
-    sequence. ``deadline_s`` is a wall-clock TTL from submission."""
+    sequence. ``deadline_s`` is a wall-clock TTL from submission.
+
+    ``priority`` (one of ``PRIORITIES``) and ``client_id`` are carried and
+    have no other effect, as in the reference without a control policy
+    (the policy is ROADMAP queue A.8). ``adapter`` names a LoRA adapter:
+    the port has no adapter pool (A.8), so such a request fails at
+    admission with ``AdapterLoadError``, as the reference's does with
+    ``BIGDL_TPU_LORA`` off."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0,
-                 eos_token=None, deadline_s=None):
+                 eos_token=None, deadline_s=None, priority="standard",
+                 client_id=None, adapter=None):
+        if priority not in PRIORITIES:
+            raise ValueError(f"unknown priority {priority!r}; expected "
+                             f"interactive/standard/best_effort")
+        self.priority = priority
+        self.client_id = client_id
+        self.adapter = adapter
+        self.trace = None
         self.id = next(Request._ids)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -345,8 +364,9 @@ class Scheduler:
             self._deliver_block(toks, pre_lengths)
 
     def _fail_all(self, error):
-        """Terminal failure: finish EVERY outstanding request with
-        ``error`` and stop accepting."""
+        """Terminal failure: finish EVERY outstanding request with an
+        ``EngineFailedError`` caused by ``error`` (the reference's
+        ``_give_up`` at a recovery budget of 0) and stop accepting."""
         with self._cond:
             self._accepting = False
             self.failed = error
@@ -356,11 +376,13 @@ class Scheduler:
             self._waiting.clear()
             self._inflight.clear()
         self._limbo = []
+        err = EngineFailedError(f"serving engine failed: {error!r}")
+        err.__cause__ = error
         seen = set()
         for r in victims:
             if r.id not in seen and not r.done.is_set():
                 seen.add(r.id)
-                r._finish(error)
+                r._finish(err)
 
     # ---------------------------------------------------------- admission
     def _admit(self, batch):
@@ -520,7 +542,8 @@ class Scheduler:
     def _expire_batch(self, batch):
         """Re-check a popped admission batch at the prefill boundary: a
         request cancelled or expired meanwhile fails here, before any
-        prefill is spent on it. Returns the still-live batch."""
+        prefill is spent on it, and so does one that names an adapter.
+        Returns the still-live batch."""
         now = time.perf_counter()
         live = []
         for r in batch:
@@ -533,6 +556,12 @@ class Scheduler:
                 self._swept(r, DeadlineExceededError(
                     f"request {r.id} exceeded its deadline after "
                     f"{now - r.submitted_at:.3f}s before prefill"))
+            elif r.adapter is not None:
+                with self._cond:
+                    self.rejected += 1
+                r._finish(AdapterLoadError(
+                    f"request {r.id} names adapter {r.adapter!r} but the "
+                    f"engine has no adapter pool (BIGDL_TPU_LORA off)"))
             else:
                 live.append(r)
         return live

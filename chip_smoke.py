@@ -216,6 +216,39 @@ Phases, each printing one JSON line (any failure exits non-zero):
    magnitude or within 10 times its float32 noise floor on the CPU,
    whichever is larger (see RESNET_NOISE_FACTOR). Then 2 steps under
    ``torch.profiler`` (a ``profile`` line).
+10. train_optimizer — the reference's training API, ``Optimizer(model=,
+   dataset=, criterion=)`` with its setters, ``optimize()`` and
+   ``Evaluator``. LeNet-5 in the configuration of the reference's accuracy
+   test (``tests/test_lenet_mnist.py``: ``mnist_dataset`` of 1024
+   synthetic digits in batches of 128, validation on 512, ``Adam(2e-3)``,
+   6 epochs, validation every epoch with ``Top1Accuracy`` and ``Loss``),
+   with an ``L2Regularizer(1e-4)`` on conv1_5x5 and a checkpoint every
+   epoch into a temporary directory, the epoch shuffles pinned to seeded
+   orders. Checks: losses finite, the last below the first; ``Evaluator``
+   top-1 above 0.9; ``model.<n>`` reloads into a fresh LeNet-5 bit for
+   bit and ``optimMethod.<n>`` gives the method and its step; the first
+   epoch's per-iteration losses within 1e-4 relative of the port's CPU
+   run from the same weights and shuffle; the example's setters
+   (``examples/lenet_mnist.py``, ``SGD(0.05)``) for one epoch with finite,
+   falling losses; ``steps_per_loop=2`` within 1e-4 of
+   ``steps_per_loop=1`` with half the dispatches; ``DeviceFeed``'s copy
+   counter moved. Reports ``metrics_summary()``, step time, records/s
+   (also of each of four two-epoch runs at ``steps_per_loop`` 1, 2, 2, 1)
+   and a ``profile`` line of one epoch. Then ResNet-50 (ImageNet, NHWC, 1000
+   classes) at 224 x 224, float32, batch 32, through the facade: 128
+   seeded records via ``DataSet.array`` -> ``SampleToMiniBatch(32)``,
+   ``SGD(0.01, momentum 0.9)`` under ``MultiStep([2, 3], 0.1)``,
+   ``Trigger.max_iteration(4)``, validation on one batch with
+   ``Top1Accuracy``. Checks: the first loss within 1e-6 relative of
+   ``make_train_step``'s on the same weights and batch; losses finite;
+   the conv kernels' CUDA-core launches equal ``conv_routes`` a step plus
+   one forward for the validation batch, no tensor-core launch, no 3x3
+   stride-1 ``F.conv2d``; ``conv3x3`` in float32 at batch 32 and ResNet-50's
+   four 3x3 stride-1 shapes (output, input gradient through the flip
+   launch, weight gradient) within 1e-4 x max|CPU| of float32 autograd of
+   ``F.conv2d`` on the CPU, one CUDA-core forward and flip a shape.
+   Reports images/s and the device's busy share
+   over 2 more iterations (a ``profile`` line).
 
 Then a ``{"kernels": [...]}`` line (name, route, source, replaced TPU
 kernel, launches on its path's run, max error, kernel / plain / bound /
@@ -2466,42 +2499,74 @@ def _resnet_vs_cpu(torch, model, params, rng):
     return rec
 
 
-def _conv3x3_autograd_bf16(torch, rng):
+def _conv3x3_autograd(torch, rng, dtype, batch):
     """``ops.conv3x3.conv3x3``, the autograd function the model calls,
-    in bfloat16 on the card at the check batch and ResNet-50's four 3x3
+    in ``dtype`` on the card at ``batch`` and ResNet-50's four 3x3
     shapes: output, input gradient (the flip launch) and weight gradient
     against float32 autograd of ``F.conv2d`` on the CPU over the same
-    bfloat16 values. Returns the worst max|diff| / max|CPU| of each, and
+    ``dtype`` values. Returns the worst max|diff| / max|CPU| of each, and
     the conv counts of these calls."""
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops.conv3x3 import conv3x3
 
     def draw(shape, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape, dtype="float32")
-                                * scale).to(torch.bfloat16)
+                                * scale).to(dtype)
 
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # the weight gradient's
     _reset_conv_counts()
     worst = {"y": 0.0, "dx": 0.0, "dw": 0.0}
     for hw, c in RESNET_CONV3X3:
-        x = draw((RESNET_CHECK_BATCH, hw, hw, c))
+        x = draw((batch, hw, hw, c))
         w = draw((c, c, 3, 3), (2.0 / (9 * c)) ** 0.5).contiguous(
             memory_format=torch.channels_last)
-        dy = draw((RESNET_CHECK_BATCH, hw, hw, c))
+        dy = draw((batch, hw, hw, c))
         xc = x.float().permute(0, 3, 1, 2).requires_grad_()
         wc = w.float().requires_grad_()
         yc = F.conv2d(xc, wc, padding=1)
         yc.backward(dy.float().permute(0, 3, 1, 2))
-        xg, wg = x.cuda().requires_grad_(), w.cuda().requires_grad_()
+        # leaves of their own: in float32, x.float() and w.float() are x
+        # and w, and w now requires grad
+        xg = x.detach().cuda().requires_grad_()
+        wg = w.detach().cuda().requires_grad_()
         yg = conv3x3(xg, wg)
         yg.backward(dy.cuda())
         for key, got, want in (("y", yg, yc.permute(0, 2, 3, 1)),
                                ("dx", xg.grad, xc.grad.permute(0, 2, 3, 1)),
                                ("dw", wg.grad, wc.grad)):
-            want = want.detach()
-            rel = float((got.detach().float().cpu() - want).abs().max()
-                        / want.abs().max())
+            want, got = want.detach(), got.detach().float().cpu()
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not torch.isfinite(got).all():
+                rel = float("inf")      # max() would pass over a NaN
             worst[key] = max(worst[key], rel)
+    torch.backends.cudnn.allow_tf32 = tf32
     return worst, _conv_counts()
+
+
+def _check_conv3x3_autograd(torch, rng, dtype, batch, tol):
+    """:func:`_conv3x3_autograd`, held to ``tol`` x max|CPU|, with one
+    forward and one flip launch a shape on the path ``dtype`` takes (the
+    tensor cores for bfloat16, the CUDA cores for float32); returns the
+    worst errors."""
+    from bigdl_tpu_torch.ops.conv3x3 import kernel_for
+    name = str(dtype).replace("torch.", "")
+    worst, counts = _conv3x3_autograd(torch, rng, dtype, batch)
+    print(f"conv3x3 {name} autograd vs CPU at batch {batch}: "
+          f"{json.dumps(worst)}", flush=True)
+    check(max(worst.values()) <= tol,
+          f"conv3x3 {name} autograd vs CPU at batch {batch}: {worst} over "
+          f"{tol}")
+    want = {"k9": 0, "i2c": 0}
+    for _, c in RESNET_CONV3X3:
+        want[kernel_for(c)] += 2        # forward and flip
+    tc = dtype == torch.bfloat16
+    on, off = ("", "_cuda_core") if tc else ("_cuda_core", "")
+    got = {k: counts[k + on] for k in want}
+    check(got == want and not any(counts[k + off] for k in want),
+          f"conv3x3 {name} autograd ran {counts}; the "
+          f"{'tensor' if tc else 'CUDA'} cores should have run {want}")
+    return worst
 
 
 def phase_train_resnet(torch, kernels, smi):
@@ -2509,7 +2574,6 @@ def phase_train_resnet(torch, kernels, smi):
     from bigdl_tpu_torch import convert
     from bigdl_tpu_torch.models import ResNet, conv_routes, resnet_flops
     from bigdl_tpu_torch.nn import ClassNLLCriterion
-    from bigdl_tpu_torch.ops.conv3x3 import kernel_for
     from bigdl_tpu_torch.optim import SGD, make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2594,19 +2658,8 @@ def phase_train_resnet(torch, kernels, smi):
     check(cmp["bf16_loss_rel_diff"] <= RESNET_BF16_LOSS_REL,
           f"bfloat16 check loss differs from the float32 CPU loss by "
           f"{cmp['bf16_loss_rel_diff']}")
-    conv_ad, conv_ad_counts = _conv3x3_autograd_bf16(torch, rng)
-    print(f"train_resnet conv3x3 bfloat16 autograd vs CPU: "
-          f"{json.dumps(conv_ad)}", flush=True)
-    check(max(conv_ad.values()) <= CONV_BF16_REL,
-          f"conv3x3 bfloat16 autograd vs CPU: {conv_ad}")
-    want = {"k9": 0, "i2c": 0}
-    for _, c in RESNET_CONV3X3:
-        want[kernel_for(c)] += 2        # forward and flip
-    got = {k: conv_ad_counts[k] for k in want}
-    check(got == want and not conv_ad_counts["k9_cuda_core"]
-          and not conv_ad_counts["i2c_cuda_core"],
-          f"conv3x3 bfloat16 autograd ran {conv_ad_counts}; the tensor "
-          f"cores should have run {want}")
+    conv_ad = _check_conv3x3_autograd(torch, rng, torch.bfloat16,
+                                      RESNET_CHECK_BATCH, CONV_BF16_REL)
     emit({"phase": "train_resnet", "model": "resnet50", "format": "NHWC",
           "batch": RESNET_BATCH, "image": RESNET_HW,
           "compute_dtype": "bfloat16",
@@ -2629,6 +2682,333 @@ def phase_train_resnet(torch, kernels, smi):
                                        for _ in range(2)],
                        groups=RESNET_KERNEL_GROUPS)
     emit({"phase": "profile", "path": "train_resnet", "steps": 2, **profile})
+
+
+# ------------------------------------------------- train_optimizer (facade)
+# LeNet-5 in the configuration of the reference's accuracy test
+# (tests/test_lenet_mnist.py:170-186): 1024 synthetic training digits in
+# batches of 128 (8 steps an epoch), 512 validation digits, Adam 2e-3, 6
+# epochs; the test's bar on the validation top-1
+LENET_TRAIN, LENET_VAL, LENET_BATCH, LENET_EPOCHS = 1024, 512, 128, 6
+LENET_TOP1_BAR = 0.9
+# card vs the port's CPU run, per iteration of the first epoch, relative:
+# float32 cuDNN against CPU convolutions, carried through 8 Adam steps
+LENET_CPU_LOSS_REL = 1e-4
+# ResNet-50 through the facade: float32 (the reference's facade trains in
+# float32), 128 seeded records, batches of 32, 4 iterations
+FACADE_RESNET_RECORDS, FACADE_RESNET_BATCH, FACADE_RESNET_STEPS = 128, 32, 4
+# the facade's first loss against make_train_step's on the same weights
+# and batch, relative: the same kernels on the same inputs
+FACADE_FIRST_LOSS_REL = 1e-6
+# the epoch shuffle's seeds: the reference's shuffle is unseeded, and the
+# card-vs-CPU and K=1-vs-K=2 comparisons need one order
+SHUFFLE_SEEDS = tuple(range(100, 120))
+
+
+class _Scalars:
+    """An ``add_scalar`` summary: every (tag, value) in order."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value)))
+
+    @property
+    def losses(self):
+        return [v for tag, v in self.scalars if tag == "Loss"]
+
+
+def _pin_shuffle(ds):
+    """``ds`` (a LocalDataSet) with its epoch shuffles seeded from
+    SHUFFLE_SEEDS in turn."""
+    from bigdl_tpu_torch.dataset.dataset import LocalDataSet
+    seeds = iter(SHUFFLE_SEEDS)
+
+    class Pinned(LocalDataSet):
+        def shuffle(self, seed=None):
+            return LocalDataSet.shuffle(self, next(seeds))
+
+    ds.__class__ = Pinned
+    return ds
+
+
+def _lenet_run(torch, device, w0, epochs, method, steps_per_loop=1,
+               val=None, ckpt=None, regularize=True):
+    """LeNet-5 from weights ``w0`` through ``Optimizer(...).optimize()``
+    on ``device``; returns (model, optimizer, per-iteration losses,
+    wall seconds)."""
+    from bigdl_tpu_torch.dataset.mnist import mnist_dataset
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (L2Regularizer, Loss, Optimizer,
+                                       Top1Accuracy, Trigger)
+    model = LeNet5(10, device=device)
+    model.load_state_dict(w0)
+    if regularize:
+        model[1].w_regularizer = L2Regularizer(1e-4)     # conv1_5x5
+    train = _pin_shuffle(mnist_dataset(training=True, batch_size=LENET_BATCH,
+                                       synthetic_size=LENET_TRAIN))
+    opt = Optimizer(model=model, dataset=train,
+                    criterion=ClassNLLCriterion(),
+                    steps_per_loop=steps_per_loop)
+    opt.set_optim_method(method)
+    opt.set_end_when(Trigger.max_epoch(epochs))
+    if val is not None:
+        opt.set_validation(Trigger.every_epoch(), val,
+                           [Top1Accuracy(), Loss()])
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, Trigger.every_epoch())
+    log = _Scalars()
+    opt.set_train_summary(log)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.optimize()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return model, opt, log.losses, time.perf_counter() - t0
+
+
+def _facade_lenet(torch, smi):
+    import os
+    import tempfile
+
+    import numpy as np
+    from bigdl_tpu_torch.dataset.mnist import mnist_dataset
+    from bigdl_tpu_torch.dataset.transformer import DeviceFeed
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.optim import SGD, Adam, Evaluator, OptimMethod
+    from bigdl_tpu_torch.optim import Top1Accuracy
+
+    w0 = LeNet5(10, device="cpu", seed=1).state_dict()
+    val = mnist_dataset(training=False, batch_size=LENET_BATCH,
+                        synthetic_size=LENET_VAL)
+    per_epoch = LENET_TRAIN // LENET_BATCH
+    rec = {"model": "lenet5", "train_records": LENET_TRAIN,
+           "val_records": LENET_VAL, "batch": LENET_BATCH,
+           "epochs": LENET_EPOCHS, "optimizer": "Adam(2e-3)",
+           "regularizer": "L2Regularizer(1e-4) on conv1_5x5"}
+    with tempfile.TemporaryDirectory() as ckpt:
+        copies0 = DeviceFeed.copies
+        model, opt, losses, wall = _lenet_run(
+            torch, "cuda", w0, LENET_EPOCHS, Adam(learningrate=2e-3),
+            val=val, ckpt=ckpt)
+        copies = DeviceFeed.copies - copies0
+        check(len(losses) == LENET_EPOCHS * per_epoch,
+              f"{len(losses)} losses for {LENET_EPOCHS} epochs")
+        check(all(np.isfinite(losses)), f"non-finite LeNet loss: {losses}")
+        check(losses[-1] < losses[0], f"LeNet loss did not fall: {losses}")
+        top1, n = Evaluator(model).evaluate(
+            val, [Top1Accuracy()])["Top1Accuracy"].result()
+        check(n == LENET_VAL and top1 > LENET_TOP1_BAR,
+              f"LeNet validation top-1 {top1} over {n} digits")
+        check(copies == 2 * len(losses),
+              f"DeviceFeed issued {copies} copies for {len(losses)} steps")
+        last = LENET_EPOCHS * per_epoch + 1
+        names = sorted(os.listdir(ckpt))
+        check(f"model.{last}" in names and f"optimMethod.{last}" in names,
+              f"checkpoint files {names}")
+        fresh = LeNet5(10, device="cuda", seed=7)
+        fresh.load_state_dict(torch.load(os.path.join(ckpt, f"model.{last}"),
+                                         weights_only=True))
+        same = all(torch.equal(a, b) for a, b in
+                   zip(model.state_dict().values(),
+                       fresh.state_dict().values()))
+        check(same, "model checkpoint does not reload bit for bit")
+        method, state = OptimMethod.load(os.path.join(ckpt,
+                                                      f"optimMethod.{last}"))
+        check(type(method) is Adam and int(state["step"]) == len(losses)
+              and int(state["epoch"]) == LENET_EPOCHS,
+              f"optimMethod checkpoint: {type(method).__name__}, step "
+              f"{int(state['step'])}, epoch {int(state['epoch'])}")
+        rec.update(checkpoints=len(names), checkpoint_reload_bitwise=same)
+    summary = opt.metrics_summary()
+    rec.update(losses=losses, top1=top1, metrics_summary=summary,
+               step_s=summary["step_time_avg_s"] + summary["data_time_avg_s"],
+               records_per_s=summary["throughput_rec_s"], wall_s=wall,
+               device_feed_copies=copies)
+
+    # the first epoch on the CPU, from the same weights and shuffle
+    _, _, cpu_losses, _ = _lenet_run(torch, "cpu", w0, 1,
+                                     Adam(learningrate=2e-3))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"train_optimizer LeNet card vs CPU, first epoch: card "
+          f"{losses[:per_epoch]}, CPU {cpu_losses}", flush=True)
+    check(len(cpu_losses) == per_epoch and rel <= LENET_CPU_LOSS_REL,
+          f"LeNet first-epoch losses differ from the CPU's by {rel}")
+    rec["cpu_loss_rel_diff"] = rel
+
+    # the reference example's setters (examples/lenet_mnist.py:39-53)
+    _, ex, ex_losses, _ = _lenet_run(torch, "cuda", w0, 1,
+                                     SGD(learningrate=0.05), val=val,
+                                     regularize=False)
+    check(all(np.isfinite(ex_losses)) and ex_losses[-1] < ex_losses[0],
+          f"example setters' losses: {ex_losses}")
+    rec["example_sgd_losses"] = ex_losses
+
+    # steps_per_loop 2 against 1 on the card, run 1, 2, 2, 1: losses,
+    # dispatches and records/s of each run
+    k_runs = {1: [], 2: []}
+    for k in (1, 2, 2, 1):
+        copies0 = DeviceFeed.copies
+        _, o, ls, w = _lenet_run(torch, "cuda", w0, 2,
+                                 Adam(learningrate=2e-3), steps_per_loop=k)
+        k_runs[k].append((ls, dict(o.metrics), DeviceFeed.copies - copies0,
+                          o.metrics_summary()["throughput_rec_s"]))
+    (l1, m1, c1, _), (l2, m2, c2, _) = k_runs[1][0], k_runs[2][0]
+    rel_k = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    check(len(l1) == len(l2) == 2 * per_epoch and rel_k <= LENET_CPU_LOSS_REL,
+          f"steps_per_loop=2 losses differ from steps_per_loop=1 by {rel_k}")
+    check(m2["dispatches"] * 2 == m2["steps"] == m1["dispatches"],
+          f"steps_per_loop=2 dispatches {m2['dispatches']} for "
+          f"{m2['steps']} steps")
+    check(c1 > 0 and c2 > 0, f"DeviceFeed copies {c1}, {c2}")
+    rec.update(steps_per_loop_rel_diff=rel_k,
+               steps_per_loop_dispatches={"1": m1["dispatches"],
+                                          "2": m2["dispatches"]},
+               steps_per_loop_records_per_s={
+                   str(k): [r[3] for r in runs]
+                   for k, runs in k_runs.items()})
+    emit({"phase": "train_optimizer", "part": "lenet", **rec, "card": smi})
+    profile = _profile(torch, lambda: _lenet_run(
+        torch, "cuda", w0, 1, Adam(learningrate=2e-3), val=val))
+    emit({"phase": "profile", "path": "train_optimizer_lenet", "epochs": 1,
+          **profile})
+
+
+def _conv_forward_counts(model, hw):
+    """Launches of each conv kernel in one forward pass (no gradient)."""
+    from bigdl_tpu_torch.nn import SpatialConvolution
+    from bigdl_tpu_torch.ops.conv3x3 import kernel_for
+    out = {"k9": 0, "i2c": 0}
+    for _, m, (h, w) in model.layer_walk(hw):
+        if isinstance(m, SpatialConvolution) and m.uses_kernel(h, w):
+            out[kernel_for(m.n_input_plane)] += 1
+    return out
+
+
+def _facade_resnet(torch, kernels, smi):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import ResNet, conv_routes, resnet_flops
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, MultiStep, Optimizer,
+                                       Top1Accuracy, Trigger,
+                                       make_train_step)
+
+    n, b, hw = FACADE_RESNET_RECORDS, FACADE_RESNET_BATCH, RESNET_HW
+    rng = np.random.default_rng(2)
+    images = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    labels = rng.integers(0, 1000, n).astype(np.int32)
+    val_images = rng.standard_normal((b, hw, hw, 3), dtype=np.float32)
+    val_labels = rng.integers(0, 1000, b).astype(np.int32)
+
+    def method():
+        return SGD(learningrate=0.01, momentum=0.9,
+                   learningrate_schedule=MultiStep([2, 3], 0.1))
+
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    params = convert.init_resnet_params(model, seed=0)
+    routes = conv_routes(model, (hw, hw))
+    fwd = _conv_forward_counts(model, (hw, hw))
+    # make_train_step's first loss on the first batch the pinned shuffle
+    # gives, from the same weights
+    order = np.arange(n)
+    np.random.default_rng(SHUFFLE_SEEDS[0]).shuffle(order)
+    first = order[:b]
+    model.load_state_dict(params)
+    opt_m = method()
+    step = make_train_step(model, ClassNLLCriterion(), opt_m)
+    want = float(step(opt_m.init_state(dict(model.named_parameters())),
+                      torch.from_numpy(images[first]).cuda(),
+                      torch.from_numpy(labels[first]).cuda()))
+
+    model.load_state_dict(params)
+    train = _pin_shuffle(DataSet.array(
+        [Sample(images[i], labels[i]) for i in range(n)])
+        >> SampleToMiniBatch(b))
+    val = DataSet.array([Sample(val_images[i], val_labels[i])
+                         for i in range(b)]) >> SampleToMiniBatch(b)
+    opt = Optimizer(model=model, dataset=train,
+                    criterion=ClassNLLCriterion())
+    opt.set_optim_method(method())
+    opt.set_end_when(Trigger.max_iteration(FACADE_RESNET_STEPS))
+    opt.set_validation(Trigger.every_epoch(), val, [Top1Accuracy()])
+    vlog, log = _Scalars(), _Scalars()
+    opt.set_validation_summary(vlog)
+    opt.set_train_summary(log)
+    torch.cuda.synchronize()
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    losses = log.losses
+    check(len(losses) == FACADE_RESNET_STEPS and all(np.isfinite(losses)),
+          f"ResNet-50 facade losses: {losses}")
+    rel = abs(losses[0] - want) / abs(want)
+    check(rel <= FACADE_FIRST_LOSS_REL,
+          f"facade first loss {losses[0]} vs make_train_step's {want}")
+    check([tag for tag, _ in vlog.scalars] == ["Top1Accuracy"],
+          f"ResNet-50 validation summary: {vlog.scalars}")
+    for kind in ("k9", "i2c"):
+        want_n = routes[kind] * FACADE_RESNET_STEPS + fwd[kind]
+        check(counts[f"{kind}_cuda_core"] == want_n and counts[kind] == 0,
+              f"facade float32: conv3x3_{kind} ran {counts[kind]} "
+              f"tensor-core and {counts[f'{kind}_cuda_core']} CUDA-core "
+              f"launches; the layers give 0 and {want_n} ({routes[kind]} "
+              f"a step, {fwd[kind]} in the validation forward)")
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_optimizer"] = counts[f"{kind}_cuda_core"]
+    check("3x3/s1" not in counts["library"],
+          f"a 3x3 stride-1 convolution reached F.conv2d: {counts['library']}")
+    # the float32 CUDA-core kernels at this path's batch and shapes,
+    # forward and flip, against F.conv2d on the CPU
+    conv_f32 = _check_conv3x3_autograd(torch, rng, torch.float32, b,
+                                       CONV_TOL["float32"])
+    summary = opt.metrics_summary()
+    step_s = summary["step_time_avg_s"] + summary["data_time_avg_s"]
+    flops = 3 * resnet_flops(model, (hw, hw)) * b
+    # where the time goes: 2 more iterations through the facade
+    model.load_state_dict(params)
+    opt2 = Optimizer(model=model, dataset=_pin_shuffle(train.copy()),
+                     criterion=ClassNLLCriterion())
+    opt2.set_optim_method(method()).set_end_when(Trigger.max_iteration(2))
+    profile = _profile(torch, opt2.optimize,
+                       groups={"conv3x3 CUDA-core kernels":
+                               "conv3x3_simt_kernel",
+                               "cuDNN": ("xmma", "cudnn", "implicit"),
+                               "reductions": "reduce_kernel",
+                               "elementwise": "elementwise_kernel"})
+    emit({"phase": "train_optimizer", "part": "resnet50", "format": "NHWC",
+          "dtype": "float32", "batch": b, "image": hw, "records": n,
+          "iterations": FACADE_RESNET_STEPS,
+          "optimizer": "SGD(0.01, momentum 0.9, MultiStep([2, 3], 0.1))",
+          "losses": losses, "make_train_step_first_loss": want,
+          "first_loss_rel_diff": rel, "metrics_summary": summary,
+          "step_s": step_s, "images_per_s": b / step_s, "wall_s": wall,
+          "model_flops_per_step": flops,
+          "mfu_vs_f32_peak": flops / step_s / PEAK_FLOPS_PER_S["float32"],
+          "conv_routes_per_step": routes,
+          "validation_forward_launches": fwd, "launches": counts,
+          "conv3x3_f32_autograd_rel": conv_f32,
+          "conv3x3_f32_autograd_tol": CONV_TOL["float32"],
+          "device_busy_share": profile.get("device_busy_share",
+                                           "not measured"),
+          "card": smi})
+    emit({"phase": "profile", "path": "train_optimizer_resnet50",
+          "iterations": 2, **profile})
+
+
+def phase_train_optimizer(torch, kernels, smi):
+    """The reference's training API (``Optimizer(...).optimize()``,
+    ``Evaluator``) on LeNet-5 and ResNet-50 (see module docstring)."""
+    _facade_lenet(torch, smi)
+    torch.cuda.empty_cache()
+    _facade_resnet(torch, kernels, smi)
 
 
 def main():
@@ -2669,6 +3049,8 @@ def main():
     phase_train_bf16(torch, kernels, smi, loss32)
     torch.cuda.empty_cache()
     phase_train_resnet(torch, kernels, smi)
+    torch.cuda.empty_cache()
+    phase_train_optimizer(torch, kernels, smi)
     emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -45,3 +45,15 @@ def test_scan_sees_the_package_and_the_rule_bites():
     assert _forbidden("scripts.perf_pallas_conv")
     assert _forbidden("bigdl_tpu.serving")
     assert not _forbidden("bigdl_tpu_torch.ops") and not _forbidden("jaxlib2")
+
+
+def test_scan_sees_the_training_facade_modules():
+    pkg = ROOT / "bigdl_tpu_torch"
+    for rel in ("optim/optimizer.py", "optim/regularizer.py",
+                "optim/trigger.py", "optim/validation.py",
+                "optim/evaluator.py", "nn/module.py", "nn/containers.py",
+                "nn/graph.py", "models/lenet.py", "dataset/sample.py",
+                "dataset/minibatch.py", "dataset/transformer.py",
+                "dataset/dataset.py", "dataset/mnist.py",
+                "utils/fileio.py", "serving/adapters.py"):
+        assert pkg / rel in FILES, rel
