@@ -6,8 +6,15 @@ records, in the order of the latest ``shuffle`` when ``train``.
 ``shuffle(seed=None)`` draws with ``np.random.default_rng(seed)``, as the
 reference does, so a seed gives the reference's order; the optimizer
 calls it without a seed each epoch, so two runs differ unless the caller
-pins it (the reference's behaviour, kept). A distributed dataset is
-ROADMAP queue A.10.
+pins it (the reference's behaviour, kept).
+
+``DistributedDataSet`` (``DataSet.array(records, distributed=True)``) is
+the reference's per-process shard: process ``i`` of ``n`` keeps records
+``j`` with ``j % n == i``, and an unseeded ``shuffle`` draws from the
+epoch count (1, 2, ...), the same on every process, so two runs and the
+reference see the same orders. The ``DistriOptimizer`` lays its batches
+out over the replicas of its mesh. One process is driven; more than one
+raises, naming ROADMAP queue A.10(b).
 """
 
 from __future__ import annotations
@@ -68,10 +75,36 @@ class LocalDataSet(AbstractDataSet):
         return self.transformer(self.records[i] for i in order)
 
 
-def _refuse_distributed():
-    raise NotImplementedError(
-        "distributed datasets are not ported yet (ROADMAP queue A.10 "
-        "DistriOptimizer)")
+class DistributedDataSet(LocalDataSet):
+    """This process's shard of a global dataset (reference
+    ``DataSet.scala:167``; see module docstring): the local dataset of its
+    records, shuffled from the epoch count."""
+
+    def __init__(self, records, process_index=None, process_count=None):
+        self.process_index = 0 if process_index is None else process_index
+        self.process_count = 1 if process_count is None else process_count
+        if self.process_count > 1:
+            raise NotImplementedError(
+                f"a distributed dataset over {self.process_count} processes "
+                "waits for ROADMAP queue A.10(b); one process drives every "
+                "replica of the mesh")
+        super().__init__(list(records)[self.process_index::
+                                       self.process_count])
+        self._epoch_seed = 0
+
+    def size(self):
+        return len(self.records) * self.process_count
+
+    def local_size(self):
+        return len(self.records)
+
+    def shuffle(self, seed=None):
+        self._epoch_seed = self._epoch_seed + 1 if seed is None else seed
+        return super().shuffle(self._epoch_seed)
+
+    def origin_rdd(self):
+        """The reference's ``originRDD()``: this process's records."""
+        return self.records
 
 
 class DataSet:
@@ -80,12 +113,11 @@ class DataSet:
     @staticmethod
     def array(records, distributed=False):
         if distributed:
-            _refuse_distributed()
+            return DistributedDataSet(records)
         return LocalDataSet(records)
 
     @staticmethod
     def sample_arrays(features, labels, distributed=False):
-        if distributed:
-            _refuse_distributed()
-        return LocalDataSet(Sample.from_ndarray(f, lb)
-                            for f, lb in zip(features, labels))
+        return DataSet.array([Sample.from_ndarray(f, lb)
+                              for f, lb in zip(features, labels)],
+                             distributed)

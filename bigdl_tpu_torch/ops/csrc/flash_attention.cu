@@ -2,7 +2,8 @@
 // two backward kernels (dQ; dK with dV), causal or full, over (B*H, S, D)
 // tensors, in two hand-written paths: tensor-core kernels (wgmma) for
 // bfloat16 at D = 64 or 128, and CUDA-core kernels for float32 at D = 64,
-// 128 or 256 and for bfloat16 at D = 256.
+// 128 or 256 and for bfloat16 at D = 256, and for both types at any
+// multiple of 256 in chunks of 256 (below).
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/flash_attention.py:
 //   forward <- `_fwd_kernel` (:45), launched by `_fwd` (:89):
@@ -119,6 +120,17 @@
 //   memory, at D = 256 133-200 KB, one CTA an SM.
 // - the heaviest tiles launch first: under causal masking the last query
 //   tiles (forward, dQ) and the first key tiles (dK/dV) do the most work.
+// - head dims above 256 (the wrapper zero-pads them to a multiple of 256)
+//   run on the D = 256 kernels in nch = D / 256 chunks of 256 values a row,
+//   the chunk a third grid axis. Each CTA owns one chunk of its outputs (O;
+//   dQ; dK and dV), so its accumulators and shared memory are those of D =
+//   256. The score products (S, and dP in the backward) loop over the
+//   chunks, staging Q and K (dO and V) one chunk at a time and adding each
+//   chunk's product in chunk order, so every chunk's CTA computes the same
+//   bits of S, lse and P; the second products read only the CTA's own
+//   chunk of V (K; Q and dO), staged after the score loop. The forward's
+//   lse is written by chunk 0's CTA. The score work grows with nch (each
+//   chunk's CTA recomputes all of S): a simple plan, not a fast one.
 // float32 stays on the CUDA cores rather than TF32 tensor cores, to keep
 // its results within 2e-5 (O, lse) and 1e-4 (gradients) of the plain
 // version's.
@@ -196,31 +208,39 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + R) of a (S, D) matrix as float32, zeros past S.
+// Stage rows [row0, row0 + R) of a (S, D) matrix whose rows lie `ld`
+// values apart (ld = D, or the full width of a chunked head dim) as
+// float32, zeros past S.
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const T* __restrict__ src,
-                                          int row0, int S) {
+                                          int row0, int S, int ld) {
   constexpr int R = cc_rows(D);
 #pragma unroll
   for (int it = 0; it < R * D / 4 / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) x = load4(src + (int64_t)(row0 + r) * D + c);
+    if (row0 + r < S) x = load4(src + (int64_t)(row0 + r) * ld + c);
     store4(dst + r * row_str(D) + c, x);
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d]: an RxR tile of A.B^T
-template <int D, int RI = cc_rows(D) / 16>
-__device__ __forceinline__ void mm_abt(float (&acc)[RI][RI], const float* A,
-                                       const float* B, int tx, int ty) {
-  constexpr int kStr = row_str(D);
+template <int RI>
+__device__ __forceinline__ void zero_tile(float (&acc)[RI][RI]) {
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < RI; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] += sum_d A[ty + 16i][d] * B[tx + 16j][d]: an RxR tile of A.B^T
+// added to acc (the scores of a chunked head dim sum over its chunks, in
+// chunk order, so every CTA of a row tile gets the same bits)
+template <int D, int RI = cc_rows(D) / 16>
+__device__ __forceinline__ void mm_abt(float (&acc)[RI][RI], const float* A,
+                                       const float* B, int tx, int ty) {
+  constexpr int kStr = row_str(D);
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 a[RI], b[RI];
@@ -271,19 +291,20 @@ __device__ __forceinline__ void mm_ab(float (&acc)[RI][D / 16],
 }
 
 // this thread's share of an RxD tile, row i's values times mul[i], out to
-// rows row0 + ty + 16i below S of a (S, D) matrix of the output type
+// rows row0 + ty + 16i below S of a (S, D) matrix of the output type whose
+// rows lie `ld` values apart
 template <int D, typename T, int RI = cc_rows(D) / 16>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst,
                                            const float (&acc)[RI][D / 16],
                                            const float (&mul)[RI], int row0,
-                                           int S, int tx, int ty) {
+                                           int S, int tx, int ty, int ld) {
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = row0 + ty + 16 * i;
     if (r < S) {
 #pragma unroll
       for (int g = 0; g < D / 64; ++g)
-        store4(dst + (int64_t)r * D + 64 * g + 4 * tx,
+        store4(dst + (int64_t)r * ld + 64 * g + 4 * tx,
                make_float4(acc[i][4 * g] * mul[i], acc[i][4 * g + 1] * mul[i],
                            acc[i][4 * g + 2] * mul[i],
                            acc[i][4 * g + 3] * mul[i]));
@@ -297,11 +318,16 @@ __host__ __device__ constexpr int cc_ctas(int d) { return d == 64 ? 2 : 1; }
 
 // T: the inputs' and outputs' type (float, or bfloat16 at D = 256, read
 // into float32 tiles); lse, delta and dlse are float32.
+// nch: chunks of D values in a row (1, or the head dim / 256 of a chunked
+// head dim, D = 256); blockIdx.z is the CTA's output chunk. With nch > 1 a
+// CTA stages Q and K (and dO and V) chunk by chunk for the scores, which
+// every chunk's CTA sums in the same order, and keeps only its own chunk's
+// accumulators.
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, cc_ctas(D))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale) {
+                 float* __restrict__ lse, int S, float scale, int nch) {
   constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
@@ -313,9 +339,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nt = (S + R - 1) / R;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
   const int q0 = qt * R;
-  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int oc = blockIdx.z, ld = D * nch;
+  const int64_t base = (int64_t)blockIdx.x * S * ld;
 
-  load_tile<D>(qs, q + base, q0, S);
+  if (nch == 1) load_tile<D>(qs, q + base, q0, S, ld);
   float m[RI], l[RI], acc[RI][D / 16];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -328,11 +355,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's P.V is done with ks, vs, ps
-    load_tile<D>(ks, k + base, kt * R, S);
-    load_tile<D>(vs, v + base, kt * R, S);
-    __syncthreads();
     float s[RI][RI];
-    mm_abt<D>(s, qs, ks, tx, ty);
+    zero_tile(s);
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) __syncthreads();  // the last chunk's product is done
+      if (nch > 1) load_tile<D>(qs, q + base + ch * D, q0, S, ld);
+      load_tile<D>(ks, k + base + ch * D, kt * R, S, ld);
+      if (ch == 0) load_tile<D>(vs, v + base + oc * D, kt * R, S, ld);
+      __syncthreads();
+      mm_abt<D>(s, qs, ks, tx, ty);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -368,9 +400,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     const float ll = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / ll;
-    if (r < S && tx == 0) lse[(int64_t)blockIdx.x * S + r] = m[i] + logf(ll);
+    if (r < S && tx == 0 && oc == 0)
+      lse[(int64_t)blockIdx.x * S + r] = m[i] + logf(ll);
   }
-  store_rows<D>(o + base, acc, inv, q0, S, tx, ty);
+  store_rows<D>(o + base + oc * D, acc, inv, q0, S, tx, ty, ld);
 }
 
 template <typename T, int D, bool CAUSAL>
@@ -380,7 +413,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const float* __restrict__ dlse, T* __restrict__ dq,
-                    int S, float scale) {
+                    int S, float scale, int nch) {
   constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
@@ -393,11 +426,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nt = (S + R - 1) / R;
   const int qt = nt - 1 - blockIdx.y;  // the heaviest causal tiles first
   const int q0 = qt * R;
-  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int oc = blockIdx.z, ld = D * nch;
+  const int64_t base = (int64_t)blockIdx.x * S * ld;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
-  load_tile<D>(qs, q + base, q0, S);
-  load_tile<D>(dos, dout + base, q0, S);
+  if (nch == 1) {
+    load_tile<D>(qs, q + base, q0, S, ld);
+    load_tile<D>(dos, dout + base, q0, S, ld);
+  }
   float lse_r[RI], delta_r[RI], dlse_r[RI], acc[RI][D / 16];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -413,12 +449,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nk = CAUSAL ? qt + 1 : nt;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous tile's dS.K is done with ks, vs, dss
-    load_tile<D>(ks, k + base, kt * R, S);
-    load_tile<D>(vs, v + base, kt * R, S);
-    __syncthreads();
     float s[RI][RI], dp[RI][RI];
-    mm_abt<D>(s, qs, ks, tx, ty);
-    mm_abt<D>(dp, dos, vs, tx, ty);
+    zero_tile(s);
+    zero_tile(dp);
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) __syncthreads();  // the last chunk's products are done
+      if (nch > 1) {
+        load_tile<D>(qs, q + base + ch * D, q0, S, ld);
+        load_tile<D>(dos, dout + base + ch * D, q0, S, ld);
+      }
+      load_tile<D>(ks, k + base + ch * D, kt * R, S, ld);
+      load_tile<D>(vs, v + base + ch * D, kt * R, S, ld);
+      __syncthreads();
+      mm_abt<D>(s, qs, ks, tx, ty);
+      mm_abt<D>(dp, dos, vs, tx, ty);
+    }
+    if (nch > 1) {  // dS.K reads K's chunk of this CTA's output
+      __syncthreads();
+      load_tile<D>(ks, k + base + oc * D, kt * R, S, ld);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -438,7 +487,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float one[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<D>(dq + base, acc, one, q0, S, tx, ty);
+  store_rows<D>(dq + base + oc * D, acc, one, q0, S, tx, ty, ld);
 }
 
 template <typename T, int D, bool CAUSAL>
@@ -448,7 +497,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ dlse, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, float scale) {
+                     T* __restrict__ dv, int S, float scale, int nch) {
   constexpr int R = cc_rows(D), RI = R / 16;
   constexpr int kStr = row_str(D), kTile = tile_floats(D);
   extern __shared__ float4 smem4[];
@@ -464,11 +513,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int nt = (S + R - 1) / R;
   const int k0 = blockIdx.y * R;  // causal: the first key tiles do the most
-  const int64_t base = (int64_t)blockIdx.x * S * D;
+  const int oc = blockIdx.z, ld = D * nch;
+  const int64_t base = (int64_t)blockIdx.x * S * ld;
   const int64_t rbase = (int64_t)blockIdx.x * S;
 
-  load_tile<D>(ks, k + base, k0, S);
-  load_tile<D>(vs, v + base, k0, S);
+  if (nch == 1) {
+    load_tile<D>(ks, k + base, k0, S, ld);
+    load_tile<D>(vs, v + base, k0, S, ld);
+  }
   float dk_acc[RI][D / 16], dv_acc[RI][D / 16];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
@@ -478,8 +530,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = CAUSAL ? blockIdx.y : 0; qt < nt; ++qt) {
     const int q0 = qt * R;
     __syncthreads();  // the previous tile's products are done with its tiles
-    load_tile<D>(qs, q + base, q0, S);
-    load_tile<D>(dos, dout + base, q0, S);
     if (threadIdx.x < R) {
       const int r = q0 + threadIdx.x;
       const bool in = r < S;
@@ -487,10 +537,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       delta_s[threadIdx.x] = in ? delta[rbase + r] : 0.f;
       dlse_s[threadIdx.x] = in && dlse != nullptr ? dlse[rbase + r] : 0.f;
     }
-    __syncthreads();
     // transposed tiles: rows are keys (ty + 16i), columns queries (tx + 16j)
     float p[RI][RI], dp[RI][RI];
-    mm_abt<D>(p, ks, qs, tx, ty);
+    zero_tile(p);
+    zero_tile(dp);
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch > 0) __syncthreads();  // the last chunk's products are done
+      if (nch > 1) {
+        load_tile<D>(ks, k + base + ch * D, k0, S, ld);
+        load_tile<D>(vs, v + base + ch * D, k0, S, ld);
+      }
+      load_tile<D>(qs, q + base + ch * D, q0, S, ld);
+      load_tile<D>(dos, dout + base + ch * D, q0, S, ld);
+      __syncthreads();
+      mm_abt<D>(p, ks, qs, tx, ty);
+      mm_abt<D>(dp, vs, dos, tx, ty);
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int c = k0 + ty + 16 * i;
@@ -503,7 +565,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ps[(ty + 16 * i) * kStr + tx + 16 * j] = as_operand<T>(p[i][j]);
       }
     }
-    mm_abt<D>(dp, vs, dos, tx, ty);
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -512,6 +573,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dss[(ty + 16 * i) * kStr + r] = as_operand<T>(
             p[i][j] * (dp[i][j] - delta_s[r] + dlse_s[r]) * scale);
       }
+    if (nch > 1) {  // the products read Q's and dO's chunk of the output
+      __syncthreads();
+      load_tile<D>(qs, q + base + oc * D, q0, S, ld);
+      load_tile<D>(dos, dout + base + oc * D, q0, S, ld);
+    }
     __syncthreads();
     mm_ab<D>(dv_acc, ps, dos, tx, ty);
     mm_ab<D>(dk_acc, dss, qs, tx, ty);
@@ -520,8 +586,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float one[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<D>(dk + base, dk_acc, one, k0, S, tx, ty);
-  store_rows<D>(dv + base, dv_acc, one, k0, S, tx, ty);
+  store_rows<D>(dk + base + oc * D, dk_acc, one, k0, S, tx, ty, ld);
+  store_rows<D>(dv + base + oc * D, dv_acc, one, k0, S, tx, ty, ld);
 }
 
 // ------------------------------------------------- the tensor-core path --
@@ -1220,71 +1286,79 @@ __host__ __device__ constexpr int dkv_smem(int d) {
 static_assert(dkv_smem(128) <= kMaxSmem && dkv_smem(256) <= kMaxSmem,
               "a CTA's staged tiles must fit its shared memory");
 
+// grid (B*H, row tiles, nch): a CTA per (b*h, tile, output chunk)
 template <int D, typename K, typename... Args>
-cudaError_t launch(K kernel, int smem, int BH, int S, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(K kernel, int smem, int BH, int S, int nch,
+                   cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(BH, (S + cc_rows(D) - 1) / cc_rows(D));
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  dim3 grid(BH, (S + cc_rows(D) - 1) / cc_rows(D), nch);
+  kernel<<<grid, kThreads, smem, stream>>>(args..., nch);
   return cudaGetLastError();
 }
 
+// chunks of 256 values in a row of a head dim above 256 (a multiple of
+// 256: the wrapper zero-pads the rest), 1 up to 256
+int chunks_of(int D) { return D > 256 ? D / 256 : 1; }
+
 // the shape checks every CUDA-core entry shares: float32 at D = 64, 128 or
-// 256, bfloat16 at D = 256 (below it bfloat16 is the tensor-core entries');
-// 0 means launch
+// any multiple of 256, bfloat16 at any multiple of 256 (below it bfloat16
+// is the tensor-core entries'); 0 means launch
 int check_shape(int S, int D, int dtype) {
-  const bool f32 = dtype == kF32 && (D == 64 || D == 128 || D == 256);
-  const bool bf = dtype == kBF16 && D == 256;
-  if (!(f32 || bf) || (S + cc_rows(D) - 1) / cc_rows(D) > 65535)
+  const bool wide = D >= 256 && D % 256 == 0 && D / 256 <= 65535;
+  const bool f32 = dtype == kF32 && (D == 64 || D == 128 || wide);
+  const bool bf = dtype == kBF16 && wide;
+  const int rows = D <= 128 ? cc_rows(64) : cc_rows(256);
+  if (!(f32 || bf) || (S + rows - 1) / rows > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 template <typename T, int D>
 cudaError_t fwd_cc(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int BH, int S, float scale, bool causal,
-                   cudaStream_t st) {
+                   float* lse, int BH, int S, int nch, float scale,
+                   bool causal, cudaStream_t st) {
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v;
   return causal ? launch<D>(flash_fwd_kernel<T, D, true>, fwd_smem(D), BH,
-                            S, st, tq, tk, tv, (T*)o, lse, S, scale)
+                            S, nch, st, tq, tk, tv, (T*)o, lse, S, scale)
                 : launch<D>(flash_fwd_kernel<T, D, false>, fwd_smem(D), BH,
-                            S, st, tq, tk, tv, (T*)o, lse, S, scale);
+                            S, nch, st, tq, tk, tv, (T*)o, lse, S, scale);
 }
 
 template <typename T, int D>
 cudaError_t dq_cc(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
-                  const float* dlse, void* dq, int BH, int S, float scale,
-                  bool causal, cudaStream_t st) {
+                  const float* dlse, void* dq, int BH, int S, int nch,
+                  float scale, bool causal, cudaStream_t st) {
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
           *tdo = (const T*)dout;
   return causal ? launch<D>(flash_bwd_dq_kernel<T, D, true>, dq_smem(D), BH,
-                            S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dq,
-                            S, scale)
+                            S, nch, st, tq, tk, tv, tdo, lse, delta, dlse,
+                            (T*)dq, S, scale)
                 : launch<D>(flash_bwd_dq_kernel<T, D, false>, dq_smem(D), BH,
-                            S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dq,
-                            S, scale);
+                            S, nch, st, tq, tk, tv, tdo, lse, delta, dlse,
+                            (T*)dq, S, scale);
 }
 
 template <typename T, int D>
 cudaError_t dkv_cc(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* dlse, void* dk, void* dv, int BH, int S,
-                   float scale, bool causal, cudaStream_t st) {
+                   int nch, float scale, bool causal, cudaStream_t st) {
   const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
           *tdo = (const T*)dout;
   return causal
              ? launch<D>(flash_bwd_dkv_kernel<T, D, true>, dkv_smem(D), BH, S,
-                         st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dk,
+                         nch, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dk,
                          (T*)dv, S, scale)
              : launch<D>(flash_bwd_dkv_kernel<T, D, false>, dkv_smem(D), BH,
-                         S, st, tq, tk, tv, tdo, lse, delta, dlse, (T*)dk,
-                         (T*)dv, S, scale);
+                         S, nch, st, tq, tk, tv, tdo, lse, delta, dlse,
+                         (T*)dk, (T*)dv, S, scale);
 }
 
-// one CUDA-core instantiation per (type, D) the entries take
+// one CUDA-core instantiation per (type, D) the entries take; every
+// multiple of 256 runs on the 256 kernels, chunks_of(D) chunks a row
 #define BIGDL_CC_DISPATCH(fn, ...)                                    \
   (D == 64    ? fn<float, 64>(__VA_ARGS__)                            \
    : D == 128 ? fn<float, 128>(__VA_ARGS__)                           \
@@ -1295,7 +1369,8 @@ cudaError_t dkv_cc(const void* q, const void* k, const void* v,
 }  // namespace bigdl
 
 // The CUDA-core entries: q, k, v, o, dout, dq, dk, dv (B*H, S, D) of
-// `dtype` (0 float32 at D = 64, 128 or 256; 1 bfloat16 at D = 256),
+// `dtype` (0 float32 at D = 64, 128 or a multiple of 256; 1 bfloat16 at a
+// multiple of 256; above 256, D / 256 chunks of a row, a grid axis),
 // 16-byte aligned; lse, delta, dlse (B*H, S) float32, dlse may be null
 // (zero). causal: 0 or 1. Each returns the cudaError_t of its launch (0 on
 // success).
@@ -1306,8 +1381,8 @@ extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
   using namespace bigdl;
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  return (int)BIGDL_CC_DISPATCH(fwd_cc, q, k, v, o, lse, BH, S, scale,
-                                causal != 0, (cudaStream_t)stream);
+  return (int)BIGDL_CC_DISPATCH(fwd_cc, q, k, v, o, lse, BH, S, chunks_of(D),
+                                scale, causal != 0, (cudaStream_t)stream);
 }
 
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1319,7 +1394,7 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   return (int)BIGDL_CC_DISPATCH(dq_cc, q, k, v, dout, lse, delta, dlse, dq,
-                                BH, S, scale, causal != 0,
+                                BH, S, chunks_of(D), scale, causal != 0,
                                 (cudaStream_t)stream);
 }
 
@@ -1333,7 +1408,7 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k,
   if (int bad = check_shape(S, D, dtype)) return bad;
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
   return (int)BIGDL_CC_DISPATCH(dkv_cc, q, k, v, dout, lse, delta, dlse, dk,
-                                dv, BH, S, scale, causal != 0,
+                                dv, BH, S, chunks_of(D), scale, causal != 0,
                                 (cudaStream_t)stream);
 }
 

@@ -8,9 +8,10 @@
 // P) int32, entries >= N are the "no page" sentinel; start: (B,) int32,
 // query c of row b sits at absolute position start[b] + c. dtype: 0
 // float32, 1 bfloat16, for q, out and the pool. Supported (PS, D): pages of
-// 8, 16 and 32 tokens (the sizes the reference serves with) at any D from 1
-// to 256 (run on the built width 32, 64, 96, 128 or 256 at or above it).
-// B*H and the query tiles ceil(C / 16) at most 65535 each.
+// 8, 16 and 32 tokens (the sizes the reference serves with) at any D >= 1
+// (run on the built width 32, 64, 96, 128 or 256 at or above it; above 256
+// on 256 in ceil(D / 256) chunks). B*H and the query tiles ceil(C / 16)
+// times the chunks at most 65535 each.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int bigdl_paged_attention(const void* q, const void* k,
                                      const void* v, const int* table,

@@ -72,8 +72,9 @@
 //   4 pages, or 2 where 4 would not fit beside the queries and the
 //   partial states (DP 256, pages of 32, a float32 pool: 65 KB a page);
 //   all shared memory is dynamic (at most 163 KB: DP 256, pages of 32, a
-//   float32 pool, 2 pages). A lane's share of a key's dot product is read
-//   4 values at a time, or 2 where the share is not a multiple of 4
+//   float32 pool, 2 pages). Head dims above 256 run on DP 256 in chunks
+//   (see paged_attention_kernel). A lane's share of a key's dot product is
+//   read 4 values at a time, or 2 where the share is not a multiple of 4
 //   (decode at pages of 8 and DP 32 or 96).
 // Inputs may be float32 or bfloat16; all arithmetic is float32 on the CUDA
 // cores. Pool offsets are 64-bit.
@@ -245,11 +246,84 @@ __device__ __forceinline__ void zero_row_tails(uint8_t* ring, int d) {
   }
 }
 
+// Zero the whole ring (every stage, rows, pads and scale rows) with
+// 16-byte stores: a chunked head dim's stages are then zeros wherever no
+// copy has written yet. Stages are 16-byte multiples, the ring 16-byte
+// aligned.
+template <typename KV, int PS, int DP>
+__device__ __forceinline__ void zero_ring(uint8_t* ring) {
+  using St = Stage<KV, PS, DP>;
+  static_assert(St::kBytes % 16 == 0, "16-byte stages");
+  uint4* r = reinterpret_cast<uint4*>(ring);
+  for (int i = threadIdx.x; i < St::kStages * St::kBytes / 16; i += kThreads)
+    r[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A chunked head dim (d > DP = 256): chunk kc (columns kc*DP .. of each
+// row, at most DP of them) of page `page_head`'s K rows into the K plane
+// of the ring stage at `dst`, and, when vc >= 0, chunk vc of its V rows
+// into the V plane; an int8 page's scale rows as stage_page stages them.
+// Copies of `cw` bytes as stage_page makes them (cw divides d's row bytes
+// and DP's, so it divides every chunk's); the columns a partial last
+// chunk leaves are not written.
+template <typename KV, int PS, int DP>
+__device__ __forceinline__ void stage_chunk(
+    uint32_t dst, uint8_t* dst_ptr, const KV* __restrict__ kpool,
+    const KV* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, int64_t page_head, int d, int cw,
+    int kc, int vc) {
+  using St = Stage<KV, PS, DP>;
+  const int64_t row_bytes = (int64_t)d * sizeof(KV);
+  for (int plane = 0; plane < 2; ++plane) {
+    const int c = plane ? vc : kc;
+    if (c < 0) continue;
+    const int row_chunks = min(DP, d - c * DP) * (int)sizeof(KV) / cw;
+    const int chunks = PS * row_chunks;
+    const char* src = reinterpret_cast<const char*>(
+        (plane ? vpool : kpool) + page_head * (int64_t)(PS * d) +
+        (int64_t)c * DP);
+    for (int i = threadIdx.x; i < chunks; i += kThreads) {
+      const int r = i / row_chunks, j = i - r * row_chunks;
+      const int to = plane * St::kPlane + r * St::kRow + j * cw;
+      const char* from = src + r * row_bytes + (int64_t)j * cw;
+      if (cw == 16)
+        cp_async16(dst + to, from, true);
+      else if (cw == 8)
+        cp_async8(dst + to, from);
+      else if (cw == 4)
+        cp_async4(dst + to, from);
+      else
+        dst_ptr[to] = *reinterpret_cast<const uint8_t*>(from);
+    }
+  }
+  if constexpr (St::kInt8) {
+    constexpr int kScChunks = PS * 4 / 16;  // of one scale row
+    if (threadIdx.x < 2 * kScChunks) {
+      const int plane = threadIdx.x / kScChunks;
+      const int c = threadIdx.x - plane * kScChunks;
+      cp_async16(dst + 2 * St::kPlane + plane * PS * 4 + c * 16,
+                 (plane ? vscale : kscale) + page_head * PS + c * 4, true);
+    }
+  }
+}
+
 // T: the queries' and output's type; KV: the pool's (T, or int8_t with the
 // scale planes kscale/vscale, which are null for a float pool). DP: the
-// built width, d <= DP the head dim of q, the pools and out; cw the bytes
-// of one staging copy (stage_page). QT = 1 is decode; grid (kSplit, B*H,
-// query tiles), one cluster per (slot, head, tile).
+// built width, d the head dim of q, the pools and out: d <= DP, or, for
+// DP = 256, any d in nch = ceil(d / 256) chunks; cw the bytes of one
+// staging copy (stage_page). QT = 1 is decode; grid (kSplit, B*H, query
+// tiles * nch), one cluster per (slot, head, tile, output chunk).
+//
+// A chunked head dim (nch > 1) walks its pages in sub-steps of (page,
+// chunk): sub-step i stages K's chunk i % nch of page i / nch (and, at the
+// page's last chunk, V's chunk of this CTA's output) into the ring, and
+// the queries' same chunk into q_s; each lane adds its part of the chunk's
+// dot products to its running scores, and the softmax and P.V run at the
+// page's last chunk. Every chunk's cluster sums the scores in the same
+// order, so the clusters of a (slot, head, tile) agree on every weight;
+// each keeps and writes only its chunk of the output. The ring is zeroed
+// once first, so a partial last chunk's unwritten columns hold zeros or
+// earlier finite pool values, each times a zero query column.
 template <typename T, typename KV, int PS, int DP, int QT>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
@@ -259,7 +333,7 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
                        const int* __restrict__ table,
                        const int* __restrict__ start, T* __restrict__ out,
                        int H, int C, int N, int P, int d, int cw,
-                       float sm_scale) {
+                       float sm_scale, int nch) {
   using St = Stage<KV, PS, DP>;
   constexpr int D = DP;          // the widths below are the built width's
   constexpr int kStages = St::kStages;
@@ -287,7 +361,9 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int c0 = blockIdx.z * QT;
+  const int tile = blockIdx.z / nch;
+  const int oc = blockIdx.z - tile * nch;   // this CTA's output chunk
+  const int c0 = tile * QT;
   const int nq = min(QT, C - c0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -301,7 +377,10 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
     const int qi = i / D, j = i - qi * D;
     q_s[i] = qi < nq && j < d ? to_f(q[q_base + qi * d + j]) : 0.f;
   }
-  if (d < D) zero_row_tails<KV, PS, D>(smem, d);
+  if (nch > 1)
+    zero_ring<KV, PS, D>(smem);
+  else if (d < D)
+    zero_row_tails<KV, PS, D>(smem, d);
   __syncthreads();
   // pages this tile's queries can see, and this CTA's run of them
   const int npages = min(P, (st + c0 + nq - 1) / PS + 1);
@@ -323,43 +402,62 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
   const int kw0 = kDecode ? warp * KW : 0;   // the warp's first key
   const int wq0 = kDecode ? 0 : warp * NQW;  // the warp's first query
   const uint32_t ring = smem_u32(smem);
-  auto issue = [&](int i) {    // page p0 + i into stage i % kStages
-    const int page = pages_s[p0 + i];
-    if (page >= 0 && page < N)  // a sentinel is not read
+  auto issue = [&](int i) {    // sub-step i into stage i % kStages
+    const int pi = i / nch, ch = i - pi * nch;
+    const int page = pages_s[p0 + pi];
+    if (page < 0 || page >= N) return;  // a sentinel is not read
+    const int64_t page_head = (int64_t)page * H + h;
+    if (nch == 1)
       stage_page<KV, PS, D>(ring + (i % kStages) * St::kBytes,
                             smem + (i % kStages) * St::kBytes, kpool, vpool,
-                            kscale, vscale, (int64_t)page * H + h, d, cw);
+                            kscale, vscale, page_head, d, cw);
+    else
+      stage_chunk<KV, PS, D>(ring + (i % kStages) * St::kBytes,
+                             smem + (i % kStages) * St::kBytes, kpool, vpool,
+                             kscale, vscale, page_head, d, cw, ch,
+                             ch == nch - 1 ? oc : -1);
   };
+  const int steps = n * nch;   // sub-steps: pages, or (page, chunk) pairs
 #pragma unroll
   for (int i = 0; i < kStages; ++i) {
-    if (i < n) issue(i);
+    if (i < steps) issue(i);
     cp_async_commit();
   }
 
-  // commit group g holds page g: the prologue's kStages, then page
+  float s[NQW];                // this lane's running parts of its scores
+  // commit group g holds sub-step g: the prologue's kStages, then sub-step
   // i - 1 + kStages from iteration i >= 1
-  for (int i = 0; i < n; ++i) {
-    if (i == 0)                    // page i has landed (this thread's part)
+  for (int i = 0; i < steps; ++i) {
+    if (i == 0)                    // sub-step i has landed (this thread's)
       cp_async_wait<kStages - 1>();
     else
       cp_async_wait<kStages - 2>();
-    __syncthreads();               // everyone's; page i - 1's stage is free
+    __syncthreads();               // everyone's; step i - 1's stage is free
     if (i > 0) {
-      if (i - 1 + kStages < n) issue(i - 1 + kStages);
+      if (i - 1 + kStages < steps) issue(i - 1 + kStages);
       cp_async_commit();
     }
-    const int p = p0 + i;
+    const int pi = i / nch, ch = i - pi * nch;
+    const int p = p0 + pi;
     const int page = pages_s[p];
     if (page < 0 || page >= N) continue;
+    if (nch > 1) {                 // the queries' chunk ch
+      for (int e = threadIdx.x; e < QT * D; e += kThreads) {
+        const int qi = e / D, j = ch * D + e - qi * D;
+        q_s[e] = qi < nq && j < d ? to_f(q[q_base + qi * d + j]) : 0.f;
+      }
+      __syncthreads();
+    }
     const uint8_t* stg = smem + (i % kStages) * St::kBytes;
     const float* ksc = reinterpret_cast<const float*>(stg + 2 * St::kPlane);
     const float* vsc = ksc + PS;
 
     // this lane's part of its key's scores for the warp's queries
     const KV* krow = reinterpret_cast<const KV*>(stg + kk * St::kRow);
-    float s[NQW];
+    if (ch == 0) {
 #pragma unroll
-    for (int qi = 0; qi < NQW; ++qi) s[qi] = 0.f;
+      for (int qi = 0; qi < NQW; ++qi) s[qi] = 0.f;
+    }
 #pragma unroll
     for (int t = 0; t < DK / VW; ++t) {
       const int dd = VW * sub + VW * LPK * t;
@@ -378,6 +476,7 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
         for (int j = 0; j < VW; ++j) s[qi] = fmaf(qv[j], kv[j], s[qi]);
       }
     }
+    if (ch < nch - 1) continue;    // the page's scores need its next chunk
 
     // online softmax over the warp's keys of this page
     float pj[NQW];
@@ -468,10 +567,11 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
       }
     }
     const float inv = 1.f / fmaxf(ll, 1e-30f);
-    T* dst = out + q_base + (int64_t)qq * d;
+    T* dst = out + q_base + (int64_t)qq * d + oc * D;
 #pragma unroll
     for (int e = 0; e < DV; ++e)
-      if (lane + 32 * e < d) store_f(dst + lane + 32 * e, o[e] * inv);
+      if (oc * D + lane + 32 * e < d)
+        store_f(dst + lane + 32 * e, o[e] * inv);
   }
   cluster.sync();  // the partial states stay until every merge has read them
 }
@@ -493,7 +593,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                        : paged_attention_kernel<T, KV, PS, DP, kQT>;
   const int bytes = decode ? smem_bytes<KV, PS, DP, 1>(P)
                            : smem_bytes<KV, PS, DP, kQT>(P);
-  const dim3 grid(kSplit, B * H, decode ? 1 : (C + kQT - 1) / kQT);
+  const int nch = (d + DP - 1) / DP;   // 1 unless d > DP = 256
+  const int64_t tiles = (int64_t)(decode ? 1 : (C + kQT - 1) / kQT) * nch;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(kSplit, B * H, (unsigned)tiles);
   if (grid.y > 65535 || grid.z > 65535 || bytes > kMaxSmem)
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -501,7 +604,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const KV*)k, (const KV*)v, ks, vs, table, start,
-      (T*)out, H, C, N, P, d, copy_bytes(d, (int)sizeof(KV)), sm_scale);
+      (T*)out, H, C, N, P, d, copy_bytes(d, (int)sizeof(KV)), sm_scale,
+      nch);
   return cudaGetLastError();
 }
 
@@ -514,10 +618,11 @@ cudaError_t dispatch_shape(const void* q, const void* k, const void* v,
                            float sm_scale, cudaStream_t stream) {
   using Pool = typename std::conditional<std::is_void<KV>::value, T,
                                          KV>::type;
-  // the built width that runs head dim D: the narrowest DP >= D
+  // the built width that runs head dim D: the narrowest DP >= D, or 256
+  // in ceil(D / 256) chunks above it
   const int dp = D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128
                                                               : 256;
-  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D < 1) return cudaErrorInvalidValue;
 #define BIGDL_PA_CASE(ps, w)                                                \
   if (PS == ps && dp == w)                                                  \
     return launch<T, Pool, ps, w>(q, k, v, ks, vs, table, start, out, B, H, \

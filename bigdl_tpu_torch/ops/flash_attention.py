@@ -37,8 +37,12 @@ the wrapper zero-pads the last axis of q, k, v (and dO) to that width,
 launches, and slices the outputs back. Padding is exact: zero columns add
 exact zeros to every q.k, dO.v and dS.k product, a zero column of v gives
 a zero output column (sliced away), and lse and delta are untouched; the
-softmax scale stays ``D ** -0.5`` of the true D. A ``head_dim`` above 256
-raises, naming the ROADMAP queue C item that keeps it open.
+softmax scale stays ``D ** -0.5`` of the true D. A ``head_dim`` above 256,
+in either type, runs on the CUDA-core kernels of width 256 in chunks: it is
+zero-padded to the next multiple of 256 and each row splits into
+:func:`head_dim_chunks` chunks of 256, a grid axis of the launch (each CTA
+owns one chunk of the outputs and sums the scores over every chunk;
+:func:`cc_plan` mirrors the launch).
 
 :func:`path` is the one place that decides which of these a call takes.
 
@@ -91,9 +95,19 @@ def _scale(q, sm_scale):
 
 
 def kernel_head_dim(head_dim):
-    """The width of the kernel that runs a ``head_dim``: the smallest of
-    HEAD_DIMS at least as wide, or None above 256."""
+    """The width a ``head_dim`` is launched at: the smallest of HEAD_DIMS
+    at least as wide, or above 256 the next multiple of 256 (run in
+    :func:`head_dim_chunks` chunks of 256); None for a head_dim below 1."""
+    if head_dim > HEAD_DIMS[-1]:
+        return HEAD_DIMS[-1] * head_dim_chunks(head_dim)
     return next((w for w in HEAD_DIMS if 0 < head_dim <= w), None)
+
+
+def head_dim_chunks(head_dim):
+    """Chunks of 256 values a row of ``head_dim`` runs in on the CUDA-core
+    kernels: ``ceil(head_dim / 256)`` above 256, else 1."""
+    w = HEAD_DIMS[-1]
+    return -(-head_dim // w) if head_dim > w else 1
 
 
 # ------------------------------------------------------ plain versions --
@@ -201,13 +215,32 @@ def tc_plan(kernel, bh, s, d):
             "head_dim": w}
 
 
+def cc_plan(kernel, bh, s, d):
+    """Host-side plan of a CUDA-core launch of ``kernel`` ("fwd", "dq" or
+    "dkv") on (bh, s, d) inputs, as the C entry makes it: 256 threads a
+    CTA; row tiles of 64 at widths 64 and 128, of 32 at 256; grid (bh,
+    row tiles, chunks), ``chunks`` = :func:`head_dim_chunks` of ``d`` (1
+    up to 256); shared memory = 4 (fwd), 5 (dq) or 6 (dkv) staged float32
+    tiles of rows padded to width + 4, and for dkv 3 rows of the tile's
+    lse, delta and dlse."""
+    width = min(kernel_head_dim(d), HEAD_DIMS[-1])
+    rows = 64 if width <= 128 else 32
+    tiles = {"fwd": 4, "dq": 5, "dkv": 6}[kernel]
+    smem = (tiles * rows * (width + 4)
+            + (3 * rows if kernel == "dkv" else 0)) * 4
+    chunks = head_dim_chunks(d)
+    return {"grid": (bh, _ceil_div(s, rows), chunks), "threads": 256,
+            "tile_rows": rows, "head_dim": width, "chunks": chunks,
+            "smem_bytes": smem}
+
+
 def path(fn, dtype, head_dim):
     """The kernel wrapper ``fn`` (by name: "flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") launches on the card for (B, H, S, ``head_dim``)
     inputs of ``dtype``: "tensor_cores" for bfloat16 up to a head_dim of
     128, "cuda_cores" for float32 and for bfloat16 above 128, at the
-    width :func:`kernel_head_dim` names (``head_dim`` up to 256); None
-    where no kernel takes them."""
+    width :func:`kernel_head_dim` names (in :func:`head_dim_chunks`
+    chunks above 256); None where no kernel takes them."""
     w = kernel_head_dim(head_dim)
     if fn not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
             or w is None or dtype not in _DTYPES:
@@ -222,9 +255,8 @@ def _check_head_dim(fn, q):
     ``fn`` and ``q``'s type."""
     if q.dim() != 4 or path(fn, q.dtype, q.shape[-1]) is None:
         raise ValueError(
-            f"{fn}: q must be (B, H, S, D) with D <= {HEAD_DIMS[-1]}, got "
-            f"{tuple(q.shape)}; larger head_dims wait for ROADMAP queue C, "
-            f"'flash and paged head dims above 256'")
+            f"{fn}: q must be (B, H, S, D) with D >= 1, got "
+            f"{tuple(q.shape)}")
 
 
 def _check_cuda_args(fn, q, planes, rows):
@@ -432,4 +464,5 @@ def bytes_and_flops(kernel, q, causal, dlse=False):
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_ref",
            "flash_bwd_dq_ref", "flash_bwd_dkv_ref", "bytes_and_flops",
-           "visible_pairs", "path", "tc_plan", "kernel_head_dim", "HEAD_DIMS", "TC_HEAD_DIMS", "TC_MAX_SMEM"]
+           "visible_pairs", "path", "tc_plan", "cc_plan", "kernel_head_dim",
+           "head_dim_chunks", "HEAD_DIMS", "TC_HEAD_DIMS", "TC_MAX_SMEM"]

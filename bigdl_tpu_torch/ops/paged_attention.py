@@ -34,7 +34,11 @@ The kernel is built at the widths ``KERNEL_HEAD_DIMS`` (32, 64, 96, 128
 and 256) and runs any head_dim up to 256 on the narrowest at or above it,
 over pools that keep their true row width: the staged rows' columns past
 the head_dim are zeros, and nothing past it is written. A head_dim above
-256 raises, naming the ROADMAP queue C item that keeps it open.
+256 runs on width 256 in :func:`head_dim_chunks` chunks of 256 values a
+row, a grid axis beside the (slot, head, query tile) clusters: each
+chunk's cluster walks every page's K rows chunk by chunk for the scores
+(all of them in the same order, so they agree on every weight), reads
+only its own chunk of V, and writes only its own chunk of the output.
 
 A row with no visible key at all (an all-sentinel table row: padding and
 inactive slots) comes out as zeros on both paths; callers discard it.
@@ -149,8 +153,18 @@ def page_split(npages):
 
 def kernel_width(head_dim):
     """The built width that runs ``head_dim``: the narrowest of
-    KERNEL_HEAD_DIMS at or above it, or None above 256."""
+    KERNEL_HEAD_DIMS at or above it, 256 above 256 (in
+    :func:`head_dim_chunks` chunks), None below 1."""
+    if head_dim > KERNEL_HEAD_DIMS[-1]:
+        return KERNEL_HEAD_DIMS[-1]
     return next((w for w in KERNEL_HEAD_DIMS if 0 < head_dim <= w), None)
+
+
+def head_dim_chunks(head_dim):
+    """Chunks of 256 values a row of ``head_dim`` runs in: ``ceil(head_dim
+    / 256)`` above 256, else 1."""
+    w = KERNEL_HEAD_DIMS[-1]
+    return -(-head_dim // w) if head_dim > w else 1
 
 
 def copy_bytes(head_dim, elt):
@@ -167,9 +181,10 @@ def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
     ``page_size``, a page table ``table_width`` wide and the rows' starts,
     as the C entry makes it:
 
-    - grid (SPLIT, b * h, query tiles), a cluster of SPLIT CTAs of THREADS
-      per (slot, head, query tile); decode (c == 1) takes one query a CTA,
-      a chunk QUERY_TILE;
+    - grid (SPLIT, b * h, query tiles * chunks), a cluster of SPLIT CTAs
+      of THREADS per (slot, head, query tile, output chunk); decode (c ==
+      1) takes one query a CTA, a chunk QUERY_TILE; ``chunks`` is
+      :func:`head_dim_chunks` of ``d`` (1 up to 256);
     - ``splits[row][tile]``: the tile's pages, ``min(table_width, (start +
       last query) // page_size + 1)``, cut by :func:`page_split`. They
       depend on the row alone, never on b, h or a head shard;
@@ -185,8 +200,8 @@ def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
       bytes)."""
     w = kernel_width(d)
     if w is None:
-        raise ValueError(f"paged_plan: head_dim {d} above "
-                         f"{KERNEL_HEAD_DIMS[-1]}")
+        raise ValueError(f"paged_plan: head_dim {d} below 1")
+    chunks = head_dim_chunks(d)
     tile = 1 if c == 1 else QUERY_TILE
     elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kv_dtype]
     row = w * elt + ROW_PAD
@@ -204,9 +219,9 @@ def paged_plan(b, h, c, d, page_size, table_width, starts, kv_dtype):
             row_splits.append(page_split(
                 min(table_width, last // page_size + 1)))
         splits.append(row_splits)
-    return {"grid": (SPLIT, b * h, tiles), "cluster": SPLIT,
+    return {"grid": (SPLIT, b * h, tiles * chunks), "cluster": SPLIT,
             "threads": THREADS, "query_tile": tile, "stages": stages,
-            "head_dim": w, "copy_bytes": copy_bytes(d, elt),
+            "head_dim": w, "chunks": chunks, "copy_bytes": copy_bytes(d, elt),
             "smem_bytes": smem, "splits": splits}
 
 
@@ -256,10 +271,7 @@ def _check_cuda_args(q, pool, page_table, start):
         raise ValueError(f"paged_pool_attention: page_size {k.shape[2]} not "
                          f"in {PAGE_SIZES}")
     if kernel_width(d) is None:
-        raise ValueError(f"paged_pool_attention: head_dim {d} above "
-                         f"{KERNEL_HEAD_DIMS[-1]}; larger head dims wait for "
-                         f"ROADMAP queue C, 'flash and paged head dims above "
-                         f"256'")
+        raise ValueError(f"paged_pool_attention: head_dim {d} below 1")
 
 
 def paged_pool_attention(q, pool, page_table, start, sm_scale=None,
@@ -389,4 +401,5 @@ def bytes_and_flops(q, pool, page_table, start):
 
 __all__ = ["paged_pool_attention", "paged_pool_attention_ref",
            "bytes_and_flops", "page_split", "paged_plan", "kernel_width",
+           "head_dim_chunks",
            "copy_bytes", "KERNEL_SHAPES", "KERNEL_HEAD_DIMS", "PAGE_SIZES"]

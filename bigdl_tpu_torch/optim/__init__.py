@@ -1,5 +1,7 @@
-from bigdl_tpu_torch.optim.evaluator import (Evaluator, LocalValidator,
-                                             Predictor, Validator)
+from bigdl_tpu_torch.optim.evaluator import (DistriPredictor,
+                                             DistriValidator, Evaluator,
+                                             LocalValidator, Predictor,
+                                             Validator)
 from bigdl_tpu_torch.optim.methods import (LBFGS, SGD, Adadelta, Adagrad,
                                            Adam, Adamax, AdamW, Ftrl,
                                            OptimMethod, RMSprop)
@@ -24,7 +26,8 @@ from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               Top5Accuracy, ValidationMethod)
 
 __all__ = ["LBFGS", "MAE", "SGD", "AccuracyResult", "Adadelta", "Adagrad",
-           "Adam", "Adamax", "AdamW", "Default", "EpochDecay",
+           "Adam", "Adamax", "AdamW", "Default", "DistriPredictor",
+           "DistriValidator", "EpochDecay",
            "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer",
            "LocalOptimizer", "LocalValidator", "Loss", "LossResult",

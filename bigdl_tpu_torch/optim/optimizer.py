@@ -16,9 +16,10 @@ shuffles the dataset, feeds its batches through ``dataset.DeviceFeed``
 (pinned memory, a side stream, one batch ahead), runs the step, and reads
 each step's loss back one step late (``_DispatchAhead``), so the host
 never waits for the card inside an epoch; validation, checkpoints and
-summaries run on their triggers. The reference's preemption guard, fault
-points and ``obs`` spans wait for ROADMAP queue A.8; ``mesh=`` and
-distributed datasets for A.10.
+summaries run on their triggers. ``LocalOptimizer`` and the data-parallel
+``parallel.distri_optimizer.DistriOptimizer`` (``mesh=`` or a
+``DistributedDataSet``) share that loop. The reference's preemption
+guard, fault points and ``obs`` spans wait for ROADMAP queue A.8.
 """
 
 from __future__ import annotations
@@ -58,6 +59,20 @@ def clip_by_value(grads, min_value, max_value):
     return {k: torch.clamp(g, min_value, max_value) for k, g in grads.items()}
 
 
+def cast_forward(module, x, compute_dtype=None, kw=None):
+    """``module(x, **kw)``; with ``compute_dtype``, on a cast view of the
+    parameters through ``torch.func.functional_call`` and a cast copy of a
+    floating-point input (token ids stay as they are), the output cast
+    back to float32 (buffers stay float32)."""
+    kw = kw or {}
+    if compute_dtype is None:
+        return module(x, **kw)
+    cast = {k: p.to(compute_dtype) for k, p in module.named_parameters()}
+    if x.is_floating_point():
+        x = x.to(compute_dtype)
+    return functional_call(module, cast, (x,), kw).float()
+
+
 def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
                         accumulate_steps=1):
     """``fn(x, y, generator=None) -> (loss, grads)``: the loss of
@@ -89,13 +104,8 @@ def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
               if s != 1.0 and n in params}
 
     def forward(x, generator):
-        kw = {} if generator is None else {"generator": generator}
-        if compute_dtype is None:
-            return module(x, **kw)
-        cast = {k: p.to(compute_dtype) for k, p in params.items()}
-        if x.is_floating_point():
-            x = x.to(compute_dtype)
-        return functional_call(module, cast, (x,), kw).float()
+        kw = None if generator is None else {"generator": generator}
+        return cast_forward(module, x, compute_dtype, kw)
 
     def penalty(loss):
         for name, reg in regs:
@@ -201,6 +211,10 @@ class _DispatchAhead:
         self.last_drain = None
         self.last_rate = None
 
+    def clear(self):
+        """Drop the queued readouts (steps of a failed run)."""
+        self.pending.clear()
+
     def push(self, loss, n, t0, k=1):
         self.pending.append({"loss": loss, "n": n, "t0": t0, "k": k,
                              "neval": self.driver_state["neval"],
@@ -243,9 +257,8 @@ class _DispatchAhead:
 class Optimizer:
     """Facade and factory (reference ``optim/Optimizer.scala:42,466``):
     ``Optimizer(model=, dataset=, criterion=)`` returns a
-    :class:`LocalOptimizer`. ``mesh=`` raises ``NotImplementedError``
-    naming ROADMAP queue A.10 (``DataSet.array(distributed=True)`` raises
-    there already).
+    :class:`LocalOptimizer`, or a ``DistriOptimizer`` for ``mesh=`` or a
+    ``DistributedDataSet`` (``parallel/distri_optimizer.py``).
 
     Keywords: ``seed`` (accepted for the reference's API and unused: the
     ported layers draw nothing while training), ``accumulate_steps`` (K micro-batches a
@@ -257,10 +270,12 @@ class Optimizer:
 
     def __new__(cls, model=None, dataset=None, criterion=None, **kwargs):
         if cls is Optimizer:
-            if kwargs.get("mesh") is not None:
-                raise NotImplementedError(
-                    "Optimizer(mesh=...) is DistriOptimizer, not ported yet "
-                    "(ROADMAP queue A.10)")
+            from bigdl_tpu_torch.dataset.dataset import DistributedDataSet
+            from bigdl_tpu_torch.parallel.distri_optimizer import \
+                DistriOptimizer
+            if isinstance(dataset, DistributedDataSet) \
+                    or kwargs.get("mesh") is not None:
+                return super().__new__(DistriOptimizer)
             return super().__new__(LocalOptimizer)
         return super().__new__(cls)
 
@@ -378,12 +393,15 @@ class Optimizer:
             logger.info("validation %s = %.4f", name, value)
         return results
 
-    def _record_plateau(self, score, opt_state):
+    def _record_plateau(self, score):
         """Feed the validation score to a ``Plateau`` schedule and write
-        its factor into ``opt_state["plateau_mult"]``."""
+        its factor into each optimizer state's ``plateau_mult``."""
         sched = getattr(self.optim_method, "schedule", None)
-        if isinstance(sched, Plateau) and "plateau_mult" in opt_state:
-            opt_state["plateau_mult"].fill_(sched.record(score))
+        if isinstance(sched, Plateau):
+            mult = sched.record(score)
+            for opt_state in self._opt_states():
+                if "plateau_mult" in opt_state:
+                    opt_state["plateau_mult"].fill_(mult)
 
     def _checkpoint(self, neval, opt_state):
         """Write ``model.<neval>`` (the module's ``state_dict``, with
@@ -439,6 +457,126 @@ class Optimizer:
     def optimize(self):
         raise NotImplementedError
 
+    # ----- the loop LocalOptimizer and DistriOptimizer share ---------------
+    # A subclass sets ``self._fn`` (``fn(x, y) -> loss``, or with
+    # ``steps_per_loop`` > 1 ``fn(xs, ys) -> losses``) and gives
+    # ``_opt_states`` (the optimizer states whose counters the loop
+    # advances) and ``_place``/``_place_super`` (the checks, and the
+    # layout, of a fed batch or superbatch).
+    def _train_epoch(self, ds, device, ahead, driver_state):
+        """One epoch: shuffle, the batches (or superbatches), the readout
+        caught up, the epoch-boundary hooks, and the epoch counters."""
+        t_epoch = time.time()
+        ds.shuffle()
+        driver_state["epoch_finished"] = False
+        ahead.reset_epoch()
+        if self.steps_per_loop > 1:
+            records = self._superbatch_epoch(ds, device, ahead, driver_state)
+        else:
+            records = self._epoch(ds, device, ahead, driver_state)
+        t_tail = time.time()
+        ahead.drain_all()   # catch up before the epoch-boundary hooks
+        self.metrics["step_time"] += time.time() - t_tail
+        driver_state["epoch_finished"] = True
+        self._hooks(driver_state)
+        logger.info("Epoch %d done (%d records in %.1fs)",
+                    driver_state["epoch"], records, time.time() - t_epoch)
+        driver_state["epoch"] += 1
+        for opt_state in self._opt_states():
+            opt_state["epoch"].fill_(driver_state["epoch"])
+
+    def _count_dispatch(self, k):
+        """Per-dispatch accounting a subclass adds (k steps)."""
+
+    def _dispatched(self, ahead, driver_state, loss, n, t0, k):
+        ahead.push(loss, n, t0, k=k)
+        self.metrics["steps"] += k
+        self.metrics["dispatches"] += 1
+        self.metrics["step_time"] += time.time() - t0
+        self.metrics["records"] += n
+        self._count_dispatch(k)
+        driver_state["neval"] += k
+        self._hooks(driver_state, ahead=ahead)
+
+    def _epoch(self, ds, device, ahead, driver_state):
+        records = 0
+        t_data = time.time()
+        for item, (x, y) in DeviceFeed(device)(ds.data(train=True)):
+            x, y = self._place(item, x, y)
+            t0 = time.time()
+            self.metrics["data_time"] += t0 - t_data
+            loss = self._fn(x, y)
+            records += x.shape[0]
+            self._dispatched(ahead, driver_state, loss, x.shape[0], t0, 1)
+            if self.end_when(driver_state):
+                break
+            t_data = time.time()
+        return records
+
+    def _superbatch_epoch(self, ds, device, ahead, driver_state):
+        """One epoch of ``steps_per_loop`` mode: superbatches stacked on
+        the ``Prefetch`` thread (``ToSuperBatch``), moved by
+        ``DeviceFeed``, each run by one K-step loop, or by a few shorter
+        ones where a trigger falls inside it."""
+        feed = DeviceFeed(device)(Prefetch(2)(
+            ToSuperBatch(self.steps_per_loop)(ds.data(train=True))))
+        records = 0
+        t_data = time.time()
+        for sb, (xs, ys) in feed:
+            xs, ys = self._place_super(sb, xs, ys)
+            start = 0
+            while start < sb.k:
+                j = self._plan_chunk(driver_state, sb.k - start)
+                t0 = time.time()
+                self.metrics["data_time"] += t0 - t_data
+                losses = self._fn(xs[start:start + j], ys[start:start + j])
+                n = sum(sb.sizes[start:start + j])
+                records += n
+                self._dispatched(ahead, driver_state, losses, n, t0, j)
+                if self.end_when(driver_state):
+                    return records
+                start += j
+                t_data = time.time()
+        return records
+
+    def _validate_now(self):
+        return self._validate()
+
+    def _checkpoint_now(self, driver_state):
+        self._checkpoint(driver_state["neval"], self._opt_state)
+
+    def _flat_params(self):
+        return torch.cat([p.detach().reshape(-1).float()
+                          for p in self.model.parameters()])
+
+    def _hooks(self, driver_state, ahead=None):
+        # decide which hooks fire, then catch the loss readout up: hooks
+        # read driver_state, whose loss lags the queue otherwise
+        do_val = (self.validation_trigger is not None
+                  and self.validation_trigger(driver_state))
+        do_ckpt = (self.checkpoint_trigger is not None
+                   and self.checkpoint_trigger(driver_state))
+        hist = self._summary_trigger("Parameters")
+        do_hist = hist is not None and hist(driver_state)
+        if ahead is not None and (do_val or do_ckpt or do_hist):
+            ahead.drain_all()
+        if do_val:
+            results = self._validate_now()
+            if results:
+                first = next(iter(results.values()))
+                driver_state["score"] = first
+                self._record_plateau(first)
+                if self.validation_summary is not None:
+                    for name, v in results.items():
+                        self.validation_summary.add_scalar(
+                            name, v, driver_state["neval"])
+        if do_ckpt:
+            self._checkpoint_now(driver_state)
+        if do_hist:
+            self.train_summary.add_histogram(
+                "Parameters", self._flat_params().cpu().numpy(),
+                driver_state["neval"])
+
     def metrics_summary(self):
         """Per-phase averages (reference ``Metrics.summary``,
         ``optim/Metrics.scala:103``)."""
@@ -476,13 +614,14 @@ class LocalOptimizer(Optimizer):
         ds = self.dataset
         self._ensure_ready()
         model = self.model
-        device = model_device(model)
         opt_state = self.optim_method.init_state(
             dict(model.named_parameters()))
+        self._opt_state = opt_state
         build = make_train_loop if self.steps_per_loop > 1 \
             else make_train_step
         fn = build(model, self.criterion, self.optim_method, self.clipping,
                    accumulate_steps=self.accumulate_steps)
+        self._fn = lambda x, y: fn(opt_state, x, y)
         self.metrics = {"steps": 0, "data_time": 0.0, "step_time": 0.0,
                         "records": 0, "dispatches": 0}
         driver_state = {"epoch": 1, "neval": 1, "loss": None, "score": None,
@@ -494,111 +633,18 @@ class LocalOptimizer(Optimizer):
                 ent["epoch"], ent["neval"], loss_f, rate)
 
         ahead = _DispatchAhead(driver_state, self.train_summary, log_iter)
-        t_epoch = time.time()
         while not self.end_when(driver_state):
-            ds.shuffle()
-            driver_state["epoch_finished"] = False
-            ahead.reset_epoch()
-            if self.steps_per_loop > 1:
-                records = self._superbatch_epoch(ds, fn, device, ahead,
-                                                 driver_state, opt_state)
-            else:
-                records = self._epoch(ds, fn, device, ahead, driver_state,
-                                      opt_state)
-            t_tail = time.time()
-            ahead.drain_all()   # catch up before the epoch-boundary hooks
-            self.metrics["step_time"] += time.time() - t_tail
-            driver_state["epoch_finished"] = True
-            self._maybe_hooks(driver_state, opt_state)
-            logger.info("Epoch %d done (%d records in %.1fs)",
-                        driver_state["epoch"], records, time.time() - t_epoch)
-            driver_state["epoch"] += 1
-            opt_state["epoch"].fill_(driver_state["epoch"])
-            t_epoch = time.time()
-        self._opt_state = opt_state
+            self._train_epoch(ds, model_device(model), ahead, driver_state)
         self._join_checkpoint()
         return model
 
-    def _dispatched(self, ahead, driver_state, opt_state, loss, n, t0, k):
-        ahead.push(loss, n, t0, k=k)
-        self.metrics["steps"] += k
-        self.metrics["dispatches"] += 1
-        self.metrics["step_time"] += time.time() - t0
-        self.metrics["records"] += n
-        driver_state["neval"] += k
-        self._maybe_hooks(driver_state, opt_state, ahead=ahead)
+    def _opt_states(self):
+        return [self._opt_state]
 
-    def _epoch(self, ds, step, device, ahead, driver_state, opt_state):
-        records = 0
-        t_data = time.time()
-        for _, (x, y) in DeviceFeed(device)(ds.data(train=True)):
-            _check_accumulate(self.accumulate_steps, x.shape[0])
-            t0 = time.time()
-            self.metrics["data_time"] += t0 - t_data
-            loss = step(opt_state, x, y)
-            records += x.shape[0]
-            self._dispatched(ahead, driver_state, opt_state, loss,
-                             x.shape[0], t0, 1)
-            if self.end_when(driver_state):
-                break
-            t_data = time.time()
-        return records
+    def _place(self, item, x, y):
+        _check_accumulate(self.accumulate_steps, x.shape[0])
+        return x, y
 
-    def _superbatch_epoch(self, ds, loop, device, ahead, driver_state,
-                          opt_state):
-        """One epoch of ``steps_per_loop`` mode: superbatches stacked on
-        the ``Prefetch`` thread (``ToSuperBatch``), moved by
-        ``DeviceFeed``, each run by one K-step loop, or by a few shorter
-        ones where a trigger falls inside it."""
-        feed = DeviceFeed(device)(Prefetch(2)(
-            ToSuperBatch(self.steps_per_loop)(ds.data(train=True))))
-        records = 0
-        t_data = time.time()
-        for sb, (xs, ys) in feed:
-            _check_accumulate(self.accumulate_steps, xs.shape[1])
-            start = 0
-            while start < sb.k:
-                j = self._plan_chunk(driver_state, sb.k - start)
-                t0 = time.time()
-                self.metrics["data_time"] += t0 - t_data
-                losses = loop(opt_state, xs[start:start + j],
-                              ys[start:start + j])
-                n = sum(sb.sizes[start:start + j])
-                records += n
-                self._dispatched(ahead, driver_state, opt_state, losses, n,
-                                 t0, j)
-                if self.end_when(driver_state):
-                    return records
-                start += j
-                t_data = time.time()
-        return records
-
-    def _maybe_hooks(self, driver_state, opt_state, ahead=None):
-        self._opt_state = opt_state
-        # decide which hooks fire, then catch the loss readout up: hooks
-        # read driver_state, whose loss lags the queue otherwise
-        do_val = (self.validation_trigger is not None
-                  and self.validation_trigger(driver_state))
-        do_ckpt = (self.checkpoint_trigger is not None
-                   and self.checkpoint_trigger(driver_state))
-        hist = self._summary_trigger("Parameters")
-        do_hist = hist is not None and hist(driver_state)
-        if ahead is not None and (do_val or do_ckpt or do_hist):
-            ahead.drain_all()
-        if do_val:
-            results = self._validate()
-            if results:
-                first = next(iter(results.values()))
-                driver_state["score"] = first
-                self._record_plateau(first, opt_state)
-                if self.validation_summary is not None:
-                    for name, v in results.items():
-                        self.validation_summary.add_scalar(
-                            name, v, driver_state["neval"])
-        if do_ckpt:
-            self._checkpoint(driver_state["neval"], opt_state)
-        if do_hist:
-            flat = torch.cat([p.detach().reshape(-1).float()
-                              for p in self.model.parameters()])
-            self.train_summary.add_histogram(
-                "Parameters", flat.cpu().numpy(), driver_state["neval"])
+    def _place_super(self, sb, xs, ys):
+        _check_accumulate(self.accumulate_steps, xs.shape[1])
+        return xs, ys

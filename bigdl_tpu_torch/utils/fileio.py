@@ -32,6 +32,11 @@ def file_makedirs(path):
     os.makedirs(_local(path), exist_ok=True)
 
 
+def file_listdir(path):
+    p = _local(path)
+    return sorted(os.listdir(p)) if os.path.isdir(p) else []
+
+
 def path_join(base, name):
     return os.path.join(_local(base), name)
 

@@ -178,9 +178,9 @@ def test_cuda_argument_checks_refuse_what_the_kernel_does_not_take():
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fa._check_cuda_args("flash_fwd", q, {"k": q, "v": q}, {})
-    # head dims up to 256 run (ROADMAP queue C keeps those above)
-    with pytest.raises(ValueError, match=r"\(B, H, S, D\) with D <= 256"):
-        fa._check_cuda_args("flash_fwd", torch.zeros(1, 2, 8, 320), {}, {})
+    # every head dim from 1 runs (above 256 in chunks); 0 is refused
+    with pytest.raises(ValueError, match=r"\(B, H, S, D\) with D >= 1"):
+        fa._check_cuda_args("flash_fwd", torch.zeros(1, 2, 8, 0), {}, {})
     with pytest.raises(TypeError, match="float16"):
         fa._check_cuda_args("flash_fwd", q.half(), {}, {})
 

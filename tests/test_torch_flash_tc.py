@@ -238,19 +238,22 @@ TC, CC = "tensor_cores", "cuda_cores"
     ("flash_bwd_dq", torch.bfloat16, 160, CC),      # above 128: CUDA cores
     ("flash_fwd", torch.float32, 256, CC),
     ("flash_bwd_dkv", torch.bfloat16, 256, CC),
-    ("flash_fwd", torch.bfloat16, 257, None),       # above 256
+    ("flash_fwd", torch.bfloat16, 257, CC),         # above 256: chunked
+    ("flash_bwd_dkv", torch.float32, 1024, CC),
+    ("flash_fwd", torch.float32, 0, None),
     ("flash_fwd", torch.float16, 64, None),
     ("flash_bwd", torch.bfloat16, 64, None),        # no such wrapper
 ])
 def test_tensor_core_eligibility(fn, dtype, d, want):
     """``path``: the tensor cores for bfloat16 up to D 128 and the CUDA
     cores for float32 and for bfloat16 above 128, every wrapper at any D
-    up to 256 (on the width ``kernel_head_dim`` names); no kernel for the
-    rest."""
+    (on the width ``kernel_head_dim`` names: above 256 the next multiple
+    of 256, run in chunks of 256); no kernel for the rest."""
     assert fa.path(fn, dtype, d) == want
     if want is not None:
         assert fa.kernel_head_dim(d) == (64 if d <= 64 else
-                                         128 if d <= 128 else 256)
+                                         128 if d <= 128 else
+                                         256 * -(-d // 256))
 
 
 class _FakeLib:
@@ -359,13 +362,16 @@ def test_head_dims_below_128_pass_on_to_the_device_check(fn, dtype, d):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("fn", WRAPPER_NAMES)
 def test_other_head_dims_raise_naming_queue_c(fn, dtype, d):
-    """``_check_cuda_args`` refuses a head size above 256, naming the
-    ROADMAP queue C item that keeps it open, before it looks at the
-    device."""
+    """``_check_cuda_args`` no longer refuses a head size above 256 (the
+    ROADMAP queue C item is closed: such head sizes run chunked on the
+    CUDA-core kernels): it goes on to the device check, which refuses
+    these CPU tensors; a head size of 0 is still refused by shape."""
     q = torch.zeros(1, 2, 8, d, dtype=dtype)
-    with pytest.raises(ValueError, match=r"queue C, 'flash and paged head "
-                                         r"dims above 256'"):
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
         fa._check_cuda_args(fn, q, {}, {})
+    with pytest.raises(ValueError, match=r"with D >= 1"):
+        fa._check_cuda_args(fn, torch.zeros(1, 2, 8, 0, dtype=dtype), {},
+                            {})
 
 
 @pytest.mark.parametrize("d", [160, 256])

@@ -339,12 +339,22 @@ def test_float64_samples_train_validate_and_predict_like_reference():
 
 
 def test_mesh_and_distributed_datasets_are_refused():
+    """ROADMAP queue A.10 is ported, so neither is refused any more: the
+    factory gives the ``DistriOptimizer`` for ``mesh=`` and for a
+    distributed dataset (its own tests: ``test_torch_distri_*.py``); a
+    dataset over more than one process is refused, naming A.10(b)."""
+    from bigdl_tpu_torch.parallel import DistriOptimizer
     tm = LeNet5(10, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.10"):
-        topt.Optimizer(model=tm, dataset=None,
-                       criterion=tnn.ClassNLLCriterion(), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.10"):
-        mnist_dataset(distributed=True, synthetic_size=8)
+    crit = tnn.ClassNLLCriterion()
+    o = topt.Optimizer(model=tm, dataset=None, criterion=crit,
+                       mesh=["cpu", "cpu"])
+    assert type(o) is DistriOptimizer and o.mesh == ["cpu", "cpu"]
+    dds = mnist_dataset(distributed=True, synthetic_size=8)
+    made = topt.Optimizer.__new__(topt.Optimizer, model=tm, dataset=dds,
+                                  criterion=crit)
+    assert type(made) is DistriOptimizer
+    with pytest.raises(NotImplementedError, match=r"queue A.10\(b\)"):
+        tds.DistributedDataSet([1, 2], process_count=2)
 
 
 @pytest.mark.parametrize("kw", [dict(accumulate_steps=0),

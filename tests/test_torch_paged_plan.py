@@ -252,13 +252,14 @@ def test_split_and_merge_matches_plain_and_pallas(c, int8):
 
 @pytest.mark.parametrize("d,ok", [(32, True), (64, True), (96, True),
                                   (128, True), (80, True), (160, True),
-                                  (256, True), (72, True), (257, False),
-                                  (320, False)])
+                                  (256, True), (72, True), (257, True),
+                                  (320, True), (1024, True), (0, False)])
 @pytest.mark.parametrize("int8", [False, True], ids=["float32", "int8"])
 def test_wrapper_takes_the_instantiated_head_dims(int8, d, ok):
     """The card branch's shape check takes every head size up to 256 (run
     on the narrowest built width at or above it: 80 and 72 on 96, 160 on
-    256) and refuses the rest, naming the ROADMAP queue C item."""
+    256) and above it (on 256 in chunks: the ROADMAP queue C item is
+    closed), and refuses a head size of 0."""
     q = torch.zeros((2, 4, 1, d))
     table = torch.zeros((2, 3), dtype=torch.int32)
     start = torch.zeros(2, dtype=torch.int32)
@@ -271,8 +272,7 @@ def test_wrapper_takes_the_instantiated_head_dims(int8, d, ok):
     if ok:
         pa._check_cuda_args(q, pool, table, start)
     else:
-        with pytest.raises(ValueError, match=r"queue C, 'flash and paged "
-                                             r"head dims above 256'"):
+        with pytest.raises(ValueError, match=r"head_dim 0 below 1"):
             pa._check_cuda_args(q, pool, table, start)
 
 
@@ -301,5 +301,10 @@ def test_head_dims_run_on_the_next_built_width(d, kv):
         at_width = pa.paged_plan(4, 12, c, width, 16, 64, [0, 5, 9, 600], kv)
         assert (plan["head_dim"], plan["copy_bytes"]) == (width, cw)
         assert plan["smem_bytes"] == at_width["smem_bytes"] <= pa.MAX_SMEM
-    with pytest.raises(ValueError, match="head_dim 257 above 256"):
-        pa.paged_plan(4, 12, 1, 257, 16, 64, [0, 5, 9, 600], kv)
+    # above 256: width 256 in two chunks, a grid axis; a head size of 0
+    # has no plan
+    wide = pa.paged_plan(4, 12, 1, 257, 16, 64, [0, 5, 9, 600], kv)
+    assert (wide["head_dim"], wide["chunks"], wide["grid"]) == (
+        256, 2, (pa.SPLIT, 48, 2))
+    with pytest.raises(ValueError, match="head_dim 0 below 1"):
+        pa.paged_plan(4, 12, 1, 0, 16, 64, [0, 5, 9, 600], kv)
