@@ -20,15 +20,20 @@ already live on the device (the sampler's output).
 ``GPT.init_cache`` / ``prefill`` / ``decode_step`` are the dense K/V-cache
 path (one ``(B, H, max_position, D)`` buffer pair per layer, written in
 place), which ``GPTForCausalLM.generate`` and the dense serving manager
-(``serving/slots.py``) drive.
+(``serving/slots.py``) drive. Speculative decoding (``models/spec.py``)
+adds the verify forwards: ``GPT.decode_chunk`` on the dense cache
+(:func:`dense_chunk_states`) and ``GPT.paged_verify_chunk`` through the
+page table (a :func:`paged_chunk_states` chunk written from each row's
+committed length), and ``generate(spec_tokens=)`` drives the first.
 
 ``tp > 1`` builds one tensor-parallel shard of the model (its attention
 heads, its slice of the MLP's inner width and, when the caller gives it
 ``vocab_size / tp`` rows, its slice of the vocabulary);
 ``parallel/tensor_parallel.py`` drives the shards. The dense and paged
 paths are written once, over a list of shards (:func:`dense_prefill_states`,
-:func:`dense_step_states`, :func:`paged_chunk_states`,
-:func:`paged_step_states`), every block through one layer body
+:func:`dense_step_states`, :func:`dense_chunk_states`,
+:func:`paged_chunk_states`, :func:`paged_step_states`), every block through
+one layer body
 (:func:`_layers`: each path's attention, then :func:`block_rest`): the
 unsharded model is the list of one. The body's two row-parallel sums
 (``wo`` and ``fc2``) add float partials in shard order, or, for int8
@@ -40,11 +45,13 @@ in ``parallel/layout.py``'s table.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.models.spec import spec_config
+from bigdl_tpu_torch.models.spec import (NGramDraft, accept_serving, commit,
+                                         spec_config)
 from bigdl_tpu_torch.nn import LayerNormalization, Linear
 from bigdl_tpu_torch.nn.quantized import Int8Linear, qmatmul_row_parallel
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
@@ -210,6 +217,17 @@ class GPT(nn.Module):
         (B, hidden) final-norm states and the cache."""
         return dense_step_states([self], [cache], tok, pos), cache
 
+    def decode_chunk(self, cache, toks, pos):
+        """The speculative verify on the dense cache: C tokens a row,
+        ``toks`` (B, C) (on any device; the draft's proposals) at absolute
+        positions ``pos[b] + j`` (``pos`` host (B,) ints, each row's
+        committed length), through every layer with their K/V written in
+        place (:func:`dense_chunk_states`: writes at or past
+        ``max_position`` are dropped and the position embedding clipped, so
+        an overshooting row computes masked junk). Returns the (B, C,
+        hidden) final-norm states and the cache."""
+        return dense_chunk_states([self], [cache], toks, pos), cache
+
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
         dicts of (num_pages, local heads, page_size, head_dim), in
@@ -251,6 +269,17 @@ class GPT(nn.Module):
         final-norm states and pools."""
         return paged_step_states([self], [pools], page_table, tok, pos,
                                  page_size), pools
+
+    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size):
+        """The speculative verify through the page table: ``toks`` (B, C)
+        proposals a slot from its committed length ``pos`` (B,) on, written
+        through ``page_table`` (a sentinel entry drops the write, so
+        rejected tokens land only in pages the slot owns) and attended with
+        the per-query mask (:func:`paged_chunk_states` with ``nvalid = C``
+        and ``write_from = pos``). Returns ALL (B, C, hidden) final-norm
+        states and the pools."""
+        return paged_chunk_states([self], [pools], *verify_args(
+            page_table, toks, pos), page_size), pools
 
 
 def _embed(gpts, ids, pos, vocab_split):
@@ -339,6 +368,14 @@ def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
                                            mesh))[:, 0]
 
 
+def verify_args(page_table, toks, pos):
+    """``paged_chunk_states``' chunk arguments of a verify chunk: every
+    proposal valid, writes from the committed length ``pos`` on."""
+    pos = _host(pos)
+    c = torch.as_tensor(toks).shape[1]
+    return page_table, toks, pos, torch.full_like(pos, c), pos
+
+
 def dense_prefill_states(gpts, caches, ids, rows=None, mesh=None,
                          vocab_split=False):
     """The dense prefill over tensor-parallel shards: ``gpts`` (one ``GPT``
@@ -375,14 +412,48 @@ def dense_step_states(gpts, caches, tok, pos, mesh=None, vocab_split=False):
         for blk, h, c, p in zip(blocks, hs, caches, pos)])[:, 0]
 
 
+def dense_chunk_states(gpts, caches, toks, pos, mesh=None,
+                       vocab_split=False):
+    """The dense speculative verify over shards (arguments as
+    :func:`dense_prefill_states`): ``toks`` (B, C) on any device (the
+    draft's proposals), ``pos`` host (B,) committed lengths. Each layer
+    writes the chunk's K/V at :func:`dense_chunk_plan`'s index and attends
+    with the per-query mask (``MultiHeadAttention.chunk_heads``). Returns
+    the (B, C, hidden) final-norm states on the first shard's device."""
+    devices = mesh or [gpts[0].device]
+    toks = torch.as_tensor(toks).long()
+    pos_c, q_pos, index = [broadcast(t, devices) for t in dense_chunk_plan(
+        pos, toks.shape[0], toks.shape[1], gpts[0].max_position)]
+    xs = _embed(gpts, broadcast(toks, devices), pos_c, vocab_split)
+    return _layers(gpts, xs, lambda i, blocks, hs: [
+        blk.attn.chunk_heads(h, c[i], ix, qp)
+        for blk, h, c, ix, qp in zip(blocks, hs, caches, index, q_pos)])
+
+
+def dense_chunk_plan(pos, b, c, max_position):
+    """The host side of a dense verify chunk (see
+    :func:`dense_chunk_states`): ``pos`` (an int, or host (B,) ints) the
+    rows' committed lengths, C tokens a row. Returns CPU int64 tensors:
+    the clipped positions (B, C) for the embedding, the absolute positions
+    (B, C) for the attention mask, and the write index (3, n): flat token,
+    cache row and position of every token below ``max_position`` (the
+    reference drops the others)."""
+    pos = _host(pos).reshape(-1).expand(b)
+    q_pos = pos[:, None] + torch.arange(c)[None, :]
+    tok = (q_pos.reshape(-1) < max_position).nonzero().reshape(-1)
+    index = torch.stack([tok, tok // c, q_pos.reshape(-1)[tok]])
+    return q_pos.clamp(0, max_position - 1), q_pos, index
+
+
 def chunk_plan(page_table, ids, start, nvalid, write_from, page_size,
                num_pages, max_position):
-    """The host side of a prefill chunk (see :func:`paged_chunk_states`),
-    as CPU tensors for the caller to move: token ids (W, C) and clipped
-    positions (W, C), both int64; the write index (3, n) of
-    :func:`paged_write_index`; the page table (W, P) and the rows' starts
-    (W,), both int32."""
-    ids = _host(ids)
+    """The host side of a prefill or verify chunk (see
+    :func:`paged_chunk_states`), as tensors for the caller to move: token
+    ids (W, C) int64 where they lie (the host's prompt tokens, or the
+    draft's proposals on the card), and on the CPU clipped positions (W,
+    C) int64; the write index (3, n) of :func:`paged_write_index`; the
+    page table (W, P) and the rows' starts (W,), both int32."""
+    ids = torch.as_tensor(ids).long()
     c = ids.shape[1]
     table = _host(page_table, torch.int32)
     p = table.shape[1]
@@ -561,10 +632,14 @@ class GPTForCausalLM(nn.Module):
         against the dense cache (``GPT.decode_step``): the prefill's
         logits give the first, each of ``n_new - 1`` decode steps the
         next. A generation that would pass ``max_position`` takes
-        :meth:`_generate_sliding`. Speculative decoding (``spec_tokens >
-        1``, or ``BIGDL_TPU_SPEC_DECODE``) on the greedy path is ROADMAP
-        queue A.5 and raises; sampled generation ignores it, as the
-        reference does."""
+        :meth:`_generate_sliding`.
+
+        ``spec_tokens > 1`` (or ``BIGDL_TPU_SPEC_DECODE`` with
+        ``BIGDL_TPU_SPEC_TOKENS``; an explicit ``spec_tokens`` wins) makes
+        greedy generation speculative (:meth:`_generate_spec`), with the
+        same tokens; sampled generation ignores it, as the reference
+        does (keeping the sampled distribution would need a rejection
+        rule)."""
         ids = torch.as_tensor(ids).to("cpu", torch.int32)
         if ids.dim() == 1:
             ids = ids[None]
@@ -573,10 +648,6 @@ class GPTForCausalLM(nn.Module):
         greedy = temperature is None or float(temperature) <= 0.0
         gamma = (max(int(spec_tokens), 1) if spec_tokens is not None
                  else spec_config())
-        if greedy and gamma > 1:
-            raise NotImplementedError(
-                "generate(spec_tokens > 1): speculative decoding is not "
-                "ported yet (ROADMAP queue A.5 speculative decoding)")
         dev = self.device
         if generator is None and not greedy:
             generator = torch.Generator(device=dev)
@@ -589,6 +660,8 @@ class GPTForCausalLM(nn.Module):
         bucket = prompt_bucket(t, gpt.max_position)
         padded = torch.zeros((b, bucket), dtype=torch.int32)
         padded[:, :t] = ids
+        if greedy and gamma > 1:
+            return self._generate_spec(ids, padded, n_new, gamma)
         cache = gpt.init_cache(b)
         h, cache = gpt.prefill(cache, padded, t)
         logits = self._lm_logits(h)
@@ -603,6 +676,48 @@ class GPTForCausalLM(nn.Module):
                 logits = self._lm_logits(h)
         self.decode_stats.tick("decode_traces")
         return torch.cat([ids, torch.stack(toks, 1).cpu()], 1)
+
+    @torch.no_grad()
+    def _generate_spec(self, ids, padded, n_new, gamma):
+        """Greedy speculative decoding (the reference's ``_spec_fns``):
+        ``ids`` (B, T) int32 on the CPU, ``padded`` them at their bucket.
+        The prefill also primes an ``NGramDraft`` from the prompts. Each
+        iteration of the loop proposes ``gamma`` tokens a row from the
+        argmax of the carried logits, verifies them in one
+        ``GPT.decode_chunk`` at each row's committed length, commits the
+        longest agreeing prefix (``models.spec.accept_serving``) and
+        teaches the draft the committed pairs (``models.spec.commit``). A
+        row with ``n_new`` tokens freezes; the loop ends when the slowest
+        row has them, its one readback an iteration (the proposals and the
+        commit counts) standing in for the reference's ``while_loop``
+        condition.
+        ``decode_stats`` counts the prefill and the loop, as for the
+        plain path. Returns (B, T + n_new) int32 on the CPU."""
+        gpt, dev = self.gpt, self.device
+        b, t = ids.shape
+        draft = NGramDraft(self.vocab_size)
+        h, cache = gpt.prefill(gpt.init_cache(b), padded, t)
+        logits = self._lm_logits(h)
+        table = draft.prime(draft.init_state(b, dev), padded,
+                            torch.full((b,), t))
+        last = ids[:, t - 1].to(dev, torch.int32)
+        self.decode_stats.tick("prefill_traces")
+        out = np.zeros((b, n_new + gamma), np.int32)
+        count = np.zeros(b, np.int64)
+        while count.min() < n_new:
+            props = draft.propose(table, torch.argmax(logits, dim=-1), gamma)
+            h, cache = gpt.decode_chunk(cache, props, t + count)
+            adv, carry = accept_serving(
+                props, self._lm_logits(h),
+                live=torch.from_numpy(count < n_new).to(dev))
+            last, logits, got = commit(draft, table, props, adv, carry, last,
+                                       logits)
+            for r in range(b):
+                n = int(got[r, -1])
+                out[r, count[r]:count[r] + n] = got[r, :n]
+            count += got[:, -1]
+        self.decode_stats.tick("decode_traces")
+        return torch.cat([ids, torch.from_numpy(out[:, :n_new])], 1)
 
     @torch.no_grad()
     def _generate_sliding(self, ids, n_new, temperature, generator,

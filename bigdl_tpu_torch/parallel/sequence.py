@@ -2,8 +2,8 @@
 ``flash_profitable``, ``full_attention``, ``cached_attention``,
 ``paged_gather``, ``paged_write``, ``paged_write_quant``,
 ``paged_gather_dequant``, ``paged_attention`` and ``MultiHeadAttention``'s
-full-sequence ``forward``, its dense K/V-cache methods and its paged
-methods).
+full-sequence ``forward``, its dense K/V-cache methods with the
+speculative ``decode_chunk``, and its paged methods).
 
 The full-sequence forward (training) attends through ``ops.
 flash_attention``: the hand-written kernels on the card, their plain
@@ -44,8 +44,10 @@ exactly where the reference's gate (:func:`flash_profitable`) takes its
 Pallas kernel, else through :func:`full_attention`;
 :meth:`MultiHeadAttention.decode_step` writes one token's K/V at
 ``index`` (a scalar, or one position a row) and attends through
-:func:`cached_attention`. Those two are plain PyTorch, as the reference
-leaves them to XLA.
+:func:`cached_attention`; :meth:`MultiHeadAttention.chunk_heads` (the
+speculative verify) writes C tokens a row and attends through
+:func:`paged_attention`'s per-query mask. Those three are plain PyTorch,
+as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -340,3 +342,20 @@ class MultiHeadAttention(nn.Module):
         """Incremental mode (the reference's ``decode_step``): ``(wo(
         attention), cache)``; see :meth:`decode_heads`."""
         return self.project_heads(self.decode_heads(x, cache, index)), cache
+
+    def chunk_heads(self, x, cache, index, q_pos):
+        """The speculative verify before ``wo`` (the reference's
+        ``decode_chunk``): C query tokens a row (x: (B, C, hidden)) write
+        their K/V at ``index`` ((3, n) from ``models.gpt.dense_chunk_plan``:
+        flat token, cache row, position; positions at or past the cache
+        length were left out, the reference's dropped writes), in place,
+        then attend through :func:`paged_attention`'s per-query mask at
+        absolute positions ``q_pos`` (B, C). Returns (B, H, C, D)."""
+        q, k, v = self._qkv(x)
+        tok, row, pos = index
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            b, h, c, d = new.shape
+            buf[row, :, pos] = new.transpose(1, 2).reshape(
+                b * c, h, d)[tok].to(buf.dtype)
+        return paged_attention(q, cache["k"], cache["v"], q_pos)

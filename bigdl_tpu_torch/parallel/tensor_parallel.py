@@ -15,18 +15,18 @@ shards) splits each ``Int8Linear``'s int8 ``weight`` and its ``scale``
 by the same rules: a column-parallel layer's scales with its rows, a
 row-parallel layer's scales whole. Its ``gpt`` (:class:`TensorParallelGPT`)
 serves the interfaces ``serving.slots.SlotManager`` (``init_cache``,
-``prefill``, ``decode_step``, ``cache_planes``) and
+``prefill``, ``decode_step``, ``decode_chunk``, ``cache_planes``) and
 ``serving.paging.PagedSlotManager`` (``init_paged_pool``,
-``paged_prefill_chunk``, ``paged_decode_step``, ``pool_planes``, for
-copying a page in every shard and counting bytes) call, and
-``_lm_logits`` on the model.
+``paged_prefill_chunk``, ``paged_decode_step``, ``paged_verify_chunk``,
+``pool_planes``, for copying a page in every shard and counting bytes)
+call, and ``_lm_logits`` on the model.
 
 The dense and paged paths are ``models.gpt``'s own
-(``dense_prefill_states``, ``dense_step_states``, ``paged_chunk_states``,
-``paged_step_states``, one layer body ``block_rest``), run over the
-shards: per layer, with the sums taken on the first shard's device in
-shard order and the one result copied to every shard (the same bits
-everywhere),
+(``dense_prefill_states``, ``dense_step_states``, ``dense_chunk_states``,
+``paged_chunk_states``, ``paged_step_states``, one layer body
+``block_rest``), run over the shards: per layer, with the sums taken on
+the first shard's device in shard order and the one result copied to every
+shard (the same bits everywhere),
 
 - each shard writes its heads' K/V into its own caches or pools and
   attends over its heads: the dense path in plain PyTorch, the paged
@@ -49,6 +49,10 @@ the shards' logit columns gathered on the first shard's device. A
 replicated vocabulary (GPT-2's 50257 at tp 2 or 4) is looked up on each
 shard and projected once.
 
+A speculative verify chunk (``decode_chunk``, ``paged_verify_chunk``) is
+split by head like any chunk; the draft and the acceptance run once, on
+the first shard's device, where the logits are.
+
 The source model is only read: its state dict is split and copied to
 the shards' devices. Build it on the CPU (``device="cpu"``) so that no
 card holds a whole copy beside the shards.
@@ -60,10 +64,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.models.gpt import (GPT, GPTForCausalLM,
+                                        dense_chunk_states,
                                         dense_prefill_states,
                                         dense_step_states, last_valid,
                                         paged_chunk_states,
-                                        paged_step_states)
+                                        paged_step_states, verify_args)
 from bigdl_tpu_torch.nn.quantized import Int8Linear, quantize_model
 from bigdl_tpu_torch.parallel.layout import broadcast, gather
 
@@ -126,6 +131,13 @@ class TensorParallelGPT(nn.Module):
                                  self.layout.devices,
                                  self.vocab_split), caches
 
+    def decode_chunk(self, caches, toks, pos):
+        """``GPT.decode_chunk`` over the shards: returns the (B, C, hidden)
+        final-norm states on the first shard's device and the caches."""
+        return dense_chunk_states(self._gpts(), caches, toks, pos,
+                                  self.layout.devices,
+                                  self.vocab_split), caches
+
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Each shard's per-layer pools, on its device, holding its heads:
         every plane a tensor of its own (the kernel takes only contiguous
@@ -154,6 +166,14 @@ class TensorParallelGPT(nn.Module):
         return paged_step_states(self._gpts(), pools, page_table, tok, pos,
                                  page_size, self.layout.devices,
                                  self.vocab_split), pools
+
+    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size):
+        """``GPT.paged_verify_chunk`` over the shards: returns the (B, C,
+        hidden) final-norm states on the first shard's device and the
+        pools."""
+        return paged_chunk_states(self._gpts(), pools, *verify_args(
+            page_table, toks, pos), page_size, self.layout.devices,
+            self.vocab_split), pools
 
     def lm_logits(self, h):
         """(..., hidden) on the first shard's device -> (..., vocab) there,

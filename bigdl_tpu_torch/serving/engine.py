@@ -15,6 +15,11 @@ prefix sharing, attention through the paged-attention kernel).
 The engine runs on the card (``cuda``) unless the caller passes
 ``device="cpu"``; without CUDA and without ``device`` it raises.
 
+``spec_tokens=gamma`` (or ``BIGDL_TPU_SPEC_DECODE``) makes every decode
+iteration speculative on either table (``models/spec.py``): greedy
+requests commit 1..gamma tokens a verify forward, with the tokens they
+would get without it; ``metrics()`` then counts the draft's proposals.
+
 ``tp=N`` (or ``mesh=[...]``) serves a tensor-parallel model
 (``parallel/tensor_parallel.py``), dense or paged, float or int8 weights:
 Megatron-sharded weights (int8 ones quantised before they are split, as
@@ -46,7 +51,6 @@ from bigdl_tpu_torch.utils.flags import get_flag
 # options of the reference engine that are not ported yet, with the
 # ROADMAP queue A item that ports each
 _UNPORTED = {
-    "spec_tokens": "A.5 speculative decoding",
     "kv_snapshot": "A.7 serving durability",
     "kv_host_tier": "A.7 serving durability",
     "lora": "A.8 control plane, fleet and multi-tenant serving",
@@ -56,7 +60,7 @@ _UNPORTED = {
     "max_recoveries": "A.4 in-place recovery",
 }
 # the reference's flags that turn an unported option on when its keyword
-# is not given (``spec_tokens`` follows ``models.spec.spec_config``)
+# is not given
 _UNPORTED_FLAGS = {"kv_snapshot": "BIGDL_TPU_KV_SNAPSHOT",
                    "kv_host_tier": "BIGDL_TPU_KV_HOST_TIER",
                    "lora": "BIGDL_TPU_LORA",
@@ -85,8 +89,6 @@ _SUB_OPTIONS = {
 def _unported_on(name, value):
     """Does the unported option ``name`` (keyword ``value``, None if not
     given) ask for its feature? An explicit keyword wins over its flag."""
-    if name == "spec_tokens":
-        return (spec_config() if value is None else int(value)) > 1
     if name == "max_recoveries":
         # a budget of 0 gives up at the first error, as the port does
         return value is not None and value is not False and int(value) > 0
@@ -180,12 +182,14 @@ class ServingEngine:
     mesh: the shards' devices, one per shard (a device may repeat: several
         shards on one card); overrides ``tp``, and is a ``ValueError``
         together with ``device``.
+    spec_tokens: the speculative draft length gamma; 1 is off (None:
+        ``models.spec.spec_config()``, i.e. ``BIGDL_TPU_SPEC_DECODE`` with
+        ``BIGDL_TPU_SPEC_TOKENS``, default 4). Both tables, tp and int8.
 
-    The reference's other options (speculative decoding, LoRA, K/V
-    snapshots, the host tier, the control plane, recovery) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them, when
-    given by keyword or turned on by the reference's flag
-    (``BIGDL_TPU_SPEC_DECODE``, ``BIGDL_TPU_KV_SNAPSHOT``,
+    The reference's other options (LoRA, K/V snapshots, the host tier,
+    the control plane, recovery) raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them, when given by keyword or turned on by
+    the reference's flag (``BIGDL_TPU_KV_SNAPSHOT``,
     ``BIGDL_TPU_KV_HOST_TIER``, ``BIGDL_TPU_LORA``,
     ``BIGDL_TPU_ADMISSION_SLO`` for ``policy``; a keyword wins over its
     flag). ``max_recoveries=0`` is served: at that budget the reference
@@ -202,7 +206,7 @@ class ServingEngine:
                  paged=None, page_size=None, kv_pages=None,
                  prefill_chunk=None, prefix_cache=None, int8_weights=None,
                  int8_kv=None, kv_bytes=None, device=None, tp=None,
-                 mesh=None, **unported):
+                 mesh=None, spec_tokens=None, **unported):
         if paged is None:
             paged = get_flag("BIGDL_TPU_PAGED_KV", False, bool)
         self.paged = bool(paged)
@@ -231,6 +235,9 @@ class ServingEngine:
         model.eval()
         self.model = model
         self.default_deadline_s = default_deadline_s
+        if spec_tokens is None:
+            spec_tokens = spec_config()
+        self.spec_tokens = max(1, int(spec_tokens))
         if self.paged:
             if page_size is None:
                 page_size = get_flag("BIGDL_TPU_PAGE_SIZE", 16, int)
@@ -250,11 +257,13 @@ class ServingEngine:
                 model, max_slots, num_pages=kv_pages, page_size=page_size,
                 window=prefill_window, steps_per_sync=steps_per_sync,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-                top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv))
+                top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv),
+                spec_tokens=self.spec_tokens)
         else:
             self.slots = SlotManager(model, max_slots, window=prefill_window,
                                      steps_per_sync=steps_per_sync,
-                                     top_k=top_k, top_p=top_p, seed=seed)
+                                     top_k=top_k, top_p=top_p, seed=seed,
+                                     spec_tokens=self.spec_tokens)
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s)
 
@@ -361,8 +370,17 @@ class ServingEngine:
         ``tp_degree`` and the per-chip bytes),
         the kernels' launch counts, the count of sharded paged-attention
         calls and the count of int8 products (process-wide: every engine
-        adds to one count)."""
+        adds to one count), and, speculating, the draft's ``spec_proposed``
+        / ``spec_accepted`` / ``spec_rollbacks`` tokens over greedy
+        requests and ``spec_accept_rate``."""
         sch = self.scheduler
+        sl = self.slots
+        spec = {} if self.spec_tokens <= 1 else {
+            "spec_proposed": sl.spec_proposed,
+            "spec_accepted": sl.spec_accepted,
+            "spec_rollbacks": sl.spec_rollbacks,
+            "spec_accept_rate": (sl.spec_accepted / sl.spec_proposed
+                                 if sl.spec_proposed else 0.0)}
         return {
             "device": str(self.device),
             "paged": self.paged,
@@ -388,6 +406,7 @@ class ServingEngine:
             "fused_sampling_launches": fused_sample_logits.launches,
             **self.slots.stats.snapshot(),
             **self.slots.pool_stats(),
+            **spec,
         }
 
     def is_alive(self):

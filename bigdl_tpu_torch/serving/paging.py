@@ -32,8 +32,15 @@ dispatch, interleaved by the scheduler with decode blocks.
 Admission failure is TYPED: :class:`PagePoolExhausted`, never junk
 tokens.
 
-Not ported yet (ROADMAP queue A): speculative decoding, the host tier,
-the snapshot page store.
+Speculative decoding (``spec_tokens`` > 1, the dense manager's step over
+``GPT.paged_verify_chunk``): every verify write, committed or later
+rejected, lands inside the ``block_span`` positions :meth:`reserve_block`
+made the slot's own (a shared boundary page copied first), or at a
+sentinel entry that drops it, so a rejected proposal never touches a
+shared prefix page. Each prefill chunk also clears (on a prompt's first
+chunk) and primes the slot's draft row, with the token before the chunk.
+
+Not ported yet (ROADMAP queue A): the host tier, the snapshot page store.
 """
 
 from __future__ import annotations
@@ -205,10 +212,10 @@ class PagedSlotManager(SlotManager):
     - :meth:`prefill_tick` — one dispatch advancing up to ``window``
       pending prompts by one ``prefill_chunk``-token chunk each;
     - :meth:`reserve_block` — pre-decode page reservation for the next
-      ``steps_per_sync`` positions of every active slot (allocates new
+      ``block_span`` positions of every active slot (allocates new
       pages, copy-on-writes shared boundary pages);
-    - :meth:`step` — ``steps_per_sync`` decode steps across every slot,
-      one token readback per block;
+    - :meth:`step` — ``steps_per_sync`` decode steps (or speculative
+      iterations) across every slot;
     - :meth:`pool_stats` — occupancy / fragmentation / prefix-cache
       counters.
 
@@ -229,7 +236,7 @@ class PagedSlotManager(SlotManager):
     def __init__(self, model, max_slots, num_pages=None, page_size=16,
                  window=4, steps_per_sync=1, prefill_chunk=64,
                  prefix_cache=True, top_k=None, top_p=None, seed=0,
-                 int8_kv=False):
+                 int8_kv=False, spec_tokens=1):
         pmax = model.gpt.max_position
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -251,7 +258,7 @@ class PagedSlotManager(SlotManager):
         self.int8_kv = bool(int8_kv)
         super().__init__(model, max_slots, window=window,
                          steps_per_sync=steps_per_sync, top_k=top_k,
-                         top_p=top_p, seed=seed)
+                         top_p=top_p, seed=seed, spec_tokens=spec_tokens)
 
     def _alloc(self):
         self._alloc_host()
@@ -307,6 +314,15 @@ class PagedSlotManager(SlotManager):
                          self.num_pages).astype(np.int32)
         h, self._pools = self.model.gpt.paged_decode_step(
             self._pools, table, tok, pos, self.page_size)
+        return h
+
+    def _verify(self, props, pos):
+        """One verify chunk of every slot through the page tables, inactive
+        rows all-sentinel as in :meth:`_decode`."""
+        table = np.where(self.active[:, None], self.page_table,
+                         self.num_pages).astype(np.int32)
+        h, self._pools = self.model.gpt.paged_verify_chunk(
+            self._pools, table, props, pos, self.page_size)
         return h
 
     @torch.no_grad()
@@ -430,6 +446,12 @@ class PagedSlotManager(SlotManager):
         write_from = np.full(w, self.max_position, np.int32)
         slot_final = np.full(w, self.max_slots, np.int32)
         pt = np.full((w, p), self.num_pages, np.int32)
+        # the draft's rows (padding: max_slots, dropped), the token before
+        # each chunk (vocab_size: none), and the slots whose first chunk
+        # this is (their draft rows are cleared first)
+        prime_rows = np.full(w, self.max_slots)
+        prime_prev = np.full(w, self.model.vocab_size)
+        clear = []
         finished = []
         for i, (s, st) in enumerate(rows):
             n = min(c, st["total"] - st["next"])
@@ -438,10 +460,17 @@ class PagedSlotManager(SlotManager):
             nvalid[i] = n
             write_from[i] = st["write_from"]
             pt[i] = self.page_table[s]
+            prime_rows[i] = s
+            if st["next"] > 0:
+                prime_prev[i] = st["tokens"][st["next"] - 1]
+            if not st.get("primed"):
+                clear.append(s)
+                st["primed"] = True
             if st["next"] + n >= st["total"]:
                 slot_final[i] = s
                 finished.append((s, st))
         self._chunk(pt, ids, start, nvalid, write_from, slot_final)
+        self._prime(ids, nvalid, prime_rows, prime_prev, clear)
         for i, (s, st) in enumerate(rows):
             st["next"] = min(st["next"] + int(nvalid[i]), st["total"])
         for s, st in finished:
@@ -463,6 +492,7 @@ class PagedSlotManager(SlotManager):
         self.lengths[slot] = st["total"]
         self.active[slot] = True
         self.temps[slot] = st["temp"]
+        self._last_tok[slot] = st["tokens"][-1]
 
     def admit(self, prompts, temperatures=None):
         """Batch admission: admit each prompt and drive its chunks to
@@ -514,7 +544,9 @@ class PagedSlotManager(SlotManager):
     def step(self):
         """One block of ``steps_per_sync`` decode steps across every slot
         (call :meth:`reserve_block` first). Returns host tokens of shape
-        (steps_per_sync, max_slots); rows of inactive slots are junk."""
+        (steps_per_sync, max_slots), rows of inactive slots junk, or the
+        speculative block with ``last_counts`` (the dense manager's
+        :meth:`~SlotManager.step`)."""
         toks = super().step()
         self._refresh_pool_stats()
         return toks

@@ -358,7 +358,7 @@ class Scheduler:
                 continue
             pre_lengths = slots.lengths.copy()
             t0 = time.perf_counter()
-            toks = slots.step()        # (steps_per_sync, max_slots)
+            toks = slots.step()        # (block_span, max_slots)
             dt = time.perf_counter() - t0
             self.step_seconds += dt
             self._deliver_block(toks, pre_lengths)
@@ -474,15 +474,18 @@ class Scheduler:
     # ----------------------------------------------------------- delivery
     def _deliver_block(self, toks, pre_lengths):
         """Fan one block's token columns out to the in-flight requests,
-        retiring EOS/max-token completions. ``pre_lengths`` (slot lengths
-        before the dispatch) bounds each column to the positions the slot
-        can hold: a request reaching ``max_position`` is force-retired
-        (``Request.truncated``)."""
+        retiring EOS/max-token completions. A speculative manager commits
+        a variable count a slot (``last_counts``): column ``s`` is read up
+        to it. ``pre_lengths`` (slot lengths before the dispatch) bounds
+        each column to the positions the slot can hold: a request reaching
+        ``max_position`` is force-retired (``Request.truncated``)."""
         done = []
+        counts = self.slots.last_counts
         for s, r in self._inflight.items():
             if not self.slots.active[s]:
                 continue           # still prefilling in chunks
-            col = toks[:, s][:r.remaining()]
+            col = toks[:, s] if counts is None else toks[:counts[s], s]
+            col = col[:r.remaining()]
             finished = col.size == r.remaining()
             room = max(0, int(self.slots.max_position) - int(pre_lengths[s]))
             capped = col.size >= room

@@ -1,6 +1,6 @@
 """Slot table over one preallocated dense K/V cache, and per-slot token
 selection (the port of ``bigdl_tpu/serving/slots.py``: ``select_tokens``
-and ``SlotManager``, without speculative decoding, ROADMAP queue A.5).
+and ``SlotManager`` with its speculative step).
 
 Iteration-level serving (Orca, OSDI '22): requests arrive and retire at
 different times while the decode batch keeps one shape.
@@ -20,6 +20,19 @@ different times while the decode batch keeps one shape.
 - :meth:`SlotManager.retire` frees the slot row on the host: the next
   admission overwrites it.
 
+Speculative decoding (``spec_tokens`` = gamma > 1, ``models/spec.py``):
+each of a block's ``steps_per_sync`` iterations picks every slot's first
+token from its carried logits (greedy or sampled, as above), has the
+slot's ``NGramDraft`` row propose gamma - 1 more, verifies all gamma in
+one multi-token forward (``GPT.decode_chunk``; the paged manager's
+``paged_verify_chunk``) and commits the accepted prefix: 1..gamma tokens
+a greedy slot, exactly one a sampled slot, none an inactive one. The
+block is then (steps_per_sync * gamma, S) tokens, and ``last_counts``
+says how many of column ``s`` are committed. Admission clears the slot's
+draft row and primes it from the prompt. Each iteration reads back its
+proposals and commit counts once: the next verify's positions, and so its
+write plan, are the host's.
+
 Every batch a dispatch runs has the reference's rows (the padding rows of
 a short admission, the inactive slots of a step): int8 weights take one
 activation amax over a dispatch's rows, so a token depends on them.
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.gpt import prompt_bucket
+from bigdl_tpu_torch.models.spec import NGramDraft, accept_serving, commit
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.utils.profiling import DispatchCounters
 
@@ -71,7 +85,11 @@ class SlotManager:
     steps of one block between host syncs (tokens past a request's end
     inside a block are the caller's to drop); ``top_k`` / ``top_p`` are
     the engine-wide sampling cuts; ``seed`` seeds the sampler's
-    ``torch.Generator``.
+    ``torch.Generator``; ``spec_tokens`` > 1 makes each decode iteration
+    speculative (see module docstring), with ``block_span = steps_per_sync
+    * spec_tokens`` the positions a block may write and the counters
+    ``spec_proposed``, ``spec_accepted`` and ``spec_rollbacks`` over the
+    greedy slots (a sampled slot commits one token by design).
 
     The host tables (``lengths``, ``active``, ``temps``), a lowest-first
     free heap and an occupancy counter are shared with the paged manager.
@@ -87,7 +105,7 @@ class SlotManager:
     _stat_keys = ("prefills", "steps")
 
     def __init__(self, model, max_slots, window=4, steps_per_sync=1,
-                 top_k=None, top_p=None, seed=0):
+                 top_k=None, top_p=None, seed=0, spec_tokens=1):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         layout = getattr(model, "layout", None)
@@ -97,7 +115,13 @@ class SlotManager:
         self.max_slots = int(max_slots)
         self.window = max(1, min(int(window), self.max_slots))
         self.steps_per_sync = max(1, int(steps_per_sync))
-        self.block_span = self.steps_per_sync
+        self.spec_tokens = max(1, int(spec_tokens))
+        # every iteration may write gamma positions, rejected ones too
+        self.block_span = self.steps_per_sync * self.spec_tokens
+        self._draft = (NGramDraft(model.vocab_size)
+                       if self.spec_tokens > 1 else None)
+        self.spec_proposed = self.spec_accepted = self.spec_rollbacks = 0
+        self.last_counts = None
         self.top_k = top_k
         self.top_p = top_p
         self.max_position = model.gpt.max_position
@@ -117,6 +141,13 @@ class SlotManager:
                                    dtype=self._dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self._seed)
+        # the draft table (with the logits, on the first shard's device) and
+        # each slot's last committed token, the first ``prev`` of the next
+        # block's committed pairs
+        self._table = (None if self._draft is None
+                       else self._draft.init_state(self.max_slots,
+                                                   self.device))
+        self._last_tok = np.zeros(self.max_slots, np.int32)
 
     def _alloc(self):
         self._alloc_host()
@@ -158,13 +189,37 @@ class SlotManager:
                                                 rows=np.asarray(slots))
         idx = torch.as_tensor(slots, device=self.device)
         self._logits[idx] = self.model._lm_logits(h[:n]).to(self._dtype)
+        rows = np.full(ids.shape[0], self.max_slots)
+        rows[:n] = slots
+        self._prime(ids, lens, rows, clear=slots)
         self.stats.tick("prefills")
+
+    def _prime(self, ids, lens, rows, prev=None, clear=()):
+        """The draft's part of an admission dispatch (speculation only):
+        the draft rows of ``clear`` (slots a new stream takes) are
+        emptied, then the host tokens ``ids`` (W, C), ``lens`` valid a row,
+        are learned into draft rows ``rows`` (``max_slots``: a padding row,
+        dropped); ``prev`` (W,) is the token before a chunk
+        (``vocab_size``: none)."""
+        if self._draft is None:
+            return
+        if len(clear):
+            self._table[torch.as_tensor(np.asarray(clear),
+                                        device=self.device).long()] = 0
+        self._draft.prime(self._table, ids, lens, rows=rows, prev=prev)
 
     def _decode(self, tok, pos):
         """One decode step of every slot: tokens ``tok`` (S,) at host
         positions ``pos`` (S,) through the cache; returns the (S, hidden)
         final-norm states."""
         h, self._cache = self.model.gpt.decode_step(self._cache, tok, pos)
+        return h
+
+    def _verify(self, props, pos):
+        """One verify chunk of every slot: proposals ``props`` (S, gamma) at
+        host positions ``pos`` (S,) on; returns the (S, gamma, hidden)
+        final-norm states."""
+        h, self._cache = self.model.gpt.decode_chunk(self._cache, props, pos)
         return h
 
     @torch.no_grad()
@@ -191,6 +246,46 @@ class SlotManager:
         self._logits = logits
         self.stats.tick("steps")
         return torch.stack(toks).cpu().numpy()   # ONE readback per block
+
+    @torch.no_grad()
+    def _spec_step(self):
+        """``steps_per_sync`` speculative iterations across every slot (see
+        module docstring; the reference's ``_build_spec_fns`` step).
+        Returns the host (block_span, max_slots) token block, each slot's
+        committed count (S,) and the block's (proposed, accepted, rejected)
+        counts over the greedy slots."""
+        model, dev, gamma = self.model, self.device, self.spec_tokens
+        s_all = self.max_slots
+        sampled_rows = self.temps > 0.0
+        spec_rows = self.active & ~sampled_rows
+        if sampled_rows.any():                 # select_tokens' own test
+            self.stats.add("sampled_steps", self.steps_per_sync)
+        live = torch.from_numpy(self.active).to(dev)
+        sampled = torch.from_numpy(sampled_rows).to(dev)
+        out = np.zeros((self.block_span, s_all), np.int32)
+        counts = np.zeros(s_all, np.int64)
+        tele = np.zeros(3, np.int64)
+        last = torch.from_numpy(self._last_tok).to(dev)
+        logits = self._logits
+        for _ in range(self.steps_per_sync):
+            tok0 = select_tokens(logits, self.temps, self._gen, self.top_k,
+                                 self.top_p)
+            props = self._draft.propose(self._table, tok0, gamma)
+            vl = model._lm_logits(self._verify(props, self.lengths + counts))
+            adv, carry = accept_serving(props, vl, sampled=sampled,
+                                        live=live)
+            last, logits, got = commit(self._draft, self._table, props, adv,
+                                       carry, last, logits)
+            adv = got[:, -1].astype(np.int64)
+            for s in np.nonzero(adv)[0]:
+                out[counts[s]:counts[s] + adv[s], s] = got[s, :adv[s]]
+            counts += adv
+            acc = int(adv[spec_rows].sum())
+            tele += (gamma * int(spec_rows.sum()), acc,
+                     gamma * int(spec_rows.sum()) - acc)
+        self._logits = logits
+        self.stats.tick("steps")
+        return out, counts, tele
 
     # ------------------------------------------------------------ admission
     def admit(self, prompts, temperatures=None):
@@ -235,17 +330,37 @@ class SlotManager:
             self.active[s] = True
             self.temps[s] = (0.0 if temperatures is None
                              else float(temperatures[i]))
+            self._last_tok[s] = arrs[i][-1]
         return [int(s) for s in slots]
 
     # --------------------------------------------------------------- decode
     def step(self):
         """One block of ``steps_per_sync`` decode steps across every slot.
         Returns host tokens of shape (steps_per_sync, max_slots); rows of
-        inactive slots are junk."""
+        inactive slots are junk. With ``spec_tokens`` > 1 the block is
+        (block_span, max_slots) and ``last_counts[s]`` says how many of
+        column ``s`` are committed."""
+        if self.spec_tokens > 1:
+            return self._finish_spec_block(*self._spec_step())
         toks = self._step()
         self.lengths[self.active] = np.minimum(
             self.lengths[self.active] + self.steps_per_sync,
             self.max_position)
+        return toks
+
+    def _finish_spec_block(self, toks, counts, tele):
+        """Host bookkeeping after a speculative block: each slot advances by
+        its committed count, its last committed token is kept for the next
+        block's draft pairs, and the accept counters grow."""
+        self.last_counts = counts
+        self.lengths[self.active] = np.minimum(
+            self.lengths[self.active] + counts[self.active],
+            self.max_position)
+        hit = np.nonzero(self.active & (counts > 0))[0]
+        self._last_tok[hit] = toks[counts[hit] - 1, hit]
+        self.spec_proposed += int(tele[0])
+        self.spec_accepted += int(tele[1])
+        self.spec_rollbacks += int(tele[2])
         return toks
 
     def retire(self, slot):

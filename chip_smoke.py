@@ -30,12 +30,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
      then staged by copies of 16, 8, 4 and 1 bytes, and each must run)
      and with heads of 80 and 256 at pages of 8 and 32 (held), and at heads
      of 320 and 512 (timed; the width-256 kernel in two chunks a row); at
-     pages of 16 a second call must equal the first bit for bit;
+     pages of 16 a second call must equal the first bit for bit; and the
+     speculative verify chunk (B 8, C = SPEC_TOKENS = 4 queries a slot at
+     the decode slots' committed lengths, row 7 inactive) at pages of 16,
+     head 64, held and timed in both query types (a 16-query tile runs
+     the 4 queries);
    * int8 paged attention: the same shapes, page sizes and query types over
      an int8 pool with float32 scale planes, written by the port's
      ``paged_write_quant`` from random float K/V; the same tolerances;
    * tensor-parallel paged attention (queue B row 6): the same decode and
-     chunk cases over float32 and int8 pools, float32 queries, split on
+     chunk cases (and the verify chunk) over float32 and int8 pools,
+     float32 queries, split on
      the head axis into 2 and 4 shards (each shard its own contiguous
      pool, all on cuda:0) and launched once per shard through the
      wrapper's ``mesh=`` branch; the joined outputs must equal the
@@ -112,6 +117,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the device's busy time against the wall time, the kernels that take
    the most device time, and the paged-attention and sampling kernels'
    shares (likewise in every serving phase).
+4a. slice_spec — ``slice`` with ``spec_tokens=4``: the same engine,
+   weights and traffic. Checks: every request retires with its tokens;
+   the paged kernel exactly 12 times a prefill chunk and verify
+   iteration, the int8 one never; the sampler once per iteration with a
+   sampled row; proposed = accepted + rejected; greedy tokens of requests
+   0 and 11 against ``slice``'s engine and the CPU run (the near-tie
+   rule). Reports tokens/s, TTFT and the accept rate beside ``slice``'s,
+   and a ``profile`` line. Then the repetitive stream: 4 greedy prompts,
+   each a random 16-token cycle repeated to 128 tokens, 128 new tokens,
+   through the paged engine without and with speculation (the
+   reference's ``test_spec_accept_rate_on_repetitive_stream`` at GPT-2
+   small): both runs' tokens against the greedy loop driven by hand on
+   the card (the near-tie rule), the accept rate and both tokens/s.
 4b. slice_dense — the same model, weights and traffic through
    ``ServingEngine(model, params, max_slots=8)`` with no ``paged`` and
    no flag: the dense slot table, the reference's default. Checks: every
@@ -123,7 +141,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    a ``profile`` line. Then ``slice_dense_tp``: the dense path at tp 2 on
    the one card, 4 greedy requests through the engine, their first 16
    tokens against the unsharded dense model's hand-driven on the card
-   (the same rule), the shards' measured cache bytes.
+   (the same rule), the shards' measured cache bytes. Then
+   ``slice_dense_spec``: the dense engine with ``spec_tokens=4`` on the
+   same traffic (no paged or flash launch; tokens against
+   ``slice_dense``'s engine and the CPU run, the near-tie rule).
 4c. generate — ``GPTForCausalLM.generate`` at GPT-2 small: 4 prompts of
    100 tokens, 64 new, greedy (rows equal to a 4-slot dense engine's on
    the same prompts) and sampled at (50, 0.9), T 0.8 (one sampler launch
@@ -132,7 +153,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sliding loop); and GPT-2's widths with a 4096-position table (not a
    published model) on a 1500-token prompt, whose 2048-bucket prefill
    passes the reference's flash gate: 12 flash launches, 16 greedy
-   tokens against the CPU run.
+   tokens against the CPU run. ``generate_spec``: the greedy prompts
+   again with ``spec_tokens=4``: rows equal to the plain call's or
+   diverging first where the plain loop's top-2 gap is below 1e-3,
+   tokens/s beside the plain call's.
 5. slice_int8 — the same model, weights and traffic through
    ``ServingEngine(int8_weights=True, int8_kv=True, kv_bytes=...)``, the
    byte budget of the float32 slice's 512-page pool. Checks: every request
@@ -146,7 +170,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``INT8_GAP`` (0.1; the line also reports how far the CPU logits move
    when the embeddings move by 2^-23). Reports tokens/s, TTFT, the pool's
    pages and bytes per token against the float32 slice, the weight bytes,
-   and a ``profile`` line for the int8 burst.
+   and a ``profile`` line for the int8 burst. Then ``slice_spec_int8``:
+   the same engine with ``spec_tokens=4``: every request retires, exactly
+   12 int8 kernel launches a prefill chunk and verify iteration and no
+   float one, 72 int8 products a dispatch; its per-token agreement with
+   ``slice_int8``'s engine is reported, not held (int8 weights couple a
+   dispatch's rows, and a verify dispatch has 4 times a step's).
 6. slice_tp, slice_tp_int8 — ``slice``'s model, weights and traffic served
    tensor-parallel: ``ServingEngine(mesh=["cuda:0", "cuda:0"])`` (tp 2,
    both shards on the one card; the source model built on the CPU, so the
@@ -162,6 +191,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    or a CPU ``int8_kv`` run of the unsharded port (int8), diverging only
    where the CPU top-2 gap is below 1e-3 or 0.1. Reports tokens/s, TTFT
    and peak memory beside the unsharded phase's, and a ``profile`` line.
+   After ``slice_tp``, ``slice_spec_tp``: ``slice_spec`` at tp 2 on the one
+   card (float32 pools at ``slice_tp``'s budget): exactly tp x 12 row-6
+   launches a prefill chunk and verify iteration, one sharded call a
+   layer and dispatch; greedy tokens against ``slice_spec``'s engine and
+   the CPU run (the near-tie rule).
 6b. slice_tp_int8w — ``slice_int8``'s model and traffic at tp 2 on the
    one card with int8 weights (``mesh=["cuda:0", "cuda:0"], paged=True,
    int8_weights=True, int8_kv=True``): the weights quantised, then split.
@@ -277,10 +311,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    LeNet-5 at two replicas, the reference test's 6 epochs on a
    distributed MNIST pipeline: losses falling, top-1 > 0.9.
 
-Then a ``{"kernels": [...]}`` line (name, route, source, replaced TPU
-kernel, launches on its path's run, max error, kernel / plain / bound /
-library times in ms), the nvidia-smi line again, and last
-``{"ok": true, "device": {...}}``.
+Then a ``run`` line (the whole run's seconds and each phase's), a
+``{"kernels": [...]}`` line (name, route, source, replaced TPU kernel,
+launches on its path's run, max error, kernel / plain / bound / library
+times in ms), the nvidia-smi line again, and last ``{"ok": true,
+"device": {...}}``.
 
 The bound of a kernel is the larger of its bytes over 3.35 TB/s (HBM3) and
 its float operations over the card's peak for the inputs' type: 67 TFLOP/s
@@ -463,11 +498,16 @@ def _steady_ms(torch, fn, flush, iters=50):
     return ms[len(ms) // 2], [ms[0], ms[-1]]
 
 
-def _paged_cases(ps=16):
+SPEC_TOKENS = 4        # the speculative phases' draft length gamma
+
+
+def _paged_cases(ps=16, verify=False):
     """The paged-attention cases at pages of ``ps`` tokens (1024 positions
     a row): decode over 8 slots (row 7 inactive, all sentinel; rows 2 and
     3 share a 256-token prefix) and one prefill chunk of the 4-row window
-    (rows 1 and 2 share 192 tokens)."""
+    (rows 1 and 2 share 192 tokens); with ``verify``, a speculative verify
+    chunk of SPEC_TOKENS queries a slot at the decode slots' committed
+    lengths (row 7 inactive, the tables covering the chunk)."""
     dec_len = [24, 100, 300, 310, 700, 1000, 513, 0]
     dec = dict(b=8, c=1, starts=[max(x - 1, 0) for x in dec_len],
                tables=_tables(dec_len, p=1024 // ps, ps=ps,
@@ -476,7 +516,14 @@ def _paged_cases(ps=16):
     chk = dict(b=4, c=64, starts=chk_start,
                tables=_tables([s + 64 for s in chk_start], p=1024 // ps,
                               ps=ps, share=(1, 2, 192 // ps)))
-    return (("decode", dec), ("chunk", chk))
+    cases = (("decode", dec), ("chunk", chk))
+    if verify:
+        ver = dict(b=8, c=SPEC_TOKENS, starts=dec_len,
+                   tables=_tables([x and x + SPEC_TOKENS for x in dec_len],
+                                  p=1024 // ps, ps=ps,
+                                  share=(2, 3, 256 // ps)))
+        cases += (("verify", ver),)
+    return cases
 
 
 def _paged_kernel(torch, flush, int8):
@@ -504,7 +551,8 @@ def _paged_kernel(torch, flush, int8):
                   + [(16, d) for d in PAGED_CHUNKED_HEAD_DIMS])
     for ps, d, label, case in [(ps, d, label, case)
                                for ps, d in shape_list
-                               for label, case in _paged_cases(ps)]:
+                               for label, case in _paged_cases(
+                                   ps, verify=(ps, d) == (16, 64))]:
         for dtype, tol in ((torch.float32, PAGED_TOL),
                            (torch.bfloat16, 2e-2)):
             q, pool, table, start = _paged_case(
@@ -562,6 +610,10 @@ def _paged_kernel(torch, flush, int8):
         key: s[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "max_abs_err", "built_width")}
         for s in shapes if "ms" in s and s["head_dim"] != 64}
+    # the speculative verify shape (B 8, C 4, head 64), both query types
+    verify = {s["dtype"]: {key: s[key] for key in (
+        "ms", "ms_spread", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err")} for s in shapes if s["shape"] == "verify"}
     emit({"phase": "kernels", "kernel": name, "shapes": shapes})
     return {
         "name": name, "route": "cuda",
@@ -575,7 +627,8 @@ def _paged_kernel(torch, flush, int8):
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
         # no single PyTorch call attends through a page table
         "library_ms": None, "timed_shape": "decode float32, page 16",
-        "head_dims": head_dims, "launches": 0, "shapes": shapes}
+        "head_dims": head_dims, "verify": verify, "launches": 0,
+        "shapes": shapes}
 
 
 def _paged_tp_kernel(torch, flush):
@@ -592,7 +645,7 @@ def _paged_tp_kernel(torch, flush):
     from bigdl_tpu_torch.parallel.layout import ModelLayout
     shapes = []
     for int8 in (False, True):
-        for label, case in _paged_cases():
+        for label, case in _paged_cases(verify=True):
             q, pool, table, start = _paged_case(
                 torch, torch.float32, case["b"], case["c"], case["starts"],
                 case["tables"], seed=100 + len(shapes), int8=int8)
@@ -648,6 +701,8 @@ def _paged_tp_kernel(torch, flush):
     emit({"phase": "kernels", "kernel": "paged_attention_tp",
           "shards_on": "cuda:0", "shapes": shapes})
     t = shapes[0]                       # tp 2, decode, float32 pool
+    ver = next(r for r in shapes if r["shape"] == "verify" and r["tp"] == 2
+               and r["pool"] == "float32")
     return {
         "name": "paged_attention_tp", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/paged_attention.cu",
@@ -657,6 +712,9 @@ def _paged_tp_kernel(torch, flush):
         "bound_by": t["bound_by"], "unsharded_ms": t["unsharded_ms"],
         # as rows 4/5: no single PyTorch call attends through a page table
         "library_ms": None, "timed_shape": "tp 2 decode float32",
+        "verify": {key: ver[key] for key in (
+            "ms", "ms_spread", "unsharded_ms", "plain_ms", "bound_ms",
+            "bound_by", "max_abs_err")},
         "launches": 0, "shapes": shapes}
 
 
@@ -1444,6 +1502,10 @@ def _reset_serving_counts():
     _reset_flash_counts()
 
 
+SPEC_KEYS = ("spec_proposed", "spec_accepted", "spec_rollbacks",
+             "spec_accept_rate")
+
+
 def _serve_traffic(torch, engine, rng):
     """A warm-up request, then the 12-request traffic with every count set
     to 0 just before it and read just after, then the same traffic (fresh
@@ -1502,6 +1564,12 @@ def _serve_traffic(torch, engine, rng):
             "kv_bytes_per_token_per_chip":
                 metrics["kv_bytes_per_token_per_chip"],
             "sharded_attention_calls": metrics["sharded_attention_calls"]}
+    if engine.spec_tokens > 1:
+        line.update({"spec_tokens": engine.spec_tokens,
+                     **{k: metrics[k] for k in SPEC_KEYS}})
+        check(line["spec_proposed"] == line["spec_accepted"]
+              + line["spec_rollbacks"] > 0,
+              f"spec counters do not add up: {[line[k] for k in SPEC_KEYS]}")
     if engine.paged:
         line.update({"prefill_chunks": stats["prefill_chunks"],
                      "cow_copies": stats["copies"],
@@ -1617,7 +1685,7 @@ def phase_slice(torch, kernels):
           "greedy_tokens_compared": N_CMP, "divergences": divergences,
           "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving", **profile})
-    return line, (cpu_toks, cpu_logits)
+    return line, (cpu_toks, cpu_logits), _engine_greedy(outs)
 
 
 # card-vs-CPU token check of the int8 slice: a divergence may only lie
@@ -1912,7 +1980,7 @@ def phase_slice_dense(torch, kernels, f32_line, cpu_ref):
               o[LENGTHS[i]:], outs[i][LENGTHS[i]:]))
               for i, o in zip(DENSE_TP_IDX, tp_outs)],
           "divergences": tp_div})
-    return line
+    return line, _engine_greedy(outs)
 
 
 def _cpu_sliding_greedy(torch, model, ids, n_new):
@@ -1932,10 +2000,10 @@ def _cpu_sliding_greedy(torch, model, ids, n_new):
     return torch.stack(toks, 1).numpy(), torch.stack(logits, 1)
 
 
-def _cpu_dense_greedy(torch, model, ids, n_new):
-    """``GPTForCausalLM.generate``'s greedy prefill and decode loop on a
-    CPU model, keeping each step's float32 logits: tokens (B, n_new) and
-    logits (B, n_new, V)."""
+def _dense_greedy(torch, model, ids, n_new):
+    """``GPTForCausalLM.generate``'s greedy prefill and decode loop on the
+    model's device, keeping each step's float32 logits: tokens (B, n_new)
+    and logits (B, n_new, V), on the CPU."""
     from bigdl_tpu_torch.models.gpt import prompt_bucket
     gpt = model.gpt
     ids = torch.as_tensor(ids).long()
@@ -1948,9 +2016,9 @@ def _cpu_dense_greedy(torch, model, ids, n_new):
         h, cache = gpt.prefill(gpt.init_cache(b), padded, t)
         lg = model._lm_logits(h)
         for step in range(n_new):
-            logits.append(lg.float())
+            logits.append(lg.float().cpu())
             tok = torch.argmax(lg, dim=-1)
-            toks.append(tok)
+            toks.append(tok.cpu())
             if step + 1 < n_new:
                 h, cache = gpt.decode_step(cache, tok, t + step)
                 lg = model._lm_logits(h)
@@ -2023,6 +2091,7 @@ def phase_generate(torch, kernels):
     check(np.array_equal(served, greedy),
           f"generate's greedy rows differ from the dense engine's at "
           f"{np.argwhere(served != greedy)[:4].tolist()}")
+    spec_line = _generate_spec(torch, model, ids, greedy, greedy_s)
 
     # past max_position: the sliding loop, one full forward a token
     cpu_model = gpt2_small(device="cpu")
@@ -2061,7 +2130,7 @@ def phase_generate(torch, kernels):
     cpu_long = GPTForCausalLM(max_position=LONG_POSITIONS, device="cpu")
     cpu_long.load_state_dict(long_params)
     cpu_long.requires_grad_(False)
-    cpu_toks, cpu_logits = _cpu_dense_greedy(torch, cpu_long, prompt, N_CMP)
+    cpu_toks, cpu_logits = _dense_greedy(torch, cpu_long, prompt, N_CMP)
     long_div = _first_divergence(torch, "generate long prefill", out,
                                  cpu_toks, cpu_logits, FLOAT_GAP)
     kernels["flash_fwd"].setdefault("launches_by_phase", {})[
@@ -2084,8 +2153,40 @@ def phase_generate(torch, kernels):
           "long_s": long_s, "long_prefill_flash_launches": long_flash,
           "long_divergences": long_div,
           "greedy_tokens_compared": N_CMP})
+    emit(spec_line)
     del long_model, cpu_long
     torch.cuda.empty_cache()
+
+
+def _generate_spec(torch, model, ids, greedy, greedy_s):
+    """``generate(spec_tokens=SPEC_TOKENS)`` on ``phase_generate``'s greedy
+    prompts, beside its plain call (``greedy``, ``greedy_s``): rows equal
+    to the plain ones, or diverging first where the plain loop's top-2
+    logit gap (its loop driven by hand on the card, whose tokens must be
+    the plain call's) is below FLOAT_GAP; no paged or flash launch.
+    Returns its line."""
+    import numpy as np
+    t = ids.shape[1]
+    _reset_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec = model.generate(ids, N_NEW, spec_tokens=SPEC_TOKENS).numpy()
+    spec_s = time.perf_counter() - t0
+    counts = _serving_counts()
+    check(counts["flash_fwd"] == counts["paged_attention"] == 0,
+          f"speculative generate launched {counts}")
+    want, want_logits = _dense_greedy(torch, model, ids, N_NEW)
+    check(np.array_equal(want, greedy[:, t:]),
+          "the hand-driven greedy loop differs from generate's plain call")
+    divergences = _first_divergence(torch, "generate spec", spec[:, t:],
+                                    want, want_logits, FLOAT_GAP)
+    return {"phase": "generate_spec", "model": "gpt2_small",
+            "prompts": ids.shape[0], "prompt_tokens": t,
+            "new_tokens": N_NEW, "spec_tokens": SPEC_TOKENS,
+            "tokens_per_s": ids.shape[0] * N_NEW / spec_s,
+            "plain_tokens_per_s": ids.shape[0] * N_NEW / greedy_s,
+            "equal_to_plain": bool(np.array_equal(spec, greedy)),
+            "divergences": divergences, "gap_threshold": FLOAT_GAP}
 
 
 def phase_slice_tp_int8w(torch, kernels, f32_line, int8_line, int8_ref):
@@ -2169,6 +2270,256 @@ def phase_slice_tp_int8w(torch, kernels, f32_line, int8_line, int8_ref):
           "engine_divergences": engine_divergences,
           "setup_s": setup_s})
     emit({"phase": "profile", "path": "serving_tp_int8w", **profile})
+
+
+# slice_spec's repetitive stream: REP_PROMPTS greedy prompts, each a
+# REP_CYCLE-token cycle repeated to REP_LEN tokens, REP_NEW new tokens
+REP_PROMPTS, REP_CYCLE, REP_LEN, REP_NEW = 4, 16, 128, 128
+
+
+def _spec_engine(**kw):
+    """``slice``'s engine configuration with speculation (SPEC_TOKENS) on
+    a fresh GPT-2 small with ``slice``'s seeded weights (the model on the
+    CPU when ``kw`` has a ``mesh``). Returns the model and the engine."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+    model = gpt2_small(device="cpu" if "mesh" in kw else None)
+    return model, ServingEngine(model, convert.init_params(model, seed=0),
+                                max_slots=8, top_k=50, top_p=0.9, seed=0,
+                                spec_tokens=SPEC_TOKENS, **kw)
+
+
+def _spec_checks(torch, name, engine, line, outs, cpu_ref, want, kernels,
+                 run, idle):
+    """The speculative serving phases' common holds: ``run`` (the paged
+    kernel the pool takes, or None on the dense table) launched exactly
+    tp x layers times a prefill chunk and verify iteration,
+    ``idle`` (the other) never, no flash launch; greedy tokens of CMP_IDX
+    against the port's CPU run (``cpu_ref``) and against ``want`` (the
+    matching non-speculative phase's engine tokens), each diverging only
+    where the CPU top-2 logit gap is below FLOAT_GAP. Adds the phase's
+    launches to ``kernels``. Returns the divergences."""
+    import numpy as np
+    counts = line["launches"]
+    tp, n_layers = line["tp_degree"], len(engine.model.gpt.layers)
+    if run is not None:
+        dispatches = line["prefill_chunks"] + line["decode_steps"]
+        check(counts[run] == tp * n_layers * dispatches,
+              f"{name}: {run} launched {counts[run]} times for "
+              f"{dispatches} chunk and verify dispatches")
+        key = "paged_attention_tp" if tp > 1 else run
+        kernels[key]["launches"] += counts[run]
+        kernels[key].setdefault("launches_by_phase", {})[name] = counts[run]
+    for other in idle:
+        check(counts[other] == 0, f"{name}: {other} launched {counts[other]}")
+    check(counts["flash_fwd"] == 0, f"{name}: flash launched")
+    kernels["fused_sampling"].setdefault("launches_by_phase", {})[name] = \
+        counts["fused_sampling"]
+    got = _engine_greedy(outs)
+    cpu_toks, cpu_logits = cpu_ref
+    return {"vs_cpu": _first_divergence(torch, name, got, cpu_toks,
+                                        cpu_logits, FLOAT_GAP),
+            "vs_non_speculative": _first_divergence(
+                torch, f"{name} vs its non-speculative phase", got, want,
+                cpu_logits, FLOAT_GAP),
+            "equal_to_non_speculative": bool(np.array_equal(got, want))}
+
+
+def phase_slice_spec(torch, kernels, f32_line, cpu_ref, slice_toks):
+    """``slice`` with speculation: the same engine (paged, 8 slots, pages of
+    16, chunk 64, top_k 50, top_p 0.9, seed 0) with ``spec_tokens=
+    SPEC_TOKENS``, the same weights and 12-request traffic. Holds: every
+    request retires with its tokens; the paged kernel exactly 12 times a
+    prefill chunk and verify iteration, the int8 one never; the sampler
+    once per iteration with a sampled row; the draft's counters add up;
+    greedy tokens of CMP_IDX against ``slice``'s engine and the CPU run
+    (the near-tie rule). Then the repetitive stream (:func:`_repetitive`).
+    Reports tokens/s, TTFT and the accept rate beside ``slice``'s, and a
+    ``profile`` line. Returns the line and the engine's greedy tokens."""
+    import numpy as np
+    t0 = time.perf_counter()
+    model, engine = _spec_engine(paged=True, page_size=16, prefill_chunk=64)
+    setup_s = time.perf_counter() - t0
+    prompts, outs, line, profile = _serve_traffic(
+        torch, engine, np.random.default_rng(0))
+    checked = _spec_checks(torch, "slice_spec", engine, line, outs, cpu_ref,
+                           slice_toks, kernels, "paged_attention",
+                           ("paged_attention_int8",))
+    rep = _repetitive(torch, model)
+    emit({"phase": "slice_spec", "model": "gpt2_small",
+          "layers": len(model.gpt.layers),
+          **line, "non_speculative_tokens_per_s": f32_line["tokens_per_s"],
+          "non_speculative_ttft_mean_s": f32_line["ttft_mean_s"],
+          "non_speculative_decode_steps": f32_line["decode_steps"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          **checked, "repetitive": rep, "setup_s": setup_s})
+    emit({"phase": "profile", "path": "serving_spec", **profile})
+    return line, _engine_greedy(outs)
+
+
+def _repetitive(torch, model):
+    """The reference's ``test_spec_accept_rate_on_repetitive_stream`` at
+    GPT-2 small: REP_PROMPTS greedy prompts, each a random REP_CYCLE-token
+    cycle repeated to REP_LEN tokens, REP_NEW new tokens, through
+    ``slice``'s paged engine without and with speculation, one after the
+    other. Holds: every request's tokens; the paged kernel 12 times a
+    dispatch; each run's tokens against the greedy loop driven by hand on
+    the card (the dense table), diverging first only where its top-2 logit
+    gap is below FLOAT_GAP. Returns the accept rate and both runs'
+    tokens/s."""
+    import numpy as np
+    from bigdl_tpu_torch.serving import ServingEngine
+    rng = np.random.default_rng(3)
+    prompts = [np.tile(rng.integers(0, 50257, REP_CYCLE),
+                       REP_LEN // REP_CYCLE) for _ in range(REP_PROMPTS)]
+    want, want_logits = _greedy_slots(torch, model, prompts, REP_NEW, False,
+                                      paged=False)
+    res = {}
+    for gamma in (1, SPEC_TOKENS):
+        engine = ServingEngine(model, None, max_slots=8, paged=True,
+                               page_size=16, prefill_chunk=64, seed=0,
+                               spec_tokens=gamma)
+        try:
+            engine.generate(rng.integers(0, 50257, 40), 4, timeout=300)
+            _reset_serving_counts()
+            engine.stats.reset()
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, REP_NEW) for p in prompts]
+            outs = [h.result(timeout=600) for h in handles]
+            wall = time.perf_counter() - t0
+            stats = engine.stats.snapshot()
+            met = engine.metrics()
+            counts = _serving_counts()
+        finally:
+            engine.shutdown()
+        name = f"repetitive spec_tokens={gamma}"
+        check(all(o.size == REP_LEN + REP_NEW for o in outs),
+              f"{name}: a request is short")
+        dispatches = stats["prefill_chunks"] + stats["steps"]
+        check(counts["paged_attention"] == len(model.gpt.layers)
+              * dispatches,
+              f"{name}: {counts['paged_attention']} paged launches for "
+              f"{dispatches} dispatches")
+        got = np.stack([o[REP_LEN:] for o in outs])
+        res[f"spec_tokens_{gamma}"] = {
+            "tokens_per_s": REP_PROMPTS * REP_NEW / wall, "wall_s": wall,
+            "decode_steps": stats["steps"],
+            "prefill_chunks": stats["prefill_chunks"],
+            "paged_attention_launches": counts["paged_attention"],
+            **{k: met[k] for k in SPEC_KEYS if k in met},
+            "divergences": _first_divergence(torch, name, got, want,
+                                             want_logits, FLOAT_GAP)}
+    spec = res[f"spec_tokens_{SPEC_TOKENS}"]
+    check(spec["spec_proposed"] == spec["spec_accepted"]
+          + spec["spec_rollbacks"] > 0, "repetitive: counters")
+    return {"prompts": REP_PROMPTS, "cycle": REP_CYCLE,
+            "prompt_tokens": REP_LEN, "new_tokens": REP_NEW,
+            "accept_rate": spec["spec_accept_rate"],
+            "spec_over_plain_tokens_per_s":
+                spec["tokens_per_s"] / res["spec_tokens_1"]["tokens_per_s"],
+            **res}
+
+
+def phase_slice_dense_spec(torch, kernels, dense_line, cpu_ref, dense_toks):
+    """``slice_dense`` with speculation: the dense table (no ``paged``),
+    ``spec_tokens=SPEC_TOKENS``, the same weights and traffic. Holds: every
+    request retires; no paged and no flash launch; the sampler once per
+    iteration with a sampled row; counters add up; greedy tokens of
+    CMP_IDX against ``slice_dense``'s engine and the CPU run (the near-tie
+    rule). Reports tokens/s and TTFT beside ``slice_dense``'s, and a
+    ``profile`` line."""
+    import numpy as np
+    _, engine = _spec_engine()
+    check(not engine.paged, "slice_dense_spec is not on the dense table")
+    prompts, outs, line, profile = _serve_traffic(
+        torch, engine, np.random.default_rng(0))
+    checked = _spec_checks(torch, "slice_dense_spec", engine, line, outs,
+                           cpu_ref, dense_toks, kernels, None,
+                           ("paged_attention", "paged_attention_int8"))
+    emit({"phase": "slice_dense_spec", "model": "gpt2_small",
+          "layers": len(engine.model.gpt.layers),
+          **line, "non_speculative_tokens_per_s": dense_line["tokens_per_s"],
+          "non_speculative_ttft_mean_s": dense_line["ttft_mean_s"],
+          "non_speculative_decode_steps": dense_line["decode_steps"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          **checked})
+    emit({"phase": "profile", "path": "serving_dense_spec", **profile})
+
+
+def phase_slice_spec_tp(torch, kernels, f32_line, spec_line, cpu_ref,
+                        spec_toks):
+    """``slice_spec`` tensor-parallel: ``mesh=TP_MESH`` (tp 2 on the one
+    card), float32 pools at ``slice_tp``'s per-chip budget. Holds: every
+    request retires; row 6 exactly tp x 12 launches a prefill chunk and
+    verify iteration, one sharded call a layer and dispatch; greedy tokens
+    of CMP_IDX against ``slice_spec``'s engine and the CPU run (the
+    near-tie rule). Reports tokens/s and TTFT beside ``slice_spec``'s."""
+    import numpy as np
+    _, engine = _spec_engine(paged=True, page_size=16, prefill_chunk=64,
+                             mesh=TP_MESH, kv_bytes=f32_line["pool_bytes"])
+    n_layers = len(engine.model.gpt.layers)
+    prompts, outs, line, profile = _serve_traffic(
+        torch, engine, np.random.default_rng(0))
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    check(line["sharded_attention_calls"] == n_layers * dispatches,
+          f"slice_spec_tp: {line['sharded_attention_calls']} sharded calls "
+          f"for {dispatches} dispatches")
+    checked = _spec_checks(torch, "slice_spec_tp", engine, line, outs,
+                           cpu_ref, spec_toks, kernels, "paged_attention",
+                           ("paged_attention_int8",))
+    emit({"phase": "slice_spec_tp", "model": "gpt2_small",
+          "layers": n_layers,
+          **engine.layout.describe(), **line,
+          "unsharded_tokens_per_s": spec_line["tokens_per_s"],
+          "unsharded_ttft_mean_s": spec_line["ttft_mean_s"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          **checked})
+    emit({"phase": "profile", "path": "serving_spec_tp", **profile})
+
+
+def phase_slice_spec_int8(torch, kernels, f32_line, int8_line, int8_ref):
+    """``slice_int8`` with speculation: ``int8_weights=True, int8_kv=True``
+    at the float slice's pool bytes, ``spec_tokens=SPEC_TOKENS``, the same
+    traffic. Holds: every request retires; the int8 paged kernel exactly
+    12 times a prefill chunk and verify iteration, the float one never;
+    72 int8 products a dispatch. Int8 weights couple a dispatch's rows (a
+    verify dispatch has 4 times a decode step's), so the tokens are not
+    held: their per-token agreement with ``slice_int8``'s engine over
+    CMP_IDX's first N_CMP tokens is reported."""
+    import numpy as np
+    kv_bytes = f32_line["pool_bytes"]      # slice_int8's budget
+    _, engine = _spec_engine(paged=True, page_size=16, prefill_chunk=64,
+                             int8_weights=True, int8_kv=True,
+                             kv_bytes=kv_bytes)
+    n_layers = len(engine.model.gpt.layers)
+    prompts, outs, line, profile = _serve_traffic(
+        torch, engine, np.random.default_rng(0))
+    counts = line["launches"]
+    dispatches = line["prefill_chunks"] + line["decode_steps"]
+    check(counts["paged_attention_int8"] == n_layers * dispatches,
+          f"slice_spec_int8: {counts['paged_attention_int8']} int8 launches "
+          f"for {dispatches} dispatches")
+    check(counts["paged_attention"] == counts["flash_fwd"] == 0,
+          f"slice_spec_int8: {counts}")
+    check(counts["int8_matmuls"] == 6 * n_layers * dispatches,
+          f"slice_spec_int8: {counts['int8_matmuls']} int8 products for "
+          f"{dispatches} dispatches")
+    check(line["kv_dtype"] == "int8", f"pool dtype {line['kv_dtype']}")
+    kernels["paged_attention_int8"]["launches"] += \
+        counts["paged_attention_int8"]
+    kernels["paged_attention_int8"].setdefault("launches_by_phase", {})[
+        "slice_spec_int8"] = counts["paged_attention_int8"]
+    got = _engine_greedy(outs)
+    emit({"phase": "slice_spec_int8", "model": "gpt2_small",
+          "layers": n_layers,
+          "int8_weights": True, "int8_kv": True, "kv_bytes": kv_bytes,
+          **line, "non_speculative_tokens_per_s": int8_line["tokens_per_s"],
+          "non_speculative_ttft_mean_s": int8_line["ttft_mean_s"],
+          "greedy_checked": CMP_IDX, "greedy_tokens_compared": N_CMP,
+          "agreement_with_slice_int8": float(np.mean(got == int8_ref[2])),
+          "held": False})
+    emit({"phase": "profile", "path": "serving_spec_int8", **profile})
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -3391,33 +3742,47 @@ def main():
         # beside this one's
         baseline = _baseline_sampler(sys.argv[sys.argv.index("--baseline")
                                               + 1])
+    t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
-    kernels = phase_kernels(torch, baseline)
-    f32_line, cpu_ref = phase_slice(torch, kernels)
-    torch.cuda.empty_cache()
-    phase_slice_dense(torch, kernels, f32_line, cpu_ref)
-    torch.cuda.empty_cache()
-    phase_generate(torch, kernels)
-    torch.cuda.empty_cache()
-    int8_line, int8_ref = phase_slice_int8(torch, kernels, f32_line)
-    torch.cuda.empty_cache()
-    phase_slice_tp(torch, kernels, f32_line, f32_line, cpu_ref,
-                   int8_kv=False)
-    torch.cuda.empty_cache()
-    phase_slice_tp(torch, kernels, f32_line, int8_line, None, int8_kv=True)
-    torch.cuda.empty_cache()
-    phase_slice_tp_int8w(torch, kernels, f32_line, int8_line, int8_ref)
-    torch.cuda.empty_cache()
-    loss32 = phase_train(torch, kernels, smi)
-    torch.cuda.empty_cache()
-    phase_train_bf16(torch, kernels, smi, loss32)
-    torch.cuda.empty_cache()
-    phase_train_resnet(torch, kernels, smi)
-    torch.cuda.empty_cache()
-    phase_train_optimizer(torch, kernels, smi)
-    torch.cuda.empty_cache()
-    phase_train_distri(torch, kernels, smi)
+    seconds = {}
+
+    def run(name, phase, *args, **kw):
+        """One phase, its seconds kept, the card's cache freed after it."""
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
+    kernels = run("kernels", phase_kernels, torch, baseline)
+    f32_line, cpu_ref, slice_toks = run("slice", phase_slice, torch, kernels)
+    spec_line, spec_toks = run("slice_spec", phase_slice_spec, torch,
+                               kernels, f32_line, cpu_ref, slice_toks)
+    dense_line, dense_toks = run("slice_dense", phase_slice_dense, torch,
+                                 kernels, f32_line, cpu_ref)
+    run("slice_dense_spec", phase_slice_dense_spec, torch, kernels,
+        dense_line, cpu_ref, dense_toks)
+    run("generate", phase_generate, torch, kernels)
+    int8_line, int8_ref = run("slice_int8", phase_slice_int8, torch,
+                              kernels, f32_line)
+    run("slice_spec_int8", phase_slice_spec_int8, torch, kernels, f32_line,
+        int8_line, int8_ref)
+    run("slice_tp", phase_slice_tp, torch, kernels, f32_line, f32_line,
+        cpu_ref, int8_kv=False)
+    run("slice_spec_tp", phase_slice_spec_tp, torch, kernels, f32_line,
+        spec_line, cpu_ref, spec_toks)
+    run("slice_tp_int8", phase_slice_tp, torch, kernels, f32_line, int8_line,
+        None, int8_kv=True)
+    run("slice_tp_int8w", phase_slice_tp_int8w, torch, kernels, f32_line,
+        int8_line, int8_ref)
+    loss32 = run("train", phase_train, torch, kernels, smi)
+    run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
+    run("train_resnet", phase_train_resnet, torch, kernels, smi)
+    run("train_optimizer", phase_train_optimizer, torch, kernels, smi)
+    run("train_distri", phase_train_distri, torch, kernels, smi)
+    emit({"phase": "run", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     emit({"kernels": list(kernels.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -173,16 +173,37 @@ def test_generate_sampled_completes(pair, n_new):
 
 
 def test_spec_tokens_raise_naming_a5(pair, monkeypatch):
-    _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="queue A.5"):
-        tm.generate(PROMPTS[0], 4, spec_tokens=4)
+    """Once a refusal naming ROADMAP A.5, now its parity case: greedy
+    ``generate(spec_tokens=4)``, and with ``BIGDL_TPU_SPEC_DECODE``, gives
+    the reference's speculative tokens and the port's plain ones; sampled
+    generation ignores speculation, as the reference does, and an explicit
+    ``spec_tokens=1`` wins over the flag (the plain loop: one token a
+    decode step, no verify chunk)."""
+    jm, params, tm = pair
+    ids = np.array([PROMPTS[0], PROMPTS[1]], np.int32)
+    want = np.asarray(jm.generate(params, jnp.asarray(ids), 12,
+                                  spec_tokens=4))
+    plain = tm.generate(ids, 12).numpy()
+    np.testing.assert_array_equal(tm.generate(ids, 12, spec_tokens=4)
+                                  .numpy(), want)
+    np.testing.assert_array_equal(want, plain)
     monkeypatch.setenv("BIGDL_TPU_SPEC_DECODE", "1")
-    with pytest.raises(NotImplementedError, match="queue A.5"):
-        tm.generate(PROMPTS[0], 4)
+    np.testing.assert_array_equal(tm.generate(ids, 12).numpy(), plain)
     # sampled generation ignores speculation, as the reference does
-    assert tm.generate(PROMPTS[0], 4, temperature=0.8).shape == (1, 9)
-    # an explicit spec_tokens=1 wins over the flag
+    g = [torch.Generator().manual_seed(2) for _ in range(2)]
+    sampled = tm.generate(PROMPTS[0], 4, temperature=0.8, generator=g[0])
+    assert sampled.shape == (1, 9)
+    monkeypatch.delenv("BIGDL_TPU_SPEC_DECODE")
+    torch.testing.assert_close(
+        tm.generate(PROMPTS[0], 4, temperature=0.8, generator=g[1]), sampled,
+        rtol=0, atol=0)
+    # an explicit spec_tokens=1 wins over the flag: no verify chunk runs
+    monkeypatch.setenv("BIGDL_TPU_SPEC_DECODE", "1")
+    calls = []
+    monkeypatch.setattr(tm.gpt, "decode_chunk",
+                        lambda *a: calls.append(a) or None)
     assert tm.generate(PROMPTS[0], 4, spec_tokens=1).shape == (1, 9)
+    assert calls == []
 
 
 def test_dense_prefill_takes_flash_only_past_the_gate(monkeypatch):

@@ -18,6 +18,7 @@ from bigdl_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from bigdl_tpu.serving import ServingEngine as JaxEngine
 from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.models.gpt import GPTForCausalLM
+from bigdl_tpu_torch.nn.quantized import qmatmul
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
 from bigdl_tpu_torch.serving import (EngineFailedError, PagePoolExhausted,
@@ -110,8 +111,10 @@ UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7"
 
 
 # options these cases once refused and now serve: the dense slot table
-# (ROADMAP A.2) and int8 weights under tensor parallelism (A.6b)
-NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True})
+# (ROADMAP A.2), int8 weights under tensor parallelism (A.6b) and
+# speculative decoding by keyword or by its flag (A.5)
+NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True},
+              {"spec_tokens": 4}, {"BIGDL_TPU_SPEC_DECODE": "1"})
 
 
 @pytest.mark.parametrize("kw", [
@@ -125,22 +128,29 @@ def test_unported_options_raise(weights, kw, monkeypatch):
     """By keyword, or by the reference's flag (``BIGDL_TPU_*`` keys are set
     in the environment, not passed), naming the ROADMAP item. The cases
     of NOW_PORTED serve instead, on the path they name: ``paged=False``
-    from the dense table, ``tp=2, int8_weights=True`` from int8 shards."""
+    from the dense table, ``tp=2, int8_weights=True`` from int8 shards,
+    ``spec_tokens=4`` or ``BIGDL_TPU_SPEC_DECODE`` speculatively."""
     _, _, sd = weights
+    ported = kw in NOW_PORTED
+    spec = "spec_tokens" in kw or "BIGDL_TPU_SPEC_DECODE" in kw
     kw = dict(kw)
     match = "ROADMAP"
     for flag in [k for k in kw if k.startswith("BIGDL_TPU_")]:
         monkeypatch.setenv(flag, kw.pop(flag))
         match = f"ROADMAP queue {UNPORTED_FLAGS[flag]}"
     m = GPTForCausalLM(**CFG, device="cpu")
-    if kw in NOW_PORTED:
+    if ported:
+        # the int8 product count is process-wide: read this engine's share
+        calls = qmatmul.calls
         with ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw}) as eng:
             out = eng.generate(_prompts()[1], 2, timeout=WAIT)
             met = eng.metrics()
         assert out.size == 5 + 2 and met["retired"] == 1
         assert met["paged"] == kw.get("paged", True)
         assert met["tp_degree"] == kw.get("tp", 1)
-        assert (met["int8_matmuls"] > 0) == ("int8_weights" in kw)
+        assert (met["int8_matmuls"] > calls) == ("int8_weights" in kw)
+        assert eng.spec_tokens == (4 if spec else 1)
+        assert (met.get("spec_proposed", 0) > 0) == spec
         return
     with pytest.raises(NotImplementedError, match=match):
         ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
