@@ -28,10 +28,24 @@ paged-attention kernel launched once per shard, and two fixed-order sums
 a layer (for int8 weights, of the shards' int32 accumulators). One
 scheduler thread drives every shard, as the reference's single controller
 does.
+
+Resilience (ROADMAP A.4, the reference's defaults): a failed dispatch is
+recovered in place up to ``max_recoveries`` times
+(``BIGDL_TPU_SERVING_MAX_RECOVERIES``, 8): the slot table is rebuilt and
+the affected requests re-placed from their contexts, a poisoned request
+quarantined alone; past the budget every request fails with
+``EngineFailedError``, or goes to ``failover`` (``EngineSupervisor``).
+A sticky CUDA error leaves the card refusing every call: the table cannot
+be rebuilt, and the engine gives up at once. Durability (A.7, paged
+only, off by default): ``kv_host_tier`` demotes evicted pages to host RAM
+and promotes them back on a prefix hit; ``kv_snapshot`` persists pages
+and a request journal to ``snapshot_dir``, from which a new engine
+restores.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 from bigdl_tpu_torch.models.spec import spec_config
@@ -42,44 +56,28 @@ from bigdl_tpu_torch.parallel.layout import ModelLayout, serving_mesh
 from bigdl_tpu_torch.parallel.tensor_parallel import TensorParallelCausalLM
 from bigdl_tpu_torch.serving.paging import (PagedSlotManager,
                                             PagePoolExhausted,
-                                            pages_for_budget)
+                                            kv_token_bytes, pages_for_budget)
 from bigdl_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 from bigdl_tpu_torch.serving.slots import SlotManager
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.flags import get_flag
 
+logger = logging.getLogger("bigdl_tpu_torch.serving")
+
 # options of the reference engine that are not ported yet, with the
 # ROADMAP queue A item that ports each
 _UNPORTED = {
-    "kv_snapshot": "A.7 serving durability",
-    "kv_host_tier": "A.7 serving durability",
     "lora": "A.8 control plane, fleet and multi-tenant serving",
     "adapters": "A.8 control plane, fleet and multi-tenant serving",
     "policy": "A.8 control plane, fleet and multi-tenant serving",
-    "failover": "A.4 in-place recovery",
-    "max_recoveries": "A.4 in-place recovery",
 }
 # the reference's flags that turn an unported option on when its keyword
 # is not given
-_UNPORTED_FLAGS = {"kv_snapshot": "BIGDL_TPU_KV_SNAPSHOT",
-                   "kv_host_tier": "BIGDL_TPU_KV_HOST_TIER",
-                   "lora": "BIGDL_TPU_LORA",
+_UNPORTED_FLAGS = {"lora": "BIGDL_TPU_LORA",
                    "policy": "BIGDL_TPU_ADMISSION_SLO"}
-# unported options of the reference's paged path alone, with the reason the
-# reference gives for refusing each by keyword on the dense path (it reads
-# their flags only under ``paged``, so the dense engine ignores those)
-_PAGED_ONLY = {
-    "kv_snapshot": "the store's unit of persistence is the K/V page",
-    "kv_host_tier": "the tier's unit of residency is the K/V page",
-}
 # sub-options of unported options: accepted and ignored while their parent
 # is off, as the reference ignores them
 _SUB_OPTIONS = {
-    "snapshot_dir": "kv_snapshot",
-    "snapshot_interval_s": "kv_snapshot",
-    "snapshot_journal": "kv_snapshot",
-    "host_tier_bytes": "kv_host_tier",
-    "host_tier_prefetch": "kv_host_tier",
     "lora_rank": "lora",
     "adapter_slots": "lora",
     "adapter_host_bytes": "lora",
@@ -89,31 +87,21 @@ _SUB_OPTIONS = {
 def _unported_on(name, value):
     """Does the unported option ``name`` (keyword ``value``, None if not
     given) ask for its feature? An explicit keyword wins over its flag."""
-    if name == "max_recoveries":
-        # a budget of 0 gives up at the first error, as the port does
-        return value is not None and value is not False and int(value) > 0
     if value is None:
         flag = _UNPORTED_FLAGS.get(name)
         return flag is not None and get_flag(flag, False, bool)
     return value is not False
 
 
-def _refuse_unported(options, paged):
+def _refuse_unported(options):
     """Raise ``TypeError`` on an unknown keyword, and
     ``NotImplementedError`` naming the ROADMAP item when an unported
-    option (by keyword or by the reference's flag) asks for its feature
-    on the path it applies to. On the dense path a ``_PAGED_ONLY`` option
-    asked for by keyword raises ``ValueError`` as in the reference, and
-    its flag is ignored."""
+    option (by keyword or by the reference's flag) asks for its
+    feature."""
     for name in options:
         if name not in _UNPORTED and name not in _SUB_OPTIONS:
             raise TypeError(f"unexpected keyword argument {name!r}")
     for name, item in _UNPORTED.items():
-        if name in _PAGED_ONLY and not paged:
-            if options.get(name):
-                raise ValueError(f"{name} requires paged=True ("
-                                 f"{_PAGED_ONLY[name]})")
-            continue
         if not _unported_on(name, options.get(name)):
             continue
         subs = [s for s, parent in _SUB_OPTIONS.items()
@@ -145,12 +133,17 @@ class ServingEngine:
         ``temperature > 0``.
     seed: seeds the engine's ``torch.Generator`` for the sampler's noise.
     default_deadline_s: TTL for requests submitted without one.
+    failover: ``callable(victims, error)`` receiving every unfinished
+        request when the loop gives up (the ``EngineSupervisor`` hook).
+    max_recoveries: in-place recovery budget
+        (``BIGDL_TPU_SERVING_MAX_RECOVERIES``, 8; 0 gives up at the first
+        error).
     paged: serve from the paged K/V pool (``BIGDL_TPU_PAGED_KV``, off: the
         dense slot table). ``self.paged`` reports the path taken. The
-        options below up to ``kv_bytes`` are the paged path's; the dense
-        path ignores them, as the reference does. ``kv_snapshot`` /
-        ``kv_host_tier`` are the paged path's too: by keyword the dense
-        path refuses them with ``ValueError``, their flags it ignores.
+        options below up to ``host_tier_prefetch`` are the paged path's;
+        the dense path ignores them, as the reference does, except that
+        ``kv_snapshot`` / ``kv_host_tier`` by keyword raise
+        ``ValueError`` there (their flags it ignores).
     page_size: tokens per K/V page (``BIGDL_TPU_PAGE_SIZE``, 16).
     kv_pages: page-pool size (default: the dense-equivalent
         ``max_slots * max_position / page_size``).
@@ -169,6 +162,25 @@ class ServingEngine:
         planes; under tp each shard holds ``1/tp`` of the heads, so the
         pool gets ``tp`` times the pages); ignored when ``kv_pages`` is
         given.
+    kv_snapshot: persist prefix-cached and live full-block pages and a
+        request journal (``serving/snapshot.py``) to ``snapshot_dir``; an
+        engine over the same directory restores pages instead of
+        re-prefilling (``BIGDL_TPU_KV_SNAPSHOT``, off).
+    snapshot_dir: the store's directory (``BIGDL_TPU_SNAPSHOT_DIR``;
+        required with ``kv_snapshot``).
+    snapshot_interval_s: least seconds between snapshot passes
+        (``BIGDL_TPU_SNAPSHOT_INTERVAL_S``, 0.5). The store keeps at most
+        ``BIGDL_TPU_KV_SNAPSHOT_GC_PAGES`` pages (default 4 pools).
+    snapshot_journal: the journal's file name in ``snapshot_dir``
+        (``journal.jsonl``); engines sharing a directory need their own.
+    kv_host_tier: demote evicted pool pages to host RAM and promote them
+        back on a prefix hit (``serving/host_tier.py``;
+        ``BIGDL_TPU_KV_HOST_TIER``, off).
+    host_tier_bytes: the tier's budget (``BIGDL_TPU_KV_HOST_TIER_BYTES``;
+        default four pools' worth of full-H pages).
+    host_tier_prefetch: pages promoted a scheduler iteration ahead of the
+        waiting queue's head (``BIGDL_TPU_KV_HOST_TIER_PREFETCH``, 8; 0
+        promotes at admission only).
     device: where to serve; None means the card. With ``tp`` it places
         every shard there (``device="cpu"``: ``tp`` shards on the CPU).
     tp: tensor-parallel degree (``BIGDL_TPU_SERVING_TP``, off; an explicit
@@ -186,18 +198,13 @@ class ServingEngine:
         ``models.spec.spec_config()``, i.e. ``BIGDL_TPU_SPEC_DECODE`` with
         ``BIGDL_TPU_SPEC_TOKENS``, default 4). Both tables, tp and int8.
 
-    The reference's other options (LoRA, K/V snapshots, the host tier,
-    the control plane, recovery) raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them, when given by keyword or turned on by
-    the reference's flag (``BIGDL_TPU_KV_SNAPSHOT``,
-    ``BIGDL_TPU_KV_HOST_TIER``, ``BIGDL_TPU_LORA``,
-    ``BIGDL_TPU_ADMISSION_SLO`` for ``policy``; a keyword wins over its
-    flag). ``max_recoveries=0`` is served: at that budget the reference
-    gives up at the first error, failing every request with
-    ``EngineFailedError``, as the port does at any budget. Their sub-options (``snapshot_dir``,
-    ``snapshot_interval_s``, ``snapshot_journal``, ``host_tier_bytes``,
-    ``host_tier_prefetch``, ``lora_rank``, ``adapter_slots``,
-    ``adapter_host_bytes``) are ignored while the parent is off.
+    The reference's other options (LoRA adapters and the control plane:
+    ``lora``, ``adapters``, ``policy``) raise ``NotImplementedError``
+    naming ROADMAP queue A.8, when given by keyword or turned on by the
+    reference's flag (``BIGDL_TPU_LORA``, ``BIGDL_TPU_ADMISSION_SLO``; a
+    keyword wins over its flag). Their sub-options (``lora_rank``,
+    ``adapter_slots``, ``adapter_host_bytes``) are ignored while the
+    parent is off.
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -206,11 +213,23 @@ class ServingEngine:
                  paged=None, page_size=None, kv_pages=None,
                  prefill_chunk=None, prefix_cache=None, int8_weights=None,
                  int8_kv=None, kv_bytes=None, device=None, tp=None,
-                 mesh=None, spec_tokens=None, **unported):
+                 mesh=None, spec_tokens=None, failover=None,
+                 max_recoveries=None, kv_snapshot=None, snapshot_dir=None,
+                 snapshot_interval_s=None, snapshot_journal=None,
+                 kv_host_tier=None, host_tier_bytes=None,
+                 host_tier_prefetch=None, **unported):
         if paged is None:
             paged = get_flag("BIGDL_TPU_PAGED_KV", False, bool)
         self.paged = bool(paged)
-        _refuse_unported(unported, self.paged)
+        _refuse_unported(unported)
+        if not self.paged:
+            for name, value, unit in (("kv_snapshot", kv_snapshot,
+                                       "the store's unit of persistence"),
+                                      ("kv_host_tier", kv_host_tier,
+                                       "the tier's unit of residency")):
+                if value:
+                    raise ValueError(f"{name} requires paged=True ({unit} "
+                                     f"is the K/V page)")
         if getattr(model, "gpt", None) is None:
             raise TypeError("ServingEngine drives GPTForCausalLM models")
         layout = self._layout(tp, mesh, device)
@@ -238,6 +257,10 @@ class ServingEngine:
         if spec_tokens is None:
             spec_tokens = spec_config()
         self.spec_tokens = max(1, int(spec_tokens))
+        self.snapshot = None
+        self.host_tier = None
+        self.host_staging = None
+        self._host_copier = None
         if self.paged:
             if page_size is None:
                 page_size = get_flag("BIGDL_TPU_PAGE_SIZE", 16, int)
@@ -253,19 +276,92 @@ class ServingEngine:
                                             int8=bool(int8_kv),
                                             dtype=model.gpt.tok_emb.dtype,
                                             tp=self.tp)
+            if kv_pages is None:
+                kv_pages = max_slots * (model.gpt.max_position // page_size)
+            self._durability(model, int(kv_pages), int(page_size),
+                             bool(int8_kv), kv_snapshot, snapshot_dir,
+                             snapshot_interval_s, snapshot_journal,
+                             kv_host_tier, host_tier_bytes)
+            if host_tier_prefetch is None:
+                host_tier_prefetch = get_flag(
+                    "BIGDL_TPU_KV_HOST_TIER_PREFETCH", 8, int)
             self.slots = PagedSlotManager(
                 model, max_slots, num_pages=kv_pages, page_size=page_size,
                 window=prefill_window, steps_per_sync=steps_per_sync,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
                 top_k=top_k, top_p=top_p, seed=seed, int8_kv=bool(int8_kv),
-                spec_tokens=self.spec_tokens)
+                spec_tokens=self.spec_tokens,
+                page_store=(None if self.snapshot is None
+                            else self.snapshot.store),
+                host_tier=self.host_tier,
+                host_demote=(None if self._host_copier is None
+                             else self._host_copier.submit),
+                host_tier_prefetch=(int(host_tier_prefetch or 0)
+                                    if self.host_tier is not None else 0),
+                host_staging=self.host_staging)
+            if self.snapshot is not None:
+                if self.snapshot.max_pages is None:
+                    # the store holds a few pools' worth of pages
+                    gc_pages = get_flag("BIGDL_TPU_KV_SNAPSHOT_GC_PAGES", 0,
+                                        int)
+                    self.snapshot.max_pages = (
+                        int(gc_pages) if gc_pages
+                        else 4 * self.slots.num_pages)
+                if self.host_tier is not None:
+                    # a demoted page's disk copy may be its only durable
+                    # one: gc never takes a digest the tier still holds
+                    self.snapshot.store.tier_resident = \
+                        self.host_tier.hex_digests
         else:
             self.slots = SlotManager(model, max_slots, window=prefill_window,
                                      steps_per_sync=steps_per_sync,
                                      top_k=top_k, top_p=top_p, seed=seed,
                                      spec_tokens=self.spec_tokens)
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
-                                   admit_wait_s=admit_wait_s)
+                                   admit_wait_s=admit_wait_s,
+                                   failover=failover,
+                                   max_recoveries=max_recoveries,
+                                   snapshot=self.snapshot)
+
+    def _durability(self, model, num_pages, page_size, int8_kv, kv_snapshot,
+                    snapshot_dir, snapshot_interval_s, snapshot_journal,
+                    kv_host_tier, host_tier_bytes):
+        """Build the paged path's page store (``kv_snapshot``) and host
+        tier (``kv_host_tier``), each keyword falling back to its flag."""
+        if kv_snapshot is None:
+            kv_snapshot = get_flag("BIGDL_TPU_KV_SNAPSHOT", False, bool)
+        if kv_snapshot:
+            from bigdl_tpu_torch.serving.snapshot import KVSnapshot
+            if snapshot_dir is None:
+                snapshot_dir = get_flag("BIGDL_TPU_SNAPSHOT_DIR", "", str)
+            if not snapshot_dir:
+                raise ValueError("kv_snapshot needs a directory: pass "
+                                 "snapshot_dir= or set "
+                                 "BIGDL_TPU_SNAPSHOT_DIR")
+            if snapshot_interval_s is None:
+                snapshot_interval_s = get_flag(
+                    "BIGDL_TPU_SNAPSHOT_INTERVAL_S", 0.5, float)
+            self.snapshot = KVSnapshot(snapshot_dir,
+                                       interval_s=snapshot_interval_s,
+                                       journal_name=snapshot_journal)
+        if kv_host_tier is None:
+            kv_host_tier = get_flag("BIGDL_TPU_KV_HOST_TIER", False, bool)
+        if not kv_host_tier:
+            return
+        from bigdl_tpu_torch.serving.host_tier import (HostPageTier,
+                                                       HostTierCopier,
+                                                       PinnedStaging)
+        page_bytes = kv_token_bytes(model, int8_kv,
+                                    model.gpt.tok_emb.dtype) * page_size
+        if host_tier_bytes is None:
+            host_tier_bytes = get_flag("BIGDL_TPU_KV_HOST_TIER_BYTES", 0, int)
+        if not host_tier_bytes:
+            # four pools' worth of demoted (full-H) pages
+            host_tier_bytes = 4 * page_bytes * num_pages
+        self.host_tier = HostPageTier(host_tier_bytes)
+        if self.device.type == "cuda":
+            self.host_staging = PinnedStaging(page_bytes)
+        self._host_copier = HostTierCopier(self.host_tier, self.device)
 
     @staticmethod
     def _layout(tp, mesh, device):
@@ -330,6 +426,17 @@ class ServingEngine:
                 f"pool holds only {self.slots.num_pages}")
         return self.scheduler.submit(req)
 
+    def resubmit(self, request):
+        """Re-enqueue an unfinished handle on THIS engine (the supervisor's
+        route): the same ``Request`` object, so the caller's stream stays
+        attached; admission re-prefills from ``request.context()``
+        (prompt + delivered tokens), so generation resumes where it
+        stopped and no token is delivered twice. Bypasses the queue
+        bound."""
+        if request.done.is_set():
+            return request
+        return self.scheduler.submit(request, force=True)
+
     def cancel(self, handle):
         """Cancel a submitted request (any thread)."""
         return handle.cancel()
@@ -372,7 +479,13 @@ class ServingEngine:
         calls and the count of int8 products (process-wide: every engine
         adds to one count), and, speculating, the draft's ``spec_proposed``
         / ``spec_accepted`` / ``spec_rollbacks`` tokens over greedy
-        requests and ``spec_accept_rate``."""
+        requests and ``spec_accept_rate``; the recovery counters
+        (``failures``, ``recoveries``, ``quarantined``, and after a
+        recovery with a snapshot attached ``recovery_restore_streams``,
+        ``recovery_reprefill_streams`` and ``recovery_replayed_tokens``);
+        on the paged path ``restored_pages`` and, with their options,
+        ``host_tier_*`` and ``snapshot_pages_written`` /
+        ``snapshot_pages_restored``."""
         sch = self.scheduler
         sl = self.slots
         spec = {} if self.spec_tokens <= 1 else {
@@ -395,6 +508,11 @@ class ServingEngine:
             "decode_tokens_per_sec": (sch.generated_tokens / sch.step_seconds
                                       if sch.step_seconds else 0.0),
             "failures": sch.failures,
+            "recoveries": sch.recoveries,
+            "quarantined": sch.quarantined,
+            "recovery_restore_streams": sch.restored_streams,
+            "recovery_reprefill_streams": sch.reprefilled_streams,
+            "recovery_replayed_tokens": sch.replayed_tokens,
             "cancelled": sch.cancelled,
             "deadline_exceeded": sch.deadline_expired,
             "preempted": sch.preempted,
@@ -407,7 +525,16 @@ class ServingEngine:
             **self.slots.stats.snapshot(),
             **self.slots.pool_stats(),
             **spec,
+            **self._snapshot_metrics(),
         }
+
+    def _snapshot_metrics(self):
+        if self.snapshot is None:
+            return {}
+        store = self.snapshot.store
+        return {"snapshot_pages_written": store.pages_written,
+                "snapshot_pages_restored": store.pages_restored,
+                "snapshot_corrupt_dropped": store.corrupt_dropped}
 
     def is_alive(self):
         """True while the scheduler thread runs."""
@@ -417,8 +544,23 @@ class ServingEngine:
         """Stop accepting requests. ``drain=True`` serves everything
         queued and in flight first; ``drain=False`` fails it with
         ``EngineClosedError``. Returns True when the scheduler thread
-        exited."""
-        return self.scheduler.shutdown(drain=drain, timeout=timeout)
+        exited (False: wedged in a dispatch). With a snapshot, a clean
+        exit takes one last forced pass (the next engine over the
+        directory restores the whole prefix cache) and flushes the writer;
+        the host tier's copier drains its demotions and stops."""
+        exited = self.scheduler.shutdown(drain=drain, timeout=timeout)
+        snap = self.snapshot
+        if snap is not None:
+            if exited and self.scheduler.failed is None:
+                try:
+                    snap.snapshot(self.slots, force=True)
+                except BaseException:
+                    logger.exception("final kv snapshot failed")
+                snap.flush()
+            snap.close()
+        if self._host_copier is not None:
+            self._host_copier.close()
+        return exited
 
     def __enter__(self):
         return self

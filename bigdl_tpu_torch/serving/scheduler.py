@@ -11,15 +11,32 @@ dispatch happens there (the thread sets the CUDA device it serves on).
 ``submit`` only appends to the bounded waiting deque under the condition
 lock. A full queue rejects with :class:`QueueFullError`.
 
-Failure model: a prompt the slot table cannot hold fails alone; page
-exhaustion is handled (a new request waits; a decoding one is preempted
-and resumes later from its context). ANY other exception in a prefill
-(a dense admission batch or a paged chunk) or a decode step fails every
-request in the engine with that error — ``result()`` re-raises it — and
-the engine stops accepting work. The reference's in-place recovery
-(rebuild the slot table, re-place and bisect requests) is not ported yet
-(ROADMAP queue A.4): it would also hide a faulting kernel. Requests carry optional deadlines and
-support ``cancel()``, both enforced at block boundaries.
+Failure model (the reference's): the loop never dies holding requests.
+A prompt the slot table cannot hold fails alone; page exhaustion is
+handled (a new request waits; a decoding one is preempted and resumes
+later from its context). Any other exception in an admission, a prefill
+chunk, a page reservation or a decode step triggers in-place recovery:
+the slot table is rebuilt (``SlotManager.reset``) and every affected
+request re-placed from its full context (prompt + delivered tokens, so
+nothing is re-streamed), bisecting the group to quarantine a request that
+fails every probe alone (only it fails; the rest continue). A batched
+admission that fails before it touched the card falls back to one request
+at a time. Past ``max_recoveries`` (``BIGDL_TPU_SERVING_MAX_RECOVERIES``,
+8) recoveries, or when the slot table cannot even be rebuilt (a sticky
+CUDA error: the card refuses every later call), the loop gives up
+cleanly: every handle resolves with ``EngineFailedError`` caused by the
+error, or goes to an attached ``failover`` (the ``EngineSupervisor``), and
+new submissions fail. The loop beats a heartbeat each iteration so a
+supervisor can tell wedged from idle. Requests carry optional deadlines
+and support ``cancel()``, both enforced at block boundaries.
+
+Fault sites (``resilience/faults.py``): ``serving.admit`` before each
+admission, ``serving.step`` before each decode block; the slot managers
+add ``serving.prefill`` and ``serving.page_alloc``.
+
+With a ``KVSnapshot`` (``serving/snapshot.py``) admissions, delivered
+chunks and retirements are journalled, and a page snapshot pass runs
+after a decode block at most every ``snapshot_interval_s``.
 """
 
 from __future__ import annotations
@@ -34,8 +51,10 @@ import time
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.serving.adapters import AdapterLoadError
 from bigdl_tpu_torch.serving.paging import PagePoolExhausted
+from bigdl_tpu_torch.utils.flags import get_flag
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
 
@@ -49,7 +68,9 @@ class EngineClosedError(RuntimeError):
 
 
 class EngineFailedError(EngineClosedError):
-    """A dispatch failed and the engine halted; new submissions fail."""
+    """The loop exhausted its recovery budget (or could not rebuild its
+    slot table) and halted; new submissions fail until a supervisor
+    restarts the engine."""
 
 
 class RequestCancelledError(RuntimeError):
@@ -59,6 +80,11 @@ class RequestCancelledError(RuntimeError):
 class DeadlineExceededError(RuntimeError):
     """The request's ``deadline_s`` elapsed before completion; its slot
     has been freed."""
+
+
+class _Halt(BaseException):
+    """Internal: unwind the scheduler loop (abandoned or gave up). Never
+    escapes ``Scheduler._loop``."""
 
 
 _DONE = object()
@@ -184,20 +210,34 @@ class Scheduler:
     :class:`~bigdl_tpu_torch.serving.slots.SlotManager` or a
     :class:`~bigdl_tpu_torch.serving.paging.PagedSlotManager` (see module
     docstring). Owns the background thread; built and shut down by
-    ``ServingEngine``."""
+    ``ServingEngine``. ``failover(victims, error)``, when given, receives
+    every unfinished request instead of their being failed when the loop
+    gives up (the ``EngineSupervisor`` hook). ``max_recoveries`` bounds
+    in-place recoveries over the scheduler's life (default
+    ``BIGDL_TPU_SERVING_MAX_RECOVERIES``, 8). ``snapshot`` is the engine's
+    ``KVSnapshot`` or None."""
 
-    def __init__(self, slots, max_queue=64, admit_wait_s=0.0):
+    def __init__(self, slots, max_queue=64, admit_wait_s=0.0, failover=None,
+                 max_recoveries=None, snapshot=None):
         self.slots = slots
+        self._snap = snapshot
         self.max_queue = int(max_queue)
         self.admit_wait_s = float(admit_wait_s)
         self._waiting = collections.deque()
         self._cond = threading.Condition()
         self._accepting = True
         self._drain = True
+        self._abandoned = False
+        self._failover = failover
         self.failed = None
+        if max_recoveries is None:
+            max_recoveries = get_flag("BIGDL_TPU_SERVING_MAX_RECOVERIES", 8,
+                                      int)
+        self.max_recoveries = int(max_recoveries)
         self._inflight = {}        # slot -> Request (loop thread only)
-        # a popped admission batch the loop holds outside _waiting and
-        # _inflight: a failure must still finish it
+        # requests the loop holds outside _waiting and _inflight (a popped
+        # admission batch, a recovery set): abandon() and _give_up() must
+        # see them
         self._limbo = []
         self.admitted = 0
         self.rejected = 0
@@ -207,10 +247,20 @@ class Scheduler:
         self.cancelled = 0
         self.deadline_expired = 0
         self.failures = 0
+        self.recoveries = 0
+        self.quarantined = 0
         self.preempted = 0
+        # re-placed streams after a recovery: restored (whole context from
+        # the prefix cache, tier or store) or re-prefilled, and the context
+        # tokens recomputed (counted with a snapshot attached)
+        self.restored_streams = 0
+        self.reprefilled_streams = 0
+        self.replayed_tokens = 0
         # after a preemption, hold new admissions until a retirement frees
         # pages (the evicted stream must not re-admit into the full pool)
         self._stall_admissions = False
+        self.heartbeat = time.monotonic()
+        self._busy = False
         self._ttft_sum = 0.0
         self._thread = threading.Thread(target=self._loop,
                                         name="bigdl-tpu-torch-serving",
@@ -218,10 +268,12 @@ class Scheduler:
         self._thread.start()
 
     # -------------------------------------------------------- caller side
-    def submit(self, request):
+    def submit(self, request, force=False):
         """Enqueue a request (any thread). Raises ``EngineFailedError``
-        after a failure, ``EngineClosedError`` after shutdown and
-        ``QueueFullError`` at capacity."""
+        after the loop halted, ``EngineClosedError`` after shutdown and
+        ``QueueFullError`` at capacity. ``force`` bypasses the queue bound
+        (resubmission: recovered requests must not be bounced by their
+        own backlog)."""
         with self._cond:
             if self.failed is not None:
                 self.rejected += 1
@@ -230,7 +282,7 @@ class Scheduler:
             if not self._accepting:
                 self.rejected += 1
                 raise EngineClosedError("engine is shut down")
-            if len(self._waiting) >= self.max_queue:
+            if not force and len(self._waiting) >= self.max_queue:
                 self.rejected += 1
                 raise QueueFullError(
                     f"waiting queue full ({self.max_queue} requests); "
@@ -266,11 +318,21 @@ class Scheduler:
     def is_alive(self):
         return self._thread.is_alive()
 
+    def heartbeat_age(self):
+        """Seconds since the loop last proved liveness."""
+        return time.monotonic() - self.heartbeat
+
+    @property
+    def restore_active(self):
+        """True while the slot manager loads pages from the host tier or
+        the page store (the supervisor extends its wedge grace)."""
+        return bool(getattr(self.slots, "restore_active", False))
+
     def shutdown(self, drain=True, timeout=None):
         """Stop accepting. ``drain=True`` serves everything queued and in
         flight first; ``drain=False`` fails it with ``EngineClosedError``.
         Joins the thread; returns False if it is still alive after
-        ``timeout``."""
+        ``timeout`` (wedged in a dispatch: treat the engine as dead)."""
         with self._cond:
             self._accepting = False
             self._drain = drain
@@ -282,32 +344,73 @@ class Scheduler:
             return False
         return True
 
+    def abandon(self):
+        """Supervisor hand-off: stop this (possibly wedged) loop from ever
+        touching its requests again and return the unfinished ones. The
+        loop observes the flag at its next safe point and exits without
+        finishing anything."""
+        with self._cond:
+            self._abandoned = True
+            self._accepting = False
+            pool = (list(self._waiting) + list(self._limbo)
+                    + list(self._inflight.values()))
+            self._waiting.clear()
+            self._cond.notify()
+        seen, victims = set(), []
+        for r in pool:
+            if r.id not in seen and not r.done.is_set():
+                seen.add(r.id)
+                victims.append(r)
+        return victims
+
     # ----------------------------------------------------- scheduler loop
     def _loop(self):
         try:
             dev = self.slots.device
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
+            # build or load the kernels before the first heartbeat, so
+            # the build never reads as a wedge to a supervisor
+            self.slots.warm_kernels()
+            self._beat(busy=False)
             self._serve()
-        except Exception as e:   # nobody may hang on a dead loop
-            logger.exception("serving loop failed; failing every request")
-            self._fail_all(e)
+        except _Halt:
+            pass
+        except BaseException as e:   # nobody may hang on a dead loop
+            logger.exception("serving loop died")
+            try:
+                self._give_up(e)
+            except _Halt:
+                pass
+
+    def _beat(self, busy=None):
+        if busy is not None:
+            self._busy = busy
+        self.heartbeat = time.monotonic()
 
     def _serve(self):
         slots = self.slots
         while True:
+            if self._abandoned:
+                raise _Halt
+            self._beat(busy=False)
             batch = []
             with self._cond:
                 while (self._accepting and not self._waiting
                        and not self._inflight):
                     self._cond.wait()
+                if self._abandoned:
+                    raise _Halt
                 if not self._accepting and not self._drain:
                     err = EngineClosedError("engine shut down")
                     while self._waiting:
-                        self._waiting.popleft()._finish(err)
+                        w = self._waiting.popleft()
+                        w._finish(err)
+                        self._journal_retire(w)
                     for s, r in list(self._inflight.items()):
                         slots.retire(s)
                         r._finish(err)
+                        self._journal_retire(r)
                     self._inflight.clear()
                     return
                 self._sweep_waiting_locked()
@@ -335,61 +438,155 @@ class Scheduler:
                     else:
                         self._stall_admissions = False
                 batch = [self._waiting.popleft() for _ in range(n)]
-                self._limbo = batch
+                self._limbo = list(batch)
+            self._beat(busy=True)
             self._sweep_inflight()
+            if slots.paged and slots.host_tier is not None:
+                self._prefetch_host_tier()
             if batch:
                 if slots.paged:
                     self._admit_paged(batch)
                 else:
                     self._admit(batch)
-            self._limbo = []
+                self._limbo = []
+                self._beat()
             if slots.pending_prefills():
                 # ONE chunk dispatch per loop iteration, interleaved with
                 # the decode block below
-                slots.prefill_tick()
+                try:
+                    slots.prefill_tick()
+                except _Halt:
+                    raise
+                except BaseException as e:
+                    self.failures += 1
+                    self._recover(list(self._inflight.values()), e)
+                    continue
+                self._beat()
             if not self._inflight:
                 continue
             if not any(slots.active[s] for s in self._inflight):
                 continue           # everything in flight is prefilling
             try:
                 slots.reserve_block()
+            except _Halt:
+                raise
             except PagePoolExhausted as e:
                 self._preempt(e)
                 continue
+            except BaseException as e:
+                self.failures += 1
+                self._recover(list(self._inflight.values()), e)
+                continue
             pre_lengths = slots.lengths.copy()
             t0 = time.perf_counter()
-            toks = slots.step()        # (block_span, max_slots)
-            dt = time.perf_counter() - t0
-            self.step_seconds += dt
+            try:
+                fault_point("serving.step",
+                            requests=tuple(r.id
+                                           for r in self._inflight.values()))
+                toks = slots.step()        # (block_span, max_slots)
+            except _Halt:
+                raise
+            except BaseException as e:
+                self.failures += 1
+                self._recover(list(self._inflight.values()), e)
+                continue
+            if self._abandoned:
+                raise _Halt
+            self._beat()
+            self.step_seconds += time.perf_counter() - t0
             self._deliver_block(toks, pre_lengths)
+            self._maybe_snapshot()
 
-    def _fail_all(self, error):
-        """Terminal failure: finish EVERY outstanding request with an
-        ``EngineFailedError`` caused by ``error`` (the reference's
-        ``_give_up`` at a recovery budget of 0) and stop accepting."""
+    # ----------------------------------------------------------- journal
+    def _journal_admit(self, r):
+        if self._snap is None:
+            return
+        try:
+            self._snap.admit(r)
+        except Exception:
+            logger.exception("journal admit failed (ignored)")
+
+    def _journal_delivered(self, r, n):
+        """Record the ``n`` just-delivered tokens (the tail of
+        ``r.tokens``) at their stream offset: replay is idempotent on
+        offsets, so a torn tail can never double-deliver."""
+        if self._snap is None or not n:
+            return
+        try:
+            off = len(r.tokens) - n
+            self._snap.delivered(r, off, r.tokens[off:])
+        except Exception:
+            logger.exception("journal delivery failed (ignored)")
+
+    def _journal_retire(self, r):
+        """Tombstone a finished request (compaction keeps the journal
+        bounded; the store drops the request's page pins)."""
+        if self._snap is None:
+            return
+        try:
+            self._snap.retire(r.id)
+        except Exception:
+            logger.exception("journal retire failed (ignored)")
+
+    def _maybe_snapshot(self, force=False):
+        """Rate-limited page snapshot pass (loop thread, between
+        dispatches): the registered prefix-cache pages plus the full-block
+        pages of live streams go to the store's writer thread. Never fails
+        the loop."""
+        snap = self._snap
+        if snap is None or not self.slots.paged:
+            return
+        if not (force or snap.due()):
+            return
+        try:
+            streams = [(r.id, r.context(), s)
+                       for s, r in list(self._inflight.items())
+                       if self.slots.active[s]]
+            snap.snapshot(self.slots, streams, force=force)
+        except Exception:
+            logger.exception("kv snapshot pass failed (serving continues)")
+
+    def _count_resume(self, r):
+        """Classify one re-placed stream after a recovery: restored when
+        its whole context came from the prefix cache, the tier or the
+        store (a logits-only replay), re-prefilled otherwise; the
+        recomputed tokens add to ``replayed_tokens``."""
+        shared = int(getattr(self.slots, "last_admit_shared", 0))
+        total = int(getattr(self.slots, "last_admit_total", 0))
+        self.replayed_tokens += max(0, total - shared)
+        if total and shared >= total:
+            self.restored_streams += 1
+        else:
+            self.reprefilled_streams += 1
+
+    def _consume_resume_cb(self, r):
+        """A caller migrating ``r`` may plant ``_resume_cb`` on the handle:
+        the first admission here calls it once with the slot manager's
+        shared and total token counts of that admission."""
+        cb = r.__dict__.pop("_resume_cb", None)
+        if cb is None:
+            return
+        try:
+            cb(int(getattr(self.slots, "last_admit_shared", 0)),
+               int(getattr(self.slots, "last_admit_total", 0)))
+        except Exception:
+            logger.exception("resume callback failed (ignored)")
+
+    def _admitted(self, r, s):
         with self._cond:
-            self._accepting = False
-            self.failed = error
-            self.failures += 1
-            victims = (list(self._waiting) + list(self._limbo)
-                       + list(self._inflight.values()))
-            self._waiting.clear()
-            self._inflight.clear()
-        self._limbo = []
-        err = EngineFailedError(f"serving engine failed: {error!r}")
-        err.__cause__ = error
-        seen = set()
-        for r in victims:
-            if r.id not in seen and not r.done.is_set():
-                seen.add(r.id)
-                r._finish(err)
+            self._inflight[s] = r
+        self.admitted += 1
+        self._journal_admit(r)
+        self._consume_resume_cb(r)
 
     # ---------------------------------------------------------- admission
     def _admit(self, batch):
         """Dense admission: one batched prefill dispatch of the batch's
-        prompts. A prompt the table cannot hold fails alone, before the
-        dispatch; a failing dispatch propagates and fails the engine (the
-        reference bisects the batch and recovers: ROADMAP queue A.4)."""
+        prompts (a prompt the table cannot hold fails alone, before the
+        dispatch). On failure the batch falls back to one request at a
+        time, so only a poisoned request fails; a dispatch that failed
+        after it reached the card poisons the table, and everything is
+        re-placed by a recovery."""
         slots = self.slots
         live = []
         for r in self._expire_batch(batch):
@@ -399,29 +596,78 @@ class Scheduler:
                 r._finish(ValueError(
                     f"prompt of {r.context().size} tokens exceeds the slot "
                     f"capacity of {slots.max_position - 1}"))
+                self._journal_retire(r)
             else:
                 live.append(r)
         if not live:
             return
-        assigned = slots.admit([r.context() for r in live],
-                               [r.temperature for r in live])
-        with self._cond:
+        try:
+            fault_point("serving.admit", requests=tuple(r.id for r in live))
+            assigned = slots.admit([r.context() for r in live],
+                                   [r.temperature for r in live])
+        except _Halt:
+            raise
+        except BaseException as e:
+            self.failures += 1
+            logger.warning("batched admission failed (%r); admitting %d "
+                           "request(s) one at a time", e, len(live))
+            if slots.poisoned:
+                self._recover(list(self._inflight.values()) + live, e)
+                return
+            for r in live:
+                try:
+                    fault_point("serving.admit", requests=(r.id,))
+                    (s,) = slots.admit([r.context()], [r.temperature])
+                except _Halt:
+                    raise
+                except BaseException as e2:
+                    if slots.poisoned:
+                        rest = [x for x in live
+                                if x is not r and not x.done.is_set()]
+                        self._quarantine(r, e2)
+                        self._recover(
+                            list(self._inflight.values()) + rest, e2)
+                        return
+                    self._quarantine(r, e2)
+                else:
+                    self._admitted(r, s)
+        else:
             for r, s in zip(live, assigned):
-                self._inflight[s] = r
-        self.admitted += len(live)
+                self._admitted(r, s)
 
     def _admit_paged(self, batch):
         """Per-request page allocation + pending-prefill enqueue (host
         work only; ``prefill_tick`` dispatches the chunks). Exhaustion
         with other work holding the pool requeues the rest of the batch
         at the queue FRONT and stalls admission until a retirement; with
-        the pool all to itself the request can never fit and fails
-        typed."""
+        the pool all to itself the request can never fit and fails typed.
+        Any other failure that left the pools clean is retried once, as the
+        dense path retries a failed batch one request at a time (the
+        reference quarantines at once), so a transient fault costs a retry;
+        a second failure quarantines the request, and a recovery follows
+        when the failure poisoned the pools (a restore's page load)."""
         slots = self.slots
         batch = self._expire_batch(batch)
+
+        def admit_one(r):
+            fault_point("serving.admit", requests=(r.id,))
+            return slots.admit_one(r.context(), r.temperature)
+
         for i, r in enumerate(batch):
             try:
-                s = slots.admit_one(r.context(), r.temperature)
+                try:
+                    s = admit_one(r)
+                except (_Halt, PagePoolExhausted, ValueError):
+                    raise
+                except BaseException as e:
+                    if slots.poisoned:
+                        raise
+                    self.failures += 1
+                    logger.warning("admission of request %d failed (%r); "
+                                   "retrying it once", r.id, e)
+                    s = admit_one(r)
+            except _Halt:
+                raise
             except PagePoolExhausted as e:
                 if self._inflight or i:
                     rest = [x for x in batch[i:] if not x.done.is_set()]
@@ -435,21 +681,54 @@ class Scheduler:
                 with self._cond:
                     self.rejected += 1
                 r._finish(e)
+                self._journal_retire(r)
             except ValueError as e:      # a prompt the table cannot hold
                 with self._cond:
                     self.rejected += 1
                 r._finish(e)
+                self._journal_retire(r)
+            except BaseException as e:
+                self.failures += 1
+                if slots.poisoned:
+                    rest = [x for x in batch[i:]
+                            if x is not r and not x.done.is_set()]
+                    self._quarantine(r, e)
+                    self._recover(list(self._inflight.values()) + rest, e)
+                    return
+                self._quarantine(r, e)
             else:
-                with self._cond:
-                    self._inflight[s] = r
-                self.admitted += 1
+                self._admitted(r, s)
+
+    def _prefetch_host_tier(self):
+        """Swap-in lookahead: promote the next waiting prompts' demoted
+        prefix pages one iteration ahead of their admission, so the
+        admission's registry walk hits the pool instead of stalling on the
+        tier. At most ``host_tier_prefetch`` pages an iteration, from the
+        queue's first two requests."""
+        slots = self.slots
+        left = int(slots.host_tier_prefetch)
+        if left <= 0:
+            return
+        with self._cond:
+            heads = [w.prompt for w in itertools.islice(self._waiting, 2)]
+        for prompt in heads:
+            if left <= 0:
+                break
+            try:
+                left -= slots.prefetch_prefix(prompt, left)
+            except Exception:
+                logger.exception("host-tier prefetch failed (admission "
+                                 "will promote or re-prefill instead)")
+                return
 
     def _preempt(self, error):
         """Decode-time page exhaustion: preempt the NEWEST in-flight
-        request — retire its slot (freeing its pages) and requeue it at
-        the front with its delivered tokens intact, so older streams keep
-        decoding. A lone stream that cannot reserve its next positions
-        can never finish: it fails typed instead."""
+        request: retire its slot (freeing its pages) and requeue it at the
+        front with its delivered tokens intact, so older streams keep
+        decoding. With a host tier its written pages are registered first,
+        so eviction demotes them and its resume promotes a full prefix hit.
+        A lone stream that cannot reserve its next positions can never
+        finish: it fails typed instead."""
         slots = self.slots
         if len(self._inflight) <= 1:
             for s, r in list(self._inflight.items()):
@@ -458,10 +737,17 @@ class Scheduler:
                     self.rejected += 1
                 slots.retire(s)
                 r._finish(error)
+                self._journal_retire(r)
             return
         s = max(self._inflight, key=lambda s: self._inflight[s].id)
         with self._cond:
             r = self._inflight.pop(s)
+        if slots.host_tier is not None:
+            try:
+                slots.preserve_stream(r.context(), s)
+            except Exception:
+                logger.exception("preempt page preserve failed (the stream "
+                                 "will re-prefill)")
         slots.retire(s)
         self.preempted += 1
         logger.warning("page pool exhausted (%s); preempting request %d "
@@ -502,6 +788,7 @@ class Scheduler:
                 if col.size < r.remaining():
                     r.truncated = True
             r._deliver(col.tolist())
+            self._journal_delivered(r, col.size)
             self.generated_tokens += col.size
             if finished:
                 done.append(s)
@@ -514,10 +801,12 @@ class Scheduler:
             self._ttft_sum += ((r.first_token_at - r.submitted_at)
                                if r.first_token_at is not None else 0.0)
             r._finish()
+            self._journal_retire(r)
 
     # -------------------------------------------- cancel/deadline sweeps
     def _swept(self, r, err):
         r._finish(err)
+        self._journal_retire(r)
         with self._cond:
             if isinstance(err, DeadlineExceededError):
                 self.deadline_expired += 1
@@ -565,6 +854,7 @@ class Scheduler:
                 r._finish(AdapterLoadError(
                     f"request {r.id} names adapter {r.adapter!r} but the "
                     f"engine has no adapter pool (BIGDL_TPU_LORA off)"))
+                self._journal_retire(r)
             else:
                 live.append(r)
         return live
@@ -588,3 +878,160 @@ class Scheduler:
             self.slots.retire(s)
             self._swept(r, err)
             self._stall_admissions = False   # pages/slots freed
+
+    # ----------------------------------------------------------- recovery
+    def _quarantine(self, r, err):
+        logger.warning("quarantining poisoned request %d: %r", r.id, err)
+        self.quarantined += 1
+        r._finish(err)
+        self._journal_retire(r)
+
+    def _reset_slots(self):
+        """Rebuild the slot table; when even that fails the card refuses
+        every call (a sticky CUDA error), no request is to blame, and the
+        loop gives up."""
+        try:
+            self.slots.reset()
+        except BaseException as e:
+            logger.error("slot-table reset failed (%r): the device is "
+                         "unusable; giving up", e)
+            self._give_up(e)
+
+    def _place(self, reqs, probe):
+        """Rebuild the slot table and re-prefill ``reqs`` from their full
+        context (idempotent: delivered tokens are part of the prompt now,
+        never re-streamed). With ``probe`` also run one step block and
+        deliver it. Returns the still-live requests."""
+        slots = self.slots
+        self._reset_slots()
+        with self._cond:
+            self._inflight.clear()
+        self._stall_admissions = False
+        reqs = [r for r in reqs if not r.done.is_set()]
+        # restore accounting needs one admission a request (the manager's
+        # last_admit_* are per admission); otherwise window-sized batches
+        count = self._snap is not None and slots.paged
+        i = 0
+        while i < len(reqs):
+            take = 1 if count else min(slots.window, slots.free_slots())
+            chunk = reqs[i:i + take]
+            fault_point("serving.admit", requests=tuple(r.id for r in chunk))
+            assigned = slots.admit([r.context() for r in chunk],
+                                   [r.temperature for r in chunk])
+            with self._cond:
+                for r, s in zip(chunk, assigned):
+                    self._inflight[s] = r
+            for r in chunk:
+                if count:
+                    self._count_resume(r)
+                self._consume_resume_cb(r)
+            i += len(chunk)
+        if probe and self._inflight:
+            # the block's positions need their pages (a context that ends
+            # on a page boundary writes its next token into a new page)
+            slots.reserve_block()
+            fault_point("serving.step",
+                        requests=tuple(r.id for r in self._inflight.values()))
+            pre_lengths = slots.lengths.copy()
+            toks = slots.step()
+            if self._abandoned:
+                raise _Halt
+            self._beat()
+            self._deliver_block(toks, pre_lengths)
+        return list(self._inflight.values())
+
+    def _recover(self, affected, error):
+        """In-place recovery from a failed admission, chunk, reservation
+        or step: reset the slot table, then group-bisect the affected
+        requests: a group whose probe block fails is split until the
+        poisoned request is alone and quarantined; everyone else resumes
+        from their exact context. Past the recovery budget, or past ``2 n
+        + 8`` probes, the loop gives up cleanly."""
+        self.recoveries += 1
+        if self.recoveries > self.max_recoveries:
+            logger.error("recovery budget exhausted (%d > %d); halting",
+                         self.recoveries, self.max_recoveries)
+            self._give_up(error)
+        affected = [r for r in affected if not r.done.is_set()]
+        logger.warning("recovering the serving loop after %r: %d "
+                       "request(s) to re-place (recovery %d/%d)", error,
+                       len(affected), self.recoveries, self.max_recoveries)
+        self._limbo = list(affected)
+        with self._cond:
+            self._inflight.clear()
+        healthy = []
+        groups = [affected] if affected else []
+        probes = 0
+        clean = not groups
+        while groups:
+            probes += 1
+            if probes > 2 * len(affected) + 8:
+                self._give_up(error)
+            g = groups.pop(0)
+            try:
+                healthy = self._place(healthy + g, probe=True)
+                clean = True
+            except _Halt:
+                raise
+            except BaseException as e:
+                clean = False
+                g = [r for r in g if not r.done.is_set()]
+                healthy = [r for r in healthy if not r.done.is_set()]
+                if len(g) <= 1:
+                    if g:
+                        self._quarantine(g[0], e)
+                else:
+                    mid = len(g) // 2
+                    groups[:0] = [g[:mid], g[mid:]]
+        if not clean:
+            try:
+                self._place(healthy, probe=False)
+            except _Halt:
+                raise
+            except BaseException as e:
+                self._give_up(e)
+        self._limbo = []
+        self._beat()
+
+    def _give_up(self, error):
+        """Terminal failure: resolve EVERY outstanding handle (to the
+        failover, or with an ``EngineFailedError`` caused by ``error``),
+        mark the scheduler failed and halt the loop."""
+        with self._cond:
+            self._accepting = False
+            self.failed = error
+            pool = (list(self._waiting) + list(self._limbo)
+                    + list(self._inflight.values()))
+            self._waiting.clear()
+            self._inflight.clear()
+            # decided with the drain: an abandon() after the lock drops
+            # collects nothing, and the supervisor merges what failover
+            # banks, deduped by request id
+            handoff = self._failover is not None and not self._abandoned
+        self._limbo = []
+        seen, victims = set(), []
+        for r in pool:
+            if r.id not in seen and not r.done.is_set():
+                seen.add(r.id)
+                victims.append(r)
+        try:
+            self.slots.reset()
+        except Exception:
+            logger.exception("slot-table reset failed during give-up")
+        if handoff:
+            logger.warning("handing %d request(s) to failover after %r",
+                           len(victims), error)
+            try:
+                self._failover(victims, error)
+                victims = []
+            except Exception:
+                logger.exception("failover handler failed; failing "
+                                 "requests instead")
+        err = EngineFailedError(f"serving engine failed: {error!r}")
+        err.__cause__ = error
+        for r in victims:
+            r._finish(err)
+            # failover victims stay live in the journal (they resubmit
+            # elsewhere); only terminally failed ones retire
+            self._journal_retire(r)
+        raise _Halt

@@ -37,6 +37,13 @@ Every batch a dispatch runs has the reference's rows (the padding rows of
 a short admission, the inactive slots of a step): int8 weights take one
 activation amax over a dispatch's rows, so a token depends on them.
 
+Recovery (``scheduler.Scheduler._recover``): :meth:`SlotManager.reset`
+discards every slot's state and reallocates the device tables, keeping the
+built kernels; ``poisoned`` is set whenever a dispatch raised after it may
+have queued work on the card (the cache may hold partly written rows),
+and only ``reset`` clears it. ``serving.prefill`` (``resilience/faults``)
+fires before an admission claims its slots.
+
 The paged manager (``serving/paging.py``) inherits the host-side table.
 """
 
@@ -50,6 +57,7 @@ import torch
 from bigdl_tpu_torch.models.gpt import prompt_bucket
 from bigdl_tpu_torch.models.spec import NGramDraft, accept_serving, commit
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
+from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.utils.profiling import DispatchCounters
 
 
@@ -103,6 +111,9 @@ class SlotManager:
 
     paged = False
     _stat_keys = ("prefills", "steps")
+    # the paged manager's host tier and restore state; none here
+    host_tier = None
+    restore_active = False
 
     def __init__(self, model, max_slots, window=4, steps_per_sync=1,
                  top_k=None, top_p=None, seed=0, spec_tokens=1):
@@ -126,6 +137,10 @@ class SlotManager:
         self.top_p = top_p
         self.max_position = model.gpt.max_position
         self._seed = int(seed)
+        self._resets = 0
+        # a dispatch raised after it may have queued work: nothing but
+        # reset() may touch the device tables again
+        self.poisoned = False
         self.stats = DispatchCounters(*self._stat_keys)
         self.stats.add("sampled_steps", 0)
         self._alloc()
@@ -140,7 +155,9 @@ class SlotManager:
         self._logits = torch.zeros((self.max_slots, self.model.vocab_size),
                                    dtype=self._dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self._seed)
+        # a stream of its own a table incarnation, so a rebuilt table does
+        # not replay the sampled tokens of the one it replaces
+        self._gen.manual_seed(self._seed + 1_000_003 * self._resets)
         # the draft table (with the logits, on the first shard's device) and
         # each slot's last committed token, the first ``prev`` of the next
         # block's committed pairs
@@ -160,6 +177,30 @@ class SlotManager:
         # shard (one chip's share when each shard has its own card)
         self._kv_token_bytes = sum(slot_bytes) // self.max_position
         self._kv_token_bytes_per_chip = slot_bytes[0] // self.max_position
+
+    def reset(self):
+        """Discard ALL slot state and reallocate the device tables: the
+        recovery entry point after a failed dispatch. The built kernels
+        are kept. On the card the devices are synchronised, so a sticky
+        CUDA error (the card refusing every call) raises here rather than
+        at the next dispatch. The caller re-admits whatever survives."""
+        self._resets += 1
+        self.last_counts = None
+        self._alloc()
+        layout = getattr(self.model, "layout", None)
+        for dev in {self.device} if layout is None else set(layout.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.poisoned = False
+
+    def warm_kernels(self):
+        """Build (or load) the kernels this table's dispatches launch, on
+        the card only: the scheduler calls it before its loop's first
+        heartbeat, so a first build never reads as a wedge."""
+        if self.device.type != "cuda":
+            return
+        from bigdl_tpu_torch.ops import _build, sampling
+        _build.load("sampling", sampling._declare)
 
     def free_slots(self):
         return self.max_slots - self._occupied
@@ -317,10 +358,13 @@ class SlotManager:
         for i, a in enumerate(arrs):
             ids[i, :a.size] = a
             lens[i] = a.size
+        # before any slot is claimed: a fault here must not leak slots
+        fault_point("serving.prefill", n=len(arrs))
         slots = [heapq.heappop(self._free) for _ in arrs]
         try:
             self._prefill(ids, lens, slots)
         except BaseException:
+            self.poisoned = True
             for s in slots:
                 heapq.heappush(self._free, s)
             raise
@@ -340,9 +384,13 @@ class SlotManager:
         inactive slots are junk. With ``spec_tokens`` > 1 the block is
         (block_span, max_slots) and ``last_counts[s]`` says how many of
         column ``s`` are committed."""
-        if self.spec_tokens > 1:
-            return self._finish_spec_block(*self._spec_step())
-        toks = self._step()
+        try:
+            if self.spec_tokens > 1:
+                return self._finish_spec_block(*self._spec_step())
+            toks = self._step()
+        except BaseException:
+            self.poisoned = True
+            raise
         self.lengths[self.active] = np.minimum(
             self.lengths[self.active] + self.steps_per_sync,
             self.max_position)

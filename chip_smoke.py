@@ -207,6 +207,53 @@ Phases, each printing one JSON line (any failure exits non-zero):
    requests equal to ``slice_int8``'s engine's, or diverging only where
    that run's top-2 gap is below 0.1. Reports tokens/s, TTFT, the
    shards' weight bytes, and a ``profile`` line.
+6c. resilience (after ``slice_tp_int8w``; ``slice``'s model, weights and
+   traffic, float32):
+   * slice_recovery — the paged and the dense engine under the fault plan
+     RECOVERY_PLAN (two consecutive step faults: the second lands in the
+     recovery's own probe block, so the group is bisected; a third step
+     fault later, a second recovery; one admission fault; paged, two
+     forced page exhaustions). Checks: 12 of 12 retired; at least 2
+     recoveries; greedy tokens equal the no-fault phase's (``slice`` /
+     ``slice_dense``) or first differ where the CPU run's top-2 logit gap
+     is below 1e-3, and requests 0 and 11 against the CPU run (the
+     near-tie rule); paged, exactly 12 kernel launches per prefill chunk
+     and step, re-placement included; one sampler launch per sampled
+     step. Then a poisoned request (``serving.step:error:req=<id>``) on
+     the dense engine: it alone fails (quarantined), the other 11 retire,
+     greedy ones as without the fault. Prints the seconds from each fired
+     fault to the next delivered token.
+   * slice_fault_sticky — a child process (``--sticky-child``) serves 4
+     of the requests on the paged engine; inside its third decode step an
+     out-of-range index into a card tensor raises a device-side assert, a
+     sticky CUDA error. Checks, from the child's JSON line: every handle
+     resolved with ``EngineFailedError`` (or ``CircuitOpenError``) caused
+     by a CUDA error, no token delivered after the fault, the child done
+     within 90 s. The parent's CUDA context is never touched.
+   * slice_supervisor — ``EngineSupervisor`` over a paged-engine factory
+     at ``max_recoveries=0``, one step fault: exactly one restart, the 8
+     greedy requests resubmitted and as without the fault (the near-tie
+     rule); prints the restart's seconds and each engine build's.
+   * slice_host_tier — 2 slots, a 96-page pool of pages of 16, four
+     distinct 512-token prompts one after another, then the first two
+     again, 64 greedy tokens each (a stream holds 36 pages, so the first
+     two are evicted, demoted, and promoted), on float32 and int8 pools
+     and at tp 2 on the one card, each beside the same traffic with the
+     tier off. Checks: tokens identical to the tier-off run; at least 32
+     promoted pages a repeated prompt; ``prefix_miss_tokens`` lower than
+     the tier-off run's by 16 a promoted page; every resident host buffer
+     mangled (``corrupt_planes``), the third prompt again re-prefills with
+     identical tokens; exactly 12 (tp 2: 24) kernel launches per chunk
+     and step. Prints the pinned bytes and their allocation's seconds,
+     and demote / promote MB/s of 32 pages through the pinned ring.
+   * slice_snapshot — an engine with ``kv_snapshot=True`` over a
+     temporary directory serves the 8 greedy requests and shuts down
+     (flushed); a new engine over the directory serves them again: at
+     least the 16 pages of the shared 256-token prefix restored, tokens
+     as before (the near-tie rule); a tp 2 engine restores the same
+     store; under ``serving.snapshot_write:corrupt`` the next engine
+     demotes every page it tries and re-prefills, same tokens. Prints the
+     restore and re-prefill seconds and the bytes written.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -1674,6 +1721,7 @@ def phase_slice(torch, kernels):
           f"{dispatches} chunk+step dispatches of {n_layers} layers")
     kernels["paged_attention"]["launches"] = counts["paged_attention"]
     kernels["fused_sampling"]["launches"] = counts["fused_sampling"]
+    _NO_FAULT["paged"] = outs
 
     # greedy tokens against the port's plain versions on the CPU: the float
     # path is row-local, so the engine's own tokens are compared
@@ -1921,6 +1969,7 @@ def phase_slice_dense(torch, kernels, f32_line, cpu_ref):
           f"slice_dense launched flash {counts['flash_fwd']} times")
     kernels["fused_sampling"].setdefault("launches_by_phase", {})[
         "slice_dense"] = counts["fused_sampling"]
+    _NO_FAULT["dense"] = outs
     cpu_toks, cpu_logits = cpu_ref
     divergences = _first_divergence(torch, "slice_dense",
                                      _engine_greedy(outs), cpu_toks,
@@ -3727,8 +3776,625 @@ def phase_train_optimizer(torch, kernels, smi):
     _facade_resnet(torch, kernels, smi)
 
 
+# ------------------------------------------------------------- resilience
+# the no-fault phases' outputs (all 12 requests), by path: what the fault
+# phases' greedy tokens are held to
+_NO_FAULT = {}
+_CPU_MODEL = {}
+
+
+def _cpu_top2_gap(torch, params, ids):
+    """The top-2 gap of the port's CPU run's next-token logits after
+    ``ids`` (the near-tie rule's yardstick at one divergence)."""
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    model = _CPU_MODEL.get("m")
+    if model is None:
+        model = gpt2_small(device="cpu")
+        model.load_state_dict(params)
+        model.requires_grad_(False)
+        _CPU_MODEL["m"] = model
+    with torch.no_grad():
+        logits = model(torch.as_tensor(ids, dtype=torch.long)[None])[-1]
+    top2 = torch.topk(logits.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def _near_tie_check(torch, name, params, got, want, idx):
+    """Requests ``idx``: ``got`` tokens equal ``want``'s, or first differ at
+    a step where the CPU run's top-2 logit gap (on the prompt and
+    ``want``'s tokens before it) is below FLOAT_GAP. Returns the
+    divergences."""
+    import numpy as np
+    found = []
+    for i in idx:
+        g, w = np.asarray(got[i]), np.asarray(want[i])
+        check(g.size == w.size, f"{name} request {i}: {g.size} tokens, "
+                                f"{w.size} without the fault")
+        miss = np.nonzero(g != w)[0]
+        if not miss.size:
+            continue
+        step = int(miss[0])
+        gap = _cpu_top2_gap(torch, params, w[:step])
+        print(f"{name} request {i}: tokens diverge at position {step}, "
+              f"CPU top-2 logit gap {gap}", flush=True)
+        check(gap < FLOAT_GAP, f"{name} request {i} diverges at position "
+                               f"{step} with a top-2 gap of {gap}")
+        found.append({"request": i, "position": step, "gap": gap})
+    return found
+
+
+GREEDY_IDX = [i for i in range(12) if TEMPS[i] == 0.0]
+# the recovery phase's plan: two consecutive step faults (the second lands
+# in the recovery's own probe block, so the group is bisected), a third a
+# while later (a second recovery), one admission fault; paged, two forced
+# page exhaustions
+RECOVERY_PLAN = ("serving.step:error:after=20:times=2;"
+                 "serving.step:error:after=40:times=1;"
+                 "serving.admit:error:times=1")
+RECOVERY_PAGED = ";serving.page_alloc:error:after=30:times=2"
+POISON_IDX = 5          # a greedy request, quarantined by a req= rule
+
+
+class _FaultClock:
+    """Times of fired faults (wrapping the harness's log hook) and of
+    token deliveries (wrapping ``Request._deliver``), to read the seconds
+    from each fault to the next delivered token."""
+
+    def __init__(self):
+        from bigdl_tpu_torch.resilience import faults
+        from bigdl_tpu_torch.serving.scheduler import Request
+        self.fired, self.delivered = [], []
+        self._faults, self._request = faults, Request
+        self._record, self._deliver = faults._record, Request._deliver
+        clock = self
+
+        def record(site, rule):
+            clock.fired.append((time.perf_counter(), site))
+            return clock._record(site, rule)
+
+        def deliver(req, chunk):
+            clock.delivered.append(time.perf_counter())
+            return clock._deliver(req, chunk)
+
+        faults._record = record
+        Request._deliver = deliver
+
+    def close(self):
+        self._faults._record = self._record
+        self._request._deliver = self._deliver
+
+    def gaps(self):
+        import bisect
+        out = []
+        for t, site in self.fired:
+            j = bisect.bisect_right(self.delivered, t)
+            out.append({"site": site, "s_to_next_token":
+                        (self.delivered[j] - t)
+                        if j < len(self.delivered) else None})
+        return out
+
+
+def _fault_run(torch, engine, prompts, plan, poison=None):
+    """The 12-request traffic under the fault ``plan`` (armed after the
+    warm-up; with ``poison``, the rule targets that request's id once it
+    is submitted), counts set to 0 just before and read just after.
+    Returns the outputs (None where a request failed), the errors, the
+    run's record and the fault-to-token gaps."""
+    from bigdl_tpu_torch.resilience import faults
+    engine.generate(prompts[0][:80], 4, timeout=300)        # warm-up
+    _reset_serving_counts()
+    engine.stats.reset()
+    retired0 = engine.metrics()["retired"]
+    clock = _FaultClock()
+    try:
+        if poison is None:
+            faults.configure(plan)
+        t0 = time.perf_counter()
+        handles = [engine.submit(prompts[i], N_NEW, temperature=TEMPS[i])
+                   for i in range(12)]
+        if poison is not None:
+            faults.configure(plan.format(id=handles[poison].id))
+        outs, errors = [], {}
+        for i, h in enumerate(handles):
+            try:
+                outs.append(h.result(timeout=600))
+            except Exception as e:    # noqa: BLE001 - held by the caller
+                outs.append(None)
+                errors[i] = repr(e)
+        wall = time.perf_counter() - t0
+        fired = faults.active_plan().counts()
+    finally:
+        faults.configure(None)
+        clock.close()
+    stats = engine.stats.snapshot()
+    counts = _serving_counts()
+    metrics = engine.metrics()
+    line = {"wall_s": wall, "retired": metrics["retired"] - retired0,
+            "failures": metrics["failures"],
+            "recoveries": metrics["recoveries"],
+            "quarantined": metrics["quarantined"],
+            "preempted": metrics["preempted"],
+            "faults_fired": {f"{s}:{k}": n for (s, k), n in fired.items()},
+            "launches": counts, "decode_steps": stats["steps"],
+            "sampled_steps": stats["sampled_steps"]}
+    if engine.paged:
+        line["prefill_chunks"] = stats["prefill_chunks"]
+    return outs, errors, line, clock.gaps()
+
+
+def phase_slice_recovery(torch, kernels, cpu_ref):
+    """``slice``'s model, weights and traffic on the paged and the dense
+    engine under RECOVERY_PLAN (see module docstring), then a poisoned
+    request on the dense engine."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    n_layers = len(model.gpt.layers)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)          # _serve_traffic's warm-up draw
+    prompts = _traffic(rng)
+    cpu_toks, cpu_logits = cpu_ref
+    lines = {}
+    for path in ("paged", "dense"):
+        paged = path == "paged"
+        engine = ServingEngine(model, None if path == "dense" else params,
+                               max_slots=8, paged=paged, page_size=16,
+                               prefill_chunk=64, top_k=50, top_p=0.9,
+                               seed=0)
+        plan = RECOVERY_PLAN + (RECOVERY_PAGED if paged else "")
+        try:
+            outs, errors, line, gaps = _fault_run(torch, engine, prompts,
+                                                  plan)
+        finally:
+            engine.shutdown()
+        check(not errors, f"slice_recovery {path}: failed requests "
+                          f"{errors}")
+        check(line["retired"] == 12, f"slice_recovery {path}: "
+                                     f"{line['retired']} of 12 retired")
+        check(line["recoveries"] >= 2,
+              f"slice_recovery {path}: {line['recoveries']} recoveries")
+        for i, o in enumerate(outs):
+            check(o.size == LENGTHS[i] + N_NEW,
+                  f"slice_recovery {path} request {i}: "
+                  f"{o.size - LENGTHS[i]} tokens")
+        gen = [o[LENGTHS[i]:] for i, o in enumerate(outs)]
+        base = [o[LENGTHS[i]:] for i, o in enumerate(_NO_FAULT[path])]
+        div = _near_tie_check(torch, f"slice_recovery {path}", params,
+                              outs, _NO_FAULT[path], GREEDY_IDX)
+        cpu_div = _first_divergence(torch, f"slice_recovery {path}",
+                                    _engine_greedy(outs), cpu_toks,
+                                    cpu_logits, FLOAT_GAP)
+        c = line["launches"]
+        if paged:
+            dispatches = line["prefill_chunks"] + line["decode_steps"]
+            check(c["paged_attention"] == n_layers * dispatches,
+                  f"slice_recovery paged: {c['paged_attention']} paged "
+                  f"launches for {dispatches} chunks and steps")
+            kernels["paged_attention"].setdefault("launches_by_phase", {})[
+                "slice_recovery"] = c["paged_attention"]
+        else:
+            check(c["paged_attention"] == 0 and c["flash_fwd"] == 0,
+                  f"slice_recovery dense launched {c}")
+        check(c["fused_sampling"] == line["sampled_steps"],
+              f"slice_recovery {path}: {c['fused_sampling']} sampler "
+              f"launches for {line['sampled_steps']} sampled steps")
+        kernels["fused_sampling"].setdefault("launches_by_phase", {})[
+            f"slice_recovery_{path}"] = c["fused_sampling"]
+        lines[path] = line
+        emit({"phase": "slice_recovery", "path": path, "plan": plan,
+              **line, "divergences_vs_no_fault": div,
+              "divergences_vs_cpu": cpu_div,
+              "exact_vs_no_fault": [bool(np.array_equal(gen[i], base[i]))
+                                    for i in GREEDY_IDX],
+              "fault_to_next_token": gaps})
+        del engine
+        torch.cuda.empty_cache()
+
+    # a poisoned request on the dense engine: quarantined alone
+    engine = ServingEngine(model, None, max_slots=8, top_k=50, top_p=0.9,
+                           seed=0)
+    plan = "serving.step:error:req={id}"
+    try:
+        outs, errors, line, gaps = _fault_run(torch, engine, prompts, plan,
+                                              poison=POISON_IDX)
+    finally:
+        engine.shutdown()
+    check(list(errors) == [POISON_IDX] and "FaultError" in
+          errors[POISON_IDX], f"slice_recovery poison: errors {errors}")
+    check(line["quarantined"] == 1 and line["retired"] == 11,
+          f"slice_recovery poison: {line['quarantined']} quarantined, "
+          f"{line['retired']} retired")
+    others = [i for i in GREEDY_IDX if i != POISON_IDX]
+    div = _near_tie_check(torch, "slice_recovery poison", params, outs,
+                          _NO_FAULT["dense"], others)
+    emit({"phase": "slice_recovery", "path": "dense_poisoned",
+          "poisoned_request": POISON_IDX, **line,
+          "divergences_vs_no_fault": div, "fault_to_next_token": gaps})
+    del engine, model
+    torch.cuda.empty_cache()
+    return lines
+
+
+STICKY_IDX = [0, 2, 6, 11]       # greedy requests of the traffic
+STICKY_STEP = 3                  # the decode step that faults
+STICKY_TIMEOUT_S = 90
+
+
+def _sticky_child():
+    """The child of ``slice_fault_sticky`` (``--sticky-child``): 4 of
+    ``slice``'s requests on the paged engine; inside the third decode step
+    an out-of-range index into a card tensor raises a device-side assert,
+    a sticky CUDA error. Prints one JSON line with every handle's outcome
+    and exits at once (``os._exit``: the process's CUDA context is
+    unusable)."""
+    import os
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, seed=0)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)
+    prompts = _traffic(rng)
+    state = {"steps": 0, "at_fault": None, "t_fault": None}
+    handles = []
+    real = engine.slots._decode
+
+    def faulting_decode(tok, pos):
+        state["steps"] += 1
+        if state["steps"] == STICKY_STEP:
+            state["at_fault"] = [len(h.tokens) for h in handles]
+            state["t_fault"] = time.perf_counter()
+            probe = torch.zeros(4, device=tok.device)
+            probe[torch.full((1,), 1 << 30, device=tok.device,
+                             dtype=torch.long)] = 1.0    # out of range
+        return real(tok, pos)
+
+    engine.slots._decode = faulting_decode
+    t0 = time.perf_counter()
+    submitted = [engine.submit(prompts[i], N_NEW) for i in STICKY_IDX]
+    handles.extend(submitted)
+    out = []
+    for h in handles:
+        ok = h.done.wait(STICKY_TIMEOUT_S - 10)
+        err = h.error
+        out.append({"resolved": ok, "error": type(err).__name__,
+                    "cause": repr(getattr(err, "__cause__", None))[:300],
+                    "tokens": len(h.tokens)})
+    print(json.dumps({"sticky_child": out, "at_fault": state["at_fault"],
+                      "steps": state["steps"],
+                      "recoveries": engine.scheduler.recoveries,
+                      "failed": repr(engine.scheduler.failed)[:300],
+                      "resolve_s": time.perf_counter() - (state["t_fault"]
+                                                          or t0),
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_slice_fault_sticky(torch):
+    """A real sticky CUDA fault, in a child process (see module
+    docstring); the parent's CUDA context is never touched."""
+    import os
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sticky-child"],
+            capture_output=True, text=True, timeout=STICKY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"slice_fault_sticky: the child ran past "
+                           f"{STICKY_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"sticky_child"')]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"slice_fault_sticky child: rc {proc.returncode}, stdout "
+          f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+    got = json.loads(lines[0])
+    check(got["at_fault"] is not None
+          and len(got["at_fault"]) == len(STICKY_IDX),
+          f"the sticky fault ran at {got['at_fault']}")
+    for i, (h, n0) in enumerate(zip(got["sticky_child"], got["at_fault"])):
+        check(h["resolved"], f"slice_fault_sticky handle {i} hung")
+        check(h["error"] in ("EngineFailedError", "CircuitOpenError")
+              and "CUDA" in h["cause"],
+              f"slice_fault_sticky handle {i}: {h}")
+        check(h["tokens"] == n0, f"slice_fault_sticky handle {i}: "
+                                 f"{h['tokens'] - n0} tokens after the fault")
+    check(wall < STICKY_TIMEOUT_S, f"the child took {wall} s")
+    assert_msgs = [ln for ln in proc.stderr.splitlines()
+                   if "Assertion" in ln][:2]
+    emit({"phase": "slice_fault_sticky", "child_s": wall, **got,
+          "device_assert": assert_msgs})
+
+
+def phase_slice_supervisor(torch, smi):
+    """``EngineSupervisor`` over a paged-engine factory at
+    ``max_recoveries=0`` with one step fault: one restart, the requests
+    resubmitted, greedy tokens as without the fault (the near-tie rule);
+    the restart's seconds (the engine's rebuild and its pool on the
+    card)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.resilience.supervisor import EngineSupervisor
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    model.load_state_dict(params)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)
+    prompts = _traffic(rng)
+    builds = []
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, None, max_slots=8, paged=True,
+                            page_size=16, prefill_chunk=64, top_k=50,
+                            top_p=0.9, seed=0, max_recoveries=0)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return eng
+
+    sup = EngineSupervisor(factory, poll_interval_s=0.01,
+                           backoff_base_s=0.01, backoff_max_s=0.05)
+    try:
+        sup.generate(prompts[0][:80], 4, timeout=300)       # warm-up
+        faults.configure("serving.step:error:after=10:times=1")
+        t0 = time.perf_counter()
+        handles = [sup.submit(prompts[i], N_NEW) for i in GREEDY_IDX]
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        fired = faults.active_plan().counts()
+    finally:
+        faults.configure(None)
+        sup.close()
+    check(sup.restarts == 1, f"slice_supervisor: {sup.restarts} restarts")
+    check(fired == {("serving.step", "error"): 1}, f"faults {fired}")
+    div = _near_tie_check(torch, "slice_supervisor", params,
+                          dict(zip(GREEDY_IDX, outs)), _NO_FAULT["paged"],
+                          GREEDY_IDX)
+    emit({"phase": "slice_supervisor", "requests": GREEDY_IDX,
+          "restarts": sup.restarts, "restart_s": sup.last_recovery_s,
+          "engine_build_s": builds, "resubmitted": sup.resubmitted,
+          "wall_s": wall, "divergences_vs_no_fault": div, "card": smi})
+
+
+TIER_PROMPT = 512        # four distinct prompts of 32 full pages each
+TIER_POOL = 96           # pages of 16: 2.67 streams of 36 pages
+TIER_ORDER = [0, 1, 2, 3, 0, 1]
+
+
+def _tier_engine(model, params, tier, **kw):
+    from bigdl_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, params, max_slots=2, paged=True,
+                         page_size=16, kv_pages=TIER_POOL, prefill_chunk=64,
+                         seed=0, kv_host_tier=tier, **kw)
+
+
+def _tier_run(torch, engine, prompts):
+    """TIER_ORDER's prompts one after another, 64 greedy tokens each."""
+    outs = []
+    for i in TIER_ORDER:
+        outs.append(engine.generate(prompts[i], N_NEW, timeout=600))
+        if engine._host_copier is not None:
+            engine._host_copier.drain()    # its demotions are resident
+    return outs
+
+
+def _tier_rates(torch, engine):
+    """Demote and promote MB/s of 32 pages (37.7 MB at GPT-2 small's
+    float32 page) through the engine's pinned staging ring, timed around
+    a synchronised card, after the engine's loop stopped: the page slice
+    and read back (``_page_buffer`` + ``PinnedStaging.download``), then
+    the upload and scatter (``_dispatch_load``)."""
+    slots, tier = engine.slots, engine.host_tier
+    pages = list(range(32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    items = [slots._device_page(p) for p in pages]
+    host = [it.to_host() for it in items]
+    torch.cuda.synchronize()
+    t_down = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for pl in host[0] for a in pl.values())
+    t0 = time.perf_counter()
+    slots._dispatch_load(pages, host)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    st = tier.stats()
+    return {"page_bytes": nbytes,
+            "demote_MB_per_s": 32 * nbytes / t_down / 1e6,
+            "promote_MB_per_s": 32 * nbytes / t_up / 1e6,
+            "copier_MB_per_s": (st["ingested_bytes"] / st["ingest_s"] / 1e6
+                                if st["ingest_s"] else None)}
+
+
+def phase_slice_host_tier(torch, kernels, smi):
+    """The host tier at GPT-2 small (see module docstring): float32 and
+    int8 pools, and tp 2 on the one card."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.resilience import faults
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 50257, TIER_PROMPT) for _ in range(4)]
+    params = None
+    for name, kw in (("float32", {}), ("int8", {"int8_kv": True}),
+                     ("tp2", {"mesh": TP_MESH})):
+        model = gpt2_small(device="cpu" if "mesh" in kw else "cuda")
+        if params is None:
+            params = convert.init_params(model, seed=0)
+        model.load_state_dict(params)
+        off = _tier_engine(model, None, False, **kw)
+        try:
+            base = _tier_run(torch, off, prompts)
+            off_miss = off.metrics()["prefix_miss_tokens"]
+        finally:
+            off.shutdown()
+        del off
+        _reset_serving_counts()
+        eng = _tier_engine(model, None, True, **kw)
+        try:
+            stats0 = eng.stats.snapshot()
+            t0 = time.perf_counter()
+            outs = _tier_run(torch, eng, prompts)
+            wall = time.perf_counter() - t0
+            counts = _serving_counts()
+            stats = eng.stats.snapshot()
+            met = eng.metrics()
+            # corrupt every resident host buffer, then the third prompt
+            # again: its pages fail their checksums and it re-prefills
+            faults.configure("serving.host_swap:corrupt")
+            with eng.host_tier._lock:
+                for entry in eng.host_tier._resident.values():
+                    entry["planes"] = faults.corrupt_planes(
+                        "serving.host_swap", entry["planes"])
+            faults.configure(None)
+            again = eng.generate(prompts[2], N_NEW, timeout=600)
+            met2 = eng.metrics()
+        finally:
+            faults.configure(None)
+            eng.shutdown()
+        rates = _tier_rates(torch, eng) if name != "tp2" else None
+        for k, (g, w) in enumerate(zip(outs, base)):
+            check(np.array_equal(g, w), f"slice_host_tier {name}: request "
+                                        f"{k} differs from the tier-off run")
+        check(np.array_equal(again, base[2]),
+              f"slice_host_tier {name}: the corrupted run differs")
+        promoted = met["host_tier_promoted_pages"]
+        check(promoted >= 2 * 32, f"slice_host_tier {name}: {promoted} "
+                                  f"pages promoted, want 32 a repeat")
+        check(off_miss - met["prefix_miss_tokens"] == 16 * promoted,
+              f"slice_host_tier {name}: miss tokens {off_miss} off, "
+              f"{met['prefix_miss_tokens']} on, {promoted} promoted")
+        check(met2["host_tier_corrupt_dropped"] >= 1,
+              f"slice_host_tier {name}: no corrupt page dropped")
+        n_layers = 12
+        dispatches = ((stats["prefill_chunks"] - stats0["prefill_chunks"])
+                      + (stats["steps"] - stats0["steps"]))
+        key = "paged_attention_int8" if "int8_kv" in kw else "paged_attention"
+        want = n_layers * dispatches * (2 if "mesh" in kw else 1)
+        check(counts[key] == want, f"slice_host_tier {name}: {counts[key]} "
+                                   f"{key} launches, want {want}")
+        entry = kernels.get("paged_attention_int8" if "int8_kv" in kw
+                            else ("paged_attention_tp" if "mesh" in kw
+                                  else "paged_attention"), {})
+        entry.setdefault("launches_by_phase", {})[
+            f"slice_host_tier_{name}"] = counts[key]
+        emit({"phase": "slice_host_tier", "pool": name,
+              "pool_pages": TIER_POOL, "prompt_tokens": TIER_PROMPT,
+              "order": TIER_ORDER, "wall_s": wall,
+              "promoted_pages": promoted,
+              "demoted_pages": met["host_tier_demoted_pages"],
+              "prefix_miss_tokens": met["prefix_miss_tokens"],
+              "prefix_miss_tokens_tier_off": off_miss,
+              "corrupt_dropped": met2["host_tier_corrupt_dropped"],
+              "pinned_bytes": met.get("host_tier_pinned_bytes"),
+              "pin_alloc_s": met.get("host_tier_pin_alloc_s"),
+              "swap_stall_s": met["host_tier_swap_stall_s"],
+              "budget_bytes": met["host_tier_budget_bytes"],
+              "rates": rates, "launches": counts, "card": smi})
+        del eng, model
+        torch.cuda.empty_cache()
+
+
+def phase_slice_snapshot(torch, kernels, smi):
+    """The snapshot store at GPT-2 small (see module docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)
+    prompts = _traffic(rng)
+    cpu_model = gpt2_small(device="cpu")
+    params = convert.init_params(cpu_model, seed=0)
+    cpu_model.load_state_dict(params)
+    model = gpt2_small()
+    model.load_state_dict(params)
+
+    def serve(d, journal=None, **kw):
+        m = cpu_model if "mesh" in kw else model
+        engine = ServingEngine(m, None, max_slots=8, paged=True,
+                               page_size=16, prefill_chunk=64, seed=0,
+                               kv_snapshot=True, snapshot_dir=d,
+                               snapshot_interval_s=0.5,
+                               snapshot_journal=journal, **kw)
+        try:
+            t0 = time.perf_counter()
+            hs = [engine.submit(prompts[i], N_NEW) for i in GREEDY_IDX]
+            outs = {i: h.result(timeout=600) for i, h in zip(GREEDY_IDX, hs)}
+            wall = time.perf_counter() - t0
+        finally:
+            engine.shutdown()          # the last pass, flushed
+        return outs, wall, engine.metrics()
+
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as bad:
+        first, t_first, m1 = serve(d)
+        written = sum(f.stat().st_size for f in
+                      Path(d, "pages").glob("*.page"))
+        second, t_second, m2 = serve(d, journal="j2.jsonl")
+        third, t_third, m3 = serve(d, journal="j3.jsonl", mesh=TP_MESH)
+        faults.configure("serving.snapshot_write:corrupt")
+        try:
+            serve(bad)
+        finally:
+            faults.configure(None)
+        fourth, t_fourth, m4 = serve(bad, journal="j4.jsonl")
+    shared = [i for i in (3, 9) if i in GREEDY_IDX]
+    check(m2["restored_pages"] >= 16,
+          f"slice_snapshot: {m2['restored_pages']} pages restored, want "
+          f"the 16 of the shared prefix at least")
+    check(m3["restored_pages"] >= 16,
+          f"slice_snapshot tp 2: {m3['restored_pages']} pages restored")
+    check(m4["restored_pages"] == 0 and m4["snapshot_corrupt_dropped"] > 0,
+          f"slice_snapshot corrupt: {m4['restored_pages']} restored, "
+          f"{m4['snapshot_corrupt_dropped']} dropped")
+    divs = {}
+    for name, outs in (("restart", second), ("tp2", third),
+                       ("corrupt", fourth)):
+        divs[name] = _near_tie_check(torch, f"slice_snapshot {name}",
+                                     params, outs, first, GREEDY_IDX)
+    emit({"phase": "slice_snapshot", "requests": GREEDY_IDX,
+          "shared_prefix_requests": shared,
+          "pages_written": m1["snapshot_pages_written"],
+          "bytes_written": written,
+          "restored_pages": m2["restored_pages"],
+          "restored_pages_tp2": m3["restored_pages"],
+          "corrupt_dropped": m4["snapshot_corrupt_dropped"],
+          "prefix_miss_tokens": {"first": m1["prefix_miss_tokens"],
+                                 "restart": m2["prefix_miss_tokens"],
+                                 "corrupt": m4["prefix_miss_tokens"]},
+          "seconds": {"first": t_first, "restore": t_second,
+                      "restore_tp2": t_third, "reprefill": t_fourth},
+          "divergences": divs, "card": smi})
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
+    if "--sticky-child" in sys.argv:
+        return _sticky_child()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script measures the "
               "GPU only", file=sys.stderr)
@@ -3776,6 +4442,11 @@ def main():
         None, int8_kv=True)
     run("slice_tp_int8w", phase_slice_tp_int8w, torch, kernels, f32_line,
         int8_line, int8_ref)
+    run("slice_recovery", phase_slice_recovery, torch, kernels, cpu_ref)
+    run("slice_fault_sticky", phase_slice_fault_sticky, torch)
+    run("slice_supervisor", phase_slice_supervisor, torch, smi)
+    run("slice_host_tier", phase_slice_host_tier, torch, kernels, smi)
+    run("slice_snapshot", phase_slice_snapshot, torch, kernels, smi)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

@@ -6,7 +6,7 @@ the JAX ``ServingEngine(paged=True)``'s on the same weights, for 4 prompts
 on 2 slots (so two are admitted mid-flight) with a shared prompt prefix.
 A sampled request retires; the engine refuses to start without a device
 when CUDA is absent; CPU tensors never launch a kernel; the reference's
-unported options raise.
+unported options raise, and the ones ported since serve.
 """
 
 import jax
@@ -111,10 +111,14 @@ UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7"
 
 
 # options these cases once refused and now serve: the dense slot table
-# (ROADMAP A.2), int8 weights under tensor parallelism (A.6b) and
-# speculative decoding by keyword or by its flag (A.5)
+# (ROADMAP A.2), int8 weights under tensor parallelism (A.6b), speculative
+# decoding by keyword or by its flag (A.5), the failover hook (A.4) and the
+# snapshot store and host tier by keyword or by their flags (A.7)
 NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True},
-              {"spec_tokens": 4}, {"BIGDL_TPU_SPEC_DECODE": "1"})
+              {"spec_tokens": 4}, {"BIGDL_TPU_SPEC_DECODE": "1"},
+              {"failover": True}, {"kv_snapshot": True},
+              {"kv_host_tier": True}, {"BIGDL_TPU_KV_SNAPSHOT": "1"},
+              {"BIGDL_TPU_KV_HOST_TIER": "1"})
 
 
 @pytest.mark.parametrize("kw", [
@@ -124,15 +128,20 @@ NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True},
     {"kv_snapshot": True}, {"kv_host_tier": True},
     *({flag: "1"} for flag in UNPORTED_FLAGS),
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(weights, kw, monkeypatch):
+def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
     """By keyword, or by the reference's flag (``BIGDL_TPU_*`` keys are set
     in the environment, not passed), naming the ROADMAP item. The cases
     of NOW_PORTED serve instead, on the path they name: ``paged=False``
     from the dense table, ``tp=2, int8_weights=True`` from int8 shards,
-    ``spec_tokens=4`` or ``BIGDL_TPU_SPEC_DECODE`` speculatively."""
+    ``spec_tokens=4`` or ``BIGDL_TPU_SPEC_DECODE`` speculatively,
+    ``kv_snapshot`` (over ``BIGDL_TPU_SNAPSHOT_DIR``) with a page store
+    and ``kv_host_tier`` with a host tier."""
     _, _, sd = weights
     ported = kw in NOW_PORTED
     spec = "spec_tokens" in kw or "BIGDL_TPU_SPEC_DECODE" in kw
+    snap = "kv_snapshot" in kw or "BIGDL_TPU_KV_SNAPSHOT" in kw
+    tier = "kv_host_tier" in kw or "BIGDL_TPU_KV_HOST_TIER" in kw
+    monkeypatch.setenv("BIGDL_TPU_SNAPSHOT_DIR", str(tmp_path))
     kw = dict(kw)
     match = "ROADMAP"
     for flag in [k for k in kw if k.startswith("BIGDL_TPU_")]:
@@ -151,6 +160,8 @@ def test_unported_options_raise(weights, kw, monkeypatch):
         assert (met["int8_matmuls"] > calls) == ("int8_weights" in kw)
         assert eng.spec_tokens == (4 if spec else 1)
         assert (met.get("spec_proposed", 0) > 0) == spec
+        assert (eng.snapshot is not None) == snap
+        assert (eng.host_tier is not None) == tier
         return
     with pytest.raises(NotImplementedError, match=match):
         ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
@@ -181,17 +192,38 @@ def test_unported_flag_yields_to_keyword(weights, flag, kw, monkeypatch):
     ("adapter_slots", 2, "lora"),
     ("adapter_host_bytes", 1 << 20, "lora"),
 ])
-def test_sub_options_follow_parent(weights, sub, value, parent):
-    """A sub-option of an unported option is ignored while its parent is
-    off and refused, naming the ROADMAP item, while it is on; an unknown
-    keyword is still a TypeError."""
+def test_sub_options_follow_parent(weights, sub, value, parent, tmp_path):
+    """A sub-option is ignored while its parent is off. With the parent on,
+    a ported parent's sub-option takes effect (the snapshot store's
+    directory, interval and journal; the host tier's budget and
+    prefetch), an unported one's is refused, naming the ROADMAP item; an
+    unknown keyword is still a TypeError."""
     _, _, sd = weights
+    if sub == "snapshot_dir":
+        value = str(tmp_path / "snapshots")
     with _port_engine(sd, **{sub: value}) as eng:
         assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 5 + 2
+        assert eng.snapshot is None and eng.host_tier is None
     m = GPTForCausalLM(**CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{sub}.*ROADMAP queue A"):
-        ServingEngine(m, sd, device="cpu", **ENGINE,
-                      **{sub: value, parent: True})
+    if parent == "lora":
+        with pytest.raises(NotImplementedError,
+                           match=f"{sub}.*ROADMAP queue A"):
+            ServingEngine(m, sd, device="cpu", **ENGINE,
+                          **{sub: value, parent: True})
+    else:
+        extra = ({} if parent != "kv_snapshot" or sub == "snapshot_dir"
+                 else {"snapshot_dir": str(tmp_path)})
+        with ServingEngine(m, sd, device="cpu", **ENGINE, **extra,
+                           **{sub: value, parent: True}) as eng:
+            assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 7
+            took = {"snapshot_dir": lambda: eng.snapshot.directory,
+                    "snapshot_interval_s": lambda: eng.snapshot.interval_s,
+                    "snapshot_journal":
+                        lambda: eng.snapshot.journal.path.rsplit("/", 1)[1],
+                    "host_tier_bytes": lambda: eng.host_tier.budget_bytes,
+                    "host_tier_prefetch":
+                        lambda: eng.slots.host_tier_prefetch}[sub]()
+        assert took == value
     with pytest.raises(TypeError, match="unexpected keyword"):
         ServingEngine(m, sd, device="cpu", **ENGINE, **{f"{sub}_x": value})
 
@@ -224,13 +256,25 @@ def test_request_checks_and_failure_reaches_result(weights, monkeypatch):
         ok = eng.generate(_prompts()[1], 3, timeout=WAIT)
         assert ok.size == 5 + 3
 
-        # any dispatch error fails the request with that error
+        # a dispatch that fails every time: the recovery re-places the
+        # request, its probe fails again, and it alone is quarantined with
+        # that error; the engine serves on
         def boom(*a, **k):
             raise RuntimeError("kernel fault")
 
         monkeypatch.setattr(eng.slots, "_step", boom)
         h = eng.submit(_prompts()[1], 3)
         with pytest.raises(RuntimeError, match="kernel fault"):
+            h.result(timeout=WAIT)
+        met = eng.metrics()
+        assert met["quarantined"] == 1 and met["recoveries"] == 1
+        monkeypatch.undo()
+        assert eng.generate(_prompts()[1], 3, timeout=WAIT).size == 5 + 3
+    # at a budget of 0 the first error fails the request and the engine
+    with _port_engine(sd, kv_pages=8, max_recoveries=0) as eng:
+        monkeypatch.setattr(eng.slots, "_step", boom)
+        h = eng.submit(_prompts()[1], 3)
+        with pytest.raises(EngineFailedError, match="kernel fault"):
             h.result(timeout=WAIT)
         with pytest.raises(EngineFailedError):
             eng.submit(_prompts()[1], 3)

@@ -195,11 +195,11 @@ def test_dense_cache_bytes():
 
 
 def test_dispatch_error_fails_every_inflight_request(monkeypatch):
-    """A decode step that raises fails every request in flight, and the
-    engine then refuses new work (the reference's recovery is ROADMAP
-    queue A.4)."""
+    """At a recovery budget of 0 a decode step that raises fails every
+    request in flight, and the engine then refuses new work (at the
+    default budget the loop recovers in place: ``test_torch_recovery``)."""
     _, _, sd = _pair(0)
-    eng = _port(sd, max_slots=2, max_queue=8)
+    eng = _port(sd, max_slots=2, max_queue=8, max_recoveries=0)
     boom = RuntimeError("injected dispatch fault")
     calls = {"n": 0}
     real = SlotManager._step

@@ -12,8 +12,9 @@ same seeded weights (``convert``):
   makes the port refuse, naming ROADMAP queue A.8;
 - ``max_recoveries=0`` serves, and a failing dispatch then fails every
   request with the reference's ``EngineFailedError``, caused by the
-  dispatch's error; a budget of 1 or more, and ``failover`` (which the
-  reference calls even at budget 0), are still refused.
+  dispatch's error; ``failover`` receives the victims instead, in both;
+  at a budget of 1 or more a transient dispatch error is recovered in
+  place, with the reference's tokens.
 """
 
 import jax
@@ -162,30 +163,54 @@ def test_zero_recovery_budget_serves_then_gives_up_like_the_reference(
 
 def test_reference_failover_runs_at_budget_zero(pair, monkeypatch):
     """The reference hands the victims to ``failover`` even at a budget of
-    0, so the port (which has no failover) keeps refusing it."""
+    0, and so does the port: the request is handed over unfinished."""
     jm, params, sd = pair
-    got = []
-    jeng = JaxEngine(jm, params, max_slots=2, max_recoveries=0,
-                     failover=lambda victims, error: got.append(
-                         (len(victims), str(error))))
-    try:
-        _fail_third_step(jeng.slots, "step", monkeypatch, jeng.slots.step)
-        jeng.submit(PROMPTS[0], 20)
-        for _ in range(400):
-            if got:
-                break
-            jeng.scheduler._thread.join(0.05)
-        assert got == [(1, "injected dispatch fault")]
-    finally:
-        jeng.shutdown(drain=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.4"):
-        ServingEngine(GPTForCausalLM(**CFG, device="cpu"), sd, device="cpu",
-                      max_recoveries=0, failover=lambda v, e: None)
+    results = []
+    for make, obj, attr in (
+            (lambda fo: JaxEngine(jm, params, max_slots=2, max_recoveries=0,
+                                  failover=fo), None, "step"),
+            (lambda fo: ServingEngine(GPTForCausalLM(**CFG, device="cpu"),
+                                      sd, device="cpu", max_slots=2,
+                                      max_recoveries=0, failover=fo),
+             SlotManager, "_step")):
+        got = []
+        eng = make(lambda victims, error: got.append(
+            (len(victims), str(error), victims[0].done.is_set())))
+        try:
+            target = eng.slots if obj is None else obj
+            _fail_third_step(target, attr, monkeypatch,
+                             getattr(target, attr))
+            eng.submit(PROMPTS[0], 20)
+            for _ in range(400):
+                if got:
+                    break
+                eng.scheduler._thread.join(0.05)
+            results.append(got)
+        finally:
+            eng.shutdown(drain=False)
+            monkeypatch.undo()
+    assert results == [[(1, "injected dispatch fault", False)]] * 2
 
 
 @pytest.mark.parametrize("budget", [1, 8])
-def test_positive_recovery_budget_is_refused(pair, budget):
-    _, _, sd = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.4"):
-        ServingEngine(GPTForCausalLM(**CFG, device="cpu"), sd, device="cpu",
-                      max_recoveries=budget)
+def test_positive_recovery_budget_is_refused(pair, budget, monkeypatch):
+    """A budget of 1 or more, once refused, now recovers a transient
+    dispatch error in place in both engines: the reference's tokens, one
+    recovery each."""
+    jeng, eng = _engines(pair, max_recoveries=budget)
+    try:
+        _fail_third_step(jeng.slots, "step", monkeypatch, jeng.slots.step)
+        _fail_third_step(SlotManager, "_step", monkeypatch,
+                         SlotManager._step)
+        outs = []
+        for e in (jeng, eng):
+            hs = [e.submit(p, 12) for p in PROMPTS[:2]]
+            outs.append([np.asarray(h.result(timeout=WAIT)) for h in hs])
+        for g, w in zip(outs[1], outs[0]):
+            np.testing.assert_array_equal(g, w)
+        assert jeng.scheduler.recoveries == 1
+        assert eng.metrics()["recoveries"] == 1
+        assert eng.metrics()["failures"] == 1
+    finally:
+        jeng.shutdown(drain=False)
+        eng.shutdown(drain=False)
