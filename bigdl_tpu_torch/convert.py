@@ -50,6 +50,10 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
   nodes;
 - :func:`module_params_to_jax` is its inverse, ``(params, state)`` in
   that layout (a graph's as such lists).
+
+LoRA adapters (``models/lora.py``): :func:`adapter_from_jax` takes a
+reference adapter tree, its arrays pulled to numpy, as the port's tree:
+the same arrays in the same orientation, checked by the digest.
 """
 
 from __future__ import annotations
@@ -292,3 +296,17 @@ def module_params_to_jax(model, state_dict=None):
         return params or (), state or ()
 
     return walk(model, "")
+
+
+def adapter_from_jax(tree):
+    """The port's adapter of a reference ``models/lora.init_adapter`` tree
+    (``{"rank", "alpha", "layers": [{target: {"a", "b"}}]}``, its arrays
+    numpy or anything ``np.asarray`` takes): an identity on the arrays,
+    each copied into a numpy array of its own, in the same (in, r) / (r,
+    out) orientation and dtype, so ``models.lora.adapter_digest`` of the
+    result is the reference's digest of the tree."""
+    return {"rank": int(tree["rank"]), "alpha": float(tree["alpha"]),
+            "layers": [{tgt: {part: np.array(ab[part], copy=True)
+                              for part in ("a", "b")}
+                        for tgt, ab in layer.items()}
+                       for layer in tree["layers"]]}

@@ -41,6 +41,13 @@ weights, the shards' int32 accumulators before one dequantising multiply
 (``nn.quantized.qmatmul_row_parallel``), which gives the unsharded int8
 product bit for bit. :func:`partition_specs` names each parameter's role
 in ``parallel/layout.py``'s table.
+
+Multi-tenant LoRA (``models/lora.py``): every cache-path method and states
+function takes an optional ``lora``, the dispatch's slab tree (per shard
+under tp), and every target projection of every layer adds its delta
+(``nn.quantized.lora_linear``; a row-parallel target's delta partials are
+summed over the shards after the base product's). Without it the path
+runs exactly the operations it ran before LoRA was ported.
 """
 
 from __future__ import annotations
@@ -50,10 +57,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.models.lora import layer_lora
 from bigdl_tpu_torch.models.spec import (NGramDraft, accept_serving, commit,
                                          spec_config)
 from bigdl_tpu_torch.nn import LayerNormalization, Linear
-from bigdl_tpu_torch.nn.quantized import Int8Linear, qmatmul_row_parallel
+from bigdl_tpu_torch.nn.quantized import (Int8Linear, lora_down,
+                                          lora_linear, lora_up,
+                                          qmatmul_row_parallel)
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.parallel.layout import (SpecLayout, all_reduce_sum,
@@ -91,12 +101,15 @@ class TransformerDecoderBlock(nn.Module):
         self.fc1 = Linear(hidden_size, inter // tp, **kw)
         self.fc2 = Linear(inter // tp, hidden_size, **kw)
 
-    def _inner(self, x):
+    def _inner(self, x, lora=None):
         # jax.nn.gelu defaults to the tanh approximation
-        return F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
+        return F.gelu(lora_linear(self.fc1, self.ln2(x),
+                                  None if lora is None else lora.get("fc1")),
+                      approximate="tanh")
 
-    def _mlp(self, x):
-        return self.fc2(self._inner(x))
+    def _mlp(self, x, lora=None):
+        return lora_linear(self.fc2, self._inner(x, lora),
+                           None if lora is None else lora.get("fc2"))
 
     def _drop(self, h, generator):
         """Inverted dropout of ``h`` in training mode with a generator;
@@ -113,11 +126,15 @@ class TransformerDecoderBlock(nn.Module):
         return x + self._drop(self._mlp(x), generator)
 
 
-def _row_parallel(linears, xs):
+def _row_parallel(linears, xs, los=None):
     """A row-parallel projection (``wo`` or ``fc2``) of the shards' inputs
     ``xs`` without its bias, summed over the shards on the first shard's
     device: float partials added in shard order, or, for ``Int8Linear``
-    shards, :func:`nn.quantized.qmatmul_row_parallel`. The same bits are
+    shards, :func:`nn.quantized.qmatmul_row_parallel`; then, with ``los``
+    (each shard's ``(a, b, scale)`` of this target: A its input rows, B
+    whole), the LoRA delta as the reference's layout computes it: the
+    shards' rank-r partials ``x_i @ A_i`` summed in shard order, then B
+    and the scale applied once, on the first shard. The same bits are
     copied to every shard's device."""
     if isinstance(linears[0], Int8Linear):
         y = qmatmul_row_parallel(xs, [lin.weight for lin in linears],
@@ -125,26 +142,45 @@ def _row_parallel(linears, xs):
     else:
         y = reduce_sum([F.linear(x, lin.weight)
                         for lin, x in zip(linears, xs)])
+    if los is not None:
+        u = reduce_sum([lora_down(x, lo[0]) for x, lo in zip(xs, los)])
+        y = y + lora_up(u, *los[0][1:])
     return broadcast(y, [x.device for x in xs])
 
 
-def block_rest(blocks, xs, outs):
+def _target(los, tgt):
+    """Each shard's ``(a, b, scale)`` of ``tgt`` in a layer's LoRA batches
+    ``los``, or None."""
+    if los is None or tgt not in los[0]:
+        return None
+    return [lo[tgt] for lo in los]
+
+
+def _at(los, j):
+    return None if los is None else los[j]
+
+
+def block_rest(blocks, xs, outs, los=None):
     """A block after its attention, over the shards: ``outs`` the shards'
-    attention outputs (B, H_shard, C, D), ``xs`` their residual streams.
+    attention outputs (B, H_shard, C, D), ``xs`` their residual streams,
+    ``los`` each shard's LoRA batch of the layer (or None).
     x += wo(attention); x += fc2(gelu(fc1(ln2(x)))). One shard: the
     block's own modules. Several: ``wo`` and ``fc2`` row-parallel
     (:func:`_row_parallel`), the replicated ``fc2`` bias added once after
     the sum, so every shard keeps the same bits."""
     if len(blocks) == 1:
-        blk, x = blocks[0], xs[0]
-        x = x + blk.attn.project_heads(outs[0])
-        return [x + blk._mlp(x)]
+        blk, x, lo = blocks[0], xs[0], _at(los, 0)
+        x = x + blk.attn.project_heads(outs[0], lo)
+        return [x + blk._mlp(x, lo)]
     attn = _row_parallel([blk.attn.wo for blk in blocks],
                          [blk.attn.merge_heads(o)
-                          for blk, o in zip(blocks, outs)])
+                          for blk, o in zip(blocks, outs)],
+                         _target(los, "wo"))
     xs = [x + a for x, a in zip(xs, attn)]
     mlp = _row_parallel([blk.fc2 for blk in blocks],
-                        [blk._inner(x) for blk, x in zip(blocks, xs)])
+                        [blk._inner(x, _at(los, j))
+                         for j, (blk, x) in enumerate(zip(blocks, xs))],
+                        _target(los, "fc2"))
     return [x + (m + blk.fc2.bias) for x, m, blk in zip(xs, mlp, blocks)]
 
 
@@ -201,23 +237,26 @@ class GPT(nn.Module):
         return [l.attn.init_cache(batch, self.max_position, dtype,
                                   self.device) for l in self.layers]
 
-    def prefill(self, cache, ids, prompt_len, rows=None):
+    def prefill(self, cache, ids, prompt_len, rows=None, lora=None):
         """Fill ``cache`` from (bucket-padded) prompts ``ids`` (B, T) in one
-        causal forward (:func:`dense_prefill_states`; ``rows`` as there)
-        and return ``(h_last, cache)``: the final-norm states (B, hidden)
-        at each row's last real position ``prompt_len - 1`` (an int, or
-        one length a row)."""
-        h = dense_prefill_states([self], [cache], ids, rows=rows)
+        causal forward (:func:`dense_prefill_states`; ``rows`` as there;
+        ``lora`` the dispatch's LoRA slab tree or None, as in every cache
+        method here) and return ``(h_last, cache)``: the final-norm states
+        (B, hidden) at each row's last real position ``prompt_len - 1`` (an
+        int, or one length a row)."""
+        h = dense_prefill_states([self], [cache], ids, rows=rows,
+                                 lora=_one(lora))
         return last_valid(h, prompt_len), cache
 
-    def decode_step(self, cache, tok, pos):
+    def decode_step(self, cache, tok, pos, lora=None):
         """One incremental token a row: embed ``tok`` (B,) at ``pos`` (an
         int, or (B,) host positions), write its K/V at ``pos`` and attend
         over positions [0, pos] (:func:`dense_step_states`). Returns the
         (B, hidden) final-norm states and the cache."""
-        return dense_step_states([self], [cache], tok, pos), cache
+        return dense_step_states([self], [cache], tok, pos,
+                                 lora=_one(lora)), cache
 
-    def decode_chunk(self, cache, toks, pos):
+    def decode_chunk(self, cache, toks, pos, lora=None):
         """The speculative verify on the dense cache: C tokens a row,
         ``toks`` (B, C) (on any device; the draft's proposals) at absolute
         positions ``pos[b] + j`` (``pos`` host (B,) ints, each row's
@@ -226,7 +265,8 @@ class GPT(nn.Module):
         ``max_position`` are dropped and the position embedding clipped, so
         an overshooting row computes masked junk). Returns the (B, C,
         hidden) final-norm states and the cache."""
-        return dense_chunk_states([self], [cache], toks, pos), cache
+        return dense_chunk_states([self], [cache], toks, pos,
+                                  lora=_one(lora)), cache
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Per-layer K/V page pools on the model's device: ``n_layers``
@@ -250,7 +290,7 @@ class GPT(nn.Module):
         return [[v for pl in pools for v in pl.values()]]
 
     def paged_prefill_chunk(self, pools, page_table, ids, start, nvalid,
-                            write_from, page_size):
+                            write_from, page_size, lora=None):
         """One chunk of chunked prefill over W rows: ``ids`` (W, C), row
         ``i`` covering positions ``[start[i], start[i] + nvalid[i])``;
         K/V written only at positions ``>= write_from[i]`` (the shared
@@ -258,19 +298,22 @@ class GPT(nn.Module):
         pools)``, ``h_last`` (W, hidden) the final-norm state at each
         row's last valid offset."""
         h = paged_chunk_states([self], [pools], page_table, ids, start,
-                               nvalid, write_from, page_size)
+                               nvalid, write_from, page_size,
+                               lora=_one(lora))
         return last_valid(h, nvalid), pools
 
-    def paged_decode_step(self, pools, page_table, tok, pos, page_size):
+    def paged_decode_step(self, pools, page_table, tok, pos, page_size,
+                          lora=None):
         """One token per slot: embed ``tok`` (B,) at ``pos`` (B,), write
         its K/V at page ``page_table[s, pos // page_size]`` offset ``pos %
         page_size`` (a sentinel entry drops the write) and attend through
         the table (:func:`paged_step_states`). Returns the (B, hidden)
         final-norm states and pools."""
         return paged_step_states([self], [pools], page_table, tok, pos,
-                                 page_size), pools
+                                 page_size, lora=_one(lora)), pools
 
-    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size):
+    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size,
+                           lora=None):
         """The speculative verify through the page table: ``toks`` (B, C)
         proposals a slot from its committed length ``pos`` (B,) on, written
         through ``page_table`` (a sentinel entry drops the write, so
@@ -279,7 +322,12 @@ class GPT(nn.Module):
         and ``write_from = pos``). Returns ALL (B, C, hidden) final-norm
         states and the pools."""
         return paged_chunk_states([self], [pools], *verify_args(
-            page_table, toks, pos), page_size), pools
+            page_table, toks, pos), page_size, lora=_one(lora)), pools
+
+
+def _one(lora):
+    """An unsharded model's LoRA slab tree as the list of one shard's."""
+    return None if lora is None else [lora]
 
 
 def _embed(gpts, ids, pos, vocab_split):
@@ -304,16 +352,20 @@ def _embed(gpts, ids, pos, vocab_split):
             for x, g, p in zip(all_reduce_sum(parts), gpts, pos)]
 
 
-def _layers(gpts, xs, attend):
+def _layers(gpts, xs, attend, lora=None):
     """Every block over the shards, then the final norm once, on the first
-    shard's device: ``attend(i, blocks, hs)`` gives the shards' attention
-    outputs (B, H_shard, C, D) of ``hs = ln1(x)`` in layer ``i`` (writing
-    their K/V), and :func:`block_rest` does the rest. The one layer body
-    of the dense and the paged paths."""
+    shard's device: ``attend(i, blocks, hs, los)`` gives the shards'
+    attention outputs (B, H_shard, C, D) of ``hs = ln1(x)`` in layer ``i``
+    (writing their K/V), and :func:`block_rest` does the rest. ``lora``:
+    the dispatch's LoRA slab trees, one a shard (None: no adapter), of
+    which ``los`` is layer ``i``'s. The one layer body of the dense and
+    the paged paths."""
     for i in range(len(gpts[0].layers)):
         blocks = [g.layers[i] for g in gpts]
-        outs = attend(i, blocks, [blk.ln1(x) for blk, x in zip(blocks, xs)])
-        xs = block_rest(blocks, xs, outs)
+        los = None if lora is None else [layer_lora(t, i) for t in lora]
+        outs = attend(i, blocks, [blk.ln1(x) for blk, x in zip(blocks, xs)],
+                      los)
+        xs = block_rest(blocks, xs, outs, los)
     return gpts[0].ln_f(xs[0])
 
 
@@ -324,10 +376,11 @@ def _paged_attend(pools, index, table, start, mesh):
     shards' devices, ``ops.paged_attention``'s ``mesh=``; None: one
     unsharded model). ``index``, ``table`` and ``start`` hold one
     device-side copy per shard."""
-    def attend(i, blocks, hs):
+    def attend(i, blocks, hs, los):
         layer = [p[i] for p in pools]
-        qs = [blk.attn.paged_qkv(h, pool, ix)[0]
-              for blk, h, pool, ix in zip(blocks, hs, layer, index)]
+        qs = [blk.attn.paged_qkv(h, pool, ix, _at(los, j))[0]
+              for j, (blk, h, pool, ix) in enumerate(zip(blocks, hs, layer,
+                                                         index))]
         if mesh is None:
             return [paged_pool_attention(qs[0], layer[0], table[0],
                                          start[0])]
@@ -336,25 +389,28 @@ def _paged_attend(pools, index, table, start, mesh):
 
 
 def paged_chunk_states(gpts, pools, page_table, ids, start, nvalid,
-                       write_from, page_size, mesh=None, vocab_split=False):
+                       write_from, page_size, mesh=None, vocab_split=False,
+                       lora=None):
     """The paged prefill chunk over tensor-parallel shards: ``gpts`` (one
     ``GPT`` per shard; ``[model.gpt]`` unsharded) with ``pools`` (per
     shard, then per layer), ``mesh`` the shards' devices (None for one
-    unsharded ``GPT``) and ``vocab_split`` whether the shards split the
-    token embedding. The host's :func:`chunk_plan` is copied once to each
-    device. Returns the (W, C, hidden) final-norm states on the first
-    shard's device; the pools are written in place."""
+    unsharded ``GPT``), ``vocab_split`` whether the shards split the
+    token embedding and ``lora`` the dispatch's LoRA slab trees, one a
+    shard (None: no adapter). The host's :func:`chunk_plan` is copied once
+    to each device. Returns the (W, C, hidden) final-norm states on the
+    first shard's device; the pools are written in place."""
     devices = mesh or [gpts[0].device]
     ids, pos_c, index, table, start = [broadcast(t, devices) for t in
                                        chunk_plan(
         page_table, ids, start, nvalid, write_from, page_size,
         pools[0][0]["k"].shape[0], gpts[0].max_position)]
     xs = _embed(gpts, ids, pos_c, vocab_split)
-    return _layers(gpts, xs, _paged_attend(pools, index, table, start, mesh))
+    return _layers(gpts, xs, _paged_attend(pools, index, table, start, mesh),
+                   lora)
 
 
 def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
-                      mesh=None, vocab_split=False):
+                      mesh=None, vocab_split=False, lora=None):
     """The paged decode step over shards (arguments as
     :func:`paged_chunk_states`; ``tok`` may live on any device, the
     sampler's output on the first shard's). Returns the (B, hidden)
@@ -365,7 +421,7 @@ def paged_step_states(gpts, pools, page_table, tok, pos, page_size,
     tok = broadcast(torch.as_tensor(tok).long(), devices)
     xs = [x[:, None, :] for x in _embed(gpts, tok, pos_d, vocab_split)]
     return _layers(gpts, xs, _paged_attend(pools, index, table, pos_i,
-                                           mesh))[:, 0]
+                                           mesh), lora)[:, 0]
 
 
 def verify_args(page_table, toks, pos):
@@ -377,7 +433,7 @@ def verify_args(page_table, toks, pos):
 
 
 def dense_prefill_states(gpts, caches, ids, rows=None, mesh=None,
-                         vocab_split=False):
+                         vocab_split=False, lora=None):
     """The dense prefill over tensor-parallel shards: ``gpts`` (one ``GPT``
     per shard; ``[model.gpt]`` unsharded), ``caches`` (per shard, then per
     layer), ``mesh`` the shards' devices (None: the first GPT's), token
@@ -385,19 +441,22 @@ def dense_prefill_states(gpts, caches, ids, rows=None, mesh=None,
     position into its cache (``rows`` None: row ``i`` into cache row
     ``i``; else the host (n,) cache rows that ids' first n rows land in,
     the rest padding) and attends causally
-    (``MultiHeadAttention.prefill_heads``). Returns the (B, T, hidden)
-    final-norm states on the first shard's device."""
+    (``MultiHeadAttention.prefill_heads``); ``lora`` as
+    :func:`paged_chunk_states`. Returns the (B, T, hidden) final-norm
+    states on the first shard's device."""
     devices = mesh or [gpts[0].device]
     ids = broadcast(_host(ids), devices)
     pos = broadcast(torch.arange(ids[0].shape[1]), devices)
     rows = None if rows is None else broadcast(_host(rows), devices)
     xs = _embed(gpts, ids, pos, vocab_split)
-    return _layers(gpts, xs, lambda i, blocks, hs: [
-        blk.attn.prefill_heads(h, c[i], None if rows is None else rows[j])
-        for j, (blk, h, c) in enumerate(zip(blocks, hs, caches))])
+    return _layers(gpts, xs, lambda i, blocks, hs, los: [
+        blk.attn.prefill_heads(h, c[i], None if rows is None else rows[j],
+                               _at(los, j))
+        for j, (blk, h, c) in enumerate(zip(blocks, hs, caches))], lora)
 
 
-def dense_step_states(gpts, caches, tok, pos, mesh=None, vocab_split=False):
+def dense_step_states(gpts, caches, tok, pos, mesh=None, vocab_split=False,
+                      lora=None):
     """The dense decode step over shards (arguments as
     :func:`dense_prefill_states`): ``tok`` (B,) on any device (the
     sampler's output), ``pos`` an int (every row's position) or host (B,)
@@ -407,13 +466,14 @@ def dense_step_states(gpts, caches, tok, pos, mesh=None, vocab_split=False):
     tok = broadcast(torch.as_tensor(tok).long(), devices)
     pos = broadcast(_host(pos), devices)
     xs = [x[:, None, :] for x in _embed(gpts, tok, pos, vocab_split)]
-    return _layers(gpts, xs, lambda i, blocks, hs: [
-        blk.attn.decode_heads(h, c[i], p)
-        for blk, h, c, p in zip(blocks, hs, caches, pos)])[:, 0]
+    return _layers(gpts, xs, lambda i, blocks, hs, los: [
+        blk.attn.decode_heads(h, c[i], p, _at(los, j))
+        for j, (blk, h, c, p) in enumerate(zip(blocks, hs, caches, pos))],
+        lora)[:, 0]
 
 
 def dense_chunk_states(gpts, caches, toks, pos, mesh=None,
-                       vocab_split=False):
+                       vocab_split=False, lora=None):
     """The dense speculative verify over shards (arguments as
     :func:`dense_prefill_states`): ``toks`` (B, C) on any device (the
     draft's proposals), ``pos`` host (B,) committed lengths. Each layer
@@ -425,9 +485,10 @@ def dense_chunk_states(gpts, caches, toks, pos, mesh=None,
     pos_c, q_pos, index = [broadcast(t, devices) for t in dense_chunk_plan(
         pos, toks.shape[0], toks.shape[1], gpts[0].max_position)]
     xs = _embed(gpts, broadcast(toks, devices), pos_c, vocab_split)
-    return _layers(gpts, xs, lambda i, blocks, hs: [
-        blk.attn.chunk_heads(h, c[i], ix, qp)
-        for blk, h, c, ix, qp in zip(blocks, hs, caches, index, q_pos)])
+    return _layers(gpts, xs, lambda i, blocks, hs, los: [
+        blk.attn.chunk_heads(h, c[i], ix, qp, _at(los, j))
+        for j, (blk, h, c, ix, qp) in enumerate(zip(blocks, hs, caches,
+                                                    index, q_pos))], lora)
 
 
 def dense_chunk_plan(pos, b, c, max_position):

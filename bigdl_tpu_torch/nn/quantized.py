@@ -31,6 +31,18 @@ The int32 accumulation is what makes the result the reference's: float32
 sums of up to 3072 products of +-127 x +-127 are not exact, so a
 dequantise-then-float-GEMM would compute another function.
 
+LoRA (``models/lora.py``): :func:`lora_delta` is the reference's
+``_lora_delta``, ``((x @ A) @ B) * s``, A first (rank is tiny), over
+unbatched 2-D slabs with a scalar scale or over per-row (rows, in, r) /
+(rows, r, out) slabs with a (rows,) scale (``torch.bmm``; the reference's
+two ``jnp.einsum``, outside any Pallas kernel); an int8 slab ``{"q",
+"scale"}`` dequantises in one multiply, and scale 0 (the pool's base row)
+gives an exactly-zero delta. :func:`lora_down` and :func:`lora_up` are
+its two products, apart for a row-parallel target under tensor
+parallelism, whose rank-r partials are summed over the shards before B.
+:func:`lora_linear` is ``qmatmul`` on a LoRA leaf: the base product, plus
+the delta, then the bias.
+
 ``QuantizedLinear`` with a calibrated ``in_scale``,
 ``QuantizedSpatialConvolution`` and ``Quantizer`` need the Module-tree
 containers and are not ported yet (ROADMAP A.9/A.11).
@@ -39,6 +51,7 @@ containers and are not ported yet (ROADMAP A.9/A.11).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.linear import Linear
@@ -130,6 +143,67 @@ def qmatmul_row_parallel(xs, qs, scale):
     return y.reshape(*x.shape[:-1], qs[0].shape[0])
 
 
+def _as(t, dtype):
+    """``t`` in ``dtype``, with no call at all when it already is (the
+    delta runs on a host-bound path: a no-op ``to`` still costs a
+    dispatch)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _lora_slab(slab, dtype):
+    """A LoRA slab in ``dtype``: an int8 ``{"q", "scale"}`` slab times its
+    per-column scale (one multiply), a float slab as it is."""
+    if isinstance(slab, dict):
+        return slab["q"].to(dtype) * _as(slab["scale"], dtype)
+    return _as(slab, dtype)
+
+
+def lora_down(x, a):
+    """The delta's first product ``x @ A`` (rank-r wide): unbatched ``a``
+    (in, r), or batched ``a`` (rows, in, r) with ``x`` (rows, T, in).
+    Counted in ``lora_delta.products``."""
+    a = _lora_slab(a, x.dtype)
+    lora_delta.products += 1
+    return x @ a if a.dim() == 2 else torch.bmm(x, a)
+
+
+def lora_up(u, b, s):
+    """The delta's second product ``(u @ B) * s`` of a rank-r ``u``:
+    unbatched ``b`` (r, out) and a Python-number ``s``, or batched ``b``
+    (rows, r, out) and ``s`` (rows,). Counted in
+    ``lora_delta.products``."""
+    b = _lora_slab(b, u.dtype)
+    lora_delta.products += 1
+    if b.dim() == 2:
+        return (u @ b) * s
+    return torch.bmm(u, b) * _as(s, u.dtype)[:, None, None]
+
+
+def lora_delta(x, a, b, s):
+    """The low-rank delta ``((x @ A) @ B) * s`` (see module docstring):
+    :func:`lora_up` of :func:`lora_down`. ``lora_delta.products`` counts
+    every product of the delta."""
+    return lora_up(lora_down(x, a), b, s)
+
+
+lora_delta.products = 0
+
+
+def lora_linear(lin, x, lo=None):
+    """``lin(x)`` for a ``Linear`` or :class:`Int8Linear`, plus the LoRA
+    delta of ``lo`` = ``(a, b, s)`` before the bias when given (the
+    reference's ``qmatmul`` on a LoRA leaf, then ``Linear``'s bias). With
+    ``lo`` None it is ``lin(x)``, nothing more."""
+    if lo is None:
+        return lin(x)
+    if isinstance(lin, Int8Linear):
+        y = qmatmul(x, lin.weight, lin.scale)
+    else:
+        y = F.linear(x, lin.weight)
+    y = y + lora_delta(x, *lo)
+    return y if lin.bias is None else y + lin.bias
+
+
 class Int8Linear(nn.Module):
     """``Linear`` served from int8 weights (see module docstring). Buffers
     ``weight`` int8 (out, in) and ``scale`` float32 (out,); ``bias`` a
@@ -186,4 +260,4 @@ def quantize_model(model):
 
 
 __all__ = ["quantize_array", "qmatmul", "qmatmul_row_parallel",
-           "Int8Linear", "quantize_model"]
+           "lora_delta", "lora_linear", "Int8Linear", "quantize_model"]

@@ -48,6 +48,11 @@ Pallas kernel, else through :func:`full_attention`;
 speculative verify) writes C tokens a row and attends through
 :func:`paged_attention`'s per-query mask. Those three are plain PyTorch,
 as the reference leaves them to XLA.
+
+Multi-tenant LoRA (``models/lora.py``): the cache-path methods take an
+optional ``lora``, one layer's ``{target: (a, b, scale)}``, and add each
+target projection's delta (``nn.quantized.lora_linear``); without it they
+run exactly the operations they ran before LoRA was ported.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.nn import Linear
-from bigdl_tpu_torch.nn.quantized import scale_of
+from bigdl_tpu_torch.nn.quantized import lora_linear, scale_of
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.utils.device import resolve_device
 
@@ -222,14 +227,16 @@ class MultiHeadAttention(nn.Module):
         self.wv = Linear(hidden_size, local, **kw)
         self.wo = Linear(local, hidden_size, **kw)
 
-    def _qkv(self, x):
+    def _qkv(self, x, lora=None):
         b, t, _ = x.shape
 
-        def split(proj):
-            return (proj(x).reshape(b, t, self.local_heads, self.head_dim)
+        def split(name):
+            y = lora_linear(getattr(self, name), x,
+                            None if lora is None else lora.get(name))
+            return (y.reshape(b, t, self.local_heads, self.head_dim)
                     .transpose(1, 2).contiguous())
 
-        return split(self.wq), split(self.wk), split(self.wv)
+        return split("wq"), split("wk"), split("wv")
 
     def forward(self, x):
         """Self-attention over x (B, T, hidden) through the flash kernel
@@ -265,13 +272,13 @@ class MultiHeadAttention(nn.Module):
             paged_write(pool["v"], v, index)
         return pool
 
-    def paged_qkv(self, x, pool, index):
+    def paged_qkv(self, x, pool, index, lora=None):
         """The first half of the paged chunk and decode paths: the queries
         (B, H, C, D) of x (B, C, hidden), with the chunk's own K/V written
         into ``pool`` at ``index`` first, so that the queries attending
         through the page table (``ops.paged_attention``, every visible
         position at or before their own) see them. Returns (q, pool)."""
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, lora)
         return q, self._paged_write(pool, k, v, index)
 
     def merge_heads(self, out):
@@ -281,11 +288,12 @@ class MultiHeadAttention(nn.Module):
         return out.transpose(1, 2).reshape(b, t,
                                            self.local_heads * self.head_dim)
 
-    def project_heads(self, out):
+    def project_heads(self, out, lora=None):
         """The attention output (B, H, C, D) through ``wo`` (a shard's
         pre-reduction partial when tp > 1): the second half of the paged
         and dense cache paths."""
-        return self.wo(self.merge_heads(out))
+        return lora_linear(self.wo, self.merge_heads(out),
+                           None if lora is None else lora.get("wo"))
 
     # ------------------------------------------------ dense K/V cache --
     def init_cache(self, batch, max_len, dtype, device):
@@ -295,7 +303,7 @@ class MultiHeadAttention(nn.Module):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def prefill_heads(self, x, cache, rows=None):
+    def prefill_heads(self, x, cache, rows=None, lora=None):
         """The prompt pass before ``wo``: the causal attention output (B,
         H, T, D) of x (B, T, hidden), with the prompt's K/V written into
         ``cache`` at positions [0, T), in place. ``rows`` None writes row
@@ -306,7 +314,7 @@ class MultiHeadAttention(nn.Module):
         if not self.causal:
             raise ValueError("KV-cache prefill requires causal attention")
         t = x.shape[1]
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, lora)
         for name, new in (("k", k), ("v", v)):
             buf = cache[name]
             if rows is None:
@@ -322,12 +330,12 @@ class MultiHeadAttention(nn.Module):
         ``(wo(attention), cache)``; see :meth:`prefill_heads`."""
         return self.project_heads(self.prefill_heads(x, cache)), cache
 
-    def decode_heads(self, x, cache, index):
+    def decode_heads(self, x, cache, index, lora=None):
         """One query token per row (x: (B, 1, hidden)) before ``wo``: its
         K/V written at ``index`` (an int: every row's position; or a (B,)
         tensor: each row's own), in place, then :func:`cached_attention`
         over positions [0, index]. Returns (B, H, 1, D)."""
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, lora)
         idx = torch.as_tensor(index, device=x.device)
         for name, new in (("k", k), ("v", v)):
             buf = cache[name]
@@ -343,7 +351,7 @@ class MultiHeadAttention(nn.Module):
         attention), cache)``; see :meth:`decode_heads`."""
         return self.project_heads(self.decode_heads(x, cache, index)), cache
 
-    def chunk_heads(self, x, cache, index, q_pos):
+    def chunk_heads(self, x, cache, index, q_pos, lora=None):
         """The speculative verify before ``wo`` (the reference's
         ``decode_chunk``): C query tokens a row (x: (B, C, hidden)) write
         their K/V at ``index`` ((3, n) from ``models.gpt.dense_chunk_plan``:
@@ -351,7 +359,7 @@ class MultiHeadAttention(nn.Module):
         length were left out, the reference's dropped writes), in place,
         then attend through :func:`paged_attention`'s per-query mask at
         absolute positions ``q_pos`` (B, C). Returns (B, H, C, D)."""
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, lora)
         tok, row, pos = index
         for name, new in (("k", k), ("v", v)):
             buf = cache[name]

@@ -53,6 +53,14 @@ A speculative verify chunk (``decode_chunk``, ``paged_verify_chunk``) is
 split by head like any chunk; the draft and the acceptance run once, on
 the first shard's device, where the logits are.
 
+Every cache method takes an optional ``lora``: the dispatch's LoRA slab
+trees, one a shard, each holding the shard's part of every slab
+(``models.lora.split_slab``: B's output columns of a column-parallel
+target, A's input rows of a row-parallel one). A column-parallel
+target's delta needs no copy between shards; a row-parallel one's copies
+only its rank-r partials ``x_i @ A_i`` to the first shard, where they are
+summed and B is applied once (``models.gpt._row_parallel``).
+
 The source model is only read: its state dict is split and copied to
 the shards' devices. Build it on the CPU (``device="cpu"``) so that no
 card holds a whole copy beside the shards.
@@ -117,26 +125,26 @@ class TensorParallelGPT(nn.Module):
         """Every tensor of ``caches``, per shard."""
         return [GPT.cache_planes(c)[0] for c in caches]
 
-    def prefill(self, caches, ids, prompt_len, rows=None):
+    def prefill(self, caches, ids, prompt_len, rows=None, lora=None):
         """``GPT.prefill`` over the shards: returns ``(h_last, caches)``,
         ``h_last`` (B, hidden) on the first shard's device."""
         h = dense_prefill_states(self._gpts(), caches, ids, rows,
-                                 self.layout.devices, self.vocab_split)
+                                 self.layout.devices, self.vocab_split, lora)
         return last_valid(h, prompt_len), caches
 
-    def decode_step(self, caches, tok, pos):
+    def decode_step(self, caches, tok, pos, lora=None):
         """``GPT.decode_step`` over the shards: returns the (B, hidden)
         final-norm states on the first shard's device and the caches."""
         return dense_step_states(self._gpts(), caches, tok, pos,
                                  self.layout.devices,
-                                 self.vocab_split), caches
+                                 self.vocab_split, lora), caches
 
-    def decode_chunk(self, caches, toks, pos):
+    def decode_chunk(self, caches, toks, pos, lora=None):
         """``GPT.decode_chunk`` over the shards: returns the (B, C, hidden)
         final-norm states on the first shard's device and the caches."""
         return dense_chunk_states(self._gpts(), caches, toks, pos,
                                   self.layout.devices,
-                                  self.vocab_split), caches
+                                  self.vocab_split, lora), caches
 
     def init_paged_pool(self, num_pages, page_size, dtype=None):
         """Each shard's per-layer pools, on its device, holding its heads:
@@ -151,29 +159,31 @@ class TensorParallelGPT(nn.Module):
         return [GPT.pool_planes(p)[0] for p in pools]
 
     def paged_prefill_chunk(self, pools, page_table, ids, start, nvalid,
-                            write_from, page_size):
+                            write_from, page_size, lora=None):
         """``GPT.paged_prefill_chunk`` over the shards: returns ``(h_last,
         pools)``, ``h_last`` (W, hidden) on the first shard's device."""
         h = paged_chunk_states(self._gpts(), pools, page_table, ids, start,
                                nvalid, write_from, page_size,
-                               self.layout.devices, self.vocab_split)
+                               self.layout.devices, self.vocab_split, lora)
         return last_valid(h, nvalid), pools
 
-    def paged_decode_step(self, pools, page_table, tok, pos, page_size):
+    def paged_decode_step(self, pools, page_table, tok, pos, page_size,
+                          lora=None):
         """``GPT.paged_decode_step`` over the shards: returns the (B,
         hidden) final-norm states on the first shard's device and the
         pools."""
         return paged_step_states(self._gpts(), pools, page_table, tok, pos,
                                  page_size, self.layout.devices,
-                                 self.vocab_split), pools
+                                 self.vocab_split, lora), pools
 
-    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size):
+    def paged_verify_chunk(self, pools, page_table, toks, pos, page_size,
+                           lora=None):
         """``GPT.paged_verify_chunk`` over the shards: returns the (B, C,
         hidden) final-norm states on the first shard's device and the
         pools."""
         return paged_chunk_states(self._gpts(), pools, *verify_args(
             page_table, toks, pos), page_size, self.layout.devices,
-            self.vocab_split), pools
+            self.vocab_split, lora), pools
 
     def lm_logits(self, h):
         """(..., hidden) on the first shard's device -> (..., vocab) there,

@@ -29,10 +29,13 @@ Sites in the port: ``serving.admit``, ``serving.prefill``,
 ``PagePoolExhausted``), ``serving.host_swap`` (``op="demote"`` /
 ``"promote"``; an error drops that swap), ``serving.snapshot_write`` (an
 error skips the page, ``corrupt`` mangles the file after its rename) and
-``serving.snapshot_restore`` (an error presents as a store miss). The
-training sites (``train.step``, ``train.drain``, ``ckpt.write``,
-``allreduce.sync``), ``serving.adapter_load`` and ``fleet.failover`` are
-ROADMAP queue A.8. The reference's obs counter of fired faults is
+``serving.snapshot_restore`` (an error presents as a store miss) and
+``serving.adapter_load`` (in ``serving.adapters.AdapterPool``'s ladder
+walk, ``digest=<hex>``: an error fails that one load with
+``AdapterLoadError``, ``corrupt`` mangles the fetched planes through
+:func:`corrupt_planes`, which the digest check drops). The training sites
+(``train.step``, ``train.drain``, ``ckpt.write``, ``allreduce.sync``) and
+``fleet.failover`` are ROADMAP queue A.8. The reference's obs counter of fired faults is
 :meth:`FaultPlan.counts` here; every fire also logs at WARNING.
 """
 

@@ -17,7 +17,9 @@ card that no longer answers. The supervisor makes those survivable:
 - a restart abandons the old scheduler, builds a new engine with the
   caller's ``factory`` and resubmits the victims: the same ``Request``
   objects, re-prefilled from ``context()`` (prompt + delivered tokens), so
-  streams stay attached and no token is delivered twice;
+  streams stay attached and no token is delivered twice; a stream under a
+  LoRA adapter left its row in the old engine's pool and re-resolves its
+  ``adapter`` under the new engine's;
 - restarts back off exponentially (``backoff_base_s`` doubling up to
   ``backoff_max_s``); more than ``max_restarts`` within
   ``restart_window_s`` trips the circuit breaker: outstanding victims

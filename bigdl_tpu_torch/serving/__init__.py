@@ -1,4 +1,6 @@
-from bigdl_tpu_torch.serving.adapters import AdapterLoadError
+from bigdl_tpu_torch.serving.adapters import (AdapterColdError,
+                                              AdapterLoadError, AdapterPool,
+                                              AdapterPoolExhausted)
 from bigdl_tpu_torch.serving.engine import ServingEngine
 from bigdl_tpu_torch.serving.host_tier import HostPageTier, HostTierCopier
 from bigdl_tpu_torch.serving.paging import (PageAllocator, PagedSlotManager,
@@ -15,4 +17,5 @@ __all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "PagePoolExhausted", "Request", "QueueFullError",
            "EngineClosedError", "EngineFailedError",
            "RequestCancelledError", "DeadlineExceededError",
+           "AdapterPool", "AdapterPoolExhausted", "AdapterColdError",
            "AdapterLoadError"]

@@ -41,6 +41,14 @@ only, off by default): ``kv_host_tier`` demotes evicted pages to host RAM
 and promotes them back on a prefix hit; ``kv_snapshot`` persists pages
 and a request journal to ``snapshot_dir``, from which a new engine
 restores.
+
+Multi-tenant LoRA (ROADMAP A.8's first part): ``lora=True`` (or
+``BIGDL_TPU_LORA``) builds an ``AdapterPool`` (``serving/adapters.py``)
+over the model's target projections, after int8 quantisation (int8
+slabs with int8 weights) and split like the weights under tp; requests
+name an adapter with ``submit(..., adapter=)`` and every dispatch adds
+each row's low-rank delta, so mixed-adapter batches decode together on
+either table, with speculation, int8 weights and tp.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ import logging
 import time
 
 from bigdl_tpu_torch.models.spec import spec_config
-from bigdl_tpu_torch.nn.quantized import qmatmul, quantize_model
+from bigdl_tpu_torch.nn.quantized import lora_delta, qmatmul, quantize_model
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
 from bigdl_tpu_torch.parallel.layout import ModelLayout, serving_mesh
@@ -66,22 +74,10 @@ logger = logging.getLogger("bigdl_tpu_torch.serving")
 
 # options of the reference engine that are not ported yet, with the
 # ROADMAP queue A item that ports each
-_UNPORTED = {
-    "lora": "A.8 control plane, fleet and multi-tenant serving",
-    "adapters": "A.8 control plane, fleet and multi-tenant serving",
-    "policy": "A.8 control plane, fleet and multi-tenant serving",
-}
+_UNPORTED = {"policy": "A.8 control plane"}
 # the reference's flags that turn an unported option on when its keyword
 # is not given
-_UNPORTED_FLAGS = {"lora": "BIGDL_TPU_LORA",
-                   "policy": "BIGDL_TPU_ADMISSION_SLO"}
-# sub-options of unported options: accepted and ignored while their parent
-# is off, as the reference ignores them
-_SUB_OPTIONS = {
-    "lora_rank": "lora",
-    "adapter_slots": "lora",
-    "adapter_host_bytes": "lora",
-}
+_UNPORTED_FLAGS = {"policy": "BIGDL_TPU_ADMISSION_SLO"}
 
 
 def _unported_on(name, value):
@@ -99,17 +95,13 @@ def _refuse_unported(options):
     option (by keyword or by the reference's flag) asks for its
     feature."""
     for name in options:
-        if name not in _UNPORTED and name not in _SUB_OPTIONS:
+        if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
     for name, item in _UNPORTED.items():
-        if not _unported_on(name, options.get(name)):
-            continue
-        subs = [s for s, parent in _SUB_OPTIONS.items()
-                if parent == name and options.get(s) is not None]
-        given = f" with {', '.join(subs)}" if subs else ""
-        raise NotImplementedError(
-            f"ServingEngine({name}=...){given} is not ported yet (ROADMAP "
-            f"queue {item})")
+        if _unported_on(name, options.get(name)):
+            raise NotImplementedError(
+                f"ServingEngine({name}=...) is not ported yet (ROADMAP "
+                f"queue {item})")
 
 
 class ServingEngine:
@@ -197,14 +189,25 @@ class ServingEngine:
     spec_tokens: the speculative draft length gamma; 1 is off (None:
         ``models.spec.spec_config()``, i.e. ``BIGDL_TPU_SPEC_DECODE`` with
         ``BIGDL_TPU_SPEC_TOKENS``, default 4). Both tables, tp and int8.
+    lora: serve LoRA adapters from an ``AdapterPool`` (``BIGDL_TPU_LORA``,
+        off); ``self.adapter_pool`` is the pool, or None. The options below
+        are ignored while it is off, except ``adapters``, which then raises
+        ``ValueError``, as in the reference.
+    lora_rank: every adapter's rank (``BIGDL_TPU_LORA_RANK``, 8).
+    adapter_slots: adapters resident on the device at once
+        (``BIGDL_TPU_ADAPTER_SLOTS``, 8); the pool holds one row more, the
+        base model's.
+    adapters: ``{name: adapter}`` registered at start
+        (``register_adapter``; ``models.lora.init_adapter`` trees).
+    adapter_host_bytes: a host tier of this many bytes that evicted
+        adapters demote into (``BIGDL_TPU_ADAPTER_HOST_BYTES``, 0: none).
+        With ``kv_snapshot`` the pool also archives to and loads from the
+        engine's page store.
 
-    The reference's other options (LoRA adapters and the control plane:
-    ``lora``, ``adapters``, ``policy``) raise ``NotImplementedError``
-    naming ROADMAP queue A.8, when given by keyword or turned on by the
-    reference's flag (``BIGDL_TPU_LORA``, ``BIGDL_TPU_ADMISSION_SLO``; a
-    keyword wins over its flag). Their sub-options (``lora_rank``,
-    ``adapter_slots``, ``adapter_host_bytes``) are ignored while the
-    parent is off.
+    The reference's control plane (``policy``) raises
+    ``NotImplementedError`` naming ROADMAP queue A.8, when given by keyword
+    or turned on by the reference's flag (``BIGDL_TPU_ADMISSION_SLO``; a
+    keyword wins over its flag).
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -217,7 +220,9 @@ class ServingEngine:
                  max_recoveries=None, kv_snapshot=None, snapshot_dir=None,
                  snapshot_interval_s=None, snapshot_journal=None,
                  kv_host_tier=None, host_tier_bytes=None,
-                 host_tier_prefetch=None, **unported):
+                 host_tier_prefetch=None, lora=None, lora_rank=None,
+                 adapter_slots=None, adapters=None, adapter_host_bytes=None,
+                 **unported):
         if paged is None:
             paged = get_flag("BIGDL_TPU_PAGED_KV", False, bool)
         self.paged = bool(paged)
@@ -246,6 +251,9 @@ class ServingEngine:
             model.load_state_dict(params)
         if self.int8_weights:
             quantize_model(model)
+        self.adapter_pool = self._adapter_pool(
+            model, lora, lora_rank, adapter_slots, adapters,
+            adapter_host_bytes)
         if layout is None:
             model.to(self.device)
         else:
@@ -298,7 +306,8 @@ class ServingEngine:
                              else self._host_copier.submit),
                 host_tier_prefetch=(int(host_tier_prefetch or 0)
                                     if self.host_tier is not None else 0),
-                host_staging=self.host_staging)
+                host_staging=self.host_staging,
+                adapter_pool=self.adapter_pool)
             if self.snapshot is not None:
                 if self.snapshot.max_pages is None:
                     # the store holds a few pools' worth of pages
@@ -316,12 +325,57 @@ class ServingEngine:
             self.slots = SlotManager(model, max_slots, window=prefill_window,
                                      steps_per_sync=steps_per_sync,
                                      top_k=top_k, top_p=top_p, seed=seed,
-                                     spec_tokens=self.spec_tokens)
+                                     spec_tokens=self.spec_tokens,
+                                     adapter_pool=self.adapter_pool)
+        if self.adapter_pool is not None:
+            if self.snapshot is not None:
+                # adapters archive into the K/V pages' store: an engine
+                # sharing the directory loads them by digest alone
+                self.adapter_pool.store = self.snapshot.store
+            for name, adapter in (adapters or {}).items():
+                self.adapter_pool.register(name, adapter)
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s,
                                    failover=failover,
                                    max_recoveries=max_recoveries,
                                    snapshot=self.snapshot)
+
+    def _adapter_pool(self, model, lora, rank, slots, adapters, host_bytes):
+        """The ``AdapterPool`` of ``lora`` (each option falling back to its
+        flag) over ``model`` (loaded and, with int8 weights, quantised;
+        not yet split), on the engine's device or split over its layout,
+        with its host tier; None when ``lora`` is off."""
+        if lora is None:
+            lora = get_flag("BIGDL_TPU_LORA", False, bool)
+        if not lora:
+            if adapters:
+                raise ValueError("adapters= needs the pool: pass lora=True "
+                                 "or set BIGDL_TPU_LORA")
+            return None
+        from bigdl_tpu_torch.serving.adapters import AdapterPool
+        from bigdl_tpu_torch.serving.host_tier import HostPageTier
+        if rank is None:
+            rank = get_flag("BIGDL_TPU_LORA_RANK", 8, int)
+        if slots is None:
+            slots = get_flag("BIGDL_TPU_ADAPTER_SLOTS", 8, int)
+        if host_bytes is None:
+            host_bytes = get_flag("BIGDL_TPU_ADAPTER_HOST_BYTES", 0, int)
+        tier = HostPageTier(int(host_bytes)) if int(host_bytes or 0) else None
+        return AdapterPool(model, int(slots), int(rank),
+                           int8=self.int8_weights, host_tier=tier,
+                           layout=self.layout, device=self.device)
+
+    def register_adapter(self, name, adapter):
+        """Catalog a LoRA adapter (a ``models.lora.init_adapter`` tree, or
+        the reference's through ``convert.adapter_from_jax``) under
+        ``name``, so ``submit(adapter=name)`` decodes under it. Returns its
+        16-byte digest, also accepted (raw or hex) as ``adapter=``. Needs
+        ``lora=True``; call it before serving or between requests."""
+        if self.adapter_pool is None:
+            raise ValueError("register_adapter needs the adapter pool: build "
+                             "the engine with lora=True or set "
+                             "BIGDL_TPU_LORA")
+        return self.adapter_pool.register(name, adapter)
 
     def _durability(self, model, num_pages, page_size, int8_kv, kv_snapshot,
                     snapshot_dir, snapshot_interval_s, snapshot_journal,
@@ -399,9 +453,12 @@ class ServingEngine:
         request the position table cannot hold or an unknown
         ``priority`` and, paged, ``PagePoolExhausted`` for one the whole
         pool could never hold. ``priority`` and ``client_id`` are carried
-        on the request and ``trace`` on the handle (``.trace``); a request
-        naming an ``adapter`` fails at admission with ``AdapterLoadError``
-        (see ``scheduler.Request``)."""
+        on the request and ``trace`` on the handle (``.trace``).
+        ``adapter`` names the LoRA adapter to decode under (a registered
+        name, or its digest raw or hex; None: the base model), resolved at
+        admission: an unknown one, or any adapter on an engine without a
+        pool, fails the request with ``AdapterLoadError``, never this
+        call."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = Request(prompt, max_new_tokens, temperature=temperature,
@@ -485,7 +542,9 @@ class ServingEngine:
         ``recovery_reprefill_streams`` and ``recovery_replayed_tokens``);
         on the paged path ``restored_pages`` and, with their options,
         ``host_tier_*`` and ``snapshot_pages_written`` /
-        ``snapshot_pages_restored``."""
+        ``snapshot_pages_restored``; with an adapter pool its ``stats()``
+        as ``adapter_*``, and ``lora_products`` (process-wide, the delta's
+        products)."""
         sch = self.scheduler
         sl = self.slots
         spec = {} if self.spec_tokens <= 1 else {
@@ -522,10 +581,14 @@ class ServingEngine:
                 paged_pool_attention.int8_launches,
             "int8_matmuls": qmatmul.calls,
             "fused_sampling_launches": fused_sample_logits.launches,
+            "lora_products": lora_delta.products,
             **self.slots.stats.snapshot(),
             **self.slots.pool_stats(),
             **spec,
             **self._snapshot_metrics(),
+            **({} if self.adapter_pool is None else
+               {"adapter_" + k: v
+                for k, v in self.adapter_pool.stats().items()}),
         }
 
     def _snapshot_metrics(self):

@@ -54,6 +54,12 @@ int8 pool's ``(H, page_size)`` scale planes), the tp shards' heads joined
 in ``ModelLayout`` order, so pages move between tp degrees and between the
 two packages.
 
+Multi-tenant LoRA: a stream under an adapter chains its prefix digests
+from :func:`chain_seed` of the adapter's digest (``admit_one(seed=)``), so
+its pages are never shared with another adapter's or the base model's,
+on any rung; its pool row (``adapter_slot``) rides every chunk, step and
+verify dispatch (the dense manager's ``adapter_slots``).
+
 Fault sites (``resilience/faults.py``): ``serving.page_alloc`` in
 :meth:`PageAllocator.alloc` (presents as :class:`PagePoolExhausted`),
 ``serving.prefill`` before each chunk dispatch, ``serving.host_swap`` on
@@ -84,10 +90,17 @@ logger = logging.getLogger("bigdl_tpu_torch.serving")
 _CHAIN_SEED = b"bigdl-tpu-prefix-v1"
 
 
-def chain_seed():
-    """Chain seed for prefix digests (the base model's; the reference
-    also separates LoRA adapters here, which are not ported yet)."""
-    return _CHAIN_SEED
+def chain_seed(adapter_digest=None):
+    """Chain seed for prefix digests, separated by adapter: a K/V page
+    holds activations of (tokens, weights), so requests under different
+    LoRA adapters must never share one, even for the same prompt. None
+    (the base model) is the historical seed; an adapter's 16-byte digest
+    folds in as the reference folds it, so both packages name the same
+    pages the same way."""
+    if not adapter_digest:
+        return _CHAIN_SEED
+    return hashlib.blake2b(_CHAIN_SEED + b"adapter:" + adapter_digest,
+                           digest_size=16).digest()
 
 
 # numpy dtypes of the host planes; bfloat16 pages travel as their bits
@@ -332,7 +345,7 @@ class PagedSlotManager(SlotManager):
                  prefix_cache=True, top_k=None, top_p=None, seed=0,
                  int8_kv=False, spec_tokens=1, page_store=None,
                  host_tier=None, host_demote=None, host_tier_prefetch=0,
-                 host_staging=None):
+                 host_staging=None, adapter_pool=None):
         pmax = model.gpt.max_position
         self.page_size = int(page_size)
         if self.page_size < 1:
@@ -365,7 +378,8 @@ class PagedSlotManager(SlotManager):
         self.swap_stall_s = 0.0
         super().__init__(model, max_slots, window=window,
                          steps_per_sync=steps_per_sync, top_k=top_k,
-                         top_p=top_p, seed=seed, spec_tokens=spec_tokens)
+                         top_p=top_p, seed=seed, spec_tokens=spec_tokens,
+                         adapter_pool=adapter_pool)
 
     def _alloc(self):
         self._alloc_host()
@@ -421,15 +435,16 @@ class PagedSlotManager(SlotManager):
     # ---------------------------------------------------- device dispatches
     @torch.no_grad()
     def _chunk(self, page_table, ids, start, nvalid, write_from,
-               slot_final):
-        """One chunked-prefill dispatch; the rows whose final chunk this
-        is (``slot_final < max_slots``) write their next-token logits
-        into their slot's logits row."""
+               slot_final, arows):
+        """One chunked-prefill dispatch (``arows`` each row's adapter pool
+        row); the rows whose final chunk this is (``slot_final <
+        max_slots``) write their next-token logits into their slot's
+        logits row."""
         gpt = self.model.gpt
         try:
             h_last, self._pools = gpt.paged_prefill_chunk(
                 self._pools, page_table, ids, start, nvalid, write_from,
-                self.page_size)
+                self.page_size, lora=self._lora(arows))
             rows = np.nonzero(slot_final < self.max_slots)[0]
             if rows.size:
                 dev = self.device
@@ -451,7 +466,8 @@ class PagedSlotManager(SlotManager):
         table = np.where(self.active[:, None], self.page_table,
                          self.num_pages).astype(np.int32)
         h, self._pools = self.model.gpt.paged_decode_step(
-            self._pools, table, tok, pos, self.page_size)
+            self._pools, table, tok, pos, self.page_size,
+            lora=self._lora(self.adapter_slots))
         return h
 
     def _verify(self, props, pos):
@@ -460,7 +476,8 @@ class PagedSlotManager(SlotManager):
         table = np.where(self.active[:, None], self.page_table,
                          self.num_pages).astype(np.int32)
         h, self._pools = self.model.gpt.paged_verify_chunk(
-            self._pools, table, props, pos, self.page_size)
+            self._pools, table, props, pos, self.page_size,
+            lora=self._lora(self.adapter_slots))
         return h
 
     @torch.no_grad()
@@ -477,16 +494,18 @@ class PagedSlotManager(SlotManager):
         self.stats.tick("copies")
 
     # ------------------------------------------------------------ admission
-    def _match_prefix(self, a):
+    def _match_prefix(self, a, seed=None):
         """Longest token-aligned shared prefix of prompt ``a``: walks the
-        chained block digests through the prefix cache and, with a host
-        tier or page store attached, restores the missing run from them
-        (:meth:`_restore_pages`), then tries the partial tail. Returns
-        ``(digests, tail_dig, shared_pages, shared_full, tail_shared)``;
-        ``shared_pages`` are NOT yet claimed."""
+        chained block digests (from ``seed``, the stream's
+        :func:`chain_seed`; None: the base model's) through the prefix
+        cache and, with a host tier or page store attached, restores the
+        missing run from them (:meth:`_restore_pages`), then tries the
+        partial tail. Returns ``(digests, tail_dig, shared_pages,
+        shared_full, tail_shared)``; ``shared_pages`` are NOT yet
+        claimed."""
         ps = self.page_size
         n_full = a.size // ps
-        digests, prev = [], chain_seed()
+        digests, prev = [], seed or chain_seed()
         for b in range(n_full):
             prev = _block_digest(prev, a[b * ps:(b + 1) * ps])
             digests.append(prev)
@@ -686,14 +705,14 @@ class PagedSlotManager(SlotManager):
         flat, spec = self._page_buffer(page)
         return DevicePage(flat, spec, self.host_staging)
 
-    def preserve_stream(self, tokens, slot):
+    def preserve_stream(self, tokens, slot, seed=None):
         """Swap-aware preemption (owner thread, the scheduler's
         ``_preempt``): register the about-to-be-retired stream's written
         full-block (and exact-tail) digests, so retirement leaves its pages
         reclaimable instead of free: pool pressure then demotes them
         through the host tier, and the resume admission hits a full prefix
-        instead of re-prefilling its context. Returns the pages newly
-        registered."""
+        instead of re-prefilling its context (``seed``: the stream's
+        :func:`chain_seed`). Returns the pages newly registered."""
         if self.host_tier is None or not self.prefix_cache \
                 or not self.active[slot]:
             return 0
@@ -703,7 +722,7 @@ class PagedSlotManager(SlotManager):
         ps, sentinel = self.page_size, self.num_pages
         n_full = t // ps
         count = 0
-        prev = chain_seed()
+        prev = seed or chain_seed()
         for b in range(n_full):
             prev = _block_digest(prev, a[b * ps:(b + 1) * ps])
             page = int(row[b])
@@ -720,18 +739,18 @@ class PagedSlotManager(SlotManager):
                 count += 1
         return count
 
-    def prefetch_prefix(self, tokens, limit):
+    def prefetch_prefix(self, tokens, limit, seed=None):
         """Swap-in prefetch (owner thread): promote up to ``limit`` of this
         prompt's missing full-block pages from the host tier or the store
         into the pool before its admission (registered reclaimable; LRU
-        order keeps them until the admission claims them). Returns the
-        pages promoted."""
+        order keeps them until the admission claims them; ``seed``: the
+        prompt's :func:`chain_seed`). Returns the pages promoted."""
         if self.host_tier is None or not self.prefix_cache or limit <= 0:
             return 0
         a = np.asarray(tokens, np.int32).reshape(-1)
         ps = self.page_size
         n_full = a.size // ps
-        digests, prev = [], chain_seed()
+        digests, prev = [], seed or chain_seed()
         for b in range(n_full):
             prev = _block_digest(prev, a[b * ps:(b + 1) * ps])
             digests.append(prev)
@@ -838,10 +857,12 @@ class PagedSlotManager(SlotManager):
                 out.append((digest, host[row[page]]))
         return out
 
-    def admit_one(self, prompt, temperature=0.0):
+    def admit_one(self, prompt, temperature=0.0, adapter_slot=0, seed=None):
         """Admit ONE prompt: prefix match + page allocation + slot claim
         — host work, no dispatch. The prompt becomes *pending*;
-        :meth:`prefill_tick` runs its chunks. Returns the slot id. Raises
+        :meth:`prefill_tick` runs its chunks. ``adapter_slot`` is the
+        adapter pool row the stream runs under (0: the base model) and
+        ``seed`` its :func:`chain_seed`. Returns the slot id. Raises
         :class:`PagePoolExhausted` (nothing leaked) when the pool cannot
         hold the unshared part of the prompt."""
         a = np.asarray(prompt, np.int32).reshape(-1)
@@ -859,7 +880,7 @@ class PagedSlotManager(SlotManager):
         n_full = t // ps
         need_pages = -(-t // ps)
         digests, tail_dig, shared_pages, shared_full, tail_shared = \
-            self._match_prefix(a)
+            self._match_prefix(a, seed)
         shared_len = t if tail_shared or (shared_full == n_full
                                           and not t % ps) \
             else shared_full * ps
@@ -891,6 +912,7 @@ class PagedSlotManager(SlotManager):
             "digests": digests, "tail_dig": tail_dig,
             "shared_full": shared_full, "tail_shared": tail_shared,
         }
+        self.adapter_slots[slot] = int(adapter_slot)
         if shared_len:
             self.prefix_hits += 1
         else:
@@ -928,6 +950,7 @@ class PagedSlotManager(SlotManager):
         # this is (their draft rows are cleared first)
         prime_rows = np.full(w, self.max_slots)
         prime_prev = np.full(w, self.model.vocab_size)
+        arows = np.zeros(w, np.int32)        # padding rows: the base model
         clear = []
         finished = []
         for i, (s, st) in enumerate(rows):
@@ -937,6 +960,7 @@ class PagedSlotManager(SlotManager):
             nvalid[i] = n
             write_from[i] = st["write_from"]
             pt[i] = self.page_table[s]
+            arows[i] = self.adapter_slots[s]
             prime_rows[i] = s
             if st["next"] > 0:
                 prime_prev[i] = st["tokens"][st["next"] - 1]
@@ -946,7 +970,7 @@ class PagedSlotManager(SlotManager):
             if st["next"] + n >= st["total"]:
                 slot_final[i] = s
                 finished.append((s, st))
-        self._chunk(pt, ids, start, nvalid, write_from, slot_final)
+        self._chunk(pt, ids, start, nvalid, write_from, slot_final, arows)
         self._prime(ids, nvalid, prime_rows, prime_prev, clear)
         for i, (s, st) in enumerate(rows):
             st["next"] = min(st["next"] + int(nvalid[i]), st["total"])
@@ -971,8 +995,10 @@ class PagedSlotManager(SlotManager):
         self.temps[slot] = st["temp"]
         self._last_tok[slot] = st["tokens"][-1]
 
-    def admit(self, prompts, temperatures=None):
-        """Batch admission: admit each prompt and drive its chunks to
+    def admit(self, prompts, temperatures=None, adapter_slots=None,
+              seeds=None):
+        """Batch admission: admit each prompt (under its ``adapter_slots``
+        row and ``seeds`` chain seed, when given) and drive its chunks to
         completion before the next, so identical prefixes share pages.
         Returns the assigned slots."""
         if len(prompts) > min(self.window, self.free_slots()):
@@ -982,7 +1008,10 @@ class PagedSlotManager(SlotManager):
         assigned = []
         for i, prompt in enumerate(prompts):
             temp = 0.0 if temperatures is None else float(temperatures[i])
-            assigned.append(self.admit_one(prompt, temp))
+            arow = 0 if adapter_slots is None else int(adapter_slots[i])
+            seed = None if seeds is None else seeds[i]
+            assigned.append(self.admit_one(prompt, temp, adapter_slot=arow,
+                                           seed=seed))
             while self.prefill_tick():
                 pass
         return assigned
@@ -1044,6 +1073,7 @@ class PagedSlotManager(SlotManager):
         row[:] = self.num_pages
         self.lengths[slot] = 0
         self.temps[slot] = 0.0
+        self.adapter_slots[slot] = 0
         heapq.heappush(self._free, int(slot))
         self._occupied -= 1
         self._refresh_pool_stats()

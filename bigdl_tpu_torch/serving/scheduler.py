@@ -37,6 +37,19 @@ add ``serving.prefill`` and ``serving.page_alloc``.
 With a ``KVSnapshot`` (``serving/snapshot.py``) admissions, delivered
 chunks and retirements are journalled, and a page snapshot pass runs
 after a decode block at most every ``snapshot_interval_s``.
+
+Multi-tenant LoRA (the slot manager's ``adapter_pool``): a request naming
+an adapter is resolved at admission (:meth:`Scheduler._resolve_batch`):
+its pool row acquired and its prefix chain seeded from the adapter's
+digest. At most one cold adapter load rides a scheduler iteration; a
+request whose adapter is cold past that budget, or finds every pool row
+referenced while other streams are in flight, goes back to the queue's
+front; an unknown adapter, a failed load, or an exhausted pool with
+nothing in flight fails that request alone with ``AdapterLoadError``.
+The row is released whenever the request leaves the engine (retired,
+failed, cancelled, expired, preempted, given up); a recovery re-places it
+under the row it holds, and a supervisor's resubmission re-resolves it
+under the new engine's pool.
 """
 
 from __future__ import annotations
@@ -52,8 +65,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.resilience.faults import fault_point
-from bigdl_tpu_torch.serving.adapters import AdapterLoadError
-from bigdl_tpu_torch.serving.paging import PagePoolExhausted
+from bigdl_tpu_torch.serving.adapters import (AdapterColdError,
+                                              AdapterLoadError,
+                                              AdapterPoolExhausted)
+from bigdl_tpu_torch.serving.paging import PagePoolExhausted, chain_seed
 from bigdl_tpu_torch.utils.flags import get_flag
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -100,10 +115,12 @@ class Request:
 
     ``priority`` (one of ``PRIORITIES``) and ``client_id`` are carried and
     have no other effect, as in the reference without a control policy
-    (the policy is ROADMAP queue A.8). ``adapter`` names a LoRA adapter:
-    the port has no adapter pool (A.8), so such a request fails at
-    admission with ``AdapterLoadError``, as the reference's does with
-    ``BIGDL_TPU_LORA`` off."""
+    (the policy is ROADMAP queue A.8's control plane). ``adapter`` names
+    the LoRA adapter the request decodes under (a registered name or a
+    digest, raw or hex; None: the base model), resolved at admission into
+    ``adapter_digest``; on an engine without an adapter pool such a
+    request fails at admission with ``AdapterLoadError``, as the
+    reference's does with ``BIGDL_TPU_LORA`` off."""
 
     _ids = itertools.count()
 
@@ -116,6 +133,9 @@ class Request:
         self.priority = priority
         self.client_id = client_id
         self.adapter = adapter
+        self.adapter_digest = None     # resolved at admission
+        self._adapter_slot = 0         # pool row while in flight (0: base)
+        self._adapter_seed = None      # the prefix chain seed of the adapter
         self.trace = None
         self.id = next(Request._ids)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -360,6 +380,11 @@ class Scheduler:
         for r in pool:
             if r.id not in seen and not r.done.is_set():
                 seen.add(r.id)
+                # the row means nothing outside this engine's pool, which
+                # the wedged loop may still use: the resubmission
+                # re-resolves from r.adapter
+                r._adapter_slot = 0
+                r.adapter_digest = None
                 victims.append(r)
         return victims
 
@@ -520,7 +545,10 @@ class Scheduler:
 
     def _journal_retire(self, r):
         """Tombstone a finished request (compaction keeps the journal
-        bounded; the store drops the request's page pins)."""
+        bounded; the store drops the request's page pins) and release its
+        adapter row: the one hook every request passes through when it
+        leaves the engine."""
+        self._release_adapter(r)
         if self._snap is None:
             return
         try:
@@ -539,7 +567,7 @@ class Scheduler:
         if not (force or snap.due()):
             return
         try:
-            streams = [(r.id, r.context(), s)
+            streams = [(r.id, r.context(), s, r._adapter_seed)
                        for s, r in list(self._inflight.items())
                        if self.slots.active[s]]
             snap.snapshot(self.slots, streams, force=force)
@@ -572,6 +600,90 @@ class Scheduler:
         except Exception:
             logger.exception("resume callback failed (ignored)")
 
+    # -------------------------------------------------- adapter multiplex
+    def _release_adapter(self, r):
+        """Drop the request's adapter row reference (idempotent; row 0, the
+        base model, holds none)."""
+        row = r._adapter_slot
+        if not row:
+            return
+        r._adapter_slot = 0
+        pool = getattr(self.slots, "adapter_pool", None)
+        if pool is not None:
+            try:
+                pool.release(row)
+            except Exception:
+                logger.exception("adapter release failed (ignored)")
+
+    def _resolve_adapter(self, r, allow_load=True):
+        """Resolve and acquire the request's adapter row (loop thread).
+        Returns ``"ok"`` (row and chain seed set on the request),
+        ``"requeue"`` (cold past this iteration's load, or every row
+        referenced while streams are in flight) or ``"failed"`` (finished
+        with ``AdapterLoadError``)."""
+        if r.adapter is None:
+            r._adapter_slot = 0
+            r._adapter_seed = None
+            return "ok"
+        if r._adapter_slot:
+            return "ok"                # re-placement: the row is still held
+        pool = getattr(self.slots, "adapter_pool", None)
+        if pool is None:
+            self._fail_adapter(r, AdapterLoadError(
+                f"request {r.id} names adapter {r.adapter!r} but the "
+                f"engine has no adapter pool (BIGDL_TPU_LORA off)"))
+            return "failed"
+        try:
+            digest = pool.resolve(r.adapter)
+        except KeyError:
+            self._fail_adapter(r, AdapterLoadError(
+                f"request {r.id}: unknown adapter {r.adapter!r}"))
+            return "failed"
+        try:
+            row = pool.acquire(digest, allow_load=allow_load)
+        except AdapterColdError:
+            return "requeue"
+        except AdapterPoolExhausted as e:
+            if self._inflight:
+                return "requeue"       # a retirement frees a row
+            self._fail_adapter(r, AdapterLoadError(str(e)))
+            return "failed"
+        except AdapterLoadError as e:
+            self._fail_adapter(r, e)
+            return "failed"
+        r.adapter_digest = digest
+        r._adapter_slot = int(row)
+        r._adapter_seed = chain_seed(digest)
+        return "ok"
+
+    def _fail_adapter(self, r, err):
+        logger.warning("request %d fails at admission: %s", r.id, err)
+        with self._cond:
+            self.rejected += 1
+        r._finish(err)
+        self._journal_retire(r)
+
+    def _resolve_batch(self, batch):
+        """Adapter resolution of a popped admission batch, one cold load
+        an iteration; requests to requeue go back to the queue's front in
+        order. Returns the admissible rest."""
+        if all(r.adapter is None and not r._adapter_slot for r in batch):
+            return batch
+        pool = getattr(self.slots, "adapter_pool", None)
+        loads0 = getattr(pool, "loads", 0)
+        live, requeue = [], []
+        for r in batch:
+            allow = getattr(pool, "loads", 0) == loads0
+            state = self._resolve_adapter(r, allow_load=allow)
+            if state == "ok":
+                live.append(r)
+            elif state == "requeue":
+                requeue.append(r)
+        if requeue:
+            with self._cond:
+                self._waiting.extendleft(reversed(requeue))
+        return live
+
     def _admitted(self, r, s):
         with self._cond:
             self._inflight[s] = r
@@ -589,7 +701,7 @@ class Scheduler:
         re-placed by a recovery."""
         slots = self.slots
         live = []
-        for r in self._expire_batch(batch):
+        for r in self._resolve_batch(self._expire_batch(batch)):
             if r.context().size > slots.max_position - 1:
                 with self._cond:
                     self.rejected += 1
@@ -604,7 +716,8 @@ class Scheduler:
         try:
             fault_point("serving.admit", requests=tuple(r.id for r in live))
             assigned = slots.admit([r.context() for r in live],
-                                   [r.temperature for r in live])
+                                   [r.temperature for r in live],
+                                   [r._adapter_slot for r in live])
         except _Halt:
             raise
         except BaseException as e:
@@ -617,7 +730,8 @@ class Scheduler:
             for r in live:
                 try:
                     fault_point("serving.admit", requests=(r.id,))
-                    (s,) = slots.admit([r.context()], [r.temperature])
+                    (s,) = slots.admit([r.context()], [r.temperature],
+                                       [r._adapter_slot])
                 except _Halt:
                     raise
                 except BaseException as e2:
@@ -647,11 +761,13 @@ class Scheduler:
         a second failure quarantines the request, and a recovery follows
         when the failure poisoned the pools (a restore's page load)."""
         slots = self.slots
-        batch = self._expire_batch(batch)
+        batch = self._resolve_batch(self._expire_batch(batch))
 
         def admit_one(r):
             fault_point("serving.admit", requests=(r.id,))
-            return slots.admit_one(r.context(), r.temperature)
+            return slots.admit_one(r.context(), r.temperature,
+                                   adapter_slot=r._adapter_slot,
+                                   seed=r._adapter_seed)
 
         for i, r in enumerate(batch):
             try:
@@ -710,12 +826,21 @@ class Scheduler:
         if left <= 0:
             return
         with self._cond:
-            heads = [w.prompt for w in itertools.islice(self._waiting, 2)]
-        for prompt in heads:
+            heads = [(w.prompt, w.adapter)
+                     for w in itertools.islice(self._waiting, 2)]
+        pool = getattr(slots, "adapter_pool", None)
+        for prompt, ref in heads:
             if left <= 0:
                 break
+            seed = None
+            if ref is not None:
+                # an unknown adapter fails at admission anyway
+                try:
+                    seed = chain_seed(pool.resolve(ref))
+                except (AttributeError, KeyError):
+                    continue
             try:
-                left -= slots.prefetch_prefix(prompt, left)
+                left -= slots.prefetch_prefix(prompt, left, seed=seed)
             except Exception:
                 logger.exception("host-tier prefetch failed (admission "
                                  "will promote or re-prefill instead)")
@@ -744,11 +869,14 @@ class Scheduler:
             r = self._inflight.pop(s)
         if slots.host_tier is not None:
             try:
-                slots.preserve_stream(r.context(), s)
+                slots.preserve_stream(r.context(), s, seed=r._adapter_seed)
             except Exception:
                 logger.exception("preempt page preserve failed (the stream "
                                  "will re-prefill)")
         slots.retire(s)
+        # out of the engine until its re-admission: its row must not pin
+        # the adapter pool's LRU meanwhile
+        self._release_adapter(r)
         self.preempted += 1
         logger.warning("page pool exhausted (%s); preempting request %d "
                        "(%d tokens delivered, will resume)", error, r.id,
@@ -834,8 +962,7 @@ class Scheduler:
     def _expire_batch(self, batch):
         """Re-check a popped admission batch at the prefill boundary: a
         request cancelled or expired meanwhile fails here, before any
-        prefill is spent on it, and so does one that names an adapter.
-        Returns the still-live batch."""
+        prefill is spent on it. Returns the still-live batch."""
         now = time.perf_counter()
         live = []
         for r in batch:
@@ -848,13 +975,6 @@ class Scheduler:
                 self._swept(r, DeadlineExceededError(
                     f"request {r.id} exceeded its deadline after "
                     f"{now - r.submitted_at:.3f}s before prefill"))
-            elif r.adapter is not None:
-                with self._cond:
-                    self.rejected += 1
-                r._finish(AdapterLoadError(
-                    f"request {r.id} names adapter {r.adapter!r} but the "
-                    f"engine has no adapter pool (BIGDL_TPU_LORA off)"))
-                self._journal_retire(r)
             else:
                 live.append(r)
         return live
@@ -908,6 +1028,9 @@ class Scheduler:
             self._inflight.clear()
         self._stall_admissions = False
         reqs = [r for r in reqs if not r.done.is_set()]
+        # a recovered request still holds its adapter row; a resubmitted
+        # one arrives without and resolves here
+        reqs = self._resolve_batch(reqs)
         # restore accounting needs one admission a request (the manager's
         # last_admit_* are per admission); otherwise window-sized batches
         count = self._snap is not None and slots.paged
@@ -916,8 +1039,11 @@ class Scheduler:
             take = 1 if count else min(slots.window, slots.free_slots())
             chunk = reqs[i:i + take]
             fault_point("serving.admit", requests=tuple(r.id for r in chunk))
+            kw = {"adapter_slots": [r._adapter_slot for r in chunk]}
+            if slots.paged:
+                kw["seeds"] = [r._adapter_seed for r in chunk]
             assigned = slots.admit([r.context() for r in chunk],
-                                   [r.temperature for r in chunk])
+                                   [r.temperature for r in chunk], **kw)
             with self._cond:
                 for r, s in zip(chunk, assigned):
                     self._inflight[s] = r
@@ -1013,6 +1139,10 @@ class Scheduler:
         for r in pool:
             if r.id not in seen and not r.done.is_set():
                 seen.add(r.id)
+                # leaving this engine either way: a failover resubmits it
+                # under another engine's pool
+                self._release_adapter(r)
+                r.adapter_digest = None
                 victims.append(r)
         try:
             self.slots.reset()

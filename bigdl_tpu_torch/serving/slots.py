@@ -44,6 +44,13 @@ have queued work on the card (the cache may hold partly written rows),
 and only ``reset`` clears it. ``serving.prefill`` (``resilience/faults``)
 fires before an admission claims its slots.
 
+Multi-tenant LoRA (``adapter_pool``, a ``serving.adapters.AdapterPool``):
+each slot carries the pool row it decodes under (``adapter_slots``, 0 the
+base model, set at admission and cleared at retirement), and every
+prefill, step and verify dispatch passes ``adapter_pool.gathered(rows)``
+down to the model (padding rows run under row 0). Without a pool the
+dispatches are what they were before LoRA was ported.
+
 The paged manager (``serving/paging.py``) inherits the host-side table.
 """
 
@@ -116,7 +123,8 @@ class SlotManager:
     restore_active = False
 
     def __init__(self, model, max_slots, window=4, steps_per_sync=1,
-                 top_k=None, top_p=None, seed=0, spec_tokens=1):
+                 top_k=None, top_p=None, seed=0, spec_tokens=1,
+                 adapter_pool=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         layout = getattr(model, "layout", None)
@@ -135,6 +143,7 @@ class SlotManager:
         self.last_counts = None
         self.top_k = top_k
         self.top_p = top_p
+        self.adapter_pool = adapter_pool
         self.max_position = model.gpt.max_position
         self._seed = int(seed)
         self._resets = 0
@@ -165,6 +174,16 @@ class SlotManager:
                        else self._draft.init_state(self.max_slots,
                                                    self.device))
         self._last_tok = np.zeros(self.max_slots, np.int32)
+        # each slot's adapter pool row (0: the base model)
+        self.adapter_slots = np.zeros(self.max_slots, np.int32)
+
+    def _lora(self, rows):
+        """The LoRA slab tree of a dispatch whose rows run under pool rows
+        ``rows``: None without a pool (or when every row is the base
+        model)."""
+        if self.adapter_pool is None:
+            return None
+        return self.adapter_pool.gathered(rows)
 
     def _alloc(self):
         self._alloc_host()
@@ -220,14 +239,15 @@ class SlotManager:
 
     # ---------------------------------------------------- device dispatches
     @torch.no_grad()
-    def _prefill(self, ids, lens, slots):
+    def _prefill(self, ids, lens, slots, arows):
         """One admission dispatch: ``ids`` (window, bucket) host tokens,
-        ``lens`` (window,) prompt lengths (1 on padding rows); the first
-        ``len(slots)`` rows land in ``slots``, whose K/V and logits rows
-        are written."""
+        ``lens`` (window,) prompt lengths (1 on padding rows), ``arows``
+        (window,) adapter pool rows; the first ``len(slots)`` rows land in
+        ``slots``, whose K/V and logits rows are written."""
         n = len(slots)
         h, self._cache = self.model.gpt.prefill(self._cache, ids, lens,
-                                                rows=np.asarray(slots))
+                                                rows=np.asarray(slots),
+                                                lora=self._lora(arows))
         idx = torch.as_tensor(slots, device=self.device)
         self._logits[idx] = self.model._lm_logits(h[:n]).to(self._dtype)
         rows = np.full(ids.shape[0], self.max_slots)
@@ -253,14 +273,16 @@ class SlotManager:
         """One decode step of every slot: tokens ``tok`` (S,) at host
         positions ``pos`` (S,) through the cache; returns the (S, hidden)
         final-norm states."""
-        h, self._cache = self.model.gpt.decode_step(self._cache, tok, pos)
+        h, self._cache = self.model.gpt.decode_step(
+            self._cache, tok, pos, lora=self._lora(self.adapter_slots))
         return h
 
     def _verify(self, props, pos):
         """One verify chunk of every slot: proposals ``props`` (S, gamma) at
         host positions ``pos`` (S,) on; returns the (S, gamma, hidden)
         final-norm states."""
-        h, self._cache = self.model.gpt.decode_chunk(self._cache, props, pos)
+        h, self._cache = self.model.gpt.decode_chunk(
+            self._cache, props, pos, lora=self._lora(self.adapter_slots))
         return h
 
     @torch.no_grad()
@@ -329,12 +351,13 @@ class SlotManager:
         return out, counts, tele
 
     # ------------------------------------------------------------ admission
-    def admit(self, prompts, temperatures=None):
+    def admit(self, prompts, temperatures=None, adapter_slots=None):
         """Prefill ``prompts`` (at most ``window`` and the free slots) into
         free slots in ONE dispatch; returns the assigned slots in order.
         The batch is padded to ``window`` rows and the prompts to the
-        ``prompt_bucket`` of the longest. A prompt longer than
-        ``max_position - 1`` raises ``ValueError`` before any slot is
+        ``prompt_bucket`` of the longest. ``adapter_slots`` gives each
+        prompt's adapter pool row (None: the base model). A prompt longer
+        than ``max_position - 1`` raises ``ValueError`` before any slot is
         claimed; a failed dispatch returns its slots to the free heap."""
         if not prompts:
             return []
@@ -355,14 +378,17 @@ class SlotManager:
         bucket = prompt_bucket(max(a.size for a in arrs), self.max_position)
         ids = np.zeros((w, bucket), np.int32)
         lens = np.ones(w, np.int32)            # padding rows: length 1
+        arows = np.zeros(w, np.int32)          # padding rows: base row 0
         for i, a in enumerate(arrs):
             ids[i, :a.size] = a
             lens[i] = a.size
+            if adapter_slots is not None:
+                arows[i] = int(adapter_slots[i])
         # before any slot is claimed: a fault here must not leak slots
         fault_point("serving.prefill", n=len(arrs))
         slots = [heapq.heappop(self._free) for _ in arrs]
         try:
-            self._prefill(ids, lens, slots)
+            self._prefill(ids, lens, slots, arows)
         except BaseException:
             self.poisoned = True
             for s in slots:
@@ -375,6 +401,7 @@ class SlotManager:
             self.temps[s] = (0.0 if temperatures is None
                              else float(temperatures[i]))
             self._last_tok[s] = arrs[i][-1]
+            self.adapter_slots[s] = arows[i]
         return [int(s) for s in slots]
 
     # --------------------------------------------------------------- decode
@@ -419,6 +446,7 @@ class SlotManager:
         self.active[slot] = False
         self.lengths[slot] = 0
         self.temps[slot] = 0.0
+        self.adapter_slots[slot] = 0
         heapq.heappush(self._free, int(slot))
         self._occupied -= 1
 

@@ -76,9 +76,9 @@ def chain_digests(tokens, page_size, seed=None):
     Identical (by construction) to the digests ``PagedSlotManager``
     computes at admission, so a snapshot taken from one engine's page
     tables is addressable from any other engine's admission walk.
-    ``seed`` overrides the chain seed (the reference separates LoRA
-    adapters' pages through it; the port serves the base model's chain,
-    :func:`paging.chain_seed`)."""
+    ``seed`` overrides the chain seed (a stream under a LoRA adapter
+    chains from :func:`paging.chain_seed` of its digest; None: the base
+    model's chain)."""
     from bigdl_tpu_torch.serving.paging import _block_digest, chain_seed
     a = np.asarray(tokens, np.int32).reshape(-1)
     ps = int(page_size)

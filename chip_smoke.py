@@ -254,6 +254,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
      store; under ``serving.snapshot_write:corrupt`` the next engine
      demotes every page it tries and re-prefills, same tokens. Prints the
      restore and re-prefill seconds and the bytes written.
+6d. slice_lora — multi-tenant LoRA (``ServingEngine(lora=True)``) on
+   ``slice``'s model, weights and traffic: four tenants' adapters (rank 8,
+   alpha 8, the six default targets, drawn from seeds with B ~ 0.5 N(0,
+   1)); requests 0, 4 and 8 decode the base model, the other nine cycle
+   the tenants; every greedy adapter request's oracle tokens differ from
+   its base-model oracle's and another tenant's. ``lora_paged``: paged, pages of 16, chunk 64, 2 adapter
+   rows, a host tier for 4 adapters: 12 of 12 retired; at least 4 loads,
+   2 evictions and 1 host-tier hit; exactly 12 paged launches a chunk and
+   step; one sampler launch a sampled step; 2 x 6 x 12 LoRA products a
+   dispatch with an adapter row; no more gathers than changes of the
+   batch's (rows, loads) key; then a ``profile`` line of the same traffic.
+   ``lora_dense``: the dense engine, 4 rows, the same holds but no paged
+   launch. Then a ``profile`` line of 16 decode steps of an 8-slot mixed
+   batch (4 tenants and the base model) driven by hand on this thread,
+   every delta in a ``lora_delta`` range: its share of device time (the
+   profiler sees the ranges of its own thread only). Greedy adapter streams against their
+   single-adapter oracles (a hand-driven 2-slot paged or dense manager
+   under ``models.lora.SingleAdapter``) and the base rows against
+   ``slice`` / ``slice_dense``'s tokens, by the near-tie rule; requests 0
+   and 11 against the CPU under the same adapters. ``lora_variants``: 4
+   greedy requests (2 base, 2 under t0 / t1), 16 tokens, on the paged
+   engine with int8 weights and K/V (int8 slabs; 12 int8-kernel launches
+   and 72 int8 products a dispatch; the same burst through the same engine
+   on the CPU, batch for batch, holds the tokens to 0.1; the agreement
+   with an int8 oracle reported), at tp 2 on the
+   one card (2 x 12 launches a dispatch; 22 x 12 LoRA products: the
+   row-parallel targets' B once after the shards' rank-r sum) and
+   with ``spec_tokens=4`` (12 a verify iteration), tokens against the
+   oracles. ``lora_faults``: a corrupt host-tier copy is dropped and the
+   registry serves (tokens against the oracle); an injected load error
+   fails that request alone with ``AdapterLoadError``. Reports tokens/s and
+   TTFT beside ``slice`` and ``slice_dense``, the busy share, the LoRA
+   range's share of device time, peak memory, load, eviction and swap
+   seconds.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -1435,12 +1469,15 @@ def _traffic(rng):
     return prompts
 
 
-def _drive(engine, prompts):
+def _drive(engine, prompts, adapters=None):
     """Submit the traffic: 8 requests at once, then, once request 3's
     prefill registered the shared pages, the other 4 (which wait for free
-    slots). Returns the handles."""
+    slots); request ``i`` under ``adapters[i]`` when given. Returns the
+    handles."""
     t0 = time.perf_counter()
-    handles = [engine.submit(prompts[i], N_NEW, temperature=TEMPS[i])
+    adapters = adapters or [None] * 12
+    handles = [engine.submit(prompts[i], N_NEW, temperature=TEMPS[i],
+                             adapter=adapters[i])
                for i in range(8)]
     while handles[3].first_token_at is None:
         check(not handles[3].done.is_set() or handles[3].error is None,
@@ -1448,7 +1485,8 @@ def _drive(engine, prompts):
         check(time.perf_counter() - t0 < 300, "request 3 stalled")
         time.sleep(0.005)
     return handles + [engine.submit(prompts[i], N_NEW,
-                                    temperature=TEMPS[i])
+                                    temperature=TEMPS[i],
+                                    adapter=adapters[i])
                       for i in range(8, 12)]
 
 
@@ -1472,12 +1510,10 @@ def _profile(torch, run, groups=None, ranges=()):
     # kernels and copies; a ``record_function`` range also appears on the
     # device timeline, as one span over its kernels and the gaps between
     # them, and is left out of the busy time
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)
-           and e.name not in ranges]
+    dev = _device_events(prof, DeviceType.CUDA, ranges)
     if not dev:
         return {"wall_s": wall, "device_busy_s": "not measured"}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    spans = sorted((start, end) for _, start, end in dev)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -1487,9 +1523,9 @@ def _profile(torch, run, groups=None, ranges=()):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     by_name = {}
-    for e in dev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    for name, start, end in dev:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + (end - start))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     total = sum(t for _, t in by_name.values())
     grouped = {}
@@ -1500,8 +1536,9 @@ def _profile(torch, run, groups=None, ranges=()):
         t = sum(v[1] for v in hits)
         grouped[label] = {"calls": sum(v[0] for v in hits), "s": t / 1e6,
                           "share_of_device_time": t / total}
+    events = prof.events() if ranges else ()
     for name in ranges:
-        hits = [e for e in prof.events() if e.name == name
+        hits = [e for e in events if e.name == name
                 and e.device_type == DeviceType.CPU]
         t = sum(e.device_time_total if hasattr(e, "device_time_total")
                 else e.cuda_time_total for e in hits)
@@ -1517,15 +1554,61 @@ def _profile(torch, run, groups=None, ranges=()):
                     for k, (n, t) in top]}
 
 
+def _device_events(prof, device_type, skip=()):
+    """``(name, start_us, end_us)`` of the profile's events on
+    ``device_type`` (user annotations and the ranges ``skip`` left out),
+    read from the raw Kineto results: ``prof.events()`` builds the whole
+    event tree in Python at ~65 us an event, minutes for a serving run's
+    million events, and is used only where ranges need it."""
+    raw = prof.profiler.kineto_results.events()
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3) for e in raw
+            if e.device_type() == device_type and e.name() not in skip
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+
+
 # the serving profile's kernel families, by substrings of their names
 SERVING_KERNEL_GROUPS = {"paged attention": "paged_attention_kernel",
                          "sampling": "fused_sample_kernel"}
 
 
+class _lora_ranges:
+    """While active (``on``), every LoRA delta runs inside a
+    ``record_function("lora_delta")`` range, so a profile attributes its
+    products' device time (a measurement-only wrapper around
+    ``nn.quantized.lora_delta``, which keeps counting its products)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        import torch
+        from bigdl_tpu_torch.nn import quantized
+        real = self.real = quantized.lora_delta
+
+        def ranged(*args):
+            with torch.profiler.record_function("lora_delta"):
+                return real(*args)
+
+        # the delta counts its products on whatever its module's name
+        # holds: carry the count across
+        ranged.products = real.products
+        quantized.lora_delta = ranged
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            from bigdl_tpu_torch.nn import quantized
+            self.real.products = quantized.lora_delta.products
+            quantized.lora_delta = self.real
+        return False
+
+
 def _serving_counts():
     """The serving path's launch counts (the flash forward's on both of
-    its paths) and int8 products."""
-    from bigdl_tpu_torch.nn.quantized import qmatmul
+    its paths), int8 products and LoRA delta products."""
+    from bigdl_tpu_torch.nn.quantized import lora_delta, qmatmul
     from bigdl_tpu_torch.ops.flash_attention import flash_fwd
     from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
     from bigdl_tpu_torch.ops.sampling import fused_sample_logits
@@ -1533,13 +1616,15 @@ def _serving_counts():
             "paged_attention_int8": paged_pool_attention.int8_launches,
             "fused_sampling": fused_sample_logits.launches,
             "flash_fwd": flash_fwd.launches + flash_fwd.tc_launches,
-            "int8_matmuls": qmatmul.calls}
+            "int8_matmuls": qmatmul.calls,
+            "lora_products": lora_delta.products}
 
 
 def _reset_serving_counts():
-    from bigdl_tpu_torch.nn.quantized import qmatmul
+    from bigdl_tpu_torch.nn.quantized import lora_delta, qmatmul
     from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
     from bigdl_tpu_torch.ops.sampling import fused_sample_logits
+    lora_delta.products = 0
     paged_pool_attention.launches = 0
     paged_pool_attention.int8_launches = 0
     paged_pool_attention.sharded_calls = 0
@@ -1553,32 +1638,46 @@ SPEC_KEYS = ("spec_proposed", "spec_accepted", "spec_rollbacks",
              "spec_accept_rate")
 
 
-def _serve_traffic(torch, engine, rng):
-    """A warm-up request, then the 12-request traffic with every count set
-    to 0 just before it and read just after, then the same traffic (fresh
-    prompts) once more under torch.profiler. Returns the run's record."""
+def _serve_traffic(torch, engine, rng, adapters=None, profiled=True,
+                   before_run=None, after_run=None):
+    """A warm-up request, then the 12-request traffic (request ``i`` under
+    ``adapters[i]`` when given) with every count set to 0 just before it
+    and read just after, then (``profiled``) the same traffic with fresh
+    prompts once more under torch.profiler, LoRA delta products as their
+    own range when there are ``adapters``. ``before_run()`` and
+    ``after_run()`` are called just before the counted run and when its
+    counts are read. Returns the run's record."""
     try:
         # warm-up (cuBLAS handles, allocator): not part of the run
         engine.generate(rng.integers(0, 50257, 80), 4, temperature=0.8,
                         timeout=300)
+        if before_run is not None:
+            before_run()
         _reset_serving_counts()
         engine.stats.reset()
         torch.cuda.reset_peak_memory_stats()
         prompts = _traffic(rng)
         t_run = time.perf_counter()
-        handles = _drive(engine, prompts)
+        handles = _drive(engine, prompts, adapters)
         outs = [h.result(timeout=600) for h in handles]
         wall = time.perf_counter() - t_run
         stats = engine.stats.snapshot()
         counts = _serving_counts()
         metrics = engine.metrics()
         peak = torch.cuda.max_memory_allocated()
+        if after_run is not None:
+            after_run()
         # where the time goes: the same traffic (fresh prompts) once more
         # under torch.profiler, after the counts were read
-        fresh = _traffic(rng)
-        profile = _profile(torch, lambda: [h.result(timeout=600)
-                                           for h in _drive(engine, fresh)],
-                           groups=SERVING_KERNEL_GROUPS)
+        profile = None
+        if profiled:
+            fresh = _traffic(rng)
+            with _lora_ranges(adapters is not None):
+                profile = _profile(
+                    torch, lambda: [h.result(timeout=600) for h in
+                                    _drive(engine, fresh, adapters)],
+                    groups=SERVING_KERNEL_GROUPS,
+                    ranges=("lora_delta",) if adapters else ())
     finally:
         engine.shutdown()
     for i, (o, h) in enumerate(zip(outs, handles)):
@@ -1630,21 +1729,24 @@ def _serve_traffic(torch, engine, rng):
     return prompts, outs, line, profile
 
 
-def _greedy_slots(torch, model, prompts, n_steps, int8_kv, paged=True):
+def _greedy_slots(torch, model, prompts, n_steps, int8_kv, paged=True,
+                  adapter_pool=None, adapter_slots=None):
     """Prompts through a 2-slot ``PagedSlotManager`` (or, ``paged=False``,
     a dense ``SlotManager`` of one slot a prompt) on ``model``'s device,
-    admitted together, then ``n_steps`` greedy decode steps. Returns the
-    tokens (B, n_steps) and each step's float32 logits (B, n_steps, V) on
-    the CPU."""
+    admitted together (under ``adapter_pool``'s rows ``adapter_slots``,
+    or every row under a ``models.lora.SingleAdapter``), then ``n_steps``
+    greedy decode steps. Returns the tokens (B, n_steps) and each step's
+    float32 logits (B, n_steps, V) on the CPU."""
     import numpy as np
     from bigdl_tpu_torch.serving import PagedSlotManager, SlotManager
     if paged:
         slots = PagedSlotManager(model, max_slots=2, page_size=16,
-                                 prefill_chunk=64, int8_kv=int8_kv)
+                                 prefill_chunk=64, int8_kv=int8_kv,
+                                 adapter_pool=adapter_pool)
     else:
         slots = SlotManager(model, max_slots=len(prompts),
-                            window=len(prompts))
-    slots.admit(prompts)
+                            window=len(prompts), adapter_pool=adapter_pool)
+    slots.admit(prompts, adapter_slots=adapter_slots)
     toks, logits = [], []
     for _ in range(n_steps):
         logits.append(slots._logits.float().cpu())
@@ -4391,6 +4493,543 @@ def phase_slice_snapshot(torch, kernels, smi):
     torch.cuda.empty_cache()
 
 
+LORA_RANK = 8          # the reference engine's default rank
+LORA_B_STD = 0.5       # B's draw, so the tenants' tokens differ from base
+                       # (0.05 left request 6's first 16 as the base's)
+LORA_TENANTS = ["t0", "t1", "t2", "t3"]
+LORA_GREEDY = [i for i in GREEDY_IDX if i not in (0, 4, 8)]
+# lora_variants: 4 greedy requests, 2 base and 2 under t0 / t1
+LORA_VARIANT_IDX = [0, 2, 3, 11]
+LORA_VARIANT_ADAPTERS = [None, "t0", None, "t1"]
+LORA_VARIANT_NEW = 16
+# the seeded corrupt rule mangles a weight plane of GPT-2 small's 13
+# adapter planes (a mangled meta plane re-parses to the same digest)
+LORA_CORRUPT_SEED = 1
+
+
+def _lora_plan():
+    """Request ``i``'s adapter in the slice_lora traffic: requests 0, 4 and
+    8 decode the base model, the other nine cycle the four tenants (3 and
+    9, which share a prefix, both run under t2)."""
+    out, k = [], 0
+    for i in range(12):
+        if i in (0, 4, 8):
+            out.append(None)
+        else:
+            out.append(LORA_TENANTS[k % 4])
+            k += 1
+    return out
+
+
+def _lora_oracles(torch, model, ads, prompts, idx, adapters, n, paged=True,
+                  int8=False):
+    """Each request ``idx[j]`` (under ``adapters[j]``) alone under its one
+    adapter: a hand-driven manager (``_greedy_slots``) a request, every
+    row under ``models.lora.SingleAdapter`` (unbatched slabs; the base
+    model for None; ``int8``: int8 slabs over int8 K/V pages). Returns
+    {request: (tokens (n,), logits (n, V))}."""
+    from bigdl_tpu_torch.models import lora
+    out = {}
+    for i, a in zip(idx, adapters):
+        pool = None if a is None else lora.SingleAdapter(
+            ads[a], device=model.device, int8=int8)
+        toks, logits = _greedy_slots(torch, model, [prompts[i]], n, int8,
+                                     paged=paged, adapter_pool=pool)
+        out[i] = (toks[0], logits[0])
+    return out
+
+
+def _oracle_check(torch, name, outs, oracles, gap, new=N_CMP):
+    """The engine's first ``new`` tokens of each oracle's request against
+    the oracle: identical, or first diverging where the oracle's top-2
+    logit gap is below ``gap``. Returns the divergences."""
+    import numpy as np
+    idx = sorted(oracles)
+    got = np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + new] for i in idx])
+    want = np.stack([oracles[i][0][:new] for i in idx])
+    logits = torch.stack([oracles[i][1][:new] for i in idx])
+    found = _first_divergence(torch, name, got, want, logits, gap)
+    return [dict(f, request=idx[f["row"]]) for f in found]
+
+
+class _GatherLog:
+    """Records an adapter pool's ``gathered`` calls (measurement only): the
+    dispatches that passed a slab tree down, and the changes of the
+    ``(rows, loads)`` key from one call to the next."""
+
+    def __init__(self, pool):
+        self.pool, self.real = pool, pool.gathered
+        self.calls = self.with_tree = self.changes = 0
+        self.last = None
+        pool.gathered = self
+
+    def __call__(self, rows):
+        key = (tuple(int(r) for r in rows), self.pool.loads)
+        self.calls += 1
+        self.changes += key != self.last
+        self.last = key
+        tree = self.real(rows)
+        self.with_tree += tree is not None
+        return tree
+
+    def reset(self):
+        self.calls = self.with_tree = self.changes = 0
+        self.last = None
+        self.gathers0 = self.pool.gathers
+        self.loads0 = self.pool.loads
+
+    def freeze(self):
+        """The run's numbers, read when its counts are read."""
+        self.run = {"lora_dispatches": self.with_tree,
+                    "gathers": self.pool.gathers - self.gathers0,
+                    "gather_key_changes": self.changes,
+                    "pool_loads_in_run": self.pool.loads - self.loads0}
+
+
+def _lora_products(tp, n_layers):
+    """The LoRA products of one dispatch with an adapter row: per layer,
+    2 for each of the 4 column-parallel targets on every shard, and for
+    each of the 2 row-parallel ones ``x_i @ A_i`` on every shard and B
+    once after their sum (2 x 6 x 12 at tp 1)."""
+    return (4 * 2 * tp + 2 * (tp + 1)) * n_layers
+
+
+def _lora_serving_checks(name, line, log, tp=1, n_layers=12):
+    """A LoRA run's holds: :func:`_lora_products` a dispatch that passed a
+    slab tree, and no more gathers than key changes (one per change of
+    batch composition or pool contents, never one per step). Returns the
+    record's LoRA part."""
+    c, run = line["launches"], log.run
+    n = run["lora_dispatches"]
+    check(n > 0, f"{name}: no dispatch ran with an adapter row")
+    want = _lora_products(tp, n_layers) * n
+    check(c["lora_products"] == want,
+          f"{name}: {c['lora_products']} LoRA products for {n} dispatches "
+          f"with an adapter row (want {want})")
+    check(run["gathers"] <= run["gather_key_changes"],
+          f"{name}: {run['gathers']} gathers for "
+          f"{run['gather_key_changes']} key changes")
+    return dict(run)
+
+
+def _lora_burst(engine, prompts, idx, adapters, n_new):
+    """Requests ``idx`` under ``adapters``, submitted while the scheduler
+    waits on its lock (one admission pass sees them all). Returns their
+    outputs {request: tokens}, the seconds, and {request id: request}."""
+    t0 = time.perf_counter()
+    with engine.scheduler._cond:
+        hs = [engine.submit(prompts[i], n_new, adapter=a)
+              for i, a in zip(idx, adapters)]
+    outs = {i: h.result(timeout=600) for i, h in zip(idx, hs)}
+    return outs, time.perf_counter() - t0, {h.id: i for i, h in zip(idx, hs)}
+
+
+class _StepLog:
+    """Records each decode dispatch of an engine (measurement only): the
+    requests its active slots hold and, with ``logits``, their rows of
+    the logits the step picks its tokens from. Without speculation and
+    with one step a block, a request's k-th token comes from its k-th
+    recorded row."""
+
+    def __init__(self, engine, logits):
+        sched = engine.scheduler
+        slots, real = sched.slots, sched.slots.step
+        self.ids, self.logits = [], {}
+
+        def step():
+            live = {s: r for s, r in sched._inflight.items()
+                    if slots.active[s]}
+            self.ids.append(sorted(r.id for r in live.values()))
+            if logits:
+                for s, r in live.items():
+                    self.logits.setdefault(r.id, []).append(
+                        slots._logits[s].float().cpu())
+            return real()
+
+        slots.step = step
+
+    def reset(self):
+        self.ids, self.logits = [], {}
+
+    def batches(self, by_id):
+        """Each step's requests, as request numbers (``by_id``: id ->
+        number), the burst's only."""
+        return [sorted(by_id[r] for r in ids if r in by_id)
+                for ids in self.ids]
+
+
+def _distinct_check(name, oracles, alts, n=N_CMP):
+    """The oracles tell the tenants apart: each request's first ``n``
+    oracle tokens differ from those of the same request's alternative
+    oracles (``alts``: {label: {request: (tokens, logits)}}: the base
+    model, another tenant). Otherwise a pool that gathered the wrong row
+    would pass the token checks. Returns, per request and label, the
+    first step where they differ."""
+    import numpy as np
+    out = {}
+    for i, (toks, _) in sorted(oracles.items()):
+        for label, alt in alts.items():
+            diff = np.nonzero(toks[:n] != alt[i][0][:n])[0]
+            out.setdefault(str(i), {})[label] = (int(diff[0]) if diff.size
+                                                 else None)
+    same = [(i, label) for i, d in out.items() for label, step in d.items()
+            if step is None]
+    check(not same, f"{name}: oracle tokens equal over {n} tokens for "
+                    f"(request, alternative) {same}; first differing steps "
+                    f"{out}")
+    return out
+
+
+def phase_slice_lora(torch, kernels, smi, f32_line, dense_line, cpu_ref):
+    """Multi-tenant LoRA at GPT-2 small (see module docstring): the paged
+    and dense engines under ``slice``'s traffic with four tenants, the
+    variants (int8 weights, tp 2, speculation) and the adapter-load
+    faults."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import lora
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.nn import quantize_model
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import AdapterLoadError, ServingEngine
+
+    t0 = time.perf_counter()
+    cpu_model = gpt2_small(device="cpu")
+    params = convert.init_params(cpu_model, seed=0)
+    cpu_model.load_state_dict(params)
+    cpu_model.requires_grad_(False)
+    ads = {t: lora.init_adapter(torch.Generator().manual_seed(100 + k),
+                                cpu_model, LORA_RANK, b_std=LORA_B_STD)
+           for k, t in enumerate(LORA_TENANTS)}
+    adapter_bytes = sum(a.nbytes for pl in lora.adapter_planes(ads["t0"])
+                        for a in pl.values())
+    plan = _lora_plan()
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)          # _serve_traffic's warm-up draw
+    prompts = _traffic(rng)
+    card = gpt2_small()
+    card.load_state_dict(params)
+    card.requires_grad_(False)
+    oracles = {path: _lora_oracles(
+        torch, card, ads, prompts, LORA_GREEDY,
+        [plan[i] for i in LORA_GREEDY], N_CMP, paged=path == "paged")
+        for path in ("paged", "dense")}
+    var_oracle = _lora_oracles(torch, card, ads, prompts, LORA_VARIANT_IDX,
+                               LORA_VARIANT_ADAPTERS, LORA_VARIANT_NEW)
+    # each greedy adapter request also under the base model and under the
+    # next tenant: its oracle must differ from both
+    greedy_ads = [plan[i] for i in LORA_GREEDY]
+    distinct, alts = {}, {}
+    for path in ("paged", "dense"):
+        alts[path] = {label: _lora_oracles(
+            torch, card, ads, prompts, LORA_GREEDY, alt, N_CMP,
+            paged=path == "paged") for label, alt in (
+                ("base", [None] * len(LORA_GREEDY)),
+                ("next_tenant", [LORA_TENANTS[(LORA_TENANTS.index(a) + 1)
+                                              % 4] for a in greedy_ads]))}
+        distinct[path] = _distinct_check(f"lora_{path} oracles",
+                                         oracles[path], alts[path])
+    # the variants' adapter requests (2 under t0, 11 under t1) run under
+    # the other of the two in the plan (t1, t0)
+    var_ads = {i: var_oracle[i] for i, a in zip(LORA_VARIANT_IDX,
+                                                LORA_VARIANT_ADAPTERS) if a}
+    distinct["variants"] = _distinct_check(
+        "lora_variants oracles", var_ads,
+        {"base": alts["paged"]["base"], "other_tenant": oracles["paged"]},
+        LORA_VARIANT_NEW)
+    # requests 0 and 11 (base, t0) on the CPU under the same adapters
+    cpu11 = _greedy_slots(torch, cpu_model, [prompts[11]], N_CMP, False,
+                          adapter_pool=lora.SingleAdapter(ads["t0"]))
+    setup_s = time.perf_counter() - t0
+    del card
+    torch.cuda.empty_cache()
+    n_layers = len(cpu_model.gpt.layers)
+    lines = {}
+
+    def engine(model, p=None, **kw):
+        return ServingEngine(model, p, max_slots=8, top_k=50, top_p=0.9,
+                             seed=0, lora=True, lora_rank=LORA_RANK,
+                             adapters=ads, **kw)
+
+    # --- lora_paged: the mixed traffic through the paged engine
+    for path in ("paged", "dense"):
+        paged = path == "paged"
+        model = gpt2_small()
+        kw = (dict(paged=True, page_size=16, prefill_chunk=64,
+                   adapter_slots=2, adapter_host_bytes=4 * adapter_bytes)
+              if paged else dict(adapter_slots=4))
+        eng = engine(model, params, **kw)
+        log = _GatherLog(eng.adapter_pool)
+        _, outs, line, prof = _serve_traffic(
+            torch, eng, np.random.default_rng(0), adapters=plan,
+            profiled=paged, before_run=log.reset, after_run=log.freeze)
+        st = eng.adapter_pool.stats()
+        c = line["launches"]
+        name = f"lora_{path}"
+        lo = _lora_serving_checks(name, line, log, n_layers=n_layers)
+        if paged:
+            dispatches = line["prefill_chunks"] + line["decode_steps"]
+            check(c["paged_attention"] == n_layers * dispatches,
+                  f"{name}: {c['paged_attention']} paged launches for "
+                  f"{dispatches} chunks and steps")
+            check(st["loads"] >= 4 and st["evictions"] >= 2
+                  and st["tier_hits"] >= 1,
+                  f"{name}: loads {st['loads']}, evictions "
+                  f"{st['evictions']}, tier hits {st['tier_hits']}")
+            kernels["paged_attention"].setdefault("launches_by_phase", {})[
+                "slice_lora"] = c["paged_attention"]
+        else:
+            check(c["paged_attention"] == c["paged_attention_int8"]
+                  == c["flash_fwd"] == 0, f"{name} launched {c}")
+        kernels["fused_sampling"].setdefault("launches_by_phase", {})[
+            f"slice_{name}"] = c["fused_sampling"]
+        divs = {"vs_oracle": _oracle_check(torch, name, outs,
+                                           oracles[path], FLOAT_GAP),
+                "base_vs_no_adapter_engine": _near_tie_check(
+                    torch, name, params, outs, _NO_FAULT[path], [0, 8])}
+        if paged:
+            cpu_toks, cpu_logits = cpu_ref
+            got = np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + N_CMP]
+                            for i in CMP_IDX])
+            want = np.stack([cpu_toks[0], cpu11[0][0]])
+            logits = torch.stack([cpu_logits[0], cpu11[1][0]])
+            divs["vs_cpu"] = _first_divergence(torch, f"{name} vs CPU", got,
+                                               want, logits, FLOAT_GAP)
+        base = f32_line if paged else dense_line
+        lines[name] = {**line, **lo, "adapter_stats": st,
+                       "no_adapter_tokens_per_s": base["tokens_per_s"],
+                       "no_adapter_ttft_mean_s": base["ttft_mean_s"],
+                       "tokens_per_s_vs_no_adapter":
+                           line["tokens_per_s"] / base["tokens_per_s"],
+                       "paged_tokens_per_s": f32_line["tokens_per_s"],
+                       "dense_tokens_per_s": dense_line["tokens_per_s"],
+                       "divergences": divs}
+        emit({"phase": "slice_lora", "run": name, "model": "gpt2_small",
+              "rank": LORA_RANK, "tenants": len(ads),
+              "adapter_bytes": adapter_bytes, "plan": plan, **lines[name],
+              "card": smi})
+        if prof is not None:
+            emit({"phase": "profile", "path": "serving_lora", **prof})
+        del eng, model
+        torch.cuda.empty_cache()
+
+    lines["lora_decode_profile"] = _lora_step_profile(
+        torch, params, ads, prompts, plan, n_layers)
+
+    # --- lora_variants: int8 weights, tp 2 on the one card, speculation
+    var_prompts = LORA_VARIANT_IDX
+    for var, kw in (("int8", dict(int8_weights=True, int8_kv=True)),
+                    ("tp2", dict(mesh=TP_MESH)),
+                    ("spec", dict(spec_tokens=SPEC_TOKENS))):
+        model = gpt2_small(device="cpu" if var == "tp2" else None)
+        model.load_state_dict(params)
+        eng = engine(model, None, paged=True, page_size=16, prefill_chunk=64,
+                     adapter_slots=2, **kw)
+        log = _GatherLog(eng.adapter_pool)
+        steps = _StepLog(eng, logits=False)
+        try:
+            eng.generate(prompts[0][:80], 4, timeout=300)     # warm-up
+            log.reset()
+            steps.reset()
+            _reset_serving_counts()
+            eng.stats.reset()
+            outs, wall, by_id = _lora_burst(eng, prompts, var_prompts,
+                                            LORA_VARIANT_ADAPTERS,
+                                            LORA_VARIANT_NEW)
+            stats = eng.stats.snapshot()
+            log.freeze()
+            line = {"launches": _serving_counts(), "wall_s": wall,
+                    "prefill_chunks": stats["prefill_chunks"],
+                    "decode_steps": stats["steps"]}
+            pool_int8 = eng.adapter_pool.int8
+        finally:
+            eng.shutdown()
+        name = f"lora_{var}"
+        tp = 2 if var == "tp2" else 1
+        lo = _lora_serving_checks(name, line, log, tp=tp,
+                                  n_layers=n_layers)
+        c = line["launches"]
+        dispatches = line["prefill_chunks"] + line["decode_steps"]
+        run, idle = (("paged_attention_int8", "paged_attention")
+                     if var == "int8" else
+                     ("paged_attention", "paged_attention_int8"))
+        check(c[run] == tp * n_layers * dispatches and c[idle] == 0,
+              f"{name}: {c[run]} {run} launches for {dispatches} "
+              f"dispatches at tp {tp} ({c[idle]} {idle})")
+        key = "paged_attention_tp" if tp > 1 else run
+        kernels[key].setdefault("launches_by_phase", {})[
+            f"slice_{name}"] = c[run]
+        for i in var_prompts:
+            check(outs[i].size == LENGTHS[i] + LORA_VARIANT_NEW,
+                  f"{name} request {i}: {outs[i].size - LENGTHS[i]} tokens")
+        rec = {**line, **lo}
+        if var == "int8":
+            check(pool_int8 and c["int8_matmuls"] == 6 * n_layers
+                  * dispatches, f"{name}: int8 slabs {pool_int8}, "
+                                f"{c['int8_matmuls']} int8 products")
+            rec.update(_lora_int8_checks(
+                torch, params, ads, prompts, outs, steps.batches(by_id),
+                lambda m: engine(m, None, paged=True, page_size=16,
+                                 prefill_chunk=64, adapter_slots=2,
+                                 device="cpu", **kw),
+                quantize_model, gpt2_small))
+        else:
+            rec["divergences"] = _oracle_check(
+                torch, name, outs, var_oracle, FLOAT_GAP, LORA_VARIANT_NEW)
+        lines[name] = rec
+        emit({"phase": "slice_lora", "run": name, "requests": var_prompts,
+              "adapters": LORA_VARIANT_ADAPTERS,
+              "new_tokens_each": LORA_VARIANT_NEW, **rec})
+        del eng, model
+        torch.cuda.empty_cache()
+
+    # --- lora_faults: a corrupt tier copy, then an injected load error
+    model = gpt2_small()
+    eng = engine(model, params, paged=True, page_size=16, prefill_chunk=64,
+                 adapter_slots=1, adapter_host_bytes=2 * adapter_bytes)
+    n = LORA_VARIANT_NEW
+    try:
+        first = eng.generate(prompts[2], n, adapter="t0", timeout=300)
+        eng.generate(prompts[11], n, adapter="t1", timeout=300)  # evicts t0
+        faults.configure(f"seed={LORA_CORRUPT_SEED};"
+                         f"serving.adapter_load:corrupt:times=1")
+        again = eng.generate(prompts[2], n, adapter="t0", timeout=300)
+        corrupt = eng.metrics()["adapter_corrupt_dropped"]
+        faults.configure("serving.adapter_load:error:times=1")
+        bad = eng.submit(prompts[11], n, adapter="t1")
+        ok = eng.submit(prompts[3], n)
+        try:
+            bad.result(timeout=300)
+            bad_err = None
+        except AdapterLoadError as e:
+            bad_err = repr(e)
+        ok_out = ok.result(timeout=300)
+        met = eng.metrics()
+    finally:
+        faults.configure(None)
+        eng.shutdown()
+    check(corrupt >= 1, f"lora_faults: {corrupt} corrupt copies dropped")
+    check(bad_err is not None and "injected" in bad_err,
+          f"lora_faults: the failed load gave {bad_err!r}")
+    check(ok_out.size == LENGTHS[3] + n, "lora_faults: request 3 failed")
+    div = _oracle_check(torch, "lora_faults", {2: again},
+                        {2: var_oracle[2]}, FLOAT_GAP, n)
+    lines["lora_faults"] = {
+        "corrupt_dropped": corrupt, "load_errors":
+            met["adapter_load_errors"], "failed_request_error": bad_err,
+        "rejected": met["rejected"],
+        "corrupt_run_equals_clean_run": bool(np.array_equal(first, again)),
+        "divergences": div}
+    emit({"phase": "slice_lora", "run": "lora_faults",
+          **lines["lora_faults"]})
+    del eng, model
+    torch.cuda.empty_cache()
+    emit({"phase": "slice_lora", "run": "summary", "setup_s": setup_s,
+          "tokens_per_s": {k: v.get("tokens_per_s") for k, v in lines.items()
+                           if "tokens_per_s" in v},
+          "slice_tokens_per_s": f32_line["tokens_per_s"],
+          "slice_dense_tokens_per_s": dense_line["tokens_per_s"],
+          "oracles_differ_at_step": distinct, "card": smi})
+    return lines
+
+
+def _lora_step_profile(torch, params, ads, prompts, plan, n_layers,
+                       steps=16):
+    """Where a mixed-adapter decode step's device time goes: requests 0-7
+    under their adapters (4 tenants and the base model) in a hand-driven
+    8-slot ``PagedSlotManager`` over a 4-row pool, greedy, then ``steps``
+    decode steps under torch.profiler with every LoRA delta in its own
+    range. Driven on this thread (the profiler records the ranges of the
+    thread that runs it, not the engine's scheduler thread). Returns the
+    ``profile`` line's numbers."""
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.serving import AdapterPool, PagedSlotManager
+    model = gpt2_small()
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    pool = AdapterPool(model, 4, LORA_RANK)
+    for name, ad in ads.items():
+        pool.register(name, ad)
+    rows = [pool.acquire(pool.resolve(plan[i])) for i in range(8)]
+    slots = PagedSlotManager(model, max_slots=8, page_size=16,
+                             prefill_chunk=64, adapter_pool=pool)
+    slots.admit([prompts[i] for i in range(4)], adapter_slots=rows[:4])
+    slots.admit([prompts[i] for i in range(4, 8)], adapter_slots=rows[4:])
+
+    def run():
+        for _ in range(steps):
+            slots.reserve_block()
+            slots.step()
+
+    run()                                   # warm-up
+    from bigdl_tpu_torch.nn.quantized import lora_delta
+    products = lora_delta.products
+    with _lora_ranges(True):
+        prof = _profile(torch, run, groups=SERVING_KERNEL_GROUPS,
+                        ranges=("lora_delta",))
+    check(lora_delta.products - products == 2 * 6 * n_layers * steps,
+          f"lora decode profile: {lora_delta.products - products} products "
+          f"for {steps} steps")
+    emit({"phase": "profile", "path": "serving_lora_decode_steps",
+          "steps": steps, "rows": rows, **prof})
+    del slots, pool, model
+    torch.cuda.empty_cache()
+    return prof
+
+
+def _lora_int8_checks(torch, params, ads, prompts, outs, batches,
+                      make_engine, quantize_model, gpt2_small):
+    """``lora_int8``'s token checks. Int8 weights couple a dispatch's rows
+    (one activation amax a batch), so a single-request oracle cannot hold
+    the engine's tokens; a run of the same burst through the same engine
+    on the CPU can. Held: the card engine ran the same batches step for
+    step (``batches``) as the CPU engine, and its first LORA_VARIANT_NEW
+    tokens of every request equal the CPU engine's, or first diverge
+    where the CPU's top-2 logit gap is below INT8_GAP. The agreement with
+    each request's int8 single-adapter oracle on the card is reported."""
+    import numpy as np
+    cpu_model = gpt2_small(device="cpu")
+    cpu_model.load_state_dict(params)
+    cpu_model.requires_grad_(False)
+    eng = make_engine(cpu_model)
+    steps = _StepLog(eng, logits=True)
+    try:
+        eng.generate(prompts[0][:80], 4, timeout=300)         # as the card's
+        steps.reset()
+        cpu_outs, cpu_wall, by_id = _lora_burst(
+            eng, prompts, LORA_VARIANT_IDX, LORA_VARIANT_ADAPTERS,
+            LORA_VARIANT_NEW)
+    finally:
+        eng.shutdown()
+    check(steps.batches(by_id) == batches,
+          "lora_int8: the card and CPU engines ran different batches")
+    n = LORA_VARIANT_NEW
+    got = np.stack([outs[i][LENGTHS[i]:LENGTHS[i] + n]
+                    for i in LORA_VARIANT_IDX])
+    want = np.stack([cpu_outs[i][LENGTHS[i]:LENGTHS[i] + n]
+                     for i in LORA_VARIANT_IDX])
+    rows = {i: r for r, i in by_id.items()}
+    logits = torch.stack([torch.stack(steps.logits[rows[i]][:n])
+                          for i in LORA_VARIANT_IDX])
+    held = [dict(f, request=LORA_VARIANT_IDX[f["row"]]) for f in
+            _first_divergence(torch, "lora_int8 card vs CPU engine", got,
+                              want, logits, INT8_GAP)]
+    del eng, cpu_model
+    card = gpt2_small()
+    card.load_state_dict(params)
+    card.requires_grad_(False)
+    quantize_model(card)
+    oracle = _lora_oracles(torch, card, ads, prompts, LORA_VARIANT_IDX,
+                           LORA_VARIANT_ADAPTERS, n, int8=True)
+    del card
+    agree = {i: float(np.mean(outs[i][LENGTHS[i]:] == oracle[i][0]))
+             for i in LORA_VARIANT_IDX}
+    return {"card_vs_cpu_engine_divergences": held,
+            "cpu_engine_wall_s": cpu_wall, "steps_compared": len(batches),
+            "gap_threshold": INT8_GAP,
+            "agreement_with_int8_oracle": agree}
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -4447,6 +5086,8 @@ def main():
     run("slice_supervisor", phase_slice_supervisor, torch, smi)
     run("slice_host_tier", phase_slice_host_tier, torch, kernels, smi)
     run("slice_snapshot", phase_slice_snapshot, torch, kernels, smi)
+    run("slice_lora", phase_slice_lora, torch, kernels, smi, f32_line,
+        dense_line, cpu_ref)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

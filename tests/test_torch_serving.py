@@ -112,13 +112,15 @@ UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7"
 
 # options these cases once refused and now serve: the dense slot table
 # (ROADMAP A.2), int8 weights under tensor parallelism (A.6b), speculative
-# decoding by keyword or by its flag (A.5), the failover hook (A.4) and the
-# snapshot store and host tier by keyword or by their flags (A.7)
+# decoding by keyword or by its flag (A.5), the failover hook (A.4), the
+# snapshot store and host tier by keyword or by their flags (A.7) and the
+# LoRA adapter pool by keyword or by its flag (A.8)
 NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True},
               {"spec_tokens": 4}, {"BIGDL_TPU_SPEC_DECODE": "1"},
               {"failover": True}, {"kv_snapshot": True},
               {"kv_host_tier": True}, {"BIGDL_TPU_KV_SNAPSHOT": "1"},
-              {"BIGDL_TPU_KV_HOST_TIER": "1"})
+              {"BIGDL_TPU_KV_HOST_TIER": "1"}, {"lora": True},
+              {"BIGDL_TPU_LORA": "1"})
 
 
 @pytest.mark.parametrize("kw", [
@@ -134,13 +136,16 @@ def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
     of NOW_PORTED serve instead, on the path they name: ``paged=False``
     from the dense table, ``tp=2, int8_weights=True`` from int8 shards,
     ``spec_tokens=4`` or ``BIGDL_TPU_SPEC_DECODE`` speculatively,
-    ``kv_snapshot`` (over ``BIGDL_TPU_SNAPSHOT_DIR``) with a page store
-    and ``kv_host_tier`` with a host tier."""
+    ``kv_snapshot`` (over ``BIGDL_TPU_SNAPSHOT_DIR``) with a page store,
+    ``kv_host_tier`` with a host tier and ``lora`` or ``BIGDL_TPU_LORA``
+    with an adapter pool. ``adapters`` without ``lora`` raises
+    ``ValueError``, as in the reference."""
     _, _, sd = weights
     ported = kw in NOW_PORTED
     spec = "spec_tokens" in kw or "BIGDL_TPU_SPEC_DECODE" in kw
     snap = "kv_snapshot" in kw or "BIGDL_TPU_KV_SNAPSHOT" in kw
     tier = "kv_host_tier" in kw or "BIGDL_TPU_KV_HOST_TIER" in kw
+    pool = "lora" in kw or "BIGDL_TPU_LORA" in kw
     monkeypatch.setenv("BIGDL_TPU_SNAPSHOT_DIR", str(tmp_path))
     kw = dict(kw)
     match = "ROADMAP"
@@ -162,6 +167,11 @@ def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
         assert (met.get("spec_proposed", 0) > 0) == spec
         assert (eng.snapshot is not None) == snap
         assert (eng.host_tier is not None) == tier
+        assert (eng.adapter_pool is not None) == pool
+        return
+    if "adapters" in kw:
+        with pytest.raises(ValueError, match="adapters= needs the pool"):
+            ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
         return
     with pytest.raises(NotImplementedError, match=match):
         ServingEngine(m, sd, device="cpu", **{**ENGINE, **kw})
@@ -194,10 +204,9 @@ def test_unported_flag_yields_to_keyword(weights, flag, kw, monkeypatch):
 ])
 def test_sub_options_follow_parent(weights, sub, value, parent, tmp_path):
     """A sub-option is ignored while its parent is off. With the parent on,
-    a ported parent's sub-option takes effect (the snapshot store's
-    directory, interval and journal; the host tier's budget and
-    prefetch), an unported one's is refused, naming the ROADMAP item; an
-    unknown keyword is still a TypeError."""
+    it takes effect (the snapshot store's directory, interval and journal;
+    the host tier's budget and prefetch; the adapter pool's rank, rows and
+    host tier); an unknown keyword is still a TypeError."""
     _, _, sd = weights
     if sub == "snapshot_dir":
         value = str(tmp_path / "snapshots")
@@ -205,25 +214,23 @@ def test_sub_options_follow_parent(weights, sub, value, parent, tmp_path):
         assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 5 + 2
         assert eng.snapshot is None and eng.host_tier is None
     m = GPTForCausalLM(**CFG, device="cpu")
-    if parent == "lora":
-        with pytest.raises(NotImplementedError,
-                           match=f"{sub}.*ROADMAP queue A"):
-            ServingEngine(m, sd, device="cpu", **ENGINE,
-                          **{sub: value, parent: True})
-    else:
-        extra = ({} if parent != "kv_snapshot" or sub == "snapshot_dir"
-                 else {"snapshot_dir": str(tmp_path)})
-        with ServingEngine(m, sd, device="cpu", **ENGINE, **extra,
-                           **{sub: value, parent: True}) as eng:
-            assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 7
-            took = {"snapshot_dir": lambda: eng.snapshot.directory,
-                    "snapshot_interval_s": lambda: eng.snapshot.interval_s,
-                    "snapshot_journal":
-                        lambda: eng.snapshot.journal.path.rsplit("/", 1)[1],
-                    "host_tier_bytes": lambda: eng.host_tier.budget_bytes,
-                    "host_tier_prefetch":
-                        lambda: eng.slots.host_tier_prefetch}[sub]()
-        assert took == value
+    extra = ({} if parent != "kv_snapshot" or sub == "snapshot_dir"
+             else {"snapshot_dir": str(tmp_path)})
+    with ServingEngine(m, sd, device="cpu", **ENGINE, **extra,
+                       **{sub: value, parent: True}) as eng:
+        assert eng.generate(_prompts()[1], 2, timeout=WAIT).size == 7
+        took = {"snapshot_dir": lambda: eng.snapshot.directory,
+                "snapshot_interval_s": lambda: eng.snapshot.interval_s,
+                "snapshot_journal":
+                    lambda: eng.snapshot.journal.path.rsplit("/", 1)[1],
+                "host_tier_bytes": lambda: eng.host_tier.budget_bytes,
+                "host_tier_prefetch":
+                    lambda: eng.slots.host_tier_prefetch,
+                "lora_rank": lambda: eng.adapter_pool.rank,
+                "adapter_slots": lambda: eng.adapter_pool.capacity,
+                "adapter_host_bytes":
+                    lambda: eng.adapter_pool.tier.budget_bytes}[sub]()
+    assert took == value
     with pytest.raises(TypeError, match="unexpected keyword"):
         ServingEngine(m, sd, device="cpu", **ENGINE, **{f"{sub}_x": value})
 

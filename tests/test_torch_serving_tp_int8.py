@@ -63,8 +63,15 @@ def _state_dict(params):
 
 
 def _serve(engine, prompts=PROMPTS, n_new=N_NEW):
+    """Every prompt submitted while the scheduler waits on its lock, so its
+    first admission pass sees the whole burst and the admission batches
+    are the same in every run and in both packages. Int8 weights quantise
+    a dispatch's rows against one activation amax, so the tokens depend
+    on the batches; with the submits racing the scheduler thread they
+    followed the threads' timing."""
     try:
-        handles = [engine.submit(p, n_new) for p in prompts]
+        with engine.scheduler._cond:
+            handles = [engine.submit(p, n_new) for p in prompts]
         return [engine.result(h, timeout=WAIT) for h in handles]
     finally:
         engine.shutdown()

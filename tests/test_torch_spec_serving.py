@@ -66,6 +66,20 @@ def _serve(engine, prompts=PROMPTS, n_new=N_NEW, **kw):
         engine.shutdown()
 
 
+def _serve_burst(engine, prompts=PROMPTS, n_new=N_NEW):
+    """:func:`_serve` with every prompt submitted while the scheduler waits
+    on its lock: its first admission pass sees the whole burst, so the
+    admission batches (and the rows and slots each request gets) are the
+    same in every run, whatever the threads' timing."""
+    try:
+        with engine.scheduler._cond:
+            hs = [engine.submit(p, n_new) for p in prompts]
+        return [np.asarray(engine.result(h, timeout=WAIT)) for h in hs], \
+            engine.metrics()
+    finally:
+        engine.shutdown()
+
+
 def _port(sd, **kw):
     return ServingEngine(_model(sd), None, device="cpu", **kw)
 
@@ -115,14 +129,18 @@ def test_spec_tp2_matches_unsharded(paged):
     """Tensor-parallel speculation over two CPU shards (the verify chunks
     split by head, the draft on the first shard's device): the tokens of
     the reference's unsharded speculative engine and of the port's plain
-    unsharded engine."""
+    unsharded engine. Six prompts on three slots: each engine gets the
+    burst in one admission pass (:func:`_serve_burst`), so the three see
+    the same admission batches; with the submits racing the scheduler the
+    batches followed the threads' timing, and under a loaded machine the
+    tp-2 run could see other ones than the reference did."""
     jm, params, sd = _weights(3)
     kw = dict(max_slots=3, max_queue=16)
     if paged:
         kw.update(paged=True, page_size=8, prefill_chunk=4)
-    want, _ = _serve(JaxEngine(jm, params, spec_tokens=4, **kw))
-    plain, _ = _serve(_port(sd, **kw))
-    got, met = _serve(_port(sd, spec_tokens=4, tp=2, **kw))
+    want, _ = _serve_burst(JaxEngine(jm, params, spec_tokens=4, **kw))
+    plain, _ = _serve_burst(_port(sd, **kw))
+    got, met = _serve_burst(_port(sd, spec_tokens=4, tp=2, **kw))
     _same(got, want)
     _same(got, plain)
     assert met["tp_degree"] == 2 and met["spec_proposed"] > 0
