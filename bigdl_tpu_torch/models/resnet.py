@@ -27,7 +27,6 @@ from bigdl_tpu_torch.nn import (CAddTable, Linear, LogSoftMax, ReLU, Reshape,
                                 SpatialAveragePooling,
                                 SpatialBatchNormalization, SpatialConvolution,
                                 SpatialMaxPooling)
-from bigdl_tpu_torch.ops.conv3x3 import kernel_for
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.flags import get_flag
 
@@ -189,37 +188,3 @@ class ResNet(nn.Module):
         seq(self._head, hw)
         return walk
 
-
-def resnet_flops(model, image_hw=(224, 224)):
-    """Operations of one image's forward pass, counted from the layers: 2
-    per multiply-add of every convolution and of the classifier (BN, ReLU,
-    pooling and the additions are not counted). ResNet-50 at 224 x 224:
-    about 8.2e9. A training step is about 3x this per image."""
-    total = 0
-    for _, m, (h, w) in model.layer_walk(image_hw):
-        if isinstance(m, SpatialConvolution):
-            oh, ow = m.output_hw(h, w)
-            total += (2 * oh * ow * m.kernel_h * m.kernel_w
-                      * m.n_input_plane * m.n_output_plane)
-        elif isinstance(m, Linear):
-            total += 2 * m.input_size * m.output_size
-    return total
-
-
-def conv_routes(model, image_hw=(224, 224)):
-    """How one training step of ``model`` on ``image_hw`` images runs its
-    convolutions: ``{"i2c": n, "k9": n, "library": n}`` kernel launches
-    (forward and input gradient of every kernel-route convolution, each
-    by the operation's input channels; the first layer reads the images,
-    which need no gradient) and ``F.conv2d`` forward calls."""
-    routes = {"i2c": 0, "k9": 0, "library": 0}
-    for i, (_, m, (h, w)) in enumerate(model.layer_walk(image_hw)):
-        if not isinstance(m, SpatialConvolution):
-            continue
-        if m.uses_kernel(h, w):
-            routes[kernel_for(m.n_input_plane)] += 1     # forward
-            if i > 0:
-                routes[kernel_for(m.n_output_plane)] += 1  # input gradient
-        else:
-            routes["library"] += 1
-    return routes

@@ -14,13 +14,18 @@ here (``modules`` is torch's method).
 ``MapTable`` and ``Bottle`` hold ONE child whose parameters every
 application shares, as the reference's do; ``freeze``/``unfreeze`` reach
 every child (``nn/module.py`` reads the flags).
+
+Each container's ``forward`` takes ``generator=None`` and hands it to
+every child whose ``forward`` takes one (``Dropout``, nested containers),
+as the reference's containers pass their rng down; the children draw
+from it in forward order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, call_with_generator
 
 
 class Container(Module):
@@ -60,9 +65,9 @@ class Container(Module):
 class Sequential(Container):
     """Reference ``nn/Sequential.scala:31``."""
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for m in self._modules.values():
-            x = m(x)
+            x = call_with_generator(m, x, generator)
         return x
 
 
@@ -74,23 +79,26 @@ class Concat(Container):
         super().__init__()
         self.dimension = dimension
 
-    def forward(self, x):
-        return torch.cat([m(x) for m in self._modules.values()],
+    def forward(self, x, generator=None):
+        return torch.cat([call_with_generator(m, x, generator)
+                          for m in self._modules.values()],
                          dim=self.dimension)
 
 
 class ConcatTable(Container):
     """Each child on the same input; the list of their outputs."""
 
-    def forward(self, x):
-        return [m(x) for m in self._modules.values()]
+    def forward(self, x, generator=None):
+        return [call_with_generator(m, x, generator)
+                for m in self._modules.values()]
 
 
 class ParallelTable(Container):
     """Child i on element i of the input list."""
 
-    def forward(self, xs):
-        return [m(x) for m, x in zip(self._modules.values(), xs)]
+    def forward(self, xs, generator=None):
+        return [call_with_generator(m, x, generator)
+                for m, x in zip(self._modules.values(), xs)]
 
 
 class MapTable(Container):
@@ -101,9 +109,9 @@ class MapTable(Container):
         if module is not None:
             self.add(module)
 
-    def forward(self, xs):
+    def forward(self, xs, generator=None):
         m = self[0]
-        return [m(x) for x in xs]
+        return [call_with_generator(m, x, generator) for x in xs]
 
 
 class Bottle(Container):
@@ -115,9 +123,9 @@ class Bottle(Container):
         self.n_input_dim = n_input_dim
         self.n_output_dim = n_output_dim or n_input_dim
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         tail = self.n_input_dim - 1
         lead_shape = x.shape[:-tail]
         flat = x.reshape((-1,) + tuple(x.shape[-tail:]))
-        y = self[0](flat)
+        y = call_with_generator(self[0], flat, generator)
         return y.reshape(tuple(lead_shape) + tuple(y.shape[1:]))

@@ -9,13 +9,14 @@ place in that order, so a ``state_dict`` key is ``"<i>.<leaf>"``
 (``convert.module_params_from_jax`` maps the reference's node-id keys by
 the same order). A node fed by several nodes receives the list of their
 outputs, in wiring order; several graph inputs take a list or tuple; a
-graph with several outputs returns a list.
+graph with several outputs returns a list. ``forward`` hands its
+``generator`` to every node's module whose ``forward`` takes one.
 """
 
 from __future__ import annotations
 
 from bigdl_tpu_torch.nn.basic import Input as InputModule
-from bigdl_tpu_torch.nn.module import Module, Node
+from bigdl_tpu_torch.nn.module import Module, Node, call_with_generator
 
 __all__ = ["Graph", "Input", "Node"]
 
@@ -74,11 +75,11 @@ class Graph(Module):
             return values[node.prev_nodes[0].id]
         return [values[p.id] for p in node.prev_nodes]
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         values = {}
         for node in self.exec_order:
-            values[node.id] = node.module(
-                self._gather_input(node, values, x))
+            values[node.id] = call_with_generator(
+                node.module, self._gather_input(node, values, x), generator)
         if len(self.output_nodes) == 1:
             return values[self.output_nodes[0].id]
         return [values[n.id] for n in self.output_nodes]

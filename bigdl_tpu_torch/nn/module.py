@@ -18,10 +18,18 @@ reference's training API reads from them:
 - ``reset(seed)``: seeded weights from the reference's initializers'
   distributions (see :func:`init_state_dict`);
 - ``layer(node)`` on graph nodes builds a :class:`Node` (``nn/graph.py``),
-  as in the reference; on tensors it is the forward.
+  as in the reference; on tensors it is the forward;
+- :func:`takes_generator`: does a module's ``forward`` take the
+  ``generator`` its layers draw from (``Dropout``, the containers, the
+  GPT and ResNet models)? The reference hands its rng to every layer and
+  the layers that draw nothing ignore it; here only such a forward gets
+  one.
 """
 
 from __future__ import annotations
+
+import functools
+import inspect
 
 import numpy as np
 import torch
@@ -106,6 +114,24 @@ class Module(nn.Module):
         generator) as ``{name: float32 array}`` in the port's layout;
         layers without parameters draw nothing."""
         return {}
+
+
+@functools.cache
+def _forward_takes_generator(cls):
+    return "generator" in inspect.signature(cls.forward).parameters
+
+
+def takes_generator(module):
+    """Does ``module.forward`` take a ``generator`` keyword?"""
+    return _forward_takes_generator(type(module))
+
+
+def call_with_generator(module, x, generator):
+    """``module(x)``, with ``generator=`` where it is given and the
+    module's forward takes it."""
+    if generator is not None and takes_generator(module):
+        return module(x, generator=generator)
+    return module(x)
 
 
 def _walk(module, prefix="", frozen=False):

@@ -9,7 +9,13 @@
   mean and variance cast back to the input type; running statistics
   ``(1 - m) * old + m * batch`` with the variance unbiased by
   ``n / (n - 1)``, kept as float32 buffers and updated in place in
-  training mode; evaluation normalises with them.
+  training mode; evaluation normalises with them;
+- ``SpatialCrossMapLRN``: ``x * (k + alpha / size * S) ** -beta``, ``S``
+  the sum of ``x^2`` over a window of ``size`` channels, zero-padded by
+  ``(size - 1) // 2`` before and the rest after, as the reference's
+  ``reduce_window`` pads it (``F.local_response_norm`` pads ``size // 2``
+  before, which differs for an even ``size``). Plain tensor operations:
+  the reference computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -113,3 +119,34 @@ class SpatialBatchNormalization(BatchNormalization):
                  format="NCHW", device=None, dtype=torch.float32):
         super().__init__(n_output, eps, momentum, affine, device, dtype)
         self.feature_axis = 1 if format == "NCHW" else -1
+
+
+class SpatialCrossMapLRN(Module):
+    """Local response normalization across channels (reference
+    ``nn/SpatialCrossMapLRN.scala``; see module docstring). ``format`` is
+    "NCHW" (channels on axis 1) or "NHWC" (the last axis)."""
+
+    def __init__(self, size=5, alpha=1.0, beta=0.75, k=1.0, format="NCHW"):
+        super().__init__()
+        if format not in ("NCHW", "NHWC"):
+            raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+        self.format = format
+
+    def forward(self, x):
+        ax = 1 if self.format == "NCHW" else x.dim() - 1
+        c = x.shape[ax]
+        sq = torch.square(x)
+        before = (self.size - 1) // 2
+        pad = [0, 0] * (x.dim() - 1 - ax) + [before,
+                                             self.size - 1 - before]
+        sq = F.pad(sq, pad)
+        window = sq.narrow(ax, 0, c)
+        for i in range(1, self.size):
+            window = window + sq.narrow(ax, i, c)
+        return x * torch.pow(self.k + self.alpha / self.size * window,
+                             -self.beta)
+
+    def extra_repr(self):
+        return (f"size={self.size}, alpha={self.alpha}, beta={self.beta}, "
+                f"k={self.k}, {self.format}")

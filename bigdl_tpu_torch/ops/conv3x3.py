@@ -172,15 +172,20 @@ TC_K9_MAX_W = max(w for w in range(1, 1024)
                   <= TC_MAX_SMEM)
 
 
-def tc_eligible(kind, x, w, flip=False):
-    """Does kernel ``kind`` take the tensor-core path for ``x`` and OHWI
-    ``w``? bfloat16, the operation's input and output channels multiples
-    of 8 (16-byte copies and stores), and for k9 an image no wider than
-    TC_K9_MAX_W (its halo must fit in a CTA's shared memory)."""
-    cin, cout = _channels(w, flip)
-    if x.dtype != torch.bfloat16 or cin % 8 or cout % 8:
+def tc_path(kind, dtype, width, cin, cout):
+    """Does kernel ``kind`` take the tensor-core path for an operation of
+    ``cin`` input and ``cout`` output channels on ``dtype`` images
+    ``width`` wide? bfloat16, both channel counts multiples of 8 (16-byte
+    copies and stores), and for k9 an image no wider than TC_K9_MAX_W (its
+    halo must fit in a CTA's shared memory)."""
+    if dtype != torch.bfloat16 or cin % 8 or cout % 8:
         return False
-    return kind != "k9" or x.shape[2] <= TC_K9_MAX_W
+    return kind != "k9" or width <= TC_K9_MAX_W
+
+
+def tc_eligible(kind, x, w, flip=False):
+    """:func:`tc_path` for ``x`` and OHWI ``w``."""
+    return tc_path(kind, x.dtype, x.shape[2], *_channels(w, flip))
 
 
 def _launch(fn, kind, x, w, flip):
@@ -301,5 +306,5 @@ def bytes_and_flops(x, w, flip=False):
 
 __all__ = ["conv3x3", "conv3x3_k9", "conv3x3_i2c", "conv3x3_k9_ref",
            "conv3x3_i2c_ref", "kernel_for", "bytes_and_flops",
-           "tc_eligible", "tc_plan", "I2C_MAX_CIN", "KERNELS",
+           "tc_eligible", "tc_path", "tc_plan", "I2C_MAX_CIN", "KERNELS",
            "TC_K9_MAX_W", "TC_MAX_SMEM"]

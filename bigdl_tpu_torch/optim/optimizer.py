@@ -34,7 +34,8 @@ from torch.func import functional_call
 
 from bigdl_tpu_torch.dataset.transformer import (DeviceFeed, Prefetch,
                                                  ToSuperBatch)
-from bigdl_tpu_torch.nn.module import grad_scales, regularizers
+from bigdl_tpu_torch.nn.module import (grad_scales, regularizers,
+                                       takes_generator)
 from bigdl_tpu_torch.optim.evaluator import Evaluator, model_device
 from bigdl_tpu_torch.optim.methods import SGD, cpu_copy
 from bigdl_tpu_torch.optim.schedules import Plateau
@@ -260,12 +261,16 @@ class Optimizer:
     :class:`LocalOptimizer`, or a ``DistriOptimizer`` for ``mesh=`` or a
     ``DistributedDataSet`` (``parallel/distri_optimizer.py``).
 
-    Keywords: ``seed`` (accepted for the reference's API and unused: the
-    ported layers draw nothing while training), ``accumulate_steps`` (K micro-batches a
-    step, K must divide the batch rows) and ``steps_per_loop`` (K steps a
-    dispatch over ``[K, batch]`` superbatches; default
-    ``BIGDL_TPU_STEPS_PER_LOOP``, 1). The model trains where its
-    parameters are.
+    Keywords: ``seed`` (default 1, as the reference's: the random
+    stream of the layers that draw while training, such as ``Dropout``
+    and GPT's dropout; a model whose ``forward`` takes a ``generator``
+    gets one at every step, ``nn.module.takes_generator``),
+    ``accumulate_steps`` (K micro-batches a step, K must divide the batch
+    rows) and ``steps_per_loop`` (K steps a dispatch over ``[K, batch]``
+    superbatches; default ``BIGDL_TPU_STEPS_PER_LOOP``, 1). The model
+    trains where its parameters are. The draws are torch's, not
+    ``jax.random``'s: the same seed gives the same masks run to run, not
+    the reference's masks.
     """
 
     def __new__(cls, model=None, dataset=None, criterion=None, **kwargs):
@@ -294,6 +299,7 @@ class Optimizer:
         self.validation_summary = None
         self.clipping = None
         self.metrics = {}
+        self.seed = int(kwargs.get("seed", 1))
         self._opt_state = None
         self._ckpt_thread = None
         self._ckpt_exc = []
@@ -359,6 +365,13 @@ class Optimizer:
     def _ensure_ready(self):
         if self.optim_method is None:
             self.optim_method = SGD()
+
+    def _generator(self, device):
+        """A generator on ``device`` seeded from ``seed`` when the model's
+        forward takes one, else None."""
+        if not takes_generator(self.model):
+            return None
+        return torch.Generator(device=device).manual_seed(self.seed)
 
     def _summary_trigger(self, name):
         ts = self.train_summary
@@ -621,7 +634,11 @@ class LocalOptimizer(Optimizer):
             else make_train_step
         fn = build(model, self.criterion, self.optim_method, self.clipping,
                    accumulate_steps=self.accumulate_steps)
-        self._fn = lambda x, y: fn(opt_state, x, y)
+        # one stream for the whole run: each step (or each step of a
+        # K-step loop) draws its masks from where the last left it, as the
+        # reference splits its key once a step
+        generator = self._generator(model_device(model))
+        self._fn = lambda x, y: fn(opt_state, x, y, generator)
         self.metrics = {"steps": 0, "data_time": 0.0, "step_time": 0.0,
                         "records": 0, "dispatches": 0}
         driver_state = {"epoch": 1, "neval": 1, "loss": None, "score": None,

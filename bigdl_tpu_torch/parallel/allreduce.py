@@ -304,15 +304,32 @@ class ZeroState:
             put(st, saved, p)
 
 
+_GOLDEN = 0x9E3779B97F4A7C15        # spreads the replicas' seeds apart
+
+
+def replica_generators(generator, devices):
+    """One generator a replica for one step: a seed drawn once from
+    ``generator`` (a CPU generator, so the draw needs no sync), folded
+    with each replica's index, each on its replica's device (the
+    reference splits its key once a step and folds in the replica index,
+    ``bigdl_tpu/parallel/allreduce.py:197``)."""
+    draw = int(torch.randint(0, 1 << 62, (), generator=generator))
+    return [torch.Generator(device=dev).manual_seed(
+        (draw + (q + 1) * _GOLDEN) % (1 << 63))
+        for q, dev in enumerate(devices)]
+
+
 def make_distributed_train_step(module, criterion, optim_method, mesh,
                                 clipping=None, wire_dtype=torch.bfloat16,
                                 compute_dtype=None, accumulate_steps=1):
     """The data-parallel step over ``mesh`` (a list of devices). Returns
-    ``step``: ``step(x, y) -> loss`` runs steps 1-6 of the module
-    docstring on a batch whose rows N divides (x, y on any device; each
-    replica's rows are copied to its device) and returns the mean loss on
-    the first device; ``step.train_loop(xs, ys) -> losses`` runs it on
-    each batch of a ``[K, batch, ...]`` superbatch; ``step.state`` is the
+    ``step``: ``step(x, y, generator=None) -> loss`` runs steps 1-6 of
+    the module docstring on a batch whose rows N divides (x, y on any
+    device; each replica's rows are copied to its device) and returns the
+    mean loss on the first device; with a CPU ``generator``, replica q
+    draws from its own stream (:func:`replica_generators`);
+    ``step.train_loop(xs, ys, generator=None) -> losses`` runs it on each
+    batch of a ``[K, batch, ...]`` superbatch; ``step.state`` is the
     :class:`ZeroState`. ``clipping``: None, ("constant", lo, hi) or
     ("l2norm", max_norm). ``accumulate_steps=K``: K micro-batches of each
     replica's rows a step, their gradients and losses averaged. The
@@ -322,13 +339,15 @@ def make_distributed_train_step(module, criterion, optim_method, mesh,
                                     accumulate_steps=accumulate_steps)
                 for r in state.replicas]
 
-    def step(x, y):
+    def step(x, y, generator=None):
         with record_function("allreduce/gather"):
             state.gather()
+        gens = ([None] * state.n if generator is None
+                else replica_generators(generator, state.devices))
         losses, flats = [], []
         for q, (xq, yq) in enumerate(zip(state.split_rows(x),
                                          state.split_rows(y))):
-            loss, grads = grads_of[q](xq, yq)
+            loss, grads = grads_of[q](xq, yq, gens[q])
             losses.append(loss)
             flats.append(state.arp.flatten(grads))
         with torch.no_grad(), record_function("allreduce/reduce_scatter"):
@@ -345,8 +364,9 @@ def make_distributed_train_step(module, criterion, optim_method, mesh,
                 total = total + loss.detach().to(dev0)
             return total / _count(state.n, dev0)
 
-    def train_loop(xs, ys):
-        return torch.stack([step(xs[i], ys[i]) for i in range(xs.shape[0])])
+    def train_loop(xs, ys, generator=None):
+        return torch.stack([step(xs[i], ys[i], generator)
+                            for i in range(xs.shape[0])])
 
     step.train_loop = train_loop
     step.state = state
@@ -417,4 +437,5 @@ def make_distributed_eval_step(state, methods, compute_dtype=None):
 
 __all__ = ["AllReduceParameter", "ZeroState", "all_gather",
            "make_distributed_eval_step", "make_distributed_train_step",
-           "record_allreduce", "reduce_scatter", "ring_allreduce_bytes"]
+           "record_allreduce", "reduce_scatter", "replica_generators",
+           "ring_allreduce_bytes"]

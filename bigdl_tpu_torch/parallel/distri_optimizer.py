@@ -95,6 +95,7 @@ class DistriOptimizer(Optimizer):
         self.retries = 0
         self._step = None
         self._eval_fn = None
+        self._draws = None
 
     @staticmethod
     def _fresh_metrics():
@@ -149,7 +150,8 @@ class DistriOptimizer(Optimizer):
             wire_dtype=self.wire_dtype, compute_dtype=self.compute_dtype,
             accumulate_steps=self.accumulate_steps)
         self._step = step
-        self._fn = step.train_loop if self.steps_per_loop > 1 else step
+        fn = step.train_loop if self.steps_per_loop > 1 else step
+        self._fn = lambda x, y: fn(x, y, self._draws)
         self._eval_fn = None
         self._wire_bytes = ring_allreduce_bytes(
             step.state.arp.padded_size, len(self.mesh), self.wire_dtype)
@@ -169,6 +171,9 @@ class DistriOptimizer(Optimizer):
         self._ensure_ready()
         self.metrics = self._fresh_metrics()
         self.retries = 0
+        # the optimizer's own stream, on the host: each step draws one seed from
+        # it for the replicas' streams (allreduce.replica_generators)
+        self._draws = self._generator("cpu")
         self._build_step()
         device = self._step.state.devices[0]
         driver_state = {"epoch": 1, "neval": 1, "loss": None, "score": None,

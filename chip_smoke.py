@@ -101,7 +101,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
      made once outside the timing; the cuDNN kernels that ran are printed.
      Eight ragged bfloat16 shapes (CONV_RAGGED: partial tiles, Cin not a
      multiple of 64, Cout not a multiple of the channel tile) are held on
-     both kernels' tensor-core paths too, not timed.
+     both kernels' tensor-core paths too, not timed. VGG-16's and
+     Inception-v1's shapes at batch 32 (CONV_MODEL_SHAPES: 224² x 3 -> 64,
+     which runs on the CUDA cores even in bfloat16, 224² x 64, 112² x 64
+     -> 128 and 128, 28² x 96 -> 128, 14² x 144 -> 288, 7² x 192 -> 384),
+     each direction on the kernel its route takes, in both types: held at
+     the same bars on the path ``tc_eligible`` names and timed beside
+     cuDNN, the bound and the plain version (``model_shapes`` of the
+     entries).
 4. slice   — GPT-2 small at full width (12 layers, hidden 768, 12 heads,
    vocab 50257, context 1024), float32, seeded random weights: the paged
    ``ServingEngine`` serves 12 requests (prompts of 24-700 tokens, two
@@ -391,6 +398,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tensor-core launches = 2 x 2 x ``conv_routes``, no CUDA-core one. Then
    LeNet-5 at two replicas, the reference test's 6 epochs on a
    distributed MNIST pipeline: losses falling, top-1 > 0.9.
+
+12. train_cnn — VGG-16, Inception-v1 and AlexNet (``BASELINE.json``
+   configs 2 and 3) at full width and depth, 1000 classes, seeded weights
+   (``Module.reset``), seeded NCHW images in channels-last memory order.
+   VGG-16 at batch 32 x 224² through ``make_train_step`` in bfloat16,
+   SGD(0.05, momentum 0.9), labels of 10 classes (CNN_CLASSES says why),
+   dropout drawing from a seeded generator: a warm-up and 5 timed steps
+   on one batch; losses finite and the last below the first; the conv
+   launches by path equal the route table
+   (``models.conv_routes(model, hw, dtype)``: 3 i2c on the tensor cores,
+   1 on the CUDA cores (the first layer, 3 input channels), 21 k9 a step)
+   and no 3x3 stride-1 ``F.conv2d``; then 2 steps under the profiler.
+   Card against the port's CPU run (VGG-16 and Inception-v1, float32,
+   batch 4 x 224², training mode, dropout off): ``train_resnet``'s bars
+   (loss 1e-4 relative; each gradient within 1e-3 of its largest magnitude
+   or 10 times its CPU noise floor) and the float32 route table on the
+   CUDA cores. Inception-v1 with both auxiliary heads through
+   ``Optimizer``: float32, 4 iterations of 32 seeded records, the
+   reference example's SGD(0.0898, momentum 0.9, weight decay 1e-4,
+   Poly(0.5, 62000)), dropout from the facade's seeded stream; launches =
+   4 x the float32 route table; then ``make_train_step`` in bfloat16 on
+   those weights as for VGG-16 (1 i2c and 19 k9 a step, all on the tensor
+   cores, 49 library). VGG-16 through ``DistriOptimizer`` (two replicas
+   on the card, global batch 32, bfloat16 compute and wire, 2 iterations,
+   a checkpoint): launches = 2 x 2 x the bfloat16 route table, the
+   checkpoint reloads bit for bit, no retry. AlexNet (Caffe, grouped
+   conv4 and conv5 once a group, 227²) and AlexNet-OWT (224²): a warm-up
+   and one timed float32 step each (10 and 6 k9 CUDA-core launches).
+   Reports step time, images/s, utilisation of the counted operations
+   (``models.model_flops``) against 67 or 989 TFLOP/s, peak memory, the
+   device's busy share and the 3x3 kernels' share of device time.
 
 Then a ``run`` line (the whole run's seconds and each phase's), a
 ``{"kernels": [...]}`` line (name, route, source, replaced TPU kernel,
@@ -1367,11 +1405,13 @@ def _conv_kernels(torch, flush):
             torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = tf32
     ragged = _conv_ragged(torch, g)
+    model_rows = _conv_model_shapes(torch, flush, g)
     results = {}
     for kind, shapes in rows.items():
         name = f"conv3x3_{kind}"
+        mine = [r for r in model_rows if r["kind"] == kind]
         emit({"phase": "kernels", "kernel": name, "shapes": shapes,
-              "ragged": ragged[kind]})
+              "ragged": ragged[kind], "model_shapes": mine})
         t = next(r for r in shapes if r["path"] and r["dtype"] == "bfloat16")
         results[name] = {
             "name": name, "route": "cuda", "source": CONV_SOURCE,
@@ -1385,9 +1425,10 @@ def _conv_kernels(torch, flush):
                 max(r["max_abs_err"], r["flip_max_abs_err"])
                 for r in shapes if r["dtype"] == "float32"),
             "worst_err_vs_tolerance": max(
-                max(r["max_abs_err"] / r["tolerance"],
-                    r["flip_max_abs_err"] / r["flip_tolerance"])
-                for r in shapes),
+                [max(r["max_abs_err"] / r["tolerance"],
+                     r["flip_max_abs_err"] / r["flip_tolerance"])
+                 for r in shapes]
+                + [r["max_abs_err"] / r["tolerance"] for r in mine]),
             "ms": t["ms"], "ms_spread": t["ms_spread"],
             "flip_ms": t["flip_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1395,8 +1436,107 @@ def _conv_kernels(torch, flush):
             "library_ms": t["library_ms"],
             "timed_shape": f"{t['N']}x{t['H']}x{t['W']}x{t['Cin']} -> "
                            f"{t['Cout']} bfloat16, tensor cores",
-            "launches": 0, "shapes": shapes}
+            "launches": 0, "shapes": shapes,
+            # VGG-16's and Inception-v1's shapes (CONV_MODEL_SHAPES)
+            "model_shapes": mine}
     return results
+
+
+# the 3x3 stride-1 shapes VGG-16 and Inception-v1 give rows 8-9 at batch
+# 32, (N, H, W, Cin, Cout, model): VGG's first layer (3 input channels:
+# the CUDA-core kernel even in bfloat16), its 224² and 112² layers (k9 at
+# 112 wide plans a 354-row halo), and three of Inception's towers (Cin and
+# Cout not multiples of 64: partial depth stages and channel tiles)
+CONV_MODEL_SHAPES = [(32, 224, 224, 3, 64, "vgg16"),
+                     (32, 224, 224, 64, 64, "vgg16"),
+                     (32, 112, 112, 64, 128, "vgg16"),
+                     (32, 112, 112, 128, 128, "vgg16"),
+                     (32, 28, 28, 96, 128, "inception_v1"),
+                     (32, 14, 14, 144, 288, "inception_v1"),
+                     (32, 7, 7, 192, 384, "inception_v1")]
+
+
+def _conv_model_shapes(torch, flush, g):
+    """Rows 8-9 at CONV_MODEL_SHAPES: each direction (forward by the
+    operation's input channels, flip by its output channels) on the
+    kernel ``kernel_for`` gives it, in bfloat16 and float32, held against
+    the plain version at CONV_TOL on the path ``tc_eligible`` names, and
+    timed behind the spin kernel (``_steady_ms``, 10 runs a reading)
+    beside ``F.conv2d`` on the same channels-last tensors (cuDNN, TF32
+    off), with the bound of ``bytes_and_flops``. Returns the rows."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    plain = {"k9": cv.conv3x3_k9_ref, "i2c": cv.conv3x3_i2c_ref}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for n, h, w, cin, cout, model in CONV_MODEL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            wt = (torch.randn((cout, 3, 3, cin), generator=g, device="cuda")
+                  * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+            for flip in (False, True):
+                c_in = cout if flip else cin
+                kind = cv.kernel_for(c_in)
+                fn = cv.KERNELS[kind]
+                inp = torch.randn((n, h, w, c_in), generator=g,
+                                  device="cuda").to(dtype)
+                # cuDNN's operation on the same values, channels-last
+                # OIHW weights: the flip as F.conv2d with the rotated,
+                # transposed weights
+                wc = (wt.flip(1, 2).permute(3, 0, 1, 2).contiguous(
+                    memory_format=torch.channels_last) if flip
+                    else wt.permute(0, 3, 1, 2))
+                ic = inp.permute(0, 3, 1, 2)
+                tc = cv.tc_eligible(kind, inp, wt, flip)
+                before = (fn.launches, fn.tc_launches)
+                got = fn(inp, wt, flip)
+                torch.cuda.synchronize()
+                ran_tc = fn.tc_launches - before[1]
+                label = (f"conv3x3_{kind} {h}x{w}x{cin}->{cout} {dname} "
+                         f"flip={flip}")
+                check(ran_tc + fn.launches - before[0] == 1
+                      and ran_tc == tc,
+                      f"{label}: ran {ran_tc} tensor-core launches, "
+                      f"expected {int(tc)}")
+                want = plain[kind](inp, wt, flip)
+                check(torch.isfinite(got.float()).all().item(),
+                      f"{label}: non-finite output")
+                err = float((got.float() - want.float()).abs().max())
+                tol = CONV_TOL[dname] * float(want.float().abs().max())
+                check(err <= tol, f"{label}: max abs err {err} over {tol}")
+                del got, want
+                nbytes, flops = cv.bytes_and_flops(inp, wt, flip)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                ms, spread = _steady_ms(torch, lambda: fn(inp, wt, flip),
+                                        flush, 10)
+                lib, lib_spread = _steady_ms(
+                    torch, lambda: F.conv2d(ic, wc, padding=1), flush, 10)
+                plain_ms = time_ms(torch, lambda: plain[kind](inp, wt, flip),
+                                   2, warm=1)
+                rows.append({
+                    "kind": kind, "model": model, "N": n, "H": h, "W": w,
+                    "Cin": cin, "Cout": cout, "flip": flip, "dtype": dname,
+                    "path": "tensor cores" if tc else "CUDA cores",
+                    # the first layer reads the images: no input gradient
+                    "on_model_path": not (flip and cin == 3),
+                    "max_abs_err": err, "tolerance": tol, "ms": ms,
+                    "ms_spread": spread, "library_ms": lib,
+                    "library_ms_spread": lib_spread, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops})
+                print(f"{label} ({model}): {'tc' if tc else 'simt'} "
+                      f"{ms:.4f} ms, cuDNN {lib:.4f}, bound {b_ms:.4f}",
+                      flush=True)
+                del inp, ic, wc
+            del wt
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32
+    first = next(r for r in rows if r["Cin"] == 3 and not r["flip"]
+                 and r["dtype"] == "bfloat16")
+    check(first["path"] == "CUDA cores",
+          f"VGG's first layer in bfloat16 ran on the {first['path']}")
+    return rows
 
 
 def _conv_ragged(torch, g):
@@ -3878,6 +4018,391 @@ def phase_train_optimizer(torch, kernels, smi):
     _facade_resnet(torch, kernels, smi)
 
 
+# ------------------------------------------------- train_cnn (A.11(a))
+# VGG-16, Inception-v1 and AlexNet (BASELINE.json configs 2 and 3) at full
+# width and depth, 1000 classes, seeded random weights (Module.reset) and
+# seeded synthetic NCHW images in channels-last memory order
+CNN_BATCH, CNN_STEPS = 32, 5
+CNN_SEED = 16
+# labels from 10 of the 1000 classes, as train_distri's, and SGD at 0.05
+# (momentum 0.9): VGG-16's signal vanishes through 15 ReLU layers at its
+# initial weights, its logits stay near 0, and its loss must fall in 5
+# steps by more than bfloat16's rounding of the log-probabilities (2^-5
+# near ln 1000) and the dropout's noise; the classifier's bias alone moves
+# the label classes' logits by about 13 x lr x 0.1 = 0.066 in 5 steps (at
+# 0.01 the bfloat16 losses did not fall on the card)
+CNN_CLASSES = 10
+CNN_LR = 0.05
+# card against the port's CPU run, float32, training mode, dropout off:
+# train_resnet's bars (loss relative; each gradient within CNN_GRAD_REL of
+# its largest magnitude or RESNET_NOISE_FACTOR times its CPU noise floor,
+# whichever is larger: a 2^-23 change of the images moves these models'
+# gradients by up to percents at their initial weights, see
+# tests/test_torch_inception.py)
+CNN_CHECK_BATCH, CNN_LOSS_REL, CNN_GRAD_REL = 4, 1e-4, 1e-3
+# Inception-v1 through the facade: the reference example's optimizer
+# (examples/inception_imagenet.py:73-76), 4 float32 iterations of 32
+INCEPTION_FACADE_STEPS = 4
+INCEPTION_LR = 0.0898
+# VGG-16 through DistriOptimizer (BASELINE.json config 2): two replicas on
+# the card, global batch 32, bfloat16 compute and wire
+CNN_DISTRI_STEPS = 2
+CNN_KERNEL_GROUPS = {"conv3x3 tensor-core kernels": "conv3x3_tc_kernel",
+                     "conv3x3 CUDA-core kernels": "conv3x3_simt_kernel",
+                     "cuDNN": ("cudnn", "implicit", "fprop", "dgrad",
+                               "wgrad"),
+                     "GEMMs": "gemm",
+                     "reductions": "reduce_kernel",
+                     "elementwise": "elementwise_kernel"}
+
+
+def _cnn_batch(torch, rng, n, hw, device="cuda"):
+    """``n`` seeded images (NCHW, channels-last memory) and labels."""
+    x = torch.from_numpy(rng.standard_normal((n, 3, hw, hw),
+                                             dtype="float32"))
+    y = torch.from_numpy(rng.integers(0, CNN_CLASSES, n))
+    return (x.to(device).contiguous(memory_format=torch.channels_last),
+            y.to(device))
+
+
+def _route_launches(split, n):
+    """The conv counters (``_conv_counts``) ``n`` steps of a route table
+    (``models.conv_routes`` with a dtype) give."""
+    return {"k9": split["k9"]["tc"] * n, "k9_cuda_core":
+            split["k9"]["simt"] * n, "i2c": split["i2c"]["tc"] * n,
+            "i2c_cuda_core": split["i2c"]["simt"] * n}
+
+
+def _check_routes(name, counts, split, n):
+    """Launches by path and library calls of ``n`` steps against the route
+    table; no 3x3 stride-1 convolution on the library."""
+    got = {k: counts[k] for k in ("k9", "k9_cuda_core", "i2c",
+                                  "i2c_cuda_core")}
+    want = _route_launches(split, n)
+    check(got == want, f"{name}: the conv kernels ran {got}; the route "
+                       f"table gives {want} ({n} steps)")
+    check("3x3/s1" not in counts["library"],
+          f"{name}: a 3x3 stride-1 convolution reached F.conv2d: "
+          f"{counts['library']}")
+    lib = sum(counts["library"].values())
+    check(lib == split["library"] * n,
+          f"{name}: F.conv2d ran {lib} times; the route table gives "
+          f"{split['library'] * n}")
+
+
+def _conv3x3_share(profile):
+    groups = profile.get("groups", {})
+    shares = [groups[k]["share_of_device_time"] for k in
+              ("conv3x3 tensor-core kernels", "conv3x3 CUDA-core kernels")
+              if k in groups]
+    return sum(shares) if shares else "not measured"
+
+
+def _cnn_steps(torch, name, model, hw, dtype, smi, kernels, steps,
+               generator=None):
+    """``make_train_step`` (SGD CNN_LR, momentum 0.9) on one seeded batch
+    of CNN_BATCH: a warm-up step, then ``steps`` timed ones, launches held
+    against the route table; then 2 steps under the profiler. Emits and
+    returns the line."""
+    import numpy as np
+    from bigdl_tpu_torch.models import conv_routes, model_flops
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, make_train_step
+    cast = dtype if dtype is not None else torch.float32
+    split = conv_routes(model, (hw, hw), cast)
+    x, y = _cnn_batch(torch, np.random.default_rng(CNN_SEED), CNN_BATCH, hw)
+    opt = SGD(learningrate=CNN_LR, momentum=0.9)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    step = make_train_step(model, ClassNLLCriterion(), opt,
+                           compute_dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, x, y, generator)]           # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(opt_state, x, y, generator))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"{name}: non-finite losses {losses}")
+    if steps:
+        _check_routes(name, counts, split, steps)
+    step_s = wall / steps if steps else warmup_s
+    flops = 3 * model_flops(model, (hw, hw)) * CNN_BATCH
+    dname = str(cast).replace("torch.", "")
+    profile = _profile(torch, lambda: [step(opt_state, x, y, generator)
+                                       for _ in range(2)],
+                       groups=CNN_KERNEL_GROUPS)
+    line = {"phase": "train_cnn", "part": name, "format": "NCHW",
+            "memory_format": "channels_last", "batch": CNN_BATCH,
+            "image": hw, "compute_dtype": dname,
+            "optimizer": f"SGD({CNN_LR}, momentum 0.9)",
+            "dropout": generator is not None, "losses": losses,
+            "timed_steps": steps, "step_s": step_s,
+            "images_per_s": CNN_BATCH / step_s, "warmup_s": warmup_s,
+            "peak_memory_bytes": peak, "model_flops_per_step": flops,
+            f"mfu_vs_{dname}_peak": flops / step_s
+            / PEAK_FLOPS_PER_S[dname],
+            "conv_routes_per_step": split, "launches": counts,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "conv3x3_share_of_device_time": _conv3x3_share(profile),
+            "card": smi}
+    emit(line)
+    emit({"phase": "profile", "path": f"train_cnn_{name}", "steps": 2,
+          **profile})
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            f"train_cnn_{name}"] = {"tensor_cores": counts[kind],
+                                    "cuda_cores": counts[f"{kind}_cuda_core"]}
+    return line
+
+
+def _cnn_vs_cpu(torch, name, model, make, hw):
+    """One float32 training forward and backward of a CNN_CHECK_BATCH
+    batch, dropout off, on the card (the conv kernels' CUDA-core path)
+    against the port's CPU run (plain versions) on the same weights; the
+    gradient bar is train_resnet's. Returns the record."""
+    import numpy as np
+    from bigdl_tpu_torch.models import conv_routes
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import make_loss_and_grads
+    crit = ClassNLLCriterion()
+    x, y = _cnn_batch(torch, np.random.default_rng(CNN_SEED + 1),
+                      CNN_CHECK_BATCH, hw, device="cpu")
+    _reset_conv_counts()
+    loss_g, grads_g = make_loss_and_grads(model, crit)(x.cuda(), y.cuda())
+    torch.cuda.synchronize()
+    launches = _conv_counts()
+    grads_g = {k: g.float().cpu() for k, g in grads_g.items()}
+    cpu = make(1000, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+    def cpu_run(images):
+        loss, grads = make_loss_and_grads(cpu, crit)(images, y)
+        return float(loss), {k: g.clone() for k, g in grads.items()}
+
+    t0 = time.perf_counter()
+    loss_c, grads_c = cpu_run(x)
+    noise = {k: 0.0 for k in grads_c}
+    for seed in (0, 1):
+        _, moved = cpu_run(_perturbed(torch, x, seed))
+        for k, g in moved.items():
+            noise[k] = max(noise[k], float((g - grads_c[k]).abs().max()))
+    cpu_s = time.perf_counter() - t0
+    rec = {"cpu_loss_rel_diff": abs(float(loss_g) - loss_c) / abs(loss_c),
+           "cpu_grad_worst_rel": 0.0, "cpu_grad_worst_param": None,
+           "cpu_grad_worst_vs_bar": 0.0, "cpu_grad_bar_param": None,
+           "cpu_grad_params_on_noise_floor": 0,
+           "cpu_check_launches": launches, "cpu_check_s": cpu_s}
+    for k, gc in grads_c.items():
+        top = max(float(gc.abs().max()), 1e-30)
+        diff = float((grads_g[k] - gc).abs().max())
+        bar = max(CNN_GRAD_REL * top, RESNET_NOISE_FACTOR * noise[k])
+        rec["cpu_grad_params_on_noise_floor"] += bar > CNN_GRAD_REL * top
+        if diff / top > rec["cpu_grad_worst_rel"]:
+            rec["cpu_grad_worst_rel"], rec["cpu_grad_worst_param"] = \
+                diff / top, k
+        if diff / bar > rec["cpu_grad_worst_vs_bar"]:
+            rec["cpu_grad_worst_vs_bar"], rec["cpu_grad_bar_param"] = \
+                diff / bar, k
+    print(f"train_cnn {name} card vs CPU: {json.dumps(rec)}", flush=True)
+    check(rec["cpu_loss_rel_diff"] <= CNN_LOSS_REL,
+          f"{name} card vs CPU loss differs by {rec['cpu_loss_rel_diff']}")
+    check(rec["cpu_grad_worst_vs_bar"] <= 1.0,
+          f"{name} card vs CPU gradient of {rec['cpu_grad_bar_param']} is "
+          f"{rec['cpu_grad_worst_vs_bar']} times its bar")
+    _check_routes(f"{name} float32 check", launches,
+                  conv_routes(model, (hw, hw), torch.float32), 1)
+    del cpu
+    return rec
+
+
+def _cnn_inception_facade(torch, kernels, smi):
+    """Inception-v1 with both auxiliary heads through ``Optimizer``:
+    float32, INCEPTION_FACADE_STEPS iterations of CNN_BATCH seeded
+    records, the reference example's SGD; dropout draws from the
+    facade's seeded stream. Launches against the float32 route table."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import (Inception_v1, conv_routes,
+                                        model_flops)
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Poly, Trigger
+    n, b, hw = INCEPTION_FACADE_STEPS * CNN_BATCH, CNN_BATCH, 224
+    rng = np.random.default_rng(CNN_SEED + 2)
+    images = rng.standard_normal((n, 3, hw, hw), dtype=np.float32)
+    labels = rng.integers(0, CNN_CLASSES, n).astype(np.int32)
+    model = Inception_v1(1000, seed=CNN_SEED)
+    split = conv_routes(model, (hw, hw), torch.float32)
+    ds = _pin_shuffle(DataSet.array([Sample(images[i], labels[i])
+                                     for i in range(n)])
+                      >> SampleToMiniBatch(b))
+    opt = Optimizer(model=model, dataset=ds, criterion=ClassNLLCriterion(),
+                    seed=CNN_SEED)
+    opt.set_optim_method(SGD(learningrate=INCEPTION_LR, momentum=0.9,
+                             dampening=0.0, weightdecay=1e-4,
+                             learningrate_schedule=Poly(0.5, 62000)))
+    opt.set_end_when(Trigger.max_iteration(INCEPTION_FACADE_STEPS))
+    log = _Scalars()
+    opt.set_train_summary(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    losses = log.losses
+    check(len(losses) == INCEPTION_FACADE_STEPS and all(np.isfinite(losses)),
+          f"inception_v1 facade losses: {losses}")
+    _check_routes("inception_v1 facade float32", counts, split,
+                  INCEPTION_FACADE_STEPS)
+    summary = opt.metrics_summary()
+    step_s = summary["step_time_avg_s"] + summary["data_time_avg_s"]
+    flops = 3 * model_flops(model, (hw, hw)) * b
+    emit({"phase": "train_cnn", "part": "inception_v1_facade",
+          "dtype": "float32", "batch": b, "image": hw, "records": n,
+          "iterations": INCEPTION_FACADE_STEPS,
+          "optimizer": f"SGD({INCEPTION_LR}, momentum 0.9, weightdecay "
+                       f"1e-4, Poly(0.5, 62000))",
+          "dropout": True, "losses": losses, "metrics_summary": summary,
+          "step_s": step_s, "images_per_s": b / step_s, "wall_s": wall,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "model_flops_per_step": flops,
+          "mfu_vs_float32_peak": flops / step_s
+          / PEAK_FLOPS_PER_S["float32"],
+          "conv_routes_per_step": split, "launches": counts, "card": smi})
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_cnn_inception_v1_facade"] = counts[f"{kind}_cuda_core"]
+    return model
+
+
+def _cnn_vgg_distri(torch, kernels, smi):
+    """VGG-16 through ``DistriOptimizer`` on two replicas of the card:
+    bfloat16 compute and wire, CNN_DISTRI_STEPS iterations of a global
+    CNN_BATCH, a checkpoint that must reload bit for bit; launches 2 x
+    steps x the bfloat16 route table."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import Vgg_16, conv_routes
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    n, b, hw = CNN_DISTRI_STEPS * CNN_BATCH, CNN_BATCH, 224
+    rng = np.random.default_rng(CNN_SEED + 3)
+    images = rng.standard_normal((n, 3, hw, hw), dtype=np.float32)
+    labels = rng.integers(0, CNN_CLASSES, n).astype(np.int32)
+    model = Vgg_16(1000, seed=CNN_SEED)
+    split = conv_routes(model, (hw, hw), torch.bfloat16)
+    ds = DataSet.array([Sample(images[i], labels[i]) for i in range(n)],
+                       distributed=True) >> SampleToMiniBatch(b)
+    with tempfile.TemporaryDirectory() as ckpt:
+        opt = Optimizer(model=model, dataset=ds,
+                        criterion=ClassNLLCriterion(), mesh=DISTRI_MESH,
+                        compute_dtype=torch.bfloat16, seed=CNN_SEED)
+        opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(CNN_DISTRI_STEPS))
+        opt.set_checkpoint(ckpt, Trigger.every_epoch())
+        log = _Scalars()
+        opt.set_train_summary(log)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_conv_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _conv_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = log.losses
+        check(len(losses) == CNN_DISTRI_STEPS and all(np.isfinite(losses)),
+              f"vgg16 distri losses: {losses}")
+        _check_routes("vgg16 distri bfloat16", counts, split,
+                      2 * CNN_DISTRI_STEPS)
+        fresh = Vgg_16(1000, seed=0)
+        fresh.load_state_dict(torch.load(
+            os.path.join(ckpt, f"model.{CNN_DISTRI_STEPS + 1}"),
+            weights_only=True))
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(model.state_dict().values(),
+                       fresh.state_dict().values()))
+        check(same, "vgg16 distri checkpoint does not reload bit for bit")
+        check(opt.retries == 0, f"vgg16 distri retried {opt.retries} times")
+        summary = opt.metrics_summary()
+        del fresh, opt
+    step_s = summary["step_time_avg_s"] + summary["data_time_avg_s"]
+    emit({"phase": "train_cnn", "part": "vgg16_distri", "mesh": DISTRI_MESH,
+          "compute_dtype": "bfloat16", "wire_dtype": "bfloat16",
+          "batch": b, "per_replica": b // 2, "image": hw,
+          "iterations": CNN_DISTRI_STEPS, "losses": losses,
+          "metrics_summary": summary, "step_s": step_s,
+          "images_per_s": b / step_s, "wall_s": wall,
+          "peak_memory_bytes": peak, "conv_routes_per_step": split,
+          "launches": counts, "checkpoint_reload_bitwise": same,
+          "retries": 0, "card": smi})
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_cnn_vgg16_distri"] = counts[kind]
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train_cnn(torch, kernels, smi):
+    """VGG-16, Inception-v1 and AlexNet on the training paths (see module
+    docstring)."""
+    from bigdl_tpu_torch.models import (AlexNet, AlexNet_OWT, Inception_v1,
+                                        Vgg_16)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # VGG-16, bfloat16, dropout from a seeded generator
+    vgg = Vgg_16(1000, seed=CNN_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(CNN_SEED)
+    line = _cnn_steps(torch, "vgg16", vgg, 224, torch.bfloat16, smi,
+                      kernels, CNN_STEPS, generator=gen)
+    check(line["losses"][-1] < line["losses"][0],
+          f"vgg16 loss did not fall: {line['losses']}")
+    cmp_vgg = _cnn_vs_cpu(torch, "vgg16", vgg, Vgg_16, 224)
+    del vgg
+    torch.cuda.empty_cache()
+    # Inception-v1 with its auxiliary heads: the facade in float32, then
+    # make_train_step in bfloat16 on the facade's weights
+    inc = _cnn_inception_facade(torch, kernels, smi)
+    # its losses are reported, not held to fall: the three heads' dropout
+    # (0.4 and 0.7) moves them more than 5 steps at this rate do
+    _cnn_steps(torch, "inception_v1", inc, 224, torch.bfloat16, smi,
+               kernels, CNN_STEPS,
+               generator=torch.Generator(device="cuda").manual_seed(CNN_SEED))
+    inc_fresh = Inception_v1(1000, seed=CNN_SEED)
+    cmp_inc = _cnn_vs_cpu(torch, "inception_v1", inc_fresh, Inception_v1,
+                          224)
+    del inc, inc_fresh
+    torch.cuda.empty_cache()
+    emit({"phase": "train_cnn", "part": "card_vs_cpu", "dtype": "float32",
+          "batch": CNN_CHECK_BATCH, "image": 224, "dropout": False,
+          "loss_rel_bar": CNN_LOSS_REL, "grad_rel_bar": CNN_GRAD_REL,
+          "grad_noise_factor": RESNET_NOISE_FACTOR, "vgg16": cmp_vgg,
+          "inception_v1": cmp_inc, "card": smi})
+    _cnn_vgg_distri(torch, kernels, smi)
+    # AlexNet (Caffe, grouped, 227²) and AlexNet-OWT (224²): one float32
+    # step each
+    for name, make, hw in (("alexnet", AlexNet, 227),
+                              ("alexnet_owt", AlexNet_OWT, 224)):
+        _cnn_steps(torch, name, make(1000, seed=CNN_SEED), hw, None, smi,
+                   kernels, 1)
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- resilience
 # the no-fault phases' outputs (all 12 requests), by path: what the fault
 # phases' greedy tokens are held to
@@ -5093,6 +5618,7 @@ def main():
     run("train_resnet", phase_train_resnet, torch, kernels, smi)
     run("train_optimizer", phase_train_optimizer, torch, kernels, smi)
     run("train_distri", phase_train_distri, torch, kernels, smi)
+    run("train_cnn", phase_train_cnn, torch, kernels, smi)
     emit({"phase": "run", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
     emit({"kernels": list(kernels.values())})

@@ -57,3 +57,11 @@ def test_scan_sees_the_training_facade_modules():
                 "dataset/dataset.py", "dataset/mnist.py",
                 "utils/fileio.py", "serving/adapters.py"):
         assert pkg / rel in FILES, rel
+
+
+def test_scan_sees_the_cnn_modules():
+    pkg = ROOT / "bigdl_tpu_torch"
+    for rel in ("models/vgg.py", "models/inception.py", "models/alexnet.py",
+                "models/routes.py", "nn/basic.py", "nn/normalization.py",
+                "nn/conv.py"):
+        assert pkg / rel in FILES, rel
