@@ -51,6 +51,13 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
 - :func:`module_params_to_jax` is its inverse, ``(params, state)`` in
   that layout (a graph's as such lists).
 
+BERT (``models/transformer.py``): :func:`bert_params_from_jax` and
+:func:`bert_params_to_jax` map a ``BertForMLM`` tree (``{"bert": {"tok_emb",
+"pos_emb", "type_emb", "ln", "layers": [...]}, "head": {"weight",
+"bias"}}``) or a ``BERT`` tree (the inner dict) the same way, its layers as
+GPT's; :func:`init_bert_tree` draws seeded params in that layout.
+:func:`params_from_jax` stays GPT's.
+
 LoRA adapters (``models/lora.py``): :func:`adapter_from_jax` takes a
 reference adapter tree, its arrays pulled to numpy, as the port's tree:
 the same arrays in the same orientation, checked by the digest.
@@ -67,6 +74,39 @@ from bigdl_tpu_torch.nn import Bottle, Container, Graph, MapTable
 from bigdl_tpu_torch.nn.module import init_state_dict
 
 
+def _put(sd, key, arr, transpose=False, dtype=np.float32):
+    a = np.asarray(arr, dtype=dtype)
+    # a C-ordered copy: torch shares the buffer, and the reference's arrays
+    # may be read-only views
+    sd[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+
+
+def _put_weight(sd, pre, w):
+    if isinstance(w, dict):                      # int8 {"q", "scale"}
+        _put(sd, f"{pre}.weight", w["q"], transpose=True, dtype=np.int8)
+        _put(sd, f"{pre}.scale", w["scale"])
+    else:
+        _put(sd, f"{pre}.weight", w, transpose=True)
+
+
+def _put_ln(sd, pre, ln):
+    _put(sd, f"{pre}.weight", ln["weight"])
+    _put(sd, f"{pre}.bias", ln["bias"])
+
+
+def _put_block(sd, pre, lp):
+    """A transformer block's params (GPT's decoder block and BERT's encoder
+    layer share the layout: ``attn``, ``ln1``, ``ln2``, ``fc1``, ``fc2``)
+    under the key prefix ``pre``."""
+    for w in ("wq", "wk", "wv", "wo"):
+        _put_weight(sd, f"{pre}attn.{w}", lp["attn"][w])
+    for ln in ("ln1", "ln2"):
+        _put_ln(sd, f"{pre}{ln}", lp[ln])
+    for fc in ("fc1", "fc2"):
+        _put_weight(sd, f"{pre}{fc}", lp[fc]["weight"])
+        _put(sd, f"{pre}{fc}.bias", lp[fc]["bias"])
+
+
 def params_from_jax(tree):
     """The port's ``GPTForCausalLM`` state_dict from a reference params
     tree of numpy arrays (float32 CPU tensors; load it with
@@ -76,83 +116,61 @@ def params_from_jax(tree):
                                   "ties the head to the token embedding")
     g = tree["gpt"]
     sd = collections.OrderedDict()
-
-    def put(key, arr, transpose=False, dtype=np.float32):
-        a = np.asarray(arr, dtype=dtype)
-        # a C-ordered copy: torch shares the buffer, and the reference's
-        # arrays may be read-only views
-        sd[key] = torch.from_numpy(np.array(a.T if transpose else a,
-                                            order="C"))
-
-    def put_weight(pre, w):
-        if isinstance(w, dict):                  # int8 {"q", "scale"}
-            put(f"{pre}.weight", w["q"], transpose=True, dtype=np.int8)
-            put(f"{pre}.scale", w["scale"])
-        else:
-            put(f"{pre}.weight", w, transpose=True)
-
-    put("gpt.tok_emb", g["tok_emb"])
-    put("gpt.pos_emb", g["pos_emb"])
+    _put(sd, "gpt.tok_emb", g["tok_emb"])
+    _put(sd, "gpt.pos_emb", g["pos_emb"])
     for i, lp in enumerate(g["layers"]):
-        pre = f"gpt.layers.{i}."
-        for w in ("wq", "wk", "wv", "wo"):
-            put_weight(f"{pre}attn.{w}", lp["attn"][w])
-        for ln in ("ln1", "ln2"):
-            put(f"{pre}{ln}.weight", lp[ln]["weight"])
-            put(f"{pre}{ln}.bias", lp[ln]["bias"])
-        for fc in ("fc1", "fc2"):
-            put_weight(f"{pre}{fc}", lp[fc]["weight"])
-            put(f"{pre}{fc}.bias", lp[fc]["bias"])
-    put("gpt.ln_f.weight", g["ln_f"]["weight"])
-    put("gpt.ln_f.bias", g["ln_f"]["bias"])
+        _put_block(sd, f"gpt.layers.{i}.", lp)
+    _put_ln(sd, "gpt.ln_f", g["ln_f"])
     return sd
+
+
+def _get(sd, key, transpose=False):
+    t = sd[key].detach().cpu()
+    a = (t if t.dtype == torch.int8 else t.float()).numpy()
+    return np.array(a.T if transpose else a, order="C")
+
+
+def _get_weight(sd, pre):
+    if f"{pre}.scale" in sd:
+        return {"q": _get(sd, f"{pre}.weight", transpose=True),
+                "scale": _get(sd, f"{pre}.scale")}
+    return _get(sd, f"{pre}.weight", transpose=True)
+
+
+def _get_ln(sd, pre):
+    return {"weight": _get(sd, f"{pre}.weight"),
+            "bias": _get(sd, f"{pre}.bias")}
+
+
+def _get_blocks(sd, pre):
+    """Every block ``{pre}{i}.`` of a state_dict in the reference's layout
+    (the inverse of :func:`_put_block`)."""
+    n = len({k[len(pre):].split(".")[0] for k in sd if k.startswith(pre)})
+    return [{"attn": {w: _get_weight(sd, f"{pre}{i}.attn.{w}")
+                      for w in ("wq", "wk", "wv", "wo")},
+             "ln1": _get_ln(sd, f"{pre}{i}.ln1"),
+             "ln2": _get_ln(sd, f"{pre}{i}.ln2"),
+             **{fc: {"weight": _get_weight(sd, f"{pre}{i}.{fc}"),
+                     "bias": _get(sd, f"{pre}{i}.{fc}.bias")}
+                for fc in ("fc1", "fc2")}}
+            for i in range(n)]
 
 
 def params_to_jax(state_dict):
     """The reference's params tree (numpy float32, int8 weights as
     ``{"q", "scale"}``) of a port ``GPTForCausalLM`` state_dict;
     ``params_to_jax(params_from_jax(t))`` equals ``t``."""
-    def get(key, transpose=False):
-        t = state_dict[key].detach().cpu()
-        a = (t if t.dtype == torch.int8 else t.float()).numpy()
-        return np.array(a.T if transpose else a, order="C")
-
-    def weight(pre):
-        if f"{pre}.scale" in state_dict:
-            return {"q": get(f"{pre}.weight", transpose=True),
-                    "scale": get(f"{pre}.scale")}
-        return get(f"{pre}.weight", transpose=True)
-
-    def ln(pre):
-        return {"weight": get(f"{pre}.weight"), "bias": get(f"{pre}.bias")}
-
-    n_layers = len({k.split(".")[2] for k in state_dict
-                    if k.startswith("gpt.layers.")})
-    layers = []
-    for i in range(n_layers):
-        pre = f"gpt.layers.{i}."
-        layers.append({
-            "attn": {w: weight(f"{pre}attn.{w}")
-                     for w in ("wq", "wk", "wv", "wo")},
-            "ln1": ln(f"{pre}ln1"), "ln2": ln(f"{pre}ln2"),
-            **{fc: {"weight": weight(f"{pre}{fc}"),
-                    "bias": get(f"{pre}{fc}.bias")} for fc in ("fc1", "fc2")},
-        })
-    return {"gpt": {"tok_emb": get("gpt.tok_emb"),
-                    "pos_emb": get("gpt.pos_emb"), "ln_f": ln("gpt.ln_f"),
-                    "layers": layers}}
+    sd = state_dict
+    return {"gpt": {"tok_emb": _get(sd, "gpt.tok_emb"),
+                    "pos_emb": _get(sd, "gpt.pos_emb"),
+                    "ln_f": _get_ln(sd, "gpt.ln_f"),
+                    "layers": _get_blocks(sd, "gpt.layers.")}}
 
 
-def init_tree(model, seed=0):
-    """Seeded random params in the reference's pytree layout (numpy
-    float32) for ``model``'s configuration."""
-    gpt = model.gpt
-    rng = np.random.default_rng(seed)
-    hs, inter = gpt.hidden_size, gpt.intermediate_size
-
-    def normal(shape, std):
-        return std * rng.standard_normal(shape, dtype=np.float32)
-
+def _init_blocks(rng, n, hs, inter):
+    """``n`` blocks' seeded params in the reference's layout: attention
+    Glorot-uniform, MLP weights and biases uniform in +-1/sqrt(fan_in),
+    LayerNorm ones and zeros."""
     def uniform(shape, bound):
         return rng.uniform(-bound, bound, shape).astype(np.float32)
 
@@ -161,26 +179,99 @@ def init_tree(model, seed=0):
                 "bias": np.zeros(hs, np.float32)}
 
     xavier = np.sqrt(6.0 / (hs + hs))
-    layers = []
-    for _ in gpt.layers:
-        layers.append({
-            "attn": {w: uniform((hs, hs), xavier)
-                     for w in ("wq", "wk", "wv", "wo")},
-            "ln1": ln(), "ln2": ln(),
-            "fc1": {"weight": uniform((hs, inter), hs ** -0.5),
-                    "bias": uniform((inter,), hs ** -0.5)},
-            "fc2": {"weight": uniform((inter, hs), inter ** -0.5),
-                    "bias": uniform((hs,), inter ** -0.5)},
-        })
-    return {"gpt": {"tok_emb": normal((gpt.vocab_size, hs), 0.02),
-                    "pos_emb": normal((gpt.max_position, hs), 0.02),
-                    "ln_f": ln(), "layers": layers}}
+    return [{"attn": {w: uniform((hs, hs), xavier)
+                      for w in ("wq", "wk", "wv", "wo")},
+             "ln1": ln(), "ln2": ln(),
+             "fc1": {"weight": uniform((hs, inter), hs ** -0.5),
+                     "bias": uniform((inter,), hs ** -0.5)},
+             "fc2": {"weight": uniform((inter, hs), inter ** -0.5),
+                     "bias": uniform((hs,), inter ** -0.5)}}
+            for _ in range(n)]
+
+
+def _normal(rng, shape, std=0.02):
+    return std * rng.standard_normal(shape, dtype=np.float32)
+
+
+def init_tree(model, seed=0):
+    """Seeded random params in the reference's pytree layout (numpy
+    float32) for ``model``'s configuration."""
+    gpt = model.gpt
+    rng = np.random.default_rng(seed)
+    hs = gpt.hidden_size
+    layers = _init_blocks(rng, len(gpt.layers), hs, gpt.intermediate_size)
+    return {"gpt": {"tok_emb": _normal(rng, (gpt.vocab_size, hs)),
+                    "pos_emb": _normal(rng, (gpt.max_position, hs)),
+                    "ln_f": {"weight": np.ones(hs, np.float32),
+                             "bias": np.zeros(hs, np.float32)},
+                    "layers": layers}}
 
 
 def init_params(model, seed=0):
     """Seeded random weights for ``model`` as a state_dict (see module
     docstring)."""
     return params_from_jax(init_tree(model, seed))
+
+
+def bert_params_from_jax(tree):
+    """The port's state_dict of a ``BertForMLM`` (a reference tree with
+    ``"bert"`` and ``"head"``) or a ``BERT`` (the encoder's tree alone),
+    from numpy arrays, Linear weights transposed to ``(out, in)``."""
+    mlm = "bert" in tree
+    b, pre = (tree["bert"], "bert.") if mlm else (tree, "")
+    sd = collections.OrderedDict()
+    for emb in ("tok_emb", "pos_emb", "type_emb"):
+        _put(sd, pre + emb, b[emb])
+    _put_ln(sd, pre + "ln", b["ln"])
+    for i, lp in enumerate(b["layers"]):
+        _put_block(sd, f"{pre}layers.{i}.", lp)
+    if mlm:
+        _put_weight(sd, "head", tree["head"]["weight"])
+        _put(sd, "head.bias", tree["head"]["bias"])
+    return sd
+
+
+def bert_params_to_jax(state_dict):
+    """The reference's tree of a ``BertForMLM`` or ``BERT`` state_dict (or
+    of a dict of its gradients keyed by parameter name); the inverse of
+    :func:`bert_params_from_jax`."""
+    sd = state_dict
+    mlm = "head.weight" in sd
+    pre = "bert." if mlm else ""
+    b = {emb: _get(sd, pre + emb) for emb in ("tok_emb", "pos_emb",
+                                              "type_emb")}
+    b["ln"] = _get_ln(sd, pre + "ln")
+    b["layers"] = _get_blocks(sd, pre + "layers.")
+    if not mlm:
+        return b
+    return {"bert": b, "head": {"weight": _get_weight(sd, "head"),
+                                "bias": _get(sd, "head.bias")}}
+
+
+def init_bert_tree(model, seed=0):
+    """Seeded random params of a ``BertForMLM`` or ``BERT`` in the
+    reference's layout (numpy float32): the layers as :func:`init_tree`
+    draws them, then token, position and token-type embeddings N(0,
+    0.02), LayerNorm ones and zeros, and an MLM head's weight and bias
+    uniform in +-1/sqrt(hidden)."""
+    bert = getattr(model, "bert", model)
+    rng = np.random.default_rng(seed)
+    hs = bert.hidden_size
+    b = {"layers": _init_blocks(rng, len(bert.layers), hs,
+                                bert.intermediate_size),
+         "tok_emb": _normal(rng, (bert.vocab_size, hs)),
+         "pos_emb": _normal(rng, (bert.max_position, hs)),
+         "type_emb": _normal(rng, (bert.type_vocab_size, hs)),
+         "ln": {"weight": np.ones(hs, np.float32),
+                "bias": np.zeros(hs, np.float32)}}
+    if bert is model:
+        return b
+    bound = hs ** -0.5
+    head = {"weight": rng.uniform(-bound, bound, (hs, model.vocab_size))
+            .astype(np.float32),
+            "bias": rng.uniform(-bound, bound, model.vocab_size)
+            .astype(np.float32)}
+    return {"bert": b, "head": head}
 
 
 def _to_port(leaf, a):

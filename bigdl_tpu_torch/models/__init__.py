@@ -10,12 +10,20 @@ from bigdl_tpu_torch.models.lenet import LeNet5, lenet_graph
 from bigdl_tpu_torch.models.resnet import ResNet
 from bigdl_tpu_torch.models.routes import (conv_routes, layer_walk,
                                            model_flops, resnet_flops)
+from bigdl_tpu_torch.models.transformer import (BERT, BertForMLM,
+                                                SequenceParallelStep,
+                                                TransformerEncoderLayer,
+                                                bert_base,
+                                                bert_mlm_flops_per_token,
+                                                make_sp_train_step)
 from bigdl_tpu_torch.models.vgg import Vgg_16, Vgg_19, VggForCifar10
 
-__all__ = ["AlexNet", "AlexNet_OWT", "GPT", "GPTForCausalLM",
-           "Inception_v1", "Inception_v1_NoAuxClassifier", "Inception_v2",
-           "LeNet5", "ResNet", "TransformerDecoderBlock", "VggForCifar10",
-           "Vgg_16", "Vgg_19", "conv_routes", "gpt2_small",
+__all__ = ["AlexNet", "AlexNet_OWT", "BERT", "BertForMLM", "GPT",
+           "GPTForCausalLM", "Inception_v1", "Inception_v1_NoAuxClassifier",
+           "Inception_v2", "LeNet5", "ResNet", "SequenceParallelStep",
+           "TransformerDecoderBlock", "TransformerEncoderLayer",
+           "VggForCifar10", "Vgg_16", "Vgg_19", "bert_base",
+           "bert_mlm_flops_per_token", "conv_routes", "gpt2_small",
            "gpt_flops_per_token", "inception_module", "layer_walk",
-           "lenet_graph", "model_flops", "prompt_bucket", "resnet_flops",
-           "sample_logits"]
+           "lenet_graph", "make_sp_train_step", "model_flops",
+           "prompt_bucket", "resnet_flops", "sample_logits"]

@@ -10,6 +10,17 @@ and MLP when the module is in training mode and the caller passes a
 ``torch.Generator`` (the reference's ``rng``); ``remat=True`` recomputes
 each block's activations in the backward pass.
 
+``sequence_parallel`` takes ``MultiHeadAttention``'s three forms
+(``parallel/sequence.py``), causal. Under ``("ring_inner", axis, n)`` the
+model is one shard of a sequence-parallel group, as ``models/
+transformer.py``'s BERT is: its forward takes the group's list of ``n``
+chunks of ids, shard ``s`` at global positions from ``s * T_local``, and
+``make_sp_train_step`` drives it. ``generate`` on a sequence-parallel model
+takes the sliding loop, as the reference's does, and fails where that
+fails: a ``ring_inner`` model takes no whole sequence, and the ring and
+Ulysses forms need a length that splits over the mesh. Serving refuses
+such a model.
+
 Index arguments of the paged methods (page tables, positions, chunk
 bounds) are host values, numpy arrays or CPU tensors, as the serving
 engine keeps them: masks and write indices are computed on the host
@@ -52,6 +63,8 @@ runs exactly the operations it ran before LoRA was ported.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -69,10 +82,12 @@ from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.parallel.layout import (SpecLayout, all_reduce_sum,
                                              broadcast, reduce_sum)
 from bigdl_tpu_torch.parallel.sequence import (MultiHeadAttention,
-                                               paged_write_index)
+                                               attention_group,
+                                               paged_write_index,
+                                               sequence_forward)
 from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.profiling import DispatchCounters
-from bigdl_tpu_torch.utils.remat import checkpoint
+from bigdl_tpu_torch.utils.remat import checkpoint_list
 
 
 def _host(x, dtype=torch.long):
@@ -86,7 +101,8 @@ class TransformerDecoderBlock(nn.Module):
     the whole, replicated bias)."""
 
     def __init__(self, hidden_size, n_heads, intermediate_size=None,
-                 dropout=0.0, tp=1, device=None, dtype=torch.float32):
+                 dropout=0.0, sequence_parallel=None, tp=1, device=None,
+                 dtype=torch.float32):
         super().__init__()
         inter = intermediate_size or 4 * hidden_size
         if inter % tp:
@@ -95,6 +111,7 @@ class TransformerDecoderBlock(nn.Module):
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.dropout = dropout
         self.attn = MultiHeadAttention(hidden_size, n_heads, causal=True,
+                                       sequence_parallel=sequence_parallel,
                                        tp=tp, **kw)
         self.ln1 = LayerNormalization(hidden_size, **kw)
         self.ln2 = LayerNormalization(hidden_size, **kw)
@@ -121,9 +138,22 @@ class TransformerDecoderBlock(nn.Module):
         return torch.where(keep, h / (1 - self.dropout), torch.zeros_like(h))
 
     def forward(self, x, generator=None):
-        """x (B, T, hidden) through the block (training forward)."""
-        x = x + self._drop(self.attn(self.ln1(x)), generator)
-        return x + self._drop(self._mlp(x), generator)
+        """x (B, T, hidden) through the block (training forward); a
+        ``ring_inner`` block takes and returns its group's list of
+        chunks."""
+        if self.attn.ring_inner:
+            return decoder_group([self] * len(x), list(x), generator)
+        return decoder_group([self], [x], generator)[0]
+
+
+def decoder_group(blocks, xs, generator=None):
+    """One block over a sequence-parallel group's shards: ``blocks`` each
+    shard's copy of the block, ``xs`` their inputs (one block, one input,
+    unsharded)."""
+    hs = attention_group([b.attn for b in blocks],
+                         [b.ln1(x) for b, x in zip(blocks, xs)])
+    xs = [x + b._drop(h, generator) for b, x, h in zip(blocks, xs, hs)]
+    return [x + b._drop(b._mlp(x), generator) for b, x in zip(blocks, xs)]
 
 
 def _row_parallel(linears, xs, los=None):
@@ -189,13 +219,14 @@ class GPT(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 dropout=0.0, remat=False, tp=1, device=None,
-                 dtype=torch.float32):
+                 dropout=0.0, remat=False, sequence_parallel=None, tp=1,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.max_position = max_position
         self.remat = remat
+        self.sequence_parallel = sequence_parallel
         self.intermediate_size = intermediate_size or 4 * hidden_size
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.tok_emb = nn.Parameter(torch.empty(vocab_size, hidden_size,
@@ -204,8 +235,9 @@ class GPT(nn.Module):
                                                 **kw))
         self.layers = nn.ModuleList(
             TransformerDecoderBlock(hidden_size, n_heads,
-                                    self.intermediate_size, dropout, tp=tp,
-                                    **kw) for _ in range(n_layers))
+                                    self.intermediate_size, dropout,
+                                    sequence_parallel, tp=tp, **kw)
+            for _ in range(n_layers))
         self.ln_f = LayerNormalization(hidden_size, **kw)
 
     @property
@@ -215,18 +247,31 @@ class GPT(nn.Module):
     def forward(self, ids, generator=None):
         """Final-norm hidden states (B, T, hidden) of token ids (B, T),
         T <= ``max_position``."""
-        ids = torch.as_tensor(ids, device=self.device).long()
-        t = ids.shape[1]
-        if t > self.max_position:
-            raise ValueError(f"sequence of {t} tokens is longer than "
-                             f"max_position {self.max_position}")
-        h = F.embedding(ids, self.tok_emb) + self.pos_emb[:t]
-        for layer in self.layers:
-            if self.remat:
-                h = checkpoint(layer, generator, h)
+        return sequence_forward(self, ids, generator)
+
+    @staticmethod
+    def group_forward(gpts, xs, generator=None):
+        """The final-norm states of each shard's ids ``xs[s]`` through its
+        copy ``gpts[s]``, shard ``s`` at global positions from ``s *
+        T_local``."""
+        hs = []
+        for s, (g, ids) in enumerate(zip(gpts, xs)):
+            ids = torch.as_tensor(ids, device=g.device).long()
+            t = ids.shape[1]
+            if (s + 1) * t > g.max_position:
+                raise ValueError(f"sequence of {(s + 1) * t} tokens is "
+                                 f"longer than max_position "
+                                 f"{g.max_position}")
+            hs.append(F.embedding(ids, g.tok_emb)
+                      + g.pos_emb[s * t:(s + 1) * t])
+        for i in range(len(gpts[0].layers)):
+            blocks = [g.layers[i] for g in gpts]
+            if gpts[0].remat:
+                hs = checkpoint_list(functools.partial(decoder_group, blocks),
+                                     generator, hs)
             else:
-                h = layer(h, generator)
-        return self.ln_f(h)
+                hs = decoder_group(blocks, hs, generator)
+        return [g.ln_f(h) for g, h in zip(gpts, hs)]
 
     def init_cache(self, batch, dtype=None):
         """Per-layer dense K/V buffers sized for the whole position table:
@@ -623,27 +668,36 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
-                 dropout=0.0, remat=False, tp=1, device=None,
-                 dtype=torch.float32):
+                 dropout=0.0, remat=False, sequence_parallel=None, tp=1,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.gpt = GPT(vocab_size=vocab_size, hidden_size=hidden_size,
                        n_layers=n_layers, n_heads=n_heads,
                        max_position=max_position,
                        intermediate_size=intermediate_size, dropout=dropout,
-                       remat=remat, tp=tp, device=resolve_device(device),
-                       dtype=dtype)
+                       remat=remat, sequence_parallel=sequence_parallel,
+                       tp=tp, device=resolve_device(device), dtype=dtype)
 
     @property
     def device(self):
         return self.gpt.device
 
+    @property
+    def sequence_parallel(self):
+        return self.gpt.sequence_parallel
+
     def forward(self, ids, generator=None):
         """(B*T, vocab) next-token logits of token ids (B, T); pair them
         with ``CrossEntropyCriterion`` and the labels flattened to
         (B*T,)."""
-        return self._lm_logits(self.gpt(ids, generator)).reshape(
-            -1, self.vocab_size)
+        return sequence_forward(self, ids, generator)
+
+    @staticmethod
+    def group_forward(models, xs, generator=None):
+        hs = GPT.group_forward([m.gpt for m in models], xs, generator)
+        return [m._lm_logits(h).reshape(-1, m.vocab_size)
+                for m, h in zip(models, hs)]
 
     def _lm_logits(self, h):
         """(..., hidden) -> (..., vocab) through the tied head."""
@@ -692,8 +746,8 @@ class GPTForCausalLM(nn.Module):
         holds), then the decode loop emits the tokens one at a time
         against the dense cache (``GPT.decode_step``): the prefill's
         logits give the first, each of ``n_new - 1`` decode steps the
-        next. A generation that would pass ``max_position`` takes
-        :meth:`_generate_sliding`.
+        next. A generation that would pass ``max_position``, or any on a
+        sequence-parallel model, takes :meth:`_generate_sliding`.
 
         ``spec_tokens > 1`` (or ``BIGDL_TPU_SPEC_DECODE`` with
         ``BIGDL_TPU_SPEC_TOKENS``; an explicit ``spec_tokens`` wins) makes
@@ -715,7 +769,7 @@ class GPTForCausalLM(nn.Module):
             generator.manual_seed(0)
         b, t = ids.shape
         gpt = self.gpt
-        if t + n_new > gpt.max_position:
+        if t + n_new > gpt.max_position or gpt.sequence_parallel is not None:
             return self._generate_sliding(ids, n_new, temperature,
                                           generator, top_k, top_p)
         bucket = prompt_bucket(t, gpt.max_position)

@@ -1,9 +1,11 @@
 """Attention (the port of ``bigdl_tpu/parallel/sequence.py``:
 ``flash_profitable``, ``full_attention``, ``cached_attention``,
 ``paged_gather``, ``paged_write``, ``paged_write_quant``,
-``paged_gather_dequant``, ``paged_attention`` and ``MultiHeadAttention``'s
-full-sequence ``forward``, its dense K/V-cache methods with the
-speculative ``decode_chunk``, and its paged methods).
+``paged_gather_dequant``, ``paged_attention``, ``ring_attention`` with its
+two ring bodies, ``ulysses_attention``, ``sequence_attention`` and
+``MultiHeadAttention``: its full-sequence ``forward`` in the three
+sequence-parallel forms, its dense K/V-cache methods with the speculative
+``decode_chunk``, and its paged methods).
 
 The full-sequence forward (training) attends through ``ops.
 flash_attention``: the hand-written kernels on the card, their plain
@@ -11,6 +13,23 @@ versions on the CPU. The reference picks its flash kernel by a shape
 heuristic or the ``BIGDL_TPU_FLASH_ATTENTION`` flag; the port reads
 neither: on the card it always takes its kernel. :func:`full_attention`
 is the reference's oracle, kept for the tests.
+
+Sequence parallelism is single-controller, as tensor parallelism is
+(``parallel/layout.py``): a mesh is a list of devices (one a shard; a
+device may repeat), each shard's chunk of the sequence lives on its
+device, and the reference's ``ppermute`` and ``all_to_all`` are copies
+and concatenations in shard order. :func:`ring_attention` runs
+:func:`ring_local_flash`, the arithmetic of the reference's
+``_ring_local_flash``: every (query chunk, key chunk) pair through
+``flash_attention_with_lse`` and the chunks merged by logsumexp in
+float32, so the backward feeds the merge's lse cotangent to the kernels.
+A causal ring skips the pairs whose keys all lie after the queries, which
+the reference computes and then drops with ``lse = -inf``: the same
+result from ``n (n + 1) / 2`` pairs instead of ``n^2``. :func:`ring_local`
+is the reference's plain online-softmax body (what its ``ring_inner``
+layers run), kept for the tests. A chunk received from another shard is
+only read, never written: on one card ``.to(device)`` returns the sender's
+own tensor.
 
 K/V live in one pool per layer, ``(num_pages, H, page_size, D)``; slots
 reach their tokens through int32 page tables whose entries ``>=
@@ -64,7 +83,9 @@ from torch import nn
 
 from bigdl_tpu_torch.nn import Linear
 from bigdl_tpu_torch.nn.quantized import lora_linear, scale_of
-from bigdl_tpu_torch.ops.flash_attention import flash_attention
+from bigdl_tpu_torch.ops.flash_attention import (flash_attention,
+                                                 flash_attention_with_lse)
+from bigdl_tpu_torch.parallel.layout import gather
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -186,12 +207,189 @@ def paged_attention(q, k, v, q_pos):
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
 
 
+def shard_sequence(x, mesh):
+    """``x`` (B, H, T, D) split along T into one chunk a device of
+    ``mesh``, each chunk on its device (what the reference's ``shard_map``
+    hands each device). T must divide by the shard count, as there."""
+    n, t = len(mesh), x.shape[2]
+    if t % n:
+        raise ValueError(f"sequence of {t} positions does not split evenly "
+                         f"over {n} shards")
+    return [c.to(d) for c, d in zip(x.chunk(n, 2), mesh)]
+
+
+def ring_local_flash(qs, ks, vs, causal=False):
+    """The ring body over a sequence-parallel group: ``qs``, ``ks``, ``vs``
+    one (B, H, T_local, D) chunk a shard, in sequence order, each on its
+    shard's device. Shard ``my`` attends to chunk ``(my - i) % n`` at ring
+    step ``i`` through ``flash_attention_with_lse`` (causal only at step
+    0, its own chunk; a causal ring stops after step ``my``: the later
+    chunks' keys all follow its queries), then merges the steps' outputs
+    by their logsumexp in float32. Returns each shard's output (B, H,
+    T_local, D) in ``q``'s type on its device."""
+    outs = []
+    for my, q in enumerate(qs):
+        steps = my + 1 if causal else len(qs)
+        os_, lses = [], []
+        for i in range(steps):
+            src = (my - i) % len(qs)
+            o, lse = flash_attention_with_lse(
+                q, ks[src].to(q.device), vs[src].to(q.device),
+                causal=causal and i == 0)
+            os_.append(o.float())
+            lses.append(lse)
+        lse = torch.stack(lses)                          # (steps, B, H, T)
+        w = torch.exp(lse - lse.amax(dim=0))
+        denom = w.sum(dim=0).clamp_min(1e-30)
+        out = sum(w[i][..., None] * os_[i] for i in range(steps))
+        outs.append((out / denom[..., None]).to(q.dtype))
+    return outs
+
+
+def ring_local(qs, ks, vs, causal=False):
+    """The reference's plain ring body (``_ring_local``: an online softmax
+    over the ring steps in float32, the causal mask from global positions),
+    over the same per-shard lists as :func:`ring_local_flash`; kept for the
+    tests."""
+    n, t = len(qs), qs[0].shape[2]
+    scale = 1.0 / math.sqrt(qs[0].shape[-1])
+    outs = []
+    for my, q in enumerate(qs):
+        dev = q.device
+        o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        l = torch.zeros(q.shape[:3], dtype=torch.float32, device=dev)
+        m = torch.full(q.shape[:3], float("-inf"), device=dev)
+        for i in range(n):
+            src = (my - i) % n
+            k, v = ks[src].to(dev), vs[src].to(dev)
+            s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+            if causal:
+                q_pos = my * t + torch.arange(t, device=dev)
+                k_pos = src * t + torch.arange(t, device=dev)
+                s = s.masked_fill(~(q_pos[:, None] >= k_pos[None, :]),
+                                  float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            safe_m = torch.where(torch.isfinite(m_new), m_new,
+                                 torch.zeros_like(m_new))
+            p = torch.exp(s - safe_m[..., None])
+            p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+            corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                               torch.zeros_like(m))
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + p @ v.float()
+            m = m_new
+        outs.append((o / l[..., None].clamp_min(1e-20)).to(q.dtype))
+    return outs
+
+
+def ring_attention(q, k, v, mesh, axis="seq", causal=False):
+    """Attention over (B, H, T, D) with the sequence split over ``mesh``
+    (a list of devices; ``axis`` is the reference's mesh-axis name, one
+    axis here): :func:`ring_local_flash` over the chunks, whose outputs
+    are joined along T on the first device, as the reference's sharded
+    output holds them."""
+    return gather(ring_local_flash(shard_sequence(q, mesh),
+                                   shard_sequence(k, mesh),
+                                   shard_sequence(v, mesh), causal), 2)
+
+
+def ulysses_attention(q, k, v, mesh, axis="seq", causal=False):
+    """All-to-all sequence parallelism (Ulysses) over ``mesh`` (a list of
+    devices): each shard's sequence chunk of every head goes to the shard
+    of its head group (heads ``j * H/n ... (j + 1) * H/n - 1`` to shard
+    ``j``, the chunks joined along T in shard order: the reference's
+    ``all_to_all(split_axis=1, concat_axis=2, tiled=True)``), each shard
+    runs ``flash_attention`` over the whole sequence of its heads, and
+    the inverse exchange returns each shard its chunk of every head. The
+    chunks are joined along T on the first device. The heads must divide
+    the shards."""
+    n, h = len(mesh), q.shape[1]
+    if h % n:
+        raise ValueError(f"heads {h} not divisible by mesh axis {n}")
+    hl = h // n
+
+    def to_heads(x):
+        chunks = shard_sequence(x, mesh)
+        return [torch.cat([c[:, j * hl:(j + 1) * hl].to(dev)
+                           for c in chunks], 2)
+                for j, dev in enumerate(mesh)]
+
+    outs = [flash_attention(qf, kf, vf, causal) for qf, kf, vf in
+            zip(to_heads(q), to_heads(k), to_heads(v))]
+    t = q.shape[2] // n
+    return gather([torch.cat([o[:, :, s * t:(s + 1) * t].to(dev)
+                              for o in outs], 1)
+                   for s, dev in enumerate(mesh)], 2)
+
+
+def sequence_attention(q, k, v, mesh, axis="seq", causal=False):
+    """The reference's choice between the two: Ulysses when the heads
+    divide the shards, else the ring."""
+    if q.shape[1] % len(mesh) == 0:
+        return ulysses_attention(q, k, v, mesh, axis, causal)
+    return ring_attention(q, k, v, mesh, axis, causal)
+
+
+def ring_inner_attention(mhas, xs):
+    """Self-attention over a sequence-parallel group: ``mhas`` the group's
+    ``MultiHeadAttention`` layers, one a shard (each shard's own copy of
+    the layer, on its device), ``xs`` their (B, T_local, hidden) chunks of
+    the sequence in order. Each shard projects its chunk, the ring runs
+    across the group (:func:`ring_local_flash`), and each shard projects
+    its output through its ``wo``. Returns the shards' outputs."""
+    qkv = [m._qkv(x) for m, x in zip(mhas, xs)]
+    outs = ring_local_flash(*[[t[i] for t in qkv] for i in range(3)],
+                            causal=mhas[0].causal)
+    return [m.wo(m.merge_heads(o)) for m, o in zip(mhas, outs)]
+
+
+def attention_group(mhas, xs):
+    """Each shard's attention output of its input: the ring across the
+    group for ``ring_inner`` layers (:func:`ring_inner_attention`), else
+    each layer's own forward."""
+    if mhas[0].ring_inner:
+        return ring_inner_attention(mhas, xs)
+    return [m(x) for m, x in zip(mhas, xs)]
+
+
+def sequence_forward(model, x, generator=None):
+    """``model``'s forward through its class's ``group_forward(models, xs,
+    generator)``: a ``ring_inner`` model is one shard of a sequence-parallel
+    group and takes the group's list of chunks (it stands in for every
+    shard's copy) and returns the list; any other model takes one input,
+    the group of one."""
+    sp = model.sequence_parallel
+    if sp is None or sp[0] != "ring_inner":
+        return type(model).group_forward([model], [x], generator)[0]
+    n = sp[2]
+    if not isinstance(x, (list, tuple)) or len(x) != n:
+        raise ValueError(f"a ring_inner model takes its sequence-parallel "
+                         f"group's list of {n} chunks")
+    return type(model).group_forward([model] * n, list(x), generator)
+
+
+SEQUENCE_PARALLEL_KINDS = ("ring", "ulysses", "ring_inner")
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head self-attention: :meth:`forward` over whole sequences
     (``causal`` masks later keys) and the paged methods, which are always
     causal. ``wq``, ``wk``, ``wv``, ``wo`` are bias-free, as in the
-    reference. ``sequence_parallel`` (ring/Ulysses attention) is not
-    ported yet.
+    reference.
+
+    ``sequence_parallel`` takes the reference's three forms, a mesh being
+    a list of devices here:
+
+    - ``("ring", mesh, axis)`` / ``("ulysses", mesh, axis)``: ``forward``
+      takes a whole (B, T, hidden) input and attends through
+      :func:`ring_attention` / :func:`ulysses_attention` over ``mesh``;
+    - ``("ring_inner", axis, n)``: the layer is one shard of a
+      sequence-parallel group of ``n``; ``forward`` takes the group's list
+      of ``n`` chunks and returns the list (:func:`ring_inner_attention`
+      with this layer standing in for every shard's copy).
+
+    The dense and paged cache methods refuse a sequence-parallel layer,
+    as the reference's ``prefill`` does.
 
     ``tp > 1`` builds one tensor-parallel shard of the layer: it holds
     ``local_heads = n_heads // tp`` of the heads (``wq``/``wk``/``wv``
@@ -211,9 +409,14 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"n_heads ({n_heads}) must be divisible by tp "
                              f"({tp})")
         if sequence_parallel is not None:
-            raise NotImplementedError(
-                "sequence_parallel (ring/Ulysses attention) is not ported "
-                "yet: ROADMAP A.10/A.11")
+            if sequence_parallel[0] not in SEQUENCE_PARALLEL_KINDS:
+                raise ValueError(f"sequence_parallel kind "
+                                 f"{sequence_parallel[0]!r} not in "
+                                 f"{SEQUENCE_PARALLEL_KINDS}")
+            if tp > 1:
+                raise ValueError("sequence_parallel does not compose with "
+                                 "tp")
+        self.sequence_parallel = sequence_parallel
         self.causal = causal
         self.hidden_size = hidden_size
         self.n_heads = n_heads
@@ -238,12 +441,36 @@ class MultiHeadAttention(nn.Module):
 
         return split("wq"), split("wk"), split("wv")
 
+    @property
+    def ring_inner(self):
+        sp = self.sequence_parallel
+        return sp is not None and sp[0] == "ring_inner"
+
+    def _refuse_sequence_parallel(self):
+        if self.sequence_parallel is not None:
+            raise ValueError("KV-cache decoding does not compose with "
+                             "sequence_parallel; build the model without it "
+                             "for generation")
+
     def forward(self, x):
-        """Self-attention over x (B, T, hidden) through the flash kernel
-        (the reference's ``call`` without sequence parallelism)."""
+        """Self-attention over x (B, T, hidden) (the reference's ``call``):
+        through the flash kernel, or over ``sequence_parallel``'s mesh; a
+        ``ring_inner`` layer takes and returns its group's list of
+        chunks (see the class docstring)."""
+        sp = self.sequence_parallel
+        if self.ring_inner:
+            if len(x) != sp[2]:
+                raise ValueError(f"a ring_inner layer of {sp[2]} shards got "
+                                 f"{len(x)} chunks")
+            return ring_inner_attention([self] * len(x), list(x))
         b, t, hs = x.shape
         q, k, v = self._qkv(x)
-        out = flash_attention(q, k, v, causal=self.causal)
+        if sp is None:
+            out = flash_attention(q, k, v, causal=self.causal)
+        else:
+            kind, mesh, axis = sp
+            attend = ring_attention if kind == "ring" else ulysses_attention
+            out = attend(q, k, v, mesh, axis, causal=self.causal).to(x.device)
         return self.wo(out.transpose(1, 2).reshape(b, t, hs))
 
     def init_paged_pool(self, num_pages, page_size, dtype, device):
@@ -278,6 +505,7 @@ class MultiHeadAttention(nn.Module):
         into ``pool`` at ``index`` first, so that the queries attending
         through the page table (``ops.paged_attention``, every visible
         position at or before their own) see them. Returns (q, pool)."""
+        self._refuse_sequence_parallel()
         q, k, v = self._qkv(x, lora)
         return q, self._paged_write(pool, k, v, index)
 
@@ -311,6 +539,7 @@ class MultiHeadAttention(nn.Module):
         cache rows that x's first n rows land in (the rest of x's rows
         are padding and write nothing). On the card, the flash kernel
         where :func:`flash_profitable` holds; else :func:`full_attention`."""
+        self._refuse_sequence_parallel()
         if not self.causal:
             raise ValueError("KV-cache prefill requires causal attention")
         t = x.shape[1]
@@ -335,6 +564,7 @@ class MultiHeadAttention(nn.Module):
         K/V written at ``index`` (an int: every row's position; or a (B,)
         tensor: each row's own), in place, then :func:`cached_attention`
         over positions [0, index]. Returns (B, H, 1, D)."""
+        self._refuse_sequence_parallel()
         q, k, v = self._qkv(x, lora)
         idx = torch.as_tensor(index, device=x.device)
         for name, new in (("k", k), ("v", v)):
@@ -359,6 +589,7 @@ class MultiHeadAttention(nn.Module):
         length were left out, the reference's dropped writes), in place,
         then attend through :func:`paged_attention`'s per-query mask at
         absolute positions ``q_pos`` (B, C). Returns (B, H, C, D)."""
+        self._refuse_sequence_parallel()
         q, k, v = self._qkv(x, lora)
         tok, row, pos = index
         for name, new in (("k", k), ("v", v)):

@@ -207,7 +207,8 @@ class ServingEngine:
     The reference's control plane (``policy``) raises
     ``NotImplementedError`` naming ROADMAP queue A.8, when given by keyword
     or turned on by the reference's flag (``BIGDL_TPU_ADMISSION_SLO``; a
-    keyword wins over its flag).
+    keyword wins over its flag). A model built with ``sequence_parallel``
+    is refused with the reference's ``ValueError``.
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -237,6 +238,11 @@ class ServingEngine:
                                      f"is the K/V page)")
         if getattr(model, "gpt", None) is None:
             raise TypeError("ServingEngine drives GPTForCausalLM models")
+        if model.gpt.layers and \
+                model.gpt.layers[0].attn.sequence_parallel is not None:
+            raise ValueError(
+                "serving does not compose with sequence_parallel; build "
+                "the model without it for generation")
         layout = self._layout(tp, mesh, device)
         if layout is not None:
             layout.validate_heads(model.gpt.layers[0].attn.n_heads)

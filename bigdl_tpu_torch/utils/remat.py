@@ -35,3 +35,12 @@ def checkpoint(fn, generator, *args):
             generator.set_state(after)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
+def checkpoint_list(fn, generator, xs):
+    """``fn(xs, generator)``, a function of a list of tensors that returns
+    a list (one layer over a sequence-parallel group's shards), under
+    :func:`checkpoint`."""
+    def run(*args):
+        return tuple(fn(list(args[:-1]), args[-1]))
+    return list(checkpoint(run, generator, *xs))

@@ -74,7 +74,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
      cotangent, in both types on the CUDA-core kernels (160 zero-padded to
      256), and at D = 320 and 512 (B 4, H 2), causal at S = 1024 and full
      with an lse cotangent at S = 1000, on the width-256 CUDA-core kernels
-     in two chunks a row (320 zero-padded to 512); each call on the path
+     in two chunks a row (320 zero-padded to 512), and at BERT-base's
+     shapes (FLASH_BERT_CASES, D = 64, both types, timed: full attention
+     at 128 x 128 and 16 x 512, a dp 2 x sp 4 ring chunk pair B 4 x 128
+     and a 32-position chunk B 128 with an lse cotangent, and a causal
+     ring diagonal 1 x 256 with one; SDPA, the yardstick, takes no lse
+     cotangent); each call on the path
      ``flash_attention.path`` names, and a
      bfloat16 kernel's second call (at D other than 64 and 128 every
      kernel's) equal to its first bit for bit. float32
@@ -429,6 +434,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Reports step time, images/s, utilisation of the counted operations
    (``models.model_flops``) against 67 or 989 TFLOP/s, peak memory, the
    device's busy share and the 3x3 kernels' share of device time.
+
+13. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
+   hidden 768, 12 heads, vocabulary 30522, max_position 512) at full width
+   and depth, seeded weights (``convert.init_bert_tree``) and seeded
+   tokens, 15 % masked (label -1 elsewhere). ``BertForMLM`` through
+   ``make_train_step``, bfloat16 compute, ``Adam(1e-4)``, ``bench.py``'s
+   two phases (128 x 128: a warm-up and 5 timed steps; 16 x 512: a
+   warm-up and 3): losses finite and the last below the first, exactly 12
+   tensor-core launches of each flash kernel a step and no CUDA-core
+   one; 2 steps of each under the profiler. float32 loss and gradients of
+   a 2 x 128 batch on the card against the port's CPU run: ``train``'s
+   bars (1e-4 relative; 1e-3 of each gradient's largest magnitude), 12
+   CUDA-core launches each. ``make_sp_train_step`` at dp 2 x sp 4
+   (``examples/bert_sequence_parallel.py``), every replica on ``cuda:0``,
+   float32, 8 x 512: each shard's forward against the plain model's
+   (rtol 2e-4, atol 2e-5, the reference's sp bar); one ``SGD(0.1)`` step
+   on unpadded labels against one plain ``make_train_step``'s (each
+   tensor within 1e-5 of its largest magnitude); then a warm-up and 2
+   ``Adam`` steps on masked labels, each timed alone, the replicas bit-
+   identical after each, finite losses, exactly dp x 12 x sp^2 = 384
+   CUDA-core launches of each flash kernel a step; one step profiled.
+   The ring and Ulysses forms over 4 shards of ``cuda:0`` through
+   ``make_train_step`` in bfloat16 on phase 2's batch and weights: the
+   first loss within 2 % of phase 2's, 12 x 16 and 12 x 4 tensor-core
+   launches a step. GPT-2 small at ``("ring_inner", "seq", 4)``, float32,
+   1 x 1024: the sp step's loss and gradients against the plain model's
+   on the card at ``train``'s bars, 12 x 10 CUDA-core launches each (a
+   causal ring of 4 runs 4 causal and 6 full pairs). Reports step time,
+   tokens/s, utilisation of ``bert_mlm_flops_per_token`` x 3 against 989
+   TFLOP/s, peak memory, the busy share and the flash kernels' share of
+   device time.
 
 Then a ``run`` line (the whole run's seconds and each phase's), a
 ``{"kernels": [...]}`` line (name, route, source, replaced TPU kernel,
@@ -1106,12 +1142,29 @@ FLASH_CASES = [("path", 8, 12, 1024, 64, True, False, ("fwd", "dq", "dkv")),
                ("d320_full", 4, 2, 1000, 320, False, True,
                 ("fwd", "dq", "dkv")),
                ("d512_full", 4, 2, 1000, 512, False, True,
+                ("fwd", "dq", "dkv")),
+               # BERT-base (train_bert): its two phases in full attention,
+               # a dp 2 x sp 4 ring chunk pair with the merge's lse
+               # cotangent, the 32-position chunk of an s128 batch under
+               # sp 4 (a partial tile both ways), and a causal ring's
+               # diagonal pair (GPT-2 small at sp 4)
+               ("bert_s128", 128, 12, 128, 64, False, False,
+                ("fwd", "dq", "dkv")),
+               ("bert_s512", 16, 12, 512, 64, False, False,
+                ("fwd", "dq", "dkv")),
+               ("ring_chunk", 4, 12, 128, 64, False, True,
+                ("fwd", "dq", "dkv")),
+               ("ring_chunk32", 128, 12, 32, 64, False, True,
+                ("fwd", "dq", "dkv")),
+               ("ring_diag", 1, 12, 256, 64, True, True,
                 ("fwd", "dq", "dkv"))]
 FLASH_DTYPES = ("float32", "bfloat16")
 FLASH_TOL = {"float32": {"fwd": 2e-5, "grad": 1e-4}, "bfloat16": 2e-2}
 # the cases timed beside SDPA
+FLASH_BERT_CASES = ("bert_s128", "bert_s512", "ring_chunk", "ring_chunk32",
+                    "ring_diag")
 FLASH_TIMED = ("path", "d128", "d32", "d80", "d160", "d256", "d320", "d512",
-               "d320_full", "d512_full")
+               "d320_full", "d512_full") + FLASH_BERT_CASES
 FLASH_HEAD_DIM_CASES = ("d128", "d32", "d80", "d160", "d256", "d320",
                         "d512", "d320_full", "d512_full")
 # products of depth D each kernel runs per visible (query, key) pair: the
@@ -1229,6 +1282,14 @@ def _flash_kernels(torch, flush):
                                        "launched_head_dim")}
                          for r in shapes if r["case"] == c and "ms" in r}
                      for c in FLASH_HEAD_DIM_CASES}
+        bert_shapes = {c: {r["dtype"]: {key: r[key] for key in
+                                        ("B", "H", "S", "D", "causal",
+                                         "dlse", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err",
+                                         "path")}
+                           for r in shapes if r["case"] == c and "ms" in r}
+                       for c in FLASH_BERT_CASES}
         results[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[kern],
@@ -1248,7 +1309,12 @@ def _flash_kernels(torch, flush):
                         **{key: t32[key] for key in
                            ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "path")}},
-            "head_dims": head_dims, "launches": 0, "shapes": shapes}
+            "head_dims": head_dims, "bert_shapes": bert_shapes,
+            # SDPA returns no lse: on the dlse cases its backward takes
+            # dO alone, a lighter function than the kernels'
+            "library_note": "SDPA returns no lse; beside the dlse cases "
+                            "its backward computes without dlse",
+            "launches": 0, "shapes": shapes}
     return results
 
 
@@ -4406,6 +4472,409 @@ def phase_train_cnn(torch, kernels, smi):
 # ------------------------------------------------------------- resilience
 # the no-fault phases' outputs (all 12 requests), by path: what the fault
 # phases' greedy tokens are held to
+# ------------------------------------------------------------- train_bert
+BERT_VOCAB, BERT_SEED, BERT_MASK_P = 30522, 17, 0.15
+# (part, batch, seq, timed steps): bench.py's BERT-Base MLM phases
+BERT_PHASES = [("phase1", 128, 128, 5), ("phase2", 16, 512, 3)]
+BERT_CPU_BATCH = (2, 128)
+# examples/bert_sequence_parallel.py's dp 2 x sp 4, every shard on the card
+BERT_SP_MESH = [["cuda:0"] * 4 for _ in range(2)]
+BERT_SP_BATCH = (8, 512)
+BERT_SP_FWD_TOL = dict(rtol=2e-4, atol=2e-5)    # the reference's sp bar
+BERT_SP_STEP_REL = 1e-5                         # x max|w| a tensor
+BERT_SP_ADAM_STEPS = 2
+BERT_SEQ_MESH = ["cuda:0"] * 4                  # ring / Ulysses forms
+BERT_SEQ_STEPS = 2
+BERT_SEQ_LOSS_REL = 0.02
+GPT_SP_BATCH = (1, 1024)                        # GPT-2 small, ring_inner
+
+
+def _bert_batch(torch, rng, b, s, masked=True):
+    """Seeded MLM inputs ``(x (b, s), y (b, s))`` on the card, the
+    example's rule (``examples/bert_mlm_pretrain.py``): 15 % of tokens
+    masked (the last vocabulary entry as [MASK]), label -1 elsewhere;
+    ``masked=False``: every label the token itself."""
+    import numpy as np
+    tokens = rng.integers(0, BERT_VOCAB - 1, (b, s))
+    if not masked:
+        t = torch.from_numpy(tokens).cuda()
+        return t, t.clone()
+    pick = rng.random((b, s)) < BERT_MASK_P
+    labels = np.where(pick, tokens, -1)
+    tokens[pick] = BERT_VOCAB - 1
+    return (torch.from_numpy(tokens).cuda(),
+            torch.from_numpy(labels).cuda())
+
+
+def _expect_flash(name, counts, path, n):
+    """Each flash wrapper launched exactly ``n`` times on ``path``
+    ("tensor_cores" or "cuda_cores") and never on the other."""
+    for fn, c in counts.items():
+        want = {p: n * (p == path) for p in c}
+        check(c == want, f"{name}: {fn} launched {c}, expected {want}")
+
+
+def _bert_model(torch, params, **kw):
+    from bigdl_tpu_torch.models import BertForMLM
+    model = BertForMLM(max_position=512, **kw)
+    model.load_state_dict(params)
+    return model
+
+
+def _bert_timed(torch, step, opt_state, x, y, steps):
+    """A warm-up step, then ``steps`` timed ones with the flash counts
+    from 0: (losses, seconds a step, counts, warm-up seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, x, y)]
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(opt_state, x, y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [float(v) for v in losses], wall / steps, _flash_counts(), \
+        warmup_s
+
+
+def _bert_mlm_phases(torch, params, smi, kernels, n_layers):
+    """BertForMLM through ``make_train_step``, bfloat16 compute,
+    ``Adam(1e-4)``, on each of BERT_PHASES from the seeded weights:
+    finite, falling losses and exactly 12 tensor-core launches of each
+    flash kernel a step. Returns {part: line}."""
+    import numpy as np
+    from bigdl_tpu_torch.models import bert_mlm_flops_per_token
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Adam, make_train_step
+    lines = {}
+    for part, b, s, steps in BERT_PHASES:
+        model = _bert_model(torch, params)
+        x, y = _bert_batch(torch, np.random.default_rng(BERT_SEED), b, s)
+        opt = Adam(learningrate=1e-4)
+        opt_state = opt.init_state(dict(model.named_parameters()))
+        step = make_train_step(model, CrossEntropyCriterion(), opt,
+                               compute_dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, counts, warmup_s = _bert_timed(
+            torch, step, opt_state, x, y.reshape(-1), steps)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"train_bert {part}: losses "
+                                        f"{losses}")
+        check(losses[-1] < losses[0], f"train_bert {part}: loss did not "
+                                      f"fall: {losses}")
+        _expect_flash(f"train_bert {part}", counts, "tensor_cores",
+                      n_layers * steps)
+        flops = 3 * bert_mlm_flops_per_token(s=s) * b * s
+        profile = _profile(torch, lambda: [step(opt_state, x, y.reshape(-1))
+                                           for _ in range(2)],
+                           groups=GPT_BF16_KERNEL_GROUPS)
+        flash = profile.get("groups", {}).get("flash tensor-core kernels",
+                                              {})
+        lines[part] = {
+            "batch": b, "seq": s, "masked_labels": int((y >= 0).sum()),
+            "losses": losses, "timed_steps": steps, "step_s": step_s,
+            "tokens_per_s": b * s / step_s, "warmup_s": warmup_s,
+            "model_flops_per_step": flops,
+            "mfu_vs_bf16_peak": flops / step_s
+            / PEAK_FLOPS_PER_S["bfloat16"],
+            "peak_memory_bytes": peak, "flash_launches": counts,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "flash_share_of_device_time": flash.get(
+                "share_of_device_time", "not measured")}
+        emit({"phase": "profile", "path": f"train_bert_{part}", "steps": 2,
+              **profile})
+        for name, c in counts.items():
+            kernels[name].setdefault("launches_by_phase", {})[
+                f"train_bert_{part}"] = c
+        del model, step, opt_state
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _bert_vs_cpu(torch, params, n_layers):
+    """float32 loss and gradients of one masked BERT_CPU_BATCH on the card
+    against the port's CPU run (plain versions) on the same weights, with
+    12 CUDA-core launches of each flash kernel."""
+    import numpy as np
+    from bigdl_tpu_torch.models import BertForMLM
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import make_loss_and_grads
+    crit = CrossEntropyCriterion()
+    x, y = _bert_batch(torch, np.random.default_rng(BERT_SEED + 1),
+                       *BERT_CPU_BATCH)
+    model = _bert_model(torch, params)
+    _reset_flash_counts()
+    loss_g, grads_g = make_loss_and_grads(model, crit)(x, y.reshape(-1))
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    _expect_flash("train_bert cpu check", counts, "cuda_cores", n_layers)
+    cpu = BertForMLM(max_position=512, device="cpu")
+    cpu.load_state_dict(params)
+    loss_c, grads_c = make_loss_and_grads(cpu, crit)(x.cpu(),
+                                                     y.reshape(-1).cpu())
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, worst_name = 0.0, None
+    for name, gc in grads_c.items():
+        ratio = (float((grads_g[name].cpu() - gc).abs().max())
+                 / max(float(gc.abs().max()), 1e-30))
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    check(rel <= 1e-4, f"train_bert: card vs CPU loss differs by {rel}")
+    check(worst <= 1e-3, f"train_bert: card vs CPU gradient of {worst_name} "
+                         f"differs by {worst} of its largest magnitude")
+    del model, grads_g
+    torch.cuda.empty_cache()
+    return {"batch": list(BERT_CPU_BATCH), "loss_rel_diff": rel,
+            "grad_worst_rel": worst, "grad_worst_param": worst_name,
+            "flash_launches": counts}
+
+
+def _replicas_identical(torch, step):
+    master = dict(step.model.named_parameters())
+    return all(torch.equal(p, master[n]) for row in step.replicas
+               for r in row for n, p in r.named_parameters())
+
+
+def _bert_dp_sp(torch, params, n_layers, kernels):
+    """``make_sp_train_step`` at dp 2 x sp 4 on the card, float32,
+    BERT_SP_BATCH (see the module docstring's train_bert)."""
+    import numpy as np
+    from bigdl_tpu_torch.models import (bert_mlm_flops_per_token,
+                                        make_sp_train_step)
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Adam, make_train_step
+    dp, sp = len(BERT_SP_MESH), len(BERT_SP_MESH[0])
+    b, s = BERT_SP_BATCH
+    bl, tl = b // dp, s // sp
+    ring_inner = ("ring_inner", "seq", sp)
+    crit = CrossEntropyCriterion()
+    per_step = dp * n_layers * sp * sp
+    rng = np.random.default_rng(BERT_SEED + 2)
+    x, y = _bert_batch(torch, rng, b, s, masked=False)
+
+    # the forward against the plain model's, shard by shard
+    plain = _bert_model(torch, params)
+    model = _bert_model(torch, params, sequence_parallel=ring_inner)
+    step = make_sp_train_step(model, crit, SGD(learningrate=0.1),
+                              BERT_SP_MESH)
+    with torch.no_grad():
+        want = plain(x).reshape(b, s, -1)
+        outs = step.forward(x)
+        fwd_err = 0.0
+        for d, row in enumerate(outs):
+            for k, o in enumerate(row):
+                ref = want[d * bl:(d + 1) * bl, k * tl:(k + 1) * tl]
+                got = o.reshape(bl, tl, -1)
+                fwd_err = max(fwd_err, float((got - ref).abs().max()))
+                check(torch.allclose(got, ref, **BERT_SP_FWD_TOL),
+                      f"train_bert dp x sp: shard ({d}, {k}) forward "
+                      f"differs from the plain model's by {fwd_err}")
+        del want, outs
+
+    # one SGD(0.1) step on unpadded labels against make_train_step's
+    method = SGD(learningrate=0.1)
+    plain_step = make_train_step(plain, crit, method)
+    loss_plain = float(plain_step(method.init_state(
+        dict(plain.named_parameters())), x, y.reshape(-1)))
+    opt_state = step.optim_method.init_state(dict(model.named_parameters()))
+    loss_sp = float(step(opt_state, x, y))
+    torch.cuda.synchronize()
+    check(_replicas_identical(torch, step),
+          "train_bert dp x sp: replicas differ after the SGD step")
+    new_plain = dict(plain.named_parameters())
+    sgd_worst, sgd_name = 0.0, None
+    for name, p in model.named_parameters():
+        w = new_plain[name]
+        ratio = (float((p.detach() - w.detach()).abs().max())
+                 / float(w.abs().max()))
+        if ratio > sgd_worst:
+            sgd_worst, sgd_name = ratio, name
+    check(sgd_worst <= BERT_SP_STEP_REL,
+          f"train_bert dp x sp: SGD step's {sgd_name} differs from the "
+          f"plain step's by {sgd_worst} of its largest magnitude")
+    loss_rel = abs(loss_sp - loss_plain) / abs(loss_plain)
+    del step, plain, plain_step, model, opt_state
+    torch.cuda.empty_cache()
+
+    # Adam on masked labels: a warm-up and BERT_SP_ADAM_STEPS timed steps
+    x, y = _bert_batch(torch, rng, b, s)
+    model = _bert_model(torch, params, sequence_parallel=ring_inner)
+    step = make_sp_train_step(model, crit, Adam(learningrate=1e-4),
+                              BERT_SP_MESH)
+    opt_state = step.optim_method.init_state(dict(model.named_parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    # each step timed alone, the replicas compared after it
+    losses, times, identical = [], [], []
+    for i in range(1 + BERT_SP_ADAM_STEPS):
+        if i == 1:
+            _reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(opt_state, x, y)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        identical.append(_replicas_identical(torch, step))
+    counts = _flash_counts()
+    warmup_s, step_s = times[0], sum(times[1:]) / BERT_SP_ADAM_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"train_bert dp x sp: losses {losses}")
+    check(all(identical), f"train_bert dp x sp: replicas differ after a "
+                          f"step: {identical}")
+    _expect_flash("train_bert dp x sp", counts, "cuda_cores",
+                  per_step * BERT_SP_ADAM_STEPS)
+    profile = _profile(torch, lambda: step(opt_state, x, y),
+                       groups=GPT_BF16_KERNEL_GROUPS)
+    emit({"phase": "profile", "path": "train_bert_dp_sp", "steps": 1,
+          **profile})
+    flash = profile.get("groups", {}).get("flash CUDA-core kernels", {})
+    for name, c in counts.items():
+        kernels[name].setdefault("launches_by_phase", {})[
+            "train_bert_dp_sp"] = c
+    del step, model, opt_state
+    torch.cuda.empty_cache()
+    return {"dp": dp, "sp": sp, "batch": b, "seq": s, "dtype": "float32",
+            "forward_max_abs_err": fwd_err, "sgd_loss": loss_sp,
+            "sgd_plain_loss": loss_plain, "sgd_loss_rel_diff": loss_rel,
+            "sgd_weights_worst_rel": sgd_worst, "sgd_weights_worst": sgd_name,
+            "adam_losses": losses, "timed_steps": BERT_SP_ADAM_STEPS,
+            "step_s": step_s, "tokens_per_s": b * s / step_s,
+            # every shard's queries attend over the whole sequence
+            "mfu_vs_fp32_peak": 3 * bert_mlm_flops_per_token(s=s) * b * s
+            / step_s / PEAK_FLOPS_PER_S["float32"],
+            "warmup_s": warmup_s, "peak_memory_bytes": peak,
+            "flash_launches": counts, "flash_launches_per_step": per_step,
+            "replicas_identical": identical,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "flash_share_of_device_time": flash.get(
+                "share_of_device_time", "not measured")}
+
+
+def _bert_seq_forms(torch, params, n_layers, loss_unsharded):
+    """BertForMLM with ``("ulysses", BERT_SEQ_MESH)`` and ``("ring",
+    BERT_SEQ_MESH)`` attention through ``make_train_step`` in bfloat16 on
+    the phase-2 batch and weights: a warm-up and BERT_SEQ_STEPS timed
+    steps each; the first loss within BERT_SEQ_LOSS_REL of the unsharded
+    model's; 12 x 4 (Ulysses) and 12 x 16 (ring) tensor-core launches of
+    each flash kernel a step."""
+    import numpy as np
+    from bigdl_tpu_torch.models import bert_mlm_flops_per_token
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Adam, make_train_step
+    _, b, s, _ = BERT_PHASES[1]
+    n = len(BERT_SEQ_MESH)
+    out = {}
+    for kind, per_layer in (("ulysses", n), ("ring", n * n)):
+        model = _bert_model(torch, params,
+                            sequence_parallel=(kind, BERT_SEQ_MESH, "seq"))
+        x, y = _bert_batch(torch, np.random.default_rng(BERT_SEED), b, s)
+        opt = Adam(learningrate=1e-4)
+        opt_state = opt.init_state(dict(model.named_parameters()))
+        step = make_train_step(model, CrossEntropyCriterion(), opt,
+                               compute_dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, counts, _ = _bert_timed(
+            torch, step, opt_state, x, y.reshape(-1), BERT_SEQ_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        rel = abs(losses[0] - loss_unsharded) / loss_unsharded
+        check(all(np.isfinite(losses)), f"train_bert {kind}: losses "
+                                        f"{losses}")
+        check(rel <= BERT_SEQ_LOSS_REL, f"train_bert {kind}: first loss "
+              f"{losses[0]} vs the unsharded model's {loss_unsharded}")
+        _expect_flash(f"train_bert {kind}", counts, "tensor_cores",
+                      n_layers * per_layer * BERT_SEQ_STEPS)
+        out[kind] = {"shards": n, "losses": losses,
+                     "first_loss_rel_diff": rel, "step_s": step_s,
+                     "tokens_per_s": b * s / step_s,
+                     "mfu_vs_bf16_peak": 3 * bert_mlm_flops_per_token(s=s)
+                     * b * s / step_s / PEAK_FLOPS_PER_S["bfloat16"],
+                     "peak_memory_bytes": peak,
+                     "flash_launches": counts,
+                     "flash_launches_per_step": n_layers * per_layer}
+        del model, step, opt_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gpt_ring_inner(torch, n_layers):
+    """GPT-2 small at ``("ring_inner", "seq", 4)``, dp 1 x sp 4, float32,
+    one GPT_SP_BATCH: the sp step's loss and gradients
+    (``SequenceParallelStep.loss_and_grads``) against the plain model's
+    on the card at ``train``'s bars; a causal ring of 4 runs 10 pairs a
+    layer (4 causal, 6 full)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import gpt2_small, make_sp_train_step
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, make_loss_and_grads
+    sp = len(BERT_SEQ_MESH)
+    crit = CrossEntropyCriterion()
+    params = convert.init_params(gpt2_small(device="cpu"), seed=0)
+    b, s = GPT_SP_BATCH
+    ids = torch.from_numpy(np.random.default_rng(BERT_SEED + 3).integers(
+        0, 50257, (b, s + 1))).cuda()
+    x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+    plain = gpt2_small()
+    plain.load_state_dict(params)
+    loss_p, grads_p = make_loss_and_grads(plain, crit)(x, y.reshape(-1))
+    del plain
+    model = gpt2_small(sequence_parallel=("ring_inner", "seq", sp))
+    model.load_state_dict(params)
+    step = make_sp_train_step(model, crit, SGD(learningrate=0.0),
+                              [BERT_SEQ_MESH])
+    _reset_flash_counts()
+    loss_s, grads_s = step.loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    pairs = sp * (sp + 1) // 2
+    _expect_flash("train_bert gpt ring_inner", counts, "cuda_cores",
+                  n_layers * pairs)
+    rel = abs(float(loss_s) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_name = 0.0, None
+    for name, gp in grads_p.items():
+        ratio = (float((grads_s[name] - gp).abs().max())
+                 / max(float(gp.abs().max()), 1e-30))
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    check(rel <= 1e-4, f"train_bert gpt ring_inner: loss differs by {rel}")
+    check(worst <= 1e-3, f"train_bert gpt ring_inner: gradient of "
+                         f"{worst_name} differs by {worst}")
+    del step, model, grads_p, grads_s
+    torch.cuda.empty_cache()
+    return {"model": "gpt2_small", "dp": 1, "sp": sp, "batch": b, "seq": s,
+            "dtype": "float32", "loss_rel_diff": rel,
+            "grad_worst_rel": worst, "grad_worst_param": worst_name,
+            "pairs_per_layer": pairs, "flash_launches": counts}
+
+
+def phase_train_bert(torch, kernels, smi):
+    """BERT-base (``BASELINE.json`` config 5; 12 layers, hidden 768, 12
+    heads, vocabulary 30522) trained on the card: see the module
+    docstring."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import BertForMLM
+    t0 = time.perf_counter()
+    params = convert.bert_params_from_jax(convert.init_bert_tree(
+        BertForMLM(max_position=512, device="cpu"), seed=BERT_SEED))
+    n_layers = 12
+    setup_s = time.perf_counter() - t0
+    mlm = _bert_mlm_phases(torch, params, smi, kernels, n_layers)
+    cpu = _bert_vs_cpu(torch, params, n_layers)
+    dp_sp = _bert_dp_sp(torch, params, n_layers, kernels)
+    forms = _bert_seq_forms(torch, params, n_layers,
+                            mlm["phase2"]["losses"][0])
+    gpt = _gpt_ring_inner(torch, n_layers)
+    emit({"phase": "train_bert", "model": "bert_base (BertForMLM)",
+          "layers": n_layers, "hidden": 768, "heads": 12,
+          "vocab": BERT_VOCAB, "optimizer": "Adam(1e-4)",
+          "compute_dtype": "bfloat16", "setup_s": setup_s, **mlm,
+          "cpu_check": cpu, "dp_sp": dp_sp, "seq_forms": forms,
+          "gpt_ring_inner": gpt, "card": smi})
+
+
 _NO_FAULT = {}
 _CPU_MODEL = {}
 
@@ -5619,6 +6088,7 @@ def main():
     run("train_optimizer", phase_train_optimizer, torch, kernels, smi)
     run("train_distri", phase_train_distri, torch, kernels, smi)
     run("train_cnn", phase_train_cnn, torch, kernels, smi)
+    run("train_bert", phase_train_bert, torch, kernels, smi)
     emit({"phase": "run", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
     emit({"kernels": list(kernels.values())})

@@ -216,6 +216,10 @@ def test_attention_module_forward_matches_reference():
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        MultiHeadAttention(32, 2, sequence_parallel=("ring", None, "sp"),
-                           device="cpu")
+    # the ring form over two CPU shards gives the same forward
+    ring = MultiHeadAttention(32, 2, causal=True, sequence_parallel=(
+        "ring", ["cpu", "cpu"], "sp"), device="cpu")
+    ring.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        got = ring(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, **FWD_TOL)
