@@ -19,7 +19,7 @@ never waits for the card inside an epoch; validation, checkpoints and
 summaries run on their triggers. ``LocalOptimizer`` and the data-parallel
 ``parallel.distri_optimizer.DistriOptimizer`` (``mesh=`` or a
 ``DistributedDataSet``) share that loop. The reference's preemption
-guard, fault points and ``obs`` spans wait for ROADMAP queue A.8.
+guard, fault points and ``obs`` spans wait for ROADMAP queue A.8(c).
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ The gather and the reduce-scatter (with clipping) run inside
 Every copy between replicas is a new tensor (``torch.cat``, ``clone``):
 on a repeated device ``.to(device)`` returns the tensor itself, and one
 replica's in-place update must never reach another's state. The
-reference's ``obs`` counters and fault points wait for ROADMAP queue A.8;
+reference's ``obs`` counters and fault points wait for ROADMAP queue A.8(c);
 its sharded checkpoints and ``allreduce_bandwidth`` for A.10(b).
 """
 

@@ -8,7 +8,7 @@
   the watchdog that restarts a failed or wedged serving engine and
   resubmits its requests.
 
-The training preemption guard (``preempt.py``) is ROADMAP queue A.8.
+The training preemption guard (``preempt.py``) is ROADMAP queue A.8(c).
 ``supervisor`` is imported lazily: it imports the serving package, which
 imports ``faults``.
 """

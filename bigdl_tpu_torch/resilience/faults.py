@@ -17,7 +17,7 @@ seconds; ``corrupt[=mode]`` mangles a just-written file
 (:func:`corrupt_file`; ``truncate``, ``garbage`` or ``empty``) or an
 in-memory plane list (:func:`corrupt_planes`); ``preempt`` parses, and
 raises ``NotImplementedError`` when it fires: the training preemption
-guard it flips is ROADMAP queue A.8. ``partial`` is ``corrupt=truncate``.
+guard it flips is ROADMAP queue A.8(c). ``partial`` is ``corrupt=truncate``.
 
 Modifiers (combined with AND): ``p=F`` (seeded probability), ``after=N``
 (skip the first N matching calls), ``every=N``, ``times=K``, ``req=ID``
@@ -35,8 +35,9 @@ walk, ``digest=<hex>``: an error fails that one load with
 ``AdapterLoadError``, ``corrupt`` mangles the fetched planes through
 :func:`corrupt_planes`, which the digest check drops). The training sites
 (``train.step``, ``train.drain``, ``ckpt.write``, ``allreduce.sync``) and
-``fleet.failover`` are ROADMAP queue A.8. The reference's obs counter of fired faults is
-:meth:`FaultPlan.counts` here; every fire also logs at WARNING.
+``fleet.failover`` are ROADMAP queue A.8(c). Every fire counts on the obs
+registry's ``bigdl_faults_injected_total{site, kind}`` (as in the
+reference), in :meth:`FaultPlan.counts` and in a WARNING log line.
 """
 
 from __future__ import annotations
@@ -191,7 +192,7 @@ class FaultPlan:
 
     def check(self, site, ctx):
         """Evaluate every rule at ``site``: delays sleep, errors raise, a
-        ``preempt`` rule raises ``NotImplementedError`` (ROADMAP A.8).
+        ``preempt`` rule raises ``NotImplementedError`` (ROADMAP A.8(c)).
         Acts outside the lock, so a sleep never serialises other sites."""
         for rule in self._fired(site, ctx, corrupt=False):
             _record(site, rule)
@@ -201,7 +202,7 @@ class FaultPlan:
                 raise NotImplementedError(
                     f"fault kind 'preempt' fired at {site}: the training "
                     f"preemption guard (resilience/preempt.py) is not "
-                    f"ported yet (ROADMAP queue A.8)")
+                    f"ported yet (ROADMAP queue A.8(c))")
             elif rule.kind == "error":
                 raise FaultError(f"injected fault at {site} "
                                  f"({rule.spec}, fire #{rule.fires})")
@@ -241,8 +242,8 @@ class FaultPlan:
         return planes
 
     def counts(self):
-        """{(site, kind): fires}: the fired faults (the reference's
-        ``bigdl_faults_injected_total``)."""
+        """{(site, kind): fires}: this plan's fired faults (the registry's
+        ``bigdl_faults_injected_total`` counts every plan's)."""
         with self._lock:
             out = {}
             for r in self.rules:
@@ -252,6 +253,10 @@ class FaultPlan:
 
 
 def _record(site, rule):
+    from bigdl_tpu_torch import obs
+    obs.counter("bigdl_faults_injected_total",
+                "faults fired by the injection harness",
+                ("site", "kind")).labels(site, rule.kind).inc()
     logger.warning("fault injected at %s: %s (fire #%d)",
                    site, rule.spec, rule.fires)
 

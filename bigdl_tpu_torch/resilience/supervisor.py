@@ -34,10 +34,14 @@ an error needs a new process.
 
 An engine's kernels are built or loaded in its loop thread before the
 loop's first heartbeat (``SlotManager.warm_kernels``), so the build never
-counts against the wedge detector. The reference's obs instruments are
-plain attributes here (``restarts``, ``resubmitted``,
-``last_recovery_s``, :meth:`state`); the fleet's ``victim_sink`` is
-ROADMAP queue A.8.
+counts against the wedge detector. The reference's obs instruments
+(``bigdl_engine_restarts_total``, ``bigdl_supervisor_resubmitted_total``,
+``bigdl_supervisor_state``, ``bigdl_supervisor_recovery_seconds``,
+labelled ``supervisor=<label>``) sit beside the plain attributes
+``restarts``, ``resubmitted``, ``last_recovery_s`` and :meth:`state`; a
+restart first dumps the flight recorder, and each resubmitted request's
+timeline gets a ``supervisor_resubmit`` event. The fleet's
+``victim_sink`` is ROADMAP queue A.8(c).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ import logging
 import threading
 import time
 
+from bigdl_tpu_torch import obs
+from bigdl_tpu_torch.obs import reqtrace
 from bigdl_tpu_torch.serving.scheduler import (EngineClosedError,
                                                EngineFailedError,
                                                QueueFullError)
@@ -99,6 +105,26 @@ class EngineSupervisor:
         self.submit_wait_s = float(submit_wait_s)
         self.label = (str(next(EngineSupervisor._ids)) if label is None
                       else str(label))
+        self.obs_label = self.label
+        reg = obs.default_registry()
+        lbl = ("supervisor",)
+        self._obs = {
+            "restarts": reg.counter(
+                "bigdl_engine_restarts_total",
+                "engine rebuilds by the supervisor", lbl).labels(self.label),
+            "resubmitted": reg.counter(
+                "bigdl_supervisor_resubmitted_total",
+                "victim requests resubmitted after a restart",
+                lbl).labels(self.label),
+            "state": reg.gauge(
+                "bigdl_supervisor_state",
+                "0 serving / 1 restarting / 2 circuit open",
+                lbl).labels(self.label),
+            "recovery_seconds": reg.histogram(
+                "bigdl_supervisor_recovery_seconds",
+                "wall seconds from restart decision to engine restored "
+                "(rebuild + victim resubmission)", lbl).labels(self.label),
+        }
         self.restarts = 0
         self.resubmitted = 0
         self.last_recovery_s = None
@@ -110,6 +136,7 @@ class EngineSupervisor:
         self._serving = threading.Event()
         self._restart_times = collections.deque()
         self.engine = self._build()
+        self._obs["state"].set(STATE_SERVING)
         self._serving.set()
         self._monitor = threading.Thread(target=self._watch,
                                          name="bigdl-tpu-torch-supervisor",
@@ -171,11 +198,16 @@ class EngineSupervisor:
                 # caused merged an empty bank: resubmit the late victims
                 self._flush_victims()
 
-    def _resubmit_all(self, requests):
+    def _resubmit_all(self, requests, event=False):
         for r in requests:
             try:
+                if event:
+                    reqtrace.event(r.trace, "supervisor_resubmit",
+                                   request=r.id, supervisor=self.label,
+                                   delivered=len(r.tokens))
                 self.engine.resubmit(r)
                 self.resubmitted += 1
+                self._obs["resubmitted"].inc()
             except Exception as e:
                 logger.exception("resubmission of request %d failed", r.id)
                 if not r.done.is_set():
@@ -206,8 +238,12 @@ class EngineSupervisor:
             self._trip(reason)
             return
         self._serving.clear()
+        self._obs["state"].set(STATE_RESTARTING)
         logger.warning("supervisor %s restarting engine: %s", self.label,
                        reason)
+        # the pre-restart picture: the dying loop's last iterations and
+        # every live request timeline, before abandon()
+        reqtrace.flight_dump(f"supervisor {self.label} restart: {reason}")
         old = self.engine
         victims = old.scheduler.abandon()
         with self._lock:
@@ -237,9 +273,12 @@ class EngineSupervisor:
             self._wake.set()
             return
         self.restarts += 1
-        self._resubmit_all(ordered)
+        self._obs["restarts"].inc()
+        self._resubmit_all(ordered, event=True)
+        self._obs["state"].set(STATE_SERVING)
         self._serving.set()
         self.last_recovery_s = time.monotonic() - now
+        self._obs["recovery_seconds"].observe(self.last_recovery_s)
         logger.warning("supervisor %s: engine restored in %.3fs (restart "
                        "%d, %d request(s) resubmitted)", self.label,
                        self.last_recovery_s, self.restarts, len(ordered))
@@ -257,6 +296,7 @@ class EngineSupervisor:
         with self._lock:
             self._open = True
             victims, self._victims = self._victims, []
+        self._obs["state"].set(STATE_OPEN)
         try:
             victims = victims + self.engine.scheduler.abandon()
         except Exception:
@@ -281,6 +321,7 @@ class EngineSupervisor:
         with self._lock:
             self._open = True
             banked, self._victims = self._victims, []
+        self._obs["state"].set(STATE_OPEN)
         try:
             abandoned = self.engine.scheduler.abandon()
         except Exception:
@@ -301,6 +342,7 @@ class EngineSupervisor:
         with self._lock:
             self._restart_times.clear()
             self._open = False
+        self._obs["state"].set(STATE_SERVING)
         self._wake.set()
 
     # ---------------------------------------------------------------- serve
@@ -342,6 +384,7 @@ class EngineSupervisor:
         out = self._through_restart(lambda eng: eng.resubmit(request),
                                     EngineClosedError)
         self.resubmitted += 1
+        self._obs["resubmitted"].inc()
         return out
 
     def generate(self, prompt, max_new_tokens, timeout=None, **kw):

@@ -11,6 +11,10 @@ from bigdl_tpu_torch.serving.scheduler import (DeadlineExceededError,
                                                QueueFullError, Request,
                                                RequestCancelledError)
 from bigdl_tpu_torch.serving.slots import SlotManager
+from bigdl_tpu_torch.serving.control import (AdmissionRejectedError,
+                                             AutoScaler, ControlPolicy,
+                                             FairQueue, RateLimitedError,
+                                             TokenBucket)
 
 __all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "HostPageTier", "HostTierCopier",
@@ -18,4 +22,5 @@ __all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "EngineClosedError", "EngineFailedError",
            "RequestCancelledError", "DeadlineExceededError",
            "AdapterPool", "AdapterPoolExhausted", "AdapterColdError",
-           "AdapterLoadError"]
+           "AdapterLoadError", "AdmissionRejectedError", "AutoScaler",
+           "ControlPolicy", "FairQueue", "RateLimitedError", "TokenBucket"]

@@ -30,8 +30,9 @@ per column, and dequantised in the delta.
 Thread contract: :meth:`acquire`, :meth:`release`, :meth:`load` and
 :meth:`gathered` run on the engine's scheduler thread; :meth:`register`
 before serving or between requests; :meth:`stats` reads plain counters
-from any thread. The counters are plain attributes (the reference's
-``obs`` gauges are not ported).
+from any thread. The counters are plain attributes, and loads, evictions,
+swap seconds and the resident count also go to the reference's obs
+families (``bigdl_adapter_*``).
 
 Fault site: ``serving.adapter_load`` fires in :meth:`AdapterPool._fetch`
 (``error``: this one load fails with :class:`AdapterLoadError`; ``delay``:
@@ -49,6 +50,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.models.lora import (adapter_digest, adapter_from_planes,
                                          adapter_planes, gather_pool_rows,
                                          host_slabs, split_slab,
@@ -130,6 +132,20 @@ class AdapterPool:
         self.gathers = 0
         self.swap_seconds = 0.0           # whole loads, evictions included
         self.evict_seconds = 0.0
+        self._obs = {
+            "resident": obs.gauge(
+                "bigdl_adapter_resident",
+                "LoRA adapters resident in the device pool"),
+            "loads": obs.counter(
+                "bigdl_adapter_loads_total",
+                "cold-adapter loads into the device pool"),
+            "evictions": obs.counter(
+                "bigdl_adapter_evictions_total",
+                "LRU adapter evictions from the device pool"),
+            "swap": obs.counter(
+                "bigdl_adapter_swap_seconds_total",
+                "wall seconds spent loading adapters into the pool"),
+        }
         self._layers, self._scale = self._build_pool()
         self._gather_cache = {}
 
@@ -288,7 +304,11 @@ class AdapterPool:
         self._slot_digest[row] = digest
         self._refs[row] = 1
         self.loads += 1
-        self.swap_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.swap_seconds += dt
+        self._obs["loads"].inc()
+        self._obs["swap"].inc(dt)
+        self._obs["resident"].set(len(self._digest_slot))
         return row
 
     def _write(self, row, adapter):
@@ -320,6 +340,8 @@ class AdapterPool:
         self._digest_slot.pop(digest, None)
         self._refs[row] = 0
         self.evictions += 1
+        self._obs["evictions"].inc()
+        self._obs["resident"].set(len(self._digest_slot))
         planes = self._registry.get(digest)
         if self.tier is not None and planes is not None:
             nbytes = sum(int(np.asarray(v).nbytes)

@@ -42,23 +42,37 @@ and promotes them back on a prefix hit; ``kv_snapshot`` persists pages
 and a request journal to ``snapshot_dir``, from which a new engine
 restores.
 
-Multi-tenant LoRA (ROADMAP A.8's first part): ``lora=True`` (or
+Multi-tenant LoRA: ``lora=True`` (or
 ``BIGDL_TPU_LORA``) builds an ``AdapterPool`` (``serving/adapters.py``)
 over the model's target projections, after int8 quantisation (int8
 slabs with int8 weights) and split like the weights under tp; requests
 name an adapter with ``submit(..., adapter=)`` and every dispatch adds
 each row's low-rank delta, so mixed-adapter batches decode together on
 either table, with speculation, int8 weights and tp.
+
+Control plane and telemetry: ``policy=`` (a ``serving.control.
+ControlPolicy``; None takes ``policy_from_flags()``, i.e.
+``BIGDL_TPU_ADMISSION_SLO``) makes the scheduler's queue weighted-fair by
+priority and client, with per-client rate limits and SLO-aware admission.
+Every counter lives on the obs default registry under the reference's
+families, labelled ``engine=<obs_label>``; ``metrics()`` reads them there,
+or the scheduler's plain attributes while obs is off; a weakref probe
+reports the loop's liveness at ``/healthz``; ``submit`` mints the request's
+trace ID (``BIGDL_TPU_REQ_TRACE``) and records its ``submit`` event inside
+a ``serve/submit`` span.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+import weakref
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.models.spec import spec_config
 from bigdl_tpu_torch.nn.quantized import lora_delta, qmatmul, quantize_model
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
+from bigdl_tpu_torch.obs import reqtrace
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
 from bigdl_tpu_torch.parallel.layout import ModelLayout, serving_mesh
 from bigdl_tpu_torch.parallel.tensor_parallel import TensorParallelCausalLM
@@ -71,37 +85,6 @@ from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.flags import get_flag
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
-
-# options of the reference engine that are not ported yet, with the
-# ROADMAP queue A item that ports each
-_UNPORTED = {"policy": "A.8 control plane"}
-# the reference's flags that turn an unported option on when its keyword
-# is not given
-_UNPORTED_FLAGS = {"policy": "BIGDL_TPU_ADMISSION_SLO"}
-
-
-def _unported_on(name, value):
-    """Does the unported option ``name`` (keyword ``value``, None if not
-    given) ask for its feature? An explicit keyword wins over its flag."""
-    if value is None:
-        flag = _UNPORTED_FLAGS.get(name)
-        return flag is not None and get_flag(flag, False, bool)
-    return value is not False
-
-
-def _refuse_unported(options):
-    """Raise ``TypeError`` on an unknown keyword, and
-    ``NotImplementedError`` naming the ROADMAP item when an unported
-    option (by keyword or by the reference's flag) asks for its
-    feature."""
-    for name in options:
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-    for name, item in _UNPORTED.items():
-        if _unported_on(name, options.get(name)):
-            raise NotImplementedError(
-                f"ServingEngine({name}=...) is not ported yet (ROADMAP "
-                f"queue {item})")
 
 
 class ServingEngine:
@@ -203,12 +186,13 @@ class ServingEngine:
         adapters demote into (``BIGDL_TPU_ADAPTER_HOST_BYTES``, 0: none).
         With ``kv_snapshot`` the pool also archives to and loads from the
         engine's page store.
+    policy: a ``serving.control.ControlPolicy`` (priorities, weighted-fair
+        dequeue, rate limits, SLO admission); None builds one from the
+        flags (``policy_from_flags``: ``BIGDL_TPU_ADMISSION_SLO``, off by
+        default: FIFO). ``self.policy`` is the policy, or None.
 
-    The reference's control plane (``policy``) raises
-    ``NotImplementedError`` naming ROADMAP queue A.8, when given by keyword
-    or turned on by the reference's flag (``BIGDL_TPU_ADMISSION_SLO``; a
-    keyword wins over its flag). A model built with ``sequence_parallel``
-    is refused with the reference's ``ValueError``.
+    A model built with ``sequence_parallel`` is refused with the
+    reference's ``ValueError``.
     """
 
     def __init__(self, model, params=None, max_slots=8, max_queue=64,
@@ -223,11 +207,10 @@ class ServingEngine:
                  kv_host_tier=None, host_tier_bytes=None,
                  host_tier_prefetch=None, lora=None, lora_rank=None,
                  adapter_slots=None, adapters=None, adapter_host_bytes=None,
-                 **unported):
+                 policy=None):
         if paged is None:
             paged = get_flag("BIGDL_TPU_PAGED_KV", False, bool)
         self.paged = bool(paged)
-        _refuse_unported(unported)
         if not self.paged:
             for name, value, unit in (("kv_snapshot", kv_snapshot,
                                        "the store's unit of persistence"),
@@ -340,11 +323,31 @@ class ServingEngine:
                 self.adapter_pool.store = self.snapshot.store
             for name, adapter in (adapters or {}).items():
                 self.adapter_pool.register(name, adapter)
+        if policy is None:
+            from bigdl_tpu_torch.serving.control import policy_from_flags
+            policy = policy_from_flags()
+        self.policy = policy
         self.scheduler = Scheduler(self.slots, max_queue=max_queue,
                                    admit_wait_s=admit_wait_s,
                                    failover=failover,
                                    max_recoveries=max_recoveries,
-                                   snapshot=self.snapshot)
+                                   snapshot=self.snapshot, policy=policy)
+        # the series label distinguishing this engine on the registry
+        self.obs_label = self.scheduler.obs_label
+        # /healthz liveness through a weakref: a dropped engine prunes its
+        # probe at the next health read, and shutdown unregisters it (a
+        # cleanly stopped engine is not a failure)
+        ref = weakref.ref(self)
+        label = self.obs_label
+
+        def _health_probe():
+            eng = ref()
+            if eng is None:
+                return None
+            return {f"engine:{label}": eng.scheduler.is_alive()}
+
+        self._health_probe = _health_probe
+        obs.default_registry().register_probe(_health_probe)
 
     def _adapter_pool(self, model, lora, rank, slots, adapters, host_bytes):
         """The ``AdapterPool`` of ``lora`` (each option falling back to its
@@ -458,19 +461,24 @@ class ServingEngine:
         ``EngineClosedError`` (after shutdown), ``ValueError`` for a
         request the position table cannot hold or an unknown
         ``priority`` and, paged, ``PagePoolExhausted`` for one the whole
-        pool could never hold. ``priority`` and ``client_id`` are carried
-        on the request and ``trace`` on the handle (``.trace``).
-        ``adapter`` names the LoRA adapter to decode under (a registered
-        name, or its digest raw or hex; None: the base model), resolved at
-        admission: an unknown one, or any adapter on an engine without a
-        pool, fails the request with ``AdapterLoadError``, never this
-        call."""
+        pool could never hold; under a policy also ``RateLimitedError`` or
+        ``AdmissionRejectedError`` (both ``QueueFullError``s).
+        ``priority`` and ``client_id`` feed the policy (without one they
+        are carried). ``trace`` is an already-minted request-trace ID;
+        None mints one (``obs.reqtrace``, while ``BIGDL_TPU_REQ_TRACE`` is
+        on) and the handle's ``.trace`` carries it. ``adapter`` names the
+        LoRA adapter to decode under (a registered name, or its digest raw
+        or hex; None: the base model), resolved at admission: an unknown
+        one, or any adapter on an engine without a pool, fails the request
+        with ``AdapterLoadError``, never this call."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = Request(prompt, max_new_tokens, temperature=temperature,
                       eos_token=eos_token, deadline_s=deadline_s,
                       priority=priority, client_id=client_id,
                       adapter=adapter)
+        if trace is None and reqtrace.enabled():
+            trace = reqtrace.mint()
         req.trace = trace
         t = req.prompt.size
         pmax = self.model.gpt.max_position
@@ -478,16 +486,20 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({t}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds max_position ({pmax})")
-        if not self.paged:
+        if self.paged:
+            ps = self.slots.page_size
+            worst = (t + req.max_new_tokens - 1) // ps + 1
+            if worst > self.slots.num_pages:
+                raise PagePoolExhausted(
+                    f"request needs up to {worst} page(s) ({t} prompt + "
+                    f"{req.max_new_tokens} new tokens, page_size {ps}) but "
+                    f"the pool holds only {self.slots.num_pages}")
+        reqtrace.event(trace, "submit", request=req.id,
+                       engine=self.obs_label, prompt_tokens=int(t),
+                       max_new_tokens=int(req.max_new_tokens))
+        with obs.span("serve/submit", request=req.id,
+                      engine=self.obs_label):
             return self.scheduler.submit(req)
-        ps = self.slots.page_size
-        worst = (t + req.max_new_tokens - 1) // ps + 1
-        if worst > self.slots.num_pages:
-            raise PagePoolExhausted(
-                f"request needs up to {worst} page(s) ({t} prompt + "
-                f"{req.max_new_tokens} new tokens, page_size {ps}) but the "
-                f"pool holds only {self.slots.num_pages}")
-        return self.scheduler.submit(req)
 
     def resubmit(self, request):
         """Re-enqueue an unfinished handle on THIS engine (the supervisor's
@@ -498,6 +510,8 @@ class ServingEngine:
         bound."""
         if request.done.is_set():
             return request
+        reqtrace.event(request.trace, "resubmit", request=request.id,
+                       engine=self.obs_label, delivered=len(request.tokens))
         return self.scheduler.submit(request, force=True)
 
     def cancel(self, handle):
@@ -550,36 +564,45 @@ class ServingEngine:
         ``host_tier_*`` and ``snapshot_pages_written`` /
         ``snapshot_pages_restored``; with an adapter pool its ``stats()``
         as ``adapter_*``, and ``lora_products`` (process-wide, the delta's
-        products)."""
+        products); under a policy ``shed``, ``rate_limited`` and
+        ``downtiered``. The reference's keys are all here:
+        ``prefill_traces``, ``step_traces`` and (paged) ``copy_traces``
+        count prefill, decode-step and copy-on-write dispatches (PyTorch
+        compiles nothing, so they grow with every dispatch), and
+        ``mesh_devices`` is the serving mesh's device count.
+
+        The reference's counters (queue depth to ``deadline_exceeded``)
+        are read from this engine's series on the obs registry; with the
+        ``BIGDL_TPU_OBS`` kill switch off they come from the scheduler's
+        plain attributes, which are kept either way."""
         sch = self.scheduler
         sl = self.slots
+        st = sl.stats.snapshot()
         spec = {} if self.spec_tokens <= 1 else {
             "spec_proposed": sl.spec_proposed,
             "spec_accepted": sl.spec_accepted,
             "spec_rollbacks": sl.spec_rollbacks,
             "spec_accept_rate": (sl.spec_accepted / sl.spec_proposed
                                  if sl.spec_proposed else 0.0)}
+        gates = {
+            "prefill_traces": st["prefill_chunks" if self.paged
+                                 else "prefills"],
+            "step_traces": st["steps"],
+            "mesh_devices": self.tp,
+        }
+        if self.paged:
+            gates["copy_traces"] = st["copies"]
+        if self.policy is not None:
+            gates.update(shed=sch.shed, rate_limited=sch.rate_limited,
+                         downtiered=sch.downtiered)
         return {
             "device": str(self.device),
             "paged": self.paged,
-            "queue_depth": sch.queue_depth(),
-            "slot_occupancy": self.slots.occupancy(),
-            "max_slots": self.slots.max_slots,
-            "admitted": sch.admitted,
-            "rejected": sch.rejected,
-            "retired": sch.retired,
-            "generated_tokens": sch.generated_tokens,
-            "time_to_first_token_s": sch.ttft_avg(),
-            "decode_tokens_per_sec": (sch.generated_tokens / sch.step_seconds
-                                      if sch.step_seconds else 0.0),
-            "failures": sch.failures,
-            "recoveries": sch.recoveries,
-            "quarantined": sch.quarantined,
+            **self._counter_metrics(),
+            **gates,
             "recovery_restore_streams": sch.restored_streams,
             "recovery_reprefill_streams": sch.reprefilled_streams,
             "recovery_replayed_tokens": sch.replayed_tokens,
-            "cancelled": sch.cancelled,
-            "deadline_exceeded": sch.deadline_expired,
             "preempted": sch.preempted,
             "sharded_attention_calls": paged_pool_attention.sharded_calls,
             "paged_attention_launches": paged_pool_attention.launches,
@@ -595,6 +618,51 @@ class ServingEngine:
             **({} if self.adapter_pool is None else
                {"adapter_" + k: v
                 for k, v in self.adapter_pool.stats().items()}),
+        }
+
+    def _counter_metrics(self):
+        """The reference's counter keys of ``metrics()``: from the obs
+        registry, or from the scheduler's attributes while obs is off."""
+        sch = self.scheduler
+        if not obs.enabled():
+            return {
+                "queue_depth": sch.queue_depth(),
+                "slot_occupancy": self.slots.occupancy(),
+                "max_slots": self.slots.max_slots,
+                "admitted": sch.admitted,
+                "rejected": sch.rejected,
+                "retired": sch.retired,
+                "generated_tokens": sch.generated_tokens,
+                "time_to_first_token_s": sch.ttft_avg(),
+                "decode_tokens_per_sec": (
+                    sch.generated_tokens / sch.step_seconds
+                    if sch.step_seconds else 0.0),
+                "failures": sch.failures,
+                "recoveries": sch.recoveries,
+                "quarantined": sch.quarantined,
+                "cancelled": sch.cancelled,
+                "deadline_exceeded": sch.deadline_expired,
+            }
+        o = sch._obs
+        _, ttft_sum, ttft_count = o["ttft"].snapshot()
+        step_s = o["step_seconds"].value
+        toks = int(o["generated_tokens"].value)
+        return {
+            "queue_depth": int(o["queue_depth"].value),
+            "slot_occupancy": int(o["slot_occupancy"].value),
+            "max_slots": self.slots.max_slots,
+            "admitted": int(o["admitted"].value),
+            "rejected": int(o["rejected"].value),
+            "retired": int(o["retired"].value),
+            "generated_tokens": toks,
+            "time_to_first_token_s": (ttft_sum / ttft_count
+                                      if ttft_count else None),
+            "decode_tokens_per_sec": toks / step_s if step_s else 0.0,
+            "failures": int(o["failures"].value),
+            "recoveries": int(o["recoveries"].value),
+            "quarantined": int(o["quarantined"].value),
+            "cancelled": int(o["cancelled"].value),
+            "deadline_exceeded": int(o["deadline_exceeded"].value),
         }
 
     def _snapshot_metrics(self):
@@ -616,7 +684,9 @@ class ServingEngine:
         exited (False: wedged in a dispatch). With a snapshot, a clean
         exit takes one last forced pass (the next engine over the
         directory restores the whole prefix cache) and flushes the writer;
-        the host tier's copier drains its demotions and stops."""
+        the host tier's copier drains its demotions and stops. The
+        engine's ``/healthz`` probe is unregistered first."""
+        obs.default_registry().unregister_probe(self._health_probe)
         exited = self.scheduler.shutdown(drain=drain, timeout=timeout)
         snap = self.snapshot
         if snap is not None:

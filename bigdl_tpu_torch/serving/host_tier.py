@@ -44,7 +44,9 @@ greedy tokens.
     read as they are.
 
 Default off behind ``BIGDL_TPU_KV_HOST_TIER`` (with ``_BYTES`` and
-``_PREFETCH``): see ``ServingEngine``.
+``_PREFETCH``): see ``ServingEngine``. A committed demotion and a
+promotion hit are flight-recorder events (``obs.reqtrace``, engine
+``host_tier``), as in the reference; the engine publishes the counters.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.obs import reqtrace
 from bigdl_tpu_torch.serving.snapshot import _planes_checksum
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -271,6 +274,8 @@ class HostPageTier:
             while (self.resident_bytes > self.budget_bytes
                    and len(self._resident) > 1):
                 self._evict_oldest_locked()
+        reqtrace.default_flight().note_event(
+            "host_tier", "demote_commit", pages=1, nbytes=nbytes)
 
     def abort(self, eid):
         """Release a staged claim whose copy failed."""
@@ -336,6 +341,8 @@ class HostPageTier:
             return None
         with self._lock:
             self.hits += 1
+        reqtrace.default_flight().note_event(
+            "host_tier", "promote_hit", nbytes=entry["nbytes"])
         return planes
 
     def has(self, digest):

@@ -339,6 +339,7 @@ class PagedSlotManager(SlotManager):
 
     paged = True
     _stat_keys = ("prefill_chunks", "steps", "copies", "loads")
+    _obs_name = "serving_paged"
 
     def __init__(self, model, max_slots, num_pages=None, page_size=16,
                  window=4, steps_per_sync=1, prefill_chunk=64,
@@ -492,6 +493,9 @@ class PagedSlotManager(SlotManager):
             self.poisoned = True
             raise
         self.stats.tick("copies")
+        if self._cost is not None:       # a page read and a page written
+            self.stats.add_cost(0.0, 2 * self._kv_token_bytes
+                                * self.page_size)
 
     # ------------------------------------------------------------ admission
     def _match_prefix(self, a, seed=None):
@@ -822,6 +826,9 @@ class PagedSlotManager(SlotManager):
             self.poisoned = True
             raise
         self.stats.tick("loads")
+        if self._cost is not None:       # the pages written
+            self.stats.add_cost(0.0, len(pages) * self._kv_token_bytes
+                                * self.page_size)
 
     @torch.no_grad()
     def export_pages(self, extra=(), skip=None):
@@ -971,6 +978,8 @@ class PagedSlotManager(SlotManager):
                 slot_final[i] = s
                 finished.append((s, st))
         self._chunk(pt, ids, start, nvalid, write_from, slot_final, arows)
+        self._add_cost([(int(start[i]), int(nvalid[i]))
+                        for i in range(len(rows))], len(finished))
         self._prime(ids, nvalid, prime_rows, prime_prev, clear)
         for i, (s, st) in enumerate(rows):
             st["next"] = min(st["next"] + int(nvalid[i]), st["total"])

@@ -38,6 +38,26 @@ With a ``KVSnapshot`` (``serving/snapshot.py``) admissions, delivered
 chunks and retirements are journalled, and a page snapshot pass runs
 after a decode block at most every ``snapshot_interval_s``.
 
+Control plane (``serving/control.py``): with a ``ControlPolicy`` the
+waiting queue is a weighted-fair ``FairQueue`` over (priority, client)
+subqueues and ``submit`` consults the policy under the condition lock
+(per-client rate limits, SLO-aware admission that sheds best-effort work,
+down-tiers standard work, or sheds queued lower-tier work to admit an
+interactive request); the admission pop holds ``reserved_slots`` free
+slots back for interactive work. ``policy=None`` keeps the plain FIFO
+deque.
+
+Telemetry (``obs``): every counter also lives on the obs default
+registry under the reference's families, labelled ``engine=<obs_label>``
+(admissions, rejections, retirements, tokens, step seconds, queue depth,
+occupancy, TTFT with the trace as its exemplar, recovery counters, and on
+the paged path the page, prefix-cache, host-tier, snapshot and
+speculation families); host spans ``serve/prefill``,
+``serve/prefill_chunk``, ``serve/step`` and ``serve/snapshot`` on the
+scheduler thread; request-trace events (submit, admit, tokens, retire,
+preempt, quarantine, failed, adapter_cold, ...) and a flight-recorder note
+per decode iteration.
+
 Multi-tenant LoRA (the slot manager's ``adapter_pool``): a request naming
 an adapter is resolved at admission (:meth:`Scheduler._resolve_batch`):
 its pool row acquired and its prefix chain seeded from the adapter's
@@ -64,6 +84,8 @@ import time
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import obs
+from bigdl_tpu_torch.obs import reqtrace
 from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.serving.adapters import (AdapterColdError,
                                               AdapterLoadError,
@@ -72,6 +94,11 @@ from bigdl_tpu_torch.serving.paging import PagePoolExhausted, chain_seed
 from bigdl_tpu_torch.utils.flags import get_flag
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
+
+# TTFT needs finer low-end resolution than the latency defaults (the
+# reference's buckets)
+TTFT_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 
 
 class QueueFullError(RuntimeError):
@@ -113,9 +140,11 @@ class Request:
     streaming tokens, or call :meth:`result` to block for the full
     sequence. ``deadline_s`` is a wall-clock TTL from submission.
 
-    ``priority`` (one of ``PRIORITIES``) and ``client_id`` are carried and
-    have no other effect, as in the reference without a control policy
-    (the policy is ROADMAP queue A.8's control plane). ``adapter`` names
+    ``priority`` (one of ``PRIORITIES``) and ``client_id`` only matter to
+    a scheduler built with a ``serving.control.ControlPolicy``: they drive
+    weighted-fair dequeue, per-client rate limits, and which requests
+    admission control sheds first. ``trace`` is the request-trace ID
+    (``obs.reqtrace``), minted by ``ServingEngine.submit``. ``adapter`` names
     the LoRA adapter the request decodes under (a registered name or a
     digest, raw or hex; None: the base model), resolved at admission into
     ``adapter_digest``; on an engine without an adapter pool such a
@@ -235,15 +264,23 @@ class Scheduler:
     gives up (the ``EngineSupervisor`` hook). ``max_recoveries`` bounds
     in-place recoveries over the scheduler's life (default
     ``BIGDL_TPU_SERVING_MAX_RECOVERIES``, 8). ``snapshot`` is the engine's
-    ``KVSnapshot`` or None."""
+    ``KVSnapshot`` or None. ``policy`` is a
+    ``serving.control.ControlPolicy`` or None (FIFO). ``obs_label`` labels
+    this engine's series on the obs registry (default: a per-process
+    counter)."""
+
+    _obs_ids = itertools.count()
 
     def __init__(self, slots, max_queue=64, admit_wait_s=0.0, failover=None,
-                 max_recoveries=None, snapshot=None):
+                 max_recoveries=None, snapshot=None, policy=None,
+                 obs_label=None):
         self.slots = slots
         self._snap = snapshot
         self.max_queue = int(max_queue)
         self.admit_wait_s = float(admit_wait_s)
-        self._waiting = collections.deque()
+        self._policy = policy
+        self._waiting = (collections.deque() if policy is None
+                         else policy.make_queue())
         self._cond = threading.Condition()
         self._accepting = True
         self._drain = True
@@ -270,6 +307,9 @@ class Scheduler:
         self.recoveries = 0
         self.quarantined = 0
         self.preempted = 0
+        self.shed = 0
+        self.rate_limited = 0
+        self.downtiered = 0
         # re-placed streams after a recovery: restored (whole context from
         # the prefix cache, tier or store) or re-prefilled, and the context
         # tokens recomputed (counted with a snapshot attached)
@@ -282,35 +322,332 @@ class Scheduler:
         self.heartbeat = time.monotonic()
         self._busy = False
         self._ttft_sum = 0.0
+        if obs_label is None:
+            obs_label = str(next(Scheduler._obs_ids))
+        self.obs_label = str(obs_label)
+        # the slot manager's cumulative counts last published (the
+        # registry takes their deltas)
+        self._paged_published = {}
+        self._spec_published = {}
+        self._obs = self._instruments()
         self._thread = threading.Thread(target=self._loop,
                                         name="bigdl-tpu-torch-serving",
                                         daemon=True)
+        self._update_paged_gauges()
         self._thread.start()
+
+    def _instruments(self):
+        """This engine's series on the obs default registry: the
+        reference's families, label names, help strings and buckets,
+        labelled ``engine=<obs_label>`` so many engines share a
+        registry. Paged, host-tier, snapshot, speculative and policy
+        families exist only where the engine has that part."""
+        slots = self.slots
+        reg = obs.default_registry()
+        lbl = ("engine",)
+        e = self.obs_label
+        o = {
+            "admitted": reg.counter(
+                "bigdl_serving_admitted_total",
+                "requests admitted into slots", lbl).labels(e),
+            "rejected": reg.counter(
+                "bigdl_serving_rejected_total",
+                "requests rejected (queue full or engine closed)",
+                lbl).labels(e),
+            "retired": reg.counter(
+                "bigdl_serving_retired_total",
+                "requests served to completion", lbl).labels(e),
+            "generated_tokens": reg.counter(
+                "bigdl_serving_generated_tokens_total",
+                "tokens delivered to callers", lbl).labels(e),
+            "step_seconds": reg.counter(
+                "bigdl_serving_step_seconds_total",
+                "wall seconds inside decode-step dispatches", lbl).labels(e),
+            "queue_depth": reg.gauge(
+                "bigdl_serving_queue_depth",
+                "requests waiting for a slot", lbl).labels(e),
+            "slot_occupancy": reg.gauge(
+                "bigdl_serving_slot_occupancy",
+                "slots currently decoding", lbl).labels(e),
+            "tokens_per_sec": reg.gauge(
+                "bigdl_serving_decode_tokens_per_sec",
+                "cumulative decode throughput", lbl).labels(e),
+            "ttft": reg.histogram(
+                "bigdl_serving_ttft_seconds",
+                "submit-to-first-token latency", lbl,
+                buckets=TTFT_BUCKETS).labels(e),
+            "failures": reg.counter(
+                "bigdl_serving_failures_total",
+                "decode-loop step/admit exceptions caught", lbl).labels(e),
+            "recoveries": reg.counter(
+                "bigdl_serving_recoveries_total",
+                "in-place slot-table recoveries", lbl).labels(e),
+            "quarantined": reg.counter(
+                "bigdl_serving_quarantined_total",
+                "poisoned requests failed alone by recovery", lbl).labels(e),
+            "cancelled": reg.counter(
+                "bigdl_serving_cancelled_total",
+                "requests cancelled by their caller", lbl).labels(e),
+            "deadline_exceeded": reg.counter(
+                "bigdl_serving_deadline_exceeded_total",
+                "requests failed by their deadline TTL", lbl).labels(e),
+            "heartbeat": reg.gauge(
+                "bigdl_serving_heartbeat_timestamp",
+                "unix time of the loop's last liveness beat", lbl).labels(e),
+            "tp_degree": reg.gauge(
+                "bigdl_serving_tp_degree",
+                "tensor-parallel degree of the engine's serving mesh "
+                "(1 = unsharded single-device)", lbl).labels(e),
+            "mesh_devices": reg.gauge(
+                "bigdl_mesh_devices",
+                "devices in the engine's serving mesh", lbl).labels(e),
+        }
+        # static for the engine's lifetime
+        o["tp_degree"].set(slots.tp)
+        o["mesh_devices"].set(slots.tp)
+        if self._policy is not None:
+            shed = reg.counter(
+                "bigdl_serving_shed_total",
+                "requests shed by admission control",
+                ("engine", "priority"))
+            o.update({
+                "shed_interactive": shed.labels(e, "interactive"),
+                "shed_standard": shed.labels(e, "standard"),
+                "shed_best_effort": shed.labels(e, "best_effort"),
+                "rate_limited": reg.counter(
+                    "bigdl_serving_rate_limited_total",
+                    "requests rejected by per-client rate limits",
+                    lbl).labels(e),
+                "downtiered": reg.counter(
+                    "bigdl_serving_downtiered_total",
+                    "standard requests demoted to best_effort by SLO "
+                    "admission", lbl).labels(e),
+            })
+        if slots.paged:
+            o.update({
+                "preempted": reg.counter(
+                    "bigdl_serving_preempted_total",
+                    "in-flight requests preempted by page exhaustion",
+                    lbl).labels(e),
+                "pages_in_use": reg.gauge(
+                    "bigdl_serving_pages_in_use",
+                    "K/V pages referenced by live streams", lbl).labels(e),
+                "pages_total": reg.gauge(
+                    "bigdl_serving_pages_total",
+                    "K/V page pool size", lbl).labels(e),
+                "page_occupancy": reg.gauge(
+                    "bigdl_serving_page_occupancy",
+                    "fraction of the K/V page pool in use", lbl).labels(e),
+                "fragmentation_tokens": reg.gauge(
+                    "bigdl_serving_kv_fragmentation_tokens",
+                    "allocated-but-unused K/V token capacity",
+                    lbl).labels(e),
+                "prefix_hits": reg.counter(
+                    "bigdl_serving_prefix_cache_hits_total",
+                    "admissions that reused a cached prefix",
+                    lbl).labels(e),
+                "prefix_misses": reg.counter(
+                    "bigdl_serving_prefix_cache_misses_total",
+                    "admissions with no cached prefix", lbl).labels(e),
+                "prefix_hit_tokens": reg.counter(
+                    "bigdl_serving_prefix_hit_tokens_total",
+                    "prompt tokens served from the prefix cache",
+                    lbl).labels(e),
+                "prefix_miss_tokens": reg.counter(
+                    "bigdl_serving_prefix_miss_tokens_total",
+                    "prompt tokens prefilled from scratch", lbl).labels(e),
+                "kv_bytes_per_token": reg.gauge(
+                    "bigdl_serving_kv_bytes_per_token",
+                    "K/V bytes per cached token across all layers "
+                    "(int8 pools include their scale planes)",
+                    lbl).labels(e),
+                "kv_bytes_per_token_per_chip": reg.gauge(
+                    "bigdl_serving_kv_bytes_per_token_per_chip",
+                    "K/V bytes ONE chip pays per cached token: 1/tp of "
+                    "the global figure under a tensor-parallel mesh "
+                    "(equal to it at tp=1)", lbl).labels(e),
+            })
+            if slots.host_tier is not None:
+                o.update({
+                    "host_tier_demoted": reg.counter(
+                        "bigdl_kv_host_tier_demoted_pages_total",
+                        "evicted pool pages swapped out to the host "
+                        "tier", lbl).labels(e),
+                    "host_tier_promoted": reg.counter(
+                        "bigdl_kv_host_tier_promoted_pages_total",
+                        "pages swapped back into the pool from the host "
+                        "tier", lbl).labels(e),
+                    "host_tier_hits": reg.counter(
+                        "bigdl_kv_host_tier_hits_total",
+                        "promotion probes served by the host tier",
+                        lbl).labels(e),
+                    "host_tier_misses": reg.counter(
+                        "bigdl_kv_host_tier_misses_total",
+                        "promotion probes that fell through to the "
+                        "PageStore / re-prefill rungs", lbl).labels(e),
+                    "host_tier_evicted": reg.counter(
+                        "bigdl_kv_host_tier_evicted_pages_total",
+                        "resident pages dropped by the tier's own LRU "
+                        "byte-budget eviction", lbl).labels(e),
+                    "host_tier_corrupt": reg.counter(
+                        "bigdl_kv_host_tier_corrupt_dropped_total",
+                        "resident pages dropped on checksum mismatch "
+                        "(degraded down the ladder)", lbl).labels(e),
+                    "host_tier_resident_bytes": reg.gauge(
+                        "bigdl_kv_host_tier_resident_bytes",
+                        "pinned-host bytes the tier holds", lbl).labels(e),
+                    "host_tier_resident_pages": reg.gauge(
+                        "bigdl_kv_host_tier_resident_pages",
+                        "pages resident in the host tier", lbl).labels(e),
+                    "host_tier_stall": reg.counter(
+                        "bigdl_kv_host_tier_swap_stall_seconds_total",
+                        "owner-thread seconds spent on swap staging and "
+                        "promotion fetches (the overlap residual)",
+                        lbl).labels(e),
+                })
+        if self._snap is not None:
+            streams = reg.counter(
+                "bigdl_recovery_streams_total",
+                "recovered streams by mode: restore resumed from "
+                "snapshotted K/V pages, reprefill recomputed",
+                ("engine", "mode"))
+            o.update({
+                "recovery_replayed": reg.counter(
+                    "bigdl_recovery_replayed_tokens_total",
+                    "context tokens recomputed (not restored) while "
+                    "re-placing recovered streams", lbl).labels(e),
+                "recovery_restore": streams.labels(e, "restore"),
+                "recovery_reprefill": streams.labels(e, "reprefill"),
+            })
+        if slots.spec_tokens > 1:
+            o.update({
+                "spec_proposed": reg.counter(
+                    "bigdl_serving_spec_proposed_total",
+                    "draft tokens proposed for verification",
+                    lbl).labels(e),
+                "spec_accepted": reg.counter(
+                    "bigdl_serving_spec_accepted_total",
+                    "draft tokens the target model accepted",
+                    lbl).labels(e),
+                "spec_rollbacks": reg.counter(
+                    "bigdl_serving_spec_rollbacks_total",
+                    "draft tokens rejected and rolled back",
+                    lbl).labels(e),
+                "spec_accept_rate": reg.gauge(
+                    "bigdl_serving_spec_accept_rate",
+                    "cumulative fraction of proposed draft tokens "
+                    "accepted", lbl).labels(e),
+            })
+        return o
 
     # -------------------------------------------------------- caller side
     def submit(self, request, force=False):
         """Enqueue a request (any thread). Raises ``EngineFailedError``
         after the loop halted, ``EngineClosedError`` after shutdown and
         ``QueueFullError`` at capacity. ``force`` bypasses the queue bound
-        (resubmission: recovered requests must not be bounced by their
-        own backlog)."""
+        and the admission policy (resubmission: recovered requests must
+        not be bounced by their own backlog).
+
+        With a ``ControlPolicy`` attached, submission also enforces
+        per-client rate limits (``RateLimitedError``) and SLO-aware
+        admission: a request whose predicted TTFT blows its budget is shed
+        if best-effort (``AdmissionRejectedError``), demoted to
+        best-effort if standard, or, if interactive, admitted while a
+        queued lower-tier request is shed instead."""
         with self._cond:
             if self.failed is not None:
-                self.rejected += 1
+                self._reject_locked()
                 raise EngineFailedError(
                     f"serving engine failed: {self.failed!r}")
             if not self._accepting:
-                self.rejected += 1
+                self._reject_locked()
                 raise EngineClosedError("engine is shut down")
+            if self._policy is not None and not force:
+                self._control_locked(request)
             if not force and len(self._waiting) >= self.max_queue:
-                self.rejected += 1
+                self._reject_locked()
                 raise QueueFullError(
                     f"waiting queue full ({self.max_queue} requests); "
                     f"retry later")
             request._scheduler = self
             self._waiting.append(request)
+            self._obs["queue_depth"].set(len(self._waiting))
             self._cond.notify()
         return request
+
+    def _reject_locked(self):
+        self.rejected += 1
+        self._obs["rejected"].inc()
+
+    def _control_locked(self, request):
+        """Admission policy for one incoming request (cond lock held).
+        Raises the typed rejection, mutates ``request.priority`` on
+        down-tier, or sheds a queued victim to admit an interactive
+        request (the reference's rules)."""
+        from bigdl_tpu_torch.serving.control import (AdmissionRejectedError,
+                                                     RateLimitedError)
+        pol = self._policy
+        if not pol.check_rate(request.client_id):
+            self._reject_locked()
+            self.rate_limited += 1
+            self._obs["rate_limited"].inc()
+            raise RateLimitedError(
+                f"client {request.client_id!r} exceeded its rate limit "
+                f"({pol.rate_limit_rps}/s); retry later")
+        now = time.perf_counter()
+        budget = pol.budget_s(request, now=now)
+        slo_blown = (budget is not None
+                     and pol.predict_ttft(self) > budget)
+        queue_full = len(self._waiting) >= self.max_queue
+        if not slo_blown and not queue_full:
+            return
+        if request.priority == "best_effort" and slo_blown:
+            self._count_shed_locked(request)
+            raise AdmissionRejectedError(
+                f"request {request.id} (best_effort) shed: predicted "
+                f"TTFT exceeds its {budget:.3f}s budget")
+        if request.priority == "standard" and slo_blown:
+            request.priority = "best_effort"
+            self.downtiered += 1
+            self._obs["downtiered"].inc()
+        # a higher-tier request under pressure: make room by shedding the
+        # newest queued strictly-lower-tier request (best_effort first)
+        while slo_blown or len(self._waiting) >= self.max_queue:
+            victim = self._waiting.shed_lower(request.priority)
+            if victim is None:
+                break
+            self._count_shed_locked(victim)
+            self._obs["queue_depth"].set(len(self._waiting))
+            victim._finish(AdmissionRejectedError(
+                f"request {victim.id} ({victim.priority}) shed from the "
+                f"queue to admit higher-priority work"))
+            slo_blown = False   # the freed headroom is the remedy
+
+    def _pop_batch_locked(self, n, free):
+        """Policy-aware admission pop (cond lock held): weighted-fair
+        order through the ``FairQueue``, except that the last
+        ``min(reserved_slots, max_slots - 1)`` free slots are held back for
+        ``interactive`` requests, so a best-effort flood fills the engine
+        only up to the reservation line. Both tables admit through it."""
+        reserved = min(self._policy.reserved_slots,
+                       self.slots.max_slots - 1)
+        batch = []
+        while len(batch) < n and self._waiting:
+            if reserved and free - len(batch) <= reserved:
+                r = self._waiting.pop_priority("interactive")
+                if r is None:
+                    break
+                batch.append(r)
+            else:
+                batch.append(self._waiting.popleft())
+        return batch
+
+    def _count_shed_locked(self, r):
+        self._reject_locked()
+        self.shed += 1
+        counter = self._obs.get("shed_" + r.priority)
+        if counter is not None:
+            counter.inc()
 
     def cancel(self, request):
         """Cancel a request (any thread): a waiting one fails at once, an
@@ -324,6 +661,7 @@ class Scheduler:
             except ValueError:
                 self._cond.notify()    # in flight: swept at the boundary
                 return True
+            self._obs["queue_depth"].set(len(self._waiting))
         self._swept(request,
                     RequestCancelledError(f"request {request.id} cancelled"))
         return True
@@ -334,6 +672,11 @@ class Scheduler:
 
     def ttft_avg(self):
         return (self._ttft_sum / self.retired) if self.retired else None
+
+    def ttft_histogram(self):
+        """The engine's TTFT histogram child on the obs registry: the
+        accessor routers and autoscalers read instead of ``_obs``."""
+        return self._obs.get("ttft")
 
     def is_alive(self):
         return self._thread.is_alive()
@@ -375,6 +718,7 @@ class Scheduler:
             pool = (list(self._waiting) + list(self._limbo)
                     + list(self._inflight.values()))
             self._waiting.clear()
+            self._obs["queue_depth"].set(0)
             self._cond.notify()
         seen, victims = set(), []
         for r in pool:
@@ -412,6 +756,7 @@ class Scheduler:
         if busy is not None:
             self._busy = busy
         self.heartbeat = time.monotonic()
+        self._obs["heartbeat"].set(time.time())
 
     def _serve(self):
         slots = self.slots
@@ -437,6 +782,8 @@ class Scheduler:
                         r._finish(err)
                         self._journal_retire(r)
                     self._inflight.clear()
+                    self._obs["queue_depth"].set(0)
+                    self._obs["slot_occupancy"].set(0)
                     return
                 self._sweep_waiting_locked()
                 if not self._waiting and not self._inflight:
@@ -462,8 +809,12 @@ class Scheduler:
                         n = 0      # wait for a retirement to free pages
                     else:
                         self._stall_admissions = False
-                batch = [self._waiting.popleft() for _ in range(n)]
+                if n and self._policy is not None:
+                    batch = self._pop_batch_locked(n, slots.free_slots())
+                else:
+                    batch = [self._waiting.popleft() for _ in range(n)]
                 self._limbo = list(batch)
+                self._obs["queue_depth"].set(len(self._waiting))
             self._beat(busy=True)
             self._sweep_inflight()
             if slots.paged and slots.host_tier is not None:
@@ -479,14 +830,17 @@ class Scheduler:
                 # ONE chunk dispatch per loop iteration, interleaved with
                 # the decode block below
                 try:
-                    slots.prefill_tick()
+                    with obs.span("serve/prefill_chunk",
+                                  pending=slots.pending_prefills()):
+                        slots.prefill_tick()
                 except _Halt:
                     raise
                 except BaseException as e:
-                    self.failures += 1
+                    self._failed_dispatch()
                     self._recover(list(self._inflight.values()), e)
                     continue
                 self._beat()
+                self._update_paged_gauges()
             if not self._inflight:
                 continue
             if not any(slots.active[s] for s in self._inflight):
@@ -499,7 +853,7 @@ class Scheduler:
                 self._preempt(e)
                 continue
             except BaseException as e:
-                self.failures += 1
+                self._failed_dispatch()
                 self._recover(list(self._inflight.values()), e)
                 continue
             pre_lengths = slots.lengths.copy()
@@ -508,19 +862,91 @@ class Scheduler:
                 fault_point("serving.step",
                             requests=tuple(r.id
                                            for r in self._inflight.values()))
-                toks = slots.step()        # (block_span, max_slots)
+                with obs.span("serve/step", live=len(self._inflight)):
+                    toks = slots.step()    # (block_span, max_slots)
             except _Halt:
                 raise
             except BaseException as e:
-                self.failures += 1
+                self._failed_dispatch()
                 self._recover(list(self._inflight.values()), e)
                 continue
             if self._abandoned:
                 raise _Halt
             self._beat()
-            self.step_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.step_seconds += dt
+            self._obs["step_seconds"].inc(dt)
             self._deliver_block(toks, pre_lengths)
             self._maybe_snapshot()
+            self._update_spec_gauges()
+            self._update_paged_gauges()
+            if reqtrace.enabled():
+                with self._cond:
+                    queued = len(self._waiting)
+                it = {"live": len(self._inflight), "queued": queued,
+                      "step_s": dt, "generated": self.generated_tokens}
+                if slots.spec_proposed:
+                    it["spec_proposed"] = slots.spec_proposed
+                    it["spec_accepted"] = slots.spec_accepted
+                reqtrace.default_flight().note_iteration(self.obs_label,
+                                                         **it)
+
+    def _failed_dispatch(self):
+        self.failures += 1
+        self._obs["failures"].inc()
+
+    # ------------------------------------------------------- publishing
+    def _update_paged_gauges(self):
+        """Publish the page-pool / prefix-cache / host-tier snapshot on
+        this engine's registry series (paged engines only): levels as
+        gauges, the manager's cumulative counts as counter deltas."""
+        if "pages_in_use" not in self._obs:
+            return
+        st = self.slots.pool_stats()
+        o = self._obs
+        o["pages_in_use"].set(st["pages_in_use"])
+        o["pages_total"].set(st["num_pages"])
+        o["page_occupancy"].set(st["page_occupancy"])
+        o["fragmentation_tokens"].set(st["fragmentation_tokens"])
+        o["kv_bytes_per_token"].set(st["kv_bytes_per_token"])
+        o["kv_bytes_per_token_per_chip"].set(
+            st["kv_bytes_per_token_per_chip"])
+        pairs = [(k, k) for k in ("prefix_hits", "prefix_misses",
+                                  "prefix_hit_tokens", "prefix_miss_tokens")]
+        if "host_tier_resident_bytes" in o:
+            o["host_tier_resident_bytes"].set(
+                st["host_tier_resident_bytes"])
+            o["host_tier_resident_pages"].set(
+                st["host_tier_resident_pages"])
+            pairs += [("host_tier_demoted", "host_tier_demoted_pages"),
+                      ("host_tier_promoted", "host_tier_promoted_pages"),
+                      ("host_tier_hits", "host_tier_hits"),
+                      ("host_tier_misses", "host_tier_misses"),
+                      ("host_tier_evicted", "host_tier_evicted_pages"),
+                      ("host_tier_corrupt", "host_tier_corrupt_dropped"),
+                      ("host_tier_stall", "host_tier_swap_stall_s")]
+        for obs_k, st_k in pairs:
+            delta = st[st_k] - self._paged_published.get(st_k, 0)
+            if delta > 0:
+                o[obs_k].inc(delta)
+            self._paged_published[st_k] = st[st_k]
+
+    def _update_spec_gauges(self):
+        """Publish the speculative counters' deltas and the cumulative
+        accept rate (engines with ``spec_tokens`` > 1 only)."""
+        if "spec_proposed" not in self._obs:
+            return
+        sl = self.slots
+        for k, v in (("spec_proposed", sl.spec_proposed),
+                     ("spec_accepted", sl.spec_accepted),
+                     ("spec_rollbacks", sl.spec_rollbacks)):
+            delta = v - self._spec_published.get(k, 0)
+            if delta > 0:
+                self._obs[k].inc(delta)
+            self._spec_published[k] = v
+        if sl.spec_proposed:
+            self._obs["spec_accept_rate"].set(
+                sl.spec_accepted / sl.spec_proposed)
 
     # ----------------------------------------------------------- journal
     def _journal_admit(self, r):
@@ -570,7 +996,8 @@ class Scheduler:
             streams = [(r.id, r.context(), s, r._adapter_seed)
                        for s, r in list(self._inflight.items())
                        if self.slots.active[s]]
-            snap.snapshot(self.slots, streams, force=force)
+            with obs.span("serve/snapshot", streams=len(streams)):
+                snap.snapshot(self.slots, streams, force=force)
         except Exception:
             logger.exception("kv snapshot pass failed (serving continues)")
 
@@ -581,11 +1008,26 @@ class Scheduler:
         recomputed tokens add to ``replayed_tokens``."""
         shared = int(getattr(self.slots, "last_admit_shared", 0))
         total = int(getattr(self.slots, "last_admit_total", 0))
-        self.replayed_tokens += max(0, total - shared)
+        replayed = max(0, total - shared)
+        self.replayed_tokens += replayed
+        if replayed:
+            self._obs["recovery_replayed"].inc(replayed)
         if total and shared >= total:
             self.restored_streams += 1
+            self._obs["recovery_restore"].inc()
         else:
             self.reprefilled_streams += 1
+            self._obs["recovery_reprefill"].inc()
+
+    def _trace_admitted(self, r):
+        """One ``admit`` timeline event, with the prefix-restore split the
+        paged manager reports (``shared`` tokens came from the cache, the
+        tier or the store); ``delivered`` > 0 marks a re-placement."""
+        reqtrace.event(
+            r.trace, "admit", request=r.id, engine=self.obs_label,
+            delivered=len(r.tokens),
+            shared=int(getattr(self.slots, "last_admit_shared", 0)),
+            total=int(getattr(self.slots, "last_admit_total", 0)))
 
     def _consume_resume_cb(self, r):
         """A caller migrating ``r`` may plant ``_resume_cb`` on the handle:
@@ -642,6 +1084,10 @@ class Scheduler:
         try:
             row = pool.acquire(digest, allow_load=allow_load)
         except AdapterColdError:
+            reqtrace.event(r.trace, "adapter_cold", request=r.id,
+                           engine=self.obs_label,
+                           adapter=digest.hex() if isinstance(
+                               digest, bytes) else str(digest))
             return "requeue"
         except AdapterPoolExhausted as e:
             if self._inflight:
@@ -659,7 +1105,7 @@ class Scheduler:
     def _fail_adapter(self, r, err):
         logger.warning("request %d fails at admission: %s", r.id, err)
         with self._cond:
-            self.rejected += 1
+            self._reject_locked()
         r._finish(err)
         self._journal_retire(r)
 
@@ -682,14 +1128,17 @@ class Scheduler:
         if requeue:
             with self._cond:
                 self._waiting.extendleft(reversed(requeue))
+                self._obs["queue_depth"].set(len(self._waiting))
         return live
 
     def _admitted(self, r, s):
         with self._cond:
             self._inflight[s] = r
         self.admitted += 1
+        self._obs["admitted"].inc()
         self._journal_admit(r)
         self._consume_resume_cb(r)
+        self._trace_admitted(r)
 
     # ---------------------------------------------------------- admission
     def _admit(self, batch):
@@ -704,7 +1153,7 @@ class Scheduler:
         for r in self._resolve_batch(self._expire_batch(batch)):
             if r.context().size > slots.max_position - 1:
                 with self._cond:
-                    self.rejected += 1
+                    self._reject_locked()
                 r._finish(ValueError(
                     f"prompt of {r.context().size} tokens exceeds the slot "
                     f"capacity of {slots.max_position - 1}"))
@@ -715,13 +1164,14 @@ class Scheduler:
             return
         try:
             fault_point("serving.admit", requests=tuple(r.id for r in live))
-            assigned = slots.admit([r.context() for r in live],
-                                   [r.temperature for r in live],
-                                   [r._adapter_slot for r in live])
+            with obs.span("serve/prefill", n=len(live)):
+                assigned = slots.admit([r.context() for r in live],
+                                       [r.temperature for r in live],
+                                       [r._adapter_slot for r in live])
         except _Halt:
             raise
         except BaseException as e:
-            self.failures += 1
+            self._failed_dispatch()
             logger.warning("batched admission failed (%r); admitting %d "
                            "request(s) one at a time", e, len(live))
             if slots.poisoned:
@@ -748,6 +1198,7 @@ class Scheduler:
         else:
             for r, s in zip(live, assigned):
                 self._admitted(r, s)
+        self._obs["slot_occupancy"].set(slots.occupancy())
 
     def _admit_paged(self, batch):
         """Per-request page allocation + pending-prefill enqueue (host
@@ -778,7 +1229,7 @@ class Scheduler:
                 except BaseException as e:
                     if slots.poisoned:
                         raise
-                    self.failures += 1
+                    self._failed_dispatch()
                     logger.warning("admission of request %d failed (%r); "
                                    "retrying it once", r.id, e)
                     s = admit_one(r)
@@ -792,19 +1243,20 @@ class Scheduler:
                                    len(rest))
                     with self._cond:
                         self._waiting.extendleft(reversed(rest))
+                        self._obs["queue_depth"].set(len(self._waiting))
                     self._stall_admissions = True
                     break
                 with self._cond:
-                    self.rejected += 1
+                    self._reject_locked()
                 r._finish(e)
                 self._journal_retire(r)
             except ValueError as e:      # a prompt the table cannot hold
                 with self._cond:
-                    self.rejected += 1
+                    self._reject_locked()
                 r._finish(e)
                 self._journal_retire(r)
             except BaseException as e:
-                self.failures += 1
+                self._failed_dispatch()
                 if slots.poisoned:
                     rest = [x for x in batch[i:]
                             if x is not r and not x.done.is_set()]
@@ -814,6 +1266,8 @@ class Scheduler:
                 self._quarantine(r, e)
             else:
                 self._admitted(r, s)
+        self._obs["slot_occupancy"].set(slots.occupancy())
+        self._update_paged_gauges()
 
     def _prefetch_host_tier(self):
         """Swap-in lookahead: promote the next waiting prompts' demoted
@@ -859,10 +1313,15 @@ class Scheduler:
             for s, r in list(self._inflight.items()):
                 with self._cond:
                     del self._inflight[s]
-                    self.rejected += 1
+                    self._reject_locked()
                 slots.retire(s)
+                reqtrace.event(r.trace, "failed", request=r.id,
+                               engine=self.obs_label,
+                               reason="page_pool_exhausted")
                 r._finish(error)
                 self._journal_retire(r)
+            self._obs["slot_occupancy"].set(slots.occupancy())
+            self._update_paged_gauges()
             return
         s = max(self._inflight, key=lambda s: self._inflight[s].id)
         with self._cond:
@@ -878,12 +1337,21 @@ class Scheduler:
         # the adapter pool's LRU meanwhile
         self._release_adapter(r)
         self.preempted += 1
+        self._obs["preempted"].inc()
+        reqtrace.event(r.trace, "preempt", request=r.id,
+                       engine=self.obs_label, delivered=len(r.tokens))
+        reqtrace.default_flight().note_event(
+            self.obs_label, "preempt", request=r.id,
+            delivered=len(r.tokens))
         logger.warning("page pool exhausted (%s); preempting request %d "
                        "(%d tokens delivered, will resume)", error, r.id,
                        len(r.tokens))
         with self._cond:
             self._waiting.appendleft(r)
+            self._obs["queue_depth"].set(len(self._waiting))
         self._stall_admissions = True
+        self._obs["slot_occupancy"].set(slots.occupancy())
+        self._update_paged_gauges()
 
     # ----------------------------------------------------------- delivery
     def _deliver_block(self, toks, pre_lengths):
@@ -894,6 +1362,7 @@ class Scheduler:
         each column to the positions the slot can hold: a request reaching
         ``max_position`` is force-retired (``Request.truncated``)."""
         done = []
+        tokens_before = self.generated_tokens
         counts = self.slots.last_counts
         for s, r in self._inflight.items():
             if not self.slots.active[s]:
@@ -917,38 +1386,72 @@ class Scheduler:
                     r.truncated = True
             r._deliver(col.tolist())
             self._journal_delivered(r, col.size)
+            if col.size:
+                # stream offsets, not counts: a re-placed stream's offsets
+                # continue where its delivered tokens stopped
+                reqtrace.event(r.trace, "tokens", request=r.id,
+                               engine=self.obs_label,
+                               off=len(r.tokens) - int(col.size),
+                               n=int(col.size))
             self.generated_tokens += col.size
             if finished:
                 done.append(s)
+        delivered = self.generated_tokens - tokens_before
+        if delivered:
+            self._obs["generated_tokens"].inc(delivered)
         for s in done:
             with self._cond:
                 r = self._inflight.pop(s)
             self.slots.retire(s)
             self.retired += 1
             self._stall_admissions = False   # pages/slots freed
-            self._ttft_sum += ((r.first_token_at - r.submitted_at)
-                               if r.first_token_at is not None else 0.0)
+            ttft = ((r.first_token_at - r.submitted_at)
+                    if r.first_token_at is not None else 0.0)
+            self._ttft_sum += ttft
+            self._obs["retired"].inc()
+            # exemplar: an outlier TTFT bucket keeps this trace ID, so
+            # /metrics.json leads to the request's timeline
+            self._obs["ttft"].observe(ttft, exemplar=r.trace)
+            reqtrace.event(r.trace, "retire", request=r.id,
+                           engine=self.obs_label, tokens=len(r.tokens),
+                           ttft_s=ttft, truncated=r.truncated)
             r._finish()
             self._journal_retire(r)
+        if self.step_seconds:
+            self._obs["tokens_per_sec"].set(
+                self.generated_tokens / self.step_seconds)
+        if done:
+            self._obs["slot_occupancy"].set(self.slots.occupancy())
 
     # -------------------------------------------- cancel/deadline sweeps
     def _swept(self, r, err):
+        deadline = isinstance(err, DeadlineExceededError)
+        reqtrace.event(r.trace, "deadline" if deadline else "cancelled",
+                       request=r.id, engine=self.obs_label,
+                       delivered=len(r.tokens))
         r._finish(err)
         self._journal_retire(r)
+        # the cond's RLock makes the locked-sweep path re-entrant here;
+        # cancel() reaches this from the caller thread
         with self._cond:
-            if isinstance(err, DeadlineExceededError):
+            if deadline:
                 self.deadline_expired += 1
             else:
                 self.cancelled += 1
+        self._obs["deadline_exceeded" if deadline else "cancelled"].inc()
 
     def _sweep_waiting_locked(self):
-        """Drop cancelled/expired waiting requests (cond lock held)."""
+        """Drop cancelled/expired waiting requests (cond lock held).
+        Collect-then-remove, so it works on the deque and the
+        ``FairQueue`` alike."""
         if not self._waiting:
             return
         now = time.perf_counter()
         dead = [r for r in self._waiting
                 if r._cancelled or (r.deadline is not None
                                     and now >= r.deadline)]
+        if not dead:
+            return
         for r in dead:
             self._waiting.remove(r)
             if r._cancelled:
@@ -958,6 +1461,7 @@ class Scheduler:
                 self._swept(r, DeadlineExceededError(
                     f"request {r.id} exceeded its deadline after "
                     f"{now - r.submitted_at:.3f}s in queue"))
+        self._obs["queue_depth"].set(len(self._waiting))
 
     def _expire_batch(self, batch):
         """Re-check a popped admission batch at the prefill boundary: a
@@ -998,11 +1502,15 @@ class Scheduler:
             self.slots.retire(s)
             self._swept(r, err)
             self._stall_admissions = False   # pages/slots freed
+            self._obs["slot_occupancy"].set(self.slots.occupancy())
 
     # ----------------------------------------------------------- recovery
     def _quarantine(self, r, err):
         logger.warning("quarantining poisoned request %d: %r", r.id, err)
         self.quarantined += 1
+        self._obs["quarantined"].inc()
+        reqtrace.event(r.trace, "quarantine", request=r.id,
+                       engine=self.obs_label, error=repr(err)[:120])
         r._finish(err)
         self._journal_retire(r)
 
@@ -1051,6 +1559,7 @@ class Scheduler:
                 if count:
                     self._count_resume(r)
                 self._consume_resume_cb(r)
+                self._trace_admitted(r)
             i += len(chunk)
         if probe and self._inflight:
             # the block's positions need their pages (a context that ends
@@ -1064,6 +1573,9 @@ class Scheduler:
                 raise _Halt
             self._beat()
             self._deliver_block(toks, pre_lengths)
+            self._update_spec_gauges()
+        self._obs["slot_occupancy"].set(slots.occupancy())
+        self._update_paged_gauges()
         return list(self._inflight.values())
 
     def _recover(self, affected, error):
@@ -1074,6 +1586,7 @@ class Scheduler:
         from their exact context. Past the recovery budget, or past ``2 n
         + 8`` probes, the loop gives up cleanly."""
         self.recoveries += 1
+        self._obs["recoveries"].inc()
         if self.recoveries > self.max_recoveries:
             logger.error("recovery budget exhausted (%d > %d); halting",
                          self.recoveries, self.max_recoveries)
@@ -1134,6 +1647,7 @@ class Scheduler:
             # collects nothing, and the supervisor merges what failover
             # banks, deduped by request id
             handoff = self._failover is not None and not self._abandoned
+            self._obs["queue_depth"].set(0)
         self._limbo = []
         seen, victims = set(), []
         for r in pool:
@@ -1148,9 +1662,14 @@ class Scheduler:
             self.slots.reset()
         except Exception:
             logger.exception("slot-table reset failed during give-up")
+        self._obs["slot_occupancy"].set(0)
         if handoff:
             logger.warning("handing %d request(s) to failover after %r",
                            len(victims), error)
+            for r in victims:
+                reqtrace.event(r.trace, "failover_handoff", request=r.id,
+                               engine=self.obs_label,
+                               delivered=len(r.tokens))
             try:
                 self._failover(victims, error)
                 victims = []
@@ -1160,6 +1679,8 @@ class Scheduler:
         err = EngineFailedError(f"serving engine failed: {error!r}")
         err.__cause__ = error
         for r in victims:
+            reqtrace.event(r.trace, "failed", request=r.id,
+                           engine=self.obs_label, error=repr(error)[:120])
             r._finish(err)
             # failover victims stay live in the journal (they resubmit
             # elsewhere); only terminally failed ones retire

@@ -51,6 +51,14 @@ prefill, step and verify dispatch passes ``adapter_pool.gathered(rows)``
 down to the model (padding rows run under row 0). Without a pool the
 dispatches are what they were before LoRA was ported.
 
+Telemetry: ``stats`` publishes on the obs registry (``obs_name``
+``serving`` / ``serving_paged``, the reference's sources). While request
+tracing is on (``BIGDL_TPU_REQ_TRACE``, read at construction, as the
+reference wraps its executables then), each prefill, chunk, step and
+verify dispatch adds its modelled work (:class:`DispatchCost`) to
+``stats.flops`` / ``stats.hbm_bytes``: eager PyTorch has no compile-time
+cost analysis, so the work is counted from the dispatch's shapes.
+
 The paged manager (``serving/paging.py``) inherits the host-side table.
 """
 
@@ -63,6 +71,8 @@ import torch
 
 from bigdl_tpu_torch.models.gpt import prompt_bucket
 from bigdl_tpu_torch.models.spec import NGramDraft, accept_serving, commit
+from bigdl_tpu_torch.nn.quantized import Int8Linear
+from bigdl_tpu_torch.obs import reqtrace
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.utils.profiling import DispatchCounters
@@ -88,6 +98,54 @@ def select_tokens(logits, temps, generator, top_k, top_p):
     sampled = fused_sample_logits(logits, gumbel, t, top_k, top_p)
     return torch.where(torch.from_numpy(sampled_rows).to(dev), sampled,
                        greedy)
+
+
+class DispatchCost:
+    """The modelled device work of one dispatch of ``model`` (a
+    ``GPTForCausalLM`` or its tensor-parallel split), for the
+    ``bigdl_mfu`` gauge.
+
+    A dispatch feeds rows of new tokens, row ``r`` ``n_r`` tokens at
+    positions ``start_r .. start_r + n_r - 1``; only rows that carry
+    tokens count (a chunk's padding rows and a step's idle slots do not).
+    Then
+
+    - flops = 2 x tokens x the layers' matmul weights (Q/K/V, the output
+      projection, the two MLP matrices: ``n_layers (4 H^2 + 2 H I)``)
+      + 2 x head rows x the head (``V H``) + the attention products: a
+      token at position ``p`` attends to ``p + 1`` positions, ``4 H`` flops
+      a position and layer (QK^T and PV);
+    - bytes = the matmul weights and the head once + the K/V read (each
+      row's context, ``start + n`` positions) and written (``n``), at
+      ``kv_token_bytes`` a position (every layer's K and V).
+
+    LayerNorms, embeddings, the sampler and LoRA deltas are left out."""
+
+    def __init__(self, model):
+        gpt = model.gpt
+        base = gpt.shards[0].gpt if hasattr(gpt, "shards") else gpt
+        h, i = base.hidden_size, base.intermediate_size
+        self.hidden = h
+        self.n_layers = len(base.layers)
+        self.layer_weights = self.n_layers * (4 * h * h + 2 * h * i)
+        self.head_weights = model.vocab_size * h
+        elt = base.tok_emb.element_size()
+        int8 = any(isinstance(m, Int8Linear) for m in model.modules())
+        self.weight_bytes = (self.layer_weights * (1 if int8 else elt)
+                             + self.head_weights * elt)
+
+    def of(self, rows, head_rows, kv_token_bytes):
+        """(flops, bytes) of a dispatch of ``rows`` ``(start, n)`` pairs
+        whose ``head_rows`` tokens go through the head."""
+        tokens = attended = read = 0
+        for start, n in rows:
+            tokens += n
+            attended += n * start + n * (n + 1) // 2
+            read += start + n
+        flops = (2 * tokens * self.layer_weights
+                 + 2 * head_rows * self.head_weights
+                 + 4 * self.hidden * self.n_layers * attended)
+        return flops, self.weight_bytes + kv_token_bytes * (read + tokens)
 
 
 class SlotManager:
@@ -118,6 +176,7 @@ class SlotManager:
 
     paged = False
     _stat_keys = ("prefills", "steps")
+    _obs_name = "serving"
     # the paged manager's host tier and restore state; none here
     host_tier = None
     restore_active = False
@@ -150,8 +209,10 @@ class SlotManager:
         # a dispatch raised after it may have queued work: nothing but
         # reset() may touch the device tables again
         self.poisoned = False
-        self.stats = DispatchCounters(*self._stat_keys)
+        self.stats = DispatchCounters(*self._stat_keys,
+                                      obs_name=self._obs_name)
         self.stats.add("sampled_steps", 0)
+        self._cost = DispatchCost(model) if reqtrace.enabled() else None
         self._alloc()
 
     def _alloc_host(self):
@@ -238,6 +299,13 @@ class SlotManager:
         slot."""
 
     # ---------------------------------------------------- device dispatches
+    def _add_cost(self, rows, head_rows):
+        """Add a dispatch's modelled work (:class:`DispatchCost`) to
+        ``stats`` while request tracing is on."""
+        if self._cost is not None:
+            self.stats.add_cost(*self._cost.of(rows, head_rows,
+                                               self._kv_token_bytes))
+
     @torch.no_grad()
     def _prefill(self, ids, lens, slots, arows):
         """One admission dispatch: ``ids`` (window, bucket) host tokens,
@@ -254,6 +322,7 @@ class SlotManager:
         rows[:n] = slots
         self._prime(ids, lens, rows, clear=slots)
         self.stats.tick("prefills")
+        self._add_cost([(0, int(n)) for n in lens[:n]], n)
 
     def _prime(self, ids, lens, rows, prev=None, clear=()):
         """The draft's part of an admission dispatch (speculation only):
@@ -304,6 +373,8 @@ class SlotManager:
             # host discards; the clamp keeps its positions in bounds
             pos = np.minimum(lengths, pmax - 1)
             logits = model._lm_logits(self._decode(tok, pos)).to(self._dtype)
+            busy = np.nonzero(self.active)[0]
+            self._add_cost([(int(pos[s]), 1) for s in busy], busy.size)
             lengths = lengths + self.active
             toks.append(tok)
         self._logits = logits
@@ -334,7 +405,11 @@ class SlotManager:
             tok0 = select_tokens(logits, self.temps, self._gen, self.top_k,
                                  self.top_p)
             props = self._draft.propose(self._table, tok0, gamma)
-            vl = model._lm_logits(self._verify(props, self.lengths + counts))
+            pos = self.lengths + counts
+            vl = model._lm_logits(self._verify(props, pos))
+            busy = np.nonzero(self.active)[0]
+            self._add_cost([(int(pos[s]), gamma) for s in busy],
+                           gamma * busy.size)
             adv, carry = accept_serving(props, vl, sampled=sampled,
                                         live=live)
             last, logits, got = commit(self._draft, self._table, props, adv,

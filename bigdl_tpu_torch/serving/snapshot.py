@@ -38,9 +38,11 @@ falls back to re-prefill for that stream.
 
 Default off behind ``BIGDL_TPU_KV_SNAPSHOT`` (with
 ``BIGDL_TPU_SNAPSHOT_DIR`` and ``BIGDL_TPU_SNAPSHOT_INTERVAL_S``): see
-``ServingEngine``. The reference's obs counters are the plain attributes
+``ServingEngine``. The counters are the plain attributes
 ``pages_written``, ``pages_restored``, ``corrupt_dropped``,
-``restore_misses`` and ``write_errors``.
+``restore_misses`` and ``write_errors``; the first three and the store's
+page count also go to the reference's obs families
+(``bigdl_snapshot_*``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import time
 
 import numpy as np
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.resilience.faults import (FaultError, corrupt_file,
                                                fault_point)
 
@@ -188,12 +191,27 @@ class PageStore:
         self.corrupt_dropped = 0
         self.restore_misses = 0
         self.write_errors = 0
+        self._obs = {
+            "written": obs.counter(
+                "bigdl_snapshot_pages_written_total",
+                "K/V pages persisted to the snapshot store"),
+            "restored": obs.counter(
+                "bigdl_snapshot_pages_restored_total",
+                "K/V pages restored from the snapshot store"),
+            "corrupt": obs.counter(
+                "bigdl_snapshot_corrupt_dropped_total",
+                "snapshot pages demoted on checksum/read failure"),
+            "pages": obs.gauge(
+                "bigdl_snapshot_store_pages",
+                "pages currently held by the snapshot store"),
+        }
         self._load_manifest()
 
     # ---------------------------------------------------------- manifest --
     def _load_manifest(self):
         with self._lock:
             self._merge_disk_locked()
+            self._obs["pages"].set(len(self._manifest))
 
     def _merge_disk_locked(self):
         """Fold the ON-DISK manifest into the in-memory one (lock held).
@@ -256,6 +274,7 @@ class PageStore:
             self._disk_sig = (st.st_mtime_ns, st.st_size)
         except OSError:
             self._disk_sig = None
+        self._obs["pages"].set(len(self._manifest))
 
     def _page_path(self, hexd):
         return os.path.join(self._pages, hexd + ".page")
@@ -311,6 +330,7 @@ class PageStore:
                 self._manifest[hexd] = {"sum": checksum, "seq": self._seq}
             self.pages_written += len(written)
             self._write_manifest_locked()
+        self._obs["written"].inc(len(written))
         return len(written)
 
     # ----------------------------------------------------------- restore --
@@ -358,6 +378,7 @@ class PageStore:
             self._seq += 1
             ent["seq"] = self._seq
             self.pages_restored += 1
+        self._obs["restored"].inc()
         return planes
 
     def _demote(self, hexd):
@@ -372,6 +393,7 @@ class PageStore:
             except OSError:
                 pass
             self._write_manifest_locked()
+        self._obs["corrupt"].inc()
 
     # ------------------------------------------------------- pins and gc --
     def pin(self, rid, digests):

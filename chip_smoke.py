@@ -300,6 +300,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
    TTFT beside ``slice`` and ``slice_dense``, the busy share, the LoRA
    range's share of device time, peak memory, load, eviction and swap
    seconds.
+6e. slice_control — the control plane and its telemetry on ``slice``'s
+   model, weights and prompts: the paged engine under a
+   ``ControlPolicy(base_ttft_s=0.01)`` (the tiers' TTFT SLOs at
+   CONTROL_SLO_S, so none of the measured traffic is shed) serves the 12
+   requests with priorities alternating best-effort / interactive and
+   three clients: every greedy request's tokens as ``slice``'s engine
+   gave them (the near-tie rule; whether identical is reported), requests
+   0 and 11 against the CPU as ``slice``'s were; exactly 12 paged
+   launches a chunk and step, one sampler launch a sampled step. An obs
+   ``MetricsServer`` on ``127.0.0.1:0`` is scraped: ``/metrics`` shows
+   ``bigdl_serving_ttft_seconds_count`` equal to the requests retired, the
+   page gauges, and ``bigdl_mfu`` (the modelled flops' rate between two
+   scrapes over 989 TFLOP/s) in (0, 1]; ``/trace`` holds one
+   ``serve/step`` span on the scheduler thread a decode step; ``/healthz``
+   gives 200; ``/profile?seconds=1`` taken while the traffic is served
+   (a second call 409) writes a ``torch.profiler`` trace whose CUDA
+   kernels include ``paged_attention_kernel`` and ``fused_sample_kernel``.
+   The same traffic (fresh prompts) runs with obs on and with
+   ``obs.set_enabled(False)`` in turns (on, off, off, on), each profiled:
+   tokens/s and the busy share of every run are reported, with no bar. Overload: a second engine (8 slots, a queue
+   of 4) under ``serving.step:delay=0.05`` takes 16 best-effort
+   submissions, then 3 interactive ones: all three complete, at least 3
+   best-effort requests are shed with ``AdmissionRejectedError`` before
+   any token (``bigdl_serving_shed_total`` by priority agrees), nothing
+   hangs; then a client past its bucket of 4 gets ``RateLimitedError``.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -2036,6 +2061,7 @@ def phase_slice(torch, kernels):
     cpu_toks, cpu_logits = _cpu_greedy(torch, params, prompts, False)
     divergences = _first_divergence(torch, "slice", _engine_greedy(outs),
                                     cpu_toks, cpu_logits, FLOAT_GAP)
+    _NO_FAULT["paged_cpu_div"] = divergences
     emit({"phase": "slice", "model": "gpt2_small", "layers": n_layers,
           **line, "greedy_checked": CMP_IDX,
           "greedy_tokens_compared": N_CMP, "divergences": divergences,
@@ -6024,6 +6050,325 @@ def _lora_int8_checks(torch, params, ads, prompts, outs, batches,
             "agreement_with_int8_oracle": agree}
 
 
+# ------------------------------------------------------------ slice_control
+CONTROL_SLOTS = 8                  # the overload engine: slots, queue bound
+CONTROL_QUEUE = 4
+CONTROL_FLOOD = 16                 # best-effort submits into the overload
+CONTROL_FLOOD_NEW = 16
+CONTROL_DELAY = 0.05               # serving.step:delay of the overload
+CONTROL_BURST = 4                  # the rate-limited client's bucket
+CONTROL_SLO_S = 60.0               # the served traffic's tiers' TTFT SLO
+OBS_TURNS = (True, False, False, True)   # obs on / off, in turns
+PEAK_BF16 = PEAK_FLOPS_PER_S["bfloat16"]
+# straight to the local obs endpoint, whatever proxy the environment names
+_LOCAL = None
+
+
+def _scrape(url):
+    """GET ``url`` on the local obs endpoint: (status, body text)."""
+    import urllib.error
+    import urllib.request
+    global _LOCAL
+    if _LOCAL is None:
+        _LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with _LOCAL.open(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _series(text, name, **labels):
+    """The value of the Prometheus line ``name{labels}`` (labels in any
+    order, all given ones matched), or None."""
+    for line in text.splitlines():
+        head, _, value = line.rpartition(" ")
+        if head.split("{")[0] == name and all(
+                f'{k}="{v}"' in head for k, v in labels.items()):
+            return float(value)
+    return None
+
+
+def _drive_policy(engine, prompts):
+    """``_drive`` with priorities alternating best-effort / interactive and
+    three clients."""
+    t0 = time.perf_counter()
+
+    def submit(i):
+        return engine.submit(prompts[i], N_NEW, temperature=TEMPS[i],
+                             priority=("interactive" if i % 2
+                                       else "best_effort"),
+                             client_id=f"c{i % 3}")
+
+    handles = [submit(i) for i in range(8)]
+    while handles[3].first_token_at is None:
+        check(not handles[3].done.is_set() or handles[3].error is None,
+              f"request 3 failed: {handles[3].error!r}")
+        check(time.perf_counter() - t0 < 300, "request 3 stalled")
+        time.sleep(0.005)
+    return handles + [submit(i) for i in range(8, 12)]
+
+
+def _control_run(torch, engine, prompts):
+    """One policy-driven traffic run: tokens, wall seconds, launches,
+    dispatch counts and the modelled flops, counts set to 0 just before."""
+    _reset_serving_counts()
+    engine.stats.reset()
+    flops0 = engine.stats.flops
+    t0 = time.perf_counter()
+    handles = _drive_policy(engine, prompts)
+    outs = [h.result(timeout=600) for h in handles]
+    wall = time.perf_counter() - t0
+    return {"outs": outs, "handles": handles, "wall_s": wall,
+            "stats": engine.stats.snapshot(), "counts": _serving_counts(),
+            "flops": engine.stats.flops - flops0,
+            "generated": sum(o.size - n for o, n in zip(outs, LENGTHS))}
+
+
+def phase_slice_control(torch, kernels, smi, cpu_ref):
+    """The control plane and its telemetry on ``slice``'s model, weights
+    and traffic (see module docstring, 6e)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert, obs
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import QueueFullError, ServingEngine
+    from bigdl_tpu_torch.serving.control import (AdmissionRejectedError,
+                                                 ControlPolicy,
+                                                 RateLimitedError)
+
+    t_setup = time.perf_counter()
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    n_layers = len(model.gpt.layers)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 50257, 80)          # _serve_traffic's warm-up draw
+    prompts = _traffic(rng)
+    fresh = np.random.default_rng(18)
+    server = obs.MetricsServer(host="127.0.0.1", port=0)
+    # the measured traffic is held to its tokens, so none of it may be
+    # shed: its tiers' TTFT SLOs are CONTROL_SLO_S (shedding is held in
+    # the overload part below, at the default SLOs)
+    engine = ServingEngine(model, params, max_slots=8, paged=True,
+                           page_size=16, prefill_chunk=64, top_k=50,
+                           top_p=0.9, seed=0,
+                           policy=ControlPolicy(
+                               base_ttft_s=0.01,
+                               slo_ttft_s={"interactive": CONTROL_SLO_S,
+                                           "standard": CONTROL_SLO_S}))
+    setup_s = time.perf_counter() - t_setup
+    label = engine.obs_label
+    source = engine.stats.obs_source
+    line = {"phase": "slice_control", "model": "gpt2_small",
+            "layers": n_layers, "engine": label, "setup_s": setup_s,
+            "card": smi}
+    try:
+        engine.generate(fresh.integers(0, 50257, 80), 4, temperature=0.8,
+                        timeout=300)                          # warm-up
+        obs.default_tracer().clear()
+        _, first = _scrape(server.url + "/metrics")           # MFU's start
+        t_scrape = time.perf_counter()
+
+        # policy serving: slice's prompts, alternating priorities
+        run = _control_run(torch, engine, prompts)
+        _, text = _scrape(server.url + "/metrics")
+        scrape_s = time.perf_counter() - t_scrape
+        outs, stats, counts = run["outs"], run["stats"], run["counts"]
+        for i, (o, h) in enumerate(zip(outs, run["handles"])):
+            check(h.error is None and o.size == LENGTHS[i] + N_NEW,
+                  f"slice_control request {i}: {o.size - LENGTHS[i]} of "
+                  f"{N_NEW} tokens, {h.error!r}")
+        check(engine.scheduler.shed == 0,
+              f"slice_control: {engine.scheduler.shed} requests shed")
+        exact = [bool(np.array_equal(outs[i], _NO_FAULT["paged"][i]))
+                 for i in GREEDY_IDX]
+        div = _near_tie_check(torch, "slice_control", params, outs,
+                              _NO_FAULT["paged"], GREEDY_IDX)
+        cpu_toks, cpu_logits = cpu_ref
+        cpu_div = _first_divergence(torch, "slice_control",
+                                    _engine_greedy(outs), cpu_toks,
+                                    cpu_logits, FLOAT_GAP)
+        # requests 0 and 11 as slice's own engine gave them against the
+        # CPU: identical where slice's were (no divergence there)
+        check(cpu_div == _NO_FAULT["paged_cpu_div"],
+              f"slice_control: divergences from the CPU {cpu_div}, slice's "
+              f"{_NO_FAULT['paged_cpu_div']}")
+        dispatches = stats["prefill_chunks"] + stats["steps"]
+        check(counts["paged_attention"] == n_layers * dispatches,
+              f"slice_control: {counts['paged_attention']} paged launches "
+              f"for {dispatches} chunks and steps")
+        check(counts["fused_sampling"] == stats["sampled_steps"] >= 1,
+              f"slice_control: {counts['fused_sampling']} sampler launches "
+              f"for {stats['sampled_steps']} sampled steps")
+        for k, c in (("paged_attention", counts["paged_attention"]),
+                     ("fused_sampling", counts["fused_sampling"])):
+            kernels[k].setdefault("launches_by_phase", {})[
+                "slice_control"] = c
+
+        # the scraped page: TTFT count = retired, page gauges, MFU
+        m = engine.metrics()
+        ttft_n = _series(text, "bigdl_serving_ttft_seconds_count",
+                         engine=label)
+        check(ttft_n == m["retired"] == 13,
+              f"slice_control: TTFT count {ttft_n}, retired {m['retired']}")
+        pages = {k: _series(text, f"bigdl_serving_{k}", engine=label)
+                 for k in ("pages_in_use", "pages_total", "page_occupancy")}
+        check(pages["pages_total"] == 512 and None not in pages.values(),
+              f"slice_control: page gauges {pages}")
+        mfu = _series(text, "bigdl_mfu", source=source)
+        check(mfu is not None and 0.0 < mfu <= 1.0,
+              f"slice_control: bigdl_mfu {mfu}")
+        check((_series(first, "bigdl_device_flops", source=source) or 0)
+              > 0, "slice_control: no modelled flops before the run")
+
+        # the span track: one serve/step on the scheduler thread a step
+        _, trace_text = _scrape(server.url + "/trace")
+        doc = json.loads(trace_text)
+        names = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "M" and e["name"] == "thread_name"}
+        steps_on_loop = sum(1 for e in doc["traceEvents"]
+                            if e.get("ph") == "X" and e["name"] ==
+                            "serve/step" and names.get(e["tid"]) ==
+                            "bigdl-tpu-torch-serving")
+        check(steps_on_loop == stats["steps"],
+              f"slice_control: {steps_on_loop} serve/step spans for "
+              f"{stats['steps']} decode steps")
+        status, body = _scrape(server.url + "/healthz")
+        check(status == 200 and json.loads(body)["components"].get(
+            f"engine:{label}") is True, f"slice_control /healthz {status} "
+                                        f"{body}")
+
+        # the cost of obs: the same traffic (fresh prompts) with obs on and
+        # off, each under torch.profiler for the busy share, in turns (on,
+        # off, off, on) so neither setting always runs first
+        cost = {"obs_on": [], "obs_off": []}
+        for on in OBS_TURNS:
+            prev = obs.set_enabled(on)
+            try:
+                fresh_prompts = _traffic(fresh)
+                box = {}
+                prof = _profile(torch, lambda: box.update(
+                    _control_run(torch, engine, fresh_prompts)),
+                    groups=SERVING_KERNEL_GROUPS)
+            finally:
+                obs.set_enabled(prev)
+            cost["obs_on" if on else "obs_off"].append({
+                "tokens_per_s": box["generated"] / box["wall_s"],
+                "wall_s": box["wall_s"],
+                "device_busy_share": prof.get("device_busy_share",
+                                              "not measured")})
+
+        # /profile while serving: a torch.profiler capture on the server's
+        # thread must see rows 4 and 7 launched by the scheduler's
+        status, body = _scrape(server.url + "/profile?seconds=1")
+        check(status == 200, f"slice_control /profile: {status} {body}")
+        logdir = json.loads(body)["logdir"]
+        status409, _ = _scrape(server.url + "/profile?seconds=1")
+        check(status409 == 409, f"slice_control: second /profile gave "
+                                f"{status409}")
+        _control_run(torch, engine, _traffic(fresh))
+        path = f"{logdir}/trace.json"
+        deadline = time.perf_counter() + 120
+        while server._profile_active and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        check(not server._profile_active, "slice_control: /profile capture "
+                                          "did not finish")
+        with open(path) as f:
+            kernel_names = {e.get("name", "") for e in json.load(f)[
+                "traceEvents"] if e.get("cat") == "kernel"}
+        seen = {k: any(v in n for n in kernel_names)
+                for k, v in SERVING_KERNEL_GROUPS.items()}
+        check(all(seen.values()), f"slice_control /profile trace: {seen}")
+    finally:
+        engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+
+    # overload: best-effort fills slots and queue under a slowed step, then
+    # interactive work arrives; a client past its bucket is rate-limited
+    over = ServingEngine(model, None, max_slots=CONTROL_SLOTS,
+                         max_queue=CONTROL_QUEUE, paged=True, page_size=16,
+                         prefill_chunk=64, top_k=50, top_p=0.9, seed=0,
+                         policy=ControlPolicy(base_ttft_s=0.01,
+                                              rate_limit_rps=1e-6,
+                                              rate_limit_burst=CONTROL_BURST))
+    try:
+        over.generate(fresh.integers(0, 50257, 48), 4, timeout=300)
+        faults.configure(f"serving.step:delay={CONTROL_DELAY}")
+        t0 = time.perf_counter()
+        flood, full = [], 0
+        for i in range(CONTROL_FLOOD):
+            try:
+                flood.append(over.submit(fresh.integers(0, 50257, 48),
+                                         CONTROL_FLOOD_NEW,
+                                         priority="best_effort",
+                                         client_id=f"b{i}"))
+            except QueueFullError:
+                full += 1
+        inter = [over.submit(fresh.integers(0, 50257, 48), 8,
+                             priority="interactive", client_id="human")
+                 for _ in range(3)]
+        for h in inter:
+            h.result(timeout=300)
+        faults.configure(None)
+        shed = [h for h in flood if h.done.wait(300)
+                and isinstance(h.error, AdmissionRejectedError)]
+        for h in flood:
+            if h not in shed:
+                h.result(timeout=300)
+        over_wall = time.perf_counter() - t0
+        # a client past its bucket, on the drained engine
+        limited, hog = 0, []
+        for _ in range(CONTROL_BURST + 1):
+            try:
+                hog.append(over.submit(fresh.integers(0, 50257, 16), 2,
+                                       priority="interactive",
+                                       client_id="hog"))
+            except RateLimitedError:
+                limited += 1
+        for h in hog:
+            h.result(timeout=300)
+        _, text = _scrape(server.url + "/metrics")
+        shed_by = {p: _series(text, "bigdl_serving_shed_total",
+                              engine=over.obs_label, priority=p)
+                   for p in ("interactive", "standard", "best_effort")}
+        om = over.metrics()
+    finally:
+        faults.configure(None)
+        over.shutdown()
+        server.close()
+    check(all(h.error is None for h in inter),
+          "slice_control: an interactive request failed under overload")
+    check(len(shed) >= 3 and all(h.first_token_at is None for h in shed),
+          f"slice_control: {len(shed)} best-effort requests shed typed")
+    check(shed_by["best_effort"] == len(shed) == om["shed"]
+          and shed_by["interactive"] == 0,
+          f"slice_control: shed by priority {shed_by}, metrics "
+          f"{om['shed']}")
+    check(limited == 1 and om["rate_limited"] == 1,
+          f"slice_control: {limited} RateLimitedError, metrics "
+          f"{om['rate_limited']}")
+    mfu_own = run["flops"] / run["wall_s"] / PEAK_BF16
+    line.update({
+        "requests": 12, "wall_s": run["wall_s"],
+        "tokens_per_s": run["generated"] / run["wall_s"],
+        "decode_steps": stats["steps"], "prefill_chunks":
+        stats["prefill_chunks"], "sampled_steps": stats["sampled_steps"],
+        "launches": counts, "greedy_exact_vs_slice": exact,
+        "divergences_vs_slice": div, "divergences_vs_cpu": cpu_div,
+        "serve_step_spans": steps_on_loop,
+        "ttft_count": ttft_n, "page_gauges": pages,
+        "bigdl_mfu": mfu, "mfu_scrape_interval_s": scrape_s,
+        "modelled_flops": run["flops"], "mfu_phase_own": mfu_own,
+        "obs_cost": cost, "profile_kernels": seen,
+        "overload": {"flood": CONTROL_FLOOD, "queue_full": full,
+                     "shed": len(shed), "shed_by_priority": shed_by,
+                     "rate_limited": limited, "wall_s": over_wall,
+                     "interactive_ttft_s": [h.first_token_at -
+                                            h.submitted_at for h in inter]}})
+    emit(line)
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -6082,6 +6427,7 @@ def main():
     run("slice_snapshot", phase_slice_snapshot, torch, kernels, smi)
     run("slice_lora", phase_slice_lora, torch, kernels, smi, f32_line,
         dense_line, cpu_ref)
+    run("slice_control", phase_slice_control, torch, kernels, smi, cpu_ref)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

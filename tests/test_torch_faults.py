@@ -8,7 +8,7 @@ the same pattern; ``corrupt_file`` and ``mangle_planes`` change the same
 bytes for the same seed. The reference side runs through plan objects
 (``FaultPlan.parse`` / ``check`` / ``mangle``), so only the port's global
 plan is ever armed, and an autouse fixture resets it. The ``preempt`` kind
-parses in the port and, when it fires, raises naming ROADMAP A.8.
+parses in the port and, when it fires, raises naming ROADMAP A.8(c).
 """
 
 import numpy as np
@@ -135,7 +135,7 @@ def test_preempt_kind_parses_and_names_a8():
     plan = faults.configure("train.step:preempt:after=1:times=1")
     assert plan.rules[0].kind == "preempt"
     faults.fault_point("train.step")     # skipped by after=1
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match=r"A\.8\(c\)"):
         faults.fault_point("train.step")
     faults.fault_point("train.step")     # times=1: quiet again
     assert plan.counts() == {("train.step", "preempt"): 1}

@@ -65,3 +65,13 @@ def test_scan_sees_the_cnn_modules():
                 "models/routes.py", "nn/basic.py", "nn/normalization.py",
                 "nn/conv.py"):
         assert pkg / rel in FILES, rel
+
+
+def test_scan_sees_the_obs_and_control_modules():
+    """The telemetry package and the control plane are the port's own
+    copies: the scan holds them to the same rule."""
+    pkg = ROOT / "bigdl_tpu_torch"
+    for rel in ("obs/__init__.py", "obs/metrics.py", "obs/spans.py",
+                "obs/reqtrace.py", "obs/exporters.py", "obs/anomaly.py",
+                "serving/control.py", "utils/profiling.py"):
+        assert pkg / rel in FILES, rel

@@ -6,7 +6,8 @@ the JAX ``ServingEngine(paged=True)``'s on the same weights, for 4 prompts
 on 2 slots (so two are admitted mid-flight) with a shared prompt prefix.
 A sampled request retires; the engine refuses to start without a device
 when CUDA is absent; CPU tensors never launch a kernel; the reference's
-unported options raise, and the ones ported since serve.
+options, which the port once refused, serve (the control plane's
+``policy`` and ``BIGDL_TPU_ADMISSION_SLO`` last).
 """
 
 import jax
@@ -23,6 +24,7 @@ from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits
 from bigdl_tpu_torch.serving import (EngineFailedError, PagePoolExhausted,
                                      ServingEngine)
+from bigdl_tpu_torch.serving.control import ControlPolicy
 
 CFG = dict(vocab_size=97, hidden_size=64, n_layers=2, n_heads=4,
            max_position=64)
@@ -107,26 +109,30 @@ def test_no_device_raises_without_cuda(weights, monkeypatch):
 # the reference's flags that turn an unported feature on, each with the
 # ROADMAP item the port's refusal must name
 UNPORTED_FLAGS = {"BIGDL_TPU_SPEC_DECODE": "A.5", "BIGDL_TPU_KV_SNAPSHOT": "A.7",
-                  "BIGDL_TPU_KV_HOST_TIER": "A.7", "BIGDL_TPU_LORA": "A.8"}
+                  "BIGDL_TPU_KV_HOST_TIER": "A.7", "BIGDL_TPU_LORA": "A.8",
+                  "BIGDL_TPU_ADMISSION_SLO": "A.8"}
+POLICY = ControlPolicy()
 
 
 # options these cases once refused and now serve: the dense slot table
 # (ROADMAP A.2), int8 weights under tensor parallelism (A.6b), speculative
 # decoding by keyword or by its flag (A.5), the failover hook (A.4), the
-# snapshot store and host tier by keyword or by their flags (A.7) and the
-# LoRA adapter pool by keyword or by its flag (A.8)
+# snapshot store and host tier by keyword or by their flags (A.7), the
+# LoRA adapter pool by keyword or by its flag (A.8) and the control plane's
+# policy by keyword or by its flag (A.8(b))
 NOW_PORTED = ({"paged": False}, {"tp": 2, "int8_weights": True},
               {"spec_tokens": 4}, {"BIGDL_TPU_SPEC_DECODE": "1"},
               {"failover": True}, {"kv_snapshot": True},
               {"kv_host_tier": True}, {"BIGDL_TPU_KV_SNAPSHOT": "1"},
               {"BIGDL_TPU_KV_HOST_TIER": "1"}, {"lora": True},
-              {"BIGDL_TPU_LORA": "1"})
+              {"BIGDL_TPU_LORA": "1"}, {"policy": POLICY},
+              {"BIGDL_TPU_ADMISSION_SLO": "1"})
 
 
 @pytest.mark.parametrize("kw", [
     {"paged": False}, {"spec_tokens": 4}, {"failover": True},
     {"adapters": ["tenant-a"]}, {"tp": 2, "int8_weights": True},
-    {"lora": True},
+    {"lora": True}, {"policy": POLICY},
     {"kv_snapshot": True}, {"kv_host_tier": True},
     *({flag: "1"} for flag in UNPORTED_FLAGS),
 ], ids=lambda kw: next(iter(kw)))
@@ -137,8 +143,9 @@ def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
     from the dense table, ``tp=2, int8_weights=True`` from int8 shards,
     ``spec_tokens=4`` or ``BIGDL_TPU_SPEC_DECODE`` speculatively,
     ``kv_snapshot`` (over ``BIGDL_TPU_SNAPSHOT_DIR``) with a page store,
-    ``kv_host_tier`` with a host tier and ``lora`` or ``BIGDL_TPU_LORA``
-    with an adapter pool. ``adapters`` without ``lora`` raises
+    ``kv_host_tier`` with a host tier, ``lora`` or ``BIGDL_TPU_LORA``
+    with an adapter pool and ``policy`` or ``BIGDL_TPU_ADMISSION_SLO``
+    under a control policy. ``adapters`` without ``lora`` raises
     ``ValueError``, as in the reference."""
     _, _, sd = weights
     ported = kw in NOW_PORTED
@@ -146,6 +153,7 @@ def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
     snap = "kv_snapshot" in kw or "BIGDL_TPU_KV_SNAPSHOT" in kw
     tier = "kv_host_tier" in kw or "BIGDL_TPU_KV_HOST_TIER" in kw
     pool = "lora" in kw or "BIGDL_TPU_LORA" in kw
+    policy = "policy" in kw or "BIGDL_TPU_ADMISSION_SLO" in kw
     monkeypatch.setenv("BIGDL_TPU_SNAPSHOT_DIR", str(tmp_path))
     kw = dict(kw)
     match = "ROADMAP"
@@ -168,6 +176,8 @@ def test_unported_options_raise(weights, kw, monkeypatch, tmp_path):
         assert (eng.snapshot is not None) == snap
         assert (eng.host_tier is not None) == tier
         assert (eng.adapter_pool is not None) == pool
+        assert (eng.policy is not None) == policy
+        assert ("shed" in met) == policy
         return
     if "adapters" in kw:
         with pytest.raises(ValueError, match="adapters= needs the pool"):

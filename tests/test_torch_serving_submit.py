@@ -8,8 +8,9 @@ same seeded weights (``convert``):
 - a request naming an adapter fails with ``AdapterLoadError`` (the
   reference's message, the pool being off in both), while the ``submit``
   call itself returns;
-- ``BIGDL_TPU_ADMISSION_SLO`` attaches the reference's control policy and
-  makes the port refuse, naming ROADMAP queue A.8;
+- ``BIGDL_TPU_ADMISSION_SLO`` attaches the control policy in both
+  packages (the port's ``serving.control.ControlPolicy``, with the flags'
+  SLOs), and the port serves the reference's tokens under it;
 - ``max_recoveries=0`` serves, and a failing dispatch then fails every
   request with the reference's ``EngineFailedError``, caused by the
   dispatch's error; ``failover`` receives the victims instead, in both;
@@ -103,19 +104,31 @@ def test_adapter_request_fails_with_adapter_load_error(pair):
 
 def test_admission_slo_flag_attaches_a_policy_and_the_port_refuses(
         pair, monkeypatch):
+    """Once a refusal (A.8), now the port's policy: the flag attaches one
+    in both packages, with the flags' SLOs, and both serve the same
+    tokens under it; with the flag at 0 neither attaches one."""
+    from bigdl_tpu_torch.serving.control import ControlPolicy
     jm, params, sd = pair
     monkeypatch.setenv("BIGDL_TPU_ADMISSION_SLO", "1")
-    jeng = JaxEngine(jm, params, max_slots=2)
+    monkeypatch.setenv("BIGDL_TPU_TTFT_SLO_INTERACTIVE_S", "2.5")
+    jeng, eng = _engines(pair)
     try:
         assert jeng.policy is not None
+        assert isinstance(eng.policy, ControlPolicy)
+        assert eng.policy.slo_ttft_s == jeng.policy.slo_ttft_s
+        assert eng.policy.slo_ttft_s["interactive"] == 2.5
+        outs = [np.asarray(e.generate(PROMPTS[2], 4, timeout=WAIT,
+                                      priority="interactive"))
+                for e in (jeng, eng)]
+        np.testing.assert_array_equal(outs[1], outs[0])
+        assert "shed" in eng.metrics()
     finally:
         jeng.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
-        ServingEngine(GPTForCausalLM(**CFG, device="cpu"), sd, device="cpu",
-                      max_slots=2)
+        eng.shutdown()
     monkeypatch.setenv("BIGDL_TPU_ADMISSION_SLO", "0")
     with ServingEngine(GPTForCausalLM(**CFG, device="cpu"), sd, device="cpu",
                        max_slots=2) as eng:
+        assert eng.policy is None
         assert eng.generate(PROMPTS[2], 2, timeout=WAIT).size == 3 + 2
 
 
