@@ -18,8 +18,20 @@ each step's loss back one step late (``_DispatchAhead``), so the host
 never waits for the card inside an epoch; validation, checkpoints and
 summaries run on their triggers. ``LocalOptimizer`` and the data-parallel
 ``parallel.distri_optimizer.DistriOptimizer`` (``mesh=`` or a
-``DistributedDataSet``) share that loop. The reference's preemption
-guard, fault points and ``obs`` spans wait for ROADMAP queue A.8(c).
+``DistributedDataSet``) share that loop.
+
+Both loops carry the reference's resilience and telemetry: the
+``train.step`` fault site before each dispatch, ``train.drain`` inside the
+timed loss readback and ``ckpt.write`` in the checkpoint writer; the
+``bigdl_train_*`` families and a ``StepTimeAnomalyDetector`` on
+``_DispatchAhead``; the spans ``train/feed``, ``train/dispatch``,
+``train/drain``, ``train/validate``, ``train/checkpoint`` and
+``train/preempt_checkpoint``. The step is eager, so ``train/dispatch``
+times the host queueing the step, not the card running it; no span
+synchronises the card. With ``BIGDL_TPU_PREEMPT_GUARD`` on (default)
+``optimize()`` arms the SIGTERM guard (``resilience.preempt``): at the
+next step boundary the loop drains the readout, writes a final checkpoint
+and raises ``TrainingPreempted``.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import time
 import torch
 from torch.func import functional_call
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.dataset.transformer import (DeviceFeed, Prefetch,
                                                  ToSuperBatch)
 from bigdl_tpu_torch.nn.module import (grad_scales, regularizers,
@@ -40,6 +53,9 @@ from bigdl_tpu_torch.optim.evaluator import Evaluator, model_device
 from bigdl_tpu_torch.optim.methods import SGD, cpu_copy
 from bigdl_tpu_torch.optim.schedules import Plateau
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.resilience import faults, preempt
+from bigdl_tpu_torch.resilience.faults import fault_point
+from bigdl_tpu_torch.resilience.preempt import TrainingPreempted
 from bigdl_tpu_torch.utils.fileio import (atomic_file_swap, file_makedirs,
                                           path_join)
 from bigdl_tpu_torch.utils.flags import get_flag
@@ -201,9 +217,17 @@ class _DispatchAhead:
     iteration number; loss-based triggers may fire up to ``depth`` steps
     late. A K-step dispatch pushes its ``[K]`` losses once, and a drain
     replays each step under its own iteration number.
+
+    Both loops route every step through here, so this class owns the
+    training loop's instruments, labelled ``loop`` (``"local"`` or
+    ``"distri"``): ``bigdl_train_steps_total``, ``_records_total``,
+    ``_dispatches_total``, ``_records_per_sec``,
+    ``_dispatch_queue_depth``, ``bigdl_sync_timeouts_total`` (a readback
+    longer than ``BIGDL_TPU_SYNC_TIMEOUT_S``, 0: off) and a
+    ``StepTimeAnomalyDetector`` fed each steady drain's step time.
     """
 
-    def __init__(self, driver_state, summary, log_fn):
+    def __init__(self, driver_state, summary, log_fn, loop="local"):
         self.depth = max(0, get_flag("BIGDL_TPU_DISPATCH_AHEAD", 1, int))
         self.pending = collections.deque()
         self.driver_state = driver_state
@@ -211,17 +235,44 @@ class _DispatchAhead:
         self.log_fn = log_fn
         self.last_drain = None
         self.last_rate = None
+        reg = obs.default_registry()
+        lbl = ("loop",)
+        self._obs_steps = reg.counter(
+            "bigdl_train_steps_total", "optimizer steps completed",
+            lbl).labels(loop)
+        self._obs_records = reg.counter(
+            "bigdl_train_records_total", "training records consumed",
+            lbl).labels(loop)
+        self._obs_dispatches = reg.counter(
+            "bigdl_train_dispatches_total",
+            "jitted train-step/loop launches", lbl).labels(loop)
+        self._obs_rate = reg.gauge(
+            "bigdl_train_records_per_sec",
+            "drained-step training throughput", lbl).labels(loop)
+        self._obs_queue = reg.gauge(
+            "bigdl_train_dispatch_queue_depth",
+            "dispatched-ahead steps awaiting loss readback", lbl).labels(loop)
+        self.sync_timeout_s = get_flag("BIGDL_TPU_SYNC_TIMEOUT_S", 0.0, float)
+        self._obs_sync_timeouts = reg.counter(
+            "bigdl_sync_timeouts_total",
+            "blocking loss-readback syncs over BIGDL_TPU_SYNC_TIMEOUT_S",
+            lbl).labels(loop)
+        self.anomaly = obs.StepTimeAnomalyDetector(loop=loop)
 
     def clear(self):
         """Drop the queued readouts (steps of a failed run)."""
         self.pending.clear()
+        self.last_drain = None
+        self.last_rate = None
 
     def push(self, loss, n, t0, k=1):
         self.pending.append({"loss": loss, "n": n, "t0": t0, "k": k,
                              "neval": self.driver_state["neval"],
                              "epoch": self.driver_state["epoch"]})
+        self._obs_dispatches.inc()
         while len(self.pending) > self.depth:
             self._drain_one()
+        self._obs_queue.set(len(self.pending))
 
     def drain_all(self):
         while self.pending:
@@ -233,8 +284,20 @@ class _DispatchAhead:
     def _drain_one(self):
         ent = self.pending.popleft()
         k = ent["k"]
-        # the one wait for the card: this step (or K-step loop) is done
-        losses = ent["loss"].detach().float().reshape(-1).tolist()
+        with obs.span("train/drain", neval=ent["neval"], k=k):
+            t_sync = time.perf_counter()
+            # inside the timed window: an injected delay reads as a slow
+            # sync and exercises the timeout accounting below
+            fault_point("train.drain", neval=ent["neval"])
+            # the one wait for the card: this step (or K-step loop) is done
+            losses = ent["loss"].detach().float().reshape(-1).tolist()
+            sync_s = time.perf_counter() - t_sync
+        if self.sync_timeout_s > 0 and sync_s > self.sync_timeout_s:
+            self._obs_sync_timeouts.inc()
+            logger.warning(
+                "loss readback for iteration %d blocked %.3fs (budget "
+                "%.3fs): the card (in the distributed loop, the allreduce) "
+                "is running long", ent["neval"], sync_s, self.sync_timeout_s)
         loss_f = losses[-1]
         now = time.time()
         prev = self.last_drain if self.last_drain is not None else ent["t0"]
@@ -244,7 +307,12 @@ class _DispatchAhead:
             rate = self.last_rate      # a burst of drains says nothing
         else:
             rate = ent["n"] / max(dt, 1e-9)
+            # a steady drain paces the card: dt / k is about one step
+            self.anomaly.observe(dt / k)
         self.last_rate = rate
+        self._obs_steps.inc(k)
+        self._obs_records.inc(ent["n"])
+        self._obs_rate.set(rate)
         self.driver_state["loss"] = loss_f
         if self.summary is not None:
             for i in range(k):
@@ -433,12 +501,18 @@ class Optimizer:
         path = self.checkpoint_path
 
         def write():
+            fault_point("ckpt.write", neval=neval)
             file_makedirs(path)
-            atomic_file_swap(path_join(path, f"model.{neval}"),
-                             lambda p: torch.save(weights, p))
-            atomic_file_swap(path_join(path, f"optimMethod.{neval}"),
+            model_path = path_join(path, f"model.{neval}")
+            method_path = path_join(path, f"optimMethod.{neval}")
+            atomic_file_swap(model_path, lambda p: torch.save(weights, p))
+            atomic_file_swap(method_path,
                              lambda p: method.save(p, state,
                                                    overwrite=True))
+            # storage corruption the atomic rename cannot prevent: a
+            # resume must fall back to an older pair
+            faults.corrupt_file("ckpt.write", model_path)
+            faults.corrupt_file("ckpt.write", method_path)
 
         if not get_flag("BIGDL_TPU_ASYNC_CHECKPOINT", True, bool):
             write()
@@ -466,6 +540,33 @@ class Optimizer:
                 exc, self._ckpt_exc = self._ckpt_exc, []
                 raise RuntimeError("async checkpoint write failed") \
                     from exc[0]
+
+    def _install_preempt_guard(self):
+        """Arm the SIGTERM guard at ``optimize()`` entry
+        (``BIGDL_TPU_PREEMPT_GUARD``, on; nothing off the main thread,
+        where CPython delivers no signal)."""
+        if get_flag("BIGDL_TPU_PREEMPT_GUARD", True, bool):
+            preempt.install()
+
+    def _check_preempt(self, driver_state, ahead, save):
+        """The preemption point, polled once a step: when the guard saw
+        SIGTERM (or the fault harness flipped it), drain the readout so
+        the loss and ``neval`` are current, write a final checkpoint with
+        ``save``, join the writer, and raise ``TrainingPreempted``."""
+        if not preempt.requested():
+            return
+        reason = preempt.reason()
+        if ahead is not None:
+            ahead.drain_all()
+        neval = driver_state["neval"]
+        logger.warning("preempted (%s): writing final checkpoint at "
+                       "iteration %d before exit", reason, neval)
+        with obs.span("train/preempt_checkpoint", neval=neval):
+            save()
+            self._join_checkpoint()
+        raise TrainingPreempted(
+            f"training preempted ({reason}); final checkpoint at "
+            f"iteration {neval}", neval=neval)
 
     def optimize(self):
         raise NotImplementedError
@@ -518,7 +619,11 @@ class Optimizer:
             x, y = self._place(item, x, y)
             t0 = time.time()
             self.metrics["data_time"] += t0 - t_data
-            loss = self._fn(x, y)
+            obs.record_span("train/feed", t_data, t0,
+                            neval=driver_state["neval"])
+            fault_point("train.step", neval=driver_state["neval"])
+            with obs.span("train/dispatch", neval=driver_state["neval"]):
+                loss = self._fn(x, y)
             records += x.shape[0]
             self._dispatched(ahead, driver_state, loss, x.shape[0], t0, 1)
             if self.end_when(driver_state):
@@ -542,7 +647,13 @@ class Optimizer:
                 j = self._plan_chunk(driver_state, sb.k - start)
                 t0 = time.time()
                 self.metrics["data_time"] += t0 - t_data
-                losses = self._fn(xs[start:start + j], ys[start:start + j])
+                obs.record_span("train/feed", t_data, t0,
+                                neval=driver_state["neval"])
+                fault_point("train.step", neval=driver_state["neval"])
+                with obs.span("train/dispatch", neval=driver_state["neval"],
+                              k=j):
+                    losses = self._fn(xs[start:start + j],
+                                      ys[start:start + j])
                 n = sum(sb.sizes[start:start + j])
                 records += n
                 self._dispatched(ahead, driver_state, losses, n, t0, j)
@@ -563,6 +674,8 @@ class Optimizer:
                           for p in self.model.parameters()])
 
     def _hooks(self, driver_state, ahead=None):
+        self._check_preempt(driver_state, ahead,
+                            lambda: self._checkpoint_now(driver_state))
         # decide which hooks fire, then catch the loss readout up: hooks
         # read driver_state, whose loss lags the queue otherwise
         do_val = (self.validation_trigger is not None
@@ -574,7 +687,8 @@ class Optimizer:
         if ahead is not None and (do_val or do_ckpt or do_hist):
             ahead.drain_all()
         if do_val:
-            results = self._validate_now()
+            with obs.span("train/validate", neval=driver_state["neval"]):
+                results = self._validate_now()
             if results:
                 first = next(iter(results.values()))
                 driver_state["score"] = first
@@ -584,7 +698,8 @@ class Optimizer:
                         self.validation_summary.add_scalar(
                             name, v, driver_state["neval"])
         if do_ckpt:
-            self._checkpoint_now(driver_state)
+            with obs.span("train/checkpoint", neval=driver_state["neval"]):
+                self._checkpoint_now(driver_state)
         if do_hist:
             self.train_summary.add_histogram(
                 "Parameters", self._flat_params().cpu().numpy(),
@@ -626,6 +741,7 @@ class LocalOptimizer(Optimizer):
     def optimize(self):
         ds = self.dataset
         self._ensure_ready()
+        self._install_preempt_guard()
         model = self.model
         opt_state = self.optim_method.init_state(
             dict(model.named_parameters()))

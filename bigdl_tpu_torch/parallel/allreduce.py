@@ -52,9 +52,11 @@ The gather and the reduce-scatter (with clipping) run inside
 
 Every copy between replicas is a new tensor (``torch.cat``, ``clone``):
 on a repeated device ``.to(device)`` returns the tensor itself, and one
-replica's in-place update must never reach another's state. The
-reference's ``obs`` counters and fault points wait for ROADMAP queue A.8(c);
-its sharded checkpoints and ``allreduce_bandwidth`` for A.10(b).
+replica's in-place update must never reach another's state. Each
+dispatch's wire bytes go to the obs registry through
+:func:`record_allreduce`, which is also the ``allreduce.sync`` fault site;
+the reference's sharded checkpoints and ``allreduce_bandwidth`` wait for
+ROADMAP queue A.10(b).
 """
 
 from __future__ import annotations
@@ -66,7 +68,9 @@ import math
 import torch
 from torch.profiler import record_function
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.optim.optimizer import cast_forward, make_loss_and_grads
+from bigdl_tpu_torch.resilience.faults import fault_point
 
 
 def ring_allreduce_bytes(n_elems, ndev, dtype=torch.bfloat16):
@@ -77,9 +81,21 @@ def ring_allreduce_bytes(n_elems, ndev, dtype=torch.bfloat16):
     return int(2 * (ndev - 1) / ndev * n_elems * itemsize)
 
 
-def record_allreduce(metrics, n_bytes):
-    """Add one dispatch's wire bytes to an optimizer's ``metrics``."""
-    metrics["allreduce_bytes"] += n_bytes
+def record_allreduce(n_bytes, seconds=None):
+    """Publish one allreduce's wire bytes, and when the caller timed a
+    blocking sync its seconds, on the obs registry
+    (``bigdl_allreduce_bytes_total``, ``bigdl_allreduce_sync_seconds``).
+    The distributed loop calls it once a dispatch with the ring's bytes
+    (its collectives run inside the step, so it has no seconds); it is
+    also the ``allreduce.sync`` fault site, inside the loop's retry, so an
+    injected error takes the reload-and-rebuild path a real fault
+    takes."""
+    fault_point("allreduce.sync", n_bytes=n_bytes)
+    obs.counter("bigdl_allreduce_bytes_total",
+                "wire bytes moved by gradient allreduce").inc(n_bytes)
+    if seconds is not None:
+        obs.histogram("bigdl_allreduce_sync_seconds",
+                      "blocking allreduce sync time").observe(seconds)
 
 
 def _order_key(name):

@@ -20,7 +20,13 @@ copies every replica's rows to its device.
   or after ``failure_retry_times`` failures (``BIGDL_TPU_FAILURE_RETRY_
   TIMES``, 5) less than ``BIGDL_TPU_FAILURE_RETRY_INTERVAL`` seconds
   (120) apart, it raises. A CUDA error is sticky, so a faulting kernel
-  fails again after the reload and raises once the budget is spent;
+  fails again after the reload and raises once the budget is spent.
+  ``TrainingPreempted`` is never retried: the preemption checkpoint (with
+  its ``driverState``) is already written;
+- the local loop's fault sites, spans, ``bigdl_train_*`` families
+  (``loop="distri"``) and preemption guard; each dispatch also passes the
+  ``allreduce.sync`` site and adds its ring bytes to
+  ``bigdl_allreduce_bytes_total`` (``allreduce.record_allreduce``);
 - a checkpoint writes the float32 masters (``_materialize`` puts them into
   ``model``, never the wire copy) and the optimizer state in the
   reference's gathered layout (``ZeroState.gathered_opt_state``).
@@ -46,6 +52,7 @@ from bigdl_tpu_torch.parallel.allreduce import (make_distributed_eval_step,
                                                 make_distributed_train_step,
                                                 record_allreduce,
                                                 ring_allreduce_bytes)
+from bigdl_tpu_torch.resilience.preempt import TrainingPreempted
 from bigdl_tpu_torch.utils.fileio import (atomic_write, file_exists,
                                           file_listdir, file_makedirs,
                                           file_open, path_join)
@@ -160,7 +167,8 @@ class DistriOptimizer(Optimizer):
         return self._step.state.opt_states
 
     def _count_dispatch(self, k):
-        record_allreduce(self.metrics, self._wire_bytes * k)
+        self.metrics["allreduce_bytes"] += self._wire_bytes * k
+        record_allreduce(self._wire_bytes * k)
 
     def optimize(self):
         if get_flag("BIGDL_TPU_SHARDED_CHECKPOINT", False, bool):
@@ -169,6 +177,7 @@ class DistriOptimizer(Optimizer):
                 "waits for ROADMAP queue A.10(b)")
         ds = self.dataset
         self._ensure_ready()
+        self._install_preempt_guard()
         self.metrics = self._fresh_metrics()
         self.retries = 0
         # the optimizer's own stream, on the host: each step draws one seed from
@@ -186,11 +195,16 @@ class DistriOptimizer(Optimizer):
                 "throughput %.1f records/s",
                 ndev, ent["epoch"], ent["neval"], loss_f, rate)
 
-        ahead = _DispatchAhead(driver_state, self.train_summary, log_iter)
+        ahead = _DispatchAhead(driver_state, self.train_summary, log_iter,
+                               loop="distri")
         failures, last_failure = 0, None
         while not self.end_when(driver_state):
             try:
                 self._train_epoch(ds, device, ahead, driver_state)
+            except TrainingPreempted:
+                # a deliberate exit, its final checkpoint written: a retry
+                # would defeat the preemption
+                raise
             except Exception:
                 # reload the latest checkpoint and rebuild (reference
                 # DistriOptimizer.scala:907-976); the queued readouts

@@ -1,7 +1,6 @@
 """Tensor-parallel layout: which dimension of each tensor is split over
 the shards, the devices the shards live on, and the three collectives the
-sharded model needs (the port of ``bigdl_tpu/parallel/layout.py`` without
-its training mesh, ``build_mesh``).
+sharded model needs (the port of ``bigdl_tpu/parallel/layout.py``).
 
 The reference names a 1-axis ``("tp",)`` device mesh and lets GSPMD place
 every tensor and insert the collectives. The port is single-controller in
@@ -18,7 +17,11 @@ the same way: one host thread drives every shard. Here:
   shard (a device may repeat: several shards on one card). It fits a role
   to a real shape (the reference's replicate fallback: a vocab of 61 at
   tp=2 stays whole) and splits state dicts.
-- :func:`serving_mesh` takes the first ``tp`` cards.
+- A mesh is a list of devices (a device may repeat). :func:`serving_mesh`
+  is the ``index``-th disjoint block of ``tp`` devices, so R replicas of a
+  fleet each bind their own sub-slice (``serving.router.make_tp_factory``);
+  :func:`num_subslices` counts the blocks; :func:`build_mesh` is the
+  training mesh, nested (data, fsdp, tp).
 - :func:`all_reduce_sum`, :func:`gather` and :func:`broadcast` take the
   place of GSPMD's psum and all-gather. The sum adds the parts on the
   first shard's device in shard order, then copies the one result to
@@ -96,17 +99,59 @@ class SpecLayout:
 
 
 # ------------------------------------------------------------------ meshes
-def serving_mesh(tp):
-    """The first ``tp`` visible cards, one per shard."""
-    tp, have = int(tp), torch.cuda.device_count()
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp > have:
-        raise ValueError(
-            f"mesh needs {tp} device(s) but only {have} are visible; pass "
+def _devices(devices):
+    """``devices`` as a list of ``torch.device`` (a device may repeat), or
+    every visible card for None (the reference's ``jax.devices()``)."""
+    if devices is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(d) for d in devices]
+
+
+def _need_devices_msg(need, have):
+    return (f"mesh needs {need} device(s) but only {have} are visible; pass "
             f"mesh=[...] with one device per shard (a device may repeat, "
             f"placing several shards on one card)")
-    return [torch.device("cuda", i) for i in range(tp)]
+
+
+def build_mesh(tp=1, fsdp=1, data=1, devices=None):
+    """A training-style mesh of shape (data, fsdp, tp): the first
+    ``data * fsdp * tp`` of ``devices`` (default: the visible cards) as
+    nested lists, ``mesh[d][f][t]``."""
+    devices = _devices(devices)
+    data, fsdp, tp = int(data), int(fsdp), int(tp)
+    need = data * fsdp * tp
+    if min(data, fsdp, tp) < 1:
+        raise ValueError(f"mesh axis sizes must be >= 1, got "
+                         f"data={data} fsdp={fsdp} tp={tp}")
+    if need > len(devices):
+        raise ValueError(_need_devices_msg(need, len(devices)))
+    return [[devices[(d * fsdp + f) * tp:(d * fsdp + f + 1) * tp]
+             for f in range(fsdp)] for d in range(data)]
+
+
+def serving_mesh(tp, index=0, devices=None):
+    """The ``index``-th disjoint block of ``tp`` devices of ``devices``
+    (default: the visible cards), one per shard: replica ``i`` of a fleet
+    binds ``devices[i*tp:(i+1)*tp]`` (``serving.router.make_tp_factory``
+    wires ``replica_id -> index``)."""
+    devices = _devices(devices)
+    tp, index = int(tp), int(index)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > len(devices):
+        raise ValueError(_need_devices_msg(tp, len(devices)))
+    n = len(devices) // tp
+    if not 0 <= index < n:
+        raise ValueError(
+            f"sub-slice index {index} out of range: {len(devices)} "
+            f"device(s) hold only {n} disjoint tp={tp} sub-slice(s)")
+    return devices[index * tp:(index + 1) * tp]
+
+
+def num_subslices(tp, devices=None):
+    """How many disjoint ``tp``-device sub-slices ``devices`` holds."""
+    return len(_devices(devices)) // max(1, int(tp))
 
 
 # ------------------------------------------------------------- collectives
@@ -220,5 +265,6 @@ class ModelLayout:
         return shards
 
 
-__all__ = ["SpecLayout", "ModelLayout", "serving_mesh", "reduce_sum",
+__all__ = ["SpecLayout", "ModelLayout", "build_mesh", "serving_mesh",
+           "num_subslices", "reduce_sum",
            "all_reduce_sum", "gather", "broadcast"]

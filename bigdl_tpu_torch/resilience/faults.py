@@ -15,9 +15,10 @@ Plan syntax: ``;``-separated rules, each ``site:kind[:key=val]...``::
 Kinds: ``error`` raises :class:`FaultError`; ``delay=S`` sleeps ``S``
 seconds; ``corrupt[=mode]`` mangles a just-written file
 (:func:`corrupt_file`; ``truncate``, ``garbage`` or ``empty``) or an
-in-memory plane list (:func:`corrupt_planes`); ``preempt`` parses, and
-raises ``NotImplementedError`` when it fires: the training preemption
-guard it flips is ROADMAP queue A.8(c). ``partial`` is ``corrupt=truncate``.
+in-memory plane list (:func:`corrupt_planes`); ``preempt`` flips the
+training preemption guard (:mod:`~bigdl_tpu_torch.resilience.preempt`)
+with a reason naming the site, and with ``signal=1`` also sends this
+process a real ``SIGTERM``. ``partial`` is ``corrupt=truncate``.
 
 Modifiers (combined with AND): ``p=F`` (seeded probability), ``after=N``
 (skip the first N matching calls), ``every=N``, ``times=K``, ``req=ID``
@@ -33,9 +34,14 @@ error skips the page, ``corrupt`` mangles the file after its rename) and
 ``serving.adapter_load`` (in ``serving.adapters.AdapterPool``'s ladder
 walk, ``digest=<hex>``: an error fails that one load with
 ``AdapterLoadError``, ``corrupt`` mangles the fetched planes through
-:func:`corrupt_planes`, which the digest check drops). The training sites
-(``train.step``, ``train.drain``, ``ckpt.write``, ``allreduce.sync``) and
-``fleet.failover`` are ROADMAP queue A.8(c). Every fire counts on the obs
+:func:`corrupt_planes`, which the digest check drops), ``fleet.failover``
+(``serving.router.EngineFleet``: in the health pass an error declares a
+replica dead; in a migration it fails that one hand-off), ``train.step``
+(before each dispatch of both optimizer loops), ``train.drain`` (inside
+the timed loss readback), ``ckpt.write`` (before a checkpoint's files are
+written; ``corrupt`` mangles them after their rename) and
+``allreduce.sync`` (each data-parallel dispatch's wire accounting). Every
+fire counts on the obs
 registry's ``bigdl_faults_injected_total{site, kind}`` (as in the
 reference), in :meth:`FaultPlan.counts` and in a WARNING log line.
 """
@@ -192,17 +198,19 @@ class FaultPlan:
 
     def check(self, site, ctx):
         """Evaluate every rule at ``site``: delays sleep, errors raise, a
-        ``preempt`` rule raises ``NotImplementedError`` (ROADMAP A.8(c)).
-        Acts outside the lock, so a sleep never serialises other sites."""
+        ``preempt`` rule flips the preemption guard. Acts outside the lock:
+        a sleep never serialises other sites, and the guard takes its own
+        lock."""
         for rule in self._fired(site, ctx, corrupt=False):
             _record(site, rule)
             if rule.kind == "delay":
                 time.sleep(rule.delay)
             elif rule.kind == "preempt":
-                raise NotImplementedError(
-                    f"fault kind 'preempt' fired at {site}: the training "
-                    f"preemption guard (resilience/preempt.py) is not "
-                    f"ported yet (ROADMAP queue A.8(c))")
+                from bigdl_tpu_torch.resilience import preempt
+                preempt.request(reason=f"injected at {site}")
+                if rule.signal:
+                    import signal as _signal
+                    os.kill(os.getpid(), _signal.SIGTERM)
             elif rule.kind == "error":
                 raise FaultError(f"injected fault at {site} "
                                  f"({rule.spec}, fire #{rule.fires})")

@@ -40,8 +40,13 @@ counts against the wedge detector. The reference's obs instruments
 labelled ``supervisor=<label>``) sit beside the plain attributes
 ``restarts``, ``resubmitted``, ``last_recovery_s`` and :meth:`state`; a
 restart first dumps the flight recorder, and each resubmitted request's
-timeline gets a ``supervisor_resubmit`` event. The fleet's
-``victim_sink`` is ROADMAP queue A.8(c).
+timeline gets a ``supervisor_resubmit`` event.
+
+A fleet (``serving.router.EngineFleet``) attaches a ``victim_sink``:
+victims that an open circuit would fail go to it instead, and another
+replica adopts them. :meth:`queue_depth` and :meth:`occupancy` are the
+router's load signals; :meth:`evacuate` hands every unfinished request
+over without spending the restart budget.
 """
 
 from __future__ import annotations
@@ -92,7 +97,8 @@ class EngineSupervisor:
     def __init__(self, factory, poll_interval_s=0.05, wedge_timeout_s=5.0,
                  warmup_grace_s=10.0, restore_grace_s=30.0,
                  backoff_base_s=0.05, backoff_max_s=2.0, max_restarts=5,
-                 restart_window_s=60.0, submit_wait_s=10.0, label=None):
+                 restart_window_s=60.0, submit_wait_s=10.0,
+                 obs_label=None):
         self._factory = factory
         self.poll_interval_s = float(poll_interval_s)
         self.wedge_timeout_s = float(wedge_timeout_s)
@@ -103,9 +109,9 @@ class EngineSupervisor:
         self.max_restarts = int(max_restarts)
         self.restart_window_s = float(restart_window_s)
         self.submit_wait_s = float(submit_wait_s)
-        self.label = (str(next(EngineSupervisor._ids)) if label is None
-                      else str(label))
-        self.obs_label = self.label
+        self.obs_label = (str(next(EngineSupervisor._ids))
+                          if obs_label is None else str(obs_label))
+        self.label = self.obs_label
         reg = obs.default_registry()
         lbl = ("supervisor",)
         self._obs = {
@@ -128,6 +134,9 @@ class EngineSupervisor:
         self.restarts = 0
         self.resubmitted = 0
         self.last_recovery_s = None
+        # set once by a fleet before any traffic, read lock-free after:
+        # callable(victims, error) adopting what an open circuit would fail
+        self.victim_sink = None
         self._lock = threading.Lock()
         self._victims = []              # handed over by failover/abandon
         self._open = False
@@ -160,7 +169,7 @@ class EngineSupervisor:
             if not stranded:
                 self._victims.extend(victims)
         if stranded:
-            self._fail(victims, CircuitOpenError(
+            self._dispose_victims(victims, CircuitOpenError(
                 f"supervisor {self.label}: circuit open"), error)
             return
         self._serving.clear()
@@ -260,7 +269,9 @@ class EngineSupervisor:
         if self._stop.wait(backoff):
             return
         if self._open:
-            self._fail(ordered, CircuitOpenError(
+            # a concurrent trip or a fleet evacuation: the replacement must
+            # not adopt these victims, the fleet's sink does
+            self._dispose_victims(ordered, CircuitOpenError(
                 f"supervisor {self.label}: circuit opened during restart"))
             return
         try:
@@ -302,7 +313,7 @@ class EngineSupervisor:
         except Exception:
             logger.exception("supervisor %s: abandon at trip failed",
                              self.label)
-        self._fail(victims, err, self.engine.scheduler.failed)
+        self._dispose_victims(victims, err, self.engine.scheduler.failed)
         self._serving.set()     # unblock submit waiters: they fast-fail
 
     @staticmethod
@@ -311,6 +322,25 @@ class EngineSupervisor:
             err.__cause__ = cause
         for r in _dedup(victims):
             r._finish(err)
+
+    def _dispose_victims(self, victims, err, cause=None):
+        """Hand the unfinished ``victims`` to the fleet's ``victim_sink``
+        when one is attached (another replica adopts them), else fail them
+        with ``err``. Runs outside the supervisor's lock: the sink
+        resubmits through other supervisors and may block."""
+        live = _dedup(victims)
+        if not live:
+            return
+        sink = self.victim_sink
+        if sink is not None:
+            try:
+                sink(live, err)
+                return
+            except Exception:
+                logger.exception("supervisor %s: victim sink failed; "
+                                 "failing %d request(s)", self.label,
+                                 len(live))
+        self._fail(live, err, cause)
 
     def evacuate(self, join_timeout=0.5):
         """Stop serving without spending restart budget: open the circuit
@@ -422,6 +452,36 @@ class EngineSupervisor:
                   "supervisor_resubmitted": self.resubmitted,
                   "last_recovery_s": self.last_recovery_s})
         return m
+
+    # --------------------------------------------------------- load signals
+    def queue_depth(self):
+        """The current engine's waiting-queue depth, the router's load
+        signal; a supervisor restarting or with its circuit open reports
+        ``1 << 30``, so routers steer new work elsewhere."""
+        if self._open or not self._serving.is_set():
+            return 1 << 30
+        try:
+            return self.engine.scheduler.queue_depth()
+        except Exception:
+            return 1 << 30
+
+    def occupancy(self):
+        """The current engine's slot occupancy in [0, 1], read from the
+        scheduler's published gauge (never loop-owned state); 1.0 while
+        restarting or open."""
+        if self._open or not self._serving.is_set():
+            return 1.0
+        try:
+            sch = self.engine.scheduler
+            return (self._gauge_value(sch._obs["slot_occupancy"])
+                    / max(1, sch.slots.max_slots))
+        except Exception:
+            return 1.0
+
+    @staticmethod
+    def _gauge_value(child):
+        v = child.value
+        return float(v) if v is not None else 0.0
 
     # ---------------------------------------------------------------- close
     def close(self, drain=True, timeout=None):

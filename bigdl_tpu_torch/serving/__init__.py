@@ -23,4 +23,14 @@ __all__ = ["ServingEngine", "SlotManager", "PageAllocator", "PagedSlotManager",
            "RequestCancelledError", "DeadlineExceededError",
            "AdapterPool", "AdapterPoolExhausted", "AdapterColdError",
            "AdapterLoadError", "AdmissionRejectedError", "AutoScaler",
-           "ControlPolicy", "FairQueue", "RateLimitedError", "TokenBucket"]
+           "ControlPolicy", "FairQueue", "RateLimitedError", "TokenBucket",
+           "EngineFleet"]
+
+
+def __getattr__(name):
+    # lazily: the router imports resilience.supervisor, which imports the
+    # scheduler from this package
+    if name == "EngineFleet":
+        from bigdl_tpu_torch.serving.router import EngineFleet
+        return EngineFleet
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,11 +21,10 @@ adds the policy layer that makes degradation *selective*:
   prefill is spent on them.
 - **Per-client rate limits** (:class:`TokenBucket`), rejected typed with
   :class:`RateLimitedError`.
-- **Autoscaling** (:class:`AutoScaler`): a control loop over a
-  duck-typed fleet (``replica_count()``, ``load()``, ``scale_to(n)``)
-  with hysteresis and cooldown. The port has no engine fleet yet
-  (ROADMAP queue A.8(c)): it runs against any object with those three
-  methods, as the reference's own tests drive it.
+- **Autoscaling** (:class:`AutoScaler`): a control loop over a fleet
+  (``replica_count()``, ``load()``, ``scale_to(n)``) with hysteresis and
+  cooldown: ``serving.router.EngineFleet``, or any object with those
+  three methods, as the reference's own tests drive it.
 
 Thread model: :class:`FairQueue` and :class:`TokenBucket` are NOT
 internally locked — the scheduler mutates its queue only under its
@@ -385,9 +384,8 @@ class AutoScaler:
     ``fleet`` needs three methods: ``replica_count()``, ``load()``
     (dict with at least ``queue_depth``, ``occupancy`` in [0, 1], and
     optionally ``page_occupancy``, ``ttft_p90``), and ``scale_to(n)``.
-    The reference's ``EngineFleet`` provides all three; the port's fleet
-    is ROADMAP queue A.8(c), so here it runs over stubs or any object
-    with those methods.
+    ``serving.router.EngineFleet`` provides all three, and takes the
+    ``prefer_unhealthy`` this loop forwards on scale-down.
 
     Scale-up votes: mean queue depth per replica above
     ``up_queue_depth``, occupancy above ``up_occupancy``, page

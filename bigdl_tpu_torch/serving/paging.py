@@ -418,7 +418,7 @@ class PagedSlotManager(SlotManager):
 
     def _shard_pools(self):
         """The pools as one per-layer list per shard."""
-        return [self._pools] if self.tp == 1 else self._pools
+        return self._pools if self.sharded else [self._pools]
 
     def warm_kernels(self):
         """The sampler's and this pool's paged-attention kernel (float or

@@ -711,8 +711,12 @@ class Scheduler:
         """Supervisor hand-off: stop this (possibly wedged) loop from ever
         touching its requests again and return the unfinished ones. The
         loop observes the flag at its next safe point and exits without
-        finishing anything."""
+        finishing anything. A second call returns nothing: the first
+        caller owns those requests (a fleet evacuation migrates them, and
+        the supervisor's later rebuild must not resubmit them again)."""
         with self._cond:
+            if self._abandoned:
+                return []
             self._abandoned = True
             self._accepting = False
             pool = (list(self._waiting) + list(self._limbo)

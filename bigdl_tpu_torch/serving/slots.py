@@ -188,6 +188,9 @@ class SlotManager:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         layout = getattr(model, "layout", None)
         self.tp = 1 if layout is None else layout.tp
+        # a tensor-parallel model, even over a mesh of one device, keeps
+        # its pools and caches as one list per shard
+        self.sharded = layout is not None
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)

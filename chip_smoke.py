@@ -325,6 +325,56 @@ Phases, each printing one JSON line (any failure exits non-zero):
    best-effort requests are shed with ``AdmissionRejectedError`` before
    any token (``bigdl_serving_shed_total`` by priority agrees), nothing
    hangs; then a client past its bucket of 4 gets ``RateLimitedError``.
+6f. slice_fleet — the engine fleet (``serving.router.EngineFleet``) on
+   ``slice``'s model, weights and traffic: two supervised replicas of
+   ``slice``'s paged engine on the one card (``make_tp_factory(...,
+   devices=["cuda:0", "cuda:0"])``, the source model on the CPU, each
+   replica snapshotting into one shared directory under its own journal),
+   rendezvous routing on blocks of 16, failover on. The 12 requests: all
+   retire; the greedy ones as ``slice``'s engine gave them (the near-tie
+   rule); requests 3 and 9 routed to one replica, whose prefix cache hits
+   at least 256 tokens; exactly 12 paged launches a prefill chunk and
+   decode step summed over the replicas, one sampler launch a sampled
+   step. An evacuation: greedy requests 0, 2, 3 and 11 (64 new tokens,
+   all routed to replica 0); once each has its first tokens,
+   ``evacuate_replica(0)`` migrates them to replica 1: every migrated
+   stream finishes with the fleet's own tokens of the first part (the
+   near-tie rule), its stream delivers each token once,
+   ``bigdl_fleet_migrations_total`` counts them, at least one resumes by
+   restoring pages from the shared store, the launch counts hold through
+   the restore; the seconds from the evacuation to each migrated stream's
+   next token. Replica 0 then comes back: the watcher re-arms its circuit
+   after 1 s, its supervisor rebuilds the engine (adopting none of the
+   migrated streams), and canary picks readmit it. The ``AutoScaler``
+   over the fleet: 32 short requests held by ``serving.step:delay=0.05``
+   (the schedulers' locks held while they are submitted) and one ``step``
+   scales it to 3 replicas; with replica 1's circuit opened,
+   ``scale_to(2, prefer_unhealthy=True)`` retires replica 1, not the
+   newest. After ``close()`` the card's allocated memory is within 64 MiB
+   of what it was before the phase. Reports tokens/s beside ``slice``'s
+   (two replicas on one card: the fleet's cost, not a gain), and the same
+   traffic's tokens/s through two replicas without the snapshot store or
+   failover (``no_store_tokens_per_s``), with the pages each replica's
+   store wrote.
+6g. train_preempt — preemption of a training run through the facade:
+   ResNet-50 (ImageNet, NHWC, float32), 96 seeded records in batches of 32
+   (3 an epoch), pinned shuffles, ``SGD(0.01)``, 4 iterations: once
+   uninterrupted, once under ``train.step:preempt:after=2:times=1``, which
+   raises ``TrainingPreempted`` after the third step with the final
+   checkpoint ``model.4`` / ``optimMethod.4`` (3 steps taken), and once
+   resumed from that checkpoint for the last iteration, all three with
+   cuDNN's deterministic algorithms (without them two uninterrupted runs
+   differ from the second step on). Checks: the preempted and resumed
+   losses within 1e-4 relative of the uninterrupted run's; each run's CUDA-core conv launches equal ``conv_routes`` times
+   its steps, no tensor-core launch, no 3x3 stride-1 ``F.conv2d``;
+   ``bigdl_train_steps_total`` and the ``train/dispatch`` spans one a
+   step. LeNet-5 through the facade, preempted by a real SIGTERM that its
+   summary sends this process at iteration 2: ``TrainingPreempted`` with
+   the reason ``SIGTERM`` and the checkpoint on disk, the previous handler
+   back afterwards. LeNet-5 through ``DistriOptimizer`` on two replicas of
+   the card: ``allreduce.sync:error:after=3`` retried once from the
+   checkpoint, ``train.step:preempt`` raised through the retry loop with
+   its ``driverState``.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -6369,6 +6419,630 @@ def phase_slice_control(torch, kernels, smi, cpu_ref):
     emit(line)
 
 
+# ------------------------------------------------- slice_fleet (A.8(c))
+# the engine fleet: two supervised replicas of slice's engine on the one
+# card (a device may repeat in make_tp_factory's list), failover on
+FLEET_DEVICES = ["cuda:0", "cuda:0"]
+FLEET_ROUTE_BLOCK = 16          # the engines' page size: the cache's chain
+FLEET_EVAC_IDX = [0, 2, 3, 11]  # greedy requests of the evacuation
+FLEET_PROBATION_S = 1.0
+FLEET_BACKLOG = 32              # short requests held by serving.step:delay
+FLEET_BACKLOG_DELAY = 0.05
+FLEET_MEMORY_SLACK = 64 << 20   # memory_allocated after close vs before
+
+
+class _DeliveryLog:
+    """Times of token deliveries by request (wrapping
+    ``Request._deliver``), to read the seconds from an evacuation to each
+    migrated stream's next token."""
+
+    def __init__(self):
+        from bigdl_tpu_torch.serving.scheduler import Request
+        self.times, self._request = {}, Request
+        self._deliver = Request._deliver
+        log = self
+
+        def deliver(req, chunk):
+            log.times.setdefault(req.id, []).append(time.perf_counter())
+            return log._deliver(req, chunk)
+
+        Request._deliver = deliver
+
+    def close(self):
+        self._request._deliver = self._deliver
+
+    def next_after(self, rid, t):
+        later = [x for x in self.times.get(rid, ()) if x > t]
+        return (min(later) - t) if later else None
+
+
+def _fleet_factory(model, params, root):
+    """Replica ``r``: slice's paged engine on its sub-slice of
+    FLEET_DEVICES, snapshotting into ``root`` under its own journal."""
+    from bigdl_tpu_torch.serving.router import make_tp_factory
+
+    def factory(replica_id=0):
+        return make_tp_factory(
+            model, params, tp=1, devices=FLEET_DEVICES, max_slots=8,
+            paged=True, page_size=16, prefill_chunk=64, top_k=50,
+            top_p=0.9, seed=0, prefix_cache=True, kv_snapshot=True,
+            snapshot_dir=root,
+            snapshot_journal=f"journal-{replica_id}.jsonl")(replica_id)
+    return factory
+
+
+def _fleet_plain_rate(model, params):
+    """tokens/s of ``slice``'s traffic through two replicas without the
+    snapshot store and with failover off: what the fleet itself costs,
+    beside what the store's page writes add."""
+    import numpy as np
+    from bigdl_tpu_torch.serving.router import EngineFleet, make_tp_factory
+    fleet = EngineFleet(make_tp_factory(
+        model, params, tp=1, devices=FLEET_DEVICES, max_slots=8,
+        paged=True, page_size=16, prefill_chunk=64, top_k=50, top_p=0.9,
+        seed=0), replicas=2, route_block=FLEET_ROUTE_BLOCK)
+    try:
+        rng = np.random.default_rng(0)
+        warm = rng.integers(0, 50257, 80)
+        for rep in fleet._replicas:
+            rep.sup.generate(warm, 4, temperature=0.8, timeout=300)
+        prompts = _traffic(rng)
+        t0 = time.perf_counter()
+        outs = [h.result(timeout=600) for h in _drive(fleet, prompts)]
+        wall = time.perf_counter() - t0
+    finally:
+        fleet.close(drain=False)
+    generated = sum(o.size - n for o, n in zip(outs, LENGTHS))
+    check(generated == 12 * N_NEW, f"slice_fleet without the store: "
+                                   f"{generated} of {12 * N_NEW} tokens")
+    return generated / wall
+
+
+def _fleet_dispatches(engines):
+    """Summed (prefill chunks + decode steps, sampled steps) of the
+    distinct ``engines`` (a replica not yet rebuilt still holds the
+    engine it was evacuated from)."""
+    distinct = {id(e): e for e in engines}.values()
+    snaps = [e.stats.snapshot() for e in distinct]
+    return (sum(s["prefill_chunks"] + s["steps"] for s in snaps),
+            sum(s["sampled_steps"] for s in snaps))
+
+
+def _fleet_run(torch, kernels, smi, params, model, root, line):
+    """The fleet's parts (see module docstring, 6f); returns nothing that
+    holds a replica, so the caller can read the card's memory after."""
+    import numpy as np
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import AutoScaler
+    from bigdl_tpu_torch.serving.router import (HEALTH_EJECTED, HEALTH_OK,
+                                                HEALTH_PROBATION,
+                                                EngineFleet)
+    n_layers = len(model.gpt.layers)
+    t0 = time.perf_counter()
+    fleet = EngineFleet(_fleet_factory(model, params, root), replicas=2,
+                        route_block=FLEET_ROUTE_BLOCK, failover=True,
+                        probation_s=FLEET_PROBATION_S,
+                        rebuild_budget_s=60.0,
+                        supervisor_kw=dict(submit_wait_s=60.0))
+    line["build_s"] = time.perf_counter() - t0
+    picks = []
+    pick = fleet._pick
+
+    def recording_pick(prompt, exclude=(), adapter=None):
+        rep = pick(prompt, exclude, adapter=adapter)
+        picks.append(rep.rid)
+        return rep
+
+    fleet._pick = recording_pick
+    log = _DeliveryLog()
+    scaler = None
+    try:
+        rng = np.random.default_rng(0)
+        warm = rng.integers(0, 50257, 80)        # slice's warm-up draw
+        for rep in fleet._replicas:
+            rep.sup.generate(warm, 4, temperature=0.8, timeout=300)
+        prompts = _traffic(rng)
+        engines = [rep.sup.engine for rep in fleet._replicas]
+        _reset_serving_counts()
+        for e in engines:
+            e.stats.reset()
+        picks.clear()
+        t_run = time.perf_counter()
+        handles = _drive(fleet, prompts)
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t_run
+        counts = _serving_counts()
+        dispatches, sampled = _fleet_dispatches(engines)
+        met = [e.metrics() for e in engines]
+        hits = [m["prefix_hit_tokens"] for m in met]
+        route = list(picks)
+        generated = sum(o.size - n for o, n in zip(outs, LENGTHS))
+        for i, o in enumerate(outs):
+            check(o.size == LENGTHS[i] + N_NEW,
+                  f"slice_fleet request {i}: {o.size - LENGTHS[i]} of "
+                  f"{N_NEW} tokens")
+        check(counts["paged_attention"] == n_layers * dispatches,
+              f"slice_fleet: paged attention launched "
+              f"{counts['paged_attention']} times for {dispatches} chunk "
+              f"and step dispatches of {n_layers} layers over the replicas")
+        check(counts["paged_attention_int8"] == 0,
+              "slice_fleet: the int8 paged kernel launched")
+        check(counts["fused_sampling"] == sampled,
+              f"slice_fleet: the sampler launched "
+              f"{counts['fused_sampling']} times for {sampled} sampled "
+              f"steps over the replicas")
+        check(route[3] == route[9] and max(hits) >= 256,
+              f"slice_fleet: requests 3 and 9 went to replicas {route[3]} "
+              f"and {route[9]}, prefix hit tokens {hits}")
+        div = _near_tie_check(torch, "slice_fleet", params,
+                              dict(enumerate(outs)), _NO_FAULT["paged"],
+                              GREEDY_IDX)
+        exact = all(np.array_equal(outs[i], _NO_FAULT["paged"][i])
+                    for i in GREEDY_IDX)
+        kernels["paged_attention"].setdefault("launches_by_phase", {})[
+            "slice_fleet"] = counts["paged_attention"]
+        kernels["fused_sampling"].setdefault("launches_by_phase", {})[
+            "slice_fleet"] = counts["fused_sampling"]
+        line.update({"requests": 12, "generated_tokens": int(generated),
+                     "wall_s": wall, "tokens_per_s": generated / wall,
+                     "replica_of_request": route,
+                     "prefix_hit_tokens_by_replica": hits,
+                     "snapshot_pages_written_by_replica":
+                         [m["snapshot_pages_written"] for m in met],
+                     "dispatches": dispatches, "sampled_steps": sampled,
+                     "launches": counts, "greedy_exact_vs_slice": exact,
+                     "divergences_vs_slice": div})
+
+        # evacuation: replica 0 mid-decode, its streams onto replica 1
+        evac = [prompts[i] for i in FLEET_EVAC_IDX]
+        old = fleet._replicas[0].sup.engine
+        engines = [old, fleet._replicas[1].sup.engine]
+        _reset_serving_counts()
+        for e in engines:
+            e.stats.reset()
+        picks.clear()
+        hs = [fleet.submit(p, N_NEW) for p in evac]
+        route_e = list(picks)
+        deadline = time.perf_counter() + 300
+        while not all(h.tokens for h in hs):
+            check(time.perf_counter() < deadline,
+                  "slice_fleet: evacuation streams never started")
+            time.sleep(0.001)
+        t_evac = time.perf_counter()
+        delivered = [len(h.tokens) for h in hs]
+        moved = fleet.evacuate_replica(0)
+        evac_s = time.perf_counter() - t_evac
+        outs_e = [h.result(timeout=600) for h in hs]
+        counts_e = _serving_counts()
+        dispatches_e, sampled_e = _fleet_dispatches(
+            engines + [fleet._replicas[0].sup.engine])
+        streams = [[int(t) for t in h] for h in hs]
+        migrated = [i for i, (h, r) in enumerate(zip(hs, route_e))
+                    if r == 0 and delivered[i] < N_NEW]
+        to_next = {FLEET_EVAC_IDX[i]: log.next_after(hs[i].id, t_evac)
+                   for i in migrated}
+        check(moved is not None and moved == len(migrated) >= 1,
+              f"slice_fleet: {moved} streams migrated, {len(migrated)} "
+              f"were live on replica 0 (routes {route_e})")
+        check(fleet._obs["migrations"].value == fleet.migrated_streams
+              == moved, f"slice_fleet: bigdl_fleet_migrations_total "
+              f"{fleet._obs['migrations'].value}, {moved} moved")
+        check(fleet.failover_restored >= 1 and fleet.failover_restored
+              + fleet.failover_reprefilled == moved,
+              f"slice_fleet: {fleet.failover_restored} restored, "
+              f"{fleet.failover_reprefilled} re-prefilled of {moved}")
+        for i, (o, s) in enumerate(zip(outs_e, streams)):
+            n = len(evac[i])
+            check(o.size == n + N_NEW and s == [int(t) for t in o[n:]],
+                  f"slice_fleet: evacuated stream {FLEET_EVAC_IDX[i]} "
+                  f"delivered {len(s)} tokens for {o.size - n}")
+        check(counts_e["paged_attention"] == n_layers * dispatches_e
+              and counts_e["fused_sampling"] == sampled_e,
+              f"slice_fleet evacuation: {counts_e} for {dispatches_e} "
+              f"dispatches, {sampled_e} sampled steps")
+        want = {i: outs[i] for i in FLEET_EVAC_IDX}
+        got = dict(zip(FLEET_EVAC_IDX, outs_e))
+        div_e = _near_tie_check(torch, "slice_fleet evacuation", params,
+                                got, want, FLEET_EVAC_IDX)
+        exact_e = all(np.array_equal(got[i], want[i])
+                      for i in FLEET_EVAC_IDX)
+        # probation: the watcher re-arms the circuit after probation_s, the
+        # supervisor rebuilds, canary picks readmit
+        deadline = time.perf_counter() + 120
+        while fleet.health()[0] != HEALTH_PROBATION:
+            check(time.perf_counter() < deadline,
+                  f"slice_fleet: replica 0 never entered probation "
+                  f"({fleet.health()})")
+            time.sleep(0.01)
+        t_probe = time.perf_counter()
+        canaries = []
+        while fleet.health()[0] != HEALTH_OK:
+            check(len(canaries) < 400, "slice_fleet: replica 0 was never "
+                                       "readmitted")
+            canaries.append(fleet.submit(rng.integers(0, 50257, 32), 4))
+        for h in canaries:
+            h.result(timeout=300)
+        readmit_s = time.perf_counter() - t_probe
+        check(fleet.readmissions == 1 and fleet.ejections == 1,
+              f"slice_fleet: {fleet.ejections} ejections, "
+              f"{fleet.readmissions} readmissions")
+        check(fleet._replicas[0].sup.resubmitted == 0,
+              "slice_fleet: the rebuilt replica adopted a migrated stream")
+        line["evacuation"] = {
+            "requests": FLEET_EVAC_IDX, "replica_of_request": route_e,
+            "delivered_at_evacuation": delivered, "migrated": moved,
+            "restored": fleet.failover_restored,
+            "reprefilled": fleet.failover_reprefilled,
+            "evacuate_s": evac_s, "s_to_next_token": to_next,
+            "dispatches": dispatches_e, "launches": counts_e,
+            "greedy_exact_vs_fleet": exact_e,
+            "divergences_vs_fleet": div_e,
+            "rebuild_s": fleet._replicas[0].sup.last_recovery_s,
+            "canaries": len(canaries), "readmit_s": readmit_s}
+        check(HEALTH_EJECTED not in fleet.health().values(),
+              f"slice_fleet: health {fleet.health()}")
+
+        # the AutoScaler over the fleet: a held backlog scales it to 3
+        scaler = AutoScaler(fleet, max_replicas=3, votes_to_scale=1,
+                            cooldown_s=0.0, obs_label="slice_fleet")
+        faults.configure(f"serving.step:delay={FLEET_BACKLOG_DELAY}")
+        locks = [rep.sup.engine.scheduler._cond for rep in fleet._replicas]
+        for lk in locks:
+            lk.acquire()
+        try:
+            backlog = [fleet.submit(rng.integers(0, 50257, 16), 4)
+                       for _ in range(FLEET_BACKLOG)]
+            load = fleet.load()
+            t_scale = time.perf_counter()
+            action = scaler.step()
+            scale_s = time.perf_counter() - t_scale
+        finally:
+            for lk in locks:
+                lk.release()
+        faults.configure(None)
+        for h in backlog:
+            h.result(timeout=300)
+        check(action == 1 and fleet.replica_count() == 3,
+              f"slice_fleet: the AutoScaler took action {action} on "
+              f"{load}, {fleet.replica_count()} replicas")
+        sick = fleet._replicas[1]
+        sick.sup.evacuate()                      # circuit open, no streams
+        retired = [r.rid for r in fleet._replicas]
+        fleet.scale_to(2, prefer_unhealthy=True)
+        left = [r.rid for r in fleet._replicas]
+        check(left == [0, 2],
+              f"slice_fleet: scale-down from {retired} left {left}; the "
+              f"circuit-open replica {sick.rid} must go first")
+        line["autoscaler"] = {"backlog": FLEET_BACKLOG, "load": load,
+                              "action": action, "scale_up_s": scale_s,
+                              "replicas_after_down": left}
+    finally:
+        faults.configure(None)
+        log.close()
+        if scaler is not None:
+            scaler.stop()
+        fleet.close(drain=False)
+
+
+def phase_slice_fleet(torch, kernels, smi, f32_line):
+    """The engine fleet on ``slice``'s model, weights and traffic (see
+    module docstring, 6f)."""
+    import gc
+    import shutil
+    import tempfile
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = gpt2_small(device="cpu")       # the card holds the replicas only
+    params = convert.init_params(model, seed=0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    line = {"phase": "slice_fleet", "model": "gpt2_small",
+            "layers": len(model.gpt.layers), "replicas": 2,
+            "devices": FLEET_DEVICES, "route_block": FLEET_ROUTE_BLOCK,
+            "card": smi}
+    try:
+        _fleet_run(torch, kernels, smi, params, model, root, line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["no_store_tokens_per_s"] = _fleet_plain_rate(model, params)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after - before <= FLEET_MEMORY_SLACK,
+          f"slice_fleet: {after - before} bytes still allocated on the "
+          f"card after close")
+    line.update({"memory_before_bytes": before,
+                 "memory_after_close_bytes": after,
+                 "slice_tokens_per_s": f32_line["tokens_per_s"]})
+    emit(line)
+
+
+# ------------------------------------------------ train_preempt (A.8(c))
+# ResNet-50 float32 through the facade, preempted by the fault harness and
+# resumed from its final checkpoint: 3 batches of 32 an epoch, so the
+# preemption after the third step falls at an epoch's end and the resumed
+# run's next shuffle is the uninterrupted run's second
+PREEMPT_RECORDS, PREEMPT_BATCH, PREEMPT_STEPS = 96, 32, 4
+PREEMPT_PLAN = "train.step:preempt:after=2:times=1"
+PREEMPT_LOSS_REL = 1e-4
+PREEMPT_DISTRI_PLANS = ("allreduce.sync:error:after=3:times=1",
+                        "train.step:preempt:after=2:times=1")
+
+
+def _preempt_counts(torch, run):
+    """``run()``'s conv launches, ``bigdl_train_steps_total{loop="local"}``
+    increment and ``train/dispatch`` spans; the counts set to 0 just
+    before."""
+    from bigdl_tpu_torch import obs
+    steps = obs.counter("bigdl_train_steps_total",
+                        "optimizer steps completed",
+                        ("loop",)).labels("local")
+    obs.default_tracer().clear()
+    torch.cuda.synchronize()
+    _reset_conv_counts()
+    before = steps.value
+    err = None
+    try:
+        run()
+    except Exception as e:           # the caller checks what was raised
+        err = e
+    torch.cuda.synchronize()
+    spans = [s.name for s in obs.default_tracer().spans()]
+    return err, _conv_counts(), steps.value - before, \
+        spans.count("train/dispatch")
+
+
+def _preempt_resnet(torch, kernels, smi, root):
+    """ResNet-50's three runs with cuDNN's deterministic algorithms (the
+    library convolutions and every weight gradient): without them two
+    uninterrupted runs on the card differ by 1e-6 relative at the second
+    step and by percents at the fourth, which would hide the resume."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return _preempt_resnet_runs(torch, kernels, smi, root)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _preempt_resnet_runs(torch, kernels, smi, root):
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import ResNet, conv_routes
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.optim.methods import OptimMethod
+    from bigdl_tpu_torch.resilience import TrainingPreempted, faults, preempt
+
+    n, b, hw = PREEMPT_RECORDS, PREEMPT_BATCH, RESNET_HW
+    rng = np.random.default_rng(19)
+    images = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    labels = rng.integers(0, 1000, n).astype(np.int32)
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    params = convert.init_resnet_params(model, seed=0)
+    routes = conv_routes(model, (hw, hw))
+
+    def dataset():
+        return _pin_shuffle(DataSet.array(
+            [Sample(images[i], labels[i]) for i in range(n)])
+            >> SampleToMiniBatch(b))
+
+    def facade(weights, ds, steps, log, ckpt=None):
+        model.load_state_dict(weights)
+        opt = Optimizer(model=model, dataset=ds,
+                        criterion=ClassNLLCriterion())
+        opt.set_optim_method(SGD(learningrate=0.01))
+        opt.set_end_when(Trigger.max_iteration(steps))
+        if ckpt is not None:       # only the preemption writes one
+            opt.set_checkpoint(ckpt, Trigger.several_iteration(1000))
+        opt.set_train_summary(log)
+        return opt
+
+    runs = {}
+    full = _Scalars()
+    runs["uninterrupted"] = _preempt_counts(
+        torch, facade(params, dataset(), PREEMPT_STEPS, full).optimize)
+    ds = dataset()
+    cut = _Scalars()
+    faults.configure(PREEMPT_PLAN)
+    try:
+        t0 = time.perf_counter()
+        runs["preempted"] = _preempt_counts(
+            torch, facade(params, ds, PREEMPT_STEPS, cut, ckpt=root)
+            .optimize)
+        preempt_s = time.perf_counter() - t0
+        fired = faults.active_plan().counts()
+    finally:
+        faults.configure(None)
+    err = runs["preempted"][0]
+    check(isinstance(err, TrainingPreempted),
+          f"train_preempt: the preempted run raised {err!r}")
+    neval = err.neval
+    reason = preempt.reason()
+    preempt.clear()
+    _, state = OptimMethod.load(f"{root}/optimMethod.{neval}")
+    check(neval == 4 and int(state["step"]) == 3 and fired ==
+          {("train.step", "preempt"): 1},
+          f"train_preempt: neval {neval}, step {int(state['step'])}, "
+          f"faults {fired}")
+    weights = torch.load(f"{root}/model.{neval}", map_location="cuda")
+    rest = _Scalars()
+    runs["resumed"] = _preempt_counts(
+        torch, facade(weights, ds, PREEMPT_STEPS - (neval - 1), rest)
+        .optimize)
+    check(runs["resumed"][0] is None and runs["uninterrupted"][0] is None,
+          f"train_preempt: {runs['uninterrupted'][0]!r}, "
+          f"{runs['resumed'][0]!r}")
+    losses = cut.losses + rest.losses
+    rel = [abs(g - w) / abs(w) for g, w in zip(losses, full.losses)]
+    check(len(losses) == len(full.losses) == PREEMPT_STEPS
+          and all(np.isfinite(losses)) and max(rel) <= PREEMPT_LOSS_REL,
+          f"train_preempt: preempted + resumed losses {losses} vs the "
+          f"uninterrupted run's {full.losses}")
+    launches = {}
+    for name, (_, counts, steps, dispatch_spans) in runs.items():
+        n_steps = {"uninterrupted": PREEMPT_STEPS, "preempted": neval - 1,
+                   "resumed": PREEMPT_STEPS - (neval - 1)}[name]
+        for kind in ("k9", "i2c"):
+            check(counts[kind] == 0 and counts[f"{kind}_cuda_core"]
+                  == routes[kind] * n_steps,
+                  f"train_preempt {name}: conv3x3_{kind} ran "
+                  f"{counts[kind]} tensor-core and "
+                  f"{counts[f'{kind}_cuda_core']} CUDA-core launches for "
+                  f"{n_steps} steps of {routes[kind]}")
+        check("3x3/s1" not in counts["library"],
+              f"train_preempt {name}: a 3x3 stride-1 convolution reached "
+              f"F.conv2d: {counts['library']}")
+        check(steps == dispatch_spans == n_steps,
+              f"train_preempt {name}: bigdl_train_steps_total +{steps}, "
+              f"{dispatch_spans} train/dispatch spans for {n_steps} steps")
+        launches[name] = {"k9": counts["k9_cuda_core"],
+                          "i2c": counts["i2c_cuda_core"]}
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_preempt"] = sum(v[kind] for v in launches.values())
+    return {"records": n, "batch": b, "image": hw, "plan": PREEMPT_PLAN,
+            "optimizer": "SGD(0.01)", "cudnn_deterministic": True,
+            "reason": reason,
+            "preempted_neval": neval, "checkpoint_step": int(state["step"]),
+            "losses_uninterrupted": full.losses,
+            "losses_preempted_resumed": losses, "loss_rel_diff": rel,
+            "preempted_run_s": preempt_s, "conv_routes_per_step": routes,
+            "cuda_core_launches": launches}
+
+
+def _preempt_sigterm(torch, root, prev):
+    """LeNet-5 through the facade, preempted by a real SIGTERM sent to
+    this process from its summary (the main thread) at iteration 2;
+    ``prev`` is the handler the guard must put back."""
+    import os
+    import signal
+    from bigdl_tpu_torch.dataset.mnist import mnist_dataset
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.resilience import TrainingPreempted, preempt
+
+    preempt.uninstall()          # the earlier runs armed it: start from prev
+    check(signal.getsignal(signal.SIGTERM) is prev,
+          "train_preempt: the guard did not put the handler back")
+
+    class Kill(_Scalars):
+        def add_scalar(self, tag, value, step):
+            super().add_scalar(tag, value, step)
+            if tag == "Loss" and step == 2:
+                # only with the guard armed: unguarded, SIGTERM ends us
+                check(signal.getsignal(signal.SIGTERM) is not prev,
+                      "train_preempt: the guard is not installed")
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    opt = Optimizer(model=LeNet5(10, device="cuda", seed=1),
+                    dataset=mnist_dataset(training=True,
+                                          batch_size=LENET_BATCH,
+                                          synthetic_size=LENET_TRAIN),
+                    criterion=ClassNLLCriterion())
+    opt.set_optim_method(SGD(learningrate=0.05))
+    opt.set_end_when(Trigger.max_epoch(1))
+    opt.set_checkpoint(root, Trigger.several_iteration(1000))
+    opt.set_train_summary(Kill())
+    err = None
+    try:
+        opt.optimize()
+    except TrainingPreempted as e:
+        err = e
+    reason = preempt.reason()
+    preempt.clear()
+    preempt.uninstall()
+    restored = signal.getsignal(signal.SIGTERM) is prev
+    check(err is not None and reason == "SIGTERM" and restored
+          and os.path.exists(f"{root}/model.{err.neval}"),
+          f"train_preempt SIGTERM: {err!r}, reason {reason}, previous "
+          f"handler restored: {restored}")
+    return {"neval": err.neval, "reason": reason,
+            "handler_restored": restored}
+
+
+def _preempt_distri(torch, root):
+    """LeNet-5 through ``DistriOptimizer`` on two replicas of the card:
+    an ``allreduce.sync`` error retried once from the checkpoint, then a
+    preemption through the retry loop."""
+    import os
+    import numpy as np
+    from bigdl_tpu_torch.dataset.mnist import mnist_dataset
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.resilience import TrainingPreempted, faults, preempt
+
+    out = {}
+    for plan in PREEMPT_DISTRI_PLANS:
+        ckpt = os.path.join(root, plan.split(":")[0])
+        opt = Optimizer(model=LeNet5(10, device="cuda", seed=1),
+                        dataset=mnist_dataset(training=True,
+                                              batch_size=LENET_BATCH,
+                                              distributed=True,
+                                              synthetic_size=LENET_TRAIN),
+                        criterion=ClassNLLCriterion(), mesh=DISTRI_MESH)
+        opt.set_optim_method(SGD(learningrate=0.05))
+        opt.set_end_when(Trigger.max_epoch(1))
+        opt.set_checkpoint(ckpt, Trigger.several_iteration(2))
+        log = _Scalars()
+        opt.set_train_summary(log)
+        faults.configure(plan)
+        err = None
+        try:
+            opt.optimize()
+        except TrainingPreempted as e:
+            err = e
+        finally:
+            fired = faults.active_plan().counts()
+            faults.configure(None)
+            preempt.clear()
+        out[plan] = {"retries": opt.retries, "faults": {
+            f"{s}:{k}": v for (s, k), v in fired.items()},
+            "preempted_neval": None if err is None else err.neval,
+            "losses": log.losses}
+        if plan.startswith("allreduce"):
+            check(err is None and opt.retries == 1
+                  and all(np.isfinite(log.losses)),
+                  f"train_preempt distri: {plan} gave {err!r}, "
+                  f"{opt.retries} retries")
+        else:
+            check(err is not None and opt.retries == 0 and os.path.exists(
+                f"{ckpt}/driverState.{err.neval}"),
+                f"train_preempt distri: {plan} gave {err!r}, "
+                f"{opt.retries} retries")
+    return out
+
+
+def phase_train_preempt(torch, kernels, smi):
+    """Training preemption through the facade and ``DistriOptimizer``
+    (see module docstring, 6g)."""
+    import shutil
+    import signal
+    import tempfile
+    from bigdl_tpu_torch.resilience import preempt
+    prev = signal.getsignal(signal.SIGTERM)
+    root = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    try:
+        resnet = _preempt_resnet(torch, kernels, smi, f"{root}/resnet")
+        torch.cuda.empty_cache()
+        sigterm = _preempt_sigterm(torch, f"{root}/sigterm", prev)
+        distri = _preempt_distri(torch, f"{root}/distri")
+    finally:
+        preempt.uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+    check(signal.getsignal(signal.SIGTERM) is prev,
+          "train_preempt: the SIGTERM handler was not put back")
+    emit({"phase": "train_preempt", "resnet50": resnet,
+          "sigterm_lenet": sigterm, "distri_lenet": distri, "card": smi})
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -6428,6 +7102,8 @@ def main():
     run("slice_lora", phase_slice_lora, torch, kernels, smi, f32_line,
         dense_line, cpu_ref)
     run("slice_control", phase_slice_control, torch, kernels, smi, cpu_ref)
+    run("slice_fleet", phase_slice_fleet, torch, kernels, smi, f32_line)
+    run("train_preempt", phase_train_preempt, torch, kernels, smi)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

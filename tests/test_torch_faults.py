@@ -8,7 +8,7 @@ the same pattern; ``corrupt_file`` and ``mangle_planes`` change the same
 bytes for the same seed. The reference side runs through plan objects
 (``FaultPlan.parse`` / ``check`` / ``mangle``), so only the port's global
 plan is ever armed, and an autouse fixture resets it. The ``preempt`` kind
-parses in the port and, when it fires, raises naming ROADMAP A.8(c).
+flips the port's preemption guard with the reference's reason.
 """
 
 import numpy as np
@@ -132,13 +132,32 @@ def test_disarmed_is_noop():
 
 
 def test_preempt_kind_parses_and_names_a8():
-    plan = faults.configure("train.step:preempt:after=1:times=1")
-    assert plan.rules[0].kind == "preempt"
-    faults.fault_point("train.step")     # skipped by after=1
-    with pytest.raises(NotImplementedError, match=r"A\.8\(c\)"):
+    """Once a refusal naming ROADMAP A.8(c), the kind now flips the
+    port's preemption guard as the reference's flips its own: the reason
+    names the site, ``after``/``times`` gate it, and the reference's guard
+    is left alone."""
+    from bigdl_tpu.resilience import preempt as jpreempt
+    from bigdl_tpu_torch.resilience import preempt
+    preempt.clear()
+    jpreempt.clear()
+    try:
+        plan = faults.configure("train.step:preempt:after=1:times=1")
+        assert plan.rules[0].kind == "preempt"
+        faults.fault_point("train.step")     # skipped by after=1
+        assert not preempt.requested()
         faults.fault_point("train.step")
-    faults.fault_point("train.step")     # times=1: quiet again
-    assert plan.counts() == {("train.step", "preempt"): 1}
+        assert preempt.requested()
+        assert preempt.reason() == "injected at train.step"
+        assert not jpreempt.requested()
+        faults.fault_point("train.step")     # times=1: quiet again
+        assert plan.counts() == {("train.step", "preempt"): 1}
+        jfaults.configure("train.step:preempt:times=1")
+        jfaults.fault_point("train.step")
+        assert jpreempt.reason() == preempt.reason()
+    finally:
+        jfaults.configure(None)
+        preempt.clear()
+        jpreempt.clear()
 
 
 def test_delay_kind_sleeps(monkeypatch):

@@ -7,7 +7,10 @@ Every parameter's split dimension must be the one the reference's
 through ``_jax_path`` (``convert``'s name table: a transposed Linear
 weight splits the other dimension), float and int8. ``fit``'s replicate
 fallback, ``validate_heads`` and ``serving_mesh`` behave as the
-reference's; state dicts split and re-join exactly; the collectives give every shard the same bits.
+reference's, and ``serving_mesh(tp, index=, devices=)``, ``num_subslices``
+and ``build_mesh`` pick the reference's blocks (a device may repeat in
+the port's lists); state dicts split and re-join exactly; the collectives
+give every shard the same bits.
 """
 
 import jax
@@ -20,12 +23,15 @@ from bigdl_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from bigdl_tpu.nn.quantized import quantize_params
 from bigdl_tpu.parallel.layout import ModelLayout as JaxLayout
 from bigdl_tpu.parallel.layout import SpecLayout as JaxSpec
+from bigdl_tpu.parallel.layout import build_mesh as jax_build_mesh
+from bigdl_tpu.parallel.layout import num_subslices as jax_num_subslices
 from bigdl_tpu.parallel.layout import serving_mesh as jax_serving_mesh
 from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.models.gpt import GPTForCausalLM, partition_specs
 from bigdl_tpu_torch.parallel.layout import (ModelLayout, SpecLayout,
                                              all_reduce_sum, broadcast,
-                                             gather, reduce_sum,
+                                             build_mesh, gather,
+                                             num_subslices, reduce_sum,
                                              serving_mesh)
 
 CFG = dict(vocab_size=64, hidden_size=32, n_layers=2, n_heads=4,
@@ -144,6 +150,72 @@ def test_serving_mesh_blocks_and_errors(monkeypatch):
         serving_mesh(16)
     with pytest.raises(ValueError, match=">= 1"):
         serving_mesh(0)
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3, 4])
+def test_serving_mesh_index_picks_the_reference_blocks(multi_device_cpu, tp):
+    """Block ``index`` of ``tp`` devices is the reference's, device for
+    device (ids 0-7 against the 8 virtual CPU devices), and both refuse
+    the same indices."""
+    jdevs = multi_device_cpu
+    ids = list(range(len(jdevs)))
+    devs = [torch.device("cuda", i) for i in ids]
+    n = jax_num_subslices(tp, devices=jdevs)
+    assert num_subslices(tp, devices=devs) == n == len(jdevs) // tp
+    for index in range(n):
+        want = [d.id for d in jax_serving_mesh(tp, index=index,
+                                               devices=jdevs).devices.flat]
+        got = serving_mesh(tp, index=index, devices=devs)
+        assert [d.index for d in got] == want
+    for bad in (n, -1):
+        with pytest.raises(ValueError, match="out of range") as je:
+            jax_serving_mesh(tp, index=bad, devices=jdevs)
+        with pytest.raises(ValueError, match="out of range") as pe:
+            serving_mesh(tp, index=bad, devices=devs)
+        assert str(pe.value) == str(je.value)
+
+
+def test_serving_mesh_on_repeated_devices():
+    """Several replicas on one card: the list may repeat a device, and
+    each sub-slice is its block of the list."""
+    devs = ["cpu"] * 4
+    assert num_subslices(2, devices=devs) == 2
+    assert num_subslices(3, devices=devs) == 1
+    assert serving_mesh(1, index=3, devices=devs) == [torch.device("cpu")]
+    assert serving_mesh(2, index=1, devices=devs) == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="out of range"):
+        serving_mesh(2, index=2, devices=devs)
+    with pytest.raises(ValueError, match="mesh="):
+        serving_mesh(5, devices=devs)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 1, 4), (1, 2, 2),
+                                   (2, 2, 2), (8, 1, 1)])
+def test_build_mesh_shape_matches_the_reference(multi_device_cpu, shape):
+    data, fsdp, tp = shape
+    jdevs = multi_device_cpu
+    jm = jax_build_mesh(tp=tp, fsdp=fsdp, data=data, devices=jdevs)
+    got = build_mesh(tp=tp, fsdp=fsdp, data=data,
+                     devices=[torch.device("cuda", d.id) for d in jdevs])
+    assert np.asarray([[[d.index for d in row] for row in plane]
+                       for plane in got]).tolist() == \
+        np.vectorize(lambda d: d.id)(jm.devices).tolist()
+    assert jm.devices.shape == (data, fsdp, tp)
+
+
+def test_build_mesh_errors_match_the_reference(multi_device_cpu):
+    jdevs = multi_device_cpu
+    devs = ["cpu"] * len(jdevs)
+    for kw in (dict(tp=0), dict(data=-1), dict(fsdp=0, tp=2)):
+        with pytest.raises(ValueError, match=">= 1") as je:
+            jax_build_mesh(devices=jdevs, **kw)
+        with pytest.raises(ValueError, match=">= 1") as pe:
+            build_mesh(devices=devs, **kw)
+        assert str(pe.value) == str(je.value)
+    with pytest.raises(ValueError, match="needs 16 device"):
+        jax_build_mesh(tp=4, data=4, devices=jdevs)
+    with pytest.raises(ValueError, match="needs 16 device.*mesh="):
+        build_mesh(tp=4, data=4, devices=devs)
 
 
 def test_serving_mesh_without_cards_names_mesh(monkeypatch):

@@ -56,7 +56,8 @@ def _port_engine(state_dict, **kw):
 
 
 def _serve(engine, prompts, **kw):
-    handles = [engine.submit(p, N_NEW, **kw) for p in prompts]
+    with engine.scheduler._cond:
+        handles = [engine.submit(p, N_NEW, **kw) for p in prompts]
     return [engine.result(h, timeout=WAIT) for h in handles]
 
 

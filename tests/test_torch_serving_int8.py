@@ -68,7 +68,8 @@ def _port_model(params):
 
 
 def _serve(engine, prompts):
-    handles = [engine.submit(p, N_NEW) for p in prompts]
+    with engine.scheduler._cond:
+        handles = [engine.submit(p, N_NEW) for p in prompts]
     return [engine.result(h, timeout=WAIT) for h in handles]
 
 

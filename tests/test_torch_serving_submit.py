@@ -156,7 +156,10 @@ def test_zero_recovery_budget_serves_then_gives_up_like_the_reference(
                          SlotManager._step)
         errors = []
         for e in (jeng, eng):
-            hs = [e.submit(p, 20) for p in PROMPTS[:2]]
+            # The burst is admitted together: outside the lock the scheduler
+            # could run the failing step before the second ``submit``.
+            with e.scheduler._cond:
+                hs = [e.submit(p, 20) for p in PROMPTS[:2]]
             for h in hs:
                 with pytest.raises(RuntimeError) as info:
                     h.result(timeout=WAIT)

@@ -60,7 +60,8 @@ def _port_engine(sd, **kw):
 
 def _serve(engine, prompts, n_new=N_NEW):
     try:
-        handles = [engine.submit(p, n_new) for p in prompts]
+        with engine.scheduler._cond:
+            handles = [engine.submit(p, n_new) for p in prompts]
         return [engine.result(h, timeout=WAIT) for h in handles]
     finally:
         engine.shutdown()
