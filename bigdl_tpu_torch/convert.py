@@ -49,7 +49,20 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
   n in graph.exec_order]``, in the order the port's ``Graph`` numbers its
   nodes;
 - :func:`module_params_to_jax` is its inverse, ``(params, state)`` in
-  that layout (a graph's as such lists).
+  that layout (a graph's as such lists);
+- both walk the recurrent wrappers as the reference nests their params:
+  a ``Recurrent``'s (and ``RecurrentDecoder``'s) are its cell's, a
+  ``MultiRNNCell``'s the list of its cells', a ``BiRecurrent``'s
+  ``{"fwd", "bwd"}``, a ``TimeDistributed``'s its inner module's; each
+  leaf is laid out by ``nn.module.jax_perm`` (convolution and
+  convolutional-cell weights HWIO / DHWIO -> OIHW / OIDHW, Linear
+  weights (in, out) -> (out, in); embeddings, cell products and tree
+  weights as they are) and keeps an int8 type (the quantised layers'
+  ``{"weight": int8, "scale", "bias", "in_scale"}``), other leaves
+  float32;
+- :func:`model_state_to_jax` / :func:`model_state_from_jax` carry a
+  model's buffers alone, in the reference's layout (a container's lists,
+  a ResNet's name-keyed dict), as a sharded checkpoint stores them.
 
 BERT (``models/transformer.py``): :func:`bert_params_from_jax` and
 :func:`bert_params_to_jax` map a ``BertForMLM`` tree (``{"bert": {"tok_emb",
@@ -70,8 +83,10 @@ import collections
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.nn import Bottle, Container, Graph, MapTable
-from bigdl_tpu_torch.nn.module import init_state_dict
+from bigdl_tpu_torch.nn import (BiRecurrent, Bottle, Container, Graph,
+                                MapTable, MultiRNNCell, Recurrent,
+                                TimeDistributed)
+from bigdl_tpu_torch.nn.module import init_state_dict, jax_perm
 
 
 def _put(sd, key, arr, transpose=False, dtype=np.float32):
@@ -274,32 +289,6 @@ def init_bert_tree(model, seed=0):
     return {"bert": b, "head": head}
 
 
-def _to_port(leaf, a):
-    """A reference leaf in the port's layout: convolution weights HWIO ->
-    OIHW, Linear weights (in, out) -> (out, in) (the ported layers' only
-    weights of 4 and 2 dimensions), other leaves as they are."""
-    a = np.asarray(a, dtype=np.float32)
-    if leaf == "weight" and a.ndim == 4:
-        return a.transpose(3, 2, 0, 1)
-    if leaf == "weight" and a.ndim == 2:
-        return a.T
-    return a
-
-
-def _to_jax(leaf, t):
-    """The inverse of :func:`_to_port` on a port tensor (numpy float32)."""
-    a = t.detach().cpu().float().numpy()
-    if leaf == "weight" and a.ndim == 4:
-        a = a.transpose(2, 3, 1, 0)
-    elif leaf == "weight" and a.ndim == 2:
-        a = a.T
-    return np.array(a, order="C")
-
-
-def _tensor(a):
-    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
-
-
 def resnet_params_from_jax(params_by_name, state_by_name=None):
     """The port's ``ResNet`` state_dict from name-keyed reference params
     and BN state (numpy arrays; see module docstring)."""
@@ -307,7 +296,7 @@ def resnet_params_from_jax(params_by_name, state_by_name=None):
     for tree in (params_by_name, state_by_name or {}):
         for name, leaves in tree.items():
             for leaf, a in leaves.items():
-                sd[f"{name}.{leaf}"] = _tensor(_to_port(leaf, a))
+                sd[f"{name}.{leaf}"] = _leaf_from_jax(None, leaf, a)
     return sd
 
 
@@ -318,7 +307,7 @@ def resnet_params_to_jax(state_dict):
     for key, t in state_dict.items():
         name, leaf = key.rsplit(".", 1)
         tree = state if leaf in ("running_mean", "running_var") else params
-        tree.setdefault(name, {})[leaf] = _to_jax(leaf, t)
+        tree.setdefault(name, {})[leaf] = _leaf_to_jax(None, leaf, t)
     return params, state
 
 
@@ -335,10 +324,64 @@ def init_resnet_tree(model, seed=0):
     return resnet_params_to_jax(init_resnet_params(model, seed))
 
 
+def _inverse(perm):
+    return tuple(int(i) for i in np.argsort(perm))
+
+
+def _leaf_from_jax(module, leaf, a):
+    """A reference leaf of ``module`` as a port tensor (module
+    docstring)."""
+    a = np.asarray(a)
+    perm = jax_perm(module, leaf, a.ndim)
+    if perm is not None:
+        a = a.transpose(_inverse(perm))
+    dtype = np.int8 if a.dtype == np.int8 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
+
+
+def _leaf_to_jax(module, leaf, t):
+    """The inverse of :func:`_leaf_from_jax` on a port tensor."""
+    t = t.detach().cpu()
+    a = (t if t.dtype == torch.int8 else t.float()).numpy()
+    perm = jax_perm(module, leaf, a.ndim)
+    if perm is not None:
+        a = a.transpose(perm)
+    return np.array(a, order="C")
+
+
+def _wrapped(module):
+    """``[(key prefix, child, key of the child's params)]`` of a
+    recurrent wrapper (module docstring): key None where the child's
+    params are the wrapper's own, else an index or a dict key; None for
+    any other module."""
+    if isinstance(module, Recurrent):
+        return [("cell.", module.cell, None)]
+    if isinstance(module, TimeDistributed):
+        return [("module.", module.module, None)]
+    if isinstance(module, BiRecurrent):
+        return [("fwd.", module.fwd, "fwd"), ("bwd.", module.bwd, "bwd")]
+    if isinstance(module, MultiRNNCell):
+        return [(f"{i}.", c, i) for i, c in enumerate(module.children())]
+    return None
+
+
+def _sub(tree, key):
+    if key is None or tree is None:
+        return tree
+    if isinstance(tree, (list, tuple, dict)) and len(tree):
+        return tree[key]
+    return None
+
+
 def _leaves(module, params, state, prefix=""):
     """``(key prefix, leaf module, params, state)`` of every leaf under a
     container ``module``, walked beside the reference's trees."""
-    if isinstance(module, (MapTable, Bottle)):
+    wrapped = _wrapped(module)
+    if wrapped is not None:
+        for pre, child, key in wrapped:
+            yield from _leaves(child, _sub(params, key), _sub(state, key),
+                               prefix + pre)
+    elif isinstance(module, (MapTable, Bottle)):
         yield from _leaves(module[0], params, state, prefix + "0.")
     elif isinstance(module, (Container, Graph)):
         if isinstance(params, dict):
@@ -357,10 +400,10 @@ def module_params_from_jax(model, params, state=None):
     params (and BN state) of the same architecture, numpy arrays (see
     module docstring)."""
     sd = collections.OrderedDict()
-    for prefix, _, p, st in _leaves(model, params, state):
+    for prefix, m, p, st in _leaves(model, params, state):
         for tree in (p, st):
             for leaf, a in (tree or {}).items():
-                sd[prefix + leaf] = _tensor(_to_port(leaf, a))
+                sd[prefix + leaf] = _leaf_from_jax(m, leaf, a)
     return sd
 
 
@@ -372,21 +415,66 @@ def module_params_to_jax(model, state_dict=None):
     sd = model.state_dict() if state_dict is None else state_dict
 
     def walk(module, prefix):
+        wrapped = _wrapped(module)
+        if wrapped is not None:
+            pairs = [(key, walk(c, prefix + pre)) for pre, c, key in wrapped]
+            if pairs[0][0] is None:
+                return pairs[0][1]
+            # the reference's wrappers keep no state of their own
+            state = [s for _, (_, s) in pairs]
+            if isinstance(module, BiRecurrent):
+                return ({k: p for k, (p, _) in pairs},
+                        {k: s for k, (_, s) in pairs}
+                        if any(state) else ())
+            return [p for _, (p, _) in pairs], state if any(state) else ()
         if isinstance(module, (MapTable, Bottle)):
             return walk(module[0], prefix + "0.")
         if isinstance(module, (Container, Graph)):
             pairs = [walk(c, f"{prefix}{i}.")
                      for i, c in enumerate(module.children())]
             return [p for p, _ in pairs], [s for _, s in pairs]
-        params = {name: _to_jax(name, sd[prefix + name])
-                  for name, _ in module.named_parameters(recurse=False)
-                  if prefix + name in sd}
-        state = {name: _to_jax(name, sd[prefix + name])
+        # a quantised layer's int8 weight, scale and in_scale buffers are
+        # the reference's params
+        own = set(getattr(module, "param_buffers", ()))
+        params = {name: _leaf_to_jax(module, name, sd[prefix + name])
+                  for name, _ in (list(module.named_parameters(recurse=False))
+                                  + list(module.named_buffers(recurse=False)))
+                  if prefix + name in sd
+                  and (name in own or not _is_buffer(module, name))}
+        state = {name: _leaf_to_jax(module, name, sd[prefix + name])
                  for name, _ in module.named_buffers(recurse=False)
-                 if prefix + name in sd}
+                 if prefix + name in sd and name not in own}
         return params or (), state or ()
 
     return walk(model, "")
+
+
+def _is_buffer(module, name):
+    return name in dict(module.named_buffers(recurse=False))
+
+
+def model_state_to_jax(model):
+    """``model``'s buffers in the reference's state layout (numpy
+    float32): a ResNet's ``{layer name: {"running_mean",
+    "running_var"}}``, any other model's :func:`module_params_to_jax`
+    state."""
+    from bigdl_tpu_torch.models.resnet import ResNet
+    if isinstance(model, ResNet):
+        return resnet_params_to_jax(dict(model.named_buffers()))[1]
+    return module_params_to_jax(model)[1]
+
+
+def model_state_from_jax(model, state):
+    """The partial ``state_dict`` (buffers) of a reference state tree
+    laid out as :func:`model_state_to_jax` gives it."""
+    from bigdl_tpu_torch.models.resnet import ResNet
+    if isinstance(model, ResNet):
+        return resnet_params_from_jax({}, state)
+    sd = collections.OrderedDict()
+    for prefix, m, st, _ in _leaves(model, state, None):
+        for leaf, a in (st or {}).items():
+            sd[prefix + leaf] = _leaf_from_jax(m, leaf, a)
+    return sd
 
 
 def adapter_from_jax(tree):

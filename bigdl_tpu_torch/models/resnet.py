@@ -50,6 +50,8 @@ class ResNet(nn.Module):
     module docstring); ``forward(x, generator=None)`` returns
     log-probabilities (B, class_num)."""
 
+    quantizer_walks = True    # nn.quantized.Quantizer swaps in layers
+
     def __init__(self, class_num=1000, depth=50, shortcut_type="B",
                  data_set="ImageNet", format=None, device=None):
         super().__init__()

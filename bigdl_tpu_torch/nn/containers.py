@@ -29,6 +29,8 @@ from bigdl_tpu_torch.nn.module import Module, call_with_generator
 
 
 class Container(Module):
+    quantizer_walks = True    # nn.quantized.Quantizer swaps in children
+
     def __init__(self, *modules):
         super().__init__()
         for m in modules:

@@ -1,5 +1,6 @@
 """2-D convolution (the port of ``bigdl_tpu/nn/conv.py``
-``SpatialConvolution``: any ``n_group``, dilation 1).
+``SpatialConvolution`` and ``SpatialDilatedConvolution``: any
+``n_group``, any dilation).
 
 The weight is OIHW, ``(O, I / n_group, kh, kw)`` as torch's ``F.conv2d``
 takes it (the reference's HWIO ``(kh, kw, I / n_group, O)``), kept in
@@ -16,19 +17,23 @@ Routes:
   group's channels of the input and its rows of the weight, and
   concatenates the groups' outputs;
 - every other one (the ResNet stem's 7x7, the 1x1s, stride-2 3x3s,
-  AlexNet's grouped 5x5) is ``F.conv2d`` (``groups=n_group``), as the
-  reference leaves those to XLA outside any Pallas kernel. An NHWC input
-  goes in as the channels-last NCHW view ``x.permute(0, 3, 1, 2)``, which
-  cuDNN takes without a copy. ``SpatialConvolution.library_calls`` counts
-  these calls by geometry (``"3x3/s2"``, ...), so a run can show that no
+  AlexNet's grouped 5x5, a dilated 3x3) is ``F.conv2d``
+  (``groups=n_group``, ``dilation``), as the reference leaves those to XLA
+  outside any Pallas kernel. An NHWC input goes in as the channels-last
+  NCHW view ``x.permute(0, 3, 1, 2)``, which cuDNN takes without a copy.
+  ``SpatialConvolution.library_calls`` counts these calls by geometry
+  (``"3x3/s2"``, ``"3x3/s1/d2"``, ...), so a run can show that no
   kernel-route convolution reached the library.
+
+:func:`conv2d` is that choice for a bare NCHW or NHWC tensor and an OIHW
+weight; the convolutional LSTM cells (``nn/recurrent.py``) call it.
 
 An NCHW input in ``torch.channels_last`` memory order is NHWC in memory,
 so the kernels read it without a copy.
 
 ``w_regularizer``/``b_regularizer`` join the training loss
-(``nn.module.regularization_loss``). Dilation is not ported (ROADMAP
-A.11(d)).
+(``nn.module.regularization_loss``). With ``pad = -1`` a dilated
+convolution's SAME padding is over its dilated extent, as XLA's.
 """
 
 from __future__ import annotations
@@ -52,6 +57,46 @@ def same_padding(size, k, s):
     return total // 2, total - total // 2
 
 
+def conv2d(x, weight, stride=(1, 1), padding=((0, 0), (0, 0)),
+           dilation=(1, 1), groups=1, nhwc=False):
+    """``x`` (NCHW, or NHWC with ``nhwc``) convolved with the OIHW
+    ``weight``, no bias, in ``x``'s layout: a 3x3 stride-1 undilated
+    convolution padded by 1 on every side through the hand-written kernels
+    (once a group), any other through ``F.conv2d`` and counted in
+    ``SpatialConvolution.library_calls`` (module docstring). ``padding``
+    is ((top, bottom), (left, right))."""
+    kh, kw = weight.shape[2:]
+    if (kh == kw == 3 and tuple(stride) == (1, 1)
+            and tuple(dilation) == (1, 1)
+            and tuple(padding) == ((1, 1), (1, 1))):
+        y = _kernel_route(x if nhwc else x.permute(0, 2, 3, 1), weight,
+                          groups)
+        return y if nhwc else y.permute(0, 3, 1, 2)
+    geometry = f"{kh}x{kw}/s{stride[0]}"
+    if tuple(dilation) != (1, 1):
+        geometry += f"/d{dilation[0]}"
+    SpatialConvolution.library_calls[geometry] += 1
+    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    (t, b), (l, r) = padding
+    if t == b and l == r:
+        pad = (t, l)
+    else:
+        xc, pad = F.pad(xc, (l, r, t, b)), (0, 0)
+    y = F.conv2d(xc, weight, None, tuple(stride), pad, tuple(dilation),
+                 groups)
+    return y.permute(0, 2, 3, 1) if nhwc else y
+
+
+def _kernel_route(x, weight, groups):
+    """The 3x3 kernels on NHWC ``x``, once per group."""
+    if groups == 1:
+        return conv3x3(x, weight)
+    ci, co = x.shape[-1] // groups, weight.shape[0] // groups
+    return torch.cat([conv3x3(x[..., i * ci:(i + 1) * ci],
+                              weight[i * co:(i + 1) * co])
+                      for i in range(groups)], dim=-1)
+
+
 class SpatialConvolution(Module):
     """Reference ``nn/SpatialConvolution.scala:54`` (see module
     docstring)."""
@@ -66,9 +111,6 @@ class SpatialConvolution(Module):
         super().__init__()
         self.w_regularizer = w_regularizer
         self.b_regularizer = b_regularizer
-        if dilation_w != 1 or dilation_h != 1:
-            raise NotImplementedError("dilated convolutions are not ported "
-                                      "(ROADMAP A.11(d))")
         if format not in ("NCHW", "NHWC"):
             raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
         if n_input_plane % n_group or n_output_plane % n_group:
@@ -81,6 +123,7 @@ class SpatialConvolution(Module):
         self.kernel_w, self.kernel_h = kernel_w, kernel_h
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
+        self.dilation_w, self.dilation_h = dilation_w, dilation_h
         self.format = format
         device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
@@ -93,58 +136,41 @@ class SpatialConvolution(Module):
         else:
             self.register_parameter("bias", None)
 
+    def _extent(self):
+        """The dilated kernel's (height, width)."""
+        return ((self.kernel_h - 1) * self.dilation_h + 1,
+                (self.kernel_w - 1) * self.dilation_w + 1)
+
     def padding(self, h, w):
         """((top, bottom), (left, right)) for an h x w input."""
         if self.pad_h == -1 or self.pad_w == -1:
-            return (same_padding(h, self.kernel_h, self.stride_h),
-                    same_padding(w, self.kernel_w, self.stride_w))
+            eh, ew = self._extent()
+            return (same_padding(h, eh, self.stride_h),
+                    same_padding(w, ew, self.stride_w))
         return (self.pad_h, self.pad_h), (self.pad_w, self.pad_w)
 
     def output_hw(self, h, w):
         (t, b), (l, r) = self.padding(h, w)
-        return ((h + t + b - self.kernel_h) // self.stride_h + 1,
-                (w + l + r - self.kernel_w) // self.stride_w + 1)
+        eh, ew = self._extent()
+        return ((h + t + b - eh) // self.stride_h + 1,
+                (w + l + r - ew) // self.stride_w + 1)
 
     def uses_kernel(self, h, w):
         """Does an h x w input take the 3x3 kernels?"""
         return (self.kernel_h == self.kernel_w == 3
                 and self.stride_h == self.stride_w == 1
+                and self.dilation_h == self.dilation_w == 1
                 and self.padding(h, w) == ((1, 1), (1, 1)))
 
     def forward(self, x):
         nhwc = self.format == "NHWC"
         h, w = x.shape[1:3] if nhwc else x.shape[2:4]
-        if self.uses_kernel(h, w):
-            y = self._kernel_route(x if nhwc else x.permute(0, 2, 3, 1))
-            if not nhwc:
-                y = y.permute(0, 3, 1, 2)
-        else:
-            SpatialConvolution.library_calls[
-                f"{self.kernel_h}x{self.kernel_w}/s{self.stride_h}"] += 1
-            xc = x.permute(0, 3, 1, 2) if nhwc else x
-            (t, b), (l, r) = self.padding(h, w)
-            if t == b and l == r:
-                pad = (t, l)
-            else:
-                xc, pad = F.pad(xc, (l, r, t, b)), (0, 0)
-            y = F.conv2d(xc, self.weight, None,
-                         (self.stride_h, self.stride_w), pad,
-                         groups=self.n_group)
-            if nhwc:
-                y = y.permute(0, 2, 3, 1)
+        y = conv2d(x, self.weight, (self.stride_h, self.stride_w),
+                   self.padding(h, w), (self.dilation_h, self.dilation_w),
+                   self.n_group, nhwc)
         if self.bias is not None:
             y = y + self.bias.reshape((1, 1, 1, -1) if nhwc else (1, -1, 1, 1))
         return y
-
-    def _kernel_route(self, x):
-        """The 3x3 kernels on NHWC ``x``, once per group."""
-        g = self.n_group
-        if g == 1:
-            return conv3x3(x, self.weight)
-        ci, co = self.n_input_plane // g, self.n_output_plane // g
-        return torch.cat([conv3x3(x[..., i * ci:(i + 1) * ci],
-                                  self.weight[i * co:(i + 1) * co])
-                          for i in range(g)], dim=-1)
 
     def init_arrays(self, rng):
         # Glorot-uniform over one group's fans, as the reference's Xavier
@@ -165,4 +191,17 @@ class SpatialConvolution(Module):
                 f"{self.kernel_w}x{self.kernel_h}, "
                 f"{self.stride_w},{self.stride_h}, {self.pad_w},{self.pad_h}, "
                 f"{self.format}"
-                + (f", groups={self.n_group}" if self.n_group > 1 else ""))
+                + (f", groups={self.n_group}" if self.n_group > 1 else "")
+                + (f", dilation {self.dilation_w}x{self.dilation_h}"
+                   if (self.dilation_w, self.dilation_h) != (1, 1) else ""))
+
+
+class SpatialDilatedConvolution(SpatialConvolution):
+    """Reference ``nn/SpatialDilatedConvolution.scala``: the same layer
+    with the reference's short argument names."""
+
+    def __init__(self, n_input_plane, n_output_plane, kw, kh, dw=1, dh=1,
+                 pad_w=0, pad_h=0, dilation_w=1, dilation_h=1, **kwargs):
+        super().__init__(n_input_plane, n_output_plane, kw, kh, dw, dh,
+                         pad_w, pad_h, dilation_w=dilation_w,
+                         dilation_h=dilation_h, **kwargs)

@@ -1,5 +1,6 @@
-"""Classification criterions (the port of ``bigdl_tpu/nn/criterion.py``
-``ClassNLLCriterion`` and ``CrossEntropyCriterion``).
+"""Criterions (the port of ``bigdl_tpu/nn/criterion.py``
+``ClassNLLCriterion``, ``CrossEntropyCriterion`` and
+``TimeDistributedCriterion``).
 
 Labels are 0-based class indices; a label equal to ``padding_value``
 contributes nothing. With ``size_average`` the sum is divided by the
@@ -57,3 +58,24 @@ class CrossEntropyCriterion(nn.Module):
 
     def forward(self, input, target):
         return self.nll(F.log_softmax(input, dim=-1), target)
+
+
+class TimeDistributedCriterion(nn.Module):
+    """``critrn`` at every step of axis ``dimension`` of (batch, time,
+    ...) inputs and targets, summed in step order, divided by the steps
+    with ``size_average`` (reference ``nn/TimeDistributedCriterion.scala``)."""
+
+    def __init__(self, critrn, size_average=False, dimension=1):
+        super().__init__()
+        self.critrn = critrn
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def forward(self, input, target):
+        target = torch.as_tensor(target, device=input.device)
+        steps = input.shape[self.dimension]
+        total = 0.0
+        for s in range(steps):
+            total = total + self.critrn(input.select(self.dimension, s),
+                                        target.select(self.dimension, s))
+        return total / steps if self.size_average else total

@@ -29,6 +29,8 @@ def Input():
 class Graph(Module):
     """Static DAG module (reference ``nn/Graph.scala:72``)."""
 
+    quantizer_walks = True    # nn.quantized.Quantizer swaps in nodes
+
     def __init__(self, inputs, outputs):
         super().__init__()
         self.input_nodes = (list(inputs) if isinstance(inputs, (list, tuple))

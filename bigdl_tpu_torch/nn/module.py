@@ -19,6 +19,14 @@ reference's training API reads from them:
   distributions (see :func:`init_state_dict`);
 - ``layer(node)`` on graph nodes builds a :class:`Node` (``nn/graph.py``),
   as in the reference; on tensors it is the forward;
+- ``regularized_leaves()``: the ``(parameter name, regularizer)`` pairs
+  a layer's regularizers penalise (default ``weight`` by
+  ``w_regularizer`` and ``bias`` by ``b_regularizer``; a recurrent cell's
+  are its input, recurrent and bias weights);
+- :func:`jax_perm`: how a layer's tensor is laid out against the
+  reference's (``jax_perms``, a class's own table, over the default:
+  a 4-D ``weight`` OIHW for the reference's HWIO, a 2-D one (out, in) for
+  its (in, out));
 - :func:`takes_generator`: does a module's ``forward`` take the
   ``generator`` its layers draw from (``Dropout``, the containers, the
   GPT and ResNet models)? The reference hands its rng to every layer and
@@ -115,6 +123,23 @@ class Module(nn.Module):
         layers without parameters draw nothing."""
         return {}
 
+    def regularized_leaves(self):
+        """``[(own parameter name, regularizer)]`` (module docstring)."""
+        return [("weight", self.w_regularizer), ("bias", self.b_regularizer)]
+
+
+_DEFAULT_PERMS = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def jax_perm(module, leaf, ndim):
+    """The permutation that puts ``module``'s tensor ``leaf`` (of ``ndim``
+    dimensions) in the reference's layout, or None when the layouts agree
+    (module docstring)."""
+    perms = getattr(module, "jax_perms", None) or {}
+    if leaf in perms:
+        return perms[leaf]
+    return _DEFAULT_PERMS.get(ndim) if leaf == "weight" else None
+
 
 @functools.cache
 def _forward_takes_generator(cls):
@@ -160,17 +185,18 @@ def grad_scales(module):
 
 
 def regularizers(module):
-    """``[(parameter name, regularizer)]`` of every ``w_regularizer`` /
-    ``b_regularizer`` under ``module`` (a module shared by several
-    containers counts once)."""
+    """``[(parameter name, regularizer)]`` of every set regularizer that
+    a layer's ``regularized_leaves()`` names under ``module`` (a module
+    shared by several containers counts once; a module that is not the
+    port's carries none)."""
     out = []
     seen = set()
     for prefix, m, _ in _walk(module):
         if id(m) in seen:
             continue
         seen.add(id(m))
-        for leaf, reg in (("weight", getattr(m, "w_regularizer", None)),
-                          ("bias", getattr(m, "b_regularizer", None))):
+        leaves = getattr(m, "regularized_leaves", None)
+        for leaf, reg in (leaves() if leaves is not None else ()):
             if reg is not None and getattr(m, leaf, None) is not None:
                 out.append((prefix + leaf, reg))
     return out

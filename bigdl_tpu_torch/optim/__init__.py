@@ -23,7 +23,8 @@ from bigdl_tpu_torch.optim.schedules import (Default, EpochDecay,
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               LossResult, Top1Accuracy,
-                                              Top5Accuracy, ValidationMethod)
+                                              Top5Accuracy, TreeNNAccuracy,
+                                              ValidationMethod)
 
 __all__ = ["LBFGS", "MAE", "SGD", "AccuracyResult", "Adadelta", "Adagrad",
            "Adam", "Adamax", "AdamW", "Default", "DistriPredictor",
@@ -34,6 +35,6 @@ __all__ = ["LBFGS", "MAE", "SGD", "AccuracyResult", "Adadelta", "Adagrad",
            "MultiStep", "NaturalExp", "OptimMethod", "Optimizer", "Plateau",
            "Poly", "Predictor", "RMSprop", "Regime", "Regularizer",
            "SequentialSchedule", "Step", "Top1Accuracy", "Top5Accuracy",
-           "Trigger", "ValidationMethod", "Validator", "Warmup",
+           "TreeNNAccuracy", "Trigger", "ValidationMethod", "Validator", "Warmup",
            "clip_by_global_norm", "clip_by_value", "make_loss_and_grads",
            "make_train_loop", "make_train_step"]

@@ -514,6 +514,12 @@ class Optimizer:
             faults.corrupt_file("ckpt.write", model_path)
             faults.corrupt_file("ckpt.write", method_path)
 
+        self._spawn_ckpt_writer(f"ckpt-{neval}", write)
+
+    def _spawn_ckpt_writer(self, name, write):
+        """Run ``write`` behind a thread named ``name``
+        (``BIGDL_TPU_ASYNC_CHECKPOINT``, on; else here); its exception
+        surfaces at the next :meth:`_join_checkpoint`."""
         if not get_flag("BIGDL_TPU_ASYNC_CHECKPOINT", True, bool):
             write()
             return
@@ -525,8 +531,7 @@ class Optimizer:
             except BaseException as e:  # surfaced at the next join
                 exc.append(e)
 
-        self._ckpt_thread = threading.Thread(target=run,
-                                             name=f"ckpt-{neval}",
+        self._ckpt_thread = threading.Thread(target=run, name=name,
                                              daemon=True)
         self._ckpt_exc = exc
         self._ckpt_thread.start()

@@ -1,14 +1,13 @@
 """Validation methods and their results (the port of
 ``bigdl_tpu/optim/validation.py``, reference
 ``optim/ValidationMethod.scala:72-332``): ``Top1Accuracy``,
-``Top5Accuracy``, ``Loss`` and ``MAE``, whose results add up across
-batches.
+``Top5Accuracy``, ``Loss``, ``MAE`` and ``TreeNNAccuracy``, whose results
+add up across batches.
 
 ``counters(output, target, valid=None)`` gives ``(value, count)`` as
 tensors; ``valid``, a per-sample bool vector, masks a padded tail's
 repeated rows out of both, expanded to per-token rows for sequence
-outputs (``_row_mask``). ``TreeNNAccuracy`` waits for the tree-LSTM
-(ROADMAP queue A.11).
+outputs (``_row_mask``).
 """
 
 from __future__ import annotations
@@ -161,3 +160,20 @@ class MAE(ValidationMethod):
 
     def make_result(self, value, count):
         return LossResult(float(value), int(count))
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """Accuracy of a tree output's first node (reference
+    ``ValidationMethod.scala`` ``TreeNNAccuracy``): ``output`` (B, N, C)
+    or (B, C)."""
+
+    name = "TreeNNAccuracy"
+
+    def counters(self, output, target, valid=None):
+        out = output[:, 0, :] if output.dim() == 3 else output
+        pred = torch.argmax(out, dim=-1)
+        t = torch.as_tensor(target, device=pred.device).reshape(-1).long()
+        return _hits(pred == t, valid)
+
+    def make_result(self, value, count):
+        return AccuracyResult(int(value), int(count))

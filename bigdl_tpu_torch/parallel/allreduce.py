@@ -54,9 +54,15 @@ Every copy between replicas is a new tensor (``torch.cat``, ``clone``):
 on a repeated device ``.to(device)`` returns the tensor itself, and one
 replica's in-place update must never reach another's state. Each
 dispatch's wire bytes go to the obs registry through
-:func:`record_allreduce`, which is also the ``allreduce.sync`` fault site;
-the reference's sharded checkpoints and ``allreduce_bandwidth`` wait for
-ROADMAP queue A.10(b).
+:func:`record_allreduce`, which is also the ``allreduce.sync`` fault site.
+
+:func:`allreduce_bandwidth` times the step's two collectives (or a plain
+sum over the replicas) on a device list, and :func:`ici_peak_gbps` gives
+the link peak it is held against: the H100 SXM's NVLink 4, 450 GB/s a
+direction (NVIDIA's datasheet: 900 GB/s both ways). On a list whose
+devices repeat, no byte crosses a link for a repeated device (``.to()``
+aliases, the copies stay on the card), so it reports the seconds and the
+ring's bytes and no bandwidth.
 """
 
 from __future__ import annotations
@@ -64,13 +70,16 @@ from __future__ import annotations
 import copy
 import inspect
 import math
+import time
 
 import torch
 from torch.profiler import record_function
 
 from bigdl_tpu_torch import obs
+from bigdl_tpu_torch.nn.module import jax_perm
 from bigdl_tpu_torch.optim.optimizer import cast_forward, make_loss_and_grads
 from bigdl_tpu_torch.resilience.faults import fault_point
+from bigdl_tpu_torch.utils.flags import get_flag
 
 
 def ring_allreduce_bytes(n_elems, ndev, dtype=torch.bfloat16):
@@ -103,31 +112,34 @@ def _order_key(name):
                  for c in name.split("."))
 
 
-def _jax_perm(name, ndim):
-    """The permutation that puts a port tensor in the reference's layout
-    (``convert._to_jax``), or None."""
-    if name.rsplit(".", 1)[-1] == "weight":
-        if ndim == 4:
-            return (2, 3, 1, 0)
-        if ndim == 2:
-            return (1, 0)
-    return None
+def _jax_perms(params, module):
+    """``{name: the permutation that puts the tensor in the reference's
+    layout, or None}`` (``nn.module.jax_perm`` of its owning layer; the
+    default rule without ``module``)."""
+    owners = dict(module.named_modules()) if module is not None else {}
+    out = {}
+    for name, t in params.items():
+        prefix, leaf = name.rpartition(".")[::2]
+        out[name] = jax_perm(owners.get(prefix), leaf, t.dim())
+    return out
 
 
 class AllReduceParameter:
     """The flat, slice-owned view of a module's parameters (API of
     ``AllReduceParameter.scala``): ``params`` is ``{name: tensor}`` in the
-    port's layout. The flat vector is float32, in the reference's order
-    and layout (module docstring), zero-padded to a multiple of
-    ``n_partitions``."""
+    port's layout, of ``module`` when given (whose layers name their
+    layouts, ``nn.module.jax_perm``). The flat vector is float32, in the
+    reference's order and layout (module docstring), zero-padded to a
+    multiple of ``n_partitions``."""
 
-    def __init__(self, params, n_partitions):
+    def __init__(self, params, n_partitions, module=None):
         self.params = params
         self.entries = []       # (name, port shape, perm, jax shape, offset)
+        perms = _jax_perms(params, module)
         offset = 0
         for name in sorted(params, key=_order_key):
             t = params[name]
-            perm = _jax_perm(name, t.dim())
+            perm = perms[name]
             shape = tuple(t.shape)
             jshape = shape if perm is None else tuple(shape[i] for i in perm)
             self.entries.append((name, shape, perm, jshape, offset))
@@ -239,7 +251,7 @@ class ZeroState:
         self.n = len(self.devices)
         self.wire_dtype = wire_dtype
         self.arp = AllReduceParameter(dict(module.named_parameters()),
-                                      self.n)
+                                      self.n, module)
         flat = self.arp.flat()
         self.masters = [_fresh(self.arp.slice_of(flat, p), dev)
                         for p, dev in enumerate(self.devices)]
@@ -451,7 +463,118 @@ def make_distributed_eval_step(state, methods, compute_dtype=None):
     return fn
 
 
+def _sync(devices):
+    """Wait for every card in ``devices``."""
+    for dev in {torch.device(d) for d in devices}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _psum(xs, devices, dtype):
+    """The sum over the replicas of ``xs`` (replica p's on its device), in
+    replica order in float32, rounded to ``dtype`` once, on every device
+    (a new tensor on each)."""
+    out = []
+    for dev in devices:
+        acc = None
+        for x in xs:
+            part = x.to(dev).float()
+            acc = part if acc is None else acc + part
+        out.append(acc.to(dtype))
+    return out
+
+
+def allreduce_bandwidth(mesh, size_mb=64, dtype=torch.bfloat16, iters=10,
+                        pattern="step"):
+    """Time the collectives over ``mesh`` (a list of devices) on a vector
+    of ``size_mb`` MiB of ``dtype`` (the reference's
+    ``allreduce_bandwidth``, ``bigdl_tpu/parallel/allreduce.py:380``).
+
+    ``pattern="step"`` times the pair the train step runs, in its order:
+    :func:`all_gather` of the float32 weight slices in the wire type
+    ``dtype``, then :func:`reduce_scatter` of every replica's full float32
+    gradient. ``pattern="psum"`` times a sum over the replicas returned
+    to every device. One untimed call, then ``iters`` calls, every device
+    synchronised before each clock read. Publishes ``bytes x iters`` and
+    the seconds through :func:`record_allreduce`.
+
+    Returns ``pattern``, ``seconds_per_allreduce`` and ``ring_bytes`` (the
+    ring allreduce's bytes a device, :func:`ring_allreduce_bytes`); on
+    distinct devices also ``algo_bandwidth_gbps`` and
+    ``bus_bandwidth_gbps``, and with a known peak (:func:`ici_peak_gbps`)
+    ``efficiency_vs_peak`` and ``ici_peak_gbps``. A list whose devices
+    repeat moves no bytes between the repeated ones, so it gets no
+    bandwidth figure, peak override or not."""
+    devices = [torch.device(d) for d in mesh]
+    ndev = len(devices)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n = int(size_mb * 1024 * 1024 / itemsize)
+    n -= n % ndev
+    if pattern == "step":
+        label = "all_gather+psum_scatter (train step)"
+        slices = [torch.ones(n // ndev, device=d) for d in devices]
+        grads = [torch.ones(n, device=d) for d in devices]
+
+        def fn():
+            full = all_gather(slices, devices, dtype)
+            return full, reduce_scatter(grads, devices, dtype)
+    elif pattern == "psum":
+        label = "psum"
+        xs = [torch.ones(n, dtype=dtype, device=d) for d in devices]
+
+        def fn():
+            return _psum(xs, devices, dtype)
+    else:
+        raise ValueError(f"unknown pattern {pattern!r}")
+    fn()
+    _sync(devices)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(devices)
+    dt = (time.perf_counter() - t0) / iters
+    bytes_moved = ring_allreduce_bytes(n, ndev, dtype)
+    record_allreduce(bytes_moved * iters, seconds=dt)
+    out = {"pattern": label, "seconds_per_allreduce": dt,
+           "ring_bytes": bytes_moved}
+    if len(set(devices)) < ndev:
+        return out
+    out["algo_bandwidth_gbps"] = n * itemsize / dt / 1e9
+    out["bus_bandwidth_gbps"] = bytes_moved / dt / 1e9
+    peak = ici_peak_gbps()
+    if peak:
+        out["efficiency_vs_peak"] = out["bus_bandwidth_gbps"] / peak
+        out["ici_peak_gbps"] = peak
+    return out
+
+
+# one-direction link peak by device kind, GB/s, keyed by lower-case
+# substrings of ``torch.cuda.get_device_name``: the H100 SXM's NVLink 4,
+# 18 links of 25 GB/s a direction (NVIDIA's datasheet: 900 GB/s both ways)
+_LINK_PEAK_GBPS = (("h100 80gb hbm3", 450.0), ("h100 sxm", 450.0))
+
+
+def ici_peak_gbps(device_kind=None):
+    """The one-direction link peak of ``device_kind`` (default: the first
+    card's name), the denominator of ``efficiency_vs_peak``; the
+    ``BIGDL_TPU_PEAK_ICI_GBPS`` flag overrides. None for an unknown kind
+    and without a card, so no efficiency is made up."""
+    peak = get_flag("BIGDL_TPU_PEAK_ICI_GBPS", None, float)
+    if peak:
+        return peak
+    if device_kind is None:
+        if not torch.cuda.is_available():
+            return None
+        device_kind = torch.cuda.get_device_name(0)
+    kind = device_kind.lower()
+    for sub, gbps in _LINK_PEAK_GBPS:
+        if sub in kind:
+            return gbps
+    return None
+
+
 __all__ = ["AllReduceParameter", "ZeroState", "all_gather",
+           "allreduce_bandwidth", "ici_peak_gbps",
            "make_distributed_eval_step", "make_distributed_train_step",
            "record_allreduce", "reduce_scatter", "replica_generators",
            "ring_allreduce_bytes"]

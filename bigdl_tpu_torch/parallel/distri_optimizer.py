@@ -31,31 +31,52 @@ copies every replica's rows to its device.
   ``model``, never the wire copy) and the optimizer state in the
   reference's gathered layout (``ZeroState.gathered_opt_state``).
 
-Sharded checkpoints (``BIGDL_TPU_SHARDED_CHECKPOINT``), the reference's
-``allreduce_bandwidth``/``ici_peak_gbps``, more than one process and a run
-across distinct cards wait for ROADMAP queue A.10(b); the flag raises.
+With ``BIGDL_TPU_SHARDED_CHECKPOINT`` on, a checkpoint (on its trigger,
+and the preemption's) is the reference's sharded set instead
+(``bigdl_tpu/parallel/distri_optimizer.py:512-650``): this process writes
+``shard.<neval>.p0`` atomically on the writer thread, a pickle of numpy
+arrays the reference reads (``neval``, ``pid``, ``nprocs``, ``flat``: the
+float32 masters as ``(global start, array)`` blocks, one a replica;
+``opt``: each optimizer-state leaf under the reference's ``keystr`` path,
+blocks of the slots and ``(None, array)`` for a scalar; ``state``: the
+model's buffers in the reference's layout, ``convert.model_state_to_jax``),
+then ``model.<neval>`` with the buffers and the marker
+``_sharded_weights_marker`` ``{neval, nprocs}`` in place of weights, and
+``optimMethod.<neval>`` without its state. The retry's reload picks among
+both formats as the reference does: a set counts when its pids are
+exactly ``range(nprocs)``, candidates newest first with a sharded set
+winning a tie, one that fails to restore demoting to the next older; shard
+files without a complete set raise rather than restore a marker file's
+stale weights, and a marker ``model.N`` without its shards is refused with
+the reference's message. More than one process and a run across distinct
+cards wait for ROADMAP queue A.10(b).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 import time
 
 import torch
 
+from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.dataset.transformer import host_tensor
 from bigdl_tpu_torch.optim.optimizer import Optimizer, _DispatchAhead
 from bigdl_tpu_torch.optim.methods import OptimMethod
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.optim.methods import cpu_copy
 from bigdl_tpu_torch.parallel.allreduce import (make_distributed_eval_step,
                                                 make_distributed_train_step,
                                                 record_allreduce,
                                                 ring_allreduce_bytes)
+from bigdl_tpu_torch.resilience import faults
+from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.resilience.preempt import TrainingPreempted
-from bigdl_tpu_torch.utils.fileio import (atomic_write, file_exists,
-                                          file_listdir, file_makedirs,
-                                          file_open, path_join)
+from bigdl_tpu_torch.utils.fileio import (atomic_file_swap, atomic_write,
+                                          file_exists, file_listdir,
+                                          file_makedirs, file_open, path_join)
 from bigdl_tpu_torch.utils.flags import get_flag
 
 logger = logging.getLogger("bigdl_tpu_torch.parallel")
@@ -171,10 +192,6 @@ class DistriOptimizer(Optimizer):
         record_allreduce(self._wire_bytes * k)
 
     def optimize(self):
-        if get_flag("BIGDL_TPU_SHARDED_CHECKPOINT", False, bool):
-            raise NotImplementedError(
-                "BIGDL_TPU_SHARDED_CHECKPOINT (per-shard checkpoint files) "
-                "waits for ROADMAP queue A.10(b)")
         ds = self.dataset
         self._ensure_ready()
         self._install_preempt_guard()
@@ -299,9 +316,186 @@ class DistriOptimizer(Optimizer):
         return values
 
     def _checkpoint_now(self, driver_state):
-        self._materialize()
-        self._checkpoint(driver_state["neval"], self._opt_state)
+        if get_flag("BIGDL_TPU_SHARDED_CHECKPOINT", False, bool):
+            # gather-free: the replicas' slices as they are
+            self._checkpoint_sharded(driver_state["neval"])
+        else:
+            self._materialize()
+            self._checkpoint(driver_state["neval"], self._opt_state)
         self._save_driver_state(driver_state)
+
+    # ----- sharded checkpoints (module docstring) -----------------------
+    @staticmethod
+    def _local_blocks(parts, slice_size=None):
+        """``[(global start, ndarray)]``, one block a replica, of a leaf
+        held as ``parts`` (replica p's slice of ``slice_size`` elements on
+        its device); ``[(None, ndarray)]`` for a scalar, or a tensor
+        given alone (replicated)."""
+        if isinstance(parts, torch.Tensor):
+            return [(None, parts.detach().cpu().numpy().copy())]
+        return [(p * slice_size, t.detach().cpu().numpy().copy())
+                for p, t in enumerate(parts)]
+
+    @staticmethod
+    def _from_blocks(blocks, like):
+        """The tensors of saved ``blocks`` laid out as ``like``: a list of
+        replica slices (new tensors on their devices, block p at start
+        ``p * len(like[0])``), or one tensor (a scalar)."""
+        if isinstance(like, torch.Tensor):
+            if blocks[0][0] is not None:
+                raise RuntimeError("sharded checkpoint holds slices where "
+                                   "a replicated leaf is expected")
+            return torch.as_tensor(blocks[0][1]).to(like.device, like.dtype)
+        data = dict(blocks)
+        out = []
+        for p, t in enumerate(like):
+            start = p * t.shape[0]
+            if start not in data:
+                raise RuntimeError(
+                    "sharded checkpoint does not cover offset "
+                    f"{start}: it was written with a different process/"
+                    "device layout — restore with the same topology or "
+                    "use the gathered checkpoint format")
+            out.append(torch.as_tensor(data[start]).to(t.device, t.dtype))
+        return out
+
+    @staticmethod
+    def _opt_leaves(opt_states):
+        """``{reference keystr: (scalar, parts)}`` of the replicas'
+        optimizer states: each leaf's tensors, one a replica, under the
+        reference's path (a per-element slot, ``init_state({"flat":
+        slice})``'s ``["m"]["flat"]``, under ``['m']``), ``scalar`` true
+        for a counter every replica holds whole."""
+        out = {}
+
+        def walk(path, node, states):
+            for k, v in node.items():
+                key = path if k == "flat" else path + (k,)
+                parts = [st[k] for st in states]
+                if isinstance(v, dict):
+                    walk(key, v, parts)
+                else:
+                    out["".join(f"[{c!r}]" for c in key)] = (v.dim() == 0,
+                                                              parts)
+
+        walk((), opt_states[0], opt_states)
+        return out
+
+    def _checkpoint_sharded(self, neval):
+        """Write this process's sharded set at ``neval`` (module
+        docstring): the host copies here, the files behind the writer
+        thread."""
+        if not self.checkpoint_path:
+            return
+        self._join_checkpoint()
+        state = self._step.state
+        ss = state.arp.slice_size
+        payload = {
+            "neval": neval, "pid": 0, "nprocs": 1,
+            "flat": self._local_blocks(state.masters, ss),
+            "opt": {k: self._local_blocks(parts[0] if scalar else parts, ss)
+                    for k, (scalar, parts) in
+                    self._opt_leaves(state.opt_states).items()},
+            "state": convert.model_state_to_jax(state.replicas[0]),
+        }
+        marker = cpu_copy(dict(state.replicas[0].named_buffers()))
+        marker["_sharded_weights_marker"] = {"neval": int(neval),
+                                             "nprocs": 1}
+        method = self.optim_method
+        path = self.checkpoint_path
+
+        def write():
+            fault_point("ckpt.write", neval=neval)
+            file_makedirs(path)
+            shard_path = path_join(path, f"shard.{neval}.p0")
+            atomic_write(shard_path, pickle.dumps(payload))
+            model_path = path_join(path, f"model.{neval}")
+            method_path = path_join(path, f"optimMethod.{neval}")
+            atomic_file_swap(model_path, lambda p: torch.save(marker, p))
+            atomic_file_swap(method_path,
+                             lambda p: method.save(p, None, overwrite=True))
+            for f in (shard_path, model_path, method_path):
+                faults.corrupt_file("ckpt.write", f)
+
+        self._spawn_ckpt_writer(f"ckpt-shard-{neval}", write)
+
+    @staticmethod
+    def _shard_groups(files):
+        """``{neval: {pids}}`` parsed from ``shard.*`` file names."""
+        by_neval = {}
+        for f in files:
+            if f.startswith("shard.") and not f.endswith(".tmp"):
+                try:
+                    _, n, p = f.split(".")
+                    by_neval.setdefault(int(n), set()).add(int(p[1:]))
+                except ValueError:
+                    continue
+        return by_neval
+
+    @classmethod
+    def _candidates(cls, files):
+        """``([(neval, "sharded" or "gathered")], shard groups)`` of a
+        checkpoint directory's files, newest first, a sharded set before a
+        gathered pair of the same ``neval``. A model.N of a sharded set
+        holds no weights, so it is a gathered candidate only when no shard
+        claims N; a set counts when its pids are exactly this run's (one
+        process); an N without its ``optimMethod.N`` (a crash between the
+        two renames) is no candidate."""
+        files = set(files)
+        groups = cls._shard_groups(files)
+        complete = [n for n, pids in groups.items()
+                    if pids == {0} and f"model.{n}" in files
+                    and f"optimMethod.{n}" in files]
+        gathered = [int(f.split(".")[1]) for f in files
+                    if f.startswith("model.") and f.count(".") == 1
+                    and f.split(".")[1].isdigit()
+                    and int(f.split(".")[1]) not in groups
+                    and f"optimMethod.{f.split('.')[1]}" in files]
+        candidates = sorted(
+            [(n, "sharded") for n in complete]
+            + [(n, "gathered") for n in gathered],
+            key=lambda t: (t[0], t[1] == "sharded"), reverse=True)
+        return candidates, groups
+
+    def _reload_sharded(self, neval):
+        """Restore the masters, the slots and the buffers from the sharded
+        set at ``neval`` onto a rebuilt step."""
+        method, _ = OptimMethod.load(
+            path_join(self.checkpoint_path, f"optimMethod.{neval}"))
+        device = next(self.model.parameters()).device
+        saved = load_model_file(
+            path_join(self.checkpoint_path, f"model.{neval}"), device)
+        saved.pop("_sharded_weights_marker", None)
+        with file_open(path_join(self.checkpoint_path,
+                                 f"shard.{neval}.p0"), "rb") as f:
+            mine = pickle.load(f)
+        self.optim_method = method
+        self.model.load_state_dict(saved, strict=False)
+        self._build_step()
+        state = self._step.state
+        with torch.no_grad():
+            for m, t in zip(state.masters,
+                            self._from_blocks(mine["flat"], state.masters)):
+                m.copy_(t)
+            for key, (scalar, parts) in self._opt_leaves(
+                    state.opt_states).items():
+                blocks = mine["opt"][key]
+                got = ([self._from_blocks(blocks, t) for t in parts]
+                       if scalar else self._from_blocks(blocks, parts))
+                for dst, src in zip(parts, got):
+                    dst.copy_(src)
+
+    def _reload_gathered(self, neval):
+        device = next(self.model.parameters()).device
+        sd = load_model_file(path_join(self.checkpoint_path,
+                                       f"model.{neval}"), device)
+        self.model.load_state_dict(sd)
+        method, saved = OptimMethod.load(
+            path_join(self.checkpoint_path, f"optimMethod.{neval}"))
+        self.optim_method = method
+        self._build_step()
+        if saved is not None:
+            self._step.state.load_opt_state(saved)
 
     def _flat_params(self):
         self._materialize()
@@ -325,34 +519,33 @@ class DistriOptimizer(Optimizer):
         except RuntimeError:
             logger.exception("pending checkpoint write failed; retrying "
                              "from the previous complete snapshot")
-        files = set(file_listdir(self.checkpoint_path))
-        candidates = sorted(
-            (int(f.split(".")[1]) for f in files
-             if f.startswith("model.") and f.count(".") == 1
-             and f.split(".")[1].isdigit()
-             and f"optimMethod.{f.split('.')[1]}" in files),
-            reverse=True)
+        candidates, groups = self._candidates(
+            file_listdir(self.checkpoint_path))
+        if not candidates:
+            if groups:
+                raise RuntimeError(
+                    f"sharded checkpoint sets {sorted(groups)} exist but "
+                    "none is complete for 1 process(es) — restore with the "
+                    "layout that wrote them")
+            raise RuntimeError("no checkpoint to retry from")
         last_err = None
-        for neval in candidates:
+        for neval, kind in candidates:
             try:
-                device = next(self.model.parameters()).device
-                sd = torch.load(path_join(self.checkpoint_path,
-                                          f"model.{neval}"),
-                                map_location=device)
-                self.model.load_state_dict(sd)
-                method, saved = OptimMethod.load(
-                    path_join(self.checkpoint_path, f"optimMethod.{neval}"))
-                self.optim_method = method
-                self._build_step()
-                if saved is not None:
-                    self._step.state.load_opt_state(saved)
+                if kind == "sharded":
+                    self._reload_sharded(neval)
+                else:
+                    self._reload_gathered(neval)
                 break
             except Exception as e:
                 last_err = e
-                logger.warning("checkpoint %d failed to restore (%r); "
-                               "falling back to an older snapshot", neval, e)
+                logger.warning("checkpoint %d (%s) failed to restore (%r); "
+                               "falling back to an older snapshot", neval,
+                               kind, e)
         else:
-            raise RuntimeError("no checkpoint to retry from") from last_err
+            raise RuntimeError(
+                "no checkpoint to retry from (all "
+                f"{len(candidates)} candidate(s) failed to restore)"
+            ) from last_err
         ds_path = path_join(self.checkpoint_path, f"driverState.{neval}")
         if not file_exists(ds_path):
             ds_path = path_join(self.checkpoint_path, "driverState.latest")
@@ -363,4 +556,29 @@ class DistriOptimizer(Optimizer):
                 "epoch_finished": False}
 
 
-__all__ = ["DistriOptimizer", "visible_cards"]
+def load_model_file(path, map_location=None):
+    """The ``state_dict`` in a ``model.<neval>`` checkpoint file. A file
+    of a sharded set (``_sharded_weights_marker``) holds buffers and no
+    weights: it is refused, with the reference's message, once its
+    ``shard.<neval>.p*`` files are gone (the reference's
+    ``utils/serializer.py`` ``_check_sharded_marker``)."""
+    sd = torch.load(path, map_location=map_location)
+    marker = sd.get("_sharded_weights_marker")
+    if isinstance(marker, dict):
+        neval, nprocs = marker.get("neval"), marker.get("nprocs")
+        base = os.path.dirname(os.path.abspath(path))
+        siblings = [f for f in file_listdir(base)
+                    if f.startswith(f"shard.{neval}.p")
+                    and not f.endswith(".tmp")]
+        if not siblings:
+            raise ValueError(
+                f"{path} was written by a sharded checkpoint (neval="
+                f"{neval}, {nprocs} process(es)) and holds STALE "
+                f"placeholder params — the shard.{neval}.p* files that "
+                "carry the real weights are missing. Restore from a "
+                "gathered checkpoint, or restore the shard files and "
+                "resume through DistriOptimizer.")
+    return sd
+
+
+__all__ = ["DistriOptimizer", "load_model_file", "visible_cards"]

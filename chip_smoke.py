@@ -375,6 +375,56 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the card: ``allreduce.sync:error:after=3`` retried once from the
    checkpoint, ``train.step:preempt`` raised through the retry loop with
    its ``driverState``.
+6h. train_sharded — sharded checkpoints (``BIGDL_TPU_SHARDED_CHECKPOINT``)
+   and the collectives' timing, on two replicas of the card: ResNet-50
+   (NHWC, float32, 1000 outputs, labels of 10 classes) through
+   ``DistriOptimizer``, 96 seeded records in batches of 32 in one seeded
+   order every epoch, ``Adam(1e-3)``, a sharded checkpoint every 2
+   iterations, 6 iterations, cuDNN's deterministic algorithms; once
+   uninterrupted and once with the fifth batch failing. Checks:
+   ``shard.2.p0`` and ``shard.4.p0`` written, shard 4 holding two master
+   blocks at starts 0 and ``slice_size``; ``model.4`` the marker file; one
+   retry, resumed from the sharded set at 4; every step's loss equal to
+   the uninterrupted run's bit for bit, the recomputed fourth included;
+   CUDA-core conv launches = ``conv_routes`` x 2 replicas x the steps each
+   run took, no tensor-core launch, no 3x3 stride-1 ``F.conv2d``. Then
+   ``allreduce_bandwidth(["cuda:0", "cuda:0"], size_mb=64)`` in both
+   patterns: seconds and ring bytes, no bandwidth figure, two
+   ``bigdl_allreduce_sync_seconds`` observations, ``ici_peak_gbps()``.
+6i. infer_int8 — post-training int8 quantisation of ResNet-50 (NHWC,
+   float32, seeded weights, evaluation mode) at batch 32 x 224²:
+   ``Quantizer.quantize(model, calib_input=batch)`` and
+   ``Quantizer.quantize(model)`` on the card. Checks: top-1 of both agrees
+   with the float model's on at least ``INT8_TOP1_AGREE`` of the rows; no
+   ``F.conv2d`` in their forwards; every static scale of a calibration on
+   the first 8 images within 1e-5 relative of the port's calibration on
+   the CPU; both int8 models' log-probabilities on those rows within
+   ``INT8_MODEL_TOL`` of the same int8 models on the CPU
+   (``tests/test_torch_quantizer.py``'s bars); the int32 accumulators of
+   the stem, a 1x1, a 3x3 and a strided 3x3 on the card's int8 inputs
+   equal to a float64 CPU convolution of the same values. Reports
+   images/s of the float32, int8 static and int8 dynamic forwards, and
+   the int8 products' share of device time in one profiled forward.
+6j. train_rnn — ``PTBModel()`` (vocabulary 10000, hidden 256, 2 LSTM
+   layers) on a seeded Zipf stream cut by ``ptb_batches(20, 20)``: the
+   first step's loss and gradients on the card against the port on the
+   CPU (1e-6 relative; 1e-4 of each gradient's largest magnitude), then 5
+   steps through ``Optimizer`` with ``TimeDistributedCriterion(
+   ClassNLLCriterion(), size_average=True)`` and ``Adam(0.01)``, the loss
+   falling; ms a step, tokens/s and the busy share of ``make_train_step``.
+   ``Recurrent(ConvLSTMPeephole(16, 16, 3, 3))`` on (8, 6, 16, 32, 32),
+   forward and backward against the CPU (outputs 1e-5, gradients 1e-4 of
+   their max), with exactly 2T + T + (T - 1) CUDA-core 3x3 launches (the
+   forward's two a step, the input gradient of each but the zero state's)
+   and no 3x3 stride-1 ``F.conv2d``; the ``stride=2`` and 3-D cells
+   forward. ``LookupTable`` + ``BinaryTreeLSTM`` + ``TreeGather`` +
+   ``Linear`` at the constituency Tree-LSTM's sentiment widths of Tai,
+   Socher and Manning (ACL 2015: 300-d word vectors, memory 150) with the
+   Stanford Sentiment Treebank's 21701-word vocabulary, on 64 seeded
+   trees of 2 to 56 tokens (right-branching, as
+   ``tests/test_text_treelstm.py`` builds them), forward and backward
+   against the CPU, ``TreeNNAccuracy`` counts equal; ms a batch forward
+   and backward on the card.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -7043,6 +7093,638 @@ def phase_train_preempt(torch, kernels, smi):
           "sigterm_lenet": sigterm, "distri_lenet": distri, "card": smi})
 
 
+# ----------------------------------------------------------- A.10(b)
+SHARDED_MESH = ["cuda:0", "cuda:0"]
+# ResNet-50 float32 through DistriOptimizer on two replicas of the card:
+# 96 seeded records in batches of 32 (3 an epoch, so the retry's epoch
+# restart and the uninterrupted run see the same batches), Adam (slots per
+# element), a sharded checkpoint every 2 iterations, 6 iterations, the
+# fifth batch failing once
+SHARDED_RECORDS, SHARDED_BATCH, SHARDED_STEPS = 96, 32, 6
+SHARDED_FAIL_AT, SHARDED_CLASSES = 5, 10
+BANDWIDTH_MB = 64
+
+
+class _StepScalars:
+    """An ``add_scalar`` summary keeping the last value a step logged."""
+
+    def __init__(self):
+        self.by_step = {}
+
+    def add_scalar(self, tag, value, step):
+        if tag == "Loss":
+            self.by_step[int(step)] = float(value)
+
+
+def _sharded_resnet(torch, kernels, root):
+    """The sharded run, failed and retried, against an uninterrupted one
+    (see module docstring, 6h), with cuDNN's deterministic algorithms
+    (without them two runs on the card drift apart, ``train_preempt``)."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return _sharded_resnet_runs(torch, kernels, root)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _sharded_resnet_runs(torch, kernels, root):
+    import os
+    import pickle
+
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import ResNet, conv_routes
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    n, b, hw = SHARDED_RECORDS, SHARDED_BATCH, RESNET_HW
+    rng = np.random.default_rng(20)
+    images = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    labels = rng.integers(0, SHARDED_CLASSES, n).astype(np.int32)
+    order = rng.permutation(n)             # the one seeded order
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    params = convert.init_resnet_params(model, seed=0)
+    routes = conv_routes(model, (hw, hw))
+
+    def run(ckpt, fail_at=None):
+        ds = DataSet.array([Sample(images[i], labels[i]) for i in order],
+                           distributed=True)
+        ds.shuffle = lambda seed=None: ds      # every epoch in that order
+        model.load_state_dict(params)
+        opt = Optimizer(model=model, dataset=ds >> SampleToMiniBatch(b),
+                        criterion=ClassNLLCriterion(), mesh=SHARDED_MESH)
+        opt.set_optim_method(Adam(learningrate=1e-3))
+        opt.set_end_when(Trigger.max_iteration(SHARDED_STEPS))
+        if ckpt is not None:
+            opt.set_checkpoint(ckpt, Trigger.several_iteration(2))
+        log = _StepScalars()
+        opt.set_train_summary(log)
+        calls, reloads = {"n": 0, "steps": 0}, []
+        shard, reload_sharded = opt._shard_batch, opt._reload_sharded
+
+        def counted(batch, tensors=None):
+            calls["n"] += 1
+            if calls["n"] == fail_at:
+                raise RuntimeError("injected executor failure")
+            calls["steps"] += 1
+            return shard(batch, tensors)
+
+        def traced(neval):
+            reloads.append(neval)
+            return reload_sharded(neval)
+
+        opt._shard_batch, opt._reload_sharded = counted, traced
+        torch.cuda.synchronize()
+        _reset_conv_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        return (opt, log.by_step, calls["steps"], reloads, _conv_counts(),
+                time.perf_counter() - t0)
+
+    os.environ["BIGDL_TPU_SHARDED_CHECKPOINT"] = "1"
+    try:
+        full = run(None)
+        cut = run(root, SHARDED_FAIL_AT)
+    finally:
+        del os.environ["BIGDL_TPU_SHARDED_CHECKPOINT"]
+    opt, losses, steps, reloads, counts, cut_s = cut
+    _, want, full_steps, _, full_counts, full_s = full
+    ss = opt._step.state.arp.slice_size
+    with open(os.path.join(root, "shard.4.p0"), "rb") as f:
+        shard4 = pickle.load(f)
+    files = sorted(os.listdir(root))
+    marker = torch.load(os.path.join(root, "model.4"))
+    check(all(f"shard.{k}.p0" in files for k in (2, 4))
+          and [s for s, _ in shard4["flat"]] == [0, ss]
+          and marker.get("_sharded_weights_marker")
+          == {"neval": 4, "nprocs": 1},
+          f"train_sharded: files {files}, shard.4 starts "
+          f"{[s for s, _ in shard4['flat']]} (slice {ss}), model.4 marker "
+          f"{marker.get('_sharded_weights_marker')}")
+    check(opt.retries == 1 and reloads == [4],
+          f"train_sharded: {opt.retries} retries, sharded reloads {reloads}")
+    check(sorted(losses) == sorted(want) == list(range(1, SHARDED_STEPS + 1))
+          and all(losses[k] == want[k] for k in want),
+          f"train_sharded: resumed losses {losses} vs uninterrupted {want}")
+    check(all(np.isfinite(list(want.values()))),
+          f"train_sharded: losses {want}")
+    launches = {}
+    for name, c, k in (("uninterrupted", full_counts, full_steps),
+                       ("failed_and_resumed", counts, steps)):
+        for kind in ("k9", "i2c"):
+            check(c[kind] == 0 and c[f"{kind}_cuda_core"]
+                  == routes[kind] * len(SHARDED_MESH) * k,
+                  f"train_sharded {name}: conv3x3_{kind} ran {c[kind]} "
+                  f"tensor-core and {c[f'{kind}_cuda_core']} CUDA-core "
+                  f"launches for {k} steps x {len(SHARDED_MESH)} replicas "
+                  f"of {routes[kind]}")
+        check("3x3/s1" not in c["library"],
+              f"train_sharded {name}: a 3x3 stride-1 convolution reached "
+              f"F.conv2d: {c['library']}")
+        launches[name] = {"k9": c["k9_cuda_core"], "i2c": c["i2c_cuda_core"]}
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_sharded"] = sum(v[kind] for v in launches.values())
+    return {"records": n, "batch": b, "image": hw, "optimizer": "Adam(1e-3)",
+            "replicas": len(SHARDED_MESH), "fail_at_batch": SHARDED_FAIL_AT,
+            "steps_run": {"uninterrupted": full_steps,
+                          "failed_and_resumed": steps},
+            "resumed_from": reloads, "slice_size": ss,
+            "shard_bytes": os.path.getsize(os.path.join(root,
+                                                        "shard.4.p0")),
+            "losses": [want[k] for k in sorted(want)],
+            "losses_bit_equal": True, "cudnn_deterministic": True,
+            "uninterrupted_s": full_s, "failed_and_resumed_s": cut_s,
+            "conv_routes_per_step": routes, "cuda_core_launches": launches}
+
+
+def _bandwidth(torch):
+    """``allreduce_bandwidth`` on the two replicas of the card, both
+    patterns: seconds and ring bytes, no bandwidth figure (no byte
+    crosses a link), the sync-seconds histogram observed."""
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.parallel import allreduce_bandwidth
+    from bigdl_tpu_torch.parallel.allreduce import ici_peak_gbps
+    hist = obs.histogram("bigdl_allreduce_sync_seconds",
+                         "blocking allreduce sync time")
+    before = hist.count
+    out = {}
+    for pattern in ("step", "psum"):
+        r = allreduce_bandwidth(SHARDED_MESH, size_mb=BANDWIDTH_MB,
+                                pattern=pattern)
+        check(not any("bandwidth" in k or "efficiency" in k for k in r),
+              f"train_sharded: a bandwidth figure on one card: {r}")
+        out[pattern] = r
+    check(hist.count - before == 2,
+          f"train_sharded: bigdl_allreduce_sync_seconds observed "
+          f"{hist.count - before} times for 2 calls")
+    out["ici_peak_gbps"] = ici_peak_gbps()
+    out["size_mb"] = BANDWIDTH_MB
+    return out
+
+
+def phase_train_sharded(torch, kernels, smi):
+    """Sharded checkpoints and the collectives' timing on one card (see
+    module docstring, 6h)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        resnet = _sharded_resnet(torch, kernels, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    bandwidth = _bandwidth(torch)
+    emit({"phase": "train_sharded", "resnet50": resnet,
+          "allreduce_bandwidth": bandwidth, "card": smi})
+
+
+# ------------------------------------------------------------- A.9(c)
+INT8_BATCH, INT8_CHECK_ROWS, INT8_ACC_ROWS = 32, 8, 4
+INT8_AMAX_REL = 1e-5
+# tests/test_torch_quantizer.py's bars: quantised log-probabilities within
+# MODEL_TOL of the other's, top-1 agreeing with the float model's on at
+# least TOP1_AGREE of the rows
+INT8_MODEL_TOL, INT8_TOP1_AGREE = 1e-2, 0.9
+INT8_TIMED = 25        # about a second of forwards a variant
+# the int8 convolutions whose int32 accumulators are held exactly: the
+# stem (7x7/s2), a 1x1, a 3x3 and a strided 3x3
+INT8_ACC_LAYERS = ("conv1", "res2_0_conv1", "res2_0_conv2", "res3_0_conv2")
+
+
+class _int8_product_ranges:
+    """While active, every int8 product runs inside a
+    ``record_function("int8_product")`` range, so a profile attributes its
+    device time (a measurement-only wrapper of ``nn.quantized._int_mm``)."""
+
+    def __init__(self, torch):
+        from bigdl_tpu_torch.nn import quantized
+        self.q, self.real, self.torch = quantized, quantized._int_mm, torch
+
+    def _ranged(self, a, b):
+        with self.torch.profiler.record_function("int8_product"):
+            return self.real(a, b)
+
+    def __enter__(self):
+        self.q._int_mm = self._ranged
+
+    def __exit__(self, *exc):
+        self.q._int_mm = self.real
+
+
+def _timed_forward(torch, model, x):
+    """(seconds a forward, after one untimed) over INT8_TIMED forwards."""
+    model(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(INT8_TIMED):
+        model(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / INT8_TIMED
+
+
+def _int8_inputs(torch, qmodel, names, x):
+    """The float inputs of the layers ``names`` in one forward of
+    ``qmodel``."""
+    seen, handles = {}, []
+    for name in names:
+        def keep(module, args, name=name):
+            seen.setdefault(name, args[0])
+
+        handles.append(getattr(qmodel, name).register_forward_pre_hook(keep))
+    try:
+        qmodel(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _plain_acc(torch, layer, xq):
+    """The plain CPU int32 accumulator of an int8 NHWC input: a float64
+    convolution (exact: every sum is below 2^53) of the same values."""
+    import torch.nn.functional as F
+    x = xq.cpu().double().permute(0, 3, 1, 2)
+    (t, b), (l, r) = layer.padding(*xq.shape[1:3])
+    y = F.conv2d(F.pad(x, (l, r, t, b)), layer.weight.cpu().double(),
+                 stride=(layer.stride_h, layer.stride_w),
+                 dilation=(layer.dilation_h, layer.dilation_w),
+                 groups=layer.n_group)
+    return y.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def phase_infer_int8(torch, kernels, smi):
+    """Post-training int8 quantisation of ResNet-50 (see module
+    docstring, 6i)."""
+    import copy
+
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import (QuantizedSpatialConvolution, Quantizer,
+                                    SpatialConvolution)
+    from bigdl_tpu_torch.nn.quantized import _quant_input
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal(
+        (INT8_BATCH, RESNET_HW, RESNET_HW, 3), dtype=np.float32))
+    xc, xg = x[:INT8_CHECK_ROWS], x.to("cuda")
+    params = convert.init_resnet_params(
+        ResNet(class_num=1000, depth=50, format="NHWC", device="cpu"),
+        seed=0)
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    model.load_state_dict(params)
+    model.eval()
+    cpu = ResNet(class_num=1000, depth=50, format="NHWC", device="cpu")
+    cpu.load_state_dict(params)
+    cpu.eval()
+    out = {"batch": INT8_BATCH, "image": RESNET_HW}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        q_static = Quantizer.quantize(model, calib_input=xg)
+        torch.cuda.synchronize()
+        out["quantize_calibrated_s"] = time.perf_counter() - t0
+        q_dyn = Quantizer.quantize(model)
+        f = model(xg)
+        lib = dict(SpatialConvolution.library_calls)
+        ys, yd = q_static(xg), q_dyn(xg)
+        check(dict(SpatialConvolution.library_calls) == lib,
+              "infer_int8: a quantised model reached F.conv2d: "
+              f"{dict(SpatialConvolution.library_calls)} after {lib}")
+        agree = {k: float((y.argmax(-1) == f.argmax(-1)).float().mean())
+                 for k, y in (("static", ys), ("dynamic", yd))}
+        check(min(agree.values()) >= INT8_TOP1_AGREE,
+              f"infer_int8: top-1 agreement with the float model {agree}")
+        out["top1_agreement_with_float"] = agree
+        # static amaxes: calibration on the card against the CPU port's,
+        # on the same rows
+        q_card8 = Quantizer.quantize(model, calib_input=xc.to("cuda"))
+        q_cpu8 = Quantizer.quantize(cpu, calib_input=xc)
+        pairs = [(float(a.in_scale), float(c.in_scale))
+                 for a, c in zip(_quantized(q_card8), _quantized(q_cpu8))]
+        amax_rel = max(abs(a - c) / c for a, c in pairs)
+        check(len(pairs) == 54 and amax_rel <= INT8_AMAX_REL,
+              f"infer_int8: {len(pairs)} static scales, worst relative "
+              f"difference card vs CPU {amax_rel}")
+        out["amax_max_rel"] = amax_rel
+        # logits: the card's int8 models against the same int8 models on
+        # the CPU (static scales make rows independent)
+        s_cpu = copy.deepcopy(q_static).to("cpu")
+        d_cpu = copy.deepcopy(q_dyn).to("cpu")
+        diffs = {"static": float((ys[:INT8_CHECK_ROWS].cpu()
+                                  - s_cpu(xc)).abs().max()),
+                 "dynamic": float((q_dyn(xc.to("cuda")).cpu()
+                                   - d_cpu(xc)).abs().max())}
+        check(max(diffs.values()) <= INT8_MODEL_TOL,
+              f"infer_int8: int8 log-probabilities card vs CPU {diffs}")
+        out["logprob_max_abs_diff_vs_cpu"] = diffs
+        # int32 accumulators, exactly, on the card's int8 inputs
+        inputs = _int8_inputs(torch, q_static, INT8_ACC_LAYERS,
+                              xg[:INT8_ACC_ROWS])
+        acc = {}
+        for name in INT8_ACC_LAYERS:
+            layer = getattr(q_static, name)
+            check(isinstance(layer, QuantizedSpatialConvolution),
+                  f"infer_int8: {name} is {type(layer).__name__}")
+            xq, _ = _quant_input(inputs[name], layer.in_scale)
+            got = layer.accumulate(xq).cpu()
+            want = _plain_acc(torch, layer, xq)
+            acc[name] = {"equal": bool(torch.equal(got, want)),
+                         "max_abs": int(want.abs().max()),
+                         "shape": list(got.shape)}
+        check(all(v["equal"] for v in acc.values()),
+              f"infer_int8: int32 accumulators card vs plain CPU {acc}")
+        out["int32_accumulators"] = acc
+        # images/s, float32 and int8, in one call
+        secs = {"float32": _timed_forward(torch, model, xg),
+                "int8_static": _timed_forward(torch, q_static, xg),
+                "int8_dynamic": _timed_forward(torch, q_dyn, xg)}
+        out["seconds_per_batch"] = secs
+        out["images_per_s"] = {k: INT8_BATCH / v for k, v in secs.items()}
+        with _int8_product_ranges(torch):
+            out["profile_int8_static"] = _profile(
+                torch, lambda: q_static(xg), ranges=("int8_product",))
+    emit({"phase": "infer_int8", **out, "card": smi})
+
+
+def _quantized(model):
+    from bigdl_tpu_torch.nn import QuantizedLinear, QuantizedSpatialConvolution
+    return [m for m in model.modules()
+            if isinstance(m, (QuantizedLinear, QuantizedSpatialConvolution))]
+
+
+# ------------------------------------------------------------ A.11(c)
+# PTBModel() at its defaults (vocabulary 10000, hidden 256, 2 LSTM layers)
+# on a seeded Zipf stream cut by ptb_batches(20, 20), 5 steps of Adam(0.01)
+PTB_BATCH, PTB_NUM_STEPS, PTB_TRAIN_STEPS, PTB_ZIPF = 20, 20, 5, 1.0
+PTB_TIMED = 25         # steady steps timed, about a second
+# tests/test_torch_recurrent.py's and test_torch_text_treelstm.py's bars:
+# outputs 1e-5 absolute, gradients 1e-4 of their largest magnitude, losses
+# 1e-6 relative
+RNN_OUT_TOL, RNN_GRAD_REL, RNN_LOSS_REL = 1e-5, 1e-4, 1e-6
+CONVLSTM_SHAPE = (8, 6, 16, 32, 32)     # (batch, time, channels, H, W)
+CONVLSTM_3D_SHAPE = (2, 3, 4, 8, 8, 8)
+# the constituency Tree-LSTM for sentiment of Tai, Socher and Manning (ACL
+# 2015, section 5.1 and table 1): 300-d word vectors, memory dimension 150,
+# the Stanford Sentiment Treebank's 21701 words; trees of 2 to 56 tokens
+TREES, TREE_VOCAB, TREE_EMB, TREE_HIDDEN = 64, 21701, 300, 150
+TREE_LEN = (2, 56)
+TREE_TIMED = 5
+
+
+def _worst_grad(grads_g, grads_c):
+    """max over tensors of max|card - CPU| / max|CPU|, and its name."""
+    worst, name = 0.0, None
+    for k, gc in grads_c.items():
+        r = float((grads_g[k].cpu() - gc).abs().max()) / max(
+            float(gc.abs().max()), 1e-30)
+        if r > worst:
+            worst, name = r, k
+    return worst, name
+
+
+def _ptb(torch, smi):
+    import numpy as np
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset.text import ptb_batches
+    from bigdl_tpu_torch.models import PTBModel
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import (Adam, Optimizer, Trigger,
+                                       make_loss_and_grads, make_train_step)
+
+    vocab = 10000
+    rng = np.random.default_rng(22)
+    p = 1.0 / np.arange(1, vocab + 1) ** PTB_ZIPF
+    n = PTB_BATCH * PTB_NUM_STEPS * PTB_TRAIN_STEPS + 1
+    stream = rng.choice(vocab, n, p=p / p.sum())
+    batches = list(ptb_batches(stream, PTB_BATCH, PTB_NUM_STEPS))
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    model = PTBModel()
+    model.reset(22)
+    w0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    # the first step's loss and gradients against the port on the CPU
+    x0, y0 = (torch.from_numpy(a.astype(np.int64)) for a in batches[0])
+    loss_g, grads_g = make_loss_and_grads(model, crit)(x0.to("cuda"),
+                                                       y0.to("cuda"))
+    cpu = PTBModel(device="cpu")
+    cpu.load_state_dict(w0)
+    loss_c, grads_c = make_loss_and_grads(cpu, crit)(x0, y0)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, worst_name = _worst_grad(grads_g, grads_c)
+    check(loss_rel <= RNN_LOSS_REL and worst <= RNN_GRAD_REL,
+          f"train_rnn PTB: first loss {float(loss_g)} vs CPU "
+          f"{float(loss_c)} (rel {loss_rel}); worst gradient {worst_name} "
+          f"at {worst} of its max")
+    # 5 steps through the facade, the batches in ptb_batches' order
+    ds = DataSet.array([Sample(x[r], y[r]) for x, y in batches
+                        for r in range(PTB_BATCH)])
+    ds.shuffle = lambda seed=None: ds
+    model.load_state_dict(w0)
+    opt = Optimizer(model=model, dataset=ds >> SampleToMiniBatch(PTB_BATCH),
+                    criterion=crit)
+    opt.set_optim_method(Adam(learningrate=0.01))
+    opt.set_end_when(Trigger.max_iteration(PTB_TRAIN_STEPS))
+    log = _Scalars()
+    opt.set_train_summary(log)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = log.losses
+    check(len(losses) == PTB_TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0],
+          f"train_rnn PTB: facade losses {losses}")
+    # steady step time and the busy share: make_train_step on batch 0
+    method = Adam(learningrate=0.01)
+    step = make_train_step(model, crit, method)
+    state = method.init_state(dict(model.named_parameters()))
+    xg, yg = x0.to("cuda"), y0.to("cuda")
+    step(state, xg, yg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(PTB_TIMED):
+        step(state, xg, yg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / PTB_TIMED
+    prof = _profile(torch, lambda: [step(state, xg, yg) for _ in range(2)])
+    tokens = PTB_BATCH * PTB_NUM_STEPS
+    return {"vocab": vocab, "hidden": 256, "layers": 2, "batch": PTB_BATCH,
+            "num_steps": PTB_NUM_STEPS, "optimizer": "Adam(0.01)",
+            "first_loss_card": float(loss_g), "first_loss_cpu":
+            float(loss_c), "first_loss_rel": loss_rel,
+            "worst_grad_rel": worst, "worst_grad": worst_name,
+            "facade_losses": losses, "facade_s": wall,
+            "facade_ms_per_step": wall / PTB_TRAIN_STEPS * 1e3,
+            "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "profile": prof}
+
+
+def _conv_lstm(torch, kernels):
+    import numpy as np
+    from bigdl_tpu_torch.nn import (ConvLSTMPeephole, ConvLSTMPeephole3D,
+                                    Recurrent)
+
+    def pair(make, shape, seed, grad):
+        card = Recurrent(make(None))
+        card.reset(seed)
+        cpu = Recurrent(make("cpu"))
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        xg = x.to("cuda").detach().requires_grad_(grad)
+        xc = x.detach().clone().requires_grad_(grad)
+        torch.cuda.synchronize()
+        _reset_conv_counts()
+        yg = card(xg)
+        ct = torch.from_numpy(rng.standard_normal(tuple(yg.shape),
+                                                  dtype=np.float32))
+        if grad:
+            (yg * ct.to("cuda")).sum().backward()
+        torch.cuda.synchronize()
+        counts = _conv_counts()
+        yc = cpu(xc)
+        diff = (yg.detach().cpu() - yc.detach()).abs().max()
+        out = {"out_max_abs": float(diff), "launches": counts}
+        if grad:
+            (yc * ct).sum().backward()
+            grads_g = {k: p.grad for k, p in card.named_parameters()}
+            grads_g["input"] = xg.grad
+            grads_c = {k: p.grad for k, p in cpu.named_parameters()}
+            grads_c["input"] = xc.grad
+            out["worst_grad_rel"], out["worst_grad"] = _worst_grad(
+                grads_g, grads_c)
+        return out
+
+    t = CONVLSTM_SHAPE[1]
+    main = pair(lambda d: ConvLSTMPeephole(16, 16, 3, 3, device=d),
+                CONVLSTM_SHAPE, 23, True)
+    c = main["launches"]
+    # 2 x T forward; the input gradient of each input convolution and of
+    # each hidden convolution but the first (the zero state needs none)
+    want = 2 * t + t + (t - 1)
+    check(c["k9"] == c["i2c"] == 0
+          and c["k9_cuda_core"] + c["i2c_cuda_core"] == want
+          and "3x3/s1" not in c["library"],
+          f"train_rnn ConvLSTM: launches {c}, expected {want} CUDA-core "
+          "3x3 launches and no 3x3/s1 F.conv2d")
+    check(main["out_max_abs"] <= RNN_OUT_TOL
+          and main["worst_grad_rel"] <= RNN_GRAD_REL,
+          f"train_rnn ConvLSTM card vs CPU: {main}")
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "train_rnn"] = c[f"{kind}_cuda_core"]
+    stride2 = pair(lambda d: ConvLSTMPeephole(16, 16, 3, 3, stride=2,
+                                              device=d),
+                   CONVLSTM_SHAPE, 24, False)
+    vol = pair(lambda d: ConvLSTMPeephole3D(4, 4, 3, 3, device=d),
+               CONVLSTM_3D_SHAPE, 25, False)
+    for name, r in (("stride 2", stride2), ("3-D", vol)):
+        check(r["out_max_abs"] <= RNN_OUT_TOL,
+              f"train_rnn ConvLSTM {name} card vs CPU: {r}")
+    return {"shape": list(CONVLSTM_SHAPE), "expected_launches": want,
+            "stride1": main, "stride2_forward": stride2,
+            "conv3d_forward": vol}
+
+
+def _tree_batch(seqs):
+    """Right-branching trees over token sequences, as
+    ``tests/test_text_treelstm.py`` builds them: (word ids (B, N), children
+    (B, N, 2), 1-based roots (B,))."""
+    import numpy as np
+    b, n = len(seqs), 2 * max(len(t) for t in seqs) - 1
+    tree = np.zeros((b, n, 2), np.int32)
+    word = np.zeros((b, n), np.int32)
+    roots = np.zeros((b,), np.int32)
+    for i, toks in enumerate(seqs):
+        word[i, :len(toks)] = toks
+        cur, slot = 1, len(toks) + 1
+        for j in range(1, len(toks)):
+            tree[i, slot - 1] = (cur, j + 1)
+            cur, slot = slot, slot + 1
+        roots[i] = cur
+    return word, tree, roots
+
+
+def _tree_lstm(torch):
+    import numpy as np
+    from bigdl_tpu_torch.nn import (BinaryTreeLSTM, CrossEntropyCriterion,
+                                    Linear, LookupTable, Sequential,
+                                    TreeGather)
+    from bigdl_tpu_torch.optim import TreeNNAccuracy
+
+    rng = np.random.default_rng(0)
+    seqs, labels = [], []
+    for _ in range(TREES):
+        n = int(rng.integers(TREE_LEN[0], TREE_LEN[1] + 1))
+        toks = rng.integers(1, TREE_VOCAB, n)
+        seqs.append(toks.tolist())
+        labels.append(int((np.where(toks <= TREE_VOCAB // 2, 1, -1)).sum()
+                          > 0))
+    word, tree, roots = (torch.from_numpy(a) for a in _tree_batch(seqs))
+    labels = torch.tensor(labels)
+
+    def build(device):
+        return Sequential().add(LookupTable(TREE_VOCAB, TREE_EMB,
+                                            device=device)).add(
+            BinaryTreeLSTM(TREE_EMB, TREE_HIDDEN, device=device)).add(
+            Linear(TREE_HIDDEN, 2, device=device))
+
+    def run(m, dev):
+        emb, tl, head = m[0], m[1], m[2]
+        hs = tl([emb(word.to(dev)), tree.to(dev)])
+        logits = head(TreeGather()([hs, roots.to(dev)]))
+        loss = CrossEntropyCriterion()(logits, labels.to(dev))
+        loss.backward()
+        grads = {k: p.grad for k, p in m.named_parameters()}
+        acc = TreeNNAccuracy().counters(logits.detach()[:, None, :],
+                                        labels.to(dev))
+        return float(loss.detach()), logits.detach().cpu(), grads, \
+            (int(acc[0]), int(acc[1]))
+
+    card = build(None)
+    card.reset(26)
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    loss_g, logits_g, grads_g, acc_g = run(card, "cuda")
+    loss_c, logits_c, grads_c, acc_c = run(cpu, "cpu")
+    worst, worst_name = _worst_grad(grads_g, grads_c)
+    out = {"trees": TREES, "vocab": TREE_VOCAB, "embed": TREE_EMB,
+           "hidden": TREE_HIDDEN, "nodes": int(tree.shape[1]),
+           "loss_card": loss_g, "loss_cpu": loss_c,
+           "logits_max_abs": float((logits_g - logits_c).abs().max()),
+           "worst_grad_rel": worst, "worst_grad": worst_name,
+           "tree_nn_accuracy": {"card": acc_g, "cpu": acc_c}}
+    check(abs(loss_g - loss_c) / abs(loss_c) <= RNN_LOSS_REL
+          and out["logits_max_abs"] <= RNN_OUT_TOL
+          and worst <= RNN_GRAD_REL and acc_g == acc_c,
+          f"train_rnn tree-LSTM card vs CPU: {out}")
+    # a forward and backward on the card, after the checked one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TREE_TIMED):
+        card.zero_grad(set_to_none=True)
+        run(card, "cuda")
+    torch.cuda.synchronize()
+    out["card_ms_per_batch"] = (time.perf_counter() - t0) / TREE_TIMED * 1e3
+    return out
+
+
+def phase_train_rnn(torch, kernels, smi):
+    """The recurrent and tree models (see module docstring, 6j)."""
+    ptb = _ptb(torch, smi)
+    torch.cuda.empty_cache()
+    conv = _conv_lstm(torch, kernels)
+    tree = _tree_lstm(torch)
+    emit({"phase": "train_rnn", "ptb": ptb, "conv_lstm": conv,
+          "tree_lstm": tree, "card": smi})
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -7104,6 +7786,9 @@ def main():
     run("slice_control", phase_slice_control, torch, kernels, smi, cpu_ref)
     run("slice_fleet", phase_slice_fleet, torch, kernels, smi, f32_line)
     run("train_preempt", phase_train_preempt, torch, kernels, smi)
+    run("train_sharded", phase_train_sharded, torch, kernels, smi)
+    run("infer_int8", phase_infer_int8, torch, kernels, smi)
+    run("train_rnn", phase_train_rnn, torch, kernels, smi)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

@@ -48,7 +48,8 @@ def _pair_grads(jm, params, tm, x, fmt_out_seed=3):
     tx = torch.from_numpy(x).requires_grad_()
     ty = tm(tx)
     (ty * torch.from_numpy(w)).sum().backward()
-    tg = {k: convert._to_jax(k, p.grad) for k, p in tm.named_parameters()}
+    tg = {k: convert._leaf_to_jax(None, k, p.grad)
+          for k, p in tm.named_parameters()}
     return (ty.detach().numpy(), np.asarray(jy),
             [(tx.grad.numpy(), np.asarray(jg_x))]
             + [(tg[k], np.asarray(jg_p[k])) for k in sorted(tg)])
@@ -158,8 +159,10 @@ def test_grouped_init_divides_the_fans_and_dilation_still_raises():
     assert w.shape == (256, 48, 5, 5)
     bound = np.sqrt(6.0 / (25 * 48 + 25 * 128))
     assert np.abs(w).max() <= bound and np.abs(w).max() > 0.95 * bound
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tnn.SpatialConvolution(4, 4, 3, 3, dilation_w=2, device="cpu")
+    # dilation is ported: a dilated 3x3 builds and never takes the kernels
+    dil = tnn.SpatialConvolution(4, 4, 3, 3, 1, 1, 2, 2, dilation_w=2,
+                                 dilation_h=2, device="cpu")
+    assert not dil.uses_kernel(9, 9) and dil.output_hw(9, 9) == (9, 9)
     with pytest.raises(ValueError, match="divide"):
         tnn.SpatialConvolution(6, 4, 3, 3, n_group=4, device="cpu")
 

@@ -319,15 +319,22 @@ def test_without_a_checkpoint_path_the_first_failure_raises():
     assert to.retries == 0
 
 
-def test_sharded_checkpoints_and_processes_wait_for_a10b(monkeypatch):
+def test_sharded_checkpoint_flag_writes_shard_files(monkeypatch, tmp_path):
     _, tm = _models()
     _, tds = _datasets()
     to = DistriOptimizer(model=tm, dataset=tds,
                          criterion=tnn.ClassNLLCriterion(),
                          mesh=["cpu", "cpu"])
+    to.set_end_when(topt.Trigger.max_iteration(4))
+    to.set_checkpoint(str(tmp_path), topt.Trigger.several_iteration(2))
     monkeypatch.setenv("BIGDL_TPU_SHARDED_CHECKPOINT", "1")
-    with pytest.raises(NotImplementedError, match=r"queue A.10\(b\)"):
-        to.optimize()
+    to.optimize()
+    names = set(p.name for p in tmp_path.iterdir())
+    assert {"shard.2.p0", "shard.4.p0", "model.4",
+            "optimMethod.4"} <= names, names
+
+
+def test_processes_wait_for_a10b():
     with pytest.raises(NotImplementedError, match=r"queue A.10\(b\)"):
         DistributedDataSet(list(range(8)), process_index=1, process_count=2)
 
