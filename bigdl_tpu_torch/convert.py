@@ -54,10 +54,12 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
   a ``Recurrent``'s (and ``RecurrentDecoder``'s) are its cell's, a
   ``MultiRNNCell``'s the list of its cells', a ``BiRecurrent``'s
   ``{"fwd", "bwd"}``, a ``TimeDistributed``'s its inner module's; each
-  leaf is laid out by ``nn.module.jax_perm`` (convolution and
+  leaf is laid out by ``nn.module.jax_layout`` (convolution and
   convolutional-cell weights HWIO / DHWIO -> OIHW / OIDHW, Linear
-  weights (in, out) -> (out, in); embeddings, cell products and tree
-  weights as they are) and keeps an int8 type (the quantised layers'
+  weights (in, out) -> (out, in), a transposed convolution's
+  ``(kh, kw, I / G, O)`` -> ``(I, O / G, kh, kw)`` group by group;
+  embeddings, ``Scale``, ``CAdd`` and ``PReLU`` parameters, cell products
+  and tree weights as they are) and keeps an int8 type (the quantised layers'
   ``{"weight": int8, "scale", "bias", "in_scale"}``), other leaves
   float32;
 - :func:`model_state_to_jax` / :func:`model_state_from_jax` carry a
@@ -86,7 +88,8 @@ import torch
 from bigdl_tpu_torch.nn import (BiRecurrent, Bottle, Container, Graph,
                                 MapTable, MultiRNNCell, Recurrent,
                                 TimeDistributed)
-from bigdl_tpu_torch.nn.module import init_state_dict, jax_perm
+from bigdl_tpu_torch.nn.module import (from_jax_layout, init_state_dict,
+                                       jax_layout, jax_perm, to_jax_layout)
 
 
 def _put(sd, key, arr, transpose=False, dtype=np.float32):
@@ -324,17 +327,24 @@ def init_resnet_tree(model, seed=0):
     return resnet_params_to_jax(init_resnet_params(model, seed))
 
 
-def _inverse(perm):
-    return tuple(int(i) for i in np.argsort(perm))
+def _port_shape(module, leaf, a):
+    """The port's shape of the reference's array ``a``: that of
+    ``module``'s own tensor ``leaf``, else the default layout rule's."""
+    t = getattr(module, leaf, None) if module is not None else None
+    if isinstance(t, torch.Tensor):
+        return tuple(t.shape)
+    perm = jax_perm(module, leaf, a.ndim)
+    if perm is None:
+        return a.shape
+    return tuple(a.shape[i] for i in np.argsort(perm))
 
 
 def _leaf_from_jax(module, leaf, a):
     """A reference leaf of ``module`` as a port tensor (module
     docstring)."""
     a = np.asarray(a)
-    perm = jax_perm(module, leaf, a.ndim)
-    if perm is not None:
-        a = a.transpose(_inverse(perm))
+    shape = _port_shape(module, leaf, a)
+    a = from_jax_layout(jax_layout(module, leaf, shape), shape, a)
     dtype = np.int8 if a.dtype == np.int8 else np.float32
     return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
@@ -343,9 +353,7 @@ def _leaf_to_jax(module, leaf, t):
     """The inverse of :func:`_leaf_from_jax` on a port tensor."""
     t = t.detach().cpu()
     a = (t if t.dtype == torch.int8 else t.float()).numpy()
-    perm = jax_perm(module, leaf, a.ndim)
-    if perm is not None:
-        a = a.transpose(perm)
+    a = to_jax_layout(jax_layout(module, leaf, a.shape), a)
     return np.array(a, order="C")
 
 

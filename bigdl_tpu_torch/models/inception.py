@@ -28,12 +28,17 @@ from bigdl_tpu_torch.utils.device import resolve_device
 def inception_module(n_in, config, name="inception", with_bn=False,
                      device=None):
     """``config = ([1x1], [3x3 reduce, 3x3], [5x5 reduce, 5x5], [pool
-    proj])`` (reference ``Inception_v1.scala`` inception())."""
+    proj])`` (reference ``Inception_v1.scala`` inception()). The towers'
+    convolutions carry BVLC GoogLeNet's layer names,
+    ``inception_<name>/1x1``, ``/3x3_reduce``, ``/3x3``, ``/5x5_reduce``,
+    ``/5x5`` and ``/pool_proj``, the names a Caffe model's blobs go by
+    (``interop.CaffeLoader.load_weights_into``)."""
     dev = resolve_device(device)
 
-    def conv(n_i, n_o, k, pad=0):
+    def conv(n_i, n_o, k, tower, pad=0):
         layers = [nn.SpatialConvolution(n_i, n_o, k, k, 1, 1, pad, pad,
-                                        device=dev)]
+                                        device=dev)
+                  .set_name(f"inception_{name}/{tower}")]
         if with_bn:
             layers.append(nn.SpatialBatchNormalization(n_o, eps=1e-3,
                                                        device=dev))
@@ -41,13 +46,15 @@ def inception_module(n_in, config, name="inception", with_bn=False,
         return layers
 
     concat = nn.Concat(1)
-    concat.add(nn.Sequential(*conv(n_in, config[0][0], 1)))
-    concat.add(nn.Sequential(*(conv(n_in, config[1][0], 1)
-                               + conv(config[1][0], config[1][1], 3, 1))))
-    concat.add(nn.Sequential(*(conv(n_in, config[2][0], 1)
-                               + conv(config[2][0], config[2][1], 5, 2))))
+    concat.add(nn.Sequential(*conv(n_in, config[0][0], 1, "1x1")))
+    concat.add(nn.Sequential(*(conv(n_in, config[1][0], 1, "3x3_reduce")
+                               + conv(config[1][0], config[1][1], 3, "3x3",
+                                      1))))
+    concat.add(nn.Sequential(*(conv(n_in, config[2][0], 1, "5x5_reduce")
+                               + conv(config[2][0], config[2][1], 5, "5x5",
+                                      2))))
     concat.add(nn.Sequential(nn.SpatialMaxPooling(3, 3, 1, 1, 1, 1).ceil(),
-                             *conv(n_in, config[3][0], 1)))
+                             *conv(n_in, config[3][0], 1, "pool_proj")))
     return concat.set_name(name)
 
 

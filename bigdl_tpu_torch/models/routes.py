@@ -4,15 +4,19 @@ its layers: the layer walk, the 3x3 convolutions' kernel launches by path
 operations of a forward pass.
 
 :func:`layer_walk` walks a tree of ``Sequential`` and ``Concat``
-containers (VGG, Inception, AlexNet, LeNet's ``Sequential``) or a model
-with a ``layer_walk`` method of its own (``ResNet``).
+containers (VGG, Inception, AlexNet, LeNet's ``Sequential``), a ``Graph``
+(a Caffe-loaded model: its nodes in ``exec_order``, each fed the ``(h,
+w)`` of its first input, its input depending on a parameter where any of
+its inputs' does), or a model with a ``layer_walk`` method of its own
+(``ResNet``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.nn import Concat, Linear, Sequential, SpatialConvolution
+from bigdl_tpu_torch.nn import (Concat, Graph, Linear, Sequential,
+                                SpatialConvolution)
 from bigdl_tpu_torch.ops.conv3x3 import kernel_for, tc_path
 
 
@@ -30,6 +34,13 @@ def _walk(module, hw, grad, out):
     if isinstance(module, Concat):
         ends = [_walk(child, hw, grad, out) for child in module]
         return ends[0][0], any(g for _, g in ends)
+    if isinstance(module, Graph):
+        ends = {}
+        for node in module.exec_order:
+            ins = [ends[p.id] for p in node.prev_nodes] or [(hw, grad)]
+            ends[node.id] = _walk(node.module, ins[0][0],
+                                  any(g for _, g in ins), out)
+        return ends[module.output_nodes[0].id]
     if any(True for _ in module.children()):
         raise TypeError(f"layer_walk does not walk a "
                         f"{type(module).__name__}")

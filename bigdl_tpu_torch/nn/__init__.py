@@ -1,11 +1,15 @@
-from bigdl_tpu_torch.nn.activation import (Identity, LogSoftMax, ReLU,
-                                           Sigmoid, SoftMax, Tanh)
-from bigdl_tpu_torch.nn.basic import Dropout, Flatten, Reshape
+from bigdl_tpu_torch.nn.activation import (ELU, Abs, Exp, Identity, Log,
+                                           LogSoftMax, Power, PReLU, ReLU,
+                                           Sigmoid, SoftMax, SoftPlus, Tanh)
+from bigdl_tpu_torch.nn.basic import (AddConstant, CAdd, Dropout, Flatten,
+                                      MulConstant, Narrow, Reshape, Scale,
+                                      SpatialZeroPadding, Tile, View)
 from bigdl_tpu_torch.nn.containers import (Bottle, Concat, ConcatTable,
                                            Container, MapTable, ParallelTable,
                                            Sequential)
 from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
-                                     SpatialDilatedConvolution)
+                                     SpatialDilatedConvolution,
+                                     SpatialFullConvolution)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
@@ -16,13 +20,15 @@ from bigdl_tpu_torch.nn.init_methods import (BilinearFiller, ConstInitMethod,
                                              MsraFiller, Ones, RandomNormal,
                                              RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.misc import BinaryThreshold, InferReshape
 from bigdl_tpu_torch.nn.module import (Module, grad_scales,
                                        regularization_loss, regularizers,
                                        takes_generator)
 from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               LayerNormalization,
                                               SpatialBatchNormalization,
-                                              SpatialCrossMapLRN)
+                                              SpatialCrossMapLRN,
+                                              SpatialWithinChannelLRN)
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
                                         SpatialMaxPooling)
 from bigdl_tpu_torch.nn.quantized import (
@@ -34,27 +40,32 @@ from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
                                           MultiRNNCell, Recurrent,
                                           RecurrentDecoder, RnnCell,
                                           TimeDistributed)
-from bigdl_tpu_torch.nn.table_ops import CAddTable, JoinTable, SelectTable
+from bigdl_tpu_torch.nn.table_ops import (CAddTable, CMaxTable, CMulTable,
+                                          CSubTable, JoinTable, SelectTable)
 from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeGather, TreeLSTM
 
-__all__ = ["BatchNormalization", "BiRecurrent", "BilinearFiller",
-           "BinaryTreeLSTM", "Bottle", "CAddTable", "Cell",
+__all__ = ["Abs", "AddConstant", "BatchNormalization", "BiRecurrent",
+           "BilinearFiller", "BinaryThreshold", "BinaryTreeLSTM", "Bottle",
+           "CAdd", "CAddTable", "CMaxTable", "CMulTable", "CSubTable", "Cell",
            "ClassNLLCriterion", "Concat", "ConcatTable", "ConstInitMethod",
            "Container", "ConvLSTMPeephole", "ConvLSTMPeephole3D",
-           "CrossEntropyCriterion", "Dropout", "Flatten", "GRU", "Graph",
-           "Identity", "InitializationMethod", "Input", "Int8Linear",
-           "JoinTable", "LSTM", "LSTMPeephole", "LayerNormalization",
-           "Linear", "LogSoftMax", "LookupTable", "LookupTableSparse",
-           "MapTable", "Module", "MsraFiller", "MultiRNNCell", "Node",
-           "Ones", "ParallelTable", "QuantizedLinear",
+           "CrossEntropyCriterion", "Dropout", "ELU", "Exp", "Flatten", "GRU",
+           "Graph", "Identity", "InferReshape", "InitializationMethod",
+           "Input", "Int8Linear", "JoinTable", "LSTM", "LSTMPeephole",
+           "LayerNormalization", "Linear", "Log", "LogSoftMax", "LookupTable",
+           "LookupTableSparse", "MapTable", "Module", "MsraFiller",
+           "MulConstant", "MultiRNNCell", "Narrow", "Node", "Ones", "PReLU",
+           "ParallelTable", "Power", "QuantizedLinear",
            "QuantizedSpatialConvolution",
-           "QuantizedSpatialDilatedConvolution", "Quantizer",
-           "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
-           "RecurrentDecoder", "Reshape", "RnnCell", "SelectTable",
-           "Sequential", "Sigmoid", "SoftMax", "SpatialAveragePooling",
+           "QuantizedSpatialDilatedConvolution", "Quantizer", "RandomNormal",
+           "RandomUniform", "ReLU", "Recurrent", "RecurrentDecoder",
+           "Reshape", "RnnCell", "Scale", "SelectTable", "Sequential",
+           "Sigmoid", "SoftMax", "SoftPlus", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
            "SpatialCrossMapLRN", "SpatialDilatedConvolution",
-           "SpatialMaxPooling", "Tanh", "TimeDistributed",
-           "TimeDistributedCriterion", "TreeGather", "TreeLSTM", "Xavier",
-           "Zeros", "grad_scales", "quantize_model", "regularization_loss",
-           "regularizers", "takes_generator"]
+           "SpatialFullConvolution", "SpatialMaxPooling",
+           "SpatialWithinChannelLRN", "SpatialZeroPadding", "Tanh", "Tile",
+           "TimeDistributed", "TimeDistributedCriterion", "TreeGather",
+           "TreeLSTM", "View", "Xavier", "Zeros", "grad_scales",
+           "quantize_model", "regularization_loss", "regularizers",
+           "takes_generator"]

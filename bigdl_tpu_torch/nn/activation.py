@@ -1,12 +1,23 @@
 """Activations (the port of ``bigdl_tpu/nn/activation.py``: ``ReLU``,
-``Tanh``, ``Sigmoid``, ``SoftMax``, ``LogSoftMax`` and ``Identity``)."""
+``Tanh``, ``Sigmoid``, ``SoftMax``, ``LogSoftMax``, ``Identity``, ``Abs``,
+``Exp``, ``Log``, ``Power``, ``ELU``, ``PReLU`` and ``SoftPlus``).
+
+``SoftPlus`` is ``logaddexp(beta * x, 0) / beta`` at every ``x``, as
+``jax.nn.softplus`` computes it (``F.softplus`` turns linear past a
+threshold). ``PReLU`` holds one slope a channel (axis 1), or one shared
+slope when ``n_output_plane`` is 0, each 0.25 at first, as the
+reference's.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.utils.device import resolve_device
 
 
 class ReLU(Module):
@@ -49,3 +60,81 @@ class LogSoftMax(Module):
 class Identity(Module):
     def forward(self, x):
         return x
+
+
+class Abs(Module):
+    def forward(self, x):
+        return torch.abs(x)
+
+
+class Exp(Module):
+    def forward(self, x):
+        return torch.exp(x)
+
+
+class Log(Module):
+    def forward(self, x):
+        return torch.log(x)
+
+
+class Power(Module):
+    """``(shift + scale * x) ** power`` (reference ``nn/Power.scala``)."""
+
+    def __init__(self, power, scale=1.0, shift=0.0):
+        super().__init__()
+        self.power, self.scale, self.shift = power, scale, shift
+
+    def forward(self, x):
+        return torch.pow(self.shift + self.scale * x, self.power)
+
+    def extra_repr(self):
+        return f"power={self.power}, scale={self.scale}, shift={self.shift}"
+
+
+class ELU(Module):
+    """``x`` above 0, else ``alpha * (exp(x) - 1)``; ``ip`` is accepted for
+    the reference's API."""
+
+    def __init__(self, alpha=1.0, ip=False):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self.alpha)
+
+
+class PReLU(Module):
+    """Learnable leak (reference ``nn/PReLU.scala``; see module
+    docstring)."""
+
+    def __init__(self, n_output_plane=0, device=None, dtype=torch.float32):
+        super().__init__()
+        self.n_output_plane = n_output_plane
+        self.weight = nn.Parameter(torch.full(
+            (max(n_output_plane, 1),), 0.25, device=resolve_device(device),
+            dtype=dtype))
+
+    def forward(self, x):
+        w = self.weight
+        if self.n_output_plane > 0:
+            shape = [1] * x.dim()
+            shape[1] = self.n_output_plane
+            w = w.reshape(shape)
+        return torch.where(x > 0, x, w * x)
+
+    def init_arrays(self, rng):
+        return {"weight": np.full(max(self.n_output_plane, 1), 0.25)}
+
+    def extra_repr(self):
+        return f"{self.n_output_plane}"
+
+
+class SoftPlus(Module):
+    """``log(1 + exp(beta * x)) / beta`` (see module docstring)."""
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self.beta = beta
+
+    def forward(self, x):
+        return torch.logaddexp(self.beta * x, torch.zeros_like(x)) / self.beta

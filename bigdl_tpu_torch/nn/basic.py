@@ -1,11 +1,26 @@
-"""Shape and noise layers (the port of ``bigdl_tpu/nn/basic.py``
-``Reshape``, ``Flatten``, ``Input`` and ``Dropout``)."""
+"""Shape, noise and constant layers (the port of ``bigdl_tpu/nn/basic.py``
+``Reshape``, ``View``, ``Flatten``, ``Narrow``, ``Tile``,
+``SpatialZeroPadding``, ``Input``, ``Dropout``, ``AddConstant``,
+``MulConstant``, ``CAdd`` and ``Scale``).
+
+Axes are 0-based Python axes, as in the reference. ``CAdd`` and ``Scale``
+hold parameters of the shape they are given (a Caffe ``Scale`` or ``Bias``
+layer's ``(1, C, 1, 1)``), broadcast against the input; their initial
+values are the reference's (``Scale`` weight 1 and bias 0, ``CAdd`` bias
+0). ``Flatten`` remembers the rank of the last input it flattened, which
+``interop.save_torch`` writes as a Torch7 ``nn.View``'s ``numInputDims``
+(the reference reads it from its build-time input spec).
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.utils.device import resolve_device
 
 
 class Reshape(Module):
@@ -26,11 +41,84 @@ class Reshape(Module):
         return f"{self.size}"
 
 
+class View(Module):
+    """Reshape to ``(batch,) + sizes`` (reference ``nn/View.scala``)."""
+
+    def __init__(self, *sizes):
+        super().__init__()
+        if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)):
+            sizes = tuple(sizes[0])
+        self.sizes = sizes
+
+    def forward(self, x):
+        return x.reshape((x.shape[0],) + tuple(self.sizes))
+
+    def extra_repr(self):
+        return f"{self.sizes}"
+
+
 class Flatten(Module):
     """Every axis but the batch axis flattened into one."""
 
     def forward(self, x):
+        self._input_rank = x.dim() - 1      # per sample, for save_torch
         return x.reshape(x.shape[0], -1)
+
+
+class Narrow(Module):
+    """``[offset, offset + length)`` along ``dim`` (reference
+    ``nn/Narrow.scala``); a negative ``length`` counts from the end, -1
+    running to the last element."""
+
+    def __init__(self, dim, offset, length):
+        super().__init__()
+        self.dim, self.offset, self.length = dim, offset, length
+
+    def forward(self, x):
+        length = self.length
+        if length < 0:
+            length = x.shape[self.dim] - self.offset + length + 1
+        return x.narrow(self.dim, self.offset, length)
+
+    def extra_repr(self):
+        return f"dim={self.dim}, offset={self.offset}, length={self.length}"
+
+
+class Tile(Module):
+    """``copies`` copies of the input along ``dim`` (reference
+    ``nn/Tile.scala``)."""
+
+    def __init__(self, dim, copies=2):
+        super().__init__()
+        self.dim, self.copies = dim, copies
+
+    def forward(self, x):
+        reps = [1] * x.dim()
+        reps[self.dim] = self.copies
+        return x.repeat(*reps)
+
+
+class SpatialZeroPadding(Module):
+    """Zeros around the last two axes of an NCHW input (reference
+    ``nn/SpatialZeroPadding.scala``); the right, top and bottom pads
+    default to the left one."""
+
+    def __init__(self, pad_left, pad_right=None, pad_top=None,
+                 pad_bottom=None):
+        super().__init__()
+        self.l = pad_left
+        self.r = pad_right if pad_right is not None else pad_left
+        self.t = pad_top if pad_top is not None else pad_left
+        self.b = pad_bottom if pad_bottom is not None else pad_left
+
+    def output_hw(self, h, w):
+        return h + self.t + self.b, w + self.l + self.r
+
+    def forward(self, x):
+        return F.pad(x, (self.l, self.r, self.t, self.b))
+
+    def extra_repr(self):
+        return f"l={self.l}, r={self.r}, t={self.t}, b={self.b}"
 
 
 class Input(Module):
@@ -70,3 +158,77 @@ class Dropout(Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class AddConstant(Module):
+    """``x + constant_scalar``; ``ip`` is accepted for the reference's API
+    (the result is a new tensor)."""
+
+    def __init__(self, constant_scalar, ip=False):
+        super().__init__()
+        self.constant = constant_scalar
+
+    def forward(self, x):
+        return x + self.constant
+
+    def extra_repr(self):
+        return f"{self.constant}"
+
+
+class MulConstant(Module):
+    """``x * scalar``; ``ip`` as in ``AddConstant``."""
+
+    def __init__(self, scalar, ip=False):
+        super().__init__()
+        self.scalar = scalar
+
+    def forward(self, x):
+        return x * self.scalar
+
+    def extra_repr(self):
+        return f"{self.scalar}"
+
+
+class CAdd(Module):
+    """A learnable bias of shape ``size``, broadcast against the input
+    (reference ``nn/CAdd.scala``)."""
+
+    def __init__(self, size, device=None, dtype=torch.float32):
+        super().__init__()
+        self.size = tuple(size)
+        self.bias = nn.Parameter(torch.zeros(
+            self.size, device=resolve_device(device), dtype=dtype))
+
+    def forward(self, x):
+        return x + self.bias
+
+    def init_arrays(self, rng):
+        return {"bias": np.zeros(self.size)}
+
+    def extra_repr(self):
+        return f"{self.size}"
+
+
+class Scale(Module):
+    """``x * weight + bias``, both of shape ``size`` (reference
+    ``nn/Scale.scala``: ``CMul`` then ``CAdd``)."""
+
+    jax_perms = {"weight": None}    # the same shape in both packages
+
+    def __init__(self, size, device=None, dtype=torch.float32):
+        super().__init__()
+        self.size = tuple(size)
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.ones(self.size, device=device,
+                                              dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(self.size, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        return x * self.weight + self.bias
+
+    def init_arrays(self, rng):
+        return {"weight": np.ones(self.size), "bias": np.zeros(self.size)}
+
+    def extra_repr(self):
+        return f"{self.size}"

@@ -1,6 +1,7 @@
 """2-D convolution (the port of ``bigdl_tpu/nn/conv.py``
 ``SpatialConvolution`` and ``SpatialDilatedConvolution``: any
-``n_group``, any dilation).
+``n_group``, any dilation; and ``SpatialFullConvolution``, the transposed
+convolution, at the end of this module).
 
 The weight is OIHW, ``(O, I / n_group, kh, kw)`` as torch's ``F.conv2d``
 takes it (the reference's HWIO ``(kh, kw, I / n_group, O)``), kept in
@@ -45,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, from_jax_layout
 from bigdl_tpu_torch.ops.conv3x3 import conv3x3
 from bigdl_tpu_torch.utils.device import resolve_device
 
@@ -205,3 +206,105 @@ class SpatialDilatedConvolution(SpatialConvolution):
         super().__init__(n_input_plane, n_output_plane, kw, kh, dw, dh,
                          pad_w, pad_h, dilation_w=dilation_w,
                          dilation_h=dilation_h, **kwargs)
+
+
+class SpatialFullConvolution(Module):
+    """Transposed convolution (reference ``nn/SpatialFullConvolution.scala``),
+    ``F.conv_transpose2d``: the reference computes it with
+    ``lax.conv_general_dilated`` outside any Pallas kernel, and it never
+    takes the 3x3 kernels.
+
+    The weight is ``(I, O / n_group, kh, kw)``, as ``F.conv_transpose2d``
+    and a Caffe ``Deconvolution`` blob take it. The reference's is ``(kh,
+    kw, I / n_group, O)`` and runs forward over the stride-dilated input
+    with the flipped kernel; with groups its output block of group ``g`` is
+    the last axis's ``g``-th slice, so the two layouts are a permutation of
+    5-D views (:meth:`jax_layout`), not of the tensors. ``adj`` adds rows
+    and columns after the end (torch's ``output_padding``; where torch
+    refuses one as large as the stride, the unpadded result is cut to the
+    window instead). ``format`` is "NCHW" or "NHWC"."""
+
+    def __init__(self, n_input_plane, n_output_plane, kw, kh, dw=1, dh=1,
+                 pad_w=0, pad_h=0, adj_w=0, adj_h=0, n_group=1,
+                 no_bias=False, w_regularizer=None, b_regularizer=None,
+                 format="NCHW", init_weight=None, init_bias=None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if format not in ("NCHW", "NHWC"):
+            raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
+        self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
+        self.kernel_w, self.kernel_h = kw, kh
+        self.stride_w, self.stride_h = dw, dh
+        self.pad_w, self.pad_h = pad_w, pad_h
+        self.adj_w, self.adj_h = adj_w, adj_h
+        self.n_group = n_group
+        self.format = format
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty(
+            n_input_plane, n_output_plane // n_group, kh, kw, device=device,
+            dtype=dtype))
+        if no_bias:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(torch.zeros(n_output_plane,
+                                                 device=device, dtype=dtype))
+
+    def jax_layout(self, leaf, shape):
+        """``(view, perm, reference shape)`` of ``leaf`` (``nn.module.
+        jax_layout``): the weight viewed as ``(G, I / G, O / G, kh, kw)``
+        and permuted to ``(kh, kw, I / G, G, O / G)``."""
+        if leaf != "weight":
+            return None
+        g = self.n_group
+        cin, cout_g, kh, kw = shape
+        return ((g, cin // g, cout_g, kh, kw), (3, 4, 1, 0, 2),
+                (kh, kw, cin // g, g * cout_g))
+
+    def output_hw(self, h, w):
+        return ((h - 1) * self.stride_h - 2 * self.pad_h + self.kernel_h
+                + self.adj_h,
+                (w - 1) * self.stride_w - 2 * self.pad_w + self.kernel_w
+                + self.adj_w)
+
+    def forward(self, x):
+        nhwc = self.format == "NHWC"
+        xc = x.permute(0, 3, 1, 2) if nhwc else x
+        stride = (self.stride_h, self.stride_w)
+        if self.adj_h < self.stride_h and self.adj_w < self.stride_w:
+            y = F.conv_transpose2d(xc, self.weight, self.bias, stride,
+                                   (self.pad_h, self.pad_w),
+                                   (self.adj_h, self.adj_w), self.n_group)
+        else:
+            full = F.conv_transpose2d(xc, self.weight, None, stride, 0, 0,
+                                      self.n_group)
+            y = F.pad(full, (-self.pad_w, self.adj_w - self.pad_w,
+                             -self.pad_h, self.adj_h - self.pad_h))
+            if self.bias is not None:
+                y = y + self.bias.reshape(1, -1, 1, 1)
+        return y.permute(0, 2, 3, 1) if nhwc else y
+
+    def init_arrays(self, rng):
+        # Glorot-uniform over one group's fans, drawn in the reference's
+        # layout, as its Xavier draws them
+        kk = self.kernel_h * self.kernel_w
+        g = self.n_group
+        bound = np.sqrt(6.0 / (kk * self.n_input_plane // g
+                               + kk * self.n_output_plane // g))
+        ref = rng.uniform(-bound, bound, (self.kernel_h, self.kernel_w,
+                                          self.n_input_plane // g,
+                                          self.n_output_plane))
+        out = {"weight": from_jax_layout(
+            self.jax_layout("weight", tuple(self.weight.shape)),
+            tuple(self.weight.shape), ref)}
+        if self.bias is not None:
+            out["bias"] = np.zeros(self.n_output_plane)
+        return out
+
+    def extra_repr(self):
+        return (f"{self.n_input_plane} -> {self.n_output_plane}, "
+                f"{self.kernel_w}x{self.kernel_h}, "
+                f"{self.stride_w},{self.stride_h}, {self.pad_w},{self.pad_h}"
+                + (f", adj {self.adj_w},{self.adj_h}"
+                   if (self.adj_w, self.adj_h) != (0, 0) else "")
+                + (f", groups={self.n_group}" if self.n_group > 1 else ""))

@@ -26,7 +26,10 @@ reference's training API reads from them:
 - :func:`jax_perm`: how a layer's tensor is laid out against the
   reference's (``jax_perms``, a class's own table, over the default:
   a 4-D ``weight`` OIHW for the reference's HWIO, a 2-D one (out, in) for
-  its (in, out));
+  its (in, out)); :func:`jax_layout` generalises it to a permutation of a
+  view (a class's own ``jax_layout`` method: the transposed convolution's
+  grouped weight), and :func:`to_jax_layout`/:func:`from_jax_layout`
+  apply it to a tensor or an array either way;
 - :func:`takes_generator`: does a module's ``forward`` take the
   ``generator`` its layers draw from (``Dropout``, the containers, the
   GPT and ResNet models)? The reference hands its rng to every layer and
@@ -139,6 +142,48 @@ def jax_perm(module, leaf, ndim):
     if leaf in perms:
         return perms[leaf]
     return _DEFAULT_PERMS.get(ndim) if leaf == "weight" else None
+
+
+def jax_layout(module, leaf, shape):
+    """``(view, perm, reference shape)``: ``module``'s tensor ``leaf`` of
+    ``shape``, viewed as ``view`` and permuted by ``perm``, is the
+    reference's array reshaped to ``reference shape``; None when the
+    layouts agree. A class's own ``jax_layout(leaf, shape)`` method
+    decides first (None there: no layout of its own for that leaf), then
+    :func:`jax_perm`."""
+    own = getattr(module, "jax_layout", None)
+    layout = own(leaf, tuple(shape)) if own is not None else None
+    if layout is not None:
+        return layout
+    perm = jax_perm(module, leaf, len(shape))
+    if perm is None:
+        return None
+    return tuple(shape), perm, tuple(shape[i] for i in perm)
+
+
+def _permute(x, perm):
+    return x.permute(*perm) if isinstance(x, torch.Tensor) \
+        else x.transpose(perm)
+
+
+def to_jax_layout(layout, x):
+    """A port tensor or array ``x`` in the reference's layout (``layout``
+    from :func:`jax_layout`; None: ``x`` as it is)."""
+    if layout is None:
+        return x
+    view, perm, shape = layout
+    return _permute(x.reshape(view), perm).reshape(shape)
+
+
+def from_jax_layout(layout, shape, a):
+    """The inverse of :func:`to_jax_layout`: the reference's ``a`` as the
+    port's tensor or array of ``shape``."""
+    if layout is None:
+        return a
+    view, perm, _ = layout
+    inverse = tuple(int(i) for i in np.argsort(perm))
+    return _permute(a.reshape(tuple(view[i] for i in perm)),
+                    inverse).reshape(shape)
 
 
 @functools.cache

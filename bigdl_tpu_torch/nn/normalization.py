@@ -15,7 +15,11 @@
   ``(size - 1) // 2`` before and the rest after, as the reference's
   ``reduce_window`` pads it (``F.local_response_norm`` pads ``size // 2``
   before, which differs for an even ``size``). Plain tensor operations:
-  the reference computes it outside any Pallas kernel.
+  the reference computes it outside any Pallas kernel;
+- ``SpatialWithinChannelLRN``: ``x * (1 + alpha * M) ** -beta``, ``M`` the
+  mean of ``x^2`` over a ``size`` x ``size`` window of each NCHW channel,
+  zero-padded as the cross-map window is (the sum over the window divided
+  by ``size^2``, as the reference's ``reduce_window`` then divides).
 """
 
 from __future__ import annotations
@@ -150,3 +154,23 @@ class SpatialCrossMapLRN(Module):
     def extra_repr(self):
         return (f"size={self.size}, alpha={self.alpha}, beta={self.beta}, "
                 f"k={self.k}, {self.format}")
+
+
+class SpatialWithinChannelLRN(Module):
+    """Local response normalization within each channel (reference
+    ``nn/SpatialWithinChannelLRN.scala``; see module docstring)."""
+
+    def __init__(self, size=5, alpha=1.0, beta=0.75):
+        super().__init__()
+        self.size, self.alpha, self.beta = size, alpha, beta
+
+    def forward(self, x):
+        before = (self.size - 1) // 2
+        after = self.size - 1 - before
+        sq = F.pad(torch.square(x), (before, after, before, after))
+        window_sum = F.avg_pool2d(sq, self.size, 1, divisor_override=1)
+        mean_sq = window_sum / (self.size * self.size)
+        return x * torch.pow(1.0 + self.alpha * mean_sq, -self.beta)
+
+    def extra_repr(self):
+        return f"size={self.size}, alpha={self.alpha}, beta={self.beta}"

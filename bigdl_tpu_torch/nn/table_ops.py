@@ -1,5 +1,6 @@
 """Table layers (the port of ``bigdl_tpu/nn/table_ops.py`` ``CAddTable``,
-``JoinTable`` and ``SelectTable``).
+``CSubTable``, ``CMulTable``, ``CMaxTable``, ``JoinTable`` and
+``SelectTable``).
 
 The reference's Table (keys 1..n) is a Python list here: containers and
 graphs hand a table layer one list. ``CAddTable`` also takes its inputs as
@@ -19,18 +20,36 @@ def _elems(xs):
     return list(xs)
 
 
-class CAddTable(Module):
-    """Element-wise sum of its inputs, in order."""
-
-    def __init__(self, inplace=False):
-        super().__init__()
+class _ReduceTable(Module):
+    """Its inputs folded left to right by ``op``."""
 
     def forward(self, *xs):
         xs = _elems(xs)
         acc = xs[0]
         for x in xs[1:]:
-            acc = acc + x
+            acc = self.op(acc, x)
         return acc
+
+
+class CAddTable(_ReduceTable):
+    """Element-wise sum of its inputs, in order."""
+
+    op = staticmethod(torch.add)
+
+    def __init__(self, inplace=False):
+        super().__init__()
+
+
+class CSubTable(_ReduceTable):
+    op = staticmethod(torch.subtract)
+
+
+class CMulTable(_ReduceTable):
+    op = staticmethod(torch.multiply)
+
+
+class CMaxTable(_ReduceTable):
+    op = staticmethod(torch.maximum)
 
 
 class JoinTable(Module):

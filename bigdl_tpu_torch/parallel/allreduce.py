@@ -76,7 +76,8 @@ import torch
 from torch.profiler import record_function
 
 from bigdl_tpu_torch import obs
-from bigdl_tpu_torch.nn.module import jax_perm
+from bigdl_tpu_torch.nn.module import (from_jax_layout, jax_layout,
+                                       to_jax_layout)
 from bigdl_tpu_torch.optim.optimizer import cast_forward, make_loss_and_grads
 from bigdl_tpu_torch.resilience.faults import fault_point
 from bigdl_tpu_torch.utils.flags import get_flag
@@ -112,15 +113,15 @@ def _order_key(name):
                  for c in name.split("."))
 
 
-def _jax_perms(params, module):
-    """``{name: the permutation that puts the tensor in the reference's
-    layout, or None}`` (``nn.module.jax_perm`` of its owning layer; the
-    default rule without ``module``)."""
+def _jax_layouts(params, module):
+    """``{name: how the tensor sits in the reference's layout, or None}``
+    (``nn.module.jax_layout`` of its owning layer; the default rule
+    without ``module``)."""
     owners = dict(module.named_modules()) if module is not None else {}
     out = {}
     for name, t in params.items():
         prefix, leaf = name.rpartition(".")[::2]
-        out[name] = jax_perm(owners.get(prefix), leaf, t.dim())
+        out[name] = jax_layout(owners.get(prefix), leaf, tuple(t.shape))
     return out
 
 
@@ -128,21 +129,19 @@ class AllReduceParameter:
     """The flat, slice-owned view of a module's parameters (API of
     ``AllReduceParameter.scala``): ``params`` is ``{name: tensor}`` in the
     port's layout, of ``module`` when given (whose layers name their
-    layouts, ``nn.module.jax_perm``). The flat vector is float32, in the
+    layouts, ``nn.module.jax_layout``). The flat vector is float32, in the
     reference's order and layout (module docstring), zero-padded to a
     multiple of ``n_partitions``."""
 
     def __init__(self, params, n_partitions, module=None):
         self.params = params
-        self.entries = []       # (name, port shape, perm, jax shape, offset)
-        perms = _jax_perms(params, module)
+        self.entries = []       # (name, port shape, layout, offset)
+        layouts = _jax_layouts(params, module)
         offset = 0
         for name in sorted(params, key=_order_key):
             t = params[name]
-            perm = perms[name]
-            shape = tuple(t.shape)
-            jshape = shape if perm is None else tuple(shape[i] for i in perm)
-            self.entries.append((name, shape, perm, jshape, offset))
+            self.entries.append((name, tuple(t.shape), layouts[name],
+                                 offset))
             offset += t.numel()
         self.total_size = offset
         self.padding = (-offset) % n_partitions
@@ -153,10 +152,8 @@ class AllReduceParameter:
         """``{name: tensor}`` (the parameters, or their gradients) as the
         padded float32 flat vector, on their device."""
         parts = []
-        for name, _, perm, _, _ in self.entries:
-            t = tensors[name].detach()
-            if perm is not None:
-                t = t.permute(*perm)
+        for name, _, layout, _ in self.entries:
+            t = to_jax_layout(layout, tensors[name].detach())
             parts.append(t.reshape(-1).float())
         if self.padding:
             parts.append(parts[0].new_zeros(self.padding))
@@ -169,32 +166,23 @@ class AllReduceParameter:
         """``{name: tensor}`` in the port's layout from a flat vector (new
         tensors)."""
         out = {}
-        for name, shape, perm, jshape, off in self.entries:
-            seg = flat[off:off + math.prod(shape)].reshape(jshape)
-            if perm is not None:
-                seg = seg.permute(*_inverse(perm))
-            out[name] = seg.contiguous()
+        for name, shape, layout, off in self.entries:
+            seg = flat[off:off + math.prod(shape)]
+            out[name] = from_jax_layout(layout, shape, seg).reshape(
+                shape).contiguous()
         return out
 
     @torch.no_grad()
     def load_into(self, flat, params):
         """Copy a flat vector into ``params`` (``{name: tensor}``) in
         place."""
-        for name, shape, perm, jshape, off in self.entries:
-            seg = flat[off:off + math.prod(shape)].reshape(jshape)
-            if perm is not None:
-                seg = seg.permute(*_inverse(perm))
-            params[name].copy_(seg)
+        for name, shape, layout, off in self.entries:
+            seg = flat[off:off + math.prod(shape)]
+            params[name].copy_(from_jax_layout(layout, shape, seg).reshape(
+                shape))
 
     def slice_of(self, flat, pid):
         return flat[pid * self.slice_size:(pid + 1) * self.slice_size]
-
-
-def _inverse(perm):
-    inv = [0] * len(perm)
-    for i, p in enumerate(perm):
-        inv[p] = i
-    return tuple(inv)
 
 
 def all_gather(slices, devices, wire_dtype):

@@ -560,7 +560,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (``models.model_flops``) against 67 or 989 TFLOP/s, peak memory, the
    device's busy share and the 3x3 kernels' share of device time.
 
-13. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
+13. load_interop — ``BASELINE.json`` config 3's load paths. Inception-v1
+   from Caffe: the run writes BVLC GoogLeNet's layout as a prototxt
+   (``conv1/7x7_s2`` ... ``inception_5b/output``, ``pool5/7x7_s1``,
+   ``loss3/classifier``, ending in a ``SoftmaxWithLoss`` that the loader
+   maps to ``LogSoftMax``) and a caffemodel of
+   ``Inception_v1_NoAuxClassifier(1000, seed=CNN_SEED)``'s weights, encoded
+   with the port's ``protowire``, into a temporary directory, and loads
+   them with ``interop.load_caffe(..., sample_input=(CNN_BATCH, 3, 224,
+   224))`` on the card: in evaluation mode the loaded graph's float32
+   outputs on one seeded batch equal the source model's within 1e-5 of
+   their largest magnitude; its ``conv_routes`` equal the source's; it
+   trains CNN_STEPS bfloat16 steps through ``make_train_step`` (dropout
+   from a seeded generator) with the 3x3 launches equal to the route
+   table and no 3x3 stride-1 ``F.conv2d``; ``CaffeLoader.
+   load_weights_into`` a fresh ``Inception_v1_NoAuxClassifier`` gives the
+   source's weights bit for bit. AlexNet-OWT from Torch7: ``save_torch``
+   of ``AlexNet_OWT(1000, seed=CNN_SEED)``, ``load_torch`` on the card,
+   outputs within 1e-5 of the source's, one float32 step with the route
+   table's CUDA-core launches; ``save_torch`` of the Caffe AlexNet
+   (grouped conv2, conv4 and conv5) raises as the reference's does.
+   Reports each file's bytes and load seconds, step time and images/s.
+
+14. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
    hidden 768, 12 heads, vocabulary 30522, max_position 512) at full width
    and depth, seeded weights (``convert.init_bert_tree``) and seeded
    tokens, 15 % masked (label -1 elsewhere). ``BertForMLM`` through
@@ -4291,11 +4313,11 @@ def _conv3x3_share(profile):
 
 
 def _cnn_steps(torch, name, model, hw, dtype, smi, kernels, steps,
-               generator=None):
+               generator=None, phase="train_cnn"):
     """``make_train_step`` (SGD CNN_LR, momentum 0.9) on one seeded batch
     of CNN_BATCH: a warm-up step, then ``steps`` timed ones, launches held
     against the route table; then 2 steps under the profiler. Emits and
-    returns the line."""
+    returns the line (``phase`` names it and the launches' entry)."""
     import numpy as np
     from bigdl_tpu_torch.models import conv_routes, model_flops
     from bigdl_tpu_torch.nn import ClassNLLCriterion
@@ -4331,7 +4353,7 @@ def _cnn_steps(torch, name, model, hw, dtype, smi, kernels, steps,
     profile = _profile(torch, lambda: [step(opt_state, x, y, generator)
                                        for _ in range(2)],
                        groups=CNN_KERNEL_GROUPS)
-    line = {"phase": "train_cnn", "part": name, "format": "NCHW",
+    line = {"phase": phase, "part": name, "format": "NCHW",
             "memory_format": "channels_last", "batch": CNN_BATCH,
             "image": hw, "compute_dtype": dname,
             "optimizer": f"SGD({CNN_LR}, momentum 0.9)",
@@ -4347,12 +4369,12 @@ def _cnn_steps(torch, name, model, hw, dtype, smi, kernels, steps,
             "conv3x3_share_of_device_time": _conv3x3_share(profile),
             "card": smi}
     emit(line)
-    emit({"phase": "profile", "path": f"train_cnn_{name}", "steps": 2,
+    emit({"phase": "profile", "path": f"{phase}_{name}", "steps": 2,
           **profile})
     for kind in ("k9", "i2c"):
         kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
-            f"train_cnn_{name}"] = {"tensor_cores": counts[kind],
-                                    "cuda_cores": counts[f"{kind}_cuda_core"]}
+            f"{phase}_{name}"] = {"tensor_cores": counts[kind],
+                                  "cuda_cores": counts[f"{kind}_cuda_core"]}
     return line
 
 
@@ -4593,6 +4615,263 @@ def phase_train_cnn(torch, kernels, smi):
         _cnn_steps(torch, name, make(1000, seed=CNN_SEED), hw, None, smi,
                    kernels, 1)
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------- load_interop (A.11(d)(1))
+# BVLC GoogLeNet's inception modules (its deploy.prototxt, the port's
+# Inception_v1_NoAuxClassifier): (name, (1x1, 3x3 reduce, 3x3, 5x5 reduce,
+# 5x5, pool proj)), with its max pools between 3b and 4a and 4e and 5a
+GOOGLENET_MODULES = [("3a", (64, 96, 128, 16, 32, 32)),
+                     ("3b", (128, 128, 192, 32, 96, 64)), "pool3/3x3_s2",
+                     ("4a", (192, 96, 208, 16, 48, 64)),
+                     ("4b", (160, 112, 224, 24, 64, 64)),
+                     ("4c", (128, 128, 256, 24, 64, 64)),
+                     ("4d", (112, 144, 288, 32, 64, 64)),
+                     ("4e", (256, 160, 320, 32, 128, 128)), "pool4/3x3_s2",
+                     ("5a", (256, 160, 320, 32, 128, 128)),
+                     ("5b", (384, 192, 384, 48, 128, 128))]
+INTEROP_OUT_REL = 1e-5      # loaded model against its source, x max|out|
+
+
+def _caffe_layer_text(name, kind, bottoms, top, param=None):
+    lines = [f'layer {{ name: "{name}" type: "{kind}"']
+    lines += [f'  bottom: "{b}"' for b in bottoms]
+    lines.append(f'  top: "{top}"')
+    if param:
+        key, fields = param
+        lines.append(f"  {key} {{ " + " ".join(f"{k}: {v}" for k, v in
+                                              fields) + " }")
+    return "\n".join(lines) + " }"
+
+
+def googlenet_prototxt(batch, image=224, modules=GOOGLENET_MODULES,
+                       pool5=7, classes=1000):
+    """BVLC GoogLeNet's layout (``models/bvlc_googlenet``'s deploy
+    prototxt: the stem, the inception modules of ``modules`` with their
+    in-place ReLUs and the max pools between them, ``pool5`` as a
+    ``pool5`` x ``pool5`` average, dropout 0.4 and ``loss3/classifier``),
+    ending in ``loss3/loss3``, a ``SoftmaxWithLoss``."""
+    out = ['name: "GoogleNet"', 'input: "data"',
+           f"input_shape {{ dim: {batch} dim: 3 dim: {image} "
+           f"dim: {image} }}"]
+
+    def conv(name, bottom, n, k, stride=1, pad=0):
+        fields = [("num_output", n)] + ([("pad", pad)] if pad else []) \
+            + [("kernel_size", k)] + ([("stride", stride)]
+                                      if stride != 1 else [])
+        relu = name.replace("/", "/relu_", 1)
+        out.append(_caffe_layer_text(name, "Convolution", [bottom], name,
+                                     ("convolution_param", fields)))
+        out.append(_caffe_layer_text(relu, "ReLU", [name], name))
+        return name
+
+    def pool(name, bottom, kind, k, stride, pad=0):
+        fields = [("pool", kind), ("kernel_size", k), ("stride", stride)] \
+            + ([("pad", pad)] if pad else [])
+        out.append(_caffe_layer_text(name, "Pooling", [bottom], name,
+                                     ("pooling_param", fields)))
+        return name
+
+    def lrn(name, bottom):
+        out.append(_caffe_layer_text(
+            name, "LRN", [bottom], name,
+            ("lrn_param", [("local_size", 5), ("alpha", 0.0001),
+                           ("beta", 0.75)])))
+        return name
+
+    top = conv("conv1/7x7_s2", "data", 64, 7, 2, 3)
+    top = lrn("pool1/norm1", pool("pool1/3x3_s2", top, "MAX", 3, 2))
+    top = conv("conv2/3x3_reduce", top, 64, 1)
+    top = conv("conv2/3x3", top, 192, 3, pad=1)
+    top = pool("pool2/3x3_s2", lrn("conv2/norm2", top), "MAX", 3, 2)
+    for mod in modules:
+        if isinstance(mod, str):
+            top = pool(mod, top, "MAX", 3, 2)
+            continue
+        name, (c1, r3, c3, r5, c5, pp) = mod
+        pre = f"inception_{name}/"
+        towers = [conv(pre + "1x1", top, c1, 1),
+                  conv(pre + "3x3", conv(pre + "3x3_reduce", top, r3, 1),
+                       c3, 3, pad=1),
+                  conv(pre + "5x5", conv(pre + "5x5_reduce", top, r5, 1),
+                       c5, 5, pad=2),
+                  conv(pre + "pool_proj",
+                       pool(pre + "pool", top, "MAX", 3, 1, 1), pp, 1)]
+        top = pre + "output"
+        out.append(_caffe_layer_text(top, "Concat", towers, top))
+    top = pool("pool5/7x7_s1", top, "AVE", pool5, 1)
+    out.append(_caffe_layer_text("pool5/drop_7x7_s1", "Dropout", [top], top,
+                                 ("dropout_param",
+                                  [("dropout_ratio", 0.4)])))
+    out.append(_caffe_layer_text("loss3/classifier", "InnerProduct", [top],
+                                 "loss3/classifier",
+                                 ("inner_product_param",
+                                  [("num_output", classes)])))
+    out.append(_caffe_layer_text("loss3/loss3", "SoftmaxWithLoss",
+                                 ["loss3/classifier", "label"],
+                                 "loss3/loss3"))
+    return "\n".join(out) + "\n"
+
+
+def caffemodel_bytes(model, name="GoogleNet"):
+    """A caffemodel of ``model``'s named convolutions and ``Linear``s
+    (layer name: the module's name; blobs: weight, then bias, in the
+    port's layouts, which are Caffe's), encoded by the port's
+    ``protowire``."""
+    import numpy as np
+    from bigdl_tpu_torch.interop.caffe import NET
+    from bigdl_tpu_torch.nn import Linear, SpatialConvolution
+    from bigdl_tpu_torch.utils.protowire import encode
+
+    def blob(t):
+        a = t.detach().float().cpu().numpy()
+        return {"shape": {"dim": list(a.shape)},
+                "data": np.ascontiguousarray(a).ravel()}
+
+    layers = []
+    for m in model.modules():
+        if isinstance(m, (SpatialConvolution, Linear)) \
+                and "/" in m.get_name():
+            kind = ("Convolution" if isinstance(m, SpatialConvolution)
+                    else "InnerProduct")
+            layers.append({"name": m.get_name(), "type": kind,
+                           "blobs": [blob(m.weight)]
+                           + ([blob(m.bias)] if m.bias is not None
+                              else [])})
+    return encode({"name": name, "layer": layers}, NET)
+
+
+def _eval_outputs(torch, model, x):
+    """``model``'s float32 outputs on ``x`` in evaluation mode (the model
+    is left in training mode)."""
+    model.evaluate()
+    with torch.no_grad():
+        y = model(x).float()
+    model.train()
+    torch.cuda.synchronize()
+    return y
+
+
+def _out_rel(got, want):
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _interop_caffe(torch, kernels, smi, root):
+    """Inception-v1 written as a BVLC prototxt and caffemodel, loaded on
+    the card (see the module docstring's load_interop)."""
+    import numpy as np
+    from bigdl_tpu_torch.interop import CaffeLoader, load_caffe
+    from bigdl_tpu_torch.models import (Inception_v1_NoAuxClassifier,
+                                        conv_routes)
+    src = Inception_v1_NoAuxClassifier(1000, seed=CNN_SEED)
+    proto = f"{root}/googlenet.prototxt"
+    weights = f"{root}/googlenet.caffemodel"
+    t0 = time.perf_counter()
+    with open(proto, "w") as f:
+        f.write(googlenet_prototxt(CNN_BATCH))
+    with open(weights, "wb") as f:
+        f.write(caffemodel_bytes(src))
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = load_caffe(proto, weights, sample_input=(CNN_BATCH, 3, 224, 224))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x, _ = _cnn_batch(torch, np.random.default_rng(CNN_SEED + 4), CNN_BATCH,
+                      224)
+    rel = _out_rel(_eval_outputs(torch, graph, x),
+                   _eval_outputs(torch, src, x))
+    check(rel <= INTEROP_OUT_REL, f"caffe-loaded inception_v1: outputs "
+                                  f"differ from the source's by {rel}")
+    routes = conv_routes(graph, (224, 224), torch.bfloat16)
+    want = conv_routes(src, (224, 224), torch.bfloat16)
+    check(routes == want, f"caffe-loaded inception_v1 routes {routes}, "
+                          f"the source's {want}")
+    fresh = Inception_v1_NoAuxClassifier(1000, seed=CNN_SEED + 1)
+    _, copied = CaffeLoader(proto, weights).load_weights_into(fresh)
+    same = all(torch.equal(a, b) for a, b in
+               zip(fresh.state_dict().values(), src.state_dict().values()))
+    check(same, "load_weights_into did not reproduce the source's weights")
+    del fresh, src
+    torch.cuda.empty_cache()
+    line = _cnn_steps(torch, "inception_v1_caffe", graph, 224,
+                      torch.bfloat16, smi, kernels, CNN_STEPS,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(CNN_SEED), phase="load_interop")
+    import os
+    emit({"phase": "load_interop", "part": "inception_v1_caffe",
+          "prototxt_bytes": os.path.getsize(proto),
+          "caffemodel_bytes": os.path.getsize(weights),
+          "graph_nodes": len(graph.exec_order), "write_s": write_s,
+          "load_s": load_s, "out_rel_vs_source": rel,
+          "out_rel_bar": INTEROP_OUT_REL, "conv_routes_per_step": routes,
+          "load_weights_into_layers": len(copied),
+          "load_weights_into_bitwise": same, "step_s": line["step_s"],
+          "images_per_s": line["images_per_s"], "card": smi})
+    del graph
+    torch.cuda.empty_cache()
+
+
+def _interop_torch(torch, kernels, smi, root):
+    """AlexNet-OWT through a .t7 file (see the module docstring's
+    load_interop)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch.interop import load_torch, save_torch
+    from bigdl_tpu_torch.models import AlexNet, AlexNet_OWT, conv_routes
+    src = AlexNet_OWT(1000, seed=CNN_SEED)
+    path = f"{root}/alexnet_owt.t7"
+    t0 = time.perf_counter()
+    save_torch(src, path)
+    save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_torch(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x, _ = _cnn_batch(torch, np.random.default_rng(CNN_SEED + 5), CNN_BATCH,
+                      224)
+    rel = _out_rel(_eval_outputs(torch, loaded, x),
+                   _eval_outputs(torch, src, x))
+    check(rel <= INTEROP_OUT_REL, f"t7-loaded alexnet_owt: outputs differ "
+                                  f"from the source's by {rel}")
+    routes = conv_routes(loaded, (224, 224), torch.float32)
+    check(routes == conv_routes(src, (224, 224), torch.float32),
+          "t7-loaded alexnet_owt: routes differ from the source's")
+    del src
+    grouped = AlexNet(1000, seed=CNN_SEED)
+    try:
+        save_torch(grouped, f"{root}/alexnet.t7")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "no legacy-nn mapping" in refused,
+          f"save_torch of a grouped convolution: {refused}")
+    del grouped
+    torch.cuda.empty_cache()
+    line = _cnn_steps(torch, "alexnet_owt_t7", loaded, 224, None, smi,
+                      kernels, 1, phase="load_interop")
+    emit({"phase": "load_interop", "part": "alexnet_owt_t7",
+          "t7_bytes": os.path.getsize(path), "save_s": save_s,
+          "load_s": load_s, "out_rel_vs_source": rel,
+          "out_rel_bar": INTEROP_OUT_REL, "conv_routes_per_step": routes,
+          "grouped_refused": refused, "step_s": line["step_s"],
+          "images_per_s": line["images_per_s"], "card": smi})
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def phase_load_interop(torch, kernels, smi):
+    """Inception-v1 from a Caffe prototxt and caffemodel, AlexNet-OWT from
+    a Torch7 file, both written in the run (see module docstring)."""
+    import tempfile
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        _interop_caffe(torch, kernels, smi, root)
+        _interop_torch(torch, kernels, smi, root)
 
 
 # ------------------------------------------------------------- resilience
@@ -7795,6 +8074,7 @@ def main():
     run("train_optimizer", phase_train_optimizer, torch, kernels, smi)
     run("train_distri", phase_train_distri, torch, kernels, smi)
     run("train_cnn", phase_train_cnn, torch, kernels, smi)
+    run("load_interop", phase_load_interop, torch, kernels, smi)
     run("train_bert", phase_train_bert, torch, kernels, smi)
     emit({"phase": "run", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

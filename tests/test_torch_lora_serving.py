@@ -108,6 +108,30 @@ def _jax_oracle(jm, params, jad, name, prompt, n_new=N_NEW):
     return _JAX_ORACLE[key]
 
 
+REFERENCE_RUNS = 3
+
+
+def _reference_burst(jm, params, jads, kw, check=True):
+    """The reference engine's tokens for ``PLAN``. With ``check`` (float
+    weights) a run whose streams are not the reference's own
+    ``generate`` oracles' is made again on a fresh engine, up to
+    ``REFERENCE_RUNS`` runs in all, and the last run is returned: the
+    port is held, exactly and first, to both oracles, and then to a
+    reference engine run that agrees with the reference itself. (Under
+    CPU load this case has failed now and then at the comparison with
+    the reference engine's tokens; the greedy margins of these streams
+    are at least 0.77 % of the top logit, so no rounding flips a token.)"""
+    for _ in range(REFERENCE_RUNS):
+        want = _burst(JaxEngine(jm, params, max_slots=len(PLAN),
+                                adapters=jads, **LORA, **kw))
+        if not check or all(
+                np.array_equal(w, _jax_oracle(
+                    jm, params, None if a is None else jads[a], a, p))
+                for (p, a), w in zip(PLAN, want)):
+            break
+    return want
+
+
 def _port_oracle(sd, ad, prompt, n_new=N_NEW, int8=False, paged=False):
     """Greedy tokens of ``prompt`` alone under ONE adapter (None: the base
     model): a hand-driven 2-slot manager whose every row runs under a
@@ -145,15 +169,13 @@ def test_mixed_batch_tokens_match_reference_and_oracles(pair, name,
     if "tp" in kw:
         # the reference's tp engine needs the virtual CPU devices
         request.getfixturevalue("multi_device_cpu")
-    want = _burst(JaxEngine(jm, params, max_slots=len(PLAN), adapters=jads,
-                            **LORA, **kw))
+    int8 = "int8_weights" in kw
+    want = _reference_burst(jm, params, jads, kw, check=not int8)
     products = lora_delta.products
     eng = _port(sd, max_slots=len(PLAN), adapters=ads, **LORA, **kw)
     got = _burst(eng)
     met = eng.metrics()
-    int8 = "int8_weights" in kw
     for (p, a), g, w in zip(PLAN, got, want):
-        np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(
             g, _port_oracle(sd, None if a is None else ads[a], p, int8=int8,
                             paged="paged" in kw))
@@ -161,6 +183,7 @@ def test_mixed_batch_tokens_match_reference_and_oracles(pair, name,
             np.testing.assert_array_equal(
                 g, _jax_oracle(jm, params, None if a is None else jads[a],
                                a, p))
+        np.testing.assert_array_equal(g, w)
     assert met["retired"] == len(PLAN)
     assert met["adapter_loads"] == 2 and met["adapter_referenced"] == 0
     assert met["tp_degree"] == kw.get("tp", 1)
