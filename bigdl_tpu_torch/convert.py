@@ -58,7 +58,8 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
   convolutional-cell weights HWIO / DHWIO -> OIHW / OIDHW, Linear
   weights (in, out) -> (out, in), a transposed convolution's
   ``(kh, kw, I / G, O)`` -> ``(I, O / G, kh, kw)`` group by group;
-  embeddings, ``Scale``, ``CAdd`` and ``PReLU`` parameters, cell products
+  embeddings, ``Scale``, ``CAdd``, ``CMul`` and ``PReLU`` parameters, the
+  TF loader's gather tables, cell products
   and tree weights as they are) and keeps an int8 type (the quantised layers'
   ``{"weight": int8, "scale", "bias", "in_scale"}``), other leaves
   float32;

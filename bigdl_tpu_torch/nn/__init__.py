@@ -1,9 +1,12 @@
 from bigdl_tpu_torch.nn.activation import (ELU, Abs, Exp, Identity, Log,
-                                           LogSoftMax, Power, PReLU, ReLU,
-                                           Sigmoid, SoftMax, SoftPlus, Tanh)
-from bigdl_tpu_torch.nn.basic import (AddConstant, CAdd, Dropout, Flatten,
-                                      MulConstant, Narrow, Reshape, Scale,
-                                      SpatialZeroPadding, Tile, View)
+                                           LogSoftMax, Negative, Power,
+                                           PReLU, ReLU, ReLU6, Sigmoid,
+                                           SoftMax, SoftPlus, SoftSign, Sqrt,
+                                           Square, Tanh)
+from bigdl_tpu_torch.nn.basic import (AddConstant, CAdd, CMul, Dropout,
+                                      Flatten, Mean, MulConstant, Narrow,
+                                      Reshape, Scale, SpatialZeroPadding,
+                                      Squeeze, Sum, Tile, View)
 from bigdl_tpu_torch.nn.containers import (Bottle, Concat, ConcatTable,
                                            Container, MapTable, ParallelTable,
                                            Sequential)
@@ -40,31 +43,36 @@ from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
                                           MultiRNNCell, Recurrent,
                                           RecurrentDecoder, RnnCell,
                                           TimeDistributed)
-from bigdl_tpu_torch.nn.table_ops import (CAddTable, CMaxTable, CMulTable,
+from bigdl_tpu_torch.nn.table_ops import (MM, CAddTable, CDivTable,
+                                          CMaxTable, CMinTable, CMulTable,
                                           CSubTable, JoinTable, SelectTable)
 from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeGather, TreeLSTM
 
 __all__ = ["Abs", "AddConstant", "BatchNormalization", "BiRecurrent",
            "BilinearFiller", "BinaryThreshold", "BinaryTreeLSTM", "Bottle",
-           "CAdd", "CAddTable", "CMaxTable", "CMulTable", "CSubTable", "Cell",
+           "CAdd", "CAddTable", "CDivTable", "CMaxTable", "CMinTable", "CMul",
+           "CMulTable", "CSubTable", "Cell",
            "ClassNLLCriterion", "Concat", "ConcatTable", "ConstInitMethod",
            "Container", "ConvLSTMPeephole", "ConvLSTMPeephole3D",
            "CrossEntropyCriterion", "Dropout", "ELU", "Exp", "Flatten", "GRU",
            "Graph", "Identity", "InferReshape", "InitializationMethod",
            "Input", "Int8Linear", "JoinTable", "LSTM", "LSTMPeephole",
            "LayerNormalization", "Linear", "Log", "LogSoftMax", "LookupTable",
-           "LookupTableSparse", "MapTable", "Module", "MsraFiller",
-           "MulConstant", "MultiRNNCell", "Narrow", "Node", "Ones", "PReLU",
+           "LookupTableSparse", "MM", "MapTable", "Mean", "Module",
+           "MsraFiller", "MulConstant", "MultiRNNCell", "Narrow", "Negative",
+           "Node", "Ones", "PReLU",
            "ParallelTable", "Power", "QuantizedLinear",
            "QuantizedSpatialConvolution",
            "QuantizedSpatialDilatedConvolution", "Quantizer", "RandomNormal",
-           "RandomUniform", "ReLU", "Recurrent", "RecurrentDecoder",
+           "RandomUniform", "ReLU", "ReLU6", "Recurrent", "RecurrentDecoder",
            "Reshape", "RnnCell", "Scale", "SelectTable", "Sequential",
-           "Sigmoid", "SoftMax", "SoftPlus", "SpatialAveragePooling",
+           "Sigmoid", "SoftMax", "SoftPlus", "SoftSign",
+           "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
            "SpatialCrossMapLRN", "SpatialDilatedConvolution",
            "SpatialFullConvolution", "SpatialMaxPooling",
-           "SpatialWithinChannelLRN", "SpatialZeroPadding", "Tanh", "Tile",
+           "SpatialWithinChannelLRN", "SpatialZeroPadding", "Sqrt", "Square",
+           "Squeeze", "Sum", "Tanh", "Tile",
            "TimeDistributed", "TimeDistributedCriterion", "TreeGather",
            "TreeLSTM", "View", "Xavier", "Zeros", "grad_scales",
            "quantize_model", "regularization_loss", "regularizers",

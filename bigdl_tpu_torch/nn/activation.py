@@ -1,6 +1,7 @@
 """Activations (the port of ``bigdl_tpu/nn/activation.py``: ``ReLU``,
 ``Tanh``, ``Sigmoid``, ``SoftMax``, ``LogSoftMax``, ``Identity``, ``Abs``,
-``Exp``, ``Log``, ``Power``, ``ELU``, ``PReLU`` and ``SoftPlus``).
+``Exp``, ``Log``, ``Power``, ``ELU``, ``PReLU``, ``SoftPlus``, ``ReLU6``,
+``SoftSign``, ``Square``, ``Sqrt`` and ``Negative``).
 
 ``SoftPlus`` is ``logaddexp(beta * x, 0) / beta`` at every ``x``, as
 ``jax.nn.softplus`` computes it (``F.softplus`` turns linear past a
@@ -27,6 +28,13 @@ class ReLU(Module):
 
     def forward(self, x):
         return torch.relu(x)
+
+
+class ReLU6(Module):
+    """``min(max(x, 0), 6)``."""
+
+    def forward(self, x):
+        return torch.clamp(x, 0.0, 6.0)
 
 
 class Tanh(Module):
@@ -138,3 +146,31 @@ class SoftPlus(Module):
 
     def forward(self, x):
         return torch.logaddexp(self.beta * x, torch.zeros_like(x)) / self.beta
+
+
+class SoftSign(Module):
+    """``x / (1 + |x|)``."""
+
+    def forward(self, x):
+        return x / (1 + torch.abs(x))
+
+
+class Square(Module):
+    def forward(self, x):
+        return torch.square(x)
+
+
+class Sqrt(Module):
+    def forward(self, x):
+        return torch.sqrt(x)
+
+
+class Negative(Module):
+    """``-x``; ``inplace`` is accepted for the reference's API (the result
+    is a new tensor)."""
+
+    def __init__(self, inplace=False):
+        super().__init__()
+
+    def forward(self, x):
+        return -x

@@ -1,13 +1,18 @@
 """Shape, noise and constant layers (the port of ``bigdl_tpu/nn/basic.py``
 ``Reshape``, ``View``, ``Flatten``, ``Narrow``, ``Tile``,
 ``SpatialZeroPadding``, ``Input``, ``Dropout``, ``AddConstant``,
-``MulConstant``, ``CAdd`` and ``Scale``).
+``MulConstant``, ``CAdd``, ``CMul``, ``Scale``, ``Squeeze``, ``Mean`` and
+``Sum``).
 
 Axes are 0-based Python axes, as in the reference. ``CAdd`` and ``Scale``
 hold parameters of the shape they are given (a Caffe ``Scale`` or ``Bias``
 layer's ``(1, C, 1, 1)``), broadcast against the input; their initial
 values are the reference's (``Scale`` weight 1 and bias 0, ``CAdd`` bias
-0). ``Flatten`` remembers the rank of the last input it flattened, which
+0; ``CMul`` weight uniform in +-1/sqrt(its size), as ``Linear``'s). ``Mean``
+and ``Sum`` reduce over ``dimension``, an axis or a tuple of them (an
+empty tuple reduces nothing), and return the reference's dtypes: an
+integer or boolean sum is int32 (JAX without x64), a mean float32.
+``Flatten`` remembers the rank of the last input it flattened, which
 ``interop.save_torch`` writes as a Torch7 ``nn.View``'s ``numInputDims``
 (the reference reads it from its build-time input spec).
 """
@@ -207,6 +212,98 @@ class CAdd(Module):
 
     def extra_repr(self):
         return f"{self.size}"
+
+
+class CMul(Module):
+    """A learnable gain of shape ``size``, broadcast against the input
+    (reference ``nn/CMul.scala``)."""
+
+    jax_perms = {"weight": None}    # the same shape in both packages
+
+    def __init__(self, size, device=None, dtype=torch.float32):
+        super().__init__()
+        self.size = tuple(int(s) for s in size)
+        self.weight = nn.Parameter(torch.empty(
+            self.size, device=resolve_device(device), dtype=dtype))
+
+    def forward(self, x):
+        return x * self.weight
+
+    def init_arrays(self, rng):
+        bound = 1.0 / np.sqrt(max(int(np.prod(self.size)), 1))
+        return {"weight": rng.uniform(-bound, bound, self.size)}
+
+    def extra_repr(self):
+        return f"{self.size}"
+
+
+def _axes(dimension):
+    return (tuple(int(d) for d in dimension)
+            if isinstance(dimension, (tuple, list)) else (int(dimension),))
+
+
+class Squeeze(Module):
+    """Drop axis ``dim`` (0-based; past the batch axis with
+    ``batch_mode``), which must have size 1, or every axis of size 1
+    without ``dim`` (reference ``nn/Squeeze.scala``)."""
+
+    def __init__(self, dim=None, batch_mode=False):
+        super().__init__()
+        self.dim = dim
+        self.batch_mode = batch_mode
+
+    def forward(self, x):
+        if self.dim is None:
+            return x.reshape([s for s in x.shape if s != 1])
+        dim = self.dim
+        if self.batch_mode and dim >= 0:
+            dim += 1
+        if x.shape[dim] != 1:
+            raise ValueError(f"cannot select an axis to squeeze out which "
+                             f"has size not equal to one, got "
+                             f"shape={tuple(x.shape)} and dimensions="
+                             f"({dim},)")
+        return x.squeeze(dim)
+
+    def extra_repr(self):
+        return f"dim={self.dim}"
+
+
+class Mean(Module):
+    """Mean over ``dimension`` (module docstring); ``squeeze=False`` keeps
+    the reduced axes."""
+
+    def __init__(self, dimension=0, n_input_dims=-1, squeeze=True):
+        super().__init__()
+        self.dimension, self.squeeze = dimension, squeeze
+
+    def forward(self, x):
+        if not x.is_floating_point():
+            x = x.to(torch.float32)
+        axes = _axes(self.dimension)
+        if not axes:
+            return x
+        return torch.mean(x, dim=axes, keepdim=not self.squeeze)
+
+
+class Sum(Module):
+    """Sum over ``dimension`` (module docstring), the mean with
+    ``size_average``; ``squeeze=False`` keeps the reduced axes."""
+
+    def __init__(self, dimension=0, n_input_dims=-1, size_average=False,
+                 squeeze=True):
+        super().__init__()
+        self.dimension, self.size_average, self.squeeze = (
+            dimension, size_average, squeeze)
+
+    def forward(self, x):
+        if self.size_average:
+            return Mean(self.dimension, squeeze=self.squeeze)(x)
+        axes = _axes(self.dimension)
+        dtype = None if x.is_floating_point() else torch.int32
+        if not axes:
+            return x if dtype is None else x.to(dtype)
+        return torch.sum(x, dim=axes, keepdim=not self.squeeze, dtype=dtype)
 
 
 class Scale(Module):

@@ -8,15 +8,20 @@ input that reaches no output, and registers each node's module under its
 place in that order, so a ``state_dict`` key is ``"<i>.<leaf>"``
 (``convert.module_params_from_jax`` maps the reference's node-id keys by
 the same order). A node fed by several nodes receives the list of their
-outputs, in wiring order; several graph inputs take a list or tuple; a
-graph with several outputs returns a list. ``forward`` hands its
-``generator`` to every node's module whose ``forward`` takes one.
+outputs, in wiring order; several graph inputs take a list or tuple, or a
+``utils.table.Table``, whose values feed them in sorted-key order; a
+graph with several outputs returns a list. A node with no inputs that is
+not a graph input must be a source (its module sets ``is_source``, as the
+TF loader's ``ConstSource`` and ``RandomUniform`` do) and is called with
+``None``. ``forward`` hands its ``generator`` to every node's module whose
+``forward`` takes one.
 """
 
 from __future__ import annotations
 
 from bigdl_tpu_torch.nn.basic import Input as InputModule
 from bigdl_tpu_torch.nn.module import Module, Node, call_with_generator
+from bigdl_tpu_torch.utils.table import Table, sorted_items
 
 __all__ = ["Graph", "Input", "Node"]
 
@@ -67,11 +72,18 @@ class Graph(Module):
     def _gather_input(self, node, values, graph_input):
         if not node.prev_nodes:
             if node not in self.input_nodes:
+                if getattr(node.module, "is_source", False):
+                    return None
                 raise ValueError(
                     f"graph node {node.module.get_name()} has no inputs and "
-                    "is not a graph input")
-            if len(self.input_nodes) > 1:
-                return list(graph_input)[self.input_nodes.index(node)]
+                    "is not a graph input (set is_source=True on modules "
+                    "that generate their own output)")
+            if isinstance(graph_input, (Table, list, tuple)) \
+                    and len(self.input_nodes) > 1:
+                elems = ([v for _, v in sorted_items(graph_input)]
+                         if isinstance(graph_input, Table)
+                         else list(graph_input))
+                return elems[self.input_nodes.index(node)]
             return graph_input
         if len(node.prev_nodes) == 1:
             return values[node.prev_nodes[0].id]

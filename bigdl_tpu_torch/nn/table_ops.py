@@ -1,6 +1,6 @@
 """Table layers (the port of ``bigdl_tpu/nn/table_ops.py`` ``CAddTable``,
-``CSubTable``, ``CMulTable``, ``CMaxTable``, ``JoinTable`` and
-``SelectTable``).
+``CSubTable``, ``CMulTable``, ``CDivTable``, ``CMaxTable``, ``CMinTable``,
+``JoinTable``, ``SelectTable`` and ``MM``).
 
 The reference's Table (keys 1..n) is a Python list here: containers and
 graphs hand a table layer one list. ``CAddTable`` also takes its inputs as
@@ -48,8 +48,16 @@ class CMulTable(_ReduceTable):
     op = staticmethod(torch.multiply)
 
 
+class CDivTable(_ReduceTable):
+    op = staticmethod(torch.divide)
+
+
 class CMaxTable(_ReduceTable):
     op = staticmethod(torch.maximum)
+
+
+class CMinTable(_ReduceTable):
+    op = staticmethod(torch.minimum)
 
 
 class JoinTable(Module):
@@ -73,3 +81,24 @@ class SelectTable(Module):
 
     def forward(self, *xs):
         return _elems(xs)[self.index - 1]
+
+
+class MM(Module):
+    """Matrix product of a two-tensor table, batched over the leading
+    axes (reference ``nn/MM.scala``); ``trans_a``/``trans_b`` swap the
+    last two axes of an operand first."""
+
+    def __init__(self, trans_a=False, trans_b=False):
+        super().__init__()
+        self.trans_a, self.trans_b = trans_a, trans_b
+
+    def forward(self, *xs):
+        a, b = _elems(xs)
+        if self.trans_a:
+            a = a.transpose(-1, -2)
+        if self.trans_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+
+    def extra_repr(self):
+        return f"trans_a={self.trans_a}, trans_b={self.trans_b}"

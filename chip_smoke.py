@@ -582,7 +582,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (grouped conv2, conv4 and conv5) raises as the reference's does.
    Reports each file's bytes and load seconds, step time and images/s.
 
-14. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
+14. load_tf — ``BASELINE.json`` config 5's load path (TF GraphDef
+   import, A.11(d)(2)(a)). The control-flow graphs of the CPU tests (a
+   counter loop, a TensorArray loop, a data-dependent loop, a
+   Switch/Merge cond) on the card against the CPU, the dynamic loop's
+   host reads of its condition counted (6). BERT-base as Google BERT's
+   classifier fine-tuning graph (``bert_tf_graph``: ``modeling.py`` with
+   ``run_classifier.py``'s head, 12 layers, hidden 768, 12 heads, FFN
+   3072 with erf GELU, vocabulary 30522, 128 tokens, 2 classes, one
+   ``input_ids`` input, seeded truncated normals of 0.02) written as a
+   GraphDef and an ``.npy`` directory (``export_tf_checkpoint.py``'s
+   layout, Google's variable names) and imported by ``load_tf``: float32
+   logits at batch 2, evaluation mode, TF32 off, within 1e-4 of the
+   CPU import's largest magnitude; a ``TFTrainingSession`` built without
+   ``sample_input`` takes one Adam step at learning rate 0 and still
+   predicts the CPU's logits; then 5 Adam(5e-5) steps at 32 x 128
+   (finite losses); no flash launch (the reference imports attention as
+   ``MM`` + ``SoftMax``). TF-slim's ``vgg_16`` (``vgg16_tf_graph``,
+   NHWC, 224², 1000 classes) the same way: logits at batch 2 within 1e-4,
+   3 float32 SGD(0.01) steps at batch 32 through ``TFTrainingSession``
+   with the 3x3 CUDA-core launches equal to ``conv_routes`` x 3, no 3x3
+   stride-1 ``F.conv2d``. Reports the ``.npy`` bytes, load seconds, step
+   time, sequences or images/s and the busy share.
+
+15. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
    hidden 768, 12 heads, vocabulary 30522, max_position 512) at full width
    and depth, seeded weights (``convert.init_bert_tree``) and seeded
    tokens, 15 % masked (label -1 elsewhere). ``BertForMLM`` through
@@ -4874,6 +4897,724 @@ def phase_load_interop(torch, kernels, smi):
         _interop_torch(torch, kernels, smi, root)
 
 
+# ----------------------------------------------- load_tf (A.11(d)(2)(a))
+# TF GraphDefs written in the run: node dicts as the GraphDef schema of
+# ``interop/tf_loader.py`` takes them, encoded with the port's protowire;
+# variables as the .npy directory scripts/export_tf_checkpoint.py writes
+# (one ``<name>.npy`` a variable, ``/`` as ``__``), each read through a
+# ``VariableV2`` node and an ``Identity`` named ``<name>/read``. The CPU
+# tests (tests/test_torch_tf_*.py) build their graphs with these too.
+TF_DTYPES = {"float32": 1, "int32": 3, "int64": 9, "bool": 10}
+
+
+def tf_node(name, op, inputs=(), **attrs):
+    """A NodeDef dict; attrs: bool -> b, int -> i, float -> f, bytes -> s,
+    an array -> a tensor, a dict -> the AttrValue itself."""
+    import numpy as np
+    a = []
+    for k, v in attrs.items():
+        if isinstance(v, bool):
+            a.append({"key": k, "value": {"b": v}})
+        elif isinstance(v, int):
+            a.append({"key": k, "value": {"i": v}})
+        elif isinstance(v, float):
+            a.append({"key": k, "value": {"f": v}})
+        elif isinstance(v, bytes):
+            a.append({"key": k, "value": {"s": v}})
+        elif isinstance(v, np.ndarray):
+            a.append({"key": k, "value": {"tensor": {
+                "dtype": TF_DTYPES[v.dtype.name],
+                "tensor_shape": {"dim": [{"size": int(s)}
+                                         for s in v.shape]},
+                "tensor_content": v.tobytes()}}})
+        elif isinstance(v, dict):
+            a.append({"key": k, "value": v})
+        else:
+            raise TypeError(f"attr {k}: {type(v)}")
+    return {"name": name, "op": op, "input": list(inputs), "attr": a}
+
+
+def tf_const(name, arr):
+    import numpy as np
+    return tf_node(name, "Const", value=np.asarray(arr))
+
+
+def tf_variable(name):
+    """A variable's ``VariableV2`` node and its ``<name>/read``."""
+    return [tf_node(name, "VariableV2"),
+            tf_node(f"{name}/read", "Identity", [name])]
+
+
+def tf_graphdef(nodes):
+    from bigdl_tpu_torch.interop.tf_loader import GRAPH_DEF
+    from bigdl_tpu_torch.utils.protowire import encode
+    return encode({"node": nodes}, GRAPH_DEF)
+
+
+def write_npy_dir(root, variables):
+    """``variables`` as export_tf_checkpoint.py writes them; returns the
+    bytes written."""
+    import os
+
+    import numpy as np
+    total = 0
+    for name, a in variables.items():
+        path = os.path.join(root, name.replace("/", "__") + ".npy")
+        np.save(path, a)
+        total += os.path.getsize(path)
+    return total
+
+
+def _truncated_normal(rng, shape, std=0.02):
+    """Normal draws of ``std`` redrawn until within 2 std (TF's
+    ``truncated_normal_initializer``, as BERT initialises its weights)."""
+    import numpy as np
+    x = rng.standard_normal(shape, dtype=np.float32)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        bad = np.abs(x) > 2.0
+    return x * np.float32(std)
+
+
+def _tf_layer_norm(p, x):
+    """BERT's layer norm over the last axis (``modeling.py``
+    ``layer_norm``, epsilon 1e-12), the reference's mini-BERT chain, on
+    ``p``'s ``LayerNorm/gamma`` and ``LayerNorm/beta``."""
+    import numpy as np
+    g = f"{p}/LayerNorm"
+    return [
+        tf_const(f"{g}/axes", np.asarray([-1], np.int32)),
+        tf_node(f"{g}/mean", "Mean", [x, f"{g}/axes"], keep_dims=True),
+        tf_node(f"{g}/sub", "Sub", [x, f"{g}/mean"]),
+        tf_node(f"{g}/SquaredDifference", "SquaredDifference",
+                [x, f"{g}/mean"]),
+        tf_node(f"{g}/variance", "Mean", [f"{g}/SquaredDifference",
+                                          f"{g}/axes"], keep_dims=True),
+        tf_const(f"{g}/epsilon", np.float32(1e-12)),
+        tf_node(f"{g}/add", "AddV2", [f"{g}/variance", f"{g}/epsilon"]),
+        tf_node(f"{g}/Rsqrt", "Rsqrt", [f"{g}/add"]),
+        tf_node(f"{g}/normalized", "Mul", [f"{g}/sub", f"{g}/Rsqrt"]),
+        tf_node(f"{g}/mul", "Mul", [f"{g}/normalized", f"{g}/gamma/read"]),
+        tf_node(f"{g}/output", "AddV2", [f"{g}/mul", f"{g}/beta/read"]),
+    ]
+
+
+def _tf_dense(p, x, act=None):
+    """``p``'s dense layer on ``x``: ``MatMul`` on ``p/kernel``,
+    ``BiasAdd`` of ``p/bias``; returns (nodes, output name)."""
+    nodes = [tf_node(f"{p}/MatMul", "MatMul", [x, f"{p}/kernel/read"]),
+             tf_node(f"{p}/BiasAdd", "BiasAdd",
+                     [f"{p}/MatMul", f"{p}/bias/read"])]
+    if act is None:
+        return nodes, f"{p}/BiasAdd"
+    nodes.append(tf_node(f"{p}/{act}", act, [f"{p}/BiasAdd"]))
+    return nodes, f"{p}/{act}"
+
+
+def bert_tf_graph(n_layers=12, hidden=768, heads=12, ffn=3072, vocab=30522,
+                  seq=128, classes=2, seed=0):
+    """Google BERT's classifier fine-tuning graph (``modeling.py`` with
+    ``run_classifier.py``'s head), laid out op for op as the reference's
+    mini-BERT (tests/test_tf_importer.py), on one ``input_ids``
+    placeholder: word and position embeddings, ``n_layers`` encoder layers
+    (exact erf GELU), the pooler (dense + Tanh on the [CLS] row, taken as
+    ``sequence_output[:, 0:1, :]`` and squeezed), a ``classes``-way
+    classifier (``output_weights`` (classes, hidden), ``transpose_b``).
+    Every Reshape takes the batch as -1. Returns (nodes, variables: name
+    -> float32 array, seeded truncated normals of 0.02, LayerNorm gamma 1,
+    beta 0, biases 0); ``position_embeddings`` holds the ``seq`` rows the
+    graph adds. Output node: ``output/logits``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hd = hidden // heads
+    var = {}
+
+    def kernel(name, shape):
+        var[name] = _truncated_normal(rng, shape)
+
+    def zeros(name, n):
+        var[name] = np.zeros(n, np.float32)
+
+    def ln(p):
+        var[f"{p}/LayerNorm/gamma"] = np.ones(hidden, np.float32)
+        zeros(f"{p}/LayerNorm/beta", hidden)
+
+    def dense(p, n_in, n_out):
+        kernel(f"{p}/kernel", (n_in, n_out))
+        zeros(f"{p}/bias", n_out)
+
+    e = "bert/embeddings"
+    kernel(f"{e}/word_embeddings", (vocab, hidden))
+    kernel(f"{e}/position_embeddings", (seq, hidden))
+    ln(e)
+    nodes = [
+        tf_node("input_ids", "Placeholder", dtype={"type": 3}),
+        tf_node(f"{e}/GatherV2", "GatherV2",
+                [f"{e}/word_embeddings/read", "input_ids", f"{e}/axis"]),
+        tf_const(f"{e}/axis", np.int32(0)),
+        tf_node(f"{e}/add", "AddV2", [f"{e}/GatherV2",
+                                      f"{e}/position_embeddings/read"]),
+        *_tf_layer_norm(e, f"{e}/add"),
+        tf_const("bert/encoder/flat", np.asarray([-1, hidden], np.int32)),
+        tf_node("bert/encoder/Reshape", "Reshape",
+                [f"{e}/LayerNorm/output", "bert/encoder/flat"]),
+        tf_const("bert/encoder/heads_shape",
+                 np.asarray([-1, seq, heads, hd], np.int32)),
+        tf_const("bert/encoder/perm", np.asarray([0, 2, 1, 3], np.int32)),
+    ]
+    x = "bert/encoder/Reshape"
+    for i in range(n_layers):
+        p = f"bert/encoder/layer_{i}"
+        a = f"{p}/attention/self"
+        proj = {}
+        for part in ("query", "key", "value"):
+            dense(f"{a}/{part}", hidden, hidden)
+            d, out = _tf_dense(f"{a}/{part}", x)
+            nodes += d + [
+                tf_node(f"{a}/{part}/Reshape", "Reshape",
+                        [out, "bert/encoder/heads_shape"]),
+                tf_node(f"{a}/{part}/transpose", "Transpose",
+                        [f"{a}/{part}/Reshape", "bert/encoder/perm"])]
+            proj[part] = f"{a}/{part}/transpose"
+        nodes += [
+            tf_node(f"{a}/MatMul", "BatchMatMulV2",
+                    [proj["query"], proj["key"]], adj_y=True),
+            tf_const(f"{a}/Mul/y", np.float32(1.0 / np.sqrt(hd))),
+            tf_node(f"{a}/Mul", "Mul", [f"{a}/MatMul", f"{a}/Mul/y"]),
+            tf_node(f"{a}/Softmax", "Softmax", [f"{a}/Mul"]),
+            tf_node(f"{a}/MatMul_1", "BatchMatMulV2",
+                    [f"{a}/Softmax", proj["value"]]),
+            tf_node(f"{a}/transpose_3", "Transpose",
+                    [f"{a}/MatMul_1", "bert/encoder/perm"]),
+            tf_node(f"{a}/Reshape_3", "Reshape",
+                    [f"{a}/transpose_3", "bert/encoder/flat"])]
+        o = f"{p}/attention/output"
+        dense(f"{o}/dense", hidden, hidden)
+        ln(o)
+        d, out = _tf_dense(f"{o}/dense", f"{a}/Reshape_3")
+        nodes += d + [tf_node(f"{o}/add", "AddV2", [out, x])]
+        nodes += _tf_layer_norm(o, f"{o}/add")
+        attn = f"{o}/LayerNorm/output"
+        m = f"{p}/intermediate"
+        dense(f"{m}/dense", hidden, ffn)
+        d, h = _tf_dense(f"{m}/dense", attn)
+        nodes += d + [
+            tf_const(f"{m}/dense/Sqrt", np.float32(1.0 / np.sqrt(2.0))),
+            tf_node(f"{m}/dense/truediv", "Mul", [h, f"{m}/dense/Sqrt"]),
+            tf_node(f"{m}/dense/Erf", "Erf", [f"{m}/dense/truediv"]),
+            tf_const(f"{m}/dense/add/x", np.float32(1.0)),
+            tf_node(f"{m}/dense/add", "AddV2",
+                    [f"{m}/dense/Erf", f"{m}/dense/add/x"]),
+            tf_node(f"{m}/dense/mul_1", "Mul", [h, f"{m}/dense/add"]),
+            tf_const(f"{m}/dense/mul/x", np.float32(0.5)),
+            tf_node(f"{m}/dense/mul_2", "Mul",
+                    [f"{m}/dense/mul_1", f"{m}/dense/mul/x"])]
+        o = f"{p}/output"
+        dense(f"{o}/dense", ffn, hidden)
+        ln(o)
+        d, out = _tf_dense(f"{o}/dense", f"{m}/dense/mul_2")
+        nodes += d + [tf_node(f"{o}/add", "AddV2", [out, attn])]
+        nodes += _tf_layer_norm(o, f"{o}/add")
+        x = f"{o}/LayerNorm/output"
+    dense("bert/pooler/dense", hidden, hidden)
+    kernel("output_weights", (classes, hidden))
+    zeros("output_bias", classes)
+    nodes += [
+        tf_const("bert/encoder/seq_shape",
+                 np.asarray([-1, seq, hidden], np.int32)),
+        tf_node("bert/encoder/Reshape_1", "Reshape",
+                [x, "bert/encoder/seq_shape"]),
+        tf_const("bert/pooler/begin", np.asarray([0, 0, 0], np.int32)),
+        tf_const("bert/pooler/end", np.asarray([0, 1, 0], np.int32)),
+        tf_const("bert/pooler/strides", np.asarray([1, 1, 1], np.int32)),
+        tf_node("bert/pooler/strided_slice", "StridedSlice",
+                ["bert/encoder/Reshape_1", "bert/pooler/begin",
+                 "bert/pooler/end", "bert/pooler/strides"],
+                begin_mask=5, end_mask=5),
+        tf_node("bert/pooler/Squeeze", "Squeeze",
+                ["bert/pooler/strided_slice"],
+                squeeze_dims={"list": {"i": [1]}})]
+    d, pooled = _tf_dense("bert/pooler/dense", "bert/pooler/Squeeze", "Tanh")
+    nodes += d + [
+        tf_node("output/MatMul", "MatMul", [pooled, "output_weights/read"],
+                transpose_b=True),
+        tf_node("output/logits", "BiasAdd",
+                ["output/MatMul", "output_bias/read"])]
+    for name in var:
+        nodes += tf_variable(name)
+    return nodes, var
+
+
+VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+
+
+def vgg16_tf_graph(blocks=VGG16_BLOCKS, image=224, fc=4096, classes=1000,
+                   seed=0):
+    """TF-slim's ``vgg_16`` inference graph (tensorflow/models
+    ``research/slim/nets/vgg.py``), NHWC on an ``input`` placeholder:
+    ``Conv2D`` 3x3 SAME + ``BiasAdd`` + ``Relu`` per layer of ``blocks``
+    ((convolutions, channels) a block), ``MaxPool`` 2x2 VALID after each
+    block, ``fc6`` a VALID ``Conv2D`` over the whole remaining map, ``fc7``
+    and ``fc8`` 1x1, then ``Squeeze`` [1, 2], no dropout nodes. Names
+    ``vgg_16/conv1/conv1_1/weights`` ... ``vgg_16/fc8/biases``; weights
+    Glorot-uniform from ``seed`` (slim's default), biases 0. Returns
+    (nodes, variables). Output node: ``vgg_16/fc8/squeezed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    var = {}
+
+    def conv(p, x, k, cin, cout, pad, relu=True):
+        bound = np.sqrt(6.0 / (k * k * cin + k * k * cout))
+        var[f"{p}/weights"] = rng.uniform(-bound, bound, (k, k, cin, cout)) \
+            .astype(np.float32)
+        var[f"{p}/biases"] = np.zeros(cout, np.float32)
+        ns = [tf_node(f"{p}/Conv2D", "Conv2D", [x, f"{p}/weights/read"],
+                      strides={"list": {"i": [1, 1, 1, 1]}}, padding=pad,
+                      data_format=b"NHWC"),
+              tf_node(f"{p}/BiasAdd", "BiasAdd",
+                      [f"{p}/Conv2D", f"{p}/biases/read"])]
+        if not relu:
+            return ns, f"{p}/BiasAdd"
+        return ns + [tf_node(f"{p}/Relu", "Relu", [f"{p}/BiasAdd"])], \
+            f"{p}/Relu"
+
+    nodes = [tf_node("input", "Placeholder", dtype={"type": 1})]
+    x, cin, hw = "input", 3, image
+    for b, (n, cout) in enumerate(blocks, 1):
+        for j in range(1, n + 1):
+            ns, x = conv(f"vgg_16/conv{b}/conv{b}_{j}", x, 3, cin, cout,
+                         b"SAME")
+            nodes += ns
+            cin = cout
+        nodes.append(tf_node(f"vgg_16/pool{b}/MaxPool", "MaxPool", [x],
+                             ksize={"list": {"i": [1, 2, 2, 1]}},
+                             strides={"list": {"i": [1, 2, 2, 1]}},
+                             padding=b"VALID", data_format=b"NHWC"))
+        x, hw = f"vgg_16/pool{b}/MaxPool", hw // 2
+    ns, x = conv("vgg_16/fc6", x, hw, cin, fc, b"VALID")
+    nodes += ns
+    ns, x = conv("vgg_16/fc7", x, 1, fc, fc, b"VALID")
+    nodes += ns
+    ns, x = conv("vgg_16/fc8", x, 1, fc, classes, b"VALID", relu=False)
+    nodes += ns + [tf_node("vgg_16/fc8/squeezed", "Squeeze", [x],
+                           squeeze_dims={"list": {"i": [1, 2]}})]
+    for name in var:
+        nodes += tf_variable(name)
+    return nodes, var
+
+
+def counter_loop_graph(w, n_iters):
+    """The CPU tests' counter loop (tests/test_tf_importer.py
+    ``_counter_frame``): ``i < n_iters``: x = tanh(x @ W); output ``out``
+    on input ``x``."""
+    import numpy as np
+    f = b"loop"
+    return [
+        tf_node("x", "Placeholder"), tf_const("W", w),
+        tf_const("c_zero", np.int32(0)), tf_const("c_n", np.int32(n_iters)),
+        tf_const("c_one", np.int32(1)),
+        tf_node("enter_i", "Enter", ["c_zero"], frame_name=f),
+        tf_node("enter_x", "Enter", ["x"], frame_name=f),
+        tf_node("enter_n", "Enter", ["c_n"], frame_name=f, is_constant=True),
+        tf_node("enter_one", "Enter", ["c_one"], frame_name=f,
+                is_constant=True),
+        tf_node("enter_W", "Enter", ["W"], frame_name=f, is_constant=True),
+        tf_node("merge_i", "Merge", ["enter_i", "nextit_i"]),
+        tf_node("merge_x", "Merge", ["enter_x", "nextit_x"]),
+        tf_node("less", "Less", ["merge_i", "enter_n"]),
+        tf_node("lc", "LoopCond", ["less"]),
+        tf_node("sw_i", "Switch", ["merge_i", "lc"]),
+        tf_node("sw_x", "Switch", ["merge_x", "lc"]),
+        tf_node("add_i", "Add", ["sw_i:1", "enter_one"]),
+        tf_node("mm", "MatMul", ["sw_x:1", "enter_W"]),
+        tf_node("act", "Tanh", ["mm"]),
+        tf_node("nextit_i", "NextIteration", ["add_i"]),
+        tf_node("nextit_x", "NextIteration", ["act"]),
+        tf_node("exit_x", "Exit", ["sw_x"]),
+        tf_node("out", "Identity", ["exit_x"])]
+
+
+def tensorarray_loop_graph(w, steps):
+    """The CPU tests' TensorArray loop: x scattered into a TensorArray, a
+    loop reads row i, applies MatMul(W) + Tanh and writes row i of a
+    second array, gathered after the Exit; output ``gather`` on ``x``
+    (steps, D)."""
+    import numpy as np
+    d = w.shape[0]
+    f = b"taloop"
+    return [
+        tf_node("x", "Placeholder"),
+        tf_const("c_size", np.int32(steps)),
+        tf_const("c_range", np.arange(steps, dtype=np.int32)),
+        tf_const("W", w),
+        tf_node("ta_x", "TensorArrayV3", ["c_size"], dtype={"type": 1}),
+        tf_node("scat", "TensorArrayScatterV3",
+                ["ta_x", "c_range", "x", "ta_x:1"]),
+        tf_node("ta_y", "TensorArrayV3", ["c_size"], dtype={"type": 1},
+                element_shape={"shape": {"dim": [{"size": d}]}}),
+        tf_const("c_zero", np.int32(0)), tf_const("c_n", np.int32(steps)),
+        tf_const("c_one", np.int32(1)),
+        tf_node("enter_i", "Enter", ["c_zero"], frame_name=f),
+        tf_node("enter_fy", "Enter", ["ta_y:1"], frame_name=f),
+        tf_node("enter_n", "Enter", ["c_n"], frame_name=f, is_constant=True),
+        tf_node("enter_one", "Enter", ["c_one"], frame_name=f,
+                is_constant=True),
+        tf_node("enter_hx", "Enter", ["ta_x"], frame_name=f,
+                is_constant=True),
+        tf_node("enter_hy", "Enter", ["ta_y"], frame_name=f,
+                is_constant=True),
+        tf_node("enter_fx", "Enter", ["scat"], frame_name=f,
+                is_constant=True),
+        tf_node("enter_W", "Enter", ["W"], frame_name=f, is_constant=True),
+        tf_node("merge_i", "Merge", ["enter_i", "nextit_i"]),
+        tf_node("merge_fy", "Merge", ["enter_fy", "nextit_fy"]),
+        tf_node("less", "Less", ["merge_i", "enter_n"]),
+        tf_node("lc", "LoopCond", ["less"]),
+        tf_node("sw_i", "Switch", ["merge_i", "lc"]),
+        tf_node("sw_fy", "Switch", ["merge_fy", "lc"]),
+        tf_node("add_i", "Add", ["sw_i:1", "enter_one"]),
+        tf_node("read", "TensorArrayReadV3",
+                ["enter_hx", "sw_i:1", "enter_fx"]),
+        tf_node("rrow", "Reshape", ["read", "c_rshape"]),
+        tf_const("c_rshape", np.asarray([1, d], np.int32)),
+        tf_node("mm", "MatMul", ["rrow", "enter_W"]),
+        tf_node("act", "Tanh", ["mm"]),
+        tf_node("vrow", "Reshape", ["act", "c_vshape"]),
+        tf_const("c_vshape", np.asarray([d], np.int32)),
+        tf_node("write", "TensorArrayWriteV3",
+                ["enter_hy", "sw_i:1", "vrow", "sw_fy:1"]),
+        tf_node("nextit_i", "NextIteration", ["add_i"]),
+        tf_node("nextit_fy", "NextIteration", ["write"]),
+        tf_node("exit_fy", "Exit", ["sw_fy"]),
+        tf_node("gather", "TensorArrayGatherV3",
+                ["ta_y", "c_range", "exit_fy"])]
+
+
+def dynamic_loop_graph(limit=100.0):
+    """The CPU tests' data-dependent loop: x doubles while sum(x) <
+    ``limit``; output ``exit_x`` on ``x``."""
+    import numpy as np
+    f = b"wloop"
+    return [
+        tf_node("x", "Placeholder"),
+        tf_const("c_lim", np.float32(limit)),
+        tf_node("enter_x", "Enter", ["x"], frame_name=f),
+        tf_node("enter_lim", "Enter", ["c_lim"], frame_name=f,
+                is_constant=True),
+        tf_node("merge_x", "Merge", ["enter_x", "nextit_x"]),
+        tf_node("sum", "Sum", ["merge_x", "c_axes"]),
+        tf_const("c_axes", np.asarray([0], np.int32)),
+        tf_node("less", "Less", ["sum", "enter_lim"]),
+        tf_node("lc", "LoopCond", ["less"]),
+        tf_node("sw_x", "Switch", ["merge_x", "lc"]),
+        tf_node("dbl", "Mul", ["sw_x:1", "c_two"]),
+        tf_const("c_two", np.float32(2.0)),
+        tf_node("nextit_x", "NextIteration", ["dbl"]),
+        tf_node("exit_x", "Exit", ["sw_x"])]
+
+
+def switch_merge_graph():
+    """The CPU tests' tf.cond graph: ``merge`` is 10 x on ``pred``, -x
+    otherwise; inputs ``x`` and ``pred``."""
+    import numpy as np
+    return [
+        tf_node("x", "Placeholder"), tf_node("pred", "Placeholder"),
+        tf_node("sw", "Switch", ["x", "pred"]),
+        tf_node("neg", "Neg", ["sw"]),
+        tf_node("big", "Mul", ["sw:1", "c10"]),
+        tf_const("c10", np.float32(10.0)),
+        tf_node("merge", "Merge", ["neg", "big"])]
+
+
+# BERT-base (bert_config.json of uncased_L-12_H-768_A-12) at
+# run_classifier.py's max_seq_length, 2 classes
+TF_BERT = dict(n_layers=12, hidden=768, heads=12, ffn=3072, vocab=30522,
+               seq=128, classes=2)
+TF_VGG_IMAGE = 224
+TF_BERT_STEPS = 5             # Adam(5e-5) steps at run_classifier's batch
+TF_BERT_BATCH = 32
+TF_BERT_LR = 5e-5
+TF_VGG_STEPS = 3              # SGD steps at train_image_classifier's batch
+TF_VGG_BATCH = 32
+TF_VGG_LR = 0.01
+TF_OUT_REL = 1e-4             # card logits against the CPU's, x max|CPU|
+TF_SEED = 22
+
+
+def _tf_dataset(x, y, batch):
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    recs = [Sample.from_ndarray(f, l) for f, l in zip(x, y)]
+    return DataSet.array(recs) >> SampleToMiniBatch(batch)
+
+
+def _tf_predict(torch, graph, x):
+    """``graph``'s float32 outputs on the numpy batch ``x`` in evaluation
+    mode, as a CPU tensor (the graph is left in training mode)."""
+    from bigdl_tpu_torch.ops.tf_ops import as_tensor
+    dev = next(graph.parameters()).device
+    graph.evaluate()
+    with torch.no_grad():
+        y = graph(as_tensor(x, dev)).float().cpu()
+    graph.train()
+    return y
+
+
+def _tf_loss(torch, graph, crit, x, y):
+    out = _tf_predict(torch, graph, x)
+    return float(crit(out, torch.from_numpy(y)))
+
+
+def _load_tf_bert(torch, kernels, smi, root):
+    """BERT-base's fine-tuning graph from a GraphDef and an .npy
+    directory (see the module docstring's load_tf)."""
+    import numpy as np
+    from bigdl_tpu_torch.interop import load_tf
+    from bigdl_tpu_torch.interop.tf_session import TFTrainingSession
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import Adam, Trigger
+    t0 = time.perf_counter()
+    nodes, var = bert_tf_graph(seed=TF_SEED, **TF_BERT)
+    pb = f"{root}/bert_classifier.pb"
+    with open(pb, "wb") as f:
+        f.write(tf_graphdef(nodes))
+    npy_bytes = write_npy_dir(root, var)
+    n_params = sum(a.size for a in var.values())
+    del var
+    write_s = time.perf_counter() - t0
+    rng = np.random.default_rng(TF_SEED)
+    vocab, seq = TF_BERT["vocab"], TF_BERT["seq"]
+    ids2 = rng.integers(0, vocab, (2, seq)).astype(np.int32)
+    out = ["output/logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = load_tf(pb, ["input_ids"], out, bin_dir=root,
+                    sample_input=ids2[:1])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu = load_tf(pb, ["input_ids"], out, bin_dir=root,
+                  sample_input=ids2[:1], device="cpu")
+    want = _tf_predict(torch, cpu, ids2)
+    _reset_flash_counts()
+    got = _tf_predict(torch, graph, ids2)
+    rel = _out_rel(got, want)
+    check(rel <= TF_OUT_REL, f"load_tf bert: card logits differ from the "
+                             f"CPU's by {rel}")
+    del graph
+    torch.cuda.empty_cache()
+    # the session without sample_input: the weights are applied when
+    # training starts; one Adam step at learning rate 0 keeps them
+    crit = CrossEntropyCriterion()
+    sess = TFTrainingSession(pb, ["input_ids"], out, bin_dir=root)
+    y2 = np.asarray([0, 1], np.int32)
+    sess.train(_tf_dataset(ids2, y2, 2), crit, Adam(learningrate=0.0),
+               Trigger.max_iteration(1))
+    lr0 = _out_rel(torch.from_numpy(sess.predict(ids2, batch_size=2)), want)
+    check(lr0 <= TF_OUT_REL, f"load_tf bert: after a learning-rate-0 step "
+                             f"the predictions differ from the CPU's by "
+                             f"{lr0}")
+    n = TF_BERT_BATCH * TF_BERT_STEPS
+    x = rng.integers(0, vocab, (n, seq)).astype(np.int32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    before = _tf_loss(torch, sess.graph, crit, x[:TF_BERT_BATCH],
+                      y[:TF_BERT_BATCH])
+    ds = _tf_dataset(x, y, TF_BERT_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess.train(ds, crit, Adam(learningrate=TF_BERT_LR),
+               Trigger.max_iteration(TF_BERT_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = _tf_loss(torch, sess.graph, crit, x[:TF_BERT_BATCH],
+                     y[:TF_BERT_BATCH])
+    check(np.isfinite([before, after]).all(),
+          f"load_tf bert: losses {before}, {after}")
+    profile = _profile(torch, lambda: sess.train(
+        _tf_dataset(x[:2 * TF_BERT_BATCH], y[:2 * TF_BERT_BATCH],
+                    TF_BERT_BATCH), crit, Adam(learningrate=TF_BERT_LR),
+        Trigger.max_iteration(2)))
+    flash = _flash_counts()
+    check(all(v == 0 for c in flash.values() for v in c.values()),
+          f"load_tf bert: the imported BERT launched flash kernels {flash}")
+    step_s = wall / TF_BERT_STEPS
+    line = {"phase": "load_tf", "part": "bert_base_tf", **TF_BERT,
+            "params": int(n_params),
+            "graph_nodes": len(nodes), "npy_bytes": npy_bytes,
+            "write_s": write_s, "load_s": load_s,
+            "out_rel_vs_cpu": rel, "lr0_step_out_rel_vs_cpu": lr0,
+            "out_rel_bar": TF_OUT_REL, "batch": TF_BERT_BATCH,
+            "optimizer": f"Adam({TF_BERT_LR})", "steps": TF_BERT_STEPS,
+            "loss_before": before, "loss_after": after,
+            "step_s": step_s,
+            "sequences_per_s": TF_BERT_BATCH / step_s,
+            "peak_memory_bytes": peak, "flash_launches": flash,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "card": smi}
+    emit(line)
+    emit({"phase": "profile", "path": "load_tf_bert", "steps": 2,
+          **profile})
+    for name, n in flash.items():
+        kernels[name].setdefault("launches_by_phase", {})[
+            "load_tf_bert"] = n
+    del sess, cpu
+    torch.cuda.empty_cache()
+
+
+def _load_tf_vgg(torch, kernels, smi, root):
+    """TF-slim's vgg_16 from a GraphDef and an .npy directory, trained
+    through TFTrainingSession (see the module docstring's load_tf)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch.interop import load_tf
+    from bigdl_tpu_torch.interop.tf_session import TFTrainingSession
+    from bigdl_tpu_torch.models import conv_routes, model_flops
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    sub = f"{root}/vgg"
+    os.makedirs(sub)
+    t0 = time.perf_counter()
+    hw = TF_VGG_IMAGE
+    nodes, var = vgg16_tf_graph(image=hw, seed=TF_SEED)
+    pb = f"{sub}/vgg_16.pb"
+    with open(pb, "wb") as f:
+        f.write(tf_graphdef(nodes))
+    npy_bytes = write_npy_dir(sub, var)
+    del var
+    write_s = time.perf_counter() - t0
+    out = ["vgg_16/fc8/squeezed"]
+    rng = np.random.default_rng(TF_SEED + 1)
+    x2 = rng.standard_normal((2, hw, hw, 3), dtype=np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = TFTrainingSession(pb, ["input"], out, bin_dir=sub,
+                             sample_input=(1, hw, hw, 3))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    graph = sess.graph
+    cpu = load_tf(pb, ["input"], out, bin_dir=sub, device="cpu")
+    from bigdl_tpu_torch.interop.tf_loader import apply_tf_weights
+    apply_tf_weights(cpu)
+    want = _tf_predict(torch, cpu, x2)
+    del cpu
+    rel = _out_rel(_tf_predict(torch, graph, x2), want)
+    check(rel <= TF_OUT_REL, f"load_tf vgg_16: card logits differ from the "
+                             f"CPU's by {rel}")
+    split = conv_routes(graph, (hw, hw), torch.float32)
+    n = TF_VGG_BATCH * TF_VGG_STEPS
+    x = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    y = rng.integers(0, 1000, n).astype(np.int32)
+    crit = CrossEntropyCriterion()
+    before = _tf_loss(torch, graph, crit, x[:8], y[:8])
+    ds = _tf_dataset(x, y, TF_VGG_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    sess.train(ds, crit, SGD(learningrate=TF_VGG_LR),
+               Trigger.max_iteration(TF_VGG_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_routes("load_tf vgg_16", counts, split, TF_VGG_STEPS)
+    after = _tf_loss(torch, graph, crit, x[:8], y[:8])
+    check(np.isfinite([before, after]).all(),
+          f"load_tf vgg_16: losses {before}, {after}")
+    step_s = wall / TF_VGG_STEPS
+    flops = 3 * model_flops(graph, (hw, hw)) * TF_VGG_BATCH
+    profile = _profile(torch, lambda: sess.train(
+        _tf_dataset(x[:2 * TF_VGG_BATCH], y[:2 * TF_VGG_BATCH],
+                    TF_VGG_BATCH), crit, SGD(learningrate=TF_VGG_LR),
+        Trigger.max_iteration(2)), groups=CNN_KERNEL_GROUPS)
+    emit({"phase": "load_tf", "part": "vgg_16_tf", "format": "NHWC",
+          "graph_nodes": len(nodes), "pb_bytes": os.path.getsize(pb),
+          "npy_bytes": npy_bytes, "write_s": write_s, "load_s": load_s,
+          "out_rel_vs_cpu": rel, "out_rel_bar": TF_OUT_REL,
+          "batch": TF_VGG_BATCH, "compute_dtype": "float32",
+          "optimizer": f"SGD({TF_VGG_LR})", "steps": TF_VGG_STEPS,
+          "loss_before": before, "loss_after": after,
+          "conv_routes_per_step": split, "launches": counts,
+          "step_s": step_s, "images_per_s": TF_VGG_BATCH / step_s,
+          "model_flops_per_step": flops,
+          "mfu_vs_float32_peak": flops / step_s
+          / PEAK_FLOPS_PER_S["float32"], "peak_memory_bytes": peak,
+          "device_busy_share": profile.get("device_busy_share",
+                                           "not measured"),
+          "conv3x3_share_of_device_time": _conv3x3_share(profile),
+          "card": smi})
+    emit({"phase": "profile", "path": "load_tf_vgg_16", "steps": 2,
+          **profile})
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "load_tf_vgg_16"] = {"tensor_cores": counts[kind],
+                                 "cuda_cores": counts[f"{kind}_cuda_core"]}
+    del sess, graph
+    torch.cuda.empty_cache()
+
+
+def _load_tf_control(torch, smi):
+    """The CPU tests' counter, TensorArray, dynamic and Switch/Merge
+    graphs on the card against the CPU."""
+    import numpy as np
+    from bigdl_tpu_torch.interop import load_tf
+    from bigdl_tpu_torch.interop.tf_loader import _TFWhileModule
+    from bigdl_tpu_torch.utils.table import T
+    rng = np.random.default_rng(TF_SEED + 2)
+    w = (rng.standard_normal((3, 3)) * 0.5).astype(np.float32)
+    cases = {"counter_loop": (counter_loop_graph(w, 3), ["x"], ["out"],
+                              rng.standard_normal((2, 3), dtype=np.float32)),
+             "tensorarray_loop": (tensorarray_loop_graph(w, 4), ["x"],
+                                  ["gather"], rng.standard_normal(
+                                      (4, 3), dtype=np.float32)),
+             "dynamic_loop": (dynamic_loop_graph(), ["x"], ["exit_x"],
+                              np.ones(4, np.float32))}
+    line = {"phase": "load_tf", "part": "control_flow", "card": smi}
+    for name, (nodes, ins, outs, x) in cases.items():
+        gd = tf_graphdef(nodes)
+        res, syncs = {}, {}
+        for key, dev in (("cpu", "cpu"), ("card", "cuda")):
+            g = load_tf(gd, ins, outs, sample_input=x, device=dev)
+            with torch.no_grad():
+                res[key] = g(torch.from_numpy(x).to(dev)).cpu()
+            loops = [n.module for n in g.exec_order
+                     if isinstance(n.module, _TFWhileModule)]
+            syncs[key] = loops[0].host_syncs
+        rel = _out_rel(res["card"], res["cpu"])
+        check(rel <= TF_OUT_REL, f"load_tf {name}: card differs from the "
+                                 f"CPU by {rel}")
+        line[name] = {"out_rel_vs_cpu": rel, "host_syncs": syncs["card"]}
+    check(line["dynamic_loop"]["host_syncs"] == 6,
+          f"load_tf dynamic_loop: {line['dynamic_loop']['host_syncs']} "
+          "host reads of the loop condition (1 forward of 4 ones to 128: "
+          "6 reads)")
+    g = load_tf(tf_graphdef(switch_merge_graph()), ["x", "pred"], ["merge"])
+    x = torch.ones(2, 2, device="cuda")
+    got = [g(T(x, torch.tensor(p, device="cuda"))).cpu() for p in (True,
+                                                                   False)]
+    check(torch.equal(got[0], torch.full((2, 2), 10.0))
+          and torch.equal(got[1], torch.full((2, 2), -1.0)),
+          f"load_tf switch_merge: {got}")
+    line["switch_merge"] = "10 x on true, -x on false"
+    emit(line)
+
+
+def phase_load_tf(torch, kernels, smi):
+    """BERT-base and TF-slim VGG-16 from GraphDefs and .npy directories
+    written in the run, and the control-flow graphs (see module
+    docstring)."""
+    import tempfile
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _load_tf_control(torch, smi)
+    with tempfile.TemporaryDirectory() as root:
+        _load_tf_bert(torch, kernels, smi, root)
+        _load_tf_vgg(torch, kernels, smi, root)
+
+
 # ------------------------------------------------------------- resilience
 # the no-fault phases' outputs (all 12 requests), by path: what the fault
 # phases' greedy tokens are held to
@@ -8075,6 +8816,7 @@ def main():
     run("train_distri", phase_train_distri, torch, kernels, smi)
     run("train_cnn", phase_train_cnn, torch, kernels, smi)
     run("load_interop", phase_load_interop, torch, kernels, smi)
+    run("load_tf", phase_load_tf, torch, kernels, smi)
     run("train_bert", phase_train_bert, torch, kernels, smi)
     emit({"phase": "run", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
