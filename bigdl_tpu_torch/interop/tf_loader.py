@@ -40,11 +40,18 @@ branches, as in the reference. A loop frame runs as a Python loop
 condition on the host each iteration (``host_syncs`` counts the reads),
 where the reference compiles ``lax.while_loop``.
 
-The TF-written gradient ops, ``BroadcastGradientArgs`` as a node,
-``RandomShuffle``, the queue and reader ops, ``Substr``, ``DecodeRaw``,
-``DecodeJpeg``/``Png``/``Gif`` and ``ParseExample`` are not ported yet
-(:data:`WAITING_OPS`): a graph that names one raises
-``NotImplementedError`` naming ROADMAP A.11(d)(2)(b).
+A training graph's gradient ops (``ReluGrad`` ... ``MaxPoolGrad``,
+``Conv2DBackpropInput``/``Filter`` and their depthwise and 3-D forms,
+``ResizeBilinearGrad``, ``LRNGrad``, ``Dilation2DBackprop*``) become the
+``ops.tf_ops`` layers of the same names; their ``input_sizes``,
+``filter_sizes`` and filters must fold to constants, as in the
+reference, and a ``Conv2DBackpropInput`` or ``Dilation2DBackprop*``
+holds the filter read at load. ``BroadcastGradientArgs`` folds into a
+``ConstSource``. The input pipeline's queue and reader ops become graph
+inputs (dequeue, read) or pass their components through (enqueue), and
+``ParseExample``, ``DecodeRaw``, ``Decode{Jpeg,Png,Gif}`` and ``Substr``
+run on the host (``nn/graph.py`` hands their numeric outputs on to the
+graph's device, which the loader records).
 """
 
 from __future__ import annotations
@@ -130,23 +137,6 @@ def parse_graphdef(path_or_bytes):
                                  if not i.startswith("^")],
                       "attrs": attrs})
     return nodes
-
-
-# ops of the reference's loader that wait for ROADMAP A.11(d)(2)(b)
-WAITING_OPS = frozenset((
-    "ReluGrad", "Relu6Grad", "EluGrad", "SoftplusGrad", "SoftsignGrad",
-    "SigmoidGrad", "TanhGrad", "SqrtGrad", "RsqrtGrad", "ReciprocalGrad",
-    "InvGrad", "BiasAddGrad", "FusedBatchNormGrad", "FusedBatchNormGradV2",
-    "AvgPoolGrad", "MaxPoolGrad", "Conv2DBackpropInput",
-    "DepthwiseConv2dNativeBackpropInput", "Conv3DBackpropInput",
-    "Conv3DBackpropInputV2", "Conv2DBackpropFilter",
-    "DepthwiseConv2dNativeBackpropFilter", "Conv3DBackpropFilter",
-    "Conv3DBackpropFilterV2", "RandomShuffle", "ResizeBilinearGrad",
-    "LRNGrad", "Dilation2DBackpropInput", "Dilation2DBackpropFilter",
-    "QueueDequeueV2", "QueueDequeueManyV2", "ReaderReadV2",
-    "BroadcastGradientArgs", "Substr", "DecodeRaw", "DecodeJpeg",
-    "DecodePng", "DecodeGif", "QueueEnqueueV2", "QueueEnqueueManyV2",
-    "ParseExample"))
 
 
 class TensorflowLoader:
@@ -495,10 +485,6 @@ class TensorflowLoader:
             def dep(i):
                 return emit(ins[i])
 
-            if op in WAITING_OPS:
-                raise NotImplementedError(
-                    f"TF op {op} ({name}) is not ported yet: it waits for "
-                    "ROADMAP A.11(d)(2)(b)")
             if op in ("Placeholder", "PlaceholderV2"):
                 node = Input()
                 input_nodes.append((name, node))
@@ -1009,6 +995,139 @@ class TensorflowLoader:
                 node = Node(_t.RandomUniform(
                     [int(s) for s in np.ravel(shape)], seed=seed, dtype=dt,
                     device=device).set_name(name))
+            # ------------------------------------- gradient ops (training
+            # graphs: the backward nodes tf.gradients writes)
+            elif op in ("ReluGrad", "Relu6Grad", "EluGrad", "SoftplusGrad",
+                        "SoftsignGrad", "SigmoidGrad", "TanhGrad",
+                        "SqrtGrad", "RsqrtGrad", "ReciprocalGrad",
+                        "InvGrad"):
+                cls = (_t.ReciprocalGrad if op == "InvGrad"
+                       else getattr(_t, op))
+                node = Node(cls().set_name(name)).inputs(dep(0), dep(1))
+            elif op == "BiasAddGrad":
+                node = Node(_t.BiasAddGrad().set_name(name)).inputs(dep(0))
+            elif op in ("FusedBatchNormGrad", "FusedBatchNormGradV2"):
+                eps = attrs.get("epsilon", {}).get("f", 1e-4)
+                node = Node(_t.FusedBatchNormGrad(eps).set_name(name)) \
+                    .inputs(*[emit(i) for i in ins[:5]])
+            elif op in ("AvgPoolGrad", "MaxPoolGrad"):
+                ks = attrs.get("ksize", {}).get("list", {}).get("i")
+                st = attrs.get("strides", {}).get("list", {}).get("i")
+                pad = attrs.get("padding", {}).get("s", b"SAME").decode()
+                window = ((int(ks[1]), int(ks[2])), (int(st[1]), int(st[2])),
+                          pad)
+                if op == "AvgPoolGrad":
+                    sizes = [int(s) for s in np.ravel(const_of(ins[0]))]
+                    node = Node(_t.AvgPoolGrad(sizes, *window)
+                                .set_name(name)).inputs(dep(1))
+                else:
+                    node = Node(_t.MaxPoolGrad(*window).set_name(name)) \
+                        .inputs(dep(0), dep(1), dep(2))
+            elif op in ("Conv2DBackpropInput",
+                        "DepthwiseConv2dNativeBackpropInput",
+                        "Conv3DBackpropInput", "Conv3DBackpropInputV2"):
+                sizes, w = const_of(ins[0]), const_of(ins[1])
+                if sizes is None or w is None:
+                    raise ValueError(f"{op} {name}: input_sizes and filter "
+                                     "must be const")
+                nd = 3 if op.startswith("Conv3D") else 2
+                st = attrs.get("strides", {}).get("list", {}) \
+                    .get("i", [1] * (nd + 2))
+                pad = attrs.get("padding", {}).get("s", b"SAME").decode()
+                node = Node(_t.ConvBackpropInput(
+                    [int(s) for s in np.ravel(sizes)], w,
+                    tuple(int(s) for s in st[1:nd + 1]), pad,
+                    depthwise=op.startswith("Depthwise"), spatial_dims=nd,
+                    device=device).set_name(name)).inputs(dep(2))
+            elif op in ("Conv2DBackpropFilter",
+                        "DepthwiseConv2dNativeBackpropFilter",
+                        "Conv3DBackpropFilter", "Conv3DBackpropFilterV2"):
+                fsizes = const_of(ins[1])
+                if fsizes is None:
+                    raise ValueError(f"{op} {name}: filter_sizes must be "
+                                     "const")
+                nd = 3 if op.startswith("Conv3D") else 2
+                st = attrs.get("strides", {}).get("list", {}) \
+                    .get("i", [1] * (nd + 2))
+                pad = attrs.get("padding", {}).get("s", b"SAME").decode()
+                node = Node(_t.ConvBackpropFilter(
+                    [int(s) for s in np.ravel(fsizes)],
+                    tuple(int(s) for s in st[1:nd + 1]), pad,
+                    depthwise=op.startswith("Depthwise"), spatial_dims=nd)
+                    .set_name(name)).inputs(dep(0), dep(2))
+            elif op == "RandomShuffle":
+                node = Node(_t.RandomShuffle().set_name(name)).inputs(dep(0))
+            elif op == "ResizeBilinearGrad":
+                ac = attrs.get("align_corners", {}).get("b", False)
+                node = Node(_t.ResizeBilinearGrad(ac).set_name(name)) \
+                    .inputs(dep(0), dep(1))
+            elif op == "LRNGrad":
+                node = Node(_t.LRNGrad(
+                    attrs.get("depth_radius", {}).get("i", 5),
+                    attrs.get("bias", {}).get("f", 1.0),
+                    attrs.get("alpha", {}).get("f", 1.0),
+                    attrs.get("beta", {}).get("f", 0.5))
+                    .set_name(name)).inputs(dep(0), dep(1))
+            elif op in ("Dilation2DBackpropInput",
+                        "Dilation2DBackpropFilter"):
+                st = attrs.get("strides", {}).get("list", {}) \
+                    .get("i", [1, 1, 1, 1])
+                rt = attrs.get("rates", {}).get("list", {}) \
+                    .get("i", [1, 1, 1, 1])
+                pad = attrs.get("padding", {}).get("s", b"SAME").decode()
+                w = const_of(ins[1])
+                if w is None:
+                    raise ValueError(f"{op} {name}: filter must be const")
+                node = Node(_t.Dilation2DBackprop(
+                    w, (int(st[1]), int(st[2])), (int(rt[1]), int(rt[2])),
+                    pad, wrt="input" if op.endswith("Input") else "filter",
+                    device=device).set_name(name)).inputs(dep(0), dep(2))
+            elif op == "BroadcastGradientArgs":
+                r0 = const_of(name + ":0")
+                if r0 is None:
+                    raise ValueError(
+                        f"BroadcastGradientArgs {name}: input shapes must "
+                        "be const-foldable (Shape over const/Placeholder)")
+                node = Node(_t.ConstSource(r0, const_of(name + ":1"),
+                                           device=device).set_name(name))
+            # ----------------------- the input pipeline and host data ops
+            elif op in ("QueueDequeueV2", "QueueDequeueManyV2",
+                        "ReaderReadV2"):
+                # the pipeline's boundary: a graph input, as the
+                # reference's adapted dequeue nodes (list the op's name in
+                # ``inputs`` and feed batches from the data API)
+                node = Input()
+                input_nodes.append((name, node))
+            elif op in ("QueueEnqueueV2", "QueueEnqueueManyV2"):
+                # enqueue(queue_handle, components...): the components
+                # pass through; the handle is never emitted
+                comps = ins[1:] if len(ins) > 1 else ins
+                if len(comps) == 1:
+                    node = emit(comps[0])
+                else:
+                    node = Node(nn.Identity().set_name(name)).inputs(
+                        *[emit(i) for i in comps])
+            elif op == "Substr":
+                pos, ln = const_of(ins[1]), const_of(ins[2])
+                if pos is None or ln is None:
+                    raise ValueError(f"Substr {name}: pos/len must be const")
+                node = Node(_t.Substr(int(np.ravel(pos)[0]),
+                                      int(np.ravel(ln)[0]))
+                            .set_name(name)).inputs(dep(0))
+            elif op == "DecodeRaw":
+                dt = _DTYPES.get(attrs.get("out_type", {}).get("type", 1),
+                                 np.float32)
+                le = attrs.get("little_endian", {}).get("b", True)
+                node = Node(_t.DecodeRaw(dt, little_endian=le)
+                            .set_name(name)).inputs(dep(0))
+            elif op in ("DecodeJpeg", "DecodePng", "DecodeGif"):
+                node = Node(_t.DecodeImage(
+                    attrs.get("channels", {}).get("i", 0),
+                    all_frames=op == "DecodeGif").set_name(name)) \
+                    .inputs(dep(0))
+            elif op == "ParseExample":
+                node = Node(_parse_example(name, ins, attrs, const_of)
+                            .set_name(name)).inputs(dep(0))
             else:
                 raise ValueError(f"unsupported TF op {op} ({name})")
             graph_nodes[name] = node
@@ -1028,7 +1147,8 @@ class TensorflowLoader:
                 ordered_inputs.append(input_nodes[0][1])
                 used.append(wi)
         graph = nn.Graph(ordered_inputs,
-                         outputs if len(outputs) > 1 else outputs[0])
+                         outputs if len(outputs) > 1 else outputs[0],
+                         device=device)
         graph._tf_import = True
         graph._tf_used_inputs = used
         return graph
@@ -1073,6 +1193,36 @@ def _broadcast_gradient_args(s0, s1):
         if b == 1:
             r1.append(i)
     return (np.asarray(r0, np.int32), np.asarray(r1, np.int32))
+
+
+def _parse_example(name, ins, attrs, const_of):
+    """The ``ParseExampleOp`` of a dense-only ``ParseExample`` node
+    (inputs: serialized, names, sparse_keys[Nsparse], dense_keys[Ndense],
+    dense_defaults[Ndense]); sparse features are refused, as in the
+    reference (their 3 x Nsparse ports would precede the dense ones)."""
+    from bigdl_tpu_torch.ops.tf_ops import ParseExampleOp
+    nd = int(attrs.get("Ndense", {}).get("i", 0))
+    ns = int(attrs.get("Nsparse", {}).get("i", 0))
+    if ns:
+        raise ValueError(
+            f"ParseExample {name}: sparse features unsupported (dense-only, "
+            "like the loader corpus the reference exercises)")
+    keys = [const_of(i) for i in ins[2 + ns:2 + ns + nd]] if nd else []
+    if nd and any(k is None for k in keys):
+        raise ValueError(f"ParseExample {name}: dense_keys must be const")
+    shp_list = attrs.get("dense_shapes", {}).get("list", {}).get("shape", [])
+    shapes = [[d.get("size", -1) for d in s.get("dim", [])]
+              for s in shp_list] or [[] for _ in range(nd)]
+    types = [_DTYPES.get(t, np.float32) for t in
+             attrs.get("Tdense", {}).get("list", {}).get("type", [])] \
+        or [np.float32] * nd
+    # TF writes "required, no default" as an empty tensor
+    dflts = [const_of(i) for i in ins[2 + ns + nd:2 + ns + 2 * nd]]
+    dflts = [None if d is None or np.size(d) == 0 else d
+             for d in dflts] + [None] * (nd - len(dflts))
+    return ParseExampleOp([np.ravel(k)[0] if np.ndim(k) else k
+                           for k in keys], shapes, types,
+                          dense_defaults=dflts)
 
 
 def _static_trip_count(vars_, by_name, const_of, loopcond, inits):
@@ -1335,12 +1485,15 @@ def _apply_tf_weights_into(exec_order):
 
 def _sample_values(sample, device="cpu"):
     """A forward's input from ``sample_input``: a tensor or an array as
-    it is (an array's 64-bit types as the reference's 32-bit ones), zeros
-    for a shape, a list of them for several inputs."""
+    it is (an array's 64-bit types as the reference's 32-bit ones; one of
+    strings or bytes on the host), zeros for a shape, a list of them for
+    several inputs."""
     from bigdl_tpu_torch.ops.tf_ops import as_tensor
     from bigdl_tpu_torch.utils.shape import _is_shape_tuple
     if isinstance(sample, torch.Tensor):
         return sample.to(device)
+    if isinstance(sample, np.ndarray) and sample.dtype == object:
+        return sample
     if _is_shape_tuple(sample):
         return torch.zeros(tuple(int(d) for d in sample), device=device)
     if isinstance(sample, (list, tuple)):

@@ -75,6 +75,14 @@ def conv_routes(model, image_hw=(224, 224), dtype=None):
     ``ops.conv3x3.kernel_for``) and once a group for the input gradient
     (by its output channels; none where the input depends on no
     parameter); every other convolution is one ``F.conv2d`` forward.
+    Each layer reports its own launches (its ``conv_launches(h, w,
+    grad)``: ``[(cin, cout, width, n)]``, or None for one library call).
+
+    A graph that writes its own input gradients (a layer sets
+    ``writes_input_grads``: an imported TF training graph's
+    ``ops.tf_ops.ConvBackpropInput``) takes its step by evaluation: its
+    convolutions count their forward only, and the gradient layers their
+    own launches.
 
     Without ``dtype``: ``{"i2c": n, "k9": n, "library": n}``. With a
     compute ``dtype``: each kernel's launches split by path, ``{"i2c":
@@ -83,18 +91,19 @@ def conv_routes(model, image_hw=(224, 224), dtype=None):
     split = {"i2c": {"tc": 0, "simt": 0}, "k9": {"tc": 0, "simt": 0},
              "library": 0}
     cast = dtype if dtype is not None else torch.float32
-    for m, (h, w), grad in layer_walk(model, image_hw):
-        if not isinstance(m, SpatialConvolution):
+    walk = layer_walk(model, image_hw)
+    by_evaluation = any(getattr(m, "writes_input_grads", False)
+                        for m, _, _ in walk)
+    for m, (h, w), grad in walk:
+        if not hasattr(m, "conv_launches"):
             continue
-        if not m.uses_kernel(h, w):
+        launches = m.conv_launches(h, w, grad and not by_evaluation)
+        if launches is None:
             split["library"] += 1
-            continue
-        ci, co = m.n_input_plane // m.n_group, m.n_output_plane // m.n_group
-        ops = [(ci, co)] + ([(co, ci)] if grad else [])
-        for cin, cout in ops:
+        for cin, cout, width, n in launches or ():
             kind = kernel_for(cin)
-            path = "tc" if tc_path(kind, cast, w, cin, cout) else "simt"
-            split[kind][path] += m.n_group
+            path = "tc" if tc_path(kind, cast, width, cin, cout) else "simt"
+            split[kind][path] += n
     if dtype is not None:
         return split
     return {"i2c": sum(split["i2c"].values()),

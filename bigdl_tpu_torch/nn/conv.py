@@ -26,8 +26,11 @@ Routes:
   (``"3x3/s2"``, ``"3x3/s1/d2"``, ...), so a run can show that no
   kernel-route convolution reached the library.
 
-:func:`conv2d` is that choice for a bare NCHW or NHWC tensor and an OIHW
-weight; the convolutional LSTM cells (``nn/recurrent.py``) call it.
+:func:`takes_kernels` is that rule, and :func:`conv2d` that choice for a
+bare NCHW or NHWC tensor and an OIHW weight; the convolutional LSTM cells
+(``nn/recurrent.py``) call it. :func:`conv2d_input` is its input gradient
+by the same choice, for the gradient ops a TF training graph writes
+(``ops.tf_ops.ConvBackpropInput``).
 
 An NCHW input in ``torch.channels_last`` memory order is NHWC in memory,
 so the kernels read it without a copy.
@@ -47,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.module import Module, from_jax_layout
-from bigdl_tpu_torch.ops.conv3x3 import conv3x3
+from bigdl_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_input_grad
 from bigdl_tpu_torch.utils.device import resolve_device
 
 
@@ -58,18 +61,24 @@ def same_padding(size, k, s):
     return total // 2, total - total // 2
 
 
+def takes_kernels(kernel_hw, stride, padding, dilation=(1, 1)):
+    """Does a convolution of this geometry take the 3x3 kernels: 3x3,
+    stride 1, undilated, padded by 1 on every side (``padding``
+    ((top, bottom), (left, right)))?"""
+    return (tuple(kernel_hw) == (3, 3) and tuple(stride) == (1, 1)
+            and tuple(dilation) == (1, 1)
+            and tuple(map(tuple, padding)) == ((1, 1), (1, 1)))
+
+
 def conv2d(x, weight, stride=(1, 1), padding=((0, 0), (0, 0)),
            dilation=(1, 1), groups=1, nhwc=False):
     """``x`` (NCHW, or NHWC with ``nhwc``) convolved with the OIHW
-    ``weight``, no bias, in ``x``'s layout: a 3x3 stride-1 undilated
-    convolution padded by 1 on every side through the hand-written kernels
-    (once a group), any other through ``F.conv2d`` and counted in
-    ``SpatialConvolution.library_calls`` (module docstring). ``padding``
-    is ((top, bottom), (left, right))."""
+    ``weight``, no bias, in ``x``'s layout: through the hand-written
+    kernels (once a group) where :func:`takes_kernels`, else through
+    ``F.conv2d`` and counted in ``SpatialConvolution.library_calls``
+    (module docstring). ``padding`` is ((top, bottom), (left, right))."""
     kh, kw = weight.shape[2:]
-    if (kh == kw == 3 and tuple(stride) == (1, 1)
-            and tuple(dilation) == (1, 1)
-            and tuple(padding) == ((1, 1), (1, 1))):
+    if takes_kernels((kh, kw), stride, padding, dilation):
         y = _kernel_route(x if nhwc else x.permute(0, 2, 3, 1), weight,
                           groups)
         return y if nhwc else y.permute(0, 3, 1, 2)
@@ -96,6 +105,34 @@ def _kernel_route(x, weight, groups):
     return torch.cat([conv3x3(x[..., i * ci:(i + 1) * ci],
                               weight[i * co:(i + 1) * co])
                       for i in range(groups)], dim=-1)
+
+
+def conv2d_input(grad, weight, input_hw, stride=(1, 1),
+                 padding=((0, 0), (0, 0)), groups=1):
+    """The gradient of :func:`conv2d` (NHWC) with respect to its input of
+    spatial size ``input_hw``, for the NHWC ``grad`` and the OIHW
+    ``weight``: through the flip kernels where :func:`takes_kernels` (once
+    a group, by the gradient's channels, as ``conv3x3``'s backward), else
+    through ``torch.nn.grad.conv2d_input`` on the padded size, cropped,
+    and counted in ``SpatialConvolution.library_calls`` as
+    ``"<kh>x<kw>/s<stride>/input_grad"``."""
+    kh, kw = weight.shape[2:]
+    if takes_kernels((kh, kw), stride, padding):
+        w = weight.permute(0, 2, 3, 1)      # OHWI
+        if groups == 1:
+            return conv3x3_input_grad(grad, w)
+        co = w.shape[0] // groups
+        return torch.cat([conv3x3_input_grad(grad[..., i * co:(i + 1) * co],
+                                             w[i * co:(i + 1) * co])
+                          for i in range(groups)], dim=-1)
+    geometry = f"{kh}x{kw}/s{stride[0]}/input_grad"
+    SpatialConvolution.library_calls[geometry] += 1
+    (t, b), (l, r) = padding
+    h, w = input_hw
+    size = (grad.shape[0], weight.shape[1] * groups, h + t + b, w + l + r)
+    dx = torch.nn.grad.conv2d_input(size, weight, grad.permute(0, 3, 1, 2),
+                                    tuple(stride), groups=groups)
+    return dx[:, :, t:t + h, l:l + w].permute(0, 2, 3, 1)
 
 
 class SpatialConvolution(Module):
@@ -158,10 +195,22 @@ class SpatialConvolution(Module):
 
     def uses_kernel(self, h, w):
         """Does an h x w input take the 3x3 kernels?"""
-        return (self.kernel_h == self.kernel_w == 3
-                and self.stride_h == self.stride_w == 1
-                and self.dilation_h == self.dilation_w == 1
-                and self.padding(h, w) == ((1, 1), (1, 1)))
+        return takes_kernels((self.kernel_h, self.kernel_w),
+                             (self.stride_h, self.stride_w),
+                             self.padding(h, w),
+                             (self.dilation_h, self.dilation_w))
+
+    def conv_launches(self, h, w, grad):
+        """A training step's 3x3 kernel launches on an h x w input, as
+        ``[(cin, cout, width, n)]`` (``models.routes.conv_routes``): the
+        forward, and the input gradient where ``grad``, once a group; None
+        where it is one library call."""
+        if not self.uses_kernel(h, w):
+            return None
+        ci, co = (self.n_input_plane // self.n_group,
+                  self.n_output_plane // self.n_group)
+        return ([(ci, co, w, self.n_group)]
+                + ([(co, ci, w, self.n_group)] if grad else []))
 
     def forward(self, x):
         nhwc = self.format == "NHWC"

@@ -15,12 +15,27 @@ not a graph input must be a source (its module sets ``is_source``, as the
 TF loader's ``ConstSource`` and ``RandomUniform`` do) and is called with
 ``None``. ``forward`` hands its ``generator`` to every node's module whose
 ``forward`` takes one.
+
+Host values: a module whose class sets ``host_side`` (the TF string and
+data ops of ``ops/tf_ops.py``) takes and gives numpy arrays. Any other
+module gets each numeric numpy array of its input as a tensor on the
+graph's ``device`` (64-bit types as the reference's 32-bit ones), and
+numpy arrays of strings or bytes as they are; so do the graph's outputs.
+``Graph(..., device=)`` records that device (the TF loader records the
+one it builds on), and moving the graph (``.to``, ``.cuda``, ``.cpu``)
+moves it; without one it is the card, as for every entry point
+(``utils.device.resolve_device``), so a graph fed host values never runs
+on the CPU unless asked to.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from bigdl_tpu_torch.nn.basic import Input as InputModule
 from bigdl_tpu_torch.nn.module import Module, Node, call_with_generator
+from bigdl_tpu_torch.utils.device import resolve_device
 from bigdl_tpu_torch.utils.table import Table, sorted_items
 
 __all__ = ["Graph", "Input", "Node"]
@@ -36,8 +51,9 @@ class Graph(Module):
 
     quantizer_walks = True    # nn.quantized.Quantizer swaps in nodes
 
-    def __init__(self, inputs, outputs):
+    def __init__(self, inputs, outputs, device=None):
         super().__init__()
+        self.device = None if device is None else torch.device(device)
         self.input_nodes = (list(inputs) if isinstance(inputs, (list, tuple))
                             else [inputs])
         self.output_nodes = (list(outputs)
@@ -89,11 +105,39 @@ class Graph(Module):
             return values[node.prev_nodes[0].id]
         return [values[p.id] for p in node.prev_nodes]
 
+    def _apply(self, fn, *args, **kwargs):
+        # a move of the graph's tensors moves its recorded device
+        if self.device is not None:
+            self.device = fn(torch.empty(0, device=self.device)).device
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, x, generator=None):
         values = {}
         for node in self.exec_order:
-            values[node.id] = call_with_generator(
-                node.module, self._gather_input(node, values, x), generator)
-        if len(self.output_nodes) == 1:
-            return values[self.output_nodes[0].id]
-        return [values[n.id] for n in self.output_nodes]
+            inp = self._gather_input(node, values, x)
+            if not getattr(node.module, "host_side", False) \
+                    and _has_host(inp):
+                inp = _on_device(inp, resolve_device(self.device))
+            values[node.id] = call_with_generator(node.module, inp,
+                                                  generator)
+        outs = [values[n.id] for n in self.output_nodes]
+        if any(_has_host(o) for o in outs):
+            outs = [_on_device(o, resolve_device(self.device)) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+
+def _has_host(v):
+    """Is ``v`` (or an element of the list ``v``) a numeric numpy array?"""
+    if isinstance(v, np.ndarray):
+        return v.dtype != object
+    return isinstance(v, list) and any(_has_host(e) for e in v)
+
+
+def _on_device(v, device):
+    """``v`` with its numeric numpy arrays as tensors on ``device``."""
+    if isinstance(v, np.ndarray) and v.dtype != object:
+        from bigdl_tpu_torch.ops.tf_ops import as_tensor
+        return as_tensor(v, device)
+    if isinstance(v, list):
+        return [_on_device(e, device) for e in v]
+    return v

@@ -18,11 +18,10 @@ counts kernel launches.
 
 Beside the kernels, the TF-style operation layers and control flow of the
 reference's ``bigdl_tpu/ops`` (``tf_ops.py``, ``control_ops.py``): the
-forward ops the TF graph loader builds, ``Cond``, ``WhileLoop`` and
-``Select``. Its feature-column ops wait for ROADMAP A.11(d)(2)(b). The
-reference's ``ops.flash_attention`` function is the port's
-``ops.flash_attention.flash_attention``: the name here is the kernel's
-module.
+ops the TF graph loader builds, the feature-column ops, ``Cond``,
+``WhileLoop`` and ``Select``. The reference's ``ops.flash_attention``
+function is the port's ``ops.flash_attention.flash_attention``: the name
+here is the kernel's module.
 """
 
 # finite stand-in for -inf (the reference's ``ops/pallas_util.py``
@@ -32,8 +31,9 @@ NEG_INF = -1e30
 
 from bigdl_tpu_torch.ops.control_ops import Cond, Select, WhileLoop  # noqa: E402,F401
 from bigdl_tpu_torch.ops.tf_ops import (  # noqa: E402,F401
-    All, Any, ArgMax, ArgMin, Cast, Ceil, Equal, Erf, Exp, ExpandDims,
-    Floor, Gather, Greater, GreaterEqual, InTopK, InvertPermutation, Less,
-    LessEqual, Log1p, LogicalAnd, LogicalNot, LogicalOr, NotEqual, OneHot,
-    Operation, Pow, Prod, Rank, Round, SegmentSum, Sign, Slice,
-    StridedSlice, Tile, TopK)
+    All, Any, ArgMax, ArgMin, BucketizedCol, Cast, CategoricalColHashBucket,
+    CategoricalColVocaList, Ceil, CrossCol, Equal, Erf, Exp, ExpandDims,
+    Floor, Gather, Greater, GreaterEqual, IndicatorCol, InTopK,
+    InvertPermutation, Less, LessEqual, Log1p, LogicalAnd, LogicalNot,
+    LogicalOr, MkString, NotEqual, OneHot, Operation, Pow, Prod, Rank, Round,
+    SegmentSum, Sign, Slice, StridedSlice, Tile, TopK)

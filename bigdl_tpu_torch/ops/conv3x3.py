@@ -254,8 +254,17 @@ def kernel_for(cin):
     return "i2c" if cin <= I2C_MAX_CIN else "k9"
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address, as the kernels read
+    it: a contiguous slice that starts mid-storage (a depthwise group's
+    rows of a weight) is copied."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _run(x, w, flip):
-    return KERNELS[kernel_for(_channels(w, flip)[0])](x, w, flip)
+    return KERNELS[kernel_for(_channels(w, flip)[0])](_aligned(x),
+                                                      _aligned(w), flip)
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -281,6 +290,14 @@ class _Conv3x3(torch.autograd.Function):
                 dy.permute(0, 3, 1, 2), stride=1, padding=1)
             dw = dw.permute(0, 2, 3, 1)
         return dx, dw
+
+
+def conv3x3_input_grad(dy, w):
+    """The input gradient of a 3x3 stride-1 pad-1 convolution of NHWC
+    input with OHWI ``w`` (Cout, 3, 3, Cin), for the NHWC ``dy`` (N, H, W,
+    Cout): (N, H, W, Cin), through the flip kernels by the rule of
+    ``_Conv3x3.backward``. Not differentiable."""
+    return _run(dy, w, flip=True)
 
 
 def conv3x3(x, weight):

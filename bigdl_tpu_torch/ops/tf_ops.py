@@ -1,6 +1,7 @@
-"""TF-style operation layers, the forward ones (the port of
-``bigdl_tpu/ops/tf_ops.py``: reference ``nn/ops/``, inference ops whose
-``Operation`` base has a throwing backward, used by imported TF graphs).
+"""TF-style operation layers (the port of ``bigdl_tpu/ops/tf_ops.py``:
+reference ``nn/ops/``, inference ops whose ``Operation`` base has a
+throwing backward, used by imported TF graphs and feature-column
+pipelines).
 
 Each op is a small torch expression with the reference's arithmetic and
 the reference's dtypes: the reference runs JAX without x64, so an int64
@@ -22,18 +23,30 @@ centres, a triangle kernel widened when downsampling), not
 else from a generator seeded with the op's seed, so evaluation draws
 repeat; the numbers are torch's, not ``jax.random``'s.
 
-Not ported yet (ROADMAP A.11(d)(2)(b)): the feature-column and string
-ops (``BucketizedCol``, ``CategoricalColHashBucket``,
-``CategoricalColVocaList``, ``CrossCol``, ``IndicatorCol``, ``MkString``,
-``Kv2Tensor``), the TF-written gradient ops (``ReluGrad`` ... ``MaxPoolGrad``,
-``ConvBackpropInput``/``Filter``, ``ResizeBilinearGrad``, ``LRNGrad``,
-``Dilation2DBackprop``), ``RandomShuffle``, ``Substr``, ``DecodeRaw``,
-``DecodeImage`` and ``ParseExampleOp``.
+The feature-column string ops, ``Substr``, ``DecodeRaw``, ``DecodeImage``
+and ``ParseExampleOp`` run on the host, as in the reference (their class
+sets ``host_side``): they take numpy object arrays of strings or bytes
+and give numpy arrays, which a ``Graph`` hands to the next tensor op as
+tensors on its device. ``CategoricalColHashBucket`` hashes with
+``zlib.crc32``, so its bucket ids are the reference's bit for bit.
+
+The gradient ops TF writes into a training graph compute what the
+reference's ``jax.vjp`` of each forward gives: ``ConvBackpropInput`` of a
+2-D 3x3 stride-1 SAME convolution through the flip kernels of
+``ops/conv3x3.py`` (``nn.conv.conv2d_input``: once a group for a
+depthwise one, as its forward), any other and ``ConvBackpropFilter``
+through ``torch.nn.grad``; the pooling, resize, LRN and dilation
+gradients as ``torch.autograd.grad`` of the port's own forward.
+``ConvBackpropInput`` and ``Dilation2DBackprop`` hold the filter the
+loader read (a buffer made on ``device``), as the reference's hold theirs.
+``RandomShuffle`` permutes rows with the generator it is given, and is
+the identity without one.
 """
 
 from __future__ import annotations
 
 import math
+import zlib
 
 import numpy as np
 import torch
@@ -428,6 +441,192 @@ class SegmentSum(Module):
         return _segment_sum(data, seg, self.num_segments)
 
 
+# ------------------------------------------------------ feature-column ops
+
+def _objects(x):
+    """``x`` (an array, a list or a tensor) as a numpy object array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=object)
+
+
+class CategoricalColHashBucket(Operation):
+    """String column -> hashed bucket ids, int32 (reference
+    ``nn/ops/CategoricalColHashBucket.scala``), on the host."""
+
+    host_side = True
+
+    def __init__(self, hash_bucket_size):
+        super().__init__()
+        self.hash_bucket_size = hash_bucket_size
+
+    def forward(self, x):
+        arr = _objects(x)
+        ids = [zlib.crc32(s.encode() if isinstance(s, str) else bytes(s))
+               % self.hash_bucket_size for s in arr.ravel()]
+        return np.asarray(ids, np.int32).reshape(arr.shape)
+
+
+class BucketizedCol(Operation):
+    """Numeric column -> bucket index by ``boundaries``, int32 (reference
+    ``nn/ops/BucketizedCol.scala``)."""
+
+    def __init__(self, boundaries):
+        super().__init__()
+        self.boundaries = np.asarray(boundaries)
+
+    def forward(self, x):
+        b = as_tensor(self.boundaries, x.device)
+        dtype = torch.promote_types(b.dtype, x.dtype)
+        return torch.searchsorted(b.to(dtype), x.to(dtype).contiguous(),
+                                  right=True).to(torch.int32)
+
+
+class IndicatorCol(Operation):
+    """Category ids -> multi-hot indicator, float32 (reference
+    ``nn/ops/IndicatorCol.scala``): one-hot rows, their maximum over the
+    next-to-last axis when there are more than two axes."""
+
+    def __init__(self, feat_len):
+        super().__init__()
+        self.feat_len = feat_len
+
+    def forward(self, x):
+        oh = (x.to(torch.int32).unsqueeze(-1) == torch.arange(
+            self.feat_len, dtype=torch.int32, device=x.device)) \
+            .to(torch.float32)
+        return torch.amax(oh, dim=-2) if oh.dim() > 2 else oh
+
+
+class CrossCol(Operation):
+    """Several integer columns crossed into one hashed id space (reference
+    ``nn/ops/CrossCol.scala``): the reference's uint32 multiplicative mix,
+    modulo ``hash_bucket_size``, int32."""
+
+    def __init__(self, hash_bucket_size):
+        super().__init__()
+        self.hash_bucket_size = hash_bucket_size
+
+    def forward(self, *xs):
+        cols = [c.to(torch.int64) & 0xFFFFFFFF for c in _elems(xs)]
+        mixed = cols[0]
+        for c in cols[1:]:
+            mixed = ((mixed * 1000003) & 0xFFFFFFFF) ^ c
+        return (mixed % self.hash_bucket_size).to(torch.int32)
+
+
+class CategoricalColVocaList(Operation):
+    """String column -> ids by a vocabulary list, a ``SparseTensor`` of
+    (rows, columns), on the host (reference
+    ``nn/ops/CategoricalColVocaList.scala:40``). A cell may hold several
+    values joined by ``str_delimiter``. Out of the vocabulary a value is
+    dropped, or mapped to ``len(vocabulary)`` with ``is_set_default``, or
+    hashed (``zlib.crc32``) into ``num_oov_buckets`` ids after the
+    vocabulary's, as the reference's."""
+
+    host_side = True
+
+    def __init__(self, vocabulary, str_delimiter=",", is_set_default=False,
+                 num_oov_buckets=0):
+        super().__init__()
+        if num_oov_buckets < 0:
+            raise ValueError("num_oov_buckets is a negative integer")
+        if is_set_default and num_oov_buckets != 0:
+            raise ValueError(
+                "default value and num_oov_buckets are both specified")
+        if not len(vocabulary):
+            raise ValueError("the vocabulary list is empty")
+        if len(set(vocabulary)) != len(vocabulary):
+            raise ValueError("the vocabulary list contains duplicate keys")
+        self.vocabulary = list(vocabulary)
+        self.str_delimiter = str_delimiter
+        self.is_set_default = is_set_default
+        self.num_oov_buckets = num_oov_buckets
+        self._voca_map = {v: i for i, v in enumerate(self.vocabulary)}
+
+    def forward(self, x):
+        from bigdl_tpu_torch.nn.sparse import SparseTensor
+        arr = _objects(x).ravel()
+        n_voca = len(self.vocabulary)
+        if self.num_oov_buckets:
+            cols = n_voca + self.num_oov_buckets
+        else:
+            cols = n_voca + 1 if self.is_set_default else n_voca
+        rows_idx, cols_idx, values = [], [], []
+        for i, cell in enumerate(arr):
+            feats = str(cell).split(self.str_delimiter)
+            if not self.is_set_default and self.num_oov_buckets == 0:
+                feats = [f for f in feats if f in self._voca_map]
+            for j, f in enumerate(feats):
+                if f in self._voca_map:
+                    v = self._voca_map[f]
+                elif self.num_oov_buckets:
+                    v = zlib.crc32(f.encode()) % self.num_oov_buckets \
+                        + n_voca
+                else:
+                    v = n_voca   # is_set_default
+                rows_idx.append(i)
+                cols_idx.append(j)
+                values.append(v)
+        indices = (np.stack([np.asarray(rows_idx, np.int32),
+                             np.asarray(cols_idx, np.int32)], axis=1)
+                   if values else np.zeros((0, 2), np.int32))
+        return SparseTensor(indices, np.asarray(values, np.int32),
+                            (len(arr), cols))
+
+
+class MkString(Operation):
+    """Each row joined into one string by ``str_delimiter``, a numpy
+    object array, on the host (reference ``nn/ops/MkString.scala``)."""
+
+    host_side = True
+
+    def __init__(self, str_delimiter=","):
+        super().__init__()
+        self.str_delimiter = str_delimiter
+
+    def forward(self, x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray([self.str_delimiter.join(str(v) for v in row)
+                           for row in np.asarray(x)], dtype=object)
+
+
+class Kv2Tensor(Operation):
+    """``"k:v,k:v"`` string column -> dense float32 rows, on the host
+    (reference ``nn/ops/Kv2Tensor.scala``); ``dim <= 0`` takes the largest
+    key + 1."""
+
+    host_side = True
+
+    def __init__(self, kv_delimiter=",", item_delimiter=":", dim=-1):
+        super().__init__()
+        self.kv_delimiter = kv_delimiter
+        self.item_delimiter = item_delimiter
+        self.dim = dim
+
+    def forward(self, x):
+        rows = [r[0] if isinstance(r, (list, np.ndarray)) else r
+                for r in _objects(x)]
+        parsed = []
+        for row in rows:
+            kv = {}
+            for item in str(row).split(self.kv_delimiter):
+                if not item:
+                    continue
+                k, _, v = item.partition(self.item_delimiter)
+                kv[int(k)] = float(v)
+            parsed.append(kv)
+        dim = self.dim if self.dim > 0 else (
+            max((max(kv) for kv in parsed if kv), default=-1) + 1)
+        out = np.zeros((len(parsed), dim), np.float32)
+        for i, kv in enumerate(parsed):
+            for k, v in kv.items():
+                if k < dim:
+                    out[i, k] = v
+        return out
+
+
 class InvertPermutation(Operation):
     """Permutation vector -> its inverse (reference
     ``utils/tf/loaders/ArrayOps.scala:29``): argsort for a valid
@@ -764,6 +963,161 @@ class Dilation2D(Operation):
                            self.weight.shape[:2])
 
 
+# ---------------------------------------------- the gradient ops TF writes
+# into a training graph (reference ``utils/tf/loaders/ReluGrad.scala`` ...)
+
+def _vjp(fn, primals, cot):
+    """``jax.vjp(fn, *primals)[1](cot)``: ``cot`` pulled back to every
+    primal, itself differentiable while autograd records."""
+    record = torch.is_grad_enabled()
+    with torch.enable_grad():
+        ps = [p if record and p.requires_grad
+              else p.detach().requires_grad_() for p in primals]
+        return torch.autograd.grad(fn(*ps), ps, cot, create_graph=record)
+
+
+def _same_pads(sizes, ksize, strides, padding):
+    """((lo, hi), ...) padding of each spatial axis, XLA's SAME or none."""
+    from bigdl_tpu_torch.nn.conv import same_padding
+    if padding != "SAME":
+        return tuple((0, 0) for _ in sizes)
+    return tuple(same_padding(int(s), int(k), int(st))
+                 for s, k, st in zip(sizes, ksize, strides))
+
+
+def _pad_nchw(x, pads, value=0.0):
+    """NCHW ``x`` padded by ((top, bottom), (left, right))."""
+    (t, b), (l, r) = pads
+    if t == b == l == r == 0:
+        return x
+    return F.pad(x, (l, r, t, b), value=value)
+
+
+class _GradPair(Operation):
+    """Elementwise (grad, ref) -> grad' (TF's argument order per op)."""
+    fn = None
+
+    def forward(self, *xs):
+        g, r = _elems(xs)
+        return type(self).fn(g, r)
+
+
+class ReluGrad(_GradPair):
+    fn = staticmethod(lambda g, x: g * (x > 0).to(g.dtype))
+
+
+class Relu6Grad(_GradPair):
+    fn = staticmethod(lambda g, x: g * ((x > 0) & (x < 6)).to(g.dtype))
+
+
+class EluGrad(_GradPair):
+    # TF order: (gradients, outputs)
+    fn = staticmethod(lambda g, y: g * torch.where(y > 0, 1.0, y + 1.0))
+
+
+class SoftplusGrad(_GradPair):
+    fn = staticmethod(lambda g, x: g * torch.sigmoid(x))
+
+
+class SoftsignGrad(_GradPair):
+    fn = staticmethod(lambda g, x: g / torch.square(1.0 + torch.abs(x)))
+
+
+class SigmoidGrad(_GradPair):
+    # TF order: (y, dy)
+    fn = staticmethod(lambda y, dy: dy * y * (1.0 - y))
+
+
+class TanhGrad(_GradPair):
+    fn = staticmethod(lambda y, dy: dy * (1.0 - torch.square(y)))
+
+
+class SqrtGrad(_GradPair):
+    fn = staticmethod(lambda y, dy: dy * 0.5 / y)
+
+
+class RsqrtGrad(_GradPair):
+    fn = staticmethod(lambda y, dy: dy * -0.5 * y * y * y)
+
+
+class ReciprocalGrad(_GradPair):
+    fn = staticmethod(lambda y, dy: -dy * y * y)
+
+
+class BiasAddGrad(Operation):
+    """The bias gradient: the sum over every axis but the last."""
+
+    def forward(self, x):
+        return torch.sum(x, dim=tuple(range(x.dim() - 1)))
+
+
+class FusedBatchNormGrad(Operation):
+    """``[dy, x, scale, saved_mean, saved_var]`` -> ``[dx, dscale,
+    doffset]`` (reference ``utils/tf/loaders/FusedBatchNormGrad.scala``)."""
+
+    def __init__(self, eps=1e-4):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, *xs):
+        dy, xv, scale, mean, var = _elems(xs)
+        axes = tuple(range(xv.dim() - 1))
+        n = xv.numel() // xv.shape[-1]
+        inv = torch.rsqrt(var + self.eps)
+        xc = xv - mean
+        dscale = torch.sum(dy * xc * inv, dim=axes)
+        doffset = torch.sum(dy, dim=axes)
+        dx = scale * inv / n * (
+            n * dy - doffset - xc * inv * inv * torch.sum(dy * xc, dim=axes))
+        return [dx, dscale, doffset]
+
+
+class AvgPoolGrad(Operation):
+    """``[orig_input_shape, grad]`` -> dx of the NHWC average pool (padding
+    not counted, as ``lax.reduce_window``'s), its adjoint at zeros
+    (reference ``utils/tf/loaders/AvgPoolGrad.scala``)."""
+
+    def __init__(self, input_shape, ksize, strides, padding):
+        super().__init__()
+        self.input_shape = tuple(int(s) for s in input_shape)
+        self.ksize, self.strides, self.padding = ksize, strides, padding
+
+    def _pool(self, x):
+        pads = _same_pads(x.shape[1:3], self.ksize, self.strides,
+                          self.padding)
+        xc = x.permute(0, 3, 1, 2)
+        s = F.avg_pool2d(_pad_nchw(xc, pads), self.ksize, self.strides,
+                         divisor_override=1)
+        cnt = F.avg_pool2d(_pad_nchw(torch.ones_like(xc), pads), self.ksize,
+                           self.strides, divisor_override=1)
+        return (s / cnt).permute(0, 2, 3, 1)
+
+    def forward(self, *xs):
+        g = _elems(xs)[-1]
+        zeros = torch.zeros(self.input_shape, dtype=g.dtype, device=g.device)
+        return _vjp(self._pool, (zeros,), g)[0]
+
+
+class MaxPoolGrad(Operation):
+    """``[orig_input, orig_output, grad]`` -> dx of the NHWC max pool at
+    ``orig_input`` (reference ``utils/tf/loaders/MaxPoolGrad.scala``);
+    a window's gradient goes to its first maximum, as XLA's."""
+
+    def __init__(self, ksize, strides, padding):
+        super().__init__()
+        self.ksize, self.strides, self.padding = ksize, strides, padding
+
+    def _pool(self, x):
+        pads = _same_pads(x.shape[1:3], self.ksize, self.strides,
+                          self.padding)
+        xc = _pad_nchw(x.permute(0, 3, 1, 2), pads, -math.inf)
+        return F.max_pool2d(xc, self.ksize, self.strides).permute(0, 2, 3, 1)
+
+    def forward(self, *xs):
+        xv, _, g = _elems(xs)
+        return _vjp(self._pool, (xv,), g)[0]
+
+
 # ---------------------------------------------- TensorArray (the reference's
 # static stacked form of ``nn/tf/DataFlowOps.scala:45,176-257``: the "flow"
 # value IS the (size, ...) stacked tensor)
@@ -945,3 +1299,323 @@ class RandomUniform(Operation):
         u = torch.rand(self.shape, generator=generator, device=device,
                        dtype=self.dtype)
         return u * (self.maxval - self.minval) + self.minval
+
+
+# ------------------------------------- convolution and other gradient ops
+
+def _torch_filter(w, depthwise):
+    """A TF filter (HWIO, or DHWIO) in torch's (O, I / groups, ...) layout;
+    a depthwise (kh, kw, C, mult) one as its grouped (C * mult, 1, kh,
+    kw)."""
+    w = np.asarray(w, np.float32)
+    if depthwise:
+        kh, kw, cin, mult = w.shape
+        w = w.reshape(kh, kw, 1, cin * mult)
+    nd = w.ndim - 2
+    return np.ascontiguousarray(
+        w.transpose((nd + 1, nd) + tuple(range(nd))))
+
+
+class ConvBackpropInput(Operation):
+    """TF ``Conv2DBackpropInput``, ``DepthwiseConv2dNativeBackpropInput``
+    and ``Conv3DBackpropInput``: the gradient with respect to the input
+    (of ``input_sizes``, NHWC or NDHWC) of the convolution with the
+    filter read at load (reference ``utils/tf/loaders/
+    Conv2DBackpropInput.scala``). 2-D: ``nn.conv.conv2d_input`` (a 3x3
+    stride-1 SAME one on the flip kernels); 3-D: ``torch.nn.grad``."""
+
+    writes_input_grads = True     # models.routes.conv_routes
+
+    def __init__(self, input_sizes, weight, strides, padding,
+                 depthwise=False, spatial_dims=2, device=None):
+        super().__init__()
+        self.input_sizes = tuple(int(s) for s in input_sizes)
+        self.weight_shape = tuple(np.shape(weight))
+        self.strides = tuple(int(s) for s in strides)
+        self.padding = padding
+        self.depthwise = depthwise
+        self.spatial_dims = spatial_dims
+        self.groups = self.weight_shape[-2] if depthwise else 1
+        self.register_buffer("weight", torch.as_tensor(
+            _torch_filter(weight, depthwise), device=resolve_device(device)),
+            persistent=False)
+
+    def _pads(self):
+        return _same_pads(self.input_sizes[1:-1], self.weight_shape,
+                          self.strides, self.padding)
+
+    def uses_kernel(self):
+        """Does it run on the flip kernels (``nn.conv.conv2d_input``)?"""
+        from bigdl_tpu_torch.nn.conv import takes_kernels
+        return self.spatial_dims == 2 and takes_kernels(
+            self.weight_shape[:2], self.strides, self._pads())
+
+    def conv_launches(self, h, w, grad):
+        """Its flip launches, ``[(cin, cout, width, n)]`` by the gradient's
+        channels, once a group (``models.routes.conv_routes``; ``h, w,
+        grad`` are the walk's and unused: it knows its sizes); None where
+        a 2-D one is one library call, none for a 3-D one."""
+        if self.uses_kernel():
+            co, ci = self.weight.shape[0] // self.groups, self.weight.shape[1]
+            return [(co, ci, self.input_sizes[2], self.groups)]
+        return None if self.spatial_dims == 2 else []
+
+    def forward(self, g):
+        from bigdl_tpu_torch.nn.conv import conv2d_input
+        w = self.weight.to(g.dtype)
+        sizes = self.input_sizes[1:-1]
+        pads = self._pads()
+        if self.spatial_dims == 2:
+            return conv2d_input(g, w, sizes, self.strides, pads,
+                                self.groups)
+        size = (g.shape[0], w.shape[1] * self.groups) + tuple(
+            s + lo + hi for s, (lo, hi) in zip(sizes, pads))
+        dx = torch.nn.grad.conv3d_input(size, w, g.permute(0, 4, 1, 2, 3),
+                                        self.strides, groups=self.groups)
+        crop = tuple(slice(lo, lo + s) for s, (lo, _) in zip(sizes, pads))
+        return dx[(slice(None), slice(None)) + crop].permute(0, 2, 3, 4, 1)
+
+
+class ConvBackpropFilter(Operation):
+    """``[x, out_backprop]`` -> the filter gradient of TF's convolution,
+    in TF's layout (reference ``utils/tf/loaders/
+    Conv2DBackpropFilter.scala``): ``torch.nn.grad.conv2d_weight`` or
+    ``conv3d_weight``, a library call (the reference has no kernel for
+    it)."""
+
+    def __init__(self, filter_sizes, strides, padding, depthwise=False,
+                 spatial_dims=2):
+        super().__init__()
+        self.filter_sizes = tuple(int(s) for s in filter_sizes)
+        self.strides = tuple(int(s) for s in strides)
+        self.padding = padding
+        self.depthwise = depthwise
+        self.spatial_dims = spatial_dims
+
+    def forward(self, *xs):
+        xv, g = _elems(xs)
+        nd = self.spatial_dims
+        *ks, cin, cout = self.filter_sizes
+        groups = cin if self.depthwise else 1
+        shape = ((cin * cout, 1) if self.depthwise else (cout, cin)) \
+            + tuple(ks)
+        pads = _same_pads(xv.shape[1:-1], ks, self.strides, self.padding)
+        perm = (0, nd + 1) + tuple(range(1, nd + 1))
+        xc = F.pad(xv.permute(perm),
+                   [v for lo_hi in reversed(pads) for v in lo_hi])
+        grad_weight = (torch.nn.grad.conv2d_weight if nd == 2
+                       else torch.nn.grad.conv3d_weight)
+        dw = grad_weight(xc, shape, g.permute(perm), self.strides,
+                         groups=groups)
+        return dw.permute(tuple(range(2, nd + 2)) + (1, 0)) \
+            .reshape(self.filter_sizes)
+
+
+class RandomShuffle(Operation):
+    """Rows permuted along axis 0 by the ``generator`` the forward is
+    given (``Graph.forward(..., generator=)``), the identity without one
+    (reference ``utils/tf/loaders/RandomShuffle.scala``); torch's
+    permutation, not ``jax.random``'s."""
+
+    def forward(self, x, generator=None):
+        if generator is None:
+            return x
+        perm = torch.randperm(x.shape[0], generator=generator,
+                              device=generator.device)
+        return x[perm.to(x.device)]
+
+
+class ResizeBilinearGrad(Operation):
+    """``[grad, orig_image]`` -> dx of :class:`ResizeBilinear` to the
+    gradient's size, its adjoint at zeros (reference
+    ``utils/tf/loaders/ResizeBilinearGrad.scala``)."""
+
+    def __init__(self, align_corners=False):
+        super().__init__()
+        self.align_corners = align_corners
+
+    def forward(self, *xs):
+        g, orig = _elems(xs)
+        rb = ResizeBilinear(g.shape[1:3], self.align_corners)
+        return _vjp(rb, (torch.zeros_like(orig),), g)[0]
+
+
+class LRNGrad(Operation):
+    """``[grads, x, y]`` -> dx of TF's LRN over NHWC at ``x`` (reference
+    ``utils/tf/loaders/LRNGrad.scala``), through ``nn.SpatialCrossMapLRN``
+    as the loader's ``LRN``."""
+
+    def __init__(self, depth_radius=5, bias=1.0, alpha=1.0, beta=0.5):
+        super().__init__()
+        self.size = 2 * int(depth_radius) + 1
+        self.bias, self.alpha, self.beta = bias, alpha, beta
+
+    def forward(self, *xs):
+        from bigdl_tpu_torch.nn.normalization import SpatialCrossMapLRN
+        g, xv = _elems(xs)[:2]
+        lrn = SpatialCrossMapLRN(self.size, self.alpha * self.size,
+                                 self.beta, self.bias, format="NHWC")
+        return _vjp(lrn, (xv,), g)[0]
+
+
+class Dilation2DBackprop(Operation):
+    """``[x, grad]`` -> the gradient of :class:`Dilation2D` with respect
+    to the input (``wrt="input"``) or the filter read at load
+    (``wrt="filter"``), at the actual values (reference
+    ``utils/tf/loaders/Dilation2DBackpropInput.scala`` / ``Filter``); the
+    filter is a buffer on ``device`` (default the card)."""
+
+    def __init__(self, weight, strides, rates, padding, wrt="input",
+                 device=None):
+        super().__init__()
+        self.register_buffer("weight", torch.as_tensor(
+            np.array(weight, np.float32), device=resolve_device(device)),
+            persistent=False)
+        self.strides, self.rates, self.padding = strides, rates, padding
+        self.wrt = wrt
+
+    def forward(self, *xs):
+        xv, g = _elems(xs)
+
+        def fwd(x, w):
+            return _dilation2d(x, w, self.strides, self.rates, self.padding,
+                               self.weight.shape[:2])
+
+        dx, dw = _vjp(fwd, (xv, self.weight.to(xv.dtype)), g)
+        return dx if self.wrt == "input" else dw
+
+
+# ---------------------------------------------------- host-side data ops
+
+class Substr(Operation):
+    """Byte-string slices ``[pos, pos + length)``, on the host (reference
+    ``utils/tf/loaders/Substr.scala``)."""
+
+    host_side = True
+
+    def __init__(self, pos, length):
+        super().__init__()
+        self.pos, self.length = int(pos), int(length)
+
+    def forward(self, x):
+        arr = _objects(x)
+        out = np.asarray([bytes(s)[self.pos:self.pos + self.length]
+                          for s in arr.ravel()], dtype=object)
+        return out.reshape(arr.shape)
+
+
+class DecodeRaw(Operation):
+    """Bytes -> a vector of ``out_type`` per string, in the native byte
+    order, on the host (reference ``utils/tf/loaders/DecodeRaw.scala``):
+    one string gives its vector, an array of them the stacked rows."""
+
+    host_side = True
+
+    def __init__(self, out_type, little_endian=True):
+        super().__init__()
+        self.out_dtype = np.dtype(out_type)
+        self.wire_dtype = (self.out_dtype.newbyteorder("<") if little_endian
+                           else self.out_dtype.newbyteorder(">"))
+
+    def forward(self, x):
+        one = isinstance(x, (bytes, bytearray))
+        blobs = [x] if one else list(_objects(x).ravel())
+        rows = [np.frombuffer(bytes(b), self.wire_dtype)
+                .astype(self.out_dtype) for b in blobs]
+        return rows[0] if one else np.stack(rows)
+
+
+class DecodeImage(Operation):
+    """Encoded image bytes -> an HWC uint8 array through PIL, on the host:
+    the reference's ``DecodeJpeg``/``DecodePng``/``DecodeGif`` (channels
+    0 keeps the image's, 1 grey, 3 RGB, 4 RGBA; ``all_frames`` gives a
+    GIF's (frames, H, W, 3) stack). PIL is imported only here."""
+
+    host_side = True
+
+    def __init__(self, channels=0, all_frames=False):
+        super().__init__()
+        self.channels = int(channels)
+        self.all_frames = bool(all_frames)
+
+    def forward(self, x):
+        import io
+
+        from PIL import Image
+        img = Image.open(io.BytesIO(bytes(x)))
+        if self.all_frames:
+            from PIL import ImageSequence
+            return np.stack([np.asarray(f.convert("RGB"))
+                             for f in ImageSequence.Iterator(img)])
+        mode = {1: "L", 3: "RGB", 4: "RGBA"}.get(self.channels)
+        if mode is not None:
+            img = img.convert(mode)
+        elif img.mode == "P":
+            # a palette image with channels 0: colour samples, as TF
+            img = img.convert("RGB")
+        arr = np.asarray(img)
+        return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+class ParseExampleOp(Operation):
+    """Serialized tf.Examples -> the list of their dense features, on the
+    host (reference ``nn/tf/ParsingOps.scala`` ParseExample; decoded by
+    ``interop/tf_record.py``): a bytes feature as an object array, a
+    numeric one stacked in its ``dense_types`` and ``dense_shapes`` (TF's
+    -1 dims inferred). A missing key takes its default, or raises."""
+
+    host_side = True
+
+    def __init__(self, dense_keys, dense_shapes, dense_types,
+                 dense_defaults=None):
+        super().__init__()
+        self.dense_keys = [k.decode() if isinstance(k, bytes) else str(k)
+                           for k in dense_keys]
+        self.dense_shapes = [tuple(int(d) for d in s) for s in dense_shapes]
+        self.dense_types = list(dense_types)
+        self.dense_defaults = list(dense_defaults or
+                                   [None] * len(self.dense_keys))
+
+    def forward(self, x):
+        from bigdl_tpu_torch.interop.tf_record import parse_example
+        blobs = ([bytes(x)] if isinstance(x, (bytes, bytearray))
+                 else [bytes(b) for b in _objects(x).ravel()])
+        cols = {k: [] for k in self.dense_keys}
+        for blob in blobs:
+            feats = parse_example(blob)
+            for k, shape, dt, dflt in zip(self.dense_keys,
+                                          self.dense_shapes,
+                                          self.dense_types,
+                                          self.dense_defaults):
+                v = feats.get(k)
+                if v is None or (not isinstance(v, list)
+                                 and np.asarray(v).size == 0):
+                    if dflt is None:
+                        raise KeyError(
+                            f"ParseExample: missing key {k!r} and no "
+                            "default")
+                    if any(d < 0 for d in shape):
+                        raise ValueError(
+                            f"ParseExample: key {k!r} missing and its "
+                            f"dense_shape {shape} has unknown (-1) dims — "
+                            "a default cannot be broadcast to a partial "
+                            "shape")
+                    v = np.broadcast_to(np.asarray(dflt, dt), shape)
+                if isinstance(v, list):   # a bytes feature
+                    cols[k].append(v[0] if len(v) == 1 else v)
+                else:
+                    cols[k].append(self._fit(np.asarray(v, dt), shape, k))
+        return [np.asarray(col, dtype=object)
+                if col and isinstance(col[0], (bytes, list))
+                else np.stack(col) for col in cols.values()]
+
+    @staticmethod
+    def _fit(arr, shape, key):
+        """``arr`` in ``shape`` (TF's -1 dims inferred), a mismatch
+        raised with the feature's key."""
+        try:
+            return arr.reshape(shape)
+        except ValueError as e:
+            raise ValueError(
+                f"ParseExample: value of size {arr.size} for {key!r} does "
+                f"not fit dense_shape {shape}: {e}") from None

@@ -113,13 +113,14 @@ def _batch(spec):
 
 def _cpu_copy(model):
     """A deep copy of ``model`` whose parameters and buffers are new CPU
-    tensors (the originals are never copied where they live)."""
+    tensors (the originals are never copied where they live), and whose
+    recorded devices (a ``Graph``'s) are the CPU."""
     memo = {}
     for t in itertools.chain(model.parameters(), model.buffers()):
         c = t.detach().to("cpu", copy=True)
         memo[id(t)] = (torch.nn.Parameter(c, t.requires_grad)
                        if isinstance(t, torch.nn.Parameter) else c)
-    return copy.deepcopy(model, memo)
+    return copy.deepcopy(model, memo).cpu()
 
 
 def trace_shapes(model, input_spec):

@@ -605,7 +605,45 @@ Phases, each printing one JSON line (any failure exits non-zero):
    stride-1 ``F.conv2d``. Reports the ``.npy`` bytes, load seconds, step
    time, sequences or images/s and the busy share.
 
-15. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
+15. load_tf_train — the TF graph's gradient and data ops (A.11(d)(2)(b)).
+   An op sweep (``tf_grad_sweep_graph``: the ten elementwise gradient
+   pairs, both ``FusedBatchNormGrad``s, ``AvgPoolGrad``, ``LRNGrad``,
+   ``ResizeBilinearGrad``, ``Dilation2DBackprop*``, the depthwise and 3-D
+   ``Backprop{Input,Filter}``, a 3x3 ``Conv2DBackpropInput`` at 2 x 112² x
+   128, a folded ``BroadcastGradientArgs``, ``RandomShuffle`` with a
+   generator, ``Substr``) on the card against the CPU import within 1e-5
+   of each output's largest magnitude, its flips counted by
+   ``conv_routes`` (1 k9, the depthwise one's 8 groups on i2c), the
+   shuffle a row permutation, ``CategoricalColHashBucket`` of the
+   substrings equal. TF-slim's ``vgg_16`` training graph
+   (``vgg16_tf_train_graph``: ``tf.gradients`` of the mean softmax cross
+   entropy, the 32 variable gradients as outputs, 224², 1000 classes)
+   written as GraphDefs at batch 2 and 32 and an ``.npy`` directory; 32
+   tf.Examples (uint8 ``image/raw``, int64 ``image/class/label`` of 10
+   classes) written with ``TFRecordWriter`` and read back with
+   ``tf_record_iterator`` feed its ``serialized`` placeholder
+   (``ParseExample`` -> ``DecodeRaw`` -> ``Reshape`` -> ``Cast`` ->
+   ``Mul``); a copy with one payload byte flipped raises ``IOError``.
+   Batch 2 (``load_tf`` with ``sample_input``): logits within 1e-4 of the
+   CPU import's largest magnitude, loss within 1e-5 relative, the decoded
+   images bit-equal; each of the graph's 47 convolution nodes (forward,
+   input and filter gradients) on the card, fed the CPU run's own inputs
+   for it, within 1e-5 of the CPU output's largest magnitude; and each
+   gradient off the CPU's by no more than the port's autograd of the
+   forward import is off its CPU run, plus 1e-4 of its largest magnitude
+   (train_cnn's noise-floor rule is reported, and so is the same autograd
+   on the card with the 3x3 route swapped for cuDNN's ``F.conv2d``: a
+   witness of the card's rounding that launches no kernel).
+   Batch 32 under ``torch.no_grad()``: a warm-up and 3 timed evaluations,
+   21 k9 and 4 i2c CUDA-core launches each (``conv_routes``; 6 library
+   calls, no 3x3 stride-1 ``F.conv2d``), the decoded batch bit-equal, the
+   loss within 1e-5 and every gradient within train_cnn's rule (the
+   card's own noise floor) of autograd of the forward import on the same
+   weights and images. Reports ms an evaluation, images/s, peak memory,
+   the busy share, the 3x3 kernels' share of device time and the load
+   seconds. TF32 is off.
+
+16. train_bert — BERT-base (``BASELINE.json`` config 5: 12 layers,
    hidden 768, 12 heads, vocabulary 30522, max_position 512) at full width
    and depth, seeded weights (``convert.init_bert_tree``) and seeded
    tokens, 15 % masked (label -1 elsewhere). ``BertForMLM`` through
@@ -4904,12 +4942,14 @@ def phase_load_interop(torch, kernels, smi):
 # (one ``<name>.npy`` a variable, ``/`` as ``__``), each read through a
 # ``VariableV2`` node and an ``Identity`` named ``<name>/read``. The CPU
 # tests (tests/test_torch_tf_*.py) build their graphs with these too.
-TF_DTYPES = {"float32": 1, "int32": 3, "int64": 9, "bool": 10}
+TF_DTYPES = {"float32": 1, "int32": 3, "uint8": 4, "string": 7, "int64": 9,
+             "bool": 10}
 
 
 def tf_node(name, op, inputs=(), **attrs):
     """A NodeDef dict; attrs: bool -> b, int -> i, float -> f, bytes -> s,
-    an array -> a tensor, a dict -> the AttrValue itself."""
+    an array -> a tensor (one of bytes a DT_STRING tensor), a dict -> the
+    AttrValue itself."""
     import numpy as np
     a = []
     for k, v in attrs.items():
@@ -4921,6 +4961,12 @@ def tf_node(name, op, inputs=(), **attrs):
             a.append({"key": k, "value": {"f": v}})
         elif isinstance(v, bytes):
             a.append({"key": k, "value": {"s": v}})
+        elif isinstance(v, np.ndarray) and v.dtype.kind in "SO":
+            a.append({"key": k, "value": {"tensor": {
+                "dtype": TF_DTYPES["string"],
+                "tensor_shape": {"dim": [{"size": int(s)}
+                                         for s in v.shape]},
+                "string_val": [bytes(b) for b in v.ravel()]}}})
         elif isinstance(v, np.ndarray):
             a.append({"key": k, "value": {"tensor": {
                 "dtype": TF_DTYPES[v.dtype.name],
@@ -5149,10 +5195,32 @@ def bert_tf_graph(n_layers=12, hidden=768, heads=12, ffn=3072, vocab=30522,
 VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 
 
+def _vgg16_plan(blocks, image, fc, classes, images):
+    """TF-slim ``vgg_16``'s layers in forward order: ``("conv", prefix, k,
+    cin, cout, padding, input name, input (h, w))`` and ``("pool", name,
+    input name, input (h, w))``; the last convolution (``fc8``) has no
+    ``Relu``."""
+    plan, x, cin, hw = [], images, 3, image
+    for b, (n, cout) in enumerate(blocks, 1):
+        for j in range(1, n + 1):
+            p = f"vgg_16/conv{b}/conv{b}_{j}"
+            plan.append(("conv", p, 3, cin, cout, b"SAME", x, hw))
+            x, cin = f"{p}/Relu", cout
+        plan.append(("pool", f"vgg_16/pool{b}/MaxPool", x, hw))
+        x, hw = f"vgg_16/pool{b}/MaxPool", hw // 2
+    for name, k, cout in (("fc6", hw, fc), ("fc7", 1, fc),
+                          ("fc8", 1, classes)):
+        plan.append(("conv", f"vgg_16/{name}", k, cin, cout, b"VALID", x,
+                     hw))
+        x, cin, hw = f"vgg_16/{name}/Relu", cout, hw - k + 1
+    return plan
+
+
 def vgg16_tf_graph(blocks=VGG16_BLOCKS, image=224, fc=4096, classes=1000,
-                   seed=0):
+                   seed=0, images=None):
     """TF-slim's ``vgg_16`` inference graph (tensorflow/models
-    ``research/slim/nets/vgg.py``), NHWC on an ``input`` placeholder:
+    ``research/slim/nets/vgg.py``), NHWC on an ``input`` placeholder (or,
+    with ``images``, on that node, which the caller writes):
     ``Conv2D`` 3x3 SAME + ``BiasAdd`` + ``Relu`` per layer of ``blocks``
     ((convolutions, channels) a block), ``MaxPool`` 2x2 VALID after each
     block, ``fc6`` a VALID ``Conv2D`` over the whole remaining map, ``fc7``
@@ -5163,45 +5231,294 @@ def vgg16_tf_graph(blocks=VGG16_BLOCKS, image=224, fc=4096, classes=1000,
     import numpy as np
     rng = np.random.default_rng(seed)
     var = {}
-
-    def conv(p, x, k, cin, cout, pad, relu=True):
+    nodes = ([] if images else
+             [tf_node("input", "Placeholder", dtype={"type": 1})])
+    plan = _vgg16_plan(blocks, image, fc, classes, images or "input")
+    for step in plan:
+        if step[0] == "pool":
+            _, name, x, _ = step
+            nodes.append(tf_node(name, "MaxPool", [x],
+                                 ksize={"list": {"i": [1, 2, 2, 1]}},
+                                 strides={"list": {"i": [1, 2, 2, 1]}},
+                                 padding=b"VALID", data_format=b"NHWC"))
+            continue
+        _, p, k, cin, cout, pad, x, _ = step
         bound = np.sqrt(6.0 / (k * k * cin + k * k * cout))
         var[f"{p}/weights"] = rng.uniform(-bound, bound, (k, k, cin, cout)) \
             .astype(np.float32)
         var[f"{p}/biases"] = np.zeros(cout, np.float32)
-        ns = [tf_node(f"{p}/Conv2D", "Conv2D", [x, f"{p}/weights/read"],
-                      strides={"list": {"i": [1, 1, 1, 1]}}, padding=pad,
-                      data_format=b"NHWC"),
-              tf_node(f"{p}/BiasAdd", "BiasAdd",
-                      [f"{p}/Conv2D", f"{p}/biases/read"])]
-        if not relu:
-            return ns, f"{p}/BiasAdd"
-        return ns + [tf_node(f"{p}/Relu", "Relu", [f"{p}/BiasAdd"])], \
-            f"{p}/Relu"
-
-    nodes = [tf_node("input", "Placeholder", dtype={"type": 1})]
-    x, cin, hw = "input", 3, image
-    for b, (n, cout) in enumerate(blocks, 1):
-        for j in range(1, n + 1):
-            ns, x = conv(f"vgg_16/conv{b}/conv{b}_{j}", x, 3, cin, cout,
-                         b"SAME")
-            nodes += ns
-            cin = cout
-        nodes.append(tf_node(f"vgg_16/pool{b}/MaxPool", "MaxPool", [x],
-                             ksize={"list": {"i": [1, 2, 2, 1]}},
-                             strides={"list": {"i": [1, 2, 2, 1]}},
-                             padding=b"VALID", data_format=b"NHWC"))
-        x, hw = f"vgg_16/pool{b}/MaxPool", hw // 2
-    ns, x = conv("vgg_16/fc6", x, hw, cin, fc, b"VALID")
-    nodes += ns
-    ns, x = conv("vgg_16/fc7", x, 1, fc, fc, b"VALID")
-    nodes += ns
-    ns, x = conv("vgg_16/fc8", x, 1, fc, classes, b"VALID", relu=False)
-    nodes += ns + [tf_node("vgg_16/fc8/squeezed", "Squeeze", [x],
-                           squeeze_dims={"list": {"i": [1, 2]}})]
+        nodes += [tf_node(f"{p}/Conv2D", "Conv2D", [x, f"{p}/weights/read"],
+                          strides={"list": {"i": [1, 1, 1, 1]}},
+                          padding=pad, data_format=b"NHWC"),
+                  tf_node(f"{p}/BiasAdd", "BiasAdd",
+                          [f"{p}/Conv2D", f"{p}/biases/read"])]
+        if step is not plan[-1]:
+            nodes.append(tf_node(f"{p}/Relu", "Relu", [f"{p}/BiasAdd"]))
+    nodes.append(tf_node("vgg_16/fc8/squeezed", "Squeeze",
+                         ["vgg_16/fc8/BiasAdd"],
+                         squeeze_dims={"list": {"i": [1, 2]}}))
     for name in var:
         nodes += tf_variable(name)
     return nodes, var
+
+
+def _i32(v):
+    import numpy as np
+    return np.asarray(v, np.int32)
+
+
+def _tf_example_front(batch, image, classes):
+    """The data front of a training graph fed by tf.Examples: a
+    ``serialized`` string placeholder of ``batch`` records, ``ParseExample``
+    of ``image/class/label`` (int64, port 0; keys in TF's sorted order)
+    and ``image/raw`` (string, port 1), both required; ``DecodeRaw`` as
+    uint8, ``Reshape`` to (batch, image, image, 3) (the decoded images,
+    ``Reshape``), ``Cast`` to float32 and ``Mul`` by 1/255 (``images``);
+    the labels' ``OneHot`` over ``classes``."""
+    import numpy as np
+    pe = "ParseExample/ParseExample"
+    return [
+        tf_node("serialized", "Placeholder", dtype={"type": 7},
+                shape={"shape": {"dim": [{"size": batch}]}}),
+        tf_const(f"{pe}/names", np.zeros(0, "S1")),
+        tf_const(f"{pe}/dense_keys_0", np.asarray(b"image/class/label")),
+        tf_const(f"{pe}/dense_keys_1", np.asarray(b"image/raw")),
+        tf_const("ParseExample/Const", np.zeros(0, np.int64)),
+        tf_const("ParseExample/Const_1", np.zeros(0, "S1")),
+        tf_node(pe, "ParseExample",
+                ["serialized", f"{pe}/names", f"{pe}/dense_keys_0",
+                 f"{pe}/dense_keys_1", "ParseExample/Const",
+                 "ParseExample/Const_1"],
+                Nsparse=0, Ndense=2, Tdense={"list": {"type": [9, 7]}},
+                dense_shapes={"list": {"shape": [{}, {}]}}),
+        tf_node("DecodeRaw", "DecodeRaw", [f"{pe}:1"],
+                out_type={"type": 4}, little_endian=True),
+        tf_const("Reshape/shape", _i32([batch, image, image, 3])),
+        tf_node("Reshape", "Reshape", ["DecodeRaw", "Reshape/shape"]),
+        tf_node("Cast", "Cast", ["Reshape"], SrcT={"type": 4},
+                DstT={"type": 1}),
+        tf_const("mul/y", np.float32(1.0 / 255.0)),
+        tf_node("images", "Mul", ["Cast", "mul/y"]),
+        tf_const("OneHot/depth", _i32(classes)),
+        tf_const("OneHot/on_value", np.float32(1.0)),
+        tf_const("OneHot/off_value", np.float32(0.0)),
+        tf_node("OneHot", "OneHot", [f"{pe}:0", "OneHot/depth",
+                                     "OneHot/on_value", "OneHot/off_value"],
+                axis=-1)]
+
+
+def _tf_placeholder_front(batch, image, classes):
+    """The same graph's front as two placeholders: ``images`` (float32)
+    and ``labels`` (int32), one-hot as above."""
+    import numpy as np
+    return [
+        tf_node("images", "Placeholder", dtype={"type": 1},
+                shape={"shape": {"dim": [{"size": d} for d in
+                                         (batch, image, image, 3)]}}),
+        tf_node("labels", "Placeholder", dtype={"type": 3}),
+        tf_const("OneHot/depth", _i32(classes)),
+        tf_const("OneHot/on_value", np.float32(1.0)),
+        tf_const("OneHot/off_value", np.float32(0.0)),
+        tf_node("OneHot", "OneHot", ["labels", "OneHot/depth",
+                                     "OneHot/on_value", "OneHot/off_value"],
+                axis=-1)]
+
+
+def vgg16_tf_train_graph(blocks=VGG16_BLOCKS, image=224, fc=4096,
+                         classes=1000, batch=32, seed=0, front="examples"):
+    """TF-slim ``vgg_16``'s training graph as TF 1.x's ``tf.gradients``
+    writes it for ``reduce_mean(softmax_cross_entropy_with_logits(logits,
+    one_hot(label)))``, after constant folding with static shapes. The
+    front (``front="examples"``: :func:`_tf_example_front`; "placeholders":
+    :func:`_tf_placeholder_front`) feeds :func:`vgg16_tf_graph`'s forward
+    at ``images``. The loss: ``_flatten_outer_dims``' ``xent/Reshape`` of
+    the logits and ``xent/Reshape_1`` of the labels to (batch, classes),
+    ``xent/xentropy`` (``SoftmaxCrossEntropyWithLogits``), ``xent/
+    Reshape_2`` to (batch,) and ``Mean``. The backward, by ``nn_grad.py``
+    and ``math_grad.py``: the mean's gradient (``Fill`` of the seed,
+    ``Reshape``, ``Tile`` and ``RealDiv`` by the batch, ``ExpandDims``)
+    folded into the constant ``gradients/xent/xentropy_grad/ExpandDims``
+    (batch, 1) of 1 / batch, times the cross entropy's backprop output;
+    the ``Reshape`` gradients back to (batch, 1, 1, classes); per layer
+    ``ReluGrad(g, relu_out)`` (not ``fc8``), ``BiasAddGrad``,
+    ``Conv2DBackpropInput(input_sizes, weights/read, g)`` (not
+    ``conv1_1``: the images need none) and ``Conv2DBackpropFilter(x,
+    filter_sizes, g)``, their sizes constants as folding leaves them;
+    ``MaxPoolGrad(x, pool_out, g)`` per pool. Returns (nodes, variables,
+    gradient output names in the variables' order); outputs ``Mean`` (the
+    loss), ``xent/Reshape`` (the logits) and, with the example front,
+    ``Reshape`` (the decoded uint8 images)."""
+    import numpy as np
+    fwd, var = vgg16_tf_graph(blocks, image, fc, classes, seed,
+                              images="images")
+    make_front = (_tf_example_front if front == "examples"
+                  else _tf_placeholder_front)
+    n, g = batch, "gradients"
+    nodes = make_front(batch, image, classes) + fwd + [
+        tf_const("xent/Reshape/shape", _i32([n, classes])),
+        tf_node("xent/Reshape", "Reshape",
+                ["vgg_16/fc8/squeezed", "xent/Reshape/shape"]),
+        tf_node("xent/Reshape_1", "Reshape", ["OneHot",
+                                              "xent/Reshape/shape"]),
+        tf_node("xent/xentropy", "SoftmaxCrossEntropyWithLogits",
+                ["xent/Reshape", "xent/Reshape_1"]),
+        tf_const("xent/Reshape_2/shape", _i32([n])),
+        tf_node("xent/Reshape_2", "Reshape", ["xent/xentropy:0",
+                                              "xent/Reshape_2/shape"]),
+        tf_const("Const", _i32([0])),
+        tf_node("Mean", "Mean", ["xent/Reshape_2", "Const"],
+                keep_dims=False),
+        tf_const(f"{g}/xent/xentropy_grad/ExpandDims",
+                 np.full((n, 1), 1.0 / n, np.float32)),
+        tf_node(f"{g}/xent/xentropy_grad/mul", "Mul",
+                [f"{g}/xent/xentropy_grad/ExpandDims", "xent/xentropy:1"]),
+        tf_const(f"{g}/xent/Reshape_grad/Shape", _i32([n, classes])),
+        tf_node(f"{g}/xent/Reshape_grad/Reshape", "Reshape",
+                [f"{g}/xent/xentropy_grad/mul",
+                 f"{g}/xent/Reshape_grad/Shape"]),
+        tf_const(f"{g}/vgg_16/fc8/squeezed_grad/Shape",
+                 _i32([n, 1, 1, classes])),
+        tf_node(f"{g}/vgg_16/fc8/squeezed_grad/Reshape", "Reshape",
+                [f"{g}/xent/Reshape_grad/Reshape",
+                 f"{g}/vgg_16/fc8/squeezed_grad/Shape"])]
+    grad = f"{g}/vgg_16/fc8/squeezed_grad/Reshape"
+    outs = {}
+    plan = _vgg16_plan(blocks, image, fc, classes, "images")
+    window = dict(ksize={"list": {"i": [1, 2, 2, 1]}},
+                  strides={"list": {"i": [1, 2, 2, 1]}}, padding=b"VALID",
+                  data_format=b"NHWC")
+    for step in reversed(plan):
+        if step[0] == "pool":
+            _, name, x, _ = step
+            q = f"{g}/{name}_grad/MaxPoolGrad"
+            nodes.append(tf_node(q, "MaxPoolGrad", [x, name, grad],
+                                 **window))
+            grad = q
+            continue
+        _, p, k, cin, cout, pad, x, hw = step
+        if step is not plan[-1]:
+            q = f"{g}/{p}/Relu_grad/ReluGrad"
+            nodes.append(tf_node(q, "ReluGrad", [grad, f"{p}/Relu"]))
+            grad = q
+        c = f"{g}/{p}/Conv2D_grad"
+        conv = dict(strides={"list": {"i": [1, 1, 1, 1]}}, padding=pad,
+                    data_format=b"NHWC")
+        nodes += [
+            tf_node(f"{g}/{p}/BiasAdd_grad/BiasAddGrad", "BiasAddGrad",
+                    [grad], data_format=b"NHWC"),
+            tf_const(f"{c}/ShapeN_1", _i32([k, k, cin, cout])),
+            tf_node(f"{c}/Conv2DBackpropFilter", "Conv2DBackpropFilter",
+                    [x, f"{c}/ShapeN_1", grad], **conv)]
+        outs[f"{p}/weights"] = f"{c}/Conv2DBackpropFilter"
+        outs[f"{p}/biases"] = f"{g}/{p}/BiasAdd_grad/BiasAddGrad"
+        if x != "images":
+            nodes += [
+                tf_const(f"{c}/ShapeN", _i32([n, hw, hw, cin])),
+                tf_node(f"{c}/Conv2DBackpropInput", "Conv2DBackpropInput",
+                        [f"{c}/ShapeN", f"{p}/weights/read", grad], **conv)]
+            grad = f"{c}/Conv2DBackpropInput"
+    return nodes, var, [outs[name] for name in var]
+
+
+GRAD_PAIRS = (("ReluGrad", "g", "x"), ("Relu6Grad", "g", "x"),
+              ("EluGrad", "g", "x"), ("SoftplusGrad", "g", "x"),
+              ("SoftsignGrad", "g", "x"), ("SigmoidGrad", "xp", "g"),
+              ("TanhGrad", "xp", "g"), ("SqrtGrad", "xp", "g"),
+              ("RsqrtGrad", "xp", "g"), ("ReciprocalGrad", "xp", "g"))
+
+
+def tf_grad_sweep_graph(seed=0, host=True, wide=(2, 112, 128)):
+    """One GraphDef naming the gradient and data ops of A.11(d)(2)(b) over
+    placeholders: the ten elementwise gradient pairs (TF's argument
+    order), ``FusedBatchNormGrad``/``V2``, ``AvgPoolGrad`` (3x3 stride-2
+    SAME), ``LRNGrad``, ``ResizeBilinearGrad``, ``Dilation2DBackprop
+    Input``/``Filter``, the depthwise and 3-D ``Backprop{Input,Filter}``
+    (``Conv3D*`` and ``Conv3D*V2``), a 3x3 stride-1 SAME
+    ``Conv2DBackpropInput`` at ``wide`` = (batch, size, channels), a
+    ``BroadcastGradientArgs`` folded into a ``Sum``, ``RandomShuffle``
+    and, with ``host``, ``Substr``. Returns (nodes, inputs, outputs, feed:
+    seeded numpy arrays in the inputs' order)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    s1 = {"list": {"i": [1, 1, 1, 1]}}
+    sh = (2, 5, 5, 8)
+    n, hw, c = wide
+    feed = {"g": f(*sh), "x": f(*sh), "xp": np.abs(f(*sh)) + 0.25,
+            "scale": f(8), "mean": f(8) * 0.1, "var": np.abs(f(8)) + 0.5,
+            "gp": f(2, 3, 3, 8), "gr": f(2, 8, 7, 8), "gd": f(2, 5, 5, 16),
+            "x3": f(1, 3, 4, 4, 2), "g3": f(1, 3, 4, 4, 3),
+            "gw": f(n, hw, hw, c), "rows": f(6, 4)}
+    nodes = [tf_node(k, "Placeholder", dtype={"type": 1},
+                     shape={"shape": {"dim": [{"size": d}
+                                              for d in v.shape]}})
+             for k, v in feed.items()]
+    outs = []
+    for op, a, b in GRAD_PAIRS:
+        nodes.append(tf_node(op, op, [a, b]))
+        outs.append(op)
+    bn = ["g", "x", "scale", "mean", "var"]
+    for op in ("FusedBatchNormGrad", "FusedBatchNormGradV2"):
+        nodes.append(tf_node(op, op, bn, epsilon=1e-3))
+        outs += [f"{op}:0", f"{op}:1", f"{op}:2"]
+    nodes += [
+        tf_const("avg/sizes", _i32(sh)),
+        tf_node("AvgPoolGrad", "AvgPoolGrad", ["avg/sizes", "gp"],
+                ksize={"list": {"i": [1, 3, 3, 1]}},
+                strides={"list": {"i": [1, 2, 2, 1]}}, padding=b"SAME"),
+        tf_node("LRNGrad", "LRNGrad", ["g", "x", "x"], depth_radius=2,
+                bias=1.5, alpha=0.3, beta=0.75),
+        tf_node("ResizeBilinearGrad", "ResizeBilinearGrad", ["gr", "x"]),
+        tf_const("dil/w", f(3, 3, 8))]
+    outs += ["AvgPoolGrad", "LRNGrad", "ResizeBilinearGrad"]
+    for op in ("Dilation2DBackpropInput", "Dilation2DBackpropFilter"):
+        nodes.append(tf_node(op, op, ["x", "dil/w", "g"], strides=s1,
+                             rates=s1, padding=b"SAME"))
+        outs.append(op)
+    convs = [("DepthwiseConv2dNative", sh, (3, 3, 8, 2), "x", "gd", s1),
+             ("Conv3D", (1, 3, 4, 4, 2), (3, 3, 3, 2, 3), "x3", "g3",
+              {"list": {"i": [1, 1, 1, 1, 1]}})]
+    for base, sizes, wshape, x, g, st in convs:
+        nodes += [tf_const(f"{base}/sizes", _i32(sizes)),
+                  tf_const(f"{base}/w", f(*wshape) * 0.3),
+                  tf_const(f"{base}/fsizes", _i32(wshape))]
+        kinds = ([""] if base.startswith("Depthwise") else ["", "V2"])
+        for v in kinds:
+            nodes += [
+                tf_node(f"{base}BackpropInput{v}", f"{base}BackpropInput{v}",
+                        [f"{base}/sizes", f"{base}/w", g], strides=st,
+                        padding=b"SAME"),
+                tf_node(f"{base}BackpropFilter{v}",
+                        f"{base}BackpropFilter{v}",
+                        [x, f"{base}/fsizes", g], strides=st,
+                        padding=b"SAME")]
+            outs += [f"{base}BackpropInput{v}", f"{base}BackpropFilter{v}"]
+    nodes += [
+        tf_const("wide/sizes", _i32([n, hw, hw, c])),
+        tf_const("wide/w", f(3, 3, c, c) * np.float32(1 / 24)),
+        tf_node("Conv2DBackpropInput", "Conv2DBackpropInput",
+                ["wide/sizes", "wide/w", "gw"], strides=s1,
+                padding=b"SAME"),
+        tf_node("bga/sx", "Shape", ["g"]),
+        tf_const("bga/sy", _i32([8])),
+        tf_node("bga", "BroadcastGradientArgs", ["bga/sx", "bga/sy"]),
+        tf_node("bga/sum", "Sum", ["g", "bga:1"], keep_dims=False),
+        tf_node("RandomShuffle", "RandomShuffle", ["rows"])]
+    outs += ["Conv2DBackpropInput", "bga:0", "bga:1", "bga/sum",
+             "RandomShuffle"]
+    if host:
+        feed["strings"] = np.asarray([b"tfrecord", b"example", b"decode"],
+                                     dtype=object)
+        nodes += [tf_node("strings", "Placeholder", dtype={"type": 7}),
+                  tf_const("substr/pos", _i32(1)),
+                  tf_const("substr/len", _i32(4)),
+                  tf_node("Substr", "Substr", ["strings", "substr/pos",
+                                               "substr/len"])]
+        outs.append("Substr")
+    return nodes, list(feed), outs, list(feed.values())
 
 
 def counter_loop_graph(w, n_iters):
@@ -5613,6 +5930,461 @@ def phase_load_tf(torch, kernels, smi):
     with tempfile.TemporaryDirectory() as root:
         _load_tf_bert(torch, kernels, smi, root)
         _load_tf_vgg(torch, kernels, smi, root)
+
+
+# ----------------------------------- load_tf_train (A.11(d)(2)(b))
+TF_TRAIN_BATCH = 32           # train_image_classifier's batch
+TF_TRAIN_CHECK_BATCH = 2      # card vs the CPU import
+TF_TRAIN_EVALS = 3            # timed evaluations, after one warm-up
+TF_TRAIN_LOSS_REL = 1e-5      # the loss against the CPU or autograd
+# batch 2: how far (x max|CPU gradient|) the card may move a gradient
+# output off the CPU's beyond how far it moves autograd's of the forward
+# import (the graph's ops and autograd agree to ~4e-6 on either device)
+TF_TRAIN_DEVICE_GAP = 1e-4
+TF_SWEEP_REL = 1e-5           # the op sweep, card vs CPU, x max|CPU|
+TF_SWEEP_WIDE = (2, 112, 128)  # its 3x3 Conv2DBackpropInput: VGG's conv2_2
+# the training graph's nodes that convolve (the kernels' and the library's)
+TF_TRAIN_CONV_OPS = ("SpatialConvolution", "ConvBackpropInput",
+                     "ConvBackpropFilter")
+# VGG-16's: 16 forward (13 3x3 and fc6-8), 15 input and 16 filter gradients
+TF_TRAIN_CONV_NODES = 47
+# VGG-16's route table an evaluation of its training graph: every
+# Conv2DBackpropInput but conv1_1's on the flip kernels, fc6-8 forward and
+# their input gradients on the library
+TF_TRAIN_ROUTES = {"i2c": {"tc": 0, "simt": 4}, "k9": {"tc": 0, "simt": 21},
+                   "library": 6}
+
+
+def _grad_bar(got, want, noise):
+    """train_cnn's rule for each pair of gradients: the larger of
+    CNN_GRAD_REL of the largest magnitude and RESNET_NOISE_FACTOR times
+    the noise floor; returns the record (worst relative difference, worst
+    ratio to the bar, their gradients, how many sit on the noise floor)."""
+    rec = {"grad_worst_rel": 0.0, "grad_worst": None,
+           "grad_worst_vs_bar": 0.0, "grad_bar_worst": None,
+           "grads_on_noise_floor": 0, "rel_and_noise_rel": {}}
+    for name in want:
+        top = max(float(want[name].abs().max()), 1e-30)
+        diff = float((got[name] - want[name]).abs().max())
+        rec["rel_and_noise_rel"][name] = [diff / top, noise[name] / top]
+        bar = max(CNN_GRAD_REL * top, RESNET_NOISE_FACTOR * noise[name])
+        rec["grads_on_noise_floor"] += bar > CNN_GRAD_REL * top
+        if diff / top > rec["grad_worst_rel"]:
+            rec["grad_worst_rel"], rec["grad_worst"] = diff / top, name
+        if diff / bar > rec["grad_worst_vs_bar"]:
+            rec["grad_worst_vs_bar"], rec["grad_bar_worst"] = diff / bar, name
+    return rec
+
+
+def _noise(base, runs):
+    """Each gradient's largest move over ``runs`` (dicts like ``base``)."""
+    return {k: max(float((r[k] - v).abs().max()) for r in runs)
+            for k, v in base.items()}
+
+
+def _conv_taps(graph):
+    """Forward hooks on ``graph``'s convolution nodes that keep, by node
+    name, the arguments each is called with and its output: ``(taps,
+    handles)``."""
+    taps, handles = {}, []
+    for nd in graph.exec_order:
+        if type(nd.module).__name__ in TF_TRAIN_CONV_OPS:
+            def keep(mod, args, out, name=nd.module.get_name()):
+                taps[name] = (args, out)
+            handles.append(nd.module.register_forward_hook(keep))
+    return taps, handles
+
+
+def _conv_nodes_vs_cpu(torch, graph, taps):
+    """Each convolution node of the card's ``graph`` called on the CPU
+    run's arguments for it (``taps``), against the CPU's output: by node,
+    the largest difference over the CPU output's largest magnitude. Every
+    input is the same on both devices, so the card's rounding cannot move
+    a pool or ReLU decision upstream, and a kernel fault shows at its
+    size."""
+    mods = {nd.module.get_name(): nd.module for nd in graph.exec_order}
+
+    def card(v):
+        if isinstance(v, (list, tuple)):
+            return [card(e) for e in v]
+        return v.cuda() if isinstance(v, torch.Tensor) else v
+
+    rel = {}
+    with torch.no_grad():
+        for name, (args, out) in taps.items():
+            y = mods[name](*card(args)).cpu()
+            rel[name] = float((y - out).abs().max()) / max(
+                float(out.abs().max()), 1e-30)
+    return rel
+
+
+def _library_3x3():
+    """A context in which ``nn.conv``'s 3x3 route runs ``F.conv2d`` (cuDNN)
+    instead of the kernels: the library witness of the card's rounding."""
+    import contextlib
+
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.nn import conv as nconv
+
+    def library(x, weight, groups):
+        return F.conv2d(x.permute(0, 3, 1, 2), weight, None, 1, 1, 1,
+                        groups).permute(0, 2, 3, 1)
+
+    @contextlib.contextmanager
+    def swapped():
+        kernels, nconv._kernel_route = nconv._kernel_route, library
+        try:
+            yield
+        finally:
+            nconv._kernel_route = kernels
+
+    return swapped()
+
+
+def _tf_scaled(torch, images):
+    """The graph's ``Cast`` and ``Mul`` by 1/255 of uint8 images."""
+    import numpy as np
+    return torch.from_numpy(images).float() * float(np.float32(1 / 255))
+
+
+def _tf_autograd(torch, fwd, names, images_f, labels):
+    """The loss and, by name in TF's layout, the gradients of the mean
+    softmax cross entropy of the forward import ``fwd`` on float images,
+    by autograd, on ``fwd``'s device."""
+    dev = next(fwd.parameters()).device
+    mods = {nd.module.get_name(): nd.module for nd in fwd.exec_order}
+    leaves = [mods[f"{k.rsplit('/', 1)[0]}/Conv2D"].weight
+              if k.endswith("weights")
+              else mods[f"{k.rsplit('/', 1)[0]}/BiasAdd"].bias
+              for k in names]
+    n = len(labels)
+    logits = fwd(images_f.to(dev)).reshape(n, -1)
+    onehot = torch.nn.functional.one_hot(
+        torch.from_numpy(labels).long().to(dev), logits.shape[1]).float()
+    lv = -(onehot * torch.log_softmax(logits, -1)).sum(-1).mean()
+    gs = torch.autograd.grad(lv, leaves)
+    return float(lv.detach()), {
+        k: (g.permute(2, 3, 1, 0) if g.dim() == 4 else g).float().cpu()
+        for k, g in zip(names, gs)}
+
+
+def _load_tf_train_vgg(torch, kernels, smi, root):
+    """TF-slim vgg_16's training graph fed from a TFRecord (see the module
+    docstring's load_tf_train)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch.interop import (TFRecordWriter, load_tf,
+                                         tf_record_iterator)
+    from bigdl_tpu_torch.interop.tf_loader import apply_tf_weights
+    from bigdl_tpu_torch.models import conv_routes, model_flops
+    from bigdl_tpu_torch.utils.shape import _cpu_copy
+    hw, n = TF_VGG_IMAGE, TF_TRAIN_BATCH
+    t0 = time.perf_counter()
+    pbs = {}
+    for key, batch in (("check", TF_TRAIN_CHECK_BATCH), ("train", n)):
+        nodes, var, grads = vgg16_tf_train_graph(image=hw, batch=batch,
+                                                 seed=TF_SEED)
+        pbs[key] = f"{root}/vgg_16_train_{key}.pb"
+        with open(pbs[key], "wb") as f:
+            f.write(tf_graphdef(nodes))
+    pbs["forward"] = f"{root}/vgg_16.pb"
+    with open(pbs["forward"], "wb") as f:
+        f.write(tf_graphdef(vgg16_tf_graph(image=hw, seed=TF_SEED)[0]))
+    npy_bytes = write_npy_dir(root, var)
+    names = list(var)
+    del var
+    write_s = time.perf_counter() - t0
+    rng = np.random.default_rng(TF_SEED + 3)
+    images = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    labels = rng.integers(0, CNN_CLASSES, n)
+    path = f"{root}/train.tfrecord"
+    t0 = time.perf_counter()
+    with TFRecordWriter(path) as w:
+        for im, lab in zip(images, labels):
+            w.write_example({"image/class/label": np.asarray([lab]),
+                             "image/raw": im.tobytes()})
+    record_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serialized = np.asarray(list(tf_record_iterator(path)), dtype=object)
+    record_read_s = time.perf_counter() - t0
+    check(len(serialized) == n, f"load_tf_train: {len(serialized)} records")
+    data = bytearray(open(path, "rb").read())
+    data[12 + len(serialized[0]) // 2] ^= 0x01     # a byte of record 0
+    with open(f"{path}.flipped", "wb") as f:
+        f.write(bytes(data))
+    try:
+        list(tf_record_iterator(f"{path}.flipped"))
+        corrupt = "read without error"
+    except IOError as e:
+        corrupt = f"IOError: {e}"
+    check(corrupt.startswith("IOError"),
+          f"load_tf_train: a flipped payload byte was {corrupt}")
+    outs = ["Mean", "xent/Reshape", "Reshape"] + grads
+
+    def as_dict(ys):
+        return {k: v.float().cpu() for k, v in zip(names, ys[3:])}
+
+    # batch 2: the card against the port's CPU import of the same bytes
+    m = TF_TRAIN_CHECK_BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = load_tf(pbs["check"], ["serialized"], outs, bin_dir=root,
+                    sample_input=serialized[:m])
+    torch.cuda.synchronize()
+    check_load_s = time.perf_counter() - t0
+    cpu = load_tf(pbs["check"], ["serialized"], outs, bin_dir=root,
+                  device="cpu")
+    apply_tf_weights(cpu)
+    taps, handles = _conv_taps(cpu)
+    with torch.no_grad():
+        got = [v.cpu() for v in graph(serialized[:m])]
+        want = cpu(serialized[:m])
+    for h in handles:
+        h.remove()
+    logits_rel = _out_rel(got[1], want[1])
+    check(logits_rel <= TF_OUT_REL, f"load_tf_train: card logits differ "
+                                    f"from the CPU's by {logits_rel}")
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    check(loss_rel <= TF_TRAIN_LOSS_REL,
+          f"load_tf_train: batch-2 loss differs from the CPU's by {loss_rel}")
+    check(torch.equal(got[2], torch.from_numpy(images[:m])),
+          "load_tf_train: the card's decoded images are not the written "
+          "bytes")
+    # every convolution of the graph, forward and gradient, on the CPU
+    # run's own inputs for it
+    node_rel = _conv_nodes_vs_cpu(torch, graph, taps)
+    node_worst = max(node_rel, key=node_rel.get)
+    # the forward ones again with cuDNN in the kernels' place: each
+    # route's rounding on the same inputs
+    with _library_3x3():
+        node_lib = _conv_nodes_vs_cpu(
+            torch, graph, {k: v for k, v in taps.items()
+                           if k.endswith("/Conv2D")})
+    check(len(node_rel) == TF_TRAIN_CONV_NODES
+          and node_rel[node_worst] <= TF_SWEEP_REL,
+          f"load_tf_train: {len(node_rel)} convolution nodes; the card's "
+          f"{node_worst} on the CPU's inputs is off the CPU's output by "
+          f"{node_rel[node_worst]} of its largest magnitude")
+    del graph, cpu, taps
+    torch.cuda.empty_cache()
+    # the port's autograd of the forward import (PR 22's path) on both
+    # devices: the card moves it off the CPU as it moves the graph
+    fwd = load_tf(pbs["forward"], ["input"], ["vgg_16/fc8/squeezed"],
+                  bin_dir=root)
+    apply_tf_weights(fwd)
+    fwd_cpu = _cpu_copy(fwd)
+    x2 = _tf_scaled(torch, images[:m])
+    auto_card = _tf_autograd(torch, fwd, names, x2, labels[:m])[1]
+    # the same on the card with the 3x3 kernels swapped for cuDNN
+    _reset_conv_counts()
+    with _library_3x3():
+        auto_lib = _tf_autograd(torch, fwd, names, x2, labels[:m])[1]
+    lib_counts = _conv_counts()
+    check(not any(lib_counts[k] for k in ("k9", "i2c", "k9_cuda_core",
+                                          "i2c_cuda_core")),
+          f"load_tf_train: the library witness launched kernels "
+          f"{lib_counts}")
+    t0 = time.perf_counter()
+    auto_cpu = _tf_autograd(torch, fwd_cpu, names, x2, labels[:m])[1]
+    # the CPU's noise floor under a 2^-23 change of the images (autograd
+    # and the graph's gradient ops agree to ~1e-6 on the CPU)
+    moved = [_tf_autograd(torch, fwd_cpu, names, _perturbed(torch, x2, s),
+                          labels[:m])[1] for s in (0, 1)]
+    cpu_noise_s = time.perf_counter() - t0
+    del fwd_cpu
+    base = as_dict(want)
+    got = as_dict(got)
+    noise = _noise(auto_cpu, moved)
+    rec2 = _grad_bar(got, base, noise)
+    rec2["conv_nodes_vs_cpu_worst"] = node_rel[node_worst]
+    rec2["conv_nodes_vs_cpu_worst_node"] = node_worst
+    rec2["conv_nodes_vs_cpu"] = node_rel
+    rec2["forward_nodes_vs_cpu_library"] = node_lib
+    lib = _grad_bar(auto_lib, auto_cpu, noise)
+    rec2["library_card_vs_cpu_worst_rel"] = lib["grad_worst_rel"]
+    rec2["library_card_vs_cpu_worst_vs_bar"] = lib["grad_worst_vs_bar"]
+    rec2["library_card_vs_cpu_rel"] = {
+        k: v[0] for k, v in lib["rel_and_noise_rel"].items()}
+    # held: the card's gradient outputs are off the CPU's exactly as far as
+    # the card's autograd is off the CPU's autograd (train_cnn's rule, in
+    # rec2, misses the device's pool and ReLU decision flips in block 5 at
+    # this batch, for both paths alike)
+    same = {}
+    for k, c in base.items():
+        top = max(float(c.abs().max()), 1e-30)
+        same[k] = float(((got[k] - c) - (auto_card[k] - auto_cpu[k]))
+                        .abs().max()) / top
+    rec2["device_gap_vs_autograds"] = max(same.values())
+    rec2["device_gap_vs_autograds_worst"] = max(same, key=same.get)
+    rec2["autograd_card_vs_cpu_rel"] = {
+        k: float((auto_card[k] - v).abs().max())
+        / max(float(v.abs().max()), 1e-30) for k, v in auto_cpu.items()}
+    print(f"load_tf_train batch 2 card vs CPU: {json.dumps(rec2)}",
+          flush=True)
+    check(rec2["device_gap_vs_autograds"] <= TF_TRAIN_DEVICE_GAP,
+          f"load_tf_train: the card moves the gradient of "
+          f"{rec2['device_gap_vs_autograds_worst']} off the CPU's by "
+          f"{rec2['device_gap_vs_autograds']} of its largest magnitude more "
+          "than it moves autograd's")
+    del got, want, base, moved, auto_card, auto_cpu, auto_lib
+    # batch 32 on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = load_tf(pbs["train"], ["serialized"], outs, bin_dir=root)
+    apply_tf_weights(graph)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    split = conv_routes(graph, (hw, hw), torch.float32)
+    check(split == TF_TRAIN_ROUTES,
+          f"load_tf_train: route table {split}, not {TF_TRAIN_ROUTES}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ys = graph(serialized)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        _reset_conv_counts()
+        t0 = time.perf_counter()
+        for _ in range(TF_TRAIN_EVALS):
+            ys = graph(serialized)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_routes("load_tf_train vgg_16", counts, split, TF_TRAIN_EVALS)
+    check(torch.equal(ys[2].cpu(), torch.from_numpy(images)),
+          "load_tf_train: the decoded batch is not the written images")
+    loss = float(ys[0])
+    graph_grads = as_dict(ys)
+    del ys
+    profile = _profile(torch, lambda: _no_grad_runs(torch, graph,
+                                                    serialized, 2),
+                       groups=CNN_KERNEL_GROUPS)
+    # against autograd of the forward import, same weights and batch; the
+    # noise floor is the card's own under a 2^-23 change of the images
+    flops = 3 * model_flops(fwd, (hw, hw)) * n
+    x = _tf_scaled(torch, images)
+    loss_a, auto = _tf_autograd(torch, fwd, names, x, labels)
+    moved = [_tf_autograd(torch, fwd, names, _perturbed(torch, x, s),
+                          labels)[1] for s in (0, 1)]
+    loss_rel_a = abs(loss - loss_a) / abs(loss_a)
+    check(loss_rel_a <= TF_TRAIN_LOSS_REL,
+          f"load_tf_train: the graph's loss {loss} is not autograd's "
+          f"{loss_a}")
+    rec32 = _grad_bar(graph_grads, auto, _noise(auto, moved))
+    print(f"load_tf_train batch 32 vs autograd: {json.dumps(rec32)}",
+          flush=True)
+    check(rec32["grad_worst_vs_bar"] <= 1.0,
+          f"load_tf_train: the graph's gradient of {rec32['grad_bar_worst']}"
+          f" is {rec32['grad_worst_vs_bar']} times its bar against "
+          "autograd")
+    eval_s = wall / TF_TRAIN_EVALS
+    emit({"phase": "load_tf_train", "part": "vgg_16_tf_train",
+          "format": "NHWC", "graph_outputs": len(outs),
+          "npy_bytes": npy_bytes, "write_s": write_s,
+          "record_bytes": os.path.getsize(path),
+          "record_write_s": record_write_s, "record_read_s": record_read_s,
+          "flipped_byte": corrupt, "check_batch": m,
+          "check_load_s": check_load_s, "load_s": load_s,
+          "logits_rel_vs_cpu": logits_rel, "loss_rel_vs_cpu": loss_rel,
+          "grads_vs_cpu": rec2, "cpu_noise_s": cpu_noise_s, "batch": n,
+          "compute_dtype": "float32", "loss": loss,
+          "loss_rel_vs_autograd": loss_rel_a, "grads_vs_autograd": rec32,
+          "conv_routes_per_eval": split, "launches": counts,
+          "evals": TF_TRAIN_EVALS, "warmup_s": warmup_s,
+          "ms_per_eval": 1e3 * eval_s, "images_per_s": n / eval_s,
+          "model_flops_per_eval": flops,
+          "mfu_vs_float32_peak": flops / eval_s
+          / PEAK_FLOPS_PER_S["float32"], "peak_memory_bytes": peak,
+          "device_busy_share": profile.get("device_busy_share",
+                                           "not measured"),
+          "conv3x3_share_of_device_time": _conv3x3_share(profile),
+          "card": smi})
+    emit({"phase": "profile", "path": "load_tf_train_vgg_16", "evals": 2,
+          **profile})
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "load_tf_train_vgg_16"] = {
+                "tensor_cores": counts[kind],
+                "cuda_cores": counts[f"{kind}_cuda_core"]}
+    del graph, fwd
+    torch.cuda.empty_cache()
+
+
+def _no_grad_runs(torch, graph, x, k):
+    with torch.no_grad():
+        for _ in range(k):
+            graph(x)
+
+
+def _load_tf_sweep(torch, smi):
+    """tf_grad_sweep_graph on the card against the CPU import."""
+    import numpy as np
+    from bigdl_tpu_torch.interop import load_tf
+    from bigdl_tpu_torch.models import conv_routes
+    nodes, ins, outs, feed = tf_grad_sweep_graph(TF_SEED,
+                                                 wide=TF_SWEEP_WIDE)
+    gd = tf_graphdef(nodes)
+    res = {}
+    for key, dev in (("cpu", "cpu"), ("card", "cuda")):
+        g = load_tf(gd, ins, outs, bin_dir=None, device=dev)
+        xs = [torch.from_numpy(a).to(dev) if a.dtype != object else a
+              for a in feed]
+        if key == "card":
+            split = conv_routes(g, (5, 5), torch.float32)
+            _reset_conv_counts()
+        with torch.no_grad():
+            ys = g(xs, generator=torch.Generator(device=dev).manual_seed(7))
+        res[key] = [y.cpu() if isinstance(y, torch.Tensor) else y
+                    for y in ys]
+    counts = _conv_counts()
+    _check_routes("load_tf_train sweep", counts, split, 1)
+    check(split["k9"]["simt"] == 1 and split["i2c"]["simt"] == 8,
+          f"load_tf_train sweep: routes {split} (the wide flip on k9, the "
+          "depthwise one's 8 groups on i2c)")
+    worst, rows = {}, feed[ins.index("rows")]
+    for name, c, t in zip(outs, res["cpu"], res["card"]):
+        if name == "RandomShuffle":
+            want = torch.from_numpy(rows[np.argsort(rows[:, 0])])
+            check(torch.equal(t[torch.argsort(t[:, 0])], want),
+                  "load_tf_train sweep: RandomShuffle is not a row "
+                  "permutation of its input")
+            continue
+        if isinstance(c, np.ndarray):
+            check(c.tolist() == t.tolist(),
+                  f"load_tf_train sweep: {name} differs on the card")
+            continue
+        if not c.is_floating_point():
+            check(torch.equal(c, t), f"load_tf_train sweep: {name} {t} "
+                                     f"is not the CPU's {c}")
+            continue
+        worst[name] = _out_rel(t, c) if c.numel() else 0.0
+        check(worst[name] <= TF_SWEEP_REL,
+              f"load_tf_train sweep: {name} differs from the CPU's by "
+              f"{worst[name]}")
+    ids = {}
+    for key in ("cpu", "card"):
+        from bigdl_tpu_torch.ops.tf_ops import CategoricalColHashBucket
+        ids[key] = CategoricalColHashBucket(1000)(res[key][outs.index(
+            "Substr")])
+    check(np.array_equal(ids["cpu"], ids["card"]),
+          "load_tf_train sweep: the hash buckets differ")
+    emit({"phase": "load_tf_train", "part": "op_sweep", "ops": len(outs),
+          "out_rel_vs_cpu": worst, "out_rel_bar": TF_SWEEP_REL,
+          "conv_routes": split, "launches": counts,
+          "hash_buckets": ids["card"].tolist(), "card": smi})
+
+
+def phase_load_tf_train(torch, kernels, smi):
+    """TF-slim VGG-16's training graph fed from a TFRecord written in the
+    run, and the op sweep (see module docstring)."""
+    import tempfile
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _load_tf_sweep(torch, smi)
+    with tempfile.TemporaryDirectory() as root:
+        _load_tf_train_vgg(torch, kernels, smi, root)
 
 
 # ------------------------------------------------------------- resilience
@@ -8817,6 +9589,7 @@ def main():
     run("train_cnn", phase_train_cnn, torch, kernels, smi)
     run("load_interop", phase_load_interop, torch, kernels, smi)
     run("load_tf", phase_load_tf, torch, kernels, smi)
+    run("load_tf_train", phase_load_tf_train, torch, kernels, smi)
     run("train_bert", phase_train_bert, torch, kernels, smi)
     emit({"phase": "run", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

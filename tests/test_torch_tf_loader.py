@@ -13,11 +13,13 @@ load the same bytes. Outputs agree within 1e-6 of their largest magnitude
 (integers and booleans exactly) with the reference's dtypes; gradients of
 a seeded projection of the outputs with respect to every imported weight
 and float input agree with ``jax.grad`` within 1e-4 of their largest
-magnitude. A graph that names an op of ROADMAP A.11(d)(2)(b) raises
-``NotImplementedError``; the test lists exactly those ops.
+magnitude. Each op of ROADMAP A.11(d)(2)(b), which the port once
+refused, imports and gives the reference's output.
 """
 
+import io
 import os
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from bigdl_tpu_torch.interop import load_tf as tload
 from bigdl_tpu_torch.interop import save_tf as tsave
 from bigdl_tpu_torch.interop import tf_loader as tl
 from bigdl_tpu_torch.models import conv_routes, layer_walk, model_flops
+from bigdl_tpu_torch.ops import tf_ops as tt
 
 node, const, graphdef = cs.tf_node, cs.tf_const, cs.tf_graphdef
 
@@ -701,7 +704,130 @@ def test_bin_dir_variables_and_a_missing_one(tmp_path):
                  bin_dir=str(tmp_path))
 
 
-WAITING = {
+def _part_b_case(op):
+    """A small graph naming ``op`` (an op of ROADMAP A.11(d)(2)(b)):
+    (nodes, inputs, outputs, feed, host): ``host`` the class of a
+    host-side op whose imported module is held by its forward, the
+    reference's graph not running those."""
+    r = np.random.default_rng(zlib.crc32(op.encode()))
+
+    def f(*shape):
+        return (r.standard_normal(shape)).astype(np.float32)
+
+    x, g = node("x", "Placeholder"), node("g", "Placeholder")
+    s1 = _lst("i", [1, 1, 1, 1])
+    pairs = ("ReluGrad", "Relu6Grad", "EluGrad", "SoftplusGrad",
+             "SoftsignGrad", "SigmoidGrad", "TanhGrad", "SqrtGrad",
+             "RsqrtGrad", "ReciprocalGrad", "InvGrad")
+    if op in pairs:
+        return ([g, x, node("y", op, ["g", "x"])], ["g", "x"], ["y"],
+                [f(2, 5) * 4, np.abs(f(2, 5)) * 4 + 0.25], None)
+    if op == "BiasAddGrad":
+        return [g, node("y", op, ["g"])], ["g"], ["y"], f(2, 3, 3, 4), None
+    if op.startswith("FusedBatchNormGrad"):
+        names = ["dy", "x", "scale", "mean", "var"]
+        feed = [f(2, 3, 3, 4), f(2, 3, 3, 4), f(4), f(4) * 0.1,
+                np.abs(f(4)) + 0.5]
+        return ([node(n, "Placeholder") for n in names]
+                + [node("y", op, names, epsilon=1e-3)], names,
+                ["y:0", "y:1", "y:2"], feed, None)
+    if op == "AvgPoolGrad":
+        return ([const("sizes", _i32(1, 5, 5, 2)), g,
+                 node("y", op, ["sizes", "g"], ksize=_lst("i", [1, 3, 3, 1]),
+                      strides=_lst("i", [1, 2, 2, 1]), padding=b"SAME")],
+                ["g"], ["y"], f(1, 3, 3, 2), None)
+    if op == "MaxPoolGrad":
+        win = dict(ksize=_lst("i", [1, 2, 2, 1]),
+                   strides=_lst("i", [1, 2, 2, 1]), padding=b"VALID")
+        return ([x, g, node("mp", "MaxPool", ["x"], **win),
+                 node("y", op, ["x", "mp", "g"], **win)], ["x", "g"], ["y"],
+                [f(1, 4, 4, 2), f(1, 2, 2, 2)], None)
+    convs = {"Conv2D": ((2, 6, 6, 3), (3, 3, 3, 4), (2, 6, 6, 4), s1),
+             "DepthwiseConv2dNative": ((2, 6, 6, 3), (3, 3, 3, 2),
+                                       (2, 6, 6, 6), s1),
+             "Conv3D": ((1, 3, 4, 4, 2), (3, 3, 3, 2, 3), (1, 3, 4, 4, 3),
+                        _lst("i", [1, 1, 1, 1, 1]))}
+    base = next((k for k in convs if op.startswith(k + "Backprop")), None)
+    if base is not None:
+        sizes, wshape, gshape, st = convs[base]
+        if "Input" in op:
+            return ([const("sizes", _i32(*sizes)), const("w", f(*wshape)),
+                     g, node("y", op, ["sizes", "w", "g"], strides=st,
+                             padding=b"SAME")], ["g"], ["y"], f(*gshape),
+                    None)
+        return ([x, const("fsizes", _i32(*wshape)), g,
+                 node("y", op, ["x", "fsizes", "g"], strides=st,
+                      padding=b"SAME")], ["x", "g"], ["y"],
+                [f(*sizes), f(*gshape)], None)
+    if op == "RandomShuffle":
+        return [x, node("y", op, ["x"])], ["x"], ["y"], f(5, 3), None
+    if op == "ResizeBilinearGrad":
+        return ([g, x, node("y", op, ["g", "x"])], ["g", "x"], ["y"],
+                [f(1, 6, 8, 2), f(1, 3, 4, 2)], None)
+    if op == "LRNGrad":
+        return ([g, x, node("y", op, ["g", "x", "x"], depth_radius=2,
+                            bias=1.5, alpha=0.3, beta=0.75)],
+                ["g", "x"], ["y"], [f(1, 2, 2, 7), f(1, 2, 2, 7)], None)
+    if op.startswith("Dilation2DBackprop"):
+        return ([x, const("w", f(3, 3, 2)), g,
+                 node("y", op, ["x", "w", "g"], strides=s1, rates=s1,
+                      padding=b"SAME")], ["x", "g"], ["y"],
+                [f(1, 5, 5, 2), f(1, 5, 5, 2)], None)
+    if op in ("QueueDequeueV2", "QueueDequeueManyV2", "ReaderReadV2"):
+        return ([node("q", op), node("y", "Relu", ["q"])], ["q"], ["y"],
+                f(2, 3), None)
+    if op in ("QueueEnqueueV2", "QueueEnqueueManyV2"):
+        return ([x, node("q", "FIFOQueueV2"), node("r", "Relu", ["x"]),
+                 node("y", op, ["q", "r"])], ["x"], ["y"], f(2, 3), None)
+    if op == "BroadcastGradientArgs":
+        shape = {"shape": {"dim": [{"size": 2}, {"size": 3}]}}
+        return ([node("x", "Placeholder", shape=shape),
+                 node("sx", "Shape", ["x"]), const("sy", _i32(3)),
+                 node("y", op, ["sx", "sy"]),
+                 node("s", "Sum", ["x", "y:1"], keep_dims=False)],
+                ["x"], ["s", "y:0", "y:1"], f(2, 3), None)
+    strings = np.asarray([b"hello", b"tensor"], dtype=object)
+    if op == "Substr":
+        return ([x, const("pos", _i32(1)), const("len", _i32(3)),
+                 node("y", op, ["x", "pos", "len"])], ["x"], ["y"],
+                strings, tt.Substr)
+    if op == "DecodeRaw":
+        blobs = np.asarray([_i32(1, -2, 3).astype(">i4").tobytes(),
+                            _i32(4, 5, 6).astype(">i4").tobytes()],
+                           dtype=object)
+        return ([x, node("y", op, ["x"], out_type={"type": 3},
+                         little_endian=False)], ["x"], ["y"], blobs,
+                tt.DecodeRaw)
+    if op.startswith("Decode"):
+        from PIL import Image
+        frames = [Image.fromarray(r.integers(0, 255, (4, 3, 3),
+                                             dtype=np.uint8))
+                  for _ in range(2)]
+        buf = io.BytesIO()
+        if op == "DecodeGif":
+            frames[0].save(buf, format="GIF", save_all=True,
+                           append_images=frames[1:])
+        else:
+            frames[0].save(buf, format="PNG")
+        return ([x, node("y", op, ["x"], channels=3)], ["x"], ["y"],
+                buf.getvalue(), tt.DecodeImage)
+    if op == "ParseExample":
+        from bigdl_tpu_torch.interop import build_example
+        blobs = np.asarray([build_example({"v": f(2), "k": np.asarray([i])})
+                            for i in range(3)], dtype=object)
+        return ([x, const("names", np.zeros(0, "S1")),
+                 const("k0", np.asarray(b"k")), const("k1", np.asarray(b"v")),
+                 const("d0", np.zeros(0, np.int64)),
+                 const("d1", np.zeros(0, np.float32)),
+                 node("y", op, ["x", "names", "k0", "k1", "d0", "d1"],
+                      Nsparse=0, Ndense=2, Tdense=_lst("type", [9, 1]),
+                      dense_shapes=_lst("shape", [{}, {"dim": [
+                          {"size": 2}]}]))],
+                ["x"], ["y:0", "y:1"], blobs, tt.ParseExampleOp)
+    raise KeyError(op)
+
+
+PART_B = (
     "ReluGrad", "Relu6Grad", "EluGrad", "SoftplusGrad", "SoftsignGrad",
     "SigmoidGrad", "TanhGrad", "SqrtGrad", "RsqrtGrad", "ReciprocalGrad",
     "InvGrad", "BiasAddGrad", "FusedBatchNormGrad", "FusedBatchNormGradV2",
@@ -714,18 +840,36 @@ WAITING = {
     "QueueDequeueV2", "QueueDequeueManyV2", "ReaderReadV2",
     "BroadcastGradientArgs", "Substr", "DecodeRaw", "DecodeJpeg",
     "DecodePng", "DecodeGif", "QueueEnqueueV2", "QueueEnqueueManyV2",
-    "ParseExample"}
+    "ParseExample")
 
 
-def test_ops_waiting_for_part_b_are_exactly_listed():
-    assert tl.WAITING_OPS == WAITING
-
-
-@pytest.mark.parametrize("op", sorted(WAITING))
-def test_op_waiting_for_part_b_raises(op):
-    nodes = [node("x", "Placeholder"), node("y", op, ["x", "x", "x"])]
-    with pytest.raises(NotImplementedError, match=r"A\.11\(d\)\(2\)\(b\)"):
-        tload(graphdef(nodes), ["x"], ["y:0"], device="cpu")
+@pytest.mark.parametrize("op", PART_B)
+def test_op_of_part_b_imports_like_the_reference(op):
+    """Every op the port's loader refused before ROADMAP A.11(d)(2)(b)
+    imports, and the imported node's output is the reference's: through
+    both graphs (gradient, queue and folded ops), or, for a host-side op,
+    the port graph's output against the reference module's forward."""
+    nodes, ins, outs, feed, host = _part_b_case(op)
+    if host is None:
+        _compare(graphdef(nodes), ins, outs, feed, grads=False)
+        return
+    tg = tload(graphdef(nodes), ins, outs, device="cpu")
+    jg = jload(graphdef(nodes), ins, outs)
+    jm = [n.module for n in jg.exec_order
+          if type(n.module).__name__ == host.__name__]
+    assert [type(n.module) for n in tg.exec_order].count(host) == 1
+    want = _outs(jm[0].forward(feed))
+    got = tg(feed)
+    got = got if isinstance(got, list) else [got]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if isinstance(b, np.ndarray) and b.dtype == object:
+            assert a.tolist() == b.tolist()
+        else:
+            assert isinstance(a, torch.Tensor)
+            _close(a, np.asarray(b).astype(
+                {np.dtype(np.int64): np.int32}.get(np.asarray(b).dtype,
+                                                   np.asarray(b).dtype)))
 
 
 def test_unknown_op_raises_the_references_message():

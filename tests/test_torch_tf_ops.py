@@ -325,17 +325,15 @@ def test_operation_backward_raises():
 
 
 def test_ops_package_exports_the_references_forward_names():
-    """``bigdl_tpu_torch.ops`` exports the reference's ``ops`` names but
-    its feature-column ones (ROADMAP A.11(d)(2)(b))."""
+    """``bigdl_tpu_torch.ops`` exports every name of the reference's
+    ``ops``, the feature columns included."""
     import bigdl_tpu.ops as ref
-    waiting = {"BucketizedCol", "CategoricalColHashBucket",
-               "CategoricalColVocaList", "CrossCol", "IndicatorCol",
-               "MkString"}
-    names = {n for n in dir(ref) if n[0].isupper()}
-    for n in names - waiting:
+    for n in (n for n in dir(ref) if n[0].isupper()):
         assert hasattr(tops, n), n
-    for n in waiting:
-        assert not hasattr(tops, n), n
+    for n in ("BucketizedCol", "CategoricalColHashBucket",
+              "CategoricalColVocaList", "CrossCol", "IndicatorCol",
+              "MkString"):
+        assert getattr(tops, n) is getattr(tt, n)
     from bigdl_tpu_torch.ops.flash_attention import flash_attention
     assert callable(flash_attention)
 
