@@ -4,7 +4,8 @@
   as numpy arrays (``{"gpt": {"tok_emb", "pos_emb", "ln_f", "layers":
   [{"attn": {wq, wk, wv, wo}, "ln1", "ln2", "fc1", "fc2"}]}}``), into
   the port's ``state_dict``, transposing Linear weights from the
-  reference's ``(in, out)`` to torch's ``(out, in)``. Any tree of that
+  reference's ``(in, out)`` to torch's ``(out, in)``; an untied model's
+  ``"head": {"weight"}`` is its ``head`` Linear's. Any tree of that
   layout maps the same way: the reference's gradients, or Adam's ``m`` and
   ``v`` slots, land on the port's parameter names;
 - :func:`params_to_jax` is its inverse, a state_dict (or a dict of
@@ -18,8 +19,9 @@
 - :func:`init_params` makes seeded random weights in the reference's
   layout and with its initializers' distributions (token/position
   embeddings N(0, 0.02); attention Glorot-uniform; MLP weights and biases
-  uniform in +-1/sqrt(fan_in); LayerNorm ones/zeros), for runs that cannot
-  import JAX. The numbers come from numpy's generator, not JAX's.
+  uniform in +-1/sqrt(fan_in); LayerNorm ones/zeros; an untied head
+  uniform in +-1/sqrt(hidden)), for runs that cannot import JAX. The
+  numbers come from numpy's generator, not JAX's.
 
 ResNet (``models/resnet.py``): the reference's ``Graph`` keys its params
 by node id; these functions take and give them keyed by layer name (the
@@ -53,7 +55,10 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
 - both walk the recurrent wrappers as the reference nests their params:
   a ``Recurrent``'s (and ``RecurrentDecoder``'s) are its cell's, a
   ``MultiRNNCell``'s the list of its cells', a ``BiRecurrent``'s
-  ``{"fwd", "bwd"}``, a ``TimeDistributed``'s its inner module's; each
+  ``{"fwd", "bwd"}``, a ``TimeDistributed``'s its inner module's, and
+  any module's that names its children in ``param_children`` (``(attribute,
+  key)`` pairs: a ``Cond``'s ``{"then", "else"}``, a ``WhileLoop``'s its
+  body's, a TF while frame's ``{"cond", "body"}``); each
   leaf is laid out by ``nn.module.jax_layout`` (convolution and
   convolutional-cell weights HWIO / DHWIO -> OIHW / OIDHW, Linear
   weights (in, out) -> (out, in), a transposed convolution's
@@ -94,6 +99,9 @@ from bigdl_tpu_torch.nn.module import (from_jax_layout, init_state_dict,
 
 
 def _put(sd, key, arr, transpose=False, dtype=np.float32):
+    if isinstance(arr, torch.Tensor):           # keeps its type
+        sd[key] = (arr.T if transpose else arr).contiguous()
+        return
     a = np.asarray(arr, dtype=dtype)
     # a C-ordered copy: torch shares the buffer, and the reference's arrays
     # may be read-only views
@@ -129,10 +137,8 @@ def _put_block(sd, pre, lp):
 def params_from_jax(tree):
     """The port's ``GPTForCausalLM`` state_dict from a reference params
     tree of numpy arrays (float32 CPU tensors; load it with
-    ``model.load_state_dict``)."""
-    if "head" in tree:
-        raise NotImplementedError("untied LM heads are not ported; GPT-2 "
-                                  "ties the head to the token embedding")
+    ``model.load_state_dict``). An untied model's tree has ``"head":
+    {"weight": (hidden, vocab)}``, which becomes ``head.weight``."""
     g = tree["gpt"]
     sd = collections.OrderedDict()
     _put(sd, "gpt.tok_emb", g["tok_emb"])
@@ -140,50 +146,59 @@ def params_from_jax(tree):
     for i, lp in enumerate(g["layers"]):
         _put_block(sd, f"gpt.layers.{i}.", lp)
     _put_ln(sd, "gpt.ln_f", g["ln_f"])
+    if "head" in tree:
+        _put_weight(sd, "head", tree["head"]["weight"])
     return sd
 
 
-def _get(sd, key, transpose=False):
+def _get(sd, key, transpose=False, tensors=False):
     t = sd[key].detach().cpu()
+    if tensors:                                 # a tensor of its own type
+        return (t.T if transpose else t).contiguous()
     a = (t if t.dtype == torch.int8 else t.float()).numpy()
     return np.array(a.T if transpose else a, order="C")
 
 
-def _get_weight(sd, pre):
+def _get_weight(sd, pre, tensors=False):
     if f"{pre}.scale" in sd:
-        return {"q": _get(sd, f"{pre}.weight", transpose=True),
-                "scale": _get(sd, f"{pre}.scale")}
-    return _get(sd, f"{pre}.weight", transpose=True)
+        return {"q": _get(sd, f"{pre}.weight", True, tensors),
+                "scale": _get(sd, f"{pre}.scale", tensors=tensors)}
+    return _get(sd, f"{pre}.weight", True, tensors)
 
 
-def _get_ln(sd, pre):
-    return {"weight": _get(sd, f"{pre}.weight"),
-            "bias": _get(sd, f"{pre}.bias")}
+def _get_ln(sd, pre, tensors=False):
+    return {"weight": _get(sd, f"{pre}.weight", tensors=tensors),
+            "bias": _get(sd, f"{pre}.bias", tensors=tensors)}
 
 
-def _get_blocks(sd, pre):
+def _get_blocks(sd, pre, tensors=False):
     """Every block ``{pre}{i}.`` of a state_dict in the reference's layout
     (the inverse of :func:`_put_block`)."""
     n = len({k[len(pre):].split(".")[0] for k in sd if k.startswith(pre)})
-    return [{"attn": {w: _get_weight(sd, f"{pre}{i}.attn.{w}")
+    return [{"attn": {w: _get_weight(sd, f"{pre}{i}.attn.{w}", tensors)
                       for w in ("wq", "wk", "wv", "wo")},
-             "ln1": _get_ln(sd, f"{pre}{i}.ln1"),
-             "ln2": _get_ln(sd, f"{pre}{i}.ln2"),
-             **{fc: {"weight": _get_weight(sd, f"{pre}{i}.{fc}"),
-                     "bias": _get(sd, f"{pre}{i}.{fc}.bias")}
+             "ln1": _get_ln(sd, f"{pre}{i}.ln1", tensors),
+             "ln2": _get_ln(sd, f"{pre}{i}.ln2", tensors),
+             **{fc: {"weight": _get_weight(sd, f"{pre}{i}.{fc}", tensors),
+                     "bias": _get(sd, f"{pre}{i}.{fc}.bias",
+                                  tensors=tensors)}
                 for fc in ("fc1", "fc2")}}
             for i in range(n)]
 
 
-def params_to_jax(state_dict):
+def params_to_jax(state_dict, tensors=False):
     """The reference's params tree (numpy float32, int8 weights as
     ``{"q", "scale"}``) of a port ``GPTForCausalLM`` state_dict;
-    ``params_to_jax(params_from_jax(t))`` equals ``t``."""
-    sd = state_dict
-    return {"gpt": {"tok_emb": _get(sd, "gpt.tok_emb"),
-                    "pos_emb": _get(sd, "gpt.pos_emb"),
-                    "ln_f": _get_ln(sd, "gpt.ln_f"),
-                    "layers": _get_blocks(sd, "gpt.layers.")}}
+    ``params_to_jax(params_from_jax(t))`` equals ``t``. With ``tensors``
+    each leaf is a CPU tensor of its own type instead."""
+    sd, tn = state_dict, tensors
+    tree = {"gpt": {"tok_emb": _get(sd, "gpt.tok_emb", tensors=tn),
+                    "pos_emb": _get(sd, "gpt.pos_emb", tensors=tn),
+                    "ln_f": _get_ln(sd, "gpt.ln_f", tn),
+                    "layers": _get_blocks(sd, "gpt.layers.", tn)}}
+    if "head.weight" in sd:
+        tree["head"] = {"weight": _get_weight(sd, "head", tn)}
+    return tree
 
 
 def _init_blocks(rng, n, hs, inter):
@@ -219,11 +234,16 @@ def init_tree(model, seed=0):
     rng = np.random.default_rng(seed)
     hs = gpt.hidden_size
     layers = _init_blocks(rng, len(gpt.layers), hs, gpt.intermediate_size)
-    return {"gpt": {"tok_emb": _normal(rng, (gpt.vocab_size, hs)),
+    tree = {"gpt": {"tok_emb": _normal(rng, (gpt.vocab_size, hs)),
                     "pos_emb": _normal(rng, (gpt.max_position, hs)),
                     "ln_f": {"weight": np.ones(hs, np.float32),
                              "bias": np.zeros(hs, np.float32)},
                     "layers": layers}}
+    if getattr(model, "head", None) is not None:
+        # the reference's Linear default: uniform in +-1/sqrt(hidden)
+        tree["head"] = {"weight": rng.uniform(
+            -hs ** -0.5, hs ** -0.5, (hs, gpt.vocab_size)).astype(np.float32)}
+    return tree
 
 
 def init_params(model, seed=0):
@@ -250,21 +270,21 @@ def bert_params_from_jax(tree):
     return sd
 
 
-def bert_params_to_jax(state_dict):
+def bert_params_to_jax(state_dict, tensors=False):
     """The reference's tree of a ``BertForMLM`` or ``BERT`` state_dict (or
     of a dict of its gradients keyed by parameter name); the inverse of
-    :func:`bert_params_from_jax`."""
-    sd = state_dict
+    :func:`bert_params_from_jax`. ``tensors`` as :func:`params_to_jax`'s."""
+    sd, tn = state_dict, tensors
     mlm = "head.weight" in sd
     pre = "bert." if mlm else ""
-    b = {emb: _get(sd, pre + emb) for emb in ("tok_emb", "pos_emb",
-                                              "type_emb")}
-    b["ln"] = _get_ln(sd, pre + "ln")
-    b["layers"] = _get_blocks(sd, pre + "layers.")
+    b = {emb: _get(sd, pre + emb, tensors=tn)
+         for emb in ("tok_emb", "pos_emb", "type_emb")}
+    b["ln"] = _get_ln(sd, pre + "ln", tn)
+    b["layers"] = _get_blocks(sd, pre + "layers.", tn)
     if not mlm:
         return b
-    return {"bert": b, "head": {"weight": _get_weight(sd, "head"),
-                                "bias": _get(sd, "head.bias")}}
+    return {"bert": b, "head": {"weight": _get_weight(sd, "head", tn),
+                                "bias": _get(sd, "head.bias", tensors=tn)}}
 
 
 def init_bert_tree(model, seed=0):
@@ -342,7 +362,11 @@ def _port_shape(module, leaf, a):
 
 def _leaf_from_jax(module, leaf, a):
     """A reference leaf of ``module`` as a port tensor (module
-    docstring)."""
+    docstring); a torch tensor keeps its type and device."""
+    if isinstance(a, torch.Tensor):
+        shape = _port_shape(module, leaf, a)
+        return from_jax_layout(jax_layout(module, leaf, shape), shape,
+                               a).contiguous()
     a = np.asarray(a)
     shape = _port_shape(module, leaf, a)
     a = from_jax_layout(jax_layout(module, leaf, shape), shape, a)
@@ -350,9 +374,13 @@ def _leaf_from_jax(module, leaf, a):
     return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
 
-def _leaf_to_jax(module, leaf, t):
-    """The inverse of :func:`_leaf_from_jax` on a port tensor."""
+def _leaf_to_jax(module, leaf, t, tensors=False):
+    """The inverse of :func:`_leaf_from_jax` on a port tensor; with
+    ``tensors`` a CPU tensor of ``t``'s type."""
     t = t.detach().cpu()
+    if tensors:
+        return to_jax_layout(jax_layout(module, leaf, tuple(t.shape)),
+                             t).contiguous()
     a = (t if t.dtype == torch.int8 else t.float()).numpy()
     a = to_jax_layout(jax_layout(module, leaf, a.shape), a)
     return np.array(a, order="C")
@@ -360,7 +388,7 @@ def _leaf_to_jax(module, leaf, t):
 
 def _wrapped(module):
     """``[(key prefix, child, key of the child's params)]`` of a
-    recurrent wrapper (module docstring): key None where the child's
+    wrapper (module docstring): key None where the child's
     params are the wrapper's own, else an index or a dict key; None for
     any other module."""
     if isinstance(module, Recurrent):
@@ -371,6 +399,10 @@ def _wrapped(module):
         return [("fwd.", module.fwd, "fwd"), ("bwd.", module.bwd, "bwd")]
     if isinstance(module, MultiRNNCell):
         return [(f"{i}.", c, i) for i, c in enumerate(module.children())]
+    keyed = getattr(module, "param_children", None)
+    if keyed is not None:
+        return [(f"{attr}.", getattr(module, attr), key)
+                for attr, key in keyed]
     return None
 
 
@@ -416,11 +448,12 @@ def module_params_from_jax(model, params, state=None):
     return sd
 
 
-def module_params_to_jax(model, state_dict=None):
+def module_params_to_jax(model, state_dict=None, tensors=False):
     """``(params, state)`` in the reference's layout (numpy float32) of
     container ``model``'s ``state_dict`` (default: its own; a dict of
     gradients keyed by parameter name maps the same way, its missing
-    buffers left out)."""
+    buffers left out); with ``tensors`` each leaf is a CPU tensor of its
+    own type instead."""
     sd = model.state_dict() if state_dict is None else state_dict
 
     def walk(module, prefix):
@@ -435,6 +468,9 @@ def module_params_to_jax(model, state_dict=None):
                 return ({k: p for k, (p, _) in pairs},
                         {k: s for k, (_, s) in pairs}
                         if any(state) else ())
+            if isinstance(pairs[0][0], str):    # ``param_children``
+                return ({k: p for k, (p, _) in pairs},
+                        {k: s for k, (_, s) in pairs})
             return [p for _, (p, _) in pairs], state if any(state) else ()
         if isinstance(module, (MapTable, Bottle)):
             return walk(module[0], prefix + "0.")
@@ -445,12 +481,14 @@ def module_params_to_jax(model, state_dict=None):
         # a quantised layer's int8 weight, scale and in_scale buffers are
         # the reference's params
         own = set(getattr(module, "param_buffers", ()))
-        params = {name: _leaf_to_jax(module, name, sd[prefix + name])
+        params = {name: _leaf_to_jax(module, name, sd[prefix + name],
+                                     tensors)
                   for name, _ in (list(module.named_parameters(recurse=False))
                                   + list(module.named_buffers(recurse=False)))
                   if prefix + name in sd
                   and (name in own or not _is_buffer(module, name))}
-        state = {name: _leaf_to_jax(module, name, sd[prefix + name])
+        state = {name: _leaf_to_jax(module, name, sd[prefix + name],
+                                    tensors)
                  for name, _ in module.named_buffers(recurse=False)
                  if prefix + name in sd and name not in own}
         return params or (), state or ()

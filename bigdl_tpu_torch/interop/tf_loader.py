@@ -1279,6 +1279,9 @@ class _TFWhileModule(Module):
     of the final loop variables.
     """
 
+    # the reference's params and state: {"cond": ..., "body": ...}
+    param_children = (("cond_graph", "cond"), ("body_graph", "body"))
+
     def __init__(self, cond_graph, body_graph, inits, n_caps, trip=None):
         super().__init__()
         self.cond_graph = cond_graph

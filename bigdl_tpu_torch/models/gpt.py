@@ -76,7 +76,8 @@ from bigdl_tpu_torch.models.spec import (NGramDraft, accept_serving, commit,
 from bigdl_tpu_torch.nn import LayerNormalization, Linear
 from bigdl_tpu_torch.nn.quantized import (Int8Linear, lora_down,
                                           lora_linear, lora_up,
-                                          qmatmul_row_parallel)
+                                          qmatmul_row_parallel,
+                                          quantize_model)
 from bigdl_tpu_torch.ops.paged_attention import paged_pool_attention
 from bigdl_tpu_torch.ops.sampling import fused_sample_logits, gumbel_noise
 from bigdl_tpu_torch.parallel.layout import (SpecLayout, all_reduce_sum,
@@ -99,6 +100,16 @@ class TransformerDecoderBlock(nn.Module):
     ``tp > 1`` shard holds its heads and ``intermediate_size / tp`` of the
     MLP's inner width (``fc1`` column-parallel, ``fc2`` row-parallel with
     the whole, replicated bias)."""
+
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's block record; :class:`GPTForCausalLM` builds it."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec, built_inside
+        return NativeSpec("bigdl_tpu.models.gpt:TransformerDecoderBlock",
+                          cls, "hidden_size attn ln1 ln2 fc1 fc2 dropout",
+                          get={"hidden_size": lambda m: m.ln1.hidden_size},
+                          build=built_inside("GPTForCausalLM"))
 
     def __init__(self, hidden_size, n_heads, intermediate_size=None,
                  dropout=0.0, sequence_parallel=None, tp=1, device=None,
@@ -216,6 +227,16 @@ def block_rest(blocks, xs, outs, los=None):
 
 class GPT(nn.Module):
     """GPT-2-style decoder stack returning final-norm hidden states."""
+
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's stack record; :class:`GPTForCausalLM` builds it."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec, built_inside
+        return NativeSpec("bigdl_tpu.models.gpt:GPT", cls,
+                          "vocab_size hidden_size max_position layers ln_f "
+                          "remat", get={"layers": lambda m: list(m.layers)},
+                          build=built_inside("GPTForCausalLM"))
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
@@ -662,22 +683,45 @@ def sample_logits(logits, gumbel, temperature=1.0, top_k=None, top_p=None):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT + the tied-embedding LM head (GPT-2 ties the output projection
-    to the token embedding). ``device`` defaults to the card; pass
+    """GPT + the LM head: tied to the token embedding (GPT-2's, the
+    default), or with ``tie_embeddings=False`` a ``head`` Linear of its own
+    without bias, as the reference's. ``device`` defaults to the card; pass
     ``device="cpu"`` for the CPU."""
+
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's record of the model and its parts, built back here at
+        the file's widths and tensor type; the weights in ``convert``'s
+        GPT layout, each tensor's type kept (int8 weights as the
+        reference's ``{"q", "scale"}`` leaves, loaded into a model that
+        ``quantize_model`` swapped)."""
+        from bigdl_tpu_torch import convert
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec(
+            "bigdl_tpu.models.gpt:GPTForCausalLM", cls,
+            "vocab_size tie_embeddings gpt head", build=_native_build,
+            trees=lambda m, sd: (convert.params_to_jax(sd, tensors=True),
+                                 ()),
+            load_trees=_native_load_trees)
 
     def __init__(self, vocab_size=50257, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=1024, intermediate_size=None,
                  dropout=0.0, remat=False, sequence_parallel=None, tp=1,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, tie_embeddings=True):
         super().__init__()
         self.vocab_size = vocab_size
+        self.tie_embeddings = tie_embeddings
+        device = resolve_device(device)
         self.gpt = GPT(vocab_size=vocab_size, hidden_size=hidden_size,
                        n_layers=n_layers, n_heads=n_heads,
                        max_position=max_position,
                        intermediate_size=intermediate_size, dropout=dropout,
                        remat=remat, sequence_parallel=sequence_parallel,
-                       tp=tp, device=resolve_device(device), dtype=dtype)
+                       tp=tp, device=device, dtype=dtype)
+        self.head = None if tie_embeddings else Linear(
+            hidden_size, vocab_size, with_bias=False, device=device,
+            dtype=dtype)
 
     @property
     def device(self):
@@ -700,7 +744,10 @@ class GPTForCausalLM(nn.Module):
                 for m, h in zip(models, hs)]
 
     def _lm_logits(self, h):
-        """(..., hidden) -> (..., vocab) through the tied head."""
+        """(..., hidden) -> (..., vocab) through the tied head or
+        ``head``."""
+        if self.head is not None:
+            return self.head(h)
         return F.linear(h, self.gpt.tok_emb)
 
     @property
@@ -869,3 +916,30 @@ def gpt_flops_per_token(n_layers=12, h=768, s=1024, vocab=50257,
     inter = inter or 4 * h
     per_layer = 8 * h * h + 4 * h * inter + 4 * s * h
     return n_layers * per_layer + 2 * h * vocab
+
+
+def _native_build(a, make, at):
+    """A :class:`GPTForCausalLM` of a native file's record (its parts'
+    records give the widths)."""
+    g = a["gpt"].attrs
+    block = g["layers"][0].attrs if g["layers"] else None
+    attn = block["attn"].attrs if block else {}
+    return GPTForCausalLM(
+        vocab_size=a["vocab_size"], hidden_size=g["hidden_size"],
+        n_layers=len(g["layers"]), n_heads=attn.get("n_heads", 1),
+        max_position=g["max_position"],
+        intermediate_size=(block["fc1"].attrs["output_size"]
+                           if block else None),
+        dropout=block["dropout"] if block else 0.0, remat=g["remat"],
+        tie_embeddings=a["tie_embeddings"], device=at.device,
+        dtype=at.dtype or torch.float32)
+
+
+def _native_load_trees(model, params, state):
+    """The state_dict of a native file's params for ``model``, which
+    becomes int8 first where the file's weights are."""
+    from bigdl_tpu_torch import convert
+    sd = convert.params_from_jax(params)
+    if any(k.endswith(".scale") for k in sd):
+        quantize_model(model)
+    return sd

@@ -6,7 +6,8 @@ Both variants: ImageNet ResNet-18/34 (basic blocks) and 50/101/152
 Shortcut "A" is treated as "B" (a 1x1 projection), as the reference does.
 
 Every layer is registered on the model under the name the reference's
-``set_name`` gives it ("conv1", "conv1_bn", "res2_0_conv2", "fc", ...;
+``set_name`` gives it, and carries it (``get_name()``): ("conv1",
+"conv1_bn", "res2_0_conv2", "fc", ...;
 the CIFAR variant's unnamed head keeps the reference's default names
 "SpatialAveragePooling", "Reshape", "Linear", "LogSoftMax"), so each
 state_dict key is ``<reference name>.<leaf>`` and weights carry across by
@@ -52,9 +53,23 @@ class ResNet(nn.Module):
 
     quantizer_walks = True    # nn.quantized.Quantizer swaps in layers
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference builds its ResNet as a ``Graph`` of the named layers, so
+        the file holds :meth:`native_form` and loads back through
+        :meth:`from_native_form`."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec, built_inside
+        return NativeSpec("bigdl_tpu.models.resnet:ResNet", cls,
+                          build=built_inside("Graph"),
+                          form=lambda m, sd: m.native_form(sd),
+                          from_form=cls.from_native_form)
+
     def __init__(self, class_num=1000, depth=50, shortcut_type="B",
                  data_set="ImageNet", format=None, device=None):
         super().__init__()
+        self.class_num, self.depth = class_num, depth
+        self.shortcut_type, self.data_set = shortcut_type, data_set
         self.format = format or default_data_format()
         self._stem, self._blocks, self._head = [], [], []
         # every layer is built on the resolved device
@@ -66,7 +81,7 @@ class ResNet(nn.Module):
 
     # ------------------------------------------------------------ building
     def _add(self, name, module):
-        self.add_module(name, module)
+        self.add_module(name, module.set_name(name))
         return name
 
     def _conv_bn(self, n_in, n_out, k, stride, pad, name, with_relu=True):
@@ -166,6 +181,59 @@ class ResNet(nn.Module):
             x = self._modules[out](self._modules[add](
                 self._seq(main, x), self._seq(short, x)))
         return self._seq(self._head, x)
+
+    def as_graph(self):
+        """The model as the reference builds it: a ``Graph`` over this
+        model's own layers (shared, not copied), wired as :meth:`forward`
+        runs them, each block's shortcut and main path from the block's
+        input into its ``CAddTable`` (main path first). The native format
+        writes a ``ResNet`` as this graph (``utils/serializer.py``)."""
+        from bigdl_tpu_torch.nn import Graph, Input
+
+        def seq(names, node):
+            for name in names:
+                node = self._modules[name](node)
+            return node
+
+        inp = Input()
+        x = seq(self._stem, inp)
+        for main, short, add, out in self._blocks:
+            x = self._modules[out](self._modules[add](seq(main, x),
+                                                      seq(short, x)))
+        return Graph(inp, seq(self._head, x), device=self._dev)
+
+    def native_form(self, state_dict=None):
+        """``(graph, state_dict)`` as the native format writes the model:
+        :meth:`as_graph`, carrying as ``_native_form`` the constructor
+        values that build the model back, and ``state_dict`` (default the
+        model's) keyed as the graph's."""
+        graph = self.as_graph()
+        graph.training = self.training       # its layers keep their own
+        graph._native_form = {
+            "class": "bigdl_tpu.models.resnet:ResNet",
+            "class_num": self.class_num, "depth": self.depth,
+            "shortcut_type": self.shortcut_type, "data_set": self.data_set,
+            "format": self.format}
+        sd = self.state_dict() if state_dict is None else state_dict
+        return graph, {f"{i}.{leaf}": sd[f"{n.module.get_name()}.{leaf}"]
+                       for i, n in enumerate(graph.exec_order)
+                       for leaf in n.module.state_dict()}
+
+    @classmethod
+    def from_native_form(cls, graph, form, at):
+        """The model of a graph that :meth:`native_form` wrote (``form``
+        its ``_native_form``), with the graph's weights and modes, on
+        ``at.device``."""
+        from bigdl_tpu_torch.utils.serializer import assign
+        model = cls(form["class_num"], form["depth"], form["shortcut_type"],
+                    form["data_set"], form["format"], device=at.device)
+        layers = {n.module.get_name(): n.module for n in graph.exec_order}
+        assign(model, {f"{name}.{leaf}": t for name, m in layers.items()
+                       for leaf, t in m.state_dict().items()})
+        for name, layer in model.named_children():
+            layer.training = layers[name].training
+        model.training = graph.training
+        return model
 
     def layer_walk(self, image_hw):
         """``(name, module, (h, w) of its input)`` for every layer in

@@ -51,6 +51,17 @@ from bigdl_tpu_torch.utils.remat import checkpoint_list
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer (see module docstring)."""
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's layer record; the model that holds it builds it."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec, built_inside
+        return NativeSpec("bigdl_tpu.models.transformer:"
+                          "TransformerEncoderLayer", cls,
+                          "hidden_size attn ln1 ln2 fc1 fc2 dropout",
+                          get={"dropout": lambda m: m.drop.p},
+                          build=built_inside("BERT"))
+
     def __init__(self, hidden_size, n_heads, intermediate_size=None,
                  dropout=0.0, sequence_parallel=None, causal=False,
                  device=None, dtype=torch.float32):
@@ -99,6 +110,20 @@ def _ids_and_types(x):
 class BERT(nn.Module):
     """BERT encoder (base: 12 layers, hidden 768, 12 heads) returning the
     last layer's states (B, T, hidden); see module docstring."""
+
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's record, built back here at the file's widths and
+        tensor type; the weights in ``convert``'s BERT layout."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec("bigdl_tpu.models.transformer:BERT", cls,
+                          "vocab_size hidden_size max_position "
+                          "type_vocab_size layers ln remat",
+                          get={"layers": lambda m: list(m.layers)},
+                          build=lambda a, make, at: cls(
+                              **_native_widths(a, at)),
+                          trees=_native_trees, load_trees=_native_load_trees)
 
     def __init__(self, vocab_size=30522, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=512, type_vocab_size=2,
@@ -175,6 +200,16 @@ class BertForMLM(nn.Module):
     with ``CrossEntropyCriterion`` on the flattened token labels (label
     -1, its ``padding_value``, for unpredicted positions)."""
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry, as :meth:`BERT.native_spec`."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec("bigdl_tpu.models.transformer:BertForMLM", cls,
+                          "vocab_size bert head",
+                          build=lambda a, make, at: cls(
+                              **_native_widths(a["bert"].attrs, at)),
+                          trees=_native_trees, load_trees=_native_load_trees)
+
     def __init__(self, vocab_size=30522, hidden_size=768, n_layers=12,
                  n_heads=12, max_position=512, device=None,
                  dtype=torch.float32, **kw):
@@ -200,6 +235,33 @@ class BertForMLM(nn.Module):
         hs = BERT.group_forward([m.bert for m in models], xs, generator)
         return [m.head(h).reshape(-1, m.vocab_size)
                 for m, h in zip(models, hs)]
+
+
+def _native_widths(b, at):
+    """A ``BERT``'s constructor values from its native record's
+    attributes ``b`` (its layers' records give the heads, the inner width
+    and the dropout), on ``at.device`` in ``at.dtype``."""
+    layer = b["layers"][0].attrs if b["layers"] else None
+    return dict(vocab_size=b["vocab_size"], hidden_size=b["hidden_size"],
+                n_layers=len(b["layers"]),
+                n_heads=layer["attn"].attrs["n_heads"] if layer else 1,
+                max_position=b["max_position"],
+                type_vocab_size=b["type_vocab_size"],
+                intermediate_size=(layer["fc1"].attrs["output_size"]
+                                   if layer else None),
+                dropout=layer["dropout"] if layer else 0.0,
+                remat=b["remat"], device=at.device,
+                dtype=at.dtype or torch.float32)
+
+
+def _native_trees(model, state_dict):
+    from bigdl_tpu_torch import convert
+    return convert.bert_params_to_jax(state_dict, tensors=True), ()
+
+
+def _native_load_trees(model, params, state):
+    from bigdl_tpu_torch import convert
+    return convert.bert_params_from_jax(params)
 
 
 def bert_mlm_flops_per_token(n_layers=12, h=768, s=512, vocab=30522,

@@ -1,8 +1,8 @@
 from bigdl_tpu_torch.nn.activation import (ELU, Abs, Exp, Identity, Log,
-                                           LogSoftMax, Negative, Power,
-                                           PReLU, ReLU, ReLU6, Sigmoid,
-                                           SoftMax, SoftPlus, SoftSign, Sqrt,
-                                           Square, Tanh)
+                                           LogSoftMax, Maxout, Negative,
+                                           Power, PReLU, ReLU, ReLU6,
+                                           Sigmoid, SoftMax, SoftPlus,
+                                           SoftSign, Sqrt, Square, Tanh)
 from bigdl_tpu_torch.nn.basic import (AddConstant, CAdd, CMul, Dropout,
                                       Flatten, Mean, MulConstant, Narrow,
                                       Reshape, Scale, SpatialZeroPadding,
@@ -12,7 +12,10 @@ from bigdl_tpu_torch.nn.containers import (Bottle, Concat, ConcatTable,
                                            Sequential)
 from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
                                      SpatialDilatedConvolution,
-                                     SpatialFullConvolution)
+                                     SpatialFullConvolution,
+                                     TemporalConvolution,
+                                     VolumetricConvolution,
+                                     VolumetricFullConvolution)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           CrossEntropyCriterion,
                                           TimeDistributedCriterion)
@@ -23,7 +26,9 @@ from bigdl_tpu_torch.nn.init_methods import (BilinearFiller, ConstInitMethod,
                                              MsraFiller, Ones, RandomNormal,
                                              RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.misc import BinaryThreshold, InferReshape
+from bigdl_tpu_torch.nn.locally_connected import (LocallyConnected1D,
+                                                  LocallyConnected2D)
+from bigdl_tpu_torch.nn.misc import BinaryThreshold, Highway, InferReshape
 from bigdl_tpu_torch.nn.module import (Module, grad_scales,
                                        regularization_loss, regularizers,
                                        takes_generator)
@@ -31,9 +36,12 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               LayerNormalization,
                                               SpatialBatchNormalization,
                                               SpatialCrossMapLRN,
-                                              SpatialWithinChannelLRN)
+                                              SpatialWithinChannelLRN,
+                                              VolumetricBatchNormalization)
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
-                                        SpatialMaxPooling)
+                                        SpatialMaxPooling, TemporalMaxPooling,
+                                        VolumetricAveragePooling,
+                                        VolumetricMaxPooling)
 from bigdl_tpu_torch.nn.quantized import (
     Int8Linear, QuantizedLinear, QuantizedSpatialConvolution,
     QuantizedSpatialDilatedConvolution, Quantizer, quantize_model)
@@ -55,10 +63,11 @@ __all__ = ["Abs", "AddConstant", "BatchNormalization", "BiRecurrent",
            "ClassNLLCriterion", "Concat", "ConcatTable", "ConstInitMethod",
            "Container", "ConvLSTMPeephole", "ConvLSTMPeephole3D",
            "CrossEntropyCriterion", "Dropout", "ELU", "Exp", "Flatten", "GRU",
-           "Graph", "Identity", "InferReshape", "InitializationMethod",
+           "Graph", "Highway", "Identity", "InferReshape", "InitializationMethod",
            "Input", "Int8Linear", "JoinTable", "LSTM", "LSTMPeephole",
-           "LayerNormalization", "Linear", "Log", "LogSoftMax", "LookupTable",
-           "LookupTableSparse", "MM", "MapTable", "Mean", "Module",
+           "LayerNormalization", "Linear", "LocallyConnected1D",
+           "LocallyConnected2D", "Log", "LogSoftMax", "LookupTable",
+           "LookupTableSparse", "MM", "MapTable", "Maxout", "Mean", "Module",
            "MsraFiller", "MulConstant", "MultiRNNCell", "Narrow", "Negative",
            "Node", "Ones", "PReLU",
            "ParallelTable", "Power", "QuantizedLinear",
@@ -72,8 +81,10 @@ __all__ = ["Abs", "AddConstant", "BatchNormalization", "BiRecurrent",
            "SpatialCrossMapLRN", "SpatialDilatedConvolution",
            "SpatialFullConvolution", "SpatialMaxPooling",
            "SpatialWithinChannelLRN", "SpatialZeroPadding", "Sqrt", "Square",
-           "Squeeze", "Sum", "Tanh", "Tile",
-           "TimeDistributed", "TimeDistributedCriterion", "TreeGather",
-           "TreeLSTM", "View", "Xavier", "Zeros", "grad_scales",
+           "Squeeze", "Sum", "Tanh", "TemporalConvolution",
+           "TemporalMaxPooling", "Tile", "TimeDistributed", "TimeDistributedCriterion", "TreeGather",
+           "TreeLSTM", "View", "VolumetricAveragePooling",
+           "VolumetricBatchNormalization", "VolumetricConvolution",
+           "VolumetricFullConvolution", "VolumetricMaxPooling", "Xavier", "Zeros", "grad_scales",
            "quantize_model", "regularization_loss", "regularizers",
            "takes_generator"]

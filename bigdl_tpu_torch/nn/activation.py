@@ -174,3 +174,47 @@ class Negative(Module):
 
     def forward(self, x):
         return -x
+
+
+class Maxout(Module):
+    """A linear map to ``output_size * maxout_number`` units, then the max
+    over each unit's ``maxout_number`` pieces (reference
+    ``nn/Maxout.scala``). The reference holds the map as a ``Linear``
+    child whose params are the layer's own; here ``weight`` (out *
+    pieces, in) and ``bias`` are the layer's, in ``Linear``'s layout and
+    with its initial distribution."""
+
+    def __init__(self, input_size, output_size, maxout_number,
+                 with_bias=True, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.input_size = input_size
+        self.output_size = output_size
+        self.maxout_number = maxout_number
+        width = output_size * maxout_number
+        self.weight = nn.Parameter(torch.empty(width, input_size,
+                                               device=device, dtype=dtype))
+        if with_bias:
+            self.bias = nn.Parameter(torch.zeros(width, device=device,
+                                                 dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        y = F.linear(x, self.weight, self.bias)
+        return torch.amax(y.reshape(y.shape[:-1] + (self.output_size,
+                                                    self.maxout_number)),
+                          dim=-1)
+
+    def init_arrays(self, rng):
+        bound = 1.0 / np.sqrt(self.input_size)
+        width = self.output_size * self.maxout_number
+        out = {"weight": rng.uniform(-bound, bound,
+                                     (self.input_size, width)).T}
+        if self.bias is not None:
+            out["bias"] = rng.uniform(-bound, bound, width)
+        return out
+
+    def extra_repr(self):
+        return (f"{self.input_size} -> {self.output_size} "
+                f"x {self.maxout_number}")

@@ -357,3 +357,177 @@ class SpatialFullConvolution(Module):
                 + (f", adj {self.adj_w},{self.adj_h}"
                    if (self.adj_w, self.adj_h) != (0, 0) else "")
                 + (f", groups={self.n_group}" if self.n_group > 1 else ""))
+
+
+def _xavier(rng, shape, fan_in, fan_out):
+    """Glorot-uniform in the reference's layout ``shape`` (its Xavier)."""
+    bound = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-bound, bound, shape)
+
+
+class TemporalConvolution(Module):
+    """1-D convolution over ``(batch, time, feature)`` (reference
+    ``nn/TemporalConvolution.scala``): VALID windows of ``kernel_w``
+    frames, ``stride_w`` apart, taps ``dilation`` apart, through
+    ``F.conv1d`` (the reference's ``lax.conv_general_dilated``, outside
+    any Pallas kernel). The weight is ``(out, in, kernel_w)``; the
+    reference's is ``(kernel_w, in, out)``."""
+
+    jax_perms = {"weight": (2, 1, 0)}
+
+    def __init__(self, input_frame_size, output_frame_size, kernel_w,
+                 stride_w=1, propagate_back=True, w_regularizer=None,
+                 b_regularizer=None, init_weight=None, init_bias=None,
+                 with_bias=True, dilation=1, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w, self.stride_w = kernel_w, stride_w
+        self.dilation = dilation
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty(
+            output_frame_size, input_frame_size, kernel_w, device=device,
+            dtype=dtype))
+        if with_bias:
+            self.bias = nn.Parameter(torch.zeros(output_frame_size,
+                                                 device=device, dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+                     self.stride_w, 0, self.dilation)
+        return y.transpose(1, 2)
+
+    def init_arrays(self, rng):
+        fan_in = self.kernel_w * self.input_frame_size
+        ref = _xavier(rng, (self.kernel_w, self.input_frame_size,
+                            self.output_frame_size), fan_in,
+                      self.output_frame_size)
+        out = {"weight": ref.transpose(2, 1, 0)}
+        if self.bias is not None:
+            out["bias"] = np.zeros(self.output_frame_size)
+        return out
+
+    def extra_repr(self):
+        return (f"{self.input_frame_size} -> {self.output_frame_size}, "
+                f"k={self.kernel_w}, s={self.stride_w}, d={self.dilation}")
+
+
+class VolumetricConvolution(Module):
+    """3-D convolution over NCDHW (reference
+    ``nn/VolumetricConvolution.scala``) through ``F.conv3d``. The weight
+    is OIDHW; the reference's DHWIO. A pad of -1 on any axis means SAME
+    on every axis, as the reference reads it. The reference takes
+    ``w_regularizer``/``b_regularizer`` and keeps neither: so does this
+    layer."""
+
+    jax_perms = {"weight": (2, 3, 4, 1, 0)}
+
+    def __init__(self, n_input_plane, n_output_plane, k_t, k_w, k_h,
+                 d_t=1, d_w=1, d_h=1, pad_t=0, pad_w=0, pad_h=0,
+                 with_bias=True, format="NCDHW", init_weight=None,
+                 init_bias=None, w_regularizer=None, b_regularizer=None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
+        self.k = (k_t, k_h, k_w)
+        self.stride = (d_t, d_h, d_w)
+        self.pad = (pad_t, pad_h, pad_w)
+        self.format = format
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty(
+            (n_output_plane, n_input_plane) + self.k, device=device,
+            dtype=dtype))
+        if with_bias:
+            self.bias = nn.Parameter(torch.zeros(n_output_plane,
+                                                 device=device, dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        if any(p == -1 for p in self.pad):
+            lo_hi = [same_padding(n, k, s) for n, k, s
+                     in zip(x.shape[2:], self.k, self.stride)]
+            x = F.pad(x, [v for lo, hi in reversed(lo_hi) for v in (lo, hi)])
+            pad = 0
+        else:
+            pad = self.pad
+        return F.conv3d(x, self.weight, self.bias, self.stride, pad)
+
+    def init_arrays(self, rng):
+        kk = int(np.prod(self.k))
+        ref = _xavier(rng, self.k + (self.n_input_plane, self.n_output_plane),
+                      kk * self.n_input_plane, kk * self.n_output_plane)
+        out = {"weight": ref.transpose(4, 3, 0, 1, 2)}
+        if self.bias is not None:
+            out["bias"] = np.zeros(self.n_output_plane)
+        return out
+
+    def extra_repr(self):
+        return (f"{self.n_input_plane} -> {self.n_output_plane}, "
+                f"k={self.k}, s={self.stride}, pad={self.pad}")
+
+
+class VolumetricFullConvolution(Module):
+    """3-D transposed convolution over NCDHW (reference
+    ``nn/VolumetricFullConvolution.scala``) through
+    ``F.conv_transpose3d``. The weight is ``(I, O, kt, kh, kw)``; the
+    reference's is ``(kt, kh, kw, I, O)`` run forward over the
+    stride-dilated input with the flipped kernel, the same map. ``adj``
+    adds planes after the end (torch's ``output_padding``; where torch
+    refuses one as large as the stride, the unpadded result is padded or
+    cut to the window instead, as ``SpatialFullConvolution`` does)."""
+
+    jax_perms = {"weight": (2, 3, 4, 0, 1)}
+
+    def __init__(self, n_input_plane, n_output_plane, k_t, k_w, k_h,
+                 d_t=1, d_w=1, d_h=1, pad_t=0, pad_w=0, pad_h=0,
+                 adj_t=0, adj_w=0, adj_h=0, no_bias=False,
+                 w_regularizer=None, b_regularizer=None, init_weight=None,
+                 init_bias=None, device=None, dtype=torch.float32):
+        super().__init__()
+        self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
+        self.k = (k_t, k_h, k_w)
+        self.stride = (d_t, d_h, d_w)
+        self.pad = (pad_t, pad_h, pad_w)
+        self.adj = (adj_t, adj_h, adj_w)
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
+        device = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty(
+            (n_input_plane, n_output_plane) + self.k, device=device,
+            dtype=dtype))
+        if no_bias:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(torch.zeros(n_output_plane,
+                                                 device=device, dtype=dtype))
+
+    def forward(self, x):
+        if all(a < s for a, s in zip(self.adj, self.stride)):
+            return F.conv_transpose3d(x, self.weight, self.bias, self.stride,
+                                      self.pad, self.adj)
+        full = F.conv_transpose3d(x, self.weight, None, self.stride)
+        cuts = []
+        for p, a in reversed(list(zip(self.pad, self.adj))):
+            cuts += [-p, a - p]
+        y = F.pad(full, cuts)
+        if self.bias is not None:
+            y = y + self.bias.reshape(1, -1, 1, 1, 1)
+        return y
+
+    def init_arrays(self, rng):
+        kk = int(np.prod(self.k))
+        ref = _xavier(rng, self.k + (self.n_input_plane, self.n_output_plane),
+                      kk * self.n_input_plane, kk * self.n_output_plane)
+        out = {"weight": ref.transpose(3, 4, 0, 1, 2)}
+        if self.bias is not None:
+            out["bias"] = np.zeros(self.n_output_plane)
+        return out
+
+    def extra_repr(self):
+        return (f"{self.n_input_plane} -> {self.n_output_plane}, "
+                f"k={self.k}, s={self.stride}, pad={self.pad}, "
+                f"adj={self.adj}")

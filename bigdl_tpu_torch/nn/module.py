@@ -30,6 +30,9 @@ reference's training API reads from them:
   view (a class's own ``jax_layout`` method: the transposed convolution's
   grouped weight), and :func:`to_jax_layout`/:func:`from_jax_layout`
   apply it to a tensor or an array either way;
+- ``save_module(path, weight_path=None, overwrite=False)``: the module
+  in the native model format (``utils/serializer.py``; its
+  ``load_module`` reads it back);
 - :func:`takes_generator`: does a module's ``forward`` take the
   ``generator`` its layers draw from (``Dropout``, the containers, the
   GPT and ResNet models)? The reference hands its rng to every layer and
@@ -129,6 +132,13 @@ class Module(nn.Module):
     def regularized_leaves(self):
         """``[(own parameter name, regularizer)]`` (module docstring)."""
         return [("weight", self.w_regularizer), ("bias", self.b_regularizer)]
+
+    def save_module(self, path, weight_path=None, overwrite=False):
+        """Write this module in the native format
+        (``utils/serializer.py`` ``save_module``); returns the module."""
+        from bigdl_tpu_torch.utils.serializer import save_module
+        save_module(self, path, weight_path=weight_path, overwrite=overwrite)
+        return self
 
 
 _DEFAULT_PERMS = {4: (2, 3, 1, 0), 2: (1, 0)}

@@ -174,3 +174,10 @@ class SpatialWithinChannelLRN(Module):
 
     def extra_repr(self):
         return f"size={self.size}, alpha={self.alpha}, beta={self.beta}"
+
+
+class VolumetricBatchNormalization(BatchNormalization):
+    """BN over the channel axis (1) of NCDHW volumes (reference
+    ``nn/normalization.py`` ``VolumetricBatchNormalization``)."""
+
+    feature_axis = 1

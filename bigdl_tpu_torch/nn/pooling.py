@@ -125,3 +125,70 @@ class SpatialAveragePooling(_Pool2D):
         if self.count_include_pad:
             return summed / (self.kw * self.kh)
         return summed / self._sum(torch.ones_like(x))
+
+
+class TemporalMaxPooling(Module):
+    """Max over VALID windows of ``k_w`` frames, ``d_w`` apart (default
+    ``k_w``), of ``(batch, time, feature)`` (reference
+    ``nn/TemporalMaxPooling.scala``)."""
+
+    def __init__(self, k_w, d_w=None):
+        super().__init__()
+        self.k_w = k_w
+        self.d_w = d_w if d_w is not None else k_w
+
+    def forward(self, x):
+        return F.max_pool1d(x.transpose(1, 2), self.k_w,
+                            self.d_w).transpose(1, 2)
+
+
+class _Pool3D(Module):
+    """NCDHW windows ``k`` = (kt, kh, kw), strides ``s`` (default ``k``)
+    and ``pad`` on both sides of each axis, the reference's
+    ``reduce_window`` ones: the padding is made explicit with the pool's
+    fill, so any pad works (torch's own takes at most half a window)."""
+
+    def __init__(self, k_t, k_w, k_h, d_t=None, d_w=None, d_h=None,
+                 pad_t=0, pad_w=0, pad_h=0):
+        super().__init__()
+        self.k = (k_t, k_h, k_w)
+        self.s = (d_t or k_t, d_h or k_h, d_w or k_w)
+        self.pad = (pad_t, pad_h, pad_w)
+
+    def _padded(self, x, fill):
+        if not any(self.pad):
+            return x
+        return F.pad(x, [v for p in reversed(self.pad) for v in (p, p)],
+                     value=fill)
+
+    def extra_repr(self):
+        return f"k={self.k}, s={self.s}, pad={self.pad}"
+
+
+class VolumetricMaxPooling(_Pool3D):
+    """Reference ``nn/VolumetricMaxPooling.scala`` (``_Pool3D``'s
+    windows)."""
+
+    def forward(self, x):
+        return F.max_pool3d(self._padded(x, float("-inf")), self.k, self.s)
+
+
+class VolumetricAveragePooling(_Pool3D):
+    """Reference ``nn/VolumetricAveragePooling.scala``: each window's sum
+    over the zero-padded input divided by ``kt * kh * kw``, or with
+    ``count_include_pad=False`` by the count of its input elements."""
+
+    def __init__(self, k_t, k_w, k_h, d_t=None, d_w=None, d_h=None,
+                 pad_t=0, pad_w=0, pad_h=0, count_include_pad=True):
+        super().__init__(k_t, k_w, k_h, d_t, d_w, d_h, pad_t, pad_w, pad_h)
+        self.count_include_pad = count_include_pad
+
+    def _sum(self, x):
+        return F.avg_pool3d(self._padded(x, 0.0), self.k, self.s,
+                            divisor_override=1)
+
+    def forward(self, x):
+        summed = self._sum(x)
+        if self.count_include_pad:
+            return summed / (self.k[0] * self.k[1] * self.k[2])
+        return summed / self._sum(torch.ones_like(x))

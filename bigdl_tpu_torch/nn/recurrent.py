@@ -243,6 +243,7 @@ class ConvLSTMPeephole(Cell):
         self.kernel_i, self.kernel_c = kernel_i, kernel_c
         self.stride = stride
         self.with_peephole = with_peephole
+        self.spatial = None        # bound by the first input (init_hidden)
         dev = resolve_device(device)
         r, o4 = self.rank, 4 * output_size
         cl = r == 2
@@ -269,7 +270,10 @@ class ConvLSTMPeephole(Cell):
         return out
 
     def init_hidden(self, x_t):
-        spatial = tuple(-(-s // self.stride) for s in x_t.shape[2:])
+        # kept as the reference binds it at setup (its native records
+        # carry the hidden state's spatial size)
+        self.spatial = spatial = tuple(-(-s // self.stride)
+                                       for s in x_t.shape[2:])
         h = x_t.new_zeros((x_t.shape[0], self.output_size) + spatial)
         return (h, h)
 

@@ -67,6 +67,9 @@ class Cond(Module):
     (a list or a Table), or the data alone with ``pred_fn`` deriving the
     predicate from it."""
 
+    # the reference's params and state: {"then": ..., "else": ...}
+    param_children = (("then_module", "then"), ("else_module", "else"))
+
     def __init__(self, then_module, else_module, pred_fn=None):
         super().__init__()
         self.then_module = then_module
@@ -95,6 +98,8 @@ class WhileLoop(Module):
     """``body_module`` applied while ``cond_fn`` holds (module docstring);
     the body maps the carry to a value of the same shape and dtype, as
     the reference's ``lax.while_loop`` requires."""
+
+    param_children = (("body_module", None),)   # the body's own params
 
     def __init__(self, body_module, cond_fn, max_iters=None):
         super().__init__()

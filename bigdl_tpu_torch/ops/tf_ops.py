@@ -1326,6 +1326,21 @@ class ConvBackpropInput(Operation):
 
     writes_input_grads = True     # models.routes.conv_routes
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference keeps the TF filter as ``weight``."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec("bigdl_tpu.ops.tf_ops:ConvBackpropInput", cls,
+                          get={"weight": lambda m: m.tf_filter()})
+
+    def tf_filter(self):
+        """The filter in TF's layout, as the constructor took it."""
+        w = self.weight.detach().cpu().numpy()
+        nd = w.ndim - 2
+        w = w.transpose(tuple(range(2, nd + 2)) + (1, 0))
+        return np.ascontiguousarray(w.reshape(self.weight_shape))
+
     def __init__(self, input_sizes, weight, strides, padding,
                  depthwise=False, spatial_dims=2, device=None):
         super().__init__()
@@ -1465,6 +1480,14 @@ class Dilation2DBackprop(Operation):
     ``utils/tf/loaders/Dilation2DBackpropInput.scala`` / ``Filter``); the
     filter is a buffer on ``device`` (default the card)."""
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the filter
+        is a buffer here, the reference's ``weight`` attribute."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec("bigdl_tpu.ops.tf_ops:Dilation2DBackprop", cls,
+                          get={"weight": lambda m: m.weight.cpu().numpy()})
+
     def __init__(self, weight, strides, rates, padding, wrt="input",
                  device=None):
         super().__init__()
@@ -1510,6 +1533,19 @@ class DecodeRaw(Operation):
     one string gives its vector, an array of them the stacked rows."""
 
     host_side = True
+
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): built from
+        ``out_dtype`` and the byte order (a file's type names carry
+        none)."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec
+        return NativeSpec(
+            "bigdl_tpu.ops.tf_ops:DecodeRaw", cls,
+            args={"out_type": "out_dtype"},
+            get={"little_endian": lambda m: m.wire_dtype.byteorder != ">"},
+            build=lambda a, make, at: cls(a["out_dtype"],
+                                          a.get("little_endian", True)))
 
     def __init__(self, out_type, little_endian=True):
         super().__init__()

@@ -60,6 +60,7 @@ from bigdl_tpu_torch.utils.fileio import (atomic_file_swap, file_makedirs,
                                           path_join)
 from bigdl_tpu_torch.utils.flags import get_flag
 from bigdl_tpu_torch.utils.remat import checkpoint
+from bigdl_tpu_torch.utils.serializer import save_module
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
@@ -485,19 +486,22 @@ class Optimizer:
                     opt_state["plateau_mult"].fill_(mult)
 
     def _checkpoint(self, neval, opt_state):
-        """Write ``model.<neval>`` (the module's ``state_dict``, with
-        ``torch.save``) and ``optimMethod.<neval>`` (``OptimMethod.save``)
-        under the checkpoint path, each through ``atomic_file_swap``. The
-        host copy is taken here, synchronously; the files are written
-        behind a thread (``BIGDL_TPU_ASYNC_CHECKPOINT``, on), one write at
-        a time, and a writer's exception surfaces at the next checkpoint
-        or at the end of ``optimize()``."""
+        """Write ``model.<neval>`` (the module in the native format,
+        ``utils/serializer.py`` ``save_module``, as the reference's
+        ``optimizer.py:597-604``) and ``optimMethod.<neval>``
+        (``OptimMethod.save``) under the checkpoint path, each through
+        ``atomic_file_swap``. The host copy of the weights is taken here,
+        synchronously; the files are written behind a thread
+        (``BIGDL_TPU_ASYNC_CHECKPOINT``, on), one write at a time, and a
+        writer's exception surfaces at the next checkpoint or at the end
+        of ``optimize()``."""
         if not self.checkpoint_path:
             return
         self._join_checkpoint()
         weights = cpu_copy(dict(self.model.state_dict()))
         state = cpu_copy(opt_state)
         method = self.optim_method
+        model = self.model
         path = self.checkpoint_path
 
         def write():
@@ -505,7 +509,8 @@ class Optimizer:
             file_makedirs(path)
             model_path = path_join(path, f"model.{neval}")
             method_path = path_join(path, f"optimMethod.{neval}")
-            atomic_file_swap(model_path, lambda p: torch.save(weights, p))
+            atomic_file_swap(model_path, lambda p: save_module(
+                model, p, overwrite=True, state_dict=weights))
             atomic_file_swap(method_path,
                              lambda p: method.save(p, state,
                                                    overwrite=True))

@@ -40,8 +40,10 @@ float32 masters as ``(global start, array)`` blocks, one a replica;
 ``opt``: each optimizer-state leaf under the reference's ``keystr`` path,
 blocks of the slots and ``(None, array)`` for a scalar; ``state``: the
 model's buffers in the reference's layout, ``convert.model_state_to_jax``),
-then ``model.<neval>`` with the buffers and the marker
-``_sharded_weights_marker`` ``{neval, nprocs}`` in place of weights, and
+then ``model.<neval>``, the model in the native format
+(``utils/serializer.py``) whose root carries the reference's marker
+attribute ``_sharded_weights_marker`` ``{neval, nprocs}`` (its weights are
+replica 0's, its buffers the ones a resume restores), and
 ``optimMethod.<neval>`` without its state. The retry's reload picks among
 both formats as the reference does: a set counts when its pids are
 exactly ``range(nprocs)``, candidates newest first with a sharded set
@@ -54,8 +56,8 @@ cards wait for ROADMAP queue A.10(b).
 
 from __future__ import annotations
 
+import copy
 import logging
-import os
 import pickle
 import time
 
@@ -78,6 +80,8 @@ from bigdl_tpu_torch.utils.fileio import (atomic_file_swap, atomic_write,
                                           file_exists, file_listdir,
                                           file_makedirs, file_open, path_join)
 from bigdl_tpu_torch.utils.flags import get_flag
+from bigdl_tpu_torch.utils.serializer import (copy_weights, load_module,
+                                              save_module)
 
 logger = logging.getLogger("bigdl_tpu_torch.parallel")
 
@@ -398,9 +402,11 @@ class DistriOptimizer(Optimizer):
                     self._opt_leaves(state.opt_states).items()},
             "state": convert.model_state_to_jax(state.replicas[0]),
         }
-        marker = cpu_copy(dict(state.replicas[0].named_buffers()))
-        marker["_sharded_weights_marker"] = {"neval": int(neval),
-                                             "nprocs": 1}
+        # the reference's marker model: a shallow copy carrying the
+        # attribute, written from a host snapshot of replica 0
+        marker = copy.copy(state.replicas[0])
+        marker._sharded_weights_marker = {"neval": int(neval), "nprocs": 1}
+        weights = cpu_copy(dict(state.replicas[0].state_dict()))
         method = self.optim_method
         path = self.checkpoint_path
 
@@ -411,7 +417,8 @@ class DistriOptimizer(Optimizer):
             atomic_write(shard_path, pickle.dumps(payload))
             model_path = path_join(path, f"model.{neval}")
             method_path = path_join(path, f"optimMethod.{neval}")
-            atomic_file_swap(model_path, lambda p: torch.save(marker, p))
+            atomic_file_swap(model_path, lambda p: save_module(
+                marker, p, overwrite=True, state_dict=weights))
             atomic_file_swap(method_path,
                              lambda p: method.save(p, None, overwrite=True))
             for f in (shard_path, model_path, method_path):
@@ -463,14 +470,13 @@ class DistriOptimizer(Optimizer):
         method, _ = OptimMethod.load(
             path_join(self.checkpoint_path, f"optimMethod.{neval}"))
         device = next(self.model.parameters()).device
-        saved = load_model_file(
-            path_join(self.checkpoint_path, f"model.{neval}"), device)
-        saved.pop("_sharded_weights_marker", None)
+        saved = load_module(path_join(self.checkpoint_path,
+                                      f"model.{neval}"), device=device)
         with file_open(path_join(self.checkpoint_path,
                                  f"shard.{neval}.p0"), "rb") as f:
             mine = pickle.load(f)
         self.optim_method = method
-        self.model.load_state_dict(saved, strict=False)
+        copy_weights(self.model, saved, buffers_only=True)
         self._build_step()
         state = self._step.state
         with torch.no_grad():
@@ -487,9 +493,9 @@ class DistriOptimizer(Optimizer):
 
     def _reload_gathered(self, neval):
         device = next(self.model.parameters()).device
-        sd = load_model_file(path_join(self.checkpoint_path,
-                                       f"model.{neval}"), device)
-        self.model.load_state_dict(sd)
+        copy_weights(self.model, load_module(
+            path_join(self.checkpoint_path, f"model.{neval}"),
+            device=device))
         method, saved = OptimMethod.load(
             path_join(self.checkpoint_path, f"optimMethod.{neval}"))
         self.optim_method = method
@@ -556,29 +562,4 @@ class DistriOptimizer(Optimizer):
                 "epoch_finished": False}
 
 
-def load_model_file(path, map_location=None):
-    """The ``state_dict`` in a ``model.<neval>`` checkpoint file. A file
-    of a sharded set (``_sharded_weights_marker``) holds buffers and no
-    weights: it is refused, with the reference's message, once its
-    ``shard.<neval>.p*`` files are gone (the reference's
-    ``utils/serializer.py`` ``_check_sharded_marker``)."""
-    sd = torch.load(path, map_location=map_location)
-    marker = sd.get("_sharded_weights_marker")
-    if isinstance(marker, dict):
-        neval, nprocs = marker.get("neval"), marker.get("nprocs")
-        base = os.path.dirname(os.path.abspath(path))
-        siblings = [f for f in file_listdir(base)
-                    if f.startswith(f"shard.{neval}.p")
-                    and not f.endswith(".tmp")]
-        if not siblings:
-            raise ValueError(
-                f"{path} was written by a sharded checkpoint (neval="
-                f"{neval}, {nprocs} process(es)) and holds STALE "
-                f"placeholder params — the shard.{neval}.p* files that "
-                "carry the real weights are missing. Restore from a "
-                "gathered checkpoint, or restore the shard files and "
-                "resume through DistriOptimizer.")
-    return sd
-
-
-__all__ = ["DistriOptimizer", "load_model_file", "visible_cards"]
+__all__ = ["DistriOptimizer", "visible_cards"]

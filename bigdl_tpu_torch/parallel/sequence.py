@@ -398,6 +398,22 @@ class MultiHeadAttention(nn.Module):
     ``wo``'s partial, which the caller sums over the shards
     (``parallel/tensor_parallel.py``). ``n_heads`` stays the model's."""
 
+    @classmethod
+    def native_spec(cls):
+        """The native format's entry (``utils/serializer.py``): the
+        reference's attention record, the class its ``MultiHeadAttention``
+        makes; the model that holds the layer builds it."""
+        from bigdl_tpu_torch.utils.serializer import NativeSpec, built_inside
+        return NativeSpec(
+            "bigdl_tpu.parallel.sequence:MultiHeadAttention.__new__."
+            "<locals>._MHA", cls,
+            "hidden_size n_heads head_dim causal sequence_parallel "
+            "use_flash use_paged_kernel paged_kernel_mesh",
+            extra={"use_flash": lambda m: None,
+                   "use_paged_kernel": lambda m: False,
+                   "paged_kernel_mesh": lambda m: None},
+            build=built_inside("model"), name="_MHA")
+
     def __init__(self, hidden_size, n_heads, causal=False,
                  sequence_parallel=None, tp=1, device=None,
                  dtype=torch.float32):

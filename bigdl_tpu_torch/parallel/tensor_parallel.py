@@ -203,6 +203,11 @@ class TensorParallelCausalLM(nn.Module):
 
     def __init__(self, model, layout):
         super().__init__()
+        if getattr(model, "head", None) is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving of an untied LM head "
+                "(tie_embeddings=False) is not ported: the shards split the "
+                "tied head's vocabulary rows only")
         gpt = model.gpt
         attn = gpt.layers[0].attn
         layout.validate_heads(attn.n_heads)

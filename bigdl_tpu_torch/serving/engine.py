@@ -501,6 +501,15 @@ class ServingEngine:
                       engine=self.obs_label):
             return self.scheduler.submit(req)
 
+    def submit_many(self, requests):
+        """Enqueue a group of requests that one admission pass sees whole,
+        whatever the host's timing between them: ``requests`` holds
+        :meth:`submit`'s keyword arguments, a dict a request. Returns the
+        handles in order; a refused request raises, those before it
+        enqueued."""
+        with self.scheduler.held_admission():
+            return [self.submit(**kw) for kw in requests]
+
     def resubmit(self, request):
         """Re-enqueue an unfinished handle on THIS engine (the supervisor's
         route): the same ``Request`` object, so the caller's stream stays

@@ -541,6 +541,12 @@ class Scheduler:
         return o
 
     # -------------------------------------------------------- caller side
+    def held_admission(self):
+        """The scheduler's lock, as a context: no admission pass runs
+        while it is held, so the requests submitted inside reach one pass
+        together (``ServingEngine.submit_many``). Re-entrant."""
+        return self._cond
+
     def submit(self, request, force=False):
         """Enqueue a request (any thread). Raises ``EngineFailedError``
         after the loop halted, ``EngineClosedError`` after shutdown and

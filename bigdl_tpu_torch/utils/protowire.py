@@ -42,50 +42,83 @@ def _sign_extend(n):
 
 
 def decode(buf, schema):
-    """Decode ``buf`` into a dict according to ``schema``."""
-    out = {}
-    pos, end = 0, len(buf)
-    while pos < end:
-        key, pos = _read_varint(buf, pos)
-        field, wire = key >> 3, key & 7
-        spec = schema.get(field)
-        if wire == 0:
-            value, pos = _read_varint(buf, pos)
-        elif wire == 1:
-            value = buf[pos:pos + 8]
-            pos += 8
-        elif wire == 5:
-            value = buf[pos:pos + 4]
-            pos += 4
-        elif wire == 2:
-            ln, pos = _read_varint(buf, pos)
-            value = buf[pos:pos + ln]
-            pos += ln
-        elif wire in (3, 4):  # group (obsolete) — skip silently
-            continue
-        else:
-            raise ValueError(f"bad wire type {wire} at {pos}")
-        if spec is None:
-            continue
-        name, kind = spec
-        repeated = name.endswith("[]")
-        if repeated:
-            name = name[:-2]
-        value = _convert(value, kind, wire)
-        if repeated:
-            if isinstance(value, list):
-                out.setdefault(name, []).extend(value)
+    """Decode ``buf`` into a dict according to ``schema``. Nested messages
+    are walked with a stack of their own, not by recursion, so a message
+    nests as deep as the data does (a graph's chain of nodes)."""
+    root = {}
+    stack = [(buf, 0, schema, root)]
+    while stack:
+        buf, pos, schema, out = stack.pop()
+        end = len(buf)
+        while pos < end:
+            key, pos = _read_varint(buf, pos)
+            field, wire = key >> 3, key & 7
+            spec = schema.get(field)
+            if wire == 0:
+                value, pos = _read_varint(buf, pos)
+            elif wire == 1:
+                value = buf[pos:pos + 8]
+                pos += 8
+            elif wire == 5:
+                value = buf[pos:pos + 4]
+                pos += 4
+            elif wire == 2:
+                ln, pos = _read_varint(buf, pos)
+                value = buf[pos:pos + ln]
+                pos += ln
+            elif wire in (3, 4):  # group (obsolete) — skip silently
+                continue
             else:
-                out.setdefault(name, []).append(value)
-        else:
-            out[name] = value
-    return out
+                raise ValueError(f"bad wire type {wire} at {pos}")
+            if spec is None:
+                continue
+            name, kind = spec
+            repeated = name.endswith("[]")
+            if repeated:
+                name = name[:-2]
+            nested = isinstance(kind, tuple) and kind[0] == "msg"
+            # a message's dict takes its place now, its fields after the
+            # rest of this one's are read
+            data = {} if nested else _convert(value, kind, wire)
+            if not repeated:
+                out[name] = data
+            elif isinstance(data, list):
+                out.setdefault(name, []).extend(data)
+            else:
+                out.setdefault(name, []).append(data)
+            if nested:
+                stack.append((buf, pos, schema, out))
+                stack.append((value, 0, kind[1], data))
+                break
+    return root
 
 
 def encode(data, schema):
     """Inverse of :func:`decode`: build wire bytes from a dict + schema.
-    Used by the model savers (CaffePersister / TensorflowSaver parity)."""
-    out = bytearray()
+    Used by the model savers (CaffePersister / TensorflowSaver parity).
+    Like :func:`decode` it keeps a stack of its own for nested messages."""
+    stack = [(None, bytearray(), _pieces(data, schema))]
+    while True:
+        field, out, pieces = stack[-1]
+        for piece in pieces:
+            if isinstance(piece, tuple):      # a message: encode it first
+                stack.append((piece[0], bytearray(),
+                              _pieces(piece[1], piece[2])))
+                break
+            out += piece
+        else:
+            stack.pop()
+            if not stack:
+                return bytes(out)
+            parent = stack[-1][1]
+            parent += _encode_key(field, 2)
+            parent += _encode_varint(len(out))
+            parent += out
+
+
+def _pieces(data, schema):
+    """The encoding of ``data``'s fields in order: bytes, or ``(field,
+    message, subschema)`` for a nested message to encode in its place."""
     by_name = {}
     for field, (name, kind) in schema.items():
         by_name[name[:-2] if name.endswith("[]") else name] = (field, name, kind)
@@ -103,13 +136,15 @@ def encode(data, schema):
             else:
                 fmt = "<f" if kind == "floats_packed" else "<d"
                 payload = b"".join(struct.pack(fmt, float(v)) for v in value)
-            out += _encode_key(field, 2) + _encode_varint(len(payload)) + payload
+            yield _encode_key(field, 2) + _encode_varint(len(payload)) + payload
             continue
         values = value if name.endswith("[]") and isinstance(value, list) \
             else [value]
         for v in values:
-            out += _encode_field(field, kind, v)
-    return bytes(out)
+            if isinstance(kind, tuple) and kind[0] == "msg":
+                yield field, v, kind[1]
+            else:
+                yield _encode_field(field, kind, v)
 
 
 def _encode_varint(n):
@@ -130,9 +165,6 @@ def _encode_key(field, wire):
 
 
 def _encode_field(field, kind, v):
-    if isinstance(kind, tuple) and kind[0] == "msg":
-        payload = encode(v, kind[1])
-        return _encode_key(field, 2) + _encode_varint(len(payload)) + payload
     if kind in ("int", "bool"):
         return _encode_key(field, 0) + _encode_varint(int(v))
     if kind == "float":
@@ -152,8 +184,6 @@ def _encode_field(field, kind, v):
 
 
 def _convert(value, kind, wire):
-    if isinstance(kind, tuple) and kind[0] == "msg":
-        return decode(value, kind[1])
     if kind == "int":
         if wire == 2:  # packed repeated varints
             vals, pos = [], 0

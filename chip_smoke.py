@@ -361,7 +361,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (3 an epoch), pinned shuffles, ``SGD(0.01)``, 4 iterations: once
    uninterrupted, once under ``train.step:preempt:after=2:times=1``, which
    raises ``TrainingPreempted`` after the third step with the final
-   checkpoint ``model.4`` / ``optimMethod.4`` (3 steps taken), and once
+   checkpoint ``model.4`` / ``optimMethod.4`` (3 steps taken; ``model.4``
+   in the native format, the ResNet as the reference's graph of its named
+   layers, which ``load_module`` builds back into a ResNet), and once
    resumed from that checkpoint for the last iteration, all three with
    cuDNN's deterministic algorithms (without them two uninterrupted runs
    differ from the second step on). Checks: the preempted and resumed
@@ -383,7 +385,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    iterations, 6 iterations, cuDNN's deterministic algorithms; once
    uninterrupted and once with the fifth batch failing. Checks:
    ``shard.2.p0`` and ``shard.4.p0`` written, shard 4 holding two master
-   blocks at starts 0 and ``slice_size``; ``model.4`` the marker file; one
+   blocks at starts 0 and ``slice_size``; ``model.4`` the marker file (the
+   native format, its root carrying ``_sharded_weights_marker``); one
    retry, resumed from the sharded set at 4; every step's loss equal to
    the uninterrupted run's bit for bit, the recomputed fourth included;
    CUDA-core conv launches = ``conv_routes`` x 2 replicas x the steps each
@@ -425,6 +428,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``tests/test_text_treelstm.py`` builds them), forward and backward
    against the CPU, ``TreeNNAccuracy`` counts equal; ms a batch forward
    and backward on the card.
+6k. load_native — the native model format (``bigdl_tpu.module.v2``,
+   ``utils/serializer.py``) and the filesystem registry, after
+   ``train_rnn``. (a) ``slice``'s GPT-2 small (float32, tied head, its
+   seeded weights) served by ``slice``'s paged engine on ``slice``'s
+   traffic, unprofiled, each group of requests submitted under the
+   scheduler's lock (one admission pass sees it whole, so the batches do
+   not follow the host's timing); then written by ``save_module`` once to
+   a local file with a ``weight_path=`` sidecar and once to ``mem://`` (an
+   in-memory filesystem the phase registers through
+   ``utils.fileio.register_filesystem``), each copy read onto the card by
+   ``load_module`` (bit-equal weights) and served the same way: every
+   request's tokens, and the ``paged_attention`` and ``fused_sampling``
+   launches (set to 0 just before each run, read just after; exactly 12 a
+   prefill chunk and decode step), equal the unsaved model's run. Against
+   ``slice``'s own run, whose first 8 submissions are not one burst (its
+   batches, and so its counts and sampled tokens, follow the host's
+   timing): greedy tokens by the near-tie rule, identity and counts
+   reported. File bytes, save and load seconds a route. (b)
+   ``train_sharded``'s ResNet-50 run (two replicas, float32,
+   ``Adam(1e-3)``, cuDNN's deterministic algorithms) with native
+   checkpoints every 2 iterations and ``train.step:error:after=4:times=1``
+   armed: ``model.4``'s magic, no shard file, one retry reloading
+   ``model.4`` through ``load_module`` (``_reload_gathered``), the six
+   losses equal ``train_sharded``'s uninterrupted run's bit for bit, and
+   CUDA-core conv launches = ``conv_routes`` x 2 replicas x the 7 steps
+   dispatched, no tensor-core launch, no 3x3 stride-1 ``F.conv2d``. (c)
+   the card's file read with ``device="cpu"``: the CPU's logits of 2 x 64
+   tokens within 1e-4 x max|CPU| of the card's; that CPU model written and
+   read back onto the card: its logits equal the card's first forward bit
+   for bit.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -688,6 +721,7 @@ for float32 (outside the tensor cores, TF32 off), 989 TFLOP/s for bfloat16
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1883,25 +1917,30 @@ def _traffic(rng):
     return prompts
 
 
-def _drive(engine, prompts, adapters=None):
+def _drive(engine, prompts, adapters=None, burst=False):
     """Submit the traffic: 8 requests at once, then, once request 3's
     prefill registered the shared pages, the other 4 (which wait for free
-    slots); request ``i`` under ``adapters[i]`` when given. Returns the
-    handles."""
+    slots); request ``i`` under ``adapters[i]`` when given. With
+    ``burst`` each group goes in through ``submit_many``, so one
+    admission pass sees it whole and the run's batches do not depend on
+    the host's timing. Returns the handles."""
     t0 = time.perf_counter()
     adapters = adapters or [None] * 12
-    handles = [engine.submit(prompts[i], N_NEW, temperature=TEMPS[i],
-                             adapter=adapters[i])
-               for i in range(8)]
+
+    def submit(idx):
+        kws = [dict(prompt=prompts[i], max_new_tokens=N_NEW,
+                    temperature=TEMPS[i], adapter=adapters[i]) for i in idx]
+        if burst:
+            return engine.submit_many(kws)
+        return [engine.submit(**kw) for kw in kws]
+
+    handles = submit(range(8))
     while handles[3].first_token_at is None:
         check(not handles[3].done.is_set() or handles[3].error is None,
               f"request 3 failed: {handles[3].error!r}")
         check(time.perf_counter() - t0 < 300, "request 3 stalled")
         time.sleep(0.005)
-    return handles + [engine.submit(prompts[i], N_NEW,
-                                    temperature=TEMPS[i],
-                                    adapter=adapters[i])
-                      for i in range(8, 12)]
+    return handles + submit(range(8, 12))
 
 
 def _profile(torch, run, groups=None, ranges=()):
@@ -2053,14 +2092,14 @@ SPEC_KEYS = ("spec_proposed", "spec_accepted", "spec_rollbacks",
 
 
 def _serve_traffic(torch, engine, rng, adapters=None, profiled=True,
-                   before_run=None, after_run=None):
+                   before_run=None, after_run=None, burst=False):
     """A warm-up request, then the 12-request traffic (request ``i`` under
     ``adapters[i]`` when given) with every count set to 0 just before it
     and read just after, then (``profiled``) the same traffic with fresh
     prompts once more under torch.profiler, LoRA delta products as their
     own range when there are ``adapters``. ``before_run()`` and
     ``after_run()`` are called just before the counted run and when its
-    counts are read. Returns the run's record."""
+    counts are read; ``burst``: ``_drive``'s. Returns the run's record."""
     try:
         # warm-up (cuBLAS handles, allocator): not part of the run
         engine.generate(rng.integers(0, 50257, 80), 4, temperature=0.8,
@@ -2072,7 +2111,7 @@ def _serve_traffic(torch, engine, rng, adapters=None, profiled=True,
         torch.cuda.reset_peak_memory_stats()
         prompts = _traffic(rng)
         t_run = time.perf_counter()
-        handles = _drive(engine, prompts, adapters)
+        handles = _drive(engine, prompts, adapters, burst)
         outs = [h.result(timeout=600) for h in handles]
         wall = time.perf_counter() - t_run
         stats = engine.stats.snapshot()
@@ -3753,6 +3792,7 @@ def _facade_lenet(torch, smi):
     from bigdl_tpu_torch.models import LeNet5
     from bigdl_tpu_torch.optim import SGD, Adam, Evaluator, OptimMethod
     from bigdl_tpu_torch.optim import Top1Accuracy
+    from bigdl_tpu_torch.utils.serializer import load_module
 
     w0 = LeNet5(10, device="cpu", seed=1).state_dict()
     val = mnist_dataset(training=False, batch_size=LENET_BATCH,
@@ -3783,8 +3823,8 @@ def _facade_lenet(torch, smi):
         check(f"model.{last}" in names and f"optimMethod.{last}" in names,
               f"checkpoint files {names}")
         fresh = LeNet5(10, device="cuda", seed=7)
-        fresh.load_state_dict(torch.load(os.path.join(ckpt, f"model.{last}"),
-                                         weights_only=True))
+        fresh.load_state_dict(load_module(
+            os.path.join(ckpt, f"model.{last}")).state_dict())
         same = all(torch.equal(a, b) for a, b in
                    zip(model.state_dict().values(),
                        fresh.state_dict().values()))
@@ -4093,6 +4133,7 @@ def _distri_resnet(torch, kernels, smi):
     from bigdl_tpu_torch.models import (ResNet, conv_routes,
                                         resnet_flops)
     from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils.serializer import load_module
 
     n, b, hw = DISTRI_RECORDS, DISTRI_BATCH, RESNET_HW
     rng = np.random.default_rng(12)
@@ -4157,9 +4198,9 @@ def _distri_resnet(torch, kernels, smi):
               f"replica slots {slots} for padded size "
               f"{state.arp.padded_size}")
         last = DISTRI_STEPS + 1
-        fresh = ResNet(class_num=1000, depth=50, format="NHWC")
-        fresh.load_state_dict(torch.load(os.path.join(ckpt, f"model.{last}"),
-                                         weights_only=True))
+        fresh = load_module(os.path.join(ckpt, f"model.{last}"))
+        check(isinstance(fresh, ResNet),
+              f"train_distri: model.{last} loads as {type(fresh).__name__}")
         same = all(torch.equal(a, b_) for a, b_ in
                    zip(model.state_dict().values(),
                        fresh.state_dict().values()))
@@ -4574,6 +4615,7 @@ def _cnn_vgg_distri(torch, kernels, smi):
     from bigdl_tpu_torch.models import Vgg_16, conv_routes
     from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.utils.serializer import load_module
     n, b, hw = CNN_DISTRI_STEPS * CNN_BATCH, CNN_BATCH, 224
     rng = np.random.default_rng(CNN_SEED + 3)
     images = rng.standard_normal((n, 3, hw, hw), dtype=np.float32)
@@ -4606,9 +4648,8 @@ def _cnn_vgg_distri(torch, kernels, smi):
         _check_routes("vgg16 distri bfloat16", counts, split,
                       2 * CNN_DISTRI_STEPS)
         fresh = Vgg_16(1000, seed=0)
-        fresh.load_state_dict(torch.load(
-            os.path.join(ckpt, f"model.{CNN_DISTRI_STEPS + 1}"),
-            weights_only=True))
+        fresh.load_state_dict(load_module(os.path.join(
+            ckpt, f"model.{CNN_DISTRI_STEPS + 1}")).state_dict())
         same = all(torch.equal(a, b_) for a, b_ in
                    zip(model.state_dict().values(),
                        fresh.state_dict().values()))
@@ -7525,13 +7566,12 @@ def _lora_serving_checks(name, line, log, tp=1, n_layers=12):
 
 
 def _lora_burst(engine, prompts, idx, adapters, n_new):
-    """Requests ``idx`` under ``adapters``, submitted while the scheduler
-    waits on its lock (one admission pass sees them all). Returns their
+    """Requests ``idx`` under ``adapters``, submitted as one group
+    (``submit_many``: one admission pass sees them all). Returns their
     outputs {request: tokens}, the seconds, and {request id: request}."""
     t0 = time.perf_counter()
-    with engine.scheduler._cond:
-        hs = [engine.submit(prompts[i], n_new, adapter=a)
-              for i, a in zip(idx, adapters)]
+    hs = engine.submit_many([dict(prompt=prompts[i], max_new_tokens=n_new,
+                                  adapter=a) for i, a in zip(idx, adapters)])
     outs = {i: h.result(timeout=600) for i, h in zip(idx, hs)}
     return outs, time.perf_counter() - t0, {h.id: i for i, h in zip(idx, hs)}
 
@@ -8528,9 +8568,9 @@ def _fleet_run(torch, kernels, smi, params, model, root, line):
         scaler = AutoScaler(fleet, max_replicas=3, votes_to_scale=1,
                             cooldown_s=0.0, obs_label="slice_fleet")
         faults.configure(f"serving.step:delay={FLEET_BACKLOG_DELAY}")
-        locks = [rep.sup.engine.scheduler._cond for rep in fleet._replicas]
-        for lk in locks:
-            lk.acquire()
+        held = contextlib.ExitStack()
+        for rep in fleet._replicas:
+            held.enter_context(rep.sup.engine.scheduler.held_admission())
         try:
             backlog = [fleet.submit(rng.integers(0, 50257, 16), 4)
                        for _ in range(FLEET_BACKLOG)]
@@ -8539,8 +8579,7 @@ def _fleet_run(torch, kernels, smi, params, model, root, line):
             action = scaler.step()
             scale_s = time.perf_counter() - t_scale
         finally:
-            for lk in locks:
-                lk.release()
+            held.close()
         faults.configure(None)
         for h in backlog:
             h.result(timeout=300)
@@ -8642,13 +8681,8 @@ def _preempt_resnet(torch, kernels, smi, root):
     library convolutions and every weight gradient): without them two
     uninterrupted runs on the card differ by 1e-6 relative at the second
     step and by percents at the fourth, which would hide the resume."""
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.deterministic, cudnn.benchmark)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
+    with _deterministic_cudnn(torch):
         return _preempt_resnet_runs(torch, kernels, smi, root)
-    finally:
-        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def _preempt_resnet_runs(torch, kernels, smi, root):
@@ -8660,6 +8694,7 @@ def _preempt_resnet_runs(torch, kernels, smi, root):
     from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
     from bigdl_tpu_torch.optim.methods import OptimMethod
     from bigdl_tpu_torch.resilience import TrainingPreempted, faults, preempt
+    from bigdl_tpu_torch.utils.serializer import load_module
 
     n, b, hw = PREEMPT_RECORDS, PREEMPT_BATCH, RESNET_HW
     rng = np.random.default_rng(19)
@@ -8712,7 +8747,9 @@ def _preempt_resnet_runs(torch, kernels, smi, root):
           {("train.step", "preempt"): 1},
           f"train_preempt: neval {neval}, step {int(state['step'])}, "
           f"faults {fired}")
-    weights = torch.load(f"{root}/model.{neval}", map_location="cuda")
+    # model.N holds the ResNet as the reference's graph, built back into
+    # a ResNet
+    weights = load_module(f"{root}/model.{neval}").state_dict()
     rest = _Scalars()
     runs["resumed"] = _preempt_counts(
         torch, facade(weights, ds, PREEMPT_STEPS - (neval - 1), rest)
@@ -8908,17 +8945,104 @@ class _StepScalars:
             self.by_step[int(step)] = float(value)
 
 
+class _deterministic_cudnn:
+    """cuDNN's deterministic algorithms while active (without them two
+    runs on the card drift apart, ``train_preempt``)."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.cudnn.deterministic, self.cudnn.benchmark)
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+
+
 def _sharded_resnet(torch, kernels, root):
     """The sharded run, failed and retried, against an uninterrupted one
-    (see module docstring, 6h), with cuDNN's deterministic algorithms
-    (without them two runs on the card drift apart, ``train_preempt``)."""
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.deterministic, cudnn.benchmark)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
+    (see module docstring, 6h), with cuDNN's deterministic algorithms."""
+    with _deterministic_cudnn(torch):
         return _sharded_resnet_runs(torch, kernels, root)
+
+
+def _retry_resnet_setup():
+    """``train_sharded``'s data, model and weights (module docstring, 6h;
+    ``load_native`` retries the same run from native checkpoints)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import ResNet, conv_routes
+
+    n, hw = SHARDED_RECORDS, RESNET_HW
+    rng = np.random.default_rng(20)
+    images = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    labels = rng.integers(0, SHARDED_CLASSES, n).astype(np.int32)
+    order = rng.permutation(n)             # the one seeded order
+    model = ResNet(class_num=1000, depth=50, format="NHWC")
+    return {"images": images, "labels": labels, "order": order,
+            "model": model, "params": convert.init_resnet_params(model,
+                                                                 seed=0),
+            "routes": conv_routes(model, (hw, hw))}
+
+
+def _retry_resnet_run(torch, setup, ckpt, fail_at=None, plan=None,
+                      reload="_reload_sharded"):
+    """One ``DistriOptimizer`` run of ``setup`` on ``SHARDED_MESH``:
+    ``Adam(1e-3)``, ``SHARDED_STEPS`` iterations, a checkpoint every 2
+    under ``ckpt`` (None: none), the ``fail_at``-th batch failing once or
+    the fault ``plan`` armed; the optimizer's ``reload`` method traced.
+    Returns ``(opt, {step: loss}, steps dispatched, [reloaded neval],
+    conv counts, seconds)``, the counts set to 0 just before."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.resilience import faults
+
+    images, labels, model = setup["images"], setup["labels"], setup["model"]
+    ds = DataSet.array([Sample(images[i], labels[i]) for i in setup["order"]],
+                       distributed=True)
+    ds.shuffle = lambda seed=None: ds      # every epoch in that order
+    model.load_state_dict(setup["params"])
+    opt = Optimizer(model=model, dataset=ds >> SampleToMiniBatch(
+        SHARDED_BATCH), criterion=ClassNLLCriterion(), mesh=SHARDED_MESH)
+    opt.set_optim_method(Adam(learningrate=1e-3))
+    opt.set_end_when(Trigger.max_iteration(SHARDED_STEPS))
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, Trigger.several_iteration(2))
+    log = _StepScalars()
+    opt.set_train_summary(log)
+    calls, reloads = {"n": 0, "steps": 0}, []
+    shard, reloaded = opt._shard_batch, getattr(opt, reload)
+
+    def counted(batch, tensors=None):
+        calls["n"] += 1
+        if calls["n"] == fail_at:
+            raise RuntimeError("injected executor failure")
+        calls["steps"] += 1
+        return shard(batch, tensors)
+
+    def traced(neval):
+        reloads.append(neval)
+        return reloaded(neval)
+
+    opt._shard_batch = counted
+    setattr(opt, reload, traced)
+    torch.cuda.synchronize()
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    faults.configure(plan)
+    try:
+        opt.optimize()
+        fired = faults.active_plan().counts() if plan else {}
     finally:
-        cudnn.deterministic, cudnn.benchmark = saved
+        faults.configure(None)
+    torch.cuda.synchronize()
+    # a fault at train.step fires after the batch was placed, before the
+    # step: that placement dispatched nothing
+    steps = calls["steps"] - sum(fired.values())
+    return (opt, log.by_step, steps, reloads, _conv_counts(),
+            time.perf_counter() - t0)
 
 
 def _sharded_resnet_runs(torch, kernels, root):
@@ -8926,56 +9050,14 @@ def _sharded_resnet_runs(torch, kernels, root):
     import pickle
 
     import numpy as np
-    from bigdl_tpu_torch import convert
-    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
-    from bigdl_tpu_torch.models import ResNet, conv_routes
-    from bigdl_tpu_torch.nn import ClassNLLCriterion
-    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.utils.serializer import load_module
 
+    setup = _retry_resnet_setup()
     n, b, hw = SHARDED_RECORDS, SHARDED_BATCH, RESNET_HW
-    rng = np.random.default_rng(20)
-    images = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
-    labels = rng.integers(0, SHARDED_CLASSES, n).astype(np.int32)
-    order = rng.permutation(n)             # the one seeded order
-    model = ResNet(class_num=1000, depth=50, format="NHWC")
-    params = convert.init_resnet_params(model, seed=0)
-    routes = conv_routes(model, (hw, hw))
+    routes = setup["routes"]
 
     def run(ckpt, fail_at=None):
-        ds = DataSet.array([Sample(images[i], labels[i]) for i in order],
-                           distributed=True)
-        ds.shuffle = lambda seed=None: ds      # every epoch in that order
-        model.load_state_dict(params)
-        opt = Optimizer(model=model, dataset=ds >> SampleToMiniBatch(b),
-                        criterion=ClassNLLCriterion(), mesh=SHARDED_MESH)
-        opt.set_optim_method(Adam(learningrate=1e-3))
-        opt.set_end_when(Trigger.max_iteration(SHARDED_STEPS))
-        if ckpt is not None:
-            opt.set_checkpoint(ckpt, Trigger.several_iteration(2))
-        log = _StepScalars()
-        opt.set_train_summary(log)
-        calls, reloads = {"n": 0, "steps": 0}, []
-        shard, reload_sharded = opt._shard_batch, opt._reload_sharded
-
-        def counted(batch, tensors=None):
-            calls["n"] += 1
-            if calls["n"] == fail_at:
-                raise RuntimeError("injected executor failure")
-            calls["steps"] += 1
-            return shard(batch, tensors)
-
-        def traced(neval):
-            reloads.append(neval)
-            return reload_sharded(neval)
-
-        opt._shard_batch, opt._reload_sharded = counted, traced
-        torch.cuda.synchronize()
-        _reset_conv_counts()
-        t0 = time.perf_counter()
-        opt.optimize()
-        torch.cuda.synchronize()
-        return (opt, log.by_step, calls["steps"], reloads, _conv_counts(),
-                time.perf_counter() - t0)
+        return _retry_resnet_run(torch, setup, ckpt, fail_at)
 
     os.environ["BIGDL_TPU_SHARDED_CHECKPOINT"] = "1"
     try:
@@ -8989,14 +9071,14 @@ def _sharded_resnet_runs(torch, kernels, root):
     with open(os.path.join(root, "shard.4.p0"), "rb") as f:
         shard4 = pickle.load(f)
     files = sorted(os.listdir(root))
-    marker = torch.load(os.path.join(root, "model.4"))
+    marker = getattr(load_module(os.path.join(root, "model.4")),
+                     "_sharded_weights_marker", None)
     check(all(f"shard.{k}.p0" in files for k in (2, 4))
           and [s for s, _ in shard4["flat"]] == [0, ss]
-          and marker.get("_sharded_weights_marker")
-          == {"neval": 4, "nprocs": 1},
+          and marker == {"neval": 4, "nprocs": 1},
           f"train_sharded: files {files}, shard.4 starts "
           f"{[s for s, _ in shard4['flat']]} (slice {ss}), model.4 marker "
-          f"{marker.get('_sharded_weights_marker')}")
+          f"{marker}")
     check(opt.retries == 1 and reloads == [4],
           f"train_sharded: {opt.retries} retries, sharded reloads {reloads}")
     check(sorted(losses) == sorted(want) == list(range(1, SHARDED_STEPS + 1))
@@ -9073,6 +9155,250 @@ def phase_train_sharded(torch, kernels, smi):
     bandwidth = _bandwidth(torch)
     emit({"phase": "train_sharded", "resnet50": resnet,
           "allreduce_bandwidth": bandwidth, "card": smi})
+    return resnet["losses"]
+
+
+# ---------------------------------------------------------- A.11(d)(3)
+NATIVE_PLAN = "train.step:error:after=4:times=1"   # the fifth batch fails
+NATIVE_CHECK_IDS = (2, 64)      # (c)'s batch of token ids
+NATIVE_OUT_REL = 1e-4           # card vs CPU logits, x max|CPU| (TF32 off)
+
+
+class _MemFS:
+    """An in-memory filesystem for ``mem://`` paths
+    (``utils.fileio.register_filesystem``), as ``tests/test_serializer.py``
+    registers one: a written file lands in ``blobs`` when it is closed."""
+
+    def __init__(self):
+        self.blobs = {}
+
+    def open(self, path, mode="rb"):
+        import io
+        if "w" not in mode:
+            return io.BytesIO(self.blobs[path])
+        buf, blobs = io.BytesIO(), self.blobs
+        real_close = buf.close
+
+        def close():
+            blobs[path] = buf.getvalue()
+            real_close()
+        buf.close = close
+        return buf
+
+    def exists(self, path):
+        return path in self.blobs
+
+    def makedirs(self, path):
+        pass
+
+    def listdir(self, path):
+        return [p.rsplit("/", 1)[-1] for p in self.blobs
+                if p.startswith(path.rstrip("/") + "/")]
+
+
+def _native_route(torch, model, path, weight_path, nbytes):
+    """Save ``model`` to ``path`` (and ``weight_path``) with
+    ``save_module``, load it onto the card with ``load_module``: the
+    seconds of each, the bytes, the loaded model."""
+    from bigdl_tpu_torch.utils.serializer import load_module, save_module
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_module(model, path, weight_path=weight_path)
+    t1 = time.perf_counter()
+    loaded = load_module(path, weight_path=weight_path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), loaded.state_dict().values()))
+    check(same and list(model.state_dict()) == list(loaded.state_dict()),
+          f"load_native: {path} does not reload bit for bit")
+    return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
+                    "bytes": nbytes()}
+
+
+def _native_serve(torch, model):
+    """``slice``'s engine and traffic on ``model``, each group of requests
+    submitted in one burst (``_drive``), unprofiled: the outputs and the
+    run's record, exactly 12 paged launches a prefill chunk and decode
+    step held."""
+    import numpy as np
+    from bigdl_tpu_torch.serving import ServingEngine
+    engine = ServingEngine(model, model.state_dict(), max_slots=8,
+                           paged=True, page_size=16, prefill_chunk=64,
+                           top_k=50, top_p=0.9, seed=0)
+    _, outs, line, _ = _serve_traffic(torch, engine,
+                                      np.random.default_rng(0),
+                                      profiled=False, burst=True)
+    n = len(model.gpt.layers) * (line["prefill_chunks"]
+                                 + line["decode_steps"])
+    check(line["launches"]["paged_attention"] == n,
+          f"load_native: paged attention launched "
+          f"{line['launches']['paged_attention']} times, {n} for "
+          f"{line['prefill_chunks']} chunks and {line['decode_steps']} "
+          f"steps")
+    return outs, line
+
+
+def _native_gpt(torch, kernels, f32_line, root):
+    """(a) and (c) of ``load_native`` (module docstring, 6k)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models.gpt import gpt2_small
+    from bigdl_tpu_torch.utils import fileio
+    from bigdl_tpu_torch.utils.serializer import load_module, save_module
+
+    model = gpt2_small()
+    params = convert.init_params(model, seed=0)
+    model.load_state_dict(params)
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    mem = _MemFS()
+    fileio.register_filesystem("mem", mem)
+    # the model as built, then each saved and loaded copy, on one schedule
+    want, base = _native_serve(torch, model)
+    routes = {}
+    keys = ("paged_attention", "fused_sampling")
+    local = os.path.join(root, "gpt2.bigdl")
+    sidecar = os.path.join(root, "gpt2.weights")
+    for name, path, wpath, nbytes in (
+            ("local", local, sidecar,
+             lambda: os.path.getsize(local) + os.path.getsize(sidecar)),
+            ("mem", "mem://bucket/gpt2.bigdl", None,
+             lambda: len(mem.blobs["mem://bucket/gpt2.bigdl"]))):
+        loaded, routes[name] = _native_route(torch, model, path, wpath,
+                                             nbytes)
+        outs, line = _native_serve(torch, loaded)
+        routes[name].update(tokens_per_s=line["tokens_per_s"],
+                            launches={k: line["launches"][k] for k in keys})
+        for k in keys:
+            check(line["launches"][k] == base["launches"][k],
+                  f"load_native {name}: {k} launched {line['launches'][k]} "
+                  f"times, the unsaved model {base['launches'][k]}")
+        same = [bool(np.array_equal(a, b)) for a, b in zip(outs, want)]
+        check(all(same), f"load_native {name}: requests "
+              f"{[i for i, v in enumerate(same) if not v]} differ from "
+              f"the unsaved model's tokens")
+        del loaded
+        torch.cuda.empty_cache()
+    for k in keys:
+        kernels[k].setdefault("launches_by_phase", {})["load_native"] = (
+            base["launches"][k] + sum(r["launches"][k]
+                                      for r in routes.values()))
+    # against slice's own run, whose first burst's batches follow the
+    # host's timing: greedy tokens by the near-tie rule
+    exact = [bool(np.array_equal(want[i], _NO_FAULT["paged"][i]))
+             for i in range(12)]
+    div = _near_tie_check(torch, "load_native", params, want,
+                          _NO_FAULT["paged"], GREEDY_IDX)
+    vs_slice = {"tokens_identical": exact, "greedy_divergences": div,
+                "slice_launches": {k: f32_line["launches"][k] for k in keys},
+                "launches": {k: base["launches"][k] for k in keys},
+                "tokens_per_s": base["tokens_per_s"],
+                "slice_tokens_per_s": f32_line["tokens_per_s"]}
+
+    # (c) a file the card wrote, read on the CPU, and the reverse
+    ids = torch.from_numpy(np.random.default_rng(24).integers(
+        0, 50257, NATIVE_CHECK_IDS))
+    with torch.no_grad():
+        want_card = model.eval()(ids.cuda()).float().cpu()
+        on_cpu = load_module(local, device="cpu").eval()
+        got_cpu = on_cpu(ids)
+    scale = float(got_cpu.abs().max())
+    card_vs_cpu = float((want_card - got_cpu).abs().max()) / scale
+    cpu_file = os.path.join(root, "gpt2_cpu.bigdl")
+    t0 = time.perf_counter()
+    save_module(on_cpu, cpu_file)
+    cpu_save_s = time.perf_counter() - t0
+    with torch.no_grad():
+        back = load_module(cpu_file).eval()
+        got_card = back(ids.cuda()).float().cpu()
+    cpu_file_vs_cpu = float((got_card - got_cpu).abs().max()) / scale
+    check(card_vs_cpu <= NATIVE_OUT_REL and cpu_file_vs_cpu <= NATIVE_OUT_REL
+          and torch.equal(got_card, want_card),
+          f"load_native: card file on the CPU {card_vs_cpu:.3g}, CPU file "
+          f"on the card {cpu_file_vs_cpu:.3g} x max|CPU| (bar "
+          f"{NATIVE_OUT_REL}); the two card runs bit-equal: "
+          f"{torch.equal(got_card, want_card)}")
+    del model, on_cpu, back
+    return {"model": "gpt2_small", "dtype": "float32", "params": n_params,
+            "routes": routes, "tokens_equal_unsaved": True,
+            "unsaved_vs_slice": vs_slice,
+            "across_devices": {"ids": list(NATIVE_CHECK_IDS),
+                               "card_file_on_cpu_rel": card_vs_cpu,
+                               "cpu_file_on_card_rel": cpu_file_vs_cpu,
+                               "cpu_save_s": cpu_save_s,
+                               "bar": NATIVE_OUT_REL}}
+
+
+def _native_resnet(torch, kernels, root, want):
+    """(b) of ``load_native`` (module docstring, 6k): ``train_sharded``'s
+    run with native checkpoints, retried from ``model.4`` after the fault
+    plan fails the fifth batch, against ``train_sharded``'s uninterrupted
+    losses ``want`` (one per step)."""
+    import os
+
+    import numpy as np
+    from bigdl_tpu_torch.utils import protowire
+    from bigdl_tpu_torch.utils.serializer import MAGIC, MODEL_FILE
+
+    setup = _retry_resnet_setup()
+    with _deterministic_cudnn(torch):
+        opt, losses, steps, reloads, counts, secs = _retry_resnet_run(
+            torch, setup, root, plan=NATIVE_PLAN, reload="_reload_gathered")
+    with open(os.path.join(root, "model.4"), "rb") as f:
+        # the magic alone: the decoder skips the fields a schema leaves out
+        magic = protowire.decode(f.read(), {1: MODEL_FILE[1]}).get("magic")
+    files = sorted(os.listdir(root))
+    check(magic == MAGIC and "model.4" in files and not any(
+        f.startswith("shard.") for f in files),
+        f"load_native: model.4 magic {magic!r}, files {files}")
+    check(opt.retries == 1 and reloads == [4],
+          f"load_native: {opt.retries} retries, native reloads {reloads}")
+    got = [losses.get(k) for k in range(1, SHARDED_STEPS + 1)]
+    check(got == list(want) and all(np.isfinite(want)),
+          f"load_native: resumed losses {got} vs uninterrupted {want}")
+    routes = setup["routes"]
+    for kind in ("k9", "i2c"):
+        check(counts[kind] == 0 and counts[f"{kind}_cuda_core"]
+              == routes[kind] * len(SHARDED_MESH) * steps,
+              f"load_native: conv3x3_{kind} ran {counts[kind]} tensor-core "
+              f"and {counts[f'{kind}_cuda_core']} CUDA-core launches for "
+              f"{steps} steps x {len(SHARDED_MESH)} replicas of "
+              f"{routes[kind]}")
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "load_native"] = counts[f"{kind}_cuda_core"]
+    check("3x3/s1" not in counts["library"],
+          f"load_native: a 3x3 stride-1 convolution reached F.conv2d: "
+          f"{counts['library']}")
+    return {"model": "resnet50", "image": RESNET_HW, "batch": SHARDED_BATCH,
+            "replicas": len(SHARDED_MESH), "plan": NATIVE_PLAN,
+            "model_file_bytes": os.path.getsize(os.path.join(root,
+                                                             "model.4")),
+            "resumed_from": reloads, "steps_run": steps, "losses": got,
+            "losses_bit_equal": True, "run_s": secs,
+            "cuda_core_launches": {k: counts[f"{k}_cuda_core"]
+                                   for k in ("k9", "i2c")},
+            "conv_routes_per_step": routes}
+
+
+def phase_load_native(torch, kernels, smi, f32_line, sharded_losses):
+    """The native model format on the card (see module docstring, 6k)."""
+    import os
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    try:
+        t0 = time.perf_counter()
+        gpt = _native_gpt(torch, kernels, f32_line, root)
+        gpt_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        resnet = _native_resnet(torch, kernels,
+                                os.path.join(root, "resnet"), sharded_losses)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "load_native", "gpt2": gpt, "gpt2_s": gpt_s,
+          "resnet50": resnet, "card": smi})
 
 
 # ------------------------------------------------------------- A.9(c)
@@ -9578,9 +9904,12 @@ def main():
     run("slice_control", phase_slice_control, torch, kernels, smi, cpu_ref)
     run("slice_fleet", phase_slice_fleet, torch, kernels, smi, f32_line)
     run("train_preempt", phase_train_preempt, torch, kernels, smi)
-    run("train_sharded", phase_train_sharded, torch, kernels, smi)
+    sharded_losses = run("train_sharded", phase_train_sharded, torch,
+                         kernels, smi)
     run("infer_int8", phase_infer_int8, torch, kernels, smi)
     run("train_rnn", phase_train_rnn, torch, kernels, smi)
+    run("load_native", phase_load_native, torch, kernels, smi, f32_line,
+        sharded_losses)
     loss32 = run("train", phase_train, torch, kernels, smi)
     run("train_bf16", phase_train_bf16, torch, kernels, smi, loss32)
     run("train_resnet", phase_train_resnet, torch, kernels, smi)

@@ -36,6 +36,7 @@ from bigdl_tpu_torch.dataset import DataSet, DistributedDataSet
 from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.parallel import DistriOptimizer
+from bigdl_tpu_torch.utils.serializer import load_module
 
 
 class Summary:
@@ -351,7 +352,7 @@ def test_checkpoint_holds_the_float32_masters(tmp_path):
     to.set_end_when(topt.Trigger.max_epoch(1))
     to.set_checkpoint(str(tmp_path), topt.Trigger.every_epoch())
     to.optimize()
-    sd = torch.load(tmp_path / "model.5")
+    sd = load_module(str(tmp_path / "model.5"), device="cpu").state_dict()
     for k, v in tm.state_dict().items():
         assert torch.equal(sd[k], v)
     flat = to._step.state.full_master(torch.device("cpu"))

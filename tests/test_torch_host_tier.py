@@ -32,6 +32,7 @@ from bigdl_tpu_torch.resilience import faults
 from bigdl_tpu_torch.serving import PagedSlotManager, ServingEngine
 from bigdl_tpu_torch.serving.host_tier import (HostPageTier, HostTierCopier,
                                                PinnedStaging)
+from bigdl_tpu_torch.serving.paging import _block_digest, chain_seed
 from bigdl_tpu_torch.serving.snapshot import PageStore
 
 CFG = dict(vocab_size=61, hidden_size=32, n_layers=2, n_heads=4,
@@ -308,7 +309,24 @@ def _corrupt_tier(eng):
                 next(iter(pl.values())).view(np.uint8)[0] ^= 0xFF
 
 
+def _tier_only_prefix(eng, prompt):
+    """The digests of ``prompt``'s full blocks that the pool no longer
+    holds and the tier does: the copies its next admission must probe."""
+    prev, out = chain_seed(), []
+    a = np.asarray(prompt, np.int32)
+    ps = eng.slots.page_size
+    for b in range(a.size // ps):
+        prev = _block_digest(prev, a[b * ps:(b + 1) * ps])
+        if eng.slots.allocator.lookup(prev) is None \
+                and eng.host_tier.has(prev):
+            out.append(prev)
+    return out
+
+
 def test_corrupt_host_buffer_degrades_to_reprefill():
+    """A's repeat must probe a corrupt tier copy: that is checked before
+    the corruption, and the metrics are read with the engine still up,
+    as the page-store sibling reads them."""
     _, _, sd = _weights(36)
     eng = _tier_engine(sd)
     base = _run_serial(eng, [A, B, C, A])
@@ -316,10 +334,11 @@ def test_corrupt_host_buffer_degrades_to_reprefill():
     eng = _tier_engine(sd, kv_host_tier=True, host_tier_prefetch=4)
     tier = _run_serial(eng, [A, B, C])
     assert eng.metrics()["host_tier_resident_pages"] >= 1
+    assert _tier_only_prefix(eng, A)
     _corrupt_tier(eng)
     tier += _run_serial(eng, [A])
-    eng.shutdown()
     met = eng.metrics()
+    eng.shutdown()
     for e, g in zip(base, tier):
         np.testing.assert_array_equal(e, g)
     assert met["host_tier_corrupt_dropped"] >= 1

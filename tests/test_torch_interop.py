@@ -39,6 +39,16 @@ from bigdl_tpu_torch.utils import protowire as twire
 OUT_REL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _keep_library_calls():
+    """Leave ``SpatialConvolution.library_calls``, a process-wide counter
+    that other test files read, as each test found it."""
+    saved = tnn.SpatialConvolution.library_calls.copy()
+    yield
+    tnn.SpatialConvolution.library_calls.clear()
+    tnn.SpatialConvolution.library_calls.update(saved)
+
+
 def _close(got, want, rel=OUT_REL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)

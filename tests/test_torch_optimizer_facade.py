@@ -39,6 +39,7 @@ from bigdl_tpu_torch.dataset.dataset import DataSet
 from bigdl_tpu_torch.dataset.mnist import mnist_dataset
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.models import LeNet5, ResNet
+from bigdl_tpu_torch.utils.serializer import load_module
 
 FIRST_REL = 1e-5
 LOSS_REL = 1e-4
@@ -154,8 +155,8 @@ def test_lenet_example_setters_match_reference(tmp_path):
     assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) \
         == ["model.4", "model.7", "optimMethod.4", "optimMethod.7"]
     fresh = LeNet5(10, device="cpu", seed=9)
-    fresh.load_state_dict(torch.load(tmp_path / "port" / "model.7",
-                                     weights_only=True))
+    fresh.load_state_dict(load_module(str(tmp_path / "port" / "model.7"),
+                                      device="cpu").state_dict())
     for (k, a), b in zip(tm.state_dict().items(),
                          fresh.state_dict().values()):
         assert torch.equal(a, b), k
@@ -279,7 +280,8 @@ def test_cifar_resnet8_trains_through_the_facade_like_reference():
               for p in (jopt, topt)}
     js, _ = _setup(jopt, jopt_, method=method[jopt])
     ts, _ = _setup(topt, topt_, method=method[topt])
-    before = sum(tnn.SpatialConvolution.library_calls.values())
+    # the counter is process-wide: this run's calls are its growth
+    before = dict(tnn.SpatialConvolution.library_calls)
     jopt_.optimize()
     topt_.optimize()
     _close_losses(ts.losses(), js.losses())
@@ -287,8 +289,8 @@ def test_cifar_resnet8_trains_through_the_facade_like_reference():
     # only the two stride-2 3x3s and the two 1x1 projections of each
     # forward reach F.conv2d
     calls = tnn.SpatialConvolution.library_calls
-    assert "3x3/s1" not in calls
-    assert sum(calls.values()) - before == 4 * 6
+    assert calls.get("3x3/s1", 0) == before.get("3x3/s1", 0)
+    assert sum(calls.values()) - sum(before.values()) == 4 * 6
 
 
 def test_float64_samples_train_validate_and_predict_like_reference():
@@ -395,6 +397,9 @@ def test_async_checkpoint_surfaces_a_writer_error(tmp_path, monkeypatch):
 
 
 def test_fileio_writes_whole_files_and_refuses_urls(tmp_path):
+    """Local files appear whole or not at all; a URL scheme no filesystem
+    serves is refused (``utils/fileio.py``; a registered one is held in
+    ``test_torch_serializer.py``)."""
     from bigdl_tpu_torch.utils import fileio
     target = fileio.path_join(str(tmp_path / "a" / "b"), "f.bin")
     fileio.file_makedirs(str(tmp_path / "a" / "b"))
@@ -415,5 +420,5 @@ def test_fileio_writes_whole_files_and_refuses_urls(tmp_path):
         fileio.atomic_file_swap(target, broken)
     with fileio.file_open(target) as f:
         assert f.read() == b"abc"          # the old file is untouched
-    with pytest.raises(NotImplementedError, match="URL-schemed"):
-        fileio.file_open("gs://bucket/model.1")
+    with pytest.raises(ValueError, match="bigdl-none"):
+        fileio.file_open("bigdl-none://bucket/model.1")

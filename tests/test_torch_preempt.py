@@ -58,6 +58,7 @@ from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.optim.methods import OptimMethod
 from bigdl_tpu_torch.resilience import TrainingPreempted, faults, preempt
+from bigdl_tpu_torch.utils.serializer import load_module
 
 SEEDS = [21, 22, 23, 24]
 RESUME_REL = 1e-5
@@ -263,8 +264,8 @@ def test_local_preemption_checkpoints_and_resumes_like_the_reference(
     preempt.clear()
     faults.configure(None)
     tm2 = _build(tnn, device="cpu")
-    tm2.load_state_dict(torch.load(str(tmp_path / "port"
-                                       / f"model.{n}")))
+    tm2.load_state_dict(load_module(str(tmp_path / "port" / f"model.{n}"),
+                                    device="cpu").state_dict())
     rs = Summary()
     resumed = _optimizer(topt, tm2, to.dataset, epochs=1, summary=rs)
     resumed.set_optim_method(method)

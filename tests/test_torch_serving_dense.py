@@ -237,3 +237,24 @@ def test_no_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(GPTForCausalLM(**CFG, device="cpu"), sd, max_slots=2)
+
+
+def test_submit_many_reaches_one_admission_pass():
+    """``submit_many`` enqueues its group while the scheduler's admission
+    waits, so the four requests share one prefill dispatch whatever the
+    host's timing, each with its batch-1 ``generate`` tokens."""
+    _, _, sd = _pair(4)
+    m = GPTForCausalLM(**CFG, device="cpu")
+    m.load_state_dict(sd)
+    want = [m.generate(p, 6)[0].numpy() for p in PROMPTS[:4]]
+    eng = _port(sd, max_slots=4, max_queue=16)
+    try:
+        handles = eng.submit_many([dict(prompt=p, max_new_tokens=6)
+                                   for p in PROMPTS[:4]])
+        got = [eng.result(h, timeout=WAIT) for h in handles]
+        prefills = eng.stats["prefills"]
+    finally:
+        eng.shutdown()
+    assert prefills == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -38,7 +38,8 @@ from bigdl_tpu_torch import optim as topt
 from bigdl_tpu_torch.parallel import DistriOptimizer, allreduce_bandwidth
 from bigdl_tpu_torch.parallel.allreduce import (ici_peak_gbps,
                                                 ring_allreduce_bytes)
-from bigdl_tpu_torch.parallel.distri_optimizer import load_model_file
+from bigdl_tpu_torch.utils.serializer import load_module
+from bigdl_tpu.utils.serializer import load_module as jax_load_module
 
 from test_torch_distri_optimizer import (_check_weights, _datasets,
                                          _failing, _mesh, _train)
@@ -135,9 +136,15 @@ def test_port_shard_file_reads_through_the_reference(tmp_path,
     for a, b in zip(jax.tree_util.tree_leaves(payload["state"]),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(a, b)
-    marker = torch.load(root / "model.6")
-    assert marker["_sharded_weights_marker"] == {"neval": 6, "nprocs": 1}
-    assert not any(k.endswith("weight") for k in marker)
+    # the marker model file: the native format, the reference's marker
+    # attribute at its root, replica 0's buffers (what a resume restores)
+    marker = load_module(str(root / "model.6"), device="cpu")
+    assert marker._sharded_weights_marker == {"neval": 6, "nprocs": 1}
+    for (k, a), (_, b) in zip(marker.named_buffers(),
+                              state.replicas[0].named_buffers()):
+        assert torch.equal(a, b.cpu()), k
+    assert jax_load_module(str(root / "model.6"))._sharded_weights_marker \
+        == {"neval": 6, "nprocs": 1}
 
 
 def test_reference_shard_file_reads_into_the_port(tmp_path, monkeypatch):
@@ -279,11 +286,11 @@ def test_marker_model_file_is_refused_without_its_shards(tmp_path,
     to.set_end_when(topt.Trigger.max_iteration(2))
     to.set_checkpoint(str(tmp_path), topt.Trigger.several_iteration(2))
     to.optimize()
-    sd = load_model_file(str(tmp_path / "model.2"))
-    assert sd["_sharded_weights_marker"] == {"neval": 2, "nprocs": 1}
+    m = load_module(str(tmp_path / "model.2"), device="cpu")
+    assert m._sharded_weights_marker == {"neval": 2, "nprocs": 1}
     os.replace(tmp_path / "shard.2.p0", tmp_path / "shard.2.p0.tmp")
     with pytest.raises(ValueError, match="STALE placeholder"):
-        load_model_file(str(tmp_path / "model.2"))
+        load_module(str(tmp_path / "model.2"), device="cpu")
     with pytest.raises(RuntimeError, match="no checkpoint to retry from"):
         to._reload_latest()       # its only candidate, refused, demotes
 
