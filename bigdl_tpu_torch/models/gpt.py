@@ -645,6 +645,8 @@ def partition_specs(state_dict):
             return spec.ffn_up() if leaf == "weight" else spec.ffn_up_bias()
         if parent == "fc2":
             return spec.ffn_down() if leaf == "weight" else spec.norm()
+        if parent == "head":                   # weight (vocab, H); scale
+            return spec.lm_head()
         return spec.norm()            # ln1/ln2/ln_f and anything else
 
     return {name: role(name) for name in state_dict}

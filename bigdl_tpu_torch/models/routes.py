@@ -3,8 +3,9 @@ its layers: the layer walk, the 3x3 convolutions' kernel launches by path
 (the yardstick ``chip_smoke.py`` holds the launch counters to) and the
 operations of a forward pass.
 
-:func:`layer_walk` walks a tree of ``Sequential`` and ``Concat``
-containers (VGG, Inception, AlexNet, LeNet's ``Sequential``), a ``Graph``
+:func:`layer_walk` walks a tree of ``Sequential``, ``Concat`` and
+``ConcatTable`` containers (VGG, Inception, AlexNet, LeNet's
+``Sequential``, a detector's RPN), a ``Graph``
 (a Caffe-loaded model: its nodes in ``exec_order``, each fed the ``(h,
 w)`` of its first input, its input depending on a parameter where any of
 its inputs' does), or a model with a ``layer_walk`` method of its own
@@ -15,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.nn import (Concat, Graph, Linear, Sequential,
-                                SpatialConvolution)
+from bigdl_tpu_torch.nn import (Concat, ConcatTable, Graph, Linear,
+                                Sequential, SpatialConvolution)
 from bigdl_tpu_torch.ops.conv3x3 import kernel_for, tc_path
 
 
@@ -31,7 +32,7 @@ def _walk(module, hw, grad, out):
         for child in module:
             hw, grad = _walk(child, hw, grad, out)
         return hw, grad
-    if isinstance(module, Concat):
+    if isinstance(module, (Concat, ConcatTable)):
         ends = [_walk(child, hw, grad, out) for child in module]
         return ends[0][0], any(g for _, g in ends)
     if isinstance(module, Graph):
@@ -68,9 +69,10 @@ def layer_walk(model, image_hw):
     return out
 
 
-def conv_routes(model, image_hw=(224, 224), dtype=None):
+def conv_routes(model, image_hw=(224, 224), dtype=None, training=True):
     """How one training step of ``model`` on ``image_hw`` images runs its
-    convolutions. Every 3x3 stride-1 pad-1 convolution launches its
+    convolutions (with ``training=False``, one forward pass: no input
+    gradient). Every 3x3 stride-1 pad-1 convolution launches its
     kernel once a group forward (by the group's input channels,
     ``ops.conv3x3.kernel_for``) and once a group for the input gradient
     (by its output channels; none where the input depends on no
@@ -97,7 +99,8 @@ def conv_routes(model, image_hw=(224, 224), dtype=None):
     for m, (h, w), grad in walk:
         if not hasattr(m, "conv_launches"):
             continue
-        launches = m.conv_launches(h, w, grad and not by_evaluation)
+        launches = m.conv_launches(h, w, grad and training
+                                   and not by_evaluation)
         if launches is None:
             split["library"] += 1
         for cin, cout, width, n in launches or ():

@@ -23,8 +23,10 @@ Routes:
   outside any Pallas kernel. An NHWC input goes in as the channels-last
   NCHW view ``x.permute(0, 3, 1, 2)``, which cuDNN takes without a copy.
   ``SpatialConvolution.library_calls`` counts these calls by geometry
-  (``"3x3/s2"``, ``"3x3/s1/d2"``, ...), so a run can show that no
-  kernel-route convolution reached the library.
+  (``"3x3/s2"``, ``"3x3/s1/d2"``, ...; a 3x3 stride-1 one that is not
+  SAME by its padding, ``"3x3/s1/valid"`` or ``"3x3/s1/pad0,1,0,1"``), so
+  a run can show that no kernel-route convolution reached the library
+  (no ``"3x3/s1"``).
 
 :func:`takes_kernels` is that rule, and :func:`conv2d` that choice for a
 bare NCHW or NHWC tensor and an OIHW weight; the convolutional LSTM cells
@@ -83,11 +85,15 @@ def conv2d(x, weight, stride=(1, 1), padding=((0, 0), (0, 0)),
                           groups)
         return y if nhwc else y.permute(0, 3, 1, 2)
     geometry = f"{kh}x{kw}/s{stride[0]}"
+    (t, b), (l, r) = padding
     if tuple(dilation) != (1, 1):
         geometry += f"/d{dilation[0]}"
+    elif (kh, kw) == (3, 3) and tuple(stride) == (1, 1) \
+            and (t, b, l, r) != (1, 1, 1, 1):
+        geometry += ("/valid" if (t, b, l, r) == (0, 0, 0, 0)
+                     else f"/pad{t},{b},{l},{r}")
     SpatialConvolution.library_calls[geometry] += 1
     xc = x.permute(0, 3, 1, 2) if nhwc else x
-    (t, b), (l, r) = padding
     if t == b and l == r:
         pad = (t, l)
     else:

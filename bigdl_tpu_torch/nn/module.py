@@ -141,6 +141,52 @@ class Module(nn.Module):
         return self
 
 
+class Criterion(nn.Module):
+    """Loss base (the reference's ``Criterion``, ``AbstractCriterion``):
+    ``forward(input, target)`` is the scalar loss, without side effects
+    (the reference's pure ``apply``, which its ``__call__`` is);
+    ``backward(input, target)`` is its gradient for ``input`` through
+    autograd (the reference's vjp), a tensor, or a table (list) of them
+    where ``input`` is one, kept as ``grad_input`` with the loss as
+    ``output``."""
+
+    def __init__(self, size_average=True):
+        super().__init__()
+        self.size_average = size_average
+        self.output = None
+        self.grad_input = None
+
+    def forward(self, input, target=None):
+        raise NotImplementedError
+
+    def backward(self, input, target=None):
+        leaves = []
+
+        def leaf(x):
+            if isinstance(x, torch.Tensor) and x.is_floating_point():
+                x = x.detach().requires_grad_(True)
+                leaves.append(x)
+            return x
+
+        def walk(x, fn):
+            if isinstance(x, dict):
+                return type(x)((k, walk(v, fn)) for k, v in x.items())
+            if isinstance(x, (list, tuple)):
+                return type(x)(walk(v, fn) for v in x)
+            return fn(x)
+
+        x = walk(input, leaf)
+        with torch.enable_grad():
+            loss = self.forward(x, target)
+            grads = iter(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True))
+        by_id = {id(t): g if g is not None else torch.zeros_like(t)
+                 for t, g in zip(leaves, grads)}
+        self.output = loss.detach()
+        self.grad_input = walk(x, lambda t: by_id.get(id(t), t))
+        return self.grad_input
+
+
 _DEFAULT_PERMS = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 

@@ -19,7 +19,13 @@
 - ``SpatialWithinChannelLRN``: ``x * (1 + alpha * M) ** -beta``, ``M`` the
   mean of ``x^2`` over a ``size`` x ``size`` window of each NCHW channel,
   zero-padded as the cross-map window is (the sum over the window divided
-  by ``size^2``, as the reference's ``reduce_window`` then divides).
+  by ``size^2``, as the reference's ``reduce_window`` then divides);
+- ``Normalize``: ``x / (||x||_p + eps)`` over the last axis (the max of
+  ``|x|`` for ``p = inf``), and ``NormalizeScale`` (SSD's conv4_3 norm):
+  the same over axis 1, times a learned ``scale`` of shape ``size``
+  (``(1,)`` by default) that starts at the ``scale`` argument. Both keep
+  ``eps`` added to the norm, as the reference does (``F.normalize``
+  clamps the norm instead).
 """
 
 from __future__ import annotations
@@ -181,3 +187,52 @@ class VolumetricBatchNormalization(BatchNormalization):
     ``nn/normalization.py`` ``VolumetricBatchNormalization``)."""
 
     feature_axis = 1
+
+
+def _p_norm(x, p, dim):
+    return torch.pow(torch.pow(torch.abs(x), p).sum(dim, keepdim=True),
+                     1.0 / p)
+
+
+class Normalize(Module):
+    """Lp normalisation over the last axis (module docstring)."""
+
+    def __init__(self, p=2.0, eps=1e-10):
+        super().__init__()
+        self.p, self.eps = p, eps
+
+    def forward(self, x):
+        if self.p == float("inf"):
+            norm = torch.abs(x).amax(-1, keepdim=True)
+        else:
+            norm = _p_norm(x, self.p, -1)
+        return x / (norm + self.eps)
+
+    def extra_repr(self):
+        return f"p={self.p}, eps={self.eps}"
+
+
+class NormalizeScale(Module):
+    """Lp normalisation over axis 1 times a learned ``scale`` (module
+    docstring)."""
+
+    def __init__(self, p=2.0, eps=1e-10, scale=1.0, size=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.p, self.eps, self.scale_init = p, eps, scale
+        self.size = None if size is None else tuple(size)
+        self.scale = nn.Parameter(torch.full(self.size or (1,), float(scale),
+                                             device=device, dtype=dtype))
+
+    def forward(self, x):
+        return x / (_p_norm(x, self.p, 1) + self.eps) * self.scale
+
+    def regularized_leaves(self):
+        return []
+
+    def init_arrays(self, rng):
+        return {"scale": np.full(self.size or (1,), self.scale_init)}
+
+    def extra_repr(self):
+        return f"p={self.p}, eps={self.eps}, size={self.size}"

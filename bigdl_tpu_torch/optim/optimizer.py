@@ -108,7 +108,9 @@ def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
       the cast weights, as the reference's do;
     - ``remat=True``: the whole forward is recomputed in the backward pass;
     - ``accumulate_steps=K``: the batch rows split into K micro-batches
-      (K must divide them); gradients and losses are averaged over them;
+      (K must divide them); gradients and losses are averaged over them.
+      At K = 1 the labels may be a table (a list: a multi-output model's
+      targets, e.g. ``ParallelCriterion``'s);
     - frozen layers and ``set_scale_w``/``set_scale_b`` multiply the
       averaged gradients (``nn.module.grad_scales``).
 
@@ -140,8 +142,11 @@ def make_loss_and_grads(module, criterion, compute_dtype=None, remat=False,
         if x.shape[0] % k:
             raise ValueError(f"accumulate_steps={k} does not divide the "
                              f"batch of {x.shape[0]} rows")
-        xs = x.reshape(k, x.shape[0] // k, *x.shape[1:])
-        ys = y.reshape(k, y.shape[0] // k, *y.shape[1:])
+        if k == 1 and not isinstance(y, torch.Tensor):
+            xs, ys = [x], [y]       # a table of targets (a list): as it is
+        else:
+            xs = x.reshape(k, x.shape[0] // k, *x.shape[1:])
+            ys = y.reshape(k, y.shape[0] // k, *y.shape[1:])
         total = 0.0
         for i in range(k):
             out = (checkpoint(forward, generator, xs[i]) if remat

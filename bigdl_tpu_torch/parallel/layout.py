@@ -10,9 +10,9 @@ the same way: one host thread drives every shard. Here:
   torch's ``(out, in)`` Linear layout: each role names the torch dimension
   it splits over tp, or None (replicated). Megatron-style: QKV and FFN-up
   are column-parallel (their output dim), attention-output and FFN-down
-  row-parallel (their input dim); the token embedding splits its vocab
-  rows; the K/V pools and the int8 scale planes split their head axis, so
-  one host page table drives every shard.
+  row-parallel (their input dim); the token embedding and an untied LM
+  head split their vocab rows; the K/V pools and the int8 scale planes
+  split their head axis, so one host page table drives every shard.
 - :class:`ModelLayout` binds the table to a list of devices, one per
   shard (a device may repeat: several shards on one card). It fits a role
   to a real shape (the reference's replicate fallback: a vocab of 61 at
@@ -52,19 +52,21 @@ class SpecLayout:
     FFN up bias               (4H,)                  0
     FFN down (fc2.weight)     (H, 4H)                1
     FFN down bias / norms     --                     None
+    untied LM head            (vocab, H)             0
     paged K/V pool            (pages, heads, ps, D)  1
     int8 pool scale plane     (pages, heads, ps)     1
     ========================  =====================  =========
 
-    The reference's untied LM head and its replicated serving logits
-    table have no role here: the port's head is tied, and its logits
+    The untied head is vocab-parallel, as the reference's ``lm_head``
+    role ``P(fsdp, tp)`` on its (H, vocab) weight; the serving logits
     table lives on the first shard's device only.
 
     Why this is exact for temperature-0 serving, as in the reference: the
-    vocab-split embedding sums one nonzero partial per token; the tied
-    logits contract over the replicated hidden axis (no reduction); and
-    attention never contracts over the head axis. Only the two row-parallel
-    sums (after ``wo`` and ``fc2``) reorder float additions.
+    vocab-split embedding sums one nonzero partial per token; the logits
+    (tied or untied) contract over the replicated hidden axis (no
+    reduction); and attention never contracts over the head axis. Only the
+    two row-parallel sums (after ``wo`` and ``fc2``) reorder float
+    additions.
     """
 
     def embeddings(self):
@@ -87,6 +89,9 @@ class SpecLayout:
 
     def ffn_down(self):
         return 1
+
+    def lm_head(self):
+        return 0
 
     def norm(self):
         return None

@@ -8,10 +8,10 @@ mirror).
 on ``layout.devices[i]`` holding ``n_heads / N`` of the heads (their
 ``wq``/``wk``/``wv`` rows and ``wo`` columns), ``intermediate / N`` of the
 MLP's inner width (``fc1`` rows and bias, ``fc2`` columns) and, where the
-vocabulary divides by N, ``vocab / N`` rows of the token embedding;
-everything else is a whole copy. An int8 model (``nn.quantize_model``,
-quantised before it is split, as the reference quantises before it
-shards) splits each ``Int8Linear``'s int8 ``weight`` and its ``scale``
+vocabulary divides by N, ``vocab / N`` rows of the token embedding and of
+an untied LM head (``tie_embeddings=False``); everything else is a whole
+copy. An int8 model (``nn.quantize_model``, quantised before it is split,
+as the reference quantises before it shards) splits each ``Int8Linear``'s int8 ``weight`` and its ``scale``
 by the same rules: a column-parallel layer's scales with its rows, a
 row-parallel layer's scales whole. Its ``gpt`` (:class:`TensorParallelGPT`)
 serves the interfaces ``serving.slots.SlotManager`` (``init_cache``,
@@ -44,10 +44,11 @@ on every shard on identical inputs, so the shards keep identical bits;
 the final LayerNorm and the LM head run once, on the first shard's
 device, where the serving logits table lives. A vocabulary-split
 embedding is a masked lookup on each shard plus ``all_reduce_sum``
-(exact: one partial is nonzero); the tied head is then vocab-parallel,
-the shards' logit columns gathered on the first shard's device. A
-replicated vocabulary (GPT-2's 50257 at tp 2 or 4) is looked up on each
-shard and projected once.
+(exact: one partial is nonzero); the head, tied or untied, is then
+vocab-parallel, the shards' logit columns gathered on the first shard's
+device. A replicated vocabulary (GPT-2's 50257 at tp 2 or 4) is looked up
+on each shard and projected once, by the first shard's copy of the
+head.
 
 A speculative verify chunk (``decode_chunk``, ``paged_verify_chunk``) is
 split by head like any chunk; the draft and the acceptance run once, on
@@ -185,15 +186,20 @@ class TensorParallelGPT(nn.Module):
             page_table, toks, pos), page_size, self.layout.devices,
             self.vocab_split, lora), pools
 
+    def _head(self, shard, h):
+        if shard.head is not None:
+            return shard.head(h)
+        return F.linear(h, shard.gpt.tok_emb)
+
     def lm_logits(self, h):
         """(..., hidden) on the first shard's device -> (..., vocab) there,
-        through the tied head: vocab-parallel when the embedding is split,
-        else one product on the first shard."""
+        through the tied head or the untied ``head``: vocab-parallel when
+        the vocabulary is split, else one product on the first shard."""
         if not self.vocab_split:
-            return F.linear(h, self.tok_emb)
+            return self._head(self.shards[0], h)
         hs = broadcast(h, self.layout.devices)
-        return gather([F.linear(x, g.tok_emb)
-                       for x, g in zip(hs, self._gpts())], -1)
+        return gather([self._head(s, x) for x, s in zip(hs, self.shards)],
+                      -1)
 
 
 class TensorParallelCausalLM(nn.Module):
@@ -203,11 +209,6 @@ class TensorParallelCausalLM(nn.Module):
 
     def __init__(self, model, layout):
         super().__init__()
-        if getattr(model, "head", None) is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving of an untied LM head "
-                "(tie_embeddings=False) is not ported: the shards split the "
-                "tied head's vocabulary rows only")
         gpt = model.gpt
         attn = gpt.layers[0].attn
         layout.validate_heads(attn.n_heads)
@@ -220,7 +221,8 @@ class TensorParallelCausalLM(nn.Module):
                 hidden_size=gpt.hidden_size, n_layers=len(gpt.layers),
                 n_heads=attn.n_heads, max_position=gpt.max_position,
                 intermediate_size=gpt.intermediate_size, tp=layout.tp,
-                device=dev, dtype=gpt.tok_emb.dtype)
+                device=dev, dtype=gpt.tok_emb.dtype,
+                tie_embeddings=model.head is None)
             if int8:
                 # the int8 modules' shapes; the split weights overwrite them
                 quantize_model(shard)

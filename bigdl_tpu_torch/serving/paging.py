@@ -368,6 +368,7 @@ class PagedSlotManager(SlotManager):
         self.int8_kv = bool(int8_kv)
         self.page_store = page_store
         self.restore_active = False
+        self.restore_ended = 0.0      # time.monotonic() of the last restore
         self.restored_pages = 0
         self.last_admit_shared = 0
         self.last_admit_total = 0
@@ -554,8 +555,18 @@ class PagedSlotManager(SlotManager):
             if pin:
                 for page in shared_pages:
                     self.allocator.decref(page)
-            self.restore_active = False
+            if self.restore_active:
+                self._end_restore()
         return digests, tail_dig, shared_pages, shared_full, tail_shared
+
+    def _end_restore(self):
+        """The end of a restore, which counts as the loop's progress: the
+        supervisor's wedge check reads ``restore_ended`` beside the
+        heartbeat (the loop beats again only after the rest of its
+        iteration), stamped before ``restore_active`` falls so no poll
+        sees the grace gone and the stamp missing."""
+        self.restore_ended = time.monotonic()
+        self.restore_active = False
 
     # --------------------------------------------------- the digest ladder
     def _restore_pages(self, digests):
@@ -769,7 +780,7 @@ class PagedSlotManager(SlotManager):
         try:
             pages = self._restore_pages(run)
         finally:
-            self.restore_active = False
+            self._end_restore()
             self._refresh_pool_stats()
         return len(pages)
 

@@ -688,8 +688,13 @@ class Scheduler:
         return self._thread.is_alive()
 
     def heartbeat_age(self):
-        """Seconds since the loop last proved liveness."""
-        return time.monotonic() - self.heartbeat
+        """Seconds since the loop last proved liveness: its heartbeat, or
+        the end of a restore (the slot manager's ``restore_ended``),
+        whichever came later. The restore's end counts because the loop
+        beats only after the rest of its iteration, and a poll between the
+        two would read a restore that the grace covered as a wedge."""
+        last = max(self.heartbeat, getattr(self.slots, "restore_ended", 0.0))
+        return time.monotonic() - last
 
     @property
     def restore_active(self):

@@ -180,6 +180,7 @@ class SlotManager:
     # the paged manager's host tier and restore state; none here
     host_tier = None
     restore_active = False
+    restore_ended = 0.0
 
     def __init__(self, model, max_slots, window=4, steps_per_sync=1,
                  top_k=None, top_p=None, seed=0, spec_tokens=1,

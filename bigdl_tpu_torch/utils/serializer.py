@@ -28,8 +28,9 @@ from the file:
   reference's loader sets an object's attributes). Where it does not, an
   entry of :func:`_nn_table` says how; a model owns its entries (its
   class's ``native_spec()``), so this module names no model class;
-- ``_plain_table()``: the init methods and regularizers, plain objects
-  whose attributes the two packages share;
+- ``_plain_table()``: the init methods, the regularizers and
+  ``Proposal``'s ``Anchor``, plain objects whose attributes the two
+  packages share;
 - the function table: the ``_FUNC``/``_CLASS`` values naming ``jax`` or
   reference functions (a recurrent cell's activation, a TF graph's
   comparison) and the port's function for each (a ``_DTYPE`` names a
@@ -160,6 +161,8 @@ def _plain_table():
     out.update({f"bigdl_tpu.optim.regularizer:{c}": getattr(rg, c)
                 for c in ("L1Regularizer", "L2Regularizer",
                           "L1L2Regularizer")})
+    from bigdl_tpu_torch.nn.detection import Anchor
+    out["bigdl_tpu.nn.detection:Anchor"] = Anchor
     return out
 
 
@@ -654,8 +657,48 @@ def _nn_table():
                    "input_nodes output_nodes exec_order",
                    optional="_native_form _tf_used_inputs",
                    build=_build_graph),
+        NativeSpec(ref("nn.linear", "Cosine"), nn.Cosine,
+                   "input_size output_size weight_init",
+                   extra={"weight_init": _init("Xavier")}),
+        NativeSpec(ref("nn.linear", "Euclidean"), nn.Euclidean,
+                   "input_size output_size fast_backward weight_init",
+                   extra={"weight_init": _init("Xavier")}),
+        NativeSpec(ref("nn.linear", "Bilinear"), nn.Bilinear,
+                   "input_size1 input_size2 output_size with_bias "
+                   "weight_init bias_init w_regularizer b_regularizer",
+                   extra=_XAVIER_ZEROS, get={"with_bias": _with_bias},
+                   build=lambda a, make, at: nn.Bilinear(
+                       a["input_size1"], a["input_size2"], a["output_size"],
+                       a["with_bias"], make(a["w_regularizer"]),
+                       make(a["b_regularizer"]), device=at.device)),
+        # the expanded aspect ratios are kept: built back as they are, not
+        # expanded (and flipped) again
+        NativeSpec(ref("nn.detection", "PriorBox"), nn.PriorBox,
+                   "min_sizes max_sizes aspect_ratios clip variances offset "
+                   "img_h img_w step_h step_w num_priors",
+                   build=_restored(lambda a: nn.PriorBox(a["min_sizes"]))),
+        NativeSpec(ref("nn.detection", "Proposal"), nn.Proposal,
+                   "pre_nms_topn post_nms_topn pre_nms_topn_train "
+                   "post_nms_topn_train anchor min_size nms_thresh",
+                   build=_restored(lambda a: nn.Proposal(
+                       a["pre_nms_topn"], a["post_nms_topn"],
+                       np.asarray(a["anchor"].attrs["ratios"]),
+                       np.asarray(a["anchor"].attrs["scales"])))),
     ]
     return table
+
+
+def _restored(make_default):
+    """A ``build`` that makes the class from a few of the record's
+    values (``make_default(a)``) and then sets every attribute the record
+    holds, as the reference's loader does."""
+    def build(a, make, at):
+        m = make_default(a)
+        for k, v in a.items():
+            if k not in _MODULE_KEYS:
+                setattr(m, k, make(v))
+        return m
+    return build
 
 
 # port classes the reference has no class of: private bases and parts, and

@@ -458,6 +458,54 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tokens within 1e-4 x max|CPU| of the card's; that CPU model written and
    read back onto the card: its logits equal the card's first forward bit
    for bit.
+6l. detect — the losses and the detection heads (A.11(d)(4)(a)), after
+   ``train_rnn``: float32, TF32 off, seeded weights (the layers'
+   initialisers from DETECT_SEED). (a) SSD300 on VGG-16 as Liu et al.'s
+   ``ssd_pascal.py`` builds it (``SSD300``: Caffe's ceil-mode pools, pool5
+   3x3/s1/p1, fc6 3x3 dilated 6, fc7 1x1, conv6-conv9, ``NormalizeScale(20)``
+   on conv4_3, six ``PriorBox`` layers, 8,732 priors, 3x3 pad-1 loc and
+   conf heads, ``DetectionOutputSSD(21, nms 0.45, top 400, keep 200, conf
+   0.01)``) at batch 8 x 300²: a warm-up and DETECT_TIMED timed passes,
+   the 3x3 CUDA-core launches equal to ``conv_routes(..., training=False)``
+   of every stage and head and the library calls to its count (fc6, the
+   1x1, stride-2 and VALID convolutions), no 3x3 stride-1 ``F.conv2d``;
+   loc, conf and priors at batch 1 within 1e-4 of the CPU's largest
+   magnitude; the head on the CPU's batch-1 inputs and on the card's batch
+   of 8, each against the CPU head on the same inputs by the near-tie rule
+   (an image's rows equal, or equal up to a first differing row whose own
+   decision, its score to ``conf_thresh`` or to its class's top-k cut,
+   its overlap with an earlier row to the NMS threshold, or its order
+   against the other device's row, the CPU head took by a margin under
+   DETECT_TIE_EPS; counted and printed). (b) Faster R-CNN VGG-16 (``FRCNN_VGG16``:
+   py-faster-rcnn's ``test.prototxt`` at its TEST settings) on one 600 x
+   800 image, im_info (600, 800, 1.6, 1.6), its seeded ``cls_score``
+   weights widened so their logits spread with a standard deviation of 2
+   (at the initialiser's width every probability sits near 1/21, under
+   ``conf_thresh``, and no RoI would be detected): timed passes with the
+   route table's launches; conv5_3 and the RPN's maps within 1e-4 of the CPU's;
+   ``Proposal`` and ``DetectionOutputFrcnn`` fed the CPU's own inputs
+   against the CPU layers by the near-tie rule (min_size within
+   DETECT_TIE_PX pixels), ``RoiPooling`` on them exactly; the card's own
+   RoIs against the CPU's reported; ``RoiPooling``'s allocation beyond its
+   inputs at most 1.1x its RoIs' (R, C, H, W) map; the NMS calls timed
+   alone in one more pass (their share of it). (c) conv5 and the RPN
+   (``rpn_train_model``) from the card's conv4_3, 3 steps of
+   ``make_train_step`` with ``SGD(0.001, momentum 0.9)`` and
+   ``ParallelCriterion(SoftmaxWithCriterion(ignore_label=-1),
+   SmoothL1CriterionWithWeights(sigma=3))`` on seeded anchor targets (64
+   foreground, 192 background, the rest -1): the first step's loss within
+   1e-5 relative of the CPU's; each input-gradient flip of the step
+   (conv5_2, conv5_3, rpn_conv) on the card, fed the CPU run's own output
+   gradient, within 1e-5 of ``torch.nn.grad.conv2d_input``'s largest
+   magnitude; every gradient within 1e-4 of the largest magnitude of a
+   CPU run that takes the card's ReLU decisions (the ReLU outputs whose
+   sign the two devices' rounding decides differently are counted; each
+   gradient against the plain CPU run by train_cnn's rule, and cuDNN's in
+   the kernels' place, reported), the losses falling, the launches of ``conv_routes`` x 3
+   (forward and input-gradient flips). (d) every case of ``CRITERION_CASES`` (all 39
+   criterions) forward and backward on the card within 1e-5 of the CPU.
+   Reports images/s, ms an image, the NMS sweep's steps, launches and
+   time, ms a step and the card.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -9843,6 +9891,1161 @@ def phase_train_rnn(torch, kernels, smi):
           "tree_lstm": tree, "card": smi})
 
 
+# ------------------------------------------------------------------ detect
+# A detector's convolutional stages as (kind, ...) layers: ("conv", cin,
+# cout[, k, stride, pad, dilation]) a convolution (3x3, stride 1, pad 1
+# where not given) and its ReLU; ("pool", k, stride, pad) a max pooling in
+# Caffe's ceil mode (300 -> 150 -> 75 -> 38 -> 19)
+VGG16_CONV1_4 = [("conv", 3, 64), ("conv", 64, 64), ("pool", 2, 2, 0),
+                 ("conv", 64, 128), ("conv", 128, 128), ("pool", 2, 2, 0),
+                 ("conv", 128, 256), ("conv", 256, 256), ("conv", 256, 256),
+                 ("pool", 2, 2, 0), ("conv", 256, 512), ("conv", 512, 512),
+                 ("conv", 512, 512)]
+VGG16_CONV5 = [("pool", 2, 2, 0), ("conv", 512, 512), ("conv", 512, 512),
+               ("conv", 512, 512)]
+# Liu et al.'s ssd_pascal.py (VGG_VOC0712_SSD_300x300): the stages whose
+# outputs are the source maps (conv4_3, under NormalizeScale(20); fc7, after
+# pool5 3x3/s1/p1 and fc6 dilated 6; conv6_2 to conv9_2), each source's
+# PriorBox (min size, max size, aspect ratios, step; flip on, clip off,
+# variances 0.1/0.1/0.2/0.2, offset 0.5) and the DetectionOutput settings
+SSD300 = {
+    "image": 300, "classes": 21, "norm_scale": 20.0,
+    "stages": [VGG16_CONV1_4,
+               VGG16_CONV5 + [("pool", 3, 1, 1),
+                              ("conv", 512, 1024, 3, 1, 6, 6),
+                              ("conv", 1024, 1024, 1, 1, 0)],
+               [("conv", 1024, 256, 1, 1, 0), ("conv", 256, 512, 3, 2, 1)],
+               [("conv", 512, 128, 1, 1, 0), ("conv", 128, 256, 3, 2, 1)],
+               [("conv", 256, 128, 1, 1, 0), ("conv", 128, 256, 3, 1, 0)],
+               [("conv", 256, 128, 1, 1, 0), ("conv", 128, 256, 3, 1, 0)]],
+    "priors": [(30.0, 60.0, [2.0], 8.0), (60.0, 111.0, [2.0, 3.0], 16.0),
+               (111.0, 162.0, [2.0, 3.0], 32.0),
+               (162.0, 213.0, [2.0, 3.0], 64.0),
+               (213.0, 264.0, [2.0], 100.0), (264.0, 315.0, [2.0], 300.0)],
+    "detection": dict(n_classes=21, nms_thresh=0.45, nms_topk=400,
+                      keep_top_k=200, conf_thresh=0.01),
+}
+SSD300_PRIORS = 8732
+# py-faster-rcnn's VGG16/faster_rcnn_end2end/test.prototxt with its TEST
+# settings (RPN_PRE_NMS_TOP_N 6000, RPN_POST_NMS_TOP_N 300,
+# RPN_NMS_THRESH 0.7, RPN_MIN_SIZE 16, NMS 0.3), on one 600 x 800 image
+FRCNN_VGG16 = {
+    "image": (600, 800), "classes": 21, "trunk": VGG16_CONV1_4,
+    "conv5": VGG16_CONV5, "rpn": 512, "ratios": [0.5, 1.0, 2.0],
+    "scales": [8.0, 16.0, 32.0],
+    "proposal": dict(pre_nms_topn=6000, post_nms_topn=300, nms_thresh=0.7,
+                     min_size=16.0),
+    "pooled": 7, "spatial_scale": 1.0 / 16, "fc": 4096,
+    "detection": dict(n_classes=21, nms_thresh=0.3, conf_thresh=0.05,
+                      keep_top_k=100),
+}
+
+
+def det_stage(nn, layers, **kw):
+    """A ``Sequential`` of ``layers`` (see above) in package ``nn``: the
+    port's, or the reference's in the CPU tests; ``kw`` goes to every
+    layer with weights (the port's ``device``)."""
+    seq = nn.Sequential()
+    for layer in layers:
+        if layer[0] == "pool":
+            _, k, s, p = layer
+            seq.add(nn.SpatialMaxPooling(k, k, s, s, p, p).ceil())
+            continue
+        cin, cout, k, s, p, d = tuple(layer[1:]) + (3, 1, 1, 1)[
+            len(layer) - 3:]
+        seq.add(nn.SpatialDilatedConvolution(cin, cout, k, k, s, s, p, p, d,
+                                             d, **kw) if d > 1 else
+                nn.SpatialConvolution(cin, cout, k, k, s, s, p, p, **kw))
+        seq.add(nn.ReLU())
+    return seq
+
+
+def _width(layers):
+    return [layer for layer in layers if layer[0] == "conv"][-1][2]
+
+
+def ssd_build(nn, cfg, **kw):
+    """SSD's layers from ``cfg`` (``SSD300``'s layout) in package ``nn``
+    (``det_stage``): ``{"stages", "norm", "loc", "conf", "priors",
+    "det"}``, the heads 3x3 pad-1 convolutions of each source map."""
+    widths = [_width(s) for s in cfg["stages"]]
+    priors = [nn.PriorBox([mn], [mx], ars, flip=True, clip=False,
+                          variances=[0.1, 0.1, 0.2, 0.2],
+                          img_size=cfg["image"], step=step)
+              for mn, mx, ars, step in cfg["priors"]]
+
+    def head(cin, cout):
+        return nn.SpatialConvolution(cin, cout, 3, 3, 1, 1, 1, 1, **kw)
+
+    return {"stages": [det_stage(nn, s, **kw) for s in cfg["stages"]],
+            "norm": nn.NormalizeScale(scale=cfg["norm_scale"],
+                                      size=(1, widths[0], 1, 1), **kw),
+            "loc": [head(w, p.num_priors * 4)
+                    for w, p in zip(widths, priors)],
+            "conf": [head(w, p.num_priors * cfg["classes"])
+                     for w, p in zip(widths, priors)],
+            "priors": priors,
+            "det": nn.DetectionOutputSSD(**cfg["detection"])}
+
+
+def frcnn_build(nn, cfg, **kw):
+    """Faster R-CNN's layers from ``cfg`` (``FRCNN_VGG16``'s layout) in
+    package ``nn`` (``det_stage``): ``{"trunk", "conv5", "rpn_conv",
+    "rpn_cls", "rpn_bbox", "proposal", "roi", "fc", "cls", "bbox",
+    "det"}``."""
+    a = len(cfg["ratios"]) * len(cfg["scales"])
+    width, c, k = _width(cfg["conv5"]), cfg["classes"], cfg["pooled"]
+    fc = nn.Sequential()
+    for layer in (nn.Linear(width * k * k, cfg["fc"], **kw), nn.ReLU(),
+                  nn.Linear(cfg["fc"], cfg["fc"], **kw), nn.ReLU()):
+        fc.add(layer)
+    return {"trunk": det_stage(nn, cfg["trunk"], **kw),
+            "conv5": det_stage(nn, cfg["conv5"], **kw),
+            "rpn_conv": nn.SpatialConvolution(width, cfg["rpn"], 3, 3, 1, 1,
+                                              1, 1, **kw),
+            "rpn_cls": nn.SpatialConvolution(cfg["rpn"], 2 * a, 1, 1, **kw),
+            "rpn_bbox": nn.SpatialConvolution(cfg["rpn"], 4 * a, 1, 1, **kw),
+            "proposal": nn.Proposal(ratios=cfg["ratios"],
+                                    scales=cfg["scales"], **cfg["proposal"]),
+            "roi": nn.RoiPooling(k, k, cfg["spatial_scale"]),
+            "fc": fc, "cls": nn.Linear(cfg["fc"], c, **kw),
+            "bbox": nn.Linear(cfg["fc"], 4 * c, **kw),
+            "det": nn.DetectionOutputFrcnn(**cfg["detection"])}
+
+
+def rpn_train_model(nn, parts):
+    """conv5 and the RPN of ``frcnn_build``'s ``parts`` (the same
+    modules) as one trainable ``Sequential``: it takes conv4_3's output
+    and gives the table (rpn_cls_score reshaped to (N, 2, A*H, W), as the
+    prototxt's ``rpn_cls_score_reshape``, and rpn_bbox_pred)."""
+    score = nn.Sequential()
+    score.add(parts["rpn_cls"])
+    score.add(nn.InferReshape((0, 2, -1, 0)))
+    heads = nn.ConcatTable()
+    heads.add(score)
+    heads.add(parts["rpn_bbox"])
+    model = nn.Sequential()
+    for layer in (parts["conv5"], parts["rpn_conv"], nn.ReLU(), heads):
+        model.add(layer)
+    return model
+
+
+def rpn_criterion(nn):
+    """The RPN's loss: softmax over the labelled anchors (-1 ignored) and
+    smooth L1 (sigma 3) of the weighted box targets."""
+    crit = nn.ParallelCriterion()
+    crit.add(nn.SoftmaxWithCriterion(ignore_label=-1))
+    crit.add(nn.SmoothL1CriterionWithWeights(sigma=3.0))
+    return crit
+
+
+def rpn_targets(np, rng, a, h, w, fg=64, bg=192):
+    """Seeded RPN targets of one image, as py-faster-rcnn's
+    AnchorTargetLayer lays them out: labels (1, A*H, W), 1 on ``fg`` and
+    0 on ``bg`` sampled anchors, -1 elsewhere; box targets (1, 4A, H, W);
+    inside weights 1 on the foreground anchors' four coordinates; outside
+    weights 1/(fg + bg) on every sampled anchor."""
+    picked = rng.permutation(a * h * w)[:fg + bg]
+    lab = np.full(a * h * w, -1, np.int64)
+    lab[picked[:fg]] = 1
+    lab[picked[fg:]] = 0
+    lab = lab.reshape(a, h, w)
+    targets = rng.standard_normal((1, 4 * a, h, w)).astype(np.float32) * 0.5
+    inside = np.repeat((lab == 1).astype(np.float32), 4, axis=0)[None]
+    outside = np.repeat((lab >= 0).astype(np.float32) / (fg + bg), 4,
+                        axis=0)[None]
+    return lab.reshape(1, a * h, w), [targets, inside, outside]
+
+
+def as_module(torch, parts):
+    """``*_build``'s dict as one ``torch.nn.ModuleDict`` (lists as
+    ``ModuleList``s): one state_dict, ``to`` and seeded weights."""
+    return torch.nn.ModuleDict({
+        k: torch.nn.ModuleList(v) if isinstance(v, list) else v
+        for k, v in parts.items()})
+
+
+def ssd_forward(torch, m, x, shapes=None):
+    """(loc (N, P*4), conf (N, P*classes), priors (1, 2, P*4)) of SSD
+    parts ``m`` on images ``x``: each source map's heads permuted to (N,
+    H, W, channels) and flattened (Caffe's ``Permute`` and ``Flatten``),
+    concatenated. ``shapes`` collects each stage's input and output (H,
+    W)."""
+    n = x.shape[0]
+    locs, confs, priors = [], [], []
+    h = x
+    for i, stage in enumerate(m["stages"]):
+        hw = tuple(h.shape[2:])
+        h = stage(h)
+        if shapes is not None:
+            shapes.append((hw, tuple(h.shape[2:])))
+        src = m["norm"](h) if i == 0 else h
+        locs.append(m["loc"][i](src).permute(0, 2, 3, 1).reshape(n, -1))
+        confs.append(m["conf"][i](src).permute(0, 2, 3, 1).reshape(n, -1))
+        priors.append(m["priors"][i](src))
+    return torch.cat(locs, 1), torch.cat(confs, 1), torch.cat(priors, 2)
+
+
+def frcnn_rpn(torch, m, x):
+    """conv5_3 and the RPN's maps on one image ``x``: (features, prob (1,
+    2A, H, W), deltas (1, 4A, H, W)), prob the softmax over each anchor's
+    (background, object) pair (the prototxt's ``rpn_cls_prob``)."""
+    f = m["conv5"](m["trunk"](x))
+    r = torch.relu(m["rpn_conv"](f))
+    score = m["rpn_cls"](r)
+    n, c2, h, w = score.shape
+    prob = torch.softmax(score.reshape(n, 2, -1, w), 1).reshape(n, c2, h, w)
+    return f, prob, m["rpn_bbox"](r)
+
+
+def frcnn_classify(torch, m, pooled):
+    """(class probabilities (R, classes), box deltas (R, 4 classes)) of
+    the pooled RoIs (R, C, 7, 7)."""
+    h = m["fc"](pooled.reshape(pooled.shape[0], -1))
+    return torch.softmax(m["cls"](h), -1), m["bbox"](h)
+
+
+def frcnn_head(torch, m, f, rois):
+    """``frcnn_classify`` of ``rois`` pooled from conv5_3 ``f``."""
+    return frcnn_classify(torch, m, m["roi"]([f, rois]))
+
+
+def frcnn_forward(torch, m, x, im_info):
+    """Faster R-CNN's test-time pass on one image: (rois, their scores,
+    the detection rows)."""
+    f, prob, deltas = frcnn_rpn(torch, m, x)
+    rois, scores = m["proposal"]([prob, deltas, im_info])
+    cls_prob, bbox_pred = frcnn_head(torch, m, f, rois)
+    return rois, scores, m["det"]([cls_prob, bbox_pred, rois, im_info])
+
+
+# the 39 criterions at small seeded shapes: name -> (criterion of package
+# ``nn``, inputs (input, target) from numpy and a generator; lists are
+# tables), one case per criterion and option set (the CPU tests hold each
+# against the reference; ``detect`` the card against the CPU)
+def _c_logits(np, r, *shape):
+    return r.standard_normal(shape).astype(np.float32)
+
+
+def _c_probs(np, r, n, c):
+    e = np.exp(_c_logits(np, r, n, c))
+    return (e / e.sum(1, keepdims=True)).astype(np.float32)
+
+
+def _c_labels(np, r, n, c):
+    return r.integers(0, c, n).astype(np.int64)
+
+
+def _c_pm1(np, r, n):
+    return (r.integers(0, 2, n) * 2 - 1).astype(np.float32)
+
+
+def _c_near(np, r, x):
+    """A target pointing near ``x``: a cosine loss of unrelated vectors
+    averages terms of both signs to about 0."""
+    return (x + 0.5 * r.standard_normal(x.shape)).astype(np.float32)
+
+
+def _c_multi_hot(np, r, n, c):
+    t = r.integers(0, 2, (n, c)).astype(np.float32)
+    t[:, 0] = 1.0                       # every row has a positive class
+    return t
+
+
+def _c_bits(np, r, *shape):
+    return r.integers(0, 2, shape).astype(np.float32)
+
+
+def _c_rpn_labels(np, r, n=2, h=6, w=5):
+    lab = r.integers(0, 2, (n, h, w)).astype(np.int64)
+    lab[r.random((n, h, w)) < 0.3] = -1
+    return lab
+
+
+def _c_box_targets(np, r, *shape):
+    return [_c_logits(np, r, *shape), _c_bits(np, r, *shape),
+            np.full(shape, 0.25, np.float32)]
+
+
+CRITERION_CASES = {
+    "ClassNLLCriterion": (
+        lambda nn: nn.ClassNLLCriterion(),
+        lambda np, r: (np.log(_c_probs(np, r, 6, 5)),
+                       _c_labels(np, r, 6, 5))),
+    "ClassNLLCriterion_weights_padding": (
+        lambda nn: nn.ClassNLLCriterion([1.0, 2.0, 0.5, 1.5, 1.0]),
+        lambda np, r: (np.log(_c_probs(np, r, 6, 5)),
+                       np.array([0, -1, 2, 4, -1, 1], np.int64))),
+    "ClassNLLCriterion_probabilities": (
+        lambda nn: nn.ClassNLLCriterion(log_prob_as_input=False,
+                                        size_average=False),
+        lambda np, r: (_c_probs(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "CrossEntropyCriterion": (
+        lambda nn: nn.CrossEntropyCriterion(),
+        lambda np, r: (_c_logits(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "MSECriterion": (
+        lambda nn: nn.MSECriterion(),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "MSECriterion_sum": (
+        lambda nn: nn.MSECriterion(size_average=False),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "AbsCriterion": (
+        lambda nn: nn.AbsCriterion(),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "BCECriterion": (
+        lambda nn: nn.BCECriterion(),
+        lambda np, r: (_c_probs(np, r, 4, 5).clip(0.05, 0.95),
+                       _c_bits(np, r, 4, 5))),
+    "BCECriterion_weights": (
+        lambda nn: nn.BCECriterion([1.0, 0.5, 2.0, 1.0, 3.0]),
+        lambda np, r: (_c_probs(np, r, 4, 5).clip(0.05, 0.95),
+                       _c_bits(np, r, 4, 5))),
+    "BCECriterionWithLogits": (
+        lambda nn: nn.BCECriterionWithLogits(),
+        lambda np, r: (_c_logits(np, r, 4, 5) * 3, _c_bits(np, r, 4, 5))),
+    "SmoothL1Criterion": (
+        lambda nn: nn.SmoothL1Criterion(sigma=2.0),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "MarginCriterion": (
+        lambda nn: nn.MarginCriterion(),
+        lambda np, r: (_c_logits(np, r, 8), _c_pm1(np, r, 8))),
+    "MarginCriterion_squared": (
+        lambda nn: nn.MarginCriterion(margin=0.5, squared=True),
+        lambda np, r: (_c_logits(np, r, 8), _c_pm1(np, r, 8))),
+    "MarginRankingCriterion": (
+        lambda nn: nn.MarginRankingCriterion(margin=0.5),
+        lambda np, r: ([_c_logits(np, r, 8), _c_logits(np, r, 8)],
+                       _c_pm1(np, r, 8))),
+    "CosineEmbeddingCriterion": (
+        lambda nn: nn.CosineEmbeddingCriterion(margin=0.1),
+        lambda np, r: ([_c_logits(np, r, 6, 4), _c_logits(np, r, 6, 4)],
+                       _c_pm1(np, r, 6))),
+    "HingeEmbeddingCriterion": (
+        lambda nn: nn.HingeEmbeddingCriterion(margin=1.5),
+        lambda np, r: (_c_logits(np, r, 8), _c_pm1(np, r, 8))),
+    "SoftMarginCriterion": (
+        lambda nn: nn.SoftMarginCriterion(),
+        lambda np, r: (_c_logits(np, r, 8), _c_pm1(np, r, 8))),
+    "MultiMarginCriterion": (
+        lambda nn: nn.MultiMarginCriterion(),
+        lambda np, r: (_c_logits(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "MultiMarginCriterion_p2_weights": (
+        lambda nn: nn.MultiMarginCriterion(p=2, margin=0.7,
+                                           weights=[1.0, 2.0, 0.5, 1.0,
+                                                    1.5]),
+        lambda np, r: (_c_logits(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "MultiLabelMarginCriterion": (
+        lambda nn: nn.MultiLabelMarginCriterion(),
+        lambda np, r: (_c_logits(np, r, 6, 5),
+                       _c_multi_hot(np, r, 6, 5))),
+    "MultiLabelSoftMarginCriterion": (
+        lambda nn: nn.MultiLabelSoftMarginCriterion([1.0, 2.0, 0.5, 1.0,
+                                                     1.5]),
+        lambda np, r: (_c_logits(np, r, 6, 5),
+                       _c_multi_hot(np, r, 6, 5))),
+    "DistKLDivCriterion": (
+        lambda nn: nn.DistKLDivCriterion(),
+        lambda np, r: (np.log(_c_probs(np, r, 4, 5)),
+                       np.where(r.random((4, 5)) < 0.2, 0.0,
+                                _c_probs(np, r, 4, 5)).astype(np.float32))),
+    "KLDCriterion": (
+        lambda nn: nn.KLDCriterion(),
+        lambda np, r: ([_c_logits(np, r, 4, 5),
+                        _c_logits(np, r, 4, 5) * 0.1], None)),
+    "GaussianCriterion": (
+        lambda nn: nn.GaussianCriterion(),
+        lambda np, r: ([_c_logits(np, r, 4, 5),
+                        _c_logits(np, r, 4, 5) * 0.1],
+                       _c_logits(np, r, 4, 5))),
+    "L1Cost": (lambda nn: nn.L1Cost(),
+               lambda np, r: (_c_logits(np, r, 4, 5), None)),
+    "DiceCoefficientCriterion": (
+        lambda nn: nn.DiceCoefficientCriterion(epsilon=0.5),
+        lambda np, r: (_c_probs(np, r, 4, 5), _c_bits(np, r, 4, 5))),
+    "PGCriterion": (
+        lambda nn: nn.PGCriterion(),
+        lambda np, r: (_c_probs(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "PGCriterion_average": (
+        lambda nn: nn.PGCriterion(True),
+        lambda np, r: (_c_probs(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "MultiCriterion": (
+        lambda nn: nn.MultiCriterion().add(nn.MSECriterion(), 0.5)
+        .add(nn.AbsCriterion(), 2.0),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "ParallelCriterion": (
+        lambda nn: nn.ParallelCriterion()
+        .add(nn.SoftmaxWithCriterion(ignore_label=-1), 1.0)
+        .add(nn.SmoothL1CriterionWithWeights(sigma=3.0, num=4), 0.5),
+        lambda np, r: ([_c_logits(np, r, 2, 2, 6, 5),
+                        _c_logits(np, r, 2, 8, 3, 5)],
+                       [_c_rpn_labels(np, r),
+                        _c_box_targets(np, r, 2, 8, 3, 5)])),
+    "ParallelCriterion_repeat_target": (
+        lambda nn: nn.ParallelCriterion(repeat_target=True)
+        .add(nn.MSECriterion(), 1.0).add(nn.AbsCriterion(), 0.25),
+        lambda np, r: ([_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5)],
+                       _c_logits(np, r, 4, 5))),
+    "TimeDistributedCriterion": (
+        lambda nn: nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                               size_average=True),
+        lambda np, r: (np.log(_c_probs(np, r, 12, 5)).reshape(3, 4, 5),
+                       _c_labels(np, r, 12, 5).reshape(3, 4))),
+    "TransformerCriterion": (
+        lambda nn: nn.TransformerCriterion(nn.MSECriterion(), nn.Tanh(),
+                                           nn.Square()),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "SoftmaxWithCriterion": (
+        lambda nn: nn.SoftmaxWithCriterion(),
+        lambda np, r: (_c_logits(np, r, 2, 3, 4, 5),
+                       _c_labels(np, r, 40, 3).reshape(2, 4, 5))),
+    "SoftmaxWithCriterion_ignore": (
+        lambda nn: nn.SoftmaxWithCriterion(ignore_label=-1),
+        lambda np, r: (_c_logits(np, r, 2, 2, 4, 5),
+                       _c_rpn_labels(np, r, 2, 4, 5))),
+    "SoftmaxWithCriterion_ignore_full": (
+        lambda nn: nn.SoftmaxWithCriterion(ignore_label=-1,
+                                           normalize_mode="FULL"),
+        lambda np, r: (_c_logits(np, r, 2, 2, 4, 5),
+                       _c_rpn_labels(np, r, 2, 4, 5))),
+    "SoftmaxWithCriterion_all_ignored": (
+        lambda nn: nn.SoftmaxWithCriterion(ignore_label=-1),
+        lambda np, r: (_c_logits(np, r, 2, 3, 4),
+                       np.full((2, 4), -1, np.int64))),
+    "ClassSimplexCriterion": (
+        lambda nn: nn.ClassSimplexCriterion(5),
+        lambda np, r: (_c_logits(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "L1HingeEmbeddingCriterion": (
+        lambda nn: nn.L1HingeEmbeddingCriterion(margin=4.0),
+        lambda np, r: ([_c_logits(np, r, 6, 4), _c_logits(np, r, 6, 4)],
+                       _c_pm1(np, r, 6))),
+    "CosineDistanceCriterion": (
+        lambda nn: nn.CosineDistanceCriterion(),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "CosineProximityCriterion": (
+        lambda nn: nn.CosineProximityCriterion(),
+        lambda np, r: (lambda x: (x, _c_near(np, r, x)))(
+            _c_logits(np, r, 4, 5))),
+    "DotProductCriterion": (
+        lambda nn: nn.DotProductCriterion(),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "PoissonCriterion": (
+        lambda nn: nn.PoissonCriterion(),
+        lambda np, r: (_c_probs(np, r, 4, 5) * 3,
+                       r.poisson(1.0, (4, 5)).astype(np.float32))),
+    "KullbackLeiblerDivergenceCriterion": (
+        lambda nn: nn.KullbackLeiblerDivergenceCriterion(),
+        lambda np, r: (_c_probs(np, r, 4, 5), _c_probs(np, r, 4, 5))),
+    "MeanAbsolutePercentageCriterion": (
+        lambda nn: nn.MeanAbsolutePercentageCriterion(),
+        lambda np, r: (_c_logits(np, r, 4, 5),
+                       _c_logits(np, r, 4, 5) + 3.0)),
+    "MeanSquaredLogarithmicCriterion": (
+        lambda nn: nn.MeanSquaredLogarithmicCriterion(),
+        lambda np, r: (np.abs(_c_logits(np, r, 4, 5)),
+                       np.abs(_c_logits(np, r, 4, 5)))),
+    "CategoricalCrossEntropy": (
+        lambda nn: nn.CategoricalCrossEntropy(),
+        lambda np, r: (_c_probs(np, r, 6, 5), _c_labels(np, r, 6, 5))),
+    "SmoothL1CriterionWithWeights": (
+        lambda nn: nn.SmoothL1CriterionWithWeights(sigma=3.0, num=5),
+        lambda np, r: (_c_logits(np, r, 2, 8, 3, 3),
+                       _c_box_targets(np, r, 2, 8, 3, 3))),
+    "SmoothL1CriterionWithWeights_plain_target": (
+        lambda nn: nn.SmoothL1CriterionWithWeights(),
+        lambda np, r: (_c_logits(np, r, 4, 5), _c_logits(np, r, 4, 5))),
+    "NegativeEntropyPenalty": (
+        lambda nn: nn.NegativeEntropyPenalty(beta=0.05),
+        lambda np, r: (_c_probs(np, r, 4, 5), None)),
+    "TimeDistributedMaskCriterion": (
+        lambda nn: nn.TimeDistributedMaskCriterion(nn.MSECriterion(), 0.0),
+        lambda np, r: (_c_logits(np, r, 3, 4, 5),
+                       np.where(r.random((3, 4, 5)) < 0.3, 0.0,
+                                _c_logits(np, r, 3, 4, 5))
+                       .astype(np.float32))),
+    "TimeDistributedMaskCriterion_labels": (
+        lambda nn: nn.TimeDistributedMaskCriterion(nn.ClassNLLCriterion(),
+                                                   padding_value=0),
+        lambda np, r: (np.log(_c_probs(np, r, 12, 5)).reshape(3, 4, 5),
+                       _c_labels(np, r, 12, 5).reshape(3, 4))),
+}
+
+
+def criterion_seed(name):
+    return sum(map(ord, name))
+
+
+DETECT_SEED = 25
+SSD_BATCH = 8
+DETECT_TIMED = 3          # timed passes of each detector, after a warm-up
+FRCNN_IM_INFO = (600.0, 800.0, 1.6, 1.6)   # a 375 x 500 VOC image at 600
+FRCNN_LOGIT_STD = 2.0     # the seeded classifier's logits' spread
+RPN_STEPS = 3
+RPN_LR = 0.001            # py-faster-rcnn's base_lr, momentum 0.9
+DETECT_OUT_REL = 1e-4     # card vs CPU maps, x max|CPU| (float32, TF32 off)
+DETECT_LOSS_REL = 1e-5    # the RPN's first loss, card vs CPU
+DETECT_FLIP_REL = 1e-5    # each flip on the CPU's own inputs, x max|CPU|
+# every gradient against the CPU's run with the card's ReLU decisions
+DETECT_MASKED_REL = 1e-4
+DETECT_GRAD_REL = 1e-3    # train_cnn's bar against the plain CPU (reported)
+# the near-tie rule of a detection head fed the same inputs on both
+# devices (_rows_near_tie): an image's rows may differ only from a first
+# differing row whose own decision the CPU head took by a margin under
+# DETECT_TIE_EPS (scores and IoU; the card's softmax and exp differ from
+# the CPU's by a few ulps, ~1e-7) or, for Proposal's min_size,
+# DETECT_TIE_PX pixels
+DETECT_TIE_EPS = 1e-6
+DETECT_TIE_PX = 1e-3
+DETECT_BOX_TOL = {"ssd": 1e-5, "frcnn": 1e-3}   # normalised / pixels
+CRITERION_REL = 1e-5      # the criterions, card vs CPU
+
+
+def _rel(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def _add_routes(total, split, n=1):
+    for kind in ("k9", "i2c"):
+        for path in ("tc", "simt"):
+            total[kind][path] += split[kind][path] * n
+    total["library"] += split["library"] * n
+    return total
+
+
+def _no_routes():
+    return {"k9": {"tc": 0, "simt": 0}, "i2c": {"tc": 0, "simt": 0},
+            "library": 0}
+
+
+def _ssd_rule(torch, head, inputs):
+    """The decisions of ``DetectionOutputSSD`` ``head`` that the near-tie
+    rule reads, on its inputs (loc, conf, priors): its thresholds, and
+    each (image, class)'s scores either side of its ``nms_topk`` cut (N,
+    classes, 2)."""
+    from bigdl_tpu_torch.nn.detection import top_k
+    loc, conf, _ = inputs
+    n, p = loc.shape[0], loc.shape[1] // 4
+    cut = None
+    if head.nms_topk and head.nms_topk < p:
+        c = conf.reshape(n, p, head.n_classes)
+        if head.conf_post_process:
+            c = torch.softmax(c, -1)
+        s = c.permute(0, 2, 1)
+        s = torch.where(s >= head.conf_thresh, s, torch.zeros_like(s))
+        cut = top_k(s, head.nms_topk + 1)[0][..., -2:]
+    return {"conf_thresh": head.conf_thresh, "nms_thresh": head.nms_thresh,
+            "normalized": True, "cut": cut}
+
+
+def _frcnn_rule(head):
+    """The decisions of ``DetectionOutputFrcnn`` ``head`` that the
+    near-tie rule reads (no top-k cut before its NMS)."""
+    return {"conf_thresh": head.conf_thresh, "nms_thresh": head.nms_thresh,
+            "normalized": False}
+
+
+def _proposal_rule(torch, layer, inputs):
+    """The decisions of ``Proposal`` ``layer`` that the near-tie rule
+    reads, on its CPU inputs: the scores either side of its pre-NMS cut,
+    its NMS threshold and its least box size in pixels (width, height)."""
+    from bigdl_tpu_torch.nn.detection import top_k
+    _, scores, pre, _ = layer._candidates(inputs)
+    im_info = inputs[2]
+    cut = top_k(scores, pre + 1)[0][-2:].reshape(1, 1, 2) \
+        if pre < scores.shape[0] else None
+    return {"nms_thresh": layer.nms_thresh, "normalized": False, "cut": cut,
+            "min_size": (layer.min_size * float(im_info[0, 3]),
+                         layer.min_size * float(im_info[0, 2]))}
+
+
+def _proposal_rows(torch, rois, scores):
+    """``Proposal``'s output as detection rows ``[label, score, box]``:
+    label 0 and the score for a kept RoI, label -1 and 0 for a suppressed
+    one (score -inf)."""
+    kept = torch.isfinite(scores)
+    zero = torch.zeros_like(scores)
+    return torch.cat([torch.where(kept, zero, zero - 1)[:, None],
+                      torch.where(kept, scores, zero)[:, None],
+                      rois[:, 1:]], 1)
+
+
+def _row_margins(torch, want, got_row, p, rule, image, box_tol):
+    """The CPU head's margins at the decisions that could put the card's
+    ``got_row`` where the CPU's rows ``want`` have row ``p`` (the rows
+    before it equal on both): ``order``, the gap between the two rows'
+    scores where the card's row stands later in the CPU's rows or ``p``
+    is the last row (two candidates swapped); and for each of the two that
+    is a candidate (label >= 0), its score to ``conf_thresh``
+    (``conf_thresh``), to the scores either side of its label's top-k cut
+    (``top_k``), its largest overlap with an earlier row of its label to
+    the NMS threshold (``nms_iou``) and its size to ``min_size`` in pixels
+    (``min_size``)."""
+    import math
+
+    from bigdl_tpu_torch.nn.detection import iou_matrix
+    a, b = want[p], got_row
+    m = {}
+
+    def put(kind, v):
+        m[kind] = min(m.get(kind, math.inf), float(v))
+
+    if a[0] >= 0 and b[0] >= 0:
+        later = want[p + 1:]
+        moved = ((later[:, 0] == b[0])
+                 & ((later[:, 1] - b[1]).abs() <= DETECT_TIE_EPS)
+                 & ((later[:, 2:] - b[2:]).abs().amax(1) <= box_tol))
+        if p == want.shape[0] - 1 or bool(moved.any()):
+            put("order", (a[1] - b[1]).abs())
+    for r in (a, b):
+        if r[0] < 0:
+            continue
+        if rule.get("conf_thresh") is not None:
+            put("conf_thresh", abs(float(r[1]) - rule["conf_thresh"]))
+        if rule.get("cut") is not None:
+            put("top_k", (rule["cut"][image, int(r[0])] - r[1]).abs().min())
+        earlier = want[:p][want[:p, 0] == r[0]]
+        if len(earlier):
+            iou = iou_matrix(r[None, 2:], earlier[:, 2:], rule["normalized"])
+            put("nms_iou", (iou - rule["nms_thresh"]).abs().min())
+        if rule.get("min_size") is not None:
+            put("min_size", min(
+                abs(float(r[4] - r[2] + 1) - rule["min_size"][0]),
+                abs(float(r[5] - r[3] + 1) - rule["min_size"][1])))
+    return m
+
+
+def _rows_near_tie(torch, name, got, want, box_tol, rule):
+    """Detection rows (N, K, 6) ``[label, score, box]`` of the card
+    against the CPU's on the same inputs, by the near-tie rule: an image's
+    rows are equal (labels; scores within DETECT_TIE_EPS; boxes within
+    ``box_tol``), or equal up to a first differing row that one of the CPU
+    head's decisions about that row's candidates (``_row_margins``) took
+    by a margin under DETECT_TIE_EPS (DETECT_TIE_PX pixels for
+    ``min_size``); the rows after it follow from that decision. Such
+    images are counted and printed with their margins. ``rule``: the
+    head's decisions (``_ssd_rule``, ``_frcnn_rule``, ``_proposal_rule``).
+    Returns the record."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.dim() == 2:
+        got, want = got[None], want[None]
+    rec = {"images": int(got.shape[0]), "rows": int(got.shape[1]),
+           "identical_images": 0, "near_tie_images": 0, "near_ties": []}
+    for n in range(got.shape[0]):
+        g, w = got[n], want[n]
+        differ = ((g[:, 0] != w[:, 0])
+                  | ((g[:, 1] - w[:, 1]).abs() > DETECT_TIE_EPS)
+                  | ((g[:, 2:] - w[:, 2:]).abs().amax(1) > box_tol))
+        if not bool(differ.any()):
+            rec["identical_images"] += 1
+            continue
+        p = int(differ.nonzero()[0])
+        margins = _row_margins(torch, w, g[p], p, rule, n, box_tol)
+        near = {k: v for k, v in margins.items()
+                if v < (DETECT_TIE_PX if k == "min_size" else DETECT_TIE_EPS)}
+        print(f"detect {name}: image {n}: rows from {p} differ "
+              f"({int(differ.sum())}); CPU row {w[p].tolist()}, card row "
+              f"{g[p].tolist()}, margins {margins}", flush=True)
+        check(bool(near), f"detect {name}: image {n}'s row {p} differs from "
+                          f"the CPU's with no near tie at its decisions "
+                          f"(margins {margins})")
+        rec["near_tie_images"] += 1
+        rec["near_ties"].append({"image": n, "first_row": p,
+                                 "rows_differing": int(differ.sum()),
+                                 "margins": margins})
+    return rec
+
+
+@contextlib.contextmanager
+def _timed_nms(torch):
+    """Every ``nms_keep`` call timed alone (the card synchronised around
+    it): yields ``{"seconds", "calls"}``."""
+    from bigdl_tpu_torch.nn import detection
+    real = detection.nms_keep
+    spent = {"seconds": 0.0, "calls": 0}
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent["seconds"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    detection.nms_keep = timed
+    try:
+        yield spent
+    finally:
+        detection.nms_keep = real
+
+
+def _seeded(torch, parts, device):
+    """``parts`` as one module with the seeded weights of DETECT_SEED, in
+    evaluation mode."""
+    from bigdl_tpu_torch.nn.module import init_state_dict
+    m = as_module(torch, parts)
+    m.load_state_dict(init_state_dict(m, DETECT_SEED), strict=False)
+    return m.to(device).eval()
+
+
+def _cpu_copy(torch, build, card):
+    m = as_module(torch, build("cpu"))
+    m.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return m.eval()
+
+
+def _detect_ssd(torch, smi):
+    """SSD300 (module docstring, 6l)."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import conv_routes
+    from bigdl_tpu_torch.nn.detection import SWEEP, reset_sweep_counts
+    cfg = SSD300
+    card = _seeded(torch, ssd_build(nn, cfg, device="cuda"), "cuda")
+    rng = np.random.default_rng(DETECT_SEED)
+    x = torch.from_numpy(rng.standard_normal(
+        (SSD_BATCH, 3, cfg["image"], cfg["image"]), dtype=np.float32))
+    xg = x.cuda().contiguous(memory_format=torch.channels_last)
+    shapes = []
+    with torch.no_grad():
+        rows = card["det"](list(ssd_forward(torch, card, xg, shapes)))
+        torch.cuda.synchronize()
+        split = _no_routes()
+        for i, (hw, out) in enumerate(shapes):
+            for m, at in ((card["stages"][i], hw), (card["loc"][i], out),
+                          (card["conf"][i], out)):
+                _add_routes(split, conv_routes(m, at, torch.float32, False))
+        _reset_conv_counts()
+        reset_sweep_counts()
+        t0 = time.perf_counter()
+        for _ in range(DETECT_TIMED):
+            heads = ssd_forward(torch, card, xg)
+            rows = card["det"](list(heads))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _conv_counts()
+        sweeps = dict(SWEEP)
+        _check_routes("detect ssd300", counts, split, DETECT_TIMED)
+        t0 = time.perf_counter()
+        heads = ssd_forward(torch, card, xg)
+        torch.cuda.synchronize()
+        net_s = time.perf_counter() - t0
+        with _timed_nms(torch) as nms:
+            t0 = time.perf_counter()
+            rows = card["det"](list(heads))
+            torch.cuda.synchronize()
+            head_s = time.perf_counter() - t0
+    n_priors = heads[2].shape[2] // 4
+    check(n_priors == SSD300_PRIORS and tuple(rows.shape) == (
+        SSD_BATCH, cfg["detection"]["keep_top_k"], 6)
+        and bool(torch.isfinite(rows).all()),
+        f"detect ssd300: {n_priors} priors, rows {tuple(rows.shape)}")
+    cpu = _cpu_copy(torch, lambda d: ssd_build(nn, cfg, device=d), card)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = ssd_forward(torch, cpu, x[:1])
+        cpu_s = time.perf_counter() - t0
+        got = ssd_forward(torch, card, xg[:1])
+        rel = {k: _rel(g, w) for k, g, w in zip(("loc", "conf", "priors"),
+                                                got, want)}
+        check(max(rel.values()) <= DETECT_OUT_REL,
+              f"detect ssd300 card vs CPU at batch 1: {rel}")
+        # the heads on the CPU's own inputs (batch 1) and on the card's
+        # batch of 8 (copied to the CPU), each the same bits on both
+        heads_c = [t.cpu() for t in heads]
+        ties = {}
+        for part, inputs in (("batch1", list(want)), ("batch8", heads_c)):
+            ties[part] = _rows_near_tie(
+                torch, f"ssd300 {part}",
+                card["det"]([t.cuda() for t in inputs]),
+                cpu["det"](inputs), DETECT_BOX_TOL["ssd"],
+                _ssd_rule(torch, cpu["det"], inputs))
+    launches = {k: counts[k] for k in ("k9", "k9_cuda_core", "i2c",
+                                       "i2c_cuda_core")}
+    return {"config": "ssd_pascal.py VGG_VOC0712_SSD_300x300",
+            "batch": SSD_BATCH, "image": cfg["image"], "priors": n_priors,
+            "dtype": "float32", "timed_passes": DETECT_TIMED,
+            "images_per_s": SSD_BATCH * DETECT_TIMED / wall,
+            "ms_per_batch": 1e3 * wall / DETECT_TIMED,
+            "network_ms": 1e3 * net_s, "detection_output_ms": 1e3 * head_s,
+            "nms_ms": 1e3 * nms["seconds"], "nms_calls": nms["calls"],
+            "nms_sweep_per_batch": {k: v // DETECT_TIMED
+                                    for k, v in sweeps.items()},
+            "conv_routes_per_pass": split, "launches": launches,
+            "library_calls": counts["library"],
+            "detections_kept": int((rows[..., 0] >= 0).sum()),
+            "cpu_rel": rel, "cpu_batch1_s": cpu_s, "heads_vs_cpu": ties,
+            "card": smi}, launches
+
+
+def _detect_frcnn(torch, smi):
+    """Faster R-CNN VGG-16 at test time (module docstring, 6l). Returns
+    the record, the launches, and the card's parts and conv4_3 for the
+    RPN's steps."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import conv_routes
+    from bigdl_tpu_torch.nn.detection import SWEEP, reset_sweep_counts
+    cfg = FRCNN_VGG16
+    parts = frcnn_build(nn, cfg, device="cuda")
+    card = _seeded(torch, parts, "cuda")
+    rng = np.random.default_rng(DETECT_SEED + 1)
+    x = torch.from_numpy(rng.standard_normal((1, 3) + cfg["image"],
+                                             dtype=np.float32))
+    xg = x.cuda().contiguous(memory_format=torch.channels_last)
+    im_c = torch.tensor([FRCNN_IM_INFO])
+    im_g = im_c.cuda()
+    h, w = cfg["image"]
+    with torch.no_grad():
+        f4 = card["trunk"](xg)
+        f5 = card["conv5"](f4)
+        # at the initialiser's width the classifier's 21 probabilities all
+        # sit near 1/21, under conf_thresh: widen its seeded weights so
+        # its logits on this image spread with FRCNN_LOGIT_STD
+        f, prob, deltas = frcnn_rpn(torch, card, xg)
+        rois, _ = card["proposal"]([prob, deltas, im_g])
+        pooled = card["roi"]([f, rois])
+        logits = card["cls"](card["fc"](pooled.reshape(rois.shape[0], -1)))
+        card["cls"].weight.mul_(FRCNN_LOGIT_STD / float(logits.std()))
+        del f, prob, deltas, rois, pooled, logits
+        split = _no_routes()
+        for m, hw in ((card["trunk"], (h, w)), (card["conv5"], f4.shape[2:]),
+                      (card["rpn_conv"], f5.shape[2:]),
+                      (card["rpn_cls"], f5.shape[2:]),
+                      (card["rpn_bbox"], f5.shape[2:])):
+            _add_routes(split, conv_routes(m, tuple(hw), torch.float32,
+                                           False))
+        frcnn_forward(torch, card, xg, im_g)                # warm-up
+        torch.cuda.synchronize()
+        _reset_conv_counts()
+        reset_sweep_counts()
+        t0 = time.perf_counter()
+        for _ in range(DETECT_TIMED):
+            rois, scores, rows = frcnn_forward(torch, card, xg, im_g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _conv_counts()
+        sweeps = dict(SWEEP)
+        _check_routes("detect faster_rcnn", counts, split, DETECT_TIMED)
+        with _timed_nms(torch) as nms:
+            t0 = time.perf_counter()
+            frcnn_forward(torch, card, xg, im_g)
+            torch.cuda.synchronize()
+            nms_wall = time.perf_counter() - t0
+        # RoiPooling's memory: what it allocates beyond its inputs
+        f, prob, deltas = frcnn_rpn(torch, card, xg)
+        rois_g, _ = card["proposal"]([prob, deltas, im_g])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pooled = card["roi"]([f, rois_g])
+        torch.cuda.synchronize()
+        roi_peak = torch.cuda.max_memory_allocated() - base
+        gathered = rois_g.shape[0] * f[0].numel() * f.element_size()
+    post = cfg["proposal"]["post_nms_topn"]
+    check(tuple(rois.shape) == (post, 5) and tuple(scores.shape) == (post,)
+          and tuple(rows.shape) == (cfg["detection"]["keep_top_k"], 6)
+          and bool(torch.isfinite(rows).all())
+          and tuple(pooled.shape) == (post, _width(cfg["conv5"]),
+                                      cfg["pooled"], cfg["pooled"]),
+          f"detect faster_rcnn: rois {tuple(rois.shape)}, rows "
+          f"{tuple(rows.shape)}")
+    check(roi_peak <= 1.1 * gathered,
+          f"detect faster_rcnn: RoiPooling allocated {roi_peak} B beyond "
+          f"its inputs; its RoIs' (R, C, H, W) map is {gathered} B")
+    cpu = _cpu_copy(torch, lambda d: frcnn_build(nn, cfg, device=d), card)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        f_c, prob_c, deltas_c = frcnn_rpn(torch, cpu, x)
+        rois_c, scores_c = cpu["proposal"]([prob_c, deltas_c, im_c])
+        pooled_c = cpu["roi"]([f_c, rois_c])
+        cls_c, bbox_c = frcnn_classify(torch, cpu, pooled_c)
+        rows_c = cpu["det"]([cls_c, bbox_c, rois_c, im_c])
+        cpu_s = time.perf_counter() - t0
+        f_g, prob_g, deltas_g = frcnn_rpn(torch, card, xg)
+        rel = {"conv5_3": _rel(f_g, f_c), "rpn_cls_prob": _rel(prob_g, prob_c),
+               "rpn_bbox_pred": _rel(deltas_g, deltas_c)}
+        check(max(rel.values()) <= DETECT_OUT_REL,
+              f"detect faster_rcnn card vs CPU: {rel}")
+        # the card's own RoIs against the CPU's: reported (seeded RPN
+        # scores lie within the trunk's rounding of each other at many
+        # places, so the selections may part there)
+        own_rois, own_scores, _ = frcnn_forward(torch, card, xg, im_g)
+        own_same = int(((own_rois.cpu() - rois_c).abs()
+                        <= DETECT_BOX_TOL["frcnn"]).all(1).sum())
+        # each layer on the CPU's own inputs
+        inputs = [prob_c, deltas_c, im_c]
+        got = card["proposal"]([t.cuda() for t in inputs])
+        prop = _rows_near_tie(
+            torch, "faster_rcnn proposal", _proposal_rows(torch, *got),
+            _proposal_rows(torch, rois_c, scores_c), DETECT_BOX_TOL["frcnn"],
+            _proposal_rule(torch, cpu["proposal"], inputs))
+        roi_err = float((card["roi"]([f_c.cuda(), rois_c.cuda()]).cpu()
+                         - pooled_c).abs().max())
+        check(roi_err == 0.0, f"detect faster_rcnn RoiPooling card vs CPU "
+                              f"on the same inputs: {roi_err}")
+        head_in = [cls_c, bbox_c, rois_c, im_c]
+        det = _rows_near_tie(
+            torch, "faster_rcnn detection_output",
+            card["det"]([t.cuda() for t in head_in]), rows_c,
+            DETECT_BOX_TOL["frcnn"], _frcnn_rule(cpu["det"]))
+    launches = {k: counts[k] for k in ("k9", "k9_cuda_core", "i2c",
+                                       "i2c_cuda_core")}
+    rec = {"config": "py-faster-rcnn VGG16 faster_rcnn_end2end "
+                     "test.prototxt", "image": list(cfg["image"]),
+           "im_info": list(FRCNN_IM_INFO), "dtype": "float32",
+           "timed_passes": DETECT_TIMED,
+           "ms_per_image": 1e3 * wall / DETECT_TIMED,
+           "nms_share": nms["seconds"] / nms_wall,
+           "nms_ms_per_image": 1e3 * nms["seconds"], "nms_calls": nms["calls"],
+           "nms_sweep_per_image": {k: v // DETECT_TIMED
+                                   for k, v in sweeps.items()},
+           "conv_routes_per_pass": split, "launches": launches,
+           "library_calls": counts["library"],
+           "roi_pooling_extra_bytes": roi_peak,
+           "roi_gathered_map_bytes": gathered,
+           "proposals_finite": int(torch.isfinite(scores).sum()),
+           "detections_kept": int((rows[:, 0] >= 0).sum()),
+           "cpu_rel": rel, "cpu_s": cpu_s,
+           "own_rois_equal_to_cpu": own_same, "proposal_vs_cpu": prop,
+           "roi_pooling_max_abs_vs_cpu": roi_err,
+           "detection_output_vs_cpu": det, "card": smi}
+    return rec, launches, (parts, f4)
+
+
+@contextlib.contextmanager
+def _rpn_hooks(torch, model, relu=None):
+    """Hooks on ``model``'s 3x3 convolutions and ReLUs for one forward and
+    backward: yields ``{"dy": name -> (the gradient at the convolution's
+    output, its input's shape), "relu": name -> the mask of the ReLU's
+    positive outputs}`` (a convolution's ``dy`` only where its input
+    carries a gradient: where the step runs its input-gradient flip). With
+    ``relu`` (name -> mask) each ReLU passes its input where that mask
+    says, whatever its own sign: the ReLU decisions of another run."""
+    from bigdl_tpu_torch import nn
+    taps = {"dy": {}, "relu": {}}
+    handles = []
+
+    def conv_hook(name):
+        def hook(mod, args, out):
+            if args[0].requires_grad and mod.uses_kernel(*args[0].shape[2:]):
+                def keep(g):
+                    taps["dy"][name] = (g.detach().cpu(), tuple(args[0].shape))
+                out.register_hook(keep)
+        return hook
+
+    def relu_hook(name):
+        def hook(mod, args, out):
+            taps["relu"][name] = (out > 0).detach().cpu()
+            if relu is not None:
+                mask = relu[name].to(out.device)
+                return torch.where(mask, args[0], torch.zeros_like(args[0]))
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.ReLU):
+            handles.append(mod.register_forward_hook(relu_hook(name)))
+        elif isinstance(mod, nn.SpatialConvolution):
+            handles.append(mod.register_forward_hook(conv_hook(name)))
+    try:
+        yield taps
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _rpn_flips_vs_cpu(torch, model, dy, device="cuda"):
+    """Each input-gradient flip of the RPN's step on ``device``, fed the
+    CPU run's own output gradient ``dy`` (``_rpn_hooks``), against
+    ``torch.nn.grad.conv2d_input`` on the CPU: by layer, the largest
+    difference over the CPU's largest magnitude. The inputs are the same
+    bits on both devices, so no upstream decision can move them."""
+    from bigdl_tpu_torch.nn.conv import conv2d_input
+    mods = dict(model.named_modules())
+    rel = {}
+    for name, (g, shape) in dy.items():
+        w = mods[name].weight
+        want = torch.nn.grad.conv2d_input(shape, w.detach().cpu(), g,
+                                          padding=1)
+        got = conv2d_input(g.permute(0, 2, 3, 1).contiguous().to(device),
+                           w.detach().to(device), shape[2:],
+                           padding=((1, 1), (1, 1)))
+        rel[name] = _rel(got.permute(0, 3, 1, 2), want)
+    return rel
+
+
+def _detect_rpn(torch, parts, f4, smi):
+    """Three SGD steps of conv5 and the RPN (module docstring, 6l)."""
+    import copy
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import conv_routes
+    from bigdl_tpu_torch.optim import SGD, make_loss_and_grads, \
+        make_train_step
+    cfg = FRCNN_VGG16
+    model = rpn_train_model(nn, parts)
+    a = len(cfg["ratios"]) * len(cfg["scales"])
+    h, w = (f4.shape[2] + 1) // 2, (f4.shape[3] + 1) // 2
+    lab, box = rpn_targets(np, np.random.default_rng(DETECT_SEED + 2), a,
+                           h, w)
+    y_c = [torch.from_numpy(lab), [torch.from_numpy(t) for t in box]]
+    y_g = [y_c[0].cuda(), [t.cuda() for t in y_c[1]]]
+    crit = rpn_criterion(nn)
+    cpu = copy.deepcopy(model).to("cpu")
+    x_c = f4.detach().cpu()
+    split = conv_routes(model, tuple(f4.shape[2:]), torch.float32)
+    with _rpn_hooks(torch, model) as card_taps:
+        loss_g, grads_g = make_loss_and_grads(model, crit)(f4, y_g)
+
+    def cpu_run(x, relu=None):
+        with _rpn_hooks(torch, cpu, relu) as taps:
+            loss, grads = make_loss_and_grads(cpu, crit)(x, y_c)
+        return float(loss), {k: g.clone() for k, g in grads.items()}, taps
+
+    loss_c, grads_c, cpu_taps = cpu_run(x_c)
+    # (1) each flip on the CPU run's own output gradients
+    flips = _rpn_flips_vs_cpu(torch, model, cpu_taps["dy"])
+    # (2) every gradient against the CPU's with the card's ReLU decisions
+    # (the decisions the card's rounding took either way are its own; the
+    # rest of the step is continuous)
+    _, grads_m, _ = cpu_run(x_c, card_taps["relu"])
+    relu_flips = {k: int((m != cpu_taps["relu"][k]).sum())
+                  for k, m in card_taps["relu"].items()}
+    masked = {k: _rel(grads_g[k], gm) for k, gm in grads_m.items()}
+    # (3) reported: each gradient against the plain CPU run by train_cnn's
+    # rule (the larger of 1e-3 of its largest magnitude and
+    # RESNET_NOISE_FACTOR times its CPU noise floor, its move under a
+    # 2^-22 change of the input), and cuDNN's (the library witness) too
+    noise = {k: 0.0 for k in grads_c}
+    for seed in (0, 1):
+        _, moved, _ = cpu_run(_perturbed(torch, x_c, seed))
+        for k, g in moved.items():
+            noise[k] = max(noise[k], float((g - grads_c[k]).abs().max()))
+    with _library_3x3():
+        _, grads_l = make_loss_and_grads(model, crit)(f4, y_g)
+    loss_rel = abs(float(loss_g) - loss_c) / abs(loss_c)
+    grad = {}
+    for k, gc in grads_c.items():
+        top = max(float(gc.abs().max()), 1e-30)
+        bar = max(DETECT_GRAD_REL * top, RESNET_NOISE_FACTOR * noise[k])
+        diff = float((grads_g[k].cpu() - gc).abs().max())
+        grad[k] = {"rel": diff / top, "vs_train_cnn_bar": diff / bar,
+                   "cudnn_rel": _rel(grads_l[k], gc)}
+    print(f"detect rpn step 1 card vs CPU: loss {loss_rel}, flips {flips}, "
+          f"ReLU decisions differing {relu_flips}, gradients vs the CPU "
+          f"with the card's ReLU decisions {masked}, vs the plain CPU "
+          f"{json.dumps(grad)}", flush=True)
+    # every 3x3 layer but conv5_1 (its input, pool4 of conv4_3, carries no
+    # gradient) runs its flip in the step
+    check(len(flips) == sum(isinstance(m, nn.SpatialConvolution)
+                            and m.kernel_h == 3 for m in model.modules()) - 1,
+          f"detect rpn: flips tapped {sorted(flips)}")
+    check(loss_rel <= DETECT_LOSS_REL
+          and max(flips.values()) <= DETECT_FLIP_REL
+          and len(masked) == len(grads_c)
+          and max(masked.values()) <= DETECT_MASKED_REL,
+          f"detect rpn step 1 card vs CPU: loss {loss_rel}, flips {flips}, "
+          f"gradients vs the CPU with the card's ReLU decisions {masked}")
+    opt = SGD(learningrate=RPN_LR, momentum=0.9)
+    step = make_train_step(model, crit, opt)
+    opt_state = opt.init_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    _reset_conv_counts()
+    t0 = time.perf_counter()
+    losses = [step(opt_state, f4, y_g) for _ in range(RPN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _conv_counts()
+    losses = [float(v) for v in losses]
+    _check_routes("detect rpn", counts, split, RPN_STEPS)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and abs(losses[0] - float(loss_g)) <= DETECT_LOSS_REL
+          * abs(float(loss_g)),
+          f"detect rpn: losses {losses} (first step's check {float(loss_g)})")
+    launches = {k: counts[k] for k in ("k9", "k9_cuda_core", "i2c",
+                                       "i2c_cuda_core")}
+    return {"trainable": "VGG-16 conv5 + RPN", "input": list(f4.shape),
+            "anchors_labelled": {"fg": int((lab == 1).sum()),
+                                 "bg": int((lab == 0).sum())},
+            "optimizer": f"SGD({RPN_LR}, momentum 0.9)",
+            "criterion": "ParallelCriterion(SoftmaxWithCriterion(-1), "
+                         "SmoothL1CriterionWithWeights(3))",
+            "losses": losses, "ms_per_step": 1e3 * wall / RPN_STEPS,
+            "cpu_loss_rel": loss_rel, "flips_vs_cpu": flips,
+            "relu_decisions_differing": relu_flips,
+            "grad_vs_cpu_with_card_relu": masked, "grad_vs_cpu": grad,
+            "conv_routes_per_step": split, "launches": launches,
+            "card": smi}, launches
+
+
+def _tensors(torch, x, device):
+    if isinstance(x, list):
+        return [_tensors(torch, v, device) for v in x]
+    return None if x is None else torch.from_numpy(x).to(device)
+
+
+def _flat(x):
+    return [a for v in x for a in _flat(v)] if isinstance(x, list) else [x]
+
+
+def _detect_criteria(torch):
+    """Every criterion forward and backward on the card against the CPU
+    (module docstring, 6l)."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    worst = {"loss": (0.0, None), "grad": (0.0, None)}
+    for name, (make, inputs) in CRITERION_CASES.items():
+        x, t = inputs(np, np.random.default_rng(criterion_seed(name)))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            crit = make(nn)
+            xs, ts = _tensors(torch, x, dev), _tensors(torch, t, dev)
+            loss = crit(xs, ts)
+            out[dev] = (float(loss), [g.cpu() for g in
+                                      _flat(crit.backward(xs, ts))])
+        (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        rel = {"loss": abs(lg - lc) / max(abs(lc), 1e-30),
+               "grad": max(_rel(a, b) for a, b in zip(gg, gc))}
+        for k, v in rel.items():
+            if v > worst[k][0]:
+                worst[k] = (v, name)
+        check(max(rel.values()) <= CRITERION_REL,
+              f"detect criterion {name} card vs CPU: {rel}")
+    names = {n.split("_")[0] for n in CRITERION_CASES}
+    return {"criterions": len(names), "cases": len(CRITERION_CASES),
+            "tolerance": CRITERION_REL,
+            "worst_loss_rel": worst["loss"][0],
+            "worst_loss_case": worst["loss"][1],
+            "worst_grad_rel": worst["grad"][0],
+            "worst_grad_case": worst["grad"][1]}
+
+
+def phase_detect(torch, kernels, smi):
+    """SSD300 and Faster R-CNN VGG-16 on the card, the RPN's training
+    steps and every criterion (see module docstring, 6l)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # float32 in float32
+    try:
+        ssd, ssd_n = _detect_ssd(torch, smi)
+        torch.cuda.empty_cache()
+        frcnn, frcnn_n, (parts, f4) = _detect_frcnn(torch, smi)
+        torch.cuda.empty_cache()
+        rpn, rpn_n = _detect_rpn(torch, parts, f4, smi)
+        del parts, f4
+        torch.cuda.empty_cache()
+        crits = _detect_criteria(torch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "detect"] = {part: n[f"{kind}_cuda_core"] for part, n in
+                         (("ssd300", ssd_n), ("faster_rcnn", frcnn_n),
+                          ("rpn_train", rpn_n))}
+    emit({"phase": "detect", "ssd300": ssd, "faster_rcnn": frcnn,
+          "rpn_train": rpn, "criteria": crits, "card": smi})
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -9908,6 +11111,7 @@ def main():
                          kernels, smi)
     run("infer_int8", phase_infer_int8, torch, kernels, smi)
     run("train_rnn", phase_train_rnn, torch, kernels, smi)
+    run("detect", phase_detect, torch, kernels, smi)
     run("load_native", phase_load_native, torch, kernels, smi, f32_line,
         sharded_losses)
     loss32 = run("train", phase_train, torch, kernels, smi)

@@ -109,6 +109,22 @@ def test_grouped_walk_counts_each_group():
 def test_vgg_cifar_and_lenet_walk():
     assert conv_routes(VggForCifar10(device="cpu"), (32, 32)) == \
         {"i2c": 4, "k9": 21, "library": 0}
+    # a ConcatTable's children all read its input, as a Concat's do (the
+    # RPN's two heads); a ParallelTable's read a table's entries
+    walk = layer_walk(tnn.Sequential().add(tnn.ConcatTable().add(
+        tnn.Identity()).add(tnn.ReLU())), (4, 4))
+    assert [(type(m).__name__, hw) for m, hw, _ in walk] == \
+        [("Identity", (4, 4)), ("ReLU", (4, 4))]
     with pytest.raises(TypeError, match="walk"):
-        layer_walk(tnn.Sequential().add(tnn.ConcatTable().add(
+        layer_walk(tnn.Sequential().add(tnn.ParallelTable().add(
             tnn.Identity())), (4, 4))
+
+
+def test_forward_only_routes_drop_the_input_gradients():
+    """``training=False``: one forward pass, a launch a 3x3 convolution
+    (VGG's 13), none for an input gradient (12 in a step)."""
+    m = VggForCifar10(device="cpu")
+    fwd = conv_routes(m, (32, 32), training=False)
+    step = conv_routes(m, (32, 32))
+    assert fwd["i2c"] + fwd["k9"] == 13 and fwd["library"] == 0
+    assert step["i2c"] + step["k9"] == 13 + 12

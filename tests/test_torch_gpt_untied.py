@@ -10,6 +10,12 @@ head's included, at rtol 1e-4 (atol 1e-6 for values near zero); greedy
 ``generate`` tokens equal. ``convert.params_to_jax`` gives the tree back
 whole, ``init_params`` draws the head from the reference's ``Linear``
 default (uniform in +-1/sqrt(hidden)), and the tied model keeps no head.
+
+Tensor-parallel serving of the untied head (``ServingEngine(tp=2)`` on
+two CPU shards), dense and paged: at a vocabulary of 64 each shard holds
+32 of the head's rows (vocab-parallel, as the reference's ``lm_head``
+role), at 61 the head stays whole on every shard; the greedy tokens equal
+the unsharded port engine's and the reference's tp 2 engine's exactly.
 """
 
 import jax
@@ -22,9 +28,11 @@ from bigdl_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from bigdl_tpu.nn.criterion import CrossEntropyCriterion as JaxCE
 from bigdl_tpu.optim import methods as jmethods
 from bigdl_tpu.optim.optimizer import make_train_step as jax_train_step
+from bigdl_tpu.serving import ServingEngine as JaxEngine
 from bigdl_tpu_torch import convert, optim
 from bigdl_tpu_torch.models.gpt import GPTForCausalLM
 from bigdl_tpu_torch.nn import CrossEntropyCriterion
+from bigdl_tpu_torch.serving import ServingEngine
 
 CFG = dict(vocab_size=61, hidden_size=32, n_layers=2, n_heads=4,
            max_position=32)
@@ -102,3 +110,40 @@ def test_greedy_tokens_match_reference(ref):
     got = _port(tree).generate(torch.from_numpy(x[:1, :8]).long(), 8,
                                temperature=0.0).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+TP_PROMPTS = [[5, 9, 2, 17, 3], [1, 1, 4, 60, 8], [7, 3, 3],
+              [9, 9, 9, 1, 0, 2, 4]]
+TP_ENGINE = {False: dict(max_slots=3, paged=False),
+             True: dict(max_slots=3, paged=True, kv_bytes=1 << 20,
+                        page_size=8, prefill_chunk=4)}
+
+
+def _serve(engine, n_new=8):
+    try:
+        with engine.scheduler._cond:
+            handles = [engine.submit(p, n_new) for p in TP_PROMPTS]
+        return [list(map(int, engine.result(h, timeout=120.0)))
+                for h in handles]
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("vocab", [64, 61])
+def test_tp2_serves_the_untied_head(multi_device_cpu, vocab, paged):
+    cfg = dict(CFG, vocab_size=vocab, max_position=64)
+    jm = JaxGPT(**cfg, tie_embeddings=False)
+    params, _ = jm.setup(jax.random.PRNGKey(3), None)
+    want = _serve(JaxEngine(jm, params, tp=2, **TP_ENGINE[paged]))
+    sd = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+
+    def port(tp):
+        m = GPTForCausalLM(**cfg, tie_embeddings=False, device="cpu")
+        return ServingEngine(m, sd, device="cpu", tp=tp, **TP_ENGINE[paged])
+
+    sharded = port(2)
+    heads = [s.head.weight.shape for s in sharded.model.gpt.shards]
+    assert heads == [(vocab // 2 if vocab % 2 == 0 else vocab, 32)] * 2
+    assert _serve(sharded) == want
+    assert _serve(port(1)) == want

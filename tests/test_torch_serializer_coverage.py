@@ -116,6 +116,55 @@ CASES = {
         torch.tensor([1.0, 2.0, 0.5])),
     "TimeDistributedCriterion": lambda: nn.TimeDistributedCriterion(
         nn.ClassNLLCriterion(), size_average=True),
+    **{c: (lambda c=c: getattr(nn, c)()) for c in (
+        "AbsCriterion", "BCECriterionWithLogits", "CategoricalCrossEntropy",
+        "CosineDistanceCriterion", "CosineProximityCriterion",
+        "DistKLDivCriterion", "DotProductCriterion", "GaussianCriterion",
+        "KLDCriterion", "KullbackLeiblerDivergenceCriterion", "L1Cost",
+        "MSECriterion", "MeanAbsolutePercentageCriterion",
+        "MeanSquaredLogarithmicCriterion", "MultiLabelMarginCriterion",
+        "PoissonCriterion", "SoftMarginCriterion")},
+    "BCECriterion": lambda: nn.BCECriterion(torch.tensor([1.0, 0.5]),
+                                            size_average=False),
+    "SmoothL1Criterion": lambda: nn.SmoothL1Criterion(sigma=3.0),
+    "MarginCriterion": lambda: nn.MarginCriterion(0.5, squared=True),
+    "MarginRankingCriterion": lambda: nn.MarginRankingCriterion(0.25),
+    "CosineEmbeddingCriterion": lambda: nn.CosineEmbeddingCriterion(0.1),
+    "HingeEmbeddingCriterion": lambda: nn.HingeEmbeddingCriterion(2.0),
+    "MultiMarginCriterion": lambda: nn.MultiMarginCriterion(
+        2, torch.tensor([1.0, 2.0, 0.5]), margin=0.5),
+    "MultiLabelSoftMarginCriterion": lambda: (
+        nn.MultiLabelSoftMarginCriterion(torch.tensor([1.0, 2.0]))),
+    "DiceCoefficientCriterion": lambda: nn.DiceCoefficientCriterion(
+        epsilon=0.5),
+    "PGCriterion": lambda: nn.PGCriterion(True),
+    "MultiCriterion": lambda: nn.MultiCriterion().add(nn.MSECriterion(), 0.5)
+    .add(nn.AbsCriterion()),
+    "ParallelCriterion": lambda: nn.ParallelCriterion().add(
+        nn.SoftmaxWithCriterion(ignore_label=-1)).add(
+        nn.SmoothL1CriterionWithWeights(3.0), 0.5),
+    "TransformerCriterion": lambda: nn.TransformerCriterion(
+        nn.MSECriterion(), nn.Tanh(), nn.Square()),
+    "SoftmaxWithCriterion": lambda: nn.SoftmaxWithCriterion(-1, "FULL"),
+    "ClassSimplexCriterion": lambda: nn.ClassSimplexCriterion(4),
+    "L1HingeEmbeddingCriterion": lambda: nn.L1HingeEmbeddingCriterion(2.0),
+    "SmoothL1CriterionWithWeights": lambda: nn.SmoothL1CriterionWithWeights(
+        3.0, num=128),
+    "NegativeEntropyPenalty": lambda: nn.NegativeEntropyPenalty(0.05),
+    "TimeDistributedMaskCriterion": lambda: nn.TimeDistributedMaskCriterion(
+        nn.MSECriterion(), padding_value=-1),
+    # nn.detection
+    "PriorBox": lambda: nn.PriorBox([30.0], [60.0], [2.0], flip=False,
+                                    img_size=300, step=8.0,
+                                    variances=[0.1, 0.1, 0.2, 0.2]),
+    "Proposal": lambda: nn.Proposal(60, 10, [0.5, 1.0, 2.0], [4.0, 8.0],
+                                    rpn_post_nms_topn_train=20,
+                                    min_size=8.0),
+    "RoiPooling": lambda: nn.RoiPooling(7, 6, 0.0625),
+    "DetectionOutputSSD": lambda: nn.DetectionOutputSSD(
+        5, nms_topk=20, keep_top_k=10, variance_encoded_in_target=True),
+    "DetectionOutputFrcnn": lambda: nn.DetectionOutputFrcnn(
+        5, nms_thresh=0.4, keep_top_k=10),
     # nn.embedding
     "LookupTable": lambda: nn.LookupTable(7, 3, device=CPU),
     "LookupTableSparse": lambda: nn.LookupTableSparse(7, 3, "mean",
@@ -124,6 +173,10 @@ CASES = {
     "Graph": _graph,
     # nn.linear, nn.locally_connected
     "Linear": lambda: nn.Linear(4, 3, device=CPU),
+    "Cosine": lambda: nn.Cosine(4, 3, device=CPU),
+    "Euclidean": lambda: nn.Euclidean(4, 3, fast_backward=False,
+                                      device=CPU),
+    "Bilinear": lambda: nn.Bilinear(4, 3, 2, bias_res=False, device=CPU),
     "LocallyConnected1D": lambda: nn.LocallyConnected1D(6, 4, 3, 2,
                                                         device=CPU),
     "LocallyConnected2D": lambda: nn.LocallyConnected2D(
@@ -134,6 +187,7 @@ CASES = {
     "InferReshape": lambda: nn.InferReshape((-1, 2)),
     # nn.module
     "Module": lambda: nn.Module(),
+    "Criterion": lambda: nn.Criterion(size_average=False),
     # nn.normalization
     "BatchNormalization": lambda: nn.BatchNormalization(3, device=CPU),
     "SpatialBatchNormalization": lambda: nn.SpatialBatchNormalization(
@@ -143,6 +197,10 @@ CASES = {
     "LayerNormalization": lambda: nn.LayerNormalization(3, device=CPU),
     "SpatialCrossMapLRN": lambda: nn.SpatialCrossMapLRN(3),
     "SpatialWithinChannelLRN": lambda: nn.SpatialWithinChannelLRN(3),
+    "Normalize": lambda: nn.Normalize(float("inf"), eps=1e-6),
+    "NormalizeScale": lambda: nn.NormalizeScale(scale=20.0,
+                                                size=(1, 3, 1, 1),
+                                                device=CPU),
     # nn.pooling
     "SpatialMaxPooling": lambda: nn.SpatialMaxPooling(2, 2, 2, 2).ceil(),
     "SpatialAveragePooling": lambda: nn.SpatialAveragePooling(3, 3, 1, 1,
@@ -187,6 +245,11 @@ CASES = {
         "CMinTable")},
     "JoinTable": lambda: nn.JoinTable(1),
     "MM": lambda: nn.MM(True, False),
+    "MV": lambda: nn.MV(True),
+    "SplitTable": lambda: nn.SplitTable(1),
+    **{c: (lambda c=c: getattr(nn, c)()) for c in (
+        "CAveTable", "FlattenTable", "MixtureTable", "DotProduct",
+        "CosineDistance")},
     "SelectTable": lambda: nn.SelectTable(2),
     "_ReduceTable": lambda: nn.table_ops._ReduceTable(),
     # nn.tree_lstm
@@ -512,6 +575,8 @@ SHAPES = {
     "LocallyConnected1D": (2, 6, 4), "Maxout": (2, 4), "Highway": (2, 4),
     "PReLU": (2, 3, 4, 4), "Narrow": (2, 4), "Squeeze": (2, 1, 3),
     "LSTMPeephole": (2, 4, 3), "ConvLSTMPeephole": (2, 3, 2, 5, 5),
+    "Cosine": (2, 4), "Euclidean": (2, 4), "Normalize": (2, 5),
+    "NormalizeScale": (2, 3, 4, 4), "PriorBox": (1, 3, 4, 4),
 }
 WRAPPED = {"LSTMPeephole", "ConvLSTMPeephole"}      # in a Recurrent
 

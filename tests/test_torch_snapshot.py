@@ -430,6 +430,33 @@ def test_wedge_grace_during_restore(ref, tmp_path, grace):
     first.scheduler._thread.join(WAIT)     # no thread outlives the test
 
 
+def test_no_wedge_in_the_window_after_a_restore(ref, tmp_path):
+    """The end of a restore is progress. A slow page allocation right
+    after a long restore (the store probe of the admission's prefix,
+    ``serving.snapshot_restore:delay``, then ``serving.page_alloc:delay``
+    in the same admission, before the loop's next heartbeat) lands in the
+    window where the restore's grace is over and the heartbeat still dates
+    from before the restore: with the grace on, the supervisor must not
+    read that as a wedge (it did, whenever a poll landed there)."""
+    _, _, sd, _ = ref
+    sup = _supervised_snap(sd, tmp_path, wedge_timeout_s=0.5,
+                           warmup_grace_s=20.0, restore_grace_s=30.0)
+    first = sup.engine
+    try:
+        sup.generate(PROMPTS8[0], 2, timeout=WAIT)
+        faults.configure("serving.snapshot_restore:delay=1.5:times=1;"
+                         "serving.page_alloc:delay=0.3:times=1")
+        assert sup.generate(PROMPTS8[7], 2, timeout=WAIT).size == 11
+        fired = {site: n for site, n in faults.active_plan().counts()
+                 .items() if n}
+        assert sup.restarts == 0, fired
+    finally:
+        sup.close(drain=False)
+    first.scheduler._thread.join(WAIT)
+    assert fired == {("serving.snapshot_restore", "delay"): 1,
+                     ("serving.page_alloc", "delay"): 1}
+
+
 # --------------------------------------------------------- across packages
 def _slow_steps(monkeypatch, obj, attr):
     real = getattr(obj, attr)
