@@ -72,6 +72,13 @@ Containers and graphs (``nn/containers.py``, ``nn/graph.py``, LeNet):
   model's buffers alone, in the reference's layout (a container's lists,
   a ResNet's name-keyed dict), as a sharded checkpoint stores them.
 
+Pipelines (``parallel/pipeline.py``): :func:`pipeline_params_from_jax`
+takes the reference's stacked stage params (a leading ``(n_stages,)`` axis
+on every leaf) as the port's ``{name: (n_stages, ...)}``, each stage
+through :func:`module_params_from_jax`, which lays out a transformer
+decoder block as GPT's layers (:func:`_put_block`);
+:func:`pipeline_params_to_jax` is its inverse on the per-stage dicts.
+
 BERT (``models/transformer.py``): :func:`bert_params_from_jax` and
 :func:`bert_params_to_jax` map a ``BertForMLM`` tree (``{"bert": {"tok_emb",
 "pos_emb", "type_emb", "ln", "layers": [...]}, "head": {"weight",
@@ -171,19 +178,23 @@ def _get_ln(sd, pre, tensors=False):
             "bias": _get(sd, f"{pre}.bias", tensors=tensors)}
 
 
+def _get_block(sd, pre, tensors=False):
+    """One block ``{pre}`` of a state_dict in the reference's layout (the
+    inverse of :func:`_put_block`)."""
+    return {"attn": {w: _get_weight(sd, f"{pre}attn.{w}", tensors)
+                     for w in ("wq", "wk", "wv", "wo")},
+            "ln1": _get_ln(sd, f"{pre}ln1", tensors),
+            "ln2": _get_ln(sd, f"{pre}ln2", tensors),
+            **{fc: {"weight": _get_weight(sd, f"{pre}{fc}", tensors),
+                    "bias": _get(sd, f"{pre}{fc}.bias", tensors=tensors)}
+               for fc in ("fc1", "fc2")}}
+
+
 def _get_blocks(sd, pre, tensors=False):
     """Every block ``{pre}{i}.`` of a state_dict in the reference's layout
     (the inverse of :func:`_put_block`)."""
     n = len({k[len(pre):].split(".")[0] for k in sd if k.startswith(pre)})
-    return [{"attn": {w: _get_weight(sd, f"{pre}{i}.attn.{w}", tensors)
-                      for w in ("wq", "wk", "wv", "wo")},
-             "ln1": _get_ln(sd, f"{pre}{i}.ln1", tensors),
-             "ln2": _get_ln(sd, f"{pre}{i}.ln2", tensors),
-             **{fc: {"weight": _get_weight(sd, f"{pre}{i}.{fc}", tensors),
-                     "bias": _get(sd, f"{pre}{i}.{fc}.bias",
-                                  tensors=tensors)}
-                for fc in ("fc1", "fc2")}}
-            for i in range(n)]
+    return [_get_block(sd, f"{pre}{i}.", tensors) for i in range(n)]
 
 
 def params_to_jax(state_dict, tensors=False):
@@ -436,12 +447,22 @@ def _leaves(module, params, state, prefix=""):
         yield prefix, module, params, state
 
 
+def _is_block(module):
+    """Is ``module`` a transformer decoder block (its params one tree in
+    the reference's block layout, :func:`_put_block`)?"""
+    from bigdl_tpu_torch.models.gpt import TransformerDecoderBlock
+    return isinstance(module, TransformerDecoderBlock)
+
+
 def module_params_from_jax(model, params, state=None):
     """The port's state_dict of container ``model`` from the reference's
     params (and BN state) of the same architecture, numpy arrays (see
     module docstring)."""
     sd = collections.OrderedDict()
     for prefix, m, p, st in _leaves(model, params, state):
+        if _is_block(m):
+            _put_block(sd, prefix, p)
+            continue
         for tree in (p, st):
             for leaf, a in (tree or {}).items():
                 sd[prefix + leaf] = _leaf_from_jax(m, leaf, a)
@@ -474,6 +495,8 @@ def module_params_to_jax(model, state_dict=None, tensors=False):
             return [p for _, (p, _) in pairs], state if any(state) else ()
         if isinstance(module, (MapTable, Bottle)):
             return walk(module[0], prefix + "0.")
+        if _is_block(module):
+            return _get_block(sd, prefix, tensors), ()
         if isinstance(module, (Container, Graph)):
             pairs = [walk(c, f"{prefix}{i}.")
                      for i, c in enumerate(module.children())]
@@ -498,6 +521,59 @@ def module_params_to_jax(model, state_dict=None, tensors=False):
 
 def _is_buffer(module, name):
     return name in dict(module.named_buffers(recurse=False))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def pipeline_params_from_jax(stage_module, stacked):
+    """The port's ``stacked_params`` (``parallel.pipeline``: ``{name:
+    (n_stages, ...) tensor}``, float32 CPU tensors) of the reference's
+    stacked params of ``stage_module``: its params tree with a leading
+    ``(n_stages,)`` axis on every leaf, numpy arrays, each stage laid out
+    by :func:`module_params_from_jax`."""
+    n = int(np.shape(_tree_leaves(stacked)[0])[0])
+    per = [module_params_from_jax(
+        stage_module, _tree_map(lambda a, s=s: np.asarray(a)[s], stacked))
+        for s in range(n)]
+    return collections.OrderedDict((k, torch.stack([p[k] for p in per]))
+                                   for k in per[0])
+
+
+def pipeline_params_to_jax(stage_module, sharded):
+    """The reference's stacked params tree (numpy float32) of a pipeline's
+    per-stage ``{name: tensor}`` dicts (its ``sharded_params``, or one
+    optimizer slot's per-stage dicts): the inverse of
+    :func:`pipeline_params_from_jax`."""
+    trees = [module_params_to_jax(stage_module, dict(p))[0]
+             for p in sharded]
+
+    def stack(*leaves):
+        return np.stack(leaves)
+
+    def zip_trees(ts):
+        t0 = ts[0]
+        if isinstance(t0, dict):
+            return {k: zip_trees([t[k] for t in ts]) for k in t0}
+        if isinstance(t0, (list, tuple)):
+            return type(t0)(zip_trees([t[i] for t in ts])
+                            for i in range(len(t0)))
+        return stack(*ts)
+
+    return zip_trees(trees)
 
 
 def model_state_to_jax(model):

@@ -5,7 +5,8 @@ operations of a forward pass.
 
 :func:`layer_walk` walks a tree of ``Sequential``, ``Concat`` and
 ``ConcatTable`` containers (VGG, Inception, AlexNet, LeNet's
-``Sequential``, a detector's RPN), a ``Graph``
+``Sequential``, a detector's RPN; a ``SpatialSeparableConvolution`` is the
+``Sequential`` of its two halves), a ``Graph``
 (a Caffe-loaded model: its nodes in ``exec_order``, each fed the ``(h,
 w)`` of its first input, its input depending on a parameter where any of
 its inputs' does), or a model with a ``layer_walk`` method of its own
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from bigdl_tpu_torch.nn import (Concat, ConcatTable, Graph, Linear,
-                                Sequential, SpatialConvolution)
+                                Sequential, SpatialConvolution,
+                                SpatialSeparableConvolution)
 from bigdl_tpu_torch.ops.conv3x3 import kernel_for, tc_path
 
 
@@ -28,8 +30,8 @@ def _has_params(module):
 def _walk(module, hw, grad, out):
     """Append ``module``'s leaves to ``out``; returns the output's (h, w)
     and whether it depends on a parameter."""
-    if isinstance(module, Sequential):
-        for child in module:
+    if isinstance(module, (Sequential, SpatialSeparableConvolution)):
+        for child in module.children():
             hw, grad = _walk(child, hw, grad, out)
         return hw, grad
     if isinstance(module, (Concat, ConcatTable)):
@@ -51,11 +53,13 @@ def _walk(module, hw, grad, out):
     return hw, grad or _has_params(module)
 
 
-def layer_walk(model, image_hw):
+def layer_walk(model, image_hw, input_grad=False):
     """``(module, (h, w) of its input, whether its input depends on a
     parameter)`` for every layer of ``model`` in forward order on
     ``image_hw`` images. A layer whose input depends on no parameter (the
-    first convolution, reading the images) needs no input gradient."""
+    first convolution, reading the images) needs no input gradient, unless
+    ``input_grad``: the images' own gradient is wanted (a block in the
+    middle of a network)."""
     out = []
     if hasattr(model, "layer_walk"):
         # ResNet: a chain through its stem, so every layer after the first
@@ -65,11 +69,12 @@ def layer_walk(model, image_hw):
             out.append((m, hw, grad))
             grad = grad or _has_params(m)
         return out
-    _walk(model, tuple(image_hw), False, out)
+    _walk(model, tuple(image_hw), input_grad, out)
     return out
 
 
-def conv_routes(model, image_hw=(224, 224), dtype=None, training=True):
+def conv_routes(model, image_hw=(224, 224), dtype=None, training=True,
+                input_grad=False):
     """How one training step of ``model`` on ``image_hw`` images runs its
     convolutions (with ``training=False``, one forward pass: no input
     gradient). Every 3x3 stride-1 pad-1 convolution launches its
@@ -86,6 +91,9 @@ def conv_routes(model, image_hw=(224, 224), dtype=None, training=True):
     convolutions count their forward only, and the gradient layers their
     own launches.
 
+    With ``input_grad`` the images' gradient is wanted too
+    (:func:`layer_walk`).
+
     Without ``dtype``: ``{"i2c": n, "k9": n, "library": n}``. With a
     compute ``dtype``: each kernel's launches split by path, ``{"i2c":
     {"tc": n, "simt": n}, "k9": {...}, "library": n}``, by the rule of
@@ -93,7 +101,7 @@ def conv_routes(model, image_hw=(224, 224), dtype=None, training=True):
     split = {"i2c": {"tc": 0, "simt": 0}, "k9": {"tc": 0, "simt": 0},
              "library": 0}
     cast = dtype if dtype is not None else torch.float32
-    walk = layer_walk(model, image_hw)
+    walk = layer_walk(model, image_hw, input_grad)
     by_evaluation = any(getattr(m, "writes_input_grads", False)
                         for m, _, _ in walk)
     for m, (h, w), grad in walk:

@@ -1,13 +1,21 @@
 """Activations (the port of ``bigdl_tpu/nn/activation.py``: ``ReLU``,
 ``Tanh``, ``Sigmoid``, ``SoftMax``, ``LogSoftMax``, ``Identity``, ``Abs``,
 ``Exp``, ``Log``, ``Power``, ``ELU``, ``PReLU``, ``SoftPlus``, ``ReLU6``,
-``SoftSign``, ``Square``, ``Sqrt`` and ``Negative``).
+``SoftSign``, ``Square``, ``Sqrt``, ``Negative``, ``Maxout``, ``HardTanh``,
+``HardSigmoid``, ``SoftMin``, ``LogSigmoid``, ``GELU``, ``Threshold``,
+``RReLU``, ``SReLU``, ``HardShrink``, ``SoftShrink``, ``TanhShrink`` and
+``Clamp``: the whole file).
 
 ``SoftPlus`` is ``logaddexp(beta * x, 0) / beta`` at every ``x``, as
 ``jax.nn.softplus`` computes it (``F.softplus`` turns linear past a
 threshold). ``PReLU`` holds one slope a channel (axis 1), or one shared
 slope when ``n_output_plane`` is 0, each 0.25 at first, as the
-reference's.
+reference's. ``GELU`` is ``jax.nn.gelu``'s default, the tanh
+approximation. ``RReLU`` draws its slopes from the ``generator`` it is
+given in training mode (uniform in ``[lower, upper)``), as the reference
+draws them from its step's rng, and uses ``(lower + upper) / 2``
+otherwise. ``SReLU`` holds four learnable tensors of ``shape``: ``tl``
+(0), ``al`` (0.2), ``tr`` (1) and ``ar`` (1).
 """
 
 from __future__ import annotations
@@ -218,3 +226,148 @@ class Maxout(Module):
     def extra_repr(self):
         return (f"{self.input_size} -> {self.output_size} "
                 f"x {self.maxout_number}")
+
+
+class HardTanh(Module):
+    """``x`` clipped to ``[min_value, max_value]``; ``ip`` is accepted
+    for the reference's API."""
+
+    def __init__(self, min_value=-1.0, max_value=1.0, ip=False):
+        super().__init__()
+        self.min_value, self.max_value = min_value, max_value
+
+    def forward(self, x):
+        return torch.clamp(x, self.min_value, self.max_value)
+
+
+class HardSigmoid(Module):
+    """``clip(0.2 * x + 0.5, 0, 1)``."""
+
+    def forward(self, x):
+        return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+class SoftMin(Module):
+    """softmax of ``-x`` over axis ``pos``."""
+
+    def __init__(self, pos=-1):
+        super().__init__()
+        self.pos = pos
+
+    def forward(self, x):
+        return F.softmax(-x, dim=self.pos)
+
+
+class LogSigmoid(Module):
+    def forward(self, x):
+        return F.logsigmoid(x)
+
+
+class GELU(Module):
+    """The tanh approximation, as ``jax.nn.gelu`` computes by default."""
+
+    def forward(self, x):
+        return F.gelu(x, approximate="tanh")
+
+
+class Threshold(Module):
+    """``x`` where ``x > th``, else ``v``."""
+
+    def __init__(self, th=1e-6, v=0.0, ip=False):
+        super().__init__()
+        self.th, self.v = th, v
+
+    def forward(self, x):
+        return torch.where(x > self.th, x,
+                           torch.full((), self.v, dtype=x.dtype,
+                                      device=x.device))
+
+
+class RReLU(Module):
+    """Randomised leaky ReLU (reference ``nn/RReLU.scala``; see module
+    docstring)."""
+
+    def __init__(self, lower=1.0 / 8, upper=1.0 / 3, ip=False):
+        super().__init__()
+        self.lower, self.upper = lower, upper
+
+    def forward(self, x, generator=None):
+        if self.training and generator is not None:
+            a = torch.empty_like(x).uniform_(self.lower, self.upper,
+                                             generator=generator)
+        else:
+            a = (self.lower + self.upper) / 2.0
+        return torch.where(x >= 0, x, a * x)
+
+
+class SReLU(Module):
+    """S-shaped ReLU (reference ``nn/SReLU.scala``): ``tr + ar * (x -
+    tr)`` at or above ``tr``, ``tl + al * (x - tl)`` at or below ``tl``,
+    else ``x``; the four tensors of ``shape`` broadcast against the
+    input's trailing axes."""
+
+    _INIT = {"tl": 0.0, "al": 0.2, "tr": 1.0, "ar": 1.0}
+    jax_perms = {"tl": None, "al": None, "tr": None, "ar": None}
+
+    def __init__(self, shape, device=None, dtype=torch.float32):
+        super().__init__()
+        self.shape = tuple(shape)
+        device = resolve_device(device)
+        for name, v in self._INIT.items():
+            setattr(self, name, nn.Parameter(torch.full(
+                self.shape, v, device=device, dtype=dtype)))
+
+    def forward(self, x):
+        tl, al, tr, ar = self.tl, self.al, self.tr, self.ar
+        return torch.where(x >= tr, tr + ar * (x - tr),
+                           torch.where(x <= tl, tl + al * (x - tl), x))
+
+    def regularized_leaves(self):
+        return []
+
+    def init_arrays(self, rng):
+        return {k: np.full(self.shape, v) for k, v in self._INIT.items()}
+
+    def extra_repr(self):
+        return f"{self.shape}"
+
+
+class HardShrink(Module):
+    """``x`` where ``|x| > lambd``, else 0."""
+
+    def __init__(self, lambd=0.5):
+        super().__init__()
+        self.lambd = lambd
+
+    def forward(self, x):
+        return torch.where(torch.abs(x) > self.lambd, x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class SoftShrink(Module):
+    """``sign(x) * max(|x| - lambd, 0)``."""
+
+    def __init__(self, lambd=0.5):
+        super().__init__()
+        self.lambd = lambd
+
+    def forward(self, x):
+        return torch.sign(x) * torch.clamp_min(torch.abs(x) - self.lambd, 0.0)
+
+
+class TanhShrink(Module):
+    """``x - tanh(x)``."""
+
+    def forward(self, x):
+        return x - torch.tanh(x)
+
+
+class Clamp(Module):
+    """``x`` clipped to ``[min_value, max_value]``."""
+
+    def __init__(self, min_value, max_value):
+        super().__init__()
+        self.min_value, self.max_value = min_value, max_value
+
+    def forward(self, x):
+        return torch.clamp(x, self.min_value, self.max_value)

@@ -1,8 +1,12 @@
 """Shape, noise and constant layers (the port of ``bigdl_tpu/nn/basic.py``
 ``Reshape``, ``View``, ``Flatten``, ``Narrow``, ``Tile``,
 ``SpatialZeroPadding``, ``Input``, ``Dropout``, ``AddConstant``,
-``MulConstant``, ``CAdd``, ``CMul``, ``Scale``, ``Squeeze``, ``Mean`` and
-``Sum``).
+``MulConstant``, ``CAdd``, ``CMul``, ``Scale``, ``Squeeze``, ``Mean``,
+``Sum``, ``Transpose``, ``Unsqueeze``, ``Index``, ``Replicate``,
+``Reverse``, ``Contiguous``, ``Padding``, ``SpatialDropout2D``,
+``GaussianNoise``, ``GaussianDropout``, ``Max``, ``Min``, ``Add``, ``Mul``,
+``Masking``, ``Echo`` and ``ErrorInfo``: the whole file but ``Select``,
+which ``ops.control_ops`` ports).
 
 Axes are 0-based Python axes, as in the reference. ``CAdd`` and ``Scale``
 hold parameters of the shape they are given (a Caffe ``Scale`` or ``Bias``
@@ -15,6 +19,13 @@ integer or boolean sum is int32 (JAX without x64), a mean float32.
 ``Flatten`` remembers the rank of the last input it flattened, which
 ``interop.save_torch`` writes as a Torch7 ``nn.View``'s ``numInputDims``
 (the reference reads it from its build-time input spec).
+
+The random layers (``Dropout``, ``SpatialDropout2D``, ``GaussianNoise``,
+``GaussianDropout``) draw from the ``generator`` their forward is given,
+in training mode only, as the reference's draw from the step's rng; with
+no generator, or in evaluation mode, they are the identity. ``Max`` and
+``Min`` are ``amax``/``amin``: a tie shares its gradient evenly among the
+tied elements, as JAX's ``max`` does.
 """
 
 from __future__ import annotations
@@ -329,3 +340,246 @@ class Scale(Module):
 
     def extra_repr(self):
         return f"{self.size}"
+
+
+class Transpose(Module):
+    """Swap each listed pair of axes in turn (reference
+    ``nn/Transpose.scala``; Python axes, the batch axis included)."""
+
+    def __init__(self, permutations):
+        super().__init__()
+        self.permutations = permutations
+
+    def forward(self, x):
+        perm = list(range(x.dim()))
+        for a, b in self.permutations:
+            perm[a], perm[b] = perm[b], perm[a]
+        return x.permute(*perm)
+
+    def extra_repr(self):
+        return f"{self.permutations}"
+
+
+class Unsqueeze(Module):
+    """A new axis of size 1 at ``pos`` (a Python axis)."""
+
+    def __init__(self, pos, num_input_dims=None):
+        super().__init__()
+        self.pos = pos
+
+    def forward(self, x):
+        return x.unsqueeze(self.pos)
+
+
+class Index(Module):
+    """The table ``[tensor, indices]`` gathered along ``dim`` (reference
+    ``nn/Index.scala``): ``tensor.shape[:dim] + indices.shape +
+    tensor.shape[dim + 1:]``, as ``jnp.take``."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, *xs):
+        from bigdl_tpu_torch.nn.table_ops import _elems
+        t, idx = _elems(xs)[:2]
+        idx = torch.as_tensor(idx, device=t.device).long()
+        dim = self.dim % t.dim()
+        out = torch.index_select(t, dim, idx.reshape(-1))
+        return out.reshape(t.shape[:dim] + idx.shape + t.shape[dim + 1:])
+
+
+class Replicate(Module):
+    """``n_features`` copies of the input along a new axis ``dim``."""
+
+    def __init__(self, n_features, dim=0):
+        super().__init__()
+        self.n_features, self.dim = n_features, dim
+
+    def forward(self, x):
+        y = x.unsqueeze(self.dim)
+        reps = [1] * y.dim()
+        reps[self.dim] = self.n_features
+        return y.repeat(*reps)
+
+
+class Reverse(Module):
+    """The input reversed along ``dim``."""
+
+    def __init__(self, dim=0):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.flip(x, (self.dim,))
+
+
+class Contiguous(Module):
+    """The input in contiguous memory."""
+
+    def forward(self, x):
+        return x.contiguous()
+
+
+class Padding(Module):
+    """``|pad|`` entries of ``value`` along ``dim``: before the input where
+    ``pad`` is negative, after it otherwise (reference
+    ``nn/Padding.scala``)."""
+
+    def __init__(self, dim, pad, n_input_dim=None, value=0.0, n_index=1):
+        super().__init__()
+        self.dim, self.pad, self.value = dim, pad, value
+
+    def forward(self, x):
+        widths = (-self.pad, 0) if self.pad < 0 else (0, self.pad)
+        y = F.pad(x.movedim(self.dim, -1), widths, value=self.value)
+        return y.movedim(-1, self.dim)
+
+
+def channel_dropout(module, x, shape, generator):
+    """``x`` with the entries of a ``shape`` mask (broadcast against it)
+    dropped, each kept with probability ``1 - module.p`` (a uniform draw
+    from ``generator`` below ``1 - p``) and the rest scaled by ``1 / (1 -
+    p)``, in training mode with a generator; else ``x``."""
+    p = module.p
+    if not module.training or p <= 0.0 or generator is None:
+        return x
+    keep = torch.empty(shape, dtype=torch.float32, device=x.device) \
+        .uniform_(generator=generator) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class SpatialDropout2D(Module):
+    """Whole channels dropped and the rest scaled by ``1 / (1 - p)``
+    (reference ``nn/SpatialDropout2D.scala``); ``format`` "NCHW" or
+    "NHWC"."""
+
+    def __init__(self, init_p=0.5, format="NCHW"):
+        super().__init__()
+        self.p = init_p
+        self.format = format
+
+    def forward(self, x, generator=None):
+        shape = ((x.shape[0], x.shape[1], 1, 1) if self.format == "NCHW"
+                 else (x.shape[0], 1, 1, x.shape[3]))
+        return channel_dropout(self, x, shape, generator)
+
+
+class GaussianNoise(Module):
+    """``x + stddev * N(0, 1)`` in training mode."""
+
+    def __init__(self, stddev):
+        super().__init__()
+        self.stddev = stddev
+
+    def forward(self, x, generator=None):
+        if not self.training or generator is None:
+            return x
+        noise = torch.empty_like(x).normal_(generator=generator)
+        return x + self.stddev * noise
+
+
+class GaussianDropout(Module):
+    """``x * (1 + sqrt(rate / (1 - rate)) * N(0, 1))`` in training
+    mode."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or generator is None:
+            return x
+        stddev = (self.rate / (1.0 - self.rate)) ** 0.5
+        noise = torch.empty_like(x).normal_(generator=generator)
+        return x * (1.0 + stddev * noise)
+
+
+class Max(Module):
+    """The maximum over ``dim`` (see module docstring)."""
+
+    def __init__(self, dim=0, num_input_dims=-1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.amax(x, dim=self.dim)
+
+
+class Min(Module):
+    """The minimum over ``dim`` (see module docstring)."""
+
+    def __init__(self, dim=0, num_input_dims=-1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.amin(x, dim=self.dim)
+
+
+class Add(Module):
+    """A learnable bias of ``input_size`` (reference ``nn/Add.scala``),
+    uniform in +-1/sqrt(input_size) at first."""
+
+    def __init__(self, input_size, device=None, dtype=torch.float32):
+        super().__init__()
+        self.input_size = input_size
+        self.bias = nn.Parameter(torch.empty(
+            input_size, device=resolve_device(device), dtype=dtype))
+
+    def forward(self, x):
+        return x + self.bias
+
+    def init_arrays(self, rng):
+        bound = 1.0 / np.sqrt(self.input_size)
+        return {"bias": rng.uniform(-bound, bound, self.input_size)}
+
+    def extra_repr(self):
+        return f"{self.input_size}"
+
+
+class Mul(Module):
+    """One learnable gain (reference ``nn/Mul.scala``), uniform in
+    [-1, 1) at first."""
+
+    def __init__(self, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            1, device=resolve_device(device), dtype=dtype))
+
+    def forward(self, x):
+        return x * self.weight
+
+    def init_arrays(self, rng):
+        return {"weight": rng.uniform(-1.0, 1.0, 1)}
+
+
+class Masking(Module):
+    """Every step whose features all equal ``mask_value`` set to 0
+    (reference ``nn/Masking.scala``)."""
+
+    def __init__(self, mask_value=0.0):
+        super().__init__()
+        self.mask_value = mask_value
+
+    def forward(self, x):
+        keep = torch.any(x != self.mask_value, dim=-1, keepdim=True)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+class Echo(Module):
+    """The identity that prints the input's shape (reference
+    ``nn/Echo.scala``), as ``jax.debug.print`` prints it."""
+
+    def forward(self, x):
+        print(f"Echo: shape={tuple(x.shape)}", flush=True)
+        return x
+
+
+class ErrorInfo(Module):
+    """The identity."""
+
+    def forward(self, x):
+        return x

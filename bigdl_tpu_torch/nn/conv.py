@@ -1,7 +1,10 @@
-"""2-D convolution (the port of ``bigdl_tpu/nn/conv.py``
-``SpatialConvolution`` and ``SpatialDilatedConvolution``: any
-``n_group``, any dilation; and ``SpatialFullConvolution``, the transposed
-convolution, at the end of this module).
+"""2-D convolution (the port of ``bigdl_tpu/nn/conv.py``, the whole file:
+``SpatialConvolution`` and ``SpatialDilatedConvolution``, any ``n_group``,
+any dilation; ``SpatialShareConvolution``, the same layer under the
+reference's other name; ``SpatialSeparableConvolution``, a depthwise and a
+pointwise ``SpatialConvolution``; ``SpatialFullConvolution``, the
+transposed convolution; and the 1-D and 3-D ones at the end of this
+module).
 
 The weight is OIHW, ``(O, I / n_group, kh, kw)`` as torch's ``F.conv2d``
 takes it (the reference's HWIO ``(kh, kw, I / n_group, O)``), kept in
@@ -261,6 +264,71 @@ class SpatialDilatedConvolution(SpatialConvolution):
         super().__init__(n_input_plane, n_output_plane, kw, kh, dw, dh,
                          pad_w, pad_h, dilation_w=dilation_w,
                          dilation_h=dilation_h, **kwargs)
+
+
+class SpatialShareConvolution(SpatialConvolution):
+    """Reference ``nn/SpatialShareConvolution.scala``: the same arithmetic
+    as ``SpatialConvolution`` (the reference's variant shares im2col
+    buffers between model replicas, which the allocator owns here), kept
+    as its own type for the loaders and the native format."""
+
+
+class SpatialSeparableConvolution(Module):
+    """Depthwise, then pointwise (reference
+    ``nn/SpatialSeperableConvolution.scala``): ``depthwise`` a
+    ``SpatialConvolution`` of ``n_input_channel`` groups, each one input
+    channel to ``depth_multiplier`` outputs, without bias; ``pointwise`` a
+    1x1 ``SpatialConvolution`` to ``n_output_channel`` with ``has_bias``.
+    At 3x3 stride 1 pad 1 the depthwise half takes rows 8-9 once a group,
+    forward and input gradient (``conv_launches``); the 1x1 is one
+    library call. ``models.conv_routes`` walks the two halves in order.
+    The reference's params are ``{"depthwise": {...}, "pointwise":
+    {...}}`` (``param_children``)."""
+
+    param_children = (("depthwise", "depthwise"), ("pointwise", "pointwise"))
+
+    def __init__(self, n_input_channel, n_output_channel, depth_multiplier,
+                 kw, kh, sw=1, sh=1, pw=0, ph=0, has_bias=True,
+                 format="NCHW", w_regularizer=None, b_regularizer=None,
+                 p_regularizer=None, device=None, dtype=torch.float32):
+        super().__init__()
+        self.n_input_channel = n_input_channel
+        self.n_output_channel = n_output_channel
+        self.depth_multiplier = depth_multiplier
+        self.kw, self.kh, self.sw, self.sh = kw, kh, sw, sh
+        self.pw, self.ph = pw, ph
+        self.has_bias = has_bias
+        self.format = format
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
+        self.p_regularizer = p_regularizer
+        mid = n_input_channel * depth_multiplier
+        kw_ = dict(format=format, device=device, dtype=dtype)
+        self.depthwise = SpatialConvolution(
+            n_input_channel, mid, kw, kh, sw, sh, pw, ph,
+            n_group=n_input_channel, with_bias=False,
+            w_regularizer=w_regularizer, **kw_)
+        self.pointwise = SpatialConvolution(
+            mid, n_output_channel, 1, 1, 1, 1, 0, 0, with_bias=has_bias,
+            w_regularizer=p_regularizer, b_regularizer=b_regularizer, **kw_)
+
+    def regularized_leaves(self):
+        return []               # the halves carry them
+
+    def output_hw(self, h, w):
+        return self.pointwise.output_hw(*self.depthwise.output_hw(h, w))
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+    def extra_repr(self):
+        return (f"{self.n_input_channel} -> {self.n_output_channel}, "
+                f"x{self.depth_multiplier}, {self.kw}x{self.kh}")
+
+
+# the reference spells it "Seperable" (nn/SpatialSeperableConvolution.scala)
+# and keeps that alias
+SpatialSeperableConvolution = SpatialSeparableConvolution
 
 
 class SpatialFullConvolution(Module):

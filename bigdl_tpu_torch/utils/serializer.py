@@ -509,10 +509,11 @@ def _nn_table():
                    build=lambda a, make, at: nn.Bottle(
                        make(a["modules"][0]), a["n_input_dim"],
                        a["n_output_dim"])),
-        NativeSpec(ref("nn.conv", "SpatialConvolution"),
-                   nn.SpatialConvolution, conv_attrs,
-                   extra={"propagate_back": lambda m: True, **_XAVIER_ZEROS},
-                   get={"with_bias": _with_bias}),
+        *[NativeSpec(ref("nn.conv", c.__name__), c, conv_attrs,
+                     extra={"propagate_back": lambda m: True,
+                            **_XAVIER_ZEROS},
+                     get={"with_bias": _with_bias})
+          for c in (nn.SpatialConvolution, nn.SpatialShareConvolution)],
         NativeSpec(ref("nn.conv", "SpatialDilatedConvolution"),
                    nn.SpatialDilatedConvolution, conv_attrs,
                    extra={"propagate_back": lambda m: True, **_XAVIER_ZEROS},

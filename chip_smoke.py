@@ -113,7 +113,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
      each direction on the kernel its route takes, in both types: held at
      the same bars on the path ``tc_eligible`` names and timed beside
      cuDNN, the bound and the plain version (``model_shapes`` of the
-     entries).
+     entries). A depthwise group's shapes, (Cin 1, Cout 1) and (1, 2),
+     8 x 19², forward and flip, both types, both kernels (the CUDA cores:
+     Cin 1 is no multiple of 8), held at the same bars; Xception's
+     depthwise layer (728 groups of 1 -> 1, float32): one group's launch
+     timed, the route's 728 launches' device time summed from a profile,
+     the route timed whole, and ``F.conv2d(groups=728)`` timed, beside its
+     bound (``depthwise`` and ``depthwise_layer`` of the entries).
 4. slice   — GPT-2 small at full width (12 layers, hidden 768, 12 heads,
    vocab 50257, context 1024), float32, seeded random weights: the paged
    ``ServingEngine`` serves 12 requests (prompts of 24-700 tokens, two
@@ -246,7 +252,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
      at ``max_recoveries=0``, one step fault: exactly one restart, the 8
      greedy requests resubmitted and as without the fault (the near-tie
      rule); prints the restart's seconds and each engine build's.
-   * slice_host_tier — 2 slots, a 96-page pool of pages of 16, four
+   * slice_host_tier — GPT-2 small's widths at TIER_LAYERS (4) of its
+     12 blocks (depth cut for the script's time limit), 2 slots, a
+     96-page pool of pages of 16, four
      distinct 512-token prompts one after another, then the first two
      again, 64 greedy tokens each (a stream holds 36 pages, so the first
      two are evicted, demoted, and promoted), on float32 and int8 pools
@@ -255,8 +263,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
      promoted pages a repeated prompt; ``prefix_miss_tokens`` lower than
      the tier-off run's by 16 a promoted page; every resident host buffer
      mangled (``corrupt_planes``), the third prompt again re-prefills with
-     identical tokens; exactly 12 (tp 2: 24) kernel launches per chunk
-     and step. Prints the pinned bytes and their allocation's seconds,
+     identical tokens; exactly TIER_LAYERS (tp 2: twice that) kernel
+     launches per chunk and step. Prints the pinned bytes and their allocation's seconds,
      and demote / promote MB/s of 32 pages through the pinned ring.
    * slice_snapshot — an engine with ``kv_snapshot=True`` over a
      temporary directory serves the 8 greedy requests and shuts down
@@ -506,6 +514,56 @@ Phases, each printing one JSON line (any failure exits non-zero):
    criterions) forward and backward on the card within 1e-5 of the CPU.
    Reports images/s, ms an image, the NMS sweep's steps, launches and
    time, ms a step and the card.
+
+6m. pipeline_moe — the GPipe pipeline and the mixture of experts
+   (A.11(d)(4)(b)), float32, TF32 off. (a) GPT-2 small's 12 decoder blocks
+   (hidden 768, 12 heads; seeded ``convert._init_blocks`` weights) as a
+   4-stage pipeline of 3 blocks a stage over ``PIPE_DEVICES`` (four times
+   ``cuda:0``), ``parallel.make_pipeline_train_step`` with
+   ``MSECriterion`` and ``SGD(0.01)`` on 8 microbatches of 1 x 1024
+   seeded activations and targets: the first step's loss within 1e-4
+   relative of the sequential step's (the same 12 blocks over the 8 x 1024
+   batch, one criterion call, the same SGD), each stage's gradients within
+   1e-3 of their largest magnitude in the sequential step, exactly 96
+   CUDA-core launches of each of the flash forward, dQ and dK/dV a
+   pipelined step (12 blocks x 8 microbatches) against 12 a sequential
+   step, no tensor-core launch; 3 more steps, losses finite and falling.
+   Reports step time and tokens/s of both and the busy share. (b)
+   Switch-Base-8's expert layer (Fedus et al., 2021: d 768, d_ff 3072, 8
+   experts, capacity factor 1.25) at top-1 and top-2, 8 x 512 seeded
+   tokens, against the port's CPU run on the same weights: each token's
+   experts and kept state identical but where the CPU's gate gap for that
+   choice is under 1e-6 (counted), outputs on tokens routed alike within
+   1e-5 of max|CPU|, the aux loss within 1e-5 relative, the gradients of
+   ``wg``, ``w1``, ``w2`` under ``sum(y^2) + 1e-2 * aux`` within 1e-4 of a
+   CPU run given the card's routing; expert-parallel over four shards of
+   ``cuda:0`` (2 experts a shard) at capacity factor 8.0 against dense at
+   the reference test's bar (rtol 2e-4, atol 1e-5); 3 SGD steps of the
+   top-1 layer, losses finite and falling. Reports ms a forward and
+   backward and the dropped share.
+
+6n. layer_sweep — the rest of the nn inventory (A.11(d)(4)(b)), float32,
+   TF32 off. Xception's middle-flow block (Chollet, 2017; 3 x [ReLU,
+   ``SpatialSeparableConvolution(728, 728, 1, 3x3, pad 1)``] with the
+   residual add) at 8 x 728 x 19², forward and backward with the input's
+   gradient: the 3x3 CUDA-core launches exactly ``conv_routes(...,
+   input_grad=True)`` (728 forward and 728 input-gradient launches a
+   depthwise layer), the three 1x1s on the library, no 3x3 stride-1
+   ``F.conv2d``; outputs within 1e-5 of the CPU's largest magnitude and
+   every gradient within train_cnn's rule; ms a step beside the same block
+   with ``F.conv2d(groups=728)`` in the kernels' place.
+   ``SpatialShareConvolution`` (8 x 64 x 28²) and ``SpatialConvolutionMap``
+   (a seeded half of the 32 x 32 connections, 8 x 32 x 28²) at 3x3 pad 1:
+   one i2c launch forward and one flip each, outputs and input gradients
+   within 1e-5 (parameter gradients, reductions over the batch's pixels
+   in another order on each device, within 1e-4). ``SparseLinear`` on a
+   1024 x 100,000 COO batch of 32 nonzeros a row, 128 out: output and the
+   values' gradient within 1e-5, the weight's and bias's within 1e-4.
+   Every other new layer (``_sweep_table``), forward and input gradients,
+   card against CPU within 1e-5 (parameter gradients within 1e-4);
+   ``MaskedSelect``, ``DenseToSparse`` and ``SparseJoinTable`` exact; the
+   random layers in training mode by their moments (five standard errors)
+   and their generator's seed.
 7. train   — GPT-2 small at full width and depth, float32, the same seeded
    weights, ``Adam(learningrate=3e-4)`` and ``CrossEntropyCriterion``
    through ``make_train_step`` on one fixed batch of 8 x 1024 tokens: one
@@ -714,7 +772,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    forward import is off its CPU run, plus 1e-4 of its largest magnitude
    (train_cnn's noise-floor rule is reported, and so is the same autograd
    on the card with the 3x3 route swapped for cuDNN's ``F.conv2d``: a
-   witness of the card's rounding that launches no kernel).
+   witness of the card's rounding that launches no kernel); and every
+   gradient within train_cnn's rule of a CPU run given the card's
+   decisions (``_tf_decisions``: each forward ``ReLU``'s and max pool's,
+   and each ``ReluGrad``'s and ``MaxPoolGrad``'s, which take them again
+   from the values they are fed), the decisions the two devices take
+   differently counted by kind and printed.
    Batch 32 under ``torch.no_grad()``: a warm-up and 3 timed evaluations,
    21 k9 and 4 i2c CUDA-core launches each (``conv_routes``; 6 library
    calls, no 3x3 stride-1 ``F.conv2d``), the decoded batch bit-equal, the
@@ -1762,12 +1825,14 @@ def _conv_kernels(torch, flush):
     torch.backends.cudnn.allow_tf32 = tf32
     ragged = _conv_ragged(torch, g)
     model_rows = _conv_model_shapes(torch, flush, g)
+    depthwise = _conv_depthwise(torch, flush, g)
     results = {}
     for kind, shapes in rows.items():
         name = f"conv3x3_{kind}"
         mine = [r for r in model_rows if r["kind"] == kind]
         emit({"phase": "kernels", "kernel": name, "shapes": shapes,
-              "ragged": ragged[kind], "model_shapes": mine})
+              "ragged": ragged[kind], "model_shapes": mine,
+              "depthwise": depthwise["held"][kind]})
         t = next(r for r in shapes if r["path"] and r["dtype"] == "bfloat16")
         results[name] = {
             "name": name, "route": "cuda", "source": CONV_SOURCE,
@@ -1794,7 +1859,11 @@ def _conv_kernels(torch, flush):
                            f"{t['Cout']} bfloat16, tensor cores",
             "launches": 0, "shapes": shapes,
             # VGG-16's and Inception-v1's shapes (CONV_MODEL_SHAPES)
-            "model_shapes": mine}
+            "model_shapes": mine,
+            # a depthwise group's shapes; Xception's depthwise layer
+            "depthwise": depthwise["held"][kind],
+            **({"depthwise_layer": depthwise["layer"]}
+               if kind == depthwise["layer"]["kernel"] else {})}
     return results
 
 
@@ -1893,6 +1962,103 @@ def _conv_model_shapes(torch, flush, g):
     check(first["path"] == "CUDA cores",
           f"VGG's first layer in bfloat16 ran on the {first['path']}")
     return rows
+
+
+# a depthwise 3x3's groups on rows 8-9: one input channel to 1 or 2 (the
+# depth multiplier) outputs, at Xception's middle-flow size (XCEPTION)
+CONV_DEPTHWISE_COUTS = (1, 2)
+
+
+def _conv_depthwise(torch, flush, g):
+    """Both conv kernels at a depthwise group's shapes, (Cin 1, Cout 1)
+    and (1, 2), forward and flip, bfloat16 and float32 (the CUDA-core path:
+    Cin 1 is no multiple of 8), against their plain versions at CONV_TOL;
+    then one depthwise layer of Xception's middle flow (XCEPTION: 728
+    groups of 1 -> 1, 8 x 19² float32): one group's launch behind the
+    spin kernel, L2 flushed; the device time of the 728 launches of one
+    run through ``nn.conv.conv2d``'s route, summed from a profile
+    (``_profile``; L2 warm); that route timed whole (the groups' slices
+    and the concatenation; host gaps included); and
+    ``F.conv2d(groups=728)`` on the same channels-last tensors (cuDNN),
+    beside the layer's bound. Returns ``{"held": {kind: rows}, "layer":
+    row}``."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.nn.conv import conv2d
+    from bigdl_tpu_torch.ops import conv3x3 as cv
+    plain = {"k9": cv.conv3x3_k9_ref, "i2c": cv.conv3x3_i2c_ref}
+    b, c, hw = XCEPTION
+    held = {"k9": [], "i2c": []}
+    for kind, fn in cv.KERNELS.items():
+        for cout in CONV_DEPTHWISE_COUTS:
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).replace("torch.", "")
+                wt = torch.randn((cout, 3, 3, 1), generator=g,
+                                 device="cuda").to(dtype)
+                for flip in (False, True):
+                    x = torch.randn((b, hw, hw, cout if flip else 1),
+                                    generator=g, device="cuda").to(dtype)
+                    before = fn.launches
+                    got = fn(x, wt, flip)
+                    torch.cuda.synchronize()
+                    label = (f"conv3x3_{kind} depthwise 1->{cout} {dname} "
+                             f"flip={flip}")
+                    check(fn.launches == before + 1,
+                          f"{label}: not on the CUDA-core path")
+                    want = plain[kind](x, wt, flip)
+                    err = float((got.float() - want.float()).abs().max())
+                    tol = CONV_TOL[dname] * float(want.float().abs().max())
+                    check(err <= tol, f"{label}: max abs err {err} over "
+                                      f"{tol}")
+                    held[kind].append({"Cin": 1, "Cout": cout, "flip": flip,
+                                       "dtype": dname, "max_abs_err": err,
+                                       "tolerance": tol})
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn((b, hw, hw, c), generator=g, device="cuda")
+    w = (torch.randn((c, 1, 3, 3), generator=g, device="cuda") / 3.0) \
+        .contiguous(memory_format=torch.channels_last)
+    x1, w1 = x[..., :1].contiguous(), w[:1].permute(0, 2, 3, 1).contiguous()
+    kind = cv.kernel_for(1)
+    one, one_spread = _steady_ms(torch, lambda: cv.KERNELS[kind](x1, w1),
+                                 flush, 10)
+    def route():
+        return conv2d(x, w, padding=((1, 1), (1, 1)), groups=c, nhwc=True)
+
+    route_ms = time_ms(torch, route, 3, warm=1)
+    # the device time of the route's c kernel launches, summed from one
+    # profiled run (L2 warm, as the route leaves it)
+    prof = _profile(torch, route, groups={"conv3x3": "conv3x3_simt_kernel"})
+    summed = prof.get("groups", {}).get("conv3x3")
+    if summed is not None:
+        check(summed["calls"] == c, f"the depthwise route's profile holds "
+                                    f"{summed['calls']} 3x3 kernels, want {c}")
+        summed_ms = summed["s"] * 1e3
+    else:
+        summed_ms = "not measured"
+    xc = x.permute(0, 3, 1, 2)
+    lib, lib_spread = _steady_ms(
+        torch, lambda: F.conv2d(xc, w, padding=1, groups=c), flush, 10)
+    got = route()
+    want = F.conv2d(xc, w, padding=1, groups=c).permute(0, 2, 3, 1)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= CONV_TOL["float32"],
+          f"the depthwise layer through the kernels is {err} x max off "
+          f"cuDNN's")
+    torch.backends.cudnn.allow_tf32 = tf32
+    nbytes = (2 * x.numel() + w.numel()) * 4
+    b_ms, b_by = bound(nbytes, 2 * b * hw * hw * 9 * c, torch.float32)
+    layer = {"batch": b, "channels": c, "hw": hw, "dtype": "float32",
+             "kernel": kind, "launches": c, "one_group_ms": one,
+             "one_group_ms_spread": one_spread,
+             "kernels_summed_ms": summed_ms, "route_ms": route_ms,
+             "library_ms": lib, "library_ms_spread": lib_spread,
+             "library": "F.conv2d(groups=728), cuDNN", "bound_ms": b_ms,
+             "bound_by": b_by, "rel_err_vs_library": err}
+    print(f"depthwise layer {b}x{hw}x{hw}x{c}: one group {one:.4f} ms, "
+          f"{c} launches {summed_ms} ms summed, route {route_ms:.2f} ms, "
+          f"cuDNN {lib:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+    del x, w, xc, got, want
+    return {"held": held, "layer": layer}
 
 
 def _conv_ragged(torch, g):
@@ -6157,6 +6323,103 @@ def _tf_autograd(torch, fwd, names, images_f, labels):
         for k, g in zip(names, gs)}
 
 
+@contextlib.contextmanager
+def _tf_decisions(torch, graph, replay=None):
+    """Hooks on a TF training graph's decisions for one run: yields
+    ``{kind: {node name: decisions}}`` for its forward ``ReLU``s (the
+    mask of positive inputs), its ``ReluGrad``s (the mask of positive
+    features they are fed), its forward max pools and its ``MaxPoolGrad``s
+    (each window's argmax, as ``F.max_pool2d`` returns it, on the CPU).
+    With ``replay`` (another run's yield) every node takes that run's
+    decisions instead of its own: a ReLU passes its input where the mask
+    says, a ``ReluGrad`` its gradient, a pool takes the recorded element
+    of each window, a ``MaxPoolGrad`` sends each window's gradient there.
+    A TF training graph takes each decision twice, in the forward node and
+    in its gradient op, so both are replayed."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import tf_ops
+    taps = {"relu": {}, "relu_grad": {}, "pool": {}, "pool_grad": {}}
+    handles = []
+
+    def args_of(args):
+        return list(args[0]) if len(args) == 1 and isinstance(
+            args[0], (list, tuple)) else list(args)
+
+    def argmax(x_nhwc, k, s):
+        return F.max_pool2d(x_nhwc.permute(0, 3, 1, 2), k, s,
+                            return_indices=True)[1]
+
+    def mask_of(kind, name, x, out_device):
+        taps[kind][name] = (x > 0).cpu()
+        return None if replay is None else \
+            replay[kind][name].to(out_device)
+
+    def hook(kind, name, mod):
+        def relu(m, args, out):
+            mask = mask_of(kind, name, args_of(args)[0], out.device)
+            if mask is not None:
+                x = args_of(args)[0]
+                return torch.where(mask, x, torch.zeros_like(x))
+
+        def relu_grad(m, args, out):
+            g, x = args_of(args)[:2]
+            mask = mask_of(kind, name, x, out.device)
+            if mask is not None:
+                return g * mask.to(g.dtype)
+
+        def pool(m, args, out):
+            x = args_of(args)[0]
+            check(m.padding(*x.shape[1:3]) == ((0, 0), (0, 0))
+                  and m.format == "NHWC", f"{name}: a padded pool")
+            idx = argmax(x, (m.kh, m.kw), (m.dh, m.dw))
+            taps[kind][name] = idx.cpu()
+            if replay is not None:
+                idx = replay[kind][name].to(x.device)
+                xc = x.permute(0, 3, 1, 2).flatten(2)
+                y = xc.gather(2, idx.flatten(2)).view(idx.shape)
+                return y.permute(0, 2, 3, 1).contiguous()
+
+        def pool_grad(m, args, out):
+            x, _, g = args_of(args)[:3]
+            check(m.padding == "VALID", f"{name}: a padded pool gradient")
+            idx = argmax(x, tuple(m.ksize[1:3]), tuple(m.strides[1:3]))
+            taps[kind][name] = idx.cpu()
+            if replay is not None:
+                idx = replay[kind][name].to(x.device)
+                n, h, w, c = x.shape
+                dx = torch.zeros(n, c, h * w, dtype=g.dtype, device=g.device)
+                dx.scatter_add_(2, idx.flatten(2),
+                                g.permute(0, 3, 1, 2).flatten(2))
+                return dx.view(n, c, h, w).permute(0, 2, 3, 1).contiguous()
+
+        return {"relu": relu, "relu_grad": relu_grad, "pool": pool,
+                "pool_grad": pool_grad}[kind]
+
+    for nd in graph.exec_order:
+        mod = nd.module
+        kind = ("relu" if type(mod) is nn.ReLU
+                else "relu_grad" if isinstance(mod, tf_ops.ReluGrad)
+                else "pool" if isinstance(mod, nn.SpatialMaxPooling)
+                else "pool_grad" if isinstance(mod, tf_ops.MaxPoolGrad)
+                else None)
+        if kind is not None:
+            handles.append(mod.register_forward_hook(
+                hook(kind, mod.get_name(), mod)))
+    try:
+        yield taps
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _decisions_differing(a, b):
+    """By kind, how many decisions two runs' ``_tf_decisions`` took
+    differently (elements for the ReLU masks, windows for the pools)."""
+    return {kind: sum(int((a[kind][k] != b[kind][k]).sum())
+                      for k in a[kind]) for kind in a}
+
+
 def _load_tf_train_vgg(torch, kernels, smi, root):
     """TF-slim vgg_16's training graph fed from a TFRecord (see the module
     docstring's load_tf_train)."""
@@ -6227,10 +6490,18 @@ def _load_tf_train_vgg(torch, kernels, smi, root):
     apply_tf_weights(cpu)
     taps, handles = _conv_taps(cpu)
     with torch.no_grad():
-        got = [v.cpu() for v in graph(serialized[:m])]
-        want = cpu(serialized[:m])
+        with _tf_decisions(torch, graph) as card_decisions:
+            got = [v.cpu() for v in graph(serialized[:m])]
+        with _tf_decisions(torch, cpu) as cpu_decisions:
+            want = cpu(serialized[:m])
     for h in handles:
         h.remove()
+    # the CPU run given the card's ReLU and max-pool decisions, in the
+    # forward nodes and in the graph's own gradient ops
+    with torch.no_grad(), _tf_decisions(torch, cpu, card_decisions):
+        replayed = cpu(serialized[:m])
+    differing = _decisions_differing(card_decisions, cpu_decisions)
+    del card_decisions, cpu_decisions
     logits_rel = _out_rel(got[1], want[1])
     check(logits_rel <= TF_OUT_REL, f"load_tf_train: card logits differ "
                                     f"from the CPU's by {logits_rel}")
@@ -6286,6 +6557,12 @@ def _load_tf_train_vgg(torch, kernels, smi, root):
     got = as_dict(got)
     noise = _noise(auto_cpu, moved)
     rec2 = _grad_bar(got, base, noise)
+    held = _grad_bar(got, as_dict(replayed), noise)
+    rec2["decisions_differing"] = differing
+    rec2["vs_cpu_with_card_decisions"] = {
+        k: held[k] for k in ("grad_worst_rel", "grad_worst",
+                             "grad_worst_vs_bar", "grad_bar_worst",
+                             "grads_on_noise_floor")}
     rec2["conv_nodes_vs_cpu_worst"] = node_rel[node_worst]
     rec2["conv_nodes_vs_cpu_worst_node"] = node_worst
     rec2["conv_nodes_vs_cpu"] = node_rel
@@ -6316,7 +6593,12 @@ def _load_tf_train_vgg(torch, kernels, smi, root):
           f"{rec2['device_gap_vs_autograds_worst']} off the CPU's by "
           f"{rec2['device_gap_vs_autograds']} of its largest magnitude more "
           "than it moves autograd's")
-    del got, want, base, moved, auto_card, auto_cpu, auto_lib
+    check(held["grad_worst_vs_bar"] <= 1.0,
+          f"load_tf_train: given the card's {differing} differing "
+          f"decisions, the CPU's gradient of {held['grad_bar_worst']} is "
+          f"still {held['grad_worst_vs_bar']} times train_cnn's bar off the "
+          "card's")
+    del got, want, base, moved, auto_card, auto_cpu, auto_lib, replayed
     # batch 32 on the card
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -7276,6 +7558,7 @@ def phase_slice_supervisor(torch, smi):
 
 
 TIER_PROMPT = 512        # four distinct prompts of 32 full pages each
+TIER_LAYERS = 4          # GPT-2 small's blocks the host tier runs
 TIER_POOL = 96           # pages of 16: 2.67 streams of 36 pages
 TIER_ORDER = [0, 1, 2, 3, 0, 1]
 
@@ -7298,8 +7581,8 @@ def _tier_run(torch, engine, prompts):
 
 
 def _tier_rates(torch, engine):
-    """Demote and promote MB/s of 32 pages (37.7 MB at GPT-2 small's
-    float32 page) through the engine's pinned staging ring, timed around
+    """Demote and promote MB/s of 32 pages (12.6 MB at TIER_LAYERS' float32
+    page; 37.7 MB at all 12 blocks) through the engine's pinned staging ring, timed around
     a synchronised card, after the engine's loop stopped: the page slice
     and read back (``_page_buffer`` + ``PinnedStaging.download``), then
     the upload and scatter (``_dispatch_load``)."""
@@ -7325,8 +7608,8 @@ def _tier_rates(torch, engine):
 
 
 def phase_slice_host_tier(torch, kernels, smi):
-    """The host tier at GPT-2 small (see module docstring): float32 and
-    int8 pools, and tp 2 on the one card."""
+    """The host tier at GPT-2 small's widths, TIER_LAYERS deep (see module
+    docstring): float32 and int8 pools, and tp 2 on the one card."""
     import numpy as np
     from bigdl_tpu_torch import convert
     from bigdl_tpu_torch.models.gpt import gpt2_small
@@ -7337,7 +7620,8 @@ def phase_slice_host_tier(torch, kernels, smi):
     params = None
     for name, kw in (("float32", {}), ("int8", {"int8_kv": True}),
                      ("tp2", {"mesh": TP_MESH})):
-        model = gpt2_small(device="cpu" if "mesh" in kw else "cuda")
+        model = gpt2_small(n_layers=TIER_LAYERS,
+                           device="cpu" if "mesh" in kw else "cuda")
         if params is None:
             params = convert.init_params(model, seed=0)
         model.load_state_dict(params)
@@ -7385,7 +7669,7 @@ def phase_slice_host_tier(torch, kernels, smi):
               f"{met['prefix_miss_tokens']} on, {promoted} promoted")
         check(met2["host_tier_corrupt_dropped"] >= 1,
               f"slice_host_tier {name}: no corrupt page dropped")
-        n_layers = 12
+        n_layers = TIER_LAYERS
         dispatches = ((stats["prefill_chunks"] - stats0["prefill_chunks"])
                       + (stats["steps"] - stats0["steps"]))
         key = "paged_attention_int8" if "int8_kv" in kw else "paged_attention"
@@ -11046,6 +11330,733 @@ def phase_detect(torch, kernels, smi):
           "rpn_train": rpn, "criteria": crits, "card": smi})
 
 
+# ------------------------------------------------- pipeline_moe (6m)
+PIPE_STAGES = 4               # GPT-2 small's 12 blocks, 3 a stage
+PIPE_DEVICES = ["cuda:0"] * PIPE_STAGES
+PIPE_MICRO = 8                # microbatches of 1 x 1024
+PIPE_SEQ = 1024
+PIPE_STEPS = 3                # timed steps after the first
+PIPE_LR = 0.01
+PIPE_LOSS_REL = 1e-4          # first loss vs the sequential step's
+PIPE_GRAD_REL = 1e-3          # x the stage's largest sequential gradient
+PIPE_SEED = 26
+# Switch-Base-8's expert layer (Fedus et al., 2021): d 768, d_ff 3072, 8
+# experts, capacity factor 1.25, top-1; and GShard's top-2
+SWITCH = dict(hidden_size=768, ffn_size=3072, n_experts=8,
+              capacity_factor=1.25)
+MOE_TOKENS = (8, 512)
+MOE_KS = (1, 2)
+MOE_AUX = 1e-2                # the objective sum(y^2) + MOE_AUX * aux
+MOE_GAP = 1e-6                # a choice whose CPU gate gap is below this
+MOE_OUT_REL = 1e-5            # x max|CPU|, tokens routed alike
+MOE_AUX_REL = 1e-5
+MOE_GRAD_REL = 1e-4           # x max|CPU given the card's routing|
+MOE_EP_MESH = ["cuda:0"] * 4  # expert-parallel: 2 experts a shard
+MOE_EP_FACTOR = 8.0
+MOE_EP_TOL = dict(rtol=2e-4, atol=1e-5)   # tests/test_pipeline_moe.py
+MOE_STEPS = 3
+MOE_LR = 0.1
+
+
+class _tf32_off:
+    """float32 products in float32 (cuBLAS and cuDNN) inside the block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = self.saved
+
+
+def _gpt_stage_tree(np, stages, per, seed):
+    """Seeded GPT-2-small blocks in the reference's layout
+    (``convert._init_blocks``): the stacked tree of a ``per``-block stage
+    (leading axis ``stages``) and the list of all the blocks."""
+    from bigdl_tpu_torch import convert
+    blocks = convert._init_blocks(np.random.default_rng(seed), stages * per,
+                                  768, 3072)
+
+    def stack(*leaves):
+        return np.stack(leaves)
+
+    def zip_trees(ts):
+        if isinstance(ts[0], dict):
+            return {k: zip_trees([t[k] for t in ts]) for k in ts[0]}
+        return stack(*ts)
+
+    stacked = [zip_trees([blocks[s * per + j] for s in range(stages)])
+               for j in range(per)]
+    return stacked, blocks
+
+
+def _pipeline_gpt(torch, kernels, smi):
+    """GPT-2 small's 12 blocks as a 4-stage GPipe pipeline against the
+    sequential step (module docstring, 6m)."""
+    import numpy as np
+    from bigdl_tpu_torch import convert, nn
+    from bigdl_tpu_torch.models.gpt import TransformerDecoderBlock
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import make_pipeline_train_step
+
+    class Recording(SGD):
+        """SGD that keeps each update's gradients while ``seen`` is a
+        list."""
+        seen = None
+
+        def update(self, grads, opt_state, params):
+            if Recording.seen is not None:
+                Recording.seen.append({k: g.detach().float().cpu()
+                                       for k, g in grads.items()})
+            return super().update(grads, opt_state, params)
+
+    per = 12 // PIPE_STAGES
+    t0 = time.perf_counter()
+    stacked, blocks = _gpt_stage_tree(np, PIPE_STAGES, per, PIPE_SEED)
+    stage = nn.Sequential(*[TransformerDecoderBlock(768, 12, device="cuda")
+                            for _ in range(per)])
+    stacked_t = convert.pipeline_params_from_jax(stage, stacked)
+    seq = nn.Sequential(*[TransformerDecoderBlock(768, 12, device="cuda")
+                          for _ in range(12)])
+    seq.load_state_dict(convert.module_params_from_jax(seq, blocks))
+    g = torch.Generator(device="cuda").manual_seed(PIPE_SEED)
+    xs = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, 768), generator=g,
+                     device="cuda")
+    ys = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, 768), generator=g,
+                     device="cuda")
+    crit = nn.MSECriterion()
+    opt = Recording(learningrate=PIPE_LR)
+    step, params, opt_state = make_pipeline_train_step(
+        stage, crit, opt, PIPE_DEVICES, n_micro=PIPE_MICRO)(stacked_t)
+    setup_s = time.perf_counter() - t0
+    # the sequential step: the same 12 blocks over the whole batch, one
+    # criterion call, the same SGD
+    x_all = xs.reshape(PIPE_MICRO, PIPE_SEQ, 768)
+    y_all = ys.reshape(PIPE_MICRO, PIPE_SEQ, 768)
+    seq_params = dict(seq.named_parameters())
+    seq_state = opt.init_state(seq_params)
+    _reset_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_seq = crit(seq(x_all), y_all)
+    grads_seq = torch.autograd.grad(loss_seq, list(seq_params.values()))
+    loss_seq = float(loss_seq.detach())
+    SGD(learningrate=PIPE_LR).update(dict(zip(seq_params, grads_seq)),
+                                     seq_state, seq_params)
+    torch.cuda.synchronize()
+    seq_first_s = time.perf_counter() - t0
+    seq_counts = _flash_counts()
+    for name, n in seq_counts.items():
+        check(n == {"cuda_cores": 12, "tensor_cores": 0},
+              f"pipeline_moe: the sequential step launched {name} {n}")
+    grads_seq = [gr.float().cpu() for gr in grads_seq]
+    # the pipelined steps: the first against the sequential step
+    Recording.seen = []
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    _, _, loss = step(params, opt_state, xs, ys)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_counts = _flash_counts()
+    seen, Recording.seen = Recording.seen, None
+    losses = [float(loss)]
+    loss_rel = abs(losses[0] - loss_seq) / abs(loss_seq)
+    check(loss_rel <= PIPE_LOSS_REL,
+          f"pipeline_moe: the pipeline's first loss {losses[0]} is "
+          f"{loss_rel} off the sequential step's {loss_seq}")
+    names = [n for n, _ in seq.named_parameters()]
+    stage_rel = []
+    for s in range(PIPE_STAGES):
+        got = seen[s]
+        diff = top = 0.0
+        for k, gp in got.items():
+            j, rest = k.split(".", 1)
+            want = grads_seq[names.index(f"{s * per + int(j)}.{rest}")]
+            diff = max(diff, float((gp - want).abs().max()))
+            top = max(top, float(want.abs().max()))
+        stage_rel.append(diff / top)
+    check(max(stage_rel) <= PIPE_GRAD_REL,
+          f"pipeline_moe: stage gradients off the sequential step's by "
+          f"{stage_rel} of their largest magnitude")
+    for name, n in first_counts.items():
+        want = {"cuda_cores": 12 * PIPE_MICRO, "tensor_cores": 0}
+        check(n == want, f"pipeline_moe: a pipelined step launched {name} "
+                         f"{n}, not {want}")
+    # the steady steps, timed
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_STEPS):
+        _, _, loss = step(params, opt_state, xs, ys)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / PIPE_STEPS
+    steady = _flash_counts()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"pipeline_moe: pipeline losses {losses}")
+    for name, n in steady.items():
+        check(n["cuda_cores"] == 12 * PIPE_MICRO * PIPE_STEPS
+              and n["tensor_cores"] == 0,
+              f"pipeline_moe: {PIPE_STEPS} steps launched {name} {n}")
+    # the sequential step's steady time on its own weights
+    t0 = time.perf_counter()
+    for _ in range(PIPE_STEPS):
+        loss_s = crit(seq(x_all), y_all)
+        gs = torch.autograd.grad(loss_s, list(seq_params.values()))
+        SGD(learningrate=PIPE_LR).update(dict(zip(seq_params, gs)),
+                                         seq_state, seq_params)
+    torch.cuda.synchronize()
+    seq_step_s = (time.perf_counter() - t0) / PIPE_STEPS
+    profile = _profile(torch, lambda: step(params, opt_state, xs, ys),
+                       groups={"flash CUDA-core kernels": (
+                           "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                           "flash_bwd_dkv_kernel")})
+    tokens = PIPE_MICRO * PIPE_SEQ
+    for name, n in first_counts.items():
+        kernels[name].setdefault("launches_by_phase", {})[
+            "pipeline_moe"] = {"pipelined_step": n["cuda_cores"],
+                               "sequential_step": seq_counts[name][
+                                   "cuda_cores"]}
+    del params, opt_state, seq, seq_state, xs, ys, x_all, y_all
+    torch.cuda.empty_cache()
+    line = {"stages": PIPE_STAGES, "blocks_per_stage": per,
+            "microbatches": PIPE_MICRO, "micro_batch": [1, PIPE_SEQ],
+            "devices": PIPE_DEVICES, "dtype": "float32", "tf32": False,
+            "optimizer": f"SGD({PIPE_LR})", "losses": losses,
+            "sequential_first_loss": loss_seq,
+            "first_loss_rel_vs_sequential": loss_rel,
+            "stage_grad_rel_vs_sequential": stage_rel,
+            "flash_launches_pipelined_step": first_counts,
+            "flash_launches_sequential_step": seq_counts,
+            "first_step_s": first_s, "sequential_first_step_s": seq_first_s,
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "sequential_step_s": seq_step_s,
+            "sequential_tokens_per_s": tokens / seq_step_s,
+            "setup_s": setup_s,
+            "device_busy_share": profile.get("device_busy_share",
+                                             "not measured"),
+            "profile": profile}
+    return line
+
+
+def _moe_routing(torch, probs_c, dec_c, probs, dec):
+    """Card against CPU routing: per choice, the tokens whose expert or
+    kept state differs, each excused where the CPU's gap between its two
+    largest remaining gate probabilities is below MOE_GAP; returns
+    (differing, excused, the (N,) mask of tokens routed alike)."""
+    alike = torch.ones(probs.shape[0], dtype=torch.bool)
+    remaining = probs.clone()
+    differing = excused = 0
+    for (ic, _, kc), (i, _, k) in zip(dec_c, dec):
+        ic, kc = ic.cpu(), kc.cpu()
+        top2 = remaining.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        bad = (ic != i) | (kc != k)
+        differing += int(bad.sum())
+        excused += int((bad & (gap < MOE_GAP)).sum())
+        alike &= ~bad
+        remaining = remaining.scatter(1, i[:, None], 0.0)
+    return differing, excused, alike
+
+
+def _moe_grads(torch, m, x, decisions=None):
+    """``(y, aux, {wg, w1, w2 gradients})`` of ``sum(y^2) + MOE_AUX * aux``
+    on ``m``'s device."""
+    y = m(x, decisions=decisions)
+    aux = m.state["aux_loss"]
+    loss = (y ** 2).sum() + MOE_AUX * aux
+    gs = torch.autograd.grad(loss, [m.wg, m.w1, m.w2])
+    return y.detach(), aux.detach(), dict(zip(("wg", "w1", "w2"), gs))
+
+
+def _moe_switch(torch, smi):
+    """Switch-Base-8's expert layer on the card against the port's CPU
+    run, expert-parallel against dense, and 3 SGD steps (module
+    docstring, 6m)."""
+    import copy
+
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD
+    b, t = MOE_TOKENS
+    d = SWITCH["hidden_size"]
+    x = torch.from_numpy(np.random.default_rng(PIPE_SEED + 1)
+                         .standard_normal((b, t, d)).astype(np.float32))
+    xc = x.cuda()
+    out = {}
+    for k in MOE_KS:
+        cpu = nn.MoE(**SWITCH, k=k, device="cpu").reset(PIPE_SEED + k)
+        card = copy.deepcopy(cpu).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_c, aux_c, g_c = _moe_grads(torch, card, xc)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ms = time_ms(torch, lambda: _moe_grads(torch, card, xc), 5, warm=1)
+        with torch.no_grad():
+            probs_c, dec_c = card.route(xc.reshape(-1, d))
+            probs, dec = cpu.route(x.reshape(-1, d))
+        differing, excused, alike = _moe_routing(torch, probs_c, dec_c,
+                                                 probs, dec)
+        check(differing == excused,
+              f"pipeline_moe: MoE k={k}: {differing} routing choices "
+              f"differ from the CPU's, {excused} at a gate gap under "
+              f"{MOE_GAP}")
+        y, aux, _ = _moe_grads(torch, cpu, x)
+        rows = alike.reshape(b, t)
+        out_rel = float((y_c.cpu()[rows] - y[rows]).abs().max()) / max(
+            float(y.abs().max()), 1e-30)
+        aux_rel = abs(float(aux_c) - float(aux)) / abs(float(aux))
+        # the gradients against a CPU run given the card's routing
+        _, _, g_rep = _moe_grads(torch, cpu, x, [
+            tuple(v.cpu() for v in c) for c in dec_c])
+        grad_rel = {n: float((g_c[n].cpu() - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30)
+                    for n, g in g_rep.items()}
+        check(out_rel <= MOE_OUT_REL and aux_rel <= MOE_AUX_REL
+              and max(grad_rel.values()) <= MOE_GRAD_REL,
+              f"pipeline_moe: MoE k={k} card vs CPU: outputs {out_rel}, "
+              f"aux {aux_rel}, gradients {grad_rel}")
+        kept = sum(int(kp.sum()) for _, _, kp in dec_c)
+        dropped = 1.0 - kept / (k * b * t)
+        out[f"k{k}"] = {
+            "capacity": card.capacity(b * t), "first_fwd_bwd_s": first_s,
+            "ms_fwd_bwd": ms, "dropped_choice_share": dropped,
+            "dropped_token_share": float((torch.stack(
+                [kp for _, _, kp in dec_c]).sum(0) == 0).float().mean()),
+            "routing_differing": differing, "routing_excused": excused,
+            "out_rel_vs_cpu": out_rel, "aux": float(aux_c),
+            "aux_rel_vs_cpu": aux_rel,
+            "grad_rel_vs_cpu_with_card_routing": grad_rel}
+        # expert-parallel over MOE_EP_MESH against dense, nothing dropped
+        dense = nn.MoE(**{**SWITCH, "capacity_factor": MOE_EP_FACTOR}, k=k,
+                       device="cuda")
+        dense.load_state_dict(card.state_dict())
+        ep = nn.MoE(**{**SWITCH, "capacity_factor": MOE_EP_FACTOR}, k=k,
+                    expert_parallel=("expert", MOE_EP_MESH), device="cuda")
+        ep.load_state_dict(card.state_dict())
+        with torch.no_grad():
+            want = dense(xc).reshape(-1, d)
+            shards = list(xc.reshape(-1, d).chunk(len(MOE_EP_MESH)))
+            got = torch.cat(ep(shards))
+        ok = torch.allclose(got, want, **MOE_EP_TOL)
+        ep_err = float((got - want).abs().max())
+        check(ok, f"pipeline_moe: expert-parallel k={k} off dense by "
+                  f"{ep_err}")
+        out[f"k{k}"]["expert_parallel"] = {
+            "shards": len(MOE_EP_MESH), "capacity_factor": MOE_EP_FACTOR,
+            "max_abs_err_vs_dense": ep_err,
+            "ms_fwd": time_ms(torch, lambda: ep(shards), 3, warm=1),
+            "dense_ms_fwd": time_ms(torch, lambda: dense(xc), 3, warm=1)}
+        del dense, ep, cpu
+        if k == 1:
+            top1 = card
+        del card
+    # 3 SGD steps of the top-1 layer
+    card = top1
+    opt = SGD(learningrate=MOE_LR)
+    params = dict(card.named_parameters())
+    state = opt.init_state(params)
+    losses = []
+    for _ in range(MOE_STEPS):
+        y = card(xc)
+        loss = (y ** 2).mean() + MOE_AUX * card.state["aux_loss"]
+        gs = torch.autograd.grad(loss, list(params.values()))
+        opt.update(dict(zip(params, gs)), state, params)
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"pipeline_moe: MoE losses {losses}")
+    out["sgd_losses"] = losses
+    del card, top1
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline_moe(torch, kernels, smi):
+    """GPT-2 small as a GPipe pipeline and Switch-Base-8's MoE layer
+    (module docstring, 6m)."""
+    with _tf32_off(torch):
+        pipe = _pipeline_gpt(torch, kernels, smi)
+        moe = _moe_switch(torch, smi)
+    emit({"phase": "pipeline_moe", "gpt2_small_pipeline": pipe,
+          "switch_base_8": {**SWITCH, "tokens": list(MOE_TOKENS), **moe},
+          "card": smi})
+
+
+# --------------------------------------------------- layer_sweep (6n)
+XCEPTION = (8, 728, 19)       # Xception's middle flow: batch, channels, HW
+SWEEP_REL = 1e-5              # card vs CPU, x max|CPU|
+# a parameter's gradient, card vs CPU, x max|CPU|: a reduction over the
+# batch's rows or pixels (6,272 a weight of a 3x3 layer at 8 x 28²), in
+# another order on each device
+SWEEP_PARAM_REL = 1e-4
+SWEEP_SEED = 26
+SPARSE_BATCH = (1024, 100_000, 32, 128)   # rows, width, nonzeros, out
+
+
+def xception_middle_block(nn, c, device=None):
+    """One of Xception's middle-flow blocks (Chollet, 2017): 3 x [ReLU,
+    SpatialSeparableConvolution(c, c, 1, 3x3, pad 1)] with the residual
+    add."""
+    body = nn.Sequential()
+    for _ in range(3):
+        body.add(nn.ReLU())
+        body.add(nn.SpatialSeparableConvolution(c, c, 1, 3, 3, 1, 1, 1, 1,
+                                                device=device))
+    return nn.Sequential(nn.ConcatTable(body, nn.Identity()),
+                         nn.CAddTable())
+
+
+def _fwd_bwd(torch, m, xs, cot):
+    """``(outputs, gradients)`` of ``m`` on the tensors ``xs`` (one, or a
+    table) under cotangents ``cot``: the gradients of the floating inputs,
+    then of the parameters."""
+    ins = [v.detach().requires_grad_(v.is_floating_point()) for v in xs]
+    out = m(ins) if len(ins) > 1 else m(ins[0])
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    leaves = [v for v in ins if v.requires_grad] + list(m.parameters())
+    cots = [c.to(o.device) for c, o in zip(cot, outs)]
+    gs = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return ([o.detach().cpu() for o in outs],
+            [torch.zeros(()) if v is None else v.cpu() for v in gs])
+
+
+def _card_vs_cpu(torch, m_cpu, xs, seed):
+    """One module's forward and gradients on the card against the CPU,
+    same weights and inputs: the worst difference over the CPU's largest
+    magnitude of the outputs, of the inputs' gradients and of the
+    parameters' gradients."""
+    import copy
+    m_card = copy.deepcopy(m_cpu).cuda()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        probe = m_cpu(xs if len(xs) > 1 else xs[0])
+    probe = list(probe) if isinstance(probe, (list, tuple)) else [probe]
+    cot = [torch.randn(p.shape, generator=g) for p in probe]
+    out_c, gr_c = _fwd_bwd(torch, m_cpu, xs, cot)
+    out_g, gr_g = _fwd_bwd(torch, m_card, [v.cuda() for v in xs], cot)
+    rel = [_rel(a, b) for a, b in zip(gr_g, gr_c)]
+    n_in = sum(v.is_floating_point() for v in xs)
+    return (max(_rel(a, b) for a, b in zip(out_g, out_c)),
+            max(rel[:n_in] or [0.0]), max(rel[n_in:] or [0.0]))
+
+
+def _sweep_table(nn, np, rng):
+    """``name -> (module on the CPU, inputs)`` of every new class the
+    sweep holds card against CPU (module docstring, 6n)."""
+    def f(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    cpu = "cpu"
+    x2, x4 = (64, 256), (8, 16, 32, 32)
+    masked = f(16, 32, 64)
+    masked[::3, ::4] = 0.0
+    return {
+        "HardTanh": (nn.HardTanh(-0.5, 0.7), [f(*x2)]),
+        "HardSigmoid": (nn.HardSigmoid(), [f(*x2, scale=3.0)]),
+        "SoftMin": (nn.SoftMin(1), [f(*x2)]),
+        "LogSigmoid": (nn.LogSigmoid(), [f(*x2, scale=4.0)]),
+        "GELU": (nn.GELU(), [f(*x2, scale=2.0)]),
+        "Threshold": (nn.Threshold(0.1, -0.3), [f(*x2)]),
+        "RReLU": (nn.RReLU(0.1, 0.3).eval(), [f(*x2)]),
+        "SReLU": (nn.SReLU((256,), device=cpu).reset(1), [f(*x2,
+                                                             scale=2.0)]),
+        "HardShrink": (nn.HardShrink(0.3), [f(*x2)]),
+        "SoftShrink": (nn.SoftShrink(0.3), [f(*x2)]),
+        "TanhShrink": (nn.TanhShrink(), [f(*x2)]),
+        "Clamp": (nn.Clamp(-0.4, 0.6), [f(*x2)]),
+        "Transpose": (nn.Transpose([(1, 2), (0, 3)]), [f(*x4)]),
+        "Unsqueeze": (nn.Unsqueeze(1), [f(*x2)]),
+        "Index": (nn.Index(1), [f(64, 256, 4),
+                                rng.integers(0, 256, (3, 50))]),
+        "Replicate": (nn.Replicate(3, 1), [f(*x2)]),
+        "Reverse": (nn.Reverse(1), [f(*x2)]),
+        "Contiguous": (nn.Contiguous(), [f(*x2)]),
+        "Padding": (nn.Padding(1, -2, value=0.5), [f(*x2)]),
+        "SpatialDropout2D": (nn.SpatialDropout2D(0.4).eval(), [f(*x4)]),
+        "GaussianNoise": (nn.GaussianNoise(0.3).eval(), [f(*x2)]),
+        "GaussianDropout": (nn.GaussianDropout(0.3).eval(), [f(*x2)]),
+        "Max": (nn.Max(1), [f(*x4)]),
+        "Min": (nn.Min(-1), [f(*x4)]),
+        "Add": (nn.Add(256, device=cpu).reset(2), [f(*x2)]),
+        "Mul": (nn.Mul(device=cpu).reset(3), [f(*x2)]),
+        "Masking": (nn.Masking(0.0), [masked]),
+        "Echo": (nn.Echo(), [f(*x2)]),
+        "ErrorInfo": (nn.ErrorInfo(), [f(*x2)]),
+        "BifurcateSplitTable": (nn.BifurcateSplitTable(1), [f(64, 257)]),
+        "NarrowTable": (nn.NarrowTable(1, 2), [f(*x2) for _ in range(4)]),
+        "CrossProduct": (nn.CrossProduct(), [f(*x2) for _ in range(4)]),
+        "PairwiseDistance": (nn.PairwiseDistance(2), [f(*x2), f(*x2)]),
+        "GradientReversal": (nn.GradientReversal(0.7), [f(*x2)]),
+        "L1Penalty": (nn.L1Penalty(0.1, size_average=True), [f(*x2)]),
+        "ActivityRegularization": (nn.ActivityRegularization(0.1, 0.2),
+                                   [f(*x2)]),
+        "Cropping3D": (nn.Cropping3D((1, 0), (0, 2), (1, 1)),
+                       [f(4, 8, 8, 16, 16)]),
+        "UpSampling3D": (nn.UpSampling3D((1, 2, 3)), [f(4, 8, 4, 8, 8)]),
+        "SpatialDropout3D": (nn.SpatialDropout3D(0.3).eval(),
+                             [f(4, 8, 4, 8, 8)]),
+        "SpatialSubtractiveNormalization": (
+            nn.SpatialSubtractiveNormalization(16), [f(*x4)]),
+        "SpatialDivisiveNormalization": (
+            nn.SpatialDivisiveNormalization(16), [f(*x4)]),
+        "SpatialContrastiveNormalization": (
+            nn.SpatialContrastiveNormalization(16),
+            [np.abs(f(*x4)) + 1.0]),
+        "LeakyReLU": (nn.LeakyReLU(0.1), [f(*x2)]),
+        "Cropping2D": (nn.Cropping2D((1, 2), (2, 1)), [f(*x4)]),
+        "UpSampling1D": (nn.UpSampling1D(3), [f(16, 32, 64)]),
+        "UpSampling2D": (nn.UpSampling2D((2, 3)), [f(*x4)]),
+        "SpatialDropout1D": (nn.SpatialDropout1D(0.5).eval(),
+                             [f(16, 32, 64)]),
+    }
+
+
+def _random_on_card(torch, np, nn):
+    """Each random layer in training mode on the card: the same generator
+    seed gives the same draws, another seed others, and the draws have the
+    distribution's moments (the share of dropped channels, the noise's
+    mean and deviation, the slopes' mean), each within five standard
+    errors; returns the moments read."""
+    out = {}
+    table = {"RReLU": (nn.RReLU(0.1, 0.3), (512, 512)),
+             "SpatialDropout2D": (nn.SpatialDropout2D(0.3), (64, 512, 2, 2)),
+             "SpatialDropout3D": (nn.SpatialDropout3D(0.3),
+                                  (64, 512, 2, 2, 2)),
+             "SpatialDropout1D": (nn.SpatialDropout1D(0.5), (64, 4, 512)),
+             "GaussianNoise": (nn.GaussianNoise(0.3), (512, 512)),
+             "GaussianDropout": (nn.GaussianDropout(0.2), (512, 512)),
+             "GaussianSampler": (nn.GaussianSampler(), (512, 512))}
+    for name, (m, shape) in table.items():
+        m.train()
+        g = torch.Generator(device="cuda")
+        x = torch.randn(shape, generator=g.manual_seed(9), device="cuda")
+        ins = [x, torch.rand(shape, generator=g, device="cuda") - 1.5] \
+            if name == "GaussianSampler" else [x]
+        arg = ins if len(ins) > 1 else ins[0]
+        y = m(arg, generator=g.manual_seed(1))
+        again = m(arg, generator=g.manual_seed(1))
+        other = m(arg, generator=g.manual_seed(2))
+        check(torch.equal(y, again) and not torch.equal(y, other),
+              f"layer_sweep: {name}'s draws do not follow its seed")
+        xs, ys = x.double().cpu(), y.double().cpu()
+        if name == "RReLU":
+            a = (ys / xs)[xs < 0]
+            stat = {"slope_mean": float(a.mean())}
+            bar = 5 * 0.2 / 12 ** 0.5 / a.numel() ** 0.5
+            ok = (abs(stat["slope_mean"] - 0.2) <= bar
+                  and float(a.min()) >= 0.1 and float(a.max()) < 0.3)
+        elif name.startswith("SpatialDropout"):
+            p = m.p
+            axes = {"SpatialDropout2D": (2, 3), "SpatialDropout3D": (2, 3, 4),
+                    "SpatialDropout1D": (1,)}[name]
+            kept = ys.abs().sum(dim=axes) > 0
+            share = 1.0 - float(kept.double().mean())
+            bar = 5 * (p * (1 - p) / kept.numel()) ** 0.5
+            k = kept
+            for ax in axes:
+                k = k.unsqueeze(ax)
+            k = k.expand(ys.shape)
+            scaled = float((ys[k] - xs[k] / (1 - p)).abs().max())
+            stat = {"dropped_share": share, "kept_scale_err": scaled}
+            ok = abs(share - p) <= bar and scaled <= 1e-6 \
+                and bool((ys[~k] == 0).all())
+        else:
+            if name == "GaussianSampler":
+                r, std = (ys - xs) / torch.exp(0.5 * ins[1].double().cpu()), 1
+            elif name == "GaussianNoise":
+                r, std = ys - xs, 0.3
+            else:
+                r, std = ys / xs - 1, (0.2 / 0.8) ** 0.5
+            stat = {"mean": float(r.mean()), "std": float(r.std())}
+            bar = 5 * std / r.numel() ** 0.5
+            ok = abs(stat["mean"]) <= bar and abs(stat["std"] - std) <= bar
+        check(ok, f"layer_sweep: {name} in training mode: {stat}")
+        out[name] = stat
+    return out
+
+
+def _xception(torch, kernels, smi):
+    """Xception's middle-flow block on the card against the port's CPU
+    run, on rows 8-9 by conv_routes, beside F.conv2d(groups=728)."""
+    import copy
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import conv_routes
+    b, c, hw = XCEPTION
+    block = xception_middle_block(nn, c, device="cpu").reset(SWEEP_SEED)
+    card = copy.deepcopy(block).cuda()
+    g = torch.Generator().manual_seed(SWEEP_SEED)
+    x = torch.randn((b, c, hw, hw), generator=g).contiguous(
+        memory_format=torch.channels_last)
+    cot = torch.randn((b, c, hw, hw), generator=g)
+    routes = conv_routes(card, (hw, hw), torch.float32, input_grad=True)
+    xc = x.cuda()
+    _reset_conv_counts()
+    (y_g,), grads_g = _fwd_bwd(torch, card, [xc], [cot])
+    torch.cuda.synchronize()
+    counts = _conv_counts()
+    _check_routes("layer_sweep xception", counts, routes, 1)
+    check("3x3/s1" not in counts["library"],
+          f"layer_sweep: a SAME 3x3 reached F.conv2d: {counts['library']}")
+    t0 = time.perf_counter()
+    (y_c,), grads_c = _fwd_bwd(torch, block, [x], [cot])
+    cpu_s = time.perf_counter() - t0
+    out_rel = _rel(y_g, y_c)
+    names = ["input"] + [n for n, _ in block.named_parameters()]
+    got, want = dict(zip(names, grads_g)), dict(zip(names, grads_c))
+    moved = [dict(zip(names, _fwd_bwd(torch, block, [_perturbed(torch, x,
+                                                                 s)],
+                                      [cot])[1])) for s in (0, 1)]
+    rec = _grad_bar(got, want, _noise(want, moved))
+    check(out_rel <= SWEEP_REL and rec["grad_worst_vs_bar"] <= 1.0,
+          f"layer_sweep: Xception's block on the card is off the CPU's by "
+          f"{out_rel} (outputs) and {rec['grad_worst_vs_bar']} x "
+          f"train_cnn's bar ({rec['grad_bar_worst']})")
+
+    def step():
+        return _fwd_bwd(torch, card, [xc], [cot])
+
+    ms = time_ms(torch, step, 3, warm=1)
+    with _library_3x3():
+        lib_ms = time_ms(torch, step, 3, warm=1)
+    for kind in ("k9", "i2c"):
+        kernels[f"conv3x3_{kind}"].setdefault("launches_by_phase", {})[
+            "layer_sweep"] = counts[f"{kind}_cuda_core"]
+    del card, block
+    return {"batch": b, "channels": c, "hw": hw, "dtype": "float32",
+            "conv_routes": routes, "launches": counts,
+            "out_rel_vs_cpu": out_rel, "grads_vs_cpu": {
+                k: rec[k] for k in ("grad_worst_rel", "grad_worst",
+                                    "grad_worst_vs_bar", "grad_bar_worst",
+                                    "grads_on_noise_floor")},
+            "cpu_fwd_bwd_s": cpu_s, "ms_fwd_bwd": ms,
+            "ms_fwd_bwd_with_f_conv2d_depthwise": lib_ms, "card": smi}
+
+
+def _share_and_map(torch):
+    """SpatialShareConvolution and SpatialConvolutionMap at a 3x3 SAME
+    shape on rows 8-9 (the routes' launches), card against CPU."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    rng = np.random.default_rng(SWEEP_SEED)
+    table = np.array([(i, o) for i in range(32) for o in range(32)
+                      if rng.random() < 0.5])
+    out = {}
+    for name, m, shape in (
+            ("SpatialShareConvolution",
+             nn.SpatialShareConvolution(64, 64, 3, 3, 1, 1, 1, 1,
+                                        device="cpu"), (8, 64, 28, 28)),
+            ("SpatialConvolutionMap",
+             nn.SpatialConvolutionMap(table, 3, 3, 1, 1, 1, 1,
+                                      device="cpu"), (8, 32, 28, 28))):
+        m.reset(SWEEP_SEED)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        _reset_conv_counts()
+        rel = _card_vs_cpu(torch, m, [x], SWEEP_SEED)
+        counts = _conv_counts()
+        kind = "i2c" if shape[1] <= 64 else "k9"
+        check(counts[f"{kind}_cuda_core"] == 2 and
+              "3x3/s1" not in counts["library"],
+              f"layer_sweep: {name} launched {counts}")
+        check(max(rel[:2]) <= SWEEP_REL and rel[2] <= SWEEP_PARAM_REL,
+              f"layer_sweep: {name} card vs CPU {rel} (output, input and "
+              f"parameter gradients)")
+        out[name] = {"shape": list(shape), "launches": counts,
+                     "out_rel_vs_cpu": rel[0],
+                     "input_grad_rel_vs_cpu": rel[1],
+                     "param_grad_rel_vs_cpu": rel[2]}
+    out["SpatialConvolutionMap"]["connections"] = len(table)
+    return out
+
+
+def _sparse_linear(torch):
+    """SparseLinear on a seeded COO batch (SPARSE_BATCH), forward and the
+    values' and parameters' gradients, card against CPU."""
+    import copy
+
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    n, width, per_row, d_out = SPARSE_BATCH
+    rng = np.random.default_rng(SWEEP_SEED)
+    cols = np.stack([rng.choice(width, per_row, replace=False)
+                     for _ in range(n)]).reshape(-1)
+    idx = torch.from_numpy(np.stack([np.repeat(np.arange(n), per_row),
+                                     cols], 1).astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal(n * per_row)
+                            .astype(np.float32))
+    m = nn.SparseLinear(width, d_out, device="cpu").reset(SWEEP_SEED)
+    with torch.no_grad():
+        m.bias.normal_(generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(m).cuda()
+    cot = torch.randn((n, d_out), generator=torch.Generator().manual_seed(4))
+    res = []
+    for mod, dev in ((m, "cpu"), (card, "cuda")):
+        v = vals.to(dev).requires_grad_()
+        y = mod(nn.SparseTensor(idx.to(dev), v, (n, width)))
+        gs = torch.autograd.grad(y, [v, mod.weight, mod.bias], cot.to(dev))
+        res.append([y.detach().cpu()] + [gr.cpu() for gr in gs])
+    rel = [_rel(a, b) for a, b in zip(res[1], res[0])]
+    check(max(rel[:2]) <= SWEEP_REL and max(rel[2:]) <= SWEEP_PARAM_REL,
+          f"layer_sweep: SparseLinear card vs CPU {rel} (output, values, "
+          f"weight, bias)")
+    ms = time_ms(torch, lambda: card(nn.SparseTensor(
+        idx.cuda(), vals.cuda(), (n, width))), 5, warm=1)
+    return {"rows": n, "width": width, "nonzeros_a_row": per_row,
+            "out": d_out, "rel_vs_cpu": dict(zip(
+                ("output", "values_grad", "weight_grad", "bias_grad"), rel)),
+            "ms_fwd": ms}
+
+
+def phase_layer_sweep(torch, kernels, smi):
+    """Xception's block, the share and map convolutions, SparseLinear and
+    every other new layer on the card (module docstring, 6n)."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    with _tf32_off(torch):
+        xcep = _xception(torch, kernels, smi)
+        torch.cuda.empty_cache()
+        convs = _share_and_map(torch)
+        sparse = _sparse_linear(torch)
+        rng = np.random.default_rng(SWEEP_SEED)
+        worst = {}
+        for name, (m, xs) in _sweep_table(nn, np, rng).items():
+            ts = [torch.from_numpy(a) for a in xs]
+            rel = _card_vs_cpu(torch, m, ts, SWEEP_SEED)
+            check(max(rel[:2]) <= SWEEP_REL and rel[2] <= SWEEP_PARAM_REL,
+                  f"layer_sweep: {name} card vs CPU {rel} (output, input "
+                  f"and parameter gradients)")
+            worst[name] = rel
+        # the host-side layers: the same selection on both devices
+        x = torch.from_numpy(rng.standard_normal((64, 256))
+                             .astype(np.float32))
+        mask = torch.from_numpy(rng.random((64, 256)) < 0.3)
+        sel = nn.MaskedSelect()([x.cuda(), mask.cuda()])
+        check(sel.is_cuda and torch.equal(sel.cpu(), x[mask]),
+              "layer_sweep: MaskedSelect differs from the CPU's")
+        dense = torch.where(mask, x, torch.zeros(()))
+        sp_g, sp_c = nn.DenseToSparse()(dense.cuda()), \
+            nn.DenseToSparse()(dense)
+        joined = nn.SparseJoinTable(1)([sp_g, sp_g])
+        check(torch.equal(sp_g.indices.cpu(), sp_c.indices)
+              and torch.equal(sp_g.values.cpu(), sp_c.values)
+              and joined.dense_shape == (64, 512)
+              and torch.equal(joined.to_dense().cpu(),
+                              torch.cat([dense, dense], 1)),
+              "layer_sweep: DenseToSparse / SparseJoinTable differ from the "
+              "CPU's")
+        moments = _random_on_card(torch, np, nn)
+    emit({"phase": "layer_sweep", "xception_middle_block": xcep,
+          "conv_3x3": convs, "sparse_linear": sparse,
+          "layers_out_input_param_grad_rel_vs_cpu": worst,
+          "layers_held": len(worst) + 3, "random_training_moments": moments,
+          "card": smi})
+
+
 def main():
     import torch
     if "--sticky-child" in sys.argv:
@@ -11112,6 +12123,8 @@ def main():
     run("infer_int8", phase_infer_int8, torch, kernels, smi)
     run("train_rnn", phase_train_rnn, torch, kernels, smi)
     run("detect", phase_detect, torch, kernels, smi)
+    run("pipeline_moe", phase_pipeline_moe, torch, kernels, smi)
+    run("layer_sweep", phase_layer_sweep, torch, kernels, smi)
     run("load_native", phase_load_native, torch, kernels, smi, f32_line,
         sharded_losses)
     loss32 = run("train", phase_train, torch, kernels, smi)

@@ -2,7 +2,7 @@
 layer table covers each class of the port's ``nn``, ``ops``, ``models``
 and TF loader modules, each name it writes is a class of the reference,
 and a module of each class saved by the port loads back in the port with
-the same type, attributes, children and weights (``CASES``); 25 classes
+the same type, attributes, children and weights (``CASES``); 43 classes
 and the tree-LSTM sentiment model forward alike through both packages'
 loads. Trained models (BERT, a TF-imported BERT graph, a convolutional
 LSTM) checkpoint through ``DistriOptimizer`` and resume through its
@@ -70,6 +70,16 @@ CASES = {
     "PReLU": lambda: nn.PReLU(3, device=CPU),
     "Power": lambda: nn.Power(2.0, 0.5, 1.0),
     "Maxout": lambda: nn.Maxout(4, 3, 2, device=CPU),
+    **{c: (lambda c=c: getattr(nn, c)()) for c in (
+        "HardSigmoid", "LogSigmoid", "GELU", "TanhShrink")},
+    "HardTanh": lambda: nn.HardTanh(-2.0, 3.0),
+    "SoftMin": lambda: nn.SoftMin(1),
+    "Threshold": lambda: nn.Threshold(0.1, 2.0),
+    "RReLU": lambda: nn.RReLU(0.1, 0.4),
+    "SReLU": lambda: nn.SReLU((3,), device=CPU),
+    "HardShrink": lambda: nn.HardShrink(0.3),
+    "SoftShrink": lambda: nn.SoftShrink(0.2),
+    "Clamp": lambda: nn.Clamp(-0.5, 0.5),
     # nn.basic
     "AddConstant": lambda: nn.AddConstant(1.5),
     "MulConstant": lambda: nn.MulConstant(0.5),
@@ -87,6 +97,23 @@ CASES = {
     "Tile": lambda: nn.Tile(1, 3),
     "View": lambda: nn.View(2, 3),
     "Input": lambda: nn.Input().module,
+    "Transpose": lambda: nn.Transpose([(1, 2), (0, 1)]),
+    "Unsqueeze": lambda: nn.Unsqueeze(2),
+    "Index": lambda: nn.Index(1),
+    "Replicate": lambda: nn.Replicate(3, 1),
+    "Reverse": lambda: nn.Reverse(1),
+    "Contiguous": lambda: nn.Contiguous(),
+    "Padding": lambda: nn.Padding(1, -2, value=1.5),
+    "SpatialDropout2D": lambda: nn.SpatialDropout2D(0.3, "NHWC"),
+    "GaussianNoise": lambda: nn.GaussianNoise(0.2),
+    "GaussianDropout": lambda: nn.GaussianDropout(0.3),
+    "Max": lambda: nn.Max(1),
+    "Min": lambda: nn.Min(-1),
+    "Add": lambda: nn.Add(3, device=CPU),
+    "Mul": lambda: nn.Mul(device=CPU),
+    "Masking": lambda: nn.Masking(0.5),
+    "Echo": lambda: nn.Echo(),
+    "ErrorInfo": lambda: nn.ErrorInfo(),
     # nn.containers
     "Sequential": lambda: nn.Sequential(nn.Linear(4, 3, device=CPU),
                                         nn.ReLU()),
@@ -109,6 +136,10 @@ CASES = {
         2, 3, 2, 2, 2, device=CPU),
     "TemporalConvolution": lambda: nn.TemporalConvolution(4, 3, 2,
                                                           device=CPU),
+    "SpatialShareConvolution": lambda: nn.SpatialShareConvolution(
+        3, 4, 3, 3, with_bias=False, device=CPU),
+    "SpatialSeparableConvolution": lambda: nn.SpatialSeparableConvolution(
+        3, 4, 2, 3, 3, 1, 1, 1, 1, has_bias=False, device=CPU),
     # nn.criterion
     "ClassNLLCriterion": lambda: nn.ClassNLLCriterion(
         torch.tensor([1.0, 2.0, 0.5]), padding_value=-1),
@@ -185,6 +216,34 @@ CASES = {
     "BinaryThreshold": lambda: nn.BinaryThreshold(0.25),
     "Highway": lambda: nn.Highway(4, device=CPU),
     "InferReshape": lambda: nn.InferReshape((-1, 2)),
+    "BifurcateSplitTable": lambda: nn.BifurcateSplitTable(1),
+    "NarrowTable": lambda: nn.NarrowTable(1, 2),
+    "CrossProduct": lambda: nn.CrossProduct(3),
+    "PairwiseDistance": lambda: nn.PairwiseDistance(1),
+    "GradientReversal": lambda: nn.GradientReversal(0.5),
+    "L1Penalty": lambda: nn.L1Penalty(0.1, size_average=True),
+    "ActivityRegularization": lambda: nn.ActivityRegularization(0.1, 0.2),
+    "GaussianSampler": lambda: nn.GaussianSampler(),
+    "Cropping3D": lambda: nn.Cropping3D((1, 0), (0, 1), (2, 1)),
+    "UpSampling3D": lambda: nn.UpSampling3D((1, 2, 3)),
+    "SpatialDropout3D": lambda: nn.SpatialDropout3D(0.2),
+    "SpatialSubtractiveNormalization": lambda: (
+        nn.SpatialSubtractiveNormalization(3)),
+    "SpatialDivisiveNormalization": lambda: nn.SpatialDivisiveNormalization(
+        2, np.ones((3, 3), np.float32), 1e-3, 2e-3),
+    "SpatialContrastiveNormalization": lambda: (
+        nn.SpatialContrastiveNormalization(2, None, 1e-3, 2e-3)),
+    "SpatialConvolutionMap": lambda: nn.SpatialConvolutionMap(
+        [[0, 0], [0, 1], [1, 1]], 3, 3, 1, 1, 1, 1, device=CPU),
+    "MaskedSelect": lambda: nn.MaskedSelect(),
+    "LeakyReLU": lambda: nn.LeakyReLU(0.2),
+    "Cropping2D": lambda: nn.Cropping2D((1, 2), (0, 1), "NHWC"),
+    "UpSampling1D": lambda: nn.UpSampling1D(3),
+    "UpSampling2D": lambda: nn.UpSampling2D((2, 3), "NHWC"),
+    "SpatialDropout1D": lambda: nn.SpatialDropout1D(0.4),
+    # nn.moe
+    "MoE": lambda: nn.MoE(4, 6, 4, k=1, capacity_factor=2.0,
+                          expert_parallel=("expert", 2), device=CPU),
     # nn.module
     "Module": lambda: nn.Module(),
     "Criterion": lambda: nn.Criterion(size_average=False),
@@ -252,6 +311,11 @@ CASES = {
         "CosineDistance")},
     "SelectTable": lambda: nn.SelectTable(2),
     "_ReduceTable": lambda: nn.table_ops._ReduceTable(),
+    # nn.sparse
+    "DenseToSparse": lambda: nn.DenseToSparse(),
+    "SparseLinear": lambda: nn.SparseLinear(5, 3, with_bias=False,
+                                            device=CPU),
+    "SparseJoinTable": lambda: nn.SparseJoinTable(0),
     # nn.tree_lstm
     "BinaryTreeLSTM": lambda: nn.BinaryTreeLSTM(3, 4, device=CPU),
     "TreeGather": lambda: nn.tree_lstm.TreeGather(),
@@ -577,6 +641,15 @@ SHAPES = {
     "LSTMPeephole": (2, 4, 3), "ConvLSTMPeephole": (2, 3, 2, 5, 5),
     "Cosine": (2, 4), "Euclidean": (2, 4), "Normalize": (2, 5),
     "NormalizeScale": (2, 3, 4, 4), "PriorBox": (1, 3, 4, 4),
+    "HardTanh": (2, 3), "SoftMin": (2, 3), "Threshold": (2, 3),
+    "SReLU": (2, 3), "Clamp": (2, 3), "Transpose": (2, 3, 4),
+    "Padding": (2, 3), "Add": (2, 3), "Mul": (2, 3), "Masking": (2, 3),
+    "LeakyReLU": (2, 3), "Cropping3D": (1, 2, 4, 3, 5),
+    "UpSampling2D": (1, 3, 2, 2),
+    "SpatialShareConvolution": (2, 3, 5, 5),
+    "SpatialSeparableConvolution": (2, 3, 5, 5),
+    "SpatialSubtractiveNormalization": (2, 3, 10, 10),
+    "SpatialContrastiveNormalization": (1, 2, 10, 10),
 }
 WRAPPED = {"LSTMPeephole", "ConvLSTMPeephole"}      # in a Recurrent
 

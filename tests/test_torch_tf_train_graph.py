@@ -287,3 +287,45 @@ def test_op_sweep_graph_matches_the_reference():
     split = conv_routes(tg, (5, 5), torch.float32)
     assert split == {"i2c": {"tc": 0, "simt": 8},
                      "k9": {"tc": 0, "simt": 1}, "library": 0}
+
+
+def test_decision_replay_of_the_chip_script(graphs):
+    """``chip_smoke._tf_decisions``, which gives the CPU run of the
+    training graph the card's ReLU and max-pool decisions: it records
+    every forward ReLU, ``ReluGrad``, max pool and ``MaxPoolGrad``; a run
+    replaying its own decisions gives the plain run's outputs bit for
+    bit; flipped ReLU decisions reach the forward node and its gradient
+    op alike, and are counted."""
+    d = graphs
+    outs = ["Mean", "xent/Reshape", "Reshape"] + d["grads"]
+    g = tload(d["files"]["examples"], ["serialized"], outs,
+              bin_dir=d["root"], sample_input=d["serialized"],
+              device="cpu")
+    with torch.no_grad():
+        with cs._tf_decisions(torch, g) as own:
+            plain = g(d["serialized"])
+        with cs._tf_decisions(torch, g, own) as again:
+            replayed = g(d["serialized"])
+    assert all(len(own[k]) for k in own), {k: len(v) for k, v in own.items()}
+    assert len(own["relu"]) == len(own["relu_grad"])
+    assert len(own["pool"]) == len(own["pool_grad"])
+    for a, b in zip(plain, replayed):
+        assert torch.equal(a, b)
+    assert cs._decisions_differing(own, again) == {
+        "relu": 0, "relu_grad": 0, "pool": 0, "pool_grad": 0}
+    # every positive decision of the first ReLU and its gradient op made
+    # negative: that layer's gradients vanish, and they are counted
+    first_relu = next(iter(own["relu"]))
+    first_grad = next(k for k in own["relu_grad"] if first_relu in k)
+    flipped = {k: dict(v) for k, v in own.items()}
+    flipped["relu"][first_relu] = torch.zeros_like(own["relu"][first_relu])
+    flipped["relu_grad"][first_grad] = torch.zeros_like(
+        own["relu_grad"][first_grad])
+    with torch.no_grad(), cs._tf_decisions(torch, g, flipped):
+        dead = g(d["serialized"])
+    n = int(own["relu"][first_relu].sum())
+    assert cs._decisions_differing(flipped, own)["relu"] == n > 0
+    names = d["grads"]
+    conv1 = [i for i, k in enumerate(names) if "conv1_1" in k]
+    assert conv1 and all(float(dead[3 + i].abs().max()) == 0.0
+                         for i in conv1)
